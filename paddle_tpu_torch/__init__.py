@@ -1,0 +1,20 @@
+"""paddle_tpu_torch — the PyTorch/CUDA port of paddle_tpu.
+
+The JAX package ``paddle_tpu`` is the reference; this package grows beside
+it, one slice at a time, with the same module paths (``paddle_tpu/<path>``
+maps to ``paddle_tpu_torch/<path>``). It imports ``torch`` and numpy and
+never ``jax`` or anything of ``paddle_tpu``.
+
+Every TPU kernel of a ported path is a hand-written Hopper kernel under
+``ops/_hopper/`` (CUDA C++ built by ``nvcc`` at first use), with its plain
+PyTorch version beside it. Entry points run on the GPU unless the caller
+asks for the CPU (``device="cpu"``), where the plain versions run.
+
+Ported so far: the serving path — ``serving.ServingEngine`` over
+``text.models.gpt.GPTForCausalLM``, whose prefill runs the flash-attention
+forward kernel (``ops/_hopper/csrc/flash_fwd.cu``).
+"""
+
+from .core.device import resolve_device  # noqa: F401
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,48 @@
+"""Carry weights from the JAX package's state_dict into the port's modules.
+
+The JAX layers keep Linear weights as ``[in, out]`` (Paddle's layout); the
+port's ``nn.Linear`` keeps ``[out, in]``. :func:`from_jax_state_dict`
+transposes every Linear weight and copies everything else (biases,
+embeddings, LayerNorm scales) as it is. Keys are the same on both sides,
+so ``model.load_state_dict(from_jax_state_dict(sd))`` (strict) proves that
+no key is dropped and none is left uninitialised.
+
+A transposed Linear keeps the JAX column order as row order: the fused
+``qkv_proj`` output ``(3, H, D)`` and the GQA ``kv_proj`` output
+``(2, KH, D)`` split the same way in both packages.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+__all__ = ["LINEAR_NAMES", "from_jax_state_dict"]
+
+#: attribute names of the Linear layers whose weights are transposed
+LINEAR_NAMES = frozenset({"qkv_proj", "q_proj", "kv_proj", "out_proj", "up",
+                          "down", "lm_head"})
+
+
+def _is_linear_weight(key: str) -> bool:
+    parts = key.split(".")
+    return (len(parts) >= 2 and parts[-1] == "weight"
+            and parts[-2] in LINEAR_NAMES)
+
+
+def from_jax_state_dict(np_dict: Mapping[str, np.ndarray]
+                        ) -> Dict[str, torch.Tensor]:
+    """JAX ``state_dict()`` as numpy arrays -> a torch state_dict for the
+    port's module of the same structure (Linear weights transposed)."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, arr in np_dict.items():
+        a = np.asarray(arr)
+        if _is_linear_weight(key):
+            if a.ndim != 2:
+                raise ValueError(f"{key}: Linear weight must be 2-D, got "
+                                 f"shape {a.shape}")
+            a = a.T
+        out[key] = torch.from_numpy(np.array(a, order="C"))  # owned copy
+    return out

@@ -1,0 +1,307 @@
+// Flash-attention forward (K1) for Hopper (sm_90a), CUDA C++.
+//
+// Replaces paddle_tpu/ops/_pallas/flash_attention.py:_fwd_kernel (driven by
+// _fwd). What it computes is what that kernel computes:
+//   o   = softmax(scale * q k^T + mask) v        (f32 softmax state and sums)
+//   lse = m + log(max(l, 1e-30))                  (f32, natural log)
+// with bottom-right causal masking (query i sees keys j <= i + Sk - Sq),
+// grouped-query KV (query head h reads KV head h / (H / HK), never repeated;
+// _kv_index), and the masked-row convention of _fwd_kernel's _finish: a row
+// with no valid key keeps m = NEG_INF = -1e30 and l clamped at 1e-30, so it
+// gives o = 0 and lse = -1e30.
+//
+// Layout: q [B, Sq, H, D], k/v [B, Sk, HK, D], read through their batch,
+// sequence and head strides (the last dimension must be dense), so the caller
+// makes no transposed copy. o is written dense [B, Sq, H, D]; lse dense
+// [B, H, Sq]. Any Sq and Sk work: the ragged edge is masked here.
+//
+// Design. One block of 128 threads per (b*h, 64-query tile); a loop over
+// 64-key tiles staged in shared memory takes the place of Pallas's sequential
+// third grid axis, and the softmax state (m, l) and the output accumulator
+// stay in registers across it. On the causal path the loop stops at the
+// diagonal tile, Hopper's counterpart of the TPU kernel's triangular pairing:
+// no tile above the diagonal is loaded. Each thread owns a 4 x 8 micro-tile of
+// the 64 x 64 score tile and a 4 x D/8 slice of the output, so the products
+// read 12 shared-memory words per 32 FMAs; Q and K rows are padded to D + 1
+// floats so the column reads hit distinct banks. The 8 threads of a row group
+// are adjacent lanes and reduce the row max and sum with warp shuffles.
+//
+// What bounds it on an H100. At the serving path's prefill shapes (S 64 to
+// 2048, D 128, bf16) attention is bound by operations: 4 * S^2 * D / 2 FLOPs
+// per head (causal) against 4 * S * D * 2 bytes. This first kernel runs both
+// products on the CUDA cores in f32 (FMA), not on the tensor cores, and its
+// tiles take 115 KB of shared memory at D = 128 (one block per SM), so it
+// runs far from the tensor-core bound; its times stand in PERF.md beside that
+// bound. wgmma products fed by TMA through a ring of shared-memory stages,
+// with warp specialisation, are the next step and a later change's work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kBlockM = 64;   // query rows per block
+constexpr int kBlockN = 64;   // keys per shared-memory tile
+constexpr int kThreads = 128;
+constexpr float kNegInf = -1e30f;  // NEG_INF of the TPU kernel
+
+struct FlashFwdParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  float* lse;
+  int B, H, HK, Sq, Sk;
+  long long q_sb, q_ss, q_sh;
+  long long k_sb, k_ss, k_sh;
+  long long v_sb, v_ss, v_sh;
+  float scale;
+  int causal;
+};
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+template <int D>
+constexpr size_t smem_bytes() {
+  // sQ [64][D+1] + sK [64][D+1] + sV [64][D] + sP [64][65], all f32
+  return sizeof(float) * static_cast<size_t>(kBlockM * (D + 1) +
+                                             kBlockN * (D + 1) + kBlockN * D +
+                                             kBlockM * (kBlockN + 1));
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_kernel(const FlashFwdParams p) {
+  constexpr int LDK = D + 1;        // padded row stride of the Q and K tiles
+  constexpr int LDP = kBlockN + 1;  // padded row stride of the P tile
+  constexpr int DT = D / 8;         // output columns per thread
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sK = sQ + kBlockM * LDK;
+  float* sV = sK + kBlockN * LDK;
+  float* sP = sV + kBlockN * D;
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 7;   // column group: score columns tx + 8j
+  const int ty = tid >> 3;  // row group: rows 4ty .. 4ty+3
+  const int bh = blockIdx.y;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int hk = h / (p.H / p.HK);  // _kv_index: no repeated KV
+  const int q0 = blockIdx.x * kBlockM;
+  const int offset = p.Sk - p.Sq;   // bottom-right causal alignment
+
+  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  for (int i = tid; i < kBlockM * D; i += kThreads) {
+    const int r = i / D;
+    const int c = i - r * D;
+    const int qi = q0 + r;
+    sQ[r * LDK + c] =
+        qi < p.Sq ? to_float(qb[static_cast<long long>(qi) * p.q_ss + c]) : 0.f;
+  }
+
+  float m_i[4], l_i[4], acc[4][DT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m_i[i] = kNegInf;
+    l_i[i] = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < DT; ++jj) acc[i][jj] = 0.f;
+  }
+
+  // Keys this tile needs: all of them, or on the causal path up to the
+  // diagonal of its last row (none when Sq > Sk leaves every row empty).
+  int kv_end = p.Sk;
+  if (p.causal) kv_end = min(kv_end, q0 + kBlockM + offset);
+  const int n_tiles = kv_end > 0 ? (kv_end + kBlockN - 1) / kBlockN : 0;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kBlockN;
+    __syncthreads();  // the last tile's readers of sK, sV and sP are done
+    for (int i = tid; i < kBlockN * D; i += kThreads) {
+      const int r = i / D;
+      const int c = i - r * D;
+      const int kj = k0 + r;
+      const bool in = kj < p.Sk;
+      sK[r * LDK + c] =
+          in ? to_float(kb[static_cast<long long>(kj) * p.k_ss + c]) : 0.f;
+      sV[r * D + c] =
+          in ? to_float(vb[static_cast<long long>(kj) * p.v_ss + c]) : 0.f;
+    }
+    __syncthreads();
+
+    float s[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float a[4], bk[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = sQ[(ty * 4 + i) * LDK + d];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) bk[j] = sK[(tx + 8 * j) * LDK + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = q0 + ty * 4 + i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int kj = k0 + tx + 8 * j;
+        const bool ok = kj < p.Sk && (!p.causal || kj <= qi + offset);
+        s[i][j] = ok ? s[i][j] * p.scale : kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_new = fmaxf(m_i[i], mx);
+      const float alpha = expf(m_i[i] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        // masked entries stay exactly 0: a row with no valid key so far has
+        // s == m_new == NEG_INF, and exp(0) would average V
+        const float e = s[i][j] > 0.5f * kNegInf ? expf(s[i][j] - m_new) : 0.f;
+        s[i][j] = e;
+        rs += e;
+      }
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 4);
+      l_i[i] = l_i[i] * alpha + rs;
+      m_i[i] = m_new;
+#pragma unroll
+      for (int jj = 0; jj < DT; ++jj) acc[i][jj] *= alpha;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sP[(ty * 4 + i) * LDP + tx + 8 * j] = s[i][j];
+    }
+    __syncthreads();
+
+    const int n_keys = min(kBlockN, p.Sk - k0);
+#pragma unroll 4
+    for (int c = 0; c < n_keys; ++c) {
+      float pr[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pr[i] = sP[(ty * 4 + i) * LDP + c];
+#pragma unroll
+      for (int jj = 0; jj < DT; ++jj) {
+        const float vv = sV[c * D + tx + 8 * jj];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][jj] = fmaf(pr[i], vv, acc[i][jj]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + ty * 4 + i;
+    if (qi < p.Sq) {
+      const float lc = fmaxf(l_i[i], 1e-30f);
+      T* orow = static_cast<T*>(p.o) +
+                ((static_cast<long long>(b) * p.Sq + qi) * p.H + h) * D;
+#pragma unroll
+      for (int jj = 0; jj < DT; ++jj)
+        orow[tx + 8 * jj] = from_float<T>(acc[i][jj] / lc);
+      if (tx == 0)
+        p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + qi] =
+            m_i[i] + logf(lc);
+    }
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch(const FlashFwdParams& p, cudaStream_t stream) {
+  const size_t smem = smem_bytes<D>();
+  // above 48 KB a block's shared memory must be opted into
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Sq + kBlockM - 1) / kBlockM, p.B * p.H);
+  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_d(const FlashFwdParams& p, int d, cudaStream_t stream) {
+  switch (d) {
+    case 64:
+      return launch<T, 64>(p, stream);
+    case 128:
+      return launch<T, 128>(p, stream);
+    case 256:
+      return launch<T, 256>(p, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. Returns the
+// cudaError_t of the launch (0 = launched).
+extern "C" int paddle_flash_fwd(const void* q, const void* k, const void* v,
+                                void* o, void* lse, int B, int H, int HK,
+                                int Sq, int Sk, int D, long long q_sb,
+                                long long q_ss, long long q_sh, long long k_sb,
+                                long long k_ss, long long k_sh, long long v_sb,
+                                long long v_ss, long long v_sh, float scale,
+                                int causal, int dtype, void* stream) {
+  FlashFwdParams p;
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.o = o;
+  p.lse = static_cast<float*>(lse);
+  p.B = B;
+  p.H = H;
+  p.HK = HK;
+  p.Sq = Sq;
+  p.Sk = Sk;
+  p.q_sb = q_sb;
+  p.q_ss = q_ss;
+  p.q_sh = q_sh;
+  p.k_sb = k_sb;
+  p.k_ss = k_ss;
+  p.k_sh = k_sh;
+  p.v_sb = v_sb;
+  p.v_ss = v_ss;
+  p.v_sh = v_sh;
+  p.scale = scale;
+  p.causal = causal;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || H <= 0 || HK <= 0 || H % HK || Sq <= 0 || Sk < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) return static_cast<int>(dispatch_d<float>(p, D, s));
+  if (dtype == 1) return static_cast<int>(dispatch_d<__nv_bfloat16>(p, D, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" const char* paddle_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,98 @@
+"""Flash attention, ``[batch, seq, heads, head_dim]`` layout.
+
+Port of ``paddle_tpu/ops/flash_attention.py``:
+
+- :func:`flash_attention` runs the K1 kernel (``_hopper/flash_attention``)
+  for CUDA tensors and its plain version for CPU tensors. Attention-prob
+  dropout in training is not ported yet and raises;
+- :func:`reference_attention` and :func:`single_query_attention` are the
+  plain tensor code of the reference (the serving decode step uses the
+  second, as the JAX engine does).
+
+Scores are accumulated in float32 (the JAX code's
+``preferred_element_type=float32``), probabilities cast to the input dtype
+before the value product, and a row with no valid key gives 0.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from ._hopper.flash_attention import flash_fwd
+
+__all__ = ["flash_attention", "reference_attention",
+           "single_query_attention"]
+
+
+def _masked_softmax(scores: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis where fully-masked rows (all -inf) give
+    0, not NaN — the kernels' masked-row convention."""
+    m = scores.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    e = torch.where(torch.isfinite(scores), torch.exp(scores - m),
+                    torch.zeros_like(scores))
+    return e / torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
+
+
+def reference_attention(q, k, v, causal: bool = False,
+                        scale: Optional[float] = None):
+    """Plain attention, f32 softmax. Grouped-query kv (fewer kv heads) is
+    repeated per query head; rows with no valid key give 0."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if k.shape[2] != h:
+        rep = h // k.shape[2]
+        k = torch.repeat_interleave(k, rep, dim=2)
+        v = torch.repeat_interleave(v, rep, dim=2)
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        mask = torch.tril(torch.ones(sq, sk, dtype=torch.bool,
+                                     device=q.device), diagonal=sk - sq)
+        scores = scores.masked_fill(~mask, float("-inf"))
+    probs = _masked_softmax(scores).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def single_query_attention(q, k, v, lengths=None,
+                           scale: Optional[float] = None):
+    """Decode-step attention: one query position over gathered KV.
+
+    ``q`` is ``[B, 1, H, D]``; ``k``/``v`` are ``[B, Sk, KH, D]`` with
+    ``KH`` dividing ``H`` (query head ``h`` reads kv head ``h // (H //
+    KH)`` through a head reshape, no repeated KV). ``lengths`` (``[B]``
+    int, optional) masks each row to its first ``lengths[b]`` keys; a row
+    with zero valid keys returns 0."""
+    b, sq, h, d = q.shape
+    if sq != 1:
+        raise ValueError(f"single_query_attention needs Sq=1, got {sq}")
+    sk, kh = k.shape[1], k.shape[2]
+    if h % kh:
+        raise ValueError(f"query heads ({h}) not a multiple of kv heads "
+                         f"({kh})")
+    g = h // kh
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qg = q[:, 0].reshape(b, kh, g, d)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg.float(), k.float()) * scale
+    if lengths is not None:
+        lengths = torch.as_tensor(lengths, device=q.device)
+        valid = torch.arange(sk, device=q.device)[None, :] < lengths[:, None]
+        scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
+    probs = _masked_softmax(scores).to(q.dtype)
+    out = torch.einsum("bkgs,bskd->bkgd", probs, v)
+    return out.reshape(b, 1, h, d)
+
+
+def flash_attention(query, key, value, dropout: float = 0.0,
+                    causal: bool = False, *, scale: Optional[float] = None,
+                    training: bool = True):
+    """``paddle.nn.functional.flash_attention`` ([B, S, H, D]): the K1
+    kernel on a CUDA tensor (it raises on inputs the kernel does not
+    take, never falling back), the plain version on a CPU tensor."""
+    if dropout > 0.0 and training:
+        raise NotImplementedError(
+            "attention-prob dropout is not ported yet (K1's dropout option)")
+    return flash_fwd(query, key, value, causal=causal, scale=scale)[0]
