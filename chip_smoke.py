@@ -5,23 +5,32 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (nvcc, at
 first use), holds each kernel against its plain PyTorch version on the card,
-and serves GPT-3 1.3B (``gpt3_1p3b``: 24 layers, hidden 2048, 16 heads,
-vocab 50304; random weights from a seed) through ``ServingEngine``:
+serves GPT-3 1.3B (``gpt3_1p3b``: 24 layers, hidden 2048, 16 heads, vocab
+50304; random weights from a seed) through ``ServingEngine`` and trains it
+through ``TrainStep``:
 
 1. env     torch, CUDA, nvcc and the card as nvidia-smi names it;
 2. build   the kernels, timed, with ptxas's register and spill report;
 3. kernel  K1 (flash_fwd) against flash_fwd_reference at the serving
            path's shapes and the edge cases, and timed at S=2048;
-4. serve_f32   3 requests x 16 tokens, token-exact against the model's
+4. kernel_bwd  K2 and K3 (flash_bwd) against flash_bwd_reference in the
+           same cases, and timed at the training shape (B=4, S=2048);
+5. serve_f32   3 requests x 16 tokens, token-exact against the model's
            dense-cache ``generate`` (no kernel there);
-5. serve_bf16  8 requests of 64..1536 prompt tokens x 32 tokens through a
+6. serve_bf16  8 requests of 64..1536 prompt tokens x 32 tokens through a
            pool of about half the trace's blocks, shrunk until a CPU dry
            run of the trace preempts (spill to pinned host memory and
-           restore); every prefill runs K1 once per layer.
+           restore); every prefill runs K1 once per layer;
+7. train_grad_f32  one forward and backward of a 2-layer cut of the model
+           at full width in f32, through K1-K3 on the card and through the
+           plain versions on the CPU, every gradient compared;
+8. train_bf16  the training slice: 24 layers, AMP-O2, AdamW with float32
+           masters, B=4 x S=2048 batches as bench.py makes them, 2 warm-up
+           and 8 timed steps; every step runs K1, K2 and K3 once per layer.
 
-``--profile`` adds a phase that serves the bf16 trace again under
-torch.profiler and prints the device busy share and the kernels that take
-the device's time. Each phase prints one JSON line. Then come the ``{"kernels": [...]}`` line,
+``--profile`` adds phases that serve the bf16 trace again and run a few
+train steps under torch.profiler, and print the device busy share and the
+kernels that take the device's time. Each phase prints one JSON line. Then come the ``{"kernels": [...]}`` line,
 the card's name and power limit, and the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script exits
 non-zero without that last line, as it does when CUDA is absent or the
@@ -252,7 +261,131 @@ def phase_kernel(torch, hfa, peaks):
     return worst, timing
 
 
-# -- phases 4 and 5 ----------------------------------------------------------
+# -- phase 4 -----------------------------------------------------------------
+
+def compare_bwd(torch, hfa, case, q, k, v, do, causal, worst):
+    """K1 then K2/K3 (``flash_bwd``) against the plain version on the same
+    inputs and the same o and lse: one row of errors, beside the largest
+    and the median |value| of each plain gradient. Raises on a mismatch."""
+    name, b, sq, sk, h, hk, d, dt = case
+    o, lse = hfa.flash_fwd(q, k, v, causal=causal)
+    grads = hfa.flash_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    refs = hfa.flash_bwd_reference(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    row = {"case": name, "shape": [b, sq, sk, h, hk, d], "causal": causal,
+           "dtype": dt}
+    ok = True
+    for gname, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+        check(got.shape == ref.shape and got.dtype == ref.dtype,
+              f"{name}: {gname} {tuple(got.shape)} {got.dtype}")
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite {gname}")
+        ref32 = ref.float()
+        err = (got.float() - ref32).abs()
+        if dt == "bf16":
+            # both round ds and p to bf16 at the same points, from f32
+            # sums taken in another order, so a rounding may flip; then
+            # the bf16 output (one ulp is at most 2^-7 relative). The
+            # worst error seen on an H100 is 3.9e-3, and typical values
+            # are 0.03-0.05, so 1e-2 absolute still catches a dropped tile
+            ok &= bool((err <= 1e-2 + 1e-2 * ref32.abs()).all())
+        else:
+            # f32 sums over up to 2048 terms in another order
+            ok &= bool((err <= 1e-4 + 1e-4 * ref32.abs()).all())
+        # a flipped rounding is rare: the mean error seen on an H100 is
+        # below 1e-5 of the median |value|; a dropped or doubled tile moves
+        # the mean far past 1e-3 of it
+        ok &= float(err.mean()) <= 1e-3 * float(ref32.abs().median())
+        row[f"max_abs_err_{gname}"] = float(err.max())
+        row[f"mean_abs_err_{gname}"] = float(err.mean())
+        row[f"max_abs_{gname}"] = float(ref32.abs().max())
+        row[f"median_abs_{gname}"] = float(ref32.abs().median())
+        kname = "flash_bwd_dq" if gname == "dq" else "flash_bwd_dkv"
+        worst[kname] = max(worst[kname], float(err.max()))
+    if sq > sk and causal:
+        # rows with no valid key (lse = NEG_INF) get dq = 0
+        ok &= bool((grads[0][:, :sq - sk] == 0).all())
+    row["ok"] = ok
+    check(ok, f"K2/K3 disagree with their plain version: {row}")
+    return row, o, lse
+
+
+def phase_kernel_bwd(torch, hfa, peaks):
+    """K2 and K3 against their plain version in every K1 case (the same
+    o and lse from K1, the same do), then K1, K2 and K3 against the plain
+    versions on the training shape's inputs, and K2, K3, the plain version
+    and the library's attention backward timed on them."""
+    import torch.nn.functional as F
+    results = []
+    worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for i, (name, b, sq, sk, h, hk, d, causal, dt) in enumerate(K1_CASES):
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        q, k, v = k1_inputs(torch, b, sq, sk, h, hk, d, dtype, seed=300 + i)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(400 + i)
+        do = torch.randn(b, sq, h, d, generator=g, device="cuda").to(dtype)
+        row, _, _ = compare_bwd(torch, hfa, (name, b, sq, sk, h, hk, d, dt),
+                                q, k, v, do, causal, worst)
+        results.append(row)
+
+    b, s, h, d = 4, 2048, 16, 128
+    q, k, v = k1_inputs(torch, b, s, s, h, h, d, torch.bfloat16, seed=8)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(9)
+    do = torch.randn(b, s, h, d, generator=g, device="cuda").to(torch.bfloat16)
+    row, o, lse = compare_bwd(torch, hfa, ("train_b4_s2048", b, s, s, h, h,
+                                           d, "bf16"), q, k, v, do, True,
+                              worst)
+    # K1 at the training shape, with its own tolerance (phase_kernel)
+    ro, rlse = hfa.flash_fwd_reference(q, k, v, causal=True)
+    err_o = (o.float() - ro.float()).abs()
+    row["k1_max_abs_err_o"] = float(err_o.max())
+    row["k1_max_abs_err_lse"] = float((lse - rlse).abs().max())
+    check(bool((err_o <= 2e-2 + 2e-2 * ro.float().abs()).all()) and
+          row["k1_max_abs_err_lse"] <= 1e-2,
+          f"K1 disagrees with its plain version at the training shape: {row}")
+    worst["flash_fwd"] = row["k1_max_abs_err_o"]
+    del ro, rlse, err_o
+    results.append(row)
+    delta = hfa._delta(o, do)
+    scale = 1.0 / math.sqrt(d)
+    dq_ms = median_ms(lambda: hfa.flash_bwd_dq(q, k, v, do, lse, delta,
+                                               True, scale))
+    dkv_ms = median_ms(lambda: hfa.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                 True, scale))
+    plain_ms = median_ms(lambda: hfa.flash_bwd_reference(
+        q, k, v, o, lse, do, causal=True), iters=5, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    library_ms = median_ms(lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), dot, retain_graph=True))
+    pairs = attention_pairs(s, s, True)
+    elems = b * s * h * d                        # one [B, S, H, D] tensor
+    stats = 2 * b * h * s * 4                    # lse and delta, f32
+    timing = {}
+    for kname, ms, flops, outs in (
+            ("flash_bwd_dq", dq_ms, 6 * d * pairs * b * h, 1),
+            ("flash_bwd_dkv", dkv_ms, 8 * d * pairs * b * h, 2)):
+        nbytes = (4 + outs) * elems * 2 + stats   # q, k, v, do in; outs
+        t_ops = flops / peaks["bf16"] * 1e3
+        t_bytes = nbytes / peaks["bytes"] * 1e3
+        timing[kname] = {
+            "shape": [b, s, s, h, h, d], "dtype": "bf16", "causal": True,
+            "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "flops": flops, "bytes": nbytes,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "peak_sheet": peaks["sheet"], "tflops": flops / ms / 1e9}
+    emit({"phase": "kernel_bwd", "kernels": ["flash_bwd_dq", "flash_bwd_dkv"],
+          "cases": results, "timing": timing,
+          "library": "scaled_dot_product_attention backward (dq, dk, dv in "
+                     "one call; the time of the pair)"})
+    return worst, timing
+
+
+# -- phases 5 and 6 ----------------------------------------------------------
 
 def top2_gap(torch, model, prefix):
     """generate's top-2 logit gap after ``prefix`` (dense decode, as
@@ -350,11 +483,16 @@ def phase_serve_bf16(torch, np, hfa, model, Request, ServingEngine,
                            max_batch=8, max_seq_len=max_seq, device="cuda")
     # the main path: counts are set to 0 just before it and read after
     hfa.flash_fwd.launches = 0
+    hfa.flash_bwd_dq.launches = 0
+    hfa.flash_bwd_dkv.launches = 0
     t0 = time.perf_counter()
     res = engine.serve(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = hfa.flash_fwd.launches
+    bwd_launches = (hfa.flash_bwd_dq.launches, hfa.flash_bwd_dkv.launches)
+    check(bwd_launches == (0, 0),
+          f"bf16 serve launched K2/K3 {bwd_launches} times")
     for r in reqs:
         seq = res[r.rid]
         check(seq.status.value == "finished", f"{r.rid}: {seq.status}")
@@ -378,25 +516,14 @@ def phase_serve_bf16(torch, np, hfa, model, Request, ServingEngine,
           "decode_iterations": len(engine.decode_ms),
           "decode_step_p50_ms": percentile(engine.decode_ms, 50),
           "decode_step_p99_ms": percentile(engine.decode_ms, 99)})
-    return launches, num_blocks
+    return {"flash_fwd": launches, "flash_bwd_dq": bwd_launches[0],
+            "flash_bwd_dkv": bwd_launches[1]}, num_blocks
 
 
-def phase_profile(torch, np, model, Request, ServingEngine, num_blocks):
-    """``--profile``: the bf16 trace once more under torch.profiler. Device
-    busy time is the union of the GPU events' intervals; the window is the
-    host wall clock around ``serve``."""
+def device_profile(prof, wall_ms):
+    """Device busy time (the union of the GPU events' intervals) over the
+    host wall clock of the window, and the kernels that took it."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    reqs = bf16_trace(np, Request, model.cfg.vocab_size)
-    max_seq = max(r.prompt_ids.size for r in reqs) + 32
-    engine = ServingEngine(model, block_size=16, num_blocks=num_blocks,
-                           max_batch=8, max_seq_len=max_seq, device="cuda")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.serve(reqs)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
     spans, by_name = [], {}
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
@@ -410,12 +537,181 @@ def phase_profile(torch, np, model, Request, ServingEngine, num_blocks):
             busy_us += b - max(a, end)
             end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    emit({"phase": "profile", "wall_ms": wall_ms, "device_events": len(spans),
-          "device_busy_ms": busy_us / 1e3,
-          "device_busy_share": busy_us / 1e3 / wall_ms,
+    return {"wall_ms": wall_ms, "device_events": len(spans),
+            "device_busy_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / 1e3 / wall_ms,
+            "top_device_ms": [[name[:90], ms] for name, ms in top]}
+
+
+def phase_profile(torch, np, model, Request, ServingEngine, num_blocks):
+    """``--profile``: the bf16 trace once more under torch.profiler; the
+    window is the host wall clock around ``serve``."""
+    from torch.profiler import ProfilerActivity, profile
+    reqs = bf16_trace(np, Request, model.cfg.vocab_size)
+    max_seq = max(r.prompt_ids.size for r in reqs) + 32
+    engine = ServingEngine(model, block_size=16, num_blocks=num_blocks,
+                           max_batch=8, max_seq_len=max_seq, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.serve(reqs)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    emit({"phase": "profile", **device_profile(prof, wall_ms),
           "prefill_s": engine.prefill_s,
-          "decode_s": sum(engine.decode_ms) / 1e3,
-          "top_device_ms": [[name[:90], ms] for name, ms in top]})
+          "decode_s": sum(engine.decode_ms) / 1e3})
+
+
+# -- phases 7 and 8 ----------------------------------------------------------
+
+def gpt_loss(model, batch):
+    ids, labels = batch
+    return model(ids, labels)
+
+
+def phase_train_grad_f32(torch, np, hfa, GPTForCausalLM, gpt3_1p3b):
+    """A 2-layer cut of GPT-3 1.3B at full width, f32 (TF32 off): the same
+    weights and batch through one forward and backward on the card (K1, K2,
+    K3) and on the CPU (their plain versions), every gradient compared."""
+    cfg = gpt3_1p3b(num_layers=2)
+    gpu = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32, seed=0)
+    cpu = GPTForCausalLM(cfg, device="cpu", dtype=torch.float32)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    rng = np.random.default_rng(5)
+    b, s = 2, 320
+    ids = rng.integers(0, cfg.vocab_size, (b, s))
+    labels = np.roll(ids, -1, axis=1)
+    labels[0, :7] = -100
+    labels[1, -5:] = -100
+    launches0 = (hfa.flash_fwd.launches, hfa.flash_bwd_dq.launches,
+                 hfa.flash_bwd_dkv.launches)
+    losses = {}
+    for name, model in (("gpu", gpu), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        loss = model(torch.as_tensor(ids, device=model.device),
+                     torch.as_tensor(labels, device=model.device))
+        loss.backward()
+        losses[name] = (float(loss.detach()), time.perf_counter() - t0)
+    launches = [a - b for a, b in zip((hfa.flash_fwd.launches,
+                                       hfa.flash_bwd_dq.launches,
+                                       hfa.flash_bwd_dkv.launches),
+                                      launches0)]
+    check(launches == [2, 2, 2],
+          f"train_grad_f32: K1/K2/K3 launches {launches}, expected 2 each")
+    worst_name, worst_ratio, rows = None, 0.0, 0
+    cpu_params = dict(cpu.named_parameters())
+    for name, p in gpu.named_parameters():
+        g_gpu = p.grad.float().cpu()
+        g_cpu = cpu_params[name].grad.float()
+        check(bool(torch.isfinite(g_gpu).all()), f"{name}: non-finite grad")
+        scale = float(g_cpu.abs().max())
+        ratio = float((g_gpu - g_cpu).abs().max()) / max(scale, 1e-30)
+        rows += 1
+        if ratio >= worst_ratio:
+            worst_name, worst_ratio = name, ratio
+    loss_err = abs(losses["gpu"][0] - losses["cpu"][0])
+    row = {"phase": "train_grad_f32", "model": "gpt3_1p3b", "layers": 2,
+           "batch": [b, s], "ignored_labels": int((labels == -100).sum()),
+           "loss_gpu": losses["gpu"][0], "loss_cpu": losses["cpu"][0],
+           "loss_abs_err": loss_err, "gpu_s": losses["gpu"][1],
+           "cpu_s": losses["cpu"][1], "grad_tensors": rows,
+           "worst_tensor": worst_name, "worst_rel_err": worst_ratio,
+           "launches_k1_k2_k3": launches,
+           "allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    emit(row)
+    # f32 on both sides, sums in other orders (cuBLAS, the kernels' tiles)
+    check(loss_err <= 1e-4, f"train_grad_f32: loss differs: {row}")
+    check(worst_ratio <= 1e-3, f"train_grad_f32: gradients differ: {row}")
+    del gpu, cpu
+
+
+def bench_batches(np, n, batch, seq, vocab):
+    """bench.py's ``_gpt_batches`` (``:1419-1431``): distinct random ids,
+    labels the ids shifted by one (seed 0)."""
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(n):
+        ids = rng.integers(0, vocab, (batch, seq))
+        out.append((ids.astype(np.int32),
+                    np.roll(ids, -1, axis=1).astype(np.int32)))
+    return out
+
+
+def phase_train_bf16(torch, np, hfa, peaks, GPTForCausalLM, gpt3_1p3b,
+                     amp, AdamW, make_sharded_train_step, profile=False):
+    """The training slice: GPT-3 1.3B at full depth, AMP-O2, AdamW with
+    f32 masters, B=4 x S=2048, 2 warm-up and 8 timed steps."""
+    batch, seq, warmup, timed = 4, 2048, 2, 8
+    cfg = gpt3_1p3b()
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32, seed=0)
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01, multi_precision=True)
+    model, opt = amp.decorate(model, opt, level="O2")
+    step = make_sharded_train_step(model, opt, gpt_loss)
+    n_params = sum(p.numel() for p in model.parameters())
+    batches = bench_batches(np, warmup + timed, batch, seq, cfg.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts are set to 0 just before it and read after
+    hfa.flash_fwd.launches = 0
+    hfa.flash_bwd_dq.launches = 0
+    hfa.flash_bwd_dkv.launches = 0
+    losses, times = [], []
+    for i, bt in enumerate(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = step.step(bt)
+        end.record()
+        end.synchronize()
+        losses.append(float(loss))
+        if i >= warmup:
+            times.append(start.elapsed_time(end))
+    launches = {"flash_fwd": hfa.flash_fwd.launches,
+                "flash_bwd_dq": hfa.flash_bwd_dq.launches,
+                "flash_bwd_dkv": hfa.flash_bwd_dkv.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_steps = len(batches)
+    p50 = percentile(times, 50)
+    # every token of the timed steps over their whole time
+    tokens_per_s = timed * batch * seq / (sum(times) / 1e3)
+    # bench.py:1434: 6N (the products, forward and backward) plus causal
+    # attention 6 * L * S * hidden per token
+    flops_per_token = 6 * n_params + 6 * cfg.num_layers * seq * \
+        cfg.hidden_size
+    row = {"phase": "train_bf16", "model": "gpt3_1p3b",
+           "layers": cfg.num_layers, "params": n_params,
+           "batch": [batch, seq], "amp": "O2", "optimizer": "AdamW(1e-4, "
+           "weight_decay=0.01, multi_precision=True)",
+           "losses": losses, "warmup_steps": warmup, "timed_steps": timed,
+           "step_ms": times, "step_p50_ms": p50,
+           "step_p99_ms": percentile(times, 99),
+           "tokens_per_s": tokens_per_s,
+           "flops_per_token": flops_per_token,
+           "mfu": flops_per_token * tokens_per_s / peaks["bf16"],
+           "peak_sheet": peaks["sheet"],
+           "max_memory_allocated_gb": peak_gb, "launches": launches}
+    emit(row)
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss: {row}")
+    # tied logits at init have sigma = sqrt(2048) * 0.02 ~ 0.9: the first
+    # loss is about ln(50304) + sigma^2 / 2 ~ 11.2
+    check(abs(losses[0] - 11.2) < 0.5, f"step-0 loss {losses[0]}")
+    check(losses[-1] < losses[0], f"the loss did not decrease: {losses}")
+    for name, n in launches.items():
+        check(n == cfg.num_layers * n_steps,
+              f"{name}: {n} launches in {n_steps} steps of "
+              f"{cfg.num_layers} layers")
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for bt in batches[:3]:
+                step.step(bt)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        emit({"phase": "profile_train", "steps": 3,
+              **device_profile(prof, wall_ms)})
+    return launches
 
 
 def main() -> int:
@@ -426,8 +722,11 @@ def main() -> int:
         return 2
     try:
         import numpy as np
+        from paddle_tpu_torch import amp
+        from paddle_tpu_torch.framework import make_sharded_train_step
         from paddle_tpu_torch.ops._hopper import build
         from paddle_tpu_torch.ops._hopper import flash_attention as hfa
+        from paddle_tpu_torch.optimizer import AdamW
         from paddle_tpu_torch.serving import Request, ServingEngine
         from paddle_tpu_torch.text.models.gpt import (GPTForCausalLM,
                                                       gpt3_1p3b, gpt_tiny)
@@ -436,37 +735,64 @@ def main() -> int:
               f"this script ({e})", file=sys.stderr)
         return 2
     torch.cuda.set_device(0)
-    # full f32 products for the f32 reference comparison (TF32 keeps about
+    # full f32 products for the f32 reference comparisons (TF32 keeps about
     # three decimal digits)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    profile = "--profile" in sys.argv[1:]
 
     smi_line = phase_env(torch, build)
     phase_build(build)
     peaks = card_peaks(torch.cuda.get_device_name(0))
     worst, timing = phase_kernel(torch, hfa, peaks)
+    worst_bwd, timing_bwd = phase_kernel_bwd(torch, hfa, peaks)
 
     model = GPTForCausalLM(gpt3_1p3b(), device="cuda", dtype=torch.float32,
                            seed=0)
     phase_serve_f32(torch, np, hfa, model, Request, ServingEngine)
     model = model.to(torch.bfloat16)
     torch.cuda.empty_cache()
-    launches, num_blocks = phase_serve_bf16(
+    serve_launches, num_blocks = phase_serve_bf16(
         torch, np, hfa, model, Request, ServingEngine, GPTForCausalLM,
         gpt_tiny)
-    if "--profile" in sys.argv[1:]:
+    if profile:
         phase_profile(torch, np, model, Request, ServingEngine, num_blocks)
+    del model   # the serving engines and their pools are gone with it
+    torch.cuda.empty_cache()
 
-    emit({"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "paddle_tpu_torch/ops/_hopper/csrc/flash_fwd.cu",
-        "replaces": "paddle_tpu/ops/_pallas/flash_attention.py:224 "
-                    "(_fwd_kernel, launched by _fwd at :404)",
-        "launches": launches, "max_abs_err": worst, "max_err": worst,
-        "ms": timing["kernel_ms"], "kernel_ms": timing["kernel_ms"],
-        "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
-    }]})
+    phase_train_grad_f32(torch, np, hfa, GPTForCausalLM, gpt3_1p3b)
+    torch.cuda.empty_cache()
+    train_launches = phase_train_bf16(
+        torch, np, hfa, peaks, GPTForCausalLM, gpt3_1p3b, amp, AdamW,
+        make_sharded_train_step, profile=profile)
+
+    # `launches` is the count on each kernel's first main path: serving
+    # for K1 (as since PR 1's line), training for K2/K3; every entry also
+    # has both paths' counts. `max_err` and `kernel_ms` repeat
+    # `max_abs_err` and `ms` under PR 1's names.
+    replaces = "paddle_tpu/ops/_pallas/flash_attention.py:"
+    worst = max(worst, worst_bwd["flash_fwd"])
+    kernels = []
+    for name, source, line, t, err, launches in (
+            ("flash_fwd", "flash_fwd.cu", "224 (_fwd_kernel, launched by "
+             "_fwd at :404)", timing, worst, serve_launches["flash_fwd"]),
+            ("flash_bwd_dq", "flash_bwd.cu", "431 (_bwd_dq_kernel, launched "
+             "by _bwd at :628)", timing_bwd["flash_bwd_dq"],
+             worst_bwd["flash_bwd_dq"], train_launches["flash_bwd_dq"]),
+            ("flash_bwd_dkv", "flash_bwd.cu", "502 (_bwd_dkv_kernel, "
+             "launched by _bwd at :736)", timing_bwd["flash_bwd_dkv"],
+             worst_bwd["flash_bwd_dkv"], train_launches["flash_bwd_dkv"])):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/ops/_hopper/csrc/" + source,
+            "replaces": replaces + line, "launches": launches,
+            "serve_launches": serve_launches[name],
+            "train_launches": train_launches[name],
+            "max_abs_err": err, "max_err": err,
+            "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    emit({"kernels": kernels})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

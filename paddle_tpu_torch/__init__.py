@@ -12,7 +12,10 @@ asks for the CPU (``device="cpu"``), where the plain versions run.
 
 Ported so far: the serving path — ``serving.ServingEngine`` over
 ``text.models.gpt.GPTForCausalLM``, whose prefill runs the flash-attention
-forward kernel (``ops/_hopper/csrc/flash_fwd.cu``).
+forward kernel (``ops/_hopper/csrc/flash_fwd.cu``) — and the training
+path — ``framework.TrainStep`` with ``optimizer`` (AdamW and others),
+``amp.decorate`` O2 and the GPT loss, whose attention backward runs the
+dq and dk/dv kernels (``ops/_hopper/csrc/flash_bwd.cu``).
 """
 
 from .core.device import resolve_device  # noqa: F401

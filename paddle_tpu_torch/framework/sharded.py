@@ -1,0 +1,138 @@
+"""Train step (``paddle_tpu/framework/sharded.py`` counterpart), one GPU.
+
+:class:`TrainStep` runs forward, backward, the optimizer's
+``apply_gradients`` and the scheduler step for a model on one device::
+
+    step = make_sharded_train_step(model, AdamW(1e-4), loss_fn)
+    loss = step.step(batch)          # loss_fn(model, batch) -> scalar
+
+The parameters are the model's own (``named_parameters``, trainable
+ones), updated in place, with the optimizer state beside them in the JAX
+layout. The step keeps the counter that the JAX step keys its random
+stream by (``fold_in(base_key, step_count)``); nothing draws from it yet,
+since dropout is not ported. The JAX step's mesh, ZeRO sharding, offload,
+health sentinel and pass pipeline are not ported: a ``mesh`` raises.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional
+
+import torch
+from torch import nn
+
+__all__ = ["TrainStep", "make_sharded_train_step"]
+
+
+def _to_device(batch, device):
+    if isinstance(batch, dict):
+        return {k: _to_device(v, device) for k, v in batch.items()}
+    if isinstance(batch, (list, tuple)):
+        return type(batch)(_to_device(v, device) for v in batch)
+    return torch.as_tensor(batch, device=device)
+
+
+class TrainStep:
+    """A single-device train step. ``step(batch) -> loss``."""
+
+    def __init__(self, model: nn.Module, optimizer, loss_fn: Callable,
+                 mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "TrainStep runs on one device: meshes, ZeRO sharding, "
+                "offload and the step passes are not ported yet")
+        self.model = model
+        self.optimizer = optimizer
+        self.loss_fn = loss_fn
+        self.params: Dict[str, torch.Tensor] = {
+            n: p for n, p in model.named_parameters() if p.requires_grad}
+        if not self.params:
+            raise ValueError("the model has no trainable parameters")
+        self.device = next(iter(self.params.values())).device
+        self.opt_state = optimizer.init(self.params)
+        self._step_count = 0
+
+    @property
+    def step_count(self) -> int:
+        """Steps applied so far (the index the random stream is keyed by)."""
+        return self._step_count
+
+    def step(self, batch, index: Optional[int] = None) -> torch.Tensor:
+        """One train step on ``batch`` (numpy arrays or tensors, moved to
+        the model's device). ``index`` pins this step's index, as the JAX
+        step's guarded trainers do; by default the counter increments.
+        Returns the loss (a detached scalar tensor on the device)."""
+        batch = _to_device(batch, self.device)
+        if index is None:
+            self._step_count += 1
+        else:
+            self._step_count = int(index)
+        lr = self.optimizer.get_lr()
+        for p in self.params.values():
+            p.grad = None
+        loss = self.loss_fn(self.model, batch)
+        loss.backward()
+        grads = {n: p.grad for n, p in self.params.items()}
+        self.optimizer.apply_gradients(self.params, grads, self.opt_state,
+                                       lr)
+        for p in self.params.values():
+            p.grad = None
+        sched = self.optimizer.lr_scheduler
+        if sched is not None:
+            sched.step()
+        return loss.detach()
+
+    def state_dict(self) -> Dict[str, Any]:
+        """A copy of everything needed to resume this step exactly:
+        params, optimizer state, buffers, the step counter and the
+        scheduler's position."""
+        sched = self.optimizer.lr_scheduler
+
+        def copy(tree):
+            if isinstance(tree, dict):
+                return {k: copy(v) for k, v in tree.items()}
+            return tree.detach().clone()
+
+        return {
+            "params": copy(self.params),
+            "opt_state": copy(self.opt_state),
+            "buffers": {n: b.detach().clone()
+                        for n, b in self.model.named_buffers()},
+            "step_count": int(self._step_count),
+            "lr_sched": sched.state_dict() if sched is not None else None,
+        }
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Restore a :meth:`state_dict` (tensors or numpy arrays, on any
+        device) into this step's parameters and optimizer state."""
+        for n, v in state["params"].items():
+            self.params[n].copy_(torch.as_tensor(v))
+        buffers = dict(self.model.named_buffers())
+        for n, v in state.get("buffers", {}).items():
+            buffers[n].copy_(torch.as_tensor(v))
+        opt = state["opt_state"]
+        self.opt_state = {
+            "step": torch.as_tensor(opt["step"], dtype=torch.int32,
+                                    device=self.device).clone(),
+            "param_states": {
+                n: {k: torch.as_tensor(v, dtype=torch.float32,
+                                       device=self.device).clone()
+                    for k, v in st.items()}
+                for n, st in opt["param_states"].items()}}
+        self._step_count = int(state["step_count"])
+        sched = self.optimizer.lr_scheduler
+        if sched is not None and state.get("lr_sched") is not None:
+            sched.set_state_dict(state["lr_sched"])
+
+
+def make_sharded_train_step(model: nn.Module, optimizer, loss_fn: Callable,
+                            mesh=None) -> TrainStep:
+    """Build a :class:`TrainStep`. ``loss_fn(model, batch) -> scalar loss``
+    runs the model on the batch, e.g.::
+
+        def loss_fn(model, batch):
+            ids, labels = batch
+            return model(ids, labels)
+    """
+    return TrainStep(model, optimizer, loss_fn, mesh)

@@ -1,24 +1,29 @@
-"""K1, the flash-attention forward, on Hopper: wrapper and plain version.
+"""Flash attention on Hopper: K1 (forward), K2 and K3 (backward).
 
-Port of ``paddle_tpu/ops/_pallas/flash_attention.py`` (``_fwd`` driving
-``_fwd_kernel``). The kernel is ``csrc/flash_fwd.cu``, built by ``nvcc`` at
-first use (:mod:`.build`) and called through ``ctypes``.
+Port of ``paddle_tpu/ops/_pallas/flash_attention.py``: ``_fwd`` driving
+``_fwd_kernel`` (K1) and ``_bwd`` driving ``_bwd_dq_kernel`` (K2) and
+``_bwd_dkv_kernel`` (K3). The kernels are ``csrc/flash_fwd.cu`` and
+``csrc/flash_bwd.cu``, built by ``nvcc`` at first use (:mod:`.build`) and
+called through ``ctypes``.
 
-``flash_fwd(q, k, v, causal, scale) -> (o, lse)`` takes the public
-``[B, S, H, D]`` layout (k/v may have fewer heads, ``HK`` dividing ``H``)
-and returns ``o [B, Sq, H, D]`` in the input dtype and ``lse [B, H, Sq]``
-in float32 — the JAX kernel's ``[B*H, 1, Sq]`` lse, unflattened.
+- ``flash_fwd(q, k, v, causal, scale) -> (o, lse)`` takes the public
+  ``[B, S, H, D]`` layout (k/v may have fewer heads, ``HK`` dividing ``H``)
+  and returns ``o [B, Sq, H, D]`` in the input dtype and ``lse [B, H, Sq]``
+  in float32 — the JAX kernel's ``[B*H, 1, Sq]`` lse, unflattened. It is an
+  autograd function: its backward is :func:`flash_bwd`.
+- ``flash_bwd(q, k, v, o, lse, do, causal, scale, dlse=None) -> (dq, dk,
+  dv)`` in the same layout, dk/dv at ``HK`` heads. ``delta = rowsum(do*o)``
+  (minus ``dlse`` when given) is a torch op here, as ``_bwd`` computes it in
+  jnp outside its kernels; :func:`flash_bwd_dq` (K2) and
+  :func:`flash_bwd_dkv` (K3) launch the kernels.
 
-- On a CUDA tensor it launches the kernel, or raises on anything the
-  kernel does not take (head dim outside {64, 128, 256}, a dtype other
-  than float32 or bfloat16, a last dimension that is not dense). Each
-  launch adds one to ``flash_fwd.launches``.
-- On a CPU tensor it runs :func:`flash_fwd_reference`, the plain PyTorch
-  version of the same function.
-
-It is an autograd function whose backward raises: the backward kernels
-(K2, K3) are not ported yet, and nothing differentiates silently through
-the plain version.
+On a CUDA tensor each wrapper launches its kernel, or raises on anything
+the kernel does not take (head dim outside {64, 128, 256}, a dtype other
+than float32 or bfloat16, a last dimension that is not dense); each launch
+adds one to the wrapper's ``launches``. On a CPU tensor
+:func:`flash_fwd_reference` and :func:`flash_bwd_reference`, the plain
+PyTorch versions of the same functions, run instead. Nothing falls back
+from one to the other.
 """
 
 from __future__ import annotations
@@ -29,8 +34,9 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["flash_fwd", "flash_fwd_reference", "kernel_arg_error",
-           "NEG_INF", "SUPPORTED_HEAD_DIMS"]
+__all__ = ["flash_fwd", "flash_fwd_reference", "flash_bwd",
+           "flash_bwd_reference", "flash_bwd_dq", "flash_bwd_dkv",
+           "kernel_arg_error", "NEG_INF", "SUPPORTED_HEAD_DIMS"]
 
 NEG_INF = -1e30  # the TPU kernel's masked score, kept for its lse convention
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
@@ -103,41 +109,201 @@ def flash_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(b, sq, h, d).to(q.dtype), lse
 
 
-def _launch(q, k, v, causal: bool, scale: float):
+def _delta(o, do, dlse=None):
+    """``rowsum(do * o)`` in float32 as ``[B, H, Sq]``, minus ``dlse``
+    when the lse has a cotangent (``_bwd``'s ``:598-605``)."""
+    delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    return delta.contiguous()
+
+
+def flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        causal: bool = False, scale: Optional[float] = None,
+                        dlse: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch K2 and K3: the gradients ``_bwd`` computes, in float32.
+
+    Recomputes ``p = exp(s - lse)`` from K1's lse (0 where the score is
+    masked, so a row with no valid key gives dq = 0 and adds nothing to
+    dk/dv), and rounds at ``_bwd``'s points: ``ds`` to q's dtype before
+    the dq and dk products, ``p`` to do's dtype before the dv product.
+    Grouped-query dk/dv sum over each KV head's query heads. Returns
+    ``(dq [B, Sq, H, D], dk [B, Sk, HK, D], dv [B, Sk, HK, D])`` in the
+    input dtypes."""
+    b, sq, sk, h, hk, d = _shapes(q, k, v)
+    g = h // hk
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    delta = _delta(o, do, dlse).reshape(b, hk, g, sq, 1)
+    qf = q.float().reshape(b, sq, hk, g, d)
+    dof = do.float().reshape(b, sq, hk, g, d)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * scale   # [B,HK,G,Sq,Sk]
+    valid = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
+    if causal:
+        valid = torch.tril(valid, diagonal=sk - sq)
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - lse.float().reshape(b, hk, g, sq, 1)) * (s > NEG_INF / 2)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
+    ds = (p * (dp - delta) * scale).to(q.dtype).float()
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf).reshape(b, sq, h, d)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p.to(do.dtype).float(), dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _kernel(stem: str, name: str, n_ptrs: int, n_strides: int):
+    """The C entry ``name`` of ``csrc/<stem>.cu`` with its argtypes set:
+    ``n_ptrs`` pointers, the six sizes, ``n_strides`` strides, scale,
+    causal, dtype and the stream. Without argtypes ctypes passes every int
+    as 32 bits and cuts the pointers."""
     from .build import library
-    lib = library("flash_fwd")
-    fn = lib.paddle_flash_fwd
+    lib = library(stem)
+    fn = getattr(lib, name)
     if fn.argtypes is None:
-        # without argtypes ctypes passes every int as 32 bits and cuts
-        # the pointers
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 +
-                       [ctypes.c_longlong] * 9 +
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 +
+                       [ctypes.c_longlong] * n_strides +
                        [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                         ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.paddle_cuda_error_string.argtypes = [ctypes.c_int]
         lib.paddle_cuda_error_string.restype = ctypes.c_char_p
+    return lib, fn
+
+
+def _strides(*ts):
+    return [s for t in ts for s in (t.stride(0), t.stride(1), t.stride(2))]
+
+
+def _call(lib, fn, what: str, q, k, *args):
+    """Run ``fn(*args, stream)`` on q's device; raise on a refused launch
+    (it never runs, and a synchronise would not report it)."""
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        msg = lib.paddle_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} "
+                           f"(cudaError {err}) for q {tuple(q.shape)} "
+                           f"{q.dtype}, k {tuple(k.shape)}")
+
+
+def _launch(q, k, v, causal: bool, scale: float):
+    lib, fn = _kernel("flash_fwd", "paddle_flash_fwd", 5, 9)
     b, sq, sk, h, hk, d = _shapes(q, k, v)
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), b, h, hk, sq, sk, d,
-                 q.stride(0), q.stride(1), q.stride(2),
-                 k.stride(0), k.stride(1), k.stride(2),
-                 v.stride(0), v.stride(1), v.stride(2),
-                 float(scale), int(bool(causal)), _DTYPE_CODE[q.dtype],
-                 stream)
-    if err != 0:
-        msg = lib.paddle_cuda_error_string(err).decode()
-        raise RuntimeError(f"flash_fwd kernel launch failed: {msg} "
-                           f"(cudaError {err}) for q {tuple(q.shape)} "
-                           f"{q.dtype}, k {tuple(k.shape)}")
+    _call(lib, fn, "flash_fwd", q, k, q.data_ptr(), k.data_ptr(),
+          v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, hk, sq, sk, d,
+          *_strides(q, k, v), float(scale), int(bool(causal)),
+          _DTYPE_CODE[q.dtype])
     flash_fwd.launches += 1
     return o, lse
+
+
+def _bwd_args(q, k, v, do, causal, scale):
+    b, sq, sk, h, hk, d = _shapes(q, k, v)
+    return ([b, h, hk, sq, sk, d] + _strides(q, k, v, do) +
+            [float(scale), int(bool(causal)), _DTYPE_CODE[q.dtype]])
+
+
+def _require_kernel_inputs(q, k, v, do, lse, delta):
+    """Raise unless the backward kernels can take these tensors: checked
+    before any pointer reaches them."""
+    if q.device.type != "cuda":
+        raise ValueError(f"the flash backward kernels run on CUDA tensors, "
+                         f"not {q.device}; flash_bwd takes CPU tensors")
+    b, sq, _, h, _, _ = _shapes(q, k, v)
+    why = _bwd_arg_error(q, k, v, do)
+    if why is None and len({t.device for t in (q, k, v, do, lse, delta)}) > 1:
+        why = "inputs on different devices"
+    if why is None and do.shape != q.shape:
+        why = f"do {tuple(do.shape)} is not q's shape {tuple(q.shape)}"
+    if why is None and any(t.shape != (b, h, sq) or t.dtype != torch.float32
+                           or not t.is_contiguous() for t in (lse, delta)):
+        why = f"lse and delta must be dense float32 [{b}, {h}, {sq}]"
+    if why is not None:
+        raise ValueError(f"flash backward kernels cannot take these inputs: "
+                         f"{why}")
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float
+                 ) -> torch.Tensor:
+    """K2 on CUDA tensors: ``dq [B, Sq, H, D]`` from q, k, v, do, K1's lse
+    and ``delta`` (both dense ``[B, H, Sq]`` float32)."""
+    _require_kernel_inputs(q, k, v, do, lse, delta)
+    lib, fn = _kernel("flash_bwd", "paddle_flash_bwd_dq", 7, 12)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _call(lib, fn, "flash_bwd_dq", q, k, q.data_ptr(), k.data_ptr(),
+          v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+          dq.data_ptr(), *_bwd_args(q, k, v, do, causal, scale))
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3 on CUDA tensors: ``(dk, dv)``, each ``[B, Sk, HK, D]``, summed
+    over the query heads of each KV head's group."""
+    _require_kernel_inputs(q, k, v, do, lse, delta)
+    lib, fn = _kernel("flash_bwd", "paddle_flash_bwd_dkv", 8, 12)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _call(lib, fn, "flash_bwd_dkv", q, k, q.data_ptr(), k.data_ptr(),
+          v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+          dk.data_ptr(), dv.data_ptr(),
+          *_bwd_args(q, k, v, do, causal, scale))
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def _bwd_arg_error(q, k, v, do) -> Optional[str]:
+    """Why the backward kernels cannot take these tensors, or None: K1's
+    limits, and do in q's dtype with a dense last dimension."""
+    why = kernel_arg_error(q, k, v)
+    if why is None and do.dtype != q.dtype:
+        why = f"do's dtype {do.dtype} differs from q's {q.dtype}"
+    if why is None and do.stride(3) != 1:
+        why = f"do's last dimension is not dense (stride {do.stride(3)})"
+    return why
+
+
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+              causal: bool = False, scale: Optional[float] = None,
+              dlse: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1's backward: K2 and K3 for CUDA tensors, the plain version for CPU
+    tensors. ``o`` and ``lse`` are K1's outputs, ``do`` the cotangent of
+    ``o`` and ``dlse`` (optional) that of ``lse``. Returns ``(dq [B, Sq, H,
+    D], dk [B, Sk, HK, D], dv [B, Sk, HK, D])``."""
+    b, sq, sk, h, hk, d = _shapes(q, k, v)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o and do must have q's shape {tuple(q.shape)}; "
+                         f"got o {tuple(o.shape)}, do {tuple(do.shape)}")
+    for name, t in (("lse", lse), ("dlse", dlse)):
+        if t is not None and t.shape != (b, h, sq):
+            raise ValueError(f"{name} must be [B, H, Sq] = [{b}, {h}, {sq}]; "
+                             f"got {tuple(t.shape)}")
+    devices = {t.device for t in (q, k, v, o, lse, do, dlse) if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"flash_bwd inputs on different devices: {devices}")
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return flash_bwd_reference(q, k, v, o, lse, do, causal, scale, dlse)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_bwd runs on CUDA or the CPU, not "
+                         f"{q.device}")
+    if 0 in (b, sq, sk, h):   # no work: nothing to launch
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    delta = _delta(o, do, dlse)
+    lse = lse.float().contiguous()
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+    return dq, dk, dv
 
 
 class _FlashFwd(torch.autograd.Function):
@@ -147,19 +313,28 @@ class _FlashFwd(torch.autograd.Function):
             o, lse = flash_fwd_reference(q, k, v, causal, scale)
         else:
             o, lse = _launch(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
         ctx.mark_non_differentiable(lse)
         return o, lse
 
     @staticmethod
-    def backward(ctx, do, dlse):
-        raise NotImplementedError("K2/K3 not yet ported")
+    def backward(ctx, do, _dlse):
+        # lse is not differentiable here (flash_attention_with_lse, which
+        # needs its cotangent, is not ported): flash_bwd's dlse stays None
+        q, k, v, o, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:   # e.g. the expanded ones of out.sum()
+            do = do.contiguous()
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do, ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = False, scale: Optional[float] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 forward: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. Returns ``(o [B, Sq, H, D], lse [B, H, Sq] float32)``."""
+    CPU tensors. Returns ``(o [B, Sq, H, D], lse [B, H, Sq] float32)``;
+    gradients flow to q, k and v through :func:`flash_bwd`."""
     _shapes(q, k, v)
     devices = {q.device, k.device, v.device}
     if len(devices) != 1:
@@ -176,5 +351,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _FlashFwd.apply(q, k, v, bool(causal), scale)
 
 
-#: kernel launches since the count was last set to 0 (CUDA path only)
+#: kernel launches since each count was last set to 0 (CUDA path only)
 flash_fwd.launches = 0
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0

@@ -1,13 +1,14 @@
-"""GPT causal LM — the serving slice of ``paddle_tpu/text/models/gpt.py``.
+"""GPT causal LM — ``paddle_tpu/text/models/gpt.py`` on one device.
 
 Single-device form: ``nn.Linear``, ``nn.LayerNorm`` and ``nn.Embedding``
 under the JAX attribute names, so state_dict keys match the JAX keys one
 for one (``gpt.h.0.attn.qkv_proj.weight``, …). Weights are in PyTorch's
 ``[out, in]`` layout; :mod:`paddle_tpu_torch.convert` transposes the JAX
 ``[in, out]`` matrices. Attention in ``forward`` goes through
-:func:`~paddle_tpu_torch.ops.flash_attention` (the K1 kernel on the GPU);
-``decode``/``generate`` use a dense KV cache and plain attention. The loss,
-sampling and the training path wait for the training slice.
+:func:`~paddle_tpu_torch.ops.flash_attention` (K1 forward, K2/K3 backward
+on the GPU); ``decode``/``generate`` use a dense KV cache and plain
+attention. ``forward(ids, labels)`` returns the training loss. Dropout,
+activation recompute and sampling in ``generate`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...core.device import resolve_device
+from ...nn.functional import cross_entropy
 from ...ops import flash_attention
 
 __all__ = ["GPTConfig", "GPT", "GPTForCausalLM", "gpt3_1p3b", "gpt_tiny"]
@@ -37,9 +39,14 @@ class GPTConfig:
     num_kv_heads: Optional[int] = None
     max_position_embeddings: int = 2048
     intermediate_size: Optional[int] = None  # default 4*hidden
+    # training options of the JAX model, at its defaults; other values
+    # raise in training mode until dropout and recompute are ported
+    hidden_dropout: float = 0.0
+    attention_dropout: float = 0.0
     layer_norm_epsilon: float = 1e-5
     initializer_range: float = 0.02
     tie_word_embeddings: bool = True
+    recompute: bool = False
 
     @property
     def ffn_size(self) -> int:
@@ -64,6 +71,18 @@ def gpt_tiny(**overrides) -> GPTConfig:
 
 
 KVCache = Tuple[torch.Tensor, torch.Tensor]
+
+
+def _check_training_options(cfg: GPTConfig) -> None:
+    """Dropout and recompute are not ported: a config asking for them
+    raises in training mode rather than training without them."""
+    asked = [f"{name}={getattr(cfg, name)}" for name in
+             ("hidden_dropout", "attention_dropout", "recompute")
+             if getattr(cfg, name)]
+    if asked:
+        raise NotImplementedError(
+            f"GPT training with {', '.join(asked)} is not ported yet "
+            f"(ROADMAP.md, Queue 1: what the training slice left out)")
 
 
 class GPTAttention(nn.Module):
@@ -180,6 +199,8 @@ class GPT(nn.Module):
                                  **factory)
 
     def forward(self, input_ids):
+        if self.training:
+            _check_training_options(self.cfg)
         s = input_ids.shape[1]
         pos = torch.arange(s, device=input_ids.device)[None, :]
         x = self.wte(input_ids) + self.wpe(pos)
@@ -256,8 +277,17 @@ class GPTForCausalLM(nn.Module):
             return torch.matmul(hidden, self.gpt.wte.weight.T)
         return self.lm_head(hidden)
 
-    def forward(self, input_ids):
-        return self.logits(self.gpt(input_ids))
+    def forward(self, input_ids, labels=None):
+        """Logits ``[B, S, vocab]``, or with ``labels`` the training loss:
+        the mean over every position of the per-token cross-entropy
+        (``reduction="none"``, 0 where the label is -100), as the JAX
+        model takes it — ignored positions count in the divisor."""
+        logits = self.logits(self.gpt(input_ids))
+        if labels is None:
+            return logits
+        loss = cross_entropy(logits, labels, reduction="none",
+                             ignore_index=-100)
+        return loss.mean()
 
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens: int = 32,
