@@ -6,8 +6,9 @@
 Builds the port's CUDA kernels from the sources in this checkout (nvcc, at
 first use), holds each kernel against its plain PyTorch version on the card,
 serves GPT-3 1.3B (``gpt3_1p3b``: 24 layers, hidden 2048, 16 heads, vocab
-50304; random weights from a seed) through ``ServingEngine`` and trains it
-through ``TrainStep``:
+50304; random weights from a seed) through ``ServingEngine``, trains it
+through ``TrainStep``, and trains BERT-base (12 layers, hidden 768, 12
+heads of 64, vocab 30522) the same way:
 
 1. env     torch, CUDA, nvcc and the card as nvidia-smi names it;
 2. build   the kernels, timed, with ptxas's register and spill report;
@@ -15,22 +16,33 @@ through ``TrainStep``:
            path's shapes and the edge cases, and timed at S=2048;
 4. kernel_bwd  K2 and K3 (flash_bwd) against flash_bwd_reference in the
            same cases, and timed at the training shape (B=4, S=2048);
-5. serve_f32   3 requests x 16 tokens, token-exact against the model's
+5. kernel_packed  K4a (flash_packed_fwd) and K4b (flash_packed_bwd)
+           against their plain versions with and without masks, and at
+           BERT-base's shape (B=64, S=512, H=12) with bench.py's padding
+           bias, where they are timed;
+6. serve_f32   3 requests x 16 tokens, token-exact against the model's
            dense-cache ``generate`` (no kernel there);
-6. serve_bf16  8 requests of 64..1536 prompt tokens x 32 tokens through a
+7. serve_bf16  8 requests of 64..1536 prompt tokens x 32 tokens through a
            pool of about half the trace's blocks, shrunk until a CPU dry
            run of the trace preempts (spill to pinned host memory and
            restore); every prefill runs K1 once per layer;
-7. train_grad_f32  one forward and backward of a 2-layer cut of the model
+8. train_grad_f32  one forward and backward of a 2-layer cut of the model
            at full width in f32, through K1-K3 on the card and through the
            plain versions on the CPU, every gradient compared;
-8. train_bf16  the training slice: 24 layers, AMP-O2, AdamW with float32
-           masters, B=4 x S=2048 batches as bench.py makes them, 2 warm-up
-           and 8 timed steps; every step runs K1, K2 and K3 once per layer.
+9. train_bf16  the GPT training slice: 24 layers, AMP-O2, AdamW with
+           float32 masters, B=4 x S=2048 batches as bench.py makes them, 2
+           warm-up and 8 timed steps; every step runs K1, K2 and K3 once
+           per layer;
+10. train_grad_f32_bert  as 8, for a 2-layer cut of BERT-base with a
+           padded batch, through K4a and K4b;
+11. train_bert_bf16  the BERT slice: 12 layers, AMP-O2 AdamW, B=64 x
+           S=512 in bench.py's dense, padded and packed forms; every step
+           runs K4a and K4b once per layer and no K1-K3.
 
 ``--profile`` adds phases that serve the bf16 trace again and run a few
-train steps under torch.profiler, and print the device busy share and the
-kernels that take the device's time. Each phase prints one JSON line. Then come the ``{"kernels": [...]}`` line,
+GPT and BERT train steps under torch.profiler, and print the device busy
+share and the kernels that take the device's time. Each phase prints one
+JSON line. Then come the ``{"kernels": [...]}`` line,
 the card's name and power limit, and the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script exits
 non-zero without that last line, as it does when CUDA is absent or the
@@ -385,7 +397,211 @@ def phase_kernel_bwd(torch, hfa, peaks):
     return worst, timing
 
 
-# -- phases 5 and 6 ----------------------------------------------------------
+# -- phase 5 -----------------------------------------------------------------
+
+# name, B, Sq, Sk, H, causal, dtype, mask
+K4_CASES = [
+    ("s128_nomask", 2, 128, 128, 12, False, "bf16", None),
+    ("s384_key_bias", 2, 384, 384, 12, False, "bf16", "bias"),
+    ("s512_segments", 2, 512, 512, 12, False, "bf16", "seg"),
+    ("s512_causal", 2, 512, 512, 12, True, "bf16", None),
+    ("sq256_sk512_segment_ids_k", 2, 256, 512, 12, False, "bf16", "segk"),
+    ("ragged_s200_key_bias", 2, 200, 200, 12, False, "bf16", "bias"),
+    ("sq384_sk256_causal_masked_rows", 1, 384, 256, 12, True, "bf16", None),
+    ("f32_s512_key_bias", 2, 512, 512, 12, False, "f32", "bias"),
+    ("f32_s384_causal_segments_bias", 1, 384, 384, 12, True, "f32",
+     "seg_bias"),
+    ("f32_sq128_sk384_segment_ids_k", 2, 128, 384, 12, False, "f32", "segk"),
+]
+
+
+def padding_bias(torch, att, dtype):
+    """BERT's additive mask as the model makes it under AMP (``(1 - mask)
+    * -1e9`` in the activation dtype), as the f32 key bias it becomes at
+    the kernel entry."""
+    return ((1.0 - att.to(dtype)) * -1e9).float().contiguous()
+
+
+def k4_inputs(torch, b, sq, sk, h, dtype, mask, seed):
+    """q, k, v (strided views of one fused tensor when Sq == Sk), do and
+    the masks ``(seg_q, seg_k, bias)`` of a K4 case."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+    if sq == sk:
+        qkv = randn(b, sq, 3, h, 64)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    else:
+        q, k, v = randn(b, sq, h, 64), randn(b, sk, h, 64), randn(b, sk, h, 64)
+    do = randn(b, sq, h, 64)
+    seg_q = seg_k = bias = None
+
+    def ids(n, lo, hi):
+        return torch.sort(torch.randint(lo, hi, (b, n), generator=g,
+                                        device="cuda"), dim=1).values.to(
+            torch.int32).contiguous()
+
+    if mask in ("seg", "seg_bias"):
+        seg_q = ids(sq, 1, 4)
+        seg_k = seg_q
+    if mask == "segk":    # query ids 1..3 against key ids 0..2
+        seg_q, seg_k = ids(sq, 1, 4), ids(sk, 0, 3)
+    if mask in ("bias", "seg_bias"):
+        lengths = torch.randint(sk // 4, sk + 1, (b,), generator=g,
+                                device="cuda")
+        att = torch.arange(sk, device="cuda")[None, :] < lengths[:, None]
+        bias = padding_bias(torch, att, dtype) + torch.randn(
+            b, sk, generator=g, device="cuda")
+    return q, k, v, do, (seg_q, seg_k, bias)
+
+
+def compare(torch, name, got, ref, dt, row):
+    """One output against its plain version, logged in ``row``: bf16 within
+    1e-2 + 1e-2·|ref| per element and a mean error at most 1e-3 of the
+    median |ref|; f32 within 1e-5 + 1e-5·|ref|. Returns the max error."""
+    check(got.shape == ref.shape and got.dtype == ref.dtype,
+          f"{name}: {tuple(got.shape)} {got.dtype} against "
+          f"{tuple(ref.shape)} {ref.dtype}")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    ref32 = ref.float()
+    err = (got.float() - ref32).abs()
+    med = float(ref32.abs().median())
+    if dt == "bf16":
+        # both round p and ds to bf16 at the same points, from f32 sums
+        # taken in another order, so a rounding may flip (one ulp is 2^-7
+        # of the value); a dropped or doubled tile moves the mean error far
+        # past 1e-3 of the median |value|
+        ok = bool((err <= 1e-2 + 1e-2 * ref32.abs()).all()) and \
+            float(err.mean()) <= 1e-3 * med
+    else:
+        # f32 sums over at most 512 keys or queries in another order
+        ok = bool((err <= 1e-5 + 1e-5 * ref32.abs()).all())
+    row.update({f"max_abs_err_{name}": float(err.max()),
+                f"mean_abs_err_{name}": float(err.mean()),
+                f"max_abs_{name}": float(ref32.abs().max()),
+                f"median_abs_{name}": med})
+    row["ok"] = row.get("ok", True) and ok
+    return float(err.max())
+
+
+def k4_case(torch, hfp, case, q, k, v, do, masks, worst):
+    """K4a then K4b against their plain versions on the same inputs (the
+    backward from the kernel's own o and lse); one row of errors."""
+    name, b, sq, sk, h, causal, dt = case
+    o, lse = hfp.flash_packed_fwd(q, k, v, causal, None, masks)
+    dq, dk, dv = hfp.flash_packed_bwd(q, k, v, o, lse, do, causal, None,
+                                      masks)
+    torch.cuda.synchronize()
+    ro, rlse = hfp.flash_packed_fwd_reference(q, k, v, causal, None, masks)
+    rdq, rdk, rdv = hfp.flash_packed_bwd_reference(q, k, v, o, lse, do,
+                                                   causal, None, masks)
+    torch.cuda.synchronize()
+    row = {"case": name, "shape": [b, sq, sk, h, 64], "causal": causal,
+           "dtype": dt, "masks": [t is not None for t in masks]}
+    worst["flash_packed_fwd"] = max(worst["flash_packed_fwd"], compare(
+        torch, "o", o, ro, dt, row))
+    err_lse = (lse - rlse).abs()
+    row["max_abs_err_lse"] = float(err_lse.max())
+    row["ok"] &= bool((err_lse <= (1e-2 if dt == "bf16" else 1e-5) *
+                       (1 + rlse.abs())).all())
+    for gname, got, ref in (("dq", dq, rdq), ("dk", dk, rdk),
+                            ("dv", dv, rdv)):
+        worst["flash_packed_bwd"] = max(worst["flash_packed_bwd"], compare(
+            torch, gname, got, ref, dt, row))
+    # rows with no valid key: o = 0 and dq = 0, exactly
+    s = hfp._scores(q, k, causal, 1.0, masks)
+    empty = (s <= hfp.NEG_INF / 2).all(dim=-1).transpose(1, 2)  # [B, Sq, H]
+    row["empty_rows"] = int(empty.sum())
+    row["ok"] &= bool((o[empty] == 0).all()) and bool((dq[empty] == 0).all())
+    check(row["ok"], f"K4 disagrees with its plain version: {row}")
+    return row, o, lse
+
+
+def bert_padded(np, batch, seq):
+    """bench.py's padded batch (``:603-609``): lengths from
+    ``default_rng(1)`` in [seq/4, seq], the attention mask they give."""
+    lengths = np.random.default_rng(1).integers(seq // 4, seq + 1, batch)
+    return lengths, np.arange(seq)[None, :] < lengths[:, None]
+
+
+def phase_kernel_packed(torch, np, hfp, peaks):
+    """K4a (flash_packed_fwd) and K4b (flash_packed_bwd) against their
+    plain versions in every case and at BERT-base's shape with bench.py's
+    padded key bias, then both kernels, the plain versions and the library
+    call timed at that shape."""
+    import torch.nn.functional as F
+    results = []
+    worst = {"flash_packed_fwd": 0.0, "flash_packed_bwd": 0.0}
+    for i, (name, b, sq, sk, h, causal, dt, mask) in enumerate(K4_CASES):
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        q, k, v, do, masks = k4_inputs(torch, b, sq, sk, h, dtype, mask,
+                                       seed=500 + i)
+        row, _, _ = k4_case(torch, hfp, (name, b, sq, sk, h, causal, dt),
+                            q, k, v, do, masks, worst)
+        results.append(row)
+
+    b, s, h, d = 64, 512, 12, 64
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11)
+    q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda").to(
+        torch.bfloat16) for _ in range(4))
+    _, att = bert_padded(np, b, s)
+    att = torch.as_tensor(att, device="cuda")
+    masks = (None, None, padding_bias(torch, att, torch.bfloat16))
+    row, o, lse = k4_case(torch, hfp, ("bert_b64_s512_padded", b, s, s, h,
+                                       False, "bf16"), q, k, v, do, masks,
+                          worst)
+    results.append(row)
+    scale = 1.0 / math.sqrt(d)
+    delta = hfp._delta(o, do)
+    fwd_ms = median_ms(lambda: hfp.flash_packed_fwd(q, k, v, False, None,
+                                                    masks))
+    bwd_ms = median_ms(lambda: hfp._launch_bwd(q, k, v, do, lse, delta,
+                                               False, scale, masks))
+    plain_fwd_ms = median_ms(lambda: hfp.flash_packed_fwd_reference(
+        q, k, v, False, None, masks), iters=5, warmup=1)
+    plain_bwd_ms = median_ms(lambda: hfp.flash_packed_bwd_reference(
+        q, k, v, o, lse, do, False, None, masks), iters=5, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    amask = masks[2][:, None, None, :].to(torch.bfloat16)
+    lib_fwd_ms = median_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=amask))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask)
+    dot = do.transpose(1, 2)
+    lib_bwd_ms = median_ms(lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), dot, retain_graph=True))
+    pairs = s * s
+    elems = b * s * h * d                        # one [B, S, H, D] tensor
+    stat = b * h * s * 4                         # one [B, H, S] f32 tensor
+    timing = {}
+    for kname, ms, plain, lib, flops, nbytes in (
+            ("flash_packed_fwd", fwd_ms, plain_fwd_ms, lib_fwd_ms,
+             4 * d * pairs * b * h, 4 * elems * 2 + stat),
+            ("flash_packed_bwd", bwd_ms, plain_bwd_ms, lib_bwd_ms,
+             10 * d * pairs * b * h, 7 * elems * 2 + 2 * stat)):
+        t_ops = flops / peaks["bf16"] * 1e3
+        t_bytes = nbytes / peaks["bytes"] * 1e3
+        timing[kname] = {
+            "shape": [b, s, s, h, d], "dtype": "bf16", "causal": False,
+            "mask": "key bias (bench.py's padded batch)",
+            "kernel_ms": ms, "plain_ms": plain, "library_ms": lib,
+            "flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "peak_sheet": peaks["sheet"], "tflops": flops / ms / 1e9}
+    emit({"phase": "kernel_packed",
+          "kernels": ["flash_packed_fwd", "flash_packed_bwd"],
+          "cases": results, "timing": timing,
+          "library": "scaled_dot_product_attention in [B, H, S, D] with "
+                     "attn_mask = bias[:, None, None, :] (bf16); backward "
+                     "by autograd.grad after one forward"})
+    return worst, timing
+
+
+# -- phases 6 and 7 ----------------------------------------------------------
 
 def top2_gap(torch, model, prefix):
     """generate's top-2 logit gap after ``prefix`` (dense decode, as
@@ -562,7 +778,7 @@ def phase_profile(torch, np, model, Request, ServingEngine, num_blocks):
           "decode_s": sum(engine.decode_ms) / 1e3})
 
 
-# -- phases 7 and 8 ----------------------------------------------------------
+# -- phases 8 and 9 ----------------------------------------------------------
 
 def gpt_loss(model, batch):
     ids, labels = batch
@@ -714,6 +930,235 @@ def phase_train_bf16(torch, np, hfa, peaks, GPTForCausalLM, gpt3_1p3b,
     return launches
 
 
+# -- phases 10 and 11 --------------------------------------------------------
+
+def k4_counts(hfa, hfp):
+    return {"flash_fwd": hfa.flash_fwd.launches,
+            "flash_bwd_dq": hfa.flash_bwd_dq.launches,
+            "flash_bwd_dkv": hfa.flash_bwd_dkv.launches,
+            "flash_packed_fwd": hfp.flash_packed_fwd.launches,
+            "flash_packed_bwd": hfp.flash_packed_bwd.launches}
+
+
+def zero_counts(hfa, hfp):
+    for fn in (hfa.flash_fwd, hfa.flash_bwd_dq, hfa.flash_bwd_dkv,
+               hfp.flash_packed_fwd, hfp.flash_packed_bwd):
+        fn.launches = 0
+
+
+def phase_train_grad_f32_bert(torch, np, hfa, hfp, BertForPretraining,
+                              bert_base):
+    """A 2-layer cut of BERT-base at full width (hidden 768, 12 heads,
+    vocab 30522), f32, B=2 x S=512 with bench.py's padding: the same weights
+    and batch through one forward and backward on the card (K4a, K4b) and
+    on the CPU (their plain versions), every gradient compared."""
+    cfg = bert_base(num_layers=2, hidden_dropout=0.0, attention_dropout=0.0)
+    gpu = BertForPretraining(cfg, device="cuda", seed=0)
+    cpu = BertForPretraining(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    b, s = 2, 512
+    rng = np.random.default_rng(6)
+    ids = rng.integers(0, cfg.vocab_size, (b, s))
+    lengths = np.array([s, 300])
+    att = (np.arange(s)[None, :] < lengths[:, None]).astype(np.int32)
+    labels = np.where(att == 1, rng.integers(0, cfg.vocab_size, (b, s)),
+                      -100)
+    sop = rng.integers(0, 2, (b, 1))
+    before = k4_counts(hfa, hfp)
+    losses = {}
+    for name, model in (("gpu", gpu), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        args = [torch.as_tensor(x, device=model.device)
+                for x in (ids, att, labels, sop)]
+        loss = model(args[0], None, args[1], args[2], args[3])
+        loss.backward()
+        losses[name] = (float(loss.detach()), time.perf_counter() - t0)
+    launches = {n: c - before[n] for n, c in k4_counts(hfa, hfp).items()}
+    check(launches == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                       "flash_packed_fwd": 2, "flash_packed_bwd": 2},
+          f"train_grad_f32_bert: launches {launches}")
+    worst_name, worst_ratio, rows = None, 0.0, 0
+    key_bias_ratio = 0.0
+    cpu_params = dict(cpu.named_parameters())
+    for name, p in gpu.named_parameters():
+        g_gpu = p.grad.float().cpu()
+        g_cpu = cpu_params[name].grad.float()
+        check(bool(torch.isfinite(g_gpu).all()), f"{name}: non-finite grad")
+        scale = float(g_cpu.abs().max())
+        if name.endswith("k_proj.bias"):
+            # softmax ignores a constant added to all of a row's scores, so
+            # the key bias's true gradient is 0 and both sides hold rounding
+            # noise: it is measured on the scale of the key weight's gradient
+            scale = float(cpu_params[name[:-4] + "weight"].grad.abs().max())
+        ratio = float((g_gpu - g_cpu).abs().max()) / max(scale, 1e-30)
+        rows += 1
+        if name.endswith("k_proj.bias"):
+            key_bias_ratio = max(key_bias_ratio, ratio)
+        if ratio >= worst_ratio:
+            worst_name, worst_ratio = name, ratio
+    loss_err = abs(losses["gpu"][0] - losses["cpu"][0])
+    row = {"phase": "train_grad_f32_bert", "model": "bert_base",
+           "layers": 2, "batch": [b, s], "real_tokens": int(att.sum()),
+           "loss_gpu": losses["gpu"][0], "loss_cpu": losses["cpu"][0],
+           "loss_abs_err": loss_err, "gpu_s": losses["gpu"][1],
+           "cpu_s": losses["cpu"][1], "grad_tensors": rows,
+           "worst_tensor": worst_name, "worst_rel_err": worst_ratio,
+           "key_bias_rel_err": key_bias_ratio, "launches": launches,
+           "allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    emit(row)
+    # f32 on both sides, sums in other orders (cuBLAS, the kernels' tiles)
+    check(loss_err <= 1e-4, f"train_grad_f32_bert: loss differs: {row}")
+    check(worst_ratio <= 1e-3,
+          f"train_grad_f32_bert: gradients differ: {row}")
+    del gpu, cpu
+
+
+def bert_batches(np, batch, seq, vocab):
+    """bench.py's three BERT batches (``:579-583``, ``:603-609``,
+    ``:626-650``): dense ids, labels and sop from ``default_rng(0)``; the
+    padded form's attention mask, with labels -100 at the pads; the packed
+    form, the same real tokens packed greedily first-fit into fewer rows
+    (bench.py fills every segment from row 0's tokens), with segment ids
+    (0 at the pads, which attend to each other and carry label -100)."""
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, vocab, (batch, seq)).astype(np.int32)
+    labels = rng.integers(0, vocab, (batch, seq)).astype(np.int32)
+    sop = rng.integers(0, 2, (batch, 1)).astype(np.int32)
+    lengths, att = bert_padded(np, batch, seq)
+    pl_labels = np.where(att, labels, -100).astype(np.int32)
+    rows, row, used, srow, snext = [], [], 0, [], 1
+    for ln in lengths:
+        if used + ln > seq:
+            rows.append((row, srow))
+            row, srow, used, snext = [], [], 0, 1
+        row.append(int(ln))
+        srow.append(snext)
+        used += int(ln)
+        snext += 1
+    if row:
+        rows.append((row, srow))
+    pk_ids = np.zeros((len(rows), seq), np.int32)
+    pk_seg = np.zeros((len(rows), seq), np.int32)
+    pk_lab = np.full((len(rows), seq), -100, np.int32)
+    for r, (lens, segs) in enumerate(rows):
+        off = 0
+        for ln, sg in zip(lens, segs):
+            pk_ids[r, off:off + ln] = ids[0, :ln]
+            pk_seg[r, off:off + ln] = sg
+            pk_lab[r, off:off + ln] = labels[0, :ln]
+            off += ln
+    return {"dense": (ids, labels, sop),
+            "padded": (ids, att.astype(np.int32), pl_labels),
+            "packed": (pk_ids, pk_seg, pk_lab)}, int(att.sum())
+
+
+def bert_loss(form):
+    """The loss bench.py takes in each form (``functional_call`` of the
+    model with these arguments)."""
+    if form == "dense":
+        return lambda m, bt: m(bt[0], None, None, bt[1], bt[2])
+    if form == "padded":
+        return lambda m, bt: m(bt[0], None, bt[1], bt[2], None)
+    return lambda m, bt: m(bt[0], None, None, bt[2], None,
+                           packed_segment_ids=bt[1])
+
+
+def phase_train_bert_bf16(torch, np, hfa, hfp, peaks, BertForPretraining,
+                          bert_base, amp, AdamW, make_sharded_train_step,
+                          profile=False):
+    """The BERT slice: BERT-base at 12 layers, AMP-O2, AdamW with f32
+    masters, B=64 x S=512 in bench.py's dense (2 warm-up and 8 timed
+    steps), padded and packed (2 + 4 each) forms, in that order, training
+    one model on as bench.py does; every step runs K4a and K4b once per
+    layer and no K1-K3."""
+    batch, seq = 64, 512
+    cfg = bert_base(max_position_embeddings=512, hidden_dropout=0.0,
+                    attention_dropout=0.0)
+    model = BertForPretraining(cfg, device="cuda", seed=0)
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01, multi_precision=True)
+    model, opt = amp.decorate(model, opt, level="O2")
+    batches, real = bert_batches(np, batch, seq, cfg.vocab_size)
+    h, L = cfg.hidden_size, cfg.num_layers
+    # the products 6·(L(4h² + 2h·ffn) + h² + h·V) (encoder, pooler or MLM
+    # transform, tied MLM head) and non-causal attention 12·L·S·h, per token
+    flops_per_token = 6 * (L * (4 * h * h + 2 * h * cfg.intermediate_size)
+                           + h * h + h * cfg.vocab_size) + 12 * L * seq * h
+    # one step, and so one optimizer state, through the three forms
+    step = make_sharded_train_step(model, opt, bert_loss("dense"))
+    out, launches_all = {}, {}
+    for form, warmup, timed in (("dense", 2, 8), ("padded", 2, 4),
+                                ("packed", 2, 4)):
+        step.loss_fn = bert_loss(form)
+        bt = batches[form]
+        rows_, n_real = bt[0].shape[0], (batch * seq if form == "dense"
+                                         else real)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the main path of this form: counts set to 0 just before, read after
+        zero_counts(hfa, hfp)
+        losses, times = [], []
+        for i in range(warmup + timed):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = step.step(bt)
+            end.record()
+            end.synchronize()
+            losses.append(float(loss))
+            if i >= warmup:
+                times.append(start.elapsed_time(end))
+        launches = k4_counts(hfa, hfp)
+        n_steps = warmup + timed
+        secs = sum(times) / 1e3
+        tokens_per_s = timed * rows_ * seq / secs
+        row = {"phase": "train_bert_bf16", "form": form, "model": "bert_base",
+               "layers": L, "batch": [rows_, seq], "amp": "O2",
+               "optimizer": "AdamW(1e-4, weight_decay=0.01, "
+                            "multi_precision=True)",
+               "losses": losses, "warmup_steps": warmup,
+               "timed_steps": timed, "step_ms": times,
+               "step_p50_ms": percentile(times, 50),
+               "step_p99_ms": percentile(times, 99),
+               "tokens_per_s": tokens_per_s,
+               "real_tokens_per_step": n_real,
+               "real_tokens_per_s": timed * n_real / secs,
+               "flops_per_token": flops_per_token,
+               "mfu": flops_per_token * tokens_per_s / peaks["bf16"],
+               "peak_sheet": peaks["sheet"],
+               "max_memory_allocated_gb":
+                   torch.cuda.max_memory_allocated() / 1e9,
+               "launches": launches}
+        emit(row)
+        check(all(math.isfinite(x) for x in losses), f"non-finite: {row}")
+        check(losses[-1] < losses[0], f"the loss did not decrease: {row}")
+        for name in ("flash_packed_fwd", "flash_packed_bwd"):
+            check(launches[name] == L * n_steps,
+                  f"{form}: {name} launched {launches[name]} times in "
+                  f"{n_steps} steps of {L} layers")
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            check(launches[name] == 0,
+                  f"{form}: {name} launched {launches[name]} times")
+        out[form] = row
+        for name, n in launches.items():
+            launches_all[name] = launches_all.get(name, 0) + n
+    # ln(30522) + ln 2 at init; the logits' spread adds about sigma^2 / 2
+    first = out["dense"]["losses"][0]
+    check(10.5 <= first <= 11.8, f"BERT step-0 dense loss {first}")
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        step.loss_fn = bert_loss("dense")
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                step.step(batches["dense"])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        emit({"phase": "profile_train_bert", "form": "dense", "steps": 3,
+              **device_profile(prof, wall_ms)})
+    return launches_all
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -726,8 +1171,11 @@ def main() -> int:
         from paddle_tpu_torch.framework import make_sharded_train_step
         from paddle_tpu_torch.ops._hopper import build
         from paddle_tpu_torch.ops._hopper import flash_attention as hfa
+        from paddle_tpu_torch.ops._hopper import flash_attention_packed as hfp
         from paddle_tpu_torch.optimizer import AdamW
         from paddle_tpu_torch.serving import Request, ServingEngine
+        from paddle_tpu_torch.text.models.bert import (BertForPretraining,
+                                                       bert_base)
         from paddle_tpu_torch.text.models.gpt import (GPTForCausalLM,
                                                       gpt3_1p3b, gpt_tiny)
     except ImportError as e:
@@ -746,7 +1194,11 @@ def main() -> int:
     peaks = card_peaks(torch.cuda.get_device_name(0))
     worst, timing = phase_kernel(torch, hfa, peaks)
     worst_bwd, timing_bwd = phase_kernel_bwd(torch, hfa, peaks)
+    worst_packed, timing_packed = phase_kernel_packed(torch, np, hfp, peaks)
 
+    # the GPT paths launch no K4: its counts run from here to the end of
+    # GPT training
+    hfp.flash_packed_fwd.launches = hfp.flash_packed_bwd.launches = 0
     model = GPTForCausalLM(gpt3_1p3b(), device="cuda", dtype=torch.float32,
                            seed=0)
     phase_serve_f32(torch, np, hfa, model, Request, ServingEngine)
@@ -765,29 +1217,56 @@ def main() -> int:
     train_launches = phase_train_bf16(
         torch, np, hfa, peaks, GPTForCausalLM, gpt3_1p3b, amp, AdamW,
         make_sharded_train_step, profile=profile)
+    gpt_k4 = {n: fn.launches for n, fn in (
+        ("flash_packed_fwd", hfp.flash_packed_fwd),
+        ("flash_packed_bwd", hfp.flash_packed_bwd))}
+    check(gpt_k4 == {"flash_packed_fwd": 0, "flash_packed_bwd": 0},
+          f"the GPT paths launched K4: {gpt_k4}")
+    serve_launches.update(gpt_k4)
+    train_launches.update(gpt_k4)
+    torch.cuda.empty_cache()
+    phase_train_grad_f32_bert(torch, np, hfa, hfp, BertForPretraining,
+                              bert_base)
+    torch.cuda.empty_cache()
+    bert_launches = phase_train_bert_bf16(
+        torch, np, hfa, hfp, peaks, BertForPretraining, bert_base, amp,
+        AdamW, make_sharded_train_step, profile=profile)
 
     # `launches` is the count on each kernel's first main path: serving
-    # for K1 (as since PR 1's line), training for K2/K3; every entry also
-    # has both paths' counts. `max_err` and `kernel_ms` repeat
-    # `max_abs_err` and `ms` under PR 1's names.
-    replaces = "paddle_tpu/ops/_pallas/flash_attention.py:"
+    # for K1 (as the line has counted it from the start), GPT training for
+    # K2/K3, BERT training (all three forms) for K4a/K4b; every entry also
+    # has every path's count. `max_err` and `kernel_ms` repeat
+    # `max_abs_err` and `ms` under the names the line first used.
+    fa = "paddle_tpu/ops/_pallas/flash_attention.py:"
+    fp = "paddle_tpu/ops/_pallas/flash_attention_packed.py:"
     worst = max(worst, worst_bwd["flash_fwd"])
     kernels = []
     for name, source, line, t, err, launches in (
-            ("flash_fwd", "flash_fwd.cu", "224 (_fwd_kernel, launched by "
-             "_fwd at :404)", timing, worst, serve_launches["flash_fwd"]),
-            ("flash_bwd_dq", "flash_bwd.cu", "431 (_bwd_dq_kernel, launched "
-             "by _bwd at :628)", timing_bwd["flash_bwd_dq"],
+            ("flash_fwd", "flash_fwd.cu", fa + "224 (_fwd_kernel, launched "
+             "by _fwd at :404)", timing, worst, serve_launches["flash_fwd"]),
+            ("flash_bwd_dq", "flash_bwd.cu", fa + "431 (_bwd_dq_kernel, "
+             "launched by _bwd at :628)", timing_bwd["flash_bwd_dq"],
              worst_bwd["flash_bwd_dq"], train_launches["flash_bwd_dq"]),
-            ("flash_bwd_dkv", "flash_bwd.cu", "502 (_bwd_dkv_kernel, "
+            ("flash_bwd_dkv", "flash_bwd.cu", fa + "502 (_bwd_dkv_kernel, "
              "launched by _bwd at :736)", timing_bwd["flash_bwd_dkv"],
-             worst_bwd["flash_bwd_dkv"], train_launches["flash_bwd_dkv"])):
+             worst_bwd["flash_bwd_dkv"], train_launches["flash_bwd_dkv"]),
+            ("flash_packed_fwd", "flash_packed.cu", fp + "165 "
+             "(_fwd_kernel_direct, launched by _fwd at :238)",
+             timing_packed["flash_packed_fwd"],
+             worst_packed["flash_packed_fwd"],
+             bert_launches["flash_packed_fwd"]),
+            ("flash_packed_bwd", "flash_packed.cu", fp + "448 "
+             "(_bwd_fused_kernel, launched by _bwd at :544)",
+             timing_packed["flash_packed_bwd"],
+             worst_packed["flash_packed_bwd"],
+             bert_launches["flash_packed_bwd"])):
         kernels.append({
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/ops/_hopper/csrc/" + source,
-            "replaces": replaces + line, "launches": launches,
+            "replaces": line, "launches": launches,
             "serve_launches": serve_launches[name],
             "train_launches": train_launches[name],
+            "bert_launches": bert_launches[name],
             "max_abs_err": err, "max_err": err,
             "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

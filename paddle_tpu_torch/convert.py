@@ -25,9 +25,11 @@ import torch
 __all__ = ["LINEAR_NAMES", "from_jax_state_dict", "to_jax_state_dict",
            "from_jax_optimizer_state"]
 
-#: attribute names of the Linear layers whose weights are transposed
+#: attribute names of the Linear layers whose weights are transposed (GPT,
+#: then BERT's encoder layers and heads)
 LINEAR_NAMES = frozenset({"qkv_proj", "q_proj", "kv_proj", "out_proj", "up",
-                          "down", "lm_head"})
+                          "down", "lm_head", "k_proj", "v_proj", "linear1",
+                          "linear2", "pooler", "mlm_transform", "nsp_head"})
 
 
 def _is_linear_weight(key: str) -> bool:

@@ -25,6 +25,8 @@ __all__ = ["TrainStep", "make_sharded_train_step"]
 
 
 def _to_device(batch, device):
+    if batch is None:   # an absent input (no mask, no labels) stays absent
+        return None
     if isinstance(batch, dict):
         return {k: _to_device(v, device) for k, v in batch.items()}
     if isinstance(batch, (list, tuple)):
@@ -72,7 +74,11 @@ class TrainStep:
             p.grad = None
         loss = self.loss_fn(self.model, batch)
         loss.backward()
-        grads = {n: p.grad for n, p in self.params.items()}
+        # a parameter the loss does not reach (BERT's pooler and NSP head
+        # without NSP labels) gets a zero gradient, as jax.grad gives it, so
+        # the optimizer still decays it and steps its moments
+        grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
+                 for n, p in self.params.items()}
         self.optimizer.apply_gradients(self.params, grads, self.opt_state,
                                        lr)
         for p in self.params.values():

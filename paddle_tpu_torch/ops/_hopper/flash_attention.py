@@ -351,6 +351,34 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _FlashFwd.apply(q, k, v, bool(causal), scale)
 
 
+def flash_attention_hopper(query: torch.Tensor, key: torch.Tensor,
+                           value: torch.Tensor, causal: bool = False,
+                           scale: Optional[float] = None, segment_ids=None,
+                           segment_ids_k=None, dropout: float = 0.0,
+                           key_bias=None) -> torch.Tensor:
+    """``flash_attention_pallas``'s routing (``:909-926``), ``[B, S, H,
+    D]``: a d=64 MHA input whose sequence lengths are multiples of 128 and
+    whose ``pack_group(H)`` is non-zero goes to K4
+    (:func:`~.flash_attention_packed.flash_attention_packed`); any other
+    input goes to K1, whose segment ids, key bias and dropout are not
+    ported, so asking for them there raises ``NotImplementedError``."""
+    from .flash_attention_packed import flash_attention_packed, pack_group
+    b, sq, h, d = query.shape
+    sk, hk = key.shape[1], key.shape[2]
+    if d == 64 and hk == h and sq % 128 == 0 and sk % 128 == 0 and \
+            pack_group(h):
+        return flash_attention_packed(
+            query, key, value, causal=causal, scale=scale,
+            segment_ids=segment_ids, segment_ids_k=segment_ids_k,
+            dropout=dropout, key_bias=key_bias)
+    if segment_ids is not None or key_bias is not None or dropout > 0.0:
+        raise NotImplementedError(
+            f"K1's segment ids, key bias and dropout are not ported yet "
+            f"(ROADMAP Queue 2); this input (d={d}, H={h}, HK={hk}, "
+            f"Sq={sq}, Sk={sk}) takes K1, not K4")
+    return flash_fwd(query, key, value, causal=causal, scale=scale)[0]
+
+
 #: kernel launches since each count was last set to 0 (CUDA path only)
 flash_fwd.launches = 0
 flash_bwd_dq.launches = 0

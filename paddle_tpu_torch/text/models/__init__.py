@@ -1,6 +1,10 @@
-"""Model zoo of the port (GPT so far)."""
+"""Model zoo of the port (GPT and BERT so far)."""
 
+from .bert import (Bert, BertConfig, BertForPretraining,  # noqa: F401
+                   bert_base, bert_tiny)
 from .gpt import (GPT, GPTConfig, GPTForCausalLM, gpt3_1p3b,  # noqa: F401
                   gpt_tiny)
 
-__all__ = ["GPT", "GPTConfig", "GPTForCausalLM", "gpt3_1p3b", "gpt_tiny"]
+__all__ = ["Bert", "BertConfig", "BertForPretraining", "bert_base",
+           "bert_tiny", "GPT", "GPTConfig", "GPTForCausalLM", "gpt3_1p3b",
+           "gpt_tiny"]
