@@ -7,8 +7,9 @@ Builds the port's CUDA kernels from the sources in this checkout (nvcc, at
 first use), holds each kernel against its plain PyTorch version on the card,
 serves GPT-3 1.3B (``gpt3_1p3b``: 24 layers, hidden 2048, 16 heads, vocab
 50304; random weights from a seed) through ``ServingEngine``, trains it
-through ``TrainStep``, and trains BERT-base (12 layers, hidden 768, 12
-heads of 64, vocab 30522) the same way:
+through ``TrainStep``, trains BERT-base (12 layers, hidden 768, 12 heads of
+64, vocab 30522) the same way, and trains ResNet-50 at bench.py's config 2
+on its conv-kernel route:
 
 1. env     torch, CUDA, nvcc and the card as nvidia-smi names it;
 2. build   the kernels, timed, with ptxas's register and spill report;
@@ -37,11 +38,28 @@ heads of 64, vocab 30522) the same way:
            padded batch, through K4a and K4b;
 11. train_bert_bf16  the BERT slice: 12 layers, AMP-O2 AdamW, B=64 x
            S=512 in bench.py's dense, padded and packed forms; every step
-           runs K4a and K4b once per layer and no K1-K3.
+           runs K4a and K4b once per layer and no K1-K3;
+12. kernel_conv  K5-K8 (conv.cu: mm, mm_wgrad, c3, c3_wgrad) against their
+           plain versions, forward with stats, input gradient and weight
+           gradient, in 15 cases (stride 1 and 2, prologue with ReLU or
+           none or off, stats on and off, ragged M, odd H, f32, the three
+           B=256 shapes JAX's TPU rule keeps off its kernels, and layer1's
+           1x1 64->64 at B=256, whose dw split takes two reduction passes),
+           then compared again and timed at the JAX package's
+           RESNET50_TOP3_SHAPES at B=256 (stats over two reduction passes)
+           against their bounds, their plain versions and cuDNN;
+13. train_grad_f32_resnet  one forward and backward of ResNet-50 in f32 at
+           B=2 x 224² with both conv flags on, through K5-K8 on the card and
+           their plain versions on the CPU: loss, logits, BN buffers and
+           every gradient compared;
+14. train_resnet_bf16  the ResNet slice: ResNet-50 (NHWC, space-to-depth
+           stem) cast to bf16, Momentum(0.1, 0.9) with f32 masters, B=256 x
+           224², 2 warm-up and 8 timed steps; every step launches K5/K6/K7/K8
+           72/36/32/16 times and no K1-K4.
 
 ``--profile`` adds phases that serve the bf16 trace again and run a few
-GPT and BERT train steps under torch.profiler, and print the device busy
-share and the kernels that take the device's time. Each phase prints one
+GPT, BERT and ResNet train steps under torch.profiler, and print the device
+busy share and the kernels that take the device's time. Each phase prints one
 JSON line. Then come the ``{"kernels": [...]}`` line,
 the card's name and power limit, and the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script exits
@@ -1159,6 +1177,484 @@ def phase_train_bert_bf16(torch, np, hfa, hfp, peaks, BertForPretraining,
     return launches_all
 
 
+# -- phases 12 to 14 ---------------------------------------------------------
+
+# name, kind, N, H, W, Cin, Cout, stride, act (None: no prologue), stats, dtype
+CONV_CASES = [
+    ("1x1_56_256to64_relu", "conv1x1", 8, 56, 56, 256, 64, 1, "relu", True,
+     "bf16"),
+    ("1x1_56_64to256_none", "conv1x1", 8, 56, 56, 64, 256, 1, "none", True,
+     "bf16"),
+    ("1x1_28_no_prologue_no_stats", "conv1x1", 4, 28, 28, 128, 512, 1, None,
+     False, "bf16"),
+    ("1x1_s2_56to28_downsample", "conv1x1", 8, 56, 56, 256, 512, 2, None,
+     True, "bf16"),
+    ("3x3_56_64to64_relu", "conv3x3", 8, 56, 56, 64, 64, 1, "relu", True,
+     "bf16"),
+    ("3x3_s2_56to28_relu", "conv3x3", 8, 56, 56, 128, 128, 2, "relu", True,
+     "bf16"),
+    ("3x3_7x7_m147_ragged", "conv3x3", 3, 7, 7, 512, 512, 1, "relu", True,
+     "bf16"),
+    ("3x3_s2_14to7_no_stats", "conv3x3", 5, 14, 14, 256, 256, 2, "none",
+     False, "bf16"),
+    ("f32_1x1_s2_9to5_ragged", "conv1x1", 3, 9, 9, 40, 72, 2, "relu", True,
+     "f32"),
+    ("f32_3x3_s2_9to5_ragged", "conv3x3", 3, 9, 9, 40, 72, 2, "none", True,
+     "f32"),
+    ("f32_3x3_14_no_prologue", "conv3x3", 2, 14, 14, 64, 64, 1, None, True,
+     "f32"),
+    # ResNet-50 at B=256: the convs that JAX's 16 MB VMEM rule sends to lax
+    ("b256_3x3_s2_14to7_512", "conv3x3", 256, 14, 14, 512, 512, 2, "relu",
+     True, "bf16"),
+    ("b256_1x1_s2_14to7_1024to2048", "conv1x1", 256, 14, 14, 1024, 2048, 2,
+     None, True, "bf16"),
+    ("b256_3x3_7_512", "conv3x3", 256, 7, 7, 512, 512, 1, "relu", True,
+     "bf16"),
+    # layer1's 64->64 1x1 at B=256: K6 splits M 1,004 ways, two passes of
+    # the fixed-order reduction
+    ("b256_1x1_56_64to64_relu", "conv1x1", 256, 56, 56, 64, 64, 1, "relu",
+     True, "bf16"),
+]
+
+CONV_KERNELS = ("mm", "mm_wgrad", "c3", "c3_wgrad")
+
+
+def conv_counts(hc):
+    return {name: getattr(hc, name).launches for name in CONV_KERNELS}
+
+
+def zero_conv_counts(hc):
+    for name in CONV_KERNELS:
+        getattr(hc, name).launches = 0
+
+
+def compare_sum(torch, name, got, ref, scale, row):
+    """An f32 sum against its plain version, within 1e-4 of ``scale``: the
+    sums run over up to 802,816 rows (stats, weight gradients) in other
+    orders, and each is at most ``scale`` in size (the largest |value| for
+    sums of squares and gradients; sqrt(M·sumsq) for a sum that cancels).
+    Returns the max error."""
+    check(got.shape == ref.shape and got.dtype == ref.dtype == torch.float32,
+          f"{name}: {tuple(got.shape)} {got.dtype}")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    err = float((got - ref).abs().max())
+    row.update({f"max_abs_err_{name}": err, f"scale_{name}": scale})
+    row["ok"] = row.get("ok", True) and err <= 1e-4 * scale
+    return err
+
+
+def hold_conv(torch, part, got, ref, dt, row, stats=False):
+    """One K5-K8 call's outputs against its plain version's, logged in
+    ``row``: ``part`` "fwd" (y and, with ``stats``, the f32 (sum, sumsq)
+    from K5/K7's multi-pass reduction; zeros without), "dgrad" (dx) or
+    "wgrad" (K6/K8's split-K dw, f32). Returns ``(the output elements' max
+    abs error, the stats' max error over their scale or None)``."""
+    if part == "wgrad":
+        return compare_sum(torch, "dw", got, ref, float(ref.abs().max()),
+                           row), None
+    if part == "dgrad":
+        return compare(torch, "dx", got[0], ref[0], dt, row), None
+    (y, st, sst), (ry, rs, rss) = got, ref
+    err = compare(torch, "y", y, ry, dt, row)
+    if not stats:
+        row["ok"] &= float(st.abs().max()) == float(sst.abs().max()) == 0.0
+        return err, None
+    m = y.numel() // y.shape[-1]
+    rel = max(compare_sum(torch, "s", st, rs,
+                          float((m * rss).sqrt().max()), row) / row["scale_s"],
+              compare_sum(torch, "ss", sst, rss, float(rss.max()), row) /
+              row["scale_ss"])
+    row["stats_rel_err"] = rel
+    return err, rel
+
+
+def conv_plan(hc, n, ho, wo, cin, cout, k):
+    """How the kernels cut a conv with ``n·ho·wo`` output pixels: K5/K7's
+    row blocks, whose stats partials the reduction sums in 256-row passes,
+    and K6/K8's split of M (``_wgrad_launch``)."""
+    m = n * ho * wo
+    tiles = k * k * -(-cin // 64) * -(-cout // 64)
+    return {"fwd_blocks": -(-m // hc._FWD_ROWS),
+            "wgrad_splits": hc.wgrad_splits(m, tiles)[0]}
+
+
+def conv_case(torch, hc, case, g):
+    """One case through K5/K7 (forward with its stats, and the input
+    gradient) and K6/K8 (the weight gradient with the prologue), each
+    against its plain version on the same inputs; one row of errors."""
+    name, kind, n, h, w, cin, cout, s, act, stats, dt = case
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    k = 1 if kind == "conv1x1" else 3
+    ho, wo = (h - 1) // s + 1, (w - 1) // s + 1
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") *
+                scale).to(dtype)
+
+    x = randn(n, h, w, cin)
+    wgt = randn(cout, cin, k, k, scale=(cin * k * k) ** -0.5)
+    sc = None if act is None else randn(cin).float()
+    sh = None if act is None else randn(cin).float()
+    a = act or "none"
+    dy = randn(n, ho, wo, cout)
+    wt = hc.fwd_weight(wgt, dtype)
+    op, wm = hc.dgrad_operands(dy, wgt, s)
+    if k == 1:
+        fwd = (hc.mm, hc.mm_reference, (x, wt[0], sc, sh, a, stats, s))
+        dgrad = (hc.mm, hc.mm_reference, (op, wm[0], None, None, "none",
+                                           False, 1))
+        wgrad = (hc.mm_wgrad, hc.mm_wgrad_reference, (x, dy, sc, sh, a, s))
+    else:
+        fwd = (hc.c3, hc.c3_reference, (x, wt, sc, sh, a, stats, s))
+        dgrad = (hc.c3, hc.c3_reference, (op, wm, None, None, "none", False,
+                                           1, (h, w)))
+        wgrad = (hc.c3_wgrad, hc.c3_wgrad_reference, (x, dy, sc, sh, a, s))
+    row = {"case": name, "shape": [n, h, w, cin, cout, k, s], "act": act,
+           "stats": stats, "dtype": dt,
+           **conv_plan(hc, n, ho, wo, cin, cout, k)}
+    errs = {}
+    for part, (kern, plain, args) in (("fwd", fwd), ("dgrad", dgrad),
+                                      ("wgrad", wgrad)):
+        got = kern(*args)
+        torch.cuda.synchronize()
+        errs[part] = hold_conv(torch, part, got, plain(*args), dt, row,
+                               stats)
+        torch.cuda.synchronize()
+        if part == "dgrad":
+            # K7's dgrad gives the input's size; K5's the strided pixels,
+            # which conv2d_dgrad scatters into zeros
+            check(tuple(got[0].shape[1:3]) == ((h, w) if k == 3 else
+                                               (ho, wo)),
+                  f"{name}: dgrad shape {tuple(got[0].shape)}")
+    check(row["ok"], f"K5-K8 disagree with their plain versions: {row}")
+    fwd_name = "mm" if k == 1 else "c3"
+    return row, {fwd_name: (max(errs["fwd"][0], errs["dgrad"][0]),
+                            errs["fwd"][1]),
+                 fwd_name + "_wgrad": errs["wgrad"]}
+
+
+def conv_bound(peaks, flops, nbytes):
+    t_ops = flops / peaks["bf16"] * 1e3
+    t_bytes = nbytes / peaks["bytes"] * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_kernel_conv(torch, hc, peaks):
+    """K5-K8 against their plain versions in every case, then each kernel,
+    its plain version and the library call timed at the JAX package's
+    per-shape A/B shapes (``RESNET50_TOP3_SHAPES``, B=256, bf16, the
+    prologue on with ReLU), where each kernel's outputs are held against
+    the plain version's too. Returns, per kernel, the output elements' max
+    abs error; for K5 and K7, the stats' max error over their scale; and
+    the timings."""
+    import torch.nn.functional as TF
+    g = torch.Generator(device="cuda")
+    g.manual_seed(12)
+    results = []
+    worst = {name: 0.0 for name in CONV_KERNELS}
+    stats_rel = {"mm": 0.0, "c3": 0.0}
+
+    def note(kname, err, rel):
+        worst[kname] = max(worst[kname], err)
+        if rel is not None:
+            stats_rel[kname] = max(stats_rel[kname], rel)
+
+    for case in CONV_CASES:
+        row, errs = conv_case(torch, hc, case, g)
+        results.append(row)
+        for kname, (err, rel) in errs.items():
+            note(kname, err, rel)
+
+    timing = {}
+    for kind, n, h, w, cin, cout, s in hc.RESNET50_TOP3_SHAPES:
+        k = 1 if kind == "conv1x1" else 3
+        pad = (k - 1) // 2
+        bf = torch.bfloat16
+        x = torch.randn(n, h, w, cin, generator=g, device="cuda").to(bf)
+        wgt = (torch.randn(cout, cin, k, k, generator=g, device="cuda") *
+               (cin * k * k) ** -0.5).to(bf)
+        sc = torch.randn(cin, generator=g, device="cuda")
+        sh = torch.randn(cin, generator=g, device="cuda")
+        dy = torch.randn(n, h, w, cout, generator=g, device="cuda").to(bf)
+        wt = hc.fwd_weight(wgt, bf)
+        op, wm = hc.dgrad_operands(dy, wgt, 1)
+        # the library: cuDNN in channels-last on the prologued input,
+        # without the prologue and the stats
+        a_t = hc._prologue(x, sc, sh, "relu").permute(0, 3, 1, 2)
+        dy_t = dy.permute(0, 3, 1, 2)
+        w_cl = wgt.contiguous(memory_format=torch.channels_last)
+        if k == 1:
+            ops = {"mm": (hc.mm, hc.mm_reference,
+                          (x, wt[0], sc, sh, "relu", True, 1),
+                          lambda: TF.conv2d(a_t, w_cl)),
+                   "mm_dgrad": (hc.mm, hc.mm_reference,
+                                (op, wm[0], None, None, "none", False, 1),
+                                lambda: torch.nn.grad.conv2d_input(
+                                    a_t.shape, w_cl, dy_t)),
+                   "mm_wgrad": (hc.mm_wgrad, hc.mm_wgrad_reference,
+                                (x, dy, sc, sh, "relu", 1),
+                                lambda: torch.nn.grad.conv2d_weight(
+                                    a_t, wgt.shape, dy_t))}
+        else:
+            ops = {"c3": (hc.c3, hc.c3_reference,
+                          (x, wt, sc, sh, "relu", True, 1),
+                          lambda: TF.conv2d(a_t, w_cl, padding=pad)),
+                   "c3_dgrad": (hc.c3, hc.c3_reference,
+                                (op, wm, None, None, "none", False, 1,
+                                 (h, w)),
+                                lambda: torch.nn.grad.conv2d_input(
+                                    a_t.shape, w_cl, dy_t, padding=pad)),
+                   "c3_wgrad": (hc.c3_wgrad, hc.c3_wgrad_reference,
+                                (x, dy, sc, sh, "relu", 1),
+                                lambda: torch.nn.grad.conv2d_weight(
+                                    a_t, wgt.shape, dy_t, padding=pad))}
+        m = n * h * w
+        act_bytes = {"in": m * cin * 2, "out": m * cout * 2}
+        w_bytes, st_bytes = cin * cout * k * k * 2, 2 * cin * 4
+        flops = 2 * m * cin * cout * k * k
+        shape_key = f"{kind} {n}x{h}x{w} {cin}->{cout} s{s}"
+        timing[shape_key] = {}
+        plan = conv_plan(hc, n, h, w, cin, cout, k)
+        for oname, (kern, plain, args, lib) in ops.items():
+            part = oname.partition("_")[2] or "fwd"
+            row = {"case": f"top3 {shape_key} {part}", "dtype": "bf16",
+                   **plan}
+            got = kern(*args)
+            torch.cuda.synchronize()
+            err, rel = hold_conv(torch, part, got, plain(*args), "bf16",
+                                 row, stats=part == "fwd")
+            del got
+            check(row["ok"], f"K5-K8 disagree with their plain versions: "
+                             f"{row}")
+            results.append(row)
+            note(oname.replace("_dgrad", ""), err, rel)
+            if oname.endswith("dgrad"):     # dy and w in, dx out
+                nbytes = act_bytes["out"] + w_bytes + act_bytes["in"]
+            elif oname.endswith("wgrad"):   # x, dy, scale, shift in; dw f32
+                nbytes = act_bytes["in"] + act_bytes["out"] + st_bytes + \
+                    cin * cout * k * k * 4
+            else:                           # x, w, scale, shift in; y, stats
+                nbytes = act_bytes["in"] + w_bytes + st_bytes + \
+                    act_bytes["out"] + 2 * cout * 4
+            ms = median_ms(lambda: kern(*args))
+            bound, by = conv_bound(peaks, flops, nbytes)
+            timing[shape_key][oname] = {
+                "kernel_ms": ms,
+                "plain_ms": median_ms(lambda: plain(*args), iters=5,
+                                      warmup=1),
+                "library_ms": median_ms(lib), "flops": flops,
+                "bytes": nbytes, "bound_ms": bound, "bound_by": by,
+                "peak_sheet": peaks["sheet"],
+                "tflops": flops / ms / 1e9}
+    # the main path's reductions at B=256 (K5/K7's stats over 6,272 blocks
+    # at 56², K6's dw over 1,004 splits for the 64->64 1x1) take more than
+    # one 256-row pass: some compared case must too
+    check(max(r["fwd_blocks"] for r in results if r.get("stats_rel_err")
+              is not None) > 256 and
+          max(r["wgrad_splits"] for r in results if "max_abs_err_dw" in r)
+          > 256, "no compared case reaches the multi-pass reductions")
+    emit({"phase": "kernel_conv", "kernels": list(CONV_KERNELS),
+          "cases": results, "timing": timing,
+          "library": "cuDNN through torch in channels-last bf16 on the "
+                     "prologued input: F.conv2d, torch.nn.grad.conv2d_input, "
+                     "torch.nn.grad.conv2d_weight; the library time has no "
+                     "prologue and no stats"})
+    top = list(timing.values())
+    return worst, stats_rel, {
+        "mm": top[0]["mm"], "mm_wgrad": top[0]["mm_wgrad"],
+        "c3": top[2]["c3"], "c3_wgrad": top[2]["c3_wgrad"]}
+
+
+RESNET_LAUNCHES = {"mm": 72, "mm_wgrad": 36, "c3": 32, "c3_wgrad": 16}
+
+
+def resnet_flops_per_image(model, img: int) -> int:
+    """The forward's conv and fc FLOPs of one image (2 per multiply-add):
+    the 7x7/s2 stem counted as itself (its space-to-depth 4x4 form adds
+    zero taps), each block's convs at their output sizes, the fc."""
+    hw = img // 2                            # the stem's output side
+    flops = 2 * hw * hw * 64 * 3 * 7 * 7
+    hw = (hw - 1) // 2 + 1                   # the max-pool
+    for layer in (model.layer1, model.layer2, model.layer3, model.layer4):
+        for blk in layer:
+            s = blk.conv2.stride if isinstance(blk.conv2.stride, int) \
+                else blk.conv2.stride[0]
+            out = (hw - 1) // s + 1
+            for conv, side in ((blk.conv1, hw), (blk.conv2, out),
+                               (blk.conv3, out)):
+                o, i, kh, kw = conv.weight.shape
+                flops += 2 * side * side * o * i * kh * kw
+            if blk.downsample is not None:
+                o, i = blk.downsample[0].weight.shape[:2]
+                flops += 2 * out * out * o * i
+            hw = out
+    return flops + 2 * model.fc.in_features * model.fc.out_features
+
+
+def resnet_loss(model, batch):
+    """bench.py's loss (``:425-429``): the mean cross-entropy of the f32
+    logits."""
+    from paddle_tpu_torch.nn.functional import cross_entropy
+    x, y = batch
+    return cross_entropy(model(x).float(), y, reduction="mean")
+
+
+def phase_train_grad_f32_resnet(torch, np, hc, resnet50, cross_entropy):
+    """ResNet-50 (1000 classes, NHWC, space-to-depth stem) in f32 at B=2 x
+    224², both flags on: the same weights and batch through one forward
+    and backward on the card (K5-K8, TF32 off for the stem's cuDNN conv)
+    and on the CPU (their plain versions). Every gradient, the logits, the
+    loss and the updated BN buffers compared; all 52 convs at their real
+    shapes, the four that JAX's TPU rule sends to lax included."""
+    gpu = resnet50(data_format="NHWC", stem_mode="space_to_depth",
+                   device="cuda", seed=0)
+    cpu = resnet50(data_format="NHWC", stem_mode="space_to_depth",
+                   device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((2, 224, 224, 3)).astype(np.float32)
+    y = rng.integers(0, 1000, (2,))
+    before = conv_counts(hc)
+    out = {}
+    for name, model in (("gpu", gpu), ("cpu", cpu)):
+        model.train()
+        t0 = time.perf_counter()
+        logits = model(torch.as_tensor(x, device=model.device))
+        loss = cross_entropy(logits.float(),
+                             torch.as_tensor(y, device=model.device))
+        loss.backward()
+        out[name] = (float(loss.detach()), logits.detach().cpu(),
+                     time.perf_counter() - t0)
+    launches = {k: v - before[k] for k, v in conv_counts(hc).items()}
+    check(launches == RESNET_LAUNCHES,
+          f"train_grad_f32_resnet: launches {launches}")
+    worst_norm, worst_name, worst_max = 0.0, None, 0.0
+    cpu_params = dict(cpu.named_parameters())
+    for name, p in gpu.named_parameters():
+        g_gpu = p.grad.cpu()
+        g_cpu = cpu_params[name].grad
+        check(bool(torch.isfinite(g_gpu).all()), f"{name}: non-finite grad")
+        rel = float((g_gpu - g_cpu).norm() / g_cpu.norm().clamp_min(1e-30))
+        worst_max = max(worst_max, float((g_gpu - g_cpu).abs().max() /
+                                         g_cpu.abs().max().clamp_min(1e-30)))
+        if rel >= worst_norm:
+            worst_norm, worst_name = rel, name
+    cpu_bufs = dict(cpu.named_buffers())
+    buf_err = max(float((b.cpu() - cpu_bufs[n]).abs().max() /
+                        (1 + cpu_bufs[n].abs().max()))
+                  for n, b in gpu.named_buffers())
+    loss_err = abs(out["gpu"][0] - out["cpu"][0])
+    logit_err = float((out["gpu"][1] - out["cpu"][1]).abs().max())
+    row = {"phase": "train_grad_f32_resnet", "model": "resnet50",
+           "batch": [2, 224, 224, 3], "loss_gpu": out["gpu"][0],
+           "loss_cpu": out["cpu"][0], "loss_abs_err": loss_err,
+           "logits_max_abs_err": logit_err, "buffers_rel_err": buf_err,
+           "grad_tensors": len(cpu_params), "worst_tensor": worst_name,
+           "worst_norm_rel_err": worst_norm,
+           "worst_max_rel_err": worst_max, "gpu_s": out["gpu"][2],
+           "cpu_s": out["cpu"][2], "launches": launches,
+           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    emit(row)
+    # f32 on both sides, sums in other orders. This random-init net at
+    # B=2 amplifies rounding: on the CPU alone a 1e-7 relative change of
+    # the input moves the loss by 1.2e-5, the logits by 6.5e-5, the
+    # buffers by 1.2e-6 and the gradients by up to 3.4% of a tensor's
+    # 2-norm (27% of its largest; tools/resnet_grad_sensitivity.py), so
+    # the gradients are held in the norm, at 1e-1
+    check(loss_err <= 1e-4, f"train_grad_f32_resnet: loss differs: {row}")
+    check(logit_err <= 1e-3, f"train_grad_f32_resnet: logits differ: {row}")
+    check(buf_err <= 1e-4, f"train_grad_f32_resnet: buffers differ: {row}")
+    check(worst_norm <= 1e-1,
+          f"train_grad_f32_resnet: gradients differ: {row}")
+    del gpu, cpu
+
+
+def phase_train_resnet_bf16(torch, np, hc, hfa, hfp, peaks, resnet50,
+                            Momentum, make_sharded_train_step,
+                            profile=False):
+    """The ResNet slice at bench.py's config 2 on its conv-kernel route
+    (``bench_pallas_conv_ab``): ResNet-50, NHWC, space-to-depth stem, cast
+    to bf16 (BN buffers too), Momentum(0.1, 0.9) with f32 masters, B=256 x
+    224² from ``default_rng(0)``, the same batch every step, both flags on;
+    2 warm-up and 8 timed steps. Every step runs K5/K6/K7/K8 72/36/32/16
+    times and no K1-K4."""
+    batch, img, warmup, timed = 256, 224, 2, 8
+    model = resnet50(data_format="NHWC", stem_mode="space_to_depth",
+                     device="cuda", seed=0)
+    model.train()
+    model.to(torch.bfloat16)
+    opt = Momentum(learning_rate=0.1, momentum=0.9, multi_precision=True)
+    step = make_sharded_train_step(model, opt, resnet_loss)
+    rng = np.random.default_rng(0)
+    # float64 normals rounded once to bf16, as jnp.asarray(..., bfloat16)
+    x = torch.from_numpy(rng.standard_normal((batch, img, img, 3))).to(
+        "cuda").to(torch.bfloat16)
+    y = torch.as_tensor(rng.integers(0, 1000, (batch,)), device="cuda")
+    flops_per_image = 3 * resnet_flops_per_image(model, img)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts are set to 0 just before it and read after
+    zero_conv_counts(hc)
+    zero_counts(hfa, hfp)
+    losses, times = [], []
+    for i in range(warmup + timed):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = step.step((x, y))
+        end.record()
+        end.synchronize()
+        losses.append(float(loss))
+        if i >= warmup:
+            times.append(start.elapsed_time(end))
+    launches = {**conv_counts(hc), **k4_counts(hfa, hfp)}
+    n_steps = warmup + timed
+    images_per_s = timed * batch / (sum(times) / 1e3)
+    buf_dtypes = sorted({str(b.dtype) for b in model.buffers()})
+    row = {"phase": "train_resnet_bf16", "model": "resnet50",
+           "batch": [batch, img, img, 3], "dtype": "bf16 (model.to)",
+           "optimizer": "Momentum(0.1, momentum=0.9, multi_precision=True)",
+           "flags": {"fused_conv_bn": 1, "pallas_conv": 1},
+           "losses": losses, "warmup_steps": warmup, "timed_steps": timed,
+           "step_ms": times, "step_p50_ms": percentile(times, 50),
+           "step_p99_ms": percentile(times, 99),
+           "images_per_s": images_per_s,
+           "flops_per_image": flops_per_image,
+           "mfu": flops_per_image * images_per_s / peaks["bf16"],
+           "peak_sheet": peaks["sheet"],
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "bn_buffer_dtypes": buf_dtypes, "launches": launches}
+    emit(row)
+    check(all(math.isfinite(v) for v in losses), f"non-finite loss: {row}")
+    # ln 1000 = 6.91 at init, plus about sigma^2 / 2 for the spread sigma
+    # of the random logits (7.61 for this model in f32 at B=2 on the CPU)
+    check(math.log(1000) - 0.5 <= losses[0] <= math.log(1000) + 1.5,
+          f"step-0 loss {losses[0]}")
+    for name, per_step in RESNET_LAUNCHES.items():
+        check(launches[name] == per_step * n_steps,
+              f"{name}: {launches[name]} launches in {n_steps} steps, "
+              f"expected {per_step} a step")
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                 "flash_packed_fwd", "flash_packed_bwd"):
+        check(launches[name] == 0,
+              f"ResNet training launched {name} {launches[name]} times")
+    check(buf_dtypes == ["torch.float32"],
+          f"BN buffers are {buf_dtypes} after a step, not float32")
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                step.step((x, y))
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        emit({"phase": "profile_train_resnet", "steps": 3,
+              **device_profile(prof, wall_ms)})
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1178,6 +1674,11 @@ def main() -> int:
                                                        bert_base)
         from paddle_tpu_torch.text.models.gpt import (GPTForCausalLM,
                                                       gpt3_1p3b, gpt_tiny)
+        from paddle_tpu_torch.core import flags
+        from paddle_tpu_torch.nn.functional import cross_entropy
+        from paddle_tpu_torch.ops._hopper import conv as hc
+        from paddle_tpu_torch.optimizer import Momentum
+        from paddle_tpu_torch.vision.models import resnet50
     except ImportError as e:
         print(f"chip_smoke: the paddle_tpu_torch package must sit beside "
               f"this script ({e})", file=sys.stderr)
@@ -1195,6 +1696,11 @@ def main() -> int:
     worst, timing = phase_kernel(torch, hfa, peaks)
     worst_bwd, timing_bwd = phase_kernel_bwd(torch, hfa, peaks)
     worst_packed, timing_packed = phase_kernel_packed(torch, np, hfp, peaks)
+    worst_conv, stats_conv, timing_conv = phase_kernel_conv(torch, hc,
+                                                            peaks)
+    # the GPT and BERT paths launch no conv kernel: the counts run from here
+    # to the end of BERT training
+    zero_conv_counts(hc)
 
     # the GPT paths launch no K4: its counts run from here to the end of
     # GPT training
@@ -1231,14 +1737,33 @@ def main() -> int:
     bert_launches = phase_train_bert_bf16(
         torch, np, hfa, hfp, peaks, BertForPretraining, bert_base, amp,
         AdamW, make_sharded_train_step, profile=profile)
+    text_conv = conv_counts(hc)
+    check(all(n == 0 for n in text_conv.values()),
+          f"the GPT and BERT paths launched conv kernels: {text_conv}")
+    for launches in (serve_launches, train_launches, bert_launches):
+        launches.update(text_conv)
+    torch.cuda.empty_cache()
+
+    # bench.py's route for the ResNet A/B (:531-534): both flags on
+    flags.set_flags({"fused_conv_bn": 1, "pallas_conv": 1})
+    phase_train_grad_f32_resnet(torch, np, hc, resnet50, cross_entropy)
+    torch.cuda.empty_cache()
+    resnet_launches = phase_train_resnet_bf16(
+        torch, np, hc, hfa, hfp, peaks, resnet50, Momentum,
+        make_sharded_train_step, profile=profile)
 
     # `launches` is the count on each kernel's first main path: serving
     # for K1 (as the line has counted it from the start), GPT training for
-    # K2/K3, BERT training (all three forms) for K4a/K4b; every entry also
-    # has every path's count. `max_err` and `kernel_ms` repeat
-    # `max_abs_err` and `ms` under the names the line first used.
+    # K2/K3, BERT training (all three forms) for K4a/K4b, ResNet training
+    # for K5-K8; every entry also has every path's count. `max_abs_err` is
+    # the largest error of an output element (y, dx, dw, o, dq, ...) against
+    # the plain version; `stats_rel_err` that of K5/K7's f32 (sum, sumsq)
+    # over their scale (null for the other kernels). `max_err` and
+    # `kernel_ms` repeat `max_abs_err` and `ms` under the names the line
+    # first used.
     fa = "paddle_tpu/ops/_pallas/flash_attention.py:"
     fp = "paddle_tpu/ops/_pallas/flash_attention_packed.py:"
+    fc = "paddle_tpu/ops/_pallas/conv.py:"
     worst = max(worst, worst_bwd["flash_fwd"])
     kernels = []
     for name, source, line, t, err, launches in (
@@ -1259,7 +1784,19 @@ def main() -> int:
              "(_bwd_fused_kernel, launched by _bwd at :544)",
              timing_packed["flash_packed_bwd"],
              worst_packed["flash_packed_bwd"],
-             bert_launches["flash_packed_bwd"])):
+             bert_launches["flash_packed_bwd"]),
+            ("mm", "conv.cu", fc + "142 (_mm_kernel, launched by _mm at "
+             ":186; also the 1x1 dgrad at :531)", timing_conv["mm"],
+             worst_conv["mm"], resnet_launches["mm"]),
+            ("mm_wgrad", "conv.cu", fc + "221 (_mm_wgrad_kernel, launched "
+             "by _mm_wgrad at :254)", timing_conv["mm_wgrad"],
+             worst_conv["mm_wgrad"], resnet_launches["mm_wgrad"]),
+            ("c3", "conv.cu", fc + "311 (_c3_kernel, launched by _c3 at "
+             ":364; also the 3x3 dgrad at :554)", timing_conv["c3"],
+             worst_conv["c3"], resnet_launches["c3"]),
+            ("c3_wgrad", "conv.cu", fc + "401 (_c3_wgrad_kernel, launched "
+             "by _c3_wgrad at :441)", timing_conv["c3_wgrad"],
+             worst_conv["c3_wgrad"], resnet_launches["c3_wgrad"])):
         kernels.append({
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/ops/_hopper/csrc/" + source,
@@ -1267,7 +1804,9 @@ def main() -> int:
             "serve_launches": serve_launches[name],
             "train_launches": train_launches[name],
             "bert_launches": bert_launches[name],
+            "resnet_launches": resnet_launches[name],
             "max_abs_err": err, "max_err": err,
+            "stats_rel_err": stats_conv.get(name),
             "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

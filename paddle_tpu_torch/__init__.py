@@ -15,7 +15,13 @@ Ported so far: the serving path — ``serving.ServingEngine`` over
 forward kernel (``ops/_hopper/csrc/flash_fwd.cu``) — and the training
 path — ``framework.TrainStep`` with ``optimizer`` (AdamW and others),
 ``amp.decorate`` O2 and the GPT loss, whose attention backward runs the
-dq and dk/dv kernels (``ops/_hopper/csrc/flash_bwd.cu``).
+dq and dk/dv kernels (``ops/_hopper/csrc/flash_bwd.cu``); BERT pretraining
+(``text.models.bert``, attention at head dim 64 on
+``ops/_hopper/csrc/flash_packed.cu``); and ResNet training
+(``vision.models.resnet``), whose convs, with the flags
+``fused_conv_bn`` and ``pallas_conv`` of :mod:`.core.flags` on, run the
+conv kernels with the BN prologue and stat epilogue
+(``ops/_hopper/csrc/conv.cu``).
 """
 
 from .core.device import resolve_device  # noqa: F401

@@ -3,7 +3,8 @@
 The JAX layers keep Linear weights as ``[in, out]`` (Paddle's layout); the
 port's ``nn.Linear`` keeps ``[out, in]``. :func:`from_jax_state_dict`
 transposes every Linear weight and copies everything else (biases,
-embeddings, LayerNorm scales) as it is. Keys are the same on both sides,
+embeddings, LayerNorm and BatchNorm scales, BatchNorm's running-stat
+buffers, conv weights) as it is. Keys are the same on both sides,
 so ``model.load_state_dict(from_jax_state_dict(sd))`` (strict) proves that
 no key is dropped and none is left uninitialised. :func:`to_jax_state_dict`
 is its inverse, and :func:`from_jax_optimizer_state` carries the JAX
@@ -26,10 +27,12 @@ __all__ = ["LINEAR_NAMES", "from_jax_state_dict", "to_jax_state_dict",
            "from_jax_optimizer_state"]
 
 #: attribute names of the Linear layers whose weights are transposed (GPT,
-#: then BERT's encoder layers and heads)
+#: then BERT's encoder layers and heads, then ResNet's classifier). Conv
+#: weights are OIHW in both packages and copy as they are.
 LINEAR_NAMES = frozenset({"qkv_proj", "q_proj", "kv_proj", "out_proj", "up",
                           "down", "lm_head", "k_proj", "v_proj", "linear1",
-                          "linear2", "pooler", "mlm_transform", "nsp_head"})
+                          "linear2", "pooler", "mlm_transform", "nsp_head",
+                          "fc"})
 
 
 def _is_linear_weight(key: str) -> bool:

@@ -116,7 +116,12 @@ class TrainStep:
             self.params[n].copy_(torch.as_tensor(v))
         buffers = dict(self.model.named_buffers())
         for n, v in state.get("buffers", {}).items():
-            buffers[n].copy_(torch.as_tensor(v))
+            # replaced in the saved dtype, not copied into the current
+            # buffer: BN's running stats come back float32 from a step of a
+            # bf16 model, and a copy would round them to bf16
+            owner, _, leaf = n.rpartition(".")
+            setattr(self.model.get_submodule(owner), leaf, torch.as_tensor(
+                v, device=buffers[n].device).clone())
         opt = state["opt_state"]
         self.opt_state = {
             "step": torch.as_tensor(opt["step"], dtype=torch.int32,

@@ -1,11 +1,14 @@
 """Layers, functional ops and gradient clipping of the port
-(``paddle_tpu/nn`` counterpart; the GPT and BERT training slices' subset)."""
+(``paddle_tpu/nn`` counterpart; the GPT, BERT and ResNet training slices'
+subset)."""
 
 from . import functional  # noqa: F401
 from .clip import ClipGradByGlobalNorm  # noqa: F401
-from .layers import (Dropout, MultiHeadAttention,  # noqa: F401
-                     TransformerEncoder, TransformerEncoderLayer)
+from .layers import (AdaptiveAvgPool2D, BatchNorm2D,  # noqa: F401
+                     Conv2D, Dropout, MaxPool2D, MultiHeadAttention, ReLU,
+                     Sequential, TransformerEncoder, TransformerEncoderLayer)
 
-__all__ = ["functional", "ClipGradByGlobalNorm", "Dropout",
-           "MultiHeadAttention", "TransformerEncoder",
+__all__ = ["functional", "ClipGradByGlobalNorm", "AdaptiveAvgPool2D",
+           "BatchNorm2D", "Conv2D", "Dropout", "MaxPool2D",
+           "MultiHeadAttention", "ReLU", "Sequential", "TransformerEncoder",
            "TransformerEncoderLayer"]

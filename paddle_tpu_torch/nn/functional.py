@@ -1,20 +1,26 @@
 """Functional ops of the port (``paddle_tpu/nn/functional.py`` counterpart).
 
-So far what the GPT and BERT training paths need: :func:`cross_entropy`
-with hard labels, :func:`scaled_dot_product_attention` with its routing to
-the attention kernels, and :func:`dropout` at rate 0 or in eval mode.
+So far what the GPT, BERT and ResNet training paths need:
+:func:`cross_entropy` with hard labels, :func:`scaled_dot_product_attention`
+with its routing to the attention kernels, :func:`dropout` at rate 0 or in
+eval mode, and for ResNet :func:`relu`, :func:`conv2d` (NCHW or NHWC, a
+library convolution, 1x1 NHWC as a matmul), :func:`max_pool2d`,
+:func:`adaptive_avg_pool2d` and :func:`batch_norm` with the closed-form
+backward.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as TF
 
 from ..ops._hopper.flash_attention import flash_attention_hopper
 
-__all__ = ["cross_entropy", "dropout", "scaled_dot_product_attention"]
+__all__ = ["adaptive_avg_pool2d", "batch_norm", "conv2d", "cross_entropy",
+           "dropout", "max_pool2d", "relu", "scaled_dot_product_attention"]
 
 
 def cross_entropy(input: torch.Tensor, label: torch.Tensor, weight=None,
@@ -167,3 +173,209 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                 (b, sq), dtype=torch.int32, device=query.device),
             segment_ids_k=seg_k, key_bias=bias)
     return _dense_attention(query, key, value, attn_mask, is_causal, scale)
+
+
+# ---------------------------------------------------------------------------
+# Convolution, pooling and BatchNorm (the ResNet path)
+# ---------------------------------------------------------------------------
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp_min(x, 0)
+
+
+def _pair(v) -> Tuple[int, int]:
+    if isinstance(v, (list, tuple)):
+        if len(v) != 2:
+            raise ValueError(f"expected 2 values, got {v!r}")
+        return int(v[0]), int(v[1])
+    return int(v), int(v)
+
+
+def _nchw(x: torch.Tensor, data_format: str) -> torch.Tensor:
+    """An NCHW view of ``x`` (NHWC data becomes a channels-last view, no
+    copy)."""
+    if data_format not in ("NCHW", "NHWC"):
+        raise ValueError(f"data_format must be 'NCHW' or 'NHWC'; got "
+                         f"{data_format!r}")
+    return x if data_format == "NCHW" else x.permute(0, 3, 1, 2)
+
+
+def _back(y: torch.Tensor, data_format: str) -> torch.Tensor:
+    return y if data_format == "NCHW" else y.permute(0, 2, 3, 1)
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1,
+           groups: int = 1, data_format: str = "NCHW"):
+    """2-D convolution, weight ``[out, in/groups, kh, kw]`` (OIHW) in both
+    layouts; ``padding`` an int, a pair or ``"SAME"``/``"VALID"``. A library
+    convolution (cuDNN on the GPU, channels-last for NHWC), as the JAX
+    function is ``lax.conv_general_dilated``; an NHWC 1x1 conv with no
+    padding, groups or dilation is a matmul over ``[N·H·W, C]`` (strided
+    inputs sliced first), as in JAX. The output is in x's dtype."""
+    stride, dilation = _pair(stride), _pair(dilation)
+    if isinstance(padding, str):
+        pad = padding.lower()
+        if pad not in ("same", "valid"):
+            raise ValueError(f"padding must be 'SAME' or 'VALID'; got "
+                             f"{padding!r}")
+    else:
+        pad = _pair(padding)
+    w = weight.to(x.dtype)
+    if (data_format == "NHWC" and weight.shape[2] == weight.shape[3] == 1
+            and groups == 1 and pad in ((0, 0), "valid")
+            and dilation == (1, 1)):
+        if stride != (1, 1):
+            x = x[:, ::stride[0], ::stride[1], :]
+        n, h, w_, c = x.shape
+        out = (x.reshape(n * h * w_, c) @ w.reshape(w.shape[0], c).T
+               ).reshape(n, h, w_, w.shape[0])
+    else:
+        if pad == "same" and stride != (1, 1):
+            raise NotImplementedError("padding='SAME' with a stride is not "
+                                      "ported yet")
+        out = _back(TF.conv2d(_nchw(x, data_format), w, None, stride, pad,
+                              dilation, groups), data_format)
+    if bias is not None:
+        shape = (1, -1, 1, 1) if data_format == "NCHW" else (-1,)
+        out = out + bias.to(out.dtype).reshape(shape)
+    return out
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0,
+               return_mask: bool = False, data_format: str = "NCHW"):
+    """Max pooling; the padding never wins (``-inf``), as ``reduce_window``
+    with a ``-inf`` init. ``return_mask`` is not ported yet and raises."""
+    if isinstance(return_mask, str):
+        # the JAX function's compat: data_format passed 5th, positionally
+        data_format, return_mask = return_mask, False
+    if return_mask:
+        raise NotImplementedError("max_pool2d(return_mask=True) is not "
+                                  "ported yet")
+    k = _pair(kernel_size)
+    s = _pair(stride if stride is not None else kernel_size)
+    return _back(TF.max_pool2d(_nchw(x, data_format), k, s, _pair(padding)),
+                 data_format)
+
+
+def adaptive_avg_pool2d(x, output_size, data_format: str = "NCHW"):
+    """Adaptive average pooling with torch/paddle windows (row i averages
+    input ``[floor(i·in/out), ceil((i+1)·in/out))``)."""
+    return _back(TF.adaptive_avg_pool2d(_nchw(x, data_format),
+                                        _pair(output_size)), data_format)
+
+
+def stats_to_moments(s, ss, m: int, epsilon: float):
+    """(sum, sumsq, count) -> (mean, biased var, rsqrt(var + eps)) in f32."""
+    mean = s / m
+    var = torch.clamp_min(ss / m - mean * mean, 0.0)
+    return mean, var, torch.rsqrt(var + epsilon)
+
+
+def _scale_shift(gamma, beta, mean, r):
+    """The folded BN affine: ``bn(x) = x·scale + shift``, in f32."""
+    scale = r * gamma.float()
+    return scale, beta.float() - mean * scale
+
+
+def _channel_shape(x, axis: int):
+    shape = [1] * x.dim()
+    shape[axis] = x.shape[axis]
+    return shape
+
+
+def _bn_closed_form_dx(dy, x, mean, r, gamma, axis: int = -1):
+    """The closed-form BN input gradient from the post-BN cotangent ``dy``
+    (phi's ``batch_norm_grad``), channels on ``axis``::
+
+        dbeta = sum(dy);  dgamma = sum(dy * xhat)
+        dx = gamma * r * (dy - (xhat * dgamma + dbeta) / M)
+
+    Returns ``(dx`` in x's dtype, ``dgamma`` in gamma's, ``dbeta`` f32)."""
+    axis %= x.dim()
+    ax = tuple(i for i in range(x.dim()) if i != axis)
+    shape = _channel_shape(x, axis)
+    m = x.numel() // x.shape[axis]
+    dyf = dy.float()
+    xhat = (x.float() - mean.reshape(shape)) * r.reshape(shape)
+    dgamma = (dyf * xhat).sum(ax)
+    dbeta = dyf.sum(ax)
+    g_r = (gamma.float() * r).reshape(shape)
+    dx = (g_r * (dyf - (xhat * dgamma.reshape(shape) + dbeta.reshape(shape))
+                 / m)).to(x.dtype)
+    return dx, dgamma.to(gamma.dtype), dbeta
+
+
+def _running_stats(running_mean, running_var, mean, var, m: int,
+                   momentum: float):
+    """Paddle's running-stat update, ``momentum · running + (1 − momentum)
+    · batch`` with the unbiased variance, in the type the promotion of the
+    two gives (float32 for bf16 buffers, as in JAX)."""
+    unbiased = var * m / max(m - 1, 1)
+    return (momentum * running_mean + (1 - momentum) * mean,
+            momentum * running_var + (1 - momentum) * unbiased)
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """Training BatchNorm with the closed-form backward (``_bn_train_core``,
+    ``nn/functional.py:332-397`` of the JAX package): single-pass f32
+    (sum, sumsq) stats, the apply as a per-channel FMA in x's dtype with
+    scale and shift rounded to it, and :func:`_bn_closed_form_dx` reading
+    only (dy, x). Returns ``(y, mean, var)``; mean and var (f32, biased)
+    feed the running-stat update and have no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, axis: int, epsilon: float):
+        reduce_axes = tuple(i for i in range(x.dim()) if i != axis)
+        shape = _channel_shape(x, axis)
+        xf = x.float()
+        mean, var, r = stats_to_moments(
+            xf.sum(reduce_axes), (xf * xf).sum(reduce_axes),
+            x.numel() // x.shape[axis], epsilon)
+        scale, shift = _scale_shift(weight, bias, mean, r)
+        y = x * scale.reshape(shape).to(x.dtype) + \
+            shift.reshape(shape).to(x.dtype)
+        ctx.save_for_backward(x, mean, r, weight)
+        ctx.axis, ctx.bias_dtype = axis, bias.dtype
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, mean, r, weight = ctx.saved_tensors
+        dx, dgamma, dbeta = _bn_closed_form_dx(dy, x, mean, r, weight,
+                                               ctx.axis)
+        return dx, dgamma, dbeta.to(ctx.bias_dtype), None, None
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training: bool = False, momentum: float = 0.9,
+               epsilon: float = 1e-5, data_format: str = "NCHW"):
+    """Returns ``(out, new_mean, new_var)`` (ref: phi batch_norm kernel).
+
+    In training the stats are the batch's, in f32, and the backward is
+    the closed form of :class:`_BatchNormTrain` (the port has no switch for
+    the autodiff form; a missing weight or bias counts as 1 or 0 and gets
+    no gradient). The running stats move as Paddle's do, ``momentum ·
+    running + (1 − momentum) · batch`` with the unbiased variance, in the
+    type the promotion of the two gives (float32 for bf16 buffers). In
+    eval mode the running stats normalise and are returned unchanged."""
+    axis = 1 if data_format == "NCHW" else x.dim() - 1
+    shape = [1] * x.dim()
+    shape[axis] = x.shape[axis]
+    if training:
+        c = x.shape[axis]
+        w = weight if weight is not None else torch.ones(
+            c, dtype=torch.float32, device=x.device)
+        b = bias if bias is not None else torch.zeros(
+            c, dtype=torch.float32, device=x.device)
+        out, mean, var = _BatchNormTrain.apply(x, w, b, axis, epsilon)
+        return (out, *_running_stats(running_mean, running_var, mean, var,
+                                     x.numel() // c, momentum))
+    inv = torch.rsqrt(running_var.float() + epsilon)
+    scale = inv if weight is None else inv * weight.float()
+    shift = -running_mean.float() * scale
+    if bias is not None:
+        shift = shift + bias.float()
+    out = x * scale.reshape(shape).to(x.dtype) + \
+        shift.reshape(shape).to(x.dtype)
+    return out, running_mean, running_var

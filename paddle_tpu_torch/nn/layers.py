@@ -1,4 +1,6 @@
-"""Transformer encoder layers (``paddle_tpu/nn/layers.py`` counterpart).
+"""Layers of the port (``paddle_tpu/nn/layers.py`` counterpart): the
+transformer encoder layers, and the convolution, BatchNorm, pooling and
+container layers of the ResNet path.
 
 :class:`MultiHeadAttention`, :class:`TransformerEncoderLayer` and
 :class:`TransformerEncoder` under the JAX attribute names (``q_proj``,
@@ -10,19 +12,28 @@ Attention goes through :func:`~paddle_tpu_torch.nn.functional.
 scaled_dot_product_attention`, which routes it to the kernels as the JAX
 function does. Decoder caches (``cache``, ``gen_cache``) and dropout in
 training are not ported yet and raise.
+
+:class:`Conv2D` keeps its weight in OIHW ``[out, in/groups, kh, kw]`` as the
+JAX layer does (the weights copy across as they are); :class:`BatchNorm2D`
+keeps its running statistics in the buffers ``_mean`` and ``_variance``, the
+JAX names, so state_dict keys match.
 """
 
 from __future__ import annotations
 
+import math
+from collections import OrderedDict
 from typing import Callable, Optional
 
+import torch
 import torch.nn.functional as TF
 from torch import nn
 
 from . import functional as F
 
 __all__ = ["Dropout", "MultiHeadAttention", "TransformerEncoderLayer",
-           "TransformerEncoder"]
+           "TransformerEncoder", "Conv2D", "BatchNorm2D", "MaxPool2D",
+           "AdaptiveAvgPool2D", "ReLU", "Sequential"]
 
 
 class Dropout(nn.Module):
@@ -147,3 +158,132 @@ class TransformerEncoder(nn.Module):
         if self.norm is not None:
             out = self.norm(out)
         return out
+
+
+# -- convolution, BatchNorm, pooling, containers (the ResNet path) -----------
+
+def _no_attr(what: str, attr) -> None:
+    if attr not in (None, False):
+        raise NotImplementedError(f"{what}: ParamAttr objects are not "
+                                  f"ported yet (None or False only)")
+
+
+class Conv2D(nn.Module):
+    """ref: ``python/paddle/nn/layer/conv.py`` Conv2D. Weight OIHW ``[out,
+    in/groups, kh, kw]``, drawn from U(±1/sqrt(fan_in)) (the JAX layer's
+    KaimingUniform with negative slope sqrt(5)); the bias, unless
+    ``bias_attr=False``, from the same bound."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size,
+                 stride=1, padding=0, dilation=1, groups: int = 1,
+                 padding_mode: str = "zeros", weight_attr=None,
+                 bias_attr=None, data_format: str = "NCHW", **factory):
+        super().__init__()
+        if padding_mode != "zeros":
+            raise NotImplementedError(f"padding_mode={padding_mode!r} is "
+                                      f"not ported yet ('zeros' only)")
+        _no_attr("Conv2D weight_attr", weight_attr)
+        _no_attr("Conv2D bias_attr", bias_attr)
+        kh, kw = F._pair(kernel_size)
+        self.stride, self.padding, self.dilation = stride, padding, dilation
+        self.groups, self.data_format = groups, data_format
+        fan_in = in_channels // groups * kh * kw
+        bound = 1 / math.sqrt(fan_in) if fan_in > 0 else 0.0
+        self.weight = nn.Parameter(torch.empty(
+            (out_channels, in_channels // groups, kh, kw), **factory))
+        nn.init.uniform_(self.weight, -bound, bound)
+        if bias_attr is not False:
+            self.bias = nn.Parameter(torch.empty(out_channels, **factory))
+            nn.init.uniform_(self.bias, -bound, bound)
+        else:
+            self.bias = None
+
+    def forward(self, x):
+        return F.conv2d(x, self.weight, self.bias, stride=self.stride,
+                        padding=self.padding, dilation=self.dilation,
+                        groups=self.groups, data_format=self.data_format)
+
+
+class _BatchNormBase(nn.Module):
+    """BatchNorm over the channel axis of ``data_format``. Weight 1, bias 0;
+    the running statistics ``_mean`` (0) and ``_variance`` (1) are float32
+    buffers, moved in training as ``0.9 · running + 0.1 · batch`` (Paddle's
+    momentum) with the unbiased variance. A training forward *replaces*
+    them: after a cast to bf16 they come back float32, as the JAX layer's
+    do."""
+
+    def __init__(self, num_features: int, momentum: float = 0.9,
+                 epsilon: float = 1e-5, weight_attr=None, bias_attr=None,
+                 data_format: str = "NCHW",
+                 use_global_stats: Optional[bool] = None, **factory):
+        super().__init__()
+        _no_attr("BatchNorm weight_attr", weight_attr)
+        _no_attr("BatchNorm bias_attr", bias_attr)
+        self.num_features = num_features
+        self.momentum, self.epsilon = momentum, epsilon
+        self.data_format = data_format
+        self.use_global_stats = use_global_stats
+        self.weight = None if weight_attr is False else nn.Parameter(
+            torch.ones(num_features, **factory))
+        self.bias = None if bias_attr is False else nn.Parameter(
+            torch.zeros(num_features, **factory))
+        device = factory.get("device")
+        self.register_buffer("_mean", torch.zeros(
+            num_features, dtype=torch.float32, device=device))
+        self.register_buffer("_variance", torch.ones(
+            num_features, dtype=torch.float32, device=device))
+
+    def forward(self, x):
+        training = self.training and not (self.use_global_stats or False)
+        out, new_mean, new_var = F.batch_norm(
+            x, self._mean, self._variance, self.weight, self.bias,
+            training=training, momentum=self.momentum,
+            epsilon=self.epsilon, data_format=self.data_format)
+        if training:
+            self._mean = new_mean
+            self._variance = new_var
+        return out
+
+
+class BatchNorm2D(_BatchNormBase):
+    pass
+
+
+class MaxPool2D(nn.Module):
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 data_format: str = "NCHW"):
+        super().__init__()
+        self.kernel_size, self.stride = kernel_size, stride
+        self.padding, self.data_format = padding, data_format
+
+    def forward(self, x):
+        return F.max_pool2d(x, self.kernel_size, self.stride, self.padding,
+                            data_format=self.data_format)
+
+
+class AdaptiveAvgPool2D(nn.Module):
+    def __init__(self, output_size, data_format: str = "NCHW"):
+        super().__init__()
+        self.output_size, self.data_format = output_size, data_format
+
+    def forward(self, x):
+        return F.adaptive_avg_pool2d(x, self.output_size, self.data_format)
+
+
+class ReLU(nn.Module):
+    def forward(self, x):
+        return F.relu(x)
+
+
+class Sequential(nn.Sequential):
+    """Sublayers named ``"0"``, ``"1"``, … in order, or by the names of
+    ``(name, layer)`` pairs; one list or tuple of them also works, as in
+    JAX."""
+
+    def __init__(self, *layers):
+        if len(layers) == 1 and isinstance(layers[0], (list, tuple)):
+            layers = tuple(layers[0])
+        if layers and isinstance(layers[0], tuple):
+            super().__init__(OrderedDict(layers))
+        else:
+            super().__init__(*layers)

@@ -1,0 +1,532 @@
+"""The conv kernel family on Hopper: K5-K8, with the BN prologue and the
+stat epilogue in the kernel.
+
+Port of ``paddle_tpu/ops/_pallas/conv.py``: ``_mm_kernel`` (K5, launched by
+``_mm``), ``_mm_wgrad_kernel`` (K6, ``_mm_wgrad``), ``_c3_kernel`` (K7,
+``_c3``) and ``_c3_wgrad_kernel`` (K8, ``_c3_wgrad``), as
+``csrc/conv.cu``, built by ``nvcc`` at first use and called through
+``ctypes`` like K1-K4. Layouts are the JAX package's: NHWC activations,
+OIHW weights.
+
+- :func:`mm` (K5): ``y = act(x·scale+shift) @ w2`` over the pixels of ``x``
+  (``x[:, ::2, ::2]`` at stride 2, read in place), plus the per-channel
+  f32 ``(sum, sumsq)`` of the f32 product; also the 1x1 input gradient.
+- :func:`mm_wgrad` (K6): ``act(x·scale+shift)ᵀ @ dy`` in f32.
+- :func:`c3` (K7): the NHWC 3x3 conv with zero padding 1 (the prologue
+  masked to the image), stride 1 or 2, plus the stats; also the 3x3 input
+  gradient, at stride 1 on the zero-dilated dy with rotated taps.
+- :func:`c3_wgrad` (K8): per-tap ``aᵀ @ dy`` as ``[9, C, K]`` f32.
+- :func:`conv2d_fwd`, :func:`conv2d_dgrad`, :func:`conv2d_wgrad`: the
+  host entries, with JAX's signatures (less the TPU's block sizes and
+  ``interpret``); :func:`conv2d`, the differentiable conv with no prologue.
+- :func:`supports`: whether a conv takes this route; :func:`fwd_weight`
+  and :func:`dgrad_operands`, the operands the host entries hand to the
+  kernels.
+
+The prologue rounds where the TPU kernels round: scale and shift to x's
+type, then the product, then the sum, then ReLU. The stats come from the f32
+accumulator before y is rounded (the library route takes them from the
+rounded y; in float32 the two agree).
+
+**One difference from the JAX routing.** JAX's ``supports`` also applies
+the TPU's 16 MB scoped-VMEM rule (``analysis/pallas_check.py``), which at
+ResNet-50's B = 256 sends four of its 52 convs to ``lax`` (the 3x3 512 ->
+512 at 14^2 stride 2 and at 7^2 twice, the 1024 -> 2048 downsample at 14^2).
+The H100 has no such rule: :func:`supports` checks only the shape family,
+so all 52 run on the kernels. What a unit computes does not depend on the
+route (``nn/fused_conv_bn.py``), so the two packages still compute the same
+function.
+
+On a CUDA tensor each wrapper launches its kernel, or raises on anything it
+does not take; each launch adds one to the wrapper's ``launches``. On a CPU
+tensor the plain PyTorch versions (``*_reference``) run instead. Nothing
+falls back from one to the other. ``tune_conv_shapes`` and the autotune
+cache are not ported yet (ROADMAP Queue 1).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as TF
+
+__all__ = ["conv2d", "conv2d_fwd", "conv2d_dgrad", "conv2d_wgrad",
+           "supports", "pallas_conv_enabled", "mm", "mm_reference",
+           "mm_wgrad", "mm_wgrad_reference", "c3", "c3_reference",
+           "c3_wgrad", "c3_wgrad_reference", "fwd_weight", "dgrad_operands",
+           "RESNET50_TOP3_SHAPES"]
+
+# The JAX package's per-shape A/B shapes (conv.py:72-76): (kind, n, h, w,
+# cin, cout, stride)
+RESNET50_TOP3_SHAPES = (
+    ("conv1x1", 256, 56, 56, 256, 64, 1),
+    ("conv1x1", 256, 56, 56, 64, 256, 1),
+    ("conv3x3", 256, 56, 56, 64, 64, 1),
+)
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_FWD_ROWS = 128        # rows of a K5/K7 block (kBM in csrc/conv.cu)
+_REDUCE_CHUNK = 256    # rows one reduce pass sums (kReduceChunk)
+_WGRAD_STEP = 32       # rows a K6/K8 split is a multiple of (kTK)
+_WGRAD_BLOCKS = 1024   # about this many K6/K8 blocks, by splitting M
+_WGRAD_MIN_ROWS = 512  # but no split shorter than this
+
+
+def pallas_conv_enabled() -> bool:
+    """``FLAGS_pallas_conv`` (the JAX name; here it routes to K5-K8)."""
+    from ...core import flags
+    return bool(flags.flag("pallas_conv"))
+
+
+def _pair(v) -> Tuple[int, int]:
+    if isinstance(v, (list, tuple)):
+        return int(v[0]), int(v[1])
+    return int(v), int(v)
+
+
+def supports(x_shape, w_shape, stride=(1, 1), padding=(0, 0),
+             dilation=(1, 1), groups: int = 1, dtype=torch.float32) -> bool:
+    """The shape family of the kernels: NHWC ``x_shape``, OIHW ``w_shape``
+    with ``w_shape[1] == x_shape[3]``; 1x1 with padding 0, or 3x3 with
+    padding 1; stride 1 or 2 (the same on both axes); no groups or
+    dilation; a floating dtype. No memory rule (see the module's
+    docstring)."""
+    if len(x_shape) != 4 or len(w_shape) != 4:
+        return False
+    if groups != 1 or _pair(dilation) != (1, 1):
+        return False
+    kk, cin_w, kh, kw = w_shape
+    if kh != kw or kh not in (1, 3) or x_shape[3] != cin_w:
+        return False
+    s = _pair(stride)
+    if s not in ((1, 1), (2, 2)):
+        return False
+    if _pair(padding) != ((0, 0) if kh == 1 else (1, 1)):
+        return False
+    if kh == 3 and (x_shape[1] + 2 - 3) // s[0] + 1 < 1:
+        return False
+    return torch.empty((), dtype=dtype).is_floating_point()
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions: the same functions as the kernels, in float32 with
+# the kernels' rounding points
+# ---------------------------------------------------------------------------
+
+def _prologue(x, scale, shift, act: str):
+    """``act(x·scale+shift)`` in x's type, scale and shift rounded to it
+    first (``:148``); x itself without a prologue."""
+    if scale is None:
+        return x
+    a = x * scale.to(x.dtype) + shift.to(x.dtype)
+    return torch.clamp_min(a, 0) if act == "relu" else a
+
+
+def _stats(acc: torch.Tensor, stats: bool):
+    if not stats:
+        z = torch.zeros(acc.shape[-1], dtype=torch.float32,
+                        device=acc.device)
+        return z, z.clone()
+    return acc.sum(0), (acc * acc).sum(0)
+
+
+def mm_reference(x, w2, scale=None, shift=None, act: str = "none",
+                 stats: bool = True, stride: int = 1):
+    """Plain K5: ``x [N, H, W, C]`` (its ``[:, ::stride, ::stride]``
+    pixels), ``w2 [C, K]``. Returns ``(y [N, Ho, Wo, K]`` in x's type,
+    ``s [K]``, ``ss [K]`` f32, zeros without ``stats``)."""
+    xs = x[:, ::stride, ::stride]
+    n, h, w, c = xs.shape
+    a = _prologue(xs, scale, shift, act).reshape(-1, c)
+    acc = a.float() @ w2.float()
+    s, ss = _stats(acc, stats)
+    return acc.to(x.dtype).reshape(n, h, w, w2.shape[1]), s, ss
+
+
+def mm_wgrad_reference(x, dy, scale=None, shift=None, act: str = "none",
+                       stride: int = 1):
+    """Plain K6: ``act(x·scale+shift)ᵀ @ dy`` as ``[C, K]`` f32."""
+    xs = x[:, ::stride, ::stride]
+    a = _prologue(xs, scale, shift, act).reshape(-1, xs.shape[3])
+    return a.float().T @ dy.reshape(-1, dy.shape[3]).float()
+
+
+def _padded(x, scale, shift, act, stride, out_hw):
+    """The prologued image with zero padding 1 on the top and left and as
+    much on the bottom and right as ``out_hw`` rows and columns at
+    ``stride`` need (``_c3_prologue``: the border stays 0), in float32."""
+    ho, wo = out_hw
+    a = _prologue(x, scale, shift, act).float()
+    hp, wp = (ho - 1) * stride + 3, (wo - 1) * stride + 3
+    ap = TF.pad(a, (0, 0, 1, max(0, wp - 1 - x.shape[2]), 1,
+                    max(0, hp - 1 - x.shape[1])))
+    return ap[:, :hp, :wp]
+
+
+def _tap(ap, t: int, stride: int, out_hw):
+    dh, dw = divmod(t, 3)
+    ho, wo = out_hw
+    return ap[:, dh:dh + (ho - 1) * stride + 1:stride,
+              dw:dw + (wo - 1) * stride + 1:stride]
+
+
+def c3_reference(x, wt, scale=None, shift=None, act: str = "none",
+                 stats: bool = True, stride: int = 1, out_hw=None):
+    """Plain K7: ``x [N, H, W, C]`` zero-padded by 1 (the prologue only
+    inside the image), ``wt [9, C, K]`` tap matrices, ``out_hw`` the output
+    size (default ``(H + 2 - 3) // stride + 1`` each). One float32 product
+    per tap. Returns ``(y [N, Ho, Wo, K]`` in x's type, ``s``, ``ss``)."""
+    out_hw = out_hw or tuple((d + 2 - 3) // stride + 1 for d in x.shape[1:3])
+    ap = _padded(x, scale, shift, act, stride, out_hw)
+    n, c, k = x.shape[0], x.shape[3], wt.shape[2]
+    acc = torch.zeros(n * out_hw[0] * out_hw[1], k, dtype=torch.float32,
+                      device=x.device)
+    for t in range(9):
+        acc += _tap(ap, t, stride, out_hw).reshape(-1, c) @ wt[t].float()
+    s, ss = _stats(acc, stats)
+    return acc.to(x.dtype).reshape(n, *out_hw, k), s, ss
+
+
+def c3_wgrad_reference(x, dy, scale=None, shift=None, act: str = "none",
+                       stride: int = 1):
+    """Plain K8: per tap ``aᵀ @ dy`` over all output pixels, ``[9, C, K]``
+    f32, the prologue recomputed and masked to the image."""
+    out_hw = tuple(dy.shape[1:3])
+    ap = _padded(x, scale, shift, act, stride, out_hw)
+    c, k = x.shape[3], dy.shape[3]
+    dy2 = dy.reshape(-1, k).float()
+    return torch.stack([_tap(ap, t, stride, out_hw).reshape(-1, c).T @ dy2
+                        for t in range(9)])
+
+
+# ---------------------------------------------------------------------------
+# Kernel launches (CUDA tensors)
+# ---------------------------------------------------------------------------
+
+# pointers, then the ints of the C entries, then the stream
+_FWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+_WGRAD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+
+
+def _library():
+    """conv.cu's library with its entries' argtypes set (without them
+    ctypes passes every int as 32 bits and cuts the pointers)."""
+    from .build import library
+    lib = library("conv")
+    if lib.paddle_conv_fwd.argtypes is None:
+        lib.paddle_conv_fwd.argtypes = _FWD_ARGS
+        lib.paddle_conv_fwd.restype = ctypes.c_int
+        lib.paddle_conv_wgrad.argtypes = _WGRAD_ARGS
+        lib.paddle_conv_wgrad.restype = ctypes.c_int
+        lib.paddle_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.paddle_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _check(what: str, x, others: Sequence, scale, shift) -> None:
+    """Raise unless the kernel can take these tensors: checked before any
+    pointer reaches it."""
+    if x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{what}: dtype {x.dtype} is not float32 or "
+                         f"bfloat16")
+    for name, t in (("x", x), *others):
+        if t.dtype != x.dtype or t.device != x.device or \
+                not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a dense {x.dtype} "
+                             f"tensor on {x.device}; got {t.dtype}, "
+                             f"{tuple(t.shape)} on {t.device}")
+    if (scale is None) != (shift is None):
+        raise ValueError(f"{what}: scale and shift go together")
+    if scale is not None:
+        c = x.shape[3]
+        for name, t in (("scale", scale), ("shift", shift)):
+            if t.dtype != torch.float32 or t.shape != (c,) or \
+                    t.device != x.device or not t.is_contiguous():
+                raise ValueError(f"{what}: {name} must be dense float32 "
+                                 f"[{c}] on {x.device}")
+
+
+def _run(lib, fn, what: str, x, *args) -> None:
+    """``fn(*args, stream)`` on x's device; raise on a refused launch (it
+    never runs, and a synchronise would not report it)."""
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        msg = lib.paddle_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} (cudaError "
+                           f"{err}) for x {tuple(x.shape)} {x.dtype}")
+
+
+def _fwd_launch(lib, what, x, wt, scale, shift, act, stats, stride, pad,
+                out_hw):
+    """K5 (``wt`` [1, C, K]) or K7 (``wt`` [9, C, K]) on x [N, H, W, C]."""
+    _check(what, x, (("wt", wt),), scale, shift)
+    n, h, w, c = x.shape
+    taps, k = wt.shape[0], wt.shape[2]
+    if wt.shape[1] != c:
+        raise ValueError(f"{what}: wt {tuple(wt.shape)} does not take "
+                         f"{c} input channels")
+    ho, wo = out_hw
+    y = torch.empty((n, ho, wo, k), dtype=x.dtype, device=x.device)
+    partial = tmp = st = None
+    if stats:
+        blocks = -(-(n * ho * wo) // _FWD_ROWS)
+        partial = torch.empty((blocks, 2 * k), dtype=torch.float32,
+                              device=x.device)
+        tmp = torch.empty((-(-blocks // _REDUCE_CHUNK), 2 * k),
+                          dtype=torch.float32, device=x.device)
+        st = torch.empty(2 * k, dtype=torch.float32, device=x.device)
+    _run(lib, lib.paddle_conv_fwd, what, x, x.data_ptr(), wt.data_ptr(),
+         _ptr(scale), _ptr(shift), y.data_ptr(), _ptr(partial), _ptr(tmp),
+         _ptr(st), n, h, w, c, ho, wo, k, taps, stride, pad,
+         int(act == "relu"), int(stats), _DTYPE_CODE[x.dtype])
+    if not stats:
+        z = torch.zeros(k, dtype=torch.float32, device=x.device)
+        return y, z, z.clone()
+    return y, st[:k], st[k:]
+
+
+def wgrad_splits(m: int, tiles: int) -> Tuple[int, int]:
+    """``(splits, rows_per_split)`` of K6/K8's split of M rows: about
+    ``_WGRAD_BLOCKS`` blocks over ``tiles`` output tiles, each split at
+    least ``_WGRAD_MIN_ROWS`` rows, a multiple of the kernel's step."""
+    splits = max(1, min(-(-_WGRAD_BLOCKS // tiles), m // _WGRAD_MIN_ROWS,
+                        65535))
+    rows = -(-m // splits)
+    rows = -(-rows // _WGRAD_STEP) * _WGRAD_STEP
+    return -(-m // rows), rows
+
+
+def _wgrad_launch(lib, what, x, dy, scale, shift, act, stride, pad, taps):
+    """K6 (taps 1) or K8 (taps 9): ``[taps, C, K]`` float32."""
+    _check(what, x, (("dy", dy),), scale, shift)
+    n, h, w, c = x.shape
+    _, ho, wo, k = dy.shape
+    if dy.shape[0] != n:
+        raise ValueError(f"{what}: dy {tuple(dy.shape)} and x "
+                         f"{tuple(x.shape)} differ in batch")
+    m = n * ho * wo
+    tiles = taps * -(-c // 64) * -(-k // 64)
+    splits, rows = wgrad_splits(m, tiles)
+    dw = torch.empty((taps, c, k), dtype=torch.float32, device=x.device)
+    partial = tmp = None
+    if splits > 1:
+        partial = torch.empty((splits, taps * c * k), dtype=torch.float32,
+                              device=x.device)
+        tmp = torch.empty((-(-splits // _REDUCE_CHUNK), taps * c * k),
+                          dtype=torch.float32, device=x.device)
+    _run(lib, lib.paddle_conv_wgrad, what, x, x.data_ptr(), dy.data_ptr(),
+         _ptr(scale), _ptr(shift), dw.data_ptr(), _ptr(partial), _ptr(tmp),
+         n, h, w, c, ho, wo, k, taps, stride, pad, int(act == "relu"),
+         splits, rows, _DTYPE_CODE[x.dtype])
+    return dw
+
+
+def _device(*ts) -> torch.device:
+    devices = {t.device for t in ts if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"conv kernel inputs on different devices: "
+                         f"{devices}")
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"the conv kernels run on CUDA or the CPU, not "
+                         f"{dev}")
+    return dev
+
+
+def _act(act: str) -> str:
+    if act not in ("none", "relu"):
+        raise ValueError(f"act must be 'none' or 'relu'; got {act!r}")
+    return act
+
+
+def mm(x, w2, scale=None, shift=None, act: str = "none", stats: bool = True,
+       stride: int = 1):
+    """K5 (``_mm``): ``x [N, H, W, C]`` NHWC, ``w2 [C, K]``, optional f32
+    ``scale``/``shift [C]``. Returns ``(y [N, Ho, Wo, K]``, ``s [K]``,
+    ``ss [K]`` f32; zeros without ``stats``)."""
+    act = _act(act)
+    if _device(x, w2, scale, shift).type == "cpu":
+        return mm_reference(x, w2, scale, shift, act, stats, stride)
+    _, h, w, _ = x.shape
+    out_hw = ((h - 1) // stride + 1, (w - 1) // stride + 1)
+    out = _fwd_launch(_library(), "mm (K5)", x, w2[None], scale, shift, act,
+                      stats, stride, 0, out_hw)
+    mm.launches += 1
+    return out
+
+
+def mm_wgrad(x, dy, scale=None, shift=None, act: str = "none",
+             stride: int = 1):
+    """K6 (``_mm_wgrad``): ``act(x·scale+shift)[:, ::stride, ::stride]ᵀ @
+    dy`` as ``[C, K]`` float32."""
+    act = _act(act)
+    if _device(x, dy, scale, shift).type == "cpu":
+        return mm_wgrad_reference(x, dy, scale, shift, act, stride)
+    dw = _wgrad_launch(_library(), "mm_wgrad (K6)", x, dy, scale, shift,
+                       act, stride, 0, 1)
+    mm_wgrad.launches += 1
+    return dw[0]
+
+
+def c3(x, wt, scale=None, shift=None, act: str = "none", stats: bool = True,
+       stride: int = 1, out_hw=None):
+    """K7 (``_c3``): the 3x3 conv of ``x [N, H, W, C]`` zero-padded by 1
+    with ``wt [9, C, K]``, at ``stride``, giving ``out_hw`` rows and
+    columns (default ``(H + 2 - 3) // stride + 1`` each; more pads the
+    bottom and right with zeros, as the dgrad's ``pr_h`` does)."""
+    act = _act(act)
+    out_hw = tuple(out_hw or ((d + 2 - 3) // stride + 1
+                              for d in x.shape[1:3]))
+    if _device(x, wt, scale, shift).type == "cpu":
+        return c3_reference(x, wt, scale, shift, act, stats, stride, out_hw)
+    out = _fwd_launch(_library(), "c3 (K7)", x, wt, scale, shift, act,
+                      stats, stride, 1, out_hw)
+    c3.launches += 1
+    return out
+
+
+def c3_wgrad(x, dy, scale=None, shift=None, act: str = "none",
+             stride: int = 1):
+    """K8 (``_c3_wgrad``): ``[9, C, K]`` float32 weight gradient of the 3x3
+    conv of x (zero padding 1, the prologue recomputed and masked) giving
+    ``dy [N, Ho, Wo, K]``."""
+    act = _act(act)
+    if _device(x, dy, scale, shift).type == "cpu":
+        return c3_wgrad_reference(x, dy, scale, shift, act, stride)
+    dw = _wgrad_launch(_library(), "c3_wgrad (K8)", x, dy, scale, shift,
+                       act, stride, 1, 9)
+    c3_wgrad.launches += 1
+    return dw
+
+
+#: kernel launches since each count was last set to 0 (CUDA path only)
+mm.launches = 0
+mm_wgrad.launches = 0
+c3.launches = 0
+c3_wgrad.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Host entries (not differentiable; the fused units and conv2d below drive
+# autograd through dgrad/wgrad)
+# ---------------------------------------------------------------------------
+
+def _f32(t):
+    return None if t is None else t.float().contiguous()
+
+
+def fwd_weight(w, dtype):
+    """The weight matrix conv2d_fwd hands to K5 or K7: OIHW ``[K, C, k, k]``
+    as ``[k·k, C, K]`` tap matrices in ``dtype`` (``_fwd_taps``)."""
+    taps = w.shape[2] * w.shape[3]
+    return w.permute(2, 3, 1, 0).reshape(taps, w.shape[1], w.shape[0]).to(
+        dtype).contiguous()
+
+
+def conv2d_fwd(x, w, scale=None, shift=None, act: str = "none",
+               stride=(1, 1), padding=(0, 0), stats: bool = True):
+    """Fused conv forward: ``conv(act(x·scale+shift), w)`` plus the
+    per-channel (sum, sumsq) of the output, in one pass.
+
+    x: ``[N, H, W, C]`` NHWC; w: OIHW ``[K, C, k, k]``, k in {1, 3} (1x1
+    with padding 0, 3x3 with padding 1). scale/shift: optional ``[C]``
+    prologue (None: none); act: ``'none'`` or ``'relu'``. Returns ``(y [N,
+    Ho, Wo, K]``, ``s [K]``, ``ss [K]`` float32; zeros when ``stats`` is
+    False)."""
+    s_ = _pair(stride)[0]
+    x = x.contiguous()
+    scale, shift = _f32(scale), _f32(shift)
+    wt = fwd_weight(w, x.dtype)
+    if w.shape[2] == 1:
+        return mm(x, wt[0], scale, shift, act, stats, s_)
+    return c3(x, wt, scale, shift, act, stats, s_)
+
+
+def dgrad_operands(dy, w, stride: int):
+    """What conv2d_dgrad hands to K5 or K7: ``(operand, weight matrix)``.
+    1x1: dy and w as ``[1, K, C]``. 3x3: dy, zero-dilated at stride 2
+    (``(Ho - 1)·2 + 1`` rows and columns), and the 180-degree-rotated taps
+    as ``[9, K, C]`` (conv.py ``:538-551``)."""
+    dy = dy.contiguous()
+    kk, c = w.shape[0], w.shape[1]
+    if w.shape[2] == 1:
+        return dy, w.reshape(1, kk, c).to(dy.dtype).contiguous()
+    dyd = dy
+    if stride != 1:
+        n, ho, wo, _ = dy.shape
+        dyd = torch.zeros((n, (ho - 1) * stride + 1, (wo - 1) * stride + 1,
+                           kk), dtype=dy.dtype, device=dy.device)
+        dyd[:, ::stride, ::stride] = dy
+    wt = w.flip(2, 3).permute(2, 3, 0, 1).reshape(9, kk, c).to(
+        dy.dtype).contiguous()
+    return dyd, wt
+
+
+def conv2d_dgrad(dy, w, x_shape, stride=(1, 1), padding=(0, 0)):
+    """Input gradient through the same kernels: 1x1 through K5 with w as
+    ``[K, C]`` (at stride 2 scattered into zeros at ``[:, ::2, ::2]``); 3x3
+    through K7 at stride 1 on the rotated taps of the zero-dilated dy,
+    padded to ``H + 2`` rows and ``W + 2`` columns (conv.py ``:513-556``)."""
+    s_ = _pair(stride)[0]
+    op, wt = dgrad_operands(dy, w, s_)
+    if w.shape[2] == 1:
+        da, _, _ = mm(op, wt[0], None, None, "none", False, 1)
+        if s_ != 1:
+            full = torch.zeros(tuple(x_shape), dtype=da.dtype,
+                               device=da.device)
+            full[:, ::s_, ::s_] = da
+            da = full
+        return da
+    dx, _, _ = c3(op, wt, None, None, "none", False, 1,
+                  (x_shape[1], x_shape[2]))
+    return dx
+
+
+def conv2d_wgrad(x, dy, w_shape, scale=None, shift=None, act: str = "none",
+                 stride=(1, 1), padding=(0, 0)):
+    """Weight gradient ``aᵀ @ dy`` per tap, ``a = act(x·scale+shift)``
+    recomputed in the kernel from the raw input (the unit saves only the
+    pre-BN tensor). Returns dw in OIHW, float32."""
+    s_ = _pair(stride)[0]
+    x, dy = x.contiguous(), dy.contiguous()
+    scale, shift = _f32(scale), _f32(shift)
+    if w_shape[2] == 1:
+        dw2 = mm_wgrad(x, dy, scale, shift, act, s_)
+        return dw2.T.reshape(tuple(w_shape)).contiguous()
+    dw9 = c3_wgrad(x, dy, scale, shift, act, s_)
+    c, kk = x.shape[3], w_shape[0]
+    return dw9.reshape(3, 3, c, kk).permute(3, 2, 0, 1).contiguous()
+
+
+class _Conv2d(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, stride, padding):
+        ctx.save_for_backward(x, w)
+        ctx.stride, ctx.padding = stride, padding
+        y, _, _ = conv2d_fwd(x, w, stride=stride, padding=padding,
+                             stats=False)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx = conv2d_dgrad(dy, w, x.shape, ctx.stride, ctx.padding).to(
+            x.dtype)
+        dw = conv2d_wgrad(x, dy, w.shape, stride=ctx.stride,
+                          padding=ctx.padding).to(w.dtype)
+        return dx, dw, None, None
+
+
+def conv2d(x, w, stride=(1, 1), padding=(0, 0)):
+    """Differentiable conv on the kernels with no prologue (conv.py
+    ``:597-618``): its gradients are :func:`conv2d_dgrad` and
+    :func:`conv2d_wgrad`."""
+    return _Conv2d.apply(x, w, _pair(stride), _pair(padding))

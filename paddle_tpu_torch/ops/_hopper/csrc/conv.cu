@@ -1,0 +1,1041 @@
+// The conv kernel family with the BN prologue and the stat epilogue in the
+// kernel (K5-K8) for Hopper (sm_90a), CUDA C++.
+//
+// Replaces paddle_tpu/ops/_pallas/conv.py:
+//   K5 conv1x1_kernel        <- _mm_kernel (:142, pallas_call in _mm at :186)
+//   K6 conv1x1_wgrad_kernel  <- _mm_wgrad_kernel (:221, _mm_wgrad at :254)
+//   K7 conv3x3_kernel        <- _c3_kernel (:311, _c3 at :364)
+//   K8 conv3x3_wgrad_kernel  <- _c3_wgrad_kernel (:401, _c3_wgrad at :441)
+//
+// What they compute. x is an NHWC activation [N, H, W, C]; a = act(x * scale
+// + shift) is the previous BatchNorm's apply (and ReLU) as a prologue, or x
+// itself. The prologue rounds where the TPU kernels round (:148, :289): scale
+// and shift are rounded to x's type, the product to x's type, then the sum,
+// then ReLU. Outside the image (the zero padding of a 3x3 conv) a is 0, not
+// act(0 * scale + shift) (_c3_prologue, :282-297). For output pixel (n, ho,
+// wo) and tap (dh, dw) the input pixel is (ho * stride + dh - pad, wo * stride
+// + dw - pad): pad 0 and one tap for 1x1, pad 1 and nine taps for 3x3, so a
+// strided 1x1 reads x[:, ::2, ::2] in place and the 3x3 reads the padded image
+// without it being written out.
+//   K5, K7:  acc[m, k] = sum_{tap, c} a[pixel(m, tap), c] * wt[tap, c, k]  (f32)
+//            y = acc rounded to x's type, and per output channel the f32
+//            (sum acc, sum acc^2) over all M = N * Ho * Wo rows, taken from
+//            acc before y is rounded (:161-162, :332-333).
+//   K6, K8:  dw[tap, c, k] = sum_m a[pixel(m, tap), c] * dy[m, k]           (f32)
+// With no prologue and no stats, K5 is the 1x1 input gradient (dy times w as
+// [Cout, Cin]) and K7 the 3x3 input gradient (the stride-1 conv of the zero-
+// dilated, padded dy with the 180-degree-rotated taps), built by the wrapper
+// as conv.py builds them (:531, :538-556).
+//
+// What the TPU relies on that Hopper lacks. The TPU runs the grid in order on
+// one core, so the Pallas kernels carry the stats and the weight gradient in
+// VMEM scratch from one grid step to the next (:156-167, :231-240, :327-338,
+// :413-423). Here blocks run in parallel and in no order, and no atomics are
+// used, so every result repeats bit for bit:
+// - Stats: each K5/K7 block sums its 128 rows per output channel in a fixed
+//   order and writes the partial (sum, sum of squares) to its own row of a
+//   [blocks, 2K] f32 scratch; reduce_rows_kernel then sums the rows in a
+//   fixed order, 256 rows a pass (two passes for M = 802,816). The scratch
+//   costs 16 bytes per block and channel written and read: 3.2 MB at M =
+//   802,816, K = 64, against 103 MB of y.
+// - Weight gradients: the sum runs over M (up to 802,816 rows) while dw has
+//   only Cin x Cout (x 9) entries, so one block per output tile would leave
+//   most of the 132 SMs idle. K6/K8 split M into S ranges (split-K): the
+//   wrapper picks S so that about 1,024 blocks run, each block writes an f32
+//   partial dw of its range, and reduce_rows_kernel sums the S partials in a
+//   fixed order. The split costs 8 * S * Cin * Cout (* 9) bytes written and
+//   read: 19 MB for the 3x3 64 -> 64 conv at 56^2 (S = 128), against 411 MB
+//   of x and dy read.
+//
+// Design. Each kernel is a tiled implicit GEMM, one body per kind shared by
+// its 1x1 and 3x3 forms (TAPS = 1 or 9). K5/K7: a block of 256 threads owns
+// 128 output rows x 64 output channels and walks the taps and the input
+// channels, loading the A tile (prologue applied, padding zeroed) and the
+// weight tile into shared memory while the next tiles' global loads are in
+// flight. K6/K8: a block owns 64 input channels of one tap x 64 output
+// channels and walks its range of rows. Sizes need not be multiples of the
+// tiles: ragged edges are masked. In bf16 (the training path) the products
+// run on the tensor cores, mma.sync m16n8k16 with f32 accumulation, 32
+// channels or rows a step in bf16 tiles; in f32 they run on the CUDA cores
+// (FMA, each thread 8 x 4 or 4 x 4 outputs, 16 a step), as K1-K4 do.
+//
+// What bounds them on an H100. At ResNet-50's 56 x 56 shapes at B = 256 in
+// bf16 (chip_smoke.py times them): K5 256 -> 64 reads x (411 MB) and writes
+// y (103 MB) for 2.6e10 FLOPs: bytes bound it (0.153 ms at 3.35 TB/s); K7
+// 64 -> 64 moves 206 MB for 5.9e10 FLOPs, bytes first with the FLOPs close
+// (0.061 against 0.060 ms at 989 TFLOP/s). mma.sync from shared memory,
+// without ldmatrix, asynchronous copies or TMA, stays far from both; their
+// times stand in PERF.md. wgmma fed by TMA is a later change's work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
+
+namespace {
+
+constexpr int kThreads = 256;
+// K5/K7 tile: rows x output channels x input channels a step
+constexpr int kBM = 128;
+constexpr int kBN = 64;
+constexpr int kBK = 16;
+constexpr int kLdA = kBM + 4;   // padded row stride of the transposed A tile
+constexpr int kLdB = kBN + 4;
+// K6/K8 tile: input channels x output channels x rows a step
+constexpr int kWM = 64;
+constexpr int kWN = 64;
+constexpr int kWK = 16;
+constexpr int kLdW = 64 + 4;
+// the bf16 tensor-core tiles take 32 input channels (K5/K7) or rows
+// (K6/K8) a step, two m16n8k16 products deep, in rows of 40 bf16 (80 bytes:
+// the fragment loads of a warp hit 32 different banks)
+constexpr int kTK = 32;
+constexpr int kLdT = kTK + 8;
+// rows of partials one reduce_rows_kernel block sums
+constexpr int kReduceChunk = 256;
+
+struct ConvParams {
+  const void* x;        // [N, H, W, C]
+  const void* w;        // K5/K7: taps [TAPS, C, K]; K6/K8: dy [M, K]
+  const float* scale;   // [C] or null
+  const float* shift;
+  void* y;              // K5/K7: [M, K] in x's type; K6/K8: f32 [S, TAPS*C, K]
+  float* partial;       // K5/K7 stats: [gridDim.x, 2K] f32, or null
+  int N, H, W, C;
+  int Ho, Wo, K;
+  int stride, pad;
+  int M;                // N * Ho * Wo
+  int rows_per_split;   // K6/K8: rows of M per blockIdx.z, a multiple of kTK
+};
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// v rounded to T and back: the points where the TPU kernels cast
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return to_float(from_float<T>(v));
+}
+
+// act(x * scale + shift) in T's arithmetic: each operand and each result
+// rounded to T (no fused multiply-add, which would skip the product's rounding)
+template <typename T, bool RELU>
+__device__ __forceinline__ float prologue(float v, float sc, float sh) {
+  float a = round_to<T>(__fmul_rn(v, round_to<T>(sc)));
+  a = round_to<T>(__fadd_rn(a, round_to<T>(sh)));
+  return RELU ? fmaxf(a, 0.f) : a;
+}
+
+// Output row m -> (n, first input row, first input column) of its window
+struct RowOrigin {
+  long long img;   // n * H * W
+  int hi, wi;      // ho * stride - pad, wo * stride - pad
+  bool valid;      // m < M
+};
+
+__device__ __forceinline__ RowOrigin row_origin(const ConvParams& p, int m) {
+  RowOrigin o;
+  o.valid = m < p.M;
+  const int mm = o.valid ? m : 0;
+  const int hw = p.Ho * p.Wo;
+  const int n = mm / hw;
+  const int r = mm - n * hw;
+  const int ho = r / p.Wo;
+  const int wo = r - ho * p.Wo;
+  o.img = static_cast<long long>(n) * p.H * p.W;
+  o.hi = ho * p.stride - p.pad;
+  o.wi = wo * p.stride - p.pad;
+  return o;
+}
+
+// Offset of pixel (origin + tap) in x in elements, or -1 outside the image
+__device__ __forceinline__ long long pixel(const ConvParams& p,
+                                           const RowOrigin& o, int dh,
+                                           int dw) {
+  const int hi = o.hi + dh;
+  const int wi = o.wi + dw;
+  if (!o.valid || hi < 0 || hi >= p.H || wi < 0 || wi >= p.W) return -1;
+  return (o.img + static_cast<long long>(hi) * p.W + wi) * p.C;
+}
+
+// a[pixel, c] in f32: 0 outside the image or past C, the prologue applied
+template <typename T, bool PRO, bool RELU>
+__device__ __forceinline__ float load_a(const ConvParams& p, const T* x,
+                                        long long pix, int c) {
+  if (pix < 0 || c >= p.C) return 0.f;
+  const float v = to_float(x[pix + c]);
+  if (!PRO) return v;
+  return prologue<T, RELU>(v, __ldg(p.scale + c), __ldg(p.shift + c));
+}
+
+// Two values (bf16-exact) as one 32-bit register of a bf16 pair, the first in
+// the low half, as mma.sync takes them
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(lo))) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(hi)))
+          << 16);
+}
+
+__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Whether 8 consecutive bf16 at an offset that is a multiple of 8 elements
+// can be read as one 16-byte load from base
+__device__ __forceinline__ bool vec8(const void* base, int row_len) {
+  return row_len % 8 == 0 && (reinterpret_cast<uintptr_t>(base) & 15) == 0;
+}
+
+// The 8 bf16 at base + off (a multiple of 8 elements), as packed pairs
+__device__ __forceinline__ uint4 ld8(const __nv_bfloat16* base,
+                                     long long off) {
+  return __ldg(reinterpret_cast<const uint4*>(base + off));
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// a[pixel, c .. c + 7] in f32 (c a multiple of 8): one 16-byte load where
+// the 8 channels lie inside x and vec holds (see vec8), else load_a's
+template <bool PRO, bool RELU>
+__device__ __forceinline__ void load_a8(const ConvParams& p,
+                                        const __nv_bfloat16* x, long long pix,
+                                        int c, bool vec, float (&v)[8]) {
+  if (vec && pix >= 0 && c + 8 <= p.C) {
+    const uint4 u = ld8(x, pix + c);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = bf16_lo(w[i]);
+      v[2 * i + 1] = bf16_hi(w[i]);
+    }
+    if (PRO) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        v[j] = prologue<__nv_bfloat16, RELU>(v[j], __ldg(p.scale + c + j),
+                                             __ldg(p.shift + c + j));
+    }
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    v[j] = load_a<__nv_bfloat16, PRO, RELU>(p, x, pix, c + j);
+}
+
+// d += a b on the tensor cores: one m16n8k16 product of bf16 tiles with f32
+// accumulation, in the PTX ISA's fragment layout (lane = 4 g + t):
+// a = {A[g][2t, 2t+1], A[g+8][2t, 2t+1], A[g][2t+8, 2t+9], A[g+8][2t+8, 2t+9]},
+// b = {B[2t, 2t+1][g], B[2t+8, 2t+9][g]},
+// d = {D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1]}
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// ---------------------------------------------------------------------------
+// K5 / K7: y = a @ wt over the taps, with the stats epilogue
+// ---------------------------------------------------------------------------
+
+template <typename T, int TAPS, bool PRO, bool RELU, bool STATS>
+__device__ __forceinline__ void conv_fwd_body(const ConvParams& p) {
+  __shared__ __align__(16) float As[kBK][kLdA];   // a, transposed: [c][row]
+  __shared__ __align__(16) float Bs[kBK][kLdB];   // wt: [c][k]
+  __shared__ float red[2][kThreads / 16][kBN];    // stats across row groups
+  const T* x = static_cast<const T*>(p.x);
+  const T* wt = static_cast<const T*>(p.w);
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * kBM;
+  const int n0 = blockIdx.y * kBN;
+
+  // A loader: one row, 8 consecutive channels of the 16 a step
+  const int a_row = tid % kBM;
+  const int a_c = (tid / kBM) * 8;
+  const RowOrigin origin = row_origin(p, m0 + a_row);
+  // B loader: one channel row, 4 consecutive output channels
+  const int b_row = tid / 16;
+  const int b_n = (tid % 16) * 4;
+  // compute: 8 rows x 4 output channels
+  const int ty = tid / 16;
+  const int tx = tid % 16;
+
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  const int c_steps = (p.C + kBK - 1) / kBK;
+  const int steps = TAPS * c_steps;
+  float ra[8], rb[4];
+
+  auto load = [&](int step) {
+    const int tap = step / c_steps;
+    const int c0 = (step - tap * c_steps) * kBK;
+    const int dh = TAPS == 9 ? tap / 3 : 0;
+    const int dw = TAPS == 9 ? tap % 3 : 0;
+    const long long pix = pixel(p, origin, dh, dw);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      ra[j] = load_a<T, PRO, RELU>(p, x, pix, c0 + a_c + j);
+    const int c = c0 + b_row;
+    const long long wrow = (static_cast<long long>(tap) * p.C + c) * p.K;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + b_n + j;
+      rb[j] = (c < p.C && n < p.K) ? to_float(wt[wrow + n]) : 0.f;
+    }
+  };
+  auto store = [&]() {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) As[a_c + j][a_row] = ra[j];
+    *reinterpret_cast<float4*>(&Bs[b_row][b_n]) =
+        make_float4(rb[0], rb[1], rb[2], rb[3]);
+  };
+
+  load(0);
+  store();
+  __syncthreads();
+  for (int step = 0; step < steps; ++step) {
+    if (step + 1 < steps) load(step + 1);   // in flight during the products
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 8]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][ty * 8 + 4]);
+      const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+    if (step + 1 < steps) {
+      store();
+      __syncthreads();
+    }
+  }
+
+  T* y = static_cast<T*>(p.y);
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+  float ss[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + ty * 8 + i;
+    if (m >= p.M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (n >= p.K) continue;
+      y[static_cast<long long>(m) * p.K + n] = from_float<T>(acc[i][j]);
+      s[j] += acc[i][j];
+      ss[j] += acc[i][j] * acc[i][j];
+    }
+  }
+  if (!STATS) return;
+  // the block's partial sums: its 16 row groups in order, one thread a channel
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    red[0][ty][tx * 4 + j] = s[j];
+    red[1][ty][tx * 4 + j] = ss[j];
+  }
+  __syncthreads();
+  if (tid < kBN) {
+    const int n = n0 + tid;
+    if (n < p.K) {
+      float ts = 0.f, tss = 0.f;
+      for (int g = 0; g < kThreads / 16; ++g) {
+        ts += red[0][g][tid];
+        tss += red[1][g][tid];
+      }
+      float* row = p.partial + static_cast<long long>(blockIdx.x) * 2 * p.K;
+      row[n] = ts;
+      row[p.K + n] = tss;
+    }
+  }
+}
+
+// The bf16 form of conv_fwd_body on the tensor cores (mma.sync, f32
+// accumulation): the same tile of 128 rows x 64 output channels, 32 input
+// channels a step, a and wt in shared memory in bf16 (the prologue's output
+// is bf16 already, so nothing is rounded that the CUDA-core form keeps).
+// The 8 warps own 32 rows x 32 channels each: 2 x 4 m16n8 products a k16.
+// The stats sum each column over the warp's rows by a butterfly of
+// shuffles (every lane ends with the same bits) and over the 4 row warps in
+// order, so they repeat bit for bit.
+template <int TAPS, bool PRO, bool RELU, bool STATS>
+__device__ __forceinline__ void conv_fwd_body_tc(const ConvParams& p) {
+  using bf16 = __nv_bfloat16;
+  __shared__ __align__(16) bf16 As[kBM][kLdT];   // a: [row][c]
+  __shared__ __align__(16) bf16 Bs[kBN][kLdT];   // wt, transposed: [k][c]
+  __shared__ float red[2][4][kBN];               // stats across row warps
+  const bf16* x = static_cast<const bf16*>(p.x);
+  const bf16* wt = static_cast<const bf16*>(p.w);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wm = warp >> 1;   // rows wm * 32 .. + 31
+  const int wn = warp & 1;    // output channels wn * 32 .. + 31
+  const int m0 = blockIdx.x * kBM;
+  const int n0 = blockIdx.y * kBN;
+
+  // A loader: one row, 16 consecutive channels of the 32 a step
+  const int a_row = tid >> 1;
+  const int a_c = (tid & 1) * 16;
+  const RowOrigin origin = row_origin(p, m0 + a_row);
+  // B loader: one input channel (a lane), 8 consecutive output channels
+  // (a warp), so the transposed stores of a warp fill one row of Bs
+  const int b_c = tid & 31;
+  const int b_n = (tid >> 5) * 8;
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  const int c_steps = (p.C + kTK - 1) / kTK;
+  const int steps = TAPS * c_steps;
+  const bool vec_x = vec8(x, p.C);
+  const bool vec_w = vec8(wt, p.K);
+  uint32_t ra[8];
+  uint32_t rb[4];   // wt's 8 output channels, packed pairs
+
+  auto load = [&](int step) {
+    const int tap = step / c_steps;
+    const int c0 = (step - tap * c_steps) * kTK;
+    const int dh = TAPS == 9 ? tap / 3 : 0;
+    const int dw = TAPS == 9 ? tap % 3 : 0;
+    const long long pix = pixel(p, origin, dh, dw);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v[8];
+      load_a8<PRO, RELU>(p, x, pix, c0 + a_c + 8 * h, vec_x, v);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        ra[4 * h + i] = pack_bf16(v[2 * i], v[2 * i + 1]);
+    }
+    const int c = c0 + b_c;
+    const int nb = n0 + b_n;
+    const long long wrow = (static_cast<long long>(tap) * p.C + c) * p.K;
+    if (vec_w && c < p.C && nb + 8 <= p.K) {
+      const uint4 u = ld8(wt, wrow + nb);
+      rb[0] = u.x;
+      rb[1] = u.y;
+      rb[2] = u.z;
+      rb[3] = u.w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int n = nb + 2 * i;
+        const bool ok = c < p.C;
+        rb[i] = pack_bf16(ok && n < p.K ? to_float(wt[wrow + n]) : 0.f,
+                          ok && n + 1 < p.K ? to_float(wt[wrow + n + 1])
+                                            : 0.f);
+      }
+    }
+  };
+  auto store = [&]() {
+    uint4* dst = reinterpret_cast<uint4*>(&As[a_row][a_c]);
+    dst[0] = make_uint4(ra[0], ra[1], ra[2], ra[3]);
+    dst[1] = make_uint4(ra[4], ra[5], ra[6], ra[7]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      Bs[b_n + 2 * i][b_c] = __ushort_as_bfloat16(
+          static_cast<unsigned short>(rb[i] & 0xffffu));
+      Bs[b_n + 2 * i + 1][b_c] = __ushort_as_bfloat16(
+          static_cast<unsigned short>(rb[i] >> 16));
+    }
+  };
+
+  load(0);
+  store();
+  __syncthreads();
+  for (int step = 0; step < steps; ++step) {
+    if (step + 1 < steps) load(step + 1);   // in flight during the products
+#pragma unroll
+    for (int kb = 0; kb < kTK; kb += 16) {
+      uint32_t af[2][4], bfr[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const int r = wm * 32 + mi * 16 + g;
+        af[mi][0] = lds32(&As[r][kb + 2 * t]);
+        af[mi][1] = lds32(&As[r + 8][kb + 2 * t]);
+        af[mi][2] = lds32(&As[r][kb + 2 * t + 8]);
+        af[mi][3] = lds32(&As[r + 8][kb + 2 * t + 8]);
+      }
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj) {
+        const int n = wn * 32 + nj * 8 + g;
+        bfr[nj][0] = lds32(&Bs[n][kb + 2 * t]);
+        bfr[nj][1] = lds32(&Bs[n][kb + 2 * t + 8]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj)
+          mma_bf16_16816(acc[mi][nj], af[mi], bfr[nj]);
+    }
+    __syncthreads();
+    if (step + 1 < steps) {
+      store();
+      __syncthreads();
+    }
+  }
+
+  bf16* y = static_cast<bf16*>(p.y);
+  // a thread's two adjacent output channels go out as one 4-byte store
+  const bool pair_y = p.K % 2 == 0 && (reinterpret_cast<uintptr_t>(y) & 3) == 0;
+  float s[4][2], ss[4][2];
+#pragma unroll
+  for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) s[nj][e] = ss[nj][e] = 0.f;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm * 32 + mi * 16 + g + h * 8;
+      if (m >= p.M) continue;
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj) {
+        const int n = n0 + wn * 32 + nj * 8 + 2 * t;
+        const float v0 = acc[mi][nj][2 * h];
+        const float v1 = acc[mi][nj][2 * h + 1];
+        bf16* dst = y + static_cast<long long>(m) * p.K + n;
+        if (pair_y && n + 1 < p.K) {
+          *reinterpret_cast<uint32_t*>(dst) = pack_bf16(v0, v1);
+        } else {
+          if (n < p.K) dst[0] = __float2bfloat16(v0);
+          if (n + 1 < p.K) dst[1] = __float2bfloat16(v1);
+        }
+        if (n < p.K) {
+          s[nj][0] += v0;
+          ss[nj][0] += v0 * v0;
+        }
+        if (n + 1 < p.K) {
+          s[nj][1] += v1;
+          ss[nj][1] += v1 * v1;
+        }
+      }
+    }
+  if (!STATS) return;
+#pragma unroll
+  for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        s[nj][e] += __shfl_xor_sync(0xffffffffu, s[nj][e], off);
+        ss[nj][e] += __shfl_xor_sync(0xffffffffu, ss[nj][e], off);
+      }
+  if (g == 0) {
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        red[0][wm][wn * 32 + nj * 8 + 2 * t + e] = s[nj][e];
+        red[1][wm][wn * 32 + nj * 8 + 2 * t + e] = ss[nj][e];
+      }
+  }
+  __syncthreads();
+  if (tid < kBN) {
+    const int n = n0 + tid;
+    if (n < p.K) {
+      float ts = 0.f, tss = 0.f;
+      for (int w = 0; w < 4; ++w) {
+        ts += red[0][w][tid];
+        tss += red[1][w][tid];
+      }
+      float* row = p.partial + static_cast<long long>(blockIdx.x) * 2 * p.K;
+      row[n] = ts;
+      row[p.K + n] = tss;
+    }
+  }
+}
+
+// K5: 1x1 conv as a matmul (and the 1x1 input gradient); bf16 on the
+// tensor cores, f32 on the CUDA cores
+template <typename T, bool PRO, bool RELU, bool STATS>
+__global__ void __launch_bounds__(kThreads) conv1x1_kernel(ConvParams p) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    conv_fwd_body_tc<1, PRO, RELU, STATS>(p);
+  else
+    conv_fwd_body<T, 1, PRO, RELU, STATS>(p);
+}
+
+// K7: NHWC 3x3 conv, stride 1 or 2, implicit im2col (and the 3x3 input
+// gradient)
+template <typename T, bool PRO, bool RELU, bool STATS>
+__global__ void __launch_bounds__(kThreads) conv3x3_kernel(ConvParams p) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    conv_fwd_body_tc<9, PRO, RELU, STATS>(p);
+  else
+    conv_fwd_body<T, 9, PRO, RELU, STATS>(p);
+}
+
+// ---------------------------------------------------------------------------
+// K6 / K8: dw = a^T @ dy per tap over one range of rows (split-K)
+// ---------------------------------------------------------------------------
+
+template <typename T, int TAPS, bool PRO, bool RELU>
+__device__ __forceinline__ void conv_wgrad_body(const ConvParams& p) {
+  __shared__ __align__(16) float As[kWK][kLdW];   // a: [row][c]
+  __shared__ __align__(16) float Bs[kWK][kLdW];   // dy: [row][k]
+  const T* x = static_cast<const T*>(p.x);
+  const T* dy = static_cast<const T*>(p.w);
+  const int tid = threadIdx.x;
+  const int c_tiles = (p.C + kWM - 1) / kWM;
+  const int tap = blockIdx.x / c_tiles;
+  const int c0 = (blockIdx.x - tap * c_tiles) * kWM;
+  const int n0 = blockIdx.y * kWN;
+  const int dh = TAPS == 9 ? tap / 3 : 0;
+  const int dw = TAPS == 9 ? tap % 3 : 0;
+  const int m_begin = blockIdx.z * p.rows_per_split;
+  const int m_end = min(p.M, m_begin + p.rows_per_split);
+
+  // loaders: one row, 4 consecutive channels of each tile
+  const int l_row = tid / 16;
+  const int l_c = (tid % 16) * 4;
+  // compute: 4 input channels x 4 output channels
+  const int ty = tid / 16;
+  const int tx = tid % 16;
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  float ra[4], rb[4];
+  auto load = [&](int mb) {
+    const int m = mb + l_row;
+    RowOrigin o = row_origin(p, m);
+    o.valid = o.valid && m < m_end;
+    const long long pix = pixel(p, o, dh, dw);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      ra[j] = load_a<T, PRO, RELU>(p, x, pix, c0 + l_c + j);
+    const bool row_ok = m < m_end;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + l_c + j;
+      rb[j] = (row_ok && n < p.K)
+                  ? to_float(dy[static_cast<long long>(m) * p.K + n])
+                  : 0.f;
+    }
+  };
+  auto store = [&]() {
+    *reinterpret_cast<float4*>(&As[l_row][l_c]) =
+        make_float4(ra[0], ra[1], ra[2], ra[3]);
+    *reinterpret_cast<float4*>(&Bs[l_row][l_c]) =
+        make_float4(rb[0], rb[1], rb[2], rb[3]);
+  };
+
+  if (m_begin < m_end) {
+    load(m_begin);
+    store();
+    __syncthreads();
+    for (int mb = m_begin; mb < m_end; mb += kWK) {
+      const bool more = mb + kWK < m_end;
+      if (more) load(mb + kWK);
+#pragma unroll
+      for (int r = 0; r < kWK; ++r) {
+        const float4 a = *reinterpret_cast<const float4*>(&As[r][ty * 4]);
+        const float4 b = *reinterpret_cast<const float4*>(&Bs[r][tx * 4]);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+        const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+      __syncthreads();
+      if (more) {
+        store();
+        __syncthreads();
+      }
+    }
+  }
+
+  // this split's partial dw: [split][tap * C + c][k], zeros for an empty range
+  float* out = static_cast<float*>(p.y) +
+               static_cast<long long>(blockIdx.z) * TAPS * p.C * p.K;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = c0 + ty * 4 + i;
+    if (c >= p.C) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (n < p.K)
+        out[(static_cast<long long>(tap) * p.C + c) * p.K + n] = acc[i][j];
+    }
+  }
+}
+
+// The bf16 form of conv_wgrad_body on the tensor cores: the same tile of 64
+// input channels of one tap x 64 output channels, 32 rows a step, a and dy
+// in shared memory in bf16 and transposed (rows along the reduction). The 8
+// warps own 16 channels x 32 output channels each: 4 m16n8 products a k16.
+template <int TAPS, bool PRO, bool RELU>
+__device__ __forceinline__ void conv_wgrad_body_tc(const ConvParams& p) {
+  using bf16 = __nv_bfloat16;
+  __shared__ __align__(16) bf16 As[kWM][kLdT];   // a, transposed: [c][row]
+  __shared__ __align__(16) bf16 Bs[kWN][kLdT];   // dy, transposed: [k][row]
+  const bf16* x = static_cast<const bf16*>(p.x);
+  const bf16* dy = static_cast<const bf16*>(p.w);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wc = warp >> 1;   // input channels wc * 16 .. + 15
+  const int wn = warp & 1;    // output channels wn * 32 .. + 31
+  const int c_tiles = (p.C + kWM - 1) / kWM;
+  const int tap = blockIdx.x / c_tiles;
+  const int c0 = (blockIdx.x - tap * c_tiles) * kWM;
+  const int n0 = blockIdx.y * kWN;
+  const int dh = TAPS == 9 ? tap / 3 : 0;
+  const int dw = TAPS == 9 ? tap % 3 : 0;
+  const int m_begin = blockIdx.z * p.rows_per_split;
+  const int m_end = min(p.M, m_begin + p.rows_per_split);
+
+  // loaders: one row (a lane), 8 consecutive channels of each tile (a
+  // warp), so the transposed stores of a warp fill one row of As and Bs
+  const int l_row = tid & 31;
+  const int l_c = (tid >> 5) * 8;
+
+  float acc[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  const bool vec_x = vec8(x, p.C);
+  const bool vec_dy = vec8(dy, p.K);
+  float ra[8], rb[8];
+  auto load = [&](int mb) {
+    const int m = mb + l_row;
+    RowOrigin o = row_origin(p, m);
+    o.valid = o.valid && m < m_end;
+    load_a8<PRO, RELU>(p, x, pixel(p, o, dh, dw), c0 + l_c, vec_x, ra);
+    const bool row_ok = m < m_end;
+    const int nb = n0 + l_c;
+    const long long off = static_cast<long long>(m) * p.K + nb;
+    if (vec_dy && row_ok && nb + 8 <= p.K) {
+      const uint4 u = ld8(dy, off);
+      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        rb[2 * i] = bf16_lo(w[i]);
+        rb[2 * i + 1] = bf16_hi(w[i]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        rb[j] = row_ok && nb + j < p.K ? to_float(dy[off + j]) : 0.f;
+    }
+  };
+  auto store = [&]() {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      As[l_c + j][l_row] = __float2bfloat16(ra[j]);
+      Bs[l_c + j][l_row] = __float2bfloat16(rb[j]);
+    }
+  };
+
+  if (m_begin < m_end) {
+    load(m_begin);
+    store();
+    __syncthreads();
+    for (int mb = m_begin; mb < m_end; mb += kTK) {
+      const bool more = mb + kTK < m_end;
+      if (more) load(mb + kTK);
+#pragma unroll
+      for (int kb = 0; kb < kTK; kb += 16) {
+        const int r = wc * 16 + g;
+        const uint32_t af[4] = {lds32(&As[r][kb + 2 * t]),
+                                lds32(&As[r + 8][kb + 2 * t]),
+                                lds32(&As[r][kb + 2 * t + 8]),
+                                lds32(&As[r + 8][kb + 2 * t + 8])};
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj) {
+          const int n = wn * 32 + nj * 8 + g;
+          const uint32_t bfr[2] = {lds32(&Bs[n][kb + 2 * t]),
+                                   lds32(&Bs[n][kb + 2 * t + 8])};
+          mma_bf16_16816(acc[nj], af, bfr);
+        }
+      }
+      __syncthreads();
+      if (more) {
+        store();
+        __syncthreads();
+      }
+    }
+  }
+
+  float* out = static_cast<float*>(p.y) +
+               static_cast<long long>(blockIdx.z) * TAPS * p.C * p.K;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int c = c0 + wc * 16 + g + h * 8;
+    if (c >= p.C) continue;
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = n0 + wn * 32 + nj * 8 + 2 * t + e;
+        if (n < p.K)
+          out[(static_cast<long long>(tap) * p.C + c) * p.K + n] =
+              acc[nj][2 * h + e];
+      }
+  }
+}
+
+// K6: the 1x1 weight gradient; bf16 on the tensor cores
+template <typename T, bool PRO, bool RELU>
+__global__ void __launch_bounds__(kThreads) conv1x1_wgrad_kernel(ConvParams p) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    conv_wgrad_body_tc<1, PRO, RELU>(p);
+  else
+    conv_wgrad_body<T, 1, PRO, RELU>(p);
+}
+
+// K8: the 3x3 weight gradient, per tap; bf16 on the tensor cores
+template <typename T, bool PRO, bool RELU>
+__global__ void __launch_bounds__(kThreads) conv3x3_wgrad_kernel(ConvParams p) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    conv_wgrad_body_tc<9, PRO, RELU>(p);
+  else
+    conv_wgrad_body<T, 9, PRO, RELU>(p);
+}
+
+// ---------------------------------------------------------------------------
+// The fixed-order sum of partials: out[g, l] = sum of in[r, l] over the rows
+// r of group g (kReduceChunk rows), each thread a column and every 8th row,
+// then the 8 row lanes in order
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(256)
+reduce_rows_kernel(const float* in, int R, int L, float* out) {
+  __shared__ float lanes[8][32];
+  const int col = blockIdx.x * 32 + threadIdx.x;
+  const int r0 = blockIdx.y * kReduceChunk;
+  const int r1 = min(R, r0 + kReduceChunk);
+  float acc = 0.f;
+  if (col < L)
+    for (int r = r0 + threadIdx.y; r < r1; r += 8)
+      acc += in[static_cast<long long>(r) * L + col];
+  lanes[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && col < L) {
+    float total = 0.f;
+    for (int g = 0; g < 8; ++g) total += lanes[g][threadIdx.x];
+    out[static_cast<long long>(blockIdx.y) * L + col] = total;
+  }
+}
+
+// Sum the R rows of in [R, L] into out [L], kReduceChunk rows a pass. tmp
+// holds ceil(R / kReduceChunk) rows; in is overwritten by later passes.
+cudaError_t reduce_rows(float* in, int R, int L, float* out, float* tmp,
+                        cudaStream_t stream) {
+  float* src = in;
+  float* spare[2] = {tmp, in};
+  int which = 0;
+  while (true) {
+    const int groups = (R + kReduceChunk - 1) / kReduceChunk;
+    float* dst = groups == 1 ? out : spare[which];
+    dim3 grid((L + 31) / 32, groups);
+    reduce_rows_kernel<<<grid, dim3(32, 8), 0, stream>>>(src, R, L, dst);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || groups == 1) return err;
+    src = dst;
+    R = groups;
+    which ^= 1;
+  }
+}
+
+template <typename T, bool PRO, bool RELU, bool STATS>
+void launch_fwd(const ConvParams& p, int taps, cudaStream_t stream) {
+  dim3 grid((p.M + kBM - 1) / kBM, (p.K + kBN - 1) / kBN);
+  if (taps == 9)
+    conv3x3_kernel<T, PRO, RELU, STATS><<<grid, kThreads, 0, stream>>>(p);
+  else
+    conv1x1_kernel<T, PRO, RELU, STATS><<<grid, kThreads, 0, stream>>>(p);
+}
+
+template <typename T>
+void fwd_by_flags(const ConvParams& p, int taps, bool pro, bool relu,
+                  bool stats, cudaStream_t stream) {
+  if (!pro) {
+    if (stats) launch_fwd<T, false, false, true>(p, taps, stream);
+    else launch_fwd<T, false, false, false>(p, taps, stream);
+  } else if (!relu) {
+    if (stats) launch_fwd<T, true, false, true>(p, taps, stream);
+    else launch_fwd<T, true, false, false>(p, taps, stream);
+  } else {
+    if (stats) launch_fwd<T, true, true, true>(p, taps, stream);
+    else launch_fwd<T, true, true, false>(p, taps, stream);
+  }
+}
+
+template <typename T, bool PRO, bool RELU>
+void launch_wgrad(const ConvParams& p, int taps, int splits,
+                  cudaStream_t stream) {
+  dim3 grid(taps * ((p.C + kWM - 1) / kWM), (p.K + kWN - 1) / kWN, splits);
+  if (taps == 9)
+    conv3x3_wgrad_kernel<T, PRO, RELU><<<grid, kThreads, 0, stream>>>(p);
+  else
+    conv1x1_wgrad_kernel<T, PRO, RELU><<<grid, kThreads, 0, stream>>>(p);
+}
+
+template <typename T>
+void wgrad_by_flags(const ConvParams& p, int taps, int splits, bool pro,
+                    bool relu, cudaStream_t stream) {
+  if (!pro) launch_wgrad<T, false, false>(p, taps, splits, stream);
+  else if (!relu) launch_wgrad<T, true, false>(p, taps, splits, stream);
+  else launch_wgrad<T, true, true>(p, taps, splits, stream);
+}
+
+bool bad_geometry(int N, int H, int W, int C, int Ho, int Wo, int K, int taps,
+                  int stride, int pad, int dtype) {
+  if (N < 1 || H < 1 || W < 1 || C < 1 || Ho < 1 || Wo < 1 || K < 1)
+    return true;
+  if ((taps != 1 && taps != 9) || stride < 1 || pad < 0 ||
+      (dtype != 0 && dtype != 1))
+    return true;
+  const long long M = static_cast<long long>(N) * Ho * Wo;
+  return M >= (1LL << 31) - kBM ||
+         static_cast<long long>(N) * H * W * C >= (1LL << 62) ||
+         (K + kBN - 1) / kBN > 65535;
+}
+
+ConvParams make_params(const void* x, const void* w, const void* scale,
+                       const void* shift, void* y, int N, int H, int W, int C,
+                       int Ho, int Wo, int K, int stride, int pad) {
+  ConvParams p;
+  p.x = x;
+  p.w = w;
+  p.scale = static_cast<const float*>(scale);
+  p.shift = static_cast<const float*>(shift);
+  p.y = y;
+  p.partial = nullptr;
+  p.N = N;
+  p.H = H;
+  p.W = W;
+  p.C = C;
+  p.Ho = Ho;
+  p.Wo = Wo;
+  p.K = K;
+  p.stride = stride;
+  p.pad = pad;
+  p.M = N * Ho * Wo;
+  p.rows_per_split = 0;
+  return p;
+}
+
+}  // namespace
+
+// K5 (taps = 1) or K7 (taps = 9). x [N, H, W, C], wt [taps, C, K] and y [N,
+// Ho, Wo, K] dense in one type (dtype 0: f32, 1: bf16); scale, shift f32 [C]
+// (null: no prologue; relu ignored without it). With want_stats, partial is
+// f32 [ceil(M / 128), 2K], tmp f32 [ceil(ceil(M / 128) / 256), 2K] and stats
+// f32 [2K] receives (sum, sum of squares) per output channel.
+extern "C" int paddle_conv_fwd(const void* x, const void* wt,
+                               const void* scale, const void* shift, void* y,
+                               void* partial, void* tmp, void* stats, int N,
+                               int H, int W, int C, int Ho, int Wo, int K,
+                               int taps, int stride, int pad, int relu,
+                               int want_stats, int dtype, void* stream) {
+  if (bad_geometry(N, H, W, C, Ho, Wo, K, taps, stride, pad, dtype) ||
+      (scale == nullptr) != (shift == nullptr) ||
+      (want_stats && (partial == nullptr || tmp == nullptr ||
+                      stats == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  ConvParams p = make_params(x, wt, scale, shift, y, N, H, W, C, Ho, Wo, K,
+                             stride, pad);
+  p.partial = static_cast<float*>(partial);
+  const bool pro = scale != nullptr;
+  if (dtype == 0)
+    fwd_by_flags<float>(p, taps, pro, relu != 0, want_stats != 0, st);
+  else
+    fwd_by_flags<__nv_bfloat16>(p, taps, pro, relu != 0, want_stats != 0, st);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !want_stats) return static_cast<int>(err);
+  err = reduce_rows(static_cast<float*>(partial), (p.M + kBM - 1) / kBM,
+                    2 * K, static_cast<float*>(stats),
+                    static_cast<float*>(tmp), st);
+  return static_cast<int>(err);
+}
+
+// K6 (taps = 1) or K8 (taps = 9): dw [taps, C, K] f32 from x [N, H, W, C] and
+// dy [N, Ho, Wo, K] (dense, one type). rows_per_split rows of M per split
+// (a multiple of 32); with splits == 1 the kernel writes dw itself, else
+// partial f32 [splits, taps * C * K] holds the splits' sums and tmp f32
+// [ceil(splits / 256), taps * C * K] the reduction's.
+extern "C" int paddle_conv_wgrad(const void* x, const void* dy,
+                                 const void* scale, const void* shift,
+                                 void* dw, void* partial, void* tmp, int N,
+                                 int H, int W, int C, int Ho, int Wo, int K,
+                                 int taps, int stride, int pad, int relu,
+                                 int splits, int rows_per_split, int dtype,
+                                 void* stream) {
+  if (bad_geometry(N, H, W, C, Ho, Wo, K, taps, stride, pad, dtype) ||
+      (scale == nullptr) != (shift == nullptr) || splits < 1 ||
+      splits > 65535 || rows_per_split < 1 || rows_per_split % kTK != 0 ||
+      static_cast<long long>(splits) * rows_per_split <
+          static_cast<long long>(N) * Ho * Wo ||
+      (splits > 1 && (partial == nullptr || tmp == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  ConvParams p = make_params(x, dy, scale, shift, splits == 1 ? dw : partial,
+                             N, H, W, C, Ho, Wo, K, stride, pad);
+  p.rows_per_split = rows_per_split;
+  const bool pro = scale != nullptr;
+  if (dtype == 0)
+    wgrad_by_flags<float>(p, taps, splits, pro, relu != 0, st);
+  else
+    wgrad_by_flags<__nv_bfloat16>(p, taps, splits, pro, relu != 0, st);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const long long L = static_cast<long long>(taps) * C * K;
+  if (L >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  err = reduce_rows(static_cast<float*>(partial), splits,
+                    static_cast<int>(L), static_cast<float*>(dw),
+                    static_cast<float*>(tmp), st);
+  return static_cast<int>(err);
+}
+
+extern "C" const char* paddle_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

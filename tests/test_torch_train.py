@@ -169,7 +169,7 @@ def _opts(name, multi_precision, clip):
     return made
 
 
-SHAPES = {"fc.weight": (8, 6), "fc.bias": (6,), "ln.weight": (6,),
+SHAPES = {"dense.weight": (8, 6), "dense.bias": (6,), "ln.weight": (6,),
           "ln.bias": (6,)}
 
 
@@ -208,7 +208,7 @@ def test_optimizer_matches_jax_apply_gradients(name, dtype, multi_precision,
     tparams = {n: torch.from_numpy(a).to(tdt) for n, a in init.items()}
     jstate = jax_opt.init(jparams)
     tstate = port_opt.init(tparams)
-    assert ("master" in tstate["param_states"]["fc.weight"]) == \
+    assert ("master" in tstate["param_states"]["dense.weight"]) == \
         (dtype == "bf16" and multi_precision)
     for step in range(4):
         grads = {n: rng.standard_normal(s).astype(np.float32) * 2
