@@ -8,8 +8,10 @@ first use), holds each kernel against its plain PyTorch version on the card,
 serves GPT-3 1.3B (``gpt3_1p3b``: 24 layers, hidden 2048, 16 heads, vocab
 50304; random weights from a seed) through ``ServingEngine``, trains it
 through ``TrainStep``, trains BERT-base (12 layers, hidden 768, 12 heads of
-64, vocab 30522) the same way, and trains ResNet-50 at bench.py's config 2
-on its conv-kernel route:
+64, vocab 30522) the same way, trains ResNet-50 at bench.py's config 2 on
+its conv-kernel route, and trains ERNIE-base (12 layers, hidden 768, 12
+heads of 64, vocab 40000) at bench.py's config 5 and at its own 2048-token
+context:
 
 1. env     torch, CUDA, nvcc and the card as nvidia-smi names it;
 2. build   the kernels, timed, with ptxas's register and spill report;
@@ -21,25 +23,13 @@ on its conv-kernel route:
            against their plain versions with and without masks, and at
            BERT-base's shape (B=64, S=512, H=12) with bench.py's padding
            bias, where they are timed;
-6. serve_f32   3 requests x 16 tokens, token-exact against the model's
-           dense-cache ``generate`` (no kernel there);
-7. serve_bf16  8 requests of 64..1536 prompt tokens x 32 tokens through a
-           pool of about half the trace's blocks, shrunk until a CPU dry
-           run of the trace preempts (spill to pinned host memory and
-           restore); every prefill runs K1 once per layer;
-8. train_grad_f32  one forward and backward of a 2-layer cut of the model
-           at full width in f32, through K1-K3 on the card and through the
-           plain versions on the CPU, every gradient compared;
-9. train_bf16  the GPT training slice: 24 layers, AMP-O2, AdamW with
-           float32 masters, B=4 x S=2048 batches as bench.py makes them, 2
-           warm-up and 8 timed steps; every step runs K1, K2 and K3 once
-           per layer;
-10. train_grad_f32_bert  as 8, for a 2-layer cut of BERT-base with a
-           padded batch, through K4a and K4b;
-11. train_bert_bf16  the BERT slice: 12 layers, AMP-O2 AdamW, B=64 x
-           S=512 in bench.py's dense, padded and packed forms; every step
-           runs K4a and K4b once per layer and no K1-K3;
-12. kernel_conv  K5-K8 (conv.cu: mm, mm_wgrad, c3, c3_wgrad) against their
+6. kernel_packed_stream  K4's streamed forms (flash_packed_stream.cu:
+           forward, dq, dk/dv, dk/dv-direct) against their plain versions
+           in 17 cases (f32 and bf16, masks, causal with Sq != Sk, Sk = 640,
+           rows with no key), then compared and timed at ERNIE's long shape
+           (B=16, S=2048, H=12, bf16, with and without bench.py's padding
+           bias) and dk/dv-direct at 512 queries over 2048 keys;
+7. kernel_conv  K5-K8 (conv.cu: mm, mm_wgrad, c3, c3_wgrad) against their
            plain versions, forward with stats, input gradient and weight
            gradient, in 15 cases (stride 1 and 2, prologue with ReLU or
            none or off, stats on and off, ragged M, odd H, f32, the three
@@ -48,17 +38,48 @@ on its conv-kernel route:
            then compared again and timed at the JAX package's
            RESNET50_TOP3_SHAPES at B=256 (stats over two reduction passes)
            against their bounds, their plain versions and cuDNN;
-13. train_grad_f32_resnet  one forward and backward of ResNet-50 in f32 at
+8. serve_f32   3 requests x 16 tokens, token-exact against the model's
+           dense-cache ``generate`` (no kernel there);
+9. serve_bf16  8 requests of 64..1536 prompt tokens x 32 tokens through a
+           pool of about half the trace's blocks, shrunk until a CPU dry
+           run of the trace preempts (spill to pinned host memory and
+           restore); every prefill runs K1 once per layer;
+10. train_grad_f32  one forward and backward of a 2-layer cut of the model
+           at full width in f32, through K1-K3 on the card and through the
+           plain versions on the CPU, every gradient compared;
+11. train_bf16  the GPT training slice: 24 layers, AMP-O2, AdamW with
+           float32 masters, B=4 x S=2048 batches as bench.py makes them, 2
+           warm-up and 8 timed steps; every step runs K1, K2 and K3 once
+           per layer;
+12. train_grad_f32_bert  as 10, for a 2-layer cut of BERT-base with a
+           padded batch, through K4a and K4b;
+13. train_bert_bf16  the BERT slice: 12 layers, AMP-O2 AdamW, B=64 x
+           S=512 in bench.py's dense, padded and packed forms; every step
+           runs K4a and K4b once per layer and no K1-K3;
+14. train_grad_f32_resnet  one forward and backward of ResNet-50 in f32 at
            B=2 x 224² with both conv flags on, through K5-K8 on the card and
            their plain versions on the CPU: loss, logits, BN buffers and
            every gradient compared;
-14. train_resnet_bf16  the ResNet slice: ResNet-50 (NHWC, space-to-depth
+15. train_resnet_bf16  the ResNet slice: ResNet-50 (NHWC, space-to-depth
            stem) cast to bf16, Momentum(0.1, 0.9) with f32 masters, B=256 x
            224², 2 warm-up and 8 timed steps; every step launches K5/K6/K7/K8
-           72/36/32/16 times and no K1-K4.
+           72/36/32/16 times and no K1-K4;
+16. train_grad_f32_ernie  as 10, for a 2-layer cut of ERNIE-base at B=1 x
+           S=2048 with a padding mask, through the streamed forward, dq and
+           dk/dv (compared in the 2-norm);
+17. train_ernie_bf16  the ERNIE slice: 12 layers, bf16 with AdamW f32
+           masters, in three forms: bench.py's config 5 (PipelineLayer and
+           make_pipeline_train_step, 512 positions, B=64 x 512, 2+8 steps;
+           K4a and K4b 12 a step), the same at 2048 positions (B=16 x 2048,
+           2+8 steps; the streamed forward, dq and dk/dv 12 a step), and
+           ErnieForPretraining at B=16 x 2048 with bench.py's padding mask
+           (2+4 steps); every earlier path launches no streamed kernel;
+18. cross_attention  nn.MultiHeadAttention(768, 12), 512 queries over 2048
+           keys, B=16, bf16: the streamed forward, dq and dk/dv-direct once
+           each, held against the plain dense path.
 
 ``--profile`` adds phases that serve the bf16 trace again and run a few
-GPT, BERT and ResNet train steps under torch.profiler, and print the device
+GPT, BERT, ResNet and long-form ERNIE train steps under torch.profiler, and print the device
 busy share and the kernels that take the device's time. Each phase prints one
 JSON line. Then come the ``{"kernels": [...]}`` line,
 the card's name and power limit, and the last line
@@ -464,7 +485,7 @@ def k4_inputs(torch, b, sq, sk, h, dtype, mask, seed):
 
     if mask in ("seg", "seg_bias"):
         seg_q = ids(sq, 1, 4)
-        seg_k = seg_q
+        seg_k = seg_q if sq == sk else ids(sk, 1, 4)
     if mask == "segk":    # query ids 1..3 against key ids 0..2
         seg_q, seg_k = ids(sq, 1, 4), ids(sk, 0, 3)
     if mask in ("bias", "seg_bias"):
@@ -476,24 +497,31 @@ def k4_inputs(torch, b, sq, sk, h, dtype, mask, seed):
     return q, k, v, do, (seg_q, seg_k, bias)
 
 
-def compare(torch, name, got, ref, dt, row):
+def compare(torch, name, got, ref, dt, row, nonzero=False):
     """One output against its plain version, logged in ``row``: bf16 within
     1e-2 + 1e-2·|ref| per element and a mean error at most 1e-3 of the
-    median |ref|; f32 within 1e-5 + 1e-5·|ref|. Returns the max error."""
+    median |ref|; f32 within 1e-5 + 1e-5·|ref|. With ``nonzero`` the mean
+    error and the median are taken over the elements whose plain value is
+    not 0 (the keys of padding that no query reaches have dk = dv = 0 on
+    both sides, and can be more than half of them). Returns the max
+    error."""
     check(got.shape == ref.shape and got.dtype == ref.dtype,
           f"{name}: {tuple(got.shape)} {got.dtype} against "
           f"{tuple(ref.shape)} {ref.dtype}")
     check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
     ref32 = ref.float()
     err = (got.float() - ref32).abs()
-    med = float(ref32.abs().median())
+    live = ref32 != 0 if nonzero else \
+        torch.ones_like(ref32, dtype=torch.bool)
+    med = float(ref32.abs()[live].median()) if bool(live.any()) else 0.0
     if dt == "bf16":
         # both round p and ds to bf16 at the same points, from f32 sums
         # taken in another order, so a rounding may flip (one ulp is 2^-7
         # of the value); a dropped or doubled tile moves the mean error far
         # past 1e-3 of the median |value|
         ok = bool((err <= 1e-2 + 1e-2 * ref32.abs()).all()) and \
-            float(err.mean()) <= 1e-3 * med
+            float(err[live].mean() if bool(live.any()) else 0.0) \
+            <= 1e-3 * med
     else:
         # f32 sums over at most 512 keys or queries in another order
         ok = bool((err <= 1e-5 + 1e-5 * ref32.abs()).all())
@@ -619,7 +647,214 @@ def phase_kernel_packed(torch, np, hfp, peaks):
     return worst, timing
 
 
-# -- phases 6 and 7 ----------------------------------------------------------
+# -- phase 6 -----------------------------------------------------------------
+
+# name, B, Sq, Sk, H, causal, dtype, mask
+STREAM_CASES = [
+    ("f32_s256_nomask", 2, 256, 256, 12, False, "f32", None),
+    ("f32_s256_key_bias", 2, 256, 256, 12, False, "f32", "bias"),
+    ("f32_s256_segments", 2, 256, 256, 12, False, "f32", "seg"),
+    ("f32_sq128_sk256_segment_ids_k", 2, 128, 256, 12, False, "f32", "segk"),
+    ("f32_s256_causal", 2, 256, 256, 12, True, "f32", None),
+    ("f32_s128_causal_segments_bias", 2, 128, 128, 12, True, "f32",
+     "seg_bias"),
+    ("f32_sq128_sk384_causal", 2, 128, 384, 12, True, "f32", None),
+    ("f32_s640_ragged_tiles", 1, 640, 640, 12, False, "f32", "bias"),
+    ("f32_sq384_sk640_causal_segments_bias", 1, 384, 640, 12, True, "f32",
+     "seg_bias"),
+    ("f32_sq640_sk384_causal_masked_rows", 1, 640, 384, 12, True, "f32",
+     None),
+    ("bf16_s256_nomask", 2, 256, 256, 12, False, "bf16", None),
+    ("bf16_s256_key_bias", 2, 256, 256, 12, False, "bf16", "bias"),
+    ("bf16_s128_segments", 2, 128, 128, 12, False, "bf16", "seg"),
+    ("bf16_s256_causal", 2, 256, 256, 12, True, "bf16", None),
+    ("bf16_sq256_sk640_key_bias", 2, 256, 640, 12, False, "bf16", "bias"),
+    ("bf16_sq512_sk1024_segment_ids_k", 2, 512, 1024, 12, False, "bf16",
+     "segk"),
+    ("bf16_s1024_causal", 1, 1024, 1024, 12, True, "bf16", None),
+]
+
+STREAM_KERNELS = ("flash_packed_fwd_stream", "flash_packed_bwd_dq",
+                  "flash_packed_bwd_dkv", "flash_packed_bwd_dkv_direct")
+
+
+def stream_case(torch, hfp, case, q, k, v, do, masks, worst):
+    """The streamed forward, then dq, dk/dv and (Sq <= 512) dk/dv-direct
+    from its o and lse, each against its plain version on the same inputs;
+    one row of errors."""
+    name, b, sq, sk, h, causal, dt = case
+    o, lse = hfp.flash_packed_fwd_stream(q, k, v, causal, None, masks)
+    delta = hfp._delta(o, do)
+    got = {"dq": hfp.flash_packed_bwd_dq(q, k, v, do, lse, delta, causal,
+                                         None, masks)}
+    got["dk"], got["dv"] = hfp.flash_packed_bwd_dkv(q, k, v, do, lse, delta,
+                                                    causal, None, masks)
+    direct = sq <= hfp.MAX_SEQ_Q_DIRECT
+    if direct:
+        got["dk_direct"], got["dv_direct"] = hfp.flash_packed_bwd_dkv_direct(
+            q, k, v, do, lse, delta, causal, None, masks)
+    torch.cuda.synchronize()
+    ro, rlse = hfp.flash_packed_fwd_stream_reference(q, k, v, causal, None,
+                                                     masks)
+    ref = {"dq": hfp.flash_packed_bwd_dq_reference(
+        q, k, v, do, lse, delta, causal, None, masks)}
+    ref["dk"], ref["dv"] = hfp.flash_packed_bwd_dkv_reference(
+        q, k, v, do, lse, delta, causal, None, masks)
+    if direct:
+        ref["dk_direct"], ref["dv_direct"] = ref["dk"], ref["dv"]
+    torch.cuda.synchronize()
+    row = {"case": name, "shape": [b, sq, sk, h, 64], "causal": causal,
+           "dtype": dt, "masks": [t is not None for t in masks]}
+    worst["flash_packed_fwd_stream"] = max(
+        worst["flash_packed_fwd_stream"],
+        compare(torch, "o", o, ro, dt, row, nonzero=True))
+    err_lse = (lse - rlse).abs()
+    row["max_abs_err_lse"] = float(err_lse.max())
+    row["ok"] &= bool((err_lse <= (1e-2 if dt == "bf16" else 1e-5) *
+                       (1 + rlse.abs())).all())
+    for gname, kname in (("dq", "flash_packed_bwd_dq"),
+                         ("dk", "flash_packed_bwd_dkv"),
+                         ("dv", "flash_packed_bwd_dkv"),
+                         ("dk_direct", "flash_packed_bwd_dkv_direct"),
+                         ("dv_direct", "flash_packed_bwd_dkv_direct")):
+        if gname in got:
+            worst[kname] = max(worst[kname], compare(
+                torch, gname, got[gname], ref[gname], dt, row, nonzero=True))
+    if direct:   # the two dk/dv kernels sum in the same order
+        row["ok"] &= bool(torch.equal(got["dk"], got["dk_direct"])) and \
+            bool(torch.equal(got["dv"], got["dv_direct"]))
+    # rows with no valid key: o = 0 and dq = 0, exactly
+    s = hfp._scores(q, k, causal, 1.0, masks)
+    empty = (s <= hfp.NEG_INF / 2).all(dim=-1).transpose(1, 2)  # [B, Sq, H]
+    row["empty_rows"] = int(empty.sum())
+    row["ok"] &= bool((o[empty] == 0).all()) and \
+        bool((got["dq"][empty] == 0).all())
+    check(row["ok"], f"streamed K4 disagrees with its plain version: {row}")
+    return row, o, lse
+
+
+def stream_bound(peaks, flops, nbytes):
+    t_ops = flops / peaks["bf16"] * 1e3
+    t_bytes = nbytes / peaks["bytes"] * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def phase_kernel_packed_stream(torch, np, hfp, peaks):
+    """The four streamed K4 kernels against their plain versions in every
+    case, then at ERNIE's long shape (B=16, S=2048, H=12, bf16, with and
+    without bench.py's padding bias: forward, dq, dk/dv) and at the
+    cross-attention shape (Sq=512 over Sk=2048: dk/dv-direct), where each
+    is compared and timed beside its bound, its plain version and SDPA."""
+    import torch.nn.functional as F
+    results = []
+    worst = {name: 0.0 for name in STREAM_KERNELS}
+    for i, (name, b, sq, sk, h, causal, dt, mask) in enumerate(STREAM_CASES):
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        q, k, v, do, masks = k4_inputs(torch, b, sq, sk, h, dtype, mask,
+                                       seed=700 + i)
+        row, _, _ = stream_case(torch, hfp, (name, b, sq, sk, h, causal, dt),
+                                q, k, v, do, masks, worst)
+        results.append(row)
+
+    h, d = 12, 64
+    timing = {}
+    for shape_name, b, sq, sk, padded in (
+            ("ernie_b16_s2048", 16, 2048, 2048, False),
+            ("ernie_b16_s2048_padded", 16, 2048, 2048, True),
+            ("cross_b16_sq512_sk2048", 16, 512, 2048, False)):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(13)
+        q, do = (torch.randn(b, sq, h, d, generator=g, device="cuda").to(
+            torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn(b, sk, h, d, generator=g, device="cuda").to(
+            torch.bfloat16) for _ in range(2))
+        bias = None
+        if padded:
+            _, att = bert_padded(np, b, sk)
+            bias = padding_bias(torch, torch.as_tensor(att, device="cuda"),
+                                torch.bfloat16)
+        masks = (None, None, bias)
+        row, o, lse = stream_case(torch, hfp, (shape_name, b, sq, sk, h,
+                                               False, "bf16"),
+                                  q, k, v, do, masks, worst)
+        results.append(row)
+        delta = hfp._delta(o, do)
+        scale = 1.0 / math.sqrt(d)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        amask = None if bias is None else \
+            bias[:, None, None, :].to(torch.bfloat16)
+        lib_fwd_ms = median_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=amask))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask)
+        dot = do.transpose(1, 2)
+        lib_bwd_ms = median_ms(lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), dot, retain_graph=True))
+        del ot
+        pairs = b * h * sq * sk
+        eq, ek = b * sq * h * d * 2, b * sk * h * d * 2   # bytes of a tensor
+        stat = b * h * sq * 4
+        mbytes = 0 if bias is None else b * sk * 4
+        if sq == sk:
+            kernels = [
+                ("flash_packed_fwd_stream",
+                 lambda: hfp.flash_packed_fwd_stream(q, k, v, False, scale,
+                                                     masks),
+                 lambda: hfp.flash_packed_fwd_stream_reference(
+                     q, k, v, False, scale, masks),
+                 4 * d * pairs, 2 * eq + 2 * ek + stat + mbytes, lib_fwd_ms),
+                ("flash_packed_bwd_dq",
+                 lambda: hfp.flash_packed_bwd_dq(q, k, v, do, lse, delta,
+                                                 False, scale, masks),
+                 lambda: hfp.flash_packed_bwd_dq_reference(
+                     q, k, v, do, lse, delta, False, scale, masks),
+                 6 * d * pairs, 3 * eq + 2 * ek + 2 * stat + mbytes,
+                 lib_bwd_ms),
+                ("flash_packed_bwd_dkv",
+                 lambda: hfp.flash_packed_bwd_dkv(q, k, v, do, lse, delta,
+                                                  False, scale, masks),
+                 lambda: hfp.flash_packed_bwd_dkv_reference(
+                     q, k, v, do, lse, delta, False, scale, masks),
+                 8 * d * pairs, 2 * eq + 4 * ek + 2 * stat + mbytes,
+                 lib_bwd_ms)]
+        else:
+            kernels = [
+                ("flash_packed_bwd_dkv_direct",
+                 lambda: hfp.flash_packed_bwd_dkv_direct(
+                     q, k, v, do, lse, delta, False, scale, masks),
+                 lambda: hfp.flash_packed_bwd_dkv_direct_reference(
+                     q, k, v, do, lse, delta, False, scale, masks),
+                 8 * d * pairs, 2 * eq + 4 * ek + 2 * stat + mbytes,
+                 lib_bwd_ms)]
+        for kname, run, plain, flops, nbytes, lib in kernels:
+            ms = median_ms(run)
+            plain_ms = median_ms(plain, iters=5, warmup=1)
+            bound, by = stream_bound(peaks, flops, nbytes)
+            timing.setdefault(kname, {})[shape_name] = {
+                "shape": [b, sq, sk, h, d], "dtype": "bf16", "causal": False,
+                "mask": "key bias (bench.py's padding)" if padded else None,
+                "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib,
+                "library": "SDPA forward" if kname.endswith("fwd_stream")
+                           else "SDPA backward (dq, dk, dv together)",
+                "flops": flops, "bytes": nbytes, "bound_ms": bound,
+                "bound_by": by, "peak_sheet": peaks["sheet"],
+                "tflops": flops / ms / 1e9}
+        del q, k, v, do, o, lse, delta, qt, kt, vt
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel_packed_stream", "kernels": list(STREAM_KERNELS),
+          "cases": results, "timing": timing,
+          "library": "scaled_dot_product_attention in [B, H, S, D] bf16, "
+                     "attn_mask = bias[:, None, None, :] where padded; "
+                     "backward by autograd.grad after one forward"})
+    # the line's timed shape: the unpadded long shape, and the
+    # cross-attention shape for dk/dv-direct
+    main = {kname: t.get("ernie_b16_s2048", t.get("cross_b16_sq512_sk2048"))
+            for kname, t in timing.items()}
+    return worst, main
+
+
+# -- phases 8 and 9 ----------------------------------------------------------
 
 def top2_gap(torch, model, prefix):
     """generate's top-2 logit gap after ``prefix`` (dense decode, as
@@ -796,7 +1031,7 @@ def phase_profile(torch, np, model, Request, ServingEngine, num_blocks):
           "decode_s": sum(engine.decode_ms) / 1e3})
 
 
-# -- phases 8 and 9 ----------------------------------------------------------
+# -- phases 10 and 11 --------------------------------------------------------
 
 def gpt_loss(model, batch):
     ids, labels = batch
@@ -948,20 +1183,22 @@ def phase_train_bf16(torch, np, hfa, peaks, GPTForCausalLM, gpt3_1p3b,
     return launches
 
 
-# -- phases 10 and 11 --------------------------------------------------------
+# -- phases 12 and 13 --------------------------------------------------------
+
+ATTENTION_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                     "flash_packed_fwd", "flash_packed_bwd") + STREAM_KERNELS
+
 
 def k4_counts(hfa, hfp):
-    return {"flash_fwd": hfa.flash_fwd.launches,
-            "flash_bwd_dq": hfa.flash_bwd_dq.launches,
-            "flash_bwd_dkv": hfa.flash_bwd_dkv.launches,
-            "flash_packed_fwd": hfp.flash_packed_fwd.launches,
-            "flash_packed_bwd": hfp.flash_packed_bwd.launches}
+    """Every attention kernel's launch count (K1-K3 and all six K4
+    forms)."""
+    return {name: getattr(hfa if hasattr(hfa, name) else hfp, name).launches
+            for name in ATTENTION_KERNELS}
 
 
 def zero_counts(hfa, hfp):
-    for fn in (hfa.flash_fwd, hfa.flash_bwd_dq, hfa.flash_bwd_dkv,
-               hfp.flash_packed_fwd, hfp.flash_packed_bwd):
-        fn.launches = 0
+    for name in ATTENTION_KERNELS:
+        getattr(hfa if hasattr(hfa, name) else hfp, name).launches = 0
 
 
 def phase_train_grad_f32_bert(torch, np, hfa, hfp, BertForPretraining,
@@ -992,7 +1229,7 @@ def phase_train_grad_f32_bert(torch, np, hfa, hfp, BertForPretraining,
         loss.backward()
         losses[name] = (float(loss.detach()), time.perf_counter() - t0)
     launches = {n: c - before[n] for n, c in k4_counts(hfa, hfp).items()}
-    check(launches == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+    check(launches == {**{n: 0 for n in ATTENTION_KERNELS},
                        "flash_packed_fwd": 2, "flash_packed_bwd": 2},
           f"train_grad_f32_bert: launches {launches}")
     worst_name, worst_ratio, rows = None, 0.0, 0
@@ -1153,7 +1390,8 @@ def phase_train_bert_bf16(torch, np, hfa, hfp, peaks, BertForPretraining,
             check(launches[name] == L * n_steps,
                   f"{form}: {name} launched {launches[name]} times in "
                   f"{n_steps} steps of {L} layers")
-        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") + \
+                STREAM_KERNELS:
             check(launches[name] == 0,
                   f"{form}: {name} launched {launches[name]} times")
         out[form] = row
@@ -1177,7 +1415,7 @@ def phase_train_bert_bf16(torch, np, hfa, hfp, peaks, BertForPretraining,
     return launches_all
 
 
-# -- phases 12 to 14 ---------------------------------------------------------
+# -- phases 7, 14 and 15 -----------------------------------------------------
 
 # name, kind, N, H, W, Cin, Cout, stride, act (None: no prologue), stats, dtype
 CONV_CASES = [
@@ -1635,8 +1873,7 @@ def phase_train_resnet_bf16(torch, np, hc, hfa, hfp, peaks, resnet50,
         check(launches[name] == per_step * n_steps,
               f"{name}: {launches[name]} launches in {n_steps} steps, "
               f"expected {per_step} a step")
-    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                 "flash_packed_fwd", "flash_packed_bwd"):
+    for name in ATTENTION_KERNELS:
         check(launches[name] == 0,
               f"ResNet training launched {name} {launches[name]} times")
     check(buf_dtypes == ["torch.float32"],
@@ -1652,6 +1889,308 @@ def phase_train_resnet_bf16(torch, np, hc, hfa, hfp, peaks, resnet50,
             wall_ms = (time.perf_counter() - t0) * 1e3
         emit({"phase": "profile_train_resnet", "steps": 3,
               **device_profile(prof, wall_ms)})
+    return launches
+
+
+# -- phases 16 to 18 (ERNIE) -------------------------------------------------
+
+def ernie_pipe_loss(cross_entropy):
+    """bench.py's loss (``:779-781``): the per-token cross-entropy of the
+    f32 logits, averaged."""
+    def loss_fn(logits, labels):
+        return cross_entropy(logits.float(), labels, reduction="none").mean()
+    return loss_fn
+
+
+def phase_train_grad_f32_ernie(torch, np, hfa, hfp, ErnieForPretraining,
+                               ernie_base):
+    """A 2-layer cut of ERNIE-base at full width (hidden 768, 12 heads of
+    64, vocab 40000), f32, B=1 x S=2048 with a padding mask: the same
+    weights and batch through one forward and backward on the card (the
+    streamed forward, dq and dk/dv) and on the CPU (their plain versions),
+    every gradient compared in the 2-norm."""
+    cfg = ernie_base(num_layers=2, hidden_dropout=0.0,
+                     attention_dropout=0.0)
+    gpu = ErnieForPretraining(cfg, device="cuda", seed=0)
+    cpu = ErnieForPretraining(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    b, s = 1, 2048
+    rng = np.random.default_rng(8)
+    ids = rng.integers(0, cfg.vocab_size, (b, s))
+    att = (np.arange(s)[None, :] < 1500).astype(np.int32)
+    labels = np.where(att == 1, rng.integers(0, cfg.vocab_size, (b, s)),
+                      -100)
+    sop = rng.integers(0, 2, (b, 1))
+    zero_counts(hfa, hfp)
+    losses = {}
+    for name, model in (("gpu", gpu), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        args = [torch.as_tensor(x, device=model.device)
+                for x in (ids, att, labels, sop)]
+        loss = model(args[0], None, args[1], args[2], args[3])
+        loss.backward()
+        losses[name] = (float(loss.detach()), time.perf_counter() - t0)
+    launches = k4_counts(hfa, hfp)
+    check(launches == {**{n: 0 for n in ATTENTION_KERNELS},
+                       "flash_packed_fwd_stream": 2,
+                       "flash_packed_bwd_dq": 2, "flash_packed_bwd_dkv": 2},
+          f"train_grad_f32_ernie: launches {launches}")
+    worst_name, worst_ratio, rows = None, 0.0, 0
+    cpu_params = dict(cpu.named_parameters())
+    for name, p in gpu.named_parameters():
+        g_gpu = p.grad.float().cpu()
+        g_cpu = cpu_params[name].grad.float()
+        check(bool(torch.isfinite(g_gpu).all()), f"{name}: non-finite grad")
+        ref = g_cpu
+        if name.endswith("k_proj.bias"):
+            # softmax ignores a constant added to all of a row's scores, so
+            # the key bias's true gradient is 0 and both sides hold rounding
+            # noise: it is measured against the key weight's gradient
+            ref = cpu_params[name[:-4] + "weight"].grad.float()
+        ratio = float((g_gpu - g_cpu).norm()) / max(float(ref.norm()), 1e-30)
+        rows += 1
+        if ratio >= worst_ratio:
+            worst_name, worst_ratio = name, ratio
+    loss_err = abs(losses["gpu"][0] - losses["cpu"][0])
+    row = {"phase": "train_grad_f32_ernie", "model": "ernie_base",
+           "layers": 2, "batch": [b, s], "real_tokens": int(att.sum()),
+           "loss_gpu": losses["gpu"][0], "loss_cpu": losses["cpu"][0],
+           "loss_abs_err": loss_err, "gpu_s": losses["gpu"][1],
+           "cpu_s": losses["cpu"][1], "grad_tensors": rows,
+           "worst_tensor": worst_name, "worst_rel_err_2norm": worst_ratio,
+           "launches": launches,
+           "allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    emit(row)
+    # f32 on both sides, sums in other orders (cuBLAS, the kernels' tiles)
+    check(loss_err <= 1e-4, f"train_grad_f32_ernie: loss differs: {row}")
+    check(worst_ratio <= 1e-4,
+          f"train_grad_f32_ernie: gradients differ: {row}")
+    del gpu, cpu
+
+
+def ernie_flops(cfg, n_params, seq):
+    """FLOPs a token: bench.py's ``6 N`` (``:834``), and that plus
+    non-causal attention's ``12 L S h`` (QK^T and PV, forward and
+    backward)."""
+    six_n = 6 * n_params
+    return six_n, six_n + 12 * cfg.num_layers * seq * cfg.hidden_size
+
+
+def timed_steps(torch, run, warmup, timed):
+    losses, times = [], []
+    for i in range(warmup + timed):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = run()
+        end.record()
+        end.synchronize()
+        losses.append(float(loss))
+        if i >= warmup:
+            times.append(start.elapsed_time(end))
+    return losses, times
+
+
+ERNIE_FORMS = (
+    # form, max positions, batch, seq, warm-up, timed, attention forms
+    ("bench_s512", 512, 64, 512, 2, 8, ("flash_packed_fwd",
+                                        "flash_packed_bwd")),
+    ("long_s2048", 2048, 16, 2048, 2, 8, ("flash_packed_fwd_stream",
+                                          "flash_packed_bwd_dq",
+                                          "flash_packed_bwd_dkv")),
+    ("padded_s2048", 2048, 16, 2048, 2, 4, ("flash_packed_fwd_stream",
+                                            "flash_packed_bwd_dq",
+                                            "flash_packed_bwd_dkv")),
+)
+
+
+def phase_train_ernie_bf16(torch, np, hfa, hfp, hc, peaks, ernie, AdamW,
+                           make_sharded_train_step, cross_entropy,
+                           profile=False):
+    """The ERNIE slice at 12 layers, hidden 768, 12 heads of 64, vocab
+    40000, dropout 0, random weights from seed 0, bf16 with AdamW(1e-4)
+    f32 masters, in three forms: bench.py's config 5 (``bench_ernie``:
+    ``PipelineLayer(ernie_pipeline_descs(cfg), num_stages=1)`` and
+    ``make_pipeline_train_step(n_microbatch=4)``, 512 positions, B=64 x
+    512, 2 + 8 steps; K4a-direct and K4b-fused), the same at ERNIE's own
+    2048 positions (B=16 x 2048, the same 32,768 tokens a step, 2 + 8
+    steps; the streamed forward, dq and dk/dv), and ``ErnieForPretraining``
+    at B=16 x 2048 with bench.py's padding mask as a key bias (2 + 4
+    steps). Each form: 12 launches a step of each of its attention kernels
+    and none of the others."""
+    from paddle_tpu_torch.distributed import make_pipeline_train_step
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        PipelineLayer
+    out, launches_all = {}, {n: 0 for n in ATTENTION_KERNELS}
+    for form, positions, batch, seq, warmup, timed, kernels in ERNIE_FORMS:
+        cfg = ernie.ernie_base(max_position_embeddings=positions,
+                               hidden_dropout=0.0, attention_dropout=0.0)
+        rng = np.random.default_rng(0)
+        ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, seq)),
+                              device="cuda")
+        labels = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                              (batch, seq)), device="cuda")
+        opt = AdamW(learning_rate=1e-4, multi_precision=True)
+        n_real = batch * seq
+        if form.startswith("padded"):
+            model = ernie.ErnieForPretraining(cfg, device="cuda", seed=0)
+            model.to(torch.bfloat16)
+            _, att = bert_padded(np, batch, seq)
+            att = torch.as_tensor(att, device="cuda")
+            labels = torch.where(att, labels, -100)
+            n_real = int(att.sum())
+            step = make_sharded_train_step(
+                model, opt, lambda m, bt: m(bt[0], None, bt[1], bt[2], None))
+
+            def run():
+                return step.step((ids, att.to(torch.int32), labels))
+        else:
+            model = PipelineLayer(ernie.ernie_pipeline_descs(
+                cfg, device="cuda", seed=0), num_stages=1,
+                loss_fn=ernie_pipe_loss(cross_entropy))
+            model.to(torch.bfloat16)
+            pstep = make_pipeline_train_step(model, opt, n_microbatch=4)
+            state = {"params": dict(model.named_parameters())}
+            state["opt"] = opt.init(state["params"])
+
+            def run():
+                state["params"], state["opt"], loss = pstep(
+                    state["params"], state["opt"], ids, labels, 1e-4)
+                return loss
+        n_params = sum(p.numel() for p in model.parameters())
+        bench_flops, attn_flops = ernie_flops(cfg, n_params, seq)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the main path of this form: counts set to 0 just before, read after
+        zero_counts(hfa, hfp)
+        zero_conv_counts(hc)
+        losses, times = timed_steps(torch, run, warmup, timed)
+        launches = {**k4_counts(hfa, hfp), **conv_counts(hc)}
+        n_steps = warmup + timed
+        secs = sum(times) / 1e3
+        tokens_per_s = timed * batch * seq / secs
+        row = {"phase": "train_ernie_bf16", "form": form,
+               "model": "ernie_base", "max_position_embeddings": positions,
+               "layers": cfg.num_layers, "batch": [batch, seq],
+               "entry": "ErnieForPretraining + TrainStep" if
+                        form.startswith("padded") else
+                        "PipelineLayer + make_pipeline_train_step",
+               "dtype": "bf16 (model.to), AdamW f32 masters",
+               "optimizer": "AdamW(1e-4, multi_precision=True)",
+               "n_params": n_params, "losses": losses,
+               "warmup_steps": warmup, "timed_steps": timed,
+               "step_ms": times, "step_p50_ms": percentile(times, 50),
+               "step_p99_ms": percentile(times, 99),
+               "tokens_per_s": tokens_per_s,
+               "real_tokens_per_step": n_real,
+               "real_tokens_per_s": timed * n_real / secs,
+               "flops_per_token_6n": bench_flops,
+               "mfu_6n": bench_flops * tokens_per_s / peaks["bf16"],
+               "flops_per_token_with_attention": attn_flops,
+               "mfu_with_attention": attn_flops * tokens_per_s /
+               peaks["bf16"],
+               "peak_sheet": peaks["sheet"],
+               "max_memory_allocated_gb":
+                   torch.cuda.max_memory_allocated() / 1e9,
+               "launches": launches}
+        emit(row)
+        check(all(math.isfinite(x) for x in losses), f"non-finite: {row}")
+        check(losses[-1] < losses[0], f"the loss did not decrease: {row}")
+        # ln(40000) = 10.60 at init; the random logits' spread adds about
+        # sigma^2 / 2
+        check(math.log(cfg.vocab_size) - 0.5 <= losses[0] <=
+              math.log(cfg.vocab_size) + 1.2,
+              f"ERNIE {form} step-0 loss {losses[0]}")
+        for name in ATTENTION_KERNELS:
+            want = cfg.num_layers * n_steps if name in kernels else 0
+            check(launches[name] == want,
+                  f"{form}: {name} launched {launches[name]} times in "
+                  f"{n_steps} steps of {cfg.num_layers} layers; expected "
+                  f"{want}")
+        check(all(launches[n] == 0 for n in CONV_KERNELS),
+              f"{form}: conv kernels launched: {launches}")
+        for name in ATTENTION_KERNELS:
+            launches_all[name] += launches[name]
+        out[form] = row
+        if profile and form == "long_s2048":
+            from torch.profiler import ProfilerActivity, profile as prof_ctx
+            with prof_ctx(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(2):
+                    run()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            emit({"phase": "profile_train_ernie", "form": form, "steps": 2,
+                  **device_profile(prof, wall_ms)})
+        del model, opt, run
+        torch.cuda.empty_cache()
+    return launches_all
+
+
+def phase_cross_attention(torch, np, hfa, hfp, MultiHeadAttention,
+                          PF):
+    """``nn.MultiHeadAttention(768, 12)`` in bf16: a 512-token query over
+    2048 keys, B=16, forward and backward. The JAX package runs the
+    streamed forward, the streamed dq and dk/dv-direct here (all queries in
+    one tile, the keys in four); each launches once. Output and gradients
+    are held against the port's plain dense path (``_dense_attention``)
+    through the same projections, in the 2-norm."""
+    b, sq, sk, e, h = 16, 512, 2048, 768, 12
+    torch.manual_seed(0)
+    mha = MultiHeadAttention(e, h, device="cuda").to(torch.bfloat16)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(21)
+    xq = torch.randn(b, sq, e, generator=g, device="cuda").to(torch.bfloat16)
+    xkv = torch.randn(b, sk, e, generator=g, device="cuda").to(
+        torch.bfloat16)
+    dout = torch.randn(b, sq, e, generator=g, device="cuda").to(
+        torch.bfloat16)
+
+    def grads(out):
+        params = list(mha.parameters())
+        got = torch.autograd.grad(out, [xq, xkv] + params, dout)
+        return dict(zip(["x_query", "x_kv"] + [n for n, _ in
+                                               mha.named_parameters()], got))
+
+    xq.requires_grad_()
+    xkv.requires_grad_()
+    zero_counts(hfa, hfp)
+    t0 = time.perf_counter()
+    out = mha(xq, xkv, xkv)
+    got = grads(out)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = k4_counts(hfa, hfp)
+    check(launches == {**{n: 0 for n in ATTENTION_KERNELS},
+                       "flash_packed_fwd_stream": 1,
+                       "flash_packed_bwd_dq": 1,
+                       "flash_packed_bwd_dkv_direct": 1},
+          f"cross_attention: launches {launches}")
+    # the plain path: the same projections, the dense attention
+    q = mha.q_proj(xq).view(b, sq, h, e // h)
+    k = mha.k_proj(xkv).view(b, sk, h, e // h)
+    v = mha.v_proj(xkv).view(b, sk, h, e // h)
+    ref_out = mha.out_proj(PF._dense_attention(
+        q, k, v, None, False, 1.0 / math.sqrt(e // h)).reshape(b, sq, e))
+    ref = grads(ref_out)
+    errs = {"out": float((out - ref_out).detach().float().norm() /
+                         ref_out.detach().float().norm())}
+    for name, gt in got.items():
+        check(bool(torch.isfinite(gt).all()), f"cross_attention: {name}")
+        r = ref[name].float()
+        if name == "k_proj.bias":   # its true gradient is 0 (see above)
+            r = ref["k_proj.weight"].float()
+        errs[name] = float((gt.float() - ref[name].float()).norm() /
+                           max(float(r.norm()), 1e-30))
+    row = {"phase": "cross_attention", "layer": "MultiHeadAttention(768, 12)",
+           "dtype": "bf16", "query": [b, sq, e], "key_value": [b, sk, e],
+           "seconds_first_call": seconds, "rel_err_2norm": errs,
+           "launches": launches}
+    emit(row)
+    # bf16 on both sides; the kernels round p before the normalisation,
+    # the dense path after it
+    check(max(errs.values()) <= 2e-2, f"cross_attention disagrees: {row}")
     return launches
 
 
@@ -1679,6 +2218,9 @@ def main() -> int:
         from paddle_tpu_torch.ops._hopper import conv as hc
         from paddle_tpu_torch.optimizer import Momentum
         from paddle_tpu_torch.vision.models import resnet50
+        from paddle_tpu_torch.text.models import ernie
+        from paddle_tpu_torch.nn import MultiHeadAttention
+        from paddle_tpu_torch.nn import functional as PF
     except ImportError as e:
         print(f"chip_smoke: the paddle_tpu_torch package must sit beside "
               f"this script ({e})", file=sys.stderr)
@@ -1696,15 +2238,19 @@ def main() -> int:
     worst, timing = phase_kernel(torch, hfa, peaks)
     worst_bwd, timing_bwd = phase_kernel_bwd(torch, hfa, peaks)
     worst_packed, timing_packed = phase_kernel_packed(torch, np, hfp, peaks)
+    worst_stream, timing_stream = phase_kernel_packed_stream(torch, np, hfp,
+                                                             peaks)
     worst_conv, stats_conv, timing_conv = phase_kernel_conv(torch, hc,
                                                             peaks)
     # the GPT and BERT paths launch no conv kernel: the counts run from here
     # to the end of BERT training
     zero_conv_counts(hc)
 
-    # the GPT paths launch no K4: its counts run from here to the end of
-    # GPT training
-    hfp.flash_packed_fwd.launches = hfp.flash_packed_bwd.launches = 0
+    # the GPT paths launch no K4 form: their counts run from here to the
+    # end of GPT training
+    k4_forms = ATTENTION_KERNELS[3:]
+    for name in k4_forms:
+        getattr(hfp, name).launches = 0
     model = GPTForCausalLM(gpt3_1p3b(), device="cuda", dtype=torch.float32,
                            seed=0)
     phase_serve_f32(torch, np, hfa, model, Request, ServingEngine)
@@ -1723,10 +2269,8 @@ def main() -> int:
     train_launches = phase_train_bf16(
         torch, np, hfa, peaks, GPTForCausalLM, gpt3_1p3b, amp, AdamW,
         make_sharded_train_step, profile=profile)
-    gpt_k4 = {n: fn.launches for n, fn in (
-        ("flash_packed_fwd", hfp.flash_packed_fwd),
-        ("flash_packed_bwd", hfp.flash_packed_bwd))}
-    check(gpt_k4 == {"flash_packed_fwd": 0, "flash_packed_bwd": 0},
+    gpt_k4 = {name: getattr(hfp, name).launches for name in k4_forms}
+    check(all(n == 0 for n in gpt_k4.values()),
           f"the GPT paths launched K4: {gpt_k4}")
     serve_launches.update(gpt_k4)
     train_launches.update(gpt_k4)
@@ -1752,10 +2296,32 @@ def main() -> int:
         torch, np, hc, hfa, hfp, peaks, resnet50, Momentum,
         make_sharded_train_step, profile=profile)
 
+    torch.cuda.empty_cache()
+
+    # ERNIE: every earlier path launched none of the streamed K4 kernels
+    # (each path's counts are checked above); ERNIE launches no conv kernel
+    zero_conv_counts(hc)
+    phase_train_grad_f32_ernie(torch, np, hfa, hfp,
+                               ernie.ErnieForPretraining, ernie.ernie_base)
+    torch.cuda.empty_cache()
+    ernie_launches = phase_train_ernie_bf16(
+        torch, np, hfa, hfp, hc, peaks, ernie, AdamW,
+        make_sharded_train_step, cross_entropy, profile=profile)
+    torch.cuda.empty_cache()
+    cross_launches = phase_cross_attention(torch, np, hfa, hfp,
+                                           MultiHeadAttention, PF)
+    late_conv = conv_counts(hc)
+    check(all(n == 0 for n in late_conv.values()),
+          f"the ERNIE paths launched conv kernels: {late_conv}")
+    ernie_launches.update(late_conv)
+    cross_launches.update(late_conv)
+
     # `launches` is the count on each kernel's first main path: serving
     # for K1 (as the line has counted it from the start), GPT training for
     # K2/K3, BERT training (all three forms) for K4a/K4b, ResNet training
-    # for K5-K8; every entry also has every path's count. `max_abs_err` is
+    # for K5-K8, ERNIE training (all three forms) for the streamed forward,
+    # dq and dk/dv, cross-attention for dk/dv-direct; every entry also has
+    # every path's count. `max_abs_err` is
     # the largest error of an output element (y, dx, dw, o, dq, ...) against
     # the plain version; `stats_rel_err` that of K5/K7's f32 (sum, sumsq)
     # over their scale (null for the other kernels). `max_err` and
@@ -1796,7 +2362,27 @@ def main() -> int:
              worst_conv["c3"], resnet_launches["c3"]),
             ("c3_wgrad", "conv.cu", fc + "401 (_c3_wgrad_kernel, launched "
              "by _c3_wgrad at :441)", timing_conv["c3_wgrad"],
-             worst_conv["c3_wgrad"], resnet_launches["c3_wgrad"])):
+             worst_conv["c3_wgrad"], resnet_launches["c3_wgrad"]),
+            ("flash_packed_fwd_stream", "flash_packed_stream.cu", fp + "102 "
+             "(_fwd_kernel, launched by _fwd at :267)",
+             timing_stream["flash_packed_fwd_stream"],
+             worst_stream["flash_packed_fwd_stream"],
+             ernie_launches["flash_packed_fwd_stream"]),
+            ("flash_packed_bwd_dq", "flash_packed_stream.cu", fp + "297 "
+             "(_bwd_dq_kernel, launched by _bwd at :582)",
+             timing_stream["flash_packed_bwd_dq"],
+             worst_stream["flash_packed_bwd_dq"],
+             ernie_launches["flash_packed_bwd_dq"]),
+            ("flash_packed_bwd_dkv", "flash_packed_stream.cu", fp + "348 "
+             "(_bwd_dkv_kernel, launched by _bwd at :652)",
+             timing_stream["flash_packed_bwd_dkv"],
+             worst_stream["flash_packed_bwd_dkv"],
+             ernie_launches["flash_packed_bwd_dkv"]),
+            ("flash_packed_bwd_dkv_direct", "flash_packed_stream.cu",
+             fp + "407 (_bwd_dkv_kernel_direct, launched by _bwd at :626)",
+             timing_stream["flash_packed_bwd_dkv_direct"],
+             worst_stream["flash_packed_bwd_dkv_direct"],
+             cross_launches["flash_packed_bwd_dkv_direct"])):
         kernels.append({
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/ops/_hopper/csrc/" + source,
@@ -1805,6 +2391,8 @@ def main() -> int:
             "train_launches": train_launches[name],
             "bert_launches": bert_launches[name],
             "resnet_launches": resnet_launches[name],
+            "ernie_launches": ernie_launches[name],
+            "cross_launches": cross_launches[name],
             "max_abs_err": err, "max_err": err,
             "stats_rel_err": stats_conv.get(name),
             "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],

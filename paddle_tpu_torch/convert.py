@@ -27,12 +27,13 @@ __all__ = ["LINEAR_NAMES", "from_jax_state_dict", "to_jax_state_dict",
            "from_jax_optimizer_state"]
 
 #: attribute names of the Linear layers whose weights are transposed (GPT,
-#: then BERT's encoder layers and heads, then ResNet's classifier). Conv
-#: weights are OIHW in both packages and copy as they are.
+#: then BERT's encoder layers and heads, then ResNet's classifier, then
+#: ERNIE's SOP head and its pipeline head's transform and untied MLM
+#: projection). Conv weights are OIHW in both packages and copy as they are.
 LINEAR_NAMES = frozenset({"qkv_proj", "q_proj", "kv_proj", "out_proj", "up",
                           "down", "lm_head", "k_proj", "v_proj", "linear1",
                           "linear2", "pooler", "mlm_transform", "nsp_head",
-                          "fc"})
+                          "fc", "sop_head", "transform", "proj"})
 
 
 def _is_linear_weight(key: str) -> bool:

@@ -3,13 +3,16 @@ the port reads).
 
 ``set_flags({"FLAGS_pallas_conv": 1})`` and ``get_flags(["pallas_conv"])``
 work as in the JAX package, under the same names, so a caller's settings
-carry over. Two flags are defined, both off by default as in JAX:
+carry over. Three flags are defined, with JAX's defaults:
 
 - ``fused_conv_bn``: ResNet blocks in training take the deferred-BN units of
   :mod:`paddle_tpu_torch.nn.fused_conv_bn`;
 - ``pallas_conv``: inside those units, a supported convolution runs on the
   hand-written conv kernels (``ops/_hopper/conv.py``, K5-K8). The name is
-  the JAX package's; on the GPU it means the CUDA kernels.
+  the JAX package's; on the GPU it means the CUDA kernels;
+- ``flash_head_pack`` (on): d=64 attention whose heads match takes K4, the
+  head-dim-64 kernels (``ops/_hopper/flash_attention_packed.py``); at 0 it
+  takes K1-K3, as in JAX.
 
 Unlike the JAX registry, no ``FLAGS_*`` environment variable is read.
 """
@@ -80,3 +83,5 @@ define_flag("pallas_conv", 0,
             "or 2) inside the fused units through the hand-written conv "
             "kernels with in-kernel BN prologue and stat epilogue (default "
             "off, as in the JAX package)")
+define_flag("flash_head_pack", 1,
+            "route d=64 dense-head attention to the head-packed kernel")

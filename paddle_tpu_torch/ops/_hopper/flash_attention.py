@@ -357,16 +357,18 @@ def flash_attention_hopper(query: torch.Tensor, key: torch.Tensor,
                            segment_ids_k=None, dropout: float = 0.0,
                            key_bias=None) -> torch.Tensor:
     """``flash_attention_pallas``'s routing (``:909-926``), ``[B, S, H,
-    D]``: a d=64 MHA input whose sequence lengths are multiples of 128 and
-    whose ``pack_group(H)`` is non-zero goes to K4
+    D]``: with the flag ``flash_head_pack`` on (its default), a d=64 MHA
+    input whose sequence lengths are multiples of 128 and whose
+    ``pack_group(H)`` is non-zero goes to K4
     (:func:`~.flash_attention_packed.flash_attention_packed`); any other
     input goes to K1, whose segment ids, key bias and dropout are not
     ported, so asking for them there raises ``NotImplementedError``."""
+    from ...core import flags
     from .flash_attention_packed import flash_attention_packed, pack_group
     b, sq, h, d = query.shape
     sk, hk = key.shape[1], key.shape[2]
     if d == 64 and hk == h and sq % 128 == 0 and sk % 128 == 0 and \
-            pack_group(h):
+            int(flags.flag("flash_head_pack")) and pack_group(h):
         return flash_attention_packed(
             query, key, value, causal=causal, scale=scale,
             segment_ids=segment_ids, segment_ids_k=segment_ids_k,

@@ -1,19 +1,29 @@
-"""Flash attention at head dim 64 on Hopper: K4's single-key-tile forms.
+"""Flash attention at head dim 64 on Hopper: K4, in all six of its forms.
 
-Port of ``paddle_tpu/ops/_pallas/flash_attention_packed.py`` where the
-whole key sequence fits one tile (``block_k >= seq_k``, Sk <= 512): the
-forward ``_fwd_kernel_direct`` (K4a-direct, launched by ``_fwd``) and the
-fused backward ``_bwd_fused_kernel`` (K4b-fused, launched by ``_bwd``),
-as ``csrc/flash_packed.cu``, built by ``nvcc`` at first use and called
-through ``ctypes`` like K1-K3.
+Port of ``paddle_tpu/ops/_pallas/flash_attention_packed.py``. Where the
+whole key sequence fits one of the JAX package's tiles (Sk <= 512 at 12
+heads) it runs the forward ``_fwd_kernel_direct`` (K4a-direct) and the fused
+backward ``_bwd_fused_kernel`` (K4b-fused), as ``csrc/flash_packed.cu``;
+where it does not, the streamed forms ``_fwd_kernel``, ``_bwd_dq_kernel``
+and ``_bwd_dkv_kernel``, and ``_bwd_dkv_kernel_direct`` when all the
+queries fit one tile while the keys do not, as ``csrc/flash_packed_stream.cu``.
+All are built by ``nvcc`` at first use and called through ``ctypes`` like
+K1-K3. :func:`plan` picks the form the JAX package would run for every
+input, from its tile arithmetic (``_pick_blocks_packed`` and the caller's
+``block_q``/``block_k`` pins); inside each kernel the tiles are this card's
+own (64 x 64).
 
 The TPU packs G heads on the 128-lane axis to fill its vector registers;
-that is the TPU's layout and is not carried over. Both kernels read the
+that is the TPU's layout and is not carried over. Every kernel reads the
 public ``[B, S, H, 64]`` layout through strides, one head per block.
 
-- :func:`flash_packed_fwd` ``-> (o [B, Sq, H, 64], lse [B, H, Sq] f32)``;
-- :func:`flash_packed_bwd` ``-> (dq, dk, dv)``, with ``delta = rowsum(do
-  * o)`` a torch op here, as ``_bwd`` computes it outside its kernel;
+- :func:`flash_packed_fwd` (K4a-direct) and :func:`flash_packed_fwd_stream`
+  ``-> (o [B, Sq, H, 64], lse [B, H, Sq] f32)``;
+- :func:`flash_packed_bwd` (K4b-fused) ``-> (dq, dk, dv)``, with ``delta =
+  rowsum(do * o)`` a torch op here, as ``_bwd`` computes it outside its
+  kernel; :func:`flash_packed_bwd_dq` ``-> dq`` and
+  :func:`flash_packed_bwd_dkv` / :func:`flash_packed_bwd_dkv_direct` ``->
+  (dk, dv)``, which take that ``delta``;
 - :func:`flash_attention_packed`, the differentiable public entry.
 
 Masks work as the TPU kernels apply them: the scale, then bottom-right
@@ -22,17 +32,15 @@ additive f32 key bias; ``p = exp(s - m) * (s > NEG_INF / 2)``.
 
 On a CUDA tensor each wrapper launches its kernel, or raises on anything
 the kernel does not take; each launch adds one to its ``launches``. On a
-CPU tensor the plain versions :func:`flash_packed_fwd_reference` and
-:func:`flash_packed_bwd_reference` run instead. Nothing falls back from
-one to the other. The streamed forms (``_fwd_kernel``, ``_bwd_dq_kernel``,
-``_bwd_dkv_kernel``, ``_bwd_dkv_kernel_direct``, for Sk > 512) and dropout
-are not ported yet and raise ``NotImplementedError``.
+CPU tensor its plain version (the same name with ``_reference``) runs
+instead. Nothing falls back from one to the other. Dropout is not ported
+yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -41,14 +49,18 @@ from .flash_attention import (NEG_INF, _DTYPE_CODE, _bwd_arg_error, _call,
 
 __all__ = ["flash_attention_packed", "flash_packed_fwd",
            "flash_packed_fwd_reference", "flash_packed_bwd",
-           "flash_packed_bwd_reference", "pack_group", "HEAD_D", "MAX_SEQ_K"]
+           "flash_packed_bwd_reference", "flash_packed_fwd_stream",
+           "flash_packed_fwd_stream_reference", "flash_packed_bwd_dq",
+           "flash_packed_bwd_dq_reference", "flash_packed_bwd_dkv",
+           "flash_packed_bwd_dkv_reference", "flash_packed_bwd_dkv_direct",
+           "flash_packed_bwd_dkv_direct_reference", "pack_group", "plan",
+           "Plan", "HEAD_D", "MAX_SEQ_K", "MAX_SEQ_Q_DIRECT", "KERNEL_TILE"]
 
 HEAD_D = 64  # the packed path exists for exactly this head dim
 MAX_PACK_LANES = 1024
-MAX_SEQ_K = 512  # the single key tile of _pick_blocks_packed at dp <= 768
-_STREAMED = ("the streamed K4 forms (_fwd_kernel, _bwd_dq_kernel, "
-             "_bwd_dkv_kernel, _bwd_dkv_kernel_direct) are not ported yet "
-             "(ROADMAP Queue 2)")
+MAX_SEQ_K = 512  # the keys K4a-direct's kernel keeps in shared memory
+MAX_SEQ_Q_DIRECT = 512  # the queries dk/dv-direct's kernel stages at once
+KERNEL_TILE = 64  # query rows and keys per tile inside every K4 kernel
 
 Masks = Tuple[Optional[torch.Tensor], Optional[torch.Tensor],
               Optional[torch.Tensor]]
@@ -63,6 +75,68 @@ def pack_group(num_heads: int) -> int:
         if num_heads % g == 0 and g * HEAD_D <= MAX_PACK_LANES:
             best = g
     return best
+
+
+def _pick_blocks_packed(sq: int, sk: int, dp: int, bwd: bool = False
+                        ) -> Tuple[int, int]:
+    """The JAX package's ``(block_q, block_k)`` for the packed width ``dp =
+    G*64`` (``:53-87``, without its autotune cache, which is empty unless a
+    TPU sweep filled it). The port's kernels tile by 64 whatever this
+    says; it decides only which form runs."""
+    if bwd:
+        cq, ck = (256, 512) if dp <= 768 else (128, 256)
+    else:
+        cq, ck = (256, 512) if dp <= 768 else (256, 256)
+
+    def fit(cap, s):
+        b = min(cap, s)
+        while b > 128 and s % b:
+            b -= 128
+        return b
+
+    return fit(cq, sq), fit(ck, sk)
+
+
+class Plan(NamedTuple):
+    """The K4 forms one input runs: ``fwd`` is ``"direct"`` (K4a-direct)
+    or ``"stream"``; ``bwd`` is ``"fused"`` (K4b-fused) or ``"dq"`` (the
+    streamed dq, then ``dkv``: ``"direct"`` or ``"stream"``)."""
+    fwd: str
+    bwd: str
+    dkv: Optional[str]
+
+
+def plan(sq: int, sk: int, num_heads: int, block_q: Optional[int] = None,
+         block_k: Optional[int] = None) -> Plan:
+    """The forms JAX's ``flash_attention_packed`` runs for these lengths,
+    by its own arithmetic: its tiles at ``dp = 64 * pack_group(H)``, or the
+    caller's pins for both directions (``:740-750``); one key tile -> the
+    direct forward (``_fwd`` ``:232``) and the fused backward (``_bwd``
+    ``:542``), else the streamed forms; then the dk/dv tile mirror, and one
+    query tile -> dk/dv-direct (``:613-626``). Raises ``ValueError`` where
+    JAX does: lengths the forward tiles do not divide."""
+    g = pack_group(num_heads)
+    if not g:
+        raise ValueError(f"no even pack group divides {num_heads} heads")
+    dp = g * HEAD_D
+    auto_q, auto_k = _pick_blocks_packed(sq, sk, dp)
+    bwd_auto_q, bwd_auto_k = _pick_blocks_packed(sq, sk, dp, bwd=True)
+    # explicit caller blocks pin BOTH directions, as in JAX
+    bwd_bq, bwd_bk = block_q or bwd_auto_q, block_k or bwd_auto_k
+    block_q, block_k = block_q or auto_q, block_k or auto_k
+    if sq % min(block_q, sq) or sk % min(block_k, sk):
+        raise ValueError(f"packed flash needs seq lengths divisible by "
+                         f"blocks; sq={sq}, sk={sk}")
+    fwd = "direct" if sk // min(block_k, sk) == 1 else "stream"
+    bq, bk = min(bwd_bq, sq), min(bwd_bk, sk)
+    if sk // bk == 1:
+        return Plan(fwd, "fused", None)
+    # dk/dv mirror the dq tiling (the small tile on its streamed axis, q),
+    # unmirrored when sq != sk makes the swap non-dividing
+    kq, kk = bk, bq
+    if sq % min(kq, sq) or sk % min(kk, sk):
+        kq, kk = bq, bk
+    return Plan(fwd, "dq", "direct" if sq // min(kq, sq) == 1 else "stream")
 
 
 def _shapes(q, k, v):
@@ -174,6 +248,113 @@ def flash_packed_bwd_reference(q, k, v, o, lse, do, causal: bool = False,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _tiles(n: int):
+    """The kernels' 64-wide tiles of a length ``n``, as slices in order."""
+    return [slice(t, min(t + KERNEL_TILE, n))
+            for t in range(0, n, KERNEL_TILE)]
+
+
+def flash_packed_fwd_stream_reference(q, k, v, causal: bool = False,
+                                      scale: Optional[float] = None,
+                                      masks: Masks = (None, None, None)
+                                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch ``flash_packed_fwd_stream``: the online softmax of
+    ``_fwd_kernel`` over the kernel's 64-key tiles in order, in float32,
+    with its rounding point (p, taken against the running max, rounded to
+    v's dtype before the value product). The kernel skips key tiles above
+    a query tile's causal band; here every row walks every tile, which
+    leaves m, l and acc exactly as they were (a masked score is NEG_INF: p
+    = 0 and the rescale is exp(0)). Returns ``(o [B, Sq, H, 64]`` in q's
+    dtype, ``lse [B, H, Sq]`` float32)."""
+    b, sq, sk, h = _shapes(q, k, v)
+    scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
+    s = _scores(q, k, causal, scale, masks)                  # [B, H, Sq, Sk]
+    vf = v.float()
+    m = torch.full((b, h, sq, 1), NEG_INF, device=q.device)
+    l = torch.zeros((b, h, sq, 1), device=q.device)
+    acc = torch.zeros((b, h, sq, HEAD_D), device=q.device)
+    for t in _tiles(sk):
+        st = s[..., t]
+        m_new = torch.maximum(m, st.amax(dim=-1, keepdim=True))
+        p = torch.exp(st - m_new) * (st > NEG_INF / 2)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(v.dtype).float(), vf[:, t])
+        m = m_new
+    l = torch.clamp(l, min=1e-30)
+    lse = (m + torch.log(l))[..., 0]
+    return (acc / l).transpose(1, 2).to(q.dtype), lse
+
+
+def _bwd_p_ds(q, k, v, do, lse, delta, causal, scale, masks):
+    """The backward's recompute, ``[B, H, Sq, Sk]`` f32: ``p = exp(s -
+    lse)`` (0 where masked) and ``ds = p (dp - delta) scale`` rounded to
+    the input dtype, as ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` round
+    it."""
+    s = _scores(q, k, causal, scale, masks)
+    p = torch.exp(s - lse.float()[..., None]) * (s > NEG_INF / 2)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = (p * (dp - delta.float()[..., None]) * scale).to(q.dtype).float()
+    return p, ds
+
+
+def flash_packed_bwd_dq_reference(q, k, v, do, lse, delta,
+                                  causal: bool = False,
+                                  scale: Optional[float] = None,
+                                  masks: Masks = (None, None, None)
+                                  ) -> torch.Tensor:
+    """Plain PyTorch ``flash_packed_bwd_dq``: ``dq = ds k`` summed over the
+    kernel's 64-key tiles in order, in float32, from the forward's lse and
+    ``delta`` (``[B, H, Sq]`` f32). Returns dq in q's dtype."""
+    _shapes(q, k, v)
+    scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
+    _, ds = _bwd_p_ds(q, k, v, do, lse, delta, causal, scale, masks)
+    kf = k.float()
+    dq = torch.zeros(q.shape, device=q.device)
+    for t in _tiles(k.shape[1]):
+        dq += torch.einsum("bhqk,bkhd->bqhd", ds[..., t], kf[:, t])
+    return dq.to(q.dtype)
+
+
+def _dkv_reference(q, k, v, do, lse, delta, causal, scale, masks):
+    _shapes(q, k, v)
+    scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
+    p, ds = _bwd_p_ds(q, k, v, do, lse, delta, causal, scale, masks)
+    pr = p.to(do.dtype).float()
+    qf, dof = q.float(), do.float()
+    dk = torch.zeros(k.shape, device=q.device)
+    dv = torch.zeros(v.shape, device=q.device)
+    for t in _tiles(q.shape[1]):
+        dk += torch.einsum("bhqk,bqhd->bkhd", ds[:, :, t], qf[:, t])
+        dv += torch.einsum("bhqk,bqhd->bkhd", pr[:, :, t], dof[:, t])
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_packed_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                   causal: bool = False,
+                                   scale: Optional[float] = None,
+                                   masks: Masks = (None, None, None)
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch ``flash_packed_bwd_dkv``: ``dk = ds^T q`` and ``dv =
+    (p rounded to do's dtype)^T do``, summed over the kernel's 64-query
+    tiles in order, in float32. A row with no valid key adds nothing.
+    Returns ``(dk, dv)`` in the input dtypes."""
+    return _dkv_reference(q, k, v, do, lse, delta, causal, scale, masks)
+
+
+def flash_packed_bwd_dkv_direct_reference(q, k, v, do, lse, delta,
+                                          causal: bool = False,
+                                          scale: Optional[float] = None,
+                                          masks: Masks = (None, None, None)
+                                          ) -> Tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """Plain PyTorch ``flash_packed_bwd_dkv_direct`` (``_bwd_dkv_kernel_
+    direct``'s function, all queries in one tile): the same sums as
+    :func:`flash_packed_bwd_dkv_reference`, in the same order."""
+    return _dkv_reference(q, k, v, do, lse, delta, causal, scale, masks)
+
+
 def _kernel_arg_error(q, k, v, masks, do=None) -> Optional[str]:
     """Why the CUDA kernels cannot take these tensors, or None: K1-K3's
     limits on q, k, v (and do), at least one query and one key, and masks
@@ -199,16 +380,30 @@ def _kernel_arg_error(q, k, v, masks, do=None) -> Optional[str]:
     return None
 
 
-def _require(q, k, v, masks, what, do=None) -> None:
-    if k.shape[1] > MAX_SEQ_K:
-        raise NotImplementedError(f"{what} at Sk = {k.shape[1]} > "
-                                  f"{MAX_SEQ_K}: {_STREAMED}")
+def _require(q, k, v, masks, what, do=None, max_sk: Optional[int] = None,
+             max_sq: Optional[int] = None) -> None:
+    """Raise unless the kernel ``what`` can take these tensors: CUDA, the
+    kernels' limits on q, k, v (and do) and the masks, and the kernel's
+    own bound on the lengths."""
     if q.device.type != "cuda":
         raise ValueError(f"{what} kernel runs on CUDA tensors, not "
                          f"{q.device}")
     why = _kernel_arg_error(q, k, v, masks, do)
+    if why is None and max_sk is not None and k.shape[1] > max_sk:
+        why = f"Sk = {k.shape[1]} > {max_sk}"
+    if why is None and max_sq is not None and q.shape[1] > max_sq:
+        why = f"Sq = {q.shape[1]} > {max_sq}"
     if why is not None:
         raise ValueError(f"{what} kernel cannot take these inputs: {why}")
+
+
+def _require_stats(q, lse, delta, what) -> None:
+    b, sq, h = q.shape[0], q.shape[1], q.shape[2]
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (b, h, sq) or t.dtype != torch.float32 or \
+                not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{what}: {name} must be dense float32 "
+                             f"[{b}, {h}, {sq}] on {q.device}")
 
 
 def _mask_ptrs(masks):
@@ -217,7 +412,7 @@ def _mask_ptrs(masks):
 
 def _launch_fwd(q, k, v, causal: bool, scale: float, masks: Masks):
     """K4a-direct on CUDA tensors: ``(o, lse)``."""
-    _require(q, k, v, masks, "flash_packed_fwd")
+    _require(q, k, v, masks, "flash_packed_fwd", max_sk=MAX_SEQ_K)
     lib, fn = _kernel("flash_packed", "paddle_flash_packed_fwd", 8, 9)
     b, sq, sk, h = _shapes(q, k, v)
     o = torch.empty((b, sq, h, HEAD_D), dtype=q.dtype, device=q.device)
@@ -236,16 +431,12 @@ def _launch_bwd(q, k, v, do, lse, delta, causal: bool, scale: float,
     K4a's lse and ``delta`` (both dense ``[B, H, Sq]`` float32). dq sums
     over the key tiles in a float32 buffer in a fixed order (no atomics),
     so results repeat bit for bit."""
-    _require(q, k, v, masks, "flash_packed_bwd", do)
-    b, sq, sk, h = _shapes(q, k, v)
-    for name, t in (("lse", lse), ("delta", delta)):
-        if t.shape != (b, h, sq) or t.dtype != torch.float32 or \
-                not t.is_contiguous() or t.device != q.device:
-            raise ValueError(f"flash_packed_bwd: {name} must be dense "
-                             f"float32 [{b}, {h}, {sq}] on {q.device}")
+    _require(q, k, v, masks, "flash_packed_bwd", do, max_sk=MAX_SEQ_K)
+    _require_stats(q, lse, delta, "flash_packed_bwd")
     if do.shape != q.shape:
         raise ValueError(f"do {tuple(do.shape)} is not q's shape "
                          f"{tuple(q.shape)}")
+    b, sq, sk, h = _shapes(q, k, v)
     lib, fn = _kernel("flash_packed", "paddle_flash_packed_bwd", 13, 12)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
@@ -261,6 +452,54 @@ def _launch_bwd(q, k, v, do, lse, delta, causal: bool, scale: float,
           _DTYPE_CODE[q.dtype])
     flash_packed_bwd.launches += 1
     return dq, dk, dv
+
+
+def _launch_fwd_stream(q, k, v, causal: bool, scale: float, masks: Masks):
+    """``flash_packed_fwd_stream`` on CUDA tensors: ``(o, lse)``."""
+    _require(q, k, v, masks, "flash_packed_fwd_stream")
+    lib, fn = _kernel("flash_packed_stream", "paddle_flash_packed_fwd_stream",
+                      8, 9)
+    b, sq, sk, h = _shapes(q, k, v)
+    o = torch.empty((b, sq, h, HEAD_D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    _call(lib, fn, "flash_packed_fwd_stream", q, k, q.data_ptr(),
+          k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+          *_mask_ptrs(masks), b, h, h, sq, sk, HEAD_D, *_strides(q, k, v),
+          float(scale), int(bool(causal)), _DTYPE_CODE[q.dtype])
+    flash_packed_fwd_stream.launches += 1
+    return o, lse
+
+
+def _launch_bwd_split(which: str, q, k, v, do, lse, delta, causal: bool,
+                      scale: float, masks: Masks):
+    """One of the streamed backward kernels on CUDA tensors, from the
+    forward's lse and ``delta`` (both dense ``[B, H, Sq]`` float32):
+    ``"dq"`` -> dq, ``"dkv"`` or ``"dkv_direct"`` -> ``(dk, dv)``. Each
+    block owns its output tile and sums in a fixed order (no atomics), so
+    results repeat bit for bit."""
+    what = f"flash_packed_bwd_{which}"
+    _require(q, k, v, masks, what, do, max_sq=MAX_SEQ_Q_DIRECT
+             if which == "dkv_direct" else None)
+    _require_stats(q, lse, delta, what)
+    if do.shape != q.shape:
+        raise ValueError(f"do {tuple(do.shape)} is not q's shape "
+                         f"{tuple(q.shape)}")
+    b, sq, sk, h = _shapes(q, k, v)
+    if which == "dq":
+        outs = [torch.empty(q.shape, dtype=q.dtype, device=q.device)]
+    else:
+        outs = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                for t in (k, v)]
+    lib, fn = _kernel("flash_packed_stream", "paddle_" + what,
+                      9 + len(outs), 12)
+    _call(lib, fn, what, q, k, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+          do.data_ptr(), lse.data_ptr(), delta.data_ptr(), *_mask_ptrs(masks),
+          *(t.data_ptr() for t in outs), b, h, h, sq, sk, HEAD_D,
+          *_strides(q, k, v, do), float(scale), int(bool(causal)),
+          _DTYPE_CODE[q.dtype])
+    {"dq": flash_packed_bwd_dq, "dkv": flash_packed_bwd_dkv,
+     "dkv_direct": flash_packed_bwd_dkv_direct}[which].launches += 1
+    return outs[0] if which == "dq" else tuple(outs)
 
 
 def _same_device(*ts) -> torch.device:
@@ -310,15 +549,87 @@ def flash_packed_bwd(q, k, v, o, lse, do, causal: bool = False,
                        causal, scale, masks)
 
 
+def flash_packed_fwd_stream(q, k, v, causal: bool = False,
+                            scale: Optional[float] = None,
+                            masks: Masks = (None, None, None)
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The streamed forward (``_fwd_kernel``): the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors. Returns ``(o [B, Sq, H,
+    64], lse [B, H, Sq] float32)``."""
+    dev = _same_device(q, k, v, *masks)
+    scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
+    if dev.type == "cpu":
+        return flash_packed_fwd_stream_reference(q, k, v, causal, scale,
+                                                 masks)
+    return _launch_fwd_stream(q, k, v, causal, scale, masks)
+
+
+def _bwd_inputs(q, k, v, do, lse, delta, masks):
+    dev = _same_device(q, k, v, do, lse, delta, *masks)
+    if do.shape != q.shape:
+        raise ValueError(f"do must have q's shape {tuple(q.shape)}; got "
+                         f"{tuple(do.shape)}")
+    return dev
+
+
+def flash_packed_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
+                        scale: Optional[float] = None,
+                        masks: Masks = (None, None, None)) -> torch.Tensor:
+    """The streamed dq (``_bwd_dq_kernel``) from the forward's ``lse`` and
+    ``delta = rowsum(do * o)`` (``[B, H, Sq]`` float32): the CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors."""
+    dev = _bwd_inputs(q, k, v, do, lse, delta, masks)
+    scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
+    if dev.type == "cpu":
+        return flash_packed_bwd_dq_reference(q, k, v, do, lse, delta, causal,
+                                             scale, masks)
+    return _launch_bwd_split("dq", q, k, v, do, lse, delta, causal, scale,
+                             masks)
+
+
+def flash_packed_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
+                         scale: Optional[float] = None,
+                         masks: Masks = (None, None, None)
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The streamed dk/dv (``_bwd_dkv_kernel``), arguments as
+    :func:`flash_packed_bwd_dq`. Returns ``(dk, dv)``."""
+    dev = _bwd_inputs(q, k, v, do, lse, delta, masks)
+    scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
+    if dev.type == "cpu":
+        return flash_packed_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                              causal, scale, masks)
+    return _launch_bwd_split("dkv", q, k, v, do, lse, delta, causal, scale,
+                             masks)
+
+
+def flash_packed_bwd_dkv_direct(q, k, v, do, lse, delta,
+                                causal: bool = False,
+                                scale: Optional[float] = None,
+                                masks: Masks = (None, None, None)
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dk/dv with all the queries in one tile (``_bwd_dkv_kernel_direct``;
+    the kernel takes Sq <= 512), arguments as :func:`flash_packed_bwd_dq`.
+    Returns ``(dk, dv)``."""
+    dev = _bwd_inputs(q, k, v, do, lse, delta, masks)
+    scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
+    if dev.type == "cpu":
+        return flash_packed_bwd_dkv_direct_reference(q, k, v, do, lse, delta,
+                                                     causal, scale, masks)
+    return _launch_bwd_split("dkv_direct", q, k, v, do, lse, delta, causal,
+                             scale, masks)
+
+
 class _FlashPacked(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, seg_q, seg_k, bias, causal, scale):
+    def forward(ctx, q, k, v, seg_q, seg_k, bias, causal, scale, forms):
         masks = (seg_q, seg_k, bias)
-        o, lse = flash_packed_fwd(q, k, v, causal, scale, masks)
+        fwd = flash_packed_fwd if forms.fwd == "direct" else \
+            flash_packed_fwd_stream
+        o, lse = fwd(q, k, v, causal, scale, masks)
         ctx.save_for_backward(q, k, v, o, lse, *(
             torch.empty(0) if t is None else t for t in masks))
         ctx.has_mask = tuple(t is not None for t in masks)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.forms = causal, scale, forms
         return o
 
     @staticmethod
@@ -328,37 +639,55 @@ class _FlashPacked(torch.autograd.Function):
                       for t, has in zip(saved, ctx.has_mask))
         if do.stride(-1) != 1:   # e.g. the expanded ones of out.sum()
             do = do.contiguous()
-        dq, dk, dv = flash_packed_bwd(q, k, v, o, lse, do, ctx.causal,
-                                      ctx.scale, masks)
-        return dq, dk, dv, None, None, None, None, None
+        forms = ctx.forms
+        if forms.bwd == "fused":
+            dq, dk, dv = flash_packed_bwd(q, k, v, o, lse, do, ctx.causal,
+                                          ctx.scale, masks)
+        else:
+            # delta stays a torch op, as _bwd computes it (:531-533)
+            delta, lse = _delta(o, do), lse.float().contiguous()
+            dq = flash_packed_bwd_dq(q, k, v, do, lse, delta, ctx.causal,
+                                     ctx.scale, masks)
+            dkv = flash_packed_bwd_dkv_direct if forms.dkv == "direct" \
+                else flash_packed_bwd_dkv
+            dk, dv = dkv(q, k, v, do, lse, delta, ctx.causal, ctx.scale,
+                         masks)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention_packed(query, key, value, causal: bool = False,
-                           scale: Optional[float] = None, segment_ids=None,
+                           scale: Optional[float] = None,
+                           block_q: Optional[int] = None,
+                           block_k: Optional[int] = None, segment_ids=None,
                            segment_ids_k=None, dropout: float = 0.0,
                            key_bias=None) -> torch.Tensor:
-    """``[B, S, H, 64]`` flash attention with the whole key sequence in one
-    tile (Sk <= 512): K4a-direct forward, K4b-fused backward. Equal to
-    ``flash_attention_pallas`` on d=64 MHA shapes; the JAX package routes
-    those here when ``pack_group(H)`` is non-zero. ``segment_ids`` ``[B,
-    Sq]`` (and ``segment_ids_k`` ``[B, Sk]``) keep attention within equal
-    ids; ``key_bias`` ``[B, Sk]`` is added to every query's scores."""
+    """``[B, S, H, 64]`` flash attention through the K4 forms that JAX's
+    ``flash_attention_packed`` runs for the same input (:func:`plan`):
+    K4a-direct and K4b-fused when all the keys fit one of its tiles, else
+    the streamed forward, dq and dk/dv (dk/dv-direct when all the queries
+    fit one). ``block_q``/``block_k`` pin JAX's tiles of both directions,
+    as there, and so choose the forms. Equal to ``flash_attention_pallas``
+    on d=64 MHA shapes; the JAX package routes those here when
+    ``pack_group(H)`` is non-zero. ``segment_ids`` ``[B, Sq]`` (and
+    ``segment_ids_k`` ``[B, Sk]``) keep attention within equal ids;
+    ``key_bias`` ``[B, Sk]`` is added to every query's scores."""
     b, sq, sk, h = _shapes(query, key, value)
-    if not pack_group(h):
-        raise ValueError(f"no even pack group divides {h} heads")
+    forms = plan(sq, sk, h, block_q, block_k)
     if dropout > 0.0:
         raise NotImplementedError(
             "attention-prob dropout in K4 (the murmur3 mask with "
             "_flat_head numbering) is not ported yet (ROADMAP Queue 1)")
-    if sk > MAX_SEQ_K:
-        raise NotImplementedError(f"packed attention at Sk = {sk} > "
-                                  f"{MAX_SEQ_K}: {_STREAMED}")
     scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
     masks = _masks(b, sq, sk, query.device, segment_ids, segment_ids_k,
                    key_bias)
-    return _FlashPacked.apply(query, key, value, *masks, bool(causal), scale)
+    return _FlashPacked.apply(query, key, value, *masks, bool(causal), scale,
+                              forms)
 
 
 #: kernel launches since each count was last set to 0 (CUDA path only)
 flash_packed_fwd.launches = 0
 flash_packed_bwd.launches = 0
+flash_packed_fwd_stream.launches = 0
+flash_packed_bwd_dq.launches = 0
+flash_packed_bwd_dkv.launches = 0
+flash_packed_bwd_dkv_direct.launches = 0

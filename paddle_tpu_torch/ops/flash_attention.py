@@ -2,9 +2,12 @@
 
 Port of ``paddle_tpu/ops/flash_attention.py``:
 
-- :func:`flash_attention` runs the K1 kernel (``_hopper/flash_attention``)
-  for CUDA tensors and its plain version for CPU tensors. Attention-prob
-  dropout in training is not ported yet and raises;
+- :func:`flash_attention` routes as the JAX function routes on its kernel
+  path (``flash_attention_pallas``): K4 for d=64 attention whose heads
+  match and whose lengths are multiples of 128, K1 otherwise
+  (``_hopper/flash_attention``), the CUDA kernels for CUDA tensors and
+  their plain versions for CPU tensors. Attention-prob dropout in training
+  is not ported yet and raises;
 - :func:`reference_attention` and :func:`single_query_attention` are the
   plain tensor code of the reference (the serving decode step uses the
   second, as the JAX engine does).
@@ -21,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from ._hopper.flash_attention import flash_fwd
+from ._hopper.flash_attention import flash_attention_hopper
 
 __all__ = ["flash_attention", "reference_attention",
            "single_query_attention"]
@@ -89,10 +92,14 @@ def single_query_attention(q, k, v, lengths=None,
 def flash_attention(query, key, value, dropout: float = 0.0,
                     causal: bool = False, *, scale: Optional[float] = None,
                     training: bool = True):
-    """``paddle.nn.functional.flash_attention`` ([B, S, H, D]): the K1
-    kernel on a CUDA tensor (it raises on inputs the kernel does not
-    take, never falling back), the plain version on a CPU tensor."""
+    """``paddle.nn.functional.flash_attention`` ([B, S, H, D]) through
+    :func:`~._hopper.flash_attention.flash_attention_hopper`, as the JAX
+    function goes through ``flash_attention_pallas``: K4 or K1 (the kernel
+    on a CUDA tensor, which raises on inputs it does not take, never
+    falling back; the plain version on a CPU tensor)."""
     if dropout > 0.0 and training:
         raise NotImplementedError(
-            "attention-prob dropout is not ported yet (K1's dropout option)")
-    return flash_fwd(query, key, value, causal=causal, scale=scale)[0]
+            "attention-prob dropout is not ported yet (K1's and K4's "
+            "dropout option)")
+    return flash_attention_hopper(query, key, value, causal=causal,
+                                  scale=scale)

@@ -57,6 +57,25 @@ def bert_tiny(**overrides) -> BertConfig:
                                 max_position_embeddings=128), **overrides})
 
 
+@torch.no_grad()
+def init_weights(module: nn.Module, std: float, seed: int) -> None:
+    """The JAX models' initialisation, drawn from ``seed`` with a
+    ``torch.Generator`` on the module's device: N(0, std) for every Linear
+    and embedding matrix, zero biases, unit LayerNorm scales (the draws
+    differ from JAX's; tests carry weights across with
+    :func:`~paddle_tpu_torch.convert.from_jax_state_dict`)."""
+    gen = torch.Generator(device=next(module.parameters()).device)
+    gen.manual_seed(seed)
+    for mod in module.modules():
+        if isinstance(mod, (nn.Linear, nn.Embedding)):
+            mod.weight.normal_(0.0, std, generator=gen)
+            if getattr(mod, "bias", None) is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, nn.LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+
+
 class BertEmbeddings(nn.Module):
     def __init__(self, cfg: BertConfig, **factory):
         super().__init__()
@@ -143,17 +162,7 @@ class BertForPretraining(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, seed: int = 0) -> None:
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
-        std = self.cfg.initializer_range
-        for mod in self.modules():
-            if isinstance(mod, (nn.Linear, nn.Embedding)):
-                mod.weight.normal_(0.0, std, generator=gen)
-                if getattr(mod, "bias", None) is not None:
-                    mod.bias.zero_()
-            elif isinstance(mod, nn.LayerNorm):
-                mod.weight.fill_(1.0)
-                mod.bias.zero_()
+        init_weights(self, self.cfg.initializer_range, seed)
         self.mlm_bias.zero_()
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
