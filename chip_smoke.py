@@ -78,6 +78,31 @@ context:
            keys, B=16, bf16: the streamed forward, dq and dk/dv-direct once
            each, held against the plain dense path.
 
+Attention-prob dropout and K9 (after phase 7, in this order):
+- kernel / kernel_packed / kernel_packed_stream, part "dropout": the nine
+  attention kernels at rate 0.1 against their plain versions with the same
+  seed (f32 and bf16, with and without masks), the mask itself (an
+  identity V, K or dO makes the dropped scores show as exact zeros, equal
+  to dropout_keep_dense's), each phase's timed shape (compared, then timed
+  beside rate 0 in turns) and a batch whose flat score index passes 2^32
+  (compared on its last batch);
+- kernel_fused_matmul_bn  K9 (fused_matmul_bn_act on conv.cu's
+  conv1x1_kernel): its path (the entry at ResNet-50's bottleneck 1x1s, M =
+  256·56·56, 256->64 and 64->256, bf16, forward and backward), then the
+  three prologues, stats on and off, f32 and bf16, M = 600 and ragged M,
+  forward against the plain version and the torch-op backward against the
+  CPU, and the full shapes timed against the bound, the plain version and
+  cuBLAS;
+and the dropout paths, each after its model's rate-0 path:
+- train_gpt_dropout_bf16  GPT-3 1.3B at hidden and attention dropout 0.1,
+  B=4 x 2048, AMP-O2, 2+4 steps (K1/K2/K3 24 a step);
+- train_grad_f32_bert_dropout  as 12 at attention dropout 0.1;
+- train_bert_dropout_bf16  BERT-base as published (dropout 0.1), the dense
+  form, 2+4 steps, twice from one seed (equal losses) and once at rate 0
+  (other losses);
+- train_ernie_dropout_bf16  ERNIE-base at 2048 positions, dropout 0.1,
+  B=16 x 2048, 2+4 steps (the streamed forward, dq, dk/dv 12 a step).
+
 ``--profile`` adds phases that serve the bf16 trace again and run a few
 GPT, BERT, ResNet and long-form ERNIE train steps under torch.profiler, and print the device
 busy share and the kernels that take the device's time. Each phase prints one
@@ -314,18 +339,22 @@ def phase_kernel(torch, hfa, peaks):
 
 # -- phase 4 -----------------------------------------------------------------
 
-def compare_bwd(torch, hfa, case, q, k, v, do, causal, worst):
+def compare_bwd(torch, hfa, case, q, k, v, do, causal, worst, dropout=None):
     """K1 then K2/K3 (``flash_bwd``) against the plain version on the same
-    inputs and the same o and lse: one row of errors, beside the largest
-    and the median |value| of each plain gradient. Raises on a mismatch."""
+    inputs and the same o and lse (with ``dropout``, the same rate and
+    seed): one row of errors, beside the largest and the median |value| of
+    each plain gradient. Raises on a mismatch."""
     name, b, sq, sk, h, hk, d, dt = case
-    o, lse = hfa.flash_fwd(q, k, v, causal=causal)
-    grads = hfa.flash_bwd(q, k, v, o, lse, do, causal=causal)
+    o, lse = hfa.flash_fwd(q, k, v, causal=causal, dropout=dropout)
+    grads = hfa.flash_bwd(q, k, v, o, lse, do, causal=causal,
+                          dropout=dropout)
     torch.cuda.synchronize()
-    refs = hfa.flash_bwd_reference(q, k, v, o, lse, do, causal=causal)
+    refs = hfa.flash_bwd_reference(q, k, v, o, lse, do, causal=causal,
+                                   dropout=dropout)
     torch.cuda.synchronize()
     row = {"case": name, "shape": [b, sq, sk, h, hk, d], "causal": causal,
-           "dtype": dt}
+           "dtype": dt, "dropout": None if dropout is None else
+           list(dropout)}
     ok = True
     for gname, got, ref in zip(("dq", "dk", "dv"), grads, refs):
         check(got.shape == ref.shape and got.dtype == ref.dtype,
@@ -533,20 +562,24 @@ def compare(torch, name, got, ref, dt, row, nonzero=False):
     return float(err.max())
 
 
-def k4_case(torch, hfp, case, q, k, v, do, masks, worst):
+def k4_case(torch, hfp, case, q, k, v, do, masks, worst, dropout=None):
     """K4a then K4b against their plain versions on the same inputs (the
-    backward from the kernel's own o and lse); one row of errors."""
+    backward from the kernel's own o and lse; with ``dropout``, the same
+    rate and seed); one row of errors."""
     name, b, sq, sk, h, causal, dt = case
-    o, lse = hfp.flash_packed_fwd(q, k, v, causal, None, masks)
+    o, lse = hfp.flash_packed_fwd(q, k, v, causal, None, masks, dropout)
     dq, dk, dv = hfp.flash_packed_bwd(q, k, v, o, lse, do, causal, None,
-                                      masks)
+                                      masks, dropout)
     torch.cuda.synchronize()
-    ro, rlse = hfp.flash_packed_fwd_reference(q, k, v, causal, None, masks)
+    ro, rlse = hfp.flash_packed_fwd_reference(q, k, v, causal, None, masks,
+                                              dropout)
     rdq, rdk, rdv = hfp.flash_packed_bwd_reference(q, k, v, o, lse, do,
-                                                   causal, None, masks)
+                                                   causal, None, masks,
+                                                   dropout)
     torch.cuda.synchronize()
     row = {"case": name, "shape": [b, sq, sk, h, 64], "causal": causal,
-           "dtype": dt, "masks": [t is not None for t in masks]}
+           "dtype": dt, "masks": [t is not None for t in masks],
+           "dropout": None if dropout is None else list(dropout)}
     worst["flash_packed_fwd"] = max(worst["flash_packed_fwd"], compare(
         torch, "o", o, ro, dt, row))
     err_lse = (lse - rlse).abs()
@@ -678,33 +711,37 @@ STREAM_KERNELS = ("flash_packed_fwd_stream", "flash_packed_bwd_dq",
                   "flash_packed_bwd_dkv", "flash_packed_bwd_dkv_direct")
 
 
-def stream_case(torch, hfp, case, q, k, v, do, masks, worst):
+def stream_case(torch, hfp, case, q, k, v, do, masks, worst, dropout=None):
     """The streamed forward, then dq, dk/dv and (Sq <= 512) dk/dv-direct
-    from its o and lse, each against its plain version on the same inputs;
-    one row of errors."""
+    from its o and lse, each against its plain version on the same inputs
+    (with ``dropout``, the same rate and seed); one row of errors."""
     name, b, sq, sk, h, causal, dt = case
-    o, lse = hfp.flash_packed_fwd_stream(q, k, v, causal, None, masks)
+    drop = dict(dropout=dropout)
+    o, lse = hfp.flash_packed_fwd_stream(q, k, v, causal, None, masks,
+                                         **drop)
     delta = hfp._delta(o, do)
     got = {"dq": hfp.flash_packed_bwd_dq(q, k, v, do, lse, delta, causal,
-                                         None, masks)}
+                                         None, masks, **drop)}
     got["dk"], got["dv"] = hfp.flash_packed_bwd_dkv(q, k, v, do, lse, delta,
-                                                    causal, None, masks)
+                                                    causal, None, masks,
+                                                    **drop)
     direct = sq <= hfp.MAX_SEQ_Q_DIRECT
     if direct:
         got["dk_direct"], got["dv_direct"] = hfp.flash_packed_bwd_dkv_direct(
-            q, k, v, do, lse, delta, causal, None, masks)
+            q, k, v, do, lse, delta, causal, None, masks, **drop)
     torch.cuda.synchronize()
     ro, rlse = hfp.flash_packed_fwd_stream_reference(q, k, v, causal, None,
-                                                     masks)
+                                                     masks, **drop)
     ref = {"dq": hfp.flash_packed_bwd_dq_reference(
-        q, k, v, do, lse, delta, causal, None, masks)}
+        q, k, v, do, lse, delta, causal, None, masks, **drop)}
     ref["dk"], ref["dv"] = hfp.flash_packed_bwd_dkv_reference(
-        q, k, v, do, lse, delta, causal, None, masks)
+        q, k, v, do, lse, delta, causal, None, masks, **drop)
     if direct:
         ref["dk_direct"], ref["dv_direct"] = ref["dk"], ref["dv"]
     torch.cuda.synchronize()
     row = {"case": name, "shape": [b, sq, sk, h, 64], "causal": causal,
-           "dtype": dt, "masks": [t is not None for t in masks]}
+           "dtype": dt, "masks": [t is not None for t in masks],
+           "dropout": None if dropout is None else list(dropout)}
     worst["flash_packed_fwd_stream"] = max(
         worst["flash_packed_fwd_stream"],
         compare(torch, "o", o, ro, dt, row, nonzero=True))
@@ -852,6 +889,560 @@ def phase_kernel_packed_stream(torch, np, hfp, peaks):
     main = {kname: t.get("ernie_b16_s2048", t.get("cross_b16_sq512_sk2048"))
             for kname, t in timing.items()}
     return worst, main
+
+
+# -- dropout in the attention kernels (phases 3-6) ---------------------------
+
+DROP_RATE = 0.1    # BERT-base's and ERNIE-base's published attention dropout
+
+
+def eye_like(torch, b, s, h, d):
+    """``[B, S, H, D]`` f32 with every head the identity ``[S, D]``."""
+    return torch.eye(s, d, device="cuda").reshape(1, s, 1, d).expand(
+        b, s, h, d).contiguous()
+
+
+def mask_probe(torch, hfa, hfp, family, seed):
+    """The mask itself, in f32 at 64 queries over 64 keys (MHA): with V the
+    identity the forward kernel's o·exp(lse) is exp(s)·keep; with K and dO
+    the identity and delta = 0 the backward kernels give dq[q, j] = ds[q, j]
+    = p·dp·keep·scale and dv[k, q] = (p·keep)[q, k]. Each kernel's zeros
+    must be exactly the zeros of ``dropout_keep_dense`` (p > 0 and dp != 0
+    at every score). Returns {kernel: dropped scores seen}."""
+    b, s, h = 1, 64, 4
+    d = 128 if family == "k1" else 64
+    dr = hfa.AttnDropout(DROP_RATE, seed)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    q = 0.1 * torch.randn(b, s, h, d, generator=g, device="cuda")
+    v = torch.randn(b, s, h, d, generator=g, device="cuda")
+    eye = eye_like(torch, b, s, h, d)
+    zeros = torch.zeros(b, h, s, device="cuda")
+    keep0 = hfa.dropout_keep_dense(b * h, s, s, seed, DROP_RATE,
+                                   "cuda").reshape(b, h, s, s) == 0
+    scale = 1.0 / math.sqrt(d)
+    if family == "k1":
+        fwd = {"flash_fwd": lambda: hfa.flash_fwd(q, q, eye, dropout=dr)}
+        bwd = {"flash_bwd_dq": lambda: (hfa.flash_bwd_dq(
+            q, eye, v, eye, zeros, zeros, False, scale, dr), None),
+               "flash_bwd_dkv": lambda: (None, hfa.flash_bwd_dkv(
+                   q, eye, v, eye, zeros, zeros, False, scale, dr)[1])}
+    elif family == "k4":
+        fwd = {"flash_packed_fwd": lambda: hfp.flash_packed_fwd(
+            q, q, eye, dropout=dr)}
+        bwd = {"flash_packed_bwd": lambda: hfp._launch_bwd(
+            q, eye, v, eye, zeros, zeros, False, scale, (None,) * 3,
+            dr)[0::2]}
+    else:
+        args = (q, eye, v, eye, zeros, zeros, False, scale, (None,) * 3, dr)
+        fwd = {"flash_packed_fwd_stream": lambda: hfp.flash_packed_fwd_stream(
+            q, q, eye, dropout=dr)}
+        bwd = {"flash_packed_bwd_dq": lambda: (
+                   hfp.flash_packed_bwd_dq(*args), None),
+               "flash_packed_bwd_dkv": lambda: (
+                   None, hfp.flash_packed_bwd_dkv(*args)[1]),
+               "flash_packed_bwd_dkv_direct": lambda: (
+                   None, hfp.flash_packed_bwd_dkv_direct(*args)[1])}
+    seen = {}
+    for name, run in fwd.items():
+        o, lse = run()
+        ol = o.permute(0, 2, 1, 3)[..., :s] * torch.exp(lse)[..., None]
+        check(bool(torch.equal(ol == 0, keep0)),
+              f"{name}: the dropped probabilities are not the mask's")
+        seen[name] = int(keep0.sum())
+    for name, run in bwd.items():
+        dq, dv = run()
+        if dq is not None:    # dq[q, j] = ds[q, j] for j < 64
+            pat = dq.permute(0, 2, 1, 3)[..., :s] == 0
+            check(bool(torch.equal(pat, keep0)),
+                  f"{name}: dq's dropped scores are not the mask's")
+        if dv is not None:    # dv[k, q] = (p keep)[q, k]
+            pat = dv.permute(0, 2, 1, 3)[..., :s] == 0
+            check(bool(torch.equal(pat.transpose(-1, -2), keep0)),
+                  f"{name}: dv's dropped scores are not the mask's")
+        seen[name] = int(keep0.sum())
+    return seen
+
+
+def rate_times(run_rate0, run_drop):
+    """A kernel timed at rate 0 and at the dropout rate, in turns (rate 0,
+    dropout, dropout, rate 0), each the median of 20 launches."""
+    a = median_ms(run_rate0)
+    b = median_ms(run_drop)
+    c = median_ms(run_drop)
+    d = median_ms(run_rate0)
+    return {"ms_rate0": min(a, d), "ms_dropout": min(b, c),
+            "ms_rate0_runs": [a, d], "ms_dropout_runs": [b, c]}
+
+
+def wrap_heads(b_last, h, sq, sk):
+    """The flat index of the last batch's first score: past 2^32 when the
+    batch is large enough for the uint32 index to wrap."""
+    return (b_last * h * sq) * sk
+
+
+# name, B, Sq, Sk, H, HK, D, causal, dtype
+K1_DROP_CASES = [
+    ("gqa_causal_s300", 1, 300, 300, 16, 4, 128, True, "bf16"),
+    ("d64_noncausal_s256", 2, 256, 256, 8, 8, 64, False, "bf16"),
+    ("f32_gqa_causal_s333", 1, 333, 333, 8, 2, 64, True, "f32"),
+    ("f32_d128_sq128_sk384_causal", 1, 128, 384, 4, 4, 128, True, "f32"),
+]
+
+
+def dropout_k1_k3(torch, hfa, hfp, peaks, timing, timing_bwd):
+    """K1, K2 and K3 at rate 0.1 against their plain versions with the same
+    seed: the cases (f32 and bf16, GQA, causal bands), the mask probe, the
+    timed shapes (K1 at B=1 and K2/K3 at B=4, S=2048, H=16, D=128, causal,
+    bf16: compared, then timed beside rate 0), and a batch of 66 x 16 heads
+    at S=2048 whose flat score index passes 2^32, compared on its last
+    batch (heads 1040-1055)."""
+    worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    rows = []
+    for i, (name, b, sq, sk, h, hk, d, causal, dt) in enumerate(
+            K1_DROP_CASES):
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        q, k, v = k1_inputs(torch, b, sq, sk, h, hk, d, dtype, seed=900 + i)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(950 + i)
+        do = torch.randn(b, sq, h, d, generator=g, device="cuda").to(dtype)
+        dr = hfa.AttnDropout(DROP_RATE, 1000 + i)
+        row, o, _ = compare_bwd(torch, hfa, (name, b, sq, sk, h, hk, d, dt),
+                                q, k, v, do, causal, worst, dr)
+        ro, _ = hfa.flash_fwd_reference(q, k, v, causal, dropout=dr)
+        worst["flash_fwd"] = max(worst["flash_fwd"],
+                                 compare(torch, "o", o, ro, dt, row))
+        check(row["ok"], f"K1 with dropout disagrees: {row}")
+        rows.append(row)
+    probe = mask_probe(torch, hfa, hfp, "k1", seed=77)
+
+    timed = {}
+    b, s, h, d = 4, 2048, 16, 128
+    q, k, v = k1_inputs(torch, b, s, s, h, h, d, torch.bfloat16, seed=8)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(9)
+    do = torch.randn(b, s, h, d, generator=g, device="cuda").to(torch.bfloat16)
+    dr = hfa.AttnDropout(DROP_RATE, 2024)
+    row, o, lse = compare_bwd(torch, hfa, ("train_b4_s2048", b, s, s, h, h,
+                                           d, "bf16"), q, k, v, do, True,
+                              worst, dr)
+    rows.append(row)
+    q1, k1, v1 = (x[:1] for x in (q, k, v))
+    o1, _ = hfa.flash_fwd(q1, k1, v1, True, dropout=dr)
+    ro1, _ = hfa.flash_fwd_reference(q1, k1, v1, True, dropout=dr)
+    row1 = {"case": "serve_b1_s2048"}
+    worst["flash_fwd"] = max(worst["flash_fwd"],
+                             compare(torch, "o", o1, ro1, "bf16", row1))
+    check(row1["ok"], f"K1 with dropout disagrees at S=2048: {row1}")
+    rows.append(row1)
+    timed["flash_fwd"] = rate_times(
+        lambda: hfa.flash_fwd(q1, k1, v1, True),
+        lambda: hfa.flash_fwd(q1, k1, v1, True, dropout=dr))
+    delta = hfa._delta(o, do)
+    scale = 1.0 / math.sqrt(d)
+    timed["flash_bwd_dq"] = rate_times(
+        lambda: hfa.flash_bwd_dq(q, k, v, do, lse, delta, True, scale),
+        lambda: hfa.flash_bwd_dq(q, k, v, do, lse, delta, True, scale, dr))
+    timed["flash_bwd_dkv"] = rate_times(
+        lambda: hfa.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale),
+        lambda: hfa.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale, dr))
+    for kname, t in timed.items():
+        t["rate0_phase_ms"] = (timing if kname == "flash_fwd" else
+                               timing_bwd[kname])["kernel_ms"]
+    del q, k, v, do, o, lse, delta
+
+    # the flat index wraps: B = 66 at H = 16, S = 2048
+    b, s, h, d = 66, 2048, 16, 128
+    q, k, v = k1_inputs(torch, b, s, s, h, h, d, torch.bfloat16, seed=10)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11)
+    do = torch.randn(b, s, h, d, generator=g, device="cuda").to(torch.bfloat16)
+    dr = hfa.AttnDropout(DROP_RATE, 31337)
+    o, lse = hfa.flash_fwd(q, k, v, True, dropout=dr)
+    dq, dk, dv = hfa.flash_bwd(q, k, v, o, lse, do, True, dropout=dr)
+    last = b - 1
+    sl = slice(last, b)
+    ro, _ = hfa.flash_fwd_reference(q[sl], k[sl], v[sl], True, dropout=dr,
+                                    first_head=last * h)
+    refs = hfa.flash_bwd_reference(q[sl], k[sl], v[sl], o[sl], lse[sl],
+                                   do[sl], True, dropout=dr,
+                                   first_head=last * h)
+    wrap = {"case": "wrap_b66_s2048", "shape": [b, s, s, h, h, d],
+            "first_compared_head": last * h,
+            "first_flat_index": wrap_heads(last, h, s, s)}
+    check(wrap["first_flat_index"] > 2 ** 32, f"no wrap: {wrap}")
+    for gname, got, ref in (("o", o[sl], ro), ("dq", dq[sl], refs[0]),
+                            ("dk", dk[sl], refs[1]), ("dv", dv[sl], refs[2])):
+        compare(torch, gname, got, ref, "bf16", wrap)
+    check(wrap["ok"], f"K1-K3 disagree past the index wrap: {wrap}")
+    rows.append(wrap)
+    del q, k, v, do, o, lse, dq, dk, dv
+    torch.cuda.empty_cache()
+    return {"cases": rows, "mask_probe": probe, "timing": timed}, worst
+
+
+K4_DROP_CASES = [
+    ("s384_key_bias", 2, 384, 384, 12, False, "bf16", "bias"),
+    ("s512_causal_segments", 2, 512, 512, 12, True, "bf16", "seg"),
+    ("s256_nomask", 2, 256, 256, 12, False, "bf16", None),
+    ("f32_s512_nomask", 2, 512, 512, 12, False, "f32", None),
+    ("f32_sq128_sk384_segment_ids_k", 2, 128, 384, 12, False, "f32",
+     "segk"),
+    ("f32_s256_causal_segments_bias", 1, 256, 256, 12, True, "f32",
+     "seg_bias"),
+]
+
+
+def dropout_k4(torch, np, hfa, hfp, timing):
+    """K4a-direct and K4b-fused at rate 0.1 against their plain versions
+    with the same seed: the cases (f32 and bf16, with and without masks),
+    the mask probe, BERT-base's shape (B=64, S=512, H=12, bench.py's
+    padding bias: compared, then timed beside rate 0), and B = 1368 x 12
+    heads at S=512, whose flat score index passes 2^32, compared on its
+    last batch."""
+    worst = {"flash_packed_fwd": 0.0, "flash_packed_bwd": 0.0}
+    rows = []
+    for i, (name, b, sq, sk, h, causal, dt, mask) in enumerate(
+            K4_DROP_CASES):
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        q, k, v, do, masks = k4_inputs(torch, b, sq, sk, h, dtype, mask,
+                                       seed=1100 + i)
+        row, _, _ = k4_case(torch, hfp, (name, b, sq, sk, h, causal, dt),
+                            q, k, v, do, masks, worst,
+                            hfa.AttnDropout(DROP_RATE, 1200 + i))
+        rows.append(row)
+    probe = mask_probe(torch, hfa, hfp, "k4", seed=78)
+
+    b, s, h, d = 64, 512, 12, 64
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11)
+    q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda").to(
+        torch.bfloat16) for _ in range(4))
+    _, att = bert_padded(np, b, s)
+    masks = (None, None, padding_bias(torch, torch.as_tensor(
+        att, device="cuda"), torch.bfloat16))
+    dr = hfa.AttnDropout(DROP_RATE, 4242)
+    row, o, lse = k4_case(torch, hfp, ("bert_b64_s512_padded", b, s, s, h,
+                                       False, "bf16"), q, k, v, do, masks,
+                          worst, dr)
+    rows.append(row)
+    delta = hfp._delta(o, do)
+    scale = 1.0 / math.sqrt(d)
+    timed = {
+        "flash_packed_fwd": rate_times(
+            lambda: hfp.flash_packed_fwd(q, k, v, False, None, masks),
+            lambda: hfp.flash_packed_fwd(q, k, v, False, None, masks, dr)),
+        "flash_packed_bwd": rate_times(
+            lambda: hfp._launch_bwd(q, k, v, do, lse, delta, False, scale,
+                                    masks),
+            lambda: hfp._launch_bwd(q, k, v, do, lse, delta, False, scale,
+                                    masks, dr))}
+    for kname, t in timed.items():
+        t["rate0_phase_ms"] = timing[kname]["kernel_ms"]
+    del q, k, v, do, o, lse, delta
+
+    b = 1368
+    g.manual_seed(12)
+    q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda").to(
+        torch.bfloat16) for _ in range(4))
+    dr = hfa.AttnDropout(DROP_RATE, 5151)
+    none = (None, None, None)
+    o, lse = hfp.flash_packed_fwd(q, k, v, False, None, none, dr)
+    dq, dk, dv = hfp.flash_packed_bwd(q, k, v, o, lse, do, False, None, none,
+                                      dr)
+    last = b - 1
+    sl = slice(last, b)
+    ro, _ = hfp.flash_packed_fwd_reference(q[sl], k[sl], v[sl], False, None,
+                                           none, dr, first_head=last * h)
+    refs = hfp.flash_packed_bwd_reference(q[sl], k[sl], v[sl], o[sl],
+                                          lse[sl], do[sl], False, None, none,
+                                          dr, first_head=last * h)
+    wrap = {"case": f"wrap_b{b}_s512", "shape": [b, s, s, h, d],
+            "first_compared_head": last * h,
+            "first_flat_index": wrap_heads(last, h, s, s)}
+    check(wrap["first_flat_index"] > 2 ** 32, f"no wrap: {wrap}")
+    for gname, got, ref in (("o", o[sl], ro), ("dq", dq[sl], refs[0]),
+                            ("dk", dk[sl], refs[1]), ("dv", dv[sl], refs[2])):
+        compare(torch, gname, got, ref, "bf16", wrap)
+    check(wrap["ok"], f"K4a/K4b disagree past the index wrap: {wrap}")
+    rows.append(wrap)
+    del q, k, v, do, o, lse, dq, dk, dv
+    torch.cuda.empty_cache()
+    return {"cases": rows, "mask_probe": probe, "timing": timed}, worst
+
+
+STREAM_DROP_CASES = [
+    ("f32_s640_key_bias", 1, 640, 640, 12, False, "f32", "bias"),
+    ("f32_sq384_sk640_causal_segments_bias", 1, 384, 640, 12, True, "f32",
+     "seg_bias"),
+    ("f32_s256_nomask", 2, 256, 256, 12, False, "f32", None),
+    ("bf16_s1024_causal", 1, 1024, 1024, 12, True, "bf16", None),
+    ("bf16_sq512_sk1024_segment_ids_k", 2, 512, 1024, 12, False, "bf16",
+     "segk"),
+    ("bf16_s640_key_bias", 2, 640, 640, 12, False, "bf16", "bias"),
+]
+
+
+def dropout_stream(torch, np, hfa, hfp, timing):
+    """The four streamed kernels at rate 0.1 against their plain versions
+    with the same seed: the cases, the mask probe, ERNIE's long shape
+    (B=16, S=2048, H=12: forward, dq, dk/dv) and the cross-attention shape
+    (512 over 2048: dk/dv-direct), compared and timed beside rate 0, and
+    batches whose flat score index passes 2^32 (B = 92 x 12 heads at
+    S=2048; B = 344 at 512 x 2048 for dk/dv-direct), compared on their
+    last batch."""
+    worst = {name: 0.0 for name in STREAM_KERNELS}
+    rows = []
+    for i, (name, b, sq, sk, h, causal, dt, mask) in enumerate(
+            STREAM_DROP_CASES):
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        q, k, v, do, masks = k4_inputs(torch, b, sq, sk, h, dtype, mask,
+                                       seed=1300 + i)
+        row, _, _ = stream_case(torch, hfp, (name, b, sq, sk, h, causal, dt),
+                                q, k, v, do, masks, worst,
+                                hfa.AttnDropout(DROP_RATE, 1400 + i))
+        rows.append(row)
+    probe = mask_probe(torch, hfa, hfp, "stream", seed=79)
+
+    timed = {}
+    h, d = 12, 64
+    scale = 1.0 / math.sqrt(d)
+    none = (None, None, None)
+    for shape_name, b, sq, sk, wrap_b in (
+            ("ernie_b16_s2048", 16, 2048, 2048, 92),
+            ("cross_b16_sq512_sk2048", 16, 512, 2048, 344)):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(13)
+        q, do = (torch.randn(b, sq, h, d, generator=g, device="cuda").to(
+            torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn(b, sk, h, d, generator=g, device="cuda").to(
+            torch.bfloat16) for _ in range(2))
+        dr = hfa.AttnDropout(DROP_RATE, 6060)
+        row, o, lse = stream_case(torch, hfp, (shape_name, b, sq, sk, h,
+                                               False, "bf16"),
+                                  q, k, v, do, none, worst, dr)
+        rows.append(row)
+        delta = hfp._delta(o, do)
+        args = (q, k, v, do, lse, delta, False, scale, none)
+        if sq == sk:
+            runs = {"flash_packed_fwd_stream": lambda *a: (
+                        hfp.flash_packed_fwd_stream(q, k, v, False, scale,
+                                                    none, *a)),
+                    "flash_packed_bwd_dq": lambda *a: hfp.flash_packed_bwd_dq(
+                        *args, *a),
+                    "flash_packed_bwd_dkv": lambda *a: (
+                        hfp.flash_packed_bwd_dkv(*args, *a))}
+        else:
+            runs = {"flash_packed_bwd_dkv_direct": lambda *a: (
+                hfp.flash_packed_bwd_dkv_direct(*args, *a))}
+        for kname, run in runs.items():
+            timed[kname] = rate_times(lambda: run(), lambda: run(dr))
+            timed[kname]["shape"] = shape_name
+            timed[kname]["rate0_phase_ms"] = timing[kname]["kernel_ms"]
+        del q, k, v, do, o, lse, delta, args
+        torch.cuda.empty_cache()
+
+        # the flat index wraps
+        b = wrap_b
+        g.manual_seed(14)
+        q, do = (torch.randn(b, sq, h, d, generator=g, device="cuda").to(
+            torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn(b, sk, h, d, generator=g, device="cuda").to(
+            torch.bfloat16) for _ in range(2))
+        dr = hfa.AttnDropout(DROP_RATE, 7070)
+        o, lse = hfp.flash_packed_fwd_stream(q, k, v, False, None, none, dr)
+        delta = hfp._delta(o, do)
+        args = (q, k, v, do, lse, delta, False, None, none, dr)
+        got = {"o": o, "dq": hfp.flash_packed_bwd_dq(*args)}
+        dkv = hfp.flash_packed_bwd_dkv if sq == sk else \
+            hfp.flash_packed_bwd_dkv_direct
+        got["dk"], got["dv"] = dkv(*args)
+        last = b - 1
+        sl = slice(last, b)
+        largs = (q[sl], k[sl], v[sl], do[sl], lse[sl], delta[sl], False,
+                 None, none, dr)
+        fh = {"first_head": last * h}
+        ref = {"o": hfp.flash_packed_fwd_stream_reference(
+            q[sl], k[sl], v[sl], False, None, none, dr, **fh)[0],
+               "dq": hfp.flash_packed_bwd_dq_reference(*largs, **fh)}
+        ref["dk"], ref["dv"] = hfp.flash_packed_bwd_dkv_reference(*largs,
+                                                                  **fh)
+        wrap = {"case": f"wrap_b{b}_{shape_name}", "shape": [b, sq, sk, h, d],
+                "kernels": ["flash_packed_fwd_stream", "flash_packed_bwd_dq",
+                            dkv.__name__],
+                "first_compared_head": last * h,
+                "first_flat_index": wrap_heads(last, h, sq, sk)}
+        check(wrap["first_flat_index"] > 2 ** 32, f"no wrap: {wrap}")
+        for gname in ("o", "dq", "dk", "dv"):
+            compare(torch, gname, got[gname][sl], ref[gname], "bf16", wrap)
+        check(wrap["ok"], f"streamed K4 disagrees past the index wrap: "
+                          f"{wrap}")
+        rows.append(wrap)
+        del q, k, v, do, o, lse, delta, args, got, largs, ref
+        torch.cuda.empty_cache()
+    return {"cases": rows, "mask_probe": probe, "timing": timed}, worst
+
+
+# -- K9: fused_matmul_bn_act -------------------------------------------------
+
+# name, M, Cin, Cout, dtype: the three prologues, stats on and off, at each
+K9_CASES = [
+    ("m600_64to256", 600, 64, 256, "bf16"),
+    ("f32_m600_48to40", 600, 48, 40, "f32"),
+    ("m77_96to80_ragged", 77, 96, 80, "bf16"),
+    ("f32_m1031_32to24_ragged", 1031, 32, 24, "f32"),
+]
+# ResNet-50's bottleneck 1x1s at B=256, 56x56, as matrices
+K9_FULL = (("b256_56_256to64", 256 * 56 * 56, 256, 64),
+           ("b256_56_64to256", 256 * 56 * 56, 64, 256))
+
+
+def k9_inputs(torch, m, cin, cout, dtype, seed):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    x = torch.randn(m, cin, generator=g, device="cuda").to(dtype)
+    w = (torch.randn(cin, cout, generator=g, device="cuda") /
+         math.sqrt(cin)).to(dtype)
+    scale = torch.rand(cin, generator=g, device="cuda") + 0.5
+    shift = torch.rand(cin, generator=g, device="cuda") - 0.5
+    dy = torch.randn(m, cout, generator=g, device="cuda").to(dtype)
+    ds = torch.randn(cout, generator=g, device="cuda")
+    dss = 1e-3 * torch.randn(cout, generator=g, device="cuda")
+    return x, w, scale, shift, dy, ds, dss
+
+
+def k9_grads(torch, fmb, device, x, w, scale, shift, dy, ds, dss, prologue,
+             stats):
+    """y, s, ss and the gradients of ``fused_matmul_bn_act`` on ``device``
+    at cotangents (dy, ds, dss): the kernel's forward and the torch-op
+    backward on the card, the plain version and the same backward on the
+    CPU."""
+    xs = [t.detach().to(device).requires_grad_() for t in (x, w, scale,
+                                                           shift)]
+    y, s, ss = fmb.fused_matmul_bn_act(*xs, prologue=prologue, stats=stats)
+    loss = (y.float() * dy.to(device).float()).sum()
+    if stats:
+        loss = loss + (s * ds.to(device)).sum() + (ss * dss.to(device)).sum()
+    loss.backward()
+    return [y.detach(), s.detach(), ss.detach()] + [t.grad for t in xs]
+
+
+def k9_hold(torch, got, ref, dt, prologue, stats, row):
+    """K9 (forward on the card) and its backward against the plain version
+    and the CPU: y element by element (f32 1e-5 + 1e-5·|ref|, bf16 1e-2 +
+    1e-2·|ref|: one rounding of the output may flip), dx too but in bf16
+    within 2e-2 + 2e-2·|ref| (two roundings, of dy @ wᵀ summed in another
+    order by cuBLAS and by the CPU, then of the product with scale, may
+    each flip); the sums over M (the stats, dw, dscale, dshift) within
+    1e-5 (f32) or 1e-2 (bf16) of their largest value. Returns y's max
+    error."""
+    names = ("y", "sum", "sumsq", "dx", "dw", "dscale", "dshift")
+    row["ok"] = row.get("ok", True)
+    for name, g, r in zip(names, got, ref):
+        if name in ("sum", "sumsq") and not stats:
+            row["ok"] &= bool((g == 0).all())
+            continue
+        if name in ("dscale", "dshift") and prologue == "none":
+            row["ok"] &= g is None and r is None
+            continue
+        g, r = g.float().cpu(), r.float().cpu()
+        check(bool(torch.isfinite(g).all()), f"K9 {name}: non-finite")
+        err = (g - r).abs()
+        if name in ("y", "dx"):
+            t = 1e-5 if dt == "f32" else 1e-2 if name == "y" else 2e-2
+            ok = bool((err <= t + t * r.abs()).all())
+        else:
+            ok = float(err.max()) <= (1e-2 if dt == "bf16" else 1e-5) * \
+                max(float(r.abs().max()), 1e-30)
+        row[f"max_abs_err_{name}"] = float(err.max())
+        row[f"max_abs_{name}"] = float(r.abs().max())
+        row[f"ok_{name}"] = ok
+        row["ok"] &= ok
+    return row["max_abs_err_y"]
+
+
+def phase_kernel_fused_matmul_bn(torch, fmb, peaks):
+    """K9 (``fused_matmul_bn_act``): its path first, the entry driven as a
+    user calls it at ResNet-50's bottleneck 1x1 shapes (M = 256·56·56,
+    256 -> 64 and 64 -> 256, bf16, ``scale_shift_relu``, stats, forward and
+    backward), with the launch count set to 0 just before and read after;
+    then the kernel and its torch-op backward against the plain version
+    and the CPU in every case (three prologues, stats on and off, f32 and
+    bf16, M = 600 and ragged M) and at the full shapes, where the kernel is
+    timed beside its bound, its plain version and cuBLAS."""
+    import itertools
+    full = {}
+    for name, m, cin, cout in K9_FULL:
+        full[name] = k9_inputs(torch, m, cin, cout, torch.bfloat16, seed=21)
+    torch.cuda.synchronize()
+    fmb.fused_matmul_bn_fwd.launches = 0
+    got_full = {name: k9_grads(torch, fmb, "cuda", *inp, "scale_shift_relu",
+                               True) for name, inp in full.items()}
+    torch.cuda.synchronize()
+    launches = fmb.fused_matmul_bn_fwd.launches
+    check(launches == len(K9_FULL), f"K9 path: {launches} launches")
+
+    rows, worst = [], 0.0
+    for i, ((name, m, cin, cout, dt), prologue, stats) in enumerate(
+            itertools.product(K9_CASES, fmb.PROLOGUES, (True, False))):
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        inp = k9_inputs(torch, m, cin, cout, dtype, seed=1500 + i)
+        got = k9_grads(torch, fmb, "cuda", *inp, prologue, stats)
+        ref = k9_grads(torch, fmb, "cpu", *inp, prologue, stats)
+        row = {"case": name, "shape": [m, cin, cout], "dtype": dt,
+               "prologue": prologue, "stats": stats}
+        worst = max(worst, k9_hold(torch, got, ref, dt, prologue, stats,
+                                   row))
+        check(row["ok"], f"K9 disagrees with its plain version: {row}")
+        rows.append(row)
+
+    timing = {}
+    for name, m, cin, cout in K9_FULL:
+        x, w, scale, shift, *cts = full[name]
+        ref = k9_grads(torch, fmb, "cpu", x, w, scale, shift, *cts,
+                       "scale_shift_relu", True)
+        row = {"case": name, "shape": [m, cin, cout], "dtype": "bf16",
+               "prologue": "scale_shift_relu", "stats": True,
+               "backward_against": "cpu"}
+        worst = max(worst, k9_hold(torch, got_full[name], ref, "bf16",
+                                   "scale_shift_relu", True, row))
+        # the kernel's forward against the plain version on the card too
+        y, s, ss = fmb.fused_matmul_bn_fwd(x, w, scale, shift)
+        ry, rs, rss = fmb.fused_matmul_bn_act_reference(x, w, scale, shift)
+        row["max_abs_err_y_card"] = float((y.float() - ry.float()).abs().max())
+        row["ok"] &= bool(((y.float() - ry.float()).abs() <=
+                           1e-2 + 1e-2 * ry.float().abs()).all())
+        for sn, a, r in (("sum", s, rs), ("sumsq", ss, rss)):
+            rel = float((a - r).abs().max()) / float(r.abs().max())
+            row[f"{sn}_rel_err_card"] = rel
+            row["ok"] &= rel <= 1e-5
+        check(row["ok"], f"K9 disagrees at the full shape: {row}")
+        rows.append(row)
+        xb = fmb._prologue(x, scale, shift, "scale_shift_relu")
+        ms = median_ms(lambda: fmb.fused_matmul_bn_fwd(x, w, scale, shift))
+        plain_ms = median_ms(lambda: fmb.fused_matmul_bn_act_reference(
+            x, w, scale, shift), iters=5, warmup=1)
+        library_ms = median_ms(lambda: torch.matmul(xb, w))
+        flops = 2 * m * cin * cout
+        nbytes = (m * cin + m * cout + cin * cout) * 2
+        t_ops = flops / peaks["bf16"] * 1e3
+        t_bytes = nbytes / peaks["bytes"] * 1e3
+        timing[name] = {
+            "shape": [m, cin, cout], "dtype": "bf16",
+            "prologue": "scale_shift_relu", "stats": True,
+            "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "torch.matmul(prologued x, w): cuBLAS without the "
+                       "prologue and the stats",
+            "flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "peak_sheet": peaks["sheet"], "tflops": flops / ms / 1e9,
+            "gb_per_s": nbytes / ms / 1e6}
+        del xb, y, s, ss, ry, rs, rss
+    del full, got_full
+    torch.cuda.empty_cache()
+    emit({"phase": "kernel_fused_matmul_bn", "kernel": "fused_matmul_bn_fwd",
+          "path_launches": launches, "cases": rows, "timing": timing})
+    return worst, launches, timing[K9_FULL[0][0]]
 
 
 # -- phases 8 and 9 ----------------------------------------------------------
@@ -1107,7 +1698,8 @@ def bench_batches(np, n, batch, seq, vocab):
 
 
 def phase_train_bf16(torch, np, hfa, peaks, GPTForCausalLM, gpt3_1p3b,
-                     amp, AdamW, make_sharded_train_step, profile=False):
+                     amp, AdamW, make_sharded_train_step, profile=False,
+                     rate0_p50=None):
     """The training slice: GPT-3 1.3B at full depth, AMP-O2, AdamW with
     f32 masters, B=4 x S=2048, 2 warm-up and 8 timed steps."""
     batch, seq, warmup, timed = 4, 2048, 2, 8
@@ -1160,6 +1752,8 @@ def phase_train_bf16(torch, np, hfa, peaks, GPTForCausalLM, gpt3_1p3b,
            "peak_sheet": peaks["sheet"],
            "max_memory_allocated_gb": peak_gb, "launches": launches}
     emit(row)
+    if rate0_p50 is not None:
+        rate0_p50["gpt"] = p50
     check(all(math.isfinite(x) for x in losses), f"non-finite loss: {row}")
     # tied logits at init have sigma = sqrt(2048) * 0.02 ~ 0.9: the first
     # loss is about ln(50304) + sigma^2 / 2 ~ 11.2
@@ -1202,12 +1796,18 @@ def zero_counts(hfa, hfp):
 
 
 def phase_train_grad_f32_bert(torch, np, hfa, hfp, BertForPretraining,
-                              bert_base):
+                              bert_base, attention_dropout=0.0,
+                              phase="train_grad_f32_bert"):
     """A 2-layer cut of BERT-base at full width (hidden 768, 12 heads,
     vocab 30522), f32, B=2 x S=512 with bench.py's padding: the same weights
     and batch through one forward and backward on the card (K4a, K4b) and
-    on the CPU (their plain versions), every gradient compared."""
-    cfg = bert_base(num_layers=2, hidden_dropout=0.0, attention_dropout=0.0)
+    on the CPU (their plain versions), every gradient compared. With
+    ``attention_dropout`` both runs draw their seeds in one ``rng_scope``:
+    the hash does not depend on the device (hidden dropout's generators
+    do, so it stays 0)."""
+    from paddle_tpu_torch.core.random import make_key, rng_scope
+    cfg = bert_base(num_layers=2, hidden_dropout=0.0,
+                    attention_dropout=attention_dropout)
     gpu = BertForPretraining(cfg, device="cuda", seed=0)
     cpu = BertForPretraining(cfg, device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
@@ -1225,13 +1825,14 @@ def phase_train_grad_f32_bert(torch, np, hfa, hfp, BertForPretraining,
         t0 = time.perf_counter()
         args = [torch.as_tensor(x, device=model.device)
                 for x in (ids, att, labels, sop)]
-        loss = model(args[0], None, args[1], args[2], args[3])
+        with rng_scope(make_key(2024)):
+            loss = model(args[0], None, args[1], args[2], args[3])
         loss.backward()
         losses[name] = (float(loss.detach()), time.perf_counter() - t0)
     launches = {n: c - before[n] for n, c in k4_counts(hfa, hfp).items()}
     check(launches == {**{n: 0 for n in ATTENTION_KERNELS},
                        "flash_packed_fwd": 2, "flash_packed_bwd": 2},
-          f"train_grad_f32_bert: launches {launches}")
+          f"{phase}: launches {launches}")
     worst_name, worst_ratio, rows = None, 0.0, 0
     key_bias_ratio = 0.0
     cpu_params = dict(cpu.named_parameters())
@@ -1252,8 +1853,9 @@ def phase_train_grad_f32_bert(torch, np, hfa, hfp, BertForPretraining,
         if ratio >= worst_ratio:
             worst_name, worst_ratio = name, ratio
     loss_err = abs(losses["gpu"][0] - losses["cpu"][0])
-    row = {"phase": "train_grad_f32_bert", "model": "bert_base",
-           "layers": 2, "batch": [b, s], "real_tokens": int(att.sum()),
+    row = {"phase": phase, "model": "bert_base", "layers": 2,
+           "attention_dropout": attention_dropout, "hidden_dropout": 0.0,
+           "batch": [b, s], "real_tokens": int(att.sum()),
            "loss_gpu": losses["gpu"][0], "loss_cpu": losses["cpu"][0],
            "loss_abs_err": loss_err, "gpu_s": losses["gpu"][1],
            "cpu_s": losses["cpu"][1], "grad_tensors": rows,
@@ -1262,9 +1864,8 @@ def phase_train_grad_f32_bert(torch, np, hfa, hfp, BertForPretraining,
            "allow_tf32": torch.backends.cuda.matmul.allow_tf32}
     emit(row)
     # f32 on both sides, sums in other orders (cuBLAS, the kernels' tiles)
-    check(loss_err <= 1e-4, f"train_grad_f32_bert: loss differs: {row}")
-    check(worst_ratio <= 1e-3,
-          f"train_grad_f32_bert: gradients differ: {row}")
+    check(loss_err <= 1e-4, f"{phase}: loss differs: {row}")
+    check(worst_ratio <= 1e-3, f"{phase}: gradients differ: {row}")
     del gpu, cpu
 
 
@@ -1320,7 +1921,7 @@ def bert_loss(form):
 
 def phase_train_bert_bf16(torch, np, hfa, hfp, peaks, BertForPretraining,
                           bert_base, amp, AdamW, make_sharded_train_step,
-                          profile=False):
+                          profile=False, rate0_p50=None):
     """The BERT slice: BERT-base at 12 layers, AMP-O2, AdamW with f32
     masters, B=64 x S=512 in bench.py's dense (2 warm-up and 8 timed
     steps), padded and packed (2 + 4 each) forms, in that order, training
@@ -1395,6 +1996,8 @@ def phase_train_bert_bf16(torch, np, hfa, hfp, peaks, BertForPretraining,
             check(launches[name] == 0,
                   f"{form}: {name} launched {launches[name]} times")
         out[form] = row
+        if form == "dense" and rate0_p50 is not None:
+            rate0_p50["bert"] = row["step_p50_ms"]
         for name, n in launches.items():
             launches_all[name] = launches_all.get(name, 0) + n
     # ln(30522) + ln 2 at init; the logits' spread adds about sigma^2 / 2
@@ -2006,7 +2609,7 @@ ERNIE_FORMS = (
 
 def phase_train_ernie_bf16(torch, np, hfa, hfp, hc, peaks, ernie, AdamW,
                            make_sharded_train_step, cross_entropy,
-                           profile=False):
+                           profile=False, rate0_p50=None):
     """The ERNIE slice at 12 layers, hidden 768, 12 heads of 64, vocab
     40000, dropout 0, random weights from seed 0, bf16 with AdamW(1e-4)
     f32 masters, in three forms: bench.py's config 5 (``bench_ernie``:
@@ -2112,6 +2715,8 @@ def phase_train_ernie_bf16(torch, np, hfa, hfp, hc, peaks, ernie, AdamW,
         for name in ATTENTION_KERNELS:
             launches_all[name] += launches[name]
         out[form] = row
+        if form == "long_s2048" and rate0_p50 is not None:
+            rate0_p50["ernie"] = row["step_p50_ms"]
         if profile and form == "long_s2048":
             from torch.profiler import ProfilerActivity, profile as prof_ctx
             with prof_ctx(activities=[ProfilerActivity.CPU,
@@ -2128,17 +2733,194 @@ def phase_train_ernie_bf16(torch, np, hfa, hfp, hc, peaks, ernie, AdamW,
     return launches_all
 
 
+# -- training at the published dropout ----------------------------------------
+
+def dropout_row(torch, phase, model, losses, times, rate0_p50, launches,
+                extra):
+    return {"phase": phase, "model": model, "dropout": DROP_RATE,
+            "losses": losses, "step_ms": times,
+            "step_p50_ms": percentile(times, 50),
+            "step_p99_ms": percentile(times, 99),
+            "rate0_step_p50_ms": rate0_p50,
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches, **extra}
+
+
+def check_launches(launches, want, what):
+    for name, n in launches.items():
+        check(n == want.get(name, 0),
+              f"{what}: {name} launched {n} times; expected "
+              f"{want.get(name, 0)}")
+
+
+def phase_train_gpt_dropout_bf16(torch, np, hfa, hfp, peaks, GPTForCausalLM,
+                                 gpt3_1p3b, amp, AdamW,
+                                 make_sharded_train_step, rate0_p50):
+    """GPT-3 1.3B at hidden and attention dropout 0.1: 24 layers, B=4 x
+    S=2048, AMP-O2 AdamW with f32 masters, 2 warm-up and 4 timed steps;
+    every step runs K1, K2 and K3 once per layer with the mask in the
+    kernels, and no K4 form."""
+    batch, seq, warmup, timed = 4, 2048, 2, 4
+    cfg = gpt3_1p3b(hidden_dropout=DROP_RATE, attention_dropout=DROP_RATE)
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32, seed=0)
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01, multi_precision=True)
+    model, opt = amp.decorate(model, opt, level="O2")
+    step = make_sharded_train_step(model, opt, gpt_loss)
+    batches = bench_batches(np, warmup + timed, batch, seq, cfg.vocab_size)
+    it = iter(batches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(hfa, hfp)   # the main path: counts 0 before, read after
+    losses, times = timed_steps(torch, lambda: step.step(next(it)), warmup,
+                                timed)
+    launches = k4_counts(hfa, hfp)
+    n = cfg.num_layers * (warmup + timed)
+    row = dropout_row(torch, "train_gpt_dropout_bf16", "gpt3_1p3b", losses,
+                      times, rate0_p50.get("gpt"), launches,
+                      {"hidden_dropout": DROP_RATE, "batch": [batch, seq],
+                       "tokens_per_s": timed * batch * seq /
+                       (sum(times) / 1e3)})
+    emit(row)
+    check(all(math.isfinite(x) for x in losses), f"non-finite: {row}")
+    check(abs(losses[0] - 11.2) < 0.6, f"GPT dropout step-0 loss {losses[0]}")
+    check_launches(launches, {"flash_fwd": n, "flash_bwd_dq": n,
+                              "flash_bwd_dkv": n}, "GPT with dropout")
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return launches, row
+
+
+def phase_train_bert_dropout_bf16(torch, np, hfa, hfp, peaks,
+                                  BertForPretraining, bert_base, amp, AdamW,
+                                  make_sharded_train_step, rate0_p50):
+    """BERT-base as published: 12 layers, hidden and attention dropout 0.1,
+    bench.py's dense form, B=64 x S=512, AMP-O2 AdamW, 2 warm-up and 4
+    timed steps; every step runs K4a-direct and K4b-fused once per layer.
+    Run twice from one seed (equal losses: the masks follow from (seed,
+    step_count)), then once at rate 0 (other losses), each from seed 0."""
+    batch, seq, warmup, timed = 64, 512, 2, 4
+    batches, _ = bert_batches(np, batch, seq, 30522)
+
+    def train(rate):
+        cfg = bert_base(max_position_embeddings=512, hidden_dropout=rate,
+                        attention_dropout=rate)
+        model = BertForPretraining(cfg, device="cuda", seed=0)
+        opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                    multi_precision=True)
+        model, opt = amp.decorate(model, opt, level="O2")
+        step = make_sharded_train_step(model, opt, bert_loss("dense"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(hfa, hfp)   # the main path: counts 0 before, read after
+        losses, times = timed_steps(
+            torch, lambda: step.step(batches["dense"]), warmup, timed)
+        launches = k4_counts(hfa, hfp)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del model, opt, step
+        torch.cuda.empty_cache()
+        return losses, times, launches, peak
+
+    losses, times, launches, peak = train(DROP_RATE)
+    again, times2, _, _ = train(DROP_RATE)
+    rate0, times0, _, _ = train(0.0)
+    n = 12 * (warmup + timed)
+    row = dropout_row(torch, "train_bert_dropout_bf16", "bert_base", losses,
+                      times, percentile(times0, 50), launches,
+                      {"hidden_dropout": DROP_RATE, "batch": [batch, seq],
+                       "form": "dense", "repeat_losses": again,
+                       "repeat_step_p50_ms": percentile(times2, 50),
+                       "rate0_losses": rate0,
+                       "rate0_phase_step_p50_ms": rate0_p50.get("bert"),
+                       "tokens_per_s": timed * batch * seq /
+                       (sum(times) / 1e3)})
+    row["max_memory_allocated_gb"] = peak
+    emit(row)
+    check(all(math.isfinite(x) for x in losses), f"non-finite: {row}")
+    # ln(30522) + ln 2 at init, plus about sigma^2 / 2 of the logits
+    check(10.5 <= losses[0] <= 11.8, f"BERT dropout step-0 loss {losses[0]}")
+    check(again == losses, f"two runs from one seed differ: {row}")
+    check(all(a != b for a, b in zip(losses, rate0)),
+          f"dropout left the losses as at rate 0: {row}")
+    check_launches(launches, {"flash_packed_fwd": n, "flash_packed_bwd": n},
+                   "BERT with dropout")
+    return launches, row
+
+
+def phase_train_ernie_dropout_bf16(torch, np, hfa, hfp, peaks, ernie, AdamW,
+                                   cross_entropy, rate0_p50):
+    """ERNIE-base at its own 2048 positions with hidden and attention
+    dropout 0.1: the pipeline form of the long ERNIE phase
+    (``PipelineLayer``, ``make_pipeline_train_step``), B=16 x 2048, bf16
+    with AdamW f32 masters, 2 warm-up and 4 timed steps; every step runs the
+    streamed forward, dq and dk/dv once per layer."""
+    from paddle_tpu_torch.distributed import make_pipeline_train_step
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        PipelineLayer
+    batch, seq, warmup, timed = 16, 2048, 2, 4
+    cfg = ernie.ernie_base(max_position_embeddings=seq,
+                           hidden_dropout=DROP_RATE,
+                           attention_dropout=DROP_RATE)
+    rng = np.random.default_rng(0)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, seq)),
+                          device="cuda")
+    labels = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, seq)),
+                             device="cuda")
+    model = PipelineLayer(ernie.ernie_pipeline_descs(cfg, device="cuda",
+                                                     seed=0),
+                          num_stages=1, loss_fn=ernie_pipe_loss(cross_entropy))
+    model.to(torch.bfloat16)
+    opt = AdamW(learning_rate=1e-4, multi_precision=True)
+    pstep = make_pipeline_train_step(model, opt, n_microbatch=4)
+    state = {"params": dict(model.named_parameters())}
+    state["opt"] = opt.init(state["params"])
+
+    def run():
+        state["params"], state["opt"], loss = pstep(
+            state["params"], state["opt"], ids, labels, 1e-4)
+        return loss
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(hfa, hfp)   # the main path: counts 0 before, read after
+    losses, times = timed_steps(torch, run, warmup, timed)
+    launches = k4_counts(hfa, hfp)
+    n = cfg.num_layers * (warmup + timed)
+    row = dropout_row(torch, "train_ernie_dropout_bf16", "ernie_base", losses,
+                      times, rate0_p50.get("ernie"), launches,
+                      {"hidden_dropout": DROP_RATE, "batch": [batch, seq],
+                       "entry": "PipelineLayer + make_pipeline_train_step",
+                       "tokens_per_s": timed * batch * seq /
+                       (sum(times) / 1e3)})
+    emit(row)
+    check(all(math.isfinite(x) for x in losses), f"non-finite: {row}")
+    check(math.log(cfg.vocab_size) - 0.5 <= losses[0] <=
+          math.log(cfg.vocab_size) + 1.2, f"ERNIE dropout step-0 loss "
+                                           f"{losses[0]}")
+    check_launches(launches, {"flash_packed_fwd_stream": n,
+                              "flash_packed_bwd_dq": n,
+                              "flash_packed_bwd_dkv": n},
+                   "ERNIE with dropout")
+    del model, opt, pstep, state, run
+    torch.cuda.empty_cache()
+    return launches, row
+
+
 def phase_cross_attention(torch, np, hfa, hfp, MultiHeadAttention,
-                          PF):
-    """``nn.MultiHeadAttention(768, 12)`` in bf16: a 512-token query over
-    2048 keys, B=16, forward and backward. The JAX package runs the
-    streamed forward, the streamed dq and dk/dv-direct here (all queries in
-    one tile, the keys in four); each launches once. Output and gradients
-    are held against the port's plain dense path (``_dense_attention``)
-    through the same projections, in the 2-norm."""
+                          PF, rng, rate=0.0):
+    """``nn.MultiHeadAttention(768, 12, dropout=rate)`` in bf16, training: a
+    512-token query over 2048 keys, B=16, forward and backward. The JAX
+    package runs the streamed forward, the streamed dq and dk/dv-direct
+    here (all queries in one tile, the keys in four); each launches once.
+    Output and gradients are held against the port's plain dense path
+    (``_dense_attention``; at a rate above 0 the dense softmax times
+    ``dropout_keep_dense`` of the seed the layer drew inside an
+    ``rng_scope``) through the same projections, in the 2-norm."""
     b, sq, sk, e, h = 16, 512, 2048, 768, 12
+    phase = "cross_attention" if rate == 0.0 else "cross_attention_dropout"
     torch.manual_seed(0)
-    mha = MultiHeadAttention(e, h, device="cuda").to(torch.bfloat16)
+    mha = MultiHeadAttention(e, h, dropout=rate, device="cuda").to(
+        torch.bfloat16)
     g = torch.Generator(device="cuda")
     g.manual_seed(21)
     xq = torch.randn(b, sq, e, generator=g, device="cuda").to(torch.bfloat16)
@@ -2155,9 +2937,11 @@ def phase_cross_attention(torch, np, hfa, hfp, MultiHeadAttention,
 
     xq.requires_grad_()
     xkv.requires_grad_()
+    key = rng.make_key(4321)
     zero_counts(hfa, hfp)
     t0 = time.perf_counter()
-    out = mha(xq, xkv, xkv)
+    with rng.rng_scope(key):
+        out = mha(xq, xkv, xkv)
     got = grads(out)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -2166,31 +2950,46 @@ def phase_cross_attention(torch, np, hfa, hfp, MultiHeadAttention,
                        "flash_packed_fwd_stream": 1,
                        "flash_packed_bwd_dq": 1,
                        "flash_packed_bwd_dkv_direct": 1},
-          f"cross_attention: launches {launches}")
+          f"{phase}: launches {launches}")
     # the plain path: the same projections, the dense attention
     q = mha.q_proj(xq).view(b, sq, h, e // h)
     k = mha.k_proj(xkv).view(b, sk, h, e // h)
     v = mha.v_proj(xkv).view(b, sk, h, e // h)
-    ref_out = mha.out_proj(PF._dense_attention(
-        q, k, v, None, False, 1.0 / math.sqrt(e // h)).reshape(b, sq, e))
+    scale = 1.0 / math.sqrt(e // h)
+    if rate == 0.0:
+        attn = PF._dense_attention(q, k, v, None, False, scale)
+    else:
+        # the layer's one draw in the scope is the key's first fold
+        seed = rng.draw_seed(rng.fold_in(key, 1))
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+        keep = hfa.dropout_keep_dense(b * h, sq, sk, seed, rate,
+                                      "cuda").reshape(b, h, sq, sk)
+        p = (torch.softmax(s, dim=-1) * keep).to(q.dtype)
+        attn = torch.einsum("bhqk,bkhd->bqhd", p.float(),
+                            v.float()).to(q.dtype)
+        del s, keep, p
+    ref_out = mha.out_proj(attn.reshape(b, sq, e))
     ref = grads(ref_out)
     errs = {"out": float((out - ref_out).detach().float().norm() /
                          ref_out.detach().float().norm())}
     for name, gt in got.items():
-        check(bool(torch.isfinite(gt).all()), f"cross_attention: {name}")
+        check(bool(torch.isfinite(gt).all()), f"{phase}: {name}")
         r = ref[name].float()
         if name == "k_proj.bias":   # its true gradient is 0 (see above)
             r = ref["k_proj.weight"].float()
         errs[name] = float((gt.float() - ref[name].float()).norm() /
                            max(float(r.norm()), 1e-30))
-    row = {"phase": "cross_attention", "layer": "MultiHeadAttention(768, 12)",
+    row = {"phase": phase, "layer": f"MultiHeadAttention(768, 12, "
+                                    f"dropout={rate})",
            "dtype": "bf16", "query": [b, sq, e], "key_value": [b, sk, e],
            "seconds_first_call": seconds, "rel_err_2norm": errs,
            "launches": launches}
     emit(row)
     # bf16 on both sides; the kernels round p before the normalisation,
     # the dense path after it
-    check(max(errs.values()) <= 2e-2, f"cross_attention disagrees: {row}")
+    check(max(errs.values()) <= 2e-2, f"{phase} disagrees: {row}")
+    del mha, xq, xkv, dout, out, got, q, k, v, attn, ref_out, ref
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2221,6 +3020,8 @@ def main() -> int:
         from paddle_tpu_torch.text.models import ernie
         from paddle_tpu_torch.nn import MultiHeadAttention
         from paddle_tpu_torch.nn import functional as PF
+        from paddle_tpu_torch.ops._hopper import fused_matmul_bn as fmb
+        from paddle_tpu_torch.core import random as rng
     except ImportError as e:
         print(f"chip_smoke: the paddle_tpu_torch package must sit beside "
               f"this script ({e})", file=sys.stderr)
@@ -2242,6 +3043,25 @@ def main() -> int:
                                                              peaks)
     worst_conv, stats_conv, timing_conv = phase_kernel_conv(torch, hc,
                                                             peaks)
+    # attention-prob dropout in the nine attention kernels (rate 0.1), as
+    # parts of phases 3-6
+    drop_k1, worst_d1 = dropout_k1_k3(torch, hfa, hfp, peaks, timing,
+                                      timing_bwd)
+    emit({"phase": "kernel", "part": "dropout", "rate": DROP_RATE,
+          **drop_k1})
+    drop_k4, worst_d4 = dropout_k4(torch, np, hfa, hfp, timing_packed)
+    emit({"phase": "kernel_packed", "part": "dropout", "rate": DROP_RATE,
+          **drop_k4})
+    drop_st, worst_ds = dropout_stream(torch, np, hfa, hfp, timing_stream)
+    emit({"phase": "kernel_packed_stream", "part": "dropout",
+          "rate": DROP_RATE, **drop_st})
+    drop_timing = {**drop_k1["timing"], **drop_k4["timing"],
+                   **drop_st["timing"]}
+    worst_drop = {**worst_d1, **worst_d4, **worst_ds}
+    worst_k9, k9_launches, timing_k9 = phase_kernel_fused_matmul_bn(
+        torch, fmb, peaks)
+    # no model path calls K9: from here on its count must stay 0
+    fmb.fused_matmul_bn_fwd.launches = 0
     # the GPT and BERT paths launch no conv kernel: the counts run from here
     # to the end of BERT training
     zero_conv_counts(hc)
@@ -2266,21 +3086,34 @@ def main() -> int:
 
     phase_train_grad_f32(torch, np, hfa, GPTForCausalLM, gpt3_1p3b)
     torch.cuda.empty_cache()
+    rate0_p50 = {}   # each rate-0 training path's step p50, for beside
     train_launches = phase_train_bf16(
         torch, np, hfa, peaks, GPTForCausalLM, gpt3_1p3b, amp, AdamW,
-        make_sharded_train_step, profile=profile)
+        make_sharded_train_step, profile=profile, rate0_p50=rate0_p50)
     gpt_k4 = {name: getattr(hfp, name).launches for name in k4_forms}
     check(all(n == 0 for n in gpt_k4.values()),
           f"the GPT paths launched K4: {gpt_k4}")
     serve_launches.update(gpt_k4)
     train_launches.update(gpt_k4)
     torch.cuda.empty_cache()
+    gpt_drop_launches, gpt_drop = phase_train_gpt_dropout_bf16(
+        torch, np, hfa, hfp, peaks, GPTForCausalLM, gpt3_1p3b, amp, AdamW,
+        make_sharded_train_step, rate0_p50)
     phase_train_grad_f32_bert(torch, np, hfa, hfp, BertForPretraining,
                               bert_base)
     torch.cuda.empty_cache()
     bert_launches = phase_train_bert_bf16(
         torch, np, hfa, hfp, peaks, BertForPretraining, bert_base, amp,
-        AdamW, make_sharded_train_step, profile=profile)
+        AdamW, make_sharded_train_step, profile=profile,
+        rate0_p50=rate0_p50)
+    torch.cuda.empty_cache()
+    phase_train_grad_f32_bert(torch, np, hfa, hfp, BertForPretraining,
+                              bert_base, attention_dropout=DROP_RATE,
+                              phase="train_grad_f32_bert_dropout")
+    torch.cuda.empty_cache()
+    bert_drop_launches, bert_drop = phase_train_bert_dropout_bf16(
+        torch, np, hfa, hfp, peaks, BertForPretraining, bert_base, amp,
+        AdamW, make_sharded_train_step, rate0_p50)
     text_conv = conv_counts(hc)
     check(all(n == 0 for n in text_conv.values()),
           f"the GPT and BERT paths launched conv kernels: {text_conv}")
@@ -2306,13 +3139,32 @@ def main() -> int:
     torch.cuda.empty_cache()
     ernie_launches = phase_train_ernie_bf16(
         torch, np, hfa, hfp, hc, peaks, ernie, AdamW,
-        make_sharded_train_step, cross_entropy, profile=profile)
+        make_sharded_train_step, cross_entropy, profile=profile,
+        rate0_p50=rate0_p50)
     torch.cuda.empty_cache()
+    ernie_drop_launches, ernie_drop = phase_train_ernie_dropout_bf16(
+        torch, np, hfa, hfp, peaks, ernie, AdamW, cross_entropy, rate0_p50)
     cross_launches = phase_cross_attention(torch, np, hfa, hfp,
-                                           MultiHeadAttention, PF)
+                                           MultiHeadAttention, PF, rng)
+    cross_drop_launches = phase_cross_attention(
+        torch, np, hfa, hfp, MultiHeadAttention, PF, rng, rate=DROP_RATE)
     late_conv = conv_counts(hc)
     check(all(n == 0 for n in late_conv.values()),
           f"the ERNIE paths launched conv kernels: {late_conv}")
+    check(fmb.fused_matmul_bn_fwd.launches == 0,
+          f"K9 launched outside its path: "
+          f"{fmb.fused_matmul_bn_fwd.launches}")
+    dropout_launches = {}
+    for launches in (gpt_drop_launches, bert_drop_launches,
+                     ernie_drop_launches, cross_drop_launches):
+        for name, n in launches.items():
+            dropout_launches[name] = dropout_launches.get(name, 0) + n
+    emit({"phase": "dropout_paths", "rate": DROP_RATE,
+          "step_p50_ms": {p["model"]: {"dropout": p["step_p50_ms"],
+                                       "rate0": p["rate0_step_p50_ms"]}
+                          for p in (gpt_drop, bert_drop, ernie_drop)},
+          "bert_rate0_phase_p50_ms": bert_drop["rate0_phase_step_p50_ms"],
+          "launches": dropout_launches})
     ernie_launches.update(late_conv)
     cross_launches.update(late_conv)
 
@@ -2398,6 +3250,30 @@ def main() -> int:
             "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        if name in drop_timing:
+            # attention-prob dropout 0.1: the kernel at the timed shape
+            # beside rate 0 in turns, its launches on the dropout paths
+            # (GPT: K1-K3; BERT: K4a/K4b; ERNIE and cross-attention: the
+            # streamed forms, cross-attention dk/dv-direct), and
+            # its largest error against the plain version with the mask
+            d = drop_timing[name]
+            kernels[-1].update({
+                "dropout_ms": d["ms_dropout"], "dropout_rate0_ms":
+                d["ms_rate0"], "dropout_launches": dropout_launches[name],
+                "dropout_max_abs_err": worst_drop[name]})
+    kernels.append({
+        "name": "fused_matmul_bn_fwd", "route": "cuda",
+        "source": "paddle_tpu_torch/ops/_hopper/csrc/conv.cu",
+        "replaces": "paddle_tpu/ops/_pallas/fused_matmul_bn.py:36 "
+                    "(_fwd_kernel, launched by _fwd at :76); runs "
+                    "conv1x1_kernel through paddle_fused_matmul_bn_fwd",
+        "launches": k9_launches, "k9_path_launches": k9_launches,
+        "max_abs_err": worst_k9, "max_err": worst_k9,
+        "stats_rel_err": None,
+        "ms": timing_k9["kernel_ms"], "kernel_ms": timing_k9["kernel_ms"],
+        "plain_ms": timing_k9["plain_ms"], "bound_ms": timing_k9["bound_ms"],
+        "bound_by": timing_k9["bound_by"],
+        "library_ms": timing_k9["library_ms"]})
     emit({"kernels": kernels})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

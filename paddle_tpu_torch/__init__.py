@@ -21,7 +21,11 @@ dq and dk/dv kernels (``ops/_hopper/csrc/flash_bwd.cu``); BERT pretraining
 (``vision.models.resnet``), whose convs, with the flags
 ``fused_conv_bn`` and ``pallas_conv`` of :mod:`.core.flags` on, run the
 conv kernels with the BN prologue and stat epilogue
-(``ops/_hopper/csrc/conv.cu``).
+(``ops/_hopper/csrc/conv.cu``); ERNIE pretraining (``text.models.ernie``);
+``ops/_hopper/fused_matmul_bn.py`` (the fused 1x1 matmul + BN + ReLU +
+stats, on ``conv.cu``); and dropout: the attention kernels' in-kernel mask
+and hidden dropout, keyed by :mod:`.core.random` as the JAX package keys
+its randomness by ``(seed, step)``.
 """
 
 from .core.device import resolve_device  # noqa: F401

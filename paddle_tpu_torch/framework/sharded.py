@@ -8,10 +8,12 @@
 
 The parameters are the model's own (``named_parameters``, trainable
 ones), updated in place, with the optimizer state beside them in the JAX
-layout. The step keeps the counter that the JAX step keys its random
-stream by (``fold_in(base_key, step_count)``); nothing draws from it yet,
-since dropout is not ported. The JAX step's mesh, ZeRO sharding, offload,
-health sentinel and pass pipeline are not ported: a ``mesh`` raises.
+layout. Each step runs inside ``rng_scope(fold_in(base_key,
+step_count))``, as the JAX step keys its random stream, so the dropout
+masks of a step follow from its index: a run resumed from
+:meth:`TrainStep.state_dict` draws what an unbroken run draws. The JAX
+step's mesh, ZeRO sharding, offload, health sentinel and pass pipeline are
+not ported: a ``mesh`` raises.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 from torch import nn
+
+from ..core.random import fold_in, make_key, rng_scope
 
 __all__ = ["TrainStep", "make_sharded_train_step"]
 
@@ -53,6 +57,7 @@ class TrainStep:
         self.device = next(iter(self.params.values())).device
         self.opt_state = optimizer.init(self.params)
         self._step_count = 0
+        self._base_key = make_key(0)   # jax.random.key(0), as in JAX
 
     @property
     def step_count(self) -> int:
@@ -72,8 +77,9 @@ class TrainStep:
         lr = self.optimizer.get_lr()
         for p in self.params.values():
             p.grad = None
-        loss = self.loss_fn(self.model, batch)
-        loss.backward()
+        with rng_scope(fold_in(self._base_key, self._step_count)):
+            loss = self.loss_fn(self.model, batch)
+            loss.backward()
         # a parameter the loss does not reach (BERT's pooler and NSP head
         # without NSP labels) gets a zero gradient, as jax.grad gives it, so
         # the optimizer still decays it and steps its moments

@@ -1,12 +1,13 @@
 """Functional ops of the port (``paddle_tpu/nn/functional.py`` counterpart).
 
-So far what the GPT, BERT and ResNet training paths need:
+So far what the GPT, BERT, ERNIE and ResNet training paths need:
 :func:`cross_entropy` with hard labels, :func:`scaled_dot_product_attention`
-with its routing to the attention kernels, :func:`dropout` at rate 0 or in
-eval mode, and for ResNet :func:`relu`, :func:`conv2d` (NCHW or NHWC, a
-library convolution, 1x1 NHWC as a matmul), :func:`max_pool2d`,
-:func:`adaptive_avg_pool2d` and :func:`batch_norm` with the closed-form
-backward.
+with its routing to the attention kernels (attention-prob dropout in the
+kernels), :func:`dropout` (both of Paddle's modes, the mask drawn from the
+key stream of :mod:`paddle_tpu_torch.core.random`), and for ResNet
+:func:`relu`, :func:`conv2d` (NCHW or NHWC, a library convolution, 1x1 NHWC
+as a matmul), :func:`max_pool2d`, :func:`adaptive_avg_pool2d` and
+:func:`batch_norm` with the closed-form backward.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as TF
 
+from ..core.random import next_key, torch_generator
 from ..ops._hopper.flash_attention import flash_attention_hopper
 
 __all__ = ["adaptive_avg_pool2d", "batch_norm", "conv2d", "cross_entropy",
@@ -57,16 +59,45 @@ def cross_entropy(input: torch.Tensor, label: torch.Tensor, weight=None,
     return loss.sum() / torch.clamp(valid.sum(), min=1)
 
 
-def dropout(x: torch.Tensor, p: float = 0.5, training: bool = True
+def _keep_mask(key: int, shape, keep: float, device) -> torch.Tensor:
+    """A bool mask of ``shape``, True with probability ``keep``, drawn
+    through a ``torch.Generator`` on ``device`` seeded from ``key``
+    (``jax.random.bernoulli(key, keep, shape)``; the bits differ)."""
+    gen = torch_generator(key, device)
+    return torch.rand(shape, generator=gen, device=device) < keep
+
+
+def dropout(x: torch.Tensor, p: float = 0.5, training: bool = True,
+            mode: str = "upscale_in_train", key: Optional[int] = None
             ) -> torch.Tensor:
-    """``x`` itself at rate 0 or in eval mode. Dropout in training draws
-    its mask from the JAX step's key stream, which is not ported yet: a
-    rate above 0 in training raises."""
-    if p > 0.0 and training:
-        raise NotImplementedError(
-            f"dropout at rate {p} in training is not ported yet "
-            f"(ROADMAP Queue 1); use rate 0 or eval mode")
-    return x
+    """``paddle.nn.functional.dropout``, as the JAX function computes it.
+    In training a kept element is ``x / (1 - p)`` (``upscale_in_train``)
+    or ``x`` (``downscale_in_infer``), a dropped one 0, all of them at
+    ``p = 1``; in eval mode ``downscale_in_infer`` gives ``x * (1 - p)``
+    and ``upscale_in_train`` ``x``. The mask comes from ``key``, by default
+    the next key of the active ``rng_scope`` (the train step's) or of the
+    global generator."""
+    if mode not in ("upscale_in_train", "downscale_in_infer"):
+        raise ValueError(f"mode must be 'upscale_in_train' or "
+                         f"'downscale_in_infer'; got {mode!r}")
+
+    def scalar(v):   # a Python float meets x in x's dtype, as in JAX
+        return torch.tensor(v, dtype=x.dtype, device=x.device)
+
+    if not training:
+        if mode == "downscale_in_infer" and p > 0.0:
+            return x * scalar(1.0 - p)
+        return x
+    if p == 0.0:
+        return x
+    if p == 1.0:
+        return torch.zeros_like(x)
+    if key is None:
+        key = next_key()
+    keep = 1.0 - p
+    mask = _keep_mask(key, x.shape, keep, x.device)
+    kept = x / scalar(keep) if mode == "upscale_in_train" else x
+    return torch.where(mask, kept, scalar(0.0))
 
 
 def _as_key_mask(attn_mask: torch.Tensor, b: int, sq: int, sk: int
@@ -102,10 +133,11 @@ def _kernel_shapes(query: torch.Tensor, key: torch.Tensor) -> bool:
 
 
 def _dense_attention(query, key, value, attn_mask, is_causal: bool,
-                     scale: float) -> torch.Tensor:
+                     scale: float, dropout_p: float = 0.0) -> torch.Tensor:
     """The JAX function's dense path: f32 scores, ``-inf`` where a bool
     mask is False or causal masks, a float mask added, softmax rounded to
-    the input dtype before the value product."""
+    the input dtype before the value product, and :func:`dropout` on the
+    probabilities at ``dropout_p``."""
     sq, sk = query.shape[1], key.shape[1]
     scores = torch.einsum("bqhd,bkhd->bhqk", query.float(),
                           key.float()) * scale
@@ -119,6 +151,8 @@ def _dense_attention(query, key, value, attn_mask, is_causal: bool,
         else:
             scores = scores + attn_mask.float()
     probs = torch.softmax(scores, dim=-1).to(query.dtype)
+    if dropout_p > 0.0:
+        probs = dropout(probs, dropout_p, training=True)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), value.float())
     return out.to(query.dtype)
 
@@ -136,14 +170,13 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     ``segment_ids`` mean packed attention; a mask that varies per query,
     or shapes the kernels do not take, go to the dense path. A d=64 input
     thus reaches K4, and any other kernel input K1, which raises on masks.
-    ``dropout_p`` above 0 in training raises (not ported yet)."""
+    ``dropout_p`` in training is attention-prob dropout: in the kernel on
+    the kernel route (its seed drawn from the next key), :func:`dropout`
+    of the probabilities on the dense path."""
     b, sq, h, d = query.shape
     sk = key.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    if dropout_p > 0.0 and training:
-        raise NotImplementedError(
-            "attention-prob dropout is not ported yet (K1's and K4's "
-            "dropout option, ROADMAP Queue 1)")
+    dropout_p = dropout_p if training else 0.0
     kernel_route = _kernel_shapes(query, key) and key.shape[2] == h
     if segment_ids is not None:
         if attn_mask is not None:
@@ -157,7 +190,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         if kernel_route:
             return flash_attention_hopper(query, key, value,
                                           causal=is_causal, scale=scale,
-                                          segment_ids=seg)
+                                          segment_ids=seg, dropout=dropout_p)
         attn_mask = seg[:, None, :, None] == seg[:, None, None, :]
     key_mask = _as_key_mask(attn_mask, b, sq, sk) \
         if attn_mask is not None else None
@@ -171,8 +204,9 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
             query, key, value, causal=is_causal, scale=scale,
             segment_ids=None if seg_k is None else torch.ones(
                 (b, sq), dtype=torch.int32, device=query.device),
-            segment_ids_k=seg_k, key_bias=bias)
-    return _dense_attention(query, key, value, attn_mask, is_causal, scale)
+            segment_ids_k=seg_k, key_bias=bias, dropout=dropout_p)
+    return _dense_attention(query, key, value, attn_mask, is_causal, scale,
+                            dropout_p)
 
 
 # ---------------------------------------------------------------------------

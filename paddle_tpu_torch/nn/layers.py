@@ -10,8 +10,10 @@ Linear weights are in PyTorch's ``[out, in]`` layout;
 :mod:`paddle_tpu_torch.convert` transposes the JAX ``[in, out]`` matrices.
 Attention goes through :func:`~paddle_tpu_torch.nn.functional.
 scaled_dot_product_attention`, which routes it to the kernels as the JAX
-function does. Decoder caches (``cache``, ``gen_cache``) and dropout in
-training are not ported yet and raise.
+function does, attention-prob dropout included; hidden dropout
+(:class:`Dropout`) draws its masks from the key stream of
+:mod:`paddle_tpu_torch.core.random`. Decoder caches (``cache``,
+``gen_cache``) are not ported yet and raise.
 
 :class:`Conv2D` keeps its weight in OIHW ``[out, in/groups, kh, kw]`` as the
 JAX layer does (the weights copy across as they are); :class:`BatchNorm2D`
@@ -37,15 +39,16 @@ __all__ = ["Dropout", "MultiHeadAttention", "TransformerEncoderLayer",
 
 
 class Dropout(nn.Module):
-    """``paddle.nn.Dropout``: the identity at rate 0 or in eval mode; a
-    rate above 0 in training raises (:func:`~.functional.dropout`)."""
+    """``paddle.nn.Dropout`` (:func:`~.functional.dropout`): the mask from
+    the next key in training; in eval mode the identity, or ``x * (1 - p)``
+    in ``downscale_in_infer`` mode."""
 
-    def __init__(self, p: float = 0.5):
+    def __init__(self, p: float = 0.5, mode: str = "upscale_in_train"):
         super().__init__()
-        self.p = float(p)
+        self.p, self.mode = float(p), mode
 
     def forward(self, x):
-        return F.dropout(x, self.p, self.training)
+        return F.dropout(x, self.p, training=self.training, mode=self.mode)
 
 
 class MultiHeadAttention(nn.Module):

@@ -3,9 +3,9 @@
 Every ``csrc/*.cu`` file compiles to its own shared library with a plain C
 interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds). The libraries go to ``paddle_tpu_torch/_build/``, named by a hash
-of the source, the flags and the compiler, so an edited source rebuilds and
-an unchanged one is reused. All sources compile in parallel, one ``nvcc``
-each, started together.
+of the source, the shared headers (``csrc/*.cuh``), the flags and the
+compiler, so an edited source rebuilds and an unchanged one is reused. All
+sources compile in parallel, one ``nvcc`` each, started together.
 
 Nothing here runs when the package is imported: :func:`library` is called
 by a kernel wrapper the first time it launches on a CUDA tensor.
@@ -53,6 +53,8 @@ def nvcc_path() -> str:
 def _target(src: Path, nvcc: str) -> Path:
     h = hashlib.sha256()
     h.update(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # the sources' own includes
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     h.update(nvcc.encode())
     return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"

@@ -264,6 +264,17 @@ def _run(lib, fn, what: str, x, *args) -> None:
                            f"{err}) for x {tuple(x.shape)} {x.dtype}")
 
 
+def _stat_scratch(m: int, k: int, device):
+    """The f32 buffers of K5/K7's stats over ``m`` rows and ``k`` channels:
+    one partial ``(sum, sumsq)`` row per block, the reduction's pass
+    buffer, and the result ``[2k]``."""
+    blocks = -(-m // _FWD_ROWS)
+    return (torch.empty((blocks, 2 * k), dtype=torch.float32, device=device),
+            torch.empty((-(-blocks // _REDUCE_CHUNK), 2 * k),
+                        dtype=torch.float32, device=device),
+            torch.empty(2 * k, dtype=torch.float32, device=device))
+
+
 def _fwd_launch(lib, what, x, wt, scale, shift, act, stats, stride, pad,
                 out_hw):
     """K5 (``wt`` [1, C, K]) or K7 (``wt`` [9, C, K]) on x [N, H, W, C]."""
@@ -275,14 +286,8 @@ def _fwd_launch(lib, what, x, wt, scale, shift, act, stats, stride, pad,
                          f"{c} input channels")
     ho, wo = out_hw
     y = torch.empty((n, ho, wo, k), dtype=x.dtype, device=x.device)
-    partial = tmp = st = None
-    if stats:
-        blocks = -(-(n * ho * wo) // _FWD_ROWS)
-        partial = torch.empty((blocks, 2 * k), dtype=torch.float32,
-                              device=x.device)
-        tmp = torch.empty((-(-blocks // _REDUCE_CHUNK), 2 * k),
-                          dtype=torch.float32, device=x.device)
-        st = torch.empty(2 * k, dtype=torch.float32, device=x.device)
+    partial, tmp, st = _stat_scratch(n * ho * wo, k, x.device) if stats \
+        else (None, None, None)
     _run(lib, lib.paddle_conv_fwd, what, x, x.data_ptr(), wt.data_ptr(),
          _ptr(scale), _ptr(shift), y.data_ptr(), _ptr(partial), _ptr(tmp),
          _ptr(st), n, h, w, c, ho, wo, k, taps, stride, pad,

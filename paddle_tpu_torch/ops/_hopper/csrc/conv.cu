@@ -6,6 +6,8 @@
 //   K6 conv1x1_wgrad_kernel  <- _mm_wgrad_kernel (:221, _mm_wgrad at :254)
 //   K7 conv3x3_kernel        <- _c3_kernel (:311, _c3 at :364)
 //   K8 conv3x3_wgrad_kernel  <- _c3_wgrad_kernel (:401, _c3_wgrad at :441)
+// and, through paddle_fused_matmul_bn_fwd, K9 of fused_matmul_bn.py (its body
+// is K5's function on [M, Cin] rows; see that entry).
 //
 // What they compute. x is an NHWC activation [N, H, W, C]; a = act(x * scale
 // + shift) is the previous BatchNorm's apply (and ReLU) as a prologue, or x
@@ -1034,6 +1036,25 @@ extern "C" int paddle_conv_wgrad(const void* x, const void* dy,
                     static_cast<int>(L), static_cast<float*>(dw),
                     static_cast<float*>(tmp), st);
   return static_cast<int>(err);
+}
+
+// K9 (paddle_tpu/ops/_pallas/fused_matmul_bn.py:_fwd_kernel, :36, launched by
+// _fwd at :76): y = P(x) @ w [M, Cout] and the f32 (sum, sumsq) of the f32
+// product, for x [M, Cin] and w [Cin, Cout] (dense, one type). Its body
+// computes what K5's does one pixel per row (the prologue's rounding, the f32
+// product, y rounded, stats from the accumulator), so it runs conv1x1_kernel
+// on x as the 1x1 conv of a [1, 1, M, Cin] image: scale and shift null for
+// the prologue "none", relu = 1 for "scale_shift_relu". partial, tmp and stats
+// as paddle_conv_fwd takes them (M rows).
+extern "C" int paddle_fused_matmul_bn_fwd(const void* x, const void* w,
+                                          const void* scale, const void* shift,
+                                          void* y, void* partial, void* tmp,
+                                          void* stats, int M, int Cin,
+                                          int Cout, int relu, int want_stats,
+                                          int dtype, void* stream) {
+  return paddle_conv_fwd(x, w, scale, shift, y, partial, tmp, stats, 1, 1, M,
+                         Cin, 1, M, Cout, 1, 1, 0, relu, want_stats, dtype,
+                         stream);
 }
 
 extern "C" const char* paddle_cuda_error_string(int err) {

@@ -17,7 +17,11 @@
 //                              grouped-query group)
 // with the same conventions as K1: bottom-right causal masking (key j is kept
 // for query i when j <= i + Sk - Sq), grouped-query KV (query head h reads KV
-// head h / (H / HK)), any Sq and Sk (both ragged edges masked here).
+// head h / (H / HK)), any Sq and Sk (both ragged edges masked here). With
+// attention-prob dropout (dropout.cuh: the mask K1 drew, regenerated from the
+// query head b*H + h and the position) dp is scaled by keep before ds, and
+// dv takes p * keep (_bwd_dq_kernel :474-479, _bwd_dkv_kernel :566-569, with
+// K3's query head as query_bh :529-540 numbers it).
 //
 // Layout: q and dO [B, Sq, H, D], k and v [B, Sk, HK, D], read through their
 // batch, sequence and head strides (the last dimension dense), so the strided
@@ -59,6 +63,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "dropout.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;  // NEG_INF of the TPU kernels
@@ -82,6 +88,7 @@ struct FlashBwdParams {
   long long do_sb, do_ss, do_sh;
   float scale;
   int causal;
+  DropoutArgs drop;  // attention-prob dropout (dropout.cuh)
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -247,8 +254,10 @@ __global__ void __launch_bounds__(kThreadsDq)
         const bool ok =
             qi < p.Sq && kj < p.Sk && (!p.causal || kj <= qi + offset);
         const float pr = ok ? expf(s[i][j] * p.scale - lse_r[i]) : 0.f;
+        float dpv = dp[i][j];
+        if (p.drop.on && ok) dpv *= dropout_keep(p.drop, bh, p.Sq, p.Sk, qi, kj);
         sDS[(ty * RM + i) * LDS + tx + 8 * j] =
-            round_to<T>(pr * (dp[i][j] - delta_r[i]) * p.scale);
+            round_to<T>(pr * (dpv - delta_r[i]) * p.scale);
       }
     }
     __syncthreads();
@@ -392,9 +401,13 @@ __global__ void __launch_bounds__(kThreadsDkv)
           const bool ok =
               qi < p.Sq && kj < p.Sk && (!p.causal || kj <= qi + offset);
           const float pr = ok ? expf(s[i][j] * p.scale - sLse[qc]) : 0.f;
-          sP[(ty * RM + i) * LDP + qc] = round_to<T>(pr);
+          const float keep = p.drop.on && ok
+                                 ? dropout_keep(p.drop, b * p.H + h, p.Sq,
+                                                p.Sk, qi, kj)
+                                 : 1.f;
+          sP[(ty * RM + i) * LDP + qc] = round_to<T>(pr * keep);
           sDS[(ty * RM + i) * LDP + qc] =
-              round_to<T>(pr * (dp[i][j] - sDelta[qc]) * p.scale);
+              round_to<T>(pr * (dp[i][j] * keep - sDelta[qc]) * p.scale);
         }
       }
       __syncthreads();
@@ -542,11 +555,14 @@ extern "C" int paddle_flash_bwd_dq(
     int Sk, int D, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, long long do_sb, long long do_ss,
-    long long do_sh, float scale, int causal, int dtype, void* stream) {
+    long long do_sh, float scale, int causal, int dtype, int dropout,
+    unsigned drop_threshold, unsigned drop_seed, float drop_scale,
+    void* stream) {
   FlashBwdParams p = make_params(q, k, v, dout, lse, delta, B, H, HK, Sq, Sk,
                                  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
                                  v_ss, v_sh, do_sb, do_ss, do_sh, scale,
                                  causal);
+  p.drop = make_dropout(dropout, drop_threshold, drop_seed, drop_scale);
   p.dq = dq;
   return run<true>(p, D, dtype, stream);
 }
@@ -559,11 +575,13 @@ extern "C" int paddle_flash_bwd_dkv(
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long do_sb,
     long long do_ss, long long do_sh, float scale, int causal, int dtype,
-    void* stream) {
+    int dropout, unsigned drop_threshold, unsigned drop_seed,
+    float drop_scale, void* stream) {
   FlashBwdParams p = make_params(q, k, v, dout, lse, delta, B, H, HK, Sq, Sk,
                                  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
                                  v_ss, v_sh, do_sb, do_ss, do_sh, scale,
                                  causal);
+  p.drop = make_dropout(dropout, drop_threshold, drop_seed, drop_scale);
   p.dk = dk;
   p.dv = dv;
   return run<false>(p, D, dtype, stream);

@@ -8,7 +8,9 @@
 // grouped-query KV (query head h reads KV head h / (H / HK), never repeated;
 // _kv_index), and the masked-row convention of _fwd_kernel's _finish: a row
 // with no valid key keeps m = NEG_INF = -1e30 and l clamped at 1e-30, so it
-// gives o = 0 and lse = -1e30.
+// gives o = 0 and lse = -1e30. With attention-prob dropout (dropout.cuh, the
+// TPU kernel's position hash of (b*H + h, q, k)) the value product takes
+// p * keep while l sums the undropped p.
 //
 // Layout: q [B, Sq, H, D], k/v [B, Sk, HK, D], read through their batch,
 // sequence and head strides (the last dimension must be dense), so the caller
@@ -38,6 +40,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "dropout.cuh"
+
 namespace {
 
 constexpr int kBlockM = 64;   // query rows per block
@@ -57,6 +61,7 @@ struct FlashFwdParams {
   long long v_sb, v_ss, v_sh;
   float scale;
   int causal;
+  DropoutArgs drop;  // attention-prob dropout (dropout.cuh)
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -197,6 +202,14 @@ __global__ void __launch_bounds__(kThreads)
       m_i[i] = m_new;
 #pragma unroll
       for (int jj = 0; jj < DT; ++jj) acc[i][jj] *= alpha;
+      // dropout: l keeps the undropped p, the value product takes p * keep
+      // (_fwd_kernel :278-288)
+      if (p.drop.on) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (s[i][j] != 0.f)
+            s[i][j] *= dropout_keep(p.drop, bh, p.Sq, p.Sk, qi, k0 + tx + 8 * j);
+      }
 #pragma unroll
       for (int j = 0; j < 8; ++j) sP[(ty * 4 + i) * LDP + tx + 8 * j] = s[i][j];
     }
@@ -271,7 +284,10 @@ extern "C" int paddle_flash_fwd(const void* q, const void* k, const void* v,
                                 long long q_ss, long long q_sh, long long k_sb,
                                 long long k_ss, long long k_sh, long long v_sb,
                                 long long v_ss, long long v_sh, float scale,
-                                int causal, int dtype, void* stream) {
+                                int causal, int dtype, int dropout,
+                                unsigned drop_threshold, unsigned drop_seed,
+                                float drop_scale,
+                                void* stream) {
   FlashFwdParams p;
   p.q = q;
   p.k = k;
@@ -294,6 +310,7 @@ extern "C" int paddle_flash_fwd(const void* q, const void* k, const void* v,
   p.v_sh = v_sh;
   p.scale = scale;
   p.causal = causal;
+  p.drop = make_dropout(dropout, drop_threshold, drop_seed, drop_scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || H <= 0 || HK <= 0 || H % HK || Sq <= 0 || Sk < 0)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -17,7 +17,10 @@
 //   ds  = p * (dp - delta) * scale, rounded to the input type
 //   dq  = ds k,  dk = ds^T q,  dv = (p rounded to dO's type)^T dO
 // A row with no valid key gives o = 0, lse = -1e30 and dq = 0, and adds
-// nothing to dk/dv.
+// nothing to dk/dv. With attention-prob dropout (dropout.cuh: the hash of the
+// flat query head b*H + h, _flat_head :96-99, and the position) o takes
+// (p * keep rounded to the input type) v / l with l from the undropped p
+// (:186-196), and the backward dp * keep and (p * keep)^T dO (:490-496).
 //
 // The TPU packs G heads on its 128-lane axis to fill the vector registers;
 // that layout is not carried over. Layout here: q, dO [B, Sq, H, 64], k, v
@@ -65,6 +68,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "dropout.cuh"
+
 namespace {
 
 constexpr int kD = 64;              // head dim
@@ -98,6 +103,7 @@ struct PackedParams {
   long long do_sb, do_ss, do_sh;
   float scale;
   int causal;
+  DropoutArgs drop;    // attention-prob dropout (dropout.cuh)
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -268,7 +274,12 @@ __global__ void __launch_bounds__(kThreadsFwd)
       const float v = row[c];
       const float e = v > 0.5f * kNegInf ? expf(v - mx[i]) : 0.f;
       sum += e;
-      row[c] = round_to<T>(e);
+      // dropout: l sums the undropped p, the value product takes p * keep
+      const float pv = p.drop.on && e != 0.f
+                           ? e * dropout_keep(p.drop, bh, p.Sq, p.Sk,
+                                              q0 + ty * kRowsFwd + i, c)
+                           : e;
+      row[c] = round_to<T>(pv);
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
@@ -446,9 +457,12 @@ __global__ void __launch_bounds__(kThreadsBwd)
                                       sSegQ[qc], sSegK[kr], sBias[kr]);
           const float pr = qi < p.Sq && kj < p.Sk && sc > 0.5f * kNegInf
                                ? expf(sc - sLse[qc]) : 0.f;
-          sP[kr * kLd + qc] = round_to<T>(pr);
+          const float keep = p.drop.on && pr != 0.f
+                                 ? dropout_keep(p.drop, bh, p.Sq, p.Sk, qi, kj)
+                                 : 1.f;
+          sP[kr * kLd + qc] = round_to<T>(pr * keep);
           sDS[kr * kLd + qc] =
-              round_to<T>(pr * (dp[i][j] - sDelta[qc]) * p.scale);
+              round_to<T>(pr * (dp[i][j] * keep - sDelta[qc]) * p.scale);
         }
       }
       __syncthreads();
@@ -612,12 +626,14 @@ extern "C" int paddle_flash_packed_fwd(
     int HK, int Sq, int Sk, int D, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, float scale, int causal,
-    int dtype, void* stream) {
+    int dtype, int dropout, unsigned drop_threshold, unsigned drop_seed,
+    float drop_scale, void* stream) {
   if (bad_shape(B, H, HK, Sq, Sk, D, seg_q, seg_k))
     return static_cast<int>(cudaErrorInvalidValue);
   PackedParams p = make_params(q, k, v, seg_q, seg_k, bias, B, H, Sq, Sk,
                                q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
                                v_sh, scale, causal);
+  p.drop = make_dropout(dropout, drop_threshold, drop_seed, drop_scale);
   p.o = o;
   p.lse = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -637,12 +653,14 @@ extern "C" int paddle_flash_packed_bwd(
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long do_sb,
     long long do_ss, long long do_sh, float scale, int causal, int dtype,
-    void* stream) {
+    int dropout, unsigned drop_threshold, unsigned drop_seed,
+    float drop_scale, void* stream) {
   if (bad_shape(B, H, HK, Sq, Sk, D, seg_q, seg_k))
     return static_cast<int>(cudaErrorInvalidValue);
   PackedParams p = make_params(q, k, v, seg_q, seg_k, bias, B, H, Sq, Sk,
                                q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
                                v_sh, scale, causal);
+  p.drop = make_dropout(dropout, drop_threshold, drop_seed, drop_scale);
   p.dout = dout;
   p.lse = static_cast<float*>(const_cast<void*>(lse));
   p.delta = static_cast<const float*>(delta);

@@ -32,7 +32,11 @@
 //   dq  = ds k                                   (flash_packed_bwd_dq)
 //   dk  = ds^T q,  dv = (p rounded to dO's type)^T dO   (the dk/dv kernels)
 // A row with no valid key gives o = 0, lse = -1e30 and dq = 0, and adds
-// nothing to dk or dv. Key tiles wholly above the causal band are skipped
+// nothing to dk or dv. With attention-prob dropout (dropout.cuh: the hash of
+// the flat query head b*H + h and the position) the forward's value product
+// takes p * keep while l sums the undropped p (:140-150), and the backward
+// scales dp by keep and takes (p * keep)^T dO for dv (:334, :388-392,
+// :435-438). Key tiles wholly above the causal band are skipped
 // (_fwd_kernel's in_band, :118-119), and so are query tiles wholly below it.
 //
 // Layout: q, dO [B, Sq, H, 64] and k, v [B, Sk, H, 64], read through their
@@ -76,6 +80,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "dropout.cuh"
+
 namespace {
 
 constexpr int kD = 64;              // head dim
@@ -106,6 +112,7 @@ struct StreamParams {
   long long do_sb, do_ss, do_sh;
   float scale;
   int causal;
+  DropoutArgs drop;    // attention-prob dropout (dropout.cuh)
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -298,7 +305,12 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < 8; ++j) {
         const float e = s[i][j] > 0.5f * kNegInf ? expf(s[i][j] - m_new) : 0.f;
         sum += e;
-        sP[r * kLd + tx + 8 * j] = round_to<T>(e);
+        // dropout: l sums the undropped p, the value product takes p * keep
+        const float pv = p.drop.on && e != 0.f
+                             ? e * dropout_keep(p.drop, bh, p.Sq, p.Sk, q0 + r,
+                                                k0 + tx + 8 * j)
+                             : e;
+        sP[r * kLd + tx + 8 * j] = round_to<T>(pv);
       }
       l[i] = l[i] * alpha + row_sum8(sum);
       m[i] = m_new;
@@ -441,7 +453,11 @@ __global__ void __launch_bounds__(kThreads)
                              : kNegInf;
         const float pr = qi < p.Sq && sc > 0.5f * kNegInf
                              ? expf(sc - lse[i]) : 0.f;
-        sDS[r * kLd + c] = round_to<T>(pr * (dp[i][j] - delta[i]) * p.scale);
+        const float dpv = p.drop.on && pr != 0.f
+                              ? dp[i][j] * dropout_keep(p.drop, bh, p.Sq, p.Sk,
+                                                        qi, kj)
+                              : dp[i][j];
+        sDS[r * kLd + c] = round_to<T>(pr * (dpv - delta[i]) * p.scale);
       }
     }
     __syncthreads();  // every ds of the tile is written
@@ -600,9 +616,12 @@ __global__ void __launch_bounds__(kThreads)
                                     kbias[i]);
         const bool live = qi < p.Sq && kj < p.Sk && sc > 0.5f * kNegInf;
         const float pr = live ? expf(sc - sLse[si]) : 0.f;
-        sP[kr * kLd + qc] = round_to<T>(pr);
-        sDS[kr * kLd + qc] =
-            round_to<T>(live ? pr * (dp[i][j] - sDelta[si]) * p.scale : 0.f);
+        const float keep = p.drop.on && live
+                               ? dropout_keep(p.drop, bh, p.Sq, p.Sk, qi, kj)
+                               : 1.f;
+        sP[kr * kLd + qc] = round_to<T>(pr * keep);
+        sDS[kr * kLd + qc] = round_to<T>(
+            live ? pr * (dp[i][j] * keep - sDelta[si]) * p.scale : 0.f);
       }
     }
     __syncthreads();  // every p^T, ds^T of the tile is written
@@ -754,12 +773,14 @@ extern "C" int paddle_flash_packed_fwd_stream(
     int HK, int Sq, int Sk, int D, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, float scale, int causal,
-    int dtype, void* stream) {
+    int dtype, int dropout, unsigned drop_threshold, unsigned drop_seed,
+    float drop_scale, void* stream) {
   if (bad_shape(B, H, HK, Sq, Sk, D, seg_q, seg_k))
     return static_cast<int>(cudaErrorInvalidValue);
   StreamParams p = make_params(q, k, v, seg_q, seg_k, bias, B, H, Sq, Sk,
                                q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
                                v_sh, scale, causal);
+  p.drop = make_dropout(dropout, drop_threshold, drop_seed, drop_scale);
   p.o = o;
   p.lse = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -781,13 +802,15 @@ extern "C" int paddle_flash_packed_bwd_dq(
     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long do_sb, long long do_ss, long long do_sh,
-    float scale, int causal, int dtype, void* stream) {
+    float scale, int causal, int dtype, int dropout, unsigned drop_threshold,
+    unsigned drop_seed, float drop_scale, void* stream) {
   if (bad_shape(B, H, HK, Sq, Sk, D, seg_q, seg_k))
     return static_cast<int>(cudaErrorInvalidValue);
   StreamParams p = make_bwd_params(q, k, v, dout, lse, delta, seg_q, seg_k,
                                    bias, B, H, Sq, Sk, q_sb, q_ss, q_sh, k_sb,
                                    k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss,
                                    do_sh, scale, causal);
+  p.drop = make_dropout(dropout, drop_threshold, drop_seed, drop_scale);
   p.dq = dq;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
@@ -808,13 +831,15 @@ extern "C" int paddle_flash_packed_bwd_dkv(
     int D, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long do_sb, long long do_ss, long long do_sh,
-    float scale, int causal, int dtype, void* stream) {
+    float scale, int causal, int dtype, int dropout, unsigned drop_threshold,
+    unsigned drop_seed, float drop_scale, void* stream) {
   if (bad_shape(B, H, HK, Sq, Sk, D, seg_q, seg_k))
     return static_cast<int>(cudaErrorInvalidValue);
   StreamParams p = make_bwd_params(q, k, v, dout, lse, delta, seg_q, seg_k,
                                    bias, B, H, Sq, Sk, q_sb, q_ss, q_sh, k_sb,
                                    k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss,
                                    do_sh, scale, causal);
+  p.drop = make_dropout(dropout, drop_threshold, drop_seed, drop_scale);
   p.dk = dk;
   p.dv = dv;
   return launch_dkv<false>(p, dtype, static_cast<cudaStream_t>(stream));
@@ -828,13 +853,15 @@ extern "C" int paddle_flash_packed_bwd_dkv_direct(
     int D, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long do_sb, long long do_ss, long long do_sh,
-    float scale, int causal, int dtype, void* stream) {
+    float scale, int causal, int dtype, int dropout, unsigned drop_threshold,
+    unsigned drop_seed, float drop_scale, void* stream) {
   if (bad_shape(B, H, HK, Sq, Sk, D, seg_q, seg_k) || Sq > kMaxSqDirect)
     return static_cast<int>(cudaErrorInvalidValue);
   StreamParams p = make_bwd_params(q, k, v, dout, lse, delta, seg_q, seg_k,
                                    bias, B, H, Sq, Sk, q_sb, q_ss, q_sh, k_sb,
                                    k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss,
                                    do_sh, scale, causal);
+  p.drop = make_dropout(dropout, drop_threshold, drop_seed, drop_scale);
   p.dk = dk;
   p.dv = dv;
   return launch_dkv<true>(p, dtype, static_cast<cudaStream_t>(stream));

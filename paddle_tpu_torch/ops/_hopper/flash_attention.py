@@ -17,6 +17,16 @@ called through ``ctypes``.
   jnp outside its kernels; :func:`flash_bwd_dq` (K2) and
   :func:`flash_bwd_dkv` (K3) launch the kernels.
 
+Attention-prob dropout (``dropout=AttnDropout(rate, seed)``) is the TPU
+kernels' own: a murmur3 hash of the flat score index ``(b*H + h)*Sq*Sk +
+q*Sk + k`` (uint32, wrapping), xor the seed, drops a probability where it
+falls below ``keep_threshold(rate)``; a kept one is scaled by
+``keep_scale(rate)``. The softmax denominator uses the undropped p, the PV
+sum ``p * keep``; the backward applies ``keep`` to ``dp`` and ``p * keep``
+to dv, so forward and backward regenerate one mask from ``(position,
+seed)``. :func:`dropout_keep_dense` is the JAX function of that name in
+torch; the four ``.cu`` files share ``csrc/dropout.cuh``.
+
 On a CUDA tensor each wrapper launches its kernel, or raises on anything
 the kernel does not take (head dim outside {64, 128, 256}, a dtype other
 than float32 or bfloat16, a last dimension that is not dense); each launch
@@ -30,17 +40,126 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ...core import random as rng
+
 __all__ = ["flash_fwd", "flash_fwd_reference", "flash_bwd",
            "flash_bwd_reference", "flash_bwd_dq", "flash_bwd_dkv",
-           "kernel_arg_error", "NEG_INF", "SUPPORTED_HEAD_DIMS"]
+           "kernel_arg_error", "NEG_INF", "SUPPORTED_HEAD_DIMS",
+           "AttnDropout", "keep_threshold", "keep_scale",
+           "dropout_keep_dense"]
 
 NEG_INF = -1e30  # the TPU kernel's masked score, kept for its lse convention
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+# ---------------------------------------------------------------------------
+# Attention-prob dropout: the TPU kernels' position hash
+# (_pallas/flash_attention.py:125-168, flash_attention_packed.py:96-99)
+# ---------------------------------------------------------------------------
+
+class AttnDropout(NamedTuple):
+    """K1-K4's dropout option: ``rate`` and the int32 ``seed`` of the
+    hash."""
+    rate: float
+    seed: int
+
+
+_M32 = 0xFFFFFFFF
+
+
+def keep_threshold(rate: float) -> int:
+    """uint32 threshold, computed as JAX computes it: a hash below it
+    drops (P = rate)."""
+    return min(int(rate * 4294967296.0), 4294967295)
+
+
+def keep_scale(rate: float) -> float:
+    """The factor of a kept probability, ``float32(1 / (1 - rate))``."""
+    return torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32).item()
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x * c mod 2^32`` for int64 ``x`` in [0, 2^32): in 16-bit halves of
+    ``c``, so no product leaves int64."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3's finalizer on uint32 values held in int64."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def _keep_factor(bh, q_pos, k_pos, seq_q: int, seq_k: int, seed: int,
+                 rate: float) -> torch.Tensor:
+    """f32 keep factors of the scores at broadcastable int64 ``(bh, q_pos,
+    k_pos)``: 0 where dropped, ``keep_scale(rate)`` where kept. The flat
+    index wraps at 2^32 as ``jnp.uint32`` does, and the seed enters as the
+    bits of an int32."""
+    idx = ((((bh * seq_q + q_pos) & _M32) * seq_k + k_pos) & _M32)
+    keep = _mix32(idx ^ (int(seed) & _M32)) >= keep_threshold(rate)
+    return keep.to(torch.float32) * keep_scale(rate)
+
+
+def dropout_keep_dense(bh: int, sq: int, sk: int, seed: int, rate: float,
+                       device=None, first_head: int = 0) -> torch.Tensor:
+    """``[bh, sq, sk]`` f32 keep factors of head rows ``first_head ..
+    first_head + bh - 1``: JAX's ``dropout_keep_dense`` (``first_head = 0``),
+    built a few heads at a time so the int64 hash stays small."""
+    out = torch.empty((bh, sq, sk), dtype=torch.float32, device=device)
+    q_pos = torch.arange(sq, device=device)[None, :, None]
+    k_pos = torch.arange(sk, device=device)[None, None, :]
+    step = max(1, (1 << 24) // max(1, sq * sk))
+    for h0 in range(0, bh, step):
+        rows = torch.arange(first_head + h0, first_head + min(bh, h0 + step),
+                            device=device)[:, None, None]
+        out[h0:h0 + step] = _keep_factor(rows, q_pos, k_pos, sq, sk, seed,
+                                         rate)
+    return out
+
+
+def _keep(dropout: Optional[AttnDropout], b: int, h: int, sq: int, sk: int,
+          device, first_head: int = 0) -> Optional[torch.Tensor]:
+    """``[B, H, Sq, Sk]`` keep factors of ``dropout`` (None without), of
+    the flat heads from ``first_head`` on."""
+    if dropout is None:
+        return None
+    return dropout_keep_dense(b * h, sq, sk, dropout.seed, dropout.rate,
+                              device, first_head).reshape(b, h, sq, sk)
+
+
+def _dropout_args(dropout: Optional[AttnDropout]):
+    """The kernels' four dropout arguments: on, threshold, seed bits, keep
+    scale."""
+    if dropout is None:
+        return [0, 0, 0, 1.0]
+    return [1, keep_threshold(dropout.rate), int(dropout.seed) & _M32,
+            keep_scale(dropout.rate)]
+
+
+def as_dropout(rate: float, seed) -> Optional[AttnDropout]:
+    """``AttnDropout(rate, seed)``, or None at rate 0. ``seed`` None draws
+    one from the next key (``flash_attention_pallas``'s ``randint(next_key(),
+    ...)``); a tensor or array seed gives its one int32 value."""
+    if not rate > 0.0:
+        return None
+    if rate >= 1.0:
+        raise ValueError(f"attention dropout rate must be below 1; got "
+                         f"{rate}")
+    if seed is None:
+        seed = rng.draw_seed()
+    elif not isinstance(seed, int):
+        seed = int(torch.as_tensor(seed).reshape(-1)[0].item())
+    return AttnDropout(float(rate), int(seed))
 
 
 def _shapes(q, k, v):
@@ -81,14 +200,19 @@ def kernel_arg_error(q, k, v) -> Optional[str]:
 
 def flash_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = False,
-                        scale: Optional[float] = None
+                        scale: Optional[float] = None,
+                        dropout: Optional[AttnDropout] = None, *,
+                        first_head: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch K1: the same function as the kernel, in float32.
 
     Bottom-right causal, grouped-query KV by head reshape (no repeat),
     masked scores at ``NEG_INF`` and the kernel's masked-row convention
-    (o = 0, lse = NEG_INF + log(1e-30)). Returns ``(o [B, Sq, H, D]`` in
-    q's dtype, ``lse [B, H, Sq]`` float32)."""
+    (o = 0, lse = NEG_INF + log(1e-30)); with ``dropout`` the value
+    product takes ``p * keep`` and l the undropped p. ``first_head`` numbers
+    the heads' masks from a flat head past 0, as in a slice of a larger
+    batch (the kernels take whole batches, from 0). Returns ``(o [B, Sq,
+    H, D]`` in q's dtype, ``lse [B, H, Sq]`` float32)."""
     b, sq, sk, h, hk, d = _shapes(q, k, v)
     g = h // hk
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
@@ -103,6 +227,9 @@ def flash_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.full(s.shape[:-1] + (1,), NEG_INF, device=q.device)
     p = torch.where(s > NEG_INF / 2, torch.exp(s - m), torch.zeros_like(s))
     l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    keep = _keep(dropout, b, h, sq, sk, q.device, first_head)
+    if keep is not None:
+        p = p * keep.reshape(b, hk, g, sq, sk)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, vf) / \
         l.permute(0, 3, 1, 2, 4)
     lse = (m + torch.log(l))[..., 0].reshape(b, h, sq)
@@ -121,15 +248,19 @@ def _delta(o, do, dlse=None):
 def flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                         causal: bool = False, scale: Optional[float] = None,
-                        dlse: Optional[torch.Tensor] = None
+                        dlse: Optional[torch.Tensor] = None,
+                        dropout: Optional[AttnDropout] = None, *,
+                        first_head: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch K2 and K3: the gradients ``_bwd`` computes, in float32.
 
     Recomputes ``p = exp(s - lse)`` from K1's lse (0 where the score is
     masked, so a row with no valid key gives dq = 0 and adds nothing to
     dk/dv), and rounds at ``_bwd``'s points: ``ds`` to q's dtype before
-    the dq and dk products, ``p`` to do's dtype before the dv product.
-    Grouped-query dk/dv sum over each KV head's query heads. Returns
+    the dq and dk products, ``p`` (``p * keep`` with ``dropout``, which
+    also scales ``dp``) to do's dtype before the dv product.
+    Grouped-query dk/dv sum over each KV head's query heads. ``first_head``
+    as :func:`flash_fwd_reference` takes it. Returns
     ``(dq [B, Sq, H, D], dk [B, Sk, HK, D], dv [B, Sk, HK, D])`` in the
     input dtypes."""
     b, sq, sk, h, hk, d = _shapes(q, k, v)
@@ -146,18 +277,24 @@ def flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
     p = torch.exp(s - lse.float().reshape(b, hk, g, sq, 1)) * (s > NEG_INF / 2)
     dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
+    pv = p
+    keep = _keep(dropout, b, h, sq, sk, q.device, first_head)
+    if keep is not None:
+        keep = keep.reshape(b, hk, g, sq, sk)
+        pv, dp = p * keep, dp * keep
     ds = (p * (dp - delta) * scale).to(q.dtype).float()
     dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf).reshape(b, sq, h, d)
     dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf)
-    dv = torch.einsum("bkgqs,bqkgd->bskd", p.to(do.dtype).float(), dof)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", pv.to(do.dtype).float(), dof)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _kernel(stem: str, name: str, n_ptrs: int, n_strides: int):
     """The C entry ``name`` of ``csrc/<stem>.cu`` with its argtypes set:
     ``n_ptrs`` pointers, the six sizes, ``n_strides`` strides, scale,
-    causal, dtype and the stream. Without argtypes ctypes passes every int
-    as 32 bits and cuts the pointers."""
+    causal, dtype, the four dropout arguments (:func:`_dropout_args`) and
+    the stream. Without argtypes ctypes passes every int as 32 bits and
+    cuts the pointers."""
     from .build import library
     lib = library(stem)
     fn = getattr(lib, name)
@@ -165,7 +302,8 @@ def _kernel(stem: str, name: str, n_ptrs: int, n_strides: int):
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 +
                        [ctypes.c_longlong] * n_strides +
                        [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                        ctypes.c_void_p])
+                        ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
+                        ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.paddle_cuda_error_string.argtypes = [ctypes.c_int]
         lib.paddle_cuda_error_string.restype = ctypes.c_char_p
@@ -189,7 +327,8 @@ def _call(lib, fn, what: str, q, k, *args):
                            f"{q.dtype}, k {tuple(k.shape)}")
 
 
-def _launch(q, k, v, causal: bool, scale: float):
+def _launch(q, k, v, causal: bool, scale: float,
+            dropout: Optional[AttnDropout] = None):
     lib, fn = _kernel("flash_fwd", "paddle_flash_fwd", 5, 9)
     b, sq, sk, h, hk, d = _shapes(q, k, v)
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
@@ -199,15 +338,16 @@ def _launch(q, k, v, causal: bool, scale: float):
     _call(lib, fn, "flash_fwd", q, k, q.data_ptr(), k.data_ptr(),
           v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, hk, sq, sk, d,
           *_strides(q, k, v), float(scale), int(bool(causal)),
-          _DTYPE_CODE[q.dtype])
+          _DTYPE_CODE[q.dtype], *_dropout_args(dropout))
     flash_fwd.launches += 1
     return o, lse
 
 
-def _bwd_args(q, k, v, do, causal, scale):
+def _bwd_args(q, k, v, do, causal, scale, dropout):
     b, sq, sk, h, hk, d = _shapes(q, k, v)
     return ([b, h, hk, sq, sk, d] + _strides(q, k, v, do) +
-            [float(scale), int(bool(causal)), _DTYPE_CODE[q.dtype]])
+            [float(scale), int(bool(causal)), _DTYPE_CODE[q.dtype]] +
+            _dropout_args(dropout))
 
 
 def _require_kernel_inputs(q, k, v, do, lse, delta):
@@ -230,8 +370,8 @@ def _require_kernel_inputs(q, k, v, do, lse, delta):
                          f"{why}")
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float
-                 ) -> torch.Tensor:
+def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
+                 dropout: Optional[AttnDropout] = None) -> torch.Tensor:
     """K2 on CUDA tensors: ``dq [B, Sq, H, D]`` from q, k, v, do, K1's lse
     and ``delta`` (both dense ``[B, H, Sq]`` float32)."""
     _require_kernel_inputs(q, k, v, do, lse, delta)
@@ -239,12 +379,13 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _call(lib, fn, "flash_bwd_dq", q, k, q.data_ptr(), k.data_ptr(),
           v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-          dq.data_ptr(), *_bwd_args(q, k, v, do, causal, scale))
+          dq.data_ptr(), *_bwd_args(q, k, v, do, causal, scale, dropout))
     flash_bwd_dq.launches += 1
     return dq
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
+                  dropout: Optional[AttnDropout] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3 on CUDA tensors: ``(dk, dv)``, each ``[B, Sk, HK, D]``, summed
     over the query heads of each KV head's group."""
@@ -255,7 +396,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float
     _call(lib, fn, "flash_bwd_dkv", q, k, q.data_ptr(), k.data_ptr(),
           v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
           dk.data_ptr(), dv.data_ptr(),
-          *_bwd_args(q, k, v, do, causal, scale))
+          *_bwd_args(q, k, v, do, causal, scale, dropout))
     flash_bwd_dkv.launches += 1
     return dk, dv
 
@@ -274,12 +415,14 @@ def _bwd_arg_error(q, k, v, do) -> Optional[str]:
 def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
               causal: bool = False, scale: Optional[float] = None,
-              dlse: Optional[torch.Tensor] = None
+              dlse: Optional[torch.Tensor] = None,
+              dropout: Optional[AttnDropout] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1's backward: K2 and K3 for CUDA tensors, the plain version for CPU
-    tensors. ``o`` and ``lse`` are K1's outputs, ``do`` the cotangent of
-    ``o`` and ``dlse`` (optional) that of ``lse``. Returns ``(dq [B, Sq, H,
-    D], dk [B, Sk, HK, D], dv [B, Sk, HK, D])``."""
+    tensors. ``o`` and ``lse`` are K1's outputs (with the same
+    ``dropout``), ``do`` the cotangent of ``o`` and ``dlse`` (optional)
+    that of ``lse``. Returns ``(dq [B, Sq, H, D], dk [B, Sk, HK, D], dv
+    [B, Sk, HK, D])``."""
     b, sq, sk, h, hk, d = _shapes(q, k, v)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"o and do must have q's shape {tuple(q.shape)}; "
@@ -293,7 +436,8 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_bwd inputs on different devices: {devices}")
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     if q.device.type == "cpu":
-        return flash_bwd_reference(q, k, v, o, lse, do, causal, scale, dlse)
+        return flash_bwd_reference(q, k, v, o, lse, do, causal, scale, dlse,
+                                   dropout)
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd runs on CUDA or the CPU, not "
                          f"{q.device}")
@@ -301,20 +445,20 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     delta = _delta(o, do, dlse)
     lse = lse.float().contiguous()
-    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)
-    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, scale, dropout)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale, dropout)
     return dq, dk, dv
 
 
 class _FlashFwd(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
+    def forward(ctx, q, k, v, causal, scale, dropout):
         if q.device.type == "cpu":
-            o, lse = flash_fwd_reference(q, k, v, causal, scale)
+            o, lse = flash_fwd_reference(q, k, v, causal, scale, dropout)
         else:
-            o, lse = _launch(q, k, v, causal, scale)
+            o, lse = _launch(q, k, v, causal, scale, dropout)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.dropout = causal, scale, dropout
         ctx.mark_non_differentiable(lse)
         return o, lse
 
@@ -325,16 +469,19 @@ class _FlashFwd(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         if do.stride(-1) != 1:   # e.g. the expanded ones of out.sum()
             do = do.contiguous()
-        dq, dk, dv = flash_bwd(q, k, v, o, lse, do, ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do, ctx.causal, ctx.scale,
+                               dropout=ctx.dropout)
+        return dq, dk, dv, None, None, None
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal: bool = False, scale: Optional[float] = None
+              causal: bool = False, scale: Optional[float] = None,
+              dropout: Optional[AttnDropout] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 forward: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors. Returns ``(o [B, Sq, H, D], lse [B, H, Sq] float32)``;
-    gradients flow to q, k and v through :func:`flash_bwd`."""
+    gradients flow to q, k and v through :func:`flash_bwd`, with the same
+    ``dropout`` mask."""
     _shapes(q, k, v)
     devices = {q.device, k.device, v.device}
     if len(devices) != 1:
@@ -348,21 +495,23 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_fwd runs on CUDA or the CPU, not "
                          f"{q.device}")
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
-    return _FlashFwd.apply(q, k, v, bool(causal), scale)
+    return _FlashFwd.apply(q, k, v, bool(causal), scale, dropout)
 
 
 def flash_attention_hopper(query: torch.Tensor, key: torch.Tensor,
                            value: torch.Tensor, causal: bool = False,
                            scale: Optional[float] = None, segment_ids=None,
                            segment_ids_k=None, dropout: float = 0.0,
-                           key_bias=None) -> torch.Tensor:
+                           dropout_seed=None, key_bias=None) -> torch.Tensor:
     """``flash_attention_pallas``'s routing (``:909-926``), ``[B, S, H,
     D]``: with the flag ``flash_head_pack`` on (its default), a d=64 MHA
     input whose sequence lengths are multiples of 128 and whose
     ``pack_group(H)`` is non-zero goes to K4
     (:func:`~.flash_attention_packed.flash_attention_packed`); any other
-    input goes to K1, whose segment ids, key bias and dropout are not
-    ported, so asking for them there raises ``NotImplementedError``."""
+    input goes to K1. ``dropout`` is attention-prob dropout in the kernel,
+    seeded by ``dropout_seed`` (drawn from the next key when None, as
+    ``:969-973`` draws it). K1's segment ids and key bias are not ported:
+    asking for them on K1's route raises ``NotImplementedError``."""
     from ...core import flags
     from .flash_attention_packed import flash_attention_packed, pack_group
     b, sq, h, d = query.shape
@@ -372,13 +521,14 @@ def flash_attention_hopper(query: torch.Tensor, key: torch.Tensor,
         return flash_attention_packed(
             query, key, value, causal=causal, scale=scale,
             segment_ids=segment_ids, segment_ids_k=segment_ids_k,
-            dropout=dropout, key_bias=key_bias)
-    if segment_ids is not None or key_bias is not None or dropout > 0.0:
+            dropout=dropout, dropout_seed=dropout_seed, key_bias=key_bias)
+    if segment_ids is not None or key_bias is not None:
         raise NotImplementedError(
-            f"K1's segment ids, key bias and dropout are not ported yet "
-            f"(ROADMAP Queue 2); this input (d={d}, H={h}, HK={hk}, "
-            f"Sq={sq}, Sk={sk}) takes K1, not K4")
-    return flash_fwd(query, key, value, causal=causal, scale=scale)[0]
+            f"K1's segment ids and key bias are not ported yet (ROADMAP "
+            f"Queue 2); this input (d={d}, H={h}, HK={hk}, Sq={sq}, "
+            f"Sk={sk}) takes K1, not K4")
+    return flash_fwd(query, key, value, causal=causal, scale=scale,
+                     dropout=as_dropout(dropout, dropout_seed))[0]
 
 
 #: kernel launches since each count was last set to 0 (CUDA path only)

@@ -33,8 +33,15 @@ additive f32 key bias; ``p = exp(s - m) * (s > NEG_INF / 2)``.
 On a CUDA tensor each wrapper launches its kernel, or raises on anything
 the kernel does not take; each launch adds one to its ``launches``. On a
 CPU tensor its plain version (the same name with ``_reference``) runs
-instead. Nothing falls back from one to the other. Dropout is not ported
-yet and raises ``NotImplementedError``.
+instead. Nothing falls back from one to the other.
+
+Every form takes attention-prob dropout (``dropout=AttnDropout(rate,
+seed)``) as the TPU bodies apply it: the mask of the flat query head ``b*H
++ h`` (the row ``_flat_head`` gives a TPU packed head) and the absolute
+score position, the softmax denominator from the undropped p, ``p * keep``
+rounded to v's type in the value product, ``keep`` on dp in the backward
+and ``p * keep`` in dv. The plain versions' ``first_head`` numbers the
+masks from a flat head past 0, for a slice of a larger batch.
 """
 
 from __future__ import annotations
@@ -44,8 +51,10 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .flash_attention import (NEG_INF, _DTYPE_CODE, _bwd_arg_error, _call,
-                              _delta, _kernel, _strides, kernel_arg_error)
+from .flash_attention import (NEG_INF, _DTYPE_CODE, AttnDropout,
+                              _bwd_arg_error, _call, _delta, _dropout_args,
+                              _keep, _kernel, _strides, as_dropout,
+                              kernel_arg_error)
 
 __all__ = ["flash_attention_packed", "flash_packed_fwd",
            "flash_packed_fwd_reference", "flash_packed_bwd",
@@ -205,21 +214,28 @@ def _scores(q, k, causal, scale, masks) -> torch.Tensor:
     return s
 
 
+def _dropped(p, keep):
+    return p if keep is None else p * keep
+
+
 def flash_packed_fwd_reference(q, k, v, causal: bool = False,
                                scale: Optional[float] = None,
-                               masks: Masks = (None, None, None)
+                               masks: Masks = (None, None, None),
+                               dropout: Optional[AttnDropout] = None,
+                               *, first_head: int = 0
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch K4a-direct: the same function as the kernel, in
-    float32, with its rounding point (p rounded to v's dtype before the
-    value product, divided by l after). ``masks`` as :func:`_masks` gives
-    them. Returns ``(o [B, Sq, H, 64]`` in q's dtype, ``lse [B, H, Sq]``
-    float32)."""
-    _shapes(q, k, v)
+    float32, with its rounding point (p, or ``p * keep`` with ``dropout``,
+    rounded to v's dtype before the value product, divided by l after).
+    ``masks`` as :func:`_masks` gives them. Returns ``(o [B, Sq, H, 64]`` in
+    q's dtype, ``lse [B, H, Sq]`` float32)."""
+    b, sq, sk, h = _shapes(q, k, v)
     scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
     s = _scores(q, k, causal, scale, masks)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m) * (s > NEG_INF / 2)
     l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    p = _dropped(p, _keep(dropout, b, h, sq, sk, q.device, first_head))
     o = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), v.float()) / l
     lse = (m + torch.log(l))[..., 0]
     return o.transpose(1, 2).to(q.dtype), lse
@@ -227,24 +243,29 @@ def flash_packed_fwd_reference(q, k, v, causal: bool = False,
 
 def flash_packed_bwd_reference(q, k, v, o, lse, do, causal: bool = False,
                                scale: Optional[float] = None,
-                               masks: Masks = (None, None, None)
+                               masks: Masks = (None, None, None),
+                               dropout: Optional[AttnDropout] = None,
+                               *, first_head: int = 0
                                ) -> Tuple[torch.Tensor, torch.Tensor,
                                           torch.Tensor]:
     """Plain PyTorch K4b-fused: dq, dk and dv from one recompute of s and
     p, in float32, with ``_bwd_fused_kernel``'s rounding points (``ds`` to
     k's dtype before the dq and dk products, ``p`` to do's dtype before the
-    dv product). A row with no valid key gives dq = 0 and adds nothing to
+    dv product); with ``dropout``, dp and the dv product's p are scaled by
+    ``keep``. A row with no valid key gives dq = 0 and adds nothing to
     dk/dv. Returns the gradients in the input dtypes."""
-    _shapes(q, k, v)
+    b, sq, sk, h = _shapes(q, k, v)
     scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
     delta = _delta(o, do)[..., None]                        # [B, H, Sq, 1]
     s = _scores(q, k, causal, scale, masks)
     p = torch.exp(s - lse.float()[..., None]) * (s > NEG_INF / 2)
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    keep = _keep(dropout, b, h, sq, sk, q.device, first_head)
+    dp, pv = _dropped(dp, keep), _dropped(p, keep)
     ds = (p * (dp - delta) * scale).to(k.dtype).float()
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
-    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", pv.to(do.dtype).float(), do.float())
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -256,12 +277,15 @@ def _tiles(n: int):
 
 def flash_packed_fwd_stream_reference(q, k, v, causal: bool = False,
                                       scale: Optional[float] = None,
-                                      masks: Masks = (None, None, None)
+                                      masks: Masks = (None, None, None),
+                                      dropout: Optional[AttnDropout] = None,
+                                      *, first_head: int = 0
                                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch ``flash_packed_fwd_stream``: the online softmax of
     ``_fwd_kernel`` over the kernel's 64-key tiles in order, in float32,
     with its rounding point (p, taken against the running max, rounded to
-    v's dtype before the value product). The kernel skips key tiles above
+    v's dtype before the value product; ``p * keep`` with ``dropout``,
+    while l sums the undropped p). The kernel skips key tiles above
     a query tile's causal band; here every row walks every tile, which
     leaves m, l and acc exactly as they were (a masked score is NEG_INF: p
     = 0 and the rescale is exp(0)). Returns ``(o [B, Sq, H, 64]`` in q's
@@ -273,43 +297,52 @@ def flash_packed_fwd_stream_reference(q, k, v, causal: bool = False,
     m = torch.full((b, h, sq, 1), NEG_INF, device=q.device)
     l = torch.zeros((b, h, sq, 1), device=q.device)
     acc = torch.zeros((b, h, sq, HEAD_D), device=q.device)
+    keep = _keep(dropout, b, h, sq, sk, q.device, first_head)
     for t in _tiles(sk):
         st = s[..., t]
         m_new = torch.maximum(m, st.amax(dim=-1, keepdim=True))
         p = torch.exp(st - m_new) * (st > NEG_INF / 2)
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
+        pv = p if keep is None else p * keep[..., t]
         acc = acc * alpha + torch.einsum(
-            "bhqk,bkhd->bhqd", p.to(v.dtype).float(), vf[:, t])
+            "bhqk,bkhd->bhqd", pv.to(v.dtype).float(), vf[:, t])
         m = m_new
     l = torch.clamp(l, min=1e-30)
     lse = (m + torch.log(l))[..., 0]
     return (acc / l).transpose(1, 2).to(q.dtype), lse
 
 
-def _bwd_p_ds(q, k, v, do, lse, delta, causal, scale, masks):
-    """The backward's recompute, ``[B, H, Sq, Sk]`` f32: ``p = exp(s -
-    lse)`` (0 where masked) and ``ds = p (dp - delta) scale`` rounded to
-    the input dtype, as ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` round
-    it."""
+def _bwd_p_ds(q, k, v, do, lse, delta, causal, scale, masks, dropout,
+              first_head):
+    """The backward's recompute, ``[B, H, Sq, Sk]`` f32: the p of the dv
+    product (``p = exp(s - lse)``, 0 where masked, times ``keep`` with
+    ``dropout``) and ``ds = p (dp keep - delta) scale`` rounded to the
+    input dtype, as ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` round it."""
+    b, sq, sk, h = _shapes(q, k, v)
     s = _scores(q, k, causal, scale, masks)
     p = torch.exp(s - lse.float()[..., None]) * (s > NEG_INF / 2)
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    keep = _keep(dropout, b, h, sq, sk, q.device, first_head)
+    dp = _dropped(dp, keep)
     ds = (p * (dp - delta.float()[..., None]) * scale).to(q.dtype).float()
-    return p, ds
+    return _dropped(p, keep), ds
 
 
 def flash_packed_bwd_dq_reference(q, k, v, do, lse, delta,
                                   causal: bool = False,
                                   scale: Optional[float] = None,
-                                  masks: Masks = (None, None, None)
+                                  masks: Masks = (None, None, None),
+                                  dropout: Optional[AttnDropout] = None,
+                                  *, first_head: int = 0
                                   ) -> torch.Tensor:
     """Plain PyTorch ``flash_packed_bwd_dq``: ``dq = ds k`` summed over the
     kernel's 64-key tiles in order, in float32, from the forward's lse and
     ``delta`` (``[B, H, Sq]`` f32). Returns dq in q's dtype."""
     _shapes(q, k, v)
     scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
-    _, ds = _bwd_p_ds(q, k, v, do, lse, delta, causal, scale, masks)
+    _, ds = _bwd_p_ds(q, k, v, do, lse, delta, causal, scale, masks,
+                      dropout, first_head)
     kf = k.float()
     dq = torch.zeros(q.shape, device=q.device)
     for t in _tiles(k.shape[1]):
@@ -317,10 +350,12 @@ def flash_packed_bwd_dq_reference(q, k, v, do, lse, delta,
     return dq.to(q.dtype)
 
 
-def _dkv_reference(q, k, v, do, lse, delta, causal, scale, masks):
+def _dkv_reference(q, k, v, do, lse, delta, causal, scale, masks, dropout,
+                   first_head):
     _shapes(q, k, v)
     scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
-    p, ds = _bwd_p_ds(q, k, v, do, lse, delta, causal, scale, masks)
+    p, ds = _bwd_p_ds(q, k, v, do, lse, delta, causal, scale, masks,
+                      dropout, first_head)
     pr = p.to(do.dtype).float()
     qf, dof = q.float(), do.float()
     dk = torch.zeros(k.shape, device=q.device)
@@ -334,25 +369,28 @@ def _dkv_reference(q, k, v, do, lse, delta, causal, scale, masks):
 def flash_packed_bwd_dkv_reference(q, k, v, do, lse, delta,
                                    causal: bool = False,
                                    scale: Optional[float] = None,
-                                   masks: Masks = (None, None, None)
+                                   masks: Masks = (None, None, None),
+                                   dropout: Optional[AttnDropout] = None,
+                                   *, first_head: int = 0
                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch ``flash_packed_bwd_dkv``: ``dk = ds^T q`` and ``dv =
     (p rounded to do's dtype)^T do``, summed over the kernel's 64-query
     tiles in order, in float32. A row with no valid key adds nothing.
     Returns ``(dk, dv)`` in the input dtypes."""
-    return _dkv_reference(q, k, v, do, lse, delta, causal, scale, masks)
+    return _dkv_reference(q, k, v, do, lse, delta, causal, scale, masks,
+                          dropout, first_head)
 
 
-def flash_packed_bwd_dkv_direct_reference(q, k, v, do, lse, delta,
-                                          causal: bool = False,
-                                          scale: Optional[float] = None,
-                                          masks: Masks = (None, None, None)
-                                          ) -> Tuple[torch.Tensor,
-                                                     torch.Tensor]:
+def flash_packed_bwd_dkv_direct_reference(
+        q, k, v, do, lse, delta, causal: bool = False,
+        scale: Optional[float] = None, masks: Masks = (None, None, None),
+        dropout: Optional[AttnDropout] = None, *, first_head: int = 0
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch ``flash_packed_bwd_dkv_direct`` (``_bwd_dkv_kernel_
     direct``'s function, all queries in one tile): the same sums as
     :func:`flash_packed_bwd_dkv_reference`, in the same order."""
-    return _dkv_reference(q, k, v, do, lse, delta, causal, scale, masks)
+    return _dkv_reference(q, k, v, do, lse, delta, causal, scale, masks,
+                          dropout, first_head)
 
 
 def _kernel_arg_error(q, k, v, masks, do=None) -> Optional[str]:
@@ -410,7 +448,8 @@ def _mask_ptrs(masks):
     return [None if t is None else t.data_ptr() for t in masks]
 
 
-def _launch_fwd(q, k, v, causal: bool, scale: float, masks: Masks):
+def _launch_fwd(q, k, v, causal: bool, scale: float, masks: Masks,
+                dropout: Optional[AttnDropout] = None):
     """K4a-direct on CUDA tensors: ``(o, lse)``."""
     _require(q, k, v, masks, "flash_packed_fwd", max_sk=MAX_SEQ_K)
     lib, fn = _kernel("flash_packed", "paddle_flash_packed_fwd", 8, 9)
@@ -420,13 +459,13 @@ def _launch_fwd(q, k, v, causal: bool, scale: float, masks: Masks):
     _call(lib, fn, "flash_packed_fwd", q, k, q.data_ptr(), k.data_ptr(),
           v.data_ptr(), o.data_ptr(), lse.data_ptr(), *_mask_ptrs(masks),
           b, h, h, sq, sk, HEAD_D, *_strides(q, k, v), float(scale),
-          int(bool(causal)), _DTYPE_CODE[q.dtype])
+          int(bool(causal)), _DTYPE_CODE[q.dtype], *_dropout_args(dropout))
     flash_packed_fwd.launches += 1
     return o, lse
 
 
 def _launch_bwd(q, k, v, do, lse, delta, causal: bool, scale: float,
-                masks: Masks):
+                masks: Masks, dropout: Optional[AttnDropout] = None):
     """K4b-fused on CUDA tensors: ``(dq, dk, dv)`` in one launch from
     K4a's lse and ``delta`` (both dense ``[B, H, Sq]`` float32). dq sums
     over the key tiles in a float32 buffer in a fixed order (no atomics),
@@ -449,12 +488,13 @@ def _launch_bwd(q, k, v, do, lse, delta, causal: bool, scale: float,
           *_mask_ptrs(masks), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
           dq_acc.data_ptr(), b, h, h, sq, sk, HEAD_D,
           *_strides(q, k, v, do), float(scale), int(bool(causal)),
-          _DTYPE_CODE[q.dtype])
+          _DTYPE_CODE[q.dtype], *_dropout_args(dropout))
     flash_packed_bwd.launches += 1
     return dq, dk, dv
 
 
-def _launch_fwd_stream(q, k, v, causal: bool, scale: float, masks: Masks):
+def _launch_fwd_stream(q, k, v, causal: bool, scale: float, masks: Masks,
+                       dropout: Optional[AttnDropout] = None):
     """``flash_packed_fwd_stream`` on CUDA tensors: ``(o, lse)``."""
     _require(q, k, v, masks, "flash_packed_fwd_stream")
     lib, fn = _kernel("flash_packed_stream", "paddle_flash_packed_fwd_stream",
@@ -465,13 +505,15 @@ def _launch_fwd_stream(q, k, v, causal: bool, scale: float, masks: Masks):
     _call(lib, fn, "flash_packed_fwd_stream", q, k, q.data_ptr(),
           k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
           *_mask_ptrs(masks), b, h, h, sq, sk, HEAD_D, *_strides(q, k, v),
-          float(scale), int(bool(causal)), _DTYPE_CODE[q.dtype])
+          float(scale), int(bool(causal)), _DTYPE_CODE[q.dtype],
+          *_dropout_args(dropout))
     flash_packed_fwd_stream.launches += 1
     return o, lse
 
 
 def _launch_bwd_split(which: str, q, k, v, do, lse, delta, causal: bool,
-                      scale: float, masks: Masks):
+                      scale: float, masks: Masks,
+                      dropout: Optional[AttnDropout] = None):
     """One of the streamed backward kernels on CUDA tensors, from the
     forward's lse and ``delta`` (both dense ``[B, H, Sq]`` float32):
     ``"dq"`` -> dq, ``"dkv"`` or ``"dkv_direct"`` -> ``(dk, dv)``. Each
@@ -496,7 +538,7 @@ def _launch_bwd_split(which: str, q, k, v, do, lse, delta, causal: bool,
           do.data_ptr(), lse.data_ptr(), delta.data_ptr(), *_mask_ptrs(masks),
           *(t.data_ptr() for t in outs), b, h, h, sq, sk, HEAD_D,
           *_strides(q, k, v, do), float(scale), int(bool(causal)),
-          _DTYPE_CODE[q.dtype])
+          _DTYPE_CODE[q.dtype], *_dropout_args(dropout))
     {"dq": flash_packed_bwd_dq, "dkv": flash_packed_bwd_dkv,
      "dkv_direct": flash_packed_bwd_dkv_direct}[which].launches += 1
     return outs[0] if which == "dq" else tuple(outs)
@@ -516,7 +558,8 @@ def _same_device(*ts) -> torch.device:
 
 def flash_packed_fwd(q, k, v, causal: bool = False,
                      scale: Optional[float] = None,
-                     masks: Masks = (None, None, None)
+                     masks: Masks = (None, None, None),
+                     dropout: Optional[AttnDropout] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4a-direct: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors. Not differentiable itself (:func:`flash_attention_packed`
@@ -524,13 +567,15 @@ def flash_packed_fwd(q, k, v, causal: bool = False,
     dev = _same_device(q, k, v, *masks)
     scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
     if dev.type == "cpu":
-        return flash_packed_fwd_reference(q, k, v, causal, scale, masks)
-    return _launch_fwd(q, k, v, causal, scale, masks)
+        return flash_packed_fwd_reference(q, k, v, causal, scale, masks,
+                                          dropout)
+    return _launch_fwd(q, k, v, causal, scale, masks, dropout)
 
 
 def flash_packed_bwd(q, k, v, o, lse, do, causal: bool = False,
                      scale: Optional[float] = None,
-                     masks: Masks = (None, None, None)
+                     masks: Masks = (None, None, None),
+                     dropout: Optional[AttnDropout] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K4b-fused: the CUDA kernel for CUDA tensors (``delta`` computed
     here by a torch op, as ``_bwd`` does at ``:530-532``), the plain
@@ -544,14 +589,15 @@ def flash_packed_bwd(q, k, v, o, lse, do, causal: bool = False,
     scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
     if dev.type == "cpu":
         return flash_packed_bwd_reference(q, k, v, o, lse, do, causal,
-                                          scale, masks)
+                                          scale, masks, dropout)
     return _launch_bwd(q, k, v, do, lse.float().contiguous(), _delta(o, do),
-                       causal, scale, masks)
+                       causal, scale, masks, dropout)
 
 
 def flash_packed_fwd_stream(q, k, v, causal: bool = False,
                             scale: Optional[float] = None,
-                            masks: Masks = (None, None, None)
+                            masks: Masks = (None, None, None),
+                            dropout: Optional[AttnDropout] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The streamed forward (``_fwd_kernel``): the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors. Returns ``(o [B, Sq, H,
@@ -560,8 +606,8 @@ def flash_packed_fwd_stream(q, k, v, causal: bool = False,
     scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
     if dev.type == "cpu":
         return flash_packed_fwd_stream_reference(q, k, v, causal, scale,
-                                                 masks)
-    return _launch_fwd_stream(q, k, v, causal, scale, masks)
+                                                 masks, dropout)
+    return _launch_fwd_stream(q, k, v, causal, scale, masks, dropout)
 
 
 def _bwd_inputs(q, k, v, do, lse, delta, masks):
@@ -574,7 +620,9 @@ def _bwd_inputs(q, k, v, do, lse, delta, masks):
 
 def flash_packed_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
                         scale: Optional[float] = None,
-                        masks: Masks = (None, None, None)) -> torch.Tensor:
+                        masks: Masks = (None, None, None),
+                        dropout: Optional[AttnDropout] = None
+                        ) -> torch.Tensor:
     """The streamed dq (``_bwd_dq_kernel``) from the forward's ``lse`` and
     ``delta = rowsum(do * o)`` (``[B, H, Sq]`` float32): the CUDA kernel
     for CUDA tensors, the plain version for CPU tensors."""
@@ -582,14 +630,15 @@ def flash_packed_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
     scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
     if dev.type == "cpu":
         return flash_packed_bwd_dq_reference(q, k, v, do, lse, delta, causal,
-                                             scale, masks)
+                                             scale, masks, dropout)
     return _launch_bwd_split("dq", q, k, v, do, lse, delta, causal, scale,
-                             masks)
+                             masks, dropout)
 
 
 def flash_packed_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
                          scale: Optional[float] = None,
-                         masks: Masks = (None, None, None)
+                         masks: Masks = (None, None, None),
+                         dropout: Optional[AttnDropout] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The streamed dk/dv (``_bwd_dkv_kernel``), arguments as
     :func:`flash_packed_bwd_dq`. Returns ``(dk, dv)``."""
@@ -597,15 +646,16 @@ def flash_packed_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
     scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
     if dev.type == "cpu":
         return flash_packed_bwd_dkv_reference(q, k, v, do, lse, delta,
-                                              causal, scale, masks)
+                                              causal, scale, masks, dropout)
     return _launch_bwd_split("dkv", q, k, v, do, lse, delta, causal, scale,
-                             masks)
+                             masks, dropout)
 
 
 def flash_packed_bwd_dkv_direct(q, k, v, do, lse, delta,
                                 causal: bool = False,
                                 scale: Optional[float] = None,
-                                masks: Masks = (None, None, None)
+                                masks: Masks = (None, None, None),
+                                dropout: Optional[AttnDropout] = None
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dk/dv with all the queries in one tile (``_bwd_dkv_kernel_direct``;
     the kernel takes Sq <= 512), arguments as :func:`flash_packed_bwd_dq`.
@@ -614,22 +664,25 @@ def flash_packed_bwd_dkv_direct(q, k, v, do, lse, delta,
     scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
     if dev.type == "cpu":
         return flash_packed_bwd_dkv_direct_reference(q, k, v, do, lse, delta,
-                                                     causal, scale, masks)
+                                                     causal, scale, masks,
+                                                     dropout)
     return _launch_bwd_split("dkv_direct", q, k, v, do, lse, delta, causal,
-                             scale, masks)
+                             scale, masks, dropout)
 
 
 class _FlashPacked(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, seg_q, seg_k, bias, causal, scale, forms):
+    def forward(ctx, q, k, v, seg_q, seg_k, bias, causal, scale, forms,
+                dropout):
         masks = (seg_q, seg_k, bias)
         fwd = flash_packed_fwd if forms.fwd == "direct" else \
             flash_packed_fwd_stream
-        o, lse = fwd(q, k, v, causal, scale, masks)
+        o, lse = fwd(q, k, v, causal, scale, masks, dropout)
         ctx.save_for_backward(q, k, v, o, lse, *(
             torch.empty(0) if t is None else t for t in masks))
         ctx.has_mask = tuple(t is not None for t in masks)
         ctx.causal, ctx.scale, ctx.forms = causal, scale, forms
+        ctx.dropout = dropout   # the seed and rate regenerate the mask
         return o
 
     @staticmethod
@@ -639,20 +692,20 @@ class _FlashPacked(torch.autograd.Function):
                       for t, has in zip(saved, ctx.has_mask))
         if do.stride(-1) != 1:   # e.g. the expanded ones of out.sum()
             do = do.contiguous()
-        forms = ctx.forms
+        forms, drop = ctx.forms, ctx.dropout
         if forms.bwd == "fused":
             dq, dk, dv = flash_packed_bwd(q, k, v, o, lse, do, ctx.causal,
-                                          ctx.scale, masks)
+                                          ctx.scale, masks, drop)
         else:
             # delta stays a torch op, as _bwd computes it (:531-533)
             delta, lse = _delta(o, do), lse.float().contiguous()
             dq = flash_packed_bwd_dq(q, k, v, do, lse, delta, ctx.causal,
-                                     ctx.scale, masks)
+                                     ctx.scale, masks, drop)
             dkv = flash_packed_bwd_dkv_direct if forms.dkv == "direct" \
                 else flash_packed_bwd_dkv
             dk, dv = dkv(q, k, v, do, lse, delta, ctx.causal, ctx.scale,
-                         masks)
-        return dq, dk, dv, None, None, None, None, None, None
+                         masks, drop)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def flash_attention_packed(query, key, value, causal: bool = False,
@@ -660,7 +713,7 @@ def flash_attention_packed(query, key, value, causal: bool = False,
                            block_q: Optional[int] = None,
                            block_k: Optional[int] = None, segment_ids=None,
                            segment_ids_k=None, dropout: float = 0.0,
-                           key_bias=None) -> torch.Tensor:
+                           dropout_seed=None, key_bias=None) -> torch.Tensor:
     """``[B, S, H, 64]`` flash attention through the K4 forms that JAX's
     ``flash_attention_packed`` runs for the same input (:func:`plan`):
     K4a-direct and K4b-fused when all the keys fit one of its tiles, else
@@ -670,18 +723,17 @@ def flash_attention_packed(query, key, value, causal: bool = False,
     on d=64 MHA shapes; the JAX package routes those here when
     ``pack_group(H)`` is non-zero. ``segment_ids`` ``[B, Sq]`` (and
     ``segment_ids_k`` ``[B, Sk]``) keep attention within equal ids;
-    ``key_bias`` ``[B, Sk]`` is added to every query's scores."""
+    ``key_bias`` ``[B, Sk]`` is added to every query's scores. ``dropout``
+    is attention-prob dropout in the kernels, seeded by ``dropout_seed``
+    (an int32; drawn from the next key when None, as ``:792-796`` draws
+    it)."""
     b, sq, sk, h = _shapes(query, key, value)
     forms = plan(sq, sk, h, block_q, block_k)
-    if dropout > 0.0:
-        raise NotImplementedError(
-            "attention-prob dropout in K4 (the murmur3 mask with "
-            "_flat_head numbering) is not ported yet (ROADMAP Queue 1)")
     scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
     masks = _masks(b, sq, sk, query.device, segment_ids, segment_ids_k,
                    key_bias)
     return _FlashPacked.apply(query, key, value, *masks, bool(causal), scale,
-                              forms)
+                              forms, as_dropout(dropout, dropout_seed))
 
 
 #: kernel launches since each count was last set to 0 (CUDA path only)

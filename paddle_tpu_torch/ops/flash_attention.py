@@ -7,7 +7,8 @@ Port of ``paddle_tpu/ops/flash_attention.py``:
   match and whose lengths are multiples of 128, K1 otherwise
   (``_hopper/flash_attention``), the CUDA kernels for CUDA tensors and
   their plain versions for CPU tensors. Attention-prob dropout in training
-  is not ported yet and raises;
+  runs in the kernels on a CUDA tensor and in their plain versions, with
+  the same position-hashed mask, on a CPU tensor;
 - :func:`reference_attention` and :func:`single_query_attention` are the
   plain tensor code of the reference (the serving decode step uses the
   second, as the JAX engine does).
@@ -24,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from ..core import random as rng
 from ._hopper.flash_attention import flash_attention_hopper
 
 __all__ = ["flash_attention", "reference_attention",
@@ -91,15 +93,23 @@ def single_query_attention(q, k, v, lengths=None,
 
 def flash_attention(query, key, value, dropout: float = 0.0,
                     causal: bool = False, *, scale: Optional[float] = None,
-                    training: bool = True):
+                    training: bool = True, fixed_seed_offset=None):
     """``paddle.nn.functional.flash_attention`` ([B, S, H, D]) through
     :func:`~._hopper.flash_attention.flash_attention_hopper`, as the JAX
     function goes through ``flash_attention_pallas``: K4 or K1 (the kernel
     on a CUDA tensor, which raises on inputs it does not take, never
-    falling back; the plain version on a CPU tensor)."""
-    if dropout > 0.0 and training:
-        raise NotImplementedError(
-            "attention-prob dropout is not ported yet (K1's and K4's "
-            "dropout option)")
+    falling back; the plain version on a CPU tensor).
+
+    ``dropout`` is attention-prob dropout in training, in the kernel: the
+    mask is regenerated in the backward from (position, seed).
+    ``fixed_seed_offset`` pins the int32 seed; otherwise it is drawn from
+    the next key. The JAX function's dense mirror of the mask, which it
+    takes off the TPU, is the kernels' plain version here."""
+    if not (dropout > 0.0 and training):
+        return flash_attention_hopper(query, key, value, causal=causal,
+                                      scale=scale)
+    seed = rng.draw_seed() if fixed_seed_offset is None else \
+        fixed_seed_offset
     return flash_attention_hopper(query, key, value, causal=causal,
-                                  scale=scale)
+                                  scale=scale, dropout=dropout,
+                                  dropout_seed=seed)

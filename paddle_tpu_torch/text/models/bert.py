@@ -11,9 +11,11 @@ Attention runs through ``nn.functional.scaled_dot_product_attention``: at
 head dim 64 and sequence lengths that are multiples of 128 that is K4 on
 the GPU (forward ``flash_packed_fwd``, backward ``flash_packed_bwd``), with
 ``attention_mask`` as an additive key bias and ``packed_segment_ids`` as
-segment ids. Dropout in training is not ported yet: a config with a
-non-zero dropout raises in training mode (BERT's defaults are 0.1; pass
-``hidden_dropout=0, attention_dropout=0`` to train, as bench.py does).
+segment ids. BERT trains at its published dropout (0.1, the defaults):
+attention dropout in the kernels (the mask hashed from the position and a
+seed drawn from the key stream), hidden dropout from ``torch.Generator``
+masks keyed the same way; ``hidden_dropout=0, attention_dropout=0`` trains
+as bench.py does.
 """
 
 from __future__ import annotations

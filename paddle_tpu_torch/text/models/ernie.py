@@ -17,9 +17,11 @@ head dim 64 and sequence lengths that are multiples of 128 that is K4 on the
 GPU, in the form the JAX package runs for the shape (K4a-direct and
 K4b-fused up to 512 keys at 12 heads; the streamed forward, dq and dk/dv at
 ERNIE's own 2048-token context), with ``attention_mask`` as an additive key
-bias. Dropout in training is not ported yet: a config with a non-zero
-dropout raises in training mode (ERNIE's defaults are 0.1; pass
-``hidden_dropout=0, attention_dropout=0`` to train, as bench.py does).
+bias. ERNIE trains at its published dropout (0.1, the defaults): attention
+dropout in the kernels (the mask hashed from the position and a seed drawn
+from the key stream), hidden dropout from ``torch.Generator`` masks keyed
+the same way; ``hidden_dropout=0, attention_dropout=0`` trains as bench.py
+does.
 """
 
 from __future__ import annotations

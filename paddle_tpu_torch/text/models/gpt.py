@@ -6,9 +6,11 @@ for one (``gpt.h.0.attn.qkv_proj.weight``, …). Weights are in PyTorch's
 ``[out, in]`` layout; :mod:`paddle_tpu_torch.convert` transposes the JAX
 ``[in, out]`` matrices. Attention in ``forward`` goes through
 :func:`~paddle_tpu_torch.ops.flash_attention` (K1 forward, K2/K3 backward
-on the GPU); ``decode``/``generate`` use a dense KV cache and plain
-attention. ``forward(ids, labels)`` returns the training loss. Dropout,
-activation recompute and sampling in ``generate`` are not ported yet.
+on the GPU, attention-prob dropout in the kernels); ``decode``/``generate``
+use a dense KV cache and plain attention. ``forward(ids, labels)`` returns
+the training loss. Hidden dropout sits where the JAX model has it (after
+the embeddings, the attention output and the MLP). Activation recompute and
+sampling in ``generate`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from torch import nn
 
 from ...core.device import resolve_device
 from ...nn.functional import cross_entropy
+from ...nn.layers import Dropout
 from ...ops import flash_attention
 
 __all__ = ["GPTConfig", "GPT", "GPTForCausalLM", "gpt3_1p3b", "gpt_tiny"]
@@ -39,8 +42,8 @@ class GPTConfig:
     num_kv_heads: Optional[int] = None
     max_position_embeddings: int = 2048
     intermediate_size: Optional[int] = None  # default 4*hidden
-    # training options of the JAX model, at its defaults; other values
-    # raise in training mode until dropout and recompute are ported
+    # training options of the JAX model, at its defaults; recompute raises
+    # in training mode until it is ported
     hidden_dropout: float = 0.0
     attention_dropout: float = 0.0
     layer_norm_epsilon: float = 1e-5
@@ -74,15 +77,12 @@ KVCache = Tuple[torch.Tensor, torch.Tensor]
 
 
 def _check_training_options(cfg: GPTConfig) -> None:
-    """Dropout and recompute are not ported: a config asking for them
-    raises in training mode rather than training without them."""
-    asked = [f"{name}={getattr(cfg, name)}" for name in
-             ("hidden_dropout", "attention_dropout", "recompute")
-             if getattr(cfg, name)]
-    if asked:
+    """Activation recompute is not ported: a config asking for it raises
+    in training mode rather than training without it."""
+    if cfg.recompute:
         raise NotImplementedError(
-            f"GPT training with {', '.join(asked)} is not ported yet "
-            f"(ROADMAP.md, Queue 1: what the training slice left out)")
+            "GPT training with recompute=True is not ported yet "
+            "(ROADMAP.md, Queue 1: what the training slice left out)")
 
 
 class GPTAttention(nn.Module):
@@ -104,6 +104,7 @@ class GPTAttention(nn.Module):
             self.kv_proj = nn.Linear(h, 2 * self.kv_heads * self.head_dim,
                                      **factory)
         self.out_proj = nn.Linear(h, h, **factory)
+        self.dropout = Dropout(cfg.hidden_dropout)
 
     def _project_qkv(self, x):
         """-> q [b,s,H,D], k/v [b,s,KH,D]: strided views of the projection,
@@ -127,8 +128,11 @@ class GPTAttention(nn.Module):
     def forward(self, x):
         b, s, h = x.shape
         q, k, v = self._project_qkv(x)
-        out = flash_attention(q, k, v, causal=True, training=self.training)
-        return self.out_proj(out.reshape(b, s, h))
+        # flash handles grouped KV natively and attention-prob dropout in
+        # the kernel (JAX gpt.py:184-187)
+        out = flash_attention(q, k, v, dropout=self.cfg.attention_dropout,
+                              causal=True, training=self.training)
+        return self.dropout(self.out_proj(out.reshape(b, s, h)))
 
     def decode(self, x, cache: KVCache, offset: int):
         """Incremental attention over a dense KV cache.
@@ -160,9 +164,11 @@ class GPTMLP(nn.Module):
         super().__init__()
         self.up = nn.Linear(cfg.hidden_size, cfg.ffn_size, **factory)
         self.down = nn.Linear(cfg.ffn_size, cfg.hidden_size, **factory)
+        self.dropout = Dropout(cfg.hidden_dropout)
 
     def forward(self, x):
-        return self.down(F.gelu(self.up(x), approximate="tanh"))
+        return self.dropout(self.down(F.gelu(self.up(x),
+                                             approximate="tanh")))
 
 
 class GPTBlock(nn.Module):
@@ -193,6 +199,7 @@ class GPT(nn.Module):
         self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **factory)
         self.wpe = nn.Embedding(cfg.max_position_embeddings, cfg.hidden_size,
                                 **factory)
+        self.drop = Dropout(cfg.hidden_dropout)
         self.h = nn.ModuleList([GPTBlock(cfg, **factory)
                                 for _ in range(cfg.num_layers)])
         self.ln_f = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_epsilon,
@@ -203,7 +210,7 @@ class GPT(nn.Module):
             _check_training_options(self.cfg)
         s = input_ids.shape[1]
         pos = torch.arange(s, device=input_ids.device)[None, :]
-        x = self.wte(input_ids) + self.wpe(pos)
+        x = self.drop(self.wte(input_ids) + self.wpe(pos))
         for block in self.h:
             x = block(x)
         return self.ln_f(x)

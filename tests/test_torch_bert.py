@@ -279,16 +279,20 @@ def test_mlm_bias_is_a_trained_parameter_as_in_jax():
 
 
 def test_bert_dropout_raises_in_training_and_is_a_no_op_in_eval():
-    """BERT's default dropout (0.1) is not ported: training raises, eval
+    """BERT's default dropout (0.1) is ported now: training runs and moves
+    the logits (``tests/test_torch_dropout.py`` holds it against JAX), eval
     mode gives the dropout-free model's logits exactly."""
     paddle.seed(8)
     cfg = bert_tiny(num_heads=2)
     assert cfg.hidden_dropout == 0.1 and cfg.attention_dropout == 0.1
     tm = BertForPretraining(cfg, device="cpu")
     ids = torch.from_numpy(bert_batch("dense")[0][0])
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tm(ids)
+    with torch.no_grad():
+        trained = tm(ids)[0]
+    assert torch.isfinite(trained).all()
     tm.eval()
+    with torch.no_grad():
+        assert not torch.equal(trained, tm(ids)[0])
     plain = BertForPretraining(bert_tiny(**TINY), device="cpu")
     plain.load_state_dict(tm.state_dict(), strict=True)
     with torch.no_grad():

@@ -323,17 +323,24 @@ def test_pipeline_train_step_matches_jax(precision):
 # -- what is not ported -------------------------------------------------------
 
 def test_ernie_dropout_raises_in_training():
-    """ERNIE's default dropout (0.1) is not ported: training raises, in
-    both forms."""
+    """ERNIE's default dropout (0.1) is ported now: both forms train, and
+    the dropout moves their outputs off eval mode's
+    (``tests/test_torch_dropout.py`` holds it against JAX)."""
     cfg = ternie.ernie_tiny(num_heads=2)
     assert cfg.hidden_dropout == 0.1 and cfg.attention_dropout == 0.1
     ids = _t(batch()[0]).long()
-    with pytest.raises(NotImplementedError, match="dropout"):
-        ternie.ErnieForPretraining(cfg, device="cpu")(ids)
-    tp = PipelineLayer(ternie.ernie_pipeline_descs(cfg, device="cpu"),
-                       num_stages=1, loss_fn=port_loss_fn)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tp(ids)
+    for model in (ternie.ErnieForPretraining(cfg, device="cpu"),
+                  PipelineLayer(ternie.ernie_pipeline_descs(cfg,
+                                                            device="cpu"),
+                                num_stages=1, loss_fn=port_loss_fn)):
+        with torch.no_grad():
+            out = model(ids)
+            out = out[0] if isinstance(out, tuple) else out
+            assert torch.isfinite(out).all()
+            model.eval()
+            ev = model(ids)
+            assert not torch.equal(out, ev[0] if isinstance(ev, tuple)
+                                   else ev)
 
 
 def test_pipeline_degree_above_one_raises():

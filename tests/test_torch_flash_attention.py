@@ -155,14 +155,21 @@ def test_flash_attention_on_cpu_runs_plain_version_without_launching():
 def test_flash_attention_backward_raises_and_dropout_not_ported():
     """The backward runs (K2/K3, here their plain version: gradients in
     ``tests/test_torch_flash_backward.py``); attention-prob dropout in
-    training is still not ported and raises."""
+    training is ported now (``tests/test_torch_dropout.py``): it changes
+    the output, its gradients are finite, and eval mode ignores it."""
     q, k, v = (torch.from_numpy(x).requires_grad_()
                for x in _inputs(1, 16, 16, 2, 2, 64))
     out = tfa.flash_attention(q, k, v, causal=True, training=False)
     out.sum().backward()
     assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tfa.flash_attention(q, k, v, dropout=0.1, training=True)
+    assert torch.equal(out, tfa.flash_attention(q, k, v, dropout=0.1,
+                                                causal=True, training=False))
+    dropped = tfa.flash_attention(q, k, v, dropout=0.5, causal=True,
+                                  training=True, fixed_seed_offset=3)
+    assert not torch.equal(dropped, out)
+    q.grad = k.grad = v.grad = None
+    dropped.sum().backward()
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
 
 
 def test_kernel_arg_checks():

@@ -263,8 +263,8 @@ def test_k4_wrappers_refuse_what_the_kernels_do_not_take():
     kv640 = z(1, 640, 2, 64)
     assert hfp.plan(128, 640, 2) == ("stream", "dq", "direct")
     assert hfp.flash_attention_packed(q64, kv640, kv640).shape == q64.shape
-    with pytest.raises(NotImplementedError, match="dropout"):
-        hfp.flash_attention_packed(q64, q64, q64, dropout=0.1)
+    with pytest.raises(ValueError, match="rate must be below 1"):
+        hfp.flash_attention_packed(q64, q64, q64, dropout=1.0)
     with pytest.raises(ValueError, match="segment_ids_k required"):
         hfp.flash_attention_packed(q64, z(1, 256, 2, 64), z(1, 256, 2, 64),
                                    segment_ids=z(1, 128, dtype=torch.int32))
@@ -414,12 +414,15 @@ def test_sdpa_d128_with_a_key_mask_raises_on_the_kernel_route():
 
 
 def test_sdpa_dropout_raises_in_training_and_is_a_no_op_in_eval():
+    """Attention dropout is ported now (``tests/test_torch_dropout.py``):
+    in training it changes the output; in eval mode it is a no-op."""
     q, k, v = (torch.from_numpy(x) for x in _sdpa_inputs())
-    with pytest.raises(NotImplementedError, match="dropout"):
-        TF.scaled_dot_product_attention(q, k, v, dropout_p=0.1)
+    plain = TF.scaled_dot_product_attention(q, k, v)
+    assert not torch.equal(
+        TF.scaled_dot_product_attention(q, k, v, dropout_p=0.1), plain)
     got = TF.scaled_dot_product_attention(q, k, v, dropout_p=0.1,
                                           training=False)
-    assert torch.equal(got, TF.scaled_dot_product_attention(q, k, v))
+    assert torch.equal(got, plain)
 
 
 def test_as_key_mask_matches_jax():

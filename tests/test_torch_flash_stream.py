@@ -487,13 +487,14 @@ def test_cross_attention_layer_matches_jax_with_grads(sk, forms):
 
 
 def test_streamed_forms_refuse_what_they_do_not_take():
-    """Dropout still raises; the kernel launchers take CUDA tensors only
-    (checked before a pointer reaches a kernel, with no fall back to the
-    plain version); dk/dv-direct's kernel takes at most 512 queries."""
+    """A dropout rate of 1 raises (a kept probability would be scaled by
+    1/0); the kernel launchers take CUDA tensors only (checked before a
+    pointer reaches a kernel, with no fall back to the plain version);
+    dk/dv-direct's kernel takes at most 512 queries."""
     z = torch.zeros
     q, kv = z(1, 128, 2, 64), z(1, 640, 2, 64)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        hfp.flash_attention_packed(q, kv, kv, dropout=0.1)
+    with pytest.raises(ValueError, match="rate must be below 1"):
+        hfp.flash_attention_packed(q, kv, kv, dropout=1.0)
     lse = z(1, 2, 128)
     with pytest.raises(ValueError, match="CUDA tensors"):
         hfp._launch_fwd_stream(q, kv, kv, False, 0.125, (None, None, None))
