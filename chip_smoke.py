@@ -19,10 +19,19 @@ context:
            path's shapes and the edge cases, and timed at S=2048;
 4. kernel_bwd  K2 and K3 (flash_bwd) against flash_bwd_reference in the
            same cases, and timed at the training shape (B=4, S=2048);
-5. kernel_packed  K4a (flash_packed_fwd) and K4b (flash_packed_bwd)
-           against their plain versions with and without masks, and at
-           BERT-base's shape (B=64, S=512, H=12) with bench.py's padding
-           bias, where they are timed;
+   kernel_masked  K1, K2 and K3 with segment ids and the key bias at GPT-3
+           1.3B's attention shape (B=4, S=2048, H=16, D=128, bf16; 16 and 4
+           KV heads): a key-padding mask as bool segments and as the f32
+           key bias, and causal packed documents, each against the plain
+           versions, then timed with and without the masks; then
+           nn.MultiHeadAttention(2048, 16) with a key-padding mask, forward
+           and backward (K1, K2, K3 once each), against the dense path;
+5. kernel_packed  K4a-direct (flash_packed_fwd: its bf16 tensor-core body
+           flash_packed_fwd_tc, flash_packed_tc.cu, and its float32 body,
+           flash_packed.cu) and K4b (flash_packed_bwd) against their plain
+           versions with and without masks, and at BERT-base's shape (B=64,
+           S=512, H=12) with bench.py's padding bias, where they are timed
+           (the float32 body on the same inputs in float32);
 6. kernel_packed_stream  K4's streamed forms (flash_packed_stream.cu:
            forward, dq, dk/dv, dk/dv-direct) against their plain versions
            in 17 cases (f32 and bf16, masks, causal with Sq != Sk, Sk = 640,
@@ -55,7 +64,8 @@ context:
            padded batch, through K4a and K4b;
 13. train_bert_bf16  the BERT slice: 12 layers, AMP-O2 AdamW, B=64 x
            S=512 in bench.py's dense, padded and packed forms; every step
-           runs K4a and K4b once per layer and no K1-K3;
+           runs K4a-direct's tensor-core body and K4b once per layer, and no
+           K1-K3 and no float32 K4a body;
 14. train_grad_f32_resnet  one forward and backward of ResNet-50 in f32 at
            B=2 x 224² with both conv flags on, through K5-K8 on the card and
            their plain versions on the CPU: loss, logits, BN buffers and
@@ -339,18 +349,21 @@ def phase_kernel(torch, hfa, peaks):
 
 # -- phase 4 -----------------------------------------------------------------
 
-def compare_bwd(torch, hfa, case, q, k, v, do, causal, worst, dropout=None):
+def compare_bwd(torch, hfa, case, q, k, v, do, causal, worst, dropout=None,
+                masks=(None, None, None)):
     """K1 then K2/K3 (``flash_bwd``) against the plain version on the same
     inputs and the same o and lse (with ``dropout``, the same rate and
-    seed): one row of errors, beside the largest and the median |value| of
-    each plain gradient. Raises on a mismatch."""
+    seed; with ``masks``, the same segment ids and key bias): one row of
+    errors, beside the largest and the median |value| of each plain
+    gradient. Raises on a mismatch."""
     name, b, sq, sk, h, hk, d, dt = case
-    o, lse = hfa.flash_fwd(q, k, v, causal=causal, dropout=dropout)
+    o, lse = hfa.flash_fwd(q, k, v, causal=causal, dropout=dropout,
+                           masks=masks)
     grads = hfa.flash_bwd(q, k, v, o, lse, do, causal=causal,
-                          dropout=dropout)
+                          dropout=dropout, masks=masks)
     torch.cuda.synchronize()
     refs = hfa.flash_bwd_reference(q, k, v, o, lse, do, causal=causal,
-                                   dropout=dropout)
+                                   dropout=dropout, masks=masks)
     torch.cuda.synchronize()
     row = {"case": name, "shape": [b, sq, sk, h, hk, d], "causal": causal,
            "dtype": dt, "dropout": None if dropout is None else
@@ -463,6 +476,151 @@ def phase_kernel_bwd(torch, hfa, peaks):
           "library": "scaled_dot_product_attention backward (dq, dk, dv in "
                      "one call; the time of the pair)"})
     return worst, timing
+
+
+# -- kernel_masked: K1-K3 with segment ids and the key bias -------------------
+
+def masked_sets(torch, np, b, s):
+    """The three mask sets of the masked phase, at B x S: a key-padding
+    mask (lengths from seed 0 in [S/2, S]) as bool segments (seg_q = 1,
+    seg_k = valid, as SDPA turns a bool key mask into them) and as the f32
+    key bias ((1 - valid) * -1e9), and causal packed documents (64 to 2048
+    tokens from seed 0, filling each row; the last one cut at S)."""
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(s // 2, s + 1, b)
+    valid = np.arange(s)[None, :] < lengths[:, None]
+    ones = torch.ones(b, s, dtype=torch.int32, device="cuda")
+    seg_k = torch.as_tensor(valid.astype(np.int32), device="cuda")
+    bias = torch.as_tensor((1.0 - valid) * -1e9, dtype=torch.float32,
+                           device="cuda")
+    docs = np.zeros((b, s), np.int32)
+    for row in range(b):
+        pos, doc = 0, 0
+        while pos < s:
+            n = int(rng.integers(64, 2049))
+            docs[row, pos:pos + n] = doc
+            pos, doc = pos + n, doc + 1
+    docs = torch.as_tensor(docs, device="cuda")
+    return {"key_padding_segments": (False, (ones, seg_k, None)),
+            "key_padding_bias": (False, (None, None, bias)),
+            "causal_packed_segments": (True, (docs, docs, None))}, \
+        [int(x) for x in lengths]
+
+
+def phase_kernel_masked(torch, np, hfa, hfp, MultiHeadAttention, PF):
+    """K1, K2 and K3 with segment ids and the key bias at GPT-3 1.3B's
+    attention shape (B=4, S=2048, H=16, D=128, bf16), with 16 and with 4 KV
+    heads, in the three mask sets of :func:`masked_sets`: each kernel
+    against its plain version (o within 1e-2 + 1e-2·|ref|, lse within 1e-2
+    of 1 + |lse|, the gradients as the unmasked phase holds them); then the
+    three kernels timed with and without the masks; then
+    ``nn.MultiHeadAttention(2048, 16)`` in bf16 with a key-padding mask,
+    forward and backward, which must launch K1, K2 and K3 once each and
+    agree with the dense path through the same projections."""
+    b, s, h, d = 4, 2048, 16, 128
+    sets, lengths = masked_sets(torch, np, b, s)
+    worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    rows = []
+    for hk in (16, 4):
+        q, k, v = k1_inputs(torch, b, s, s, h, hk, d, torch.bfloat16,
+                            seed=1300 + hk)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(1400 + hk)
+        do = torch.randn(b, s, h, d, generator=g, device="cuda").to(
+            torch.bfloat16)
+        for mname, (causal, masks) in sets.items():
+            row, o, lse = compare_bwd(
+                torch, hfa, (f"{mname}_hk{hk}", b, s, s, h, hk, d, "bf16"),
+                q, k, v, do, causal, worst, masks=masks)
+            ro, rlse = hfa.flash_fwd_reference(q, k, v, causal, masks=masks)
+            worst["flash_fwd"] = max(worst["flash_fwd"], compare(
+                torch, "o", o, ro, "bf16", row))
+            err_lse = (lse - rlse).abs()
+            row["max_abs_err_lse"] = float(err_lse.max())
+            row["ok"] &= bool((err_lse <= 1e-2 * (1 + rlse.abs())).all())
+            row["masks"] = [t is not None for t in masks]
+            check(row["ok"], f"K1-K3 with masks disagree: {row}")
+            rows.append(row)
+            del o, lse, ro, rlse, err_lse
+        del q, k, v, do
+        torch.cuda.empty_cache()
+
+    # timed with and without the masks, on one set of inputs (HK = 16)
+    q, k, v = k1_inputs(torch, b, s, s, h, h, d, torch.bfloat16, seed=1316)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1416)
+    do = torch.randn(b, s, h, d, generator=g, device="cuda").to(
+        torch.bfloat16)
+    scale = 1.0 / math.sqrt(d)
+    none = (None, None, None)
+    timing = {}
+    for mname, (causal, masks) in (("none", (False, none)),
+                                   *sets.items(),
+                                   ("causal_none", (True, none))):
+        o, lse = hfa.flash_fwd(q, k, v, causal, masks=masks)
+        delta = hfa._delta(o, do)
+        timing[mname] = {
+            "causal": causal,
+            "flash_fwd": median_ms(lambda: hfa.flash_fwd(
+                q, k, v, causal, masks=masks), iters=5),
+            "flash_bwd_dq": median_ms(lambda: hfa.flash_bwd_dq(
+                q, k, v, do, lse, delta, causal, scale, masks=masks),
+                iters=5),
+            "flash_bwd_dkv": median_ms(lambda: hfa.flash_bwd_dkv(
+                q, k, v, do, lse, delta, causal, scale, masks=masks),
+                iters=5)}
+        del o, lse, delta
+    del q, k, v, do
+    torch.cuda.empty_cache()
+
+    # the layer with a key-padding mask: the SDPA route to K1-K3
+    e = h * d
+    torch.manual_seed(0)
+    mha = MultiHeadAttention(e, h, device="cuda").to(torch.bfloat16)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(22)
+    x = torch.randn(b, s, e, generator=g, device="cuda").to(torch.bfloat16)
+    dout = torch.randn(b, s, e, generator=g, device="cuda").to(torch.bfloat16)
+    valid = sets["key_padding_segments"][1][1].bool()
+    att = valid[:, None, None, :]
+    x.requires_grad_()
+    params = list(mha.parameters())
+    names = ["x"] + [n for n, _ in mha.named_parameters()]
+    zero_counts(hfa, hfp)
+    out = mha(x, x, x, attn_mask=att)
+    got = dict(zip(names, torch.autograd.grad(out, [x] + params, dout)))
+    torch.cuda.synchronize()
+    launches = k4_counts(hfa, hfp)
+    check(launches == {**{n: 0 for n in ATTENTION_KERNELS}, "flash_fwd": 1,
+                       "flash_bwd_dq": 1, "flash_bwd_dkv": 1},
+          f"kernel_masked: the layer's launches {launches}")
+    qp = mha.q_proj(x).view(b, s, h, d)
+    kp = mha.k_proj(x).view(b, s, h, d)
+    vp = mha.v_proj(x).view(b, s, h, d)
+    attn = PF._dense_attention(qp, kp, vp, att, False, scale)
+    ref_out = mha.out_proj(attn.reshape(b, s, e))
+    ref = dict(zip(names, torch.autograd.grad(ref_out, [x] + params, dout)))
+    errs = {"out": float((out - ref_out).detach().float().norm() /
+                         ref_out.detach().float().norm())}
+    for name, gt in got.items():
+        check(bool(torch.isfinite(gt).all()), f"kernel_masked: {name}")
+        r = ref["k_proj.weight" if name == "k_proj.bias" else name].float()
+        errs[name] = float((gt.float() - ref[name].float()).norm() /
+                           max(float(r.norm()), 1e-30))
+    layer = {"layer": f"MultiHeadAttention({e}, {h})", "dtype": "bf16",
+             "batch": [b, s], "key_lengths": lengths,
+             "rel_err_2norm": errs, "launches": launches}
+    emit({"phase": "kernel_masked", "shape": [b, s, s, h, d],
+          "kv_heads": [16, 4], "key_lengths": lengths, "cases": rows,
+          "timing_ms": timing, "layer": layer,
+          "kernels": ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"]})
+    # bf16 on both sides; the kernels round nothing before the value
+    # product, the dense path rounds the softmax first
+    check(max(errs.values()) <= 2e-2, f"kernel_masked layer disagrees: "
+          f"{layer}")
+    del mha, x, dout, out, got, qp, kp, vp, attn, ref_out, ref
+    torch.cuda.empty_cache()
+    return worst, timing, launches
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -580,8 +738,8 @@ def k4_case(torch, hfp, case, q, k, v, do, masks, worst, dropout=None):
     row = {"case": name, "shape": [b, sq, sk, h, 64], "causal": causal,
            "dtype": dt, "masks": [t is not None for t in masks],
            "dropout": None if dropout is None else list(dropout)}
-    worst["flash_packed_fwd"] = max(worst["flash_packed_fwd"], compare(
-        torch, "o", o, ro, dt, row))
+    fwd = "flash_packed_fwd_tc" if dt == "bf16" else "flash_packed_fwd"
+    worst[fwd] = max(worst[fwd], compare(torch, "o", o, ro, dt, row))
     err_lse = (lse - rlse).abs()
     row["max_abs_err_lse"] = float(err_lse.max())
     row["ok"] &= bool((err_lse <= (1e-2 if dt == "bf16" else 1e-5) *
@@ -607,13 +765,15 @@ def bert_padded(np, batch, seq):
 
 
 def phase_kernel_packed(torch, np, hfp, peaks):
-    """K4a (flash_packed_fwd) and K4b (flash_packed_bwd) against their
-    plain versions in every case and at BERT-base's shape with bench.py's
-    padded key bias, then both kernels, the plain versions and the library
-    call timed at that shape."""
+    """K4a (flash_packed_fwd: its bf16 tensor-core body and its float32
+    CUDA-core body) and K4b (flash_packed_bwd) against their plain versions
+    in every case and at BERT-base's shape with bench.py's padded key bias,
+    then the kernels, the plain versions and the library call timed at that
+    shape (the float32 body on the same inputs in float32)."""
     import torch.nn.functional as F
     results = []
-    worst = {"flash_packed_fwd": 0.0, "flash_packed_bwd": 0.0}
+    worst = {"flash_packed_fwd": 0.0, "flash_packed_fwd_tc": 0.0,
+             "flash_packed_bwd": 0.0}
     for i, (name, b, sq, sk, h, causal, dt, mask) in enumerate(K4_CASES):
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
         q, k, v, do, masks = k4_inputs(torch, b, sq, sk, h, dtype, mask,
@@ -653,26 +813,50 @@ def phase_kernel_packed(torch, np, hfp, peaks):
     dot = do.transpose(1, 2)
     lib_bwd_ms = median_ms(lambda: torch.autograd.grad(
         ot, (qt, kt, vt), dot, retain_graph=True))
+    del ot, qt, kt, vt
+    # K4a-direct's float32 body, on the same inputs in float32
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    o32, _ = hfp.flash_packed_fwd(q32, k32, v32, False, None, masks)
+    ro32, _ = hfp.flash_packed_fwd_reference(q32, k32, v32, False, None,
+                                             masks)
+    row32 = {"case": "bert_b64_s512_padded_f32_fwd"}
+    worst["flash_packed_fwd"] = max(worst["flash_packed_fwd"], compare(
+        torch, "o", o32, ro32, "f32", row32))
+    check(row32["ok"], f"K4a-direct's f32 body disagrees: {row32}")
+    results.append(row32)
+    del o32, ro32
+    fwd32_ms = median_ms(lambda: hfp.flash_packed_fwd(q32, k32, v32, False,
+                                                      None, masks), iters=5)
+    plain32_ms = median_ms(lambda: hfp.flash_packed_fwd_reference(
+        q32, k32, v32, False, None, masks), iters=5, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q32, k32, v32))
+    lib32_ms = median_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=masks[2][:, None, None, :]))
+    del q32, k32, v32, qt, kt, vt
     pairs = s * s
     elems = b * s * h * d                        # one [B, S, H, D] tensor
     stat = b * h * s * 4                         # one [B, H, S] f32 tensor
     timing = {}
-    for kname, ms, plain, lib, flops, nbytes in (
-            ("flash_packed_fwd", fwd_ms, plain_fwd_ms, lib_fwd_ms,
-             4 * d * pairs * b * h, 4 * elems * 2 + stat),
+    for kname, ms, plain, lib, flops, nbytes, dt in (
+            ("flash_packed_fwd_tc", fwd_ms, plain_fwd_ms, lib_fwd_ms,
+             4 * d * pairs * b * h, 4 * elems * 2 + stat, "bf16"),
+            ("flash_packed_fwd", fwd32_ms, plain32_ms, lib32_ms,
+             4 * d * pairs * b * h, 4 * elems * 4 + stat, "f32"),
             ("flash_packed_bwd", bwd_ms, plain_bwd_ms, lib_bwd_ms,
-             10 * d * pairs * b * h, 7 * elems * 2 + 2 * stat)):
-        t_ops = flops / peaks["bf16"] * 1e3
+             10 * d * pairs * b * h, 7 * elems * 2 + 2 * stat, "bf16")):
+        # float32 products run on the CUDA cores: the f32 peak bounds them
+        t_ops = flops / peaks[dt] * 1e3
         t_bytes = nbytes / peaks["bytes"] * 1e3
         timing[kname] = {
-            "shape": [b, s, s, h, d], "dtype": "bf16", "causal": False,
+            "shape": [b, s, s, h, d], "dtype": dt, "causal": False,
             "mask": "key bias (bench.py's padded batch)",
             "kernel_ms": ms, "plain_ms": plain, "library_ms": lib,
             "flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "peak_sheet": peaks["sheet"], "tflops": flops / ms / 1e9}
     emit({"phase": "kernel_packed",
-          "kernels": ["flash_packed_fwd", "flash_packed_bwd"],
+          "kernels": ["flash_packed_fwd_tc", "flash_packed_fwd",
+                      "flash_packed_bwd"],
           "cases": results, "timing": timing,
           "library": "scaled_dot_product_attention in [B, H, S, D] with "
                      "attn_mask = bias[:, None, None, :] (bf16); backward "
@@ -908,7 +1092,9 @@ def mask_probe(torch, hfa, hfp, family, seed):
     the identity and delta = 0 the backward kernels give dq[q, j] = ds[q, j]
     = p·dp·keep·scale and dv[k, q] = (p·keep)[q, k]. Each kernel's zeros
     must be exactly the zeros of ``dropout_keep_dense`` (p > 0 and dp != 0
-    at every score). Returns {kernel: dropped scores seen}."""
+    at every score). K4a-direct's bf16 tensor-core body takes the same
+    probe in bf16: its o is (p·keep rounded to bf16) / l, 0 exactly where
+    keep is. Returns {kernel: dropped scores seen}."""
     b, s, h = 1, 64, 4
     d = 128 if family == "k1" else 64
     dr = hfa.AttnDropout(DROP_RATE, seed)
@@ -928,8 +1114,11 @@ def mask_probe(torch, hfa, hfp, family, seed):
                "flash_bwd_dkv": lambda: (None, hfa.flash_bwd_dkv(
                    q, eye, v, eye, zeros, zeros, False, scale, dr)[1])}
     elif family == "k4":
+        qb, eyeb = q.bfloat16(), eye.bfloat16()
         fwd = {"flash_packed_fwd": lambda: hfp.flash_packed_fwd(
-            q, q, eye, dropout=dr)}
+            q, q, eye, dropout=dr),
+               "flash_packed_fwd_tc": lambda: hfp.flash_packed_fwd(
+                   qb, qb, eyeb, dropout=dr)}
         bwd = {"flash_packed_bwd": lambda: hfp._launch_bwd(
             q, eye, v, eye, zeros, zeros, False, scale, (None,) * 3,
             dr)[0::2]}
@@ -945,8 +1134,13 @@ def mask_probe(torch, hfa, hfp, family, seed):
                    None, hfp.flash_packed_bwd_dkv_direct(*args)[1])}
     seen = {}
     for name, run in fwd.items():
+        before = hfp.flash_packed_fwd_tc.launches
         o, lse = run()
-        ol = o.permute(0, 2, 1, 3)[..., :s] * torch.exp(lse)[..., None]
+        check(hfp.flash_packed_fwd_tc.launches - before ==
+              (name == "flash_packed_fwd_tc"),
+              f"{name}: the probe ran the other K4a-direct body")
+        ol = o.float().permute(0, 2, 1, 3)[..., :s] * \
+            torch.exp(lse)[..., None]
         check(bool(torch.equal(ol == 0, keep0)),
               f"{name}: the dropped probabilities are not the mask's")
         seen[name] = int(keep0.sum())
@@ -1100,7 +1294,8 @@ def dropout_k4(torch, np, hfa, hfp, timing):
     padding bias: compared, then timed beside rate 0), and B = 1368 x 12
     heads at S=512, whose flat score index passes 2^32, compared on its
     last batch."""
-    worst = {"flash_packed_fwd": 0.0, "flash_packed_bwd": 0.0}
+    worst = {"flash_packed_fwd": 0.0, "flash_packed_fwd_tc": 0.0,
+             "flash_packed_bwd": 0.0}
     rows = []
     for i, (name, b, sq, sk, h, causal, dt, mask) in enumerate(
             K4_DROP_CASES):
@@ -1129,7 +1324,7 @@ def dropout_k4(torch, np, hfa, hfp, timing):
     delta = hfp._delta(o, do)
     scale = 1.0 / math.sqrt(d)
     timed = {
-        "flash_packed_fwd": rate_times(
+        "flash_packed_fwd_tc": rate_times(
             lambda: hfp.flash_packed_fwd(q, k, v, False, None, masks),
             lambda: hfp.flash_packed_fwd(q, k, v, False, None, masks, dr)),
         "flash_packed_bwd": rate_times(
@@ -1780,7 +1975,8 @@ def phase_train_bf16(torch, np, hfa, peaks, GPTForCausalLM, gpt3_1p3b,
 # -- phases 12 and 13 --------------------------------------------------------
 
 ATTENTION_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                     "flash_packed_fwd", "flash_packed_bwd") + STREAM_KERNELS
+                     "flash_packed_fwd", "flash_packed_fwd_tc",
+                     "flash_packed_bwd") + STREAM_KERNELS
 
 
 def k4_counts(hfa, hfp):
@@ -1867,6 +2063,7 @@ def phase_train_grad_f32_bert(torch, np, hfa, hfp, BertForPretraining,
     check(loss_err <= 1e-4, f"{phase}: loss differs: {row}")
     check(worst_ratio <= 1e-3, f"{phase}: gradients differ: {row}")
     del gpu, cpu
+    return launches
 
 
 def bert_batches(np, batch, seq, vocab):
@@ -1987,12 +2184,13 @@ def phase_train_bert_bf16(torch, np, hfa, hfp, peaks, BertForPretraining,
         emit(row)
         check(all(math.isfinite(x) for x in losses), f"non-finite: {row}")
         check(losses[-1] < losses[0], f"the loss did not decrease: {row}")
-        for name in ("flash_packed_fwd", "flash_packed_bwd"):
+        for name in ("flash_packed_fwd_tc", "flash_packed_bwd"):
             check(launches[name] == L * n_steps,
                   f"{form}: {name} launched {launches[name]} times in "
                   f"{n_steps} steps of {L} layers")
-        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") + \
-                STREAM_KERNELS:
+        # bf16 never reaches K4a-direct's float32 body
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                     "flash_packed_fwd") + STREAM_KERNELS:
             check(launches[name] == 0,
                   f"{form}: {name} launched {launches[name]} times")
         out[form] = row
@@ -2596,7 +2794,7 @@ def timed_steps(torch, run, warmup, timed):
 
 ERNIE_FORMS = (
     # form, max positions, batch, seq, warm-up, timed, attention forms
-    ("bench_s512", 512, 64, 512, 2, 8, ("flash_packed_fwd",
+    ("bench_s512", 512, 64, 512, 2, 8, ("flash_packed_fwd_tc",
                                         "flash_packed_bwd")),
     ("long_s2048", 2048, 16, 2048, 2, 8, ("flash_packed_fwd_stream",
                                           "flash_packed_bwd_dq",
@@ -2842,7 +3040,8 @@ def phase_train_bert_dropout_bf16(torch, np, hfa, hfp, peaks,
     check(again == losses, f"two runs from one seed differ: {row}")
     check(all(a != b for a, b in zip(losses, rate0)),
           f"dropout left the losses as at rate 0: {row}")
-    check_launches(launches, {"flash_packed_fwd": n, "flash_packed_bwd": n},
+    check_launches(launches, {"flash_packed_fwd_tc": n,
+                              "flash_packed_bwd": n},
                    "BERT with dropout")
     return launches, row
 
@@ -3038,6 +3237,8 @@ def main() -> int:
     peaks = card_peaks(torch.cuda.get_device_name(0))
     worst, timing = phase_kernel(torch, hfa, peaks)
     worst_bwd, timing_bwd = phase_kernel_bwd(torch, hfa, peaks)
+    worst_masked, timing_masked, masked_launches = phase_kernel_masked(
+        torch, np, hfa, hfp, MultiHeadAttention, PF)
     worst_packed, timing_packed = phase_kernel_packed(torch, np, hfp, peaks)
     worst_stream, timing_stream = phase_kernel_packed_stream(torch, np, hfp,
                                                              peaks)
@@ -3099,8 +3300,10 @@ def main() -> int:
     gpt_drop_launches, gpt_drop = phase_train_gpt_dropout_bf16(
         torch, np, hfa, hfp, peaks, GPTForCausalLM, gpt3_1p3b, amp, AdamW,
         make_sharded_train_step, rate0_p50)
-    phase_train_grad_f32_bert(torch, np, hfa, hfp, BertForPretraining,
-                              bert_base)
+    # K4a-direct's float32 body runs on this path (the bf16 paths take the
+    # tensor-core body)
+    f32_bert_launches = phase_train_grad_f32_bert(
+        torch, np, hfa, hfp, BertForPretraining, bert_base)
     torch.cuda.empty_cache()
     bert_launches = phase_train_bert_bf16(
         torch, np, hfa, hfp, peaks, BertForPretraining, bert_base, amp,
@@ -3170,7 +3373,9 @@ def main() -> int:
 
     # `launches` is the count on each kernel's first main path: serving
     # for K1 (as the line has counted it from the start), GPT training for
-    # K2/K3, BERT training (all three forms) for K4a/K4b, ResNet training
+    # K2/K3, BERT training (all three forms) for K4a-direct's bf16
+    # tensor-core body and K4b, the f32 BERT gradient check for K4a-direct's
+    # float32 body (`f32_bert_launches`), ResNet training
     # for K5-K8, ERNIE training (all three forms) for the streamed forward,
     # dq and dk/dv, cross-attention for dk/dv-direct; every entry also has
     # every path's count. `max_abs_err` is
@@ -3193,11 +3398,16 @@ def main() -> int:
             ("flash_bwd_dkv", "flash_bwd.cu", fa + "502 (_bwd_dkv_kernel, "
              "launched by _bwd at :736)", timing_bwd["flash_bwd_dkv"],
              worst_bwd["flash_bwd_dkv"], train_launches["flash_bwd_dkv"]),
+            ("flash_packed_fwd_tc", "flash_packed_tc.cu", fp + "165 "
+             "(_fwd_kernel_direct, launched by _fwd at :238; bf16)",
+             timing_packed["flash_packed_fwd_tc"],
+             worst_packed["flash_packed_fwd_tc"],
+             bert_launches["flash_packed_fwd_tc"]),
             ("flash_packed_fwd", "flash_packed.cu", fp + "165 "
-             "(_fwd_kernel_direct, launched by _fwd at :238)",
+             "(_fwd_kernel_direct, launched by _fwd at :238; float32)",
              timing_packed["flash_packed_fwd"],
              worst_packed["flash_packed_fwd"],
-             bert_launches["flash_packed_fwd"]),
+             f32_bert_launches["flash_packed_fwd"]),
             ("flash_packed_bwd", "flash_packed.cu", fp + "448 "
              "(_bwd_fused_kernel, launched by _bwd at :544)",
              timing_packed["flash_packed_bwd"],
@@ -3245,11 +3455,20 @@ def main() -> int:
             "resnet_launches": resnet_launches[name],
             "ernie_launches": ernie_launches[name],
             "cross_launches": cross_launches[name],
+            "f32_bert_launches": f32_bert_launches.get(name, 0),
             "max_abs_err": err, "max_err": err,
             "stats_rel_err": stats_conv.get(name),
             "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        if name in worst_masked:
+            # segment ids and the key bias (kernel_masked): the largest
+            # error against the plain version, the times at B=4 x 2048 with
+            # and without each mask set, the masked layer's launches
+            kernels[-1].update({
+                "masked_max_abs_err": worst_masked[name],
+                "masked_ms": {m: t[name] for m, t in timing_masked.items()},
+                "masked_launches": masked_launches[name]})
         if name in drop_timing:
             # attention-prob dropout 0.1: the kernel at the timed shape
             # beside rate 0 in turns, its launches on the dropout paths

@@ -6,7 +6,7 @@
 // _bwd at :736). What they compute is what _bwd computes, given K1's lse and
 // delta = rowsum(dO * O) - dlse (a torch op in the wrapper, as _bwd computes it
 // in jnp outside its kernels):
-//   s  = scale * q k^T, masked to NEG_INF          (f32)
+//   s  = scale * q k^T, masked to NEG_INF, + bias  (f32)
 //   p  = exp(s - lse) * (s > NEG_INF / 2)           (a row with no valid key,
 //                                                    lse = NEG_INF, gives 0)
 //   dp = dO v^T                                     (f32)
@@ -17,7 +17,11 @@
 //                              grouped-query group)
 // with the same conventions as K1: bottom-right causal masking (key j is kept
 // for query i when j <= i + Sk - Sq), grouped-query KV (query head h reads KV
-// head h / (H / HK)), any Sq and Sk (both ragged edges masked here). With
+// head h / (H / HK)), any Sq and Sk (both ragged edges masked here), and K1's
+// masks in K1's order: causal, then segments (seg_q[b, i] == seg_k[b, j], else
+// NEG_INF), then the f32 key bias (_bwd_dq_kernel :466-471, _bwd_dkv_kernel
+// :557-562), read per batch row for every head. The bias is a mask and gets
+// no gradient (_flash_bwd_rule :808-809). With
 // attention-prob dropout (dropout.cuh: the mask K1 drew, regenerated from the
 // query head b*H + h and the position) dp is scaled by keep before ds, and
 // dv takes p * keep (_bwd_dq_kernel :474-479, _bwd_dkv_kernel :566-569, with
@@ -26,8 +30,9 @@
 // Layout: q and dO [B, Sq, H, D], k and v [B, Sk, HK, D], read through their
 // batch, sequence and head strides (the last dimension dense), so the strided
 // views of the fused QKV projection go in without a copy. lse and delta are
-// dense [B, H, Sq] f32. dq [B, Sq, H, D] and dk, dv [B, Sk, HK, D] are written
-// dense in the input type.
+// dense [B, H, Sq] f32; seg_q [B, Sq], seg_k [B, Sk] int32 and bias [B, Sk] f32
+// dense or null. dq [B, Sq, H, D] and dk, dv [B, Sk, HK, D] are written dense
+// in the input type.
 //
 // Design. As on the TPU there are two kernels, and each block owns its output
 // tile and loops over the other axis with f32 accumulators, so there are no
@@ -78,6 +83,9 @@ struct FlashBwdParams {
   const void* dout;
   const float* lse;
   const float* delta;
+  const int* seg_q;   // null: no segments
+  const int* seg_k;
+  const float* bias;  // null: no key bias
   void* dq;
   void* dk;
   void* dv;
@@ -138,17 +146,39 @@ __device__ __forceinline__ void load_tile(float* dst, const T* base,
 
 template <int D>
 constexpr size_t dq_smem_bytes() {
-  // sQ, sDO [BM][D+1], sK, sV [BN][D+1], sDS [BM][BN+1], all f32
+  // sQ, sDO [BM][D+1], sK, sV [BN][D+1], sDS [BM][BN+1], all f32; the key
+  // tile's sSegK and sBias [BN]
   constexpr int R = Tile<D>::kRows;
-  return sizeof(float) * static_cast<size_t>(4 * R * (D + 1) + R * (R + 1));
+  return sizeof(float) *
+         static_cast<size_t>(4 * R * (D + 1) + R * (R + 1) + 2 * R);
 }
 
 template <int D>
 constexpr size_t dkv_smem_bytes() {
-  // sK, sV [BN][D+1], sQ, sDO [BM][D+1], sP, sDS [BN][BM+1], lse and delta
+  // sK, sV [BN][D+1], sQ, sDO [BM][D+1], sP, sDS [BN][BM+1], lse, delta and
+  // the query tile's sSegQ [BM]
   constexpr int R = Tile<D>::kRows;
   return sizeof(float) *
-         static_cast<size_t>(4 * R * (D + 1) + 2 * R * (R + 1) + 2 * R);
+         static_cast<size_t>(4 * R * (D + 1) + 2 * R * (R + 1) + 3 * R);
+}
+
+// the score of query qi and key kj after K1's masks, in its order: causal,
+// then segments, then the key bias (a masked score is NEG_INF + bias); a
+// query past Sq or a key past Sk does not exist: masked, outside the bias
+__device__ __forceinline__ float mask_score(const FlashBwdParams& p, float s,
+                                            int qi, int kj, int offset,
+                                            int seg_q, int seg_k, float bias) {
+  if (qi >= p.Sq || kj >= p.Sk) return kNegInf;
+  if (p.causal && kj > qi + offset) s = kNegInf;
+  if (p.seg_q != nullptr && seg_q != seg_k) s = kNegInf;
+  if (p.bias != nullptr) s += bias;
+  return s;
+}
+
+// p = exp(s - lse), 0 where the score is masked (a row with no valid key has
+// lse = NEG_INF + log(1e-30), so its p is 0 too)
+__device__ __forceinline__ float prob(float s, float lse) {
+  return s > 0.5f * kNegInf ? expf(s - lse) : 0.f;
 }
 
 // ---------------------------------------------------------------------------
@@ -172,6 +202,8 @@ __global__ void __launch_bounds__(kThreadsDq)
   float* sK = sDO + BM * LD;
   float* sV = sK + BN * LD;
   float* sDS = sV + BN * LD;
+  float* sBias = sDS + BM * LDS;
+  int* sSegK = reinterpret_cast<int*>(sBias + BN);
 
   const int tid = threadIdx.x;
   const int tx = tid & 7;   // score columns tx + 8j, dq columns tx + 8jj
@@ -193,11 +225,14 @@ __global__ void __launch_bounds__(kThreadsDq)
 
   const long long stat0 = (static_cast<long long>(b) * p.H + h) * p.Sq;
   float lse_r[RM], delta_r[RM], acc[RM][DT];
+  int segq_r[RM];
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
     const int qi = q0 + ty * RM + i;
     lse_r[i] = qi < p.Sq ? p.lse[stat0 + qi] : 0.f;
     delta_r[i] = qi < p.Sq ? p.delta[stat0 + qi] : 0.f;
+    segq_r[i] = qi < p.Sq && p.seg_q != nullptr
+                    ? p.seg_q[static_cast<long long>(b) * p.Sq + qi] : 0;
 #pragma unroll
     for (int jj = 0; jj < DT; ++jj) acc[i][jj] = 0.f;
   }
@@ -213,6 +248,14 @@ __global__ void __launch_bounds__(kThreadsDq)
     __syncthreads();  // the last tile's readers of sK and sDS are done
     load_tile<T, D, BN, NT>(sK, kb, p.k_ss, k0, p.Sk, tid);
     load_tile<T, D, BN, NT>(sV, vb, p.v_ss, k0, p.Sk, tid);
+    for (int i = tid; i < BN; i += NT) {
+      const int kj = k0 + i;
+      const bool in = kj < p.Sk;
+      sSegK[i] = in && p.seg_k != nullptr
+                     ? p.seg_k[static_cast<long long>(b) * p.Sk + kj] : 0;
+      sBias[i] = in && p.bias != nullptr
+                     ? p.bias[static_cast<long long>(b) * p.Sk + kj] : 0.f;
+    }
     __syncthreads();
 
     float s[RM][CN], dp[RM][CN];
@@ -250,12 +293,14 @@ __global__ void __launch_bounds__(kThreadsDq)
       const int qi = q0 + ty * RM + i;
 #pragma unroll
       for (int j = 0; j < CN; ++j) {
-        const int kj = k0 + tx + 8 * j;
-        const bool ok =
-            qi < p.Sq && kj < p.Sk && (!p.causal || kj <= qi + offset);
-        const float pr = ok ? expf(s[i][j] * p.scale - lse_r[i]) : 0.f;
+        const int c = tx + 8 * j;
+        const int kj = k0 + c;
+        const float pr = prob(mask_score(p, s[i][j] * p.scale, qi, kj, offset,
+                                         segq_r[i], sSegK[c], sBias[c]),
+                              lse_r[i]);
         float dpv = dp[i][j];
-        if (p.drop.on && ok) dpv *= dropout_keep(p.drop, bh, p.Sq, p.Sk, qi, kj);
+        if (p.drop.on && pr != 0.f)
+          dpv *= dropout_keep(p.drop, bh, p.Sq, p.Sk, qi, kj);
         sDS[(ty * RM + i) * LDS + tx + 8 * j] =
             round_to<T>(pr * (dpv - delta_r[i]) * p.scale);
       }
@@ -313,6 +358,7 @@ __global__ void __launch_bounds__(kThreadsDkv)
   float* sDS = sP + BN * LDP;
   float* sLse = sDS + BN * LDP;
   float* sDelta = sLse + BM;
+  int* sSegQ = reinterpret_cast<int*>(sDelta + BM);
 
   const int tid = threadIdx.x;
   const int tx = tid & 7;   // score columns tx + 8j, dk/dv columns tx + 8jj
@@ -328,6 +374,19 @@ __global__ void __launch_bounds__(kThreadsDkv)
   const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
   load_tile<T, D, BN, NT>(sK, kb, p.k_ss, k0, p.Sk, tid);
   load_tile<T, D, BN, NT>(sV, vb, p.v_ss, k0, p.Sk, tid);
+
+  // this thread's key rows' segment and bias, read once for every head
+  int segk_r[RM];
+  float bias_r[RM];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int kj = k0 + ty * RM + i;
+    const bool in = kj < p.Sk;
+    segk_r[i] = in && p.seg_k != nullptr
+                    ? p.seg_k[static_cast<long long>(b) * p.Sk + kj] : 0;
+    bias_r[i] = in && p.bias != nullptr
+                    ? p.bias[static_cast<long long>(b) * p.Sk + kj] : 0.f;
+  }
 
   float acc_dk[RM][DT], acc_dv[RM][DT];
 #pragma unroll
@@ -358,6 +417,8 @@ __global__ void __launch_bounds__(kThreadsDkv)
         const int qi = q0 + i;
         sLse[i] = qi < p.Sq ? p.lse[stat0 + qi] : 0.f;
         sDelta[i] = qi < p.Sq ? p.delta[stat0 + qi] : 0.f;
+        sSegQ[i] = qi < p.Sq && p.seg_q != nullptr
+                       ? p.seg_q[static_cast<long long>(b) * p.Sq + qi] : 0;
       }
       __syncthreads();
 
@@ -398,10 +459,11 @@ __global__ void __launch_bounds__(kThreadsDkv)
         for (int j = 0; j < CN; ++j) {
           const int qc = tx + 8 * j;
           const int qi = q0 + qc;
-          const bool ok =
-              qi < p.Sq && kj < p.Sk && (!p.causal || kj <= qi + offset);
-          const float pr = ok ? expf(s[i][j] * p.scale - sLse[qc]) : 0.f;
-          const float keep = p.drop.on && ok
+          const float pr =
+              prob(mask_score(p, s[i][j] * p.scale, qi, kj, offset, sSegQ[qc],
+                              segk_r[i], bias_r[i]),
+                   sLse[qc]);
+          const float keep = p.drop.on && pr != 0.f
                                  ? dropout_keep(p.drop, b * p.H + h, p.Sq,
                                                 p.Sk, qi, kj)
                                  : 1.f;
@@ -497,7 +559,7 @@ template <bool kDq>
 int run(const FlashBwdParams& p, int D, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p.B <= 0 || p.H <= 0 || p.HK <= 0 || p.H % p.HK || p.Sq <= 0 ||
-      p.Sk <= 0)
+      p.Sk <= 0 || (p.seg_q == nullptr) != (p.seg_k == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) return static_cast<int>(dispatch_d<float, kDq>(p, D, s));
   if (dtype == 1)
@@ -507,7 +569,9 @@ int run(const FlashBwdParams& p, int D, int dtype, void* stream) {
 
 FlashBwdParams make_params(const void* q, const void* k, const void* v,
                            const void* dout, const void* lse,
-                           const void* delta, int B, int H, int HK, int Sq,
+                           const void* delta, const void* seg_q,
+                           const void* seg_k, const void* bias, int B, int H,
+                           int HK, int Sq,
                            int Sk, long long q_sb, long long q_ss,
                            long long q_sh, long long k_sb, long long k_ss,
                            long long k_sh, long long v_sb, long long v_ss,
@@ -520,6 +584,9 @@ FlashBwdParams make_params(const void* q, const void* k, const void* v,
   p.dout = dout;
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
+  p.seg_q = static_cast<const int*>(seg_q);
+  p.seg_k = static_cast<const int*>(seg_k);
+  p.bias = static_cast<const float*>(bias);
   p.dq = nullptr;
   p.dk = nullptr;
   p.dv = nullptr;
@@ -547,18 +614,21 @@ FlashBwdParams make_params(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// K2. dtype: 0 = float32, 1 = bfloat16. Strides are in elements. Returns the
-// cudaError_t of the launch (0 = launched).
+// K2. dtype: 0 = float32, 1 = bfloat16. Strides are in elements; seg_q, seg_k
+// (both or neither) and bias may be null. Returns the cudaError_t of the
+// launch (0 = launched).
 extern "C" int paddle_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq, int B, int H, int HK, int Sq,
+    const void* lse, const void* delta, const void* seg_q, const void* seg_k,
+    const void* bias, void* dq, int B, int H, int HK, int Sq,
     int Sk, int D, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, long long do_sb, long long do_ss,
     long long do_sh, float scale, int causal, int dtype, int dropout,
     unsigned drop_threshold, unsigned drop_seed, float drop_scale,
     void* stream) {
-  FlashBwdParams p = make_params(q, k, v, dout, lse, delta, B, H, HK, Sq, Sk,
+  FlashBwdParams p = make_params(q, k, v, dout, lse, delta, seg_q, seg_k,
+                                 bias, B, H, HK, Sq, Sk,
                                  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
                                  v_ss, v_sh, do_sb, do_ss, do_sh, scale,
                                  causal);
@@ -570,14 +640,16 @@ extern "C" int paddle_flash_bwd_dq(
 // K3, with the same arguments as K2 but the two outputs dk and dv.
 extern "C" int paddle_flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv, int B, int H,
+    const void* lse, const void* delta, const void* seg_q, const void* seg_k,
+    const void* bias, void* dk, void* dv, int B, int H,
     int HK, int Sq, int Sk, int D, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long do_sb,
     long long do_ss, long long do_sh, float scale, int causal, int dtype,
     int dropout, unsigned drop_threshold, unsigned drop_seed,
     float drop_scale, void* stream) {
-  FlashBwdParams p = make_params(q, k, v, dout, lse, delta, B, H, HK, Sq, Sk,
+  FlashBwdParams p = make_params(q, k, v, dout, lse, delta, seg_q, seg_k,
+                                 bias, B, H, HK, Sq, Sk,
                                  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
                                  v_ss, v_sh, do_sb, do_ss, do_sh, scale,
                                  causal);

@@ -8,14 +8,23 @@
 // grouped-query KV (query head h reads KV head h / (H / HK), never repeated;
 // _kv_index), and the masked-row convention of _fwd_kernel's _finish: a row
 // with no valid key keeps m = NEG_INF = -1e30 and l clamped at 1e-30, so it
-// gives o = 0 and lse = -1e30. With attention-prob dropout (dropout.cuh, the
-// TPU kernel's position hash of (b*H + h, q, k)) the value product takes
-// p * keep while l sums the undropped p.
+// gives o = 0 and lse = -1e30. The masks go where a score is formed, in
+// _fwd_kernel's order (:264-269): the scale, then causal, then segments
+// (seg_q[b, i] == seg_k[b, j], else NEG_INF; _seg_mask :189-195), then the f32
+// key bias (s + bias[b, j]). A masked score stays masked under a finite bias
+// (p = exp(s - m) * (s > NEG_INF / 2)), and a -inf bias gives p = 0 and no
+// NaN, because m starts at NEG_INF. The segments and the bias are per batch
+// row ([B, Sq], [B, Sk]): every head of b reads the same row, never a per-head
+// copy. With attention-prob dropout (dropout.cuh, the TPU kernel's position
+// hash of (b*H + h, q, k)) the value product takes p * keep while l sums the
+// undropped p.
 //
 // Layout: q [B, Sq, H, D], k/v [B, Sk, HK, D], read through their batch,
 // sequence and head strides (the last dimension must be dense), so the caller
-// makes no transposed copy. o is written dense [B, Sq, H, D]; lse dense
-// [B, H, Sq]. Any Sq and Sk work: the ragged edge is masked here.
+// makes no transposed copy. seg_q [B, Sq], seg_k [B, Sk] int32 and bias
+// [B, Sk] f32 are dense, or null when absent. o is written dense
+// [B, Sq, H, D]; lse dense [B, H, Sq]. Any Sq and Sk work: the ragged edge is
+// masked here. JAX skips no tile for segments, and neither does this kernel.
 //
 // Design. One block of 128 threads per (b*h, 64-query tile); a loop over
 // 64-key tiles staged in shared memory takes the place of Pallas's sequential
@@ -32,10 +41,12 @@
 // 2048, D 128, bf16) attention is bound by operations: 4 * S^2 * D / 2 FLOPs
 // per head (causal) against 4 * S * D * 2 bytes. This first kernel runs both
 // products on the CUDA cores in f32 (FMA), not on the tensor cores, and its
-// tiles take 115 KB of shared memory at D = 128 (one block per SM), so it
-// runs far from the tensor-core bound; its times stand in PERF.md beside that
-// bound. wgmma products fed by TMA through a ring of shared-memory stages,
-// with warp specialisation, are the next step and a later change's work.
+// tiles take 115 KB of shared memory at D = 128: two blocks fit an SM with
+// 0.5 KB to spare (staging the masks there cost the second block and 60% of
+// the time on an H100), so the masks are read from global memory. It runs far
+// from the tensor-core bound; its times stand in PERF.md beside that bound.
+// wgmma products fed by TMA through a ring of shared-memory stages, with warp
+// specialisation, are the next step and a later change's work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,6 +66,9 @@ struct FlashFwdParams {
   const void* v;
   void* o;
   float* lse;
+  const int* seg_q;   // null: no segments
+  const int* seg_k;
+  const float* bias;  // null: no key bias
   int B, H, HK, Sq, Sk;
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
@@ -82,13 +96,34 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 
 template <int D>
 constexpr size_t smem_bytes() {
-  // sQ [64][D+1] + sK [64][D+1] + sV [64][D] + sP [64][65], all f32
+  // sQ [64][D+1] + sK [64][D+1] + sV [64][D] + sP [64][65], all f32 (at D =
+  // 128 two blocks fit an SM: the masks are read from global memory, not
+  // staged here, so as not to lose the second block)
   return sizeof(float) * static_cast<size_t>(kBlockM * (D + 1) +
                                              kBlockN * (D + 1) + kBlockN * D +
                                              kBlockM * (kBlockN + 1));
 }
 
-template <typename T, int D>
+// the score of query qi and key kj after _fwd_kernel's masks, in its order:
+// causal, then segments, then the key bias (a masked score is NEG_INF + bias);
+// a key past Sk does not exist: masked, and outside the bias. seg_k and bias
+// point at batch row b's [Sk] row (L1 holds them across the tile's rows).
+// Without segments or a bias (kMasks false) only the causal mask is tested.
+template <bool kMasks>
+__device__ __forceinline__ float mask_score(const FlashFwdParams& p, float s,
+                                            int qi, int kj, int offset,
+                                            int seg_q, const int* seg_k,
+                                            const float* bias) {
+  const bool ok = kj < p.Sk && (!p.causal || kj <= qi + offset);
+  if (!kMasks) return ok ? s : kNegInf;
+  if (kj >= p.Sk) return kNegInf;
+  if (!ok) s = kNegInf;
+  if (p.seg_q != nullptr && seg_q != seg_k[kj]) s = kNegInf;
+  if (p.bias != nullptr) s += bias[kj];
+  return s;
+}
+
+template <typename T, int D, bool kMasks>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const FlashFwdParams p) {
   constexpr int LDK = D + 1;        // padded row stride of the Q and K tiles
@@ -120,6 +155,18 @@ __global__ void __launch_bounds__(kThreads)
     const int qi = q0 + r;
     sQ[r * LDK + c] =
         qi < p.Sq ? to_float(qb[static_cast<long long>(qi) * p.q_ss + c]) : 0.f;
+  }
+  // the masks of batch row b: this thread's rows' segments, the keys' rows
+  const int* segk_row =
+      p.seg_k != nullptr ? p.seg_k + static_cast<long long>(b) * p.Sk : nullptr;
+  const float* bias_row =
+      p.bias != nullptr ? p.bias + static_cast<long long>(b) * p.Sk : nullptr;
+  int segq_r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + ty * 4 + i;
+    segq_r[i] = p.seg_q != nullptr && qi < p.Sq
+                    ? p.seg_q[static_cast<long long>(b) * p.Sq + qi] : 0;
   }
 
   float m_i[4], l_i[4], acc[4][DT];
@@ -176,9 +223,9 @@ __global__ void __launch_bounds__(kThreads)
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const int kj = k0 + tx + 8 * j;
-        const bool ok = kj < p.Sk && (!p.causal || kj <= qi + offset);
-        s[i][j] = ok ? s[i][j] * p.scale : kNegInf;
+        s[i][j] = mask_score<kMasks>(p, s[i][j] * p.scale, qi,
+                                     k0 + tx + 8 * j, offset, segq_r[i],
+                                     segk_row, bias_row);
         mx = fmaxf(mx, s[i][j]);
       }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -247,28 +294,33 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kMasks>
 cudaError_t launch(const FlashFwdParams& p, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
   // above 48 KB a block's shared memory must be opted into
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<T, D, kMasks>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + kBlockM - 1) / kBlockM, p.B * p.H);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(p);
+  flash_fwd_kernel<T, D, kMasks><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(const FlashFwdParams& p, int d, cudaStream_t stream) {
+  const bool masks = p.seg_q != nullptr || p.bias != nullptr;
   switch (d) {
     case 64:
-      return launch<T, 64>(p, stream);
+      return masks ? launch<T, 64, true>(p, stream)
+                   : launch<T, 64, false>(p, stream);
     case 128:
-      return launch<T, 128>(p, stream);
+      return masks ? launch<T, 128, true>(p, stream)
+                   : launch<T, 128, false>(p, stream);
     case 256:
-      return launch<T, 256>(p, stream);
+      return masks ? launch<T, 256, true>(p, stream)
+                   : launch<T, 256, false>(p, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -276,10 +328,13 @@ cudaError_t dispatch_d(const FlashFwdParams& p, int d, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. Returns the
-// cudaError_t of the launch (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16. Strides are in elements; seg_q, seg_k
+// (both or neither) and bias may be null. Returns the cudaError_t of the
+// launch (0 = launched).
 extern "C" int paddle_flash_fwd(const void* q, const void* k, const void* v,
-                                void* o, void* lse, int B, int H, int HK,
+                                void* o, void* lse, const void* seg_q,
+                                const void* seg_k, const void* bias, int B,
+                                int H, int HK,
                                 int Sq, int Sk, int D, long long q_sb,
                                 long long q_ss, long long q_sh, long long k_sb,
                                 long long k_ss, long long k_sh, long long v_sb,
@@ -294,6 +349,9 @@ extern "C" int paddle_flash_fwd(const void* q, const void* k, const void* v,
   p.v = v;
   p.o = o;
   p.lse = static_cast<float*>(lse);
+  p.seg_q = static_cast<const int*>(seg_q);
+  p.seg_k = static_cast<const int*>(seg_k);
+  p.bias = static_cast<const float*>(bias);
   p.B = B;
   p.H = H;
   p.HK = HK;
@@ -312,7 +370,8 @@ extern "C" int paddle_flash_fwd(const void* q, const void* k, const void* v,
   p.causal = causal;
   p.drop = make_dropout(dropout, drop_threshold, drop_seed, drop_scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || H <= 0 || HK <= 0 || H % HK || Sq <= 0 || Sk < 0)
+  if (B <= 0 || H <= 0 || HK <= 0 || H % HK || Sq <= 0 || Sk < 0 ||
+      (seg_q == nullptr) != (seg_k == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) return static_cast<int>(dispatch_d<float>(p, D, s));
   if (dtype == 1) return static_cast<int>(dispatch_d<__nv_bfloat16>(p, D, s));

@@ -2,7 +2,8 @@
 // (K4a-direct forward, K4b-fused backward) for Hopper (sm_90a), CUDA C++.
 //
 // K4a-direct replaces paddle_tpu/ops/_pallas/flash_attention_packed.py:
-// _fwd_kernel_direct (:165, launched by _fwd at :238); K4b-fused replaces
+// _fwd_kernel_direct (:165, launched by _fwd at :238) for float32 inputs (bf16
+// inputs run its tensor-core body, flash_packed_tc.cu); K4b-fused replaces
 // _bwd_fused_kernel (:448, launched by _bwd at :544). Both cover Sk <= 512,
 // the case where the TPU puts every key of a head in one tile (BERT-base at
 // S = 512). What they compute is what those kernels compute, per head:
@@ -29,7 +30,8 @@
 // copy. seg_q [B, Sq], seg_k [B, Sk] int32 and key_bias [B, Sk] f32 are dense
 // or null. o, dq, dk, dv are written dense; lse, delta are dense [B, H, Sq].
 //
-// Design of the forward. One block of 256 threads per (b*h, 64-query tile).
+// Design of the float32 forward. One block of 256 threads per (b*h, 64-query
+// tile).
 // The direct kernel's softmax takes its max over the whole key row before any
 // exponential, so that p is rounded to the input type from its final value.
 // The block keeps the whole row of scores, 64 x Sk f32 (128 KB at Sk = 512),
@@ -41,7 +43,8 @@
 // scores it wrote in pass 1. Causal tiles above the diagonal are skipped.
 // The score block fills most of the shared memory, so one block runs per SM:
 // 256 threads give it 8 warps to hide shared-memory latency (on an H100 at
-// BERT-base's shape: 7.8 ms, against 9.4 ms at 128 threads, 4 rows a thread).
+// BERT-base's shape in bf16, before that dtype moved to the tensor cores: 7.8
+// ms, against 9.4 ms at 128 threads, 4 rows a thread).
 //
 // Design of the backward. dq sums over keys and dk, dv over queries; on the
 // TPU both fit one program because the whole key sequence is one tile. Here
@@ -59,11 +62,10 @@
 // = 5.15e10 FLOPs against 203 MB (q, k, v, o, lse), so bytes bound it
 // (0.061 ms at 3.35 TB/s against 0.052 ms at 989 TFLOP/s); the backward does
 // 10 * 64 * pairs = 1.29e11 FLOPs against 355 MB, so operations bound it
-// (0.130 ms). Like K1-K3, these first kernels run their products on the CUDA
-// cores in f32 (FMA), far from either bound; their times stand in PERF.md.
-// A head's K and V in bf16 (64 KB each) fit shared memory together, so the
-// next step keeps them resident and runs wgmma over all the head's query
-// tiles; that is a later change's work.
+// (0.130 ms). Like K1-K3, these kernels run their products on the CUDA cores
+// in f32 (FMA), far from either bound; their times stand in PERF.md. The bf16
+// forward keeps a head's K and V resident in shared memory and runs both
+// products on the tensor cores (flash_packed_tc.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -617,9 +619,9 @@ bool bad_shape(int B, int H, int HK, int Sq, int Sk, int D, const void* seg_q,
 
 }  // namespace
 
-// K4a-direct. dtype: 0 = float32, 1 = bfloat16. Strides are in elements;
-// seg_q, seg_k and bias may be null. Returns the cudaError_t of the launch
-// (0 = launched).
+// K4a-direct's float32 body. dtype: 0 = float32 (bfloat16 runs
+// paddle_flash_packed_fwd_tc). Strides are in elements; seg_q, seg_k and bias
+// may be null. Returns the cudaError_t of the launch (0 = launched).
 extern "C" int paddle_flash_packed_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     const void* seg_q, const void* seg_k, const void* bias, int B, int H,
@@ -638,7 +640,6 @@ extern "C" int paddle_flash_packed_fwd(
   p.lse = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return static_cast<int>(launch_fwd<float>(p, s));
-  if (dtype == 1) return static_cast<int>(launch_fwd<__nv_bfloat16>(p, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -17,6 +17,15 @@ called through ``ctypes``.
   jnp outside its kernels; :func:`flash_bwd_dq` (K2) and
   :func:`flash_bwd_dkv` (K3) launch the kernels.
 
+K1-K3 take the TPU kernels' masks (``masks=(seg_q, seg_k, bias)``, each
+dense or None: segment ids ``[B, Sq]`` and ``[B, Sk]`` int32 and an f32 key
+bias ``[B, Sk]``, per batch row and shared by its heads) in their order:
+the scale, then bottom-right causal, then segments (``seg_q == seg_k``,
+else ``NEG_INF``), then ``+ bias``. A masked score stays masked under a
+finite bias, a row with no valid key gives o = 0, lse = NEG_INF + log
+1e-30 and dq = 0, and a ``-inf`` bias gives no NaN: the row max starts at
+``NEG_INF``. The bias is a mask and gets no gradient.
+
 Attention-prob dropout (``dropout=AttnDropout(rate, seed)``) is the TPU
 kernels' own: a murmur3 hash of the flat score index ``(b*H + h)*Sq*Sk +
 q*Sk + k`` (uint32, wrapping), xor the seed, drops a probability where it
@@ -50,11 +59,17 @@ __all__ = ["flash_fwd", "flash_fwd_reference", "flash_bwd",
            "flash_bwd_reference", "flash_bwd_dq", "flash_bwd_dkv",
            "kernel_arg_error", "NEG_INF", "SUPPORTED_HEAD_DIMS",
            "AttnDropout", "keep_threshold", "keep_scale",
-           "dropout_keep_dense"]
+           "dropout_keep_dense", "Masks", "NO_MASKS"]
 
 NEG_INF = -1e30  # the TPU kernel's masked score, kept for its lse convention
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+#: ``(seg_q [B, Sq] int32, seg_k [B, Sk] int32, bias [B, Sk] f32)``, each
+#: dense or None
+Masks = Tuple[Optional[torch.Tensor], Optional[torch.Tensor],
+              Optional[torch.Tensor]]
+NO_MASKS: Masks = (None, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -162,6 +177,75 @@ def as_dropout(rate: float, seed) -> Optional[AttnDropout]:
     return AttnDropout(float(rate), int(seed))
 
 
+def _masks(b, sq, sk, device, segment_ids, segment_ids_k, key_bias
+           ) -> Masks:
+    """``(seg_q [B, Sq] int32, seg_k [B, Sk] int32, bias [B, Sk] f32)``,
+    each dense or None, as ``flash_attention_pallas`` (``:955-975``) and
+    ``flash_attention_packed`` (``:776-801``) shape them: ``segment_ids_k``
+    defaults to ``segment_ids`` when Sq == Sk, and the bias becomes float32
+    only here."""
+    seg_q = seg_k = bias = None
+    if segment_ids is not None:
+        sk_ids = segment_ids_k if segment_ids_k is not None else \
+            (segment_ids if sq == sk else None)
+        if sk_ids is None:
+            raise ValueError("segment_ids_k required when sq != sk")
+        seg_q = torch.as_tensor(segment_ids, device=device)
+        seg_k = torch.as_tensor(sk_ids, device=device)
+        for name, ids, s in (("segment_ids", seg_q, sq),
+                             ("segment_ids_k", seg_k, sk)):
+            if tuple(ids.shape) != (b, s):
+                raise ValueError(f"{name} must be [batch, seq] = "
+                                 f"[{b}, {s}]; got {tuple(ids.shape)}")
+        seg_q = seg_q.to(torch.int32).contiguous()
+        seg_k = seg_k.to(torch.int32).contiguous()
+    elif segment_ids_k is not None:
+        raise ValueError("segment_ids_k given without segment_ids")
+    if key_bias is not None:
+        bias = torch.as_tensor(key_bias, device=device)
+        if bias.numel() != b * sk:
+            raise ValueError(f"key_bias must hold [batch, seq_k] = "
+                             f"[{b}, {sk}] values; got {tuple(bias.shape)}")
+        bias = bias.to(torch.float32).reshape(b, sk).contiguous()
+    return seg_q, seg_k, bias
+
+
+def _mask_error(masks: Masks, b: int, sq: int, sk: int,
+               device) -> Optional[str]:
+    """Why the kernels cannot take these masks, or None: segment ids both
+    or neither, each mask dense at its shape and type on ``device``."""
+    seg_q, seg_k, bias = masks
+    if (seg_q is None) != (seg_k is None):
+        return "segment ids need both seg_q and seg_k"
+    for name, t, shape, dtype in (("seg_q", seg_q, (b, sq), torch.int32),
+                                  ("seg_k", seg_k, (b, sk), torch.int32),
+                                  ("key_bias", bias, (b, sk), torch.float32)):
+        if t is not None and (tuple(t.shape) != shape or t.dtype != dtype
+                              or t.device != device
+                              or not t.is_contiguous()):
+            return f"{name} must be dense {dtype} {list(shape)} on " \
+                   f"{device}; got {t.dtype} {list(t.shape)} on {t.device}"
+    return None
+
+
+def _masked_scores(s, causal: bool, masks: Masks):
+    """The TPU kernels' masks on f32 scores ``[B, ..., Sq, Sk]`` (K1's
+    ``[B, HK, G, Sq, Sk]``, K4's ``[B, H, Sq, Sk]``), in their order:
+    bottom-right causal, then segments, then the key bias."""
+    seg_q, seg_k, bias = masks
+    b, sq, sk = s.shape[0], s.shape[-2], s.shape[-1]
+    heads = (1,) * (s.dim() - 3)
+    if causal:
+        valid = torch.ones(sq, sk, dtype=torch.bool, device=s.device)
+        s = torch.where(torch.tril(valid, diagonal=sk - sq), s, NEG_INF)
+    if seg_q is not None:
+        same = seg_q.view(b, *heads, sq, 1) == seg_k.view(b, *heads, 1, sk)
+        s = torch.where(same, s, NEG_INF)
+    if bias is not None:
+        s = s + bias.view(b, *heads, 1, sk)
+    return s
+
+
 def _shapes(q, k, v):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"flash_fwd takes [B, S, H, D] tensors; got "
@@ -179,10 +263,13 @@ def _shapes(q, k, v):
     return b, sq, sk, h, hk, d
 
 
-def kernel_arg_error(q, k, v) -> Optional[str]:
+def kernel_arg_error(q, k, v, masks: Masks = NO_MASKS) -> Optional[str]:
     """Why the CUDA kernel cannot take these tensors, or None. Device
     aside, these are the kernel's limits; the plain version has none."""
     b, sq, sk, h, hk, d = _shapes(q, k, v)
+    why = _mask_error(masks, b, sq, sk, q.device)
+    if why is not None:
+        return why
     if d not in SUPPORTED_HEAD_DIMS:
         return f"head dim {d} not in {SUPPORTED_HEAD_DIMS}"
     if q.dtype not in _DTYPE_CODE:
@@ -202,12 +289,14 @@ def flash_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = False,
                         scale: Optional[float] = None,
                         dropout: Optional[AttnDropout] = None, *,
-                        first_head: int = 0
+                        first_head: int = 0, masks: Masks = NO_MASKS
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch K1: the same function as the kernel, in float32.
 
-    Bottom-right causal, grouped-query KV by head reshape (no repeat),
-    masked scores at ``NEG_INF`` and the kernel's masked-row convention
+    Bottom-right causal, then the segments and the key bias of ``masks``,
+    grouped-query KV by head reshape (no repeat), masked scores at
+    ``NEG_INF``, the row max taken from ``NEG_INF`` up (as the kernel's
+    running max starts there) and the kernel's masked-row convention
     (o = 0, lse = NEG_INF + log(1e-30)); with ``dropout`` the value
     product takes ``p * keep`` and l the undropped p. ``first_head`` numbers
     the heads' masks from a flat head past 0, as in a slice of a larger
@@ -219,11 +308,8 @@ def flash_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qf = q.float().reshape(b, sq, hk, g, d)
     kf, vf = k.float(), v.float()
     s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * scale   # [B,HK,G,Sq,Sk]
-    valid = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
-    if causal:
-        valid = torch.tril(valid, diagonal=sk - sq)
-    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
-    m = s.amax(dim=-1, keepdim=True) if sk else \
+    s = _masked_scores(s, causal, masks)
+    m = torch.clamp(s.amax(dim=-1, keepdim=True), min=NEG_INF) if sk else \
         torch.full(s.shape[:-1] + (1,), NEG_INF, device=q.device)
     p = torch.where(s > NEG_INF / 2, torch.exp(s - m), torch.zeros_like(s))
     l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
@@ -250,11 +336,12 @@ def flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = False, scale: Optional[float] = None,
                         dlse: Optional[torch.Tensor] = None,
                         dropout: Optional[AttnDropout] = None, *,
-                        first_head: int = 0
+                        first_head: int = 0, masks: Masks = NO_MASKS
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch K2 and K3: the gradients ``_bwd`` computes, in float32.
 
-    Recomputes ``p = exp(s - lse)`` from K1's lse (0 where the score is
+    Recomputes the masked scores (K1's ``masks``) and ``p = exp(s - lse)``
+    from K1's lse (0 where the score is
     masked, so a row with no valid key gives dq = 0 and adds nothing to
     dk/dv), and rounds at ``_bwd``'s points: ``ds`` to q's dtype before
     the dq and dk products, ``p`` (``p * keep`` with ``dropout``, which
@@ -271,11 +358,10 @@ def flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dof = do.float().reshape(b, sq, hk, g, d)
     kf, vf = k.float(), v.float()
     s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * scale   # [B,HK,G,Sq,Sk]
-    valid = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
-    if causal:
-        valid = torch.tril(valid, diagonal=sk - sq)
-    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
-    p = torch.exp(s - lse.float().reshape(b, hk, g, sq, 1)) * (s > NEG_INF / 2)
+    s = _masked_scores(s, causal, masks)
+    valid = s > NEG_INF / 2
+    p = torch.where(valid, torch.exp(s - lse.float().reshape(b, hk, g, sq, 1)),
+                    torch.zeros_like(s))
     dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
     pv = p
     keep = _keep(dropout, b, h, sq, sk, q.device, first_head)
@@ -327,16 +413,21 @@ def _call(lib, fn, what: str, q, k, *args):
                            f"{q.dtype}, k {tuple(k.shape)}")
 
 
+def _mask_ptrs(masks: Masks):
+    return [None if t is None else t.data_ptr() for t in masks]
+
+
 def _launch(q, k, v, causal: bool, scale: float,
-            dropout: Optional[AttnDropout] = None):
-    lib, fn = _kernel("flash_fwd", "paddle_flash_fwd", 5, 9)
+            dropout: Optional[AttnDropout] = None, masks: Masks = NO_MASKS):
+    lib, fn = _kernel("flash_fwd", "paddle_flash_fwd", 8, 9)
     b, sq, sk, h, hk, d = _shapes(q, k, v)
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
     _call(lib, fn, "flash_fwd", q, k, q.data_ptr(), k.data_ptr(),
-          v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, hk, sq, sk, d,
+          v.data_ptr(), o.data_ptr(), lse.data_ptr(), *_mask_ptrs(masks),
+          b, h, hk, sq, sk, d,
           *_strides(q, k, v), float(scale), int(bool(causal)),
           _DTYPE_CODE[q.dtype], *_dropout_args(dropout))
     flash_fwd.launches += 1
@@ -350,14 +441,14 @@ def _bwd_args(q, k, v, do, causal, scale, dropout):
             _dropout_args(dropout))
 
 
-def _require_kernel_inputs(q, k, v, do, lse, delta):
+def _require_kernel_inputs(q, k, v, do, lse, delta, masks: Masks):
     """Raise unless the backward kernels can take these tensors: checked
     before any pointer reaches them."""
     if q.device.type != "cuda":
         raise ValueError(f"the flash backward kernels run on CUDA tensors, "
                          f"not {q.device}; flash_bwd takes CPU tensors")
     b, sq, _, h, _, _ = _shapes(q, k, v)
-    why = _bwd_arg_error(q, k, v, do)
+    why = _bwd_arg_error(q, k, v, do, masks)
     if why is None and len({t.device for t in (q, k, v, do, lse, delta)}) > 1:
         why = "inputs on different devices"
     if why is None and do.shape != q.shape:
@@ -371,40 +462,44 @@ def _require_kernel_inputs(q, k, v, do, lse, delta):
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
-                 dropout: Optional[AttnDropout] = None) -> torch.Tensor:
+                 dropout: Optional[AttnDropout] = None,
+                 masks: Masks = NO_MASKS) -> torch.Tensor:
     """K2 on CUDA tensors: ``dq [B, Sq, H, D]`` from q, k, v, do, K1's lse
-    and ``delta`` (both dense ``[B, H, Sq]`` float32)."""
-    _require_kernel_inputs(q, k, v, do, lse, delta)
-    lib, fn = _kernel("flash_bwd", "paddle_flash_bwd_dq", 7, 12)
+    and ``delta`` (both dense ``[B, H, Sq]`` float32), with K1's
+    ``masks``."""
+    _require_kernel_inputs(q, k, v, do, lse, delta, masks)
+    lib, fn = _kernel("flash_bwd", "paddle_flash_bwd_dq", 10, 12)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _call(lib, fn, "flash_bwd_dq", q, k, q.data_ptr(), k.data_ptr(),
           v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-          dq.data_ptr(), *_bwd_args(q, k, v, do, causal, scale, dropout))
+          *_mask_ptrs(masks), dq.data_ptr(),
+          *_bwd_args(q, k, v, do, causal, scale, dropout))
     flash_bwd_dq.launches += 1
     return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
-                  dropout: Optional[AttnDropout] = None
+                  dropout: Optional[AttnDropout] = None,
+                  masks: Masks = NO_MASKS
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3 on CUDA tensors: ``(dk, dv)``, each ``[B, Sk, HK, D]``, summed
-    over the query heads of each KV head's group."""
-    _require_kernel_inputs(q, k, v, do, lse, delta)
-    lib, fn = _kernel("flash_bwd", "paddle_flash_bwd_dkv", 8, 12)
+    over the query heads of each KV head's group, with K1's ``masks``."""
+    _require_kernel_inputs(q, k, v, do, lse, delta, masks)
+    lib, fn = _kernel("flash_bwd", "paddle_flash_bwd_dkv", 11, 12)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _call(lib, fn, "flash_bwd_dkv", q, k, q.data_ptr(), k.data_ptr(),
           v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-          dk.data_ptr(), dv.data_ptr(),
+          *_mask_ptrs(masks), dk.data_ptr(), dv.data_ptr(),
           *_bwd_args(q, k, v, do, causal, scale, dropout))
     flash_bwd_dkv.launches += 1
     return dk, dv
 
 
-def _bwd_arg_error(q, k, v, do) -> Optional[str]:
+def _bwd_arg_error(q, k, v, do, masks: Masks = NO_MASKS) -> Optional[str]:
     """Why the backward kernels cannot take these tensors, or None: K1's
     limits, and do in q's dtype with a dense last dimension."""
-    why = kernel_arg_error(q, k, v)
+    why = kernel_arg_error(q, k, v, masks)
     if why is None and do.dtype != q.dtype:
         why = f"do's dtype {do.dtype} differs from q's {q.dtype}"
     if why is None and do.stride(3) != 1:
@@ -416,13 +511,14 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
               causal: bool = False, scale: Optional[float] = None,
               dlse: Optional[torch.Tensor] = None,
-              dropout: Optional[AttnDropout] = None
+              dropout: Optional[AttnDropout] = None,
+              masks: Masks = NO_MASKS
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1's backward: K2 and K3 for CUDA tensors, the plain version for CPU
     tensors. ``o`` and ``lse`` are K1's outputs (with the same
-    ``dropout``), ``do`` the cotangent of ``o`` and ``dlse`` (optional)
-    that of ``lse``. Returns ``(dq [B, Sq, H, D], dk [B, Sk, HK, D], dv
-    [B, Sk, HK, D])``."""
+    ``dropout`` and ``masks``), ``do`` the cotangent of ``o`` and ``dlse``
+    (optional) that of ``lse``. Returns ``(dq [B, Sq, H, D], dk [B, Sk, HK,
+    D], dv [B, Sk, HK, D])``; the key bias gets no gradient."""
     b, sq, sk, h, hk, d = _shapes(q, k, v)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"o and do must have q's shape {tuple(q.shape)}; "
@@ -431,13 +527,14 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t is not None and t.shape != (b, h, sq):
             raise ValueError(f"{name} must be [B, H, Sq] = [{b}, {h}, {sq}]; "
                              f"got {tuple(t.shape)}")
-    devices = {t.device for t in (q, k, v, o, lse, do, dlse) if t is not None}
+    devices = {t.device for t in (q, k, v, o, lse, do, dlse, *masks)
+               if t is not None}
     if len(devices) != 1:
         raise ValueError(f"flash_bwd inputs on different devices: {devices}")
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     if q.device.type == "cpu":
         return flash_bwd_reference(q, k, v, o, lse, do, causal, scale, dlse,
-                                   dropout)
+                                   dropout, masks=masks)
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd runs on CUDA or the CPU, not "
                          f"{q.device}")
@@ -445,19 +542,24 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     delta = _delta(o, do, dlse)
     lse = lse.float().contiguous()
-    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, scale, dropout)
-    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale, dropout)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, scale, dropout, masks)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale, dropout,
+                           masks)
     return dq, dk, dv
 
 
 class _FlashFwd(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, dropout):
+    def forward(ctx, q, k, v, seg_q, seg_k, bias, causal, scale, dropout):
+        masks = (seg_q, seg_k, bias)
         if q.device.type == "cpu":
-            o, lse = flash_fwd_reference(q, k, v, causal, scale, dropout)
+            o, lse = flash_fwd_reference(q, k, v, causal, scale, dropout,
+                                         masks=masks)
         else:
-            o, lse = _launch(q, k, v, causal, scale, dropout)
-        ctx.save_for_backward(q, k, v, o, lse)
+            o, lse = _launch(q, k, v, causal, scale, dropout, masks)
+        ctx.save_for_backward(q, k, v, o, lse, *(
+            torch.empty(0) if t is None else t for t in masks))
+        ctx.has_mask = tuple(t is not None for t in masks)
         ctx.causal, ctx.scale, ctx.dropout = causal, scale, dropout
         ctx.mark_non_differentiable(lse)
         return o, lse
@@ -466,28 +568,34 @@ class _FlashFwd(torch.autograd.Function):
     def backward(ctx, do, _dlse):
         # lse is not differentiable here (flash_attention_with_lse, which
         # needs its cotangent, is not ported): flash_bwd's dlse stays None
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse, *saved = ctx.saved_tensors
+        masks = tuple(t if has else None
+                      for t, has in zip(saved, ctx.has_mask))
         if do.stride(-1) != 1:   # e.g. the expanded ones of out.sum()
             do = do.contiguous()
         dq, dk, dv = flash_bwd(q, k, v, o, lse, do, ctx.causal, ctx.scale,
-                               dropout=ctx.dropout)
-        return dq, dk, dv, None, None, None
+                               dropout=ctx.dropout, masks=masks)
+        # the masks, the key bias among them, get no gradient
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = False, scale: Optional[float] = None,
-              dropout: Optional[AttnDropout] = None
+              dropout: Optional[AttnDropout] = None,
+              masks: Masks = NO_MASKS
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 forward: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. Returns ``(o [B, Sq, H, D], lse [B, H, Sq] float32)``;
+    CPU tensors. ``masks`` are ``(seg_q, seg_k, bias)`` as :func:`_masks`
+    gives them. Returns ``(o [B, Sq, H, D], lse [B, H, Sq] float32)``;
     gradients flow to q, k and v through :func:`flash_bwd`, with the same
-    ``dropout`` mask."""
+    ``dropout`` mask and ``masks``."""
     _shapes(q, k, v)
-    devices = {q.device, k.device, v.device}
+    devices = {t.device for t in (q, k, v, *masks) if t is not None}
     if len(devices) != 1:
-        raise ValueError(f"q, k, v on different devices: {devices}")
+        raise ValueError(f"q, k, v and the masks on different devices: "
+                         f"{devices}")
     if q.device.type == "cuda":
-        why = kernel_arg_error(q, k, v)
+        why = kernel_arg_error(q, k, v, masks)
         if why is not None:
             raise ValueError(f"flash_fwd kernel cannot take these inputs: "
                              f"{why}")
@@ -495,7 +603,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_fwd runs on CUDA or the CPU, not "
                          f"{q.device}")
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
-    return _FlashFwd.apply(q, k, v, bool(causal), scale, dropout)
+    return _FlashFwd.apply(q, k, v, *masks, bool(causal), scale, dropout)
 
 
 def flash_attention_hopper(query: torch.Tensor, key: torch.Tensor,
@@ -508,10 +616,12 @@ def flash_attention_hopper(query: torch.Tensor, key: torch.Tensor,
     input whose sequence lengths are multiples of 128 and whose
     ``pack_group(H)`` is non-zero goes to K4
     (:func:`~.flash_attention_packed.flash_attention_packed`); any other
-    input goes to K1. ``dropout`` is attention-prob dropout in the kernel,
-    seeded by ``dropout_seed`` (drawn from the next key when None, as
-    ``:969-973`` draws it). K1's segment ids and key bias are not ported:
-    asking for them on K1's route raises ``NotImplementedError``."""
+    input goes to K1. ``segment_ids`` ``[B, Sq]`` (and ``segment_ids_k``
+    ``[B, Sk]``, which defaults to ``segment_ids`` when Sq == Sk) keep
+    attention within equal ids; ``key_bias`` ``[B, Sk]`` is added to every
+    query's scores, as ``:955-975`` shapes them. ``dropout`` is
+    attention-prob dropout in the kernel, seeded by ``dropout_seed`` (drawn
+    from the next key when None, as ``:969-973`` draws it)."""
     from ...core import flags
     from .flash_attention_packed import flash_attention_packed, pack_group
     b, sq, h, d = query.shape
@@ -522,13 +632,11 @@ def flash_attention_hopper(query: torch.Tensor, key: torch.Tensor,
             query, key, value, causal=causal, scale=scale,
             segment_ids=segment_ids, segment_ids_k=segment_ids_k,
             dropout=dropout, dropout_seed=dropout_seed, key_bias=key_bias)
-    if segment_ids is not None or key_bias is not None:
-        raise NotImplementedError(
-            f"K1's segment ids and key bias are not ported yet (ROADMAP "
-            f"Queue 2); this input (d={d}, H={h}, HK={hk}, Sq={sq}, "
-            f"Sk={sk}) takes K1, not K4")
+    masks = _masks(b, sq, sk, query.device, segment_ids, segment_ids_k,
+                   key_bias)
     return flash_fwd(query, key, value, causal=causal, scale=scale,
-                     dropout=as_dropout(dropout, dropout_seed))[0]
+                     dropout=as_dropout(dropout, dropout_seed),
+                     masks=masks)[0]
 
 
 #: kernel launches since each count was last set to 0 (CUDA path only)

@@ -2,8 +2,10 @@
 
 Port of ``paddle_tpu/ops/_pallas/flash_attention_packed.py``. Where the
 whole key sequence fits one of the JAX package's tiles (Sk <= 512 at 12
-heads) it runs the forward ``_fwd_kernel_direct`` (K4a-direct) and the fused
-backward ``_bwd_fused_kernel`` (K4b-fused), as ``csrc/flash_packed.cu``;
+heads) it runs the forward ``_fwd_kernel_direct`` (K4a-direct: bf16 on the
+tensor cores, ``csrc/flash_packed_tc.cu``; float32 on the CUDA cores,
+``csrc/flash_packed.cu``) and the fused backward ``_bwd_fused_kernel``
+(K4b-fused, ``csrc/flash_packed.cu``);
 where it does not, the streamed forms ``_fwd_kernel``, ``_bwd_dq_kernel``
 and ``_bwd_dkv_kernel``, and ``_bwd_dkv_kernel_direct`` when all the
 queries fit one tile while the keys do not, as ``csrc/flash_packed_stream.cu``.
@@ -18,7 +20,12 @@ that is the TPU's layout and is not carried over. Every kernel reads the
 public ``[B, S, H, 64]`` layout through strides, one head per block.
 
 - :func:`flash_packed_fwd` (K4a-direct) and :func:`flash_packed_fwd_stream`
-  ``-> (o [B, Sq, H, 64], lse [B, H, Sq] f32)``;
+  ``-> (o [B, Sq, H, 64], lse [B, H, Sq] f32)``; on the card
+  :func:`flash_packed_fwd` picks K4a-direct's body by dtype, openly: bf16
+  the tensor-core body (counted in ``flash_packed_fwd_tc.launches``), float32
+  the CUDA-core body (``flash_packed_fwd.launches``), whose f32 products are
+  the reference's (on the tensor cores f32 would be TF32); nothing falls back
+  from one body to the other;
 - :func:`flash_packed_bwd` (K4b-fused) ``-> (dq, dk, dv)``, with ``delta =
   rowsum(do * o)`` a torch op here, as ``_bwd`` computes it outside its
   kernel; :func:`flash_packed_bwd_dq` ``-> dq`` and
@@ -51,13 +58,14 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .flash_attention import (NEG_INF, _DTYPE_CODE, AttnDropout,
+from .flash_attention import (NEG_INF, _DTYPE_CODE, AttnDropout, Masks,
                               _bwd_arg_error, _call, _delta, _dropout_args,
-                              _keep, _kernel, _strides, as_dropout,
-                              kernel_arg_error)
+                              _keep, _kernel, _mask_ptrs, _masked_scores,
+                              _masks, _strides, as_dropout, kernel_arg_error)
 
 __all__ = ["flash_attention_packed", "flash_packed_fwd",
-           "flash_packed_fwd_reference", "flash_packed_bwd",
+           "flash_packed_fwd_tc", "flash_packed_fwd_reference",
+           "flash_packed_bwd",
            "flash_packed_bwd_reference", "flash_packed_fwd_stream",
            "flash_packed_fwd_stream_reference", "flash_packed_bwd_dq",
            "flash_packed_bwd_dq_reference", "flash_packed_bwd_dkv",
@@ -70,9 +78,6 @@ MAX_PACK_LANES = 1024
 MAX_SEQ_K = 512  # the keys K4a-direct's kernel keeps in shared memory
 MAX_SEQ_Q_DIRECT = 512  # the queries dk/dv-direct's kernel stages at once
 KERNEL_TILE = 64  # query rows and keys per tile inside every K4 kernel
-
-Masks = Tuple[Optional[torch.Tensor], Optional[torch.Tensor],
-              Optional[torch.Tensor]]
 
 
 def pack_group(num_heads: int) -> int:
@@ -165,53 +170,11 @@ def _shapes(q, k, v):
     return b, sq, sk, h
 
 
-def _masks(b, sq, sk, device, segment_ids, segment_ids_k, key_bias
-           ) -> Masks:
-    """``(seg_q [B, Sq] int32, seg_k [B, Sk] int32, bias [B, Sk] f32)``,
-    each dense or None, as ``flash_attention_packed`` (``:776-801``)
-    shapes them: ``segment_ids_k`` defaults to ``segment_ids`` when
-    Sq == Sk, and the bias becomes float32 only here."""
-    seg_q = seg_k = bias = None
-    if segment_ids is not None:
-        sk_ids = segment_ids_k if segment_ids_k is not None else \
-            (segment_ids if sq == sk else None)
-        if sk_ids is None:
-            raise ValueError("segment_ids_k required when sq != sk")
-        seg_q = torch.as_tensor(segment_ids, device=device)
-        seg_k = torch.as_tensor(sk_ids, device=device)
-        for name, ids, s in (("segment_ids", seg_q, sq),
-                             ("segment_ids_k", seg_k, sk)):
-            if tuple(ids.shape) != (b, s):
-                raise ValueError(f"{name} must be [batch, seq] = "
-                                 f"[{b}, {s}]; got {tuple(ids.shape)}")
-        seg_q = seg_q.to(torch.int32).contiguous()
-        seg_k = seg_k.to(torch.int32).contiguous()
-    elif segment_ids_k is not None:
-        raise ValueError("segment_ids_k given without segment_ids")
-    if key_bias is not None:
-        bias = torch.as_tensor(key_bias, device=device)
-        if bias.numel() != b * sk:
-            raise ValueError(f"key_bias must hold [batch, seq_k] = "
-                             f"[{b}, {sk}] values; got {tuple(bias.shape)}")
-        bias = bias.to(torch.float32).reshape(b, sk).contiguous()
-    return seg_q, seg_k, bias
-
-
 def _scores(q, k, causal, scale, masks) -> torch.Tensor:
     """f32 scores ``[B, H, Sq, Sk]`` after ``_fwd_kernel_direct``'s masks,
     in its order."""
-    seg_q, seg_k, bias = masks
-    sq, sk = q.shape[1], k.shape[1]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    if causal:
-        valid = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
-        s = torch.where(torch.tril(valid, diagonal=sk - sq), s, NEG_INF)
-    if seg_q is not None:
-        same = seg_q[:, None, :, None] == seg_k[:, None, None, :]
-        s = torch.where(same, s, NEG_INF)
-    if bias is not None:
-        s = s + bias[:, None, None, :]
-    return s
+    return _masked_scores(s, causal, masks)
 
 
 def _dropped(p, keep):
@@ -397,25 +360,12 @@ def _kernel_arg_error(q, k, v, masks, do=None) -> Optional[str]:
     """Why the CUDA kernels cannot take these tensors, or None: K1-K3's
     limits on q, k, v (and do), at least one query and one key, and masks
     of the kernels' shapes and types."""
-    b, sq, sk, h = _shapes(q, k, v)
-    why = kernel_arg_error(q, k, v) if do is None else \
-        _bwd_arg_error(q, k, v, do)
-    if why is not None:
-        return why
-    if sq < 1 or sk < 1:
-        return f"shape {tuple(q.shape)} has no query or no key"
-    seg_q, seg_k, bias = masks
-    if (seg_q is None) != (seg_k is None):
-        return "segment ids need both seg_q and seg_k"
-    for name, t, shape, dtype in (("seg_q", seg_q, (b, sq), torch.int32),
-                                  ("seg_k", seg_k, (b, sk), torch.int32),
-                                  ("key_bias", bias, (b, sk), torch.float32)):
-        if t is not None and (tuple(t.shape) != shape or t.dtype != dtype
-                              or t.device != q.device
-                              or not t.is_contiguous()):
-            return f"{name} must be dense {dtype} {list(shape)} on " \
-                   f"{q.device}; got {t.dtype} {list(t.shape)} on {t.device}"
-    return None
+    _, sq, sk, _ = _shapes(q, k, v)
+    why = kernel_arg_error(q, k, v, masks) if do is None else \
+        _bwd_arg_error(q, k, v, do, masks)
+    if why is None and (sq < 1 or sk < 1):
+        why = f"shape {tuple(q.shape)} has no query or no key"
+    return why
 
 
 def _require(q, k, v, masks, what, do=None, max_sk: Optional[int] = None,
@@ -444,23 +394,33 @@ def _require_stats(q, lse, delta, what) -> None:
                              f"[{b}, {h}, {sq}] on {q.device}")
 
 
-def _mask_ptrs(masks):
-    return [None if t is None else t.data_ptr() for t in masks]
-
-
 def _launch_fwd(q, k, v, causal: bool, scale: float, masks: Masks,
                 dropout: Optional[AttnDropout] = None):
-    """K4a-direct on CUDA tensors: ``(o, lse)``."""
-    _require(q, k, v, masks, "flash_packed_fwd", max_sk=MAX_SEQ_K)
-    lib, fn = _kernel("flash_packed", "paddle_flash_packed_fwd", 8, 9)
+    """K4a-direct on CUDA tensors: ``(o, lse)``, from the body of q's
+    dtype: bf16 the tensor-core body (``flash_packed_tc.cu``, counted by
+    :func:`flash_packed_fwd_tc`), float32 the CUDA-core body
+    (``flash_packed.cu``, counted by :func:`flash_packed_fwd`). The
+    tensor-core body reads rows by 16-byte copies: q, k and v must start on
+    16 bytes and have batch, sequence and head strides of whole 8-value
+    pieces."""
+    tc = q.dtype == torch.bfloat16
+    what = "flash_packed_fwd_tc" if tc else "flash_packed_fwd"
+    _require(q, k, v, masks, what, max_sk=MAX_SEQ_K)
+    for name, t in (("q", q), ("k", k), ("v", v)) if tc else ():
+        if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+            raise ValueError(f"{what} kernel cannot take these inputs: "
+                             f"{name}'s rows are not 16-byte aligned "
+                             f"(strides {t.stride()})")
+    lib, fn = _kernel("flash_packed_tc" if tc else "flash_packed",
+                      "paddle_" + what, 8, 9)
     b, sq, sk, h = _shapes(q, k, v)
     o = torch.empty((b, sq, h, HEAD_D), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    _call(lib, fn, "flash_packed_fwd", q, k, q.data_ptr(), k.data_ptr(),
-          v.data_ptr(), o.data_ptr(), lse.data_ptr(), *_mask_ptrs(masks),
-          b, h, h, sq, sk, HEAD_D, *_strides(q, k, v), float(scale),
-          int(bool(causal)), _DTYPE_CODE[q.dtype], *_dropout_args(dropout))
-    flash_packed_fwd.launches += 1
+    _call(lib, fn, what, q, k, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+          o.data_ptr(), lse.data_ptr(), *_mask_ptrs(masks), b, h, h, sq, sk,
+          HEAD_D, *_strides(q, k, v), float(scale), int(bool(causal)),
+          _DTYPE_CODE[q.dtype], *_dropout_args(dropout))
+    (flash_packed_fwd_tc if tc else flash_packed_fwd).launches += 1
     return o, lse
 
 
@@ -561,14 +521,35 @@ def flash_packed_fwd(q, k, v, causal: bool = False,
                      masks: Masks = (None, None, None),
                      dropout: Optional[AttnDropout] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K4a-direct: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. Not differentiable itself (:func:`flash_attention_packed`
+    """K4a-direct: for CUDA tensors the kernel body of their dtype (bf16
+    the tensor-core body, float32 the CUDA-core body), for CPU tensors the
+    plain version. Not differentiable itself (:func:`flash_attention_packed`
     is). Returns ``(o [B, Sq, H, 64], lse [B, H, Sq] float32)``."""
     dev = _same_device(q, k, v, *masks)
     scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
     if dev.type == "cpu":
         return flash_packed_fwd_reference(q, k, v, causal, scale, masks,
                                           dropout)
+    return _launch_fwd(q, k, v, causal, scale, masks, dropout)
+
+
+def flash_packed_fwd_tc(q, k, v, causal: bool = False,
+                        scale: Optional[float] = None,
+                        masks: Masks = (None, None, None),
+                        dropout: Optional[AttnDropout] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4a-direct's tensor-core body (bf16 only): the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors. :func:`flash_packed_fwd`
+    reaches it for every bf16 CUDA input."""
+    dev = _same_device(q, k, v, *masks)
+    scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
+    if dev.type == "cpu":
+        return flash_packed_fwd_reference(q, k, v, causal, scale, masks,
+                                          dropout)
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_packed_fwd_tc takes bfloat16, not "
+                         f"{q.dtype} (flash_packed_fwd runs float32 on its "
+                         f"CUDA-core body)")
     return _launch_fwd(q, k, v, causal, scale, masks, dropout)
 
 
@@ -736,8 +717,11 @@ def flash_attention_packed(query, key, value, causal: bool = False,
                               forms, as_dropout(dropout, dropout_seed))
 
 
-#: kernel launches since each count was last set to 0 (CUDA path only)
+#: kernel launches since each count was last set to 0 (CUDA path only);
+#: flash_packed_fwd counts K4a-direct's float32 body, flash_packed_fwd_tc its
+#: bf16 tensor-core body
 flash_packed_fwd.launches = 0
+flash_packed_fwd_tc.launches = 0
 flash_packed_bwd.launches = 0
 flash_packed_fwd_stream.launches = 0
 flash_packed_bwd_dq.launches = 0

@@ -285,6 +285,30 @@ def test_k4_wrappers_refuse_what_the_kernels_do_not_take():
         hfp._launch_fwd(q64, kv640, kv640, False, 0.125, (None, None, None))
 
 
+def test_k4a_tensor_core_body_wrapper():
+    """K4a-direct's bf16 tensor-core body has its own wrapper and count:
+    on the CPU it is the same plain version as ``flash_packed_fwd``; it
+    refuses float32 on the card (that is the CUDA-core body's), and both
+    launchers refuse CPU tensors before any pointer reaches a kernel."""
+    rng = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (1, 128, 2, 64)).astype(np.float32)).bfloat16() for _ in range(3))
+    bias = torch.from_numpy(rng.standard_normal((1, 128)).astype(np.float32))
+    masks = (None, None, bias)
+    hfp.flash_packed_fwd_tc.launches = hfp.flash_packed_fwd.launches = 0
+    got = hfp.flash_packed_fwd_tc(q, k, v, True, None, masks)
+    want = hfp.flash_packed_fwd(q, k, v, True, None, masks)
+    ref = hfp.flash_packed_fwd_reference(q, k, v, True, None, masks)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert hfp.flash_packed_fwd_tc.launches == 0 == \
+        hfp.flash_packed_fwd.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        hfp._launch_fwd(q, k, v, False, 0.125, masks)
+
+
 # -- scaled_dot_product_attention: routing -----------------------------------
 
 B, S, H = 2, 256, 2   # B != S: a [B, S] mask is a key mask
@@ -391,26 +415,36 @@ def test_sdpa_unsupported_shapes_take_the_dense_path(monkeypatch):
     assert calls == ["_dense_attention"]
 
 
-def test_sdpa_d128_with_a_key_mask_raises_on_the_kernel_route():
-    """d=128 takes K1, whose segment ids and key bias are not ported: the
-    port raises rather than falling back to the dense path; without a mask
-    K1 runs (its plain version on the CPU)."""
+def test_sdpa_d128_with_a_key_mask_raises_on_the_kernel_route(monkeypatch):
+    """d=128 takes K1, which now takes segment ids and the key bias: a bool
+    key mask (as segment ids), a float key mask (as the key bias) and
+    ``segment_ids`` all compute on the kernel route (K1's plain version on
+    the CPU, never the dense path) and match the JAX function, f32 within
+    1e-5 + 1e-5·|ref|; without a mask K1 runs as before."""
+    calls = []
+    for mod, name in ROUTE_FUNCS:
+        _spy(monkeypatch, mod, name, calls)
     rng = np.random.default_rng(6)
     q, k, v = (torch.from_numpy(rng.standard_normal(
         (B, S, H, 128)).astype(np.float32)) for _ in range(3))
     att = torch.from_numpy(_lengths_mask())
-    with pytest.raises(NotImplementedError, match="K1's segment ids"):
-        TF.scaled_dot_product_attention(q, k, v, attn_mask=att)
-    with pytest.raises(NotImplementedError, match="K1's segment ids"):
-        TF.scaled_dot_product_attention(
-            q, k, v, attn_mask=(1.0 - att[:, None, None, :].float()) * -1e9)
-    with pytest.raises(NotImplementedError, match="K1's segment ids"):
-        TF.scaled_dot_product_attention(
-            q, k, v, segment_ids=torch.ones(B, S, dtype=torch.int32))
-    want = JF.scaled_dot_product_attention(
-        *(jnp.asarray(x.numpy()) for x in (q, k, v)))
-    got = TF.scaled_dot_product_attention(q, k, v)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+    fmask = (1.0 - att[:, None, None, :].float()) * -1e9
+    seg = torch.ones(B, S, dtype=torch.int32)
+    jq, jk, jv = (jnp.asarray(x.numpy()) for x in (q, k, v))
+    for kwargs, jkwargs in (
+            (dict(attn_mask=att),
+             dict(attn_mask=jnp.asarray(att.numpy())[:, None, None, :])),
+            (dict(attn_mask=fmask),
+             dict(attn_mask=jnp.asarray(fmask.numpy()))),
+            (dict(segment_ids=seg), dict(segment_ids=jnp.asarray(
+                seg.numpy()))),
+            ({}, {})):
+        calls.clear()
+        want = JF.scaled_dot_product_attention(jq, jk, jv, **jkwargs)
+        got = TF.scaled_dot_product_attention(q, k, v, **kwargs)
+        assert "_dense_attention" not in calls, kwargs
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                                   rtol=1e-5)
 
 
 def test_sdpa_dropout_raises_in_training_and_is_a_no_op_in_eval():

@@ -38,6 +38,7 @@ import paddle_tpu as paddle
 from paddle_tpu import nn as jnn
 from paddle_tpu.core import flags as jflags
 from paddle_tpu.framework.functional import functional_call, get_params
+from paddle_tpu.nn import functional as JF
 from paddle_tpu_torch.convert import from_jax_state_dict, to_jax_state_dict
 from paddle_tpu_torch.core import flags as tflags
 from paddle_tpu_torch.nn import MultiHeadAttention
@@ -410,7 +411,8 @@ def test_ops_flash_attention_reaches_k4_at_d64(d, heads, route, monkeypatch):
 def test_flash_head_pack_flag_routes_as_in_jax(monkeypatch):
     """``flash_head_pack`` exists with JAX's default (1); at 0 a d=64 input
     takes K1 in the port as ``flash_attention_pallas`` takes its unpacked
-    kernel in JAX, and K1 still raises on masks."""
+    kernel in JAX, and K1 takes a key mask there as the JAX function does
+    (f32 within 1e-5 + 1e-5·|ref|)."""
     assert tflags.flag("flash_head_pack") == 1 == \
         jflags.flag("flash_head_pack")
     q, k, v = _qkv(1, 128, 2, 64, seed=5)
@@ -426,9 +428,16 @@ def test_flash_head_pack_flag_routes_as_in_jax(monkeypatch):
         with entry_spy(monkeypatch) as calls:
             got = hfa.flash_attention_hopper(tq, tk, tv)
         assert calls == ["flash_fwd"]
-        with pytest.raises(NotImplementedError, match="K1's segment ids"):
-            TF.scaled_dot_product_attention(
-                tq, tk, tv, attn_mask=torch.ones(1, 128, dtype=torch.bool))
+        att = np.arange(128)[None, :] < 100
+        with entry_spy(monkeypatch) as calls:
+            masked = TF.scaled_dot_product_attention(
+                tq, tk, tv, attn_mask=torch.from_numpy(att))
+        assert calls == ["flash_fwd"]
+        want = JF.scaled_dot_product_attention(
+            *(jnp.asarray(x) for x in (q, k, v)),
+            attn_mask=jnp.asarray(att)[:, None, None, :])
+        np.testing.assert_allclose(masked.numpy(), np.asarray(want),
+                                   atol=1e-5, rtol=1e-5)
     finally:
         tflags.set_flags({"flash_head_pack": 1})
         jflags.set_flags({"flash_head_pack": 1})
