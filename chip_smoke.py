@@ -15,8 +15,13 @@ context:
 
 1. env     torch, CUDA, nvcc and the card as nvidia-smi names it;
 2. build   the kernels, timed, with ptxas's register and spill report;
-3. kernel  K1 (flash_fwd) against flash_fwd_reference at the serving
-           path's shapes and the edge cases, and timed at S=2048;
+3. kernel  K1 (flash_fwd: bf16 on its tensor-core body flash_fwd_tc,
+           flash_fwd_tc.cu, float32 on its CUDA-core body, flash_fwd.cu,
+           each counted apart) against flash_fwd_reference at the serving
+           path's shapes and the edge cases, the tensor-core body's masked,
+           ragged, GQA and dropout forms at D = 64, 128 and 256, and timed
+           at S=2048 (bf16 at B=1 and at the training shape B=4, float32
+           at B=1);
 4. kernel_bwd  K2 and K3 (flash_bwd) against flash_bwd_reference in the
            same cases, and timed at the training shape (B=4, S=2048);
    kernel_masked  K1, K2 and K3 with segment ids and the key bias at GPT-3
@@ -32,12 +37,15 @@ context:
            versions with and without masks, and at BERT-base's shape (B=64,
            S=512, H=12) with bench.py's padding bias, where they are timed
            (the float32 body on the same inputs in float32);
-6. kernel_packed_stream  K4's streamed forms (flash_packed_stream.cu:
-           forward, dq, dk/dv, dk/dv-direct) against their plain versions
-           in 17 cases (f32 and bf16, masks, causal with Sq != Sk, Sk = 640,
+6. kernel_packed_stream  K4's streamed forms (the forward: bf16 on K1's
+           tensor-core body, flash_packed_fwd_stream_tc, float32 on
+           flash_packed_stream.cu; dq, dk/dv, dk/dv-direct on
+           flash_packed_stream.cu) against their plain versions in 20
+           cases (f32 and bf16, masks, causal with Sq != Sk, Sk = 640,
            rows with no key), then compared and timed at ERNIE's long shape
            (B=16, S=2048, H=12, bf16, with and without bench.py's padding
-           bias) and dk/dv-direct at 512 queries over 2048 keys;
+           bias; the float32 forward body on the same inputs in f32) and
+           dk/dv-direct at 512 queries over 2048 keys;
 7. kernel_conv  K5-K8 (conv.cu: mm, mm_wgrad, c3, c3_wgrad) against their
            plain versions, forward with stats, input gradient and weight
            gradient, in 15 cases (stride 1 and 2, prologue with ReLU or
@@ -48,18 +56,20 @@ context:
            RESNET50_TOP3_SHAPES at B=256 (stats over two reduction passes)
            against their bounds, their plain versions and cuDNN;
 8. serve_f32   3 requests x 16 tokens, token-exact against the model's
-           dense-cache ``generate`` (no kernel there);
+           dense-cache ``generate``; every prefill runs K1's float32
+           body once per layer;
 9. serve_bf16  8 requests of 64..1536 prompt tokens x 32 tokens through a
            pool of about half the trace's blocks, shrunk until a CPU dry
            run of the trace preempts (spill to pinned host memory and
-           restore); every prefill runs K1 once per layer;
+           restore); every prefill runs K1's tensor-core body once per
+           layer;
 10. train_grad_f32  one forward and backward of a 2-layer cut of the model
            at full width in f32, through K1-K3 on the card and through the
            plain versions on the CPU, every gradient compared;
 11. train_bf16  the GPT training slice: 24 layers, AMP-O2, AdamW with
            float32 masters, B=4 x S=2048 batches as bench.py makes them, 2
-           warm-up and 8 timed steps; every step runs K1, K2 and K3 once
-           per layer;
+           warm-up and 8 timed steps; every step runs K1's tensor-core
+           body, K2 and K3 once per layer;
 12. train_grad_f32_bert  as 10, for a 2-layer cut of BERT-base with a
            padded batch, through K4a and K4b;
 13. train_bert_bf16  the BERT slice: 12 layers, AMP-O2 AdamW, B=64 x
@@ -81,12 +91,13 @@ context:
            masters, in three forms: bench.py's config 5 (PipelineLayer and
            make_pipeline_train_step, 512 positions, B=64 x 512, 2+8 steps;
            K4a and K4b 12 a step), the same at 2048 positions (B=16 x 2048,
-           2+8 steps; the streamed forward, dq and dk/dv 12 a step), and
+           2+8 steps; the streamed forward's tensor-core body, dq and
+           dk/dv 12 a step), and
            ErnieForPretraining at B=16 x 2048 with bench.py's padding mask
            (2+4 steps); every earlier path launches no streamed kernel;
 18. cross_attention  nn.MultiHeadAttention(768, 12), 512 queries over 2048
-           keys, B=16, bf16: the streamed forward, dq and dk/dv-direct once
-           each, held against the plain dense path.
+           keys, B=16, bf16: the streamed forward's tensor-core body, dq
+           and dk/dv-direct once each, held against the plain dense path.
 
 Attention-prob dropout and K9 (after phase 7, in this order):
 - kernel / kernel_packed / kernel_packed_stream, part "dropout": the nine
@@ -175,7 +186,12 @@ def attention_pairs(sq: int, sk: int, causal: bool) -> int:
     return sum(min(sk, max(0, i + off + 1)) for i in range(sq))
 
 
-def median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def median_ms(fn, iters: int = 20, warmup: int = 3, reps: int = 1) -> float:
+    """The median over ``iters`` samples of one call's time between CUDA
+    events. With ``reps`` > 1 a sample is ``reps`` calls back to back after
+    one untimed call, over ``reps``: the queue stays ahead of the card, so a
+    kernel shorter than its wrapper's host time is timed on the card, not
+    on the host."""
     import torch
     for _ in range(warmup):
         fn()
@@ -184,11 +200,14 @@ def median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if reps > 1:
+            fn()
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     times.sort()
     return times[len(times) // 2]
 
@@ -286,18 +305,55 @@ def k1_inputs(torch, b, sq, sk, h, hk, d, dtype, seed):
     return randn(b, sq, h, d), randn(b, sk, hk, d), randn(b, sk, hk, d)
 
 
+# name, B, Sq, Sk, H, HK, D, causal, masks, dropout: the tensor-core body's
+# forms beside K1_CASES (bf16)
+K1_TC_CASES = [
+    ("d64_sq384_sk640_causal_segments_bias", 1, 384, 640, 8, 8, 64, True,
+     "seg_bias", False),
+    ("d256_gqa_s333_key_bias", 1, 333, 333, 8, 2, 256, False, "bias",
+     False),
+    ("d128_sq256_sk640_segment_ids_k", 2, 256, 640, 8, 8, 128, False, "segk",
+     False),
+    ("d128_sq640_sk384_causal_masked_rows_bias", 1, 640, 384, 8, 4, 128,
+     True, "bias", False),
+    ("d128_causal_segments_bias_dropout", 2, 256, 256, 8, 8, 128, True,
+     "seg_bias", True),
+    ("d256_gqa_s300_causal_dropout", 1, 300, 300, 8, 4, 256, True, None,
+     True),
+]
+
+
+def k1_body(dt):
+    """The K1 body a dtype runs: bf16 the tensor-core body, float32 the
+    CUDA-core body."""
+    return "flash_fwd_tc" if dt == "bf16" else "flash_fwd"
+
+
 def phase_kernel(torch, hfa, peaks):
     """Every case through the kernel and the plain version on the same
-    inputs, then the kernel, the plain version and the library call timed
-    at the main path's largest prefill shape."""
+    inputs (bf16 on the tensor-core body, float32 on the CUDA-core body,
+    each counted apart), the tensor-core body's masked and dropout forms at
+    D = 64, 128 and 256, then the kernel, the plain version and the
+    library call timed at the main path's largest prefill shape (bf16, B=1)
+    and at the GPT training shape (B=4), and the float32 body at B=1."""
     import torch.nn.functional as F
+    from paddle_tpu_torch.ops._hopper.build import library
+    # the plain version rounds at the body's stages only if they agree
+    stage = library("flash_fwd_tc").paddle_flash_fwd_tc_stage
+    stages = {d: stage(d) for d in hfa.TC_KEY_TILE}
+    check(stages == hfa.TC_KEY_TILE,
+          f"flash_fwd_tc.cu's stages {stages} are not TC_KEY_TILE "
+          f"{hfa.TC_KEY_TILE}")
     results = []
-    worst = 0.0
+    worst = {"flash_fwd": 0.0, "flash_fwd_tc": 0.0}
     for i, (name, b, sq, sk, h, hk, d, causal, dt) in enumerate(K1_CASES):
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
         q, k, v = k1_inputs(torch, b, sq, sk, h, hk, d, dtype, seed=100 + i)
+        before = {n: getattr(hfa, n).launches for n in worst}
         o, lse = hfa.flash_fwd(q, k, v, causal=causal)
         torch.cuda.synchronize()
+        ran = [n for n in worst if getattr(hfa, n).launches != before[n]]
+        check(ran == [k1_body(dt)], f"{name}: {dt} ran the bodies {ran}")
         ro, rlse = hfa.flash_fwd_reference(q, k, v, causal=causal)
         torch.cuda.synchronize()
         check(o.shape == (b, sq, h, d) and o.dtype == dtype,
@@ -317,33 +373,81 @@ def phase_kernel(torch, hfa, peaks):
             # f32 sums over up to 1024 keys in another order
             ok = float(err_o.max()) <= 1e-4 and float(err_lse.max()) <= 1e-4
         row = {"case": name, "shape": [b, sq, sk, h, hk, d], "causal": causal,
-               "dtype": dt, "max_abs_err_o": float(err_o.max()),
+               "dtype": dt, "body": k1_body(dt),
+               "max_abs_err_o": float(err_o.max()),
                "max_abs_err_lse": float(err_lse.max()), "ok": ok}
         results.append(row)
         check(ok, f"K1 disagrees with its plain version: {row}")
-        worst = max(worst, float(err_o.max()))
+        worst[k1_body(dt)] = max(worst[k1_body(dt)], float(err_o.max()))
+    for i, (name, b, sq, sk, h, hk, d, causal, mask, drop) in enumerate(
+            K1_TC_CASES):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(150 + i)
+        q, k, v = k1_inputs(torch, b, sq, sk, h, hk, d, torch.bfloat16,
+                            seed=160 + i)
+        masks = mask_inputs(torch, g, b, sq, sk, torch.bfloat16, mask)
+        dr = hfa.AttnDropout(DROP_RATE, 170 + i) if drop else None
+        before = hfa.flash_fwd_tc.launches
+        o, lse = hfa.flash_fwd(q, k, v, causal, dropout=dr, masks=masks)
+        torch.cuda.synchronize()
+        check(hfa.flash_fwd_tc.launches == before + 1,
+              f"{name}: the tensor-core body did not run")
+        ro, rlse = hfa.flash_fwd_reference(q, k, v, causal, dropout=dr,
+                                           masks=masks)
+        row = {"case": name, "shape": [b, sq, sk, h, hk, d], "causal": causal,
+               "dtype": "bf16", "body": "flash_fwd_tc",
+               "masks": [t is not None for t in masks],
+               "dropout": None if dr is None else list(dr)}
+        worst["flash_fwd_tc"] = max(worst["flash_fwd_tc"], compare(
+            torch, "o", o, ro, "bf16", row, nonzero=True))
+        err_lse = (lse - rlse).abs()
+        row["max_abs_err_lse"] = float(err_lse.max())
+        row["ok"] &= bool((err_lse <= 1e-2 * (1 + rlse.abs())).all())
+        # rows with no valid key: o = 0, exactly
+        empty = rlse <= hfa.NEG_INF / 2                    # [B, H, Sq]
+        row["empty_rows"] = int(empty.sum())
+        row["ok"] &= bool((o.transpose(1, 2)[empty] == 0).all())
+        check(row["ok"], f"K1's tensor-core body disagrees: {row}")
+        results.append(row)
 
-    b, s, h, d = 1, 2048, 16, 128
-    q, k, v = k1_inputs(torch, b, s, s, h, h, d, torch.bfloat16, seed=7)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    kernel_ms = median_ms(lambda: hfa.flash_fwd(q, k, v, causal=True))
-    plain_ms = median_ms(
-        lambda: hfa.flash_fwd_reference(q, k, v, causal=True))
-    library_ms = median_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True))
-    flops = 4 * b * h * d * attention_pairs(s, s, True)
-    nbytes = 4 * b * s * h * d * 2 + b * h * s * 4    # q, k, v, o + lse
-    t_ops = flops / peaks["bf16"] * 1e3
-    t_bytes = nbytes / peaks["bytes"] * 1e3
-    timing = {"shape": [b, s, s, h, h, d], "dtype": "bf16", "causal": True,
-              "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-              "library_ms": library_ms, "flops": flops, "bytes": nbytes,
-              "bound_ms": max(t_ops, t_bytes),
-              "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-              "peak_sheet": peaks["sheet"],
-              "tflops": flops / kernel_ms / 1e9}
-    emit({"phase": "kernel", "kernel": "flash_fwd", "cases": results,
-          "timing": timing})
+    timing = {}
+    s, h, d = 2048, 16, 128
+    for kname, b, dt in (("flash_fwd_tc", 1, "bf16"), ("flash_fwd_tc", 4,
+                                                       "bf16"),
+                         ("flash_fwd", 1, "f32")):
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        q, k, v = k1_inputs(torch, b, s, s, h, h, d, dtype, seed=7)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        # the kernels and SDPA 10 calls a sample: K1 at B=1 is shorter than
+        # its wrapper's host time
+        kernel_ms = median_ms(lambda: hfa.flash_fwd(q, k, v, causal=True),
+                              reps=10)
+        plain_ms = median_ms(
+            lambda: hfa.flash_fwd_reference(q, k, v, causal=True),
+            iters=20 if b == 1 else 5, warmup=3 if b == 1 else 1)
+        library_ms = median_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), reps=10)
+        flops = 4 * b * h * d * attention_pairs(s, s, True)
+        esize = 2 if dt == "bf16" else 4
+        nbytes = 4 * b * s * h * d * esize + b * h * s * 4  # q, k, v, o, lse
+        # float32 products run on the CUDA cores: the f32 peak bounds them
+        t_ops = flops / peaks[dt] * 1e3
+        t_bytes = nbytes / peaks["bytes"] * 1e3
+        row = {"shape": [b, s, s, h, h, d], "dtype": dt, "causal": True,
+               "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "flops": flops, "bytes": nbytes,
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "peak_sheet": peaks["sheet"],
+               "tflops": flops / kernel_ms / 1e9}
+        if kname in timing:
+            timing[kname]["train_shape"] = row
+        else:
+            timing[kname] = row
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel", "kernels": ["flash_fwd_tc", "flash_fwd"],
+          "tc_key_stages": stages, "cases": results, "timing": timing})
     return worst, timing
 
 
@@ -437,7 +541,7 @@ def phase_kernel_bwd(torch, hfa, peaks):
     check(bool((err_o <= 2e-2 + 2e-2 * ro.float().abs()).all()) and
           row["k1_max_abs_err_lse"] <= 1e-2,
           f"K1 disagrees with its plain version at the training shape: {row}")
-    worst["flash_fwd"] = row["k1_max_abs_err_o"]
+    worst["flash_fwd_tc"] = row["k1_max_abs_err_o"]
     del ro, rlse, err_o
     results.append(row)
     delta = hfa._delta(o, do)
@@ -519,7 +623,7 @@ def phase_kernel_masked(torch, np, hfa, hfp, MultiHeadAttention, PF):
     agree with the dense path through the same projections."""
     b, s, h, d = 4, 2048, 16, 128
     sets, lengths = masked_sets(torch, np, b, s)
-    worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    worst = {"flash_fwd_tc": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     rows = []
     for hk in (16, 4):
         q, k, v = k1_inputs(torch, b, s, s, h, hk, d, torch.bfloat16,
@@ -533,7 +637,7 @@ def phase_kernel_masked(torch, np, hfa, hfp, MultiHeadAttention, PF):
                 torch, hfa, (f"{mname}_hk{hk}", b, s, s, h, hk, d, "bf16"),
                 q, k, v, do, causal, worst, masks=masks)
             ro, rlse = hfa.flash_fwd_reference(q, k, v, causal, masks=masks)
-            worst["flash_fwd"] = max(worst["flash_fwd"], compare(
+            worst["flash_fwd_tc"] = max(worst["flash_fwd_tc"], compare(
                 torch, "o", o, ro, "bf16", row))
             err_lse = (lse - rlse).abs()
             row["max_abs_err_lse"] = float(err_lse.max())
@@ -561,7 +665,7 @@ def phase_kernel_masked(torch, np, hfa, hfp, MultiHeadAttention, PF):
         delta = hfa._delta(o, do)
         timing[mname] = {
             "causal": causal,
-            "flash_fwd": median_ms(lambda: hfa.flash_fwd(
+            "flash_fwd_tc": median_ms(lambda: hfa.flash_fwd(
                 q, k, v, causal, masks=masks), iters=5),
             "flash_bwd_dq": median_ms(lambda: hfa.flash_bwd_dq(
                 q, k, v, do, lse, delta, causal, scale, masks=masks),
@@ -591,8 +695,9 @@ def phase_kernel_masked(torch, np, hfa, hfp, MultiHeadAttention, PF):
     got = dict(zip(names, torch.autograd.grad(out, [x] + params, dout)))
     torch.cuda.synchronize()
     launches = k4_counts(hfa, hfp)
-    check(launches == {**{n: 0 for n in ATTENTION_KERNELS}, "flash_fwd": 1,
-                       "flash_bwd_dq": 1, "flash_bwd_dkv": 1},
+    check(launches == {**{n: 0 for n in ATTENTION_KERNELS},
+                       "flash_fwd_tc": 1, "flash_bwd_dq": 1,
+                       "flash_bwd_dkv": 1},
           f"kernel_masked: the layer's launches {launches}")
     qp = mha.q_proj(x).view(b, s, h, d)
     kp = mha.k_proj(x).view(b, s, h, d)
@@ -613,9 +718,9 @@ def phase_kernel_masked(torch, np, hfa, hfp, MultiHeadAttention, PF):
     emit({"phase": "kernel_masked", "shape": [b, s, s, h, d],
           "kv_heads": [16, 4], "key_lengths": lengths, "cases": rows,
           "timing_ms": timing, "layer": layer,
-          "kernels": ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"]})
-    # bf16 on both sides; the kernels round nothing before the value
-    # product, the dense path rounds the softmax first
+          "kernels": ["flash_fwd_tc", "flash_bwd_dq", "flash_bwd_dkv"]})
+    # bf16 on both sides; the kernels round p against a running max, the
+    # dense path rounds the normalised softmax
     check(max(errs.values()) <= 2e-2, f"kernel_masked layer disagrees: "
           f"{layer}")
     del mha, x, dout, out, got, qp, kp, vp, attn, ref_out, ref
@@ -663,6 +768,14 @@ def k4_inputs(torch, b, sq, sk, h, dtype, mask, seed):
     else:
         q, k, v = randn(b, sq, h, 64), randn(b, sk, h, 64), randn(b, sk, h, 64)
     do = randn(b, sq, h, 64)
+    return q, k, v, do, mask_inputs(torch, g, b, sq, sk, dtype, mask)
+
+
+def mask_inputs(torch, g, b, sq, sk, dtype, mask):
+    """The masks ``(seg_q, seg_k, bias)`` of a case, drawn from ``g``:
+    sorted segment ids 1..3 (``segk``: query ids 1..3 against key ids 0..2,
+    so some queries find no key), and bench.py's padding bias on a random
+    length per row plus noise."""
     seg_q = seg_k = bias = None
 
     def ids(n, lo, hi):
@@ -681,7 +794,7 @@ def k4_inputs(torch, b, sq, sk, h, dtype, mask, seed):
         att = torch.arange(sk, device="cuda")[None, :] < lengths[:, None]
         bias = padding_bias(torch, att, dtype) + torch.randn(
             b, sk, generator=g, device="cuda")
-    return q, k, v, do, (seg_q, seg_k, bias)
+    return seg_q, seg_k, bias
 
 
 def compare(torch, name, got, ref, dt, row, nonzero=False):
@@ -889,9 +1002,17 @@ STREAM_CASES = [
     ("bf16_sq512_sk1024_segment_ids_k", 2, 512, 1024, 12, False, "bf16",
      "segk"),
     ("bf16_s1024_causal", 1, 1024, 1024, 12, True, "bf16", None),
+    # the tensor-core forward's forms: ragged Sk = 640, masked rows,
+    # segments with the key bias
+    ("bf16_s640_ragged_tiles", 1, 640, 640, 12, False, "bf16", "bias"),
+    ("bf16_sq384_sk640_causal_segments_bias", 1, 384, 640, 12, True, "bf16",
+     "seg_bias"),
+    ("bf16_sq640_sk384_causal_masked_rows", 1, 640, 384, 12, True, "bf16",
+     None),
 ]
 
-STREAM_KERNELS = ("flash_packed_fwd_stream", "flash_packed_bwd_dq",
+STREAM_KERNELS = ("flash_packed_fwd_stream", "flash_packed_fwd_stream_tc",
+                  "flash_packed_bwd_dq",
                   "flash_packed_bwd_dkv", "flash_packed_bwd_dkv_direct")
 
 
@@ -926,9 +1047,10 @@ def stream_case(torch, hfp, case, q, k, v, do, masks, worst, dropout=None):
     row = {"case": name, "shape": [b, sq, sk, h, 64], "causal": causal,
            "dtype": dt, "masks": [t is not None for t in masks],
            "dropout": None if dropout is None else list(dropout)}
-    worst["flash_packed_fwd_stream"] = max(
-        worst["flash_packed_fwd_stream"],
-        compare(torch, "o", o, ro, dt, row, nonzero=True))
+    fwd = "flash_packed_fwd_stream_tc" if dt == "bf16" else \
+        "flash_packed_fwd_stream"
+    worst[fwd] = max(worst[fwd], compare(torch, "o", o, ro, dt, row,
+                                         nonzero=True))
     err_lse = (lse - rlse).abs()
     row["max_abs_err_lse"] = float(err_lse.max())
     row["ok"] &= bool((err_lse <= (1e-2 if dt == "bf16" else 1e-5) *
@@ -954,8 +1076,9 @@ def stream_case(torch, hfp, case, q, k, v, do, masks, worst, dropout=None):
     return row, o, lse
 
 
-def stream_bound(peaks, flops, nbytes):
-    t_ops = flops / peaks["bf16"] * 1e3
+def stream_bound(peaks, flops, nbytes, dt="bf16"):
+    # float32 products run on the CUDA cores: the f32 peak bounds them
+    t_ops = flops / peaks[dt] * 1e3
     t_bytes = nbytes / peaks["bytes"] * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
@@ -1019,7 +1142,7 @@ def phase_kernel_packed_stream(torch, np, hfp, peaks):
         mbytes = 0 if bias is None else b * sk * 4
         if sq == sk:
             kernels = [
-                ("flash_packed_fwd_stream",
+                ("flash_packed_fwd_stream_tc",
                  lambda: hfp.flash_packed_fwd_stream(q, k, v, False, scale,
                                                      masks),
                  lambda: hfp.flash_packed_fwd_stream_reference(
@@ -1056,13 +1179,49 @@ def phase_kernel_packed_stream(torch, np, hfp, peaks):
                 "shape": [b, sq, sk, h, d], "dtype": "bf16", "causal": False,
                 "mask": "key bias (bench.py's padding)" if padded else None,
                 "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib,
-                "library": "SDPA forward" if kname.endswith("fwd_stream")
+                "library": "SDPA forward" if "fwd_stream" in kname
                            else "SDPA backward (dq, dk, dv together)",
                 "flops": flops, "bytes": nbytes, "bound_ms": bound,
                 "bound_by": by, "peak_sheet": peaks["sheet"],
                 "tflops": flops / ms / 1e9}
         del q, k, v, do, o, lse, delta, qt, kt, vt
         torch.cuda.empty_cache()
+    # the float32 forward body at the long shape, on the same inputs in f32
+    b, s = 16, 2048
+    g = torch.Generator(device="cuda")
+    g.manual_seed(13)
+    q = torch.randn(b, s, h, d, generator=g, device="cuda")
+    torch.randn(b, s, h, d, generator=g, device="cuda")   # do's draw
+    k, v = (torch.randn(b, s, h, d, generator=g, device="cuda")
+            for _ in range(2))
+    none = (None, None, None)
+    o, _ = hfp.flash_packed_fwd_stream(q, k, v, False, None, none)
+    ro, _ = hfp.flash_packed_fwd_stream_reference(q, k, v, False, None, none)
+    row32 = {"case": "ernie_b16_s2048_f32_fwd"}
+    worst["flash_packed_fwd_stream"] = max(
+        worst["flash_packed_fwd_stream"],
+        compare(torch, "o", o, ro, "f32", row32))
+    check(row32["ok"], f"the streamed forward's f32 body disagrees: {row32}")
+    results.append(row32)
+    del o, ro
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    pairs = b * h * s * s
+    nbytes = 4 * b * s * h * d * 4 + b * h * s * 4   # q, k, v, o, lse
+    bound, by = stream_bound(peaks, 4 * d * pairs, nbytes, "f32")
+    ms = median_ms(lambda: hfp.flash_packed_fwd_stream(q, k, v, False, None,
+                                                       none), iters=5)
+    timing["flash_packed_fwd_stream"] = {"ernie_b16_s2048": {
+        "shape": [b, s, s, h, d], "dtype": "f32", "causal": False,
+        "mask": None, "kernel_ms": ms,
+        "plain_ms": median_ms(lambda: hfp.flash_packed_fwd_stream_reference(
+            q, k, v, False, None, none), iters=5, warmup=1),
+        "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt), iters=5),
+        "library": "SDPA forward, float32", "flops": 4 * d * pairs,
+        "bytes": nbytes, "bound_ms": bound, "bound_by": by,
+        "peak_sheet": peaks["sheet"], "tflops": 4 * d * pairs / ms / 1e9}}
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
     emit({"phase": "kernel_packed_stream", "kernels": list(STREAM_KERNELS),
           "cases": results, "timing": timing,
           "library": "scaled_dot_product_attention in [B, H, S, D] bf16, "
@@ -1092,9 +1251,10 @@ def mask_probe(torch, hfa, hfp, family, seed):
     the identity and delta = 0 the backward kernels give dq[q, j] = ds[q, j]
     = p·dp·keep·scale and dv[k, q] = (p·keep)[q, k]. Each kernel's zeros
     must be exactly the zeros of ``dropout_keep_dense`` (p > 0 and dp != 0
-    at every score). K4a-direct's bf16 tensor-core body takes the same
-    probe in bf16: its o is (p·keep rounded to bf16) / l, 0 exactly where
-    keep is. Returns {kernel: dropped scores seen}."""
+    at every score). The bf16 tensor-core bodies (K1's, which K4a-stream
+    shares, and K4a-direct's) take the same probe in bf16: their o is
+    (p·keep rounded to bf16) / l, 0 exactly where keep is. Returns
+    {kernel: dropped scores seen}."""
     b, s, h = 1, 64, 4
     d = 128 if family == "k1" else 64
     dr = hfa.AttnDropout(DROP_RATE, seed)
@@ -1107,14 +1267,16 @@ def mask_probe(torch, hfa, hfp, family, seed):
     keep0 = hfa.dropout_keep_dense(b * h, s, s, seed, DROP_RATE,
                                    "cuda").reshape(b, h, s, s) == 0
     scale = 1.0 / math.sqrt(d)
+    qb, eyeb = q.bfloat16(), eye.bfloat16()
     if family == "k1":
-        fwd = {"flash_fwd": lambda: hfa.flash_fwd(q, q, eye, dropout=dr)}
+        fwd = {"flash_fwd": lambda: hfa.flash_fwd(q, q, eye, dropout=dr),
+               "flash_fwd_tc": lambda: hfa.flash_fwd(qb, qb, eyeb,
+                                                     dropout=dr)}
         bwd = {"flash_bwd_dq": lambda: (hfa.flash_bwd_dq(
             q, eye, v, eye, zeros, zeros, False, scale, dr), None),
                "flash_bwd_dkv": lambda: (None, hfa.flash_bwd_dkv(
                    q, eye, v, eye, zeros, zeros, False, scale, dr)[1])}
     elif family == "k4":
-        qb, eyeb = q.bfloat16(), eye.bfloat16()
         fwd = {"flash_packed_fwd": lambda: hfp.flash_packed_fwd(
             q, q, eye, dropout=dr),
                "flash_packed_fwd_tc": lambda: hfp.flash_packed_fwd(
@@ -1125,7 +1287,9 @@ def mask_probe(torch, hfa, hfp, family, seed):
     else:
         args = (q, eye, v, eye, zeros, zeros, False, scale, (None,) * 3, dr)
         fwd = {"flash_packed_fwd_stream": lambda: hfp.flash_packed_fwd_stream(
-            q, q, eye, dropout=dr)}
+            q, q, eye, dropout=dr),
+               "flash_packed_fwd_stream_tc": lambda: (
+                   hfp.flash_packed_fwd_stream(qb, qb, eyeb, dropout=dr))}
         bwd = {"flash_packed_bwd_dq": lambda: (
                    hfp.flash_packed_bwd_dq(*args), None),
                "flash_packed_bwd_dkv": lambda: (
@@ -1134,11 +1298,10 @@ def mask_probe(torch, hfa, hfp, family, seed):
                    None, hfp.flash_packed_bwd_dkv_direct(*args)[1])}
     seen = {}
     for name, run in fwd.items():
-        before = hfp.flash_packed_fwd_tc.launches
+        before = k4_counts(hfa, hfp)
         o, lse = run()
-        check(hfp.flash_packed_fwd_tc.launches - before ==
-              (name == "flash_packed_fwd_tc"),
-              f"{name}: the probe ran the other K4a-direct body")
+        ran = [n for n, c in k4_counts(hfa, hfp).items() if c != before[n]]
+        check(ran == [name], f"{name}: the probe ran {ran}")
         ol = o.float().permute(0, 2, 1, 3)[..., :s] * \
             torch.exp(lse)[..., None]
         check(bool(torch.equal(ol == 0, keep0)),
@@ -1158,13 +1321,14 @@ def mask_probe(torch, hfa, hfp, family, seed):
     return seen
 
 
-def rate_times(run_rate0, run_drop):
+def rate_times(run_rate0, run_drop, reps=1):
     """A kernel timed at rate 0 and at the dropout rate, in turns (rate 0,
-    dropout, dropout, rate 0), each the median of 20 launches."""
-    a = median_ms(run_rate0)
-    b = median_ms(run_drop)
-    c = median_ms(run_drop)
-    d = median_ms(run_rate0)
+    dropout, dropout, rate 0), each the median of 20 samples of ``reps``
+    launches."""
+    a = median_ms(run_rate0, reps=reps)
+    b = median_ms(run_drop, reps=reps)
+    c = median_ms(run_drop, reps=reps)
+    d = median_ms(run_rate0, reps=reps)
     return {"ms_rate0": min(a, d), "ms_dropout": min(b, c),
             "ms_rate0_runs": [a, d], "ms_dropout_runs": [b, c]}
 
@@ -1191,7 +1355,8 @@ def dropout_k1_k3(torch, hfa, hfp, peaks, timing, timing_bwd):
     bf16: compared, then timed beside rate 0), and a batch of 66 x 16 heads
     at S=2048 whose flat score index passes 2^32, compared on its last
     batch (heads 1040-1055)."""
-    worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    worst = {"flash_fwd": 0.0, "flash_fwd_tc": 0.0, "flash_bwd_dq": 0.0,
+             "flash_bwd_dkv": 0.0}
     rows = []
     for i, (name, b, sq, sk, h, hk, d, causal, dt) in enumerate(
             K1_DROP_CASES):
@@ -1204,7 +1369,7 @@ def dropout_k1_k3(torch, hfa, hfp, peaks, timing, timing_bwd):
         row, o, _ = compare_bwd(torch, hfa, (name, b, sq, sk, h, hk, d, dt),
                                 q, k, v, do, causal, worst, dr)
         ro, _ = hfa.flash_fwd_reference(q, k, v, causal, dropout=dr)
-        worst["flash_fwd"] = max(worst["flash_fwd"],
+        worst[k1_body(dt)] = max(worst[k1_body(dt)],
                                  compare(torch, "o", o, ro, dt, row))
         check(row["ok"], f"K1 with dropout disagrees: {row}")
         rows.append(row)
@@ -1225,13 +1390,13 @@ def dropout_k1_k3(torch, hfa, hfp, peaks, timing, timing_bwd):
     o1, _ = hfa.flash_fwd(q1, k1, v1, True, dropout=dr)
     ro1, _ = hfa.flash_fwd_reference(q1, k1, v1, True, dropout=dr)
     row1 = {"case": "serve_b1_s2048"}
-    worst["flash_fwd"] = max(worst["flash_fwd"],
-                             compare(torch, "o", o1, ro1, "bf16", row1))
+    worst["flash_fwd_tc"] = max(worst["flash_fwd_tc"],
+                                compare(torch, "o", o1, ro1, "bf16", row1))
     check(row1["ok"], f"K1 with dropout disagrees at S=2048: {row1}")
     rows.append(row1)
-    timed["flash_fwd"] = rate_times(
+    timed["flash_fwd_tc"] = rate_times(
         lambda: hfa.flash_fwd(q1, k1, v1, True),
-        lambda: hfa.flash_fwd(q1, k1, v1, True, dropout=dr))
+        lambda: hfa.flash_fwd(q1, k1, v1, True, dropout=dr), reps=10)
     delta = hfa._delta(o, do)
     scale = 1.0 / math.sqrt(d)
     timed["flash_bwd_dq"] = rate_times(
@@ -1241,8 +1406,8 @@ def dropout_k1_k3(torch, hfa, hfp, peaks, timing, timing_bwd):
         lambda: hfa.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale),
         lambda: hfa.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale, dr))
     for kname, t in timed.items():
-        t["rate0_phase_ms"] = (timing if kname == "flash_fwd" else
-                               timing_bwd[kname])["kernel_ms"]
+        t["rate0_phase_ms"] = (timing if kname == "flash_fwd_tc" else
+                               timing_bwd)[kname]["kernel_ms"]
     del q, k, v, do, o, lse, delta
 
     # the flat index wraps: B = 66 at H = 16, S = 2048
@@ -1420,7 +1585,7 @@ def dropout_stream(torch, np, hfa, hfp, timing):
         delta = hfp._delta(o, do)
         args = (q, k, v, do, lse, delta, False, scale, none)
         if sq == sk:
-            runs = {"flash_packed_fwd_stream": lambda *a: (
+            runs = {"flash_packed_fwd_stream_tc": lambda *a: (
                         hfp.flash_packed_fwd_stream(q, k, v, False, scale,
                                                     none, *a)),
                     "flash_packed_bwd_dq": lambda *a: hfp.flash_packed_bwd_dq(
@@ -1463,8 +1628,8 @@ def dropout_stream(torch, np, hfa, hfp, timing):
         ref["dk"], ref["dv"] = hfp.flash_packed_bwd_dkv_reference(*largs,
                                                                   **fh)
         wrap = {"case": f"wrap_b{b}_{shape_name}", "shape": [b, sq, sk, h, d],
-                "kernels": ["flash_packed_fwd_stream", "flash_packed_bwd_dq",
-                            dkv.__name__],
+                "kernels": ["flash_packed_fwd_stream_tc",
+                            "flash_packed_bwd_dq", dkv.__name__],
                 "first_compared_head": last * h,
                 "first_flat_index": wrap_heads(last, h, sq, sk)}
         check(wrap["first_flat_index"] > 2 ** 32, f"no wrap: {wrap}")
@@ -1661,13 +1826,15 @@ def phase_serve_f32(torch, np, hfa, model, Request, ServingEngine):
                     max_new_tokens=16) for i, n in enumerate(lens)]
     engine = ServingEngine(model, block_size=16, num_blocks=160, max_batch=4,
                            max_seq_len=512, device="cuda")
-    hfa.flash_fwd.launches = 0
+    hfa.flash_fwd.launches = hfa.flash_fwd_tc.launches = 0
     res = engine.serve(reqs)
     torch.cuda.synchronize()
     launches = hfa.flash_fwd.launches
-    check(launches == engine.n_prefills * n_layers,
-          f"f32 serve: {launches} K1 launches for {engine.n_prefills} "
-          f"prefills")
+    check(launches == engine.n_prefills * n_layers and
+          hfa.flash_fwd_tc.launches == 0,
+          f"f32 serve: {launches} launches of K1's f32 body (and "
+          f"{hfa.flash_fwd_tc.launches} of its bf16 body) for "
+          f"{engine.n_prefills} prefills")
     rows = []
     for r in reqs:
         got = res[r.rid].output
@@ -1691,6 +1858,7 @@ def phase_serve_f32(torch, np, hfa, model, Request, ServingEngine):
           "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
           "prefills": engine.n_prefills, "k1_launches": launches,
           "requests": rows})
+    return {"flash_fwd": launches, "flash_fwd_tc": 0}
 
 
 def pick_pool(np, Request, ServingEngine, GPTForCausalLM, gpt_tiny, reqs,
@@ -1737,17 +1905,17 @@ def phase_serve_bf16(torch, np, hfa, model, Request, ServingEngine,
     engine = ServingEngine(model, block_size=bs, num_blocks=num_blocks,
                            max_batch=8, max_seq_len=max_seq, device="cuda")
     # the main path: counts are set to 0 just before it and read after
-    hfa.flash_fwd.launches = 0
-    hfa.flash_bwd_dq.launches = 0
-    hfa.flash_bwd_dkv.launches = 0
+    for name in K1_K3_KERNELS:
+        getattr(hfa, name).launches = 0
     t0 = time.perf_counter()
     res = engine.serve(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = hfa.flash_fwd.launches
-    bwd_launches = (hfa.flash_bwd_dq.launches, hfa.flash_bwd_dkv.launches)
-    check(bwd_launches == (0, 0),
-          f"bf16 serve launched K2/K3 {bwd_launches} times")
+    launches = hfa.flash_fwd_tc.launches
+    others = {n: getattr(hfa, n).launches for n in K1_K3_KERNELS
+              if n != "flash_fwd_tc"}
+    check(not any(others.values()),
+          f"bf16 serve launched K1's f32 body or K2/K3: {others}")
     for r in reqs:
         seq = res[r.rid]
         check(seq.status.value == "finished", f"{r.rid}: {seq.status}")
@@ -1757,8 +1925,8 @@ def phase_serve_bf16(torch, np, hfa, model, Request, ServingEngine,
               f"{r.rid}: token ids out of range")
     check(engine.n_preemptions >= 1, "no preemption")
     check(launches == engine.n_prefills * n_layers,
-          f"bf16 serve: {launches} K1 launches for {engine.n_prefills} "
-          f"prefills")
+          f"bf16 serve: {launches} launches of K1's tensor-core body for "
+          f"{engine.n_prefills} prefills")
     decode_s = sum(engine.decode_ms) / 1e3
     emit({"phase": "serve_bf16", "model": "gpt3_1p3b", "layers": n_layers,
           "prompt_lens": lens, "new_tokens": new, "block_size": bs,
@@ -1771,8 +1939,7 @@ def phase_serve_bf16(torch, np, hfa, model, Request, ServingEngine,
           "decode_iterations": len(engine.decode_ms),
           "decode_step_p50_ms": percentile(engine.decode_ms, 50),
           "decode_step_p99_ms": percentile(engine.decode_ms, 99)})
-    return {"flash_fwd": launches, "flash_bwd_dq": bwd_launches[0],
-            "flash_bwd_dkv": bwd_launches[1]}, num_blocks
+    return {"flash_fwd_tc": launches, **others}, num_blocks
 
 
 def device_profile(prof, wall_ms):
@@ -1908,9 +2075,8 @@ def phase_train_bf16(torch, np, hfa, peaks, GPTForCausalLM, gpt3_1p3b,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # the main path: counts are set to 0 just before it and read after
-    hfa.flash_fwd.launches = 0
-    hfa.flash_bwd_dq.launches = 0
-    hfa.flash_bwd_dkv.launches = 0
+    for name in K1_K3_KERNELS:
+        getattr(hfa, name).launches = 0
     losses, times = [], []
     for i, bt in enumerate(batches):
         start = torch.cuda.Event(enable_timing=True)
@@ -1922,9 +2088,7 @@ def phase_train_bf16(torch, np, hfa, peaks, GPTForCausalLM, gpt3_1p3b,
         losses.append(float(loss))
         if i >= warmup:
             times.append(start.elapsed_time(end))
-    launches = {"flash_fwd": hfa.flash_fwd.launches,
-                "flash_bwd_dq": hfa.flash_bwd_dq.launches,
-                "flash_bwd_dkv": hfa.flash_bwd_dkv.launches}
+    launches = {n: getattr(hfa, n).launches for n in K1_K3_KERNELS}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_steps = len(batches)
     p50 = percentile(times, 50)
@@ -1955,9 +2119,10 @@ def phase_train_bf16(torch, np, hfa, peaks, GPTForCausalLM, gpt3_1p3b,
     check(abs(losses[0] - 11.2) < 0.5, f"step-0 loss {losses[0]}")
     check(losses[-1] < losses[0], f"the loss did not decrease: {losses}")
     for name, n in launches.items():
-        check(n == cfg.num_layers * n_steps,
-              f"{name}: {n} launches in {n_steps} steps of "
-              f"{cfg.num_layers} layers")
+        # bf16 never reaches K1's float32 body
+        want = 0 if name == "flash_fwd" else cfg.num_layers * n_steps
+        check(n == want, f"{name}: {n} launches in {n_steps} steps of "
+                         f"{cfg.num_layers} layers; expected {want}")
     if profile:
         from torch.profiler import ProfilerActivity, profile as prof_ctx
         with prof_ctx(activities=[ProfilerActivity.CPU,
@@ -1974,14 +2139,18 @@ def phase_train_bf16(torch, np, hfa, peaks, GPTForCausalLM, gpt3_1p3b,
 
 # -- phases 12 and 13 --------------------------------------------------------
 
-ATTENTION_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                     "flash_packed_fwd", "flash_packed_fwd_tc",
-                     "flash_packed_bwd") + STREAM_KERNELS
+#: K1's two bodies (flash_fwd: float32, flash_fwd_tc: bf16), K2 and K3
+K1_K3_KERNELS = ("flash_fwd", "flash_fwd_tc", "flash_bwd_dq", "flash_bwd_dkv")
+#: the K4 forms, each of their bodies
+K4_KERNELS = ("flash_packed_fwd", "flash_packed_fwd_tc",
+              "flash_packed_bwd") + STREAM_KERNELS
+ATTENTION_KERNELS = K1_K3_KERNELS + K4_KERNELS
 
 
 def k4_counts(hfa, hfp):
-    """Every attention kernel's launch count (K1-K3 and all six K4
-    forms)."""
+    """Every attention kernel's launch count (K1's two bodies, K2, K3 and
+    all six K4 forms, the two bodies of K4a-direct and K4a-stream
+    apart)."""
     return {name: getattr(hfa if hasattr(hfa, name) else hfp, name).launches
             for name in ATTENTION_KERNELS}
 
@@ -2189,8 +2358,7 @@ def phase_train_bert_bf16(torch, np, hfa, hfp, peaks, BertForPretraining,
                   f"{form}: {name} launched {launches[name]} times in "
                   f"{n_steps} steps of {L} layers")
         # bf16 never reaches K4a-direct's float32 body
-        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                     "flash_packed_fwd") + STREAM_KERNELS:
+        for name in K1_K3_KERNELS + ("flash_packed_fwd",) + STREAM_KERNELS:
             check(launches[name] == 0,
                   f"{form}: {name} launched {launches[name]} times")
         out[form] = row
@@ -2767,6 +2935,7 @@ def phase_train_grad_f32_ernie(torch, np, hfa, hfp, ErnieForPretraining,
     check(worst_ratio <= 1e-4,
           f"train_grad_f32_ernie: gradients differ: {row}")
     del gpu, cpu
+    return launches
 
 
 def ernie_flops(cfg, n_params, seq):
@@ -2796,10 +2965,10 @@ ERNIE_FORMS = (
     # form, max positions, batch, seq, warm-up, timed, attention forms
     ("bench_s512", 512, 64, 512, 2, 8, ("flash_packed_fwd_tc",
                                         "flash_packed_bwd")),
-    ("long_s2048", 2048, 16, 2048, 2, 8, ("flash_packed_fwd_stream",
+    ("long_s2048", 2048, 16, 2048, 2, 8, ("flash_packed_fwd_stream_tc",
                                           "flash_packed_bwd_dq",
                                           "flash_packed_bwd_dkv")),
-    ("padded_s2048", 2048, 16, 2048, 2, 4, ("flash_packed_fwd_stream",
+    ("padded_s2048", 2048, 16, 2048, 2, 4, ("flash_packed_fwd_stream_tc",
                                             "flash_packed_bwd_dq",
                                             "flash_packed_bwd_dkv")),
 )
@@ -2982,7 +3151,7 @@ def phase_train_gpt_dropout_bf16(torch, np, hfa, hfp, peaks, GPTForCausalLM,
     emit(row)
     check(all(math.isfinite(x) for x in losses), f"non-finite: {row}")
     check(abs(losses[0] - 11.2) < 0.6, f"GPT dropout step-0 loss {losses[0]}")
-    check_launches(launches, {"flash_fwd": n, "flash_bwd_dq": n,
+    check_launches(launches, {"flash_fwd_tc": n, "flash_bwd_dq": n,
                               "flash_bwd_dkv": n}, "GPT with dropout")
     del model, opt, step
     torch.cuda.empty_cache()
@@ -3096,7 +3265,7 @@ def phase_train_ernie_dropout_bf16(torch, np, hfa, hfp, peaks, ernie, AdamW,
     check(math.log(cfg.vocab_size) - 0.5 <= losses[0] <=
           math.log(cfg.vocab_size) + 1.2, f"ERNIE dropout step-0 loss "
                                            f"{losses[0]}")
-    check_launches(launches, {"flash_packed_fwd_stream": n,
+    check_launches(launches, {"flash_packed_fwd_stream_tc": n,
                               "flash_packed_bwd_dq": n,
                               "flash_packed_bwd_dkv": n},
                    "ERNIE with dropout")
@@ -3146,7 +3315,7 @@ def phase_cross_attention(torch, np, hfa, hfp, MultiHeadAttention,
     seconds = time.perf_counter() - t0
     launches = k4_counts(hfa, hfp)
     check(launches == {**{n: 0 for n in ATTENTION_KERNELS},
-                       "flash_packed_fwd_stream": 1,
+                       "flash_packed_fwd_stream_tc": 1,
                        "flash_packed_bwd_dq": 1,
                        "flash_packed_bwd_dkv_direct": 1},
           f"{phase}: launches {launches}")
@@ -3269,12 +3438,13 @@ def main() -> int:
 
     # the GPT paths launch no K4 form: their counts run from here to the
     # end of GPT training
-    k4_forms = ATTENTION_KERNELS[3:]
+    k4_forms = K4_KERNELS
     for name in k4_forms:
         getattr(hfp, name).launches = 0
     model = GPTForCausalLM(gpt3_1p3b(), device="cuda", dtype=torch.float32,
                            seed=0)
-    phase_serve_f32(torch, np, hfa, model, Request, ServingEngine)
+    f32_serve_launches = phase_serve_f32(torch, np, hfa, model, Request,
+                                         ServingEngine)
     model = model.to(torch.bfloat16)
     torch.cuda.empty_cache()
     serve_launches, num_blocks = phase_serve_bf16(
@@ -3337,8 +3507,8 @@ def main() -> int:
     # ERNIE: every earlier path launched none of the streamed K4 kernels
     # (each path's counts are checked above); ERNIE launches no conv kernel
     zero_conv_counts(hc)
-    phase_train_grad_f32_ernie(torch, np, hfa, hfp,
-                               ernie.ErnieForPretraining, ernie.ernie_base)
+    f32_ernie_launches = phase_train_grad_f32_ernie(
+        torch, np, hfa, hfp, ernie.ErnieForPretraining, ernie.ernie_base)
     torch.cuda.empty_cache()
     ernie_launches = phase_train_ernie_bf16(
         torch, np, hfa, hfp, hc, peaks, ernie, AdamW,
@@ -3372,13 +3542,16 @@ def main() -> int:
     cross_launches.update(late_conv)
 
     # `launches` is the count on each kernel's first main path: serving
-    # for K1 (as the line has counted it from the start), GPT training for
-    # K2/K3, BERT training (all three forms) for K4a-direct's bf16
-    # tensor-core body and K4b, the f32 BERT gradient check for K4a-direct's
-    # float32 body (`f32_bert_launches`), ResNet training
-    # for K5-K8, ERNIE training (all three forms) for the streamed forward,
-    # dq and dk/dv, cross-attention for dk/dv-direct; every entry also has
-    # every path's count. `max_abs_err` is
+    # for K1's bf16 tensor-core body (as the line has counted K1 from the
+    # start) and the f32 serving check for its float32 body
+    # (`f32_serve_launches`), GPT training for K2/K3, BERT training (all
+    # three forms) for K4a-direct's bf16 tensor-core body and K4b, the f32
+    # BERT gradient check for K4a-direct's float32 body (`f32_bert_launches`),
+    # ResNet training for K5-K8, ERNIE training (all three forms) for the
+    # streamed forward's bf16 tensor-core body, dq and dk/dv, the f32 ERNIE
+    # gradient check for the streamed forward's float32 body
+    # (`f32_ernie_launches`), cross-attention for dk/dv-direct; every entry
+    # also has every path's count. `max_abs_err` is
     # the largest error of an output element (y, dx, dw, o, dq, ...) against
     # the plain version; `stats_rel_err` that of K5/K7's f32 (sum, sumsq)
     # over their scale (null for the other kernels). `max_err` and
@@ -3387,11 +3560,16 @@ def main() -> int:
     fa = "paddle_tpu/ops/_pallas/flash_attention.py:"
     fp = "paddle_tpu/ops/_pallas/flash_attention_packed.py:"
     fc = "paddle_tpu/ops/_pallas/conv.py:"
-    worst = max(worst, worst_bwd["flash_fwd"])
+    worst["flash_fwd_tc"] = max(worst["flash_fwd_tc"],
+                                worst_bwd["flash_fwd_tc"])
     kernels = []
     for name, source, line, t, err, launches in (
+            ("flash_fwd_tc", "flash_fwd_tc.cu", fa + "224 (_fwd_kernel, "
+             "launched by _fwd at :404; bf16)", timing["flash_fwd_tc"],
+             worst["flash_fwd_tc"], serve_launches["flash_fwd_tc"]),
             ("flash_fwd", "flash_fwd.cu", fa + "224 (_fwd_kernel, launched "
-             "by _fwd at :404)", timing, worst, serve_launches["flash_fwd"]),
+             "by _fwd at :404; float32)", timing["flash_fwd"],
+             worst["flash_fwd"], f32_serve_launches["flash_fwd"]),
             ("flash_bwd_dq", "flash_bwd.cu", fa + "431 (_bwd_dq_kernel, "
              "launched by _bwd at :628)", timing_bwd["flash_bwd_dq"],
              worst_bwd["flash_bwd_dq"], train_launches["flash_bwd_dq"]),
@@ -3425,11 +3603,16 @@ def main() -> int:
             ("c3_wgrad", "conv.cu", fc + "401 (_c3_wgrad_kernel, launched "
              "by _c3_wgrad at :441)", timing_conv["c3_wgrad"],
              worst_conv["c3_wgrad"], resnet_launches["c3_wgrad"]),
+            ("flash_packed_fwd_stream_tc", "flash_fwd_tc.cu", fp + "102 "
+             "(_fwd_kernel, launched by _fwd at :267; bf16, K1's body at "
+             "D = 64)", timing_stream["flash_packed_fwd_stream_tc"],
+             worst_stream["flash_packed_fwd_stream_tc"],
+             ernie_launches["flash_packed_fwd_stream_tc"]),
             ("flash_packed_fwd_stream", "flash_packed_stream.cu", fp + "102 "
-             "(_fwd_kernel, launched by _fwd at :267)",
+             "(_fwd_kernel, launched by _fwd at :267; float32)",
              timing_stream["flash_packed_fwd_stream"],
              worst_stream["flash_packed_fwd_stream"],
-             ernie_launches["flash_packed_fwd_stream"]),
+             f32_ernie_launches["flash_packed_fwd_stream"]),
             ("flash_packed_bwd_dq", "flash_packed_stream.cu", fp + "297 "
              "(_bwd_dq_kernel, launched by _bwd at :582)",
              timing_stream["flash_packed_bwd_dq"],
@@ -3456,11 +3639,19 @@ def main() -> int:
             "ernie_launches": ernie_launches[name],
             "cross_launches": cross_launches[name],
             "f32_bert_launches": f32_bert_launches.get(name, 0),
+            "f32_serve_launches": f32_serve_launches.get(name, 0),
+            "f32_ernie_launches": f32_ernie_launches.get(name, 0),
             "max_abs_err": err, "max_err": err,
             "stats_rel_err": stats_conv.get(name),
             "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        if "train_shape" in t:
+            # K1's tensor-core body at the GPT training shape (B=4) too
+            kernels[-1]["train_shape"] = {
+                k: t["train_shape"][k] for k in (
+                    "shape", "kernel_ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by", "tflops")}
         if name in worst_masked:
             # segment ids and the key bias (kernel_masked): the largest
             # error against the plain version, the times at B=4 x 2048 with

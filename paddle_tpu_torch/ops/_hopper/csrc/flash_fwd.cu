@@ -1,4 +1,7 @@
-// Flash-attention forward (K1) for Hopper (sm_90a), CUDA C++.
+// Flash-attention forward (K1) for Hopper (sm_90a), CUDA C++: the float32
+// body, on the CUDA cores. bf16 inputs run on flash_fwd_tc.cu's tensor-core
+// body (on the tensor cores float32 would mean TF32, which is not the function
+// the reference computes).
 //
 // Replaces paddle_tpu/ops/_pallas/flash_attention.py:_fwd_kernel (driven by
 // _fwd). What it computes is what that kernel computes:
@@ -38,17 +41,13 @@
 // are adjacent lanes and reduce the row max and sum with warp shuffles.
 //
 // What bounds it on an H100. At the serving path's prefill shapes (S 64 to
-// 2048, D 128, bf16) attention is bound by operations: 4 * S^2 * D / 2 FLOPs
-// per head (causal) against 4 * S * D * 2 bytes. This first kernel runs both
-// products on the CUDA cores in f32 (FMA), not on the tensor cores, and its
-// tiles take 115 KB of shared memory at D = 128: two blocks fit an SM with
-// 0.5 KB to spare (staging the masks there cost the second block and 60% of
-// the time on an H100), so the masks are read from global memory. It runs far
-// from the tensor-core bound; its times stand in PERF.md beside that bound.
-// wgmma products fed by TMA through a ring of shared-memory stages, with warp
-// specialisation, are the next step and a later change's work.
+// 2048, D 128) attention is bound by operations: 4 * S^2 * D / 2 FLOPs per
+// head (causal) against 4 * S * D * 4 bytes, at the 67 TFLOP/s float32 peak
+// of the CUDA cores, which run both products as FMAs. Its tiles take 115 KB
+// of shared memory at D = 128: two blocks fit an SM with 0.5 KB to spare
+// (staging the masks there cost the second block and 60% of the time on an
+// H100), so the masks are read from global memory.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "dropout.cuh"
@@ -77,22 +76,6 @@ struct FlashFwdParams {
   int causal;
   DropoutArgs drop;  // attention-prob dropout (dropout.cuh)
 };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -123,7 +106,7 @@ __device__ __forceinline__ float mask_score(const FlashFwdParams& p, float s,
   return s;
 }
 
-template <typename T, int D, bool kMasks>
+template <int D, bool kMasks>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const FlashFwdParams p) {
   constexpr int LDK = D + 1;        // padded row stride of the Q and K tiles
@@ -145,16 +128,16 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = blockIdx.x * kBlockM;
   const int offset = p.Sk - p.Sq;   // bottom-right causal alignment
 
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  const float* qb = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
   for (int i = tid; i < kBlockM * D; i += kThreads) {
     const int r = i / D;
     const int c = i - r * D;
     const int qi = q0 + r;
     sQ[r * LDK + c] =
-        qi < p.Sq ? to_float(qb[static_cast<long long>(qi) * p.q_ss + c]) : 0.f;
+        qi < p.Sq ? qb[static_cast<long long>(qi) * p.q_ss + c] : 0.f;
   }
   // the masks of batch row b: this thread's rows' segments, the keys' rows
   const int* segk_row =
@@ -193,9 +176,9 @@ __global__ void __launch_bounds__(kThreads)
       const int kj = k0 + r;
       const bool in = kj < p.Sk;
       sK[r * LDK + c] =
-          in ? to_float(kb[static_cast<long long>(kj) * p.k_ss + c]) : 0.f;
+          in ? kb[static_cast<long long>(kj) * p.k_ss + c] : 0.f;
       sV[r * D + c] =
-          in ? to_float(vb[static_cast<long long>(kj) * p.v_ss + c]) : 0.f;
+          in ? vb[static_cast<long long>(kj) * p.v_ss + c] : 0.f;
     }
     __syncthreads();
 
@@ -282,11 +265,11 @@ __global__ void __launch_bounds__(kThreads)
     const int qi = q0 + ty * 4 + i;
     if (qi < p.Sq) {
       const float lc = fmaxf(l_i[i], 1e-30f);
-      T* orow = static_cast<T*>(p.o) +
+      float* orow = static_cast<float*>(p.o) +
                 ((static_cast<long long>(b) * p.Sq + qi) * p.H + h) * D;
 #pragma unroll
       for (int jj = 0; jj < DT; ++jj)
-        orow[tx + 8 * jj] = from_float<T>(acc[i][jj] / lc);
+        orow[tx + 8 * jj] = acc[i][jj] / lc;
       if (tx == 0)
         p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + qi] =
             m_i[i] + logf(lc);
@@ -294,33 +277,32 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D, bool kMasks>
+template <int D, bool kMasks>
 cudaError_t launch(const FlashFwdParams& p, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
   // above 48 KB a block's shared memory must be opted into
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D, kMasks>,
+      flash_fwd_kernel<D, kMasks>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + kBlockM - 1) / kBlockM, p.B * p.H);
-  flash_fwd_kernel<T, D, kMasks><<<grid, kThreads, smem, stream>>>(p);
+  flash_fwd_kernel<D, kMasks><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch_d(const FlashFwdParams& p, int d, cudaStream_t stream) {
   const bool masks = p.seg_q != nullptr || p.bias != nullptr;
   switch (d) {
     case 64:
-      return masks ? launch<T, 64, true>(p, stream)
-                   : launch<T, 64, false>(p, stream);
+      return masks ? launch<64, true>(p, stream)
+                   : launch<64, false>(p, stream);
     case 128:
-      return masks ? launch<T, 128, true>(p, stream)
-                   : launch<T, 128, false>(p, stream);
+      return masks ? launch<128, true>(p, stream)
+                   : launch<128, false>(p, stream);
     case 256:
-      return masks ? launch<T, 256, true>(p, stream)
-                   : launch<T, 256, false>(p, stream);
+      return masks ? launch<256, true>(p, stream)
+                   : launch<256, false>(p, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -328,7 +310,8 @@ cudaError_t dispatch_d(const FlashFwdParams& p, int d, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements; seg_q, seg_k
+// dtype must be 0 (float32; bf16 runs on flash_fwd_tc.cu's tensor-core
+// body). Strides are in elements; seg_q, seg_k
 // (both or neither) and bias may be null. Returns the cudaError_t of the
 // launch (0 = launched).
 extern "C" int paddle_flash_fwd(const void* q, const void* k, const void* v,
@@ -373,9 +356,8 @@ extern "C" int paddle_flash_fwd(const void* q, const void* k, const void* v,
   if (B <= 0 || H <= 0 || HK <= 0 || H % HK || Sq <= 0 || Sk < 0 ||
       (seg_q == nullptr) != (seg_k == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0) return static_cast<int>(dispatch_d<float>(p, D, s));
-  if (dtype == 1) return static_cast<int>(dispatch_d<__nv_bfloat16>(p, D, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dispatch_d(p, D, s));
 }
 
 extern "C" const char* paddle_cuda_error_string(int err) {

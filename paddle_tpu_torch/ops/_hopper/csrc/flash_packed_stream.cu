@@ -5,6 +5,8 @@
 // They replace the streamed bodies of
 // paddle_tpu/ops/_pallas/flash_attention_packed.py:
 //   flash_packed_fwd_stream      _fwd_kernel             (:102, launched :267)
+//                                (float32 only: bf16 runs on flash_fwd_tc.cu's
+//                                tensor-core body, K1's at D = 64)
 //   flash_packed_bwd_dq          _bwd_dq_kernel          (:297, launched :582)
 //   flash_packed_bwd_dkv         _bwd_dkv_kernel         (:348, launched :652)
 //   flash_packed_bwd_dkv_direct  _bwd_dkv_kernel_direct  (:407, launched :626)
@@ -764,7 +766,8 @@ int launch_dkv(const StreamParams& p, int dtype, cudaStream_t s) {
 
 }  // namespace
 
-// flash_packed_fwd_stream: o and lse. dtype: 0 = float32, 1 = bfloat16.
+// flash_packed_fwd_stream: o and lse. dtype must be 0 (float32; bf16 runs on
+// flash_fwd_tc.cu's tensor-core body, paddle_flash_packed_fwd_stream_tc).
 // Strides are in elements; seg_q, seg_k and bias may be null. Returns the
 // cudaError_t of the launch (0 = launched).
 extern "C" int paddle_flash_packed_fwd_stream(
@@ -784,13 +787,9 @@ extern "C" int paddle_flash_packed_fwd_stream(
   p.o = o;
   p.lse = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return static_cast<int>(launch(flash_packed_fwd_stream_kernel<float>,
-                                   query_grid(p), fwd_smem_bytes(), p, s));
-  if (dtype == 1)
-    return static_cast<int>(launch(flash_packed_fwd_stream_kernel<__nv_bfloat16>,
-                                   query_grid(p), fwd_smem_bytes(), p, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch(flash_packed_fwd_stream_kernel<float>,
+                                 query_grid(p), fwd_smem_bytes(), p, s));
 }
 
 // flash_packed_bwd_dq: dq from q, k, v, dout, the forward's lse and delta

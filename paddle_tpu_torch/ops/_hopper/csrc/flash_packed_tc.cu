@@ -73,6 +73,7 @@
 #include <cstdint>
 
 #include "dropout.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -105,72 +106,6 @@ struct TcParams {
   int causal;
   DropoutArgs drop;    // attention-prob dropout (dropout.cuh)
 };
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory, zero-filled when !in
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(in ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most n of this thread's cp.async groups are pending
-__device__ __forceinline__ void cp_async_wait(int n) {
-  switch (n) {
-#define PADDLE_WAIT(N) \
-  case N:              \
-    asm volatile("cp.async.wait_group " #N ";\n" ::); \
-    break;
-    PADDLE_WAIT(1) PADDLE_WAIT(2) PADDLE_WAIT(3) PADDLE_WAIT(4)
-    PADDLE_WAIT(5) PADDLE_WAIT(6) PADDLE_WAIT(7) PADDLE_WAIT(8)
-    PADDLE_WAIT(9) PADDLE_WAIT(10) PADDLE_WAIT(11) PADDLE_WAIT(12)
-    PADDLE_WAIT(13) PADDLE_WAIT(14) PADDLE_WAIT(15) PADDLE_WAIT(16)
-#undef PADDLE_WAIT
-    default:
-      asm volatile("cp.async.wait_group 0;\n" ::);
-  }
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// d += a b: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col), d 16 x 8 f32
-__device__ __forceinline__ void mma_16816(float (&d)[4], const unsigned (&a)[4],
-                                          unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two f32 as one register of two bf16, the first in the low half
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
 
 // rows [row0, row0 + n) of a [*, 64] bf16 operand into the padded smem rows
 // from dst on, by cp.async; rows at or past n_rows are zero

@@ -2,9 +2,13 @@
 
 Port of ``paddle_tpu/ops/_pallas/flash_attention.py``: ``_fwd`` driving
 ``_fwd_kernel`` (K1) and ``_bwd`` driving ``_bwd_dq_kernel`` (K2) and
-``_bwd_dkv_kernel`` (K3). The kernels are ``csrc/flash_fwd.cu`` and
+``_bwd_dkv_kernel`` (K3). The kernels are ``csrc/flash_fwd_tc.cu`` (K1 in
+bf16, on the tensor cores), ``csrc/flash_fwd.cu`` (K1 in float32, on the
+CUDA cores: on the tensor cores float32 would mean TF32) and
 ``csrc/flash_bwd.cu``, built by ``nvcc`` at first use (:mod:`.build`) and
-called through ``ctypes``.
+called through ``ctypes``. :func:`flash_fwd` picks K1's body by dtype,
+openly, and each body counts its launches (``flash_fwd_tc.launches``,
+``flash_fwd.launches``); nothing falls back from one body to the other.
 
 - ``flash_fwd(q, k, v, causal, scale) -> (o, lse)`` takes the public
   ``[B, S, H, D]`` layout (k/v may have fewer heads, ``HK`` dividing ``H``)
@@ -34,11 +38,12 @@ falls below ``keep_threshold(rate)``; a kept one is scaled by
 sum ``p * keep``; the backward applies ``keep`` to ``dp`` and ``p * keep``
 to dv, so forward and backward regenerate one mask from ``(position,
 seed)``. :func:`dropout_keep_dense` is the JAX function of that name in
-torch; the four ``.cu`` files share ``csrc/dropout.cuh``.
+torch; the attention sources share ``csrc/dropout.cuh``.
 
 On a CUDA tensor each wrapper launches its kernel, or raises on anything
 the kernel does not take (head dim outside {64, 128, 256}, a dtype other
-than float32 or bfloat16, a last dimension that is not dense); each launch
+than float32 or bfloat16, a last dimension that is not dense, bf16 rows not
+16-byte aligned); each launch
 adds one to the wrapper's ``launches``. On a CPU tensor
 :func:`flash_fwd_reference` and :func:`flash_bwd_reference`, the plain
 PyTorch versions of the same functions, run instead. Nothing falls back
@@ -55,14 +60,22 @@ import torch
 
 from ...core import random as rng
 
-__all__ = ["flash_fwd", "flash_fwd_reference", "flash_bwd",
+__all__ = ["flash_fwd", "flash_fwd_tc", "flash_fwd_reference", "flash_bwd",
            "flash_bwd_reference", "flash_bwd_dq", "flash_bwd_dkv",
            "kernel_arg_error", "NEG_INF", "SUPPORTED_HEAD_DIMS",
            "AttnDropout", "keep_threshold", "keep_scale",
-           "dropout_keep_dense", "Masks", "NO_MASKS"]
+           "dropout_keep_dense", "Masks", "NO_MASKS", "TC_KEY_TILE",
+           "CUDA_CORE_KEY_TILE", "kernel_key_tile", "require_aligned_rows"]
 
 NEG_INF = -1e30  # the TPU kernel's masked score, kept for its lse convention
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
+#: keys a stage of the bf16 tensor-core body (csrc/flash_fwd_tc.cu) takes,
+#: by head dim: the points where it rounds p (the body reports its own,
+#: paddle_flash_fwd_tc_stage, and chip_smoke.py holds the two equal)
+TC_KEY_TILE = {64: 128, 128: 128, 256: 64}
+#: keys a tile of the float32 CUDA-core bodies (flash_fwd.cu,
+#: flash_packed_stream.cu) takes
+CUDA_CORE_KEY_TILE = 64
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 #: ``(seg_q [B, Sq] int32, seg_k [B, Sk] int32, bias [B, Sk] f32)``, each
@@ -285,41 +298,76 @@ def kernel_arg_error(q, k, v, masks: Masks = NO_MASKS) -> Optional[str]:
     return None
 
 
+def kernel_key_tile(dtype: torch.dtype, d: int) -> int:
+    """The keys a stage of the CUDA body that ``dtype`` and head dim ``d``
+    reach takes: the tensor-core body's stage for bf16 (``TC_KEY_TILE``),
+    the CUDA-core bodies' 64-key tile for float32. The plain versions walk
+    the same stages by default, so they round p where the kernel rounds it
+    (in float32 the rounding is the identity and only the order of the sums
+    follows)."""
+    if dtype == torch.float32:
+        return CUDA_CORE_KEY_TILE
+    return TC_KEY_TILE.get(d, 128)
+
+
 def flash_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = False,
                         scale: Optional[float] = None,
                         dropout: Optional[AttnDropout] = None, *,
-                        first_head: int = 0, masks: Masks = NO_MASKS
+                        first_head: int = 0, masks: Masks = NO_MASKS,
+                        key_tile: Optional[int] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch K1: the same function as the kernel, in float32.
+    """Plain PyTorch K1: ``_fwd_kernel``'s online softmax over the key
+    stages of ``key_tile`` keys, in order, in float32.
 
     Bottom-right causal, then the segments and the key bias of ``masks``,
     grouped-query KV by head reshape (no repeat), masked scores at
-    ``NEG_INF``, the row max taken from ``NEG_INF`` up (as the kernel's
-    running max starts there) and the kernel's masked-row convention
-    (o = 0, lse = NEG_INF + log(1e-30)); with ``dropout`` the value
-    product takes ``p * keep`` and l the undropped p. ``first_head`` numbers
-    the heads' masks from a flat head past 0, as in a slice of a larger
-    batch (the kernels take whole batches, from 0). Returns ``(o [B, Sq,
-    H, D]`` in q's dtype, ``lse [B, H, Sq]`` float32)."""
+    ``NEG_INF``. m, l and acc are float32 and m starts at ``NEG_INF``; each
+    stage takes ``m' = max(m, max s)``, ``p = exp(s - m') * (s > NEG_INF /
+    2)``, ``l = l exp(m - m') + sum p`` and ``acc = acc exp(m - m') + p v``
+    with p (``p * keep`` under ``dropout``, while l sums the undropped p)
+    rounded to v's dtype before the value product, as the TPU kernel rounds
+    it against the running max of its key block (``:287``). The kernel's
+    masked-row convention: o = 0, lse = NEG_INF + log(1e-30). ``key_tile``
+    defaults to the stage of the body the dtype reaches
+    (:func:`kernel_key_tile`); the kernel skips stages above a query tile's
+    causal band, where every row's walk leaves m, l and acc as they were.
+    ``first_head`` numbers the heads' masks from a flat head past 0, as in a
+    slice of a larger batch (the kernels take whole batches, from 0).
+    Returns ``(o [B, Sq, H, D]`` in q's dtype, ``lse [B, H, Sq]``
+    float32)."""
     b, sq, sk, h, hk, d = _shapes(q, k, v)
     g = h // hk
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    key_tile = kernel_key_tile(q.dtype, d) if key_tile is None else \
+        int(key_tile)
     qf = q.float().reshape(b, sq, hk, g, d)
     kf, vf = k.float(), v.float()
     s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * scale   # [B,HK,G,Sq,Sk]
     s = _masked_scores(s, causal, masks)
-    m = torch.clamp(s.amax(dim=-1, keepdim=True), min=NEG_INF) if sk else \
-        torch.full(s.shape[:-1] + (1,), NEG_INF, device=q.device)
-    p = torch.where(s > NEG_INF / 2, torch.exp(s - m), torch.zeros_like(s))
-    l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
     keep = _keep(dropout, b, h, sq, sk, q.device, first_head)
     if keep is not None:
-        p = p * keep.reshape(b, hk, g, sq, sk)
-    o = torch.einsum("bkgqs,bskd->bqkgd", p, vf) / \
-        l.permute(0, 3, 1, 2, 4)
+        keep = keep.reshape(b, hk, g, sq, sk)
+    m = torch.full((b, hk, g, sq, 1), NEG_INF, device=q.device)
+    l = torch.zeros((b, hk, g, sq, 1), device=q.device)
+    acc = torch.zeros((b, hk, g, sq, d), device=q.device)
+    for k0 in range(0, sk, key_tile):
+        t = slice(k0, min(k0 + key_tile, sk))
+        st = s[..., t]
+        m_new = torch.maximum(m, st.amax(dim=-1, keepdim=True))
+        p = torch.where(st > NEG_INF / 2, torch.exp(st - m_new),
+                        torch.zeros_like(st))
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        if keep is not None:
+            p = p * keep[..., t]
+        acc = acc * alpha + torch.einsum(
+            "bkgqs,bskd->bkgqd", p.to(v.dtype).float(), vf[:, t])
+        m = m_new
+    l = torch.clamp(l, min=1e-30)
+    o = (acc / l).permute(0, 3, 1, 2, 4).reshape(b, sq, h, d)
     lse = (m + torch.log(l))[..., 0].reshape(b, h, sq)
-    return o.reshape(b, sq, h, d).to(q.dtype), lse
+    return o.to(q.dtype), lse
 
 
 def _delta(o, do, dlse=None):
@@ -417,20 +465,38 @@ def _mask_ptrs(masks: Masks):
     return [None if t is None else t.data_ptr() for t in masks]
 
 
+def require_aligned_rows(what: str, *named) -> None:
+    """Raise unless every ``(name, tensor)`` starts on 16 bytes and has
+    batch, sequence and head strides of whole 8-value pieces: the tensor-core
+    bodies read bf16 rows by 16-byte copies."""
+    for name, t in named:
+        if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+            raise ValueError(f"{what} kernel cannot take these inputs: "
+                             f"{name}'s rows are not 16-byte aligned "
+                             f"(strides {t.stride()})")
+
+
 def _launch(q, k, v, causal: bool, scale: float,
             dropout: Optional[AttnDropout] = None, masks: Masks = NO_MASKS):
-    lib, fn = _kernel("flash_fwd", "paddle_flash_fwd", 8, 9)
+    """K1 on CUDA tensors, from the body of q's dtype: bf16 the tensor-core
+    body (``flash_fwd_tc.cu``, counted by :func:`flash_fwd_tc`), float32 the
+    CUDA-core body (``flash_fwd.cu``, counted by :func:`flash_fwd`)."""
+    tc = q.dtype == torch.bfloat16
+    what = "flash_fwd_tc" if tc else "flash_fwd"
+    if tc:
+        require_aligned_rows(what, ("q", q), ("k", k), ("v", v))
+    lib, fn = _kernel(what, "paddle_" + what, 8, 9)
     b, sq, sk, h, hk, d = _shapes(q, k, v)
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
-    _call(lib, fn, "flash_fwd", q, k, q.data_ptr(), k.data_ptr(),
+    _call(lib, fn, what, q, k, q.data_ptr(), k.data_ptr(),
           v.data_ptr(), o.data_ptr(), lse.data_ptr(), *_mask_ptrs(masks),
           b, h, hk, sq, sk, d,
           *_strides(q, k, v), float(scale), int(bool(causal)),
           _DTYPE_CODE[q.dtype], *_dropout_args(dropout))
-    flash_fwd.launches += 1
+    (flash_fwd_tc if tc else flash_fwd).launches += 1
     return o, lse
 
 
@@ -606,6 +672,32 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _FlashFwd.apply(q, k, v, *masks, bool(causal), scale, dropout)
 
 
+def flash_fwd_tc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool = False, scale: Optional[float] = None,
+                 dropout: Optional[AttnDropout] = None,
+                 masks: Masks = NO_MASKS
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's tensor-core body (bf16 only): the CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors. Not differentiable itself;
+    :func:`flash_fwd` reaches it for every bf16 CUDA input."""
+    _shapes(q, k, v)
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return flash_fwd_reference(q, k, v, causal, scale, dropout,
+                                   masks=masks)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_fwd_tc runs on CUDA or the CPU, not "
+                         f"{q.device}")
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_fwd_tc takes bfloat16, not {q.dtype} "
+                         f"(flash_fwd runs float32 on its CUDA-core body)")
+    why = kernel_arg_error(q, k, v, masks)
+    if why is not None:
+        raise ValueError(f"flash_fwd_tc kernel cannot take these inputs: "
+                         f"{why}")
+    return _launch(q, k, v, causal, scale, dropout, masks)
+
+
 def flash_attention_hopper(query: torch.Tensor, key: torch.Tensor,
                            value: torch.Tensor, causal: bool = False,
                            scale: Optional[float] = None, segment_ids=None,
@@ -639,7 +731,9 @@ def flash_attention_hopper(query: torch.Tensor, key: torch.Tensor,
                      masks=masks)[0]
 
 
-#: kernel launches since each count was last set to 0 (CUDA path only)
+#: kernel launches since each count was last set to 0 (CUDA path only);
+#: flash_fwd counts K1's float32 body, flash_fwd_tc its bf16 tensor-core body
 flash_fwd.launches = 0
+flash_fwd_tc.launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0

@@ -8,12 +8,15 @@ tensor cores, ``csrc/flash_packed_tc.cu``; float32 on the CUDA cores,
 (K4b-fused, ``csrc/flash_packed.cu``);
 where it does not, the streamed forms ``_fwd_kernel``, ``_bwd_dq_kernel``
 and ``_bwd_dkv_kernel``, and ``_bwd_dkv_kernel_direct`` when all the
-queries fit one tile while the keys do not, as ``csrc/flash_packed_stream.cu``.
+queries fit one tile while the keys do not, as ``csrc/flash_packed_stream.cu``
+(the streamed forward in float32; in bf16 it is K1's tensor-core body,
+``csrc/flash_fwd_tc.cu``, since ``_fwd_kernel`` is K1's function at head
+dim 64 with as many KV heads as heads).
 All are built by ``nvcc`` at first use and called through ``ctypes`` like
 K1-K3. :func:`plan` picks the form the JAX package would run for every
 input, from its tile arithmetic (``_pick_blocks_packed`` and the caller's
 ``block_q``/``block_k`` pins); inside each kernel the tiles are this card's
-own (64 x 64).
+own (64 x 64 on the CUDA cores; the tensor-core bodies' own stages).
 
 The TPU packs G heads on the 128-lane axis to fill its vector registers;
 that is the TPU's layout and is not carried over. Every kernel reads the
@@ -25,7 +28,9 @@ public ``[B, S, H, 64]`` layout through strides, one head per block.
   the tensor-core body (counted in ``flash_packed_fwd_tc.launches``), float32
   the CUDA-core body (``flash_packed_fwd.launches``), whose f32 products are
   the reference's (on the tensor cores f32 would be TF32); nothing falls back
-  from one body to the other;
+  from one body to the other; :func:`flash_packed_fwd_stream` the same way
+  (``flash_packed_fwd_stream_tc.launches``, ``flash_packed_fwd_stream.
+  launches``);
 - :func:`flash_packed_bwd` (K4b-fused) ``-> (dq, dk, dv)``, with ``delta =
   rowsum(do * o)`` a torch op here, as ``_bwd`` computes it outside its
   kernel; :func:`flash_packed_bwd_dq` ``-> dq`` and
@@ -61,13 +66,16 @@ import torch
 from .flash_attention import (NEG_INF, _DTYPE_CODE, AttnDropout, Masks,
                               _bwd_arg_error, _call, _delta, _dropout_args,
                               _keep, _kernel, _mask_ptrs, _masked_scores,
-                              _masks, _strides, as_dropout, kernel_arg_error)
+                              _masks, _strides, as_dropout,
+                              flash_fwd_reference, kernel_arg_error,
+                              require_aligned_rows)
 
 __all__ = ["flash_attention_packed", "flash_packed_fwd",
            "flash_packed_fwd_tc", "flash_packed_fwd_reference",
            "flash_packed_bwd",
            "flash_packed_bwd_reference", "flash_packed_fwd_stream",
-           "flash_packed_fwd_stream_reference", "flash_packed_bwd_dq",
+           "flash_packed_fwd_stream_tc", "flash_packed_fwd_stream_reference",
+           "flash_packed_bwd_dq",
            "flash_packed_bwd_dq_reference", "flash_packed_bwd_dkv",
            "flash_packed_bwd_dkv_reference", "flash_packed_bwd_dkv_direct",
            "flash_packed_bwd_dkv_direct_reference", "pack_group", "plan",
@@ -244,36 +252,16 @@ def flash_packed_fwd_stream_reference(q, k, v, causal: bool = False,
                                       dropout: Optional[AttnDropout] = None,
                                       *, first_head: int = 0
                                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch ``flash_packed_fwd_stream``: the online softmax of
-    ``_fwd_kernel`` over the kernel's 64-key tiles in order, in float32,
-    with its rounding point (p, taken against the running max, rounded to
-    v's dtype before the value product; ``p * keep`` with ``dropout``,
-    while l sums the undropped p). The kernel skips key tiles above
-    a query tile's causal band; here every row walks every tile, which
-    leaves m, l and acc exactly as they were (a masked score is NEG_INF: p
-    = 0 and the rescale is exp(0)). Returns ``(o [B, Sq, H, 64]`` in q's
-    dtype, ``lse [B, H, Sq]`` float32)."""
-    b, sq, sk, h = _shapes(q, k, v)
-    scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
-    s = _scores(q, k, causal, scale, masks)                  # [B, H, Sq, Sk]
-    vf = v.float()
-    m = torch.full((b, h, sq, 1), NEG_INF, device=q.device)
-    l = torch.zeros((b, h, sq, 1), device=q.device)
-    acc = torch.zeros((b, h, sq, HEAD_D), device=q.device)
-    keep = _keep(dropout, b, h, sq, sk, q.device, first_head)
-    for t in _tiles(sk):
-        st = s[..., t]
-        m_new = torch.maximum(m, st.amax(dim=-1, keepdim=True))
-        p = torch.exp(st - m_new) * (st > NEG_INF / 2)
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(dim=-1, keepdim=True)
-        pv = p if keep is None else p * keep[..., t]
-        acc = acc * alpha + torch.einsum(
-            "bhqk,bkhd->bhqd", pv.to(v.dtype).float(), vf[:, t])
-        m = m_new
-    l = torch.clamp(l, min=1e-30)
-    lse = (m + torch.log(l))[..., 0]
-    return (acc / l).transpose(1, 2).to(q.dtype), lse
+    """Plain PyTorch ``flash_packed_fwd_stream``: ``_fwd_kernel``'s online
+    softmax, which is K1's at head dim 64 with as many KV heads as heads, so
+    this is K1's plain version (:func:`~.flash_attention.flash_fwd_reference`:
+    the key stages of the body the dtype reaches, p against the running max
+    rounded to v's dtype before the value product, ``p * keep`` with
+    ``dropout`` while l sums the undropped p). Returns ``(o [B, Sq, H, 64]``
+    in q's dtype, ``lse [B, H, Sq]`` float32)."""
+    _shapes(q, k, v)
+    return flash_fwd_reference(q, k, v, causal, scale, dropout,
+                               first_head=first_head, masks=masks)
 
 
 def _bwd_p_ds(q, k, v, do, lse, delta, causal, scale, masks, dropout,
@@ -406,11 +394,8 @@ def _launch_fwd(q, k, v, causal: bool, scale: float, masks: Masks,
     tc = q.dtype == torch.bfloat16
     what = "flash_packed_fwd_tc" if tc else "flash_packed_fwd"
     _require(q, k, v, masks, what, max_sk=MAX_SEQ_K)
-    for name, t in (("q", q), ("k", k), ("v", v)) if tc else ():
-        if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
-            raise ValueError(f"{what} kernel cannot take these inputs: "
-                             f"{name}'s rows are not 16-byte aligned "
-                             f"(strides {t.stride()})")
+    if tc:
+        require_aligned_rows(what, ("q", q), ("k", k), ("v", v))
     lib, fn = _kernel("flash_packed_tc" if tc else "flash_packed",
                       "paddle_" + what, 8, 9)
     b, sq, sk, h = _shapes(q, k, v)
@@ -455,19 +440,28 @@ def _launch_bwd(q, k, v, do, lse, delta, causal: bool, scale: float,
 
 def _launch_fwd_stream(q, k, v, causal: bool, scale: float, masks: Masks,
                        dropout: Optional[AttnDropout] = None):
-    """``flash_packed_fwd_stream`` on CUDA tensors: ``(o, lse)``."""
-    _require(q, k, v, masks, "flash_packed_fwd_stream")
-    lib, fn = _kernel("flash_packed_stream", "paddle_flash_packed_fwd_stream",
-                      8, 9)
+    """``flash_packed_fwd_stream`` on CUDA tensors: ``(o, lse)``, from the
+    body of q's dtype: bf16 the tensor-core body (K1's, ``flash_fwd_tc.cu``,
+    counted by :func:`flash_packed_fwd_stream_tc`), float32 the CUDA-core
+    body (``flash_packed_stream.cu``, counted by
+    :func:`flash_packed_fwd_stream`)."""
+    tc = q.dtype == torch.bfloat16
+    what = "flash_packed_fwd_stream_tc" if tc else "flash_packed_fwd_stream"
+    _require(q, k, v, masks, what)
+    if tc:
+        require_aligned_rows(what, ("q", q), ("k", k), ("v", v))
+    lib, fn = _kernel("flash_fwd_tc" if tc else "flash_packed_stream",
+                      "paddle_" + what, 8, 9)
     b, sq, sk, h = _shapes(q, k, v)
     o = torch.empty((b, sq, h, HEAD_D), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    _call(lib, fn, "flash_packed_fwd_stream", q, k, q.data_ptr(),
+    _call(lib, fn, what, q, k, q.data_ptr(),
           k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
           *_mask_ptrs(masks), b, h, h, sq, sk, HEAD_D, *_strides(q, k, v),
           float(scale), int(bool(causal)), _DTYPE_CODE[q.dtype],
           *_dropout_args(dropout))
-    flash_packed_fwd_stream.launches += 1
+    (flash_packed_fwd_stream_tc if tc else
+     flash_packed_fwd_stream).launches += 1
     return o, lse
 
 
@@ -588,6 +582,27 @@ def flash_packed_fwd_stream(q, k, v, causal: bool = False,
     if dev.type == "cpu":
         return flash_packed_fwd_stream_reference(q, k, v, causal, scale,
                                                  masks, dropout)
+    return _launch_fwd_stream(q, k, v, causal, scale, masks, dropout)
+
+
+def flash_packed_fwd_stream_tc(q, k, v, causal: bool = False,
+                               scale: Optional[float] = None,
+                               masks: Masks = (None, None, None),
+                               dropout: Optional[AttnDropout] = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The streamed forward's tensor-core body (bf16 only; K1's body at
+    head dim 64): the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors. :func:`flash_packed_fwd_stream` reaches it for every bf16
+    CUDA input."""
+    dev = _same_device(q, k, v, *masks)
+    scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
+    if dev.type == "cpu":
+        return flash_packed_fwd_stream_reference(q, k, v, causal, scale,
+                                                 masks, dropout)
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_packed_fwd_stream_tc takes bfloat16, not "
+                         f"{q.dtype} (flash_packed_fwd_stream runs float32 "
+                         f"on its CUDA-core body)")
     return _launch_fwd_stream(q, k, v, causal, scale, masks, dropout)
 
 
@@ -718,12 +733,14 @@ def flash_attention_packed(query, key, value, causal: bool = False,
 
 
 #: kernel launches since each count was last set to 0 (CUDA path only);
-#: flash_packed_fwd counts K4a-direct's float32 body, flash_packed_fwd_tc its
-#: bf16 tensor-core body
+#: flash_packed_fwd and flash_packed_fwd_stream count their float32 bodies,
+#: flash_packed_fwd_tc and flash_packed_fwd_stream_tc their bf16
+#: tensor-core bodies
 flash_packed_fwd.launches = 0
 flash_packed_fwd_tc.launches = 0
 flash_packed_bwd.launches = 0
 flash_packed_fwd_stream.launches = 0
+flash_packed_fwd_stream_tc.launches = 0
 flash_packed_bwd_dq.launches = 0
 flash_packed_bwd_dkv.launches = 0
 flash_packed_bwd_dkv_direct.launches = 0

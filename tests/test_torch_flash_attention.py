@@ -101,6 +101,82 @@ def test_plain_k1_matches_pallas_fwd(case):
         assert np.all(tlse[:, :, :sq - sk].numpy() == np.float32(hfa.NEG_INF))
 
 
+# The rounding point (K1's repair): bf16, JAX's blocks pinned at 128/128 and
+# the plain version's stages at 128 keys round p at the same points.
+# (b, sq, sk, h, hk, d, causal, masks, dropout)
+ROUNDING_CASES = {
+    "causal_s512": (1, 512, 512, 2, 2, 128, True, False, False),
+    "noncausal_s512": (1, 512, 512, 2, 2, 128, False, False, False),
+    "gqa_causal_s256": (1, 256, 256, 4, 2, 128, True, False, False),
+    "segments_bias_s256": (2, 256, 256, 2, 2, 128, False, True, False),
+    "dropout_causal_s256": (1, 256, 256, 2, 2, 128, True, False, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUNDING_CASES))
+def test_plain_k1_rounds_p_where_pallas_fwd_rounds(case):
+    """``flash_fwd_reference`` at ``key_tile=128`` against ``_fwd`` at
+    blocks 128/128 in interpret mode, bf16. Both round p (``p * keep``
+    under dropout) to bf16 against the running max of the same 128-key
+    stages; only the f32 sums' order differs, which now and then flips a
+    rounding. So at least 99.5% of the outputs are equal and max |o -
+    o_jax| <= 1e-3. With segments a row sees a few keys, and one flipped p
+    moves its o by up to a few bf16 ulps (2.4e-3 at one row here): there
+    the bound is 1e-2, as the other bf16 tests hold o. A softmax that
+    rounds nothing (the plain version before its repair, here the same
+    function in float32) fails: 58-69% equal, and at S = 512 7.8e-3 apart
+    causal and 2.0e-3 non-causal."""
+    b, sq, sk, h, hk, d, causal, masked, dropped = ROUNDING_CASES[case]
+    q, k, v = _inputs(b, sq, sk, h, hk, d, seed=1)
+    scale = 1.0 / math.sqrt(d)
+    rng = np.random.default_rng(2)
+    seg = bias = None
+    jargs = {}
+    if masked:
+        seg = np.sort(rng.integers(0, 3, (b, sq)), axis=1).astype(np.int32)
+        bias = rng.standard_normal((b, sk)).astype(np.float32)
+        bias[:, sk * 3 // 4:] = -1e9
+        per_head = jnp.repeat(jnp.asarray(seg)[:, None, :], h, axis=1)
+        jargs = dict(seg_q=per_head.reshape(b * h, 1, sq),
+                     seg_k=per_head.reshape(b * h, 1, sk),
+                     bias=jnp.asarray(bias).reshape(b, 1, sk))
+    drop = hfa.AttnDropout(0.1, 4321) if dropped else None
+    if dropped:
+        jargs.update(dropout=0.1, seed=jnp.asarray([4321], jnp.int32))
+
+    def bhsd(x, s, heads):
+        return _to_jax(x, "bf16").transpose(0, 2, 1, 3).reshape(
+            b * heads, s, d)
+
+    with interpreted_pallas() as fa:
+        jo, jlse = fa._fwd(bhsd(q, sq, h), bhsd(k, sk, hk), bhsd(v, sk, hk),
+                           scale, causal, 128, 128, h, **jargs)
+    jo = np.asarray(jo.astype(jnp.float32)).reshape(b, h, sq, d).transpose(
+        0, 2, 1, 3)
+    jlse = np.asarray(jlse).reshape(b, h, sq)
+    masks = tuple(None if x is None else torch.from_numpy(x)
+                  for x in (seg, seg, bias))
+    tq, tk, tv = (_to_torch(x, "bf16") for x in (q, k, v))
+    to, tlse = hfa.flash_fwd_reference(tq, tk, tv, causal, scale, drop,
+                                       masks=masks, key_tile=128)
+    assert to.dtype == torch.bfloat16
+    err = np.abs(to.float().numpy() - jo)
+    assert float((err == 0).mean()) >= 0.995
+    assert float(err.max()) <= (1e-2 if masked else 1e-3)
+    np.testing.assert_allclose(tlse.numpy(), jlse, atol=1e-4, rtol=1e-5)
+    # the default stage at head dim 128 is the tensor-core body's, 128 keys
+    assert hfa.kernel_key_tile(torch.bfloat16, d) == 128
+    assert torch.equal(hfa.flash_fwd_reference(tq, tk, tv, causal, scale,
+                                               drop, masks=masks)[0], to)
+    unrounded, _ = hfa.flash_fwd_reference(tq.float(), tk.float(),
+                                           tv.float(), causal, scale, drop,
+                                           masks=masks)
+    err = np.abs(unrounded.bfloat16().float().numpy() - jo)
+    assert float((err == 0).mean()) < 0.9
+    if sq == 512:
+        assert float(err.max()) > 1e-3
+
+
 def test_plain_k1_ragged_lengths_match_dense_reference():
     """Ragged S (not a multiple of any tile) — what the engine's prefill
     buckets give the kernel — against the dense reference attention."""

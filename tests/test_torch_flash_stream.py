@@ -12,9 +12,10 @@ the offset band. For every case, spies record which JAX body ran (the
 kernel function handed to ``pallas_call``) and which plain version the
 port ran, and the test asserts they are counterparts. Tolerances: f32 2e-5
 on o and lse, 5e-5·max|ref| on each gradient (float32 sums over other
-tiles in another order: the port's kernels tile by 64, JAX's by 128); bf16
-2e-2 absolute plus 2e-2·|ref| (both round p and ds to bf16, p against a
-running max taken over other tiles, so a rounding may flip).
+tiles in another order: the port's CUDA-core kernels tile by 64, JAX's by
+128); bf16 2e-2 absolute plus 2e-2·|ref| (both round p and ds to bf16, so a
+rounding may flip; the bf16 forward's plain version walks 128-key stages,
+as the tensor-core body does and as JAX's pinned tiles do).
 
 Then the routing repairs: ``ops.flash_attention`` reaches K4 at d=64,
 ``flash_head_pack=0`` sends d=64 to K1 as in JAX, the block pins choose
@@ -303,6 +304,37 @@ def test_plain_stream_grads_match_pallas_vjp(case, pallas_results):
         assert empty.any()
         assert np.all(got["dq"].float().numpy()[empty] == 0)
         assert np.all(got["o"].detach().float().numpy()[empty] == 0)
+
+
+@pytest.mark.parametrize("case", ["bf16_s256_key_bias",
+                                  "f32_s256_causal_segments_bias",
+                                  "bf16_sq128_sk256_segment_ids_k"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_plain_stream_forward_is_the_plain_k1(case, rate, monkeypatch):
+    """K4a-stream's function is K1's at head dim 64 with as many KV heads
+    as heads: its plain version is one call to K1's (same stages, same
+    rounding), not a copy. The call is seen through a spy, and the result
+    equals K1's plain version bit for bit, with masks and dropout."""
+    (q, k, v, _), (seg_q, seg_k, bias) = _inputs(case)
+    causal, dtype = CASES[case][4:6]
+    tq, tk, tv = (torch.from_numpy(x).to(_tdt(dtype)) for x in (q, k, v))
+    masks = hfp._masks(q.shape[0], q.shape[1], k.shape[1], tq.device,
+                       *(None if x is None else torch.from_numpy(x)
+                         for x in (seg_q, seg_k, bias)))
+    drop = hfa.as_dropout(rate, 77)
+    calls = []
+
+    def spy(*a, **kw):
+        calls.append(kw.get("first_head"))
+        return hfa.flash_fwd_reference(*a, **kw)
+
+    monkeypatch.setattr(hfp, "flash_fwd_reference", spy)
+    o, lse = hfp.flash_packed_fwd_stream_reference(tq, tk, tv, causal, None,
+                                                   masks, drop, first_head=3)
+    assert calls == [3]
+    ro, rlse = hfa.flash_fwd_reference(tq, tk, tv, causal, None, drop,
+                                       first_head=3, masks=masks)
+    assert torch.equal(o, ro) and torch.equal(lse, rlse)
 
 
 def test_pick_blocks_matches_jax():
