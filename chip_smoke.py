@@ -39,13 +39,20 @@ context:
            (the float32 body on the same inputs in float32);
 6. kernel_packed_stream  K4's streamed forms (the forward: bf16 on K1's
            tensor-core body, flash_packed_fwd_stream_tc, float32 on
-           flash_packed_stream.cu; dq, dk/dv, dk/dv-direct on
-           flash_packed_stream.cu) against their plain versions in 20
-           cases (f32 and bf16, masks, causal with Sq != Sk, Sk = 640,
-           rows with no key), then compared and timed at ERNIE's long shape
-           (B=16, S=2048, H=12, bf16, with and without bench.py's padding
-           bias; the float32 forward body on the same inputs in f32) and
-           dk/dv-direct at 512 queries over 2048 keys;
+           flash_packed_stream.cu; dq and dk/dv: bf16 on the tensor-core
+           bodies of flash_packed_bwd_tc.cu, flash_packed_bwd_dq_tc and
+           flash_packed_bwd_dkv_tc, float32 on flash_packed_stream.cu;
+           dk/dv-direct on flash_packed_stream.cu) against their plain
+           versions in 24 cases (f32 and bf16, masks, causal with Sq != Sk,
+           Sq and Sk past whole tiles, rows with no key, pad sentinels, a
+           batch of several waves), each checked to run the bodies of its
+           dtype (the tensor-core dq and dk/dv against plain versions that
+           sum dp as mma.sync does, hfp.mma_dot, itself first held against
+           the card's own sums bit for bit), then compared and timed at
+           ERNIE's long shape (B=16, S=2048, H=12, bf16, with and without
+           bench.py's padding bias; the float32 forward, dq and dk/dv
+           bodies on the same inputs in f32) and dq and dk/dv-direct at
+           512 queries over 2048 keys;
 7. kernel_conv  K5-K8 (conv.cu: mm, mm_wgrad, c3, c3_wgrad) against their
            plain versions, forward with stats, input gradient and weight
            gradient, in 15 cases (stride 1 and 2, prologue with ReLU or
@@ -85,19 +92,20 @@ context:
            224², 2 warm-up and 8 timed steps; every step launches K5/K6/K7/K8
            72/36/32/16 times and no K1-K4;
 16. train_grad_f32_ernie  as 10, for a 2-layer cut of ERNIE-base at B=1 x
-           S=2048 with a padding mask, through the streamed forward, dq and
-           dk/dv (compared in the 2-norm);
+           S=2048 with a padding mask, through the float32 bodies of the
+           streamed forward, dq and dk/dv (compared in the 2-norm);
 17. train_ernie_bf16  the ERNIE slice: 12 layers, bf16 with AdamW f32
            masters, in three forms: bench.py's config 5 (PipelineLayer and
            make_pipeline_train_step, 512 positions, B=64 x 512, 2+8 steps;
            K4a and K4b 12 a step), the same at 2048 positions (B=16 x 2048,
-           2+8 steps; the streamed forward's tensor-core body, dq and
-           dk/dv 12 a step), and
+           2+8 steps; the tensor-core bodies of the streamed forward, dq and
+           dk/dv 12 a step, their float32 bodies none), and
            ErnieForPretraining at B=16 x 2048 with bench.py's padding mask
            (2+4 steps); every earlier path launches no streamed kernel;
 18. cross_attention  nn.MultiHeadAttention(768, 12), 512 queries over 2048
-           keys, B=16, bf16: the streamed forward's tensor-core body, dq
-           and dk/dv-direct once each, held against the plain dense path.
+           keys, B=16, bf16: the tensor-core bodies of the streamed forward
+           and dq, and dk/dv-direct, once each, held against the plain dense
+           path.
 
 Attention-prob dropout and K9 (after phase 7, in this order):
 - kernel / kernel_packed / kernel_packed_stream, part "dropout": the nine
@@ -122,7 +130,8 @@ and the dropout paths, each after its model's rate-0 path:
   form, 2+4 steps, twice from one seed (equal losses) and once at rate 0
   (other losses);
 - train_ernie_dropout_bf16  ERNIE-base at 2048 positions, dropout 0.1,
-  B=16 x 2048, 2+4 steps (the streamed forward, dq, dk/dv 12 a step).
+  B=16 x 2048, 2+4 steps (the tensor-core streamed forward, dq, dk/dv 12 a
+  step).
 
 ``--profile`` adds phases that serve the bf16 trace again and run a few
 GPT, BERT, ResNet and long-form ERNIE train steps under torch.profiler, and print the device
@@ -774,7 +783,9 @@ def k4_inputs(torch, b, sq, sk, h, dtype, mask, seed):
 def mask_inputs(torch, g, b, sq, sk, dtype, mask):
     """The masks ``(seg_q, seg_k, bias)`` of a case, drawn from ``g``:
     sorted segment ids 1..3 (``segk``: query ids 1..3 against key ids 0..2,
-    so some queries find no key), and bench.py's padding bias on a random
+    so some queries find no key; ``seg_pad``: ids 1..3 with a random tail
+    of each row padded by the sentinels -1 for queries and -2 for keys, so
+    the pad queries find no key), and bench.py's padding bias on a random
     length per row plus noise."""
     seg_q = seg_k = bias = None
 
@@ -788,6 +799,14 @@ def mask_inputs(torch, g, b, sq, sk, dtype, mask):
         seg_k = seg_q if sq == sk else ids(sk, 1, 4)
     if mask == "segk":    # query ids 1..3 against key ids 0..2
         seg_q, seg_k = ids(sq, 1, 4), ids(sk, 0, 3)
+    if mask == "seg_pad":
+        seg_q, seg_k = ids(sq, 1, 4), ids(sk, 1, 4)
+        for t, pad in ((seg_q, -1), (seg_k, -2)):
+            n = t.shape[1]
+            lengths = torch.randint(n // 2, n, (b,), generator=g,
+                                    device="cuda")
+            t[torch.arange(n, device="cuda")[None, :] >=
+              lengths[:, None]] = pad
     if mask in ("bias", "seg_bias"):
         lengths = torch.randint(sk // 4, sk + 1, (b,), generator=g,
                                 device="cuda")
@@ -827,6 +846,7 @@ def compare(torch, name, got, ref, dt, row, nonzero=False):
         ok = bool((err <= 1e-5 + 1e-5 * ref32.abs()).all())
     row.update({f"max_abs_err_{name}": float(err.max()),
                 f"mean_abs_err_{name}": float(err.mean()),
+                f"equal_{name}": float((err == 0).float().mean()),
                 f"max_abs_{name}": float(ref32.abs().max()),
                 f"median_abs_{name}": med})
     row["ok"] = row.get("ok", True) and ok
@@ -1009,11 +1029,33 @@ STREAM_CASES = [
      "seg_bias"),
     ("bf16_sq640_sk384_causal_masked_rows", 1, 640, 384, 12, True, "bf16",
      None),
+    # the tensor-core dq and dk/dv's edges: Sq and Sk past whole 64-wide
+    # stages, causal with Sq > Sk and Sq < Sk, pad sentinels (queries that
+    # find no key), and a batch of several waves of blocks
+    ("bf16_sq600_sk328_causal_masked_rows", 1, 600, 328, 12, True, "bf16",
+     None),
+    ("bf16_sq328_sk600_causal_key_bias", 1, 328, 600, 12, True, "bf16",
+     "bias"),
+    ("bf16_s384_segments_pad_sentinel", 2, 384, 384, 12, False, "bf16",
+     "seg_pad"),
+    ("bf16_b8_s1024_key_bias", 8, 1024, 1024, 12, False, "bf16", "bias"),
 ]
 
+#: the streamed kernels, each body apart: the forward, dq and dk/dv in bf16
+#: on the tensor cores (``_tc``) and in float32 on flash_packed_stream.cu;
+#: dk/dv-direct on flash_packed_stream.cu in both
 STREAM_KERNELS = ("flash_packed_fwd_stream", "flash_packed_fwd_stream_tc",
-                  "flash_packed_bwd_dq",
-                  "flash_packed_bwd_dkv", "flash_packed_bwd_dkv_direct")
+                  "flash_packed_bwd_dq", "flash_packed_bwd_dq_tc",
+                  "flash_packed_bwd_dkv", "flash_packed_bwd_dkv_tc",
+                  "flash_packed_bwd_dkv_direct")
+
+
+def stream_bodies(dt):
+    """The names (and counts) of the streamed forward, dq and dk/dv bodies
+    that ``dt`` reaches."""
+    tc = "_tc" if dt == "bf16" else ""
+    return ("flash_packed_fwd_stream" + tc, "flash_packed_bwd_dq" + tc,
+            "flash_packed_bwd_dkv" + tc)
 
 
 def stream_case(torch, hfp, case, q, k, v, do, masks, worst, dropout=None):
@@ -1022,6 +1064,8 @@ def stream_case(torch, hfp, case, q, k, v, do, masks, worst, dropout=None):
     (with ``dropout``, the same rate and seed); one row of errors."""
     name, b, sq, sk, h, causal, dt = case
     drop = dict(dropout=dropout)
+    fwd, dq_body, dkv_body = stream_bodies(dt)
+    before = {n: getattr(hfp, n).launches for n in STREAM_KERNELS}
     o, lse = hfp.flash_packed_fwd_stream(q, k, v, causal, None, masks,
                                          **drop)
     delta = hfp._delta(o, do)
@@ -1035,35 +1079,45 @@ def stream_case(torch, hfp, case, q, k, v, do, masks, worst, dropout=None):
         got["dk_direct"], got["dv_direct"] = hfp.flash_packed_bwd_dkv_direct(
             q, k, v, do, lse, delta, causal, None, masks, **drop)
     torch.cuda.synchronize()
+    ran = {n: getattr(hfp, n).launches - before[n] for n in STREAM_KERNELS}
+    check(ran == {n: int(n in (fwd, dq_body, dkv_body) or
+                         (direct and n == "flash_packed_bwd_dkv_direct"))
+                  for n in STREAM_KERNELS},
+          f"{name}: the streamed bodies that ran: {ran}")
     ro, rlse = hfp.flash_packed_fwd_stream_reference(q, k, v, causal, None,
                                                      masks, **drop)
+    # the tensor-core bodies' yardstick sums dp as they do (mma_dot); the
+    # CUDA-core bodies' f32 FMA sums are a float32 einsum's
+    tc = dict(mma_sums=dt == "bf16")
     ref = {"dq": hfp.flash_packed_bwd_dq_reference(
-        q, k, v, do, lse, delta, causal, None, masks, **drop)}
+        q, k, v, do, lse, delta, causal, None, masks, **drop, **tc)}
     ref["dk"], ref["dv"] = hfp.flash_packed_bwd_dkv_reference(
-        q, k, v, do, lse, delta, causal, None, masks, **drop)
+        q, k, v, do, lse, delta, causal, None, masks, **drop, **tc)
     if direct:
-        ref["dk_direct"], ref["dv_direct"] = ref["dk"], ref["dv"]
+        ref["dk_direct"], ref["dv_direct"] = (ref["dk"], ref["dv"]) \
+            if dt == "f32" else hfp.flash_packed_bwd_dkv_direct_reference(
+                q, k, v, do, lse, delta, causal, None, masks, **drop)
     torch.cuda.synchronize()
     row = {"case": name, "shape": [b, sq, sk, h, 64], "causal": causal,
            "dtype": dt, "masks": [t is not None for t in masks],
            "dropout": None if dropout is None else list(dropout)}
-    fwd = "flash_packed_fwd_stream_tc" if dt == "bf16" else \
-        "flash_packed_fwd_stream"
     worst[fwd] = max(worst[fwd], compare(torch, "o", o, ro, dt, row,
                                          nonzero=True))
     err_lse = (lse - rlse).abs()
     row["max_abs_err_lse"] = float(err_lse.max())
     row["ok"] &= bool((err_lse <= (1e-2 if dt == "bf16" else 1e-5) *
                        (1 + rlse.abs())).all())
-    for gname, kname in (("dq", "flash_packed_bwd_dq"),
-                         ("dk", "flash_packed_bwd_dkv"),
-                         ("dv", "flash_packed_bwd_dkv"),
+    for gname, kname in (("dq", dq_body), ("dk", dkv_body),
+                         ("dv", dkv_body),
                          ("dk_direct", "flash_packed_bwd_dkv_direct"),
                          ("dv_direct", "flash_packed_bwd_dkv_direct")):
         if gname in got:
             worst[kname] = max(worst[kname], compare(
                 torch, gname, got[gname], ref[gname], dt, row, nonzero=True))
-    if direct:   # the two dk/dv kernels sum in the same order
+    if direct and dt == "f32":
+        # the two float32 dk/dv bodies of flash_packed_stream.cu sum in the
+        # same order; in bf16 dk/dv runs on the tensor cores, which sum in
+        # another, and each body is held to its plain version above
         row["ok"] &= bool(torch.equal(got["dk"], got["dk_direct"])) and \
             bool(torch.equal(got["dv"], got["dv_direct"]))
     # rows with no valid key: o = 0 and dq = 0, exactly
@@ -1076,6 +1130,31 @@ def stream_case(torch, hfp, case, q, k, v, do, masks, worst, dropout=None):
     return row, o, lse
 
 
+def mma_probe(torch, hfp, n=8192):
+    """The tensor-core bodies' f32 sums of bf16 products against the plain
+    versions' model of them (``hfp.mma_dot``), bit for bit: with q = 0, K
+    the identity, lse = 0 and scale 1 the dq body gives dq[i, j] = bf16(dp[i,
+    j] - delta[i]), so with delta[i] the model's dp[i, i % 64] it gives 0
+    exactly where the card summed as the model does (dO of mixed magnitudes,
+    V columns scaled by 2^-6 .. 2^6). Returns the share of the n sums that
+    agree."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    do = torch.randn(1, n, 1, 64, generator=g, device="cuda").bfloat16()
+    v = (torch.randn(1, 64, 1, 64, generator=g, device="cuda") * torch.exp2(
+        torch.randint(-6, 7, (1, 1, 1, 64), generator=g,
+                      device="cuda").float())).bfloat16()
+    q = torch.zeros(1, n, 1, 64, device="cuda").bfloat16()
+    k = torch.eye(64, device="cuda").reshape(1, 64, 1, 64).bfloat16()
+    rows = torch.arange(n, device="cuda")
+    j = rows % 64
+    delta = hfp.mma_dot(do, v)[0, 0, rows, j].reshape(1, 1, n).contiguous()
+    dq = hfp.flash_packed_bwd_dq(q, k, v, do, torch.zeros(1, 1, n,
+                                                          device="cuda"),
+                                 delta, False, 1.0, (None, None, None))
+    return float((dq[0, rows, 0, j] == 0).float().mean())
+
+
 def stream_bound(peaks, flops, nbytes, dt="bf16"):
     # float32 products run on the CUDA cores: the f32 peak bounds them
     t_ops = flops / peaks[dt] * 1e3
@@ -1085,12 +1164,25 @@ def stream_bound(peaks, flops, nbytes, dt="bf16"):
 
 
 def phase_kernel_packed_stream(torch, np, hfp, peaks):
-    """The four streamed K4 kernels against their plain versions in every
-    case, then at ERNIE's long shape (B=16, S=2048, H=12, bf16, with and
-    without bench.py's padding bias: forward, dq, dk/dv) and at the
-    cross-attention shape (Sq=512 over Sk=2048: dk/dv-direct), where each
-    is compared and timed beside its bound, its plain version and SDPA."""
+    """The four streamed K4 kernels (the forward, dq and dk/dv in both of
+    their bodies) against their plain versions in every case, then at
+    ERNIE's long shape (B=16, S=2048, H=12, bf16, with and without bench.py's
+    padding bias: forward, dq, dk/dv on the tensor cores) and at the
+    cross-attention shape (Sq=512 over Sk=2048: dq and dk/dv-direct),
+    where each is compared and timed beside its bound, its plain version and
+    SDPA; the float32 forward, dq and dk/dv bodies at the long shape on the
+    same inputs in float32. First the tensor-core backward's stage against
+    the plain versions' tile, and ``mma_dot`` against the card's sums."""
     import torch.nn.functional as F
+    from paddle_tpu_torch.ops._hopper import build
+    stage = build.library(
+        "flash_packed_bwd_tc").paddle_flash_packed_bwd_tc_stage()
+    check(stage == hfp.KERNEL_TILE,
+          f"the tensor-core backward's stage is {stage}; the plain versions "
+          f"sum over tiles of {hfp.KERNEL_TILE}")
+    mma_sums = mma_probe(torch, hfp)
+    check(mma_sums == 1.0, f"mma_dot models {mma_sums:.5f} of the card's "
+                           f"sums, not all")
     results = []
     worst = {name: 0.0 for name in STREAM_KERNELS}
     for i, (name, b, sq, sk, h, causal, dt, mask) in enumerate(STREAM_CASES):
@@ -1148,14 +1240,14 @@ def phase_kernel_packed_stream(torch, np, hfp, peaks):
                  lambda: hfp.flash_packed_fwd_stream_reference(
                      q, k, v, False, scale, masks),
                  4 * d * pairs, 2 * eq + 2 * ek + stat + mbytes, lib_fwd_ms),
-                ("flash_packed_bwd_dq",
+                ("flash_packed_bwd_dq_tc",
                  lambda: hfp.flash_packed_bwd_dq(q, k, v, do, lse, delta,
                                                  False, scale, masks),
                  lambda: hfp.flash_packed_bwd_dq_reference(
                      q, k, v, do, lse, delta, False, scale, masks),
                  6 * d * pairs, 3 * eq + 2 * ek + 2 * stat + mbytes,
                  lib_bwd_ms),
-                ("flash_packed_bwd_dkv",
+                ("flash_packed_bwd_dkv_tc",
                  lambda: hfp.flash_packed_bwd_dkv(q, k, v, do, lse, delta,
                                                   False, scale, masks),
                  lambda: hfp.flash_packed_bwd_dkv_reference(
@@ -1164,6 +1256,13 @@ def phase_kernel_packed_stream(torch, np, hfp, peaks):
                  lib_bwd_ms)]
         else:
             kernels = [
+                ("flash_packed_bwd_dq_tc",
+                 lambda: hfp.flash_packed_bwd_dq(q, k, v, do, lse, delta,
+                                                 False, scale, masks),
+                 lambda: hfp.flash_packed_bwd_dq_reference(
+                     q, k, v, do, lse, delta, False, scale, masks),
+                 6 * d * pairs, 3 * eq + 2 * ek + 2 * stat + mbytes,
+                 lib_bwd_ms),
                 ("flash_packed_bwd_dkv_direct",
                  lambda: hfp.flash_packed_bwd_dkv_direct(
                      q, k, v, do, lse, delta, False, scale, masks),
@@ -1186,44 +1285,76 @@ def phase_kernel_packed_stream(torch, np, hfp, peaks):
                 "tflops": flops / ms / 1e9}
         del q, k, v, do, o, lse, delta, qt, kt, vt
         torch.cuda.empty_cache()
-    # the float32 forward body at the long shape, on the same inputs in f32
+    # the float32 forward, dq and dk/dv bodies at the long shape, on the
+    # same inputs in f32
     b, s = 16, 2048
     g = torch.Generator(device="cuda")
     g.manual_seed(13)
-    q = torch.randn(b, s, h, d, generator=g, device="cuda")
-    torch.randn(b, s, h, d, generator=g, device="cuda")   # do's draw
+    q, do = (torch.randn(b, s, h, d, generator=g, device="cuda")
+             for _ in range(2))
     k, v = (torch.randn(b, s, h, d, generator=g, device="cuda")
             for _ in range(2))
     none = (None, None, None)
-    o, _ = hfp.flash_packed_fwd_stream(q, k, v, False, None, none)
-    ro, _ = hfp.flash_packed_fwd_stream_reference(q, k, v, False, None, none)
-    row32 = {"case": "ernie_b16_s2048_f32_fwd"}
-    worst["flash_packed_fwd_stream"] = max(
-        worst["flash_packed_fwd_stream"],
-        compare(torch, "o", o, ro, "f32", row32))
-    check(row32["ok"], f"the streamed forward's f32 body disagrees: {row32}")
+    o, lse = hfp.flash_packed_fwd_stream(q, k, v, False, None, none)
+    delta = hfp._delta(o, do)
+    args = (q, k, v, do, lse, delta, False, None, none)
+    got = {"o": o, "dq": hfp.flash_packed_bwd_dq(*args)}
+    got["dk"], got["dv"] = hfp.flash_packed_bwd_dkv(*args)
+    ref = {"o": hfp.flash_packed_fwd_stream_reference(q, k, v, False, None,
+                                                      none)[0],
+           "dq": hfp.flash_packed_bwd_dq_reference(*args)}
+    ref["dk"], ref["dv"] = hfp.flash_packed_bwd_dkv_reference(*args)
+    row32 = {"case": "ernie_b16_s2048_f32"}
+    for gname, kname in (("o", "flash_packed_fwd_stream"),
+                         ("dq", "flash_packed_bwd_dq"),
+                         ("dk", "flash_packed_bwd_dkv"),
+                         ("dv", "flash_packed_bwd_dkv")):
+        worst[kname] = max(worst[kname], compare(
+            torch, gname, got[gname], ref[gname], "f32", row32))
+    check(row32["ok"], f"the streamed float32 bodies disagree: {row32}")
     results.append(row32)
-    del o, ro
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    del got, ref
+    torch.cuda.empty_cache()
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    lib_fwd_ms = median_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt), iters=5)
+    ot = F.scaled_dot_product_attention(qt, kt, vt)
+    dot = do.transpose(1, 2)
+    lib_bwd_ms = median_ms(lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), dot, retain_graph=True), iters=5)
+    del ot
     pairs = b * h * s * s
-    nbytes = 4 * b * s * h * d * 4 + b * h * s * 4   # q, k, v, o, lse
-    bound, by = stream_bound(peaks, 4 * d * pairs, nbytes, "f32")
-    ms = median_ms(lambda: hfp.flash_packed_fwd_stream(q, k, v, False, None,
-                                                       none), iters=5)
-    timing["flash_packed_fwd_stream"] = {"ernie_b16_s2048": {
-        "shape": [b, s, s, h, d], "dtype": "f32", "causal": False,
-        "mask": None, "kernel_ms": ms,
-        "plain_ms": median_ms(lambda: hfp.flash_packed_fwd_stream_reference(
-            q, k, v, False, None, none), iters=5, warmup=1),
-        "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt), iters=5),
-        "library": "SDPA forward, float32", "flops": 4 * d * pairs,
-        "bytes": nbytes, "bound_ms": bound, "bound_by": by,
-        "peak_sheet": peaks["sheet"], "tflops": 4 * d * pairs / ms / 1e9}}
-    del q, k, v, qt, kt, vt
+    e4 = b * s * h * d * 4                 # bytes of one f32 [B, S, H, D]
+    stat = b * h * s * 4
+    for kname, run, plain, flops, nbytes, lib, what in (
+            ("flash_packed_fwd_stream",
+             lambda: hfp.flash_packed_fwd_stream(q, k, v, False, None, none),
+             lambda: hfp.flash_packed_fwd_stream_reference(q, k, v, False,
+                                                           None, none),
+             4 * d * pairs, 4 * e4 + stat, lib_fwd_ms,
+             "SDPA forward, float32"),
+            ("flash_packed_bwd_dq", lambda: hfp.flash_packed_bwd_dq(*args),
+             lambda: hfp.flash_packed_bwd_dq_reference(*args),
+             6 * d * pairs, 5 * e4 + 2 * stat, lib_bwd_ms,
+             "SDPA backward, float32 (dq, dk, dv together)"),
+            ("flash_packed_bwd_dkv", lambda: hfp.flash_packed_bwd_dkv(*args),
+             lambda: hfp.flash_packed_bwd_dkv_reference(*args),
+             8 * d * pairs, 6 * e4 + 2 * stat, lib_bwd_ms,
+             "SDPA backward, float32 (dq, dk, dv together)")):
+        ms = median_ms(run, iters=5)
+        bound, by = stream_bound(peaks, flops, nbytes, "f32")
+        timing[kname] = {"ernie_b16_s2048": {
+            "shape": [b, s, s, h, d], "dtype": "f32", "causal": False,
+            "mask": None, "kernel_ms": ms,
+            "plain_ms": median_ms(plain, iters=5, warmup=1),
+            "library_ms": lib, "library": what, "flops": flops,
+            "bytes": nbytes, "bound_ms": bound, "bound_by": by,
+            "peak_sheet": peaks["sheet"], "tflops": flops / ms / 1e9}}
+    del q, k, v, do, o, lse, delta, args, qt, kt, vt, dot
     torch.cuda.empty_cache()
     emit({"phase": "kernel_packed_stream", "kernels": list(STREAM_KERNELS),
-          "cases": results, "timing": timing,
+          "mma_dot_probe_equal": mma_sums, "cases": results, "timing": timing,
           "library": "scaled_dot_product_attention in [B, H, S, D] bf16, "
                      "attn_mask = bias[:, None, None, :] where padded; "
                      "backward by autograd.grad after one forward"})
@@ -1252,9 +1383,11 @@ def mask_probe(torch, hfa, hfp, family, seed):
     = p·dp·keep·scale and dv[k, q] = (p·keep)[q, k]. Each kernel's zeros
     must be exactly the zeros of ``dropout_keep_dense`` (p > 0 and dp != 0
     at every score). The bf16 tensor-core bodies (K1's, which K4a-stream
-    shares, and K4a-direct's) take the same probe in bf16: their o is
-    (p·keep rounded to bf16) / l, 0 exactly where keep is. Returns
-    {kernel: dropped scores seen}."""
+    shares, K4a-direct's, and the streamed dq and dk/dv) take the same probe
+    in bf16: their o is (p·keep rounded to bf16) / l, their dq ds rounded
+    and their dv p·keep rounded, 0 exactly where keep is. Every probe must
+    run the body it names and no other. Returns {kernel: dropped scores
+    seen}."""
     b, s, h = 1, 64, 4
     d = 128 if family == "k1" else 64
     dr = hfa.AttnDropout(DROP_RATE, seed)
@@ -1286,14 +1419,20 @@ def mask_probe(torch, hfa, hfp, family, seed):
             dr)[0::2]}
     else:
         args = (q, eye, v, eye, zeros, zeros, False, scale, (None,) * 3, dr)
+        argsb = (qb, eyeb, v.bfloat16(), eyeb, zeros, zeros, False, scale,
+                 (None,) * 3, dr)
         fwd = {"flash_packed_fwd_stream": lambda: hfp.flash_packed_fwd_stream(
             q, q, eye, dropout=dr),
                "flash_packed_fwd_stream_tc": lambda: (
                    hfp.flash_packed_fwd_stream(qb, qb, eyeb, dropout=dr))}
         bwd = {"flash_packed_bwd_dq": lambda: (
                    hfp.flash_packed_bwd_dq(*args), None),
+               "flash_packed_bwd_dq_tc": lambda: (
+                   hfp.flash_packed_bwd_dq(*argsb), None),
                "flash_packed_bwd_dkv": lambda: (
                    None, hfp.flash_packed_bwd_dkv(*args)[1]),
+               "flash_packed_bwd_dkv_tc": lambda: (
+                   None, hfp.flash_packed_bwd_dkv(*argsb)[1]),
                "flash_packed_bwd_dkv_direct": lambda: (
                    None, hfp.flash_packed_bwd_dkv_direct(*args)[1])}
     seen = {}
@@ -1308,7 +1447,10 @@ def mask_probe(torch, hfa, hfp, family, seed):
               f"{name}: the dropped probabilities are not the mask's")
         seen[name] = int(keep0.sum())
     for name, run in bwd.items():
+        before = k4_counts(hfa, hfp)
         dq, dv = run()
+        ran = [n for n, c in k4_counts(hfa, hfp).items() if c != before[n]]
+        check(ran == [name], f"{name}: the probe ran {ran}")
         if dq is not None:    # dq[q, j] = ds[q, j] for j < 64
             pat = dq.permute(0, 2, 1, 3)[..., :s] == 0
             check(bool(torch.equal(pat, keep0)),
@@ -1588,9 +1730,9 @@ def dropout_stream(torch, np, hfa, hfp, timing):
             runs = {"flash_packed_fwd_stream_tc": lambda *a: (
                         hfp.flash_packed_fwd_stream(q, k, v, False, scale,
                                                     none, *a)),
-                    "flash_packed_bwd_dq": lambda *a: hfp.flash_packed_bwd_dq(
-                        *args, *a),
-                    "flash_packed_bwd_dkv": lambda *a: (
+                    "flash_packed_bwd_dq_tc": lambda *a: (
+                        hfp.flash_packed_bwd_dq(*args, *a)),
+                    "flash_packed_bwd_dkv_tc": lambda *a: (
                         hfp.flash_packed_bwd_dkv(*args, *a))}
         else:
             runs = {"flash_packed_bwd_dkv_direct": lambda *a: (
@@ -1614,8 +1756,9 @@ def dropout_stream(torch, np, hfa, hfp, timing):
         delta = hfp._delta(o, do)
         args = (q, k, v, do, lse, delta, False, None, none, dr)
         got = {"o": o, "dq": hfp.flash_packed_bwd_dq(*args)}
-        dkv = hfp.flash_packed_bwd_dkv if sq == sk else \
-            hfp.flash_packed_bwd_dkv_direct
+        dkv, dkv_body = (hfp.flash_packed_bwd_dkv, "flash_packed_bwd_dkv_tc") \
+            if sq == sk else (hfp.flash_packed_bwd_dkv_direct,
+                              "flash_packed_bwd_dkv_direct")
         got["dk"], got["dv"] = dkv(*args)
         last = b - 1
         sl = slice(last, b)
@@ -1624,12 +1767,13 @@ def dropout_stream(torch, np, hfa, hfp, timing):
         fh = {"first_head": last * h}
         ref = {"o": hfp.flash_packed_fwd_stream_reference(
             q[sl], k[sl], v[sl], False, None, none, dr, **fh)[0],
-               "dq": hfp.flash_packed_bwd_dq_reference(*largs, **fh)}
-        ref["dk"], ref["dv"] = hfp.flash_packed_bwd_dkv_reference(*largs,
-                                                                  **fh)
+               "dq": hfp.flash_packed_bwd_dq_reference(*largs, **fh,
+                                                       mma_sums=True)}
+        ref["dk"], ref["dv"] = hfp.flash_packed_bwd_dkv_reference(
+            *largs, **fh, mma_sums=sq == sk)
         wrap = {"case": f"wrap_b{b}_{shape_name}", "shape": [b, sq, sk, h, d],
                 "kernels": ["flash_packed_fwd_stream_tc",
-                            "flash_packed_bwd_dq", dkv.__name__],
+                            "flash_packed_bwd_dq_tc", dkv_body],
                 "first_compared_head": last * h,
                 "first_flat_index": wrap_heads(last, h, sq, sk)}
         check(wrap["first_flat_index"] > 2 ** 32, f"no wrap: {wrap}")
@@ -2966,11 +3110,11 @@ ERNIE_FORMS = (
     ("bench_s512", 512, 64, 512, 2, 8, ("flash_packed_fwd_tc",
                                         "flash_packed_bwd")),
     ("long_s2048", 2048, 16, 2048, 2, 8, ("flash_packed_fwd_stream_tc",
-                                          "flash_packed_bwd_dq",
-                                          "flash_packed_bwd_dkv")),
+                                          "flash_packed_bwd_dq_tc",
+                                          "flash_packed_bwd_dkv_tc")),
     ("padded_s2048", 2048, 16, 2048, 2, 4, ("flash_packed_fwd_stream_tc",
-                                            "flash_packed_bwd_dq",
-                                            "flash_packed_bwd_dkv")),
+                                            "flash_packed_bwd_dq_tc",
+                                            "flash_packed_bwd_dkv_tc")),
 )
 
 
@@ -3266,8 +3410,8 @@ def phase_train_ernie_dropout_bf16(torch, np, hfa, hfp, peaks, ernie, AdamW,
           math.log(cfg.vocab_size) + 1.2, f"ERNIE dropout step-0 loss "
                                            f"{losses[0]}")
     check_launches(launches, {"flash_packed_fwd_stream_tc": n,
-                              "flash_packed_bwd_dq": n,
-                              "flash_packed_bwd_dkv": n},
+                              "flash_packed_bwd_dq_tc": n,
+                              "flash_packed_bwd_dkv_tc": n},
                    "ERNIE with dropout")
     del model, opt, pstep, state, run
     torch.cuda.empty_cache()
@@ -3279,7 +3423,8 @@ def phase_cross_attention(torch, np, hfa, hfp, MultiHeadAttention,
     """``nn.MultiHeadAttention(768, 12, dropout=rate)`` in bf16, training: a
     512-token query over 2048 keys, B=16, forward and backward. The JAX
     package runs the streamed forward, the streamed dq and dk/dv-direct
-    here (all queries in one tile, the keys in four); each launches once.
+    here (all queries in one tile, the keys in four); each launches once
+    (the forward and dq on their tensor-core bodies).
     Output and gradients are held against the port's plain dense path
     (``_dense_attention``; at a rate above 0 the dense softmax times
     ``dropout_keep_dense`` of the seed the layer drew inside an
@@ -3316,7 +3461,7 @@ def phase_cross_attention(torch, np, hfa, hfp, MultiHeadAttention,
     launches = k4_counts(hfa, hfp)
     check(launches == {**{n: 0 for n in ATTENTION_KERNELS},
                        "flash_packed_fwd_stream_tc": 1,
-                       "flash_packed_bwd_dq": 1,
+                       "flash_packed_bwd_dq_tc": 1,
                        "flash_packed_bwd_dkv_direct": 1},
           f"{phase}: launches {launches}")
     # the plain path: the same projections, the dense attention
@@ -3548,9 +3693,9 @@ def main() -> int:
     # three forms) for K4a-direct's bf16 tensor-core body and K4b, the f32
     # BERT gradient check for K4a-direct's float32 body (`f32_bert_launches`),
     # ResNet training for K5-K8, ERNIE training (all three forms) for the
-    # streamed forward's bf16 tensor-core body, dq and dk/dv, the f32 ERNIE
-    # gradient check for the streamed forward's float32 body
-    # (`f32_ernie_launches`), cross-attention for dk/dv-direct; every entry
+    # bf16 tensor-core bodies of the streamed forward, dq and dk/dv, the f32
+    # ERNIE gradient check for their float32 bodies (`f32_ernie_launches`),
+    # cross-attention for dk/dv-direct; every entry
     # also has every path's count. `max_abs_err` is
     # the largest error of an output element (y, dx, dw, o, dq, ...) against
     # the plain version; `stats_rel_err` that of K5/K7's f32 (sum, sumsq)
@@ -3613,16 +3758,26 @@ def main() -> int:
              timing_stream["flash_packed_fwd_stream"],
              worst_stream["flash_packed_fwd_stream"],
              f32_ernie_launches["flash_packed_fwd_stream"]),
+            ("flash_packed_bwd_dq_tc", "flash_packed_bwd_tc.cu", fp + "297 "
+             "(_bwd_dq_kernel, launched by _bwd at :582; bf16)",
+             timing_stream["flash_packed_bwd_dq_tc"],
+             worst_stream["flash_packed_bwd_dq_tc"],
+             ernie_launches["flash_packed_bwd_dq_tc"]),
             ("flash_packed_bwd_dq", "flash_packed_stream.cu", fp + "297 "
-             "(_bwd_dq_kernel, launched by _bwd at :582)",
+             "(_bwd_dq_kernel, launched by _bwd at :582; float32)",
              timing_stream["flash_packed_bwd_dq"],
              worst_stream["flash_packed_bwd_dq"],
-             ernie_launches["flash_packed_bwd_dq"]),
+             f32_ernie_launches["flash_packed_bwd_dq"]),
+            ("flash_packed_bwd_dkv_tc", "flash_packed_bwd_tc.cu", fp + "348 "
+             "(_bwd_dkv_kernel, launched by _bwd at :652; bf16)",
+             timing_stream["flash_packed_bwd_dkv_tc"],
+             worst_stream["flash_packed_bwd_dkv_tc"],
+             ernie_launches["flash_packed_bwd_dkv_tc"]),
             ("flash_packed_bwd_dkv", "flash_packed_stream.cu", fp + "348 "
-             "(_bwd_dkv_kernel, launched by _bwd at :652)",
+             "(_bwd_dkv_kernel, launched by _bwd at :652; float32)",
              timing_stream["flash_packed_bwd_dkv"],
              worst_stream["flash_packed_bwd_dkv"],
-             ernie_launches["flash_packed_bwd_dkv"]),
+             f32_ernie_launches["flash_packed_bwd_dkv"]),
             ("flash_packed_bwd_dkv_direct", "flash_packed_stream.cu",
              fp + "407 (_bwd_dkv_kernel_direct, launched by _bwd at :626)",
              timing_stream["flash_packed_bwd_dkv_direct"],

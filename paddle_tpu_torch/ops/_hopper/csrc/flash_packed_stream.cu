@@ -9,6 +9,8 @@
 //                                tensor-core body, K1's at D = 64)
 //   flash_packed_bwd_dq          _bwd_dq_kernel          (:297, launched :582)
 //   flash_packed_bwd_dkv         _bwd_dkv_kernel         (:348, launched :652)
+//                                (both float32 only: bf16 runs on
+//                                flash_packed_bwd_tc.cu's tensor-core bodies)
 //   flash_packed_bwd_dkv_direct  _bwd_dkv_kernel_direct  (:407, launched :626)
 // The JAX package runs them for d = 64 attention whose keys span more than one
 // of its tiles (Sk > 512 at 12 heads: ERNIE at its own 2048-token context),
@@ -74,10 +76,11 @@
 // 4 * 64 * pairs = 2.06e11 FLOPs against 203 MB, dq 6 * 64 * pairs = 3.09e11
 // against 204 MB, dk/dv 8 * 64 * pairs = 4.12e11 against 254 MB, and dk/dv
 // direct at 512 x 2048 1.03e11: all bound by operations at the 989 TFLOP/s
-// bf16 tensor-core peak (0.21, 0.31, 0.42 and 0.10 ms). Like K1-K4, these
-// first kernels run their products on the CUDA cores in f32 (FMA), far from
-// that bound; their times stand in PERF.md. wgmma fed by TMA is a later
-// change's work.
+// bf16 tensor-core peak (0.21, 0.31, 0.42 and 0.10 ms). These bodies run
+// their products on the CUDA cores in f32 (FMA), far from that bound; their
+// times stand in PERF.md. In bf16 the forward, dq and dk/dv run on the
+// tensor cores (flash_fwd_tc.cu, flash_packed_bwd_tc.cu); dk/dv-direct is
+// still here in both dtypes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -751,16 +754,19 @@ StreamParams make_bwd_params(const void* q, const void* k, const void* v,
   return p;
 }
 
+// the streamed dk/dv in float32; dk/dv-direct in float32 or bf16
 template <bool Direct>
 int launch_dkv(const StreamParams& p, int dtype, cudaStream_t s) {
   const size_t smem = dkv_smem_bytes(Direct);
   if (dtype == 0)
     return static_cast<int>(launch(flash_packed_bwd_dkv_kernel<float, Direct>,
                                    key_grid(p), smem, p, s));
-  if (dtype == 1)
-    return static_cast<int>(
-        launch(flash_packed_bwd_dkv_kernel<__nv_bfloat16, Direct>, key_grid(p),
-               smem, p, s));
+  if constexpr (Direct) {
+    if (dtype == 1)
+      return static_cast<int>(
+          launch(flash_packed_bwd_dkv_kernel<__nv_bfloat16, true>,
+                 key_grid(p), smem, p, s));
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -793,7 +799,9 @@ extern "C" int paddle_flash_packed_fwd_stream(
 }
 
 // flash_packed_bwd_dq: dq from q, k, v, dout, the forward's lse and delta
-// (dense [B, H, Sq] f32). Otherwise as the forward.
+// (dense [B, H, Sq] f32). dtype must be 0 (float32; bf16 runs on
+// flash_packed_bwd_tc.cu's paddle_flash_packed_bwd_dq_tc). Otherwise as the
+// forward.
 extern "C" int paddle_flash_packed_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* seg_q, const void* seg_k,
@@ -811,18 +819,15 @@ extern "C" int paddle_flash_packed_bwd_dq(
                                    do_sh, scale, causal);
   p.drop = make_dropout(dropout, drop_threshold, drop_seed, drop_scale);
   p.dq = dq;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return static_cast<int>(launch(flash_packed_bwd_dq_kernel<float>,
-                                   query_grid(p), dq_smem_bytes(), p, s));
-  if (dtype == 1)
-    return static_cast<int>(launch(flash_packed_bwd_dq_kernel<__nv_bfloat16>,
-                                   query_grid(p), dq_smem_bytes(), p, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch(flash_packed_bwd_dq_kernel<float>,
+                                 query_grid(p), dq_smem_bytes(), p,
+                                 static_cast<cudaStream_t>(stream)));
 }
 
 // flash_packed_bwd_dkv: dk and dv, streamed over the query tiles. Arguments
-// as flash_packed_bwd_dq, with dk and dv for dq.
+// as flash_packed_bwd_dq, with dk and dv for dq; float32 only (bf16 runs on
+// paddle_flash_packed_bwd_dkv_tc).
 extern "C" int paddle_flash_packed_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* seg_q, const void* seg_k,
@@ -844,7 +849,8 @@ extern "C" int paddle_flash_packed_bwd_dkv(
   return launch_dkv<false>(p, dtype, static_cast<cudaStream_t>(stream));
 }
 
-// flash_packed_bwd_dkv_direct: as flash_packed_bwd_dkv, for Sq <= 512.
+// flash_packed_bwd_dkv_direct: as flash_packed_bwd_dkv, for Sq <= 512, in
+// float32 (dtype 0) or bf16 (dtype 1).
 extern "C" int paddle_flash_packed_bwd_dkv_direct(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* seg_q, const void* seg_k,

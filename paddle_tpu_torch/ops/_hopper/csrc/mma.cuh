@@ -1,6 +1,7 @@
 // Tensor-core helpers of the bf16 attention bodies (flash_packed_tc.cu,
-// flash_fwd_tc.cu): shared-memory addresses, cp.async copies, ldmatrix and
-// mma.sync.m16n8k16 (bf16 in, f32 accumulate), for Hopper (sm_90a).
+// flash_fwd_tc.cu, flash_packed_bwd_tc.cu): shared-memory addresses,
+// cp.async copies, ldmatrix and mma.sync.m16n8k16 (bf16 in, f32
+// accumulate), for Hopper (sm_90a).
 //
 // mma.sync's fragments, per lane (g = lane >> 2, tq = lane & 3):
 //   A 16 x 16 (row): a[0] = (g, 2tq..2tq+1), a[1] = (g+8, 2tq..),

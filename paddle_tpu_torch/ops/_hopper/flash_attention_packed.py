@@ -9,9 +9,11 @@ tensor cores, ``csrc/flash_packed_tc.cu``; float32 on the CUDA cores,
 where it does not, the streamed forms ``_fwd_kernel``, ``_bwd_dq_kernel``
 and ``_bwd_dkv_kernel``, and ``_bwd_dkv_kernel_direct`` when all the
 queries fit one tile while the keys do not, as ``csrc/flash_packed_stream.cu``
-(the streamed forward in float32; in bf16 it is K1's tensor-core body,
-``csrc/flash_fwd_tc.cu``, since ``_fwd_kernel`` is K1's function at head
-dim 64 with as many KV heads as heads).
+(the streamed forward, dq and dk/dv in float32; in bf16 the forward is K1's
+tensor-core body, ``csrc/flash_fwd_tc.cu``, since ``_fwd_kernel`` is K1's
+function at head dim 64 with as many KV heads as heads, and dq and dk/dv
+run on the tensor-core bodies of ``csrc/flash_packed_bwd_tc.cu``;
+dk/dv-direct stays on the CUDA cores in both dtypes).
 All are built by ``nvcc`` at first use and called through ``ctypes`` like
 K1-K3. :func:`plan` picks the form the JAX package would run for every
 input, from its tile arithmetic (``_pick_blocks_packed`` and the caller's
@@ -35,7 +37,11 @@ public ``[B, S, H, 64]`` layout through strides, one head per block.
   rowsum(do * o)`` a torch op here, as ``_bwd`` computes it outside its
   kernel; :func:`flash_packed_bwd_dq` ``-> dq`` and
   :func:`flash_packed_bwd_dkv` / :func:`flash_packed_bwd_dkv_direct` ``->
-  (dk, dv)``, which take that ``delta``;
+  (dk, dv)``, which take that ``delta``; on the card dq and dk/dv pick
+  their body by dtype, openly: bf16 the tensor-core bodies (counted in
+  ``flash_packed_bwd_dq_tc.launches`` and ``flash_packed_bwd_dkv_tc.
+  launches``), float32 the CUDA-core bodies (``flash_packed_bwd_dq.
+  launches``, ``flash_packed_bwd_dkv.launches``);
 - :func:`flash_attention_packed`, the differentiable public entry.
 
 Masks work as the TPU kernels apply them: the scale, then bottom-right
@@ -75,17 +81,22 @@ __all__ = ["flash_attention_packed", "flash_packed_fwd",
            "flash_packed_bwd",
            "flash_packed_bwd_reference", "flash_packed_fwd_stream",
            "flash_packed_fwd_stream_tc", "flash_packed_fwd_stream_reference",
-           "flash_packed_bwd_dq",
+           "flash_packed_bwd_dq", "flash_packed_bwd_dq_tc",
            "flash_packed_bwd_dq_reference", "flash_packed_bwd_dkv",
+           "flash_packed_bwd_dkv_tc",
            "flash_packed_bwd_dkv_reference", "flash_packed_bwd_dkv_direct",
            "flash_packed_bwd_dkv_direct_reference", "pack_group", "plan",
-           "Plan", "HEAD_D", "MAX_SEQ_K", "MAX_SEQ_Q_DIRECT", "KERNEL_TILE"]
+           "Plan", "HEAD_D", "MAX_SEQ_K", "MAX_SEQ_Q_DIRECT", "KERNEL_TILE",
+           "mma_dot"]
 
 HEAD_D = 64  # the packed path exists for exactly this head dim
 MAX_PACK_LANES = 1024
 MAX_SEQ_K = 512  # the keys K4a-direct's kernel keeps in shared memory
 MAX_SEQ_Q_DIRECT = 512  # the queries dk/dv-direct's kernel stages at once
-KERNEL_TILE = 64  # query rows and keys per tile inside every K4 kernel
+#: query rows and keys per tile inside the K4 kernels on the CUDA cores, and
+#: per stage of the streamed backward's tensor-core bodies (the unit of
+#: their f32 sums; ``paddle_flash_packed_bwd_tc_stage`` reports it)
+KERNEL_TILE = 64
 
 
 def pack_group(num_heads: int) -> int:
@@ -264,16 +275,74 @@ def flash_packed_fwd_stream_reference(q, k, v, causal: bool = False,
                                first_head=first_head, masks=masks)
 
 
+#: products an mma.sync.m16n8k16 step sums
+MMA_STEP = 16
+
+
+def _exponent(x: torch.Tensor) -> torch.Tensor:
+    """floor(log2 |x|) of float64 ``x`` as int64 (-2000 where x is 0)."""
+    e = torch.frexp(x)[1].long() - 1
+    return torch.where(x != 0, e, torch.full_like(e, -2000))
+
+
+def _toward_zero_f32(x: torch.Tensor) -> torch.Tensor:
+    """float64 ``x`` rounded toward zero to float32 (as float64)."""
+    f = x.float()
+    f = torch.where(f.double().abs() > x.abs(),
+                    torch.nextafter(f, torch.zeros_like(f)), f)
+    return f.double()
+
+
+def mma_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``einsum("bqhd,bkhd->bhqk", a, b)`` of bf16 ``a [B, Sq, H, D]`` and
+    ``b [B, Sk, H, D]`` in float32, summed over d as Hopper's
+    ``mma.sync.m16n8k16`` sums bf16 products into a float32 accumulator, in
+    steps of 16 in the order of d: in each step the products (exact) and
+    the running sum are truncated toward zero to the grid 2^(E - 25), E the
+    largest exponent among them (a product's exponent taken as the sum of
+    its factors'), added exactly, and the step's sum truncated toward zero
+    to float32. ``chip_smoke.py`` holds this against the card's own sums bit
+    for bit. The tensor-core bodies of the streamed backward sum dp (and s)
+    this way; a plain float32 einsum rounds elsewhere."""
+    B, sq, h, d = a.shape
+    sk = b.shape[1]
+    af = a.double().permute(0, 2, 1, 3).reshape(B * h, sq, d)
+    bf = b.double().permute(0, 2, 1, 3).reshape(B * h, sk, d)
+    ea, eb = _exponent(af), _exponent(bf)
+    out = torch.empty(B * h, sq, sk, dtype=torch.float32, device=a.device)
+    rows = max(1, 2 ** 21 // max(sk, 1))   # bounds the [rows, Sk, 16] steps
+    for bh in range(B * h):
+        for r0 in range(0, sq, rows):
+            ra, rea = af[bh, r0:r0 + rows], ea[bh, r0:r0 + rows]
+            acc = torch.zeros(ra.shape[0], sk, dtype=torch.float64,
+                              device=a.device)
+            for c in range(0, d, MMA_STEP):
+                st = slice(c, c + MMA_STEP)
+                prod = ra[:, None, st] * bf[bh, None, :, st]
+                e = torch.where(prod != 0, rea[:, None, st] +
+                                eb[bh, None, :, st], -2000)
+                top = torch.maximum(e.amax(-1), _exponent(acc))
+                lsb = torch.exp2((top.clamp(min=-1000) - 25).double())
+                acc = _toward_zero_f32(
+                    torch.trunc(prod / lsb[..., None]).sum(-1) * lsb +
+                    torch.trunc(acc / lsb) * lsb)
+            out[bh, r0:r0 + rows] = acc.float()
+    return out.reshape(B, h, sq, sk)
+
+
 def _bwd_p_ds(q, k, v, do, lse, delta, causal, scale, masks, dropout,
-              first_head):
+              first_head, mma_sums=False):
     """The backward's recompute, ``[B, H, Sq, Sk]`` f32: the p of the dv
     product (``p = exp(s - lse)``, 0 where masked, times ``keep`` with
     ``dropout``) and ``ds = p (dp keep - delta) scale`` rounded to the
-    input dtype, as ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` round it."""
+    input dtype, as ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` round it.
+    With ``mma_sums``, ``dp = dO v^T`` is summed as :func:`mma_dot` sums
+    it."""
     b, sq, sk, h = _shapes(q, k, v)
     s = _scores(q, k, causal, scale, masks)
     p = torch.exp(s - lse.float()[..., None]) * (s > NEG_INF / 2)
-    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    dp = mma_dot(do, v) if mma_sums else \
+        torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
     keep = _keep(dropout, b, h, sq, sk, q.device, first_head)
     dp = _dropped(dp, keep)
     ds = (p * (dp - delta.float()[..., None]) * scale).to(q.dtype).float()
@@ -285,15 +354,21 @@ def flash_packed_bwd_dq_reference(q, k, v, do, lse, delta,
                                   scale: Optional[float] = None,
                                   masks: Masks = (None, None, None),
                                   dropout: Optional[AttnDropout] = None,
-                                  *, first_head: int = 0
-                                  ) -> torch.Tensor:
+                                  *, first_head: int = 0,
+                                  mma_sums: bool = False) -> torch.Tensor:
     """Plain PyTorch ``flash_packed_bwd_dq``: ``dq = ds k`` summed over the
     kernel's 64-key tiles in order, in float32, from the forward's lse and
-    ``delta`` (``[B, H, Sq]`` f32). Returns dq in q's dtype."""
+    ``delta`` (``[B, H, Sq]`` f32). ``mma_sums`` sums dp as the bf16
+    tensor-core body does (:func:`mma_dot`), which is how the card holds
+    that body to this: in a row whose every key carries the -1e9 padding
+    bias, the f32 lse absorbs log l, so p = 1 at each key and ds is l times
+    its usual size, and a dp summed in another order flips its bf16
+    rounding by more than the comparison allows. Returns dq in q's
+    dtype."""
     _shapes(q, k, v)
     scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
     _, ds = _bwd_p_ds(q, k, v, do, lse, delta, causal, scale, masks,
-                      dropout, first_head)
+                      dropout, first_head, mma_sums)
     kf = k.float()
     dq = torch.zeros(q.shape, device=q.device)
     for t in _tiles(k.shape[1]):
@@ -302,11 +377,11 @@ def flash_packed_bwd_dq_reference(q, k, v, do, lse, delta,
 
 
 def _dkv_reference(q, k, v, do, lse, delta, causal, scale, masks, dropout,
-                   first_head):
+                   first_head, mma_sums=False):
     _shapes(q, k, v)
     scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
     p, ds = _bwd_p_ds(q, k, v, do, lse, delta, causal, scale, masks,
-                      dropout, first_head)
+                      dropout, first_head, mma_sums)
     pr = p.to(do.dtype).float()
     qf, dof = q.float(), do.float()
     dk = torch.zeros(k.shape, device=q.device)
@@ -322,14 +397,16 @@ def flash_packed_bwd_dkv_reference(q, k, v, do, lse, delta,
                                    scale: Optional[float] = None,
                                    masks: Masks = (None, None, None),
                                    dropout: Optional[AttnDropout] = None,
-                                   *, first_head: int = 0
+                                   *, first_head: int = 0,
+                                   mma_sums: bool = False
                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch ``flash_packed_bwd_dkv``: ``dk = ds^T q`` and ``dv =
     (p rounded to do's dtype)^T do``, summed over the kernel's 64-query
     tiles in order, in float32. A row with no valid key adds nothing.
+    ``mma_sums`` as :func:`flash_packed_bwd_dq_reference` takes it.
     Returns ``(dk, dv)`` in the input dtypes."""
     return _dkv_reference(q, k, v, do, lse, delta, causal, scale, masks,
-                          dropout, first_head)
+                          dropout, first_head, mma_sums)
 
 
 def flash_packed_bwd_dkv_direct_reference(
@@ -470,31 +547,44 @@ def _launch_bwd_split(which: str, q, k, v, do, lse, delta, causal: bool,
                       dropout: Optional[AttnDropout] = None):
     """One of the streamed backward kernels on CUDA tensors, from the
     forward's lse and ``delta`` (both dense ``[B, H, Sq]`` float32):
-    ``"dq"`` -> dq, ``"dkv"`` or ``"dkv_direct"`` -> ``(dk, dv)``. Each
-    block owns its output tile and sums in a fixed order (no atomics), so
-    results repeat bit for bit."""
-    what = f"flash_packed_bwd_{which}"
+    ``"dq"`` -> dq, ``"dkv"`` or ``"dkv_direct"`` -> ``(dk, dv)``. dq and
+    dk/dv run the body of q's dtype: bf16 the tensor-core bodies
+    (``flash_packed_bwd_tc.cu``, counted by :func:`flash_packed_bwd_dq_tc`
+    and :func:`flash_packed_bwd_dkv_tc`; q, k, v and do rows 16-byte
+    aligned), float32 the CUDA-core bodies (``flash_packed_stream.cu``,
+    counted by :func:`flash_packed_bwd_dq` and :func:`flash_packed_bwd_dkv`);
+    dk/dv-direct runs ``flash_packed_stream.cu`` in both. Each block owns
+    its output tile and sums in a fixed order (no atomics), so results
+    repeat bit for bit."""
+    tc = which != "dkv_direct" and q.dtype == torch.bfloat16
+    what = f"flash_packed_bwd_{which}" + ("_tc" if tc else "")
     _require(q, k, v, masks, what, do, max_sq=MAX_SEQ_Q_DIRECT
              if which == "dkv_direct" else None)
     _require_stats(q, lse, delta, what)
     if do.shape != q.shape:
         raise ValueError(f"do {tuple(do.shape)} is not q's shape "
                          f"{tuple(q.shape)}")
+    if tc:
+        require_aligned_rows(what, ("q", q), ("k", k), ("v", v), ("do", do))
     b, sq, sk, h = _shapes(q, k, v)
     if which == "dq":
         outs = [torch.empty(q.shape, dtype=q.dtype, device=q.device)]
     else:
         outs = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
                 for t in (k, v)]
-    lib, fn = _kernel("flash_packed_stream", "paddle_" + what,
-                      9 + len(outs), 12)
+    lib, fn = _kernel("flash_packed_bwd_tc" if tc else "flash_packed_stream",
+                      "paddle_" + what, 9 + len(outs), 12)
     _call(lib, fn, what, q, k, q.data_ptr(), k.data_ptr(), v.data_ptr(),
           do.data_ptr(), lse.data_ptr(), delta.data_ptr(), *_mask_ptrs(masks),
           *(t.data_ptr() for t in outs), b, h, h, sq, sk, HEAD_D,
           *_strides(q, k, v, do), float(scale), int(bool(causal)),
           _DTYPE_CODE[q.dtype], *_dropout_args(dropout))
-    {"dq": flash_packed_bwd_dq, "dkv": flash_packed_bwd_dkv,
-     "dkv_direct": flash_packed_bwd_dkv_direct}[which].launches += 1
+    {"flash_packed_bwd_dq": flash_packed_bwd_dq,
+     "flash_packed_bwd_dq_tc": flash_packed_bwd_dq_tc,
+     "flash_packed_bwd_dkv": flash_packed_bwd_dkv,
+     "flash_packed_bwd_dkv_tc": flash_packed_bwd_dkv_tc,
+     "flash_packed_bwd_dkv_direct": flash_packed_bwd_dkv_direct}[
+         what].launches += 1
     return outs[0] if which == "dq" else tuple(outs)
 
 
@@ -508,6 +598,12 @@ def _same_device(*ts) -> torch.device:
         raise ValueError(f"packed attention runs on CUDA or the CPU, not "
                          f"{dev}")
     return dev
+
+
+def _require_bf16(q, what: str, plain: str) -> None:
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"{what} takes bfloat16, not {q.dtype} ({plain} "
+                         f"runs float32 on its CUDA-core body)")
 
 
 def flash_packed_fwd(q, k, v, causal: bool = False,
@@ -540,10 +636,7 @@ def flash_packed_fwd_tc(q, k, v, causal: bool = False,
     if dev.type == "cpu":
         return flash_packed_fwd_reference(q, k, v, causal, scale, masks,
                                           dropout)
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"flash_packed_fwd_tc takes bfloat16, not "
-                         f"{q.dtype} (flash_packed_fwd runs float32 on its "
-                         f"CUDA-core body)")
+    _require_bf16(q, "flash_packed_fwd_tc", "flash_packed_fwd")
     return _launch_fwd(q, k, v, causal, scale, masks, dropout)
 
 
@@ -599,10 +692,7 @@ def flash_packed_fwd_stream_tc(q, k, v, causal: bool = False,
     if dev.type == "cpu":
         return flash_packed_fwd_stream_reference(q, k, v, causal, scale,
                                                  masks, dropout)
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"flash_packed_fwd_stream_tc takes bfloat16, not "
-                         f"{q.dtype} (flash_packed_fwd_stream runs float32 "
-                         f"on its CUDA-core body)")
+    _require_bf16(q, "flash_packed_fwd_stream_tc", "flash_packed_fwd_stream")
     return _launch_fwd_stream(q, k, v, causal, scale, masks, dropout)
 
 
@@ -620,13 +710,33 @@ def flash_packed_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
                         dropout: Optional[AttnDropout] = None
                         ) -> torch.Tensor:
     """The streamed dq (``_bwd_dq_kernel``) from the forward's ``lse`` and
-    ``delta = rowsum(do * o)`` (``[B, H, Sq]`` float32): the CUDA kernel
-    for CUDA tensors, the plain version for CPU tensors."""
+    ``delta = rowsum(do * o)`` (``[B, H, Sq]`` float32): for CUDA tensors
+    the kernel body of their dtype (bf16 the tensor-core body, float32 the
+    CUDA-core body), for CPU tensors the plain version."""
     dev = _bwd_inputs(q, k, v, do, lse, delta, masks)
     scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
     if dev.type == "cpu":
         return flash_packed_bwd_dq_reference(q, k, v, do, lse, delta, causal,
                                              scale, masks, dropout)
+    return _launch_bwd_split("dq", q, k, v, do, lse, delta, causal, scale,
+                             masks, dropout)
+
+
+def flash_packed_bwd_dq_tc(q, k, v, do, lse, delta, causal: bool = False,
+                           scale: Optional[float] = None,
+                           masks: Masks = (None, None, None),
+                           dropout: Optional[AttnDropout] = None
+                           ) -> torch.Tensor:
+    """The streamed dq's tensor-core body (bf16 only), arguments as
+    :func:`flash_packed_bwd_dq`: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors. :func:`flash_packed_bwd_dq` reaches it for
+    every bf16 CUDA input."""
+    dev = _bwd_inputs(q, k, v, do, lse, delta, masks)
+    scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
+    if dev.type == "cpu":
+        return flash_packed_bwd_dq_reference(q, k, v, do, lse, delta, causal,
+                                             scale, masks, dropout)
+    _require_bf16(q, "flash_packed_bwd_dq_tc", "flash_packed_bwd_dq")
     return _launch_bwd_split("dq", q, k, v, do, lse, delta, causal, scale,
                              masks, dropout)
 
@@ -637,12 +747,32 @@ def flash_packed_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
                          dropout: Optional[AttnDropout] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The streamed dk/dv (``_bwd_dkv_kernel``), arguments as
-    :func:`flash_packed_bwd_dq`. Returns ``(dk, dv)``."""
+    :func:`flash_packed_bwd_dq` (and the body chosen as it chooses).
+    Returns ``(dk, dv)``."""
     dev = _bwd_inputs(q, k, v, do, lse, delta, masks)
     scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
     if dev.type == "cpu":
         return flash_packed_bwd_dkv_reference(q, k, v, do, lse, delta,
                                               causal, scale, masks, dropout)
+    return _launch_bwd_split("dkv", q, k, v, do, lse, delta, causal, scale,
+                             masks, dropout)
+
+
+def flash_packed_bwd_dkv_tc(q, k, v, do, lse, delta, causal: bool = False,
+                            scale: Optional[float] = None,
+                            masks: Masks = (None, None, None),
+                            dropout: Optional[AttnDropout] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The streamed dk/dv's tensor-core body (bf16 only), arguments as
+    :func:`flash_packed_bwd_dq`: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors. :func:`flash_packed_bwd_dkv` reaches it for
+    every bf16 CUDA input. Returns ``(dk, dv)``."""
+    dev = _bwd_inputs(q, k, v, do, lse, delta, masks)
+    scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
+    if dev.type == "cpu":
+        return flash_packed_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                              causal, scale, masks, dropout)
+    _require_bf16(q, "flash_packed_bwd_dkv_tc", "flash_packed_bwd_dkv")
     return _launch_bwd_split("dkv", q, k, v, do, lse, delta, causal, scale,
                              masks, dropout)
 
@@ -733,14 +863,16 @@ def flash_attention_packed(query, key, value, causal: bool = False,
 
 
 #: kernel launches since each count was last set to 0 (CUDA path only);
-#: flash_packed_fwd and flash_packed_fwd_stream count their float32 bodies,
-#: flash_packed_fwd_tc and flash_packed_fwd_stream_tc their bf16
-#: tensor-core bodies
+#: flash_packed_fwd, flash_packed_fwd_stream, flash_packed_bwd_dq and
+#: flash_packed_bwd_dkv count their float32 bodies, the ``_tc`` names their
+#: bf16 tensor-core bodies
 flash_packed_fwd.launches = 0
 flash_packed_fwd_tc.launches = 0
 flash_packed_bwd.launches = 0
 flash_packed_fwd_stream.launches = 0
 flash_packed_fwd_stream_tc.launches = 0
 flash_packed_bwd_dq.launches = 0
+flash_packed_bwd_dq_tc.launches = 0
 flash_packed_bwd_dkv.launches = 0
+flash_packed_bwd_dkv_tc.launches = 0
 flash_packed_bwd_dkv_direct.launches = 0
