@@ -22,8 +22,17 @@ context:
            ragged, GQA and dropout forms at D = 64, 128 and 256, and timed
            at S=2048 (bf16 at B=1 and at the training shape B=4, float32
            at B=1);
-4. kernel_bwd  K2 and K3 (flash_bwd) against flash_bwd_reference in the
-           same cases, and timed at the training shape (B=4, S=2048);
+4. kernel_bwd  K2 and K3 (flash_bwd: bf16 at head dims 64 and 128 on their
+           tensor-core bodies, flash_bwd_dq_tc and flash_bwd_dkv_tc,
+           flash_bwd_tc.cu, float32 and bf16 at 256 on their CUDA-core
+           bodies, flash_bwd.cu, each counted apart) against
+           flash_bwd_reference in the same cases and in the tensor-core
+           bodies' edge cases (ragged stages, rows with no key, GQA, pad
+           sentinels, dropout, several waves), the tensor-core bodies
+           against the plain version that sums dp as mma.sync does
+           (mma_dot, first held bit for bit against the card's own sums),
+           and timed at the training shape (B=4, S=2048; the CUDA-core
+           bodies there in float32, and in bf16 at head dim 256);
    kernel_masked  K1, K2 and K3 with segment ids and the key bias at GPT-3
            1.3B's attention shape (B=4, S=2048, H=16, D=128, bf16; 16 and 4
            KV heads): a key-padding mask as bool segments and as the f32
@@ -31,6 +40,11 @@ context:
            versions, then timed with and without the masks; then
            nn.MultiHeadAttention(2048, 16) with a key-padding mask, forward
            and backward (K1, K2, K3 once each), against the dense path;
+   dense_route  ops.flash_attention at head dim 32 in float32 and float16:
+           the dense route (reference_attention, with the kernels' dropout
+           mask as its keep) with no kernel launch, against the CPU; float16
+           at head dims 64 and 128 the kernel route, refused there; no
+           model path below takes the dense route (dense_route_paths);
 5. kernel_packed  K4a-direct (flash_packed_fwd: its bf16 tensor-core body
            flash_packed_fwd_tc, flash_packed_tc.cu, and its float32 body,
            flash_packed.cu) and K4b (flash_packed_bwd) against their plain
@@ -39,9 +53,10 @@ context:
            (the float32 body on the same inputs in float32);
 6. kernel_packed_stream  K4's streamed forms (the forward: bf16 on K1's
            tensor-core body, flash_packed_fwd_stream_tc, float32 on
-           flash_packed_stream.cu; dq and dk/dv: bf16 on the tensor-core
-           bodies of flash_packed_bwd_tc.cu, flash_packed_bwd_dq_tc and
-           flash_packed_bwd_dkv_tc, float32 on flash_packed_stream.cu;
+           flash_packed_stream.cu; dq and dk/dv: bf16 on K2's and K3's
+           tensor-core bodies, flash_bwd_tc.cu, counted as
+           flash_packed_bwd_dq_tc and flash_packed_bwd_dkv_tc, float32 on
+           flash_packed_stream.cu;
            dk/dv-direct on flash_packed_stream.cu) against their plain
            versions in 24 cases (f32 and bf16, masks, causal with Sq != Sk,
            Sq and Sk past whole tiles, rows with no key, pad sentinels, a
@@ -250,6 +265,23 @@ def phase_env(torch, build):
           "device": torch.cuda.get_device_name(0),
           "device_count": torch.cuda.device_count()})
     return smi_line
+
+
+def card_clocks():
+    """The card's SM and memory clocks (MHz), temperature (C), power draw
+    (W) and active clock-event (throttle) reasons as nvidia-smi reads them
+    now, for beside a training phase's step times; None where it cannot
+    read them."""
+    fields = ("clocks.sm", "clocks.mem", "temperature.gpu", "power.draw",
+              "clocks_throttle_reasons.active")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=" + ",".join(fields),
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    if smi.returncode != 0:
+        return None
+    return dict(zip(fields, (x.strip() for x in
+                             smi.stdout.strip().splitlines()[0].split(","))))
 
 
 # -- phase 2 -----------------------------------------------------------------
@@ -462,25 +494,49 @@ def phase_kernel(torch, hfa, peaks):
 
 # -- phase 4 -----------------------------------------------------------------
 
+#: K2's and K3's bodies, each counted apart: bf16 at head dims 64 and 128 on
+#: the tensor cores (flash_bwd_tc.cu, ``_tc``), float32 and bf16 at 256 on
+#: the CUDA cores (flash_bwd.cu)
+K2_K3_KERNELS = ("flash_bwd_dq", "flash_bwd_dq_tc", "flash_bwd_dkv",
+                 "flash_bwd_dkv_tc")
+
+
+def k2_k3_bodies(dt, d):
+    """The K2 and K3 bodies that dtype ``dt`` at head dim ``d`` reaches."""
+    tc = "_tc" if dt == "bf16" and d in (64, 128) else ""
+    return "flash_bwd_dq" + tc, "flash_bwd_dkv" + tc
+
+
 def compare_bwd(torch, hfa, case, q, k, v, do, causal, worst, dropout=None,
                 masks=(None, None, None)):
     """K1 then K2/K3 (``flash_bwd``) against the plain version on the same
     inputs and the same o and lse (with ``dropout``, the same rate and
     seed; with ``masks``, the same segment ids and key bias): one row of
     errors, beside the largest and the median |value| of each plain
-    gradient. Raises on a mismatch."""
+    gradient. The K2/K3 bodies of the case's dtype and head dim must run,
+    once each, and no other; the tensor-core bodies are held to the plain
+    version with ``mma_sums`` (dp summed as mma.sync sums it). Rows with no
+    valid key must give dq = 0 exactly. Raises on a mismatch."""
     name, b, sq, sk, h, hk, d, dt = case
+    dq_body, dkv_body = k2_k3_bodies(dt, d)
     o, lse = hfa.flash_fwd(q, k, v, causal=causal, dropout=dropout,
                            masks=masks)
+    before = {n: getattr(hfa, n).launches for n in K2_K3_KERNELS}
     grads = hfa.flash_bwd(q, k, v, o, lse, do, causal=causal,
                           dropout=dropout, masks=masks)
     torch.cuda.synchronize()
+    ran = {n: getattr(hfa, n).launches - before[n] for n in K2_K3_KERNELS}
+    check(ran == {n: int(n in (dq_body, dkv_body)) for n in K2_K3_KERNELS},
+          f"{name}: {dt} at head dim {d} ran the K2/K3 bodies {ran}")
+    tc = dq_body.endswith("_tc")
     refs = hfa.flash_bwd_reference(q, k, v, o, lse, do, causal=causal,
-                                   dropout=dropout, masks=masks)
+                                   dropout=dropout, masks=masks,
+                                   mma_sums=tc)
     torch.cuda.synchronize()
     row = {"case": name, "shape": [b, sq, sk, h, hk, d], "causal": causal,
-           "dtype": dt, "dropout": None if dropout is None else
-           list(dropout)}
+           "dtype": dt, "bodies": [dq_body, dkv_body],
+           "masks": [t is not None for t in masks],
+           "dropout": None if dropout is None else list(dropout)}
     ok = True
     for gname, got, ref in zip(("dq", "dk", "dv"), grads, refs):
         check(got.shape == ref.shape and got.dtype == ref.dtype,
@@ -488,6 +544,12 @@ def compare_bwd(torch, hfa, case, q, k, v, do, causal, worst, dropout=None,
         check(bool(torch.isfinite(got).all()), f"{name}: non-finite {gname}")
         ref32 = ref.float()
         err = (got.float() - ref32).abs()
+        # with masks, over the elements whose plain value is not 0, as
+        # compare(nonzero=True) takes them: the keys no query reaches have
+        # dk = dv = 0 on both sides and can be most of the tensor
+        live = ref32 != 0 if any(t is not None for t in masks) else \
+            torch.ones_like(ref32, dtype=torch.bool)
+        med = float(ref32.abs()[live].median()) if bool(live.any()) else 0.0
         if dt == "bf16":
             # both round ds and p to bf16 at the same points, from f32
             # sums taken in another order, so a rounding may flip; then
@@ -501,29 +563,94 @@ def compare_bwd(torch, hfa, case, q, k, v, do, causal, worst, dropout=None,
         # a flipped rounding is rare: the mean error seen on an H100 is
         # below 1e-5 of the median |value|; a dropped or doubled tile moves
         # the mean far past 1e-3 of it
-        ok &= float(err.mean()) <= 1e-3 * float(ref32.abs().median())
+        mean = float(err[live].mean()) if bool(live.any()) else 0.0
+        ok &= mean <= 1e-3 * med
         row[f"max_abs_err_{gname}"] = float(err.max())
-        row[f"mean_abs_err_{gname}"] = float(err.mean())
+        row[f"mean_abs_err_{gname}"] = mean
+        row[f"equal_{gname}"] = float((err == 0).float().mean())
         row[f"max_abs_{gname}"] = float(ref32.abs().max())
-        row[f"median_abs_{gname}"] = float(ref32.abs().median())
-        kname = "flash_bwd_dq" if gname == "dq" else "flash_bwd_dkv"
-        worst[kname] = max(worst[kname], float(err.max()))
-    if sq > sk and causal:
-        # rows with no valid key (lse = NEG_INF) get dq = 0
-        ok &= bool((grads[0][:, :sq - sk] == 0).all())
+        row[f"median_abs_{gname}"] = med
+        kname = dq_body if gname == "dq" else dkv_body
+        worst[kname] = max(worst.get(kname, 0.0), float(err.max()))
+    # rows with no valid key (lse = NEG_INF + log 1e-30) get dq = 0
+    empty = lse <= hfa.NEG_INF / 2                        # [B, H, Sq]
+    row["empty_rows"] = int(empty.sum())
+    ok &= bool((grads[0].transpose(1, 2)[empty] == 0).all())
     row["ok"] = ok
     check(ok, f"K2/K3 disagree with their plain version: {row}")
     return row, o, lse
 
 
+def mma_probe(torch, dq_fn, mma_dot, d, n=8192):
+    """The tensor-core dq body's f32 sums of bf16 products against the
+    plain versions' model of them (``mma_dot``), bit for bit, at head dim
+    ``d``, through the wrapper ``dq_fn`` (K2's or K4b-dq's, which reach the
+    same body): with q = 0, K the identity (``d`` keys), lse = 0 and scale
+    1 the body gives dq[i, j] = bf16(dp[i, j] - delta[i]), so with delta[i]
+    the model's dp[i, i % d] it gives 0 exactly where the card summed as
+    the model does (dO of mixed magnitudes, V columns scaled by 2^-6 ..
+    2^6). Returns the share of the n sums that agree."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    do = torch.randn(1, n, 1, d, generator=g, device="cuda").bfloat16()
+    v = (torch.randn(1, d, 1, d, generator=g, device="cuda") * torch.exp2(
+        torch.randint(-6, 7, (1, 1, 1, d), generator=g,
+                      device="cuda").float())).bfloat16()
+    q = torch.zeros(1, n, 1, d, device="cuda").bfloat16()
+    k = torch.eye(d, device="cuda").reshape(1, d, 1, d).bfloat16()
+    rows = torch.arange(n, device="cuda")
+    j = rows % d
+    delta = mma_dot(do, v)[0, 0, rows, j].reshape(1, 1, n).contiguous()
+    dq = dq_fn(q, k, v, do, torch.zeros(1, 1, n, device="cuda"), delta,
+               False, 1.0)
+    return float((dq[0, rows, 0, j] == 0).float().mean())
+
+
+# name, B, Sq, Sk, H, HK, D, causal, masks, dropout: the tensor-core K2/K3
+# bodies' edges beside K1_CASES (bf16): Sq and Sk past whole stages, causal
+# with Sq > Sk (rows with no key) and Sq < Sk, GQA at both head dims, pad
+# sentinels, segments with the key bias, dropout, and a batch of several
+# waves of blocks
+K2_K3_TC_CASES = [
+    ("d128_sq600_sk328_causal_masked_rows", 1, 600, 328, 8, 8, 128, True,
+     None, False),
+    ("d128_sq328_sk600_causal_key_bias", 1, 328, 600, 8, 8, 128, True,
+     "bias", False),
+    ("d64_sq600_sk328_causal_dropout", 1, 600, 328, 8, 4, 64, True, None,
+     True),
+    ("d64_gqa_h8_hk2_s512_causal", 2, 512, 512, 8, 2, 64, True, None,
+     False),
+    ("d128_gqa_h16_hk4_s1024_key_bias", 1, 1024, 1024, 16, 4, 128, False,
+     "bias", False),
+    ("d128_s384_segments_pad_sentinel", 2, 384, 384, 8, 8, 128, False,
+     "seg_pad", False),
+    ("d128_gqa_sq384_sk640_causal_segments_bias_dropout", 1, 384, 640, 8, 2,
+     128, True, "seg_bias", True),
+    ("d64_b16_s1024_h16_waves", 16, 1024, 1024, 16, 16, 64, False, None,
+     False),
+]
+
+
 def phase_kernel_bwd(torch, hfa, peaks):
     """K2 and K3 against their plain version in every K1 case (the same
-    o and lse from K1, the same do), then K1, K2 and K3 against the plain
-    versions on the training shape's inputs, and K2, K3, the plain version
-    and the library's attention backward timed on them."""
+    o and lse from K1, the same do) and in the tensor-core bodies' edge
+    cases, then K1, K2 and K3 against the plain versions on the training
+    shape's inputs, and K2, K3, the plain version and the library's
+    attention backward timed on them (bf16: the tensor-core bodies); the
+    CUDA-core bodies timed on the same shape in float32, and in bf16 at head
+    dim 256. First the tensor-core bodies' stages and ``mma_dot`` against
+    the card's sums at D = 64 and 128."""
     import torch.nn.functional as F
+    from paddle_tpu_torch.ops._hopper.build import library
+    stage = library("flash_bwd_tc").paddle_flash_bwd_tc_stage
+    stages = {d: {"dq": stage(d, 0), "dkv": stage(d, 1)}
+              for d in hfa.TC_BWD_HEAD_DIMS}
+    probe = {d: mma_probe(torch, hfa.flash_bwd_dq_tc, hfa.mma_dot, d)
+             for d in hfa.TC_BWD_HEAD_DIMS}
+    check(all(x == 1.0 for x in probe.values()),
+          f"mma_dot models {probe} of K2's tensor-core sums, not all")
     results = []
-    worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    worst = {n: 0.0 for n in K2_K3_KERNELS}
     for i, (name, b, sq, sk, h, hk, d, causal, dt) in enumerate(K1_CASES):
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
         q, k, v = k1_inputs(torch, b, sq, sk, h, hk, d, dtype, seed=300 + i)
@@ -533,6 +660,22 @@ def phase_kernel_bwd(torch, hfa, peaks):
         row, _, _ = compare_bwd(torch, hfa, (name, b, sq, sk, h, hk, d, dt),
                                 q, k, v, do, causal, worst)
         results.append(row)
+    for i, (name, b, sq, sk, h, hk, d, causal, mask, drop) in enumerate(
+            K2_K3_TC_CASES):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(450 + i)
+        q, k, v = k1_inputs(torch, b, sq, sk, h, hk, d, torch.bfloat16,
+                            seed=460 + i)
+        masks = mask_inputs(torch, g, b, sq, sk, torch.bfloat16, mask)
+        do = torch.randn(b, sq, h, d, generator=g, device="cuda").to(
+            torch.bfloat16)
+        dr = hfa.AttnDropout(DROP_RATE, 470 + i) if drop else None
+        row, _, _ = compare_bwd(torch, hfa, (name, b, sq, sk, h, hk, d,
+                                             "bf16"), q, k, v, do, causal,
+                                worst, dr, masks)
+        results.append(row)
+        del q, k, v, do
+    torch.cuda.empty_cache()
 
     b, s, h, d = 4, 2048, 16, 128
     q, k, v = k1_inputs(torch, b, s, s, h, h, d, torch.bfloat16, seed=8)
@@ -553,38 +696,80 @@ def phase_kernel_bwd(torch, hfa, peaks):
     worst["flash_fwd_tc"] = row["k1_max_abs_err_o"]
     del ro, rlse, err_o
     results.append(row)
-    delta = hfa._delta(o, do)
     scale = 1.0 / math.sqrt(d)
-    dq_ms = median_ms(lambda: hfa.flash_bwd_dq(q, k, v, do, lse, delta,
-                                               True, scale))
-    dkv_ms = median_ms(lambda: hfa.flash_bwd_dkv(q, k, v, do, lse, delta,
-                                                 True, scale))
-    plain_ms = median_ms(lambda: hfa.flash_bwd_reference(
-        q, k, v, o, lse, do, causal=True), iters=5, warmup=1)
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                  for x in (q, k, v))
-    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    dot = do.transpose(1, 2)
-    library_ms = median_ms(lambda: torch.autograd.grad(
-        ot, (qt, kt, vt), dot, retain_graph=True))
     pairs = attention_pairs(s, s, True)
-    elems = b * s * h * d                        # one [B, S, H, D] tensor
-    stats = 2 * b * h * s * 4                    # lse and delta, f32
     timing = {}
-    for kname, ms, flops, outs in (
-            ("flash_bwd_dq", dq_ms, 6 * d * pairs * b * h, 1),
-            ("flash_bwd_dkv", dkv_ms, 8 * d * pairs * b * h, 2)):
-        nbytes = (4 + outs) * elems * 2 + stats   # q, k, v, do in; outs
-        t_ops = flops / peaks["bf16"] * 1e3
-        t_bytes = nbytes / peaks["bytes"] * 1e3
-        timing[kname] = {
-            "shape": [b, s, s, h, h, d], "dtype": "bf16", "causal": True,
-            "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "flops": flops, "bytes": nbytes,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "peak_sheet": peaks["sheet"], "tflops": flops / ms / 1e9}
-    emit({"phase": "kernel_bwd", "kernels": ["flash_bwd_dq", "flash_bwd_dkv"],
+
+    def timed(names, dt, q, k, v, do, o, lse, heads, hd, iters=20):
+        """K2 and K3 (the bodies ``names`` of ``dt``), the plain version
+        and SDPA's backward at [B, S, heads, hd], causal."""
+        delta = hfa._delta(o, do)
+        dq_ms = median_ms(lambda: hfa.flash_bwd_dq(
+            q, k, v, do, lse, delta, True, 1.0 / math.sqrt(hd)), iters=iters)
+        dkv_ms = median_ms(lambda: hfa.flash_bwd_dkv(
+            q, k, v, do, lse, delta, True, 1.0 / math.sqrt(hd)), iters=iters)
+        plain_ms = median_ms(lambda: hfa.flash_bwd_reference(
+            q, k, v, o, lse, do, causal=True), iters=5, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        dot = do.transpose(1, 2)
+        library_ms = median_ms(lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), dot, retain_graph=True), iters=iters)
+        esize = 2 if dt == "bf16" else 4
+        elems = b * s * heads * hd               # one [B, S, H, D] tensor
+        stats = 2 * b * heads * s * 4            # lse and delta, f32
+        out = {}
+        for kname, ms, flops, outs in (
+                (names[0], dq_ms, 6 * hd * pairs * b * heads, 1),
+                (names[1], dkv_ms, 8 * hd * pairs * b * heads, 2)):
+            nbytes = (4 + outs) * elems * esize + stats  # q, k, v, do; outs
+            # float32 products run on the CUDA cores: the f32 peak bounds
+            # them
+            t_ops = flops / peaks[dt] * 1e3
+            t_bytes = nbytes / peaks["bytes"] * 1e3
+            out[kname] = {
+                "shape": [b, s, s, heads, heads, hd], "dtype": dt,
+                "causal": True, "kernel_ms": ms, "plain_ms": plain_ms,
+                "library_ms": library_ms, "flops": flops, "bytes": nbytes,
+                "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "peak_sheet": peaks["sheet"], "tflops": flops / ms / 1e9}
+        return out
+
+    timing.update(timed(("flash_bwd_dq_tc", "flash_bwd_dkv_tc"), "bf16", q,
+                        k, v, do, o, lse, h, d))
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    # the CUDA-core bodies: the training shape in float32, and bf16 at head
+    # dim 256 (8 heads, the same bytes a token)
+    q, k, v = k1_inputs(torch, b, s, s, h, h, d, torch.float32, seed=8)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(9)
+    do = torch.randn(b, s, h, d, generator=g, device="cuda")
+    row32, o, lse = compare_bwd(torch, hfa, ("train_b4_s2048_f32", b, s, s,
+                                             h, h, d, "f32"), q, k, v, do,
+                                True, worst)
+    results.append(row32)
+    timing.update(timed(("flash_bwd_dq", "flash_bwd_dkv"), "f32", q, k, v,
+                        do, o, lse, h, d, iters=10))
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    h2, d2 = 8, 256
+    q, k, v = k1_inputs(torch, b, s, s, h2, h2, d2, torch.bfloat16, seed=18)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(19)
+    do = torch.randn(b, s, h2, d2, generator=g, device="cuda").to(
+        torch.bfloat16)
+    o, lse = hfa.flash_fwd(q, k, v, causal=True)
+    d256 = timed(("flash_bwd_dq", "flash_bwd_dkv"), "bf16", q, k, v, do, o,
+                 lse, h2, d2, iters=10)
+    for kname in ("flash_bwd_dq", "flash_bwd_dkv"):
+        timing[kname]["d256_bf16"] = d256[kname]
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    emit({"phase": "kernel_bwd", "kernels": list(K2_K3_KERNELS),
+          "tc_stages": stages, "mma_dot_probe_equal": probe,
           "cases": results, "timing": timing,
           "library": "scaled_dot_product_attention backward (dq, dk, dv in "
                      "one call; the time of the pair)"})
@@ -628,11 +813,13 @@ def phase_kernel_masked(torch, np, hfa, hfp, MultiHeadAttention, PF):
     of 1 + |lse|, the gradients as the unmasked phase holds them); then the
     three kernels timed with and without the masks; then
     ``nn.MultiHeadAttention(2048, 16)`` in bf16 with a key-padding mask,
-    forward and backward, which must launch K1, K2 and K3 once each and
-    agree with the dense path through the same projections."""
+    forward and backward, which must launch K1, K2 and K3 once each (the
+    tensor-core bodies of all three) and agree with the dense path through
+    the same projections."""
     b, s, h, d = 4, 2048, 16, 128
     sets, lengths = masked_sets(torch, np, b, s)
-    worst = {"flash_fwd_tc": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    worst = {"flash_fwd_tc": 0.0, "flash_bwd_dq_tc": 0.0,
+             "flash_bwd_dkv_tc": 0.0}
     rows = []
     for hk in (16, 4):
         q, k, v = k1_inputs(torch, b, s, s, h, hk, d, torch.bfloat16,
@@ -676,10 +863,10 @@ def phase_kernel_masked(torch, np, hfa, hfp, MultiHeadAttention, PF):
             "causal": causal,
             "flash_fwd_tc": median_ms(lambda: hfa.flash_fwd(
                 q, k, v, causal, masks=masks), iters=5),
-            "flash_bwd_dq": median_ms(lambda: hfa.flash_bwd_dq(
+            "flash_bwd_dq_tc": median_ms(lambda: hfa.flash_bwd_dq_tc(
                 q, k, v, do, lse, delta, causal, scale, masks=masks),
                 iters=5),
-            "flash_bwd_dkv": median_ms(lambda: hfa.flash_bwd_dkv(
+            "flash_bwd_dkv_tc": median_ms(lambda: hfa.flash_bwd_dkv_tc(
                 q, k, v, do, lse, delta, causal, scale, masks=masks),
                 iters=5)}
         del o, lse, delta
@@ -705,8 +892,8 @@ def phase_kernel_masked(torch, np, hfa, hfp, MultiHeadAttention, PF):
     torch.cuda.synchronize()
     launches = k4_counts(hfa, hfp)
     check(launches == {**{n: 0 for n in ATTENTION_KERNELS},
-                       "flash_fwd_tc": 1, "flash_bwd_dq": 1,
-                       "flash_bwd_dkv": 1},
+                       "flash_fwd_tc": 1, "flash_bwd_dq_tc": 1,
+                       "flash_bwd_dkv_tc": 1},
           f"kernel_masked: the layer's launches {launches}")
     qp = mha.q_proj(x).view(b, s, h, d)
     kp = mha.k_proj(x).view(b, s, h, d)
@@ -727,7 +914,8 @@ def phase_kernel_masked(torch, np, hfa, hfp, MultiHeadAttention, PF):
     emit({"phase": "kernel_masked", "shape": [b, s, s, h, d],
           "kv_heads": [16, 4], "key_lengths": lengths, "cases": rows,
           "timing_ms": timing, "layer": layer,
-          "kernels": ["flash_fwd_tc", "flash_bwd_dq", "flash_bwd_dkv"]})
+          "kernels": ["flash_fwd_tc", "flash_bwd_dq_tc",
+                      "flash_bwd_dkv_tc"]})
     # bf16 on both sides; the kernels round p against a running max, the
     # dense path rounds the normalised softmax
     check(max(errs.values()) <= 2e-2, f"kernel_masked layer disagrees: "
@@ -735,6 +923,88 @@ def phase_kernel_masked(torch, np, hfa, hfp, MultiHeadAttention, PF):
     del mha, x, dout, out, got, qp, kp, vp, attn, ref_out, ref
     torch.cuda.empty_cache()
     return worst, timing, launches
+
+
+# -- dense_route: ops.flash_attention on inputs the kernels do not take -----
+
+def phase_dense_route(torch, hfa, hfp, tfa):
+    """``ops.flash_attention`` on the card at head dim 32 (``gpt_tiny``'s)
+    in float32 and float16 (4 query heads on 2 KV heads, 2 x 256), causal
+    and not, with and without dropout in training: each call takes the
+    dense route (counted once), launches no attention kernel, gives exactly
+    the dense function's result on the same inputs
+    (``reference_attention``, with dropout the kernels' mask as its
+    ``keep``) and agrees with the same call on the CPU (float32 within 1e-4
+    + 1e-4·|ref|, as compare_bwd holds f32 sums: both sides are library
+    products, and cuBLAS was seen 3.3e-5 from the CPU in one run of five;
+    float16 within two ulps, 2^-9 + 2^-9·|ref|). Float16 at head dims 64
+    and 128 goes the kernel route, as JAX sends it to its kernels, and is
+    refused there (no float16 body), with no dense route and no launch.
+    Returns the calls made."""
+    rows = []
+
+    def inputs(d, dtype):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(d)
+        q = torch.randn(2, 256, 4, d, generator=g, device="cuda").to(dtype)
+        k, v = (torch.randn(2, 256, 2, d, generator=g, device="cuda").to(
+            dtype) for _ in range(2))
+        return q, k, v
+
+    for name, d, dtype in (("d32_f32", 32, torch.float32),
+                           ("d32_f16", 32, torch.float16)):
+        q, k, v = inputs(d, dtype)
+        for causal in (False, True):
+            for rate in (0.0, DROP_RATE):
+                zero_counts(hfa, hfp)
+                tfa.flash_attention.dense_routes = 0
+                kw = dict(dropout=rate, causal=causal, training=True,
+                          fixed_seed_offset=5)
+                out = tfa.flash_attention(q, k, v, **kw)
+                torch.cuda.synchronize()
+                launches = k4_counts(hfa, hfp)
+                n_dense = tfa.flash_attention.dense_routes
+                keep = hfa.dropout_keep_dense(8, 256, 256, 5, rate,
+                                              q.device).reshape(
+                    2, 4, 256, 256) if rate else None
+                want = tfa.reference_attention(q, k, v, causal, keep=keep)
+                cpu = tfa.flash_attention(q.cpu(), k.cpu(), v.cpu(),
+                                          **kw).float()
+                err = (out.float().cpu() - cpu).abs()
+                tol = 1e-4 if dtype == torch.float32 else 2.0 ** -9
+                row = {"case": name, "causal": causal, "dropout": rate,
+                       "dtype": str(dtype).replace("torch.", ""),
+                       "dense_routes": n_dense,
+                       "kernel_launches": sum(launches.values()),
+                       "equal_to_dense": bool(torch.equal(out, want)),
+                       "max_abs_err_vs_cpu": float(err.max())}
+                rows.append(row)
+                check(tfa.attention_route(q) == "dense" and
+                      row["dense_routes"] == 1 and
+                      row["kernel_launches"] == 0 and
+                      row["equal_to_dense"] and
+                      bool((err <= tol + tol * cpu.abs()).all()),
+                      f"dense route: {row}")
+    for d in (64, 128):
+        q, k, v = inputs(d, torch.float16)
+        zero_counts(hfa, hfp)
+        tfa.flash_attention.dense_routes = 0
+        try:
+            tfa.flash_attention(q, k, v, causal=True, training=False)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        row = {"case": f"d{d}_f16", "route": tfa.attention_route(q),
+               "refused": refused,
+               "dense_routes": tfa.flash_attention.dense_routes,
+               "kernel_launches": sum(k4_counts(hfa, hfp).values())}
+        rows.append(row)
+        check(row["route"] == "kernels" and refused is not None and
+              "float16" in refused and row["dense_routes"] == 0 and
+              row["kernel_launches"] == 0,
+              f"float16 at a kernel head dim: {row}")
+    emit({"phase": "dense_route", "cases": rows})
+    return len(rows)
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -1130,31 +1400,6 @@ def stream_case(torch, hfp, case, q, k, v, do, masks, worst, dropout=None):
     return row, o, lse
 
 
-def mma_probe(torch, hfp, n=8192):
-    """The tensor-core bodies' f32 sums of bf16 products against the plain
-    versions' model of them (``hfp.mma_dot``), bit for bit: with q = 0, K
-    the identity, lse = 0 and scale 1 the dq body gives dq[i, j] = bf16(dp[i,
-    j] - delta[i]), so with delta[i] the model's dp[i, i % 64] it gives 0
-    exactly where the card summed as the model does (dO of mixed magnitudes,
-    V columns scaled by 2^-6 .. 2^6). Returns the share of the n sums that
-    agree."""
-    g = torch.Generator(device="cuda")
-    g.manual_seed(3)
-    do = torch.randn(1, n, 1, 64, generator=g, device="cuda").bfloat16()
-    v = (torch.randn(1, 64, 1, 64, generator=g, device="cuda") * torch.exp2(
-        torch.randint(-6, 7, (1, 1, 1, 64), generator=g,
-                      device="cuda").float())).bfloat16()
-    q = torch.zeros(1, n, 1, 64, device="cuda").bfloat16()
-    k = torch.eye(64, device="cuda").reshape(1, 64, 1, 64).bfloat16()
-    rows = torch.arange(n, device="cuda")
-    j = rows % 64
-    delta = hfp.mma_dot(do, v)[0, 0, rows, j].reshape(1, 1, n).contiguous()
-    dq = hfp.flash_packed_bwd_dq(q, k, v, do, torch.zeros(1, 1, n,
-                                                          device="cuda"),
-                                 delta, False, 1.0, (None, None, None))
-    return float((dq[0, rows, 0, j] == 0).float().mean())
-
-
 def stream_bound(peaks, flops, nbytes, dt="bf16"):
     # float32 products run on the CUDA cores: the f32 peak bounds them
     t_ops = flops / peaks[dt] * 1e3
@@ -1175,12 +1420,12 @@ def phase_kernel_packed_stream(torch, np, hfp, peaks):
     the plain versions' tile, and ``mma_dot`` against the card's sums."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops._hopper import build
-    stage = build.library(
-        "flash_packed_bwd_tc").paddle_flash_packed_bwd_tc_stage()
-    check(stage == hfp.KERNEL_TILE,
-          f"the tensor-core backward's stage is {stage}; the plain versions "
-          f"sum over tiles of {hfp.KERNEL_TILE}")
-    mma_sums = mma_probe(torch, hfp)
+    stage_of = build.library("flash_bwd_tc").paddle_flash_bwd_tc_stage
+    stage = {"dq": stage_of(64, 0), "dkv": stage_of(64, 1)}
+    check(stage == {"dq": hfp.KERNEL_TILE, "dkv": hfp.KERNEL_TILE},
+          f"the tensor-core backward's stages at D = 64 are {stage}; the "
+          f"plain versions sum over tiles of {hfp.KERNEL_TILE}")
+    mma_sums = mma_probe(torch, hfp.flash_packed_bwd_dq, hfp.mma_dot, 64)
     check(mma_sums == 1.0, f"mma_dot models {mma_sums:.5f} of the card's "
                            f"sums, not all")
     results = []
@@ -1383,7 +1628,8 @@ def mask_probe(torch, hfa, hfp, family, seed):
     = p·dp·keep·scale and dv[k, q] = (p·keep)[q, k]. Each kernel's zeros
     must be exactly the zeros of ``dropout_keep_dense`` (p > 0 and dp != 0
     at every score). The bf16 tensor-core bodies (K1's, which K4a-stream
-    shares, K4a-direct's, and the streamed dq and dk/dv) take the same probe
+    shares, K4a-direct's, K2's and K3's, and the streamed dq and dk/dv)
+    take the same probe
     in bf16: their o is (p·keep rounded to bf16) / l, their dq ds rounded
     and their dv p·keep rounded, 0 exactly where keep is. Every probe must
     run the body it names and no other. Returns {kernel: dropped scores
@@ -1405,10 +1651,15 @@ def mask_probe(torch, hfa, hfp, family, seed):
         fwd = {"flash_fwd": lambda: hfa.flash_fwd(q, q, eye, dropout=dr),
                "flash_fwd_tc": lambda: hfa.flash_fwd(qb, qb, eyeb,
                                                      dropout=dr)}
+        argsb = (qb, eyeb, v.bfloat16(), eyeb, zeros, zeros, False, scale,
+                 dr)
         bwd = {"flash_bwd_dq": lambda: (hfa.flash_bwd_dq(
             q, eye, v, eye, zeros, zeros, False, scale, dr), None),
+               "flash_bwd_dq_tc": lambda: (hfa.flash_bwd_dq(*argsb), None),
                "flash_bwd_dkv": lambda: (None, hfa.flash_bwd_dkv(
-                   q, eye, v, eye, zeros, zeros, False, scale, dr)[1])}
+                   q, eye, v, eye, zeros, zeros, False, scale, dr)[1]),
+               "flash_bwd_dkv_tc": lambda: (
+                   None, hfa.flash_bwd_dkv(*argsb)[1])}
     elif family == "k4":
         fwd = {"flash_packed_fwd": lambda: hfp.flash_packed_fwd(
             q, q, eye, dropout=dr),
@@ -1497,8 +1748,8 @@ def dropout_k1_k3(torch, hfa, hfp, peaks, timing, timing_bwd):
     bf16: compared, then timed beside rate 0), and a batch of 66 x 16 heads
     at S=2048 whose flat score index passes 2^32, compared on its last
     batch (heads 1040-1055)."""
-    worst = {"flash_fwd": 0.0, "flash_fwd_tc": 0.0, "flash_bwd_dq": 0.0,
-             "flash_bwd_dkv": 0.0}
+    worst = {"flash_fwd": 0.0, "flash_fwd_tc": 0.0,
+             **{n: 0.0 for n in K2_K3_KERNELS}}
     rows = []
     for i, (name, b, sq, sk, h, hk, d, causal, dt) in enumerate(
             K1_DROP_CASES):
@@ -1541,12 +1792,14 @@ def dropout_k1_k3(torch, hfa, hfp, peaks, timing, timing_bwd):
         lambda: hfa.flash_fwd(q1, k1, v1, True, dropout=dr), reps=10)
     delta = hfa._delta(o, do)
     scale = 1.0 / math.sqrt(d)
-    timed["flash_bwd_dq"] = rate_times(
-        lambda: hfa.flash_bwd_dq(q, k, v, do, lse, delta, True, scale),
-        lambda: hfa.flash_bwd_dq(q, k, v, do, lse, delta, True, scale, dr))
-    timed["flash_bwd_dkv"] = rate_times(
-        lambda: hfa.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale),
-        lambda: hfa.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale, dr))
+    timed["flash_bwd_dq_tc"] = rate_times(
+        lambda: hfa.flash_bwd_dq_tc(q, k, v, do, lse, delta, True, scale),
+        lambda: hfa.flash_bwd_dq_tc(q, k, v, do, lse, delta, True, scale,
+                                    dr))
+    timed["flash_bwd_dkv_tc"] = rate_times(
+        lambda: hfa.flash_bwd_dkv_tc(q, k, v, do, lse, delta, True, scale),
+        lambda: hfa.flash_bwd_dkv_tc(q, k, v, do, lse, delta, True, scale,
+                                     dr))
     for kname, t in timed.items():
         t["rate0_phase_ms"] = (timing if kname == "flash_fwd_tc" else
                                timing_bwd)[kname]["kernel_ms"]
@@ -1567,7 +1820,7 @@ def dropout_k1_k3(torch, hfa, hfp, peaks, timing, timing_bwd):
                                     first_head=last * h)
     refs = hfa.flash_bwd_reference(q[sl], k[sl], v[sl], o[sl], lse[sl],
                                    do[sl], True, dropout=dr,
-                                   first_head=last * h)
+                                   first_head=last * h, mma_sums=True)
     wrap = {"case": "wrap_b66_s2048", "shape": [b, s, s, h, h, d],
             "first_compared_head": last * h,
             "first_flat_index": wrap_heads(last, h, s, s)}
@@ -2149,8 +2402,10 @@ def phase_train_grad_f32(torch, np, hfa, GPTForCausalLM, gpt3_1p3b):
     labels = np.roll(ids, -1, axis=1)
     labels[0, :7] = -100
     labels[1, -5:] = -100
-    launches0 = (hfa.flash_fwd.launches, hfa.flash_bwd_dq.launches,
-                 hfa.flash_bwd_dkv.launches)
+    # f32 reaches K1's, K2's and K3's CUDA-core bodies (flash_fwd.cu,
+    # flash_bwd.cu) and none of their tensor-core bodies
+    for name in K1_K3_KERNELS:
+        getattr(hfa, name).launches = 0
     losses = {}
     for name, model in (("gpu", gpu), ("cpu", cpu)):
         t0 = time.perf_counter()
@@ -2158,12 +2413,13 @@ def phase_train_grad_f32(torch, np, hfa, GPTForCausalLM, gpt3_1p3b):
                      torch.as_tensor(labels, device=model.device))
         loss.backward()
         losses[name] = (float(loss.detach()), time.perf_counter() - t0)
-    launches = [a - b for a, b in zip((hfa.flash_fwd.launches,
-                                       hfa.flash_bwd_dq.launches,
-                                       hfa.flash_bwd_dkv.launches),
-                                      launches0)]
-    check(launches == [2, 2, 2],
-          f"train_grad_f32: K1/K2/K3 launches {launches}, expected 2 each")
+    counts = {n: getattr(hfa, n).launches for n in K1_K3_KERNELS}
+    launches = [counts[n] for n in ("flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv")]
+    check(counts == {n: 2 * int(not n.endswith("_tc"))
+                     for n in K1_K3_KERNELS},
+          f"train_grad_f32: K1/K2/K3 launches {counts}, expected 2 each "
+          f"of the CUDA-core bodies")
     worst_name, worst_ratio, rows = None, 0.0, 0
     cpu_params = dict(cpu.named_parameters())
     for name, p in gpu.named_parameters():
@@ -2189,6 +2445,7 @@ def phase_train_grad_f32(torch, np, hfa, GPTForCausalLM, gpt3_1p3b):
     check(loss_err <= 1e-4, f"train_grad_f32: loss differs: {row}")
     check(worst_ratio <= 1e-3, f"train_grad_f32: gradients differ: {row}")
     del gpu, cpu
+    return counts
 
 
 def bench_batches(np, n, batch, seq, vocab):
@@ -2242,7 +2499,9 @@ def phase_train_bf16(torch, np, hfa, peaks, GPTForCausalLM, gpt3_1p3b,
     # attention 6 * L * S * hidden per token
     flops_per_token = 6 * n_params + 6 * cfg.num_layers * seq * \
         cfg.hidden_size
-    row = {"phase": "train_bf16", "model": "gpt3_1p3b",
+    clocks = card_clocks()   # right after the timed steps
+    row = {"phase": "train_bf16", "clocks": clocks,
+           "model": "gpt3_1p3b",
            "layers": cfg.num_layers, "params": n_params,
            "batch": [batch, seq], "amp": "O2", "optimizer": "AdamW(1e-4, "
            "weight_decay=0.01, multi_precision=True)",
@@ -2263,8 +2522,8 @@ def phase_train_bf16(torch, np, hfa, peaks, GPTForCausalLM, gpt3_1p3b,
     check(abs(losses[0] - 11.2) < 0.5, f"step-0 loss {losses[0]}")
     check(losses[-1] < losses[0], f"the loss did not decrease: {losses}")
     for name, n in launches.items():
-        # bf16 never reaches K1's float32 body
-        want = 0 if name == "flash_fwd" else cfg.num_layers * n_steps
+        # bf16 at head dim 128 reaches only the tensor-core bodies
+        want = cfg.num_layers * n_steps if name.endswith("_tc") else 0
         check(n == want, f"{name}: {n} launches in {n_steps} steps of "
                          f"{cfg.num_layers} layers; expected {want}")
     if profile:
@@ -2283,8 +2542,9 @@ def phase_train_bf16(torch, np, hfa, peaks, GPTForCausalLM, gpt3_1p3b,
 
 # -- phases 12 and 13 --------------------------------------------------------
 
-#: K1's two bodies (flash_fwd: float32, flash_fwd_tc: bf16), K2 and K3
-K1_K3_KERNELS = ("flash_fwd", "flash_fwd_tc", "flash_bwd_dq", "flash_bwd_dkv")
+#: K1's two bodies (flash_fwd: float32, flash_fwd_tc: bf16), K2's and K3's
+#: two each (the CUDA-core ones, and ``_tc``: bf16 at head dims 64 and 128)
+K1_K3_KERNELS = ("flash_fwd", "flash_fwd_tc") + K2_K3_KERNELS
 #: the K4 forms, each of their bodies
 K4_KERNELS = ("flash_packed_fwd", "flash_packed_fwd_tc",
               "flash_packed_bwd") + STREAM_KERNELS
@@ -2477,7 +2737,9 @@ def phase_train_bert_bf16(torch, np, hfa, hfp, peaks, BertForPretraining,
         n_steps = warmup + timed
         secs = sum(times) / 1e3
         tokens_per_s = timed * rows_ * seq / secs
-        row = {"phase": "train_bert_bf16", "form": form, "model": "bert_base",
+        clocks = card_clocks()   # right after the timed steps
+        row = {"phase": "train_bert_bf16", "clocks": clocks,
+               "form": form, "model": "bert_base",
                "layers": L, "batch": [rows_, seq], "amp": "O2",
                "optimizer": "AdamW(1e-4, weight_decay=0.01, "
                             "multi_precision=True)",
@@ -2963,7 +3225,9 @@ def phase_train_resnet_bf16(torch, np, hc, hfa, hfp, peaks, resnet50,
     n_steps = warmup + timed
     images_per_s = timed * batch / (sum(times) / 1e3)
     buf_dtypes = sorted({str(b.dtype) for b in model.buffers()})
-    row = {"phase": "train_resnet_bf16", "model": "resnet50",
+    clocks = card_clocks()   # right after the timed steps
+    row = {"phase": "train_resnet_bf16", "clocks": clocks,
+           "model": "resnet50",
            "batch": [batch, img, img, 3], "dtype": "bf16 (model.to)",
            "optimizer": "Momentum(0.1, momentum=0.9, multi_precision=True)",
            "flags": {"fused_conv_bn": 1, "pallas_conv": 1},
@@ -3183,7 +3447,9 @@ def phase_train_ernie_bf16(torch, np, hfa, hfp, hc, peaks, ernie, AdamW,
         n_steps = warmup + timed
         secs = sum(times) / 1e3
         tokens_per_s = timed * batch * seq / secs
-        row = {"phase": "train_ernie_bf16", "form": form,
+        clocks = card_clocks()   # right after the timed steps
+        row = {"phase": "train_ernie_bf16", "clocks": clocks,
+               "form": form,
                "model": "ernie_base", "max_position_embeddings": positions,
                "layers": cfg.num_layers, "batch": [batch, seq],
                "entry": "ErnieForPretraining + TrainStep" if
@@ -3295,8 +3561,8 @@ def phase_train_gpt_dropout_bf16(torch, np, hfa, hfp, peaks, GPTForCausalLM,
     emit(row)
     check(all(math.isfinite(x) for x in losses), f"non-finite: {row}")
     check(abs(losses[0] - 11.2) < 0.6, f"GPT dropout step-0 loss {losses[0]}")
-    check_launches(launches, {"flash_fwd_tc": n, "flash_bwd_dq": n,
-                              "flash_bwd_dkv": n}, "GPT with dropout")
+    check_launches(launches, {"flash_fwd_tc": n, "flash_bwd_dq_tc": n,
+                              "flash_bwd_dkv_tc": n}, "GPT with dropout")
     del model, opt, step
     torch.cuda.empty_cache()
     return launches, row
@@ -3535,6 +3801,7 @@ def main() -> int:
         from paddle_tpu_torch.nn import functional as PF
         from paddle_tpu_torch.ops._hopper import fused_matmul_bn as fmb
         from paddle_tpu_torch.core import random as rng
+        tfa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
     except ImportError as e:
         print(f"chip_smoke: the paddle_tpu_torch package must sit beside "
               f"this script ({e})", file=sys.stderr)
@@ -3553,6 +3820,7 @@ def main() -> int:
     worst_bwd, timing_bwd = phase_kernel_bwd(torch, hfa, peaks)
     worst_masked, timing_masked, masked_launches = phase_kernel_masked(
         torch, np, hfa, hfp, MultiHeadAttention, PF)
+    phase_dense_route(torch, hfa, hfp, tfa)
     worst_packed, timing_packed = phase_kernel_packed(torch, np, hfp, peaks)
     worst_stream, timing_stream = phase_kernel_packed_stream(torch, np, hfp,
                                                              peaks)
@@ -3600,7 +3868,13 @@ def main() -> int:
     del model   # the serving engines and their pools are gone with it
     torch.cuda.empty_cache()
 
-    phase_train_grad_f32(torch, np, hfa, GPTForCausalLM, gpt3_1p3b)
+    # no training path takes ops.flash_attention's dense route: its count
+    # runs from here over each model's paths (serving's CPU dry run of
+    # gpt_tiny above takes it, at head dim 32, as it should)
+    dense_routes = {}
+    tfa.flash_attention.dense_routes = 0
+    f32_gpt_launches = phase_train_grad_f32(torch, np, hfa, GPTForCausalLM,
+                                            gpt3_1p3b)
     torch.cuda.empty_cache()
     rate0_p50 = {}   # each rate-0 training path's step p50, for beside
     train_launches = phase_train_bf16(
@@ -3615,6 +3889,8 @@ def main() -> int:
     gpt_drop_launches, gpt_drop = phase_train_gpt_dropout_bf16(
         torch, np, hfa, hfp, peaks, GPTForCausalLM, gpt3_1p3b, amp, AdamW,
         make_sharded_train_step, rate0_p50)
+    dense_routes["gpt"] = tfa.flash_attention.dense_routes
+    tfa.flash_attention.dense_routes = 0
     # K4a-direct's float32 body runs on this path (the bf16 paths take the
     # tensor-core body)
     f32_bert_launches = phase_train_grad_f32_bert(
@@ -3632,6 +3908,8 @@ def main() -> int:
     bert_drop_launches, bert_drop = phase_train_bert_dropout_bf16(
         torch, np, hfa, hfp, peaks, BertForPretraining, bert_base, amp,
         AdamW, make_sharded_train_step, rate0_p50)
+    dense_routes["bert"] = tfa.flash_attention.dense_routes
+    tfa.flash_attention.dense_routes = 0
     text_conv = conv_counts(hc)
     check(all(n == 0 for n in text_conv.values()),
           f"the GPT and BERT paths launched conv kernels: {text_conv}")
@@ -3666,6 +3944,10 @@ def main() -> int:
                                            MultiHeadAttention, PF, rng)
     cross_drop_launches = phase_cross_attention(
         torch, np, hfa, hfp, MultiHeadAttention, PF, rng, rate=DROP_RATE)
+    dense_routes["resnet_ernie_cross"] = tfa.flash_attention.dense_routes
+    emit({"phase": "dense_route_paths", "dense_routes": dense_routes})
+    check(not any(dense_routes.values()),
+          f"a model path took the dense route: {dense_routes}")
     late_conv = conv_counts(hc)
     check(all(n == 0 for n in late_conv.values()),
           f"the ERNIE paths launched conv kernels: {late_conv}")
@@ -3689,7 +3971,9 @@ def main() -> int:
     # `launches` is the count on each kernel's first main path: serving
     # for K1's bf16 tensor-core body (as the line has counted K1 from the
     # start) and the f32 serving check for its float32 body
-    # (`f32_serve_launches`), GPT training for K2/K3, BERT training (all
+    # (`f32_serve_launches`), GPT training for K2/K3's bf16 tensor-core
+    # bodies and the f32 GPT gradient check for their CUDA-core bodies
+    # (`f32_gpt_launches`), BERT training (all
     # three forms) for K4a-direct's bf16 tensor-core body and K4b, the f32
     # BERT gradient check for K4a-direct's float32 body (`f32_bert_launches`),
     # ResNet training for K5-K8, ERNIE training (all three forms) for the
@@ -3715,12 +3999,23 @@ def main() -> int:
             ("flash_fwd", "flash_fwd.cu", fa + "224 (_fwd_kernel, launched "
              "by _fwd at :404; float32)", timing["flash_fwd"],
              worst["flash_fwd"], f32_serve_launches["flash_fwd"]),
+            ("flash_bwd_dq_tc", "flash_bwd_tc.cu", fa + "431 "
+             "(_bwd_dq_kernel, launched by _bwd at :628; bf16 at D = 64 "
+             "and 128)", timing_bwd["flash_bwd_dq_tc"],
+             worst_bwd["flash_bwd_dq_tc"], train_launches["flash_bwd_dq_tc"]),
             ("flash_bwd_dq", "flash_bwd.cu", fa + "431 (_bwd_dq_kernel, "
-             "launched by _bwd at :628)", timing_bwd["flash_bwd_dq"],
-             worst_bwd["flash_bwd_dq"], train_launches["flash_bwd_dq"]),
+             "launched by _bwd at :628; float32, and bf16 at D = 256)",
+             timing_bwd["flash_bwd_dq"], worst_bwd["flash_bwd_dq"],
+             f32_gpt_launches["flash_bwd_dq"]),
+            ("flash_bwd_dkv_tc", "flash_bwd_tc.cu", fa + "502 "
+             "(_bwd_dkv_kernel, launched by _bwd at :736; bf16 at D = 64 "
+             "and 128)", timing_bwd["flash_bwd_dkv_tc"],
+             worst_bwd["flash_bwd_dkv_tc"],
+             train_launches["flash_bwd_dkv_tc"]),
             ("flash_bwd_dkv", "flash_bwd.cu", fa + "502 (_bwd_dkv_kernel, "
-             "launched by _bwd at :736)", timing_bwd["flash_bwd_dkv"],
-             worst_bwd["flash_bwd_dkv"], train_launches["flash_bwd_dkv"]),
+             "launched by _bwd at :736; float32, and bf16 at D = 256)",
+             timing_bwd["flash_bwd_dkv"], worst_bwd["flash_bwd_dkv"],
+             f32_gpt_launches["flash_bwd_dkv"]),
             ("flash_packed_fwd_tc", "flash_packed_tc.cu", fp + "165 "
              "(_fwd_kernel_direct, launched by _fwd at :238; bf16)",
              timing_packed["flash_packed_fwd_tc"],
@@ -3758,7 +4053,7 @@ def main() -> int:
              timing_stream["flash_packed_fwd_stream"],
              worst_stream["flash_packed_fwd_stream"],
              f32_ernie_launches["flash_packed_fwd_stream"]),
-            ("flash_packed_bwd_dq_tc", "flash_packed_bwd_tc.cu", fp + "297 "
+            ("flash_packed_bwd_dq_tc", "flash_bwd_tc.cu", fp + "297 "
              "(_bwd_dq_kernel, launched by _bwd at :582; bf16)",
              timing_stream["flash_packed_bwd_dq_tc"],
              worst_stream["flash_packed_bwd_dq_tc"],
@@ -3768,7 +4063,7 @@ def main() -> int:
              timing_stream["flash_packed_bwd_dq"],
              worst_stream["flash_packed_bwd_dq"],
              f32_ernie_launches["flash_packed_bwd_dq"]),
-            ("flash_packed_bwd_dkv_tc", "flash_packed_bwd_tc.cu", fp + "348 "
+            ("flash_packed_bwd_dkv_tc", "flash_bwd_tc.cu", fp + "348 "
              "(_bwd_dkv_kernel, launched by _bwd at :652; bf16)",
              timing_stream["flash_packed_bwd_dkv_tc"],
              worst_stream["flash_packed_bwd_dkv_tc"],
@@ -3796,11 +4091,18 @@ def main() -> int:
             "f32_bert_launches": f32_bert_launches.get(name, 0),
             "f32_serve_launches": f32_serve_launches.get(name, 0),
             "f32_ernie_launches": f32_ernie_launches.get(name, 0),
+            "f32_gpt_launches": f32_gpt_launches.get(name, 0),
             "max_abs_err": err, "max_err": err,
             "stats_rel_err": stats_conv.get(name),
             "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        if "d256_bf16" in t:
+            # K2/K3's CUDA-core bodies also in bf16 at head dim 256
+            kernels[-1]["d256_bf16"] = {
+                k: t["d256_bf16"][k] for k in (
+                    "shape", "kernel_ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by", "tflops")}
         if "train_shape" in t:
             # K1's tensor-core body at the GPT training shape (B=4) too
             kernels[-1]["train_shape"] = {

@@ -1,10 +1,10 @@
 """Mixed precision (``paddle_tpu/amp/auto_cast.py`` counterpart).
 
 Only :func:`decorate` at level ``"O2"`` is ported so far: it casts every
-floating-point parameter and buffer of the models to the AMP dtype
-(bfloat16 by default), and ``master_weight`` sets the optimizers'
-``multi_precision`` (float32 masters, on by default). Level ``"O1"``, its
-op lists and ``auto_cast`` are not ported yet.
+floating-point parameter and buffer of the models to the AMP dtype (the
+flag ``amp_dtype``, bfloat16 by default, as in JAX), and ``master_weight``
+sets the optimizers' ``multi_precision`` (float32 masters, on by default).
+Level ``"O1"``, its op lists and ``auto_cast`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -31,7 +31,8 @@ def decorate(models, optimizers=None, level: str = "O2",
             "yet (ROADMAP Queue 1)")
     if level != "O2":
         raise ValueError(f"level must be 'O2'; got {level!r}")
-    dtype = dtype or "bfloat16"
+    from ..core import flags
+    dtype = dtype or flags.flag("amp_dtype")
     if dtype not in _DTYPES:
         raise ValueError(f"dtype must be one of {sorted(_DTYPES)}; got "
                          f"{dtype!r}")

@@ -3,7 +3,7 @@ the port reads).
 
 ``set_flags({"FLAGS_pallas_conv": 1})`` and ``get_flags(["pallas_conv"])``
 work as in the JAX package, under the same names, so a caller's settings
-carry over. Three flags are defined, with JAX's defaults:
+carry over. Four flags are defined, with JAX's defaults:
 
 - ``fused_conv_bn``: ResNet blocks in training take the deferred-BN units of
   :mod:`paddle_tpu_torch.nn.fused_conv_bn`;
@@ -12,7 +12,9 @@ carry over. Three flags are defined, with JAX's defaults:
   the JAX package's; on the GPU it means the CUDA kernels;
 - ``flash_head_pack`` (on): d=64 attention whose heads match takes K4, the
   head-dim-64 kernels (``ops/_hopper/flash_attention_packed.py``); at 0 it
-  takes K1-K3, as in JAX.
+  takes K1-K3, as in JAX;
+- ``amp_dtype`` (``"bfloat16"``): the dtype :func:`paddle_tpu_torch.amp.
+  decorate` casts to when it is given none.
 
 Unlike the JAX registry, no ``FLAGS_*`` environment variable is read.
 """
@@ -85,3 +87,5 @@ define_flag("pallas_conv", 0,
             "off, as in the JAX package)")
 define_flag("flash_head_pack", 1,
             "route d=64 dense-head attention to the head-packed kernel")
+define_flag("amp_dtype", "bfloat16",
+            "Preferred mixed-precision compute dtype.")

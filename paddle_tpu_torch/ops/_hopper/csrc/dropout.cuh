@@ -1,6 +1,6 @@
 // Attention-prob dropout of the flash-attention kernels (K1-K4), shared by
 // flash_fwd.cu, flash_fwd_tc.cu, flash_bwd.cu, flash_packed.cu,
-// flash_packed_tc.cu, flash_packed_stream.cu and flash_packed_bwd_tc.cu.
+// flash_packed_tc.cu, flash_packed_stream.cu and flash_bwd_tc.cu.
 //
 // The mask is the TPU kernels' own (paddle_tpu/ops/_pallas/flash_attention.py
 // _mix32, _keep_threshold and _dropout_keepf, :125-155): the score of query q

@@ -55,6 +55,10 @@
 // 227 KB of shared memory a block may take. Operand rows are padded to D + 1
 // floats so that column reads hit distinct banks.
 //
+// Since the tensor-core bodies of flash_bwd_tc.cu took bf16 at D = 64 and
+// 128, these bodies run float32 at every head dim and bf16 at D = 256 only,
+// and refuse bf16 at 64 and 128 (no instantiation exists for them).
+//
 // What bounds it on an H100. At the training shape (B=4, S=2048, H=16, D=128,
 // causal, bf16) K2 does 6 * D * pairs * B * H = 1.03e11 FLOPs and K3
 // 8 * D * pairs * B * H = 1.38e11 (pairs = S(S+1)/2), against 169 MB and
@@ -562,8 +566,10 @@ int run(const FlashBwdParams& p, int D, int dtype, void* stream) {
       p.Sk <= 0 || (p.seg_q == nullptr) != (p.seg_k == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) return static_cast<int>(dispatch_d<float, kDq>(p, D, s));
-  if (dtype == 1)
-    return static_cast<int>(dispatch_d<__nv_bfloat16, kDq>(p, D, s));
+  // bf16 at D = 64 and 128 runs on flash_bwd_tc.cu's tensor-core bodies
+  if (dtype == 1 && D == 256)
+    return static_cast<int>(kDq ? launch_dq<__nv_bfloat16, 256>(p, s)
+                                : launch_dkv<__nv_bfloat16, 256>(p, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -614,9 +620,10 @@ FlashBwdParams make_params(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// K2. dtype: 0 = float32, 1 = bfloat16. Strides are in elements; seg_q, seg_k
-// (both or neither) and bias may be null. Returns the cudaError_t of the
-// launch (0 = launched).
+// K2. dtype: 0 = float32 (D 64, 128 or 256), 1 = bfloat16 (D 256 only:
+// flash_bwd_tc.cu takes bf16 at 64 and 128). Strides are in elements; seg_q,
+// seg_k (both or neither) and bias may be null. Returns the cudaError_t of
+// the launch (0 = launched).
 extern "C" int paddle_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* seg_q, const void* seg_k,

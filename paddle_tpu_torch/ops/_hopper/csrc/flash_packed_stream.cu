@@ -9,8 +9,8 @@
 //                                tensor-core body, K1's at D = 64)
 //   flash_packed_bwd_dq          _bwd_dq_kernel          (:297, launched :582)
 //   flash_packed_bwd_dkv         _bwd_dkv_kernel         (:348, launched :652)
-//                                (both float32 only: bf16 runs on
-//                                flash_packed_bwd_tc.cu's tensor-core bodies)
+//                                (both float32 only: bf16 runs on K2's and
+//                                K3's tensor-core bodies, flash_bwd_tc.cu)
 //   flash_packed_bwd_dkv_direct  _bwd_dkv_kernel_direct  (:407, launched :626)
 // The JAX package runs them for d = 64 attention whose keys span more than one
 // of its tiles (Sk > 512 at 12 heads: ERNIE at its own 2048-token context),
@@ -79,7 +79,7 @@
 // bf16 tensor-core peak (0.21, 0.31, 0.42 and 0.10 ms). These bodies run
 // their products on the CUDA cores in f32 (FMA), far from that bound; their
 // times stand in PERF.md. In bf16 the forward, dq and dk/dv run on the
-// tensor cores (flash_fwd_tc.cu, flash_packed_bwd_tc.cu); dk/dv-direct is
+// tensor cores (flash_fwd_tc.cu, flash_bwd_tc.cu); dk/dv-direct is
 // still here in both dtypes.
 
 #include <cuda_bf16.h>
@@ -800,8 +800,7 @@ extern "C" int paddle_flash_packed_fwd_stream(
 
 // flash_packed_bwd_dq: dq from q, k, v, dout, the forward's lse and delta
 // (dense [B, H, Sq] f32). dtype must be 0 (float32; bf16 runs on
-// flash_packed_bwd_tc.cu's paddle_flash_packed_bwd_dq_tc). Otherwise as the
-// forward.
+// flash_bwd_tc.cu's paddle_flash_bwd_dq_tc). Otherwise as the forward.
 extern "C" int paddle_flash_packed_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* seg_q, const void* seg_k,

@@ -1,5 +1,5 @@
 // Tensor-core helpers of the bf16 attention bodies (flash_packed_tc.cu,
-// flash_fwd_tc.cu, flash_packed_bwd_tc.cu): shared-memory addresses,
+// flash_fwd_tc.cu, flash_bwd_tc.cu): shared-memory addresses,
 // cp.async copies, ldmatrix and mma.sync.m16n8k16 (bf16 in, f32
 // accumulate), for Hopper (sm_90a).
 //

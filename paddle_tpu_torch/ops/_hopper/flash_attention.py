@@ -4,11 +4,16 @@ Port of ``paddle_tpu/ops/_pallas/flash_attention.py``: ``_fwd`` driving
 ``_fwd_kernel`` (K1) and ``_bwd`` driving ``_bwd_dq_kernel`` (K2) and
 ``_bwd_dkv_kernel`` (K3). The kernels are ``csrc/flash_fwd_tc.cu`` (K1 in
 bf16, on the tensor cores), ``csrc/flash_fwd.cu`` (K1 in float32, on the
-CUDA cores: on the tensor cores float32 would mean TF32) and
-``csrc/flash_bwd.cu``, built by ``nvcc`` at first use (:mod:`.build`) and
-called through ``ctypes``. :func:`flash_fwd` picks K1's body by dtype,
-openly, and each body counts its launches (``flash_fwd_tc.launches``,
-``flash_fwd.launches``); nothing falls back from one body to the other.
+CUDA cores: on the tensor cores float32 would mean TF32),
+``csrc/flash_bwd_tc.cu`` (K2 and K3 in bf16 at head dims 64 and 128, on the
+tensor cores) and ``csrc/flash_bwd.cu`` (K2 and K3 in float32, and in bf16
+at head dim 256, on the CUDA cores), built by ``nvcc`` at first use
+(:mod:`.build`) and called through ``ctypes``. :func:`flash_fwd` picks K1's
+body by dtype, :func:`flash_bwd_dq` and :func:`flash_bwd_dkv` K2's and K3's
+by dtype and head dim, openly, and each body counts its launches
+(``flash_fwd_tc.launches``, ``flash_fwd.launches``,
+``flash_bwd_dq_tc.launches``, ``flash_bwd_dq.launches``, and the same for
+dkv); nothing falls back from one body to the other.
 
 - ``flash_fwd(q, k, v, causal, scale) -> (o, lse)`` takes the public
   ``[B, S, H, D]`` layout (k/v may have fewer heads, ``HK`` dividing ``H``)
@@ -19,7 +24,8 @@ openly, and each body counts its launches (``flash_fwd_tc.launches``,
   dv)`` in the same layout, dk/dv at ``HK`` heads. ``delta = rowsum(do*o)``
   (minus ``dlse`` when given) is a torch op here, as ``_bwd`` computes it in
   jnp outside its kernels; :func:`flash_bwd_dq` (K2) and
-  :func:`flash_bwd_dkv` (K3) launch the kernels.
+  :func:`flash_bwd_dkv` (K3) launch the kernels, :func:`flash_bwd_dq_tc`
+  and :func:`flash_bwd_dkv_tc` their tensor-core bodies alone.
 
 K1-K3 take the TPU kernels' masks (``masks=(seg_q, seg_k, bias)``, each
 dense or None: segment ids ``[B, Sq]`` and ``[B, Sk]`` int32 and an f32 key
@@ -62,6 +68,8 @@ from ...core import random as rng
 
 __all__ = ["flash_fwd", "flash_fwd_tc", "flash_fwd_reference", "flash_bwd",
            "flash_bwd_reference", "flash_bwd_dq", "flash_bwd_dkv",
+           "flash_bwd_dq_tc", "flash_bwd_dkv_tc", "TC_BWD_HEAD_DIMS",
+           "mma_dot",
            "kernel_arg_error", "NEG_INF", "SUPPORTED_HEAD_DIMS",
            "AttnDropout", "keep_threshold", "keep_scale",
            "dropout_keep_dense", "Masks", "NO_MASKS", "TC_KEY_TILE",
@@ -73,6 +81,9 @@ SUPPORTED_HEAD_DIMS = (64, 128, 256)
 #: by head dim: the points where it rounds p (the body reports its own,
 #: paddle_flash_fwd_tc_stage, and chip_smoke.py holds the two equal)
 TC_KEY_TILE = {64: 128, 128: 128, 256: 64}
+#: head dims whose bf16 K2/K3 run on the tensor-core bodies
+#: (csrc/flash_bwd_tc.cu); bf16 at 256 and float32 stay on flash_bwd.cu
+TC_BWD_HEAD_DIMS = (64, 128)
 #: keys a tile of the float32 CUDA-core bodies (flash_fwd.cu,
 #: flash_packed_stream.cu) takes
 CUDA_CORE_KEY_TILE = 64
@@ -327,7 +338,10 @@ def flash_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     2)``, ``l = l exp(m - m') + sum p`` and ``acc = acc exp(m - m') + p v``
     with p (``p * keep`` under ``dropout``, while l sums the undropped p)
     rounded to v's dtype before the value product, as the TPU kernel rounds
-    it against the running max of its key block (``:287``). The kernel's
+    it against the running max of its key block (``:287``) when its blocks
+    are pinned at 128/128 (JAX's default blocks, ``_pick_blocks``, are
+    wider and round p elsewhere: within the bf16 tolerance, with fewer
+    outputs bit-equal). The kernel's
     masked-row convention: o = 0, lse = NEG_INF + log(1e-30). ``key_tile``
     defaults to the stage of the body the dtype reaches
     (:func:`kernel_key_tile`); the kernel skips stages above a query tile's
@@ -379,12 +393,72 @@ def _delta(o, do, dlse=None):
     return delta.contiguous()
 
 
+#: products an mma.sync.m16n8k16 step sums
+MMA_STEP = 16
+
+
+def _exponent(x: torch.Tensor) -> torch.Tensor:
+    """floor(log2 |x|) of float64 ``x`` as int64 (-2000 where x is 0)."""
+    e = torch.frexp(x)[1].long() - 1
+    return torch.where(x != 0, e, torch.full_like(e, -2000))
+
+
+def _toward_zero_f32(x: torch.Tensor) -> torch.Tensor:
+    """float64 ``x`` rounded toward zero to float32 (as float64)."""
+    f = x.float()
+    f = torch.where(f.double().abs() > x.abs(),
+                    torch.nextafter(f, torch.zeros_like(f)), f)
+    return f.double()
+
+
+def mma_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``einsum("bqhd,bkhd->bhqk", a, b)`` of bf16 ``a [B, Sq, H, D]`` and
+    ``b [B, Sk, HK, D]`` (``HK`` dividing ``H``: query head h takes b's head
+    ``h // (H / HK)``) in float32, summed over d as Hopper's
+    ``mma.sync.m16n8k16`` sums bf16 products into a float32 accumulator, in
+    steps of 16 in the order of d: in each step the products (exact) and
+    the running sum are truncated toward zero to the grid 2^(E - 25), E the
+    largest exponent among them (a product's exponent taken as the sum of
+    its factors'), added exactly, and the step's sum truncated toward zero
+    to float32. ``chip_smoke.py`` holds this against the card's own sums bit
+    for bit. The tensor-core backward bodies (K2/K3's and K4's streamed
+    ones) sum dp (and s) this way; a plain float32 einsum rounds elsewhere.
+    Returns ``[B, H, Sq, Sk]``."""
+    B, sq, h, d = a.shape
+    sk, hk = b.shape[1], b.shape[2]
+    g = h // hk
+    af = a.double().permute(0, 2, 1, 3).reshape(B * h, sq, d)
+    bf = b.double().permute(0, 2, 1, 3).reshape(B * hk, sk, d)
+    ea, eb = _exponent(af), _exponent(bf)
+    out = torch.empty(B * h, sq, sk, dtype=torch.float32, device=a.device)
+    rows = max(1, 2 ** 21 // max(sk, 1))   # bounds the [rows, Sk, 16] steps
+    for bh in range(B * h):
+        kv = (bh // h) * hk + (bh % h) // g
+        for r0 in range(0, sq, rows):
+            ra, rea = af[bh, r0:r0 + rows], ea[bh, r0:r0 + rows]
+            acc = torch.zeros(ra.shape[0], sk, dtype=torch.float64,
+                              device=a.device)
+            for c in range(0, d, MMA_STEP):
+                st = slice(c, c + MMA_STEP)
+                prod = ra[:, None, st] * bf[kv, None, :, st]
+                e = torch.where(prod != 0, rea[:, None, st] +
+                                eb[kv, None, :, st], -2000)
+                top = torch.maximum(e.amax(-1), _exponent(acc))
+                lsb = torch.exp2((top.clamp(min=-1000) - 25).double())
+                acc = _toward_zero_f32(
+                    torch.trunc(prod / lsb[..., None]).sum(-1) * lsb +
+                    torch.trunc(acc / lsb) * lsb)
+            out[bh, r0:r0 + rows] = acc.float()
+    return out.reshape(B, h, sq, sk)
+
+
 def flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                         causal: bool = False, scale: Optional[float] = None,
                         dlse: Optional[torch.Tensor] = None,
                         dropout: Optional[AttnDropout] = None, *,
-                        first_head: int = 0, masks: Masks = NO_MASKS
+                        first_head: int = 0, masks: Masks = NO_MASKS,
+                        mma_sums: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch K2 and K3: the gradients ``_bwd`` computes, in float32.
 
@@ -393,9 +467,16 @@ def flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     masked, so a row with no valid key gives dq = 0 and adds nothing to
     dk/dv), and rounds at ``_bwd``'s points: ``ds`` to q's dtype before
     the dq and dk products, ``p`` (``p * keep`` with ``dropout``, which
-    also scales ``dp``) to do's dtype before the dv product.
+    also scales ``dp``) to do's dtype before the dv product. Those
+    roundings are element by element, so the kernels' stages move nothing
+    here but the order of the f32 sums.
     Grouped-query dk/dv sum over each KV head's query heads. ``first_head``
-    as :func:`flash_fwd_reference` takes it. Returns
+    as :func:`flash_fwd_reference` takes it. ``mma_sums`` sums ``dp = dO
+    v^T`` as the bf16 tensor-core bodies do (:func:`mma_dot`), which is how
+    the card holds those bodies to this: in a row whose every key carries
+    the -1e9 padding bias, the f32 lse absorbs log l, so p = 1 at each key
+    and ds is l times its usual size, and a dp summed in another order
+    flips its bf16 rounding by more than the comparison allows. Returns
     ``(dq [B, Sq, H, D], dk [B, Sk, HK, D], dv [B, Sk, HK, D])`` in the
     input dtypes."""
     b, sq, sk, h, hk, d = _shapes(q, k, v)
@@ -410,7 +491,8 @@ def flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     valid = s > NEG_INF / 2
     p = torch.where(valid, torch.exp(s - lse.float().reshape(b, hk, g, sq, 1)),
                     torch.zeros_like(s))
-    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
+    dp = mma_dot(do, v).reshape(b, hk, g, sq, sk) if mma_sums else \
+        torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
     pv = p
     keep = _keep(dropout, b, h, sq, sk, q.device, first_head)
     if keep is not None:
@@ -527,21 +609,58 @@ def _require_kernel_inputs(q, k, v, do, lse, delta, masks: Masks):
                          f"{why}")
 
 
+def _bwd_body_tc(q) -> bool:
+    """Whether K2 and K3 of q's dtype and head dim run on the tensor-core
+    bodies (bf16 at ``TC_BWD_HEAD_DIMS``) or on the CUDA-core ones."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] in TC_BWD_HEAD_DIMS
+
+
+def _launch_bwd(which: str, tc: bool, q, k, v, do, lse, delta, causal: bool,
+                scale: float, dropout: Optional[AttnDropout], masks: Masks):
+    """K2 (``which = "dq"``, returns dq) or K3 (``"dkv"``, returns ``(dk,
+    dv)``) on CUDA tensors, from the tensor-core body (``tc``:
+    ``flash_bwd_tc.cu``, q, k, v and do rows 16-byte aligned) or the
+    CUDA-core body (``flash_bwd.cu``), each counted by its own wrapper."""
+    _require_kernel_inputs(q, k, v, do, lse, delta, masks)
+    what = f"flash_bwd_{which}" + ("_tc" if tc else "")
+    if tc:
+        require_aligned_rows(what, ("q", q), ("k", k), ("v", v), ("do", do))
+    if which == "dq":
+        outs = [torch.empty(q.shape, dtype=q.dtype, device=q.device)]
+    else:
+        outs = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                for t in (k, v)]
+    lib, fn = _kernel("flash_bwd_tc" if tc else "flash_bwd", "paddle_" + what,
+                      9 + len(outs), 12)
+    _call(lib, fn, what, q, k, q.data_ptr(), k.data_ptr(),
+          v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+          *_mask_ptrs(masks), *(t.data_ptr() for t in outs),
+          *_bwd_args(q, k, v, do, causal, scale, dropout))
+    {"flash_bwd_dq": flash_bwd_dq, "flash_bwd_dq_tc": flash_bwd_dq_tc,
+     "flash_bwd_dkv": flash_bwd_dkv, "flash_bwd_dkv_tc": flash_bwd_dkv_tc}[
+         what].launches += 1
+    return outs[0] if which == "dq" else tuple(outs)
+
+
+def _require_tc(q, what: str) -> None:
+    """Raise unless q's dtype and head dim are the tensor-core bodies'."""
+    if not _bwd_body_tc(q):
+        raise ValueError(
+            f"{what} takes bfloat16 at head dims {TC_BWD_HEAD_DIMS}, not "
+            f"{q.dtype} at {q.shape[-1]} ({what[:-3]} runs those on its "
+            f"CUDA-core body)")
+
+
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
                  dropout: Optional[AttnDropout] = None,
                  masks: Masks = NO_MASKS) -> torch.Tensor:
     """K2 on CUDA tensors: ``dq [B, Sq, H, D]`` from q, k, v, do, K1's lse
     and ``delta`` (both dense ``[B, H, Sq]`` float32), with K1's
-    ``masks``."""
-    _require_kernel_inputs(q, k, v, do, lse, delta, masks)
-    lib, fn = _kernel("flash_bwd", "paddle_flash_bwd_dq", 10, 12)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _call(lib, fn, "flash_bwd_dq", q, k, q.data_ptr(), k.data_ptr(),
-          v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-          *_mask_ptrs(masks), dq.data_ptr(),
-          *_bwd_args(q, k, v, do, causal, scale, dropout))
-    flash_bwd_dq.launches += 1
-    return dq
+    ``masks``. bf16 at head dims 64 and 128 runs the tensor-core body
+    (counted by :func:`flash_bwd_dq_tc`), float32 and bf16 at 256 the
+    CUDA-core body (counted here)."""
+    return _launch_bwd("dq", _bwd_body_tc(q), q, k, v, do, lse, delta,
+                       causal, scale, dropout, masks)
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
@@ -549,17 +668,33 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
                   masks: Masks = NO_MASKS
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3 on CUDA tensors: ``(dk, dv)``, each ``[B, Sk, HK, D]``, summed
-    over the query heads of each KV head's group, with K1's ``masks``."""
-    _require_kernel_inputs(q, k, v, do, lse, delta, masks)
-    lib, fn = _kernel("flash_bwd", "paddle_flash_bwd_dkv", 11, 12)
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _call(lib, fn, "flash_bwd_dkv", q, k, q.data_ptr(), k.data_ptr(),
-          v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-          *_mask_ptrs(masks), dk.data_ptr(), dv.data_ptr(),
-          *_bwd_args(q, k, v, do, causal, scale, dropout))
-    flash_bwd_dkv.launches += 1
-    return dk, dv
+    over the query heads of each KV head's group, with K1's ``masks``; the
+    body picked as :func:`flash_bwd_dq` picks it (the tensor-core one
+    counted by :func:`flash_bwd_dkv_tc`)."""
+    return _launch_bwd("dkv", _bwd_body_tc(q), q, k, v, do, lse, delta,
+                       causal, scale, dropout, masks)
+
+
+def flash_bwd_dq_tc(q, k, v, do, lse, delta, causal: bool, scale: float,
+                    dropout: Optional[AttnDropout] = None,
+                    masks: Masks = NO_MASKS) -> torch.Tensor:
+    """K2's tensor-core body alone (bf16 at head dims 64 and 128, rows
+    16-byte aligned; anything else raises), arguments as
+    :func:`flash_bwd_dq`, which reaches it for every such input."""
+    _require_tc(q, "flash_bwd_dq_tc")
+    return _launch_bwd("dq", True, q, k, v, do, lse, delta, causal, scale,
+                       dropout, masks)
+
+
+def flash_bwd_dkv_tc(q, k, v, do, lse, delta, causal: bool, scale: float,
+                     dropout: Optional[AttnDropout] = None,
+                     masks: Masks = NO_MASKS
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's tensor-core body alone, as :func:`flash_bwd_dq_tc` takes it.
+    Returns ``(dk, dv)``."""
+    _require_tc(q, "flash_bwd_dkv_tc")
+    return _launch_bwd("dkv", True, q, k, v, do, lse, delta, causal, scale,
+                       dropout, masks)
 
 
 def _bwd_arg_error(q, k, v, do, masks: Masks = NO_MASKS) -> Optional[str]:
@@ -732,8 +867,12 @@ def flash_attention_hopper(query: torch.Tensor, key: torch.Tensor,
 
 
 #: kernel launches since each count was last set to 0 (CUDA path only);
-#: flash_fwd counts K1's float32 body, flash_fwd_tc its bf16 tensor-core body
+#: flash_fwd counts K1's float32 body, flash_fwd_tc its bf16 tensor-core
+#: body; flash_bwd_dq/_dkv count K2/K3's CUDA-core bodies, flash_bwd_dq_tc/
+#: _dkv_tc their bf16 tensor-core bodies at head dims 64 and 128
 flash_fwd.launches = 0
 flash_fwd_tc.launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
+flash_bwd_dq_tc.launches = 0
+flash_bwd_dkv_tc.launches = 0

@@ -12,8 +12,9 @@ queries fit one tile while the keys do not, as ``csrc/flash_packed_stream.cu``
 (the streamed forward, dq and dk/dv in float32; in bf16 the forward is K1's
 tensor-core body, ``csrc/flash_fwd_tc.cu``, since ``_fwd_kernel`` is K1's
 function at head dim 64 with as many KV heads as heads, and dq and dk/dv
-run on the tensor-core bodies of ``csrc/flash_packed_bwd_tc.cu``;
-dk/dv-direct stays on the CUDA cores in both dtypes).
+run K2's and K3's tensor-core bodies, ``csrc/flash_bwd_tc.cu``, since
+``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` are K2's and K3's functions
+there too; dk/dv-direct stays on the CUDA cores in both dtypes).
 All are built by ``nvcc`` at first use and called through ``ctypes`` like
 K1-K3. :func:`plan` picks the form the JAX package would run for every
 input, from its tile arithmetic (``_pick_blocks_packed`` and the caller's
@@ -74,7 +75,7 @@ from .flash_attention import (NEG_INF, _DTYPE_CODE, AttnDropout, Masks,
                               _keep, _kernel, _mask_ptrs, _masked_scores,
                               _masks, _strides, as_dropout,
                               flash_fwd_reference, kernel_arg_error,
-                              require_aligned_rows)
+                              mma_dot, require_aligned_rows)
 
 __all__ = ["flash_attention_packed", "flash_packed_fwd",
            "flash_packed_fwd_tc", "flash_packed_fwd_reference",
@@ -94,8 +95,9 @@ MAX_PACK_LANES = 1024
 MAX_SEQ_K = 512  # the keys K4a-direct's kernel keeps in shared memory
 MAX_SEQ_Q_DIRECT = 512  # the queries dk/dv-direct's kernel stages at once
 #: query rows and keys per tile inside the K4 kernels on the CUDA cores, and
-#: per stage of the streamed backward's tensor-core bodies (the unit of
-#: their f32 sums; ``paddle_flash_packed_bwd_tc_stage`` reports it)
+#: per stage of the streamed backward's tensor-core bodies at head dim 64
+#: (the unit of their f32 sums; ``paddle_flash_bwd_tc_stage(64, dkv)``
+#: reports it)
 KERNEL_TILE = 64
 
 
@@ -273,61 +275,6 @@ def flash_packed_fwd_stream_reference(q, k, v, causal: bool = False,
     _shapes(q, k, v)
     return flash_fwd_reference(q, k, v, causal, scale, dropout,
                                first_head=first_head, masks=masks)
-
-
-#: products an mma.sync.m16n8k16 step sums
-MMA_STEP = 16
-
-
-def _exponent(x: torch.Tensor) -> torch.Tensor:
-    """floor(log2 |x|) of float64 ``x`` as int64 (-2000 where x is 0)."""
-    e = torch.frexp(x)[1].long() - 1
-    return torch.where(x != 0, e, torch.full_like(e, -2000))
-
-
-def _toward_zero_f32(x: torch.Tensor) -> torch.Tensor:
-    """float64 ``x`` rounded toward zero to float32 (as float64)."""
-    f = x.float()
-    f = torch.where(f.double().abs() > x.abs(),
-                    torch.nextafter(f, torch.zeros_like(f)), f)
-    return f.double()
-
-
-def mma_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``einsum("bqhd,bkhd->bhqk", a, b)`` of bf16 ``a [B, Sq, H, D]`` and
-    ``b [B, Sk, H, D]`` in float32, summed over d as Hopper's
-    ``mma.sync.m16n8k16`` sums bf16 products into a float32 accumulator, in
-    steps of 16 in the order of d: in each step the products (exact) and
-    the running sum are truncated toward zero to the grid 2^(E - 25), E the
-    largest exponent among them (a product's exponent taken as the sum of
-    its factors'), added exactly, and the step's sum truncated toward zero
-    to float32. ``chip_smoke.py`` holds this against the card's own sums bit
-    for bit. The tensor-core bodies of the streamed backward sum dp (and s)
-    this way; a plain float32 einsum rounds elsewhere."""
-    B, sq, h, d = a.shape
-    sk = b.shape[1]
-    af = a.double().permute(0, 2, 1, 3).reshape(B * h, sq, d)
-    bf = b.double().permute(0, 2, 1, 3).reshape(B * h, sk, d)
-    ea, eb = _exponent(af), _exponent(bf)
-    out = torch.empty(B * h, sq, sk, dtype=torch.float32, device=a.device)
-    rows = max(1, 2 ** 21 // max(sk, 1))   # bounds the [rows, Sk, 16] steps
-    for bh in range(B * h):
-        for r0 in range(0, sq, rows):
-            ra, rea = af[bh, r0:r0 + rows], ea[bh, r0:r0 + rows]
-            acc = torch.zeros(ra.shape[0], sk, dtype=torch.float64,
-                              device=a.device)
-            for c in range(0, d, MMA_STEP):
-                st = slice(c, c + MMA_STEP)
-                prod = ra[:, None, st] * bf[bh, None, :, st]
-                e = torch.where(prod != 0, rea[:, None, st] +
-                                eb[bh, None, :, st], -2000)
-                top = torch.maximum(e.amax(-1), _exponent(acc))
-                lsb = torch.exp2((top.clamp(min=-1000) - 25).double())
-                acc = _toward_zero_f32(
-                    torch.trunc(prod / lsb[..., None]).sum(-1) * lsb +
-                    torch.trunc(acc / lsb) * lsb)
-            out[bh, r0:r0 + rows] = acc.float()
-    return out.reshape(B, h, sq, sk)
 
 
 def _bwd_p_ds(q, k, v, do, lse, delta, causal, scale, masks, dropout,
@@ -549,7 +496,8 @@ def _launch_bwd_split(which: str, q, k, v, do, lse, delta, causal: bool,
     forward's lse and ``delta`` (both dense ``[B, H, Sq]`` float32):
     ``"dq"`` -> dq, ``"dkv"`` or ``"dkv_direct"`` -> ``(dk, dv)``. dq and
     dk/dv run the body of q's dtype: bf16 the tensor-core bodies
-    (``flash_packed_bwd_tc.cu``, counted by :func:`flash_packed_bwd_dq_tc`
+    (K2's and K3's, ``flash_bwd_tc.cu``, at KV heads = heads, counted by
+    :func:`flash_packed_bwd_dq_tc`
     and :func:`flash_packed_bwd_dkv_tc`; q, k, v and do rows 16-byte
     aligned), float32 the CUDA-core bodies (``flash_packed_stream.cu``,
     counted by :func:`flash_packed_bwd_dq` and :func:`flash_packed_bwd_dkv`);
@@ -572,8 +520,9 @@ def _launch_bwd_split(which: str, q, k, v, do, lse, delta, causal: bool,
     else:
         outs = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
                 for t in (k, v)]
-    lib, fn = _kernel("flash_packed_bwd_tc" if tc else "flash_packed_stream",
-                      "paddle_" + what, 9 + len(outs), 12)
+    stem, entry = ("flash_bwd_tc", f"paddle_flash_bwd_{which}_tc") if tc \
+        else ("flash_packed_stream", "paddle_" + what)
+    lib, fn = _kernel(stem, entry, 9 + len(outs), 12)
     _call(lib, fn, what, q, k, q.data_ptr(), k.data_ptr(), v.data_ptr(),
           do.data_ptr(), lse.data_ptr(), delta.data_ptr(), *_mask_ptrs(masks),
           *(t.data_ptr() for t in outs), b, h, h, sq, sk, HEAD_D,

@@ -2,13 +2,19 @@
 
 Port of ``paddle_tpu/ops/flash_attention.py``:
 
-- :func:`flash_attention` routes as the JAX function routes on its kernel
-  path (``flash_attention_pallas``): K4 for d=64 attention whose heads
-  match and whose lengths are multiples of 128, K1 otherwise
+- :func:`flash_attention` routes as the JAX function routes. A head dim
+  in ``SUPPORTED_HEAD_DIMS`` (:func:`attention_route`) goes the kernel path
+  (``flash_attention_pallas``): K4 for d=64 attention whose heads match and
+  whose lengths are multiples of 128, K1 otherwise
   (``_hopper/flash_attention``), the CUDA kernels for CUDA tensors and
-  their plain versions for CPU tensors. Attention-prob dropout in training
-  runs in the kernels on a CUDA tensor and in their plain versions, with
-  the same position-hashed mask, on a CPU tensor;
+  their plain versions for CPU tensors. Any other head dim (``gpt_tiny``'s
+  32) goes the dense route, on the CPU and on the card alike, as JAX's
+  ``supported_shapes`` sends it to ``reference_attention`` or
+  ``_dense_prob_dropout_attention``; ``flash_attention.dense_routes`` counts
+  it. Attention-prob dropout in training runs in the kernels on a CUDA
+  tensor and in their plain versions, with the same position-hashed mask,
+  on a CPU tensor, and through :func:`dropout_keep_dense` on the dense
+  route;
 - :func:`reference_attention` and :func:`single_query_attention` are the
   plain tensor code of the reference (the serving decode step uses the
   second, as the JAX engine does).
@@ -26,10 +32,12 @@ from typing import Optional
 import torch
 
 from ..core import random as rng
-from ._hopper.flash_attention import flash_attention_hopper
+from ._hopper.flash_attention import (SUPPORTED_HEAD_DIMS, as_dropout,
+                                      dropout_keep_dense,
+                                      flash_attention_hopper)
 
 __all__ = ["flash_attention", "reference_attention",
-           "single_query_attention"]
+           "single_query_attention", "attention_route"]
 
 
 def _masked_softmax(scores: torch.Tensor) -> torch.Tensor:
@@ -43,9 +51,14 @@ def _masked_softmax(scores: torch.Tensor) -> torch.Tensor:
 
 
 def reference_attention(q, k, v, causal: bool = False,
-                        scale: Optional[float] = None):
+                        scale: Optional[float] = None, *,
+                        keep: Optional[torch.Tensor] = None):
     """Plain attention, f32 softmax. Grouped-query kv (fewer kv heads) is
-    repeated per query head; rows with no valid key give 0."""
+    repeated per query head; rows with no valid key give 0. ``keep``
+    (``[B, H, Sq, Sk]`` f32, optional) multiplies the probabilities before
+    they are cast to the input dtype for the value product: with
+    :func:`dropout_keep_dense`'s mask this is JAX's
+    ``_dense_prob_dropout_attention``."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if k.shape[2] != h:
@@ -58,8 +71,10 @@ def reference_attention(q, k, v, causal: bool = False,
         mask = torch.tril(torch.ones(sq, sk, dtype=torch.bool,
                                      device=q.device), diagonal=sk - sq)
         scores = scores.masked_fill(~mask, float("-inf"))
-    probs = _masked_softmax(scores).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    probs = _masked_softmax(scores)
+    if keep is not None:
+        probs = probs * keep
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype), v)
 
 
 def single_query_attention(q, k, v, lengths=None,
@@ -91,25 +106,66 @@ def single_query_attention(q, k, v, lengths=None,
     return out.reshape(b, 1, h, d)
 
 
+def attention_route(query) -> str:
+    """Where :func:`flash_attention` sends ``query``: ``"kernels"`` (K1-K4
+    through ``flash_attention_hopper``) for a head dim in
+    ``SUPPORTED_HEAD_DIMS``, ``"dense"`` for any other. Decided by the head
+    dim alone, before any launch, the same on the CPU and on the card, as
+    JAX's ``supported_shapes`` decides by head dim (and, for its kernels,
+    by lengths that the port's kernels take ragged). JAX's kernels take
+    float16, so float16 goes the kernel route too: its plain version on the
+    CPU, and on the card the kernels' wrappers raise, having no float16
+    body."""
+    return "kernels" if query.shape[-1] in SUPPORTED_HEAD_DIMS else "dense"
+
+
 def flash_attention(query, key, value, dropout: float = 0.0,
-                    causal: bool = False, *, scale: Optional[float] = None,
-                    training: bool = True, fixed_seed_offset=None):
-    """``paddle.nn.functional.flash_attention`` ([B, S, H, D]) through
+                    causal: bool = False, return_softmax: bool = False, *,
+                    scale: Optional[float] = None, training: bool = True,
+                    fixed_seed_offset=None):
+    """``paddle.nn.functional.flash_attention`` ([B, S, H, D]). On the
+    kernel route (:func:`attention_route`) it goes through
     :func:`~._hopper.flash_attention.flash_attention_hopper`, as the JAX
     function goes through ``flash_attention_pallas``: K4 or K1 (the kernel
     on a CUDA tensor, which raises on inputs it does not take, never
-    falling back; the plain version on a CPU tensor).
+    falling back; the plain version on a CPU tensor). On the dense route it
+    runs :func:`reference_attention` (:func:`single_query_attention` for one
+    query) or, with dropout in training, the dense mirror of the kernels'
+    mask, as JAX does off its kernels, and adds one to
+    ``flash_attention.dense_routes``. Nothing is caught: the route is
+    chosen before any launch.
 
     ``dropout`` is attention-prob dropout in training, in the kernel: the
     mask is regenerated in the backward from (position, seed).
     ``fixed_seed_offset`` pins the int32 seed; otherwise it is drawn from
-    the next key. The JAX function's dense mirror of the mask, which it
-    takes off the TPU, is the kernels' plain version here."""
-    if not (dropout > 0.0 and training):
+    the next key. ``return_softmax`` is not supported, as in JAX."""
+    if return_softmax:
+        raise NotImplementedError("return_softmax is a debug-only GPU "
+                                  "feature")
+    drop = dropout > 0.0 and training
+    seed = None
+    if drop:
+        seed = rng.draw_seed() if fixed_seed_offset is None else \
+            fixed_seed_offset
+    if attention_route(query) == "dense":
+        flash_attention.dense_routes += 1
+        if drop:
+            dr = as_dropout(dropout, seed)
+            b, sq, h, _ = query.shape
+            keep = dropout_keep_dense(b * h, sq, key.shape[1], dr.seed,
+                                      dr.rate, query.device)
+            return reference_attention(query, key, value, causal, scale,
+                                       keep=keep.reshape(b, h, sq, -1))
+        if query.shape[1] == 1:
+            return single_query_attention(query, key, value, scale=scale)
+        return reference_attention(query, key, value, causal, scale)
+    if not drop:
         return flash_attention_hopper(query, key, value, causal=causal,
                                       scale=scale)
-    seed = rng.draw_seed() if fixed_seed_offset is None else \
-        fixed_seed_offset
     return flash_attention_hopper(query, key, value, causal=causal,
                                   scale=scale, dropout=dropout,
                                   dropout_seed=seed)
+
+
+#: calls that took the dense route since the count was last set to 0
+flash_attention.dense_routes = 0

@@ -23,8 +23,8 @@ do (``mma_dot``, held here against a scalar model of its rule and in
 nothing else.
 
 Then the routing of the streamed backward on the card, with the kernel
-calls stubbed: bf16 reaches the tensor-core entries (``csrc/
-flash_packed_bwd_tc.cu``, counted by ``flash_packed_bwd_dq_tc`` and
+calls stubbed: bf16 reaches the tensor-core entries (K2's and K3's,
+``csrc/flash_bwd_tc.cu``, counted by ``flash_packed_bwd_dq_tc`` and
 ``flash_packed_bwd_dkv_tc``), float32 the CUDA-core entries, dk/dv-direct
 ``flash_packed_stream.cu`` in both, and the ``_tc`` wrappers refuse
 float32.
@@ -389,24 +389,25 @@ def _small(dtype, sq=128, sk=256):
 
 
 @pytest.mark.parametrize("dtype,stem,suffix", [
-    (torch.bfloat16, "flash_packed_bwd_tc", "_tc"),
+    (torch.bfloat16, "flash_bwd_tc", "_tc"),
     (torch.float32, "flash_packed_stream", "")])
 def test_streamed_backward_picks_its_body_by_dtype(dtype, stem, suffix,
                                                    monkeypatch):
-    """bf16 dq and dk/dv reach the tensor-core entries and their counts,
-    float32 the CUDA-core ones; dk/dv-direct stays on the CUDA cores in
-    both dtypes. Nothing falls back from one body to the other."""
+    """bf16 dq and dk/dv reach the tensor-core entries (K2's and K3's, the
+    same functions at KV heads = heads) and their own counts, float32 the
+    CUDA-core ones; dk/dv-direct stays on the CUDA cores in both dtypes.
+    Nothing falls back from one body to the other."""
     stub = _stub_launches(monkeypatch)
     args = _small(dtype)
     hfp.flash_packed_bwd_dq(*args)
     hfp.flash_packed_bwd_dkv(*args)
     hfp.flash_packed_bwd_dkv_direct(*args)
     code = hfa._DTYPE_CODE[dtype]
+    entry = "paddle_flash_bwd_{}_tc" if suffix else \
+        "paddle_flash_packed_bwd_{}"
     assert stub.entries == [
-        (stem, f"paddle_flash_packed_bwd_dq{suffix}",
-         f"flash_packed_bwd_dq{suffix}", code),
-        (stem, f"paddle_flash_packed_bwd_dkv{suffix}",
-         f"flash_packed_bwd_dkv{suffix}", code),
+        (stem, entry.format("dq"), f"flash_packed_bwd_dq{suffix}", code),
+        (stem, entry.format("dkv"), f"flash_packed_bwd_dkv{suffix}", code),
         ("flash_packed_stream", "paddle_flash_packed_bwd_dkv_direct",
          "flash_packed_bwd_dkv_direct", code)]
     tc = suffix == "_tc"
