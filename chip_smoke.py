@@ -43,14 +43,22 @@ context:
    dense_route  ops.flash_attention at head dim 32 in float32 and float16:
            the dense route (reference_attention, with the kernels' dropout
            mask as its keep) with no kernel launch, against the CPU; float16
-           at head dims 64 and 128 the kernel route, refused there; no
-           model path below takes the dense route (dense_route_paths);
+           at head dims 64 and 128 the kernel route, computed there by K1's
+           tensor-core body and held against its plain version; no model
+           path below takes the dense route (dense_route_paths);
 5. kernel_packed  K4a-direct (flash_packed_fwd: its bf16 tensor-core body
            flash_packed_fwd_tc, flash_packed_tc.cu, and its float32 body,
-           flash_packed.cu) and K4b (flash_packed_bwd) against their plain
-           versions with and without masks, and at BERT-base's shape (B=64,
-           S=512, H=12) with bench.py's padding bias, where they are timed
-           (the float32 body on the same inputs in float32);
+           flash_packed.cu) and K4b-fused (flash_packed_bwd: its bf16
+           tensor-core body flash_packed_bwd_tc, one thread-block cluster a
+           head in flash_bwd_tc.cu, held against the plain version that sums
+           dp as mma.sync does; its float32 body in flash_packed.cu) against
+           their plain versions with and without masks, and at BERT-base's
+           shape (B=64, S=512, H=12) with bench.py's padding bias, where
+           they are timed (the float32 bodies on the same inputs in
+           float32), the tensor-core K4b run twice for bit-equal gradients
+           and timed beside SDPA's backward and two yardsticks no path
+           runs: the CUDA-core body in bf16 and the streamed dq + dk/dv
+           bodies on the same inputs;
 6. kernel_packed_stream  K4's streamed forms (the forward: bf16 on K1's
            tensor-core body, flash_packed_fwd_stream_tc, float32 on
            flash_packed_stream.cu; dq and dk/dv: bf16 on K2's and K3's
@@ -70,13 +78,20 @@ context:
            512 queries over 2048 keys;
 7. kernel_conv  K5-K8 (conv.cu: mm, mm_wgrad, c3, c3_wgrad) against their
            plain versions, forward with stats, input gradient and weight
-           gradient, in 15 cases (stride 1 and 2, prologue with ReLU or
-           none or off, stats on and off, ragged M, odd H, f32, the three
-           B=256 shapes JAX's TPU rule keeps off its kernels, and layer1's
-           1x1 64->64 at B=256, whose dw split takes two reduction passes),
+           gradient, in 16 cases (stride 1 and 2, prologue with ReLU or
+           none or off, stats on and off, ragged M, odd H, C and K not whole
+           8-value pieces, f32, the three B=256 shapes JAX's TPU rule
+           keeps off its kernels, and layer1's 1x1 64->64 at B=256, whose
+           dw split takes two reduction passes),
            then compared again and timed at the JAX package's
            RESNET50_TOP3_SHAPES at B=256 (stats over two reduction passes)
-           against their bounds, their plain versions and cuDNN;
+           against their bounds, their plain versions and cuDNN; K8 (in 16
+           bits one block holds all nine taps, conv3x3_wgrad_tc_kernel) also
+           at each of ResNet-50's seven 3x3 weight-gradient shapes (B=256;
+           RESNET50_K8_SHAPES, 16 launches a step), held against its plain
+           version, repeated bit for bit and timed beside the one-block-a-tap
+           body it had before (a yardstick no path runs), its bound and
+           cuDNN, with the step's K8 time in both bodies;
 8. serve_f32   3 requests x 16 tokens, token-exact against the model's
            dense-cache ``generate``; every prefill runs K1's float32
            body once per layer;
@@ -137,6 +152,16 @@ Attention-prob dropout and K9 (after phase 7, in this order):
   forward against the plain version and the torch-op backward against the
   CPU, and the full shapes timed against the bound, the plain version and
   cuBLAS;
+- kernel_float16  every kernel in float16, as JAX's kernels take it: a
+  probe holds mma_dot to the card's float16 sums bit for bit at head dims
+  64 and 128, then K1, K2/K3 (tensor cores at 64 and 128, CUDA cores at
+  256), K4a-direct and K4b-fused, the streamed forward, dq, dk/dv and
+  dk/dv-direct, K5-K8 and K9 against their plain versions in the cases
+  their phases run in bf16 (a subset: masks, causal, rows with no key,
+  GQA, dropout, ragged tiles, stride 2, the prologue), within bf16's
+  tolerance scaled to float16's ulp, each checked to run the bodies of its
+  dtype; then each float16 tensor-core body timed at its model's shape
+  beside bf16;
 and the dropout paths, each after its model's rate-0 path:
 - train_gpt_dropout_bf16  GPT-3 1.3B at hidden and attention dropout 0.1,
   B=4 x 2048, AMP-O2, 2+4 steps (K1/K2/K3 24 a step);
@@ -186,7 +211,14 @@ def check(cond: bool, msg: str) -> None:
 
 def card_peaks(name: str) -> dict:
     """Dense peak rates from NVIDIA's data sheet of the card nvidia-smi
-    names: bf16 tensor-core FLOP/s, f32 (CUDA-core) FLOP/s, memory B/s."""
+    names: bf16 (and float16, the same) tensor-core FLOP/s, f32 (CUDA-core)
+    FLOP/s, memory B/s."""
+    peaks = sheet_peaks(name)
+    peaks["f16"] = peaks["bf16"]
+    return peaks
+
+
+def sheet_peaks(name: str) -> dict:
     n = name.lower()
     if "h200" in n:
         return {"bf16": 989e12, "f32": 67e12, "bytes": 4.8e12,
@@ -234,6 +266,18 @@ def median_ms(fn, iters: int = 20, warmup: int = 3, reps: int = 1) -> float:
         times.append(start.elapsed_time(end) / reps)
     times.sort()
     return times[len(times) // 2]
+
+
+#: the kernels' types by the names the rows use: float32 on the CUDA cores,
+#: bf16 and float16 on the tensor cores (one template over the two)
+DTYPE_NAMES = {"f32": "float32", "bf16": "bfloat16", "f16": "float16"}
+#: the relative tolerance of a 16-bit comparison, as bf16's scaled to
+#: float16's ulp (2^-7 against 2^-10 of the value: an eighth)
+REL16 = {"bf16": 1e-2, "f16": 1e-2 / 8}
+
+
+def torch_dtype(torch, dt):
+    return getattr(torch, DTYPE_NAMES[dt])
 
 
 def percentile(xs, q):
@@ -365,9 +409,9 @@ K1_TC_CASES = [
 
 
 def k1_body(dt):
-    """The K1 body a dtype runs: bf16 the tensor-core body, float32 the
-    CUDA-core body."""
-    return "flash_fwd_tc" if dt == "bf16" else "flash_fwd"
+    """The K1 body a dtype runs: bf16 and float16 the tensor-core body,
+    float32 the CUDA-core body."""
+    return "flash_fwd_tc" if dt != "f32" else "flash_fwd"
 
 
 def phase_kernel(torch, hfa, peaks):
@@ -388,7 +432,7 @@ def phase_kernel(torch, hfa, peaks):
     results = []
     worst = {"flash_fwd": 0.0, "flash_fwd_tc": 0.0}
     for i, (name, b, sq, sk, h, hk, d, causal, dt) in enumerate(K1_CASES):
-        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        dtype = torch_dtype(torch, dt)
         q, k, v = k1_inputs(torch, b, sq, sk, h, hk, d, dtype, seed=100 + i)
         before = {n: getattr(hfa, n).launches for n in worst}
         o, lse = hfa.flash_fwd(q, k, v, causal=causal)
@@ -405,11 +449,12 @@ def phase_kernel(torch, hfa, peaks):
               bool(torch.isfinite(lse).all()), f"{name}: non-finite output")
         err_o = (o.float() - ro.float()).abs()
         err_lse = (lse - rlse).abs()
-        if dt == "bf16":
-            # bf16 rounding of o, and sums over up to 2048 keys in another
+        if dt != "f32":
+            # 16-bit rounding of o, and sums over up to 2048 keys in another
             # order than the plain version's
-            ok = bool((err_o <= 2e-2 + 2e-2 * ro.float().abs()).all()) and \
-                float(err_lse.max()) <= 1e-2
+            r = 2 * REL16[dt]
+            ok = bool((err_o <= r + r * ro.float().abs()).all()) and \
+                float(err_lse.max()) <= REL16[dt]
         else:
             # f32 sums over up to 1024 keys in another order
             ok = float(err_o.max()) <= 1e-4 and float(err_lse.max()) <= 1e-4
@@ -456,7 +501,7 @@ def phase_kernel(torch, hfa, peaks):
     for kname, b, dt in (("flash_fwd_tc", 1, "bf16"), ("flash_fwd_tc", 4,
                                                        "bf16"),
                          ("flash_fwd", 1, "f32")):
-        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        dtype = torch_dtype(torch, dt)
         q, k, v = k1_inputs(torch, b, s, s, h, h, d, dtype, seed=7)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         # the kernels and SDPA 10 calls a sample: K1 at B=1 is shorter than
@@ -469,7 +514,7 @@ def phase_kernel(torch, hfa, peaks):
         library_ms = median_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True), reps=10)
         flops = 4 * b * h * d * attention_pairs(s, s, True)
-        esize = 2 if dt == "bf16" else 4
+        esize = 2 if dt != "f32" else 4
         nbytes = 4 * b * s * h * d * esize + b * h * s * 4  # q, k, v, o, lse
         # float32 products run on the CUDA cores: the f32 peak bounds them
         t_ops = flops / peaks[dt] * 1e3
@@ -503,7 +548,7 @@ K2_K3_KERNELS = ("flash_bwd_dq", "flash_bwd_dq_tc", "flash_bwd_dkv",
 
 def k2_k3_bodies(dt, d):
     """The K2 and K3 bodies that dtype ``dt`` at head dim ``d`` reaches."""
-    tc = "_tc" if dt == "bf16" and d in (64, 128) else ""
+    tc = "_tc" if dt != "f32" and d in (64, 128) else ""
     return "flash_bwd_dq" + tc, "flash_bwd_dkv" + tc
 
 
@@ -550,13 +595,15 @@ def compare_bwd(torch, hfa, case, q, k, v, do, causal, worst, dropout=None,
         live = ref32 != 0 if any(t is not None for t in masks) else \
             torch.ones_like(ref32, dtype=torch.bool)
         med = float(ref32.abs()[live].median()) if bool(live.any()) else 0.0
-        if dt == "bf16":
+        if dt != "f32":
             # both round ds and p to bf16 at the same points, from f32
             # sums taken in another order, so a rounding may flip; then
             # the bf16 output (one ulp is at most 2^-7 relative). The
             # worst error seen on an H100 is 3.9e-3, and typical values
             # are 0.03-0.05, so 1e-2 absolute still catches a dropped tile
-            ok &= bool((err <= 1e-2 + 1e-2 * ref32.abs()).all())
+            # (float16: an eighth, its ulp's share)
+            r = REL16[dt]
+            ok &= bool((err <= r + r * ref32.abs()).all())
         else:
             # f32 sums over up to 2048 terms in another order
             ok &= bool((err <= 1e-4 + 1e-4 * ref32.abs()).all())
@@ -581,23 +628,25 @@ def compare_bwd(torch, hfa, case, q, k, v, do, causal, worst, dropout=None,
     return row, o, lse
 
 
-def mma_probe(torch, dq_fn, mma_dot, d, n=8192):
-    """The tensor-core dq body's f32 sums of bf16 products against the
-    plain versions' model of them (``mma_dot``), bit for bit, at head dim
-    ``d``, through the wrapper ``dq_fn`` (K2's or K4b-dq's, which reach the
-    same body): with q = 0, K the identity (``d`` keys), lse = 0 and scale
-    1 the body gives dq[i, j] = bf16(dp[i, j] - delta[i]), so with delta[i]
-    the model's dp[i, i % d] it gives 0 exactly where the card summed as
-    the model does (dO of mixed magnitudes, V columns scaled by 2^-6 ..
-    2^6). Returns the share of the n sums that agree."""
+def mma_probe(torch, dq_fn, mma_dot, d, n=8192, dtype=None):
+    """The tensor-core dq body's f32 sums of 16-bit products (bf16, or
+    ``dtype``) against the plain versions' model of them (``mma_dot``), bit
+    for bit, at head dim ``d``, through the wrapper ``dq_fn`` (K2's or
+    K4b-dq's, which reach the same body): with q = 0, K the identity (``d``
+    keys), lse = 0 and scale 1 the body gives dq[i, j] = round(dp[i, j] -
+    delta[i]), so with delta[i] the model's dp[i, i % d] it gives 0 exactly
+    where the card summed as the model does (dO of mixed magnitudes, V
+    columns scaled by 2^-6 .. 2^6). Returns the share of the n sums that
+    agree."""
+    dtype = dtype or torch.bfloat16
     g = torch.Generator(device="cuda")
     g.manual_seed(3)
-    do = torch.randn(1, n, 1, d, generator=g, device="cuda").bfloat16()
+    do = torch.randn(1, n, 1, d, generator=g, device="cuda").to(dtype)
     v = (torch.randn(1, d, 1, d, generator=g, device="cuda") * torch.exp2(
         torch.randint(-6, 7, (1, 1, 1, d), generator=g,
-                      device="cuda").float())).bfloat16()
-    q = torch.zeros(1, n, 1, d, device="cuda").bfloat16()
-    k = torch.eye(d, device="cuda").reshape(1, d, 1, d).bfloat16()
+                      device="cuda").float())).to(dtype)
+    q = torch.zeros(1, n, 1, d, device="cuda").to(dtype)
+    k = torch.eye(d, device="cuda").reshape(1, d, 1, d).to(dtype)
     rows = torch.arange(n, device="cuda")
     j = rows % d
     delta = mma_dot(do, v)[0, 0, rows, j].reshape(1, 1, n).contiguous()
@@ -652,7 +701,7 @@ def phase_kernel_bwd(torch, hfa, peaks):
     results = []
     worst = {n: 0.0 for n in K2_K3_KERNELS}
     for i, (name, b, sq, sk, h, hk, d, causal, dt) in enumerate(K1_CASES):
-        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        dtype = torch_dtype(torch, dt)
         q, k, v = k1_inputs(torch, b, sq, sk, h, hk, d, dtype, seed=300 + i)
         g = torch.Generator(device="cuda")
         g.manual_seed(400 + i)
@@ -938,8 +987,10 @@ def phase_dense_route(torch, hfa, hfp, tfa):
     + 1e-4·|ref|, as compare_bwd holds f32 sums: both sides are library
     products, and cuBLAS was seen 3.3e-5 from the CPU in one run of five;
     float16 within two ulps, 2^-9 + 2^-9·|ref|). Float16 at head dims 64
-    and 128 goes the kernel route, as JAX sends it to its kernels, and is
-    refused there (no float16 body), with no dense route and no launch.
+    and 128 goes the kernel route, as JAX sends it to its kernels: K1's
+    tensor-core body runs once (4 query heads on 2 KV heads do not take
+    K4), with no dense route, and equals its plain version on the card
+    within K1's bf16 tolerance scaled to float16 (2.5e-3 + 2.5e-3·|ref|).
     Returns the calls made."""
     rows = []
 
@@ -989,25 +1040,35 @@ def phase_dense_route(torch, hfa, hfp, tfa):
         q, k, v = inputs(d, torch.float16)
         zero_counts(hfa, hfp)
         tfa.flash_attention.dense_routes = 0
-        try:
-            tfa.flash_attention(q, k, v, causal=True, training=False)
-            refused = None
-        except ValueError as e:
-            refused = str(e)
+        out = tfa.flash_attention(q, k, v, causal=True, training=False)
+        torch.cuda.synchronize()
+        launches = k4_counts(hfa, hfp)
+        ref, _ = hfa.flash_fwd_reference(q, k, v, causal=True)
+        err = (out.float() - ref.float()).abs()
+        tol = 2 * REL16["f16"]
         row = {"case": f"d{d}_f16", "route": tfa.attention_route(q),
-               "refused": refused,
                "dense_routes": tfa.flash_attention.dense_routes,
-               "kernel_launches": sum(k4_counts(hfa, hfp).values())}
+               "launches": {n: c for n, c in launches.items() if c},
+               "dtype": str(out.dtype).replace("torch.", ""),
+               "max_abs_err": float(err.max()),
+               "equal": float((err == 0).float().mean())}
         rows.append(row)
-        check(row["route"] == "kernels" and refused is not None and
-              "float16" in refused and row["dense_routes"] == 0 and
-              row["kernel_launches"] == 0,
+        check(row["route"] == "kernels" and row["dense_routes"] == 0 and
+              row["launches"] == {"flash_fwd_tc": 1} and
+              out.dtype == torch.float16 and
+              bool(torch.isfinite(out).all()) and
+              bool((err <= tol + tol * ref.float().abs()).all()),
               f"float16 at a kernel head dim: {row}")
     emit({"phase": "dense_route", "cases": rows})
     return len(rows)
 
 
 # -- phase 5 -----------------------------------------------------------------
+
+#: K4a-direct's and K4b-fused's bodies, each counted apart: bf16 and
+#: float16 on the tensor cores (``_tc``), float32 on the CUDA cores
+K4_DIRECT_KERNELS = ("flash_packed_fwd", "flash_packed_fwd_tc",
+                     "flash_packed_bwd", "flash_packed_bwd_tc")
 
 # name, B, Sq, Sk, H, causal, dtype, mask
 K4_CASES = [
@@ -1103,12 +1164,14 @@ def compare(torch, name, got, ref, dt, row, nonzero=False):
     live = ref32 != 0 if nonzero else \
         torch.ones_like(ref32, dtype=torch.bool)
     med = float(ref32.abs()[live].median()) if bool(live.any()) else 0.0
-    if dt == "bf16":
+    if dt != "f32":
         # both round p and ds to bf16 at the same points, from f32 sums
         # taken in another order, so a rounding may flip (one ulp is 2^-7
-        # of the value); a dropped or doubled tile moves the mean error far
-        # past 1e-3 of the median |value|
-        ok = bool((err <= 1e-2 + 1e-2 * ref32.abs()).all()) and \
+        # of the value; float16's 2^-10, an eighth of the tolerance); a
+        # dropped or doubled tile moves the mean error far past 1e-3 of
+        # the median |value|
+        r = REL16[dt]
+        ok = bool((err <= r + r * ref32.abs()).all()) and \
             float(err[live].mean() if bool(live.any()) else 0.0) \
             <= 1e-3 * med
     else:
@@ -1123,34 +1186,54 @@ def compare(torch, name, got, ref, dt, row, nonzero=False):
     return float(err.max())
 
 
+def k4_bodies(dt):
+    """The K4a-direct and K4b-fused bodies a dtype runs: bf16 and float16
+    the tensor-core bodies, float32 the CUDA-core bodies."""
+    tc = "_tc" if dt != "f32" else ""
+    return "flash_packed_fwd" + tc, "flash_packed_bwd" + tc
+
+
 def k4_case(torch, hfp, case, q, k, v, do, masks, worst, dropout=None):
     """K4a then K4b against their plain versions on the same inputs (the
     backward from the kernel's own o and lse; with ``dropout``, the same
-    rate and seed); one row of errors."""
+    rate and seed; the tensor-core K4b against the plain version that sums
+    dp as mma.sync does); one row of errors. The bodies of the case's
+    dtype must run, once each, and no other."""
     name, b, sq, sk, h, causal, dt = case
+    fwd, bwd = k4_bodies(dt)
+    before = {n: getattr(hfp, n).launches for n in K4_DIRECT_KERNELS}
     o, lse = hfp.flash_packed_fwd(q, k, v, causal, None, masks, dropout)
     dq, dk, dv = hfp.flash_packed_bwd(q, k, v, o, lse, do, causal, None,
                                       masks, dropout)
     torch.cuda.synchronize()
+    ran = {n: getattr(hfp, n).launches - before[n] for n in K4_DIRECT_KERNELS}
+    check(ran == {n: int(n in (fwd, bwd)) for n in K4_DIRECT_KERNELS},
+          f"{name}: {dt} ran the K4a/K4b bodies {ran}")
     ro, rlse = hfp.flash_packed_fwd_reference(q, k, v, causal, None, masks,
                                               dropout)
-    rdq, rdk, rdv = hfp.flash_packed_bwd_reference(q, k, v, o, lse, do,
-                                                   causal, None, masks,
-                                                   dropout)
+    rdq, rdk, rdv = hfp.flash_packed_bwd_reference(
+        q, k, v, o, lse, do, causal, None, masks, dropout,
+        mma_sums=dt != "f32")
     torch.cuda.synchronize()
     row = {"case": name, "shape": [b, sq, sk, h, 64], "causal": causal,
            "dtype": dt, "masks": [t is not None for t in masks],
+           "bodies": [fwd, bwd],
            "dropout": None if dropout is None else list(dropout)}
-    fwd = "flash_packed_fwd_tc" if dt == "bf16" else "flash_packed_fwd"
-    worst[fwd] = max(worst[fwd], compare(torch, "o", o, ro, dt, row))
+    worst[fwd] = max(worst.get(fwd, 0.0), compare(torch, "o", o, ro, dt,
+                                                  row))
     err_lse = (lse - rlse).abs()
     row["max_abs_err_lse"] = float(err_lse.max())
-    row["ok"] &= bool((err_lse <= (1e-2 if dt == "bf16" else 1e-5) *
+    row["ok"] &= bool((err_lse <= REL16.get(dt, 1e-5) *
                        (1 + rlse.abs())).all())
+    # the mean error over the elements whose plain value is not 0: the keys
+    # of padding that no query reaches have dk = dv = 0 on both sides and
+    # can be most of them (the tensor-core body's f32 sums differ from the
+    # plain version's in the last bits elsewhere, the CUDA-core body's did
+    # not in these cases)
     for gname, got, ref in (("dq", dq, rdq), ("dk", dk, rdk),
                             ("dv", dv, rdv)):
-        worst["flash_packed_bwd"] = max(worst["flash_packed_bwd"], compare(
-            torch, gname, got, ref, dt, row))
+        worst[bwd] = max(worst.get(bwd, 0.0), compare(
+            torch, gname, got, ref, dt, row, nonzero=True))
     # rows with no valid key: o = 0 and dq = 0, exactly
     s = hfp._scores(q, k, causal, 1.0, masks)
     empty = (s <= hfp.NEG_INF / 2).all(dim=-1).transpose(1, 2)  # [B, Sq, H]
@@ -1169,16 +1252,20 @@ def bert_padded(np, batch, seq):
 
 def phase_kernel_packed(torch, np, hfp, peaks):
     """K4a (flash_packed_fwd: its bf16 tensor-core body and its float32
-    CUDA-core body) and K4b (flash_packed_bwd) against their plain versions
-    in every case and at BERT-base's shape with bench.py's padded key bias,
-    then the kernels, the plain versions and the library call timed at that
-    shape (the float32 body on the same inputs in float32)."""
+    CUDA-core body) and K4b (flash_packed_bwd: its bf16 tensor-core body,
+    one cluster a head, and its float32 CUDA-core body) against their plain
+    versions in every case and at BERT-base's shape with bench.py's padded
+    key bias, then the kernels, the plain versions and the library call
+    timed at that shape (the float32 bodies on the same inputs in float32).
+    The tensor-core K4b must give bit-equal gradients in two runs; it is
+    timed beside two yardsticks on its inputs that no path runs: the
+    CUDA-core body in bf16 (the body bf16 ran before) and the two-body
+    route (the streamed dq and dk/dv, each recomputing s and p)."""
     import torch.nn.functional as F
     results = []
-    worst = {"flash_packed_fwd": 0.0, "flash_packed_fwd_tc": 0.0,
-             "flash_packed_bwd": 0.0}
+    worst = {name: 0.0 for name in K4_DIRECT_KERNELS}
     for i, (name, b, sq, sk, h, causal, dt, mask) in enumerate(K4_CASES):
-        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        dtype = torch_dtype(torch, dt)
         q, k, v, do, masks = k4_inputs(torch, b, sq, sk, h, dtype, mask,
                                        seed=500 + i)
         row, _, _ = k4_case(torch, hfp, (name, b, sq, sk, h, causal, dt),
@@ -1203,6 +1290,19 @@ def phase_kernel_packed(torch, np, hfp, peaks):
                                                     masks))
     bwd_ms = median_ms(lambda: hfp._launch_bwd(q, k, v, do, lse, delta,
                                                False, scale, masks))
+    runs = [hfp._launch_bwd(q, k, v, do, lse, delta, False, scale, masks)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    repeat_equal = all(bool(torch.equal(a, b)) for a, b in zip(*runs))
+    check(repeat_equal, "K4b's tensor-core body: two runs differ")
+    del runs
+    cuda_core_ms = median_ms(lambda: hfp._launch_bwd(
+        q, k, v, do, lse, delta, False, scale, masks, tc=False), iters=10)
+    two_body_ms = median_ms(lambda: (
+        hfp._launch_bwd_split("dq", q, k, v, do, lse, delta, False, scale,
+                              masks),
+        hfp._launch_bwd_split("dkv", q, k, v, do, lse, delta, False, scale,
+                              masks)))
     plain_fwd_ms = median_ms(lambda: hfp.flash_packed_fwd_reference(
         q, k, v, False, None, masks), iters=5, warmup=1)
     plain_bwd_ms = median_ms(lambda: hfp.flash_packed_bwd_reference(
@@ -1217,25 +1317,33 @@ def phase_kernel_packed(torch, np, hfp, peaks):
     lib_bwd_ms = median_ms(lambda: torch.autograd.grad(
         ot, (qt, kt, vt), dot, retain_graph=True))
     del ot, qt, kt, vt
-    # K4a-direct's float32 body, on the same inputs in float32
-    q32, k32, v32 = (x.float() for x in (q, k, v))
-    o32, _ = hfp.flash_packed_fwd(q32, k32, v32, False, None, masks)
-    ro32, _ = hfp.flash_packed_fwd_reference(q32, k32, v32, False, None,
-                                             masks)
-    row32 = {"case": "bert_b64_s512_padded_f32_fwd"}
-    worst["flash_packed_fwd"] = max(worst["flash_packed_fwd"], compare(
-        torch, "o", o32, ro32, "f32", row32))
-    check(row32["ok"], f"K4a-direct's f32 body disagrees: {row32}")
+    # K4a-direct's and K4b-fused's float32 bodies, on the same inputs in
+    # float32
+    q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
+    row32, o32, lse32 = k4_case(torch, hfp, (
+        "bert_b64_s512_padded_f32", b, s, s, h, False, "f32"), q32, k32, v32,
+        do32, masks, worst)
     results.append(row32)
-    del o32, ro32
+    delta32 = hfp._delta(o32, do32)
     fwd32_ms = median_ms(lambda: hfp.flash_packed_fwd(q32, k32, v32, False,
                                                       None, masks), iters=5)
     plain32_ms = median_ms(lambda: hfp.flash_packed_fwd_reference(
         q32, k32, v32, False, None, masks), iters=5, warmup=1)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q32, k32, v32))
+    bwd32_ms = median_ms(lambda: hfp._launch_bwd(
+        q32, k32, v32, do32, lse32, delta32, False, scale, masks), iters=5)
+    plain_bwd32_ms = median_ms(lambda: hfp.flash_packed_bwd_reference(
+        q32, k32, v32, o32, lse32, do32, False, None, masks), iters=5,
+        warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q32, k32, v32))
     lib32_ms = median_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=masks[2][:, None, None, :]))
-    del q32, k32, v32, qt, kt, vt
+    ot = F.scaled_dot_product_attention(qt, kt, vt,
+                                        attn_mask=masks[2][:, None, None, :])
+    dot = do32.transpose(1, 2)
+    lib_bwd32_ms = median_ms(lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), dot, retain_graph=True), iters=5)
+    del q32, k32, v32, do32, o32, lse32, delta32, qt, kt, vt, ot, dot
     pairs = s * s
     elems = b * s * h * d                        # one [B, S, H, D] tensor
     stat = b * h * s * 4                         # one [B, H, S] f32 tensor
@@ -1245,8 +1353,10 @@ def phase_kernel_packed(torch, np, hfp, peaks):
              4 * d * pairs * b * h, 4 * elems * 2 + stat, "bf16"),
             ("flash_packed_fwd", fwd32_ms, plain32_ms, lib32_ms,
              4 * d * pairs * b * h, 4 * elems * 4 + stat, "f32"),
-            ("flash_packed_bwd", bwd_ms, plain_bwd_ms, lib_bwd_ms,
-             10 * d * pairs * b * h, 7 * elems * 2 + 2 * stat, "bf16")):
+            ("flash_packed_bwd_tc", bwd_ms, plain_bwd_ms, lib_bwd_ms,
+             10 * d * pairs * b * h, 7 * elems * 2 + 2 * stat, "bf16"),
+            ("flash_packed_bwd", bwd32_ms, plain_bwd32_ms, lib_bwd32_ms,
+             10 * d * pairs * b * h, 7 * elems * 4 + 2 * stat, "f32")):
         # float32 products run on the CUDA cores: the f32 peak bounds them
         t_ops = flops / peaks[dt] * 1e3
         t_bytes = nbytes / peaks["bytes"] * 1e3
@@ -1257,9 +1367,15 @@ def phase_kernel_packed(torch, np, hfp, peaks):
             "flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "peak_sheet": peaks["sheet"], "tflops": flops / ms / 1e9}
+    timing["flash_packed_bwd_tc"].update({
+        "cluster_blocks": hfp.fused_cluster_size(s),
+        "repeat_bit_equal": repeat_equal,
+        "cuda_core_bf16_ms": cuda_core_ms, "two_body_ms": two_body_ms,
+        "yardsticks": "the CUDA-core body in bf16 (flash_packed.cu, the "
+                      "body before) and the streamed dq + dk/dv tensor-core "
+                      "bodies on the same inputs; neither runs on a path"})
     emit({"phase": "kernel_packed",
-          "kernels": ["flash_packed_fwd_tc", "flash_packed_fwd",
-                      "flash_packed_bwd"],
+          "kernels": list(K4_DIRECT_KERNELS),
           "cases": results, "timing": timing,
           "library": "scaled_dot_product_attention in [B, H, S, D] with "
                      "attn_mask = bias[:, None, None, :] (bf16); backward "
@@ -1323,7 +1439,7 @@ STREAM_KERNELS = ("flash_packed_fwd_stream", "flash_packed_fwd_stream_tc",
 def stream_bodies(dt):
     """The names (and counts) of the streamed forward, dq and dk/dv bodies
     that ``dt`` reaches."""
-    tc = "_tc" if dt == "bf16" else ""
+    tc = "_tc" if dt != "f32" else ""
     return ("flash_packed_fwd_stream" + tc, "flash_packed_bwd_dq" + tc,
             "flash_packed_bwd_dkv" + tc)
 
@@ -1358,7 +1474,7 @@ def stream_case(torch, hfp, case, q, k, v, do, masks, worst, dropout=None):
                                                      masks, **drop)
     # the tensor-core bodies' yardstick sums dp as they do (mma_dot); the
     # CUDA-core bodies' f32 FMA sums are a float32 einsum's
-    tc = dict(mma_sums=dt == "bf16")
+    tc = dict(mma_sums=dt != "f32")
     ref = {"dq": hfp.flash_packed_bwd_dq_reference(
         q, k, v, do, lse, delta, causal, None, masks, **drop, **tc)}
     ref["dk"], ref["dv"] = hfp.flash_packed_bwd_dkv_reference(
@@ -1371,18 +1487,18 @@ def stream_case(torch, hfp, case, q, k, v, do, masks, worst, dropout=None):
     row = {"case": name, "shape": [b, sq, sk, h, 64], "causal": causal,
            "dtype": dt, "masks": [t is not None for t in masks],
            "dropout": None if dropout is None else list(dropout)}
-    worst[fwd] = max(worst[fwd], compare(torch, "o", o, ro, dt, row,
-                                         nonzero=True))
+    worst[fwd] = max(worst.get(fwd, 0.0), compare(torch, "o", o, ro, dt,
+                                                  row, nonzero=True))
     err_lse = (lse - rlse).abs()
     row["max_abs_err_lse"] = float(err_lse.max())
-    row["ok"] &= bool((err_lse <= (1e-2 if dt == "bf16" else 1e-5) *
+    row["ok"] &= bool((err_lse <= REL16.get(dt, 1e-5) *
                        (1 + rlse.abs())).all())
     for gname, kname in (("dq", dq_body), ("dk", dkv_body),
                          ("dv", dkv_body),
                          ("dk_direct", "flash_packed_bwd_dkv_direct"),
                          ("dv_direct", "flash_packed_bwd_dkv_direct")):
         if gname in got:
-            worst[kname] = max(worst[kname], compare(
+            worst[kname] = max(worst.get(kname, 0.0), compare(
                 torch, gname, got[gname], ref[gname], dt, row, nonzero=True))
     if direct and dt == "f32":
         # the two float32 dk/dv bodies of flash_packed_stream.cu sum in the
@@ -1431,7 +1547,7 @@ def phase_kernel_packed_stream(torch, np, hfp, peaks):
     results = []
     worst = {name: 0.0 for name in STREAM_KERNELS}
     for i, (name, b, sq, sk, h, causal, dt, mask) in enumerate(STREAM_CASES):
-        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        dtype = torch_dtype(torch, dt)
         q, k, v, do, masks = k4_inputs(torch, b, sq, sk, h, dtype, mask,
                                        seed=700 + i)
         row, _, _ = stream_case(torch, hfp, (name, b, sq, sk, h, causal, dt),
@@ -1667,7 +1783,10 @@ def mask_probe(torch, hfa, hfp, family, seed):
                    qb, qb, eyeb, dropout=dr)}
         bwd = {"flash_packed_bwd": lambda: hfp._launch_bwd(
             q, eye, v, eye, zeros, zeros, False, scale, (None,) * 3,
-            dr)[0::2]}
+            dr)[0::2],
+               "flash_packed_bwd_tc": lambda: hfp._launch_bwd(
+            qb, eyeb, v.bfloat16(), eyeb, zeros, zeros, False, scale,
+            (None,) * 3, dr)[0::2]}
     else:
         args = (q, eye, v, eye, zeros, zeros, False, scale, (None,) * 3, dr)
         argsb = (qb, eyeb, v.bfloat16(), eyeb, zeros, zeros, False, scale,
@@ -1753,7 +1872,7 @@ def dropout_k1_k3(torch, hfa, hfp, peaks, timing, timing_bwd):
     rows = []
     for i, (name, b, sq, sk, h, hk, d, causal, dt) in enumerate(
             K1_DROP_CASES):
-        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        dtype = torch_dtype(torch, dt)
         q, k, v = k1_inputs(torch, b, sq, sk, h, hk, d, dtype, seed=900 + i)
         g = torch.Generator(device="cuda")
         g.manual_seed(950 + i)
@@ -1854,12 +1973,11 @@ def dropout_k4(torch, np, hfa, hfp, timing):
     padding bias: compared, then timed beside rate 0), and B = 1368 x 12
     heads at S=512, whose flat score index passes 2^32, compared on its
     last batch."""
-    worst = {"flash_packed_fwd": 0.0, "flash_packed_fwd_tc": 0.0,
-             "flash_packed_bwd": 0.0}
+    worst = {name: 0.0 for name in K4_DIRECT_KERNELS}
     rows = []
     for i, (name, b, sq, sk, h, causal, dt, mask) in enumerate(
             K4_DROP_CASES):
-        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        dtype = torch_dtype(torch, dt)
         q, k, v, do, masks = k4_inputs(torch, b, sq, sk, h, dtype, mask,
                                        seed=1100 + i)
         row, _, _ = k4_case(torch, hfp, (name, b, sq, sk, h, causal, dt),
@@ -1887,7 +2005,7 @@ def dropout_k4(torch, np, hfa, hfp, timing):
         "flash_packed_fwd_tc": rate_times(
             lambda: hfp.flash_packed_fwd(q, k, v, False, None, masks),
             lambda: hfp.flash_packed_fwd(q, k, v, False, None, masks, dr)),
-        "flash_packed_bwd": rate_times(
+        "flash_packed_bwd_tc": rate_times(
             lambda: hfp._launch_bwd(q, k, v, do, lse, delta, False, scale,
                                     masks),
             lambda: hfp._launch_bwd(q, k, v, do, lse, delta, False, scale,
@@ -1911,7 +2029,8 @@ def dropout_k4(torch, np, hfa, hfp, timing):
                                            none, dr, first_head=last * h)
     refs = hfp.flash_packed_bwd_reference(q[sl], k[sl], v[sl], o[sl],
                                           lse[sl], do[sl], False, None, none,
-                                          dr, first_head=last * h)
+                                          dr, first_head=last * h,
+                                          mma_sums=True)
     wrap = {"case": f"wrap_b{b}_s512", "shape": [b, s, s, h, d],
             "first_compared_head": last * h,
             "first_flat_index": wrap_heads(last, h, s, s)}
@@ -1950,7 +2069,7 @@ def dropout_stream(torch, np, hfa, hfp, timing):
     rows = []
     for i, (name, b, sq, sk, h, causal, dt, mask) in enumerate(
             STREAM_DROP_CASES):
-        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        dtype = torch_dtype(torch, dt)
         q, k, v, do, masks = k4_inputs(torch, b, sq, sk, h, dtype, mask,
                                        seed=1300 + i)
         row, _, _ = stream_case(torch, hfp, (name, b, sq, sk, h, causal, dt),
@@ -2040,6 +2159,231 @@ def dropout_stream(torch, np, hfa, hfp, timing):
     return {"cases": rows, "mask_probe": probe, "timing": timed}, worst
 
 
+# -- float16 through every kernel ---------------------------------------------
+
+#: the cases each kernel family runs in float16 (its bf16 cases' masks,
+#: causal forms, rows with no key and dropout), by index into the bf16
+#: lists: K1_TC_CASES, K2_K3_TC_CASES, K4_CASES, STREAM_CASES, CONV_CASES
+F16_PICKS = {"k1": (0, 1, 3, 4, 5), "k2_k3": (0, 2, 3, 5, 6),
+             "k4": (0, 1, 2, 3, 5, 6), "stream": (11, 12, 17, 20, 22),
+             "conv": (0, 3, 4, 5, 6, 7)}
+
+
+def f16_of(case, at, dt="f16"):
+    """A bf16 case as the float16 case of the same shape and masks."""
+    return case[:at] + (dt,) + case[at + 1:]
+
+
+def phase_kernel_float16(torch, np, hfa, hfp, hc, fmb, peaks):
+    """Float16 through every kernel, as JAX's kernels take it, against the
+    plain versions on the card, in the cases each phase above runs in bf16
+    (``F16_PICKS``: masks, causal, rows with no key, GQA, dropout, ragged
+    tiles, stride 2, the prologue): K1 (its tensor-core body), K2/K3 (the
+    tensor-core bodies at head dims 64 and 128, after a probe holds
+    ``mma_dot`` to their float16 sums bit for bit, and the CUDA-core bodies
+    at 256), K4a-direct and K4b-fused (tensor cores), the streamed forward,
+    dq and dk/dv (tensor cores) and dk/dv-direct (CUDA cores), K5-K8 and
+    K9, each checked to run the bodies of its dtype; then every float16
+    tensor-core body timed once at its model's shape beside bf16 on the
+    same values. Returns ``({kernel: max error}, {kernel: timing})``."""
+    worst = {}
+    rows = []
+    probe = {d: mma_probe(torch, hfa.flash_bwd_dq_tc, hfa.mma_dot, d,
+                          dtype=torch.float16) for d in (64, 128)}
+    check(all(v == 1.0 for v in probe.values()),
+          f"mma_dot models {probe} of the card's float16 sums, not all")
+    for i in F16_PICKS["k1"]:
+        name, b, sq, sk, h, hk, d, causal, mask, drop = K1_TC_CASES[i]
+        g = torch.Generator(device="cuda")
+        g.manual_seed(2150 + i)
+        q, k, v = k1_inputs(torch, b, sq, sk, h, hk, d, torch.float16,
+                            seed=2160 + i)
+        masks = mask_inputs(torch, g, b, sq, sk, torch.float16, mask)
+        dr = hfa.AttnDropout(DROP_RATE, 2170 + i) if drop else None
+        before = hfa.flash_fwd_tc.launches
+        o, lse = hfa.flash_fwd(q, k, v, causal, dropout=dr, masks=masks)
+        torch.cuda.synchronize()
+        ro, rlse = hfa.flash_fwd_reference(q, k, v, causal, dropout=dr,
+                                           masks=masks)
+        row = {"case": "f16_" + name, "shape": [b, sq, sk, h, hk, d],
+               "dtype": "f16", "body": "flash_fwd_tc",
+               "ran": hfa.flash_fwd_tc.launches - before}
+        worst["flash_fwd_tc"] = max(worst.get("flash_fwd_tc", 0.0), compare(
+            torch, "o", o, ro, "f16", row, nonzero=True))
+        err_lse = (lse - rlse).abs()
+        row["max_abs_err_lse"] = float(err_lse.max())
+        row["ok"] &= row["ran"] == 1 and bool(
+            (err_lse <= REL16["f16"] * (1 + rlse.abs())).all())
+        check(row["ok"], f"K1 in float16 disagrees: {row}")
+        rows.append(row)
+    k2_cases = [K2_K3_TC_CASES[i] for i in F16_PICKS["k2_k3"]] + [
+        ("d256_s300_causal_cuda_core", 1, 300, 300, 8, 4, 256, True, None,
+         False)]
+    for i, (name, b, sq, sk, h, hk, d, causal, mask, drop) in enumerate(
+            k2_cases):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(2250 + i)
+        q, k, v = k1_inputs(torch, b, sq, sk, h, hk, d, torch.float16,
+                            seed=2260 + i)
+        do = torch.randn(b, sq, h, d, generator=g, device="cuda").to(
+            torch.float16)
+        masks = mask_inputs(torch, g, b, sq, sk, torch.float16, mask)
+        dr = hfa.AttnDropout(DROP_RATE, 2270 + i) if drop else None
+        row, _, _ = compare_bwd(torch, hfa, ("f16_" + name, b, sq, sk, h, hk,
+                                             d, "f16"), q, k, v, do, causal,
+                                worst, dr, masks)
+        rows.append(row)
+    for j, i in enumerate(F16_PICKS["k4"]):
+        name, b, sq, sk, h, causal, _, mask = K4_CASES[i]
+        q, k, v, do, masks = k4_inputs(torch, b, sq, sk, h, torch.float16,
+                                       mask, seed=2300 + j)
+        row, _, _ = k4_case(torch, hfp, ("f16_" + name, b, sq, sk, h, causal,
+                                         "f16"), q, k, v, do, masks, worst)
+        rows.append(row)
+    name, b, sq, sk, h, causal, _, mask = K4_DROP_CASES[0]
+    q, k, v, do, masks = k4_inputs(torch, b, sq, sk, h, torch.float16, mask,
+                                   seed=2350)
+    row, _, _ = k4_case(torch, hfp, ("f16_" + name, b, sq, sk, h, causal,
+                                     "f16"), q, k, v, do, masks, worst,
+                        hfa.AttnDropout(DROP_RATE, 2351))
+    rows.append(row)
+    for j, i in enumerate(F16_PICKS["stream"]):
+        name, b, sq, sk, h, causal, _, mask = STREAM_CASES[i]
+        q, k, v, do, masks = k4_inputs(torch, b, sq, sk, h, torch.float16,
+                                       mask, seed=2400 + j)
+        row, _, _ = stream_case(torch, hfp, ("f16_" + name, b, sq, sk, h,
+                                             causal, "f16"), q, k, v, do,
+                                masks, worst)
+        rows.append(row)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2500)
+    for i in F16_PICKS["conv"]:
+        case = f16_of(CONV_CASES[i], 10)
+        before = conv_counts(hc)
+        row, errs = conv_case(torch, hc, ("f16_" + case[0],) + case[1:], g)
+        ran = {n: c - before[n] for n, c in conv_counts(hc).items()}
+        k = "mm" if case[1] == "conv1x1" else "c3"
+        check(ran == {**{n: 0 for n in CONV_KERNELS}, k: 2, k + "_wgrad": 1},
+              f"{case[0]} in float16 ran {ran}")
+        rows.append(row)
+        for kname, (err, _) in errs.items():
+            worst[kname] = max(worst.get(kname, 0.0), err)
+    for i, (name, m, cin, cout) in enumerate((("m77_96to80_ragged", 77, 96,
+                                                80),
+                                               ("m600_64to256", 600, 64,
+                                                256))):
+        inp = k9_inputs(torch, m, cin, cout, torch.float16, seed=2600 + i)
+        got = k9_grads(torch, fmb, "cuda", *inp, "scale_shift_relu", True)
+        ref = k9_grads(torch, fmb, "cpu", *inp, "scale_shift_relu", True)
+        row = {"case": "f16_" + name, "shape": [m, cin, cout],
+               "dtype": "f16", "prologue": "scale_shift_relu",
+               "stats": True}
+        worst["fused_matmul_bn_fwd"] = max(
+            worst.get("fused_matmul_bn_fwd", 0.0),
+            k9_hold(torch, got, ref, "f16", "scale_shift_relu", True, row))
+        check(row["ok"], f"K9 in float16 disagrees: {row}")
+        rows.append(row)
+    timing = f16_times(torch, np, hfa, hfp, hc)
+    emit({"phase": "kernel_float16", "mma_probe_f16": probe, "cases": rows,
+          "timing": timing})
+    return worst, timing
+
+
+def f16_times(torch, np, hfa, hfp, hc):
+    """Each float16 tensor-core body once at its model's shape, beside bf16
+    on the same values (the median of 20 calls each, bf16 first): K1, K2
+    and K3 at GPT-3 1.3B's (B=4, S=2048, 16 heads of 128, causal),
+    K4a-direct and K4b-fused at BERT-base's (B=64, S=512, 12 heads,
+    bench.py's padding bias), the streamed forward, dq and dk/dv at
+    ERNIE's long one (B=16, S=2048, 12 heads), K5-K8 at ResNet-50's 56²
+    shapes (B=256)."""
+    out = {}
+
+    def pair(name, make, run):
+        ms = {}
+        for dt in ("bf16", "f16"):
+            args = make(torch_dtype(torch, dt))
+            ms[dt] = median_ms(lambda: run(*args))
+            del args
+        torch.cuda.empty_cache()
+        out[name] = {"bf16_ms": ms["bf16"], "f16_ms": ms["f16"]}
+
+    g = torch.Generator(device="cuda")
+
+    def attn(b, s, h, d, dtype, bias=False):
+        g.manual_seed(31)
+        q, k, v, do = (torch.randn(b, s, h, d, generator=g,
+                                   device="cuda").to(dtype)
+                       for _ in range(4))
+        masks = (None, None, None)
+        if bias:
+            _, att = bert_padded(np, b, s)
+            masks = (None, None, padding_bias(torch, torch.as_tensor(
+                att, device="cuda"), torch.float32))
+        return q, k, v, do, masks
+
+    def gpt(dtype):
+        q, k, v, do, _ = attn(4, 2048, 16, 128, dtype)
+        o, lse = hfa.flash_fwd(q, k, v, causal=True)
+        return q, k, v, do, o, lse, hfa._delta(o, do)
+
+    pair("flash_fwd_tc", gpt, lambda q, k, v, *_: hfa.flash_fwd(
+        q, k, v, causal=True))
+    scale = 1 / math.sqrt(128)
+    pair("flash_bwd_dq_tc", gpt, lambda q, k, v, do, o, lse, delta:
+         hfa.flash_bwd_dq_tc(q, k, v, do, lse, delta, True, scale))
+    pair("flash_bwd_dkv_tc", gpt, lambda q, k, v, do, o, lse, delta:
+         hfa.flash_bwd_dkv_tc(q, k, v, do, lse, delta, True, scale))
+
+    def bert(dtype):
+        q, k, v, do, masks = attn(64, 512, 12, 64, dtype, bias=True)
+        o, lse = hfp.flash_packed_fwd(q, k, v, False, None, masks)
+        return q, k, v, do, masks, lse, hfp._delta(o, do)
+
+    scale = 1 / 8
+    pair("flash_packed_fwd_tc", bert, lambda q, k, v, do, masks, *_:
+         hfp.flash_packed_fwd(q, k, v, False, None, masks))
+    pair("flash_packed_bwd_tc", bert, lambda q, k, v, do, masks, lse, delta:
+         hfp._launch_bwd(q, k, v, do, lse, delta, False, scale, masks))
+
+    def ernie(dtype):
+        q, k, v, do, masks = attn(16, 2048, 12, 64, dtype)
+        o, lse = hfp.flash_packed_fwd_stream(q, k, v, False, None, masks)
+        return q, k, v, do, masks, lse, hfp._delta(o, do)
+
+    pair("flash_packed_fwd_stream_tc", ernie, lambda q, k, v, do, masks, *_:
+         hfp.flash_packed_fwd_stream(q, k, v, False, None, masks))
+    for which in ("dq", "dkv"):
+        pair(f"flash_packed_bwd_{which}_tc", ernie,
+             lambda q, k, v, do, masks, lse, delta, w=which:
+             hfp._launch_bwd_split(w, q, k, v, do, lse, delta, False, scale,
+                                   masks))
+
+    def resnet(cin, cout, k):
+        def make(dtype):
+            g.manual_seed(32)
+            x = torch.randn(256, 56, 56, cin, generator=g,
+                            device="cuda").to(dtype)
+            w = (torch.randn(cout, cin, k, k, generator=g, device="cuda") *
+                 (cin * k * k) ** -0.5).to(dtype)
+            sc = torch.randn(cin, generator=g, device="cuda")
+            sh = torch.randn(cin, generator=g, device="cuda")
+            dy = torch.randn(256, 56, 56, cout, generator=g,
+                             device="cuda").to(dtype)
+            return x, hc.fwd_weight(w, dtype), sc, sh, dy
+        return make
+
+    pair("mm", resnet(256, 64, 1), lambda x, wt, sc, sh, dy: hc.mm(
+        x, wt[0], sc, sh, "relu", True, 1))
+    pair("mm_wgrad", resnet(256, 64, 1), lambda x, wt, sc, sh, dy:
+         hc.mm_wgrad(x, dy, sc, sh, "relu", 1))
+    pair("c3", resnet(64, 64, 3), lambda x, wt, sc, sh, dy: hc.c3(
+        x, wt, sc, sh, "relu", True, 1))
+    pair("c3_wgrad", resnet(64, 64, 3), lambda x, wt, sc, sh, dy:
+         hc.c3_wgrad(x, dy, sc, sh, "relu", 1))
+    return out
+
+
 # -- K9: fused_matmul_bn_act -------------------------------------------------
 
 # name, M, Cin, Cout, dtype: the three prologues, stats on and off, at each
@@ -2106,10 +2450,11 @@ def k9_hold(torch, got, ref, dt, prologue, stats, row):
         check(bool(torch.isfinite(g).all()), f"K9 {name}: non-finite")
         err = (g - r).abs()
         if name in ("y", "dx"):
-            t = 1e-5 if dt == "f32" else 1e-2 if name == "y" else 2e-2
+            t = 1e-5 if dt == "f32" else REL16[dt] * (1 if name == "y"
+                                                       else 2)
             ok = bool((err <= t + t * r.abs()).all())
         else:
-            ok = float(err.max()) <= (1e-2 if dt == "bf16" else 1e-5) * \
+            ok = float(err.max()) <= REL16.get(dt, 1e-5) * \
                 max(float(r.abs().max()), 1e-30)
         row[f"max_abs_err_{name}"] = float(err.max())
         row[f"max_abs_{name}"] = float(r.abs().max())
@@ -2142,7 +2487,7 @@ def phase_kernel_fused_matmul_bn(torch, fmb, peaks):
     rows, worst = [], 0.0
     for i, ((name, m, cin, cout, dt), prologue, stats) in enumerate(
             itertools.product(K9_CASES, fmb.PROLOGUES, (True, False))):
-        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        dtype = torch_dtype(torch, dt)
         inp = k9_inputs(torch, m, cin, cout, dtype, seed=1500 + i)
         got = k9_grads(torch, fmb, "cuda", *inp, prologue, stats)
         ref = k9_grads(torch, fmb, "cpu", *inp, prologue, stats)
@@ -2546,8 +2891,7 @@ def phase_train_bf16(torch, np, hfa, peaks, GPTForCausalLM, gpt3_1p3b,
 #: two each (the CUDA-core ones, and ``_tc``: bf16 at head dims 64 and 128)
 K1_K3_KERNELS = ("flash_fwd", "flash_fwd_tc") + K2_K3_KERNELS
 #: the K4 forms, each of their bodies
-K4_KERNELS = ("flash_packed_fwd", "flash_packed_fwd_tc",
-              "flash_packed_bwd") + STREAM_KERNELS
+K4_KERNELS = K4_DIRECT_KERNELS + STREAM_KERNELS
 ATTENTION_KERNELS = K1_K3_KERNELS + K4_KERNELS
 
 
@@ -2759,12 +3103,13 @@ def phase_train_bert_bf16(torch, np, hfa, hfp, peaks, BertForPretraining,
         emit(row)
         check(all(math.isfinite(x) for x in losses), f"non-finite: {row}")
         check(losses[-1] < losses[0], f"the loss did not decrease: {row}")
-        for name in ("flash_packed_fwd_tc", "flash_packed_bwd"):
+        for name in ("flash_packed_fwd_tc", "flash_packed_bwd_tc"):
             check(launches[name] == L * n_steps,
                   f"{form}: {name} launched {launches[name]} times in "
                   f"{n_steps} steps of {L} layers")
-        # bf16 never reaches K4a-direct's float32 body
-        for name in K1_K3_KERNELS + ("flash_packed_fwd",) + STREAM_KERNELS:
+        # bf16 never reaches K4a-direct's or K4b-fused's float32 body
+        for name in K1_K3_KERNELS + ("flash_packed_fwd",
+                                     "flash_packed_bwd") + STREAM_KERNELS:
             check(launches[name] == 0,
                   f"{form}: {name} launched {launches[name]} times")
         out[form] = row
@@ -2810,6 +3155,10 @@ CONV_CASES = [
      "bf16"),
     ("3x3_s2_14to7_no_stats", "conv3x3", 5, 14, 14, 256, 256, 2, "none",
      False, "bf16"),
+    # 16 bits with C and K not whole 8-value pieces (K8's element-by-element
+    # copies and prologue) on a 9x7 image at stride 2
+    ("3x3_s2_9x7_c20_k36_ragged", "conv3x3", 3, 9, 7, 20, 36, 2, "relu",
+     True, "bf16"),
     ("f32_1x1_s2_9to5_ragged", "conv1x1", 3, 9, 9, 40, 72, 2, "relu", True,
      "f32"),
     ("f32_3x3_s2_9to5_ragged", "conv3x3", 3, 9, 9, 40, 72, 2, "none", True,
@@ -2881,14 +3230,20 @@ def hold_conv(torch, part, got, ref, dt, row, stats=False):
     return err, rel
 
 
-def conv_plan(hc, n, ho, wo, cin, cout, k):
+def conv_plan(hc, n, ho, wo, cin, cout, k, dt="bf16", stride=1):
     """How the kernels cut a conv with ``n·ho·wo`` output pixels: K5/K7's
     row blocks, whose stats partials the reduction sums in 256-row passes,
-    and K6/K8's split of M (``_wgrad_launch``)."""
+    and K6/K8's split of M (``_wgrad_launch``; K8 in 16 bits: its bands,
+    ``wgrad_bands``)."""
     m = n * ho * wo
     tiles = k * k * -(-cin // 64) * -(-cout // 64)
-    return {"fwd_blocks": -(-m // hc._FWD_ROWS),
+    plan = {"fwd_blocks": -(-m // hc._FWD_ROWS),
             "wgrad_splits": hc.wgrad_splits(m, tiles)[0]}
+    if k == 3 and dt != "f32":
+        bands = hc.wgrad_bands(n, ho, wo, cin, cout, stride)
+        plan.update({"wgrad_splits": bands.splits,
+                     "wgrad_bands": bands._asdict()})
+    return plan
 
 
 def conv_case(torch, hc, case, g):
@@ -2896,7 +3251,7 @@ def conv_case(torch, hc, case, g):
     gradient) and K6/K8 (the weight gradient with the prologue), each
     against its plain version on the same inputs; one row of errors."""
     name, kind, n, h, w, cin, cout, s, act, stats, dt = case
-    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    dtype = torch_dtype(torch, dt)
     k = 1 if kind == "conv1x1" else 3
     ho, wo = (h - 1) // s + 1, (w - 1) // s + 1
 
@@ -2924,7 +3279,7 @@ def conv_case(torch, hc, case, g):
         wgrad = (hc.c3_wgrad, hc.c3_wgrad_reference, (x, dy, sc, sh, a, s))
     row = {"case": name, "shape": [n, h, w, cin, cout, k, s], "act": act,
            "stats": stats, "dtype": dt,
-           **conv_plan(hc, n, ho, wo, cin, cout, k)}
+           **conv_plan(hc, n, ho, wo, cin, cout, k, dt, s)}
     errs = {}
     for part, (kern, plain, args) in (("fwd", fwd), ("dgrad", dgrad),
                                       ("wgrad", wgrad)):
@@ -3059,6 +3414,7 @@ def phase_kernel_conv(torch, hc, peaks):
                 "bytes": nbytes, "bound_ms": bound, "bound_by": by,
                 "peak_sheet": peaks["sheet"],
                 "tflops": flops / ms / 1e9}
+    timing["k8_stages"] = k8_stages(torch, hc, peaks, g, results)
     # the main path's reductions at B=256 (K5/K7's stats over 6,272 blocks
     # at 56², K6's dw over 1,004 splits for the 64->64 1x1) take more than
     # one 256-row pass: some compared case must too
@@ -3075,7 +3431,76 @@ def phase_kernel_conv(torch, hc, peaks):
     top = list(timing.values())
     return worst, stats_rel, {
         "mm": top[0]["mm"], "mm_wgrad": top[0]["mm_wgrad"],
-        "c3": top[2]["c3"], "c3_wgrad": top[2]["c3_wgrad"]}
+        "c3": top[2]["c3"], "c3_wgrad": {**top[2]["c3_wgrad"],
+                                         "stages": timing["k8_stages"]}}
+
+
+def k8_stages(torch, hc, peaks, g, results):
+    """K8 at each of ResNet-50's 3x3 weight-gradient shapes (B=256, bf16,
+    the ReLU prologue; ``RESNET50_K8_SHAPES``: the four stages at stride 1
+    and the three stride-2 convs), held against its plain version and
+    repeated bit for bit, then timed beside the body it had before (one
+    block a tap, ``c3_wgrad_tap_blocks``, a yardstick no path runs), its
+    bound, the plain version and cuDNN's weight gradient on the prologued
+    input; with the launches a step each shape has, the step's K8 time in
+    both bodies."""
+    bf = torch.bfloat16
+    stages = {}
+    step = {"kernel_ms": 0.0, "parent_ms": 0.0, "library_ms": 0.0,
+            "bound_ms": 0.0}
+    for n, h, w, cin, cout, s, per_step in hc.RESNET50_K8_SHAPES:
+        ho, wo = (h - 1) // s + 1, (w - 1) // s + 1
+        x = torch.randn(n, h, w, cin, generator=g, device="cuda").to(bf)
+        sc = torch.randn(cin, generator=g, device="cuda")
+        sh = torch.randn(cin, generator=g, device="cuda")
+        dy = torch.randn(n, ho, wo, cout, generator=g, device="cuda").to(bf)
+        args = (x, dy, sc, sh, "relu", s)
+        key = f"3x3 {n}x{h}x{w} {cin}->{cout} s{s}"
+        row = {"case": f"k8 {key}", "dtype": "bf16",
+               **conv_plan(hc, n, ho, wo, cin, cout, 3, "bf16", s)}
+        bd = hc.wgrad_bands(n, ho, wo, cin, cout, s)
+        smem = hc._library().paddle_conv3x3_wgrad_tc_smem(
+            bd.band_n, bd.band_h, bd.band_w, s)
+        check(smem == hc.k8_smem_bytes(bd.band_n, bd.band_h, bd.band_w, s),
+              f"K8's shared memory {smem} is not conv.py's k8_smem_bytes")
+        got = hc.c3_wgrad(*args)
+        again = hc.c3_wgrad(*args)
+        parent = hc.c3_wgrad_tap_blocks(*args)
+        ref = hc.c3_wgrad_reference(*args)
+        torch.cuda.synchronize()
+        hold_conv(torch, "wgrad", got, ref, "bf16", row)
+        row["repeat_bit_equal"] = bool(torch.equal(got, again))
+        row["ok"] &= row["repeat_bit_equal"]
+        row["max_abs_err_parent_body"] = float((parent - ref).abs().max())
+        check(row["ok"], f"K8 disagrees with its plain version: {row}")
+        results.append(row)
+        del got, again, parent, ref
+        a_t = hc._prologue(x, sc, sh, "relu").permute(0, 3, 1, 2)
+        dy_t = dy.permute(0, 3, 1, 2)
+        ms = median_ms(lambda: hc.c3_wgrad(*args))
+        parent_ms = median_ms(lambda: hc.c3_wgrad_tap_blocks(*args))
+        lib_ms = median_ms(lambda: torch.nn.grad.conv2d_weight(
+            a_t, (cout, cin, 3, 3), dy_t, stride=s, padding=1))
+        plain_ms = median_ms(lambda: hc.c3_wgrad_reference(*args), iters=5,
+                             warmup=1)
+        flops = 2 * 9 * n * ho * wo * cin * cout
+        nbytes = (n * h * w * cin + n * ho * wo * cout) * 2 + 2 * cin * 4 + \
+            9 * cin * cout * 4
+        bound, by = conv_bound(peaks, flops, nbytes)
+        stages[key] = {
+            "shape": [n, h, w, cin, cout, 3, s], "launches_per_step": per_step,
+            "kernel_ms": ms, "parent_body_ms": parent_ms,
+            "library_ms": lib_ms, "plain_ms": plain_ms, "flops": flops,
+            "bytes": nbytes, "bound_ms": bound, "bound_by": by,
+            "tflops": flops / ms / 1e9, "bands": row["wgrad_bands"]}
+        for k_, v_ in (("kernel_ms", ms), ("parent_ms", parent_ms),
+                       ("library_ms", lib_ms), ("bound_ms", bound)):
+            step[k_] += per_step * v_
+        del x, dy, a_t, dy_t, args
+        torch.cuda.empty_cache()
+    return {"shapes": stages, "per_step": step,
+            "library": "torch.nn.grad.conv2d_weight (cuDNN, channels-last "
+                       "bf16) on the prologued input"}
 
 
 RESNET_LAUNCHES = {"mm": 72, "mm_wgrad": 36, "c3": 32, "c3_wgrad": 16}
@@ -3372,7 +3797,7 @@ def timed_steps(torch, run, warmup, timed):
 ERNIE_FORMS = (
     # form, max positions, batch, seq, warm-up, timed, attention forms
     ("bench_s512", 512, 64, 512, 2, 8, ("flash_packed_fwd_tc",
-                                        "flash_packed_bwd")),
+                                        "flash_packed_bwd_tc")),
     ("long_s2048", 2048, 16, 2048, 2, 8, ("flash_packed_fwd_stream_tc",
                                           "flash_packed_bwd_dq_tc",
                                           "flash_packed_bwd_dkv_tc")),
@@ -3620,7 +4045,7 @@ def phase_train_bert_dropout_bf16(torch, np, hfa, hfp, peaks,
     check(all(a != b for a, b in zip(losses, rate0)),
           f"dropout left the losses as at rate 0: {row}")
     check_launches(launches, {"flash_packed_fwd_tc": n,
-                              "flash_packed_bwd": n},
+                              "flash_packed_bwd_tc": n},
                    "BERT with dropout")
     return launches, row
 
@@ -3843,6 +4268,8 @@ def main() -> int:
     worst_drop = {**worst_d1, **worst_d4, **worst_ds}
     worst_k9, k9_launches, timing_k9 = phase_kernel_fused_matmul_bn(
         torch, fmb, peaks)
+    worst_f16, timing_f16 = phase_kernel_float16(torch, np, hfa, hfp, hc,
+                                                 fmb, peaks)
     # no model path calls K9: from here on its count must stay 0
     fmb.fused_matmul_bn_fwd.launches = 0
     # the GPT and BERT paths launch no conv kernel: the counts run from here
@@ -3994,30 +4421,34 @@ def main() -> int:
     kernels = []
     for name, source, line, t, err, launches in (
             ("flash_fwd_tc", "flash_fwd_tc.cu", fa + "224 (_fwd_kernel, "
-             "launched by _fwd at :404; bf16)", timing["flash_fwd_tc"],
+             "launched by _fwd at :404; bf16 and float16)",
+             timing["flash_fwd_tc"],
              worst["flash_fwd_tc"], serve_launches["flash_fwd_tc"]),
             ("flash_fwd", "flash_fwd.cu", fa + "224 (_fwd_kernel, launched "
              "by _fwd at :404; float32)", timing["flash_fwd"],
              worst["flash_fwd"], f32_serve_launches["flash_fwd"]),
             ("flash_bwd_dq_tc", "flash_bwd_tc.cu", fa + "431 "
-             "(_bwd_dq_kernel, launched by _bwd at :628; bf16 at D = 64 "
-             "and 128)", timing_bwd["flash_bwd_dq_tc"],
+             "(_bwd_dq_kernel, launched by _bwd at :628; bf16 and float16 "
+             "at D = 64 and 128)", timing_bwd["flash_bwd_dq_tc"],
              worst_bwd["flash_bwd_dq_tc"], train_launches["flash_bwd_dq_tc"]),
             ("flash_bwd_dq", "flash_bwd.cu", fa + "431 (_bwd_dq_kernel, "
-             "launched by _bwd at :628; float32, and bf16 at D = 256)",
+             "launched by _bwd at :628; float32, and bf16 and float16 at "
+             "D = 256)",
              timing_bwd["flash_bwd_dq"], worst_bwd["flash_bwd_dq"],
              f32_gpt_launches["flash_bwd_dq"]),
             ("flash_bwd_dkv_tc", "flash_bwd_tc.cu", fa + "502 "
-             "(_bwd_dkv_kernel, launched by _bwd at :736; bf16 at D = 64 "
-             "and 128)", timing_bwd["flash_bwd_dkv_tc"],
+             "(_bwd_dkv_kernel, launched by _bwd at :736; bf16 and float16 "
+             "at D = 64 and 128)", timing_bwd["flash_bwd_dkv_tc"],
              worst_bwd["flash_bwd_dkv_tc"],
              train_launches["flash_bwd_dkv_tc"]),
             ("flash_bwd_dkv", "flash_bwd.cu", fa + "502 (_bwd_dkv_kernel, "
-             "launched by _bwd at :736; float32, and bf16 at D = 256)",
+             "launched by _bwd at :736; float32, and bf16 and float16 at "
+             "D = 256)",
              timing_bwd["flash_bwd_dkv"], worst_bwd["flash_bwd_dkv"],
              f32_gpt_launches["flash_bwd_dkv"]),
             ("flash_packed_fwd_tc", "flash_packed_tc.cu", fp + "165 "
-             "(_fwd_kernel_direct, launched by _fwd at :238; bf16)",
+             "(_fwd_kernel_direct, launched by _fwd at :238; bf16 and "
+             "float16)",
              timing_packed["flash_packed_fwd_tc"],
              worst_packed["flash_packed_fwd_tc"],
              bert_launches["flash_packed_fwd_tc"]),
@@ -4026,11 +4457,16 @@ def main() -> int:
              timing_packed["flash_packed_fwd"],
              worst_packed["flash_packed_fwd"],
              f32_bert_launches["flash_packed_fwd"]),
+            ("flash_packed_bwd_tc", "flash_bwd_tc.cu", fp + "448 "
+             "(_bwd_fused_kernel, launched by _bwd at :544; bf16 and "
+             "float16)", timing_packed["flash_packed_bwd_tc"],
+             worst_packed["flash_packed_bwd_tc"],
+             bert_launches["flash_packed_bwd_tc"]),
             ("flash_packed_bwd", "flash_packed.cu", fp + "448 "
-             "(_bwd_fused_kernel, launched by _bwd at :544)",
+             "(_bwd_fused_kernel, launched by _bwd at :544; float32)",
              timing_packed["flash_packed_bwd"],
              worst_packed["flash_packed_bwd"],
-             bert_launches["flash_packed_bwd"]),
+             f32_bert_launches["flash_packed_bwd"]),
             ("mm", "conv.cu", fc + "142 (_mm_kernel, launched by _mm at "
              ":186; also the 1x1 dgrad at :531)", timing_conv["mm"],
              worst_conv["mm"], resnet_launches["mm"]),
@@ -4044,8 +4480,9 @@ def main() -> int:
              "by _c3_wgrad at :441)", timing_conv["c3_wgrad"],
              worst_conv["c3_wgrad"], resnet_launches["c3_wgrad"]),
             ("flash_packed_fwd_stream_tc", "flash_fwd_tc.cu", fp + "102 "
-             "(_fwd_kernel, launched by _fwd at :267; bf16, K1's body at "
-             "D = 64)", timing_stream["flash_packed_fwd_stream_tc"],
+             "(_fwd_kernel, launched by _fwd at :267; bf16 and float16, "
+             "K1's body at D = 64)",
+             timing_stream["flash_packed_fwd_stream_tc"],
              worst_stream["flash_packed_fwd_stream_tc"],
              ernie_launches["flash_packed_fwd_stream_tc"]),
             ("flash_packed_fwd_stream", "flash_packed_stream.cu", fp + "102 "
@@ -4054,7 +4491,8 @@ def main() -> int:
              worst_stream["flash_packed_fwd_stream"],
              f32_ernie_launches["flash_packed_fwd_stream"]),
             ("flash_packed_bwd_dq_tc", "flash_bwd_tc.cu", fp + "297 "
-             "(_bwd_dq_kernel, launched by _bwd at :582; bf16)",
+             "(_bwd_dq_kernel, launched by _bwd at :582; bf16 and "
+             "float16)",
              timing_stream["flash_packed_bwd_dq_tc"],
              worst_stream["flash_packed_bwd_dq_tc"],
              ernie_launches["flash_packed_bwd_dq_tc"]),
@@ -4064,7 +4502,8 @@ def main() -> int:
              worst_stream["flash_packed_bwd_dq"],
              f32_ernie_launches["flash_packed_bwd_dq"]),
             ("flash_packed_bwd_dkv_tc", "flash_bwd_tc.cu", fp + "348 "
-             "(_bwd_dkv_kernel, launched by _bwd at :652; bf16)",
+             "(_bwd_dkv_kernel, launched by _bwd at :652; bf16 and "
+             "float16)",
              timing_stream["flash_packed_bwd_dkv_tc"],
              worst_stream["flash_packed_bwd_dkv_tc"],
              ernie_launches["flash_packed_bwd_dkv_tc"]),
@@ -4103,6 +4542,19 @@ def main() -> int:
                 k: t["d256_bf16"][k] for k in (
                     "shape", "kernel_ms", "plain_ms", "library_ms",
                     "bound_ms", "bound_by", "tflops")}
+        if name in timing_f16 or name in worst_f16:
+            # float16 (kernel_float16): the largest error against the plain
+            # version, and the tensor-core body's time beside bf16's
+            kernels[-1]["float16"] = {"max_abs_err": worst_f16.get(name),
+                                      **timing_f16.get(name, {})}
+        if "stages" in t:
+            # K8 at each of ResNet-50's 3x3 weight-gradient shapes, beside
+            # the body it had before
+            kernels[-1]["stages"] = t["stages"]
+        if name == "flash_packed_bwd_tc":
+            kernels[-1].update({k: t[k] for k in (
+                "cuda_core_bf16_ms", "two_body_ms", "repeat_bit_equal",
+                "cluster_blocks")})
         if "train_shape" in t:
             # K1's tensor-core body at the GPT training shape (B=4) too
             kernels[-1]["train_shape"] = {
@@ -4140,7 +4592,8 @@ def main() -> int:
         "ms": timing_k9["kernel_ms"], "kernel_ms": timing_k9["kernel_ms"],
         "plain_ms": timing_k9["plain_ms"], "bound_ms": timing_k9["bound_ms"],
         "bound_by": timing_k9["bound_by"],
-        "library_ms": timing_k9["library_ms"]})
+        "library_ms": timing_k9["library_ms"],
+        "float16": {"max_abs_err": worst_f16.get("fused_matmul_bn_fwd")}})
     emit({"kernels": kernels})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

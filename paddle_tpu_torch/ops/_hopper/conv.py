@@ -15,7 +15,11 @@ OIHW weights.
 - :func:`c3` (K7): the NHWC 3x3 conv with zero padding 1 (the prologue
   masked to the image), stride 1 or 2, plus the stats; also the 3x3 input
   gradient, at stride 1 on the zero-dilated dy with rotated taps.
-- :func:`c3_wgrad` (K8): per-tap ``aᵀ @ dy`` as ``[9, C, K]`` f32.
+- :func:`c3_wgrad` (K8): per-tap ``aᵀ @ dy`` as ``[9, C, K]`` f32; in 16
+  bits one block holds all nine taps of its channel tile and walks bands of
+  output rows (:func:`wgrad_bands`), as ``_c3_wgrad_kernel`` does;
+  :func:`c3_wgrad_tap_blocks` is the body it had before (one block a tap),
+  kept as a yardstick that no path runs.
 - :func:`conv2d_fwd`, :func:`conv2d_dgrad`, :func:`conv2d_wgrad`: the
   host entries, with JAX's signatures (less the TPU's block sizes and
   ``interpret``); :func:`conv2d`, the differentiable conv with no prologue.
@@ -23,8 +27,10 @@ OIHW weights.
   and :func:`dgrad_operands`, the operands the host entries hand to the
   kernels.
 
-The prologue rounds where the TPU kernels round: scale and shift to x's
-type, then the product, then the sum, then ReLU. The stats come from the f32
+The kernels take float32 (CUDA cores), bf16 and float16 (tensor cores), as
+JAX's ``supports`` takes any floating dtype. The prologue rounds where the
+TPU kernels round, in x's type: scale and shift to it, then the product,
+then the sum, then ReLU. The stats come from the f32
 accumulator before y is rounded (the library route takes them from the
 rounded y; in float32 the two agree).
 
@@ -47,7 +53,7 @@ cache are not ported yet (ROADMAP Queue 1).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as TF
@@ -55,8 +61,10 @@ import torch.nn.functional as TF
 __all__ = ["conv2d", "conv2d_fwd", "conv2d_dgrad", "conv2d_wgrad",
            "supports", "pallas_conv_enabled", "mm", "mm_reference",
            "mm_wgrad", "mm_wgrad_reference", "c3", "c3_reference",
-           "c3_wgrad", "c3_wgrad_reference", "fwd_weight", "dgrad_operands",
-           "RESNET50_TOP3_SHAPES"]
+           "c3_wgrad", "c3_wgrad_reference", "c3_wgrad_tap_blocks",
+           "wgrad_bands", "WgradBands", "band_box", "fwd_weight",
+           "dgrad_operands",
+           "RESNET50_TOP3_SHAPES", "RESNET50_K8_SHAPES"]
 
 # The JAX package's per-shape A/B shapes (conv.py:72-76): (kind, n, h, w,
 # cin, cout, stride)
@@ -66,12 +74,35 @@ RESNET50_TOP3_SHAPES = (
     ("conv3x3", 256, 56, 56, 64, 64, 1),
 )
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: ResNet-50's 3x3 weight gradients at B = 256 (NHWC 224^2 input,
+#: space-to-depth stem): (n, h, w, cin, cout, stride, launches a step), 16
+#: launches in all, each 5.9e10 FLOPs
+RESNET50_K8_SHAPES = (
+    (256, 56, 56, 64, 64, 1, 3),
+    (256, 56, 56, 128, 128, 2, 1),
+    (256, 28, 28, 128, 128, 1, 3),
+    (256, 28, 28, 256, 256, 2, 1),
+    (256, 14, 14, 256, 256, 1, 5),
+    (256, 14, 14, 512, 512, 2, 1),
+    (256, 7, 7, 512, 512, 1, 2),
+)
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _FWD_ROWS = 128        # rows of a K5/K7 block (kBM in csrc/conv.cu)
 _REDUCE_CHUNK = 256    # rows one reduce pass sums (kReduceChunk)
 _WGRAD_STEP = 32       # rows a K6/K8 split is a multiple of (kTK)
 _WGRAD_BLOCKS = 1024   # about this many K6/K8 blocks, by splitting M
 _WGRAD_MIN_ROWS = 512  # but no split shorter than this
+# K8's 16-bit body (conv3x3_wgrad_tc_kernel): a block's channel tile, the
+# output pixels a band may hold, the widest band, the shared memory kept
+# for two band buffers, and the blocks it aims at (at most two waves of 132
+# SMs at one block an SM: a third, mostly idle wave cost the 512-channel
+# shapes a fifth)
+_K8_TILE = 64
+_K8_MAX_PIX = 256
+_K8_MAX_BAND_W = 64
+_K8_SMEM = 200 * 1024
+_K8_BLOCKS = 2 * 132
 
 
 def pallas_conv_enabled() -> bool:
@@ -208,6 +239,8 @@ def c3_wgrad_reference(x, dy, scale=None, shift=None, act: str = "none",
 # pointers, then the ints of the C entries, then the stream
 _FWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
 _WGRAD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+_WGRAD_TC_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 15 + \
+    [ctypes.c_void_p]
 
 
 def _library():
@@ -220,6 +253,10 @@ def _library():
         lib.paddle_conv_fwd.restype = ctypes.c_int
         lib.paddle_conv_wgrad.argtypes = _WGRAD_ARGS
         lib.paddle_conv_wgrad.restype = ctypes.c_int
+        lib.paddle_conv3x3_wgrad_tc.argtypes = _WGRAD_TC_ARGS
+        lib.paddle_conv3x3_wgrad_tc.restype = ctypes.c_int
+        lib.paddle_conv3x3_wgrad_tc_smem.argtypes = [ctypes.c_int] * 4
+        lib.paddle_conv3x3_wgrad_tc_smem.restype = ctypes.c_int
         lib.paddle_cuda_error_string.argtypes = [ctypes.c_int]
         lib.paddle_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -233,8 +270,8 @@ def _check(what: str, x, others: Sequence, scale, shift) -> None:
     """Raise unless the kernel can take these tensors: checked before any
     pointer reaches it."""
     if x.dtype not in _DTYPE_CODE:
-        raise ValueError(f"{what}: dtype {x.dtype} is not float32 or "
-                         f"bfloat16")
+        raise ValueError(f"{what}: dtype {x.dtype} is not float32, bfloat16 "
+                         f"or float16")
     for name, t in (("x", x), *others):
         if t.dtype != x.dtype or t.device != x.device or \
                 not t.is_contiguous():
@@ -307,6 +344,103 @@ def wgrad_splits(m: int, tiles: int) -> Tuple[int, int]:
     rows = -(-m // splits)
     rows = -(-rows // _WGRAD_STEP) * _WGRAD_STEP
     return -(-m // rows), rows
+
+
+class WgradBands(NamedTuple):
+    """K8's cut of the output pixels (16-bit body): bands of ``band_n``
+    images x ``band_h`` output rows x ``band_w`` columns (``band_n`` > 1
+    only for whole images), ``n_bn`` across the batch, ``n_bh`` down and
+    ``n_bw`` across each image, in that order; split z walks bands ``[z *
+    per_split, (z + 1) * per_split)`` of the ``bands``, ``splits`` in
+    all."""
+    band_n: int
+    band_h: int
+    band_w: int
+    n_bn: int
+    n_bh: int
+    n_bw: int
+    bands: int
+    per_split: int
+    splits: int
+
+
+def k8_smem_bytes(band_n: int, band_h: int, band_w: int,
+                  stride: int) -> int:
+    """Shared memory of a K8 block (``band_smem_bytes`` in conv.cu): two
+    buffers of the band's x windows and dy rows, 72 16-bit values a pixel,
+    and the prologue's scale and shift (f32 and as packed pairs)."""
+    win = ((band_h - 1) * stride + 3) * ((band_w - 1) * stride + 3)
+    rows = -(-band_n * band_h * band_w // 16) * 16
+    return 2 * 2 * (band_n * win + rows) * 72 + 2 * 64 * 4 + 64 * 4
+
+
+def wgrad_bands(n: int, ho: int, wo: int, c: int, k: int,
+                stride: int) -> WgradBands:
+    """K8's bands and split for dy ``[n, ho, wo, k]`` of x with ``c``
+    channels, a function of the shape only. A band is up to 64 output
+    columns and as many whole rows as keep it within 256 pixels (four rows
+    at 56², nine at 28²), or as many whole images (five 7² images), fewer
+    where the two buffers would pass 200 KB; the split gives about two
+    waves of blocks over the channel tiles (no more), each split the same
+    number of consecutive bands."""
+    band_w = min(wo, _K8_MAX_BAND_W)
+    band_h = max(1, min(ho, _K8_MAX_PIX // band_w))
+
+    def fits(bn, bh, bw):
+        return k8_smem_bytes(bn, bh, bw, stride) <= _K8_SMEM
+
+    while band_h > 1 and not fits(1, band_h, band_w):
+        band_h -= 1
+    while band_w > 1 and not fits(1, band_h, band_w):
+        band_w -= 1
+    band_n = 1
+    if band_h == ho and band_w == wo:
+        band_n = max(1, min(n, _K8_MAX_PIX // (ho * wo)))
+        while band_n > 1 and not fits(band_n, band_h, band_w):
+            band_n -= 1
+    n_bn, n_bh, n_bw = -(-n // band_n), -(-ho // band_h), -(-wo // band_w)
+    bands = n_bn * n_bh * n_bw
+    tiles = -(-c // _K8_TILE) * -(-k // _K8_TILE)
+    splits = max(1, min(bands, _K8_BLOCKS // tiles, 65535))
+    per_split = -(-bands // splits)
+    return WgradBands(band_n, band_h, band_w, n_bn, n_bh, n_bw, bands,
+                      per_split, -(-bands // per_split))
+
+
+def band_box(bands: WgradBands, n: int, ho: int, wo: int, band: int):
+    """Band ``band``'s output pixels as the kernel finds them (``band_of``
+    in conv.cu): ``(first image, images, first row, rows, first column,
+    columns)``, walked image by image, then row by row."""
+    per_n = bands.n_bh * bands.n_bw
+    bn, rem = divmod(band, per_n)
+    hb, wb = divmod(rem, bands.n_bw)
+    n0, h0, w0 = bn * bands.band_n, hb * bands.band_h, wb * bands.band_w
+    return (n0, min(bands.band_n, n - n0), h0, min(bands.band_h, ho - h0),
+            w0, min(bands.band_w, wo - w0))
+
+
+def _wgrad_tc_launch(lib, what, x, dy, scale, shift, act, stride):
+    """K8's 16-bit body: ``[9, C, K]`` float32."""
+    _check(what, x, (("dy", dy),), scale, shift)
+    n, h, w, c = x.shape
+    _, ho, wo, k = dy.shape
+    if dy.shape[0] != n:
+        raise ValueError(f"{what}: dy {tuple(dy.shape)} and x "
+                         f"{tuple(x.shape)} differ in batch")
+    bd = wgrad_bands(n, ho, wo, c, k, stride)
+    dw = torch.empty((9, c, k), dtype=torch.float32, device=x.device)
+    partial = tmp = None
+    if bd.splits > 1:
+        partial = torch.empty((bd.splits, 9 * c * k), dtype=torch.float32,
+                              device=x.device)
+        tmp = torch.empty((-(-bd.splits // _REDUCE_CHUNK), 9 * c * k),
+                          dtype=torch.float32, device=x.device)
+    _run(lib, lib.paddle_conv3x3_wgrad_tc, what, x, x.data_ptr(),
+         dy.data_ptr(), _ptr(scale), _ptr(shift), dw.data_ptr(),
+         _ptr(partial), _ptr(tmp), n, h, w, c, ho, wo, k, stride,
+         int(act == "relu"), bd.band_n, bd.band_h, bd.band_w, bd.per_split,
+         bd.splits, _DTYPE_CODE[x.dtype])
+    return dw
 
 
 def _wgrad_launch(lib, what, x, dy, scale, shift, act, stride, pad, taps):
@@ -402,14 +536,35 @@ def c3_wgrad(x, dy, scale=None, shift=None, act: str = "none",
              stride: int = 1):
     """K8 (``_c3_wgrad``): ``[9, C, K]`` float32 weight gradient of the 3x3
     conv of x (zero padding 1, the prologue recomputed and masked) giving
-    ``dy [N, Ho, Wo, K]``."""
+    ``dy [N, Ho, Wo, K]``. bf16 and float16 run the nine-tap body on the
+    tensor cores (``paddle_conv3x3_wgrad_tc``), float32 the CUDA-core
+    body."""
     act = _act(act)
     if _device(x, dy, scale, shift).type == "cpu":
         return c3_wgrad_reference(x, dy, scale, shift, act, stride)
-    dw = _wgrad_launch(_library(), "c3_wgrad (K8)", x, dy, scale, shift,
-                       act, stride, 1, 9)
+    if x.dtype in (torch.bfloat16, torch.float16):
+        dw = _wgrad_tc_launch(_library(), "c3_wgrad (K8)", x, dy, scale,
+                              shift, act, stride)
+    else:
+        dw = _wgrad_launch(_library(), "c3_wgrad (K8)", x, dy, scale, shift,
+                           act, stride, 1, 9)
     c3_wgrad.launches += 1
     return dw
+
+
+def c3_wgrad_tap_blocks(x, dy, scale=None, shift=None, act: str = "none",
+                        stride: int = 1):
+    """K8's bf16 body before the nine-tap one (a block per tap, split-K over
+    rows), as a yardstick: ``chip_smoke.py`` times it beside
+    :func:`c3_wgrad`; no path runs it, and it counts no launch. Takes
+    CUDA tensors in bfloat16 (and float32, K8's own CUDA-core body)."""
+    act = _act(act)
+    if _device(x, dy, scale, shift).type != "cuda" or \
+            x.dtype == torch.float16:
+        raise ValueError("c3_wgrad_tap_blocks takes bfloat16 or float32 "
+                         "CUDA tensors")
+    return _wgrad_launch(_library(), "c3_wgrad_tap_blocks", x, dy, scale,
+                         shift, act, stride, 1, 9)
 
 
 #: kernel launches since each count was last set to 0 (CUDA path only)

@@ -42,38 +42,55 @@
 //   802,816, K = 64, against 103 MB of y.
 // - Weight gradients: the sum runs over M (up to 802,816 rows) while dw has
 //   only Cin x Cout (x 9) entries, so one block per output tile would leave
-//   most of the 132 SMs idle. K6/K8 split M into S ranges (split-K): the
-//   wrapper picks S so that about 1,024 blocks run, each block writes an f32
-//   partial dw of its range, and reduce_rows_kernel sums the S partials in a
-//   fixed order. The split costs 8 * S * Cin * Cout (* 9) bytes written and
-//   read: 19 MB for the 3x3 64 -> 64 conv at 56^2 (S = 128), against 411 MB
-//   of x and dy read.
+//   most of the 132 SMs idle. K6/K8 split M into S ranges (split-K), each
+//   block writes an f32 partial dw of its range, and reduce_rows_kernel sums
+//   the S partials in a fixed order. K6 picks S so that about 1,024 blocks
+//   run; K8 (16-bit) cuts M into bands of whole output rows and S so that
+//   about two waves of 132 blocks run (conv.py's wgrad_bands). The split
+//   costs 8 * S * Cin * Cout (* 9) bytes written and read: 38 MB for the 3x3
+//   64 -> 64 conv at 56^2 (S = 256), against 206 MB of x and dy read.
 //
 // Design. Each kernel is a tiled implicit GEMM, one body per kind shared by
 // its 1x1 and 3x3 forms (TAPS = 1 or 9). K5/K7: a block of 256 threads owns
 // 128 output rows x 64 output channels and walks the taps and the input
 // channels, loading the A tile (prologue applied, padding zeroed) and the
 // weight tile into shared memory while the next tiles' global loads are in
-// flight. K6/K8: a block owns 64 input channels of one tap x 64 output
-// channels and walks its range of rows. Sizes need not be multiples of the
-// tiles: ragged edges are masked. In bf16 (the training path) the products
-// run on the tensor cores, mma.sync m16n8k16 with f32 accumulation, 32
-// channels or rows a step in bf16 tiles; in f32 they run on the CUDA cores
-// (FMA, each thread 8 x 4 or 4 x 4 outputs, 16 a step), as K1-K4 do.
+// flight. K6 (and K8 in f32): a block owns 64 input channels of one tap x
+// 64 output channels and walks its range of rows. K8 in 16 bits
+// (conv3x3_wgrad_tc_kernel, below) is shaped like _c3_wgrad_kernel: a block
+// owns 64 x 64 channels of all nine taps and walks bands of whole output
+// rows, loading each band's x window once with its halo, applying the
+// prologue once per element, and taking the nine taps' A operands from the
+// one window by ldmatrix.trans at each tap's pixel offset (its note says
+// why the band and the split are what they are). Sizes need not be
+// multiples of the tiles: ragged edges are masked. In bf16 and float16 (the
+// training path) the products run on the tensor cores, mma.sync m16n8k16
+// with f32 accumulation, 32 channels or rows a step in 16-bit tiles, of
+// either type (mma.cuh's trait: the prologue rounds to x's type, as the TPU
+// kernel rounds in x.dtype); in f32 they run on the CUDA cores (FMA, each
+// thread 8 x 4 or 4 x 4 outputs, 16 a step), as K1-K4 do.
 //
 // What bounds them on an H100. At ResNet-50's 56 x 56 shapes at B = 256 in
 // bf16 (chip_smoke.py times them): K5 256 -> 64 reads x (411 MB) and writes
 // y (103 MB) for 2.6e10 FLOPs: bytes bound it (0.153 ms at 3.35 TB/s); K7
 // 64 -> 64 moves 206 MB for 5.9e10 FLOPs, bytes first with the FLOPs close
-// (0.061 against 0.060 ms at 989 TFLOP/s). mma.sync from shared memory,
-// without ldmatrix, asynchronous copies or TMA, stays far from both; their
-// times stand in PERF.md. wgmma fed by TMA is a later change's work.
+// (0.061 against 0.060 ms at 989 TFLOP/s); K8 64 -> 64 the same bytes and
+// FLOPs (0.061 ms). K5-K7 and K6 feed mma.sync from shared memory without
+// ldmatrix or asynchronous copies and stay far from both. K8's nine-tap body
+// reads, per 16 output pixels and warp, 4 ldmatrix of dy and 3 of a for 24
+// products: shared-memory reads, the mma.sync issue rate and the phases a
+// band runs in turn (copies, the prologue, the products), not the bytes,
+// bound it. Their times stand in PERF.md. wgmma fed by TMA is a later
+// change's work.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <type_traits>
+
+#include "mma.cuh"
 
 namespace {
 
@@ -115,6 +132,7 @@ __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float v);
@@ -125,6 +143,10 @@ __device__ __forceinline__ float from_float<float>(float v) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float v) {
+  return __float2half(v);
 }
 
 // v rounded to T and back: the points where the TPU kernels cast
@@ -184,15 +206,7 @@ __device__ __forceinline__ float load_a(const ConvParams& p, const T* x,
   return prologue<T, RELU>(v, __ldg(p.scale + c), __ldg(p.shift + c));
 }
 
-// Two values (bf16-exact) as one 32-bit register of a bf16 pair, the first in
-// the low half, as mma.sync takes them
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(lo))) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(hi)))
-          << 16);
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
+__device__ __forceinline__ uint32_t lds32(const void* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
@@ -202,60 +216,46 @@ __device__ __forceinline__ bool vec8(const void* base, int row_len) {
   return row_len % 8 == 0 && (reinterpret_cast<uintptr_t>(base) & 15) == 0;
 }
 
-// The 8 bf16 at base + off (a multiple of 8 elements), as packed pairs
-__device__ __forceinline__ uint4 ld8(const __nv_bfloat16* base,
-                                     long long off) {
+// The 8 16-bit values at base + off (a multiple of 8 elements), as packed
+// pairs
+template <typename T>
+__device__ __forceinline__ uint4 ld8(const T* base, long long off) {
   return __ldg(reinterpret_cast<const uint4*>(base + off));
 }
 
-__device__ __forceinline__ float bf16_lo(uint32_t w) {
-  return __uint_as_float(w << 16);
-}
-__device__ __forceinline__ float bf16_hi(uint32_t w) {
-  return __uint_as_float(w & 0xffff0000u);
-}
-
-// a[pixel, c .. c + 7] in f32 (c a multiple of 8): one 16-byte load where
-// the 8 channels lie inside x and vec holds (see vec8), else load_a's
-template <bool PRO, bool RELU>
-__device__ __forceinline__ void load_a8(const ConvParams& p,
-                                        const __nv_bfloat16* x, long long pix,
-                                        int c, bool vec, float (&v)[8]) {
+// a[pixel, c .. c + 7] in f32 (c a multiple of 8) of a 16-bit x: one 16-byte
+// load where the 8 channels lie inside x and vec holds (see vec8), else
+// load_a's
+template <typename T, bool PRO, bool RELU>
+__device__ __forceinline__ void load_a8(const ConvParams& p, const T* x,
+                                        long long pix, int c, bool vec,
+                                        float (&v)[8]) {
   if (vec && pix >= 0 && c + 8 <= p.C) {
     const uint4 u = ld8(x, pix + c);
     const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      v[2 * i] = bf16_lo(w[i]);
-      v[2 * i + 1] = bf16_hi(w[i]);
+      const float2 f = unpack2<T>(w[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
     }
     if (PRO) {
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        v[j] = prologue<__nv_bfloat16, RELU>(v[j], __ldg(p.scale + c + j),
-                                             __ldg(p.shift + c + j));
+        v[j] = prologue<T, RELU>(v[j], __ldg(p.scale + c + j),
+                                 __ldg(p.shift + c + j));
     }
     return;
   }
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
-    v[j] = load_a<__nv_bfloat16, PRO, RELU>(p, x, pix, c + j);
+  for (int j = 0; j < 8; ++j) v[j] = load_a<T, PRO, RELU>(p, x, pix, c + j);
 }
 
-// d += a b on the tensor cores: one m16n8k16 product of bf16 tiles with f32
-// accumulation, in the PTX ISA's fragment layout (lane = 4 g + t):
+// The products run mma.cuh's mma_16816<T> (m16n8k16, f32 accumulation), in
+// the PTX ISA's fragment layout (lane = 4 g + t):
 // a = {A[g][2t, 2t+1], A[g+8][2t, 2t+1], A[g][2t+8, 2t+9], A[g+8][2t+8, 2t+9]},
 // b = {B[2t, 2t+1][g], B[2t+8, 2t+9][g]},
 // d = {D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1]}
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
-                                               const uint32_t (&a)[4],
-                                               const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // ---------------------------------------------------------------------------
 // K5 / K7: y = a @ wt over the taps, with the stats epilogue
@@ -388,14 +388,14 @@ __device__ __forceinline__ void conv_fwd_body(const ConvParams& p) {
 // The stats sum each column over the warp's rows by a butterfly of
 // shuffles (every lane ends with the same bits) and over the 4 row warps in
 // order, so they repeat bit for bit.
-template <int TAPS, bool PRO, bool RELU, bool STATS>
+template <typename T, int TAPS, bool PRO, bool RELU, bool STATS>
 __device__ __forceinline__ void conv_fwd_body_tc(const ConvParams& p) {
-  using bf16 = __nv_bfloat16;
-  __shared__ __align__(16) bf16 As[kBM][kLdT];   // a: [row][c]
-  __shared__ __align__(16) bf16 Bs[kBN][kLdT];   // wt, transposed: [k][c]
+  // the tiles hold T's 16-bit values
+  __shared__ __align__(16) unsigned short As[kBM][kLdT];   // a: [row][c]
+  __shared__ __align__(16) unsigned short Bs[kBN][kLdT];   // wt^T: [k][c]
   __shared__ float red[2][4][kBN];               // stats across row warps
-  const bf16* x = static_cast<const bf16*>(p.x);
-  const bf16* wt = static_cast<const bf16*>(p.w);
+  const T* x = static_cast<const T*>(p.x);
+  const T* wt = static_cast<const T*>(p.w);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -439,10 +439,10 @@ __device__ __forceinline__ void conv_fwd_body_tc(const ConvParams& p) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float v[8];
-      load_a8<PRO, RELU>(p, x, pix, c0 + a_c + 8 * h, vec_x, v);
+      load_a8<T, PRO, RELU>(p, x, pix, c0 + a_c + 8 * h, vec_x, v);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        ra[4 * h + i] = pack_bf16(v[2 * i], v[2 * i + 1]);
+        ra[4 * h + i] = pack2<T>(v[2 * i], v[2 * i + 1]);
     }
     const int c = c0 + b_c;
     const int nb = n0 + b_n;
@@ -458,9 +458,9 @@ __device__ __forceinline__ void conv_fwd_body_tc(const ConvParams& p) {
       for (int i = 0; i < 4; ++i) {
         const int n = nb + 2 * i;
         const bool ok = c < p.C;
-        rb[i] = pack_bf16(ok && n < p.K ? to_float(wt[wrow + n]) : 0.f,
-                          ok && n + 1 < p.K ? to_float(wt[wrow + n + 1])
-                                            : 0.f);
+        rb[i] = pack2<T>(ok && n < p.K ? to_float(wt[wrow + n]) : 0.f,
+                         ok && n + 1 < p.K ? to_float(wt[wrow + n + 1])
+                                           : 0.f);
       }
     }
   };
@@ -470,10 +470,8 @@ __device__ __forceinline__ void conv_fwd_body_tc(const ConvParams& p) {
     dst[1] = make_uint4(ra[4], ra[5], ra[6], ra[7]);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      Bs[b_n + 2 * i][b_c] = __ushort_as_bfloat16(
-          static_cast<unsigned short>(rb[i] & 0xffffu));
-      Bs[b_n + 2 * i + 1][b_c] = __ushort_as_bfloat16(
-          static_cast<unsigned short>(rb[i] >> 16));
+      Bs[b_n + 2 * i][b_c] = static_cast<unsigned short>(rb[i] & 0xffffu);
+      Bs[b_n + 2 * i + 1][b_c] = static_cast<unsigned short>(rb[i] >> 16);
     }
   };
 
@@ -503,7 +501,7 @@ __device__ __forceinline__ void conv_fwd_body_tc(const ConvParams& p) {
       for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
         for (int nj = 0; nj < 4; ++nj)
-          mma_bf16_16816(acc[mi][nj], af[mi], bfr[nj]);
+          mma_16816<T>(acc[mi][nj], af[mi], bfr[nj][0], bfr[nj][1]);
     }
     __syncthreads();
     if (step + 1 < steps) {
@@ -512,7 +510,7 @@ __device__ __forceinline__ void conv_fwd_body_tc(const ConvParams& p) {
     }
   }
 
-  bf16* y = static_cast<bf16*>(p.y);
+  T* y = static_cast<T*>(p.y);
   // a thread's two adjacent output channels go out as one 4-byte store
   const bool pair_y = p.K % 2 == 0 && (reinterpret_cast<uintptr_t>(y) & 3) == 0;
   float s[4][2], ss[4][2];
@@ -531,12 +529,12 @@ __device__ __forceinline__ void conv_fwd_body_tc(const ConvParams& p) {
         const int n = n0 + wn * 32 + nj * 8 + 2 * t;
         const float v0 = acc[mi][nj][2 * h];
         const float v1 = acc[mi][nj][2 * h + 1];
-        bf16* dst = y + static_cast<long long>(m) * p.K + n;
+        T* dst = y + static_cast<long long>(m) * p.K + n;
         if (pair_y && n + 1 < p.K) {
-          *reinterpret_cast<uint32_t*>(dst) = pack_bf16(v0, v1);
+          *reinterpret_cast<uint32_t*>(dst) = pack2<T>(v0, v1);
         } else {
-          if (n < p.K) dst[0] = __float2bfloat16(v0);
-          if (n + 1 < p.K) dst[1] = __float2bfloat16(v1);
+          if (n < p.K) dst[0] = from_float<T>(v0);
+          if (n + 1 < p.K) dst[1] = from_float<T>(v1);
         }
         if (n < p.K) {
           s[nj][0] += v0;
@@ -583,12 +581,12 @@ __device__ __forceinline__ void conv_fwd_body_tc(const ConvParams& p) {
   }
 }
 
-// K5: 1x1 conv as a matmul (and the 1x1 input gradient); bf16 on the
-// tensor cores, f32 on the CUDA cores
+// K5: 1x1 conv as a matmul (and the 1x1 input gradient); bf16 and float16 on
+// the tensor cores, f32 on the CUDA cores
 template <typename T, bool PRO, bool RELU, bool STATS>
 __global__ void __launch_bounds__(kThreads) conv1x1_kernel(ConvParams p) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    conv_fwd_body_tc<1, PRO, RELU, STATS>(p);
+  if constexpr (sizeof(T) == 2)
+    conv_fwd_body_tc<T, 1, PRO, RELU, STATS>(p);
   else
     conv_fwd_body<T, 1, PRO, RELU, STATS>(p);
 }
@@ -597,8 +595,8 @@ __global__ void __launch_bounds__(kThreads) conv1x1_kernel(ConvParams p) {
 // gradient)
 template <typename T, bool PRO, bool RELU, bool STATS>
 __global__ void __launch_bounds__(kThreads) conv3x3_kernel(ConvParams p) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    conv_fwd_body_tc<9, PRO, RELU, STATS>(p);
+  if constexpr (sizeof(T) == 2)
+    conv_fwd_body_tc<T, 9, PRO, RELU, STATS>(p);
   else
     conv_fwd_body<T, 9, PRO, RELU, STATS>(p);
 }
@@ -708,13 +706,12 @@ __device__ __forceinline__ void conv_wgrad_body(const ConvParams& p) {
 // input channels of one tap x 64 output channels, 32 rows a step, a and dy
 // in shared memory in bf16 and transposed (rows along the reduction). The 8
 // warps own 16 channels x 32 output channels each: 4 m16n8 products a k16.
-template <int TAPS, bool PRO, bool RELU>
+template <typename T, int TAPS, bool PRO, bool RELU>
 __device__ __forceinline__ void conv_wgrad_body_tc(const ConvParams& p) {
-  using bf16 = __nv_bfloat16;
-  __shared__ __align__(16) bf16 As[kWM][kLdT];   // a, transposed: [c][row]
-  __shared__ __align__(16) bf16 Bs[kWN][kLdT];   // dy, transposed: [k][row]
-  const bf16* x = static_cast<const bf16*>(p.x);
-  const bf16* dy = static_cast<const bf16*>(p.w);
+  __shared__ __align__(16) T As[kWM][kLdT];   // a, transposed: [c][row]
+  __shared__ __align__(16) T Bs[kWN][kLdT];   // dy, transposed: [k][row]
+  const T* x = static_cast<const T*>(p.x);
+  const T* dy = static_cast<const T*>(p.w);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -749,7 +746,7 @@ __device__ __forceinline__ void conv_wgrad_body_tc(const ConvParams& p) {
     const int m = mb + l_row;
     RowOrigin o = row_origin(p, m);
     o.valid = o.valid && m < m_end;
-    load_a8<PRO, RELU>(p, x, pixel(p, o, dh, dw), c0 + l_c, vec_x, ra);
+    load_a8<T, PRO, RELU>(p, x, pixel(p, o, dh, dw), c0 + l_c, vec_x, ra);
     const bool row_ok = m < m_end;
     const int nb = n0 + l_c;
     const long long off = static_cast<long long>(m) * p.K + nb;
@@ -758,8 +755,9 @@ __device__ __forceinline__ void conv_wgrad_body_tc(const ConvParams& p) {
       const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        rb[2 * i] = bf16_lo(w[i]);
-        rb[2 * i + 1] = bf16_hi(w[i]);
+        const float2 f = unpack2<T>(w[i]);
+        rb[2 * i] = f.x;
+        rb[2 * i + 1] = f.y;
       }
     } else {
 #pragma unroll
@@ -770,8 +768,8 @@ __device__ __forceinline__ void conv_wgrad_body_tc(const ConvParams& p) {
   auto store = [&]() {
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      As[l_c + j][l_row] = __float2bfloat16(ra[j]);
-      Bs[l_c + j][l_row] = __float2bfloat16(rb[j]);
+      As[l_c + j][l_row] = from_float<T>(ra[j]);
+      Bs[l_c + j][l_row] = from_float<T>(rb[j]);
     }
   };
 
@@ -794,7 +792,7 @@ __device__ __forceinline__ void conv_wgrad_body_tc(const ConvParams& p) {
           const int n = wn * 32 + nj * 8 + g;
           const uint32_t bfr[2] = {lds32(&Bs[n][kb + 2 * t]),
                                    lds32(&Bs[n][kb + 2 * t + 8])};
-          mma_bf16_16816(acc[nj], af, bfr);
+          mma_16816<T>(acc[nj], af, bfr[0], bfr[1]);
         }
       }
       __syncthreads();
@@ -823,22 +821,398 @@ __device__ __forceinline__ void conv_wgrad_body_tc(const ConvParams& p) {
   }
 }
 
-// K6: the 1x1 weight gradient; bf16 on the tensor cores
+// K6: the 1x1 weight gradient; bf16 and float16 on the tensor cores
 template <typename T, bool PRO, bool RELU>
 __global__ void __launch_bounds__(kThreads) conv1x1_wgrad_kernel(ConvParams p) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    conv_wgrad_body_tc<1, PRO, RELU>(p);
+  if constexpr (sizeof(T) == 2)
+    conv_wgrad_body_tc<T, 1, PRO, RELU>(p);
   else
     conv_wgrad_body<T, 1, PRO, RELU>(p);
 }
 
-// K8: the 3x3 weight gradient, per tap; bf16 on the tensor cores
+// K8 in float32 (CUDA cores, one block per tap), and in bf16 the body K8 had
+// before conv3x3_wgrad_tc_kernel below (one block per tap on the tensor
+// cores), which chip_smoke.py times beside it and no path runs
 template <typename T, bool PRO, bool RELU>
 __global__ void __launch_bounds__(kThreads) conv3x3_wgrad_kernel(ConvParams p) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    conv_wgrad_body_tc<9, PRO, RELU>(p);
+  if constexpr (sizeof(T) == 2)
+    conv_wgrad_body_tc<T, 9, PRO, RELU>(p);
   else
     conv_wgrad_body<T, 9, PRO, RELU>(p);
+}
+
+// ---------------------------------------------------------------------------
+// K8 on the tensor cores, all nine taps in one block (bf16 and float16)
+// ---------------------------------------------------------------------------
+//
+// A block owns 64 input channels x 64 output channels of dw for all nine
+// taps, [9][64][64] f32 in registers (12 warps: warp w owns channels
+// 16 (w & 3) .. + 15 of taps 3 (w >> 2) .. + 2, the row dh = w >> 2, and
+// all 64 output channels, 96 accumulators a thread), and walks a range of
+// bands. A band is band_n
+// images x band_h output rows x band_w output columns (at most 256 output
+// pixels; band_n > 1 only for whole small images). For each band the block
+// copies the window of x under each of its images, with its halo
+// ((band_h - 1) s + 3 rows x (band_w - 1) s + 3 columns, the padding
+// zero-filled), and the band's dy rows into shared memory by cp.async,
+// applies the prologue once to each x element of the window (padding stays
+// 0, as in _c3_prologue; two channels an instruction, in x's type), and then
+// for each 16 output pixels of the band reads dy's B fragments once and each
+// tap's A fragments (a^T at pixel offset (dh, dw)) by ldmatrix.trans: a lane
+// gives the address of its own pixel, so the tap's gather costs nothing. At
+// stride 2 the window's even and odd columns are kept as two runs, so that
+// the 8 pixels of an ldmatrix read are adjacent in shared memory (distinct
+// banks) for every tap. Two buffers: the next band's copies are in flight
+// during this band's products.
+//
+// Why these sizes. One block runs an SM (its shared memory and
+// registers). 12 warps of 96 accumulators ran 5-15% faster than 8 warps of
+// 144 (all nine taps, 32 output channels a warp) at every ResNet-50 shape,
+// the same ldmatrix reads a step for the block (a warp: 4 of dy, 3 of a,
+// for 24 products) and more warps to hide their latency. The bands are as
+// large as two buffers allow under 200 KB (conv.py's wgrad_bands), which
+// amortises the halo (a 56^2 band of 4 rows reads 6 rows of x) and the
+// per-band barriers over up to 16 steps of 16 pixels; small images go
+// several to a band. The split gives at most two waves of these blocks.
+
+constexpr int kFC = 64;         // input channels of a K8 block
+constexpr int kFK = 64;         // output channels of a K8 block
+constexpr int kFLd = 72;        // padded pixel row in smem, in 16-bit values
+constexpr int kFMaxPix = 256;   // output pixels a band may hold
+
+struct BandParams {
+  int band_n, band_h, band_w;   // images, output rows, columns of a band
+  int n_bn, n_bh, n_bw;         // bands across the batch, down, across
+  int bands;                    // n_bn * n_bh * n_bw
+  int per_split;                // consecutive bands a split walks
+  int win_h, win_w;             // one image's window under a full band
+};
+
+__host__ __device__ constexpr int round16(int v) { return (v + 15) / 16 * 16; }
+
+// one buffer: the windows' pixels, then the band's dy rows, kFLd values each
+__host__ __device__ inline int band_buffer_values(const BandParams& b) {
+  return (b.band_n * b.win_h * b.win_w +
+          round16(b.band_n * b.band_h * b.band_w)) * kFLd;
+}
+
+// two buffers, then the prologue's scale and shift: f32 [64] each and as
+// packed pairs [32] each
+__host__ inline size_t band_smem_bytes(const BandParams& b) {
+  return 2 * sizeof(unsigned short) * band_buffer_values(b) +
+         2 * kFC * sizeof(float) + kFC * sizeof(unsigned);
+}
+
+// smem pixel index of window pixel (r, c): at stride 2 the even columns,
+// then the odd ones, of each window row
+__device__ __forceinline__ int win_index(int r, int c, int win_w, int stride) {
+  return r * win_w + (stride == 2 ? (c & 1) * ((win_w + 1) >> 1) + (c >> 1)
+                                  : c);
+}
+
+// act(w * sc + sh) on a pair of T values, each operation rounded to T (the
+// product of two T values is exact in f32, so one rounding of it equals
+// prologue()'s two), as prologue() computes each. The _rn forms: a plain
+// mul and add of pairs may be contracted into one fma, which rounds once
+// where the TPU kernel rounds twice (a quarter of the values differ).
+template <typename T>
+struct Pair;
+template <>
+struct Pair<__nv_bfloat16> {
+  using type = __nv_bfloat162;
+};
+template <>
+struct Pair<__half> {
+  using type = __half2;
+};
+
+template <typename T, bool RELU>
+__device__ __forceinline__ unsigned prologue2(unsigned w, unsigned sc,
+                                              unsigned sh) {
+  using P = typename Pair<T>::type;
+  P x, a, b;
+  *reinterpret_cast<unsigned*>(&x) = w;
+  *reinterpret_cast<unsigned*>(&a) = sc;
+  *reinterpret_cast<unsigned*>(&b) = sh;
+  P y = __hadd2_rn(__hmul2_rn(x, a), b);
+  if (RELU) {
+    P z;
+    *reinterpret_cast<unsigned*>(&z) = 0u;
+    y = __hmax2(y, z);
+  }
+  return *reinterpret_cast<unsigned*>(&y);
+}
+
+constexpr int kFThreads = 384;   // 12 warps: 3 tap groups x 4 channel tiles
+
+template <typename T, bool PRO, bool RELU>
+__global__ void __launch_bounds__(kFThreads, 1)
+    conv3x3_wgrad_tc_kernel(const ConvParams p, const BandParams bp) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned short* sbuf = reinterpret_cast<unsigned short*>(smem_raw);
+  const int buf_vals = band_buffer_values(bp);
+  float* sScale = reinterpret_cast<float*>(sbuf + 2 * buf_vals);   // [64]
+  float* sShift = sScale + kFC;                                     // [64]
+  unsigned* sSc2 = reinterpret_cast<unsigned*>(sShift + kFC);       // [32]
+  unsigned* sSh2 = sSc2 + kFC / 2;                                  // [32]
+  const T* x = static_cast<const T*>(p.x);
+  const T* dy = static_cast<const T*>(p.w);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int wc = warp & 3;    // channels wc * 16 .. + 15 of the tile
+  const int tg = warp >> 2;   // taps 3 tg .. 3 tg + 2
+  const int c0 = blockIdx.x * kFC;
+  const int k0 = blockIdx.y * kFK;
+  const int s = p.stride;
+  const int img_px = bp.win_h * bp.win_w;   // one image's window
+  const bool vec_x = vec8(x, p.C);
+  const bool vec_dy = vec8(dy, p.K);
+  const int band0 = blockIdx.z * bp.per_split;
+  const int n_bands = max(0, min(bp.bands, band0 + bp.per_split) - band0);
+
+  if (PRO) {
+    for (int i = tid; i < kFC; i += kFThreads) {
+      const bool in = c0 + i < p.C;
+      sScale[i] = in ? p.scale[c0 + i] : 0.f;
+      sShift[i] = in ? p.shift[c0 + i] : 0.f;
+    }
+    for (int i = tid; i < kFC / 2; i += kFThreads) {
+      const int c = c0 + 2 * i;
+      sSc2[i] = pack2<T>(c < p.C ? p.scale[c] : 0.f,
+                         c + 1 < p.C ? p.scale[c + 1] : 0.f);
+      sSh2[i] = pack2<T>(c < p.C ? p.shift[c] : 0.f,
+                         c + 1 < p.C ? p.shift[c + 1] : 0.f);
+    }
+  }
+
+  // band b's first image, row and column, and its size
+  struct Band {
+    int n0, nn, ho0, wo0, bh, bw;
+  };
+  auto band_of = [&](int b) {
+    Band r;
+    const int per_n = bp.n_bh * bp.n_bw;
+    const int bn = b / per_n;
+    const int rem = b - bn * per_n;
+    const int hb = rem / bp.n_bw;
+    r.n0 = bn * bp.band_n;
+    r.nn = min(bp.band_n, p.N - r.n0);
+    r.ho0 = hb * bp.band_h;
+    r.wo0 = (rem - hb * bp.n_bw) * bp.band_w;
+    r.bh = min(bp.band_h, p.Ho - r.ho0);
+    r.bw = min(bp.band_w, p.Wo - r.wo0);
+    return r;
+  };
+  // A thread walks the window pixels tid / 8, then every 32nd (its 8
+  // channels fixed, (tid & 7) * 8), and the dy rows the same way: the
+  // (image, row, column) of each by steps, with no division in the loop.
+  constexpr int kStep = kFThreads / 8;
+  struct Cursor {
+    int ni, r, c;
+  };
+  auto cursor = [&](int i, int cols, int per_img) {
+    Cursor q;
+    q.ni = i / per_img;
+    const int pi = i - q.ni * per_img;
+    q.r = pi / cols;
+    q.c = pi - q.r * cols;
+    return q;
+  };
+  auto advance = [&](Cursor& q, int cols, int rows, int step) {
+    q.c += step;
+    while (q.c >= cols) {
+      q.c -= cols;
+      if (++q.r == rows) {
+        q.r = 0;
+        ++q.ni;
+      }
+    }
+  };
+  // the window pixel at q of band bd: its x offset (elements), or -1
+  // outside x; its smem pixel index
+  auto win_src = [&](const Band& bd, const Cursor& q, int& at) -> long long {
+    at = q.ni * img_px + win_index(q.r, q.c, bp.win_w, s);
+    const int hi = bd.ho0 * s - 1 + q.r;
+    const int wi = bd.wo0 * s - 1 + q.c;
+    if (q.ni >= bd.nn || hi < 0 || hi >= p.H || wi < 0 || wi >= p.W)
+      return -1;
+    return ((static_cast<long long>(bd.n0 + q.ni) * p.H + hi) * p.W + wi) *
+           p.C;
+  };
+  // band bd's x windows and dy rows into buffer buf: cp.async where the rows
+  // allow 16-byte copies (the prologue follows in apply_prologue), else
+  // element by element with the prologue applied here
+  auto load_band = [&](const Band& bd, int buf) {
+    unsigned short* sX = sbuf + buf * buf_vals;
+    unsigned short* sDy = sX + bp.band_n * img_px * kFLd;
+    const int ch = (tid & 7) * 8;
+    Cursor q = cursor(tid >> 3, bp.win_w, img_px);
+    for (int px = tid >> 3; px < bd.nn * img_px;
+         px += kStep, advance(q, bp.win_w, bp.win_h, kStep)) {
+      int at;
+      const long long off = win_src(bd, q, at);
+      unsigned short* dst = sX + at * kFLd + ch;
+      const int cc = c0 + ch;
+      if (vec_x) {
+        const bool in = off >= 0 && cc < p.C;
+        cp_async16(dst, in ? static_cast<const void*>(x + off + cc) : x, in);
+      } else {
+        unsigned w[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int ce = cc + 2 * j + e;
+            v[e] = 0.f;
+            if (off >= 0 && ce < p.C) {
+              v[e] = to_float(x[off + ce]);
+              if (PRO)
+                v[e] = prologue<T, RELU>(v[e], sScale[ce - c0],
+                                         sShift[ce - c0]);
+            }
+          }
+          w[j] = pack2<T>(v[0], v[1]);
+        }
+        *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
+    const int img_rows = bd.bh * bd.bw;
+    const int rows = bd.nn * img_rows;
+    Cursor d = cursor(tid >> 3, bd.bw, img_rows);
+    for (int m = tid >> 3; m < round16(rows);
+         m += kStep, advance(d, bd.bw, bd.bh, kStep)) {
+      unsigned short* dst = sDy + m * kFLd + ch;
+      const int kk = k0 + ch;
+      long long off = -1;
+      if (m < rows)
+        off = ((static_cast<long long>(bd.n0 + d.ni) * p.Ho + bd.ho0 + d.r) *
+                   p.Wo + bd.wo0 + d.c) * p.K;
+      if (vec_dy) {
+        const bool in = off >= 0 && kk < p.K;
+        cp_async16(dst, in ? static_cast<const void*>(dy + off + kk) : dy, in);
+      } else {
+        unsigned w[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int k1 = kk + 2 * j;
+          w[j] = pack2<T>(off >= 0 && k1 < p.K ? to_float(dy[off + k1]) : 0.f,
+                          off >= 0 && k1 + 1 < p.K ? to_float(dy[off + k1 + 1])
+                                                   : 0.f);
+        }
+        *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
+    cp_async_commit();
+  };
+  // the prologue, once per x element of the windows (cp.async path): the
+  // padding and the channels past C stay 0
+  auto apply_prologue = [&](const Band& bd, int buf) {
+    unsigned short* sX = sbuf + buf * buf_vals;
+    const int ch = (tid & 7) * 8;
+    if (c0 + ch >= p.C) return;
+    const int q2 = ch / 2;
+    Cursor q = cursor(tid >> 3, bp.win_w, img_px);
+    for (int px = tid >> 3; px < bd.nn * img_px;
+         px += kStep, advance(q, bp.win_w, bp.win_h, kStep)) {
+      int at;
+      if (win_src(bd, q, at) < 0) continue;
+      uint4* ptr = reinterpret_cast<uint4*>(sX + at * kFLd + ch);
+      const uint4 u = *ptr;
+      *ptr = make_uint4(prologue2<T, RELU>(u.x, sSc2[q2], sSh2[q2]),
+                        prologue2<T, RELU>(u.y, sSc2[q2 + 1], sSh2[q2 + 1]),
+                        prologue2<T, RELU>(u.z, sSc2[q2 + 2], sSh2[q2 + 2]),
+                        prologue2<T, RELU>(u.w, sSc2[q2 + 3], sSh2[q2 + 3]));
+    }
+  };
+
+  float acc[3][8][4];
+#pragma unroll
+  for (int t = 0; t < 3; ++t)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][nt][e] = 0.f;
+
+  // the warp's taps' pixel offsets in the window layout
+  int tap_off[3];
+#pragma unroll
+  for (int t = 0; t < 3; ++t)
+    tap_off[t] = win_index(tg, t, bp.win_w, s);
+
+  if (PRO) __syncthreads();   // the scale and shift tables are whole
+  if (n_bands > 0) load_band(band_of(band0), 0);
+  for (int it = 0; it < n_bands; ++it) {
+    const Band bd = band_of(band0 + it);
+    const int buf = it & 1;
+    cp_async_wait<0>();
+    __syncthreads();   // band it has landed; every warp is done with it - 1
+    if (PRO && vec_x) {
+      apply_prologue(bd, buf);
+      __syncthreads();
+    }
+    if (it + 1 < n_bands) load_band(band_of(band0 + it + 1), buf ^ 1);
+
+    const unsigned short* sX = sbuf + buf * buf_vals;
+    const unsigned short* sDy = sX + bp.band_n * img_px * kFLd;
+    const int img_rows = bd.bh * bd.bw;
+    const int rows = bd.nn * img_rows;
+    // the lane's pixel of the A fragments, 16 further at each step
+    Cursor am = cursor((lane >> 4) * 8 + (lane & 7), bd.bw, img_rows);
+    for (int m0 = 0; m0 < rows; m0 += 16, advance(am, bd.bw, bd.bh, 16)) {
+      // dy's B fragments: 16 pixels x the 64 output channels
+      unsigned bq[4][4];
+#pragma unroll
+      for (int np = 0; np < 4; ++np)
+        ldmatrix_x4_trans(
+            bq[np], sDy + (m0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * kFLd +
+                        np * 16 + (lane >> 4) * 8);
+      // (a row past the band reads pixel 0, finite, against dy's zero
+      // rows)
+      const int base = m0 + (lane >> 4) * 8 + (lane & 7) < rows
+                           ? am.ni * img_px + am.r * s * bp.win_w + am.c
+                           : 0;
+      const unsigned short* arow =
+          sX + base * kFLd + wc * 16 + ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int t = 0; t < 3; ++t) {
+        unsigned a[4];
+        ldmatrix_x4_trans(a, arow + tap_off[t] * kFLd);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+          mma_16816<T>(acc[t][nt], a, bq[nt >> 1][2 * (nt & 1)],
+                       bq[nt >> 1][2 * (nt & 1) + 1]);
+      }
+    }
+  }
+
+  // this split's partial dw: [split][tap][C][K] (dw itself for one split)
+  float* out = static_cast<float*>(p.y) +
+               static_cast<long long>(blockIdx.z) * 9 * p.C * p.K;
+  const bool pair = (p.K & 1) == 0;
+#pragma unroll
+  for (int t = 0; t < 3; ++t)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = c0 + wc * 16 + g + 8 * h;
+      if (c >= p.C) continue;
+      float* row = out + (static_cast<long long>(3 * tg + t) * p.C + c) * p.K;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int n = k0 + nt * 8 + 2 * tq;
+        const float v0 = acc[t][nt][2 * h];
+        const float v1 = acc[t][nt][2 * h + 1];
+        if (pair && n + 1 < p.K) {
+          *reinterpret_cast<float2*>(row + n) = make_float2(v0, v1);
+        } else {
+          if (n < p.K) row[n] = v0;
+          if (n + 1 < p.K) row[n + 1] = v1;
+        }
+      }
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -914,10 +1288,14 @@ template <typename T, bool PRO, bool RELU>
 void launch_wgrad(const ConvParams& p, int taps, int splits,
                   cudaStream_t stream) {
   dim3 grid(taps * ((p.C + kWM - 1) / kWM), (p.K + kWN - 1) / kWN, splits);
-  if (taps == 9)
-    conv3x3_wgrad_kernel<T, PRO, RELU><<<grid, kThreads, 0, stream>>>(p);
-  else
-    conv1x1_wgrad_kernel<T, PRO, RELU><<<grid, kThreads, 0, stream>>>(p);
+  // float16's 3x3 runs conv3x3_wgrad_tc_kernel only (the entry refuses it)
+  if constexpr (!std::is_same<T, __half>::value) {
+    if (taps == 9) {
+      conv3x3_wgrad_kernel<T, PRO, RELU><<<grid, kThreads, 0, stream>>>(p);
+      return;
+    }
+  }
+  conv1x1_wgrad_kernel<T, PRO, RELU><<<grid, kThreads, 0, stream>>>(p);
 }
 
 template <typename T>
@@ -933,7 +1311,7 @@ bool bad_geometry(int N, int H, int W, int C, int Ho, int Wo, int K, int taps,
   if (N < 1 || H < 1 || W < 1 || C < 1 || Ho < 1 || Wo < 1 || K < 1)
     return true;
   if ((taps != 1 && taps != 9) || stride < 1 || pad < 0 ||
-      (dtype != 0 && dtype != 1))
+      dtype < 0 || dtype > 2)
     return true;
   const long long M = static_cast<long long>(N) * Ho * Wo;
   return M >= (1LL << 31) - kBM ||
@@ -968,7 +1346,8 @@ ConvParams make_params(const void* x, const void* w, const void* scale,
 }  // namespace
 
 // K5 (taps = 1) or K7 (taps = 9). x [N, H, W, C], wt [taps, C, K] and y [N,
-// Ho, Wo, K] dense in one type (dtype 0: f32, 1: bf16); scale, shift f32 [C]
+// Ho, Wo, K] dense in one type (dtype 0: f32, 1: bf16, 2: float16); scale,
+// shift f32 [C]
 // (null: no prologue; relu ignored without it). With want_stats, partial is
 // f32 [ceil(M / 128), 2K], tmp f32 [ceil(ceil(M / 128) / 256), 2K] and stats
 // f32 [2K] receives (sum, sum of squares) per output channel.
@@ -990,8 +1369,10 @@ extern "C" int paddle_conv_fwd(const void* x, const void* wt,
   const bool pro = scale != nullptr;
   if (dtype == 0)
     fwd_by_flags<float>(p, taps, pro, relu != 0, want_stats != 0, st);
-  else
+  else if (dtype == 1)
     fwd_by_flags<__nv_bfloat16>(p, taps, pro, relu != 0, want_stats != 0, st);
+  else
+    fwd_by_flags<__half>(p, taps, pro, relu != 0, want_stats != 0, st);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !want_stats) return static_cast<int>(err);
   err = reduce_rows(static_cast<float*>(partial), (p.M + kBM - 1) / kBM,
@@ -1001,7 +1382,9 @@ extern "C" int paddle_conv_fwd(const void* x, const void* wt,
 }
 
 // K6 (taps = 1) or K8 (taps = 9): dw [taps, C, K] f32 from x [N, H, W, C] and
-// dy [N, Ho, Wo, K] (dense, one type). rows_per_split rows of M per split
+// dy [N, Ho, Wo, K] (dense, one type; 3x3 in f32, and in bf16 the one-block-
+// per-tap body that chip_smoke.py times beside paddle_conv3x3_wgrad_tc's,
+// which K8 runs in 16 bits). rows_per_split rows of M per split
 // (a multiple of 32); with splits == 1 the kernel writes dw itself, else
 // partial f32 [splits, taps * C * K] holds the splits' sums and tmp f32
 // [ceil(splits / 256), taps * C * K] the reduction's.
@@ -1017,7 +1400,8 @@ extern "C" int paddle_conv_wgrad(const void* x, const void* dy,
       splits > 65535 || rows_per_split < 1 || rows_per_split % kTK != 0 ||
       static_cast<long long>(splits) * rows_per_split <
           static_cast<long long>(N) * Ho * Wo ||
-      (splits > 1 && (partial == nullptr || tmp == nullptr)))
+      (splits > 1 && (partial == nullptr || tmp == nullptr)) ||
+      (taps == 9 && dtype == 2))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   ConvParams p = make_params(x, dy, scale, shift, splits == 1 ? dw : partial,
@@ -1026,8 +1410,10 @@ extern "C" int paddle_conv_wgrad(const void* x, const void* dy,
   const bool pro = scale != nullptr;
   if (dtype == 0)
     wgrad_by_flags<float>(p, taps, splits, pro, relu != 0, st);
-  else
+  else if (dtype == 1)
     wgrad_by_flags<__nv_bfloat16>(p, taps, splits, pro, relu != 0, st);
+  else
+    wgrad_by_flags<__half>(p, taps, splits, pro, relu != 0, st);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const long long L = static_cast<long long>(taps) * C * K;
@@ -1036,6 +1422,107 @@ extern "C" int paddle_conv_wgrad(const void* x, const void* dy,
                     static_cast<int>(L), static_cast<float*>(dw),
                     static_cast<float*>(tmp), st);
   return static_cast<int>(err);
+}
+
+namespace {
+
+template <typename T, bool PRO, bool RELU>
+cudaError_t launch_wgrad_tc(const ConvParams& p, const BandParams& bp,
+                            int splits, cudaStream_t stream) {
+  const size_t smem = band_smem_bytes(bp);
+  cudaError_t err = cudaFuncSetAttribute(
+      conv3x3_wgrad_tc_kernel<T, PRO, RELU>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid((p.C + kFC - 1) / kFC, (p.K + kFK - 1) / kFK, splits);
+  conv3x3_wgrad_tc_kernel<T, PRO, RELU>
+      <<<grid, kFThreads, smem, stream>>>(p, bp);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t wgrad_tc_by_flags(const ConvParams& p, const BandParams& bp,
+                              int splits, bool pro, bool relu,
+                              cudaStream_t stream) {
+  if (!pro) return launch_wgrad_tc<T, false, false>(p, bp, splits, stream);
+  if (!relu) return launch_wgrad_tc<T, true, false>(p, bp, splits, stream);
+  return launch_wgrad_tc<T, true, true>(p, bp, splits, stream);
+}
+
+}  // namespace
+
+// K8's 16-bit body (conv3x3_wgrad_tc_kernel): dw [9, C, K] f32 from x [N, H,
+// W, C] and dy [N, Ho, Wo, K] (dense, one type: dtype 1 bf16, 2 float16) of
+// the 3x3 conv with padding 1 at stride 1 or 2. The output pixels are cut
+// into bands of band_n images x band_h rows x band_w columns (at most 256
+// pixels; band_n > 1 only with whole images), ceil(N / band_n) across the
+// batch, ceil(Ho / band_h) down and ceil(Wo / band_w) across, in that order,
+// and split z walks bands [z * per_split, (z + 1) * per_split). With splits
+// == 1 the kernel writes dw itself, else partial f32 [splits, 9 * C * K] and
+// tmp f32 [ceil(splits / 256), 9 * C * K] take the splits' sums, added in
+// split order. conv.py's wgrad_bands picks the bands and the split.
+extern "C" int paddle_conv3x3_wgrad_tc(const void* x, const void* dy,
+                                       const void* scale, const void* shift,
+                                       void* dw, void* partial, void* tmp,
+                                       int N, int H, int W, int C, int Ho,
+                                       int Wo, int K, int stride, int relu,
+                                       int band_n, int band_h, int band_w,
+                                       int per_split, int splits, int dtype,
+                                       void* stream) {
+  if (bad_geometry(N, H, W, C, Ho, Wo, K, 9, stride, 1, dtype) ||
+      (dtype != 1 && dtype != 2) || (stride != 1 && stride != 2) ||
+      (scale == nullptr) != (shift == nullptr) || band_n < 1 ||
+      band_h < 1 || band_w < 1 || band_n > N || band_h > Ho ||
+      band_w > Wo || (band_n > 1 && (band_h != Ho || band_w != Wo)) ||
+      static_cast<long long>(band_n) * band_h * band_w > kFMaxPix ||
+      per_split < 1 || splits < 1 || splits > 65535 ||
+      (splits > 1 && (partial == nullptr || tmp == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  BandParams bp;
+  bp.band_n = band_n;
+  bp.band_h = band_h;
+  bp.band_w = band_w;
+  bp.n_bn = (N + band_n - 1) / band_n;
+  bp.n_bh = (Ho + band_h - 1) / band_h;
+  bp.n_bw = (Wo + band_w - 1) / band_w;
+  const long long bands = static_cast<long long>(bp.n_bn) * bp.n_bh * bp.n_bw;
+  if (bands >= (1LL << 31) ||
+      static_cast<long long>(splits) * per_split < bands ||
+      static_cast<long long>(splits - 1) * per_split >= bands)
+    return static_cast<int>(cudaErrorInvalidValue);
+  bp.bands = static_cast<int>(bands);
+  bp.per_split = per_split;
+  bp.win_h = (band_h - 1) * stride + 3;
+  bp.win_w = (band_w - 1) * stride + 3;
+  if (band_smem_bytes(bp) > 232448)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  ConvParams p = make_params(x, dy, scale, shift, splits == 1 ? dw : partial,
+                             N, H, W, C, Ho, Wo, K, stride, 1);
+  const bool pro = scale != nullptr;
+  cudaError_t err =
+      dtype == 1
+          ? wgrad_tc_by_flags<__nv_bfloat16>(p, bp, splits, pro, relu != 0, st)
+          : wgrad_tc_by_flags<__half>(p, bp, splits, pro, relu != 0, st);
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const long long L = 9LL * C * K;
+  if (L >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  err = reduce_rows(static_cast<float*>(partial), splits, static_cast<int>(L),
+                    static_cast<float*>(dw), static_cast<float*>(tmp), st);
+  return static_cast<int>(err);
+}
+
+// The shared memory a K8 block of these bands takes, in bytes (conv.py's
+// k8_smem_bytes is its twin; chip_smoke.py holds the two equal)
+extern "C" int paddle_conv3x3_wgrad_tc_smem(int band_n, int band_h,
+                                            int band_w, int stride) {
+  BandParams bp = {};
+  bp.band_n = band_n;
+  bp.band_h = band_h;
+  bp.band_w = band_w;
+  bp.win_h = (band_h - 1) * stride + 3;
+  bp.win_w = (band_w - 1) * stride + 3;
+  return static_cast<int>(band_smem_bytes(bp));
 }
 
 // K9 (paddle_tpu/ops/_pallas/fused_matmul_bn.py:_fwd_kernel, :36, launched by

@@ -55,9 +55,10 @@
 // 227 KB of shared memory a block may take. Operand rows are padded to D + 1
 // floats so that column reads hit distinct banks.
 //
-// Since the tensor-core bodies of flash_bwd_tc.cu took bf16 at D = 64 and
-// 128, these bodies run float32 at every head dim and bf16 at D = 256 only,
-// and refuse bf16 at 64 and 128 (no instantiation exists for them).
+// Since the tensor-core bodies of flash_bwd_tc.cu took bf16 and float16 at
+// D = 64 and 128, these bodies run float32 at every head dim and bf16 and
+// float16 at D = 256 only, and refuse 16-bit types at 64 and 128 (no
+// instantiation exists for them).
 //
 // What bounds it on an H100. At the training shape (B=4, S=2048, H=16, D=128,
 // causal, bf16) K2 does 6 * D * pairs * B * H = 1.03e11 FLOPs and K3
@@ -70,6 +71,7 @@
 // fed by TMA is a later change's work.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include "dropout.cuh"
@@ -107,6 +109,7 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -117,6 +120,10 @@ __device__ __forceinline__ float from_float<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half(x);
 }
 
 // x rounded to T and back: the points where _bwd casts to the input type
@@ -566,10 +573,14 @@ int run(const FlashBwdParams& p, int D, int dtype, void* stream) {
       p.Sk <= 0 || (p.seg_q == nullptr) != (p.seg_k == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) return static_cast<int>(dispatch_d<float, kDq>(p, D, s));
-  // bf16 at D = 64 and 128 runs on flash_bwd_tc.cu's tensor-core bodies
+  // bf16 and float16 at D = 64 and 128 run on flash_bwd_tc.cu's tensor-core
+  // bodies
   if (dtype == 1 && D == 256)
     return static_cast<int>(kDq ? launch_dq<__nv_bfloat16, 256>(p, s)
                                 : launch_dkv<__nv_bfloat16, 256>(p, s));
+  if (dtype == 2 && D == 256)
+    return static_cast<int>(kDq ? launch_dq<__half, 256>(p, s)
+                                : launch_dkv<__half, 256>(p, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -620,9 +631,9 @@ FlashBwdParams make_params(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// K2. dtype: 0 = float32 (D 64, 128 or 256), 1 = bfloat16 (D 256 only:
-// flash_bwd_tc.cu takes bf16 at 64 and 128). Strides are in elements; seg_q,
-// seg_k (both or neither) and bias may be null. Returns the cudaError_t of
+// K2. dtype: 0 = float32 (D 64, 128 or 256), 1 = bfloat16 or 2 = float16
+// (D 256 only: flash_bwd_tc.cu takes them at 64 and 128). Strides are in
+// elements; seg_q, seg_k (both or neither) and bias may be null. Returns the cudaError_t of
 // the launch (0 = launched).
 extern "C" int paddle_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,

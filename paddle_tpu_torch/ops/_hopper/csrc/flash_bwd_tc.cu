@@ -1,7 +1,8 @@
 // K2 and K3 on the tensor cores: the flash-attention backward at head dims
-// 64 and 128, bf16, with grouped-query KV, for Hopper (sm_90a), CUDA C++.
+// 64 and 128, bf16 or float16, with grouped-query KV, and K4b-fused (BERT's
+// attention backward), for Hopper (sm_90a), CUDA C++.
 //
-// Replaces, for bf16 inputs at D in {64, 128}, two TPU kernels of
+// Replaces, for 16-bit inputs at D in {64, 128}, two TPU kernels of
 // paddle_tpu/ops/_pallas/flash_attention.py:
 //   paddle_flash_bwd_dq_tc    _bwd_dq_kernel   (:431, launched by _bwd :628)
 //   paddle_flash_bwd_dkv_tc   _bwd_dkv_kernel  (:502, launched by _bwd :736)
@@ -10,6 +11,13 @@
 // functions for K4's streamed backward (ERNIE at its 2048-token context,
 // cross-attention's dq):
 //   _bwd_dq_kernel (:297, launched :582), _bwd_dkv_kernel (:348, :652).
+// and, as paddle_flash_packed_bwd_fused_tc, the fused backward of
+// flash_attention_packed.py, _bwd_fused_kernel (:448, launched by _bwd :544),
+// which runs where all keys fit one tile (Sk <= 512 at BERT-base's 12
+// heads): BERT-base, and ERNIE at S = 512 (see the last section below).
+// bf16 is written below; float16 is the same template over the element type
+// T (mma.cuh), rounding ds and p to float16 where bf16 rounds them, as JAX's
+// kernels do for a float16 input.
 // The float32 inputs stay on the CUDA-core bodies of flash_bwd.cu and
 // flash_packed_stream.cu (on the tensor cores float32 would mean TF32, which
 // is not the function the reference computes), and so does bf16 at D = 256
@@ -120,13 +128,49 @@
 // memory and spills: ptxas -v on sm_90a, which chip_smoke.py's build phase
 // prints; PERF.md records them.
 //
-// bf16 at D = 256 stays on flash_bwd.cu's CUDA-core bodies: at 16 rows a
-// warp its dq accumulator alone is 128 registers, and dk/dv has two; it
-// needs the head dim split across warps or wgmma's accumulators spread over
-// a warpgroup.
+// bf16 and float16 at D = 256 stay on flash_bwd.cu's CUDA-core bodies: at
+// 16 rows a warp its dq accumulator alone is 128 registers, and dk/dv has
+// two; it needs the head dim split across warps or wgmma's accumulators
+// spread over a warpgroup.
+//
+// K4b-fused (flash_packed_bwd_fused_tc_kernel). _bwd_fused_kernel recomputes
+// s and p once for all three gradients: dq is whole inside one program,
+// because all keys are one tile, and dk, dv add up over the query tiles.
+// Here a head's keys are cut into nk = ceil(Sk / 64) tiles, one block each,
+// and the nk blocks of a head form one thread-block cluster (nk <= 8, the
+// portable cluster size, for every Sk that plan() sends here). Each block is
+// K3's dk/dv body at D = 64 (K and V resident, their fragments in
+// registers, 16 key rows a warp, Q and dO through the cp.async ring in
+// 64-query stages, dk and dv in registers over all stages) and, per stage,
+// also writes its dS (rounded to T) to shared memory with keys as rows, and
+// from there takes its partial dq = dS^T K for the stage's 64 queries (A by
+// ldmatrix.trans of dS, B by ldmatrix.trans of K) into an f32 buffer. After a cluster barrier, block r sums rows
+// [r 64 / nk, (r + 1) 64 / nk) of the stage's dq over the nk partials, in
+// key-tile order 0 .. nk - 1, reading its peers' buffers through distributed
+// shared memory, and writes them in T: a fixed order, no atomics, results
+// that repeat bit for bit. The barrier is split: a block arrives once its
+// partial of stage t is written and waits for the cluster's arrivals only
+// in stage t + 1, after that stage's main products, then sums stage t's dq
+// (before its own dq product, so that the sum's loads and the dq
+// accumulators are not live together). The partials are double-buffered,
+// so one barrier a stage suffices (a block writes a buffer again two
+// stages later, after every peer has arrived past its reads). Every block
+// walks every query stage, so the cluster's barriers pair up under causal
+// masking too; a warp that takes no product writes dS = 0. Writing per-tile
+// partials to global memory instead would cost 805 MB at BERT's shape (B =
+// 64, S = 512, 12 heads), more than the whole product's time.
+// At that shape the function takes 5 products of 64 x 512 x 512 per head:
+// 1.29e11 FLOPs (0.130 ms at the 989 TFLOP/s peak) against 201 MB of q, k,
+// v, dO, dq, dk, dv (0.060 ms at 3.35 TB/s): operations bound it. Shared
+// memory: 98.5 KB a block; registers (250-255 a thread) allow 2 blocks, 8
+// warps, an SM. There the barrier a stage and dS's trip through shared
+// memory cost more than the second recompute of the two-body route (the
+// streamed dq and dk/dv above), which chip_smoke.py times beside it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cooperative_groups.h>
 
 #include <cmath>
 #include <cstdint>
@@ -165,21 +209,20 @@ struct Shape<128> {
   static constexpr int kDkvBlocks = 2;
 };
 
-using bf16 = __nv_bfloat16;
-
+template <typename T>
 struct BwdTcParams {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const bf16* dout;
+  const T* q;
+  const T* k;
+  const T* v;
+  const T* dout;
   const float* lse;
   const float* delta;
   const int* seg_q;    // null: no segments
   const int* seg_k;
   const float* bias;   // null: no key bias
-  bf16* dq;
-  bf16* dk;
-  bf16* dv;
+  T* dq;
+  T* dk;
+  T* dv;
   int B, H, HK, Sq, Sk;
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
@@ -200,7 +243,7 @@ __host__ __device__ constexpr int ld() {   // padded smem row, in values
 // keys' bias and segments; dk/dv: the queries' lse, delta and segments)
 template <int D, int N>
 constexpr size_t operand_bytes() {
-  return sizeof(bf16) * static_cast<size_t>(2 * kTile + 4 * N) * ld<D>();
+  return sizeof(__half) * static_cast<size_t>(2 * kTile + 4 * N) * ld<D>();
 }
 template <int D>
 constexpr size_t dq_smem() {
@@ -215,8 +258,8 @@ constexpr size_t dkv_smem() {
 
 // rows [row0, row0 + ROWS) of a [*, D] bf16 operand into padded smem rows,
 // by cp.async; rows at or past n_rows are zero
-template <int D, int ROWS>
-__device__ __forceinline__ void issue_rows(bf16* dst, const bf16* base,
+template <int D, int ROWS, typename T>
+__device__ __forceinline__ void issue_rows(T* dst, const T* base,
                                            long long row_stride, int row0,
                                            int n_rows, int tid) {
   constexpr int kSegs = D / 8;   // 16-byte pieces of a row
@@ -225,7 +268,7 @@ __device__ __forceinline__ void issue_rows(bf16* dst, const bf16* base,
     const int seg = i - r * kSegs;
     const int row = row0 + r;
     const bool in = row < n_rows;
-    const bf16* src =
+    const T* src =
         in ? base + static_cast<long long>(row) * row_stride + seg * 8 : base;
     cp_async16(dst + r * ld<D>() + seg * 8, src, in);
   }
@@ -235,8 +278,9 @@ __device__ __forceinline__ void issue_rows(bf16* dst, const bf16* base,
 template <int D>
 struct RegRows {
   unsigned f[D / 16][4];
-  __device__ __forceinline__ void load(const bf16* sRows, int lane) {
-    const bf16* p = sRows + (lane & 15) * ld<D>() + (lane >> 4) * 8;
+  template <typename T>
+  __device__ __forceinline__ void load(const T* sRows, int lane) {
+    const T* p = sRows + (lane & 15) * ld<D>() + (lane >> 4) * 8;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) ldmatrix_x4(f[kk], p + kk * 16);
   }
@@ -249,9 +293,11 @@ struct RegRows {
 // the same fragments read from shared memory at each k-step
 template <int D>
 struct SmemRows {
-  const bf16* p;
-  __device__ __forceinline__ void load(const bf16* sRows, int lane) {
-    p = sRows + (lane & 15) * ld<D>() + (lane >> 4) * 8;
+  const unsigned short* p;   // 16-bit values, whatever their type
+  template <typename T>
+  __device__ __forceinline__ void load(const T* sRows, int lane) {
+    p = reinterpret_cast<const unsigned short*>(sRows) +
+        (lane & 15) * ld<D>() + (lane >> 4) * 8;
   }
   __device__ __forceinline__ void get(int kk, unsigned (&r)[4]) const {
     ldmatrix_x4(r, p + kk * 16);
@@ -263,15 +309,15 @@ struct SmemRows {
 // .. 8 nt + 7 of the stage in mma.sync's accumulator layout. Each B fragment
 // is read by ldmatrix (a lane's row: (lane >> 4) * 8 + (lane & 7) of a
 // 16-row pair of n-tiles, d half ((lane >> 3) & 1) of a 16-wide k-step).
-template <int D, int N, typename A>
+template <int D, int N, typename A, typename T>
 __device__ __forceinline__ void products_nt(float (&acc)[N / 8][4],
-                                            const A& a, const bf16* sB,
+                                            const A& a, const T* sB,
                                             int lane) {
 #pragma unroll
   for (int nt = 0; nt < N / 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-  const bf16* bb =
+  const T* bb =
       sB + ((lane >> 4) * 8 + (lane & 7)) * ld<D>() + ((lane >> 3) & 1) * 8;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
@@ -281,8 +327,8 @@ __device__ __forceinline__ void products_nt(float (&acc)[N / 8][4],
     for (int jp = 0; jp < N / 16; ++jp) {
       unsigned b[4];
       ldmatrix_x4(b, bb + jp * 16 * ld<D>() + kk * 16);
-      mma_16816(acc[2 * jp], af, b[0], b[1]);
-      mma_16816(acc[2 * jp + 1], af, b[2], b[3]);
+      mma_16816<T>(acc[2 * jp], af, b[0], b[1]);
+      mma_16816<T>(acc[2 * jp + 1], af, b[2], b[3]);
     }
   }
 }
@@ -292,25 +338,25 @@ __device__ __forceinline__ void products_nt(float (&acc)[N / 8][4],
 // fragments of 16-column steps; B the stage's N rows of the head dim in smem
 // by ldmatrix.trans (a lane's row: ((lane >> 3) & 1) * 8 + (lane & 7) of a
 // 16-row step, d half (lane >> 4) of a 16-wide pair of n-tiles).
-template <int D, int N>
+template <int D, int N, typename T>
 __device__ __forceinline__ void products_tn(float (&acc)[D / 8][4],
                                             const float (&x)[N / 8][4],
-                                            const bf16* sB, int lane) {
-  const bf16* br =
+                                            const T* sB, int lane) {
+  const T* br =
       sB + (((lane >> 3) & 1) * 8 + (lane & 7)) * ld<D>() + (lane >> 4) * 8;
 #pragma unroll
   for (int kk = 0; kk < N / 16; ++kk) {
     unsigned a[4];
-    a[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-    a[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-    a[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    a[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+    a[0] = pack2<T>(x[2 * kk][0], x[2 * kk][1]);
+    a[1] = pack2<T>(x[2 * kk][2], x[2 * kk][3]);
+    a[2] = pack2<T>(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+    a[3] = pack2<T>(x[2 * kk + 1][2], x[2 * kk + 1][3]);
 #pragma unroll
     for (int dp = 0; dp < D / 16; ++dp) {
       unsigned b[4];
       ldmatrix_x4_trans(b, br + kk * 16 * ld<D>() + dp * 16);
-      mma_16816(acc[2 * dp], a, b[0], b[1]);
-      mma_16816(acc[2 * dp + 1], a, b[2], b[3]);
+      mma_16816<T>(acc[2 * dp], a, b[0], b[1]);
+      mma_16816<T>(acc[2 * dp + 1], a, b[2], b[3]);
     }
   }
 }
@@ -341,10 +387,11 @@ __device__ __forceinline__ float prob(float x, float bias, bool out,
 
 // s (the stage's S) becomes ds, rounded later as products_tn packs it. sB
 // and sS hold the stage's key bias (0 without one) and segment ids.
-template <int N, bool kSeg, bool kDrop, bool kTest>
+template <int N, bool kSeg, bool kDrop, bool kTest, typename T>
 __device__ __forceinline__ void dq_stage(float (&s)[N / 8][4],
                                          const float (&dp)[N / 8][4],
-                                         const BwdTcParams& p, const float* sB,
+                                         const BwdTcParams<T>& p,
+                                         const float* sB,
                                          const int* sS, int bh, int k0,
                                          const int (&qi)[2],
                                          const int (&segq)[2],
@@ -378,16 +425,16 @@ __device__ __forceinline__ void dq_stage(float (&s)[N / 8][4],
   }
 }
 
-template <int D, bool kSeg, bool kDrop>
+template <typename T, int D, bool kSeg, bool kDrop>
 __global__ void __launch_bounds__(kThreads, Shape<D>::kDqBlocks)
-    flash_bwd_dq_tc_kernel(const BwdTcParams p) {
+    flash_bwd_dq_tc_kernel(const BwdTcParams<T> p) {
   constexpr int N = Shape<D>::kDqN;
   constexpr int kLd = ld<D>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // [64][kLd]
-  bf16* sDO = sQ + kTile * kLd;                   // [64][kLd]
-  bf16* sK = sDO + kTile * kLd;                   // [2][N][kLd]
-  bf16* sV = sK + 2 * N * kLd;                    // [2][N][kLd]
+  T* sQ = reinterpret_cast<T*>(smem_raw);   // [64][kLd]
+  T* sDO = sQ + kTile * kLd;                   // [64][kLd]
+  T* sK = sDO + kTile * kLd;                   // [2][N][kLd]
+  T* sV = sK + 2 * N * kLd;                    // [2][N][kLd]
   float* sBias = reinterpret_cast<float*>(sV + 2 * N * kLd);   // [2][N]
   int* sSegK = reinterpret_cast<int*>(sBias + 2 * N);          // [2][N]
 
@@ -406,10 +453,10 @@ __global__ void __launch_bounds__(kThreads, Shape<D>::kDqBlocks)
   const int offset = p.Sk - p.Sq;   // bottom-right causal alignment
   const int qw0 = q0 + warp * 16;   // the warp's first row
 
-  const bf16* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const bf16* kb = p.k + b * p.k_sb + hk * p.k_sh;
-  const bf16* vb = p.v + b * p.v_sb + hk * p.v_sh;
-  const bf16* dob = p.dout + b * p.do_sb + h * p.do_sh;
+  const T* qb = p.q + b * p.q_sb + h * p.q_sh;
+  const T* kb = p.k + b * p.k_sb + hk * p.k_sh;
+  const T* vb = p.v + b * p.v_sb + hk * p.v_sh;
+  const T* dob = p.dout + b * p.do_sb + h * p.do_sh;
   const float* bias_row =
       p.bias != nullptr ? p.bias + static_cast<long long>(b) * p.Sk : nullptr;
   const int* segk_row =
@@ -486,7 +533,7 @@ __global__ void __launch_bounds__(kThreads, Shape<D>::kDqBlocks)
     if (st + 1 < n_st) issue_stage(st + 1);
     // a warp whose rows need no key of this stage would add zeros
     if (!rows_in || k0 >= kw_end) continue;
-    const bf16* sKs = sK + slot * N * kLd;
+    const T* sKs = sK + slot * N * kLd;
     float s[N / 8][4], dp[N / 8][4];
     products_nt<D, N>(s, qf, sKs, lane);
     products_nt<D, N>(dp, dof, sV + slot * N * kLd, lane);
@@ -507,12 +554,12 @@ __global__ void __launch_bounds__(kThreads, Shape<D>::kDqBlocks)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (qi[i] >= p.Sq) continue;
-    bf16* row =
+    T* row =
         p.dq + ((static_cast<long long>(b) * p.Sq + qi[i]) * p.H + h) * D;
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt)
-      *reinterpret_cast<__nv_bfloat162*>(row + dt * 8 + tq * 2) =
-          __floats2bfloat162_rn(acc[dt][2 * i], acc[dt][2 * i + 1]);
+      *reinterpret_cast<unsigned*>(row + dt * 8 + tq * 2) =
+          pack2<T>(acc[dt][2 * i], acc[dt][2 * i + 1]);
   }
 }
 
@@ -523,10 +570,10 @@ __global__ void __launch_bounds__(kThreads, Shape<D>::kDqBlocks)
 // s (the stage's S^T) becomes p keep and dp (dP^T) becomes ds, both rounded
 // later as products_tn packs them. sLse, sDl, sSq hold the stage's queries'
 // lse (row_lse), delta and segment ids.
-template <int N, bool kSeg, bool kDrop, bool kTest>
+template <int N, bool kSeg, bool kDrop, bool kTest, typename T>
 __device__ __forceinline__ void dkv_stage(float (&s)[N / 8][4],
                                           float (&dp)[N / 8][4],
-                                          const BwdTcParams& p,
+                                          const BwdTcParams<T>& p,
                                           const float* sLse, const float* sDl,
                                           const int* sSq, int bh, int q0,
                                           const int (&kj)[2],
@@ -567,19 +614,19 @@ __device__ __forceinline__ void dkv_stage(float (&s)[N / 8][4],
   }
 }
 
-template <int D, bool kSeg, bool kDrop>
+template <typename T, int D, bool kSeg, bool kDrop>
 __global__ void __launch_bounds__(kThreads, Shape<D>::kDkvBlocks)
-    flash_bwd_dkv_tc_kernel(const BwdTcParams p) {
+    flash_bwd_dkv_tc_kernel(const BwdTcParams<T> p) {
   constexpr int N = Shape<D>::kDkvN;
   constexpr int kLd = ld<D>();
   // K and V fragments held in registers, or read from smem at each k-step
   using KvRows = typename std::conditional<Shape<D>::kDkvKvRegs, RegRows<D>,
                                            SmemRows<D>>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);   // [64][kLd]
-  bf16* sV = sK + kTile * kLd;                    // [64][kLd]
-  bf16* sQ = sV + kTile * kLd;                    // [2][N][kLd]
-  bf16* sDO = sQ + 2 * N * kLd;                   // [2][N][kLd]
+  T* sK = reinterpret_cast<T*>(smem_raw);   // [64][kLd]
+  T* sV = sK + kTile * kLd;                    // [64][kLd]
+  T* sQ = sV + kTile * kLd;                    // [2][N][kLd]
+  T* sDO = sQ + 2 * N * kLd;                   // [2][N][kLd]
   float* sLse = reinterpret_cast<float*>(sDO + 2 * N * kLd);  // [2][N]
   float* sDl = sLse + 2 * N;                                  // [2][N]
   int* sSq = reinterpret_cast<int*>(sDl + 2 * N);             // [2][N]
@@ -597,8 +644,8 @@ __global__ void __launch_bounds__(kThreads, Shape<D>::kDkvBlocks)
   const int offset = p.Sk - p.Sq;
   const int kw0 = k0 + warp * 16;       // the warp's first key
 
-  const bf16* kb = p.k + b * p.k_sb + hk * p.k_sh;
-  const bf16* vb = p.v + b * p.v_sb + hk * p.v_sh;
+  const T* kb = p.k + b * p.k_sb + hk * p.k_sh;
+  const T* vb = p.v + b * p.v_sb + hk * p.v_sh;
 
   // the first query stage with a row that reaches this key tile:
   // (qt + 1) * N - 1 + offset >= k0, as _bwd_dkv_kernel tests it
@@ -692,8 +739,8 @@ __global__ void __launch_bounds__(kThreads, Shape<D>::kDkvBlocks)
     }
     // a warp none of whose keys this stage's queries reach adds zeros
     if (keys_in && (!p.causal || q0 + N - 1 + offset >= kw0)) {
-      const bf16* sQs = sQ + slot * N * kLd;
-      const bf16* sDOs = sDO + slot * N * kLd;
+      const T* sQs = sQ + slot * N * kLd;
+      const T* sDOs = sDO + slot * N * kLd;
       float s[N / 8][4], dp[N / 8][4];
       products_nt<D, N>(s, kf, sQs, lane);
       products_nt<D, N>(dp, vf, sDOs, lane);
@@ -726,16 +773,320 @@ __global__ void __launch_bounds__(kThreads, Shape<D>::kDkvBlocks)
         ((static_cast<long long>(b) * p.Sk + kj[i]) * p.HK + hk) * D;
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<__nv_bfloat162*>(p.dk + row + dt * 8 + tq * 2) =
-          __floats2bfloat162_rn(acc_dk[dt][2 * i], acc_dk[dt][2 * i + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(p.dv + row + dt * 8 + tq * 2) =
-          __floats2bfloat162_rn(acc_dv[dt][2 * i], acc_dv[dt][2 * i + 1]);
+      *reinterpret_cast<unsigned*>(p.dk + row + dt * 8 + tq * 2) =
+          pack2<T>(acc_dk[dt][2 * i], acc_dk[dt][2 * i + 1]);
+      *reinterpret_cast<unsigned*>(p.dv + row + dt * 8 + tq * 2) =
+          pack2<T>(acc_dv[dt][2 * i], acc_dv[dt][2 * i + 1]);
     }
   }
 }
 
-template <typename K>
-cudaError_t launch(K kernel, size_t smem, dim3 grid, const BwdTcParams& p,
+// ---------------------------------------------------------------------------
+// K4b-fused. Grid (nk, B*H) in clusters of nk = ceil(Sk / 64) blocks, one a
+// 64-key tile, 128 threads. D = 64, KV heads = heads.
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxClusterTiles = 8;   // Sk <= 512: the portable cluster size
+constexpr int kLdDq = 64 + 4;         // f32 row of a dq partial in smem
+
+// The cluster barrier in its two halves: arrive (this thread's shared-memory
+// writes released to the cluster) and wait (every thread of every block has
+// arrived; their writes acquired). A thread alternates the two.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// K, V [64][72] and the ring's Q, dO [2][64][72] (T), the stage's queries'
+// lse, delta and segments [2][64], dS [64 keys][72] (T), and the two dq
+// partials [2][64][68] f32
+constexpr size_t fused_smem() {
+  return operand_bytes<64, 64>() + (2 * sizeof(float) + sizeof(int)) * 2 * 64 +
+         sizeof(__half) * kTile * ld<64>() +
+         sizeof(float) * 2 * 64 * kLdDq;
+}
+
+template <typename T, bool kSeg, bool kDrop>
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_packed_bwd_fused_tc_kernel(const BwdTcParams<T> p) {
+  constexpr int D = 64;
+  constexpr int N = 64;   // queries a stage
+  constexpr int kLd = ld<D>();
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sK = reinterpret_cast<T*>(smem_raw);         // [64][kLd]
+  T* sV = sK + kTile * kLd;                       // [64][kLd]
+  T* sQ = sV + kTile * kLd;                       // [2][N][kLd]
+  T* sDO = sQ + 2 * N * kLd;                      // [2][N][kLd]
+  float* sLse = reinterpret_cast<float*>(sDO + 2 * N * kLd);  // [2][N]
+  float* sDl = sLse + 2 * N;                                  // [2][N]
+  int* sSq = reinterpret_cast<int*>(sDl + 2 * N);             // [2][N]
+  T* sDS = reinterpret_cast<T*>(sSq + 2 * N);     // [64 keys][kLd]
+  float* sDQ = reinterpret_cast<float*>(sDS + kTile * kLd);   // [2][N][kLdDq]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int nk = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int bh = blockIdx.y;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int k0 = rank * kTile;
+  const int offset = p.Sk - p.Sq;
+  const int kw0 = k0 + warp * 16;      // the warp's first key
+  const int nq = (p.Sq + N - 1) / N;   // every block walks every stage
+
+  const T* kb = p.k + b * p.k_sb + h * p.k_sh;
+  const T* vb = p.v + b * p.v_sb + h * p.v_sh;
+  const T* qb = p.q + b * p.q_sb + h * p.q_sh;
+  const T* dob = p.dout + b * p.do_sb + h * p.do_sh;
+  const long long stat0 = static_cast<long long>(bh) * p.Sq;
+
+  auto issue_stage = [&](int t) {
+    const int slot = t & 1;
+    issue_rows<D, N>(sQ + slot * N * kLd, qb, p.q_ss, t * N, p.Sq, tid);
+    issue_rows<D, N>(sDO + slot * N * kLd, dob, p.do_ss, t * N, p.Sq, tid);
+    cp_async_commit();
+  };
+  auto load_stats = [&](int t, float& ls, float& dl, int& sg) {
+    const int qi = t * N + tid;
+    const bool in = qi < p.Sq;
+    ls = row_lse(in ? p.lse[stat0 + qi] : 0.f, in);
+    dl = in ? p.delta[stat0 + qi] : 0.f;
+    sg = kSeg && in ? p.seg_q[static_cast<long long>(b) * p.Sq + qi] : 0;
+  };
+
+  issue_rows<D, kTile>(sK, kb, p.k_ss, k0, p.Sk, tid);
+  issue_rows<D, kTile>(sV, vb, p.v_ss, k0, p.Sk, tid);
+  cp_async_commit();
+  float ls_next = 0.f, dl_next = 0.f;
+  int sg_next = 0;
+  issue_stage(0);
+  if (tid < N) {
+    load_stats(0, ls_next, dl_next, sg_next);
+    sLse[tid] = ls_next;
+    sDl[tid] = dl_next;
+    if (kSeg) sSq[tid] = sg_next;
+  }
+
+  int kj[2], kseg[2];
+  float kbias[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    kj[i] = kw0 + g + 8 * i;
+    const bool in = kj[i] < p.Sk;
+    const long long at = static_cast<long long>(b) * p.Sk + kj[i];
+    kbias[i] = in && p.bias != nullptr ? p.bias[at] : 0.f;
+    kseg[i] = kSeg && in ? p.seg_k[at] : 0;
+  }
+
+  cp_async_wait<0>();
+  __syncthreads();
+  // K and V held in registers (12-20 bytes spilled in some forms: read
+  // from smem at each k-step instead, nothing spills, but the stage is
+  // slower)
+  RegRows<D> kf, vf;
+  kf.load(sK + warp * 16 * kLd, lane);
+  vf.load(sV + warp * 16 * kLd, lane);
+
+  float acc_dk[D / 8][4], acc_dv[D / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc_dk[dt][e] = 0.f;
+      acc_dv[dt][e] = 0.f;
+    }
+
+  const bool keys_in = kw0 < p.Sk;
+  // the dq rows of a stage this block sums across the cluster
+  const int r0 = rank * N / nk;
+  const int r1 = (rank + 1) * N / nk;
+  // rows r0 .. r1 of stage t's dq: the nk partials added in key-tile
+  // order, read from the peers' shared memory four at a time (their loads
+  // in flight together)
+  auto reduce_rows = [&](int t) {
+    const float* mine = sDQ + (t & 1) * N * kLdDq;
+    for (int i = tid; i < (r1 - r0) * (D / 4); i += kThreads) {
+      const int r = r0 + i / (D / 4);
+      const int c = (i % (D / 4)) * 4;
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int j0 = 0; j0 < nk; j0 += 4) {
+        float4 v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (j0 + j < nk)
+            v[j] = *reinterpret_cast<const float4*>(
+                cluster.map_shared_rank(mine, static_cast<unsigned>(j0 + j)) +
+                r * kLdDq + c);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (j0 + j < nk) {
+            sum.x += v[j].x;
+            sum.y += v[j].y;
+            sum.z += v[j].z;
+            sum.w += v[j].w;
+          }
+      }
+      const int qi = t * N + r;
+      if (qi < p.Sq) {
+        T* out =
+            p.dq + ((static_cast<long long>(b) * p.Sq + qi) * p.H + h) * D + c;
+        *reinterpret_cast<uint2*>(out) =
+            make_uint2(pack2<T>(sum.x, sum.y), pack2<T>(sum.z, sum.w));
+      }
+    }
+  };
+  for (int t = 0; t < nq; ++t) {
+    const int q0 = t * N;
+    const int slot = t & 1;
+    cp_async_wait<0>();   // this stage's Q and dO have landed
+    __syncthreads();      // ... and its stats are stored; every warp is done
+                          // with the last stage's Q, dO and dS
+    const bool more = t + 1 < nq;
+    if (more) {
+      issue_stage(t + 1);
+      if (tid < N) load_stats(t + 1, ls_next, dl_next, sg_next);
+    }
+    const T* sQs = sQ + slot * N * kLd;
+    const T* sDOs = sDO + slot * N * kLd;
+    float s[N / 8][4], dp[N / 8][4];
+    const bool active =
+        keys_in && (!p.causal || q0 + N - 1 + offset >= kw0);
+    if (active) {
+      // S^T = K Q^T and dP^T = V dO^T once for all three gradients
+      products_nt<D, N>(s, kf, sQs, lane);
+      products_nt<D, N>(dp, vf, sDOs, lane);
+      const bool test = kSeg || q0 + N > p.Sq || k0 + kTile > p.Sk ||
+                        (p.causal && kw0 + 15 > q0 + offset);
+      if (test)
+        dkv_stage<N, kSeg, kDrop, true>(s, dp, p, sLse + slot * N,
+                                        sDl + slot * N, sSq + slot * N, bh,
+                                        q0, kj, kbias, kseg, offset, tq);
+      else
+        dkv_stage<N, kSeg, kDrop, false>(s, dp, p, sLse + slot * N,
+                                         sDl + slot * N, sSq + slot * N, bh,
+                                         q0, kj, kbias, kseg, offset, tq);
+      products_tn<D, N>(acc_dv, s, sDOs, lane);
+      products_tn<D, N>(acc_dk, dp, sQs, lane);
+    }
+    // dS (rounded to T, as the dk product rounds it) to shared memory, keys
+    // as rows: 0 for a key past Sk (its p is not masked: its row of K is 0,
+    // but its ds may not be finite) and for a warp that took no product
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const bool kin = active && kj[i] < p.Sk;
+      T* row = sDS + (warp * 16 + g + 8 * i) * kLd + tq * 2;
+#pragma unroll
+      for (int nt = 0; nt < N / 8; ++nt)
+        *reinterpret_cast<unsigned*>(row + nt * 8) =
+            kin ? pack2<T>(dp[nt][2 * i], dp[nt][2 * i + 1]) : 0u;
+    }
+    if (more && tid < N) {
+      const int nslot = (slot ^ 1) * N;
+      sLse[nslot + tid] = ls_next;
+      sDl[nslot + tid] = dl_next;
+      if (kSeg) sSq[nslot + tid] = sg_next;
+    }
+    __syncthreads();   // dS is whole
+    if (t > 0) {
+      // every block has written the last stage's partial (and read this
+      // stage's buffer for the stage before it): sum the last stage's dq,
+      // its barrier's latency hidden behind this stage's products
+      cluster_wait();
+      reduce_rows(t - 1);
+    }
+    // this key tile's dq partial for the warp's 16 queries: dS^T K, with
+    // dS^T's fragments by ldmatrix.trans from the key rows and K's as B
+    float acc[D / 8][4];
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+    {
+      const T* ar = sDS + ((lane >> 4) * 8 + (lane & 7)) * kLd + warp * 16 +
+                    ((lane >> 3) & 1) * 8;
+      const T* br =
+          sK + (((lane >> 3) & 1) * 8 + (lane & 7)) * kLd + (lane >> 4) * 8;
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        unsigned a[4];
+        ldmatrix_x4_trans(a, ar + kk * 16 * kLd);
+#pragma unroll
+        for (int dp2 = 0; dp2 < D / 16; ++dp2) {
+          unsigned bf[4];
+          ldmatrix_x4_trans(bf, br + kk * 16 * kLd + dp2 * 16);
+          mma_16816<T>(acc[2 * dp2], a, bf[0], bf[1]);
+          mma_16816<T>(acc[2 * dp2 + 1], a, bf[2], bf[3]);
+        }
+      }
+    }
+    float* part = sDQ + slot * N * kLdDq;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float* row = part + (warp * 16 + g + 8 * i) * kLdDq + tq * 2;
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt)
+        *reinterpret_cast<float2*>(row + dt * 8) =
+            make_float2(acc[dt][2 * i], acc[dt][2 * i + 1]);
+    }
+    cluster_arrive();   // this stage's partial is whole
+  }
+  cluster_wait();
+  reduce_rows(nq - 1);
+  // no block leaves while a peer may read its partials
+  cluster_arrive();
+  cluster_wait();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (kj[i] >= p.Sk) continue;
+    const long long row =
+        ((static_cast<long long>(b) * p.Sk + kj[i]) * p.H + h) * D;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      *reinterpret_cast<unsigned*>(p.dk + row + dt * 8 + tq * 2) =
+          pack2<T>(acc_dk[dt][2 * i], acc_dk[dt][2 * i + 1]);
+      *reinterpret_cast<unsigned*>(p.dv + row + dt * 8 + tq * 2) =
+          pack2<T>(acc_dv[dt][2 * i], acc_dv[dt][2 * i + 1]);
+    }
+  }
+}
+
+template <bool kSeg, bool kDrop, typename T>
+cudaError_t launch_fused(const BwdTcParams<T>& p, cudaStream_t stream) {
+  auto kernel = flash_packed_bwd_fused_tc_kernel<T, kSeg, kDrop>;
+  const size_t smem = fused_smem();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int nk = (p.Sk + kTile - 1) / kTile;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nk, p.B * p.H);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nk;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <typename K, typename T>
+cudaError_t launch(K kernel, size_t smem, dim3 grid, const BwdTcParams<T>& p,
                    cudaStream_t stream) {
   // above 48 KB a block's shared memory must be opted into
   cudaError_t err = cudaFuncSetAttribute(
@@ -746,17 +1097,17 @@ cudaError_t launch(K kernel, size_t smem, dim3 grid, const BwdTcParams& p,
   return cudaGetLastError();
 }
 
-template <int D, bool kSeg, bool kDrop>
-cudaError_t launch_one(bool dkv, const BwdTcParams& p, cudaStream_t s) {
+template <int D, bool kSeg, bool kDrop, typename T>
+cudaError_t launch_one(bool dkv, const BwdTcParams<T>& p, cudaStream_t s) {
   if (dkv)
-    return launch(flash_bwd_dkv_tc_kernel<D, kSeg, kDrop>, dkv_smem<D>(),
+    return launch(flash_bwd_dkv_tc_kernel<T, D, kSeg, kDrop>, dkv_smem<D>(),
                   dim3((p.Sk + kTile - 1) / kTile, p.B * p.HK), p, s);
-  return launch(flash_bwd_dq_tc_kernel<D, kSeg, kDrop>, dq_smem<D>(),
+  return launch(flash_bwd_dq_tc_kernel<T, D, kSeg, kDrop>, dq_smem<D>(),
                 dim3((p.Sq + kTile - 1) / kTile, p.B * p.H), p, s);
 }
 
-template <int D>
-cudaError_t launch_d(bool dkv, const BwdTcParams& p, cudaStream_t s) {
+template <int D, typename T>
+cudaError_t launch_d(bool dkv, const BwdTcParams<T>& p, cudaStream_t s) {
   if (p.seg_q != nullptr)
     return p.drop.on ? launch_one<D, true, true>(dkv, p, s)
                      : launch_one<D, true, false>(dkv, p, s);
@@ -764,39 +1115,51 @@ cudaError_t launch_d(bool dkv, const BwdTcParams& p, cudaStream_t s) {
                    : launch_one<D, false, false>(dkv, p, s);
 }
 
-int run(bool dkv, const void* q, const void* k, const void* v,
+template <typename T>
+cudaError_t launch_fused_flags(const BwdTcParams<T>& p, cudaStream_t s) {
+  if (p.seg_q != nullptr)
+    return p.drop.on ? launch_fused<true, true>(p, s)
+                     : launch_fused<true, false>(p, s);
+  return p.drop.on ? launch_fused<false, true>(p, s)
+                   : launch_fused<false, false>(p, s);
+}
+
+enum Which { kDq = 0, kDkv = 1, kFused = 2 };
+
+template <typename T>
+int run(Which which, const void* q, const void* k, const void* v,
         const void* dout, const void* lse, const void* delta,
-        const void* seg_q, const void* seg_k, const void* bias, void* out0,
-        void* out1, int B, int H, int HK, int Sq, int Sk, int D,
-        const long long (&strides)[12], float scale, int causal, int dtype,
-        int dropout, unsigned drop_threshold, unsigned drop_seed,
-        float drop_scale, void* stream) {
+        const void* seg_q, const void* seg_k, const void* bias, void* dq,
+        void* dk, void* dv, int B, int H, int HK, int Sq, int Sk, int D,
+        const long long (&strides)[12], float scale, int causal, int dropout,
+        unsigned drop_threshold, unsigned drop_seed, float drop_scale,
+        void* stream) {
   bool aligned = (reinterpret_cast<uintptr_t>(q) |
                   reinterpret_cast<uintptr_t>(k) |
                   reinterpret_cast<uintptr_t>(v) |
                   reinterpret_cast<uintptr_t>(dout)) % 16 == 0;
   for (long long st : strides) aligned = aligned && st % 8 == 0;
   if (B <= 0 || H <= 0 || HK <= 0 || H % HK || Sq <= 0 || Sk <= 0 ||
-      (D != 64 && D != 128) || dtype != 1 || !aligned ||
+      (D != 64 && D != 128) || !aligned ||
       static_cast<long long>(B) * H > 65535 ||
       (seg_q == nullptr) != (seg_k == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  BwdTcParams p = {};
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
-  p.dout = static_cast<const bf16*>(dout);
+  if (which == kFused &&
+      (D != 64 || HK != H || Sk > kMaxClusterTiles * kTile))
+    return static_cast<int>(cudaErrorInvalidValue);
+  BwdTcParams<T> p = {};
+  p.q = static_cast<const T*>(q);
+  p.k = static_cast<const T*>(k);
+  p.v = static_cast<const T*>(v);
+  p.dout = static_cast<const T*>(dout);
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
   p.seg_q = static_cast<const int*>(seg_q);
   p.seg_k = static_cast<const int*>(seg_k);
   p.bias = static_cast<const float*>(bias);
-  if (dkv) {
-    p.dk = static_cast<bf16*>(out0);
-    p.dv = static_cast<bf16*>(out1);
-  } else {
-    p.dq = static_cast<bf16*>(out0);
-  }
+  p.dq = static_cast<T*>(dq);
+  p.dk = static_cast<T*>(dk);
+  p.dv = static_cast<T*>(dv);
   p.B = B;
   p.H = H;
   p.HK = HK;
@@ -818,19 +1181,38 @@ int run(bool dkv, const void* q, const void* k, const void* v,
   p.causal = causal;
   p.drop = make_dropout(dropout, drop_threshold, drop_seed, drop_scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      D == 64 ? launch_d<64>(dkv, p, s) : launch_d<128>(dkv, p, s);
+  cudaError_t err;
+  if (which == kFused)
+    err = launch_fused_flags(p, s);
+  else
+    err = D == 64 ? launch_d<64>(which == kDkv, p, s)
+                  : launch_d<128>(which == kDkv, p, s);
   return static_cast<int>(err);
+}
+
+// the body of dtype 1 (bfloat16) or 2 (float16)
+int run_dtype(int dtype, Which which, const void* q, const void* k,
+              const void* v, const void* dout, const void* lse,
+              const void* delta, const void* seg_q, const void* seg_k,
+              const void* bias, void* dq, void* dk, void* dv, int B, int H,
+              int HK, int Sq, int Sk, int D, const long long (&strides)[12],
+              float scale, int causal, int dropout, unsigned drop_threshold,
+              unsigned drop_seed, float drop_scale, void* stream) {
+  if (dtype != 1 && dtype != 2) return static_cast<int>(cudaErrorInvalidValue);
+  auto body = dtype == 1 ? run<__nv_bfloat16> : run<__half>;
+  return body(which, q, k, v, dout, lse, delta, seg_q, seg_k, bias, dq, dk,
+              dv, B, H, HK, Sq, Sk, D, strides, scale, causal, dropout,
+              drop_threshold, drop_seed, drop_scale, stream);
 }
 
 }  // namespace
 
-// K2's bf16 tensor-core body, arguments as flash_bwd.cu's
-// paddle_flash_bwd_dq: dtype must be 1 (bfloat16), D 64 or 128, HK dividing
-// H, and q, k, v and dout rows 16-byte aligned (base pointers and the batch,
-// sequence and head strides, in elements). seg_q, seg_k (both or neither)
-// and bias may be null. Returns the cudaError_t of the launch (0 =
-// launched).
+// K2's 16-bit tensor-core body, arguments as flash_bwd.cu's
+// paddle_flash_bwd_dq: dtype must be 1 (bfloat16) or 2 (float16), D 64 or
+// 128, HK dividing H, and q, k, v and dout rows 16-byte aligned (base
+// pointers and the batch, sequence and head strides, in elements). seg_q,
+// seg_k (both or neither) and bias may be null. Returns the cudaError_t of
+// the launch (0 = launched).
 extern "C" int paddle_flash_bwd_dq_tc(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* seg_q, const void* seg_k,
@@ -842,12 +1224,13 @@ extern "C" int paddle_flash_bwd_dq_tc(
     unsigned drop_seed, float drop_scale, void* stream) {
   const long long strides[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                                  v_sb, v_ss, v_sh, do_sb, do_ss, do_sh};
-  return run(false, q, k, v, dout, lse, delta, seg_q, seg_k, bias, dq,
-             nullptr, B, H, HK, Sq, Sk, D, strides, scale, causal, dtype,
-             dropout, drop_threshold, drop_seed, drop_scale, stream);
+  return run_dtype(dtype, kDq, q, k, v, dout, lse, delta, seg_q, seg_k, bias,
+                   dq, nullptr, nullptr, B, H, HK, Sq, Sk, D, strides, scale,
+                   causal, dropout, drop_threshold, drop_seed, drop_scale,
+                   stream);
 }
 
-// K3's bf16 tensor-core body, arguments as paddle_flash_bwd_dq_tc with dk
+// K3's 16-bit tensor-core body, arguments as paddle_flash_bwd_dq_tc with dk
 // and dv ([B, Sk, HK, D]) for dq.
 extern "C" int paddle_flash_bwd_dkv_tc(
     const void* q, const void* k, const void* v, const void* dout,
@@ -860,9 +1243,32 @@ extern "C" int paddle_flash_bwd_dkv_tc(
     unsigned drop_seed, float drop_scale, void* stream) {
   const long long strides[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                                  v_sb, v_ss, v_sh, do_sb, do_ss, do_sh};
-  return run(true, q, k, v, dout, lse, delta, seg_q, seg_k, bias, dk, dv, B,
-             H, HK, Sq, Sk, D, strides, scale, causal, dtype, dropout,
-             drop_threshold, drop_seed, drop_scale, stream);
+  return run_dtype(dtype, kDkv, q, k, v, dout, lse, delta, seg_q, seg_k, bias,
+                   nullptr, dk, dv, B, H, HK, Sq, Sk, D, strides, scale,
+                   causal, dropout, drop_threshold, drop_seed, drop_scale,
+                   stream);
+}
+
+// K4b-fused's 16-bit tensor-core body (flash_packed_bwd_fused_tc_kernel):
+// dq, dk and dv ([B, Sq, H, 64] and [B, Sk, H, 64]) in one launch, one
+// cluster of ceil(Sk / 64) blocks a head. Arguments as paddle_flash_bwd_dq_tc
+// with dk and dv after dq; D must be 64, HK = H and Sk <= 512.
+extern "C" int paddle_flash_packed_bwd_fused_tc(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* seg_q, const void* seg_k,
+    const void* bias, void* dq, void* dk, void* dv, int B, int H, int HK,
+    int Sq, int Sk, int D, long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+    long long v_ss, long long v_sh, long long do_sb, long long do_ss,
+    long long do_sh, float scale, int causal, int dtype, int dropout,
+    unsigned drop_threshold, unsigned drop_seed, float drop_scale,
+    void* stream) {
+  const long long strides[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                                 v_sb, v_ss, v_sh, do_sb, do_ss, do_sh};
+  return run_dtype(dtype, kFused, q, k, v, dout, lse, delta, seg_q, seg_k,
+                   bias, dq, dk, dv, B, H, HK, Sq, Sk, D, strides, scale,
+                   causal, dropout, drop_threshold, drop_seed, drop_scale,
+                   stream);
 }
 
 // The width of a body's stage at head dim D (dkv = 0: dq's keys, 1: dk/dv's

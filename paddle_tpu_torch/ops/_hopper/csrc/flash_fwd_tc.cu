@@ -1,7 +1,8 @@
 // K1 and K4a-stream on the tensor cores: the flash-attention forward with an
-// online softmax over key stages, bf16, for Hopper (sm_90a), CUDA C++.
+// online softmax over key stages, bf16 or float16, for Hopper (sm_90a),
+// CUDA C++.
 //
-// Replaces, for bf16 inputs, two TPU kernels that compute one function:
+// Replaces, for 16-bit inputs, two TPU kernels that compute one function:
 //   paddle_tpu/ops/_pallas/flash_attention.py:_fwd_kernel (:224, launched by
 //     _fwd at :404): K1, any supported head dim, grouped-query KV;
 //   paddle_tpu/ops/_pallas/flash_attention_packed.py:_fwd_kernel (:102,
@@ -10,7 +11,10 @@
 // C entries. The float32 inputs stay on the CUDA-core bodies (flash_fwd.cu,
 // flash_packed_stream.cu): on the tensor cores float32 would mean TF32, which
 // is not the function the reference computes. The wrappers pick the body by
-// dtype and count their launches apart.
+// dtype and count their launches apart. bf16 is written below; float16 is the
+// same template over the element type T (mma.cuh), rounding p and o to
+// float16 where the bf16 body rounds to bf16, as JAX's kernel does for a
+// float16 input (its dots name an f32 result type whatever the input).
 //
 // What it computes, per query head h of batch row b (KV head h / (H / HK)),
 // rounded where the TPU kernels round:
@@ -140,11 +144,12 @@ struct Cfg {
   static constexpr int kQF = kQReg ? kKD : 1;     // Q fragments kept
 };
 
+template <typename T>
 struct FwdTcParams {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  __nv_bfloat16* o;
+  const T* q;
+  const T* k;
+  const T* v;
+  T* o;
   float* lse;
   const int* seg_q;    // null: no segments
   const int* seg_k;
@@ -168,9 +173,8 @@ constexpr size_t smem_bytes() {
 
 // rows [row0, row0 + n) of a [*, D] bf16 operand into padded smem rows, by
 // cp.async; rows at or past n_rows are zero
-template <int D>
-__device__ __forceinline__ void issue_rows(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* base,
+template <int D, typename T>
+__device__ __forceinline__ void issue_rows(T* dst, const T* base,
                                            long long row_stride, int row0,
                                            int n, int n_rows, int tid) {
   using C = Cfg<D>;
@@ -179,7 +183,7 @@ __device__ __forceinline__ void issue_rows(__nv_bfloat16* dst,
     const int seg = i - r * C::kSegs;
     const int row = row0 + r;
     const bool in = row < n_rows;
-    const __nv_bfloat16* src =
+    const T* src =
         in ? base + static_cast<long long>(row) * row_stride + seg * 8 : base;
     cp_async16(dst + r * C::kLd + seg * 8, src, in);
   }
@@ -189,11 +193,11 @@ __device__ __forceinline__ void issue_rows(__nv_bfloat16* dst,
 // mt's keys 8 nt .. 8 nt + 7 in mma.sync's accumulator layout. Each K
 // fragment feeds every m-tile. With kSkip, 16-key steps from n16 on are not
 // computed (their scores stay 0 and the caller masks them).
-template <int D, bool kSkip>
+template <int D, bool kSkip, typename T>
 __device__ __forceinline__ void stage_scores(
     float (&s)[Cfg<D>::kMT][Cfg<D>::kNT][4],
     const unsigned (&qf)[Cfg<D>::kMT][Cfg<D>::kQF][4],
-    const __nv_bfloat16* sQw, const __nv_bfloat16* sKs, int lane, int n16) {
+    const T* sQw, const T* sKs, int lane, int n16) {
   using C = Cfg<D>;
 #pragma unroll
   for (int mt = 0; mt < C::kMT; ++mt)
@@ -203,9 +207,9 @@ __device__ __forceinline__ void stage_scores(
       for (int e = 0; e < 4; ++e) s[mt][nt][e] = 0.f;
   // lane's ldmatrix row: key (lane >> 4) * 8 + (lane & 7) of a 16-key pair of
   // n-tiles, d half ((lane >> 3) & 1) of a 16-wide k-step
-  const __nv_bfloat16* kb =
+  const T* kb =
       sKs + ((lane >> 4) * 8 + (lane & 7)) * C::kLd + ((lane >> 3) & 1) * 8;
-  const __nv_bfloat16* qb = sQw + (lane & 15) * C::kLd + (lane >> 4) * 8;
+  const T* qb = sQw + (lane & 15) * C::kLd + (lane >> 4) * 8;
 #pragma unroll
   for (int kk = 0; kk < C::kKD; ++kk) {
     unsigned a[C::kMT][4];
@@ -225,8 +229,8 @@ __device__ __forceinline__ void stage_scores(
       ldmatrix_x4(b, kb + jp * 16 * C::kLd + kk * 16);
 #pragma unroll
       for (int mt = 0; mt < C::kMT; ++mt) {
-        mma_16816(s[mt][2 * jp], a[mt], b[0], b[1]);
-        mma_16816(s[mt][2 * jp + 1], a[mt], b[2], b[3]);
+        mma_16816<T>(s[mt][2 * jp], a[mt], b[0], b[1]);
+        mma_16816<T>(s[mt][2 * jp + 1], a[mt], b[2], b[3]);
       }
     }
   }
@@ -237,9 +241,9 @@ __device__ __forceinline__ void stage_scores(
 // key bias (0 without one). Without kTest a score is one FMA: the caller takes
 // that form only for a stage below the diagonal of all the warp's rows, inside
 // Sk, without segments. A key at or past Sk does not exist: -inf.
-template <int D, bool kTest, bool kSeg>
+template <int D, bool kTest, bool kSeg, typename T>
 __device__ __forceinline__ void stage_masks(
-    float (&s)[Cfg<D>::kMT][Cfg<D>::kNT][4], const FwdTcParams& p,
+    float (&s)[Cfg<D>::kMT][Cfg<D>::kNT][4], const FwdTcParams<T>& p,
     const float* sB, const int* sS, int k0, const int (&qi)[2 * Cfg<D>::kMT],
     const int (&segq)[2 * Cfg<D>::kMT], int offset, int tq) {
   using C = Cfg<D>;
@@ -270,18 +274,18 @@ __device__ __forceinline__ void stage_masks(
   }
 }
 
-// O += P V for the stage: p (s, already p * keep) rounded to bf16 in pairs
+// O += P V for the stage: p (s, already p * keep) rounded to T in pairs
 // into the A fragments of 16-key steps, V^T's fragments by ldmatrix.trans.
 // With kSkip, 16-key steps from n16 on are skipped (their p is 0).
-template <int D, bool kSkip>
+template <int D, bool kSkip, typename T>
 __device__ __forceinline__ void stage_values(
     float (&o)[Cfg<D>::kMT][Cfg<D>::kDT][4],
-    const float (&s)[Cfg<D>::kMT][Cfg<D>::kNT][4], const __nv_bfloat16* sVs,
+    const float (&s)[Cfg<D>::kMT][Cfg<D>::kNT][4], const T* sVs,
     int lane, int n16) {
   using C = Cfg<D>;
   // a lane's ldmatrix.trans row of V: key ((lane >> 3) & 1) * 8 + (lane & 7)
   // of a 16-key step, d half (lane >> 4) of a 16-wide pair of n-tiles
-  const __nv_bfloat16* vrow =
+  const T* vrow =
       sVs + (((lane >> 3) & 1) * 8 + (lane & 7)) * C::kLd + (lane >> 4) * 8;
 #pragma unroll
   for (int kk = 0; kk < C::kNT / 2; ++kk) {
@@ -289,20 +293,20 @@ __device__ __forceinline__ void stage_values(
     unsigned a[C::kMT][4];
 #pragma unroll
     for (int mt = 0; mt < C::kMT; ++mt) {
-      a[mt][0] = pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
-      a[mt][1] = pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
-      a[mt][2] = pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
-      a[mt][3] = pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
+      a[mt][0] = pack2<T>(s[mt][2 * kk][0], s[mt][2 * kk][1]);
+      a[mt][1] = pack2<T>(s[mt][2 * kk][2], s[mt][2 * kk][3]);
+      a[mt][2] = pack2<T>(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
+      a[mt][3] = pack2<T>(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
     }
-    const __nv_bfloat16* vk = vrow + kk * 16 * C::kLd;
+    const T* vk = vrow + kk * 16 * C::kLd;
 #pragma unroll
     for (int dp = 0; dp < C::kDT / 2; ++dp) {
       unsigned bv[4];
       ldmatrix_x4_trans(bv, vk + dp * 16);
 #pragma unroll
       for (int mt = 0; mt < C::kMT; ++mt) {
-        mma_16816(o[mt][2 * dp], a[mt], bv[0], bv[1]);
-        mma_16816(o[mt][2 * dp + 1], a[mt], bv[2], bv[3]);
+        mma_16816<T>(o[mt][2 * dp], a[mt], bv[0], bv[1]);
+        mma_16816<T>(o[mt][2 * dp + 1], a[mt], bv[2], bv[3]);
       }
     }
   }
@@ -311,11 +315,11 @@ __device__ __forceinline__ void stage_values(
 // The online softmax of one stage, in place: s becomes p * keep (f32, not yet
 // rounded); m, l and o are rescaled. A row whose max is still at NEG_INF has
 // no valid key so far: it takes exp(s - inf) = 0 at every key.
-template <int D, bool kDrop>
+template <int D, bool kDrop, typename T>
 __device__ __forceinline__ void stage_softmax(
     float (&s)[Cfg<D>::kMT][Cfg<D>::kNT][4],
     float (&o)[Cfg<D>::kMT][Cfg<D>::kDT][4], float (&m)[2 * Cfg<D>::kMT],
-    float (&l)[2 * Cfg<D>::kMT], const FwdTcParams& p, int bh, int k0,
+    float (&l)[2 * Cfg<D>::kMT], const FwdTcParams<T>& p, int bh, int k0,
     const int (&qi)[2 * Cfg<D>::kMT], int tq) {
   using C = Cfg<D>;
   float mx[2 * C::kMT];
@@ -367,16 +371,16 @@ __device__ __forceinline__ void stage_softmax(
 // kDrop: dropout.
 // ---------------------------------------------------------------------------
 
-template <int D, bool kSeg, bool kDrop>
+template <typename T, int D, bool kSeg, bool kDrop>
 __global__ void __launch_bounds__(Cfg<D>::kThreads)
-    flash_fwd_tc_kernel(const FwdTcParams p) {
+    flash_fwd_tc_kernel(const FwdTcParams<T> p) {
   using C = Cfg<D>;
   constexpr int kN = C::kN;
   constexpr int kLd = C::kLd;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + kTileQ * kLd;   // [2][kN][kLd]
-  __nv_bfloat16* sV = sK + 2 * kN * kLd;   // [2][kN][kLd]
+  T* sQ = reinterpret_cast<T*>(smem_raw);
+  T* sK = sQ + kTileQ * kLd;   // [2][kN][kLd]
+  T* sV = sK + 2 * kN * kLd;   // [2][kN][kLd]
   float* sBias = reinterpret_cast<float*>(sV + 2 * kN * kLd);   // [2][kN]
   int* sSegK = reinterpret_cast<int*>(sBias + 2 * kN);          // [2][kN]
 
@@ -396,9 +400,9 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads)
   const int qw0 = q0 + warp * C::kRowsW;   // the warp's first and last rows
   const int qw1 = qw0 + C::kRowsW - 1;
 
-  const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kb = p.k + b * p.k_sb + hk * p.k_sh;
-  const __nv_bfloat16* vb = p.v + b * p.v_sb + hk * p.v_sh;
+  const T* qb = p.q + b * p.q_sb + h * p.q_sh;
+  const T* kb = p.k + b * p.k_sb + hk * p.k_sh;
+  const T* vb = p.v + b * p.v_sb + hk * p.v_sh;
   const float* bias_row =
       p.bias != nullptr ? p.bias + static_cast<long long>(b) * p.Sk : nullptr;
   const int* segk_row =
@@ -450,7 +454,7 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads)
     segq[i] = kSeg && qi[i] < p.Sq
                   ? p.seg_q[static_cast<long long>(b) * p.Sq + qi[i]] : 0;
   }
-  const __nv_bfloat16* sQw = sQ + warp * C::kRowsW * kLd;
+  const T* sQw = sQ + warp * C::kRowsW * kLd;
   const bool rows_in = qw0 < p.Sq;
   // the keys the warp's rows need end here (past it: causally masked or
   // beyond Sk)
@@ -527,36 +531,36 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads)
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     l[i] = fmaxf(l[i], 1e-30f);
     if (qi[i] >= p.Sq) continue;
-    __nv_bfloat16* orow =
+    T* orow =
         p.o + ((static_cast<long long>(b) * p.Sq + qi[i]) * p.H + h) * D;
     const int mt = i >> 1, half = i & 1;
 #pragma unroll
     for (int dt = 0; dt < C::kDT; ++dt)
-      *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8 + tq * 2) =
-          __floats2bfloat162_rn(o[mt][dt][2 * half] / l[i],
-                                o[mt][dt][2 * half + 1] / l[i]);
+      *reinterpret_cast<unsigned*>(orow + dt * 8 + tq * 2) =
+          pack2<T>(o[mt][dt][2 * half] / l[i],
+                   o[mt][dt][2 * half + 1] / l[i]);
     if (tq == 0)
       p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + qi[i]] =
           m[i] + logf(l[i]);
   }
 }
 
-template <int D, bool kSeg, bool kDrop>
-cudaError_t launch(const FwdTcParams& p, cudaStream_t stream) {
+template <int D, bool kSeg, bool kDrop, typename T>
+cudaError_t launch(const FwdTcParams<T>& p, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
   // above 48 KB a block's shared memory must be opted into
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_tc_kernel<D, kSeg, kDrop>,
+      flash_fwd_tc_kernel<T, D, kSeg, kDrop>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(p.B * p.H, (p.Sq + kTileQ - 1) / kTileQ);
-  flash_fwd_tc_kernel<D, kSeg, kDrop>
+  flash_fwd_tc_kernel<T, D, kSeg, kDrop>
       <<<grid, Cfg<D>::kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t dispatch(const FwdTcParams& p, cudaStream_t s) {
+template <int D, typename T>
+cudaError_t dispatch(const FwdTcParams<T>& p, cudaStream_t s) {
   const bool seg = p.seg_q != nullptr;
   if (seg)
     return p.drop.on ? launch<D, true, true>(p, s)
@@ -565,13 +569,14 @@ cudaError_t dispatch(const FwdTcParams& p, cudaStream_t s) {
                    : launch<D, false, false>(p, s);
 }
 
-int run(const void* q, const void* k, const void* v, void* o, void* lse,
-        const void* seg_q, const void* seg_k, const void* bias, int B, int H,
-        int HK, int Sq, int Sk, int D, long long q_sb, long long q_ss,
-        long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-        long long v_sb, long long v_ss, long long v_sh, float scale,
-        int causal, int dtype, int dropout, unsigned drop_threshold,
-        unsigned drop_seed, float drop_scale, void* stream) {
+template <typename T>
+int run_t(const void* q, const void* k, const void* v, void* o, void* lse,
+          const void* seg_q, const void* seg_k, const void* bias, int B,
+          int H, int HK, int Sq, int Sk, int D, long long q_sb,
+          long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+          long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+          float scale, int causal, int dropout, unsigned drop_threshold,
+          unsigned drop_seed, float drop_scale, void* stream) {
   const long long strides[9] = {q_sb, q_ss, q_sh, k_sb, k_ss,
                                 k_sh, v_sb, v_ss, v_sh};
   bool aligned = (reinterpret_cast<uintptr_t>(q) |
@@ -579,14 +584,14 @@ int run(const void* q, const void* k, const void* v, void* o, void* lse,
                   reinterpret_cast<uintptr_t>(v)) % 16 == 0;
   for (long long s : strides) aligned = aligned && s % 8 == 0;
   if (B <= 0 || H <= 0 || HK <= 0 || H % HK || Sq <= 0 || Sk < 0 ||
-      dtype != 1 || !aligned || (seg_q == nullptr) != (seg_k == nullptr) ||
+      !aligned || (seg_q == nullptr) != (seg_k == nullptr) ||
       (Sq + kTileQ - 1) / kTileQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  FwdTcParams p = {};
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.o = static_cast<__nv_bfloat16*>(o);
+  FwdTcParams<T> p = {};
+  p.q = static_cast<const T*>(q);
+  p.k = static_cast<const T*>(k);
+  p.v = static_cast<const T*>(v);
+  p.o = static_cast<T*>(o);
   p.lse = static_cast<float*>(lse);
   p.seg_q = static_cast<const int*>(seg_q);
   p.seg_k = static_cast<const int*>(seg_k);
@@ -621,10 +626,26 @@ int run(const void* q, const void* k, const void* v, void* o, void* lse,
   }
 }
 
+// the body of dtype 1 (bfloat16) or 2 (float16)
+int run(const void* q, const void* k, const void* v, void* o, void* lse,
+        const void* seg_q, const void* seg_k, const void* bias, int B, int H,
+        int HK, int Sq, int Sk, int D, long long q_sb, long long q_ss,
+        long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+        long long v_sb, long long v_ss, long long v_sh, float scale,
+        int causal, int dtype, int dropout, unsigned drop_threshold,
+        unsigned drop_seed, float drop_scale, void* stream) {
+  if (dtype != 1 && dtype != 2) return static_cast<int>(cudaErrorInvalidValue);
+  auto body = dtype == 1 ? run_t<__nv_bfloat16> : run_t<__half>;
+  return body(q, k, v, o, lse, seg_q, seg_k, bias, B, H, HK, Sq, Sk, D, q_sb,
+              q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal,
+              dropout, drop_threshold, drop_seed, drop_scale, stream);
+}
+
 }  // namespace
 
-// K1's bf16 tensor-core body, arguments as flash_fwd.cu's paddle_flash_fwd:
-// dtype must be 1 (bfloat16), D 64, 128 or 256, and q, k and v rows 16-byte
+// K1's 16-bit tensor-core body, arguments as flash_fwd.cu's
+// paddle_flash_fwd: dtype must be 1 (bfloat16) or 2 (float16), D 64, 128 or
+// 256, and q, k and v rows 16-byte
 // aligned (base pointers and the batch, sequence and head strides). Strides
 // are in elements; seg_q, seg_k (both or neither) and bias may be null.
 // Returns the cudaError_t of the launch (0 = launched).
@@ -641,7 +662,7 @@ extern "C" int paddle_flash_fwd_tc(
              dtype, dropout, drop_threshold, drop_seed, drop_scale, stream);
 }
 
-// K4a-stream's bf16 tensor-core body, arguments as flash_packed_stream.cu's
+// K4a-stream's 16-bit tensor-core body, arguments as flash_packed_stream.cu's
 // paddle_flash_packed_fwd_stream: the same body at D = 64 with HK = H.
 extern "C" int paddle_flash_packed_fwd_stream_tc(
     const void* q, const void* k, const void* v, void* o, void* lse,

@@ -83,6 +83,7 @@
 // still here in both dtypes.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include "dropout.cuh"
@@ -124,6 +125,7 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -134,6 +136,10 @@ __device__ __forceinline__ float from_float<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half(x);
 }
 
 // x rounded to T and back: the points where the TPU kernels cast
@@ -754,7 +760,7 @@ StreamParams make_bwd_params(const void* q, const void* k, const void* v,
   return p;
 }
 
-// the streamed dk/dv in float32; dk/dv-direct in float32 or bf16
+// the streamed dk/dv in float32; dk/dv-direct in float32, bf16 or float16
 template <bool Direct>
 int launch_dkv(const StreamParams& p, int dtype, cudaStream_t s) {
   const size_t smem = dkv_smem_bytes(Direct);
@@ -766,6 +772,9 @@ int launch_dkv(const StreamParams& p, int dtype, cudaStream_t s) {
       return static_cast<int>(
           launch(flash_packed_bwd_dkv_kernel<__nv_bfloat16, true>,
                  key_grid(p), smem, p, s));
+    if (dtype == 2)
+      return static_cast<int>(launch(flash_packed_bwd_dkv_kernel<__half, true>,
+                                     key_grid(p), smem, p, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -849,7 +858,7 @@ extern "C" int paddle_flash_packed_bwd_dkv(
 }
 
 // flash_packed_bwd_dkv_direct: as flash_packed_bwd_dkv, for Sq <= 512, in
-// float32 (dtype 0) or bf16 (dtype 1).
+// float32 (dtype 0), bf16 (dtype 1) or float16 (dtype 2).
 extern "C" int paddle_flash_packed_bwd_dkv_direct(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* seg_q, const void* seg_k,

@@ -1,8 +1,11 @@
 // K4a-direct on the tensor cores: flash attention at head dim 64 with the
-// whole key sequence in one tile, bf16, for Hopper (sm_90a), CUDA C++.
+// whole key sequence in one tile, bf16 or float16, for Hopper (sm_90a), CUDA
+// C++.
 //
 // Replaces paddle_tpu/ops/_pallas/flash_attention_packed.py:_fwd_kernel_direct
-// (:165, launched by _fwd at :238) for bf16 inputs; flash_packed.cu keeps the
+// (:165, launched by _fwd at :238) for 16-bit inputs (bf16 is written below;
+// float16 is the same template over the element type, mma.cuh, rounding
+// where bf16 rounds, as JAX's kernel does); flash_packed.cu keeps the
 // CUDA-core body of the same kernel for float32 (on the tensor cores float32
 // would mean TF32, which is not the function the reference computes). The
 // wrapper picks the body by dtype and counts their launches apart.
@@ -89,11 +92,12 @@ constexpr int kLd = kD + 8;              // padded row of K, V and Q in smem
 constexpr int kSegs = kD * 2 / 16;       // 16-byte pieces of a row
 constexpr float kNegInf = -1e30f;        // NEG_INF of the TPU kernels
 
+template <typename T>
 struct TcParams {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  __nv_bfloat16* o;
+  const T* q;
+  const T* k;
+  const T* v;
+  T* o;
   float* lse;
   const int* seg_q;    // null: no segments
   const int* seg_k;
@@ -109,8 +113,8 @@ struct TcParams {
 
 // rows [row0, row0 + n) of a [*, 64] bf16 operand into the padded smem rows
 // from dst on, by cp.async; rows at or past n_rows are zero
-__device__ __forceinline__ void issue_rows(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* base,
+template <typename T>
+__device__ __forceinline__ void issue_rows(T* dst, const T* base,
                                            long long row_stride, int row0,
                                            int n, int n_rows, int tid) {
   for (int i = tid; i < n * kSegs; i += kThreads) {
@@ -118,7 +122,7 @@ __device__ __forceinline__ void issue_rows(__nv_bfloat16* dst,
     const int seg = i - r * kSegs;
     const int row = row0 + r;
     const bool in = row < n_rows;
-    const __nv_bfloat16* src =
+    const T* src =
         in ? base + static_cast<long long>(row) * row_stride + seg * 8 : base;
     cp_async16(dst + r * kLd + seg * 8, src, in);
   }
@@ -130,8 +134,9 @@ __device__ __forceinline__ void issue_rows(__nv_bfloat16* dst,
 // then + bias. sBias holds the key bias (0 without one) and -inf past Sk, so
 // a key that does not exist is masked with no test. Without causal masks or
 // segments (kMasked false) a score is one FMA.
-template <bool kMasked>
-__device__ __forceinline__ void score_tile(const TcParams& p, float (&acc)[4],
+template <bool kMasked, typename T>
+__device__ __forceinline__ void score_tile(const TcParams<T>& p,
+                                           float (&acc)[4],
                                            int qi0, int qi1, int kj0,
                                            int offset, int segq0, int segq1,
                                            const int* sSegK,
@@ -168,10 +173,10 @@ size_t smem_bytes(int sk) {
 // S = Q K^T for the warp's 32 rows (two m-tiles) and the 32 keys of chunk c:
 // acc[mt][j] holds m-tile mt's keys c*32 + 8j .. 8j+7 in mma.sync's
 // accumulator layout; each K fragment feeds both m-tiles
+template <typename T>
 __device__ __forceinline__ void chunk_scores(float (&acc)[2][4][4],
                                              const unsigned (&qf)[2][4][4],
-                                             const __nv_bfloat16* sK, int c,
-                                             int lane) {
+                                             const T* sK, int c, int lane) {
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -180,7 +185,7 @@ __device__ __forceinline__ void chunk_scores(float (&acc)[2][4][4],
       for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
   // lane's ldmatrix row: key (lane >> 4) * 8 + (lane & 7) of a 16-key pair of
   // n-tiles, d half ((lane >> 3) & 1) of a 16-wide k-step
-  const __nv_bfloat16* kb = sK + (c * kChunk + (lane >> 4) * 8 + (lane & 7)) *
+  const T* kb = sK + (c * kChunk + (lane >> 4) * 8 + (lane & 7)) *
                                      kLd + ((lane >> 3) & 1) * 8;
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
@@ -190,8 +195,8 @@ __device__ __forceinline__ void chunk_scores(float (&acc)[2][4][4],
       ldmatrix_x4(b, kb + jp * 16 * kLd + kk * 16);
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
-        mma_16816(acc[mt][2 * jp], qf[mt][kk], b[0], b[1]);
-        mma_16816(acc[mt][2 * jp + 1], qf[mt][kk], b[2], b[3]);
+        mma_16816<T>(acc[mt][2 * jp], qf[mt][kk], b[0], b[1]);
+        mma_16816<T>(acc[mt][2 * jp + 1], qf[mt][kk], b[2], b[3]);
       }
     }
 }
@@ -200,16 +205,16 @@ __device__ __forceinline__ void chunk_scores(float (&acc)[2][4][4],
 // Grid (B*H), 256 threads. kMasked: causal or segments; kDrop: dropout.
 // ---------------------------------------------------------------------------
 
-template <bool kMasked, bool kDrop>
+template <typename T, bool kMasked, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_packed_fwd_tc_kernel(const TcParams p) {
+    flash_packed_fwd_tc_kernel(const TcParams<T> p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int n_groups = (p.Sk + kGroup - 1) / kGroup;
   const int skp = n_groups * kGroup;
   const int n_chunks = (p.Sk + kChunk - 1) / kChunk;
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sV = sK + skp * kLd;
-  __nv_bfloat16* sQ = sV + skp * kLd;
+  T* sK = reinterpret_cast<T*>(smem_raw);
+  T* sV = sK + skp * kLd;
+  T* sQ = sV + skp * kLd;
   float* sBias = reinterpret_cast<float*>(sQ + kTileQ * kLd);
   int* sSegK = reinterpret_cast<int*>(sBias + skp);
 
@@ -224,9 +229,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int offset = p.Sk - p.Sq;
   const int n_qt = (p.Sq + kTileQ - 1) / kTileQ;
 
-  const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vb = p.v + b * p.v_sb + h * p.v_sh;
+  const T* qb = p.q + b * p.q_sb + h * p.q_sh;
+  const T* kb = p.k + b * p.k_sb + h * p.k_sh;
+  const T* vb = p.v + b * p.v_sb + h * p.v_sh;
 
   // cp.async groups, in order: the first query tile, then K by 64-key group,
   // then V by group; the masks by plain loads
@@ -251,7 +256,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // a lane's ldmatrix.trans row of V: key ((lane >> 3) & 1) * 8 + (lane & 7)
   // of a 16-key k-step, d half (lane >> 4) of a 16-wide pair of n-tiles
-  const __nv_bfloat16* vrow =
+  const T* vrow =
       sV + (((lane >> 3) & 1) * 8 + (lane & 7)) * kLd + (lane >> 4) * 8;
 
   for (int qt = 0; qt < n_qt; ++qt) {
@@ -264,7 +269,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     unsigned qf[2][4][4];
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt) {
-      const __nv_bfloat16* qrow =
+      const T* qrow =
           sQ + (warp * kRowsW + mt * 16 + (lane & 15)) * kLd + (lane >> 4) * 8;
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) ldmatrix_x4(qf[mt][kk], qrow + kk * 16);
@@ -365,20 +370,20 @@ __global__ void __launch_bounds__(kThreads, 1)
         unsigned a[2][4];
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
-          a[mt][0] = pack_bf16(acc[mt][2 * kk][0], acc[mt][2 * kk][1]);
-          a[mt][1] = pack_bf16(acc[mt][2 * kk][2], acc[mt][2 * kk][3]);
-          a[mt][2] = pack_bf16(acc[mt][2 * kk + 1][0], acc[mt][2 * kk + 1][1]);
-          a[mt][3] = pack_bf16(acc[mt][2 * kk + 1][2], acc[mt][2 * kk + 1][3]);
+          a[mt][0] = pack2<T>(acc[mt][2 * kk][0], acc[mt][2 * kk][1]);
+          a[mt][1] = pack2<T>(acc[mt][2 * kk][2], acc[mt][2 * kk][3]);
+          a[mt][2] = pack2<T>(acc[mt][2 * kk + 1][0], acc[mt][2 * kk + 1][1]);
+          a[mt][3] = pack2<T>(acc[mt][2 * kk + 1][2], acc[mt][2 * kk + 1][3]);
         }
-        const __nv_bfloat16* vk = vrow + (c * kChunk + kk * 16) * kLd;
+        const T* vk = vrow + (c * kChunk + kk * 16) * kLd;
 #pragma unroll
         for (int dp = 0; dp < 4; ++dp) {
           unsigned bv[4];
           ldmatrix_x4_trans(bv, vk + dp * 16);
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt) {
-            mma_16816(oacc[mt][2 * dp], a[mt], bv[0], bv[1]);
-            mma_16816(oacc[mt][2 * dp + 1], a[mt], bv[2], bv[3]);
+            mma_16816<T>(oacc[mt][2 * dp], a[mt], bv[0], bv[1]);
+            mma_16816<T>(oacc[mt][2 * dp + 1], a[mt], bv[2], bv[3]);
           }
         }
       }
@@ -390,15 +395,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
       l[i] = fmaxf(l[i], 1e-30f);
       if (qi[i] >= p.Sq) continue;
-      __nv_bfloat16* orow =
+      T* orow =
           p.o + ((static_cast<long long>(b) * p.Sq + qi[i]) * p.H + h) * kD;
       const float inv = 1.f / l[i];
       const int mt = i >> 1, half = i & 1;
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + tq * 2) =
-            __floats2bfloat162_rn(oacc[mt][j][2 * half] * inv,
-                                  oacc[mt][j][2 * half + 1] * inv);
+        *reinterpret_cast<unsigned*>(orow + j * 8 + tq * 2) =
+            pack2<T>(oacc[mt][j][2 * half] * inv,
+                     oacc[mt][j][2 * half + 1] * inv);
       if (tq == 0)
         p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + qi[i]] =
             mx[i] + logf(l[i]);
@@ -406,48 +411,32 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <bool kMasked, bool kDrop>
-cudaError_t launch(const TcParams& p, cudaStream_t stream) {
+template <bool kMasked, bool kDrop, typename T>
+cudaError_t launch(const TcParams<T>& p, cudaStream_t stream) {
   const size_t smem = smem_bytes(p.Sk);
   // above 48 KB a block's shared memory must be opted into
   cudaError_t err = cudaFuncSetAttribute(
-      flash_packed_fwd_tc_kernel<kMasked, kDrop>,
+      flash_packed_fwd_tc_kernel<T, kMasked, kDrop>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  flash_packed_fwd_tc_kernel<kMasked, kDrop>
+  flash_packed_fwd_tc_kernel<T, kMasked, kDrop>
       <<<p.B * p.H, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// K4a-direct's bf16 tensor-core body, arguments as flash_packed.cu's
-// paddle_flash_packed_fwd: dtype must be 1 (bfloat16); q, k and v rows must be
-// 16-byte aligned (base pointers and the batch, sequence and head strides).
-// Strides are in elements; seg_q, seg_k (both or neither) and bias may be null.
-// Returns the cudaError_t of the launch (0 = launched).
-extern "C" int paddle_flash_packed_fwd_tc(
-    const void* q, const void* k, const void* v, void* o, void* lse,
-    const void* seg_q, const void* seg_k, const void* bias, int B, int H,
-    int HK, int Sq, int Sk, int D, long long q_sb, long long q_ss,
-    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh, float scale, int causal,
-    int dtype, int dropout, unsigned drop_threshold, unsigned drop_seed,
-    float drop_scale, void* stream) {
-  const long long strides[9] = {q_sb, q_ss, q_sh, k_sb, k_ss,
-                                k_sh, v_sb, v_ss, v_sh};
-  bool aligned = (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                  reinterpret_cast<uintptr_t>(v)) % 16 == 0;
-  for (long long s : strides) aligned = aligned && s % 8 == 0;
-  if (B <= 0 || H <= 0 || HK != H || Sq <= 0 || Sk <= 0 || Sk > kMaxSk ||
-      D != kD || dtype != 1 || !aligned ||
-      (seg_q == nullptr) != (seg_k == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  TcParams p = {};
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.o = static_cast<__nv_bfloat16*>(o);
+template <typename T>
+int run(const void* q, const void* k, const void* v, void* o, void* lse,
+        const void* seg_q, const void* seg_k, const void* bias, int B, int H,
+        int Sq, int Sk, long long q_sb, long long q_ss, long long q_sh,
+        long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+        long long v_ss, long long v_sh, float scale, int causal, int dropout,
+        unsigned drop_threshold, unsigned drop_seed, float drop_scale,
+        void* stream) {
+  TcParams<T> p = {};
+  p.q = static_cast<const T*>(q);
+  p.k = static_cast<const T*>(k);
+  p.v = static_cast<const T*>(v);
+  p.o = static_cast<T*>(o);
   p.lse = static_cast<float*>(lse);
   p.seg_q = static_cast<const int*>(seg_q);
   p.seg_k = static_cast<const int*>(seg_k);
@@ -476,6 +465,37 @@ extern "C" int paddle_flash_packed_fwd_tc(
   else
     err = dropout ? launch<false, true>(p, s) : launch<false, false>(p, s);
   return static_cast<int>(err);
+}
+
+
+}  // namespace
+
+// K4a-direct's 16-bit tensor-core body, arguments as flash_packed.cu's
+// paddle_flash_packed_fwd: dtype must be 1 (bfloat16) or 2 (float16); q, k
+// and v rows must be 16-byte aligned (base pointers and the batch, sequence
+// and head strides). Strides are in elements; seg_q, seg_k (both or neither)
+// and bias may be null. Returns the cudaError_t of the launch (0 = launched).
+extern "C" int paddle_flash_packed_fwd_tc(
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    const void* seg_q, const void* seg_k, const void* bias, int B, int H,
+    int HK, int Sq, int Sk, int D, long long q_sb, long long q_ss,
+    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, float scale, int causal,
+    int dtype, int dropout, unsigned drop_threshold, unsigned drop_seed,
+    float drop_scale, void* stream) {
+  const long long strides[9] = {q_sb, q_ss, q_sh, k_sb, k_ss,
+                                k_sh, v_sb, v_ss, v_sh};
+  bool aligned = (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                  reinterpret_cast<uintptr_t>(v)) % 16 == 0;
+  for (long long s : strides) aligned = aligned && s % 8 == 0;
+  if (B <= 0 || H <= 0 || HK != H || Sq <= 0 || Sk <= 0 || Sk > kMaxSk ||
+      D != kD || (dtype != 1 && dtype != 2) || !aligned ||
+      (seg_q == nullptr) != (seg_k == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto body = dtype == 1 ? run<__nv_bfloat16> : run<__half>;
+  return body(q, k, v, o, lse, seg_q, seg_k, bias, B, H, Sq, Sk, q_sb, q_ss,
+              q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal,
+              dropout, drop_threshold, drop_seed, drop_scale, stream);
 }
 
 extern "C" const char* paddle_cuda_error_string(int err) {

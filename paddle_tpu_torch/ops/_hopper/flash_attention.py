@@ -3,11 +3,12 @@
 Port of ``paddle_tpu/ops/_pallas/flash_attention.py``: ``_fwd`` driving
 ``_fwd_kernel`` (K1) and ``_bwd`` driving ``_bwd_dq_kernel`` (K2) and
 ``_bwd_dkv_kernel`` (K3). The kernels are ``csrc/flash_fwd_tc.cu`` (K1 in
-bf16, on the tensor cores), ``csrc/flash_fwd.cu`` (K1 in float32, on the
-CUDA cores: on the tensor cores float32 would mean TF32),
-``csrc/flash_bwd_tc.cu`` (K2 and K3 in bf16 at head dims 64 and 128, on the
-tensor cores) and ``csrc/flash_bwd.cu`` (K2 and K3 in float32, and in bf16
-at head dim 256, on the CUDA cores), built by ``nvcc`` at first use
+bf16 and float16, on the tensor cores), ``csrc/flash_fwd.cu`` (K1 in
+float32, on the CUDA cores: on the tensor cores float32 would mean TF32),
+``csrc/flash_bwd_tc.cu`` (K2 and K3 in bf16 and float16 at head dims 64 and
+128, on the tensor cores) and ``csrc/flash_bwd.cu`` (K2 and K3 in float32,
+and in bf16 and float16 at head dim 256, on the CUDA cores), built by
+``nvcc`` at first use
 (:mod:`.build`) and called through ``ctypes``. :func:`flash_fwd` picks K1's
 body by dtype, :func:`flash_bwd_dq` and :func:`flash_bwd_dkv` K2's and K3's
 by dtype and head dim, openly, and each body counts its launches
@@ -48,8 +49,9 @@ torch; the attention sources share ``csrc/dropout.cuh``.
 
 On a CUDA tensor each wrapper launches its kernel, or raises on anything
 the kernel does not take (head dim outside {64, 128, 256}, a dtype other
-than float32 or bfloat16, a last dimension that is not dense, bf16 rows not
-16-byte aligned); each launch
+than float32, bfloat16 or float16 (JAX's kernels take float16 as they take
+bf16, and the 16-bit bodies are one template over the two), a last
+dimension that is not dense, 16-bit rows not 16-byte aligned); each launch
 adds one to the wrapper's ``launches``. On a CPU tensor
 :func:`flash_fwd_reference` and :func:`flash_bwd_reference`, the plain
 PyTorch versions of the same functions, run instead. Nothing falls back
@@ -73,21 +75,24 @@ __all__ = ["flash_fwd", "flash_fwd_tc", "flash_fwd_reference", "flash_bwd",
            "kernel_arg_error", "NEG_INF", "SUPPORTED_HEAD_DIMS",
            "AttnDropout", "keep_threshold", "keep_scale",
            "dropout_keep_dense", "Masks", "NO_MASKS", "TC_KEY_TILE",
+           "TC_DTYPES",
            "CUDA_CORE_KEY_TILE", "kernel_key_tile", "require_aligned_rows"]
 
 NEG_INF = -1e30  # the TPU kernel's masked score, kept for its lse convention
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
-#: keys a stage of the bf16 tensor-core body (csrc/flash_fwd_tc.cu) takes,
+#: keys a stage of the 16-bit tensor-core body (csrc/flash_fwd_tc.cu) takes,
 #: by head dim: the points where it rounds p (the body reports its own,
 #: paddle_flash_fwd_tc_stage, and chip_smoke.py holds the two equal)
 TC_KEY_TILE = {64: 128, 128: 128, 256: 64}
-#: head dims whose bf16 K2/K3 run on the tensor-core bodies
-#: (csrc/flash_bwd_tc.cu); bf16 at 256 and float32 stay on flash_bwd.cu
+#: head dims whose bf16 and float16 K2/K3 run on the tensor-core bodies
+#: (csrc/flash_bwd_tc.cu); 16 bits at 256 and float32 stay on flash_bwd.cu
 TC_BWD_HEAD_DIMS = (64, 128)
 #: keys a tile of the float32 CUDA-core bodies (flash_fwd.cu,
 #: flash_packed_stream.cu) takes
 CUDA_CORE_KEY_TILE = 64
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: the types the tensor-core bodies take (mma.cuh's element trait)
+TC_DTYPES = (torch.bfloat16, torch.float16)
 
 #: ``(seg_q [B, Sq] int32, seg_k [B, Sk] int32, bias [B, Sk] f32)``, each
 #: dense or None
@@ -297,7 +302,7 @@ def kernel_arg_error(q, k, v, masks: Masks = NO_MASKS) -> Optional[str]:
     if d not in SUPPORTED_HEAD_DIMS:
         return f"head dim {d} not in {SUPPORTED_HEAD_DIMS}"
     if q.dtype not in _DTYPE_CODE:
-        return f"dtype {q.dtype} is not float32 or bfloat16"
+        return f"dtype {q.dtype} is not float32, bfloat16 or float16"
     if k.dtype != q.dtype or v.dtype != q.dtype:
         return f"q, k, v dtypes differ ({q.dtype}, {k.dtype}, {v.dtype})"
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -311,7 +316,8 @@ def kernel_arg_error(q, k, v, masks: Masks = NO_MASKS) -> Optional[str]:
 
 def kernel_key_tile(dtype: torch.dtype, d: int) -> int:
     """The keys a stage of the CUDA body that ``dtype`` and head dim ``d``
-    reach takes: the tensor-core body's stage for bf16 (``TC_KEY_TILE``),
+    reach takes: the tensor-core body's stage for bf16 and float16
+    (``TC_KEY_TILE``),
     the CUDA-core bodies' 64-key tile for float32. The plain versions walk
     the same stages by default, so they round p where the kernel rounds it
     (in float32 the rounding is the identity and only the order of the sums
@@ -412,10 +418,11 @@ def _toward_zero_f32(x: torch.Tensor) -> torch.Tensor:
 
 
 def mma_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``einsum("bqhd,bkhd->bhqk", a, b)`` of bf16 ``a [B, Sq, H, D]`` and
+    """``einsum("bqhd,bkhd->bhqk", a, b)`` of bf16 or float16 ``a [B, Sq,
+    H, D]`` and
     ``b [B, Sk, HK, D]`` (``HK`` dividing ``H``: query head h takes b's head
     ``h // (H / HK)``) in float32, summed over d as Hopper's
-    ``mma.sync.m16n8k16`` sums bf16 products into a float32 accumulator, in
+    ``mma.sync.m16n8k16`` sums 16-bit products into a float32 accumulator, in
     steps of 16 in the order of d: in each step the products (exact) and
     the running sum are truncated toward zero to the grid 2^(E - 25), E the
     largest exponent among them (a product's exponent taken as the sum of
@@ -472,7 +479,7 @@ def flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     here but the order of the f32 sums.
     Grouped-query dk/dv sum over each KV head's query heads. ``first_head``
     as :func:`flash_fwd_reference` takes it. ``mma_sums`` sums ``dp = dO
-    v^T`` as the bf16 tensor-core bodies do (:func:`mma_dot`), which is how
+    v^T`` as the 16-bit tensor-core bodies do (:func:`mma_dot`), which is how
     the card holds those bodies to this: in a row whose every key carries
     the -1e9 padding bias, the f32 lse absorbs log l, so p = 1 at each key
     and ds is l times its usual size, and a dp summed in another order
@@ -550,7 +557,7 @@ def _mask_ptrs(masks: Masks):
 def require_aligned_rows(what: str, *named) -> None:
     """Raise unless every ``(name, tensor)`` starts on 16 bytes and has
     batch, sequence and head strides of whole 8-value pieces: the tensor-core
-    bodies read bf16 rows by 16-byte copies."""
+    bodies read 16-bit rows by 16-byte copies."""
     for name, t in named:
         if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
             raise ValueError(f"{what} kernel cannot take these inputs: "
@@ -560,10 +567,11 @@ def require_aligned_rows(what: str, *named) -> None:
 
 def _launch(q, k, v, causal: bool, scale: float,
             dropout: Optional[AttnDropout] = None, masks: Masks = NO_MASKS):
-    """K1 on CUDA tensors, from the body of q's dtype: bf16 the tensor-core
-    body (``flash_fwd_tc.cu``, counted by :func:`flash_fwd_tc`), float32 the
-    CUDA-core body (``flash_fwd.cu``, counted by :func:`flash_fwd`)."""
-    tc = q.dtype == torch.bfloat16
+    """K1 on CUDA tensors, from the body of q's dtype: bf16 and float16 the
+    tensor-core body (``flash_fwd_tc.cu``, counted by :func:`flash_fwd_tc`),
+    float32 the CUDA-core body (``flash_fwd.cu``, counted by
+    :func:`flash_fwd`)."""
+    tc = q.dtype in TC_DTYPES
     what = "flash_fwd_tc" if tc else "flash_fwd"
     if tc:
         require_aligned_rows(what, ("q", q), ("k", k), ("v", v))
@@ -611,8 +619,9 @@ def _require_kernel_inputs(q, k, v, do, lse, delta, masks: Masks):
 
 def _bwd_body_tc(q) -> bool:
     """Whether K2 and K3 of q's dtype and head dim run on the tensor-core
-    bodies (bf16 at ``TC_BWD_HEAD_DIMS``) or on the CUDA-core ones."""
-    return q.dtype == torch.bfloat16 and q.shape[-1] in TC_BWD_HEAD_DIMS
+    bodies (bf16 and float16 at ``TC_BWD_HEAD_DIMS``) or on the CUDA-core
+    ones."""
+    return q.dtype in TC_DTYPES and q.shape[-1] in TC_BWD_HEAD_DIMS
 
 
 def _launch_bwd(which: str, tc: bool, q, k, v, do, lse, delta, causal: bool,
@@ -646,7 +655,8 @@ def _require_tc(q, what: str) -> None:
     """Raise unless q's dtype and head dim are the tensor-core bodies'."""
     if not _bwd_body_tc(q):
         raise ValueError(
-            f"{what} takes bfloat16 at head dims {TC_BWD_HEAD_DIMS}, not "
+            f"{what} takes bfloat16 at head dims {TC_BWD_HEAD_DIMS} (and "
+            f"float16 there), not "
             f"{q.dtype} at {q.shape[-1]} ({what[:-3]} runs those on its "
             f"CUDA-core body)")
 
@@ -656,9 +666,9 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
                  masks: Masks = NO_MASKS) -> torch.Tensor:
     """K2 on CUDA tensors: ``dq [B, Sq, H, D]`` from q, k, v, do, K1's lse
     and ``delta`` (both dense ``[B, H, Sq]`` float32), with K1's
-    ``masks``. bf16 at head dims 64 and 128 runs the tensor-core body
-    (counted by :func:`flash_bwd_dq_tc`), float32 and bf16 at 256 the
-    CUDA-core body (counted here)."""
+    ``masks``. bf16 and float16 at head dims 64 and 128 run the tensor-core
+    body (counted by :func:`flash_bwd_dq_tc`), float32 and 16 bits at 256
+    the CUDA-core body (counted here)."""
     return _launch_bwd("dq", _bwd_body_tc(q), q, k, v, do, lse, delta,
                        causal, scale, dropout, masks)
 
@@ -678,7 +688,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
 def flash_bwd_dq_tc(q, k, v, do, lse, delta, causal: bool, scale: float,
                     dropout: Optional[AttnDropout] = None,
                     masks: Masks = NO_MASKS) -> torch.Tensor:
-    """K2's tensor-core body alone (bf16 at head dims 64 and 128, rows
+    """K2's tensor-core body alone (bf16 or float16 at head dims 64 and 128,
+    rows
     16-byte aligned; anything else raises), arguments as
     :func:`flash_bwd_dq`, which reaches it for every such input."""
     _require_tc(q, "flash_bwd_dq_tc")
@@ -812,9 +823,9 @@ def flash_fwd_tc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  dropout: Optional[AttnDropout] = None,
                  masks: Masks = NO_MASKS
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1's tensor-core body (bf16 only): the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors. Not differentiable itself;
-    :func:`flash_fwd` reaches it for every bf16 CUDA input."""
+    """K1's tensor-core body (bf16 and float16): the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors. Not differentiable itself;
+    :func:`flash_fwd` reaches it for every 16-bit CUDA input."""
     _shapes(q, k, v)
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
     if q.device.type == "cpu":
@@ -823,9 +834,10 @@ def flash_fwd_tc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd_tc runs on CUDA or the CPU, not "
                          f"{q.device}")
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"flash_fwd_tc takes bfloat16, not {q.dtype} "
-                         f"(flash_fwd runs float32 on its CUDA-core body)")
+    if q.dtype not in TC_DTYPES:
+        raise ValueError(f"flash_fwd_tc takes bfloat16 or float16, not "
+                         f"{q.dtype} (flash_fwd runs float32 on its CUDA-core "
+                         f"body)")
     why = kernel_arg_error(q, k, v, masks)
     if why is not None:
         raise ValueError(f"flash_fwd_tc kernel cannot take these inputs: "
@@ -867,9 +879,9 @@ def flash_attention_hopper(query: torch.Tensor, key: torch.Tensor,
 
 
 #: kernel launches since each count was last set to 0 (CUDA path only);
-#: flash_fwd counts K1's float32 body, flash_fwd_tc its bf16 tensor-core
+#: flash_fwd counts K1's float32 body, flash_fwd_tc its 16-bit tensor-core
 #: body; flash_bwd_dq/_dkv count K2/K3's CUDA-core bodies, flash_bwd_dq_tc/
-#: _dkv_tc their bf16 tensor-core bodies at head dims 64 and 128
+#: _dkv_tc their 16-bit tensor-core bodies at head dims 64 and 128
 flash_fwd.launches = 0
 flash_fwd_tc.launches = 0
 flash_bwd_dq.launches = 0

@@ -2,14 +2,17 @@
 
 Port of ``paddle_tpu/ops/_pallas/flash_attention_packed.py``. Where the
 whole key sequence fits one of the JAX package's tiles (Sk <= 512 at 12
-heads) it runs the forward ``_fwd_kernel_direct`` (K4a-direct: bf16 on the
-tensor cores, ``csrc/flash_packed_tc.cu``; float32 on the CUDA cores,
-``csrc/flash_packed.cu``) and the fused backward ``_bwd_fused_kernel``
-(K4b-fused, ``csrc/flash_packed.cu``);
+heads) it runs the forward ``_fwd_kernel_direct`` (K4a-direct: bf16 and
+float16 on the tensor cores, ``csrc/flash_packed_tc.cu``; float32 on the
+CUDA cores, ``csrc/flash_packed.cu``) and the fused backward
+``_bwd_fused_kernel`` (K4b-fused: bf16 and float16 on the tensor cores, one
+thread-block cluster a head, ``csrc/flash_bwd_tc.cu``; float32 on the CUDA
+cores, ``csrc/flash_packed.cu``);
 where it does not, the streamed forms ``_fwd_kernel``, ``_bwd_dq_kernel``
 and ``_bwd_dkv_kernel``, and ``_bwd_dkv_kernel_direct`` when all the
 queries fit one tile while the keys do not, as ``csrc/flash_packed_stream.cu``
-(the streamed forward, dq and dk/dv in float32; in bf16 the forward is K1's
+(the streamed forward, dq and dk/dv in float32; in bf16 and float16 the
+forward is K1's
 tensor-core body, ``csrc/flash_fwd_tc.cu``, since ``_fwd_kernel`` is K1's
 function at head dim 64 with as many KV heads as heads, and dq and dk/dv
 run K2's and K3's tensor-core bodies, ``csrc/flash_bwd_tc.cu``, since
@@ -28,18 +31,23 @@ public ``[B, S, H, 64]`` layout through strides, one head per block.
 - :func:`flash_packed_fwd` (K4a-direct) and :func:`flash_packed_fwd_stream`
   ``-> (o [B, Sq, H, 64], lse [B, H, Sq] f32)``; on the card
   :func:`flash_packed_fwd` picks K4a-direct's body by dtype, openly: bf16
-  the tensor-core body (counted in ``flash_packed_fwd_tc.launches``), float32
-  the CUDA-core body (``flash_packed_fwd.launches``), whose f32 products are
+  and float16 the tensor-core body (counted in
+  ``flash_packed_fwd_tc.launches``), float32 the CUDA-core body
+  (``flash_packed_fwd.launches``), whose f32 products are
   the reference's (on the tensor cores f32 would be TF32); nothing falls back
   from one body to the other; :func:`flash_packed_fwd_stream` the same way
   (``flash_packed_fwd_stream_tc.launches``, ``flash_packed_fwd_stream.
   launches``);
 - :func:`flash_packed_bwd` (K4b-fused) ``-> (dq, dk, dv)``, with ``delta =
   rowsum(do * o)`` a torch op here, as ``_bwd`` computes it outside its
-  kernel; :func:`flash_packed_bwd_dq` ``-> dq`` and
-  :func:`flash_packed_bwd_dkv` / :func:`flash_packed_bwd_dkv_direct` ``->
-  (dk, dv)``, which take that ``delta``; on the card dq and dk/dv pick
-  their body by dtype, openly: bf16 the tensor-core bodies (counted in
+  kernel; on the card 16 bits run the tensor-core body (counted in
+  ``flash_packed_bwd_tc.launches``), float32 the CUDA-core body
+  (``flash_packed_bwd.launches``; ``_launch_bwd(..., tc=False)`` runs it
+  in bf16 as a yardstick that no path takes); :func:`flash_packed_bwd_dq`
+  ``-> dq`` and :func:`flash_packed_bwd_dkv` /
+  :func:`flash_packed_bwd_dkv_direct` ``-> (dk, dv)``, which take that
+  ``delta``; on the card dq and dk/dv pick their body by dtype, openly: bf16
+  and float16 the tensor-core bodies (counted in
   ``flash_packed_bwd_dq_tc.launches`` and ``flash_packed_bwd_dkv_tc.
   launches``), float32 the CUDA-core bodies (``flash_packed_bwd_dq.
   launches``, ``flash_packed_bwd_dkv.launches``);
@@ -70,7 +78,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .flash_attention import (NEG_INF, _DTYPE_CODE, AttnDropout, Masks,
+from .flash_attention import (NEG_INF, _DTYPE_CODE, TC_DTYPES, AttnDropout,
+                              Masks,
                               _bwd_arg_error, _call, _delta, _dropout_args,
                               _keep, _kernel, _mask_ptrs, _masked_scores,
                               _masks, _strides, as_dropout,
@@ -79,7 +88,8 @@ from .flash_attention import (NEG_INF, _DTYPE_CODE, AttnDropout, Masks,
 
 __all__ = ["flash_attention_packed", "flash_packed_fwd",
            "flash_packed_fwd_tc", "flash_packed_fwd_reference",
-           "flash_packed_bwd",
+           "flash_packed_bwd", "flash_packed_bwd_tc",
+           "fused_cluster_size",
            "flash_packed_bwd_reference", "flash_packed_fwd_stream",
            "flash_packed_fwd_stream_tc", "flash_packed_fwd_stream_reference",
            "flash_packed_bwd_dq", "flash_packed_bwd_dq_tc",
@@ -99,6 +109,17 @@ MAX_SEQ_Q_DIRECT = 512  # the queries dk/dv-direct's kernel stages at once
 #: (the unit of their f32 sums; ``paddle_flash_bwd_tc_stage(64, dkv)``
 #: reports it)
 KERNEL_TILE = 64
+#: K4b-fused's tensor-core body: one block a 64-key tile, a cluster of them
+#: a head, at most the portable cluster size
+MAX_CLUSTER_TILES = 8
+
+
+def fused_cluster_size(sk: int) -> int:
+    """The blocks of K4b-fused's tensor-core cluster for ``sk`` keys
+    (``ceil(sk / 64)``, as the launch in ``csrc/flash_bwd_tc.cu`` takes
+    them), or 0 past ``MAX_CLUSTER_TILES`` tiles, which it refuses."""
+    nk = -(-sk // KERNEL_TILE)
+    return nk if 1 <= nk <= MAX_CLUSTER_TILES else 0
 
 
 def pack_group(num_heads: int) -> int:
@@ -229,7 +250,7 @@ def flash_packed_bwd_reference(q, k, v, o, lse, do, causal: bool = False,
                                scale: Optional[float] = None,
                                masks: Masks = (None, None, None),
                                dropout: Optional[AttnDropout] = None,
-                               *, first_head: int = 0
+                               *, first_head: int = 0, mma_sums: bool = False
                                ) -> Tuple[torch.Tensor, torch.Tensor,
                                           torch.Tensor]:
     """Plain PyTorch K4b-fused: dq, dk and dv from one recompute of s and
@@ -237,13 +258,17 @@ def flash_packed_bwd_reference(q, k, v, o, lse, do, causal: bool = False,
     k's dtype before the dq and dk products, ``p`` to do's dtype before the
     dv product); with ``dropout``, dp and the dv product's p are scaled by
     ``keep``. A row with no valid key gives dq = 0 and adds nothing to
-    dk/dv. Returns the gradients in the input dtypes."""
+    dk/dv. ``mma_sums`` sums ``dp = dO v^T`` as the 16-bit tensor-core body
+    does (:func:`mma_dot`), which is how the card holds that body to this
+    (see :func:`flash_packed_bwd_dq_reference`). Returns the gradients in
+    the input dtypes."""
     b, sq, sk, h = _shapes(q, k, v)
     scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
     delta = _delta(o, do)[..., None]                        # [B, H, Sq, 1]
     s = _scores(q, k, causal, scale, masks)
     p = torch.exp(s - lse.float()[..., None]) * (s > NEG_INF / 2)
-    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    dp = mma_dot(do, v) if mma_sums else \
+        torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
     keep = _keep(dropout, b, h, sq, sk, q.device, first_head)
     dp, pv = _dropped(dp, keep), _dropped(p, keep)
     ds = (p * (dp - delta) * scale).to(k.dtype).float()
@@ -305,7 +330,7 @@ def flash_packed_bwd_dq_reference(q, k, v, do, lse, delta,
                                   mma_sums: bool = False) -> torch.Tensor:
     """Plain PyTorch ``flash_packed_bwd_dq``: ``dq = ds k`` summed over the
     kernel's 64-key tiles in order, in float32, from the forward's lse and
-    ``delta`` (``[B, H, Sq]`` f32). ``mma_sums`` sums dp as the bf16
+    ``delta`` (``[B, H, Sq]`` f32). ``mma_sums`` sums dp as the 16-bit
     tensor-core body does (:func:`mma_dot`), which is how the card holds
     that body to this: in a row whose every key carries the -1e9 padding
     bias, the f32 lse absorbs log l, so p = 1 at each key and ds is l times
@@ -409,13 +434,13 @@ def _require_stats(q, lse, delta, what) -> None:
 def _launch_fwd(q, k, v, causal: bool, scale: float, masks: Masks,
                 dropout: Optional[AttnDropout] = None):
     """K4a-direct on CUDA tensors: ``(o, lse)``, from the body of q's
-    dtype: bf16 the tensor-core body (``flash_packed_tc.cu``, counted by
-    :func:`flash_packed_fwd_tc`), float32 the CUDA-core body
+    dtype: bf16 and float16 the tensor-core body (``flash_packed_tc.cu``,
+    counted by :func:`flash_packed_fwd_tc`), float32 the CUDA-core body
     (``flash_packed.cu``, counted by :func:`flash_packed_fwd`). The
     tensor-core body reads rows by 16-byte copies: q, k and v must start on
     16 bytes and have batch, sequence and head strides of whole 8-value
     pieces."""
-    tc = q.dtype == torch.bfloat16
+    tc = q.dtype in TC_DTYPES
     what = "flash_packed_fwd_tc" if tc else "flash_packed_fwd"
     _require(q, k, v, masks, what, max_sk=MAX_SEQ_K)
     if tc:
@@ -434,21 +459,43 @@ def _launch_fwd(q, k, v, causal: bool, scale: float, masks: Masks,
 
 
 def _launch_bwd(q, k, v, do, lse, delta, causal: bool, scale: float,
-                masks: Masks, dropout: Optional[AttnDropout] = None):
+                masks: Masks, dropout: Optional[AttnDropout] = None,
+                tc: Optional[bool] = None):
     """K4b-fused on CUDA tensors: ``(dq, dk, dv)`` in one launch from
-    K4a's lse and ``delta`` (both dense ``[B, H, Sq]`` float32). dq sums
-    over the key tiles in a float32 buffer in a fixed order (no atomics),
-    so results repeat bit for bit."""
-    _require(q, k, v, masks, "flash_packed_bwd", do, max_sk=MAX_SEQ_K)
-    _require_stats(q, lse, delta, "flash_packed_bwd")
+    K4a's lse and ``delta`` (both dense ``[B, H, Sq]`` float32), from the
+    tensor-core body (``tc``, the default for bf16 and float16:
+    ``flash_bwd_tc.cu``, one cluster of ``fused_cluster_size(Sk)`` blocks a
+    head, counted by :func:`flash_packed_bwd_tc`) or the CUDA-core body
+    (``flash_packed.cu``, float32 and bf16, counted by
+    :func:`flash_packed_bwd`). Both sum dq over the key tiles in float32 in
+    a fixed order (no atomics), so results repeat bit for bit."""
+    tc = q.dtype in TC_DTYPES if tc is None else tc
+    what = "flash_packed_bwd_tc" if tc else "flash_packed_bwd"
+    _require(q, k, v, masks, what, do, max_sk=MAX_SEQ_K)
+    _require_stats(q, lse, delta, what)
     if do.shape != q.shape:
         raise ValueError(f"do {tuple(do.shape)} is not q's shape "
                          f"{tuple(q.shape)}")
     b, sq, sk, h = _shapes(q, k, v)
-    lib, fn = _kernel("flash_packed", "paddle_flash_packed_bwd", 13, 12)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    if tc:
+        require_aligned_rows(what, ("q", q), ("k", k), ("v", v), ("do", do))
+        lib, fn = _kernel("flash_bwd_tc", "paddle_flash_packed_bwd_fused_tc",
+                          12, 12)
+        _call(lib, fn, what, q, k, q.data_ptr(), k.data_ptr(),
+              v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+              *_mask_ptrs(masks), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+              b, h, h, sq, sk, HEAD_D, *_strides(q, k, v, do), float(scale),
+              int(bool(causal)), _DTYPE_CODE[q.dtype],
+              *_dropout_args(dropout))
+        flash_packed_bwd_tc.launches += 1
+        return dq, dk, dv
+    if q.dtype == torch.float16:
+        raise ValueError("flash_packed_bwd's CUDA-core body takes float32 "
+                         "and bfloat16; float16 runs the tensor-core body")
+    lib, fn = _kernel("flash_packed", "paddle_flash_packed_bwd", 13, 12)
     # the f32 sum of dq over key tiles; in f32 dq itself holds it
     dq_acc = dq if q.dtype == torch.float32 else \
         torch.empty(q.shape, dtype=torch.float32, device=q.device)
@@ -465,11 +512,11 @@ def _launch_bwd(q, k, v, do, lse, delta, causal: bool, scale: float,
 def _launch_fwd_stream(q, k, v, causal: bool, scale: float, masks: Masks,
                        dropout: Optional[AttnDropout] = None):
     """``flash_packed_fwd_stream`` on CUDA tensors: ``(o, lse)``, from the
-    body of q's dtype: bf16 the tensor-core body (K1's, ``flash_fwd_tc.cu``,
-    counted by :func:`flash_packed_fwd_stream_tc`), float32 the CUDA-core
-    body (``flash_packed_stream.cu``, counted by
+    body of q's dtype: bf16 and float16 the tensor-core body (K1's,
+    ``flash_fwd_tc.cu``, counted by :func:`flash_packed_fwd_stream_tc`),
+    float32 the CUDA-core body (``flash_packed_stream.cu``, counted by
     :func:`flash_packed_fwd_stream`)."""
-    tc = q.dtype == torch.bfloat16
+    tc = q.dtype in TC_DTYPES
     what = "flash_packed_fwd_stream_tc" if tc else "flash_packed_fwd_stream"
     _require(q, k, v, masks, what)
     if tc:
@@ -495,7 +542,8 @@ def _launch_bwd_split(which: str, q, k, v, do, lse, delta, causal: bool,
     """One of the streamed backward kernels on CUDA tensors, from the
     forward's lse and ``delta`` (both dense ``[B, H, Sq]`` float32):
     ``"dq"`` -> dq, ``"dkv"`` or ``"dkv_direct"`` -> ``(dk, dv)``. dq and
-    dk/dv run the body of q's dtype: bf16 the tensor-core bodies
+    dk/dv run the body of q's dtype: bf16 and float16 the tensor-core
+    bodies
     (K2's and K3's, ``flash_bwd_tc.cu``, at KV heads = heads, counted by
     :func:`flash_packed_bwd_dq_tc`
     and :func:`flash_packed_bwd_dkv_tc`; q, k, v and do rows 16-byte
@@ -504,7 +552,7 @@ def _launch_bwd_split(which: str, q, k, v, do, lse, delta, causal: bool,
     dk/dv-direct runs ``flash_packed_stream.cu`` in both. Each block owns
     its output tile and sums in a fixed order (no atomics), so results
     repeat bit for bit."""
-    tc = which != "dkv_direct" and q.dtype == torch.bfloat16
+    tc = which != "dkv_direct" and q.dtype in TC_DTYPES
     what = f"flash_packed_bwd_{which}" + ("_tc" if tc else "")
     _require(q, k, v, masks, what, do, max_sq=MAX_SEQ_Q_DIRECT
              if which == "dkv_direct" else None)
@@ -549,10 +597,10 @@ def _same_device(*ts) -> torch.device:
     return dev
 
 
-def _require_bf16(q, what: str, plain: str) -> None:
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"{what} takes bfloat16, not {q.dtype} ({plain} "
-                         f"runs float32 on its CUDA-core body)")
+def _require_16bit(q, what: str, plain: str) -> None:
+    if q.dtype not in TC_DTYPES:
+        raise ValueError(f"{what} takes bfloat16 or float16, not {q.dtype} "
+                         f"({plain} runs float32 on its CUDA-core body)")
 
 
 def flash_packed_fwd(q, k, v, causal: bool = False,
@@ -561,7 +609,8 @@ def flash_packed_fwd(q, k, v, causal: bool = False,
                      dropout: Optional[AttnDropout] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4a-direct: for CUDA tensors the kernel body of their dtype (bf16
-    the tensor-core body, float32 the CUDA-core body), for CPU tensors the
+    and float16 the tensor-core body, float32 the CUDA-core body), for CPU
+    tensors the
     plain version. Not differentiable itself (:func:`flash_attention_packed`
     is). Returns ``(o [B, Sq, H, 64], lse [B, H, Sq] float32)``."""
     dev = _same_device(q, k, v, *masks)
@@ -577,15 +626,15 @@ def flash_packed_fwd_tc(q, k, v, causal: bool = False,
                         masks: Masks = (None, None, None),
                         dropout: Optional[AttnDropout] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K4a-direct's tensor-core body (bf16 only): the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors. :func:`flash_packed_fwd`
-    reaches it for every bf16 CUDA input."""
+    """K4a-direct's tensor-core body (bf16 and float16): the CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors.
+    :func:`flash_packed_fwd` reaches it for every 16-bit CUDA input."""
     dev = _same_device(q, k, v, *masks)
     scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
     if dev.type == "cpu":
         return flash_packed_fwd_reference(q, k, v, causal, scale, masks,
                                           dropout)
-    _require_bf16(q, "flash_packed_fwd_tc", "flash_packed_fwd")
+    _require_16bit(q, "flash_packed_fwd_tc", "flash_packed_fwd")
     return _launch_fwd(q, k, v, causal, scale, masks, dropout)
 
 
@@ -611,6 +660,21 @@ def flash_packed_bwd(q, k, v, o, lse, do, causal: bool = False,
                        causal, scale, masks, dropout)
 
 
+def flash_packed_bwd_tc(q, k, v, o, lse, do, causal: bool = False,
+                        scale: Optional[float] = None,
+                        masks: Masks = (None, None, None),
+                        dropout: Optional[AttnDropout] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4b-fused's tensor-core body (bf16 and float16), arguments as
+    :func:`flash_packed_bwd`: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors. :func:`flash_packed_bwd` reaches it for every
+    16-bit CUDA input."""
+    if q.device.type != "cpu":
+        _require_16bit(q, "flash_packed_bwd_tc", "flash_packed_bwd")
+    return flash_packed_bwd(q, k, v, o, lse, do, causal, scale, masks,
+                            dropout)
+
+
 def flash_packed_fwd_stream(q, k, v, causal: bool = False,
                             scale: Optional[float] = None,
                             masks: Masks = (None, None, None),
@@ -632,16 +696,16 @@ def flash_packed_fwd_stream_tc(q, k, v, causal: bool = False,
                                masks: Masks = (None, None, None),
                                dropout: Optional[AttnDropout] = None
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The streamed forward's tensor-core body (bf16 only; K1's body at
-    head dim 64): the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. :func:`flash_packed_fwd_stream` reaches it for every bf16
+    """The streamed forward's tensor-core body (bf16 and float16; K1's body
+    at head dim 64): the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors. :func:`flash_packed_fwd_stream` reaches it for every 16-bit
     CUDA input."""
     dev = _same_device(q, k, v, *masks)
     scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
     if dev.type == "cpu":
         return flash_packed_fwd_stream_reference(q, k, v, causal, scale,
                                                  masks, dropout)
-    _require_bf16(q, "flash_packed_fwd_stream_tc", "flash_packed_fwd_stream")
+    _require_16bit(q, "flash_packed_fwd_stream_tc", "flash_packed_fwd_stream")
     return _launch_fwd_stream(q, k, v, causal, scale, masks, dropout)
 
 
@@ -660,8 +724,8 @@ def flash_packed_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
                         ) -> torch.Tensor:
     """The streamed dq (``_bwd_dq_kernel``) from the forward's ``lse`` and
     ``delta = rowsum(do * o)`` (``[B, H, Sq]`` float32): for CUDA tensors
-    the kernel body of their dtype (bf16 the tensor-core body, float32 the
-    CUDA-core body), for CPU tensors the plain version."""
+    the kernel body of their dtype (bf16 and float16 the tensor-core body,
+    float32 the CUDA-core body), for CPU tensors the plain version."""
     dev = _bwd_inputs(q, k, v, do, lse, delta, masks)
     scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
     if dev.type == "cpu":
@@ -676,16 +740,16 @@ def flash_packed_bwd_dq_tc(q, k, v, do, lse, delta, causal: bool = False,
                            masks: Masks = (None, None, None),
                            dropout: Optional[AttnDropout] = None
                            ) -> torch.Tensor:
-    """The streamed dq's tensor-core body (bf16 only), arguments as
+    """The streamed dq's tensor-core body (bf16 and float16), arguments as
     :func:`flash_packed_bwd_dq`: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors. :func:`flash_packed_bwd_dq` reaches it for
-    every bf16 CUDA input."""
+    every 16-bit CUDA input."""
     dev = _bwd_inputs(q, k, v, do, lse, delta, masks)
     scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
     if dev.type == "cpu":
         return flash_packed_bwd_dq_reference(q, k, v, do, lse, delta, causal,
                                              scale, masks, dropout)
-    _require_bf16(q, "flash_packed_bwd_dq_tc", "flash_packed_bwd_dq")
+    _require_16bit(q, "flash_packed_bwd_dq_tc", "flash_packed_bwd_dq")
     return _launch_bwd_split("dq", q, k, v, do, lse, delta, causal, scale,
                              masks, dropout)
 
@@ -712,16 +776,17 @@ def flash_packed_bwd_dkv_tc(q, k, v, do, lse, delta, causal: bool = False,
                             masks: Masks = (None, None, None),
                             dropout: Optional[AttnDropout] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The streamed dk/dv's tensor-core body (bf16 only), arguments as
+    """The streamed dk/dv's tensor-core body (bf16 and float16), arguments
+    as
     :func:`flash_packed_bwd_dq`: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors. :func:`flash_packed_bwd_dkv` reaches it for
-    every bf16 CUDA input. Returns ``(dk, dv)``."""
+    every 16-bit CUDA input. Returns ``(dk, dv)``."""
     dev = _bwd_inputs(q, k, v, do, lse, delta, masks)
     scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
     if dev.type == "cpu":
         return flash_packed_bwd_dkv_reference(q, k, v, do, lse, delta,
                                               causal, scale, masks, dropout)
-    _require_bf16(q, "flash_packed_bwd_dkv_tc", "flash_packed_bwd_dkv")
+    _require_16bit(q, "flash_packed_bwd_dkv_tc", "flash_packed_bwd_dkv")
     return _launch_bwd_split("dkv", q, k, v, do, lse, delta, causal, scale,
                              masks, dropout)
 
@@ -812,12 +877,14 @@ def flash_attention_packed(query, key, value, causal: bool = False,
 
 
 #: kernel launches since each count was last set to 0 (CUDA path only);
-#: flash_packed_fwd, flash_packed_fwd_stream, flash_packed_bwd_dq and
-#: flash_packed_bwd_dkv count their float32 bodies, the ``_tc`` names their
-#: bf16 tensor-core bodies
+#: flash_packed_fwd, flash_packed_bwd, flash_packed_fwd_stream,
+#: flash_packed_bwd_dq and flash_packed_bwd_dkv count their float32 bodies
+#: (flash_packed_bwd also the bf16 yardstick ``_launch_bwd(..., tc=False)``),
+#: the ``_tc`` names their 16-bit tensor-core bodies
 flash_packed_fwd.launches = 0
 flash_packed_fwd_tc.launches = 0
 flash_packed_bwd.launches = 0
+flash_packed_bwd_tc.launches = 0
 flash_packed_fwd_stream.launches = 0
 flash_packed_fwd_stream_tc.launches = 0
 flash_packed_bwd_dq.launches = 0

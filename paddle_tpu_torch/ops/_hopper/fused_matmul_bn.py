@@ -7,7 +7,7 @@ it. :func:`fused_matmul_bn_act` keeps the JAX signature::
     y, s, ss = fused_matmul_bn_act(x, w, scale, shift,
                                    prologue="scale_shift_relu", stats=True)
 
-with ``x [M, Cin]`` (bf16 or f32), ``w [Cin, Cout]`` of x's dtype,
+with ``x [M, Cin]`` (bf16, float16 or f32), ``w [Cin, Cout]`` of x's dtype,
 ``scale``/``shift [Cin]`` and ``prologue`` one of ``"none"``,
 ``"scale_shift"`` and ``"scale_shift_relu"``: ``y = P(x) @ w`` in x's
 dtype, and the f32 per-column ``(sum, sumsq)`` of the f32 product.

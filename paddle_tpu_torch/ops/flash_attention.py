@@ -114,8 +114,8 @@ def attention_route(query) -> str:
     JAX's ``supported_shapes`` decides by head dim (and, for its kernels,
     by lengths that the port's kernels take ragged). JAX's kernels take
     float16, so float16 goes the kernel route too: its plain version on the
-    CPU, and on the card the kernels' wrappers raise, having no float16
-    body."""
+    CPU, and on the card the 16-bit bodies, which take float16 as they take
+    bf16."""
     return "kernels" if query.shape[-1] in SUPPORTED_HEAD_DIMS else "dense"
 
 

@@ -256,7 +256,9 @@ def test_kernel_arg_checks():
         is None
     q32, k32, v32 = (torch.from_numpy(x) for x in _inputs(1, 8, 8, 2, 2, 32))
     assert "head dim 32" in hfa.kernel_arg_error(q32, k32, v32)
-    assert "float16" in hfa.kernel_arg_error(q.half(), k.half(), v.half())
+    assert hfa.kernel_arg_error(q.half(), k.half(), v.half()) is None
+    assert "float64" in hfa.kernel_arg_error(q.double(), k.double(),
+                                             v.double())
     strided = torch.zeros(1, 8, 2, 128)[..., ::2]
     assert "not dense" in hfa.kernel_arg_error(strided, k, v)
     with pytest.raises(ValueError, match="multiple of kv heads"):

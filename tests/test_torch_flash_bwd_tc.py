@@ -302,12 +302,15 @@ def _small(dtype, d, h=4, hk=2):
 @pytest.mark.parametrize("dtype,d,tc", [
     (torch.bfloat16, 64, True), (torch.bfloat16, 128, True),
     (torch.bfloat16, 256, False), (torch.float32, 64, False),
-    (torch.float32, 128, False), (torch.float32, 256, False)])
+    (torch.float32, 128, False), (torch.float32, 256, False),
+    (torch.float16, 64, True), (torch.float16, 128, True),
+    (torch.float16, 256, False)])
 def test_backward_picks_its_body_by_dtype_and_head_dim(dtype, d, tc,
                                                        monkeypatch):
-    """bf16 dq and dk/dv at head dims 64 and 128 reach the tensor-core
-    entries of ``flash_bwd_tc.cu`` and their counts; float32, and bf16 at
-    256, the CUDA-core entries of ``flash_bwd.cu``. Nothing falls back."""
+    """bf16 and float16 dq and dk/dv at head dims 64 and 128 reach the
+    tensor-core entries of ``flash_bwd_tc.cu`` and their counts; float32,
+    and 16 bits at 256, the CUDA-core entries of ``flash_bwd.cu``. Nothing
+    falls back."""
     stub = _stub_launches(monkeypatch)
     args = _small(dtype, d)
     hfa.flash_bwd_dq(*args, True, 0.1)

@@ -390,12 +390,14 @@ def _small(dtype, sq=128, sk=256):
 
 @pytest.mark.parametrize("dtype,stem,suffix", [
     (torch.bfloat16, "flash_bwd_tc", "_tc"),
+    (torch.float16, "flash_bwd_tc", "_tc"),
     (torch.float32, "flash_packed_stream", "")])
 def test_streamed_backward_picks_its_body_by_dtype(dtype, stem, suffix,
                                                    monkeypatch):
-    """bf16 dq and dk/dv reach the tensor-core entries (K2's and K3's, the
-    same functions at KV heads = heads) and their own counts, float32 the
-    CUDA-core ones; dk/dv-direct stays on the CUDA cores in both dtypes.
+    """bf16 and float16 dq and dk/dv reach the tensor-core entries (K2's
+    and K3's, the same functions at KV heads = heads) and their own counts,
+    float32 the CUDA-core ones; dk/dv-direct stays on the CUDA cores in
+    every dtype.
     Nothing falls back from one body to the other."""
     stub = _stub_launches(monkeypatch)
     args = _small(dtype)
