@@ -2166,7 +2166,7 @@ def dropout_stream(torch, np, hfa, hfp, timing):
 #: lists: K1_TC_CASES, K2_K3_TC_CASES, K4_CASES, STREAM_CASES, CONV_CASES
 F16_PICKS = {"k1": (0, 1, 3, 4, 5), "k2_k3": (0, 2, 3, 5, 6),
              "k4": (0, 1, 2, 3, 5, 6), "stream": (11, 12, 17, 20, 22),
-             "conv": (0, 3, 4, 5, 6, 7)}
+             "conv": (0, 3, 4, 5, 6, 7, 16, 18)}
 
 
 def f16_of(case, at, dt="f16"):
@@ -3176,9 +3176,32 @@ CONV_CASES = [
     # the fixed-order reduction
     ("b256_1x1_56_64to64_relu", "conv1x1", 256, 56, 56, 64, 64, 1, "relu",
      True, "bf16"),
+    # K7's stride-2 input gradient by phases on odd sizes: a 7-row input
+    # (dy 4 rows, the odd phase 3), a 1-row one (its odd phase empty), and
+    # channels that are not whole 16-byte pieces
+    ("3x3_s2_7x7_odd_phases", "conv3x3", 4, 7, 7, 64, 72, 2, "relu", True,
+     "bf16"),
+    ("3x3_s2_1x5_empty_phase", "conv3x3", 3, 1, 5, 16, 24, 2, None, True,
+     "bf16"),
+    ("3x3_s2_15x11_c20_k36_ragged", "conv3x3", 2, 15, 11, 20, 36, 2, "none",
+     False, "bf16"),
 ]
 
 CONV_KERNELS = ("mm", "mm_wgrad", "c3", "c3_wgrad")
+# the conv.cu bodies behind each wrapper, by dtype, and the yardsticks that
+# keep the bodies they had before
+CONV_BODIES = {
+    "mm": "conv1x1_kernel (16 bits: conv_fwd_body_tc; float32: "
+          "conv_fwd_body)",
+    "mm_wgrad": "conv1x1_wgrad_tc_kernel (bf16, float16); "
+                "conv1x1_wgrad_kernel (float32, and the 16-bit yardstick "
+                "mm_wgrad_tiles64)",
+    "c3": "conv3x3_tc_kernel (bf16, float16: the forward, the stride-1 "
+          "input gradient, and the stride-2 one by phases); conv3x3_kernel "
+          "(float32, and the 16-bit yardstick c3_tap_gather)",
+    "c3_wgrad": "conv3x3_wgrad_tc_kernel (bf16, float16); "
+                "conv3x3_wgrad_kernel (float32, and the 16-bit yardstick "
+                "c3_wgrad_tap_blocks)"}
 
 
 def conv_counts(hc):
@@ -3232,18 +3255,53 @@ def hold_conv(torch, part, got, ref, dt, row, stats=False):
 
 def conv_plan(hc, n, ho, wo, cin, cout, k, dt="bf16", stride=1):
     """How the kernels cut a conv with ``n·ho·wo`` output pixels: K5/K7's
-    row blocks, whose stats partials the reduction sums in 256-row passes,
-    and K6/K8's split of M (``_wgrad_launch``; K8 in 16 bits: its bands,
-    ``wgrad_bands``)."""
+    row blocks (K7 in 16 bits: its bands, ``c3_bands``), whose stats
+    partials the reduction sums in 256-row passes, and K6/K8's split of M
+    (``_wgrad_launch``; in 16 bits K6's tile and split, ``k6_plan``, and
+    K8's bands, ``wgrad_bands``)."""
     m = n * ho * wo
     tiles = k * k * -(-cin // 64) * -(-cout // 64)
     plan = {"fwd_blocks": -(-m // hc._FWD_ROWS),
             "wgrad_splits": hc.wgrad_splits(m, tiles)[0]}
     if k == 3 and dt != "f32":
         bands = hc.wgrad_bands(n, ho, wo, cin, cout, stride)
-        plan.update({"wgrad_splits": bands.splits,
+        fwd = hc.c3_bands(n, ho, wo, stride)
+        plan.update({"fwd_blocks": fwd.bands, "k7_bands": fwd._asdict(),
+                     "wgrad_splits": bands.splits,
                      "wgrad_bands": bands._asdict()})
+    if k == 1 and dt != "f32":
+        pl = hc.k6_plan(m, cin, cout)
+        plan.update({"wgrad_splits": pl.splits, "k6_plan": pl._asdict()})
     return plan
+
+
+def dgrad_parts(hc, dy, wgt, x_shape, s, dt):
+    """K7's input gradient as the path runs it, and its plain version:
+    ``(kernel, plain, args)`` with 1-tuples out. At stride 2 in 16 bits the
+    four phases of one launch (``c3_dgrad_phases``; plain
+    ``c3_dgrad_phases_reference``), else the stride-1 conv of the (dilated
+    in float32) operand (``c3``; plain ``c3_reference``)."""
+    n, h, w, _ = x_shape
+    if s == 2 and dt != "f32":
+        return (lambda *a: (hc.c3_dgrad_phases(*a),),
+                lambda *a: (hc.c3_dgrad_phases_reference(*a),),
+                (dy, hc.dgrad_taps(wgt, dy.dtype), (h, w)))
+    op, wm = hc.dgrad_operands(dy, wgt, s)
+    return hc.c3, hc.c3_reference, (op, wm, None, None, "none", False, 1,
+                                    (h, w))
+
+
+def hold_dilated(torch, hc, got, dy, wgt, x_shape, dt, row):
+    """A stride-2 input gradient by phases against ``c3_reference`` on
+    ``dgrad_operands``' dilated dy (the parent's operand), within the same
+    tolerance."""
+    op, wm = hc.dgrad_operands(dy, wgt, 2)
+    ref = hc.c3_reference(op, wm, None, None, "none", False, 1,
+                          tuple(x_shape[1:3]))[0]
+    sub = {}
+    compare(torch, "dx", got, ref, dt, sub)
+    row["max_abs_err_dx_dilated"] = sub["max_abs_err_dx"]
+    row["ok"] &= sub["ok"]
 
 
 def conv_case(torch, hc, case, g):
@@ -3274,8 +3332,7 @@ def conv_case(torch, hc, case, g):
         wgrad = (hc.mm_wgrad, hc.mm_wgrad_reference, (x, dy, sc, sh, a, s))
     else:
         fwd = (hc.c3, hc.c3_reference, (x, wt, sc, sh, a, stats, s))
-        dgrad = (hc.c3, hc.c3_reference, (op, wm, None, None, "none", False,
-                                           1, (h, w)))
+        dgrad = dgrad_parts(hc, dy, wgt, x.shape, s, dt)
         wgrad = (hc.c3_wgrad, hc.c3_wgrad_reference, (x, dy, sc, sh, a, s))
     row = {"case": name, "shape": [n, h, w, cin, cout, k, s], "act": act,
            "stats": stats, "dtype": dt,
@@ -3294,6 +3351,8 @@ def conv_case(torch, hc, case, g):
             check(tuple(got[0].shape[1:3]) == ((h, w) if k == 3 else
                                                (ho, wo)),
                   f"{name}: dgrad shape {tuple(got[0].shape)}")
+            if k == 3 and s == 2 and dt != "f32":
+                hold_dilated(torch, hc, got[0], dy, wgt, x.shape, dt, row)
     check(row["ok"], f"K5-K8 disagree with their plain versions: {row}")
     fwd_name = "mm" if k == 1 else "c3"
     return row, {fwd_name: (max(errs["fwd"][0], errs["dgrad"][0]),
@@ -3415,6 +3474,8 @@ def phase_kernel_conv(torch, hc, peaks):
                 "peak_sheet": peaks["sheet"],
                 "tflops": flops / ms / 1e9}
     timing["k8_stages"] = k8_stages(torch, hc, peaks, g, results)
+    timing["k7_stages"] = k7_stages(torch, hc, peaks, g, results)
+    timing["k6_stages"] = k6_stages(torch, hc, peaks, g, results)
     # the main path's reductions at B=256 (K5/K7's stats over 6,272 blocks
     # at 56², K6's dw over 1,004 splits for the 64->64 1x1) take more than
     # one 256-row pass: some compared case must too
@@ -3428,11 +3489,18 @@ def phase_kernel_conv(torch, hc, peaks):
                      "prologued input: F.conv2d, torch.nn.grad.conv2d_input, "
                      "torch.nn.grad.conv2d_weight; the library time has no "
                      "prologue and no stats"})
+    for row in results:
+        if row["case"].startswith(("k7 ", "k6 ")):
+            kname = "c3" if row["case"].startswith("k7 ") else "mm_wgrad"
+            note(kname, max(v for k_, v in row.items()
+                            if k_.startswith("max_abs_err_d") or
+                            k_ == "max_abs_err_y"), row.get("stats_rel_err"))
     top = list(timing.values())
     return worst, stats_rel, {
-        "mm": top[0]["mm"], "mm_wgrad": top[0]["mm_wgrad"],
-        "c3": top[2]["c3"], "c3_wgrad": {**top[2]["c3_wgrad"],
-                                         "stages": timing["k8_stages"]}}
+        "mm": top[0]["mm"],
+        "mm_wgrad": {**top[0]["mm_wgrad"], "stages": timing["k6_stages"]},
+        "c3": {**top[2]["c3"], "stages": timing["k7_stages"]},
+        "c3_wgrad": {**top[2]["c3_wgrad"], "stages": timing["k8_stages"]}}
 
 
 def k8_stages(torch, hc, peaks, g, results):
@@ -3497,6 +3565,190 @@ def k8_stages(torch, hc, peaks, g, results):
                        ("library_ms", lib_ms), ("bound_ms", bound)):
             step[k_] += per_step * v_
         del x, dy, a_t, dy_t, args
+        torch.cuda.empty_cache()
+    return {"shapes": stages, "per_step": step,
+            "library": "torch.nn.grad.conv2d_weight (cuDNN, channels-last "
+                       "bf16) on the prologued input"}
+
+
+def add_step(step, per_step, times):
+    for key, ms in times.items():
+        step[key] = step.get(key, 0.0) + per_step * ms
+
+
+def k7_stages(torch, hc, peaks, g, results):
+    """K7 at each of ResNet-50's 3x3 shapes (B=256, the ReLU prologue and
+    the stats; ``RESNET50_K7_SHAPES``): the forward and the input gradient
+    (at stride 2 the four phases of one launch, also held against
+    ``c3_reference`` on the dilated dy) against their plain versions in
+    bf16 and float16, each repeated bit for bit; then, in bf16, each timed
+    beside the body K7 had before (``c3_tap_gather``, a yardstick no path
+    runs; its input gradient on ``dgrad_operands``' dilated dy, the
+    parent's path), cuDNN (no prologue, no stats), its bound and the plain
+    version; with the launches a step each shape has (16 forwards, 16
+    input gradients), the step's sums."""
+    import torch.nn.functional as TF
+    stages = {}
+    step = {}
+    for n, h, w, cin, cout, s, per_step in hc.RESNET50_K7_SHAPES:
+        ho, wo = (h - 1) // s + 1, (w - 1) // s + 1
+        key = f"3x3 {n}x{h}x{w} {cin}->{cout} s{s}"
+        ent = {"shape": [n, h, w, cin, cout, 3, s],
+               "launches_per_step": per_step}
+        for dt in ("bf16", "f16"):
+            dtype = torch_dtype(torch, dt)
+            x = torch.randn(n, h, w, cin, generator=g, device="cuda").to(
+                dtype)
+            wgt = (torch.randn(cout, cin, 3, 3, generator=g, device="cuda") *
+                   (cin * 9) ** -0.5).to(dtype)
+            sc = torch.randn(cin, generator=g, device="cuda")
+            sh = torch.randn(cin, generator=g, device="cuda")
+            dy = torch.randn(n, ho, wo, cout, generator=g,
+                             device="cuda").to(dtype)
+            wt = hc.fwd_weight(wgt, dtype)
+            fargs = (x, wt, sc, sh, "relu", True, s)
+            dk, dplain, dargs = dgrad_parts(hc, dy, wgt, x.shape, s, dt)
+            for part, kern, plain, args in (("fwd", hc.c3, hc.c3_reference,
+                                             fargs),
+                                            ("dgrad", dk, dplain, dargs)):
+                row = {"case": f"k7 {key} {part}", "dtype": dt,
+                       **conv_plan(hc, n, ho, wo, cin, cout, 3, dt, s)}
+                got = kern(*args)
+                again = kern(*args)
+                ref = plain(*args)
+                torch.cuda.synchronize()
+                err, rel = hold_conv(torch, part, got, ref, dt, row,
+                                     stats=part == "fwd")
+                if part == "dgrad" and s == 2:
+                    hold_dilated(torch, hc, got[0], dy, wgt, x.shape, dt, row)
+                row["repeat_bit_equal"] = all(
+                    torch.equal(a, b) for a, b in zip(got, again))
+                row["ok"] &= row["repeat_bit_equal"]
+                check(row["ok"], f"K7 disagrees with its plain version: "
+                                 f"{row}")
+                results.append(row)
+                ent[f"{part}_{dt}_max_abs_err"] = err
+                if rel is not None:
+                    ent[f"{part}_{dt}_stats_rel_err"] = rel
+                del got, again, ref
+            if dt == "f16":
+                break
+            a_t = hc._prologue(x, sc, sh, "relu").permute(0, 3, 1, 2)
+            dy_t = dy.permute(0, 3, 1, 2)
+            w_cl = wgt.contiguous(memory_format=torch.channels_last)
+            flops = 2 * 9 * n * ho * wo * cin * cout
+            io = {"fwd": (n * h * w * cin + n * ho * wo * cout) * 2 +
+                  9 * cin * cout * 2 + 2 * cin * 4 + 2 * cout * 4,
+                  "dgrad": (n * h * w * cin + n * ho * wo * cout) * 2 +
+                  9 * cin * cout * 2}
+            times = {
+                "fwd": (lambda: hc.c3(*fargs),
+                        lambda: hc.c3_tap_gather(*fargs),
+                        lambda: TF.conv2d(a_t, w_cl, stride=s, padding=1),
+                        lambda: hc.c3_reference(*fargs)),
+                "dgrad": (lambda: hc.conv2d_dgrad(dy, wgt, x.shape, (s, s),
+                                                  (1, 1)),
+                          lambda: hc.c3_tap_gather(
+                              *hc.dgrad_operands(dy, wgt, s), None, None,
+                              "none", False, 1, (h, w)),
+                          lambda: torch.nn.grad.conv2d_input(
+                              a_t.shape, w_cl, dy_t, stride=s, padding=1),
+                          lambda: dplain(*dargs))}
+            for part, (new, parent, lib, plain) in times.items():
+                ms = median_ms(new)
+                bound, by = conv_bound(peaks, flops, io[part])
+                t = {"kernel_ms": ms, "parent_ms": median_ms(parent),
+                     "library_ms": median_ms(lib),
+                     "plain_ms": median_ms(plain, iters=5, warmup=1),
+                     "bound_ms": bound, "bound_by": by, "flops": flops,
+                     "bytes": io[part], "tflops": flops / ms / 1e9}
+                ent[part] = t
+                add_step(step.setdefault(part, {}), per_step, {
+                    k_: t[k_] for k_ in ("kernel_ms", "parent_ms",
+                                         "library_ms", "bound_ms")})
+            del a_t, dy_t, w_cl
+        for kind, phases, bd in (("bands", 1, hc.c3_bands(n, ho, wo, s)),
+                                 ("dgrad_bands", 4, hc.c3_bands(n, ho, wo,
+                                                                2, 4))):
+            if phases == 4 and s == 1:
+                continue
+            smem = hc._library().paddle_conv3x3_tc_smem(
+                bd.band_n, bd.band_h, bd.band_w, s, phases)
+            check(smem == hc.k7_smem_bytes(bd.band_n, bd.band_h, bd.band_w,
+                                           s, phases),
+                  f"K7's shared memory {smem} is not conv.py's "
+                  f"k7_smem_bytes")
+            ent[kind] = {**bd._asdict(), "smem_bytes": smem}
+        stages[key] = ent
+        del x, wgt, dy, wt, fargs, dargs
+        torch.cuda.empty_cache()
+    return {"shapes": stages, "per_step": step,
+            "library": "cuDNN (channels-last bf16) on the prologued input: "
+                       "F.conv2d and torch.nn.grad.conv2d_input"}
+
+
+def k6_stages(torch, hc, peaks, g, results):
+    """K6 at each of ResNet-50's 1x1 weight-gradient shapes (B=256, the
+    ReLU prologue; ``RESNET50_K6_SHAPES``, 15 shapes, 36 launches a step)
+    against its plain version in bf16 and float16, repeated bit for bit;
+    then, in bf16, timed beside the body it had before
+    (``mm_wgrad_tiles64``, a yardstick no path runs), cuDNN's weight
+    gradient on the prologued input, its bound and the plain version, with
+    the step's sums."""
+    stages = {}
+    step = {}
+    for n, h, w, cin, cout, s, per_step in hc.RESNET50_K6_SHAPES:
+        ho, wo = (h - 1) // s + 1, (w - 1) // s + 1
+        key = f"1x1 {n}x{h}x{w} {cin}->{cout} s{s}"
+        ent = {"shape": [n, h, w, cin, cout, 1, s],
+               "launches_per_step": per_step,
+               "plan": hc.k6_plan(n * ho * wo, cin, cout)._asdict()}
+        for dt in ("bf16", "f16"):
+            dtype = torch_dtype(torch, dt)
+            x = torch.randn(n, h, w, cin, generator=g, device="cuda").to(
+                dtype)
+            sc = torch.randn(cin, generator=g, device="cuda")
+            sh = torch.randn(cin, generator=g, device="cuda")
+            dy = torch.randn(n, ho, wo, cout, generator=g,
+                             device="cuda").to(dtype)
+            args = (x, dy, sc, sh, "relu", s)
+            row = {"case": f"k6 {key}", "dtype": dt,
+                   **conv_plan(hc, n, ho, wo, cin, cout, 1, dt, s)}
+            got = hc.mm_wgrad(*args)
+            again = hc.mm_wgrad(*args)
+            ref = hc.mm_wgrad_reference(*args)
+            torch.cuda.synchronize()
+            err, _ = hold_conv(torch, "wgrad", got, ref, dt, row)
+            row["repeat_bit_equal"] = bool(torch.equal(got, again))
+            row["ok"] &= row["repeat_bit_equal"]
+            check(row["ok"], f"K6 disagrees with its plain version: {row}")
+            results.append(row)
+            ent[f"{dt}_max_abs_err"] = err
+            del got, again, ref
+            if dt == "f16":
+                break
+            a_t = hc._prologue(x, sc, sh, "relu").permute(0, 3, 1, 2)
+            dy_t = dy.permute(0, 3, 1, 2)
+            ms = median_ms(lambda: hc.mm_wgrad(*args))
+            flops = 2 * n * ho * wo * cin * cout
+            nbytes = (n * ho * wo * cin + n * ho * wo * cout) * 2 + \
+                2 * cin * 4 + cin * cout * 4
+            bound, by = conv_bound(peaks, flops, nbytes)
+            t = {"kernel_ms": ms,
+                 "parent_ms": median_ms(lambda: hc.mm_wgrad_tiles64(*args)),
+                 "library_ms": median_ms(lambda: torch.nn.grad.conv2d_weight(
+                     a_t, (cout, cin, 1, 1), dy_t, stride=s)),
+                 "plain_ms": median_ms(lambda: hc.mm_wgrad_reference(*args),
+                                       iters=5, warmup=1),
+                 "bound_ms": bound, "bound_by": by, "flops": flops,
+                 "bytes": nbytes, "tflops": flops / ms / 1e9,
+                 "gbytes_per_s": nbytes / ms / 1e6}
+            ent.update(t)
+            add_step(step, per_step, {k_: t[k_] for k_ in (
+                "kernel_ms", "parent_ms", "library_ms", "bound_ms")})
+            del a_t, dy_t
+        stages[key] = ent
+        del x, dy, args
         torch.cuda.empty_cache()
     return {"shapes": stages, "per_step": step,
             "library": "torch.nn.grad.conv2d_weight (cuDNN, channels-last "
@@ -4548,9 +4800,11 @@ def main() -> int:
             kernels[-1]["float16"] = {"max_abs_err": worst_f16.get(name),
                                       **timing_f16.get(name, {})}
         if "stages" in t:
-            # K8 at each of ResNet-50's 3x3 weight-gradient shapes, beside
-            # the body it had before
+            # K6, K7 and K8 at each of ResNet-50's shapes, beside the body
+            # each had before, with the step's sums
             kernels[-1]["stages"] = t["stages"]
+        if name in CONV_BODIES:
+            kernels[-1]["body"] = CONV_BODIES[name]
         if name == "flash_packed_bwd_tc":
             kernels[-1].update({k: t[k] for k in (
                 "cuda_core_bf16_ms", "two_body_ms", "repeat_bit_equal",

@@ -11,10 +11,19 @@ OIHW weights.
 - :func:`mm` (K5): ``y = act(x·scale+shift) @ w2`` over the pixels of ``x``
   (``x[:, ::2, ::2]`` at stride 2, read in place), plus the per-channel
   f32 ``(sum, sumsq)`` of the f32 product; also the 1x1 input gradient.
-- :func:`mm_wgrad` (K6): ``act(x·scale+shift)ᵀ @ dy`` in f32.
+- :func:`mm_wgrad` (K6): ``act(x·scale+shift)ᵀ @ dy`` in f32; in 16 bits
+  on tiles of up to 256 x 64 or 128 x 128 channels fed by a ``cp.async``
+  ring (:func:`k6_plan`); :func:`mm_wgrad_tiles64` is the body it had
+  before (64 x 64 tiles), kept as a yardstick that no path runs.
 - :func:`c3` (K7): the NHWC 3x3 conv with zero padding 1 (the prologue
   masked to the image), stride 1 or 2, plus the stats; also the 3x3 input
-  gradient, at stride 1 on the zero-dilated dy with rotated taps.
+  gradient at stride 1 (rotated taps). In 16 bits a block walks bands of
+  output pixels under one window of x (:func:`c3_bands`);
+  :func:`c3_tap_gather` is the body it had before, a yardstick.
+- :func:`c3_dgrad_phases` (K7): the 16-bit stride-2 3x3 input gradient by
+  output phase, one launch of K7's body with no dilated dy
+  (:func:`c3_dgrad_phases_reference` its plain version); float32 keeps
+  ``conv2d_dgrad``'s dilated operand on the CUDA-core body.
 - :func:`c3_wgrad` (K8): per-tap ``aᵀ @ dy`` as ``[9, C, K]`` f32; in 16
   bits one block holds all nine taps of its channel tile and walks bands of
   output rows (:func:`wgrad_bands`), as ``_c3_wgrad_kernel`` does;
@@ -63,8 +72,12 @@ __all__ = ["conv2d", "conv2d_fwd", "conv2d_dgrad", "conv2d_wgrad",
            "mm_wgrad", "mm_wgrad_reference", "c3", "c3_reference",
            "c3_wgrad", "c3_wgrad_reference", "c3_wgrad_tap_blocks",
            "wgrad_bands", "WgradBands", "band_box", "fwd_weight",
-           "dgrad_operands",
-           "RESNET50_TOP3_SHAPES", "RESNET50_K8_SHAPES"]
+           "dgrad_operands", "dgrad_taps", "c3_tap_gather",
+           "c3_dgrad_phases", "c3_dgrad_phases_reference", "c3_bands",
+           "C3Bands", "c3_item_box", "k7_smem_bytes", "mm_wgrad_tiles64",
+           "k6_plan", "K6Plan", "RESNET50_TOP3_SHAPES",
+           "RESNET50_K6_SHAPES", "RESNET50_K7_SHAPES",
+           "RESNET50_K8_SHAPES"]
 
 # The JAX package's per-shape A/B shapes (conv.py:72-76): (kind, n, h, w,
 # cin, cout, stride)
@@ -87,6 +100,31 @@ RESNET50_K8_SHAPES = (
     (256, 7, 7, 512, 512, 1, 2),
 )
 
+#: ResNet-50's 3x3 convs, whose forwards and input gradients K7 runs (16 +
+#: 16 launches a step): the same 16 convs as K8's
+RESNET50_K7_SHAPES = RESNET50_K8_SHAPES
+
+#: ResNet-50's 1x1 weight gradients at B = 256 (K6): (n, h, w, cin, cout,
+#: stride, launches a step), h the input's size; 36 launches in 15 shapes:
+#: each bottleneck's conv1 and conv3 and each stage's strided downsample
+RESNET50_K6_SHAPES = (
+    (256, 56, 56, 64, 64, 1, 1),
+    (256, 56, 56, 64, 256, 1, 4),
+    (256, 56, 56, 256, 64, 1, 2),
+    (256, 56, 56, 256, 128, 1, 1),
+    (256, 28, 28, 128, 512, 1, 4),
+    (256, 28, 28, 512, 128, 1, 3),
+    (256, 56, 56, 256, 512, 2, 1),
+    (256, 28, 28, 512, 256, 1, 1),
+    (256, 14, 14, 256, 1024, 1, 6),
+    (256, 14, 14, 1024, 256, 1, 5),
+    (256, 28, 28, 512, 1024, 2, 1),
+    (256, 14, 14, 1024, 512, 1, 1),
+    (256, 7, 7, 512, 2048, 1, 3),
+    (256, 7, 7, 2048, 512, 1, 2),
+    (256, 14, 14, 1024, 2048, 2, 1),
+)
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _FWD_ROWS = 128        # rows of a K5/K7 block (kBM in csrc/conv.cu)
 _REDUCE_CHUNK = 256    # rows one reduce pass sums (kReduceChunk)
@@ -103,6 +141,21 @@ _K8_MAX_PIX = 256
 _K8_MAX_BAND_W = 64
 _K8_SMEM = 200 * 1024
 _K8_BLOCKS = 2 * 132
+# the shared memory a block may take (the H100's per-block limit)
+_BLOCK_SMEM = 232448
+# K7's 16-bit body (conv3x3_tc_kernel): the output pixels a band may hold,
+# the widest band, a block's output channels
+_K7_MAX_PIX = 256
+_K7_MAX_BAND_W = 64
+_K7_TILE = 64
+# K6's 16-bit body (conv1x1_wgrad_tc_kernel): the warp layouts of a block
+# (warps_c x warps_k, each warp 64 input x 32 output channels), the warps
+# resident on an SM, the SMs, and no split shorter than this many rows
+_K6_LAYOUTS = ((4, 2), (2, 4), (1, 8), (2, 2), (1, 4), (4, 1), (2, 1),
+               (1, 2), (1, 1))
+_K6_SM_WARPS = 16
+_SMS = 132
+_K6_MIN_ROWS = 128
 
 
 def pallas_conv_enabled() -> bool:
@@ -220,6 +273,41 @@ def c3_reference(x, wt, scale=None, shift=None, act: str = "none",
     return acc.to(x.dtype).reshape(n, *out_hw, k), s, ss
 
 
+def _phase_taps(ph: int):
+    """The taps of dx phase ``ph`` along one axis as (offset in dy, tap
+    index): phase 0 meets dy at tap 1 only, phase 1 at taps 0 and 2."""
+    return ((0, 1),) if ph == 0 else ((0, 0), (1, 2))
+
+
+def c3_dgrad_phases_reference(dy, wt, x_hw):
+    """Plain K7 stride-2 input gradient by phase: ``dy [N, Ho, Wo, K]``,
+    ``wt [9, K, C]`` the rotated taps (:func:`dgrad_taps`), ``x_hw`` the
+    input's ``(H, W)`` with ``Ho = ceil(H / 2)``. dx pixel ``(2a + ph, 2b
+    + pw)`` sums ``dy[a + jr, b + jc] @ wt[3 dh + dw]`` over its phase's
+    taps in the dilated form's order, in float32 (dy past its last row or
+    column is the dilated form's zero padding); one rounding to dy's type.
+    Returns ``dx [N, H, W, C]``."""
+    n, ho, wo, k = dy.shape
+    h, w = x_hw
+    if (ho, wo) != ((h + 1) // 2, (w + 1) // 2):
+        raise ValueError(f"dy {tuple(dy.shape)} is not the stride-2 output "
+                         f"of a {h}x{w} input")
+    c = wt.shape[2]
+    dyp = TF.pad(dy.float(), (0, 0, 0, 1, 0, 1))
+    dx = torch.zeros((n, h, w, c), dtype=torch.float32, device=dy.device)
+    for ph in (0, 1):
+        for pw in (0, 1):
+            hp, wp = (h - ph + 1) // 2, (w - pw + 1) // 2
+            acc = torch.zeros(n * hp * wp, c, dtype=torch.float32,
+                              device=dy.device)
+            for jr, dh in _phase_taps(ph):
+                for jc, dw in _phase_taps(pw):
+                    acc += dyp[:, jr:jr + hp, jc:jc + wp].reshape(-1, k) @ \
+                        wt[3 * dh + dw].float()
+            dx[:, ph::2, pw::2] = acc.reshape(n, hp, wp, c)
+    return dx.to(dy.dtype)
+
+
 def c3_wgrad_reference(x, dy, scale=None, shift=None, act: str = "none",
                        stride: int = 1):
     """Plain K8: per tap ``aᵀ @ dy`` over all output pixels, ``[9, C, K]``
@@ -241,6 +329,9 @@ _FWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
 _WGRAD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
 _WGRAD_TC_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 15 + \
     [ctypes.c_void_p]
+_C3_TC_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+_WGRAD1_TC_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 14 + \
+    [ctypes.c_void_p]
 
 
 def _library():
@@ -257,6 +348,12 @@ def _library():
         lib.paddle_conv3x3_wgrad_tc.restype = ctypes.c_int
         lib.paddle_conv3x3_wgrad_tc_smem.argtypes = [ctypes.c_int] * 4
         lib.paddle_conv3x3_wgrad_tc_smem.restype = ctypes.c_int
+        lib.paddle_conv3x3_tc.argtypes = _C3_TC_ARGS
+        lib.paddle_conv3x3_tc.restype = ctypes.c_int
+        lib.paddle_conv3x3_tc_smem.argtypes = [ctypes.c_int] * 5
+        lib.paddle_conv3x3_tc_smem.restype = ctypes.c_int
+        lib.paddle_conv1x1_wgrad_tc.argtypes = _WGRAD1_TC_ARGS
+        lib.paddle_conv1x1_wgrad_tc.restype = ctypes.c_int
         lib.paddle_cuda_error_string.argtypes = [ctypes.c_int]
         lib.paddle_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -468,6 +565,188 @@ def _wgrad_launch(lib, what, x, dy, scale, shift, act, stride, pad, taps):
     return dw
 
 
+class C3Bands(NamedTuple):
+    """K7's cut of the output pixels (16-bit body): bands of ``band_n``
+    images x ``band_h`` rows x ``band_w`` columns (``band_n`` > 1 only for
+    whole images) of the band grid (y's size; phase (0, 0)'s for the
+    stride-2 input gradient), ``n_bn`` across the batch, ``n_bh`` down and
+    ``n_bw`` across, in that order: ``bands`` in all."""
+    band_n: int
+    band_h: int
+    band_w: int
+    n_bn: int
+    n_bh: int
+    n_bw: int
+    bands: int
+
+
+def k7_smem_bytes(band_n: int, band_h: int, band_w: int, stride: int,
+                  phases: int = 1) -> int:
+    """Shared memory of a K7 block (``win_smem_bytes`` in conv.cu): two
+    buffers, each the nine tap slices (32 x 72 16-bit values) and the
+    band's windows (40 16-bit values a pixel), then the stats' cross-warp
+    sums. A window is ``(band_h - 1) s + 3`` rows by ``(band_w - 1) s + 3``
+    columns, or ``band_h + 1`` by ``band_w + 1`` by phases."""
+    s, ext = (1, 2) if phases == 4 else (stride, 3)
+    win = ((band_h - 1) * s + ext) * ((band_w - 1) * s + ext)
+    return 2 * 2 * (9 * 32 * 72 + band_n * win * 40) + 2 * 4 * 64 * 4
+
+
+def c3_bands(n: int, hg: int, wg: int, stride: int,
+             phases: int = 1) -> C3Bands:
+    """K7's bands over an ``n x hg x wg`` grid of output pixels, a function
+    of the shape only: up to 64 columns and as many whole rows as keep a
+    band within 256 pixels (four rows at 56², nine at 28²), or as many
+    whole images (five 7² images), fewer where the block's shared memory
+    would pass the card's 227 KB (seven rows at stride 2 from 56², four 7²
+    images at stride 2 from 14²)."""
+    band_w = min(wg, _K7_MAX_BAND_W)
+    band_h = max(1, min(hg, _K7_MAX_PIX // band_w))
+
+    def fits(bn, bh, bw):
+        return k7_smem_bytes(bn, bh, bw, stride, phases) <= _BLOCK_SMEM
+
+    while band_h > 1 and not fits(1, band_h, band_w):
+        band_h -= 1
+    while band_w > 1 and not fits(1, band_h, band_w):
+        band_w -= 1
+    band_n = 1
+    if band_h == hg and band_w == wg:
+        band_n = max(1, min(n, _K7_MAX_PIX // (hg * wg)))
+        while band_n > 1 and not fits(band_n, band_h, band_w):
+            band_n -= 1
+    n_bn, n_bh, n_bw = -(-n // band_n), -(-hg // band_h), -(-wg // band_w)
+    return C3Bands(band_n, band_h, band_w, n_bn, n_bh, n_bw,
+                   n_bn * n_bh * n_bw)
+
+
+def c3_item_box(bands: C3Bands, n: int, hy: int, wy: int, k: int,
+                phases: int, item: int):
+    """Item ``item`` of K7's walk as the kernel finds it (``win_item`` in
+    conv.cu; phase-major with the four-tap phase first, then band, then
+    64-channel tile): ``(ph, pw, first output channel, first image,
+    images, first row, rows, first column, columns)`` of the band grid,
+    clipped to the phase's grid (y itself for ``phases`` 1), or None for an
+    empty band."""
+    tiles = -(-k // _K7_TILE)
+    pi, rem = divmod(item, bands.bands * tiles)
+    band, nt = divmod(rem, tiles)
+    phase = 3 - pi if phases == 4 else 0
+    ph, pw = divmod(phase, 2)
+    bn, r2 = divmod(band, bands.n_bh * bands.n_bw)
+    hb, wb = divmod(r2, bands.n_bw)
+    n0, h0, w0 = bn * bands.band_n, hb * bands.band_h, wb * bands.band_w
+    hp = (hy - ph + 1) // 2 if phases == 4 else hy
+    wp = (wy - pw + 1) // 2 if phases == 4 else wy
+    rows, cols = min(bands.band_h, hp - h0), min(bands.band_w, wp - w0)
+    if rows <= 0 or cols <= 0:
+        return None
+    return (ph, pw, nt * _K7_TILE, n0, min(bands.band_n, n - n0), h0, rows,
+            w0, cols)
+
+
+def _c3_tc_launch(lib, what, x, wt, scale, shift, act, stats, stride,
+                  out_hw, phases=1):
+    """K7's 16-bit body: the forward (``phases`` 1) or the stride-2 input
+    gradient by phase (``phases`` 4, x = dy). Returns ``(y [N, Hy, Wy,
+    K]``, ``s``, ``ss``)."""
+    _check(what, x, (("wt", wt),), scale, shift)
+    n, h, w, c = x.shape
+    k = wt.shape[2]
+    if tuple(wt.shape[:2]) != (9, c):
+        raise ValueError(f"{what}: wt {tuple(wt.shape)} does not take {c} "
+                         f"input channels in nine taps")
+    hy, wy = out_hw
+    hg, wg = ((hy + 1) // 2, (wy + 1) // 2) if phases == 4 else (hy, wy)
+    if phases == 4 and (h, w) != (hg, wg):
+        raise ValueError(f"{what}: dy {tuple(x.shape)} is not the stride-2 "
+                         f"output of a {hy}x{wy} input")
+    bd = c3_bands(n, hg, wg, stride, phases)
+    y = torch.empty((n, hy, wy, k), dtype=x.dtype, device=x.device)
+    partial = tmp = st = None
+    if stats:
+        partial = torch.empty((bd.bands, 2 * k), dtype=torch.float32,
+                              device=x.device)
+        tmp = torch.empty((-(-bd.bands // _REDUCE_CHUNK), 2 * k),
+                          dtype=torch.float32, device=x.device)
+        st = torch.empty(2 * k, dtype=torch.float32, device=x.device)
+    _run(lib, lib.paddle_conv3x3_tc, what, x, x.data_ptr(), wt.data_ptr(),
+         _ptr(scale), _ptr(shift), y.data_ptr(), _ptr(partial), _ptr(tmp),
+         _ptr(st), n, h, w, c, hy, wy, k, stride, phases,
+         int(act == "relu"), int(stats), bd.band_n, bd.band_h, bd.band_w,
+         _DTYPE_CODE[x.dtype])
+    if not stats:
+        z = torch.zeros(k, dtype=torch.float32, device=x.device)
+        return y, z, z.clone()
+    return y, st[:k], st[k:]
+
+
+class K6Plan(NamedTuple):
+    """K6's cut (16-bit body): blocks of ``warps_c`` x ``warps_k`` warps own
+    ``64 warps_c`` input x ``32 warps_k`` output channels of dw (``tiles``
+    such tiles), and split z sums rows ``[z * rows_per_split, (z + 1) *
+    rows_per_split)`` of M, ``splits`` in all."""
+    warps_c: int
+    warps_k: int
+    tiles: int
+    splits: int
+    rows_per_split: int
+
+
+def k6_smem_bytes(warps_c: int, warps_k: int) -> int:
+    """Shared memory of a K6 block (``w1_smem_bytes`` in conv.cu): a ring
+    of four stages of 32 rows of x and dy, each row padded by 8 values."""
+    return 4 * 2 * 32 * (64 * warps_c + 8 + 32 * warps_k + 8)
+
+
+def k6_plan(m: int, c: int, k: int) -> K6Plan:
+    """K6's tile and split for ``m`` rows of ``c`` -> ``k`` channels, a
+    function of the shape only. The tile wastes least (no padded channels
+    where one fits), then has the most warps, then reads least (x once per
+    output tile, dy once per input tile): 256 x 64 at 256 -> 64, 128 x 128
+    at the wider shapes, 64 x 256 at 64 -> 256. The split gives about one
+    wave of the blocks an SM holds at once (two of eight warps), each split
+    at least 128 rows, a multiple of the 32-row stage."""
+    def cost(lay):
+        tc, tk = 64 * lay[0], 32 * lay[1]
+        ct, kt = -(-c // tc), -(-k // tk)
+        return ct * tc * kt * tk, -lay[0] * lay[1], c * kt + k * ct
+
+    wc, wk = min(_K6_LAYOUTS, key=cost)
+    tiles = -(-c // (64 * wc)) * -(-k // (32 * wk))
+    per_sm = min(_K6_SM_WARPS // (wc * wk),
+                 _BLOCK_SMEM // (k6_smem_bytes(wc, wk) + 1024))
+    splits = max(1, min(_SMS * per_sm // tiles, -(-m // _K6_MIN_ROWS),
+                        65535))
+    rows = -(-m // splits)
+    rows = -(-rows // _WGRAD_STEP) * _WGRAD_STEP
+    return K6Plan(wc, wk, tiles, -(-m // rows), rows)
+
+
+def _wgrad1_tc_launch(lib, what, x, dy, scale, shift, act, stride):
+    """K6's 16-bit body: ``[C, K]`` float32."""
+    _check(what, x, (("dy", dy),), scale, shift)
+    n, h, w, c = x.shape
+    _, ho, wo, k = dy.shape
+    if dy.shape[0] != n:
+        raise ValueError(f"{what}: dy {tuple(dy.shape)} and x "
+                         f"{tuple(x.shape)} differ in batch")
+    pl = k6_plan(n * ho * wo, c, k)
+    dw = torch.empty((c, k), dtype=torch.float32, device=x.device)
+    partial = tmp = None
+    if pl.splits > 1:
+        partial = torch.empty((pl.splits, c * k), dtype=torch.float32,
+                              device=x.device)
+        tmp = torch.empty((-(-pl.splits // _REDUCE_CHUNK), c * k),
+                          dtype=torch.float32, device=x.device)
+    _run(lib, lib.paddle_conv1x1_wgrad_tc, what, x, x.data_ptr(),
+         dy.data_ptr(), _ptr(scale), _ptr(shift), dw.data_ptr(),
+         _ptr(partial), _ptr(tmp), n, h, w, c, ho, wo, k, stride,
+         int(act == "relu"), pl.warps_c, pl.warps_k, pl.splits,
+         pl.rows_per_split, _DTYPE_CODE[x.dtype])
+    return dw
+
+
 def _device(*ts) -> torch.device:
     devices = {t.device for t in ts if t is not None}
     if len(devices) != 1:
@@ -509,10 +788,27 @@ def mm_wgrad(x, dy, scale=None, shift=None, act: str = "none",
     act = _act(act)
     if _device(x, dy, scale, shift).type == "cpu":
         return mm_wgrad_reference(x, dy, scale, shift, act, stride)
-    dw = _wgrad_launch(_library(), "mm_wgrad (K6)", x, dy, scale, shift,
-                       act, stride, 0, 1)
+    if x.dtype in (torch.bfloat16, torch.float16):
+        dw = _wgrad1_tc_launch(_library(), "mm_wgrad (K6)", x, dy, scale,
+                               shift, act, stride)
+    else:
+        dw = _wgrad_launch(_library(), "mm_wgrad (K6)", x, dy, scale, shift,
+                           act, stride, 0, 1)[0]
     mm_wgrad.launches += 1
-    return dw[0]
+    return dw
+
+
+def mm_wgrad_tiles64(x, dy, scale=None, shift=None, act: str = "none",
+                     stride: int = 1):
+    """K6's 16-bit body before the present one (64 x 64 tiles, transposed
+    scalar stores), as a yardstick: ``chip_smoke.py`` times it beside
+    :func:`mm_wgrad`; no path runs it, and it counts no launch. Takes CUDA
+    tensors."""
+    act = _act(act)
+    if _device(x, dy, scale, shift).type != "cuda":
+        raise ValueError("mm_wgrad_tiles64 takes CUDA tensors")
+    return _wgrad_launch(_library(), "mm_wgrad_tiles64", x, dy, scale, shift,
+                         act, stride, 0, 1)[0]
 
 
 def c3(x, wt, scale=None, shift=None, act: str = "none", stats: bool = True,
@@ -526,10 +822,46 @@ def c3(x, wt, scale=None, shift=None, act: str = "none", stats: bool = True,
                               for d in x.shape[1:3]))
     if _device(x, wt, scale, shift).type == "cpu":
         return c3_reference(x, wt, scale, shift, act, stats, stride, out_hw)
-    out = _fwd_launch(_library(), "c3 (K7)", x, wt, scale, shift, act,
-                      stats, stride, 1, out_hw)
+    if x.dtype in (torch.bfloat16, torch.float16):
+        out = _c3_tc_launch(_library(), "c3 (K7)", x, wt, scale, shift, act,
+                            stats, stride, out_hw)
+    else:
+        out = _fwd_launch(_library(), "c3 (K7)", x, wt, scale, shift, act,
+                          stats, stride, 1, out_hw)
     c3.launches += 1
     return out
+
+
+def c3_tap_gather(x, wt, scale=None, shift=None, act: str = "none",
+                  stats: bool = True, stride: int = 1, out_hw=None):
+    """K7's 16-bit body before the present one (each tap gathered from
+    device memory and prologued again, 128-row tiles), as a yardstick:
+    ``chip_smoke.py`` times it beside :func:`c3`; no path runs it, and it
+    counts no launch. Takes CUDA tensors."""
+    act = _act(act)
+    out_hw = tuple(out_hw or ((d + 2 - 3) // stride + 1
+                              for d in x.shape[1:3]))
+    if _device(x, wt, scale, shift).type != "cuda":
+        raise ValueError("c3_tap_gather takes CUDA tensors")
+    return _fwd_launch(_library(), "c3_tap_gather", x, wt, scale, shift, act,
+                       stats, stride, 1, out_hw)
+
+
+def c3_dgrad_phases(dy, wt, x_hw):
+    """K7's stride-2 input gradient by phase, in bf16 and float16: ``dy
+    [N, Ho, Wo, K]``, ``wt [9, K, C]`` the rotated taps
+    (:func:`dgrad_taps`), ``x_hw`` the input's size; the four phases of dx
+    in one launch of K7's body, no dilated dy built. Returns ``dx [N, H,
+    W, C]``. Counted in ``c3.launches``."""
+    if _device(dy, wt).type == "cpu":
+        return c3_dgrad_phases_reference(dy, wt, x_hw)
+    if dy.dtype not in (torch.bfloat16, torch.float16):
+        raise ValueError("c3_dgrad_phases takes bfloat16 or float16; float32 "
+                         "runs the dilated operand (conv2d_dgrad)")
+    dx, _, _ = _c3_tc_launch(_library(), "c3_dgrad_phases (K7)", dy, wt,
+                             None, None, "none", False, 2, tuple(x_hw), 4)
+    c3.launches += 1
+    return dx
 
 
 def c3_wgrad(x, dy, scale=None, shift=None, act: str = "none",
@@ -610,11 +942,23 @@ def conv2d_fwd(x, w, scale=None, shift=None, act: str = "none",
     return c3(x, wt, scale, shift, act, stats, s_)
 
 
+def dgrad_taps(w, dtype):
+    """The 3x3 input gradient's weight matrices: OIHW ``[K, C, 3, 3]``
+    rotated 180 degrees as ``[9, K, C]`` in ``dtype`` (conv.py
+    ``:550-551``)."""
+    kk, c = w.shape[0], w.shape[1]
+    return w.flip(2, 3).permute(2, 3, 0, 1).reshape(9, kk, c).to(
+        dtype).contiguous()
+
+
 def dgrad_operands(dy, w, stride: int):
-    """What conv2d_dgrad hands to K5 or K7: ``(operand, weight matrix)``.
-    1x1: dy and w as ``[1, K, C]``. 3x3: dy, zero-dilated at stride 2
-    (``(Ho - 1)·2 + 1`` rows and columns), and the 180-degree-rotated taps
-    as ``[9, K, C]`` (conv.py ``:538-551``)."""
+    """What conv2d_dgrad hands to K5, or to K7 at stride 1 and in float32:
+    ``(operand, weight matrix)``. 1x1: dy and w as ``[1, K, C]``. 3x3: dy,
+    zero-dilated at stride 2 (``(Ho - 1)·2 + 1`` rows and columns), and the
+    rotated taps (:func:`dgrad_taps`; conv.py ``:538-551``). The 16-bit
+    stride-2 input gradient takes no dilated operand
+    (:func:`c3_dgrad_phases`); chip_smoke.py holds it against
+    :func:`c3_reference` on this one."""
     dy = dy.contiguous()
     kk, c = w.shape[0], w.shape[1]
     if w.shape[2] == 1:
@@ -625,17 +969,22 @@ def dgrad_operands(dy, w, stride: int):
         dyd = torch.zeros((n, (ho - 1) * stride + 1, (wo - 1) * stride + 1,
                            kk), dtype=dy.dtype, device=dy.device)
         dyd[:, ::stride, ::stride] = dy
-    wt = w.flip(2, 3).permute(2, 3, 0, 1).reshape(9, kk, c).to(
-        dy.dtype).contiguous()
-    return dyd, wt
+    return dyd, dgrad_taps(w, dy.dtype)
 
 
 def conv2d_dgrad(dy, w, x_shape, stride=(1, 1), padding=(0, 0)):
     """Input gradient through the same kernels: 1x1 through K5 with w as
     ``[K, C]`` (at stride 2 scattered into zeros at ``[:, ::2, ::2]``); 3x3
-    through K7 at stride 1 on the rotated taps of the zero-dilated dy,
-    padded to ``H + 2`` rows and ``W + 2`` columns (conv.py ``:513-556``)."""
+    through K7 at stride 1 on the rotated taps of dy (of the zero-dilated
+    dy in float32 at stride 2, padded to ``H + 2`` rows and ``W + 2``
+    columns, conv.py ``:513-556``); in 16 bits at stride 2 through K7 by
+    output phase (:func:`c3_dgrad_phases`: the same function, without the
+    dilation's zero products)."""
     s_ = _pair(stride)[0]
+    if w.shape[2] == 3 and s_ == 2 and dy.dtype in (torch.bfloat16,
+                                                    torch.float16):
+        return c3_dgrad_phases(dy.contiguous(), dgrad_taps(w, dy.dtype),
+                               (x_shape[1], x_shape[2]))
     op, wt = dgrad_operands(dy, w, s_)
     if w.shape[2] == 1:
         da, _, _ = mm(op, wt[0], None, None, "none", False, 1)

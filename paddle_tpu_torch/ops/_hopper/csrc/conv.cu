@@ -3,9 +3,13 @@
 //
 // Replaces paddle_tpu/ops/_pallas/conv.py:
 //   K5 conv1x1_kernel        <- _mm_kernel (:142, pallas_call in _mm at :186)
-//   K6 conv1x1_wgrad_kernel  <- _mm_wgrad_kernel (:221, _mm_wgrad at :254)
-//   K7 conv3x3_kernel        <- _c3_kernel (:311, _c3 at :364)
-//   K8 conv3x3_wgrad_kernel  <- _c3_wgrad_kernel (:401, _c3_wgrad at :441)
+//   K6 conv1x1_wgrad_kernel  <- _mm_wgrad_kernel (:221, _mm_wgrad at :254);
+//      in 16 bits conv1x1_wgrad_tc_kernel
+//   K7 conv3x3_kernel        <- _c3_kernel (:311, _c3 at :364), and the 3x3
+//      input gradient of conv2d_dgrad (:513-556); in 16 bits
+//      conv3x3_tc_kernel, the stride-2 input gradient by output phase
+//   K8 conv3x3_wgrad_kernel  <- _c3_wgrad_kernel (:401, _c3_wgrad at :441);
+//      in 16 bits conv3x3_wgrad_tc_kernel
 // and, through paddle_fused_matmul_bn_fwd, K9 of fused_matmul_bn.py (its body
 // is K5's function on [M, Cin] rows; see that entry).
 //
@@ -27,36 +31,49 @@
 // With no prologue and no stats, K5 is the 1x1 input gradient (dy times w as
 // [Cout, Cin]) and K7 the 3x3 input gradient (the stride-1 conv of the zero-
 // dilated, padded dy with the 180-degree-rotated taps), built by the wrapper
-// as conv.py builds them (:531, :538-556).
+// as conv.py builds them (:531, :538-556); in 16 bits K7 takes the stride-2
+// input gradient by output phase instead (conv3x3_tc_kernel's note), the
+// same function without the dilation's zero products.
 //
 // What the TPU relies on that Hopper lacks. The TPU runs the grid in order on
 // one core, so the Pallas kernels carry the stats and the weight gradient in
 // VMEM scratch from one grid step to the next (:156-167, :231-240, :327-338,
 // :413-423). Here blocks run in parallel and in no order, and no atomics are
 // used, so every result repeats bit for bit:
-// - Stats: each K5/K7 block sums its 128 rows per output channel in a fixed
-//   order and writes the partial (sum, sum of squares) to its own row of a
-//   [blocks, 2K] f32 scratch; reduce_rows_kernel then sums the rows in a
-//   fixed order, 256 rows a pass (two passes for M = 802,816). The scratch
-//   costs 16 bytes per block and channel written and read: 3.2 MB at M =
-//   802,816, K = 64, against 103 MB of y.
+// - Stats: each K5/K7 block sums its 128 rows (K7 in 16 bits: its band's
+//   pixels) per output channel in a fixed order and writes the partial
+//   (sum, sum of squares) to its own row of a [blocks or bands, 2K] f32
+//   scratch; reduce_rows_kernel then sums the rows in a fixed order, 256
+//   rows a pass (two passes for M = 802,816). The scratch costs 16 bytes
+//   per row and channel written and read: 3.2 MB at M = 802,816, K = 64,
+//   against 103 MB of y.
 // - Weight gradients: the sum runs over M (up to 802,816 rows) while dw has
 //   only Cin x Cout (x 9) entries, so one block per output tile would leave
 //   most of the 132 SMs idle. K6/K8 split M into S ranges (split-K), each
 //   block writes an f32 partial dw of its range, and reduce_rows_kernel sums
-//   the S partials in a fixed order. K6 picks S so that about 1,024 blocks
-//   run; K8 (16-bit) cuts M into bands of whole output rows and S so that
-//   about two waves of 132 blocks run (conv.py's wgrad_bands). The split
-//   costs 8 * S * Cin * Cout (* 9) bytes written and read: 38 MB for the 3x3
-//   64 -> 64 conv at 56^2 (S = 256), against 206 MB of x and dy read.
+//   the S partials in a fixed order. K6 in f32 picks S so that about 1,024
+//   blocks run, in 16 bits so that about one wave of its larger tiles runs
+//   (conv.py's k6_plan); K8 (16-bit) cuts M into bands of whole output rows
+//   and S so that about two waves of 132 blocks run (conv.py's
+//   wgrad_bands). The split costs 8 * S * Cin * Cout (* 9) bytes written
+//   and read: 38 MB for the 3x3 64 -> 64 conv at 56^2 (S = 256), against
+//   206 MB of x and dy read.
 //
 // Design. Each kernel is a tiled implicit GEMM, one body per kind shared by
-// its 1x1 and 3x3 forms (TAPS = 1 or 9). K5/K7: a block of 256 threads owns
-// 128 output rows x 64 output channels and walks the taps and the input
-// channels, loading the A tile (prologue applied, padding zeroed) and the
-// weight tile into shared memory while the next tiles' global loads are in
-// flight. K6 (and K8 in f32): a block owns 64 input channels of one tap x
-// 64 output channels and walks its range of rows. K8 in 16 bits
+// its 1x1 and 3x3 forms (TAPS = 1 or 9). K5 (and K7 in f32): a block of 256
+// threads owns 128 output rows x 64 output channels and walks the taps and
+// the input channels, loading the A tile (prologue applied, padding zeroed)
+// and the weight tile into shared memory while the next tiles' global loads
+// are in flight. K6 in f32 (and K8 in f32): a block owns 64 input channels
+// of one tap x 64 output channels and walks its range of rows. K7 in 16
+// bits (conv3x3_tc_kernel, below) is shaped like _c3_kernel: persistent
+// blocks walk bands of output pixels, copy warps bring each band's x
+// window in once a channel step by cp.async and apply the prologue once per
+// element, and product warps take each tap's A from that window by
+// ldmatrix at the tap's pixel offset; its stride-2 input gradient runs by
+// output phase. K6 in 16 bits (conv1x1_wgrad_tc_kernel) owns dw tiles of up
+// to 256 x 64 or 128 x 128 channels, fed by a four-stage cp.async ring with
+// both fragments read by ldmatrix.trans. K8 in 16 bits
 // (conv3x3_wgrad_tc_kernel, below) is shaped like _c3_wgrad_kernel: a block
 // owns 64 x 64 channels of all nine taps and walks bands of whole output
 // rows, loading each band's x window once with its halo, applying the
@@ -75,18 +92,20 @@
 // y (103 MB) for 2.6e10 FLOPs: bytes bound it (0.153 ms at 3.35 TB/s); K7
 // 64 -> 64 moves 206 MB for 5.9e10 FLOPs, bytes first with the FLOPs close
 // (0.061 against 0.060 ms at 989 TFLOP/s); K8 64 -> 64 the same bytes and
-// FLOPs (0.061 ms). K5-K7 and K6 feed mma.sync from shared memory without
-// ldmatrix or asynchronous copies and stay far from both. K8's nine-tap body
-// reads, per 16 output pixels and warp, 4 ldmatrix of dy and 3 of a for 24
-// products: shared-memory reads, the mma.sync issue rate and the phases a
-// band runs in turn (copies, the prologue, the products), not the bytes,
-// bound it. Their times stand in PERF.md. wgmma fed by TMA is a later
+// FLOPs (0.061 ms). K5 (and K7 and K6 in f32) feed their products from
+// shared memory without ldmatrix or asynchronous copies and stay far from
+// both. K8's nine-tap body reads, per 16 output pixels and warp, 4 ldmatrix
+// of dy and 3 of a for 24 products: shared-memory reads, the mma.sync issue
+// rate and the phases a band runs in turn (copies, the prologue, the
+// products), not the bytes, bound it. K7's and K6's 16-bit bodies: their
+// notes below. Their times stand in PERF.md. wgmma fed by TMA is a later
 // change's work.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 #include <type_traits>
 
@@ -1216,6 +1235,800 @@ __global__ void __launch_bounds__(kFThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// K7 on the tensor cores: bands of output pixels under one window (bf16 and
+// float16)
+// ---------------------------------------------------------------------------
+//
+// Replaces _c3_kernel (:311, launched by _c3 at :364) in 16 bits, and the
+// stride-2 dgrad that conv2d_dgrad (:513-556) runs through it on the zero-
+// dilated dy. It is _c3's band the other way round from K8: a block owns a
+// band of output pixels (band_n images x band_h rows x band_w columns, at
+// most 256 pixels; band_n > 1 only for whole small images) x 64 output
+// channels, and walks the input channels 32 a step. The blocks are
+// persistent (one an SM) and walk the items (band, channel tile) in turn;
+// each item is summed by one block in a fixed order, whatever the grid, so
+// the results repeat bit for bit. A block's warps split into two roles,
+// which hand two buffers to each other through named barriers:
+// - 4 copy warps copy, by cp.async in 16-byte pieces, each step's window of
+//   x under the band with its halo (the padding zero-filled) and its tap
+//   slices of wt ([tap][32][64]) into a free buffer, then apply the
+//   prologue once to each x element they copied (two channels an
+//   instruction in x's type, the _rn forms; the padding stays 0, as in
+//   _c3_prologue), and mark the buffer full;
+// - the product warps (64 pixels x kCWarpN channels each) read, for each
+//   tap, the A fragments by ldmatrix, each lane giving the address of its
+//   own pixel at the tap's offset in the window (so the tap's gather costs
+//   nothing), and the weights' B fragments by ldmatrix.trans, the next
+//   k-step's fragments while this one's products run; after an item's
+//   last step they write y rounded from the f32 accumulator and, for the
+//   forward, the band's per-channel (sum, sumsq) of the accumulator (the
+//   warp butterfly, then the 4 pixel warps in order) into its row of
+//   partial, for reduce_rows.
+// So the copies, the prologue and the epilogue of one step run beside the
+// products of another. At stride 2 the window's even and odd columns are
+// kept as two runs (win_index), so the 8 pixels of an ldmatrix read lie in
+// distinct banks.
+//
+// The stride-2 dgrad by phases (phases == 4). dx pixel (i, j) of phase (ph,
+// pw) = (i & 1, j & 1) meets a nonzero entry of the dilated dy only at the
+// taps dh = 1 (ph = 0) or dh in {0, 2} (ph = 1), and likewise dw: 1, 2, 2 or
+// 4 taps, 9 a 2 x 2 block of pixels where the dilated form takes 36. Phase
+// (ph, pw) is a stride-1 window over dy itself: its pixel (a, b) = dx pixel
+// (2a + ph, 2b + pw) sums dy[a + jr, b + jc] x wt[3 dh + dw] over its taps
+// (jr, jc) in the dilated form's order (dh = ph ? 2 jr : 1). The four phases
+// are items of one launch (the 4-tap phase first), so no dilated dy is
+// built; rows and columns of a phase past dy are the dilated form's zero
+// padding, and a phase of a 1-row (1-column) dx is empty.
+//
+// What bounds it. At ResNet-50's 3x3 shapes (B = 256) the work is 5.9e10
+// FLOPs a launch against 0.06-0.2 GB: the FLOPs bound it (0.06 ms at 989
+// TFLOP/s), except at 56^2 where the bytes are as large. mma.sync reaches a
+// part of that rate only. A product warp reads 4 ldmatrix of A and 4 of B
+// for 32 products (64 x 64 channels, 128 accumulators: 4 warps of 64 x 64
+// ran faster than 8 of 64 x 32 at every ResNet-50 shape); the copy warps'
+// prologue pass slows the products beside it (the same body ran faster
+// with no prologue), though neither role waits on the other; the epilogue
+// stands between an item's products and the next (a large share at 56^2,
+// where an item is two steps); and whole-row bands leave part of the
+// 256-pixel tile empty (196 pixels at 14^2 and at stride 2).
+
+constexpr int kCN = 64;          // output channels of a block
+constexpr int kCWarpN = 64;      // output channels a product warp
+constexpr int kCNT = kCWarpN / 8;           // its m16n8 tiles across
+constexpr int kCWarpsN = kCN / kCWarpN;     // product warps across
+constexpr int kCConsumers = 4 * kCWarpsN * 32;   // 4 product warps, one a
+                                                 // 64-pixel group
+constexpr int kCProducers = 128;   // 4 copy warps
+constexpr int kCThreads = kCConsumers + kCProducers;
+constexpr int kCPix = 256;       // output pixels a band may hold
+constexpr int kCK = 32;          // input channels a step
+constexpr int kCLdX = kCK + 8;   // padded window pixel: 80 bytes
+constexpr int kCLdW = kCN + 8;   // padded weight row: 144 bytes
+constexpr int kCWVals = 9 * kCK * kCLdW;   // a buffer's nine tap slices
+constexpr int kCRedBytes = 2 * 4 * kCN * sizeof(float);
+// named barriers (0 is __syncthreads): buffer b full, buffer b empty, and
+// the product warps' own for the stats
+constexpr int kBarFull = 1;
+constexpr int kBarEmpty = 3;
+constexpr int kBarStats = 5;
+static_assert(kCK * 8 == 2 * kCProducers, "two weight pieces a copy thread");
+
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+struct WinParams {
+  const void* x;        // the window's source [N, H, W, C]: x, or dy
+  const void* w;        // taps [9, C, K]
+  const float* scale;   // [C] or null
+  const float* shift;
+  void* y;              // [N, Hy, Wy, K]
+  float* partial;       // stats: [bands, 2K] f32, or null
+  int N, H, W, C;
+  int K;
+  int Hy, Wy;
+  int stride;           // the forward's stride; 2 with phases == 4
+  int phases;           // 1: the forward (nine taps, padding 1); 4: by phase
+  int band_n, band_h, band_w;   // a band: images, rows, columns
+  int n_bn, n_bh, n_bw;         // bands across the batch, down, across
+  int bands;
+  int win_h, win_w;     // one image's window under a full band
+  int n_tiles;          // ceil(K / 64)
+  int items;            // phases * bands * n_tiles
+};
+
+__host__ __device__ inline int win_buffer_values(const WinParams& w) {
+  return kCWVals + w.band_n * w.win_h * w.win_w * kCLdX;
+}
+
+// two buffers of tap slices and windows, then the stats' cross-warp sums
+__host__ inline size_t win_smem_bytes(const WinParams& w) {
+  return 2 * sizeof(unsigned short) * win_buffer_values(w) + kCRedBytes;
+}
+
+// One item of the K7 walk: phase (ph, pw), the band's images, rows and
+// columns (clipped to the phase's grid), its output channel tile
+struct WinItem {
+  int ph, pw, n0, nn, ho0, bh, wo0, bw, k0, band;
+};
+
+// item i of the walk: phase-major (the 4-tap phase first), then band, then
+// channel tile; false for a band past its phase's grid
+__device__ __forceinline__ bool win_item(const WinParams& p, int i,
+                                         WinItem& it) {
+  const bool phased = p.phases == 4;
+  const int per_phase = p.bands * p.n_tiles;
+  const int pi = i / per_phase;
+  const int rem = i - pi * per_phase;
+  it.band = rem / p.n_tiles;
+  it.k0 = (rem - it.band * p.n_tiles) * kCN;
+  const int phase = phased ? 3 - pi : 0;
+  it.ph = phase >> 1;
+  it.pw = phase & 1;
+  const int per_n = p.n_bh * p.n_bw;
+  const int bn = it.band / per_n;
+  const int r2 = it.band - bn * per_n;
+  const int hb = r2 / p.n_bw;
+  it.n0 = bn * p.band_n;
+  it.nn = min(p.band_n, p.N - it.n0);
+  it.ho0 = hb * p.band_h;
+  it.wo0 = (r2 - hb * p.n_bw) * p.band_w;
+  const int hp = phased ? (p.Hy - it.ph + 1) >> 1 : p.Hy;
+  const int wp = phased ? (p.Wy - it.pw + 1) >> 1 : p.Wy;
+  it.bh = min(p.band_h, hp - it.ho0);
+  it.bw = min(p.band_w, wp - it.wo0);
+  return it.bh > 0 && it.bw > 0;
+}
+
+// the block's first item at or after i (its items are i, i + gridDim.x, ...)
+__device__ __forceinline__ int win_next(const WinParams& p, int i,
+                                        WinItem& it) {
+  while (i < p.items && !win_item(p, i, it)) i += gridDim.x;
+  return i;
+}
+
+// The copy warps: each step's tap slices and windows into a free buffer by
+// cp.async (element by element, the prologue applied, where rows do not
+// allow 16-byte copies), then the prologue once per x element on the pieces
+// the thread copied, then the buffer is handed to the product warps
+template <typename T, bool PRO, bool RELU>
+__device__ __forceinline__ void win_producer(const WinParams& p,
+                                             unsigned short* sbuf,
+                                             int buf_vals) {
+  const T* x = static_cast<const T*>(p.x);
+  const T* wt = static_cast<const T*>(p.w);
+  const int ptid = threadIdx.x - kCConsumers;
+  const bool phased = p.phases == 4;
+  const int s = phased ? 1 : p.stride;
+  const int pad = phased ? 0 : 1;
+  const int img_px = p.win_h * p.win_w;
+  const int n_chunks = (p.C + kCK - 1) / kCK;
+  const bool vec_x = vec8(x, p.C);
+  const bool vec_w = vec8(wt, p.K);
+  // the thread's 8 window channels of a step, and its pixels: a warp takes
+  // 8 consecutive pixels x the 4 parts, lane & 7 the pixel, so the 8 16-byte
+  // pieces of a quarter-warp lie in distinct banks (80-byte pixel rows);
+  // then every 32nd pixel, walked by (image, row, column) steps
+  const int part = (ptid >> 3) & 3;
+  const int px0 = ((ptid >> 5) << 3) | (ptid & 7);
+  constexpr int kStep = kCProducers / 4;
+  struct Cursor {
+    int ni, r, c;
+  };
+  auto cursor = [&](int i) {
+    Cursor q;
+    q.ni = i / img_px;
+    const int pi = i - q.ni * img_px;
+    q.r = pi / p.win_w;
+    q.c = pi - q.r * p.win_w;
+    return q;
+  };
+  auto advance = [&](Cursor& q) {
+    q.c += kStep;
+    while (q.c >= p.win_w) {
+      q.c -= p.win_w;
+      if (++q.r == p.win_h) {
+        q.r = 0;
+        ++q.ni;
+      }
+    }
+  };
+
+  WinItem it;
+  int ci = win_next(p, blockIdx.x, it);
+  int cb = 0;
+  int step = 0;
+  while (ci < p.items) {
+    const int b = step & 1;
+    // buffer b is free once the product warps are done with step - 2
+    if (step >= 2) named_sync(kBarEmpty + b, kCThreads);
+    unsigned short* sW = sbuf + b * buf_vals;
+    unsigned short* sX = sW + kCWVals;
+    const int c0 = cb * kCK;
+    // the tap slices: slot j (in the item's tap order), input channel row
+    // r, 8 output channels
+    const int nc = phased ? 1 + it.pw : 3;
+    const int ntaps = phased ? (1 + it.ph) * nc : 9;
+    for (int q = ptid; q < ntaps * kCK * 8; q += kCProducers) {
+      const int j = q >> 8;
+      const int r = (q >> 3) & (kCK - 1);
+      const int wpart = q & 7;
+      const int jr = j / nc;
+      const int jc = j - jr * nc;
+      const int dh = phased ? (it.ph ? 2 * jr : 1) : jr;
+      const int dw = phased ? (it.pw ? 2 * jc : 1) : jc;
+      const int c = c0 + r;
+      const int n = it.k0 + wpart * 8;
+      unsigned short* dst = sW + (j * kCK + r) * kCLdW + wpart * 8;
+      const long long off =
+          (static_cast<long long>(dh * 3 + dw) * p.C + c) * p.K + n;
+      if (vec_w) {
+        const bool in = c < p.C && n < p.K;
+        cp_async16(dst, in ? static_cast<const void*>(wt + off) : wt, in);
+      } else {
+        unsigned w4[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int n1 = n + 2 * e;
+          const bool ok = c < p.C;
+          w4[e] = pack2<T>(ok && n1 < p.K ? to_float(wt[off + 2 * e]) : 0.f,
+                           ok && n1 + 1 < p.K ? to_float(wt[off + 2 * e + 1])
+                                              : 0.f);
+        }
+        *reinterpret_cast<uint4*>(dst) = make_uint4(w4[0], w4[1], w4[2],
+                                                    w4[3]);
+      }
+    }
+    // the windows (padding and channels past C zero-filled)
+    const int cc = c0 + part * 8;
+    const int row0 = it.ho0 * s - pad;
+    const int col0 = it.wo0 * s - pad;
+    Cursor q = cursor(px0);
+    for (int px = px0; px < it.nn * img_px; px += kStep, advance(q)) {
+      unsigned short* dst =
+          sX + (q.ni * img_px + win_index(q.r, q.c, p.win_w, s)) * kCLdX +
+          part * 8;
+      const int hi = row0 + q.r;
+      const int wi = col0 + q.c;
+      const bool pix = hi >= 0 && hi < p.H && wi >= 0 && wi < p.W;
+      const long long off =
+          ((static_cast<long long>(it.n0 + q.ni) * p.H + hi) * p.W + wi) *
+          p.C;
+      if (vec_x) {
+        const bool in = pix && cc < p.C;
+        cp_async16(dst, in ? static_cast<const void*>(x + off + cc) : x, in);
+      } else {
+        unsigned w4[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int ce = cc + 2 * j + e;
+            v[e] = 0.f;
+            if (pix && ce < p.C) {
+              v[e] = to_float(x[off + ce]);
+              if (PRO)
+                v[e] = prologue<T, RELU>(v[e], __ldg(p.scale + ce),
+                                         __ldg(p.shift + ce));
+            }
+          }
+          w4[j] = pack2<T>(v[0], v[1]);
+        }
+        *reinterpret_cast<uint4*>(dst) = make_uint4(w4[0], w4[1], w4[2],
+                                                    w4[3]);
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    if (PRO && vec_x && cc < p.C) {
+      // the prologue on the pieces this thread copied: the padding and
+      // channels past C stay 0
+      unsigned sc2[4], sh2[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc2[e] = pack2<T>(__ldg(p.scale + cc + 2 * e),
+                          __ldg(p.scale + cc + 2 * e + 1));
+        sh2[e] = pack2<T>(__ldg(p.shift + cc + 2 * e),
+                          __ldg(p.shift + cc + 2 * e + 1));
+      }
+      Cursor q2 = cursor(px0);
+      for (int px = px0; px < it.nn * img_px; px += kStep, advance(q2)) {
+        const int hi = row0 + q2.r;
+        const int wi = col0 + q2.c;
+        if (hi < 0 || hi >= p.H || wi < 0 || wi >= p.W) continue;
+        uint4* ptr = reinterpret_cast<uint4*>(
+            sX + (q2.ni * img_px + win_index(q2.r, q2.c, p.win_w, s)) *
+                     kCLdX +
+            part * 8);
+        const uint4 u = *ptr;
+        *ptr = make_uint4(prologue2<T, RELU>(u.x, sc2[0], sh2[0]),
+                          prologue2<T, RELU>(u.y, sc2[1], sh2[1]),
+                          prologue2<T, RELU>(u.z, sc2[2], sh2[2]),
+                          prologue2<T, RELU>(u.w, sc2[3], sh2[3]));
+      }
+    }
+    named_arrive(kBarFull + b, kCThreads);
+    ++step;
+    if (++cb == n_chunks) {
+      cb = 0;
+      ci = win_next(p, ci + gridDim.x, it);
+    }
+  }
+  // match the product warps' last two arrivals on the empty barriers
+  for (int j = max(step, 2); j < step + 2; ++j)
+    named_sync(kBarEmpty + (j & 1), kCThreads);
+}
+
+// The product warps: for each step and tap, A by ldmatrix at the lane's
+// pixel plus the tap's offset, B by ldmatrix.trans, m16n8k16 products into
+// 64 pixels x 32 channels a warp; after an item's last step, y and the
+// stats
+template <typename T, bool STATS>
+__device__ __forceinline__ void win_consumer(const WinParams& p,
+                                             unsigned short* sbuf,
+                                             int buf_vals, float* red) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int wm = warp / kCWarpsN;   // band pixels wm * 64 .. + 63
+  const int wn = warp - wm * kCWarpsN;   // output channels wn * kCWarpN ..
+  const bool phased = p.phases == 4;
+  const int s = phased ? 1 : p.stride;
+  const int os = phased ? 2 : 1;   // y's step an output pixel
+  const int img_px = p.win_h * p.win_w;
+  const int half = (p.win_w + 1) >> 1;
+  const int n_chunks = (p.C + kCK - 1) / kCK;
+
+  float acc[4][kCNT][4];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < kCNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][nt][e] = 0.f;
+  // two sets of fragments: a k-step's are read while the last one's
+  // products run
+  unsigned af[2][4][4], bq[2][kCNT / 2][4];
+  // the lane's A pixel of each 16-pixel group as a window index (a pixel
+  // past the band reads pixel 0 of the window: finite)
+  int abase[4];
+
+  WinItem it;
+  int ci = win_next(p, blockIdx.x, it);
+  int cb = 0;
+  int step = 0;
+  while (ci < p.items) {
+    const int img_rows = it.bh * it.bw;
+    const int bpx = it.nn * img_rows;
+    if (cb == 0) {
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        const int pm = wm * 64 + mi * 16 + (lane & 15);
+        abase[mi] = 0;
+        if (pm < bpx) {
+          const int ni = pm / img_rows;
+          const int r2 = pm - ni * img_rows;
+          const int rr = r2 / it.bw;
+          abase[mi] = ni * img_px + rr * s * p.win_w + (r2 - rr * it.bw);
+        }
+      }
+    }
+    const int b = step & 1;
+    named_sync(kBarFull + b, kCThreads);
+    const unsigned short* sW = sbuf + b * buf_vals;
+    const unsigned short* sX = sW + kCWVals;
+    const int nc = phased ? 1 + it.pw : 3;
+    const int ntaps = phased ? (1 + it.ph) * nc : 9;
+    // set `set` of fragments for tap slot j at window offset toff, k-step
+    // kb: A at the lane's pixel + toff, B from the slot's [c][n] rows
+    auto load_frags = [&](int set, int j, int toff, int kb) {
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+        ldmatrix_x4(af[set][mi], sX + (abase[mi] + toff) * kCLdX + kb +
+                                     (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < kCNT / 2; ++np)
+        ldmatrix_x4_trans(
+            bq[set][np], sW + (j * kCK + kb + ((lane >> 3) & 1) * 8 +
+                               (lane & 7)) * kCLdW +
+                             wn * kCWarpN + np * 16 + (lane >> 4) * 8);
+    };
+    auto mma_frags = [&](int set) {
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int nt = 0; nt < kCNT; ++nt)
+          mma_16816<T>(acc[mi][nt], af[set][mi],
+                       bq[set][nt >> 1][2 * (nt & 1)],
+                       bq[set][nt >> 1][2 * (nt & 1) + 1]);
+    };
+    static_assert(kCK == 32, "two k-steps a tap");
+    int jr = 0, jc = 0, toff = 0;
+    load_frags(0, 0, 0, 0);
+#pragma unroll 1
+    for (int j = 0; j < ntaps; ++j) {
+      load_frags(1, j, toff, 16);
+      mma_frags(0);
+      if (++jc == nc) {
+        jc = 0;
+        ++jr;
+      }
+      toff = jr * p.win_w + (s == 2 ? (jc & 1) * half + (jc >> 1) : jc);
+      if (j + 1 < ntaps) load_frags(0, j + 1, toff, 0);
+      mma_frags(1);
+    }
+    named_arrive(kBarEmpty + b, kCThreads);
+    ++step;
+    if (cb == n_chunks - 1) {
+      // y rounded from the f32 accumulator, and the band's stats row
+      T* y = static_cast<T*>(p.y);
+      const bool pair_y =
+          p.K % 2 == 0 && (reinterpret_cast<uintptr_t>(y) & 3) == 0;
+      float sm[kCNT][2], sq[kCNT][2];
+#pragma unroll
+      for (int nt = 0; nt < kCNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) sm[nt][e] = sq[nt][e] = 0.f;
+      // the thread's pixels wm * 64 + g + 8 i, i = 2 mi + h, by steps of 8
+      int ni = (wm * 64 + g) / img_rows;
+      int rr = (wm * 64 + g - ni * img_rows) / it.bw;
+      int cc = wm * 64 + g - ni * img_rows - rr * it.bw;
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int pm = wm * 64 + mi * 16 + g + 8 * h;
+          if (pm > wm * 64 + g) {
+            cc += 8;
+            while (cc >= it.bw) {
+              cc -= it.bw;
+              if (++rr == it.bh) {
+                rr = 0;
+                ++ni;
+              }
+            }
+          }
+          if (pm >= bpx) continue;
+          const long long row =
+              (static_cast<long long>(it.n0 + ni) * p.Hy +
+               (it.ho0 + rr) * os + it.ph) * p.Wy + (it.wo0 + cc) * os +
+              it.pw;
+#pragma unroll
+          for (int nt = 0; nt < kCNT; ++nt) {
+            const int n = it.k0 + wn * kCWarpN + nt * 8 + 2 * tq;
+            const float v0 = acc[mi][nt][2 * h];
+            const float v1 = acc[mi][nt][2 * h + 1];
+            T* dst = y + row * p.K + n;
+            if (pair_y && n + 1 < p.K) {
+              *reinterpret_cast<uint32_t*>(dst) = pack2<T>(v0, v1);
+            } else {
+              if (n < p.K) dst[0] = from_float<T>(v0);
+              if (n + 1 < p.K) dst[1] = from_float<T>(v1);
+            }
+            if (STATS) {
+              if (n < p.K) {
+                sm[nt][0] += v0;
+                sq[nt][0] += v0 * v0;
+              }
+              if (n + 1 < p.K) {
+                sm[nt][1] += v1;
+                sq[nt][1] += v1 * v1;
+              }
+            }
+          }
+        }
+      if (STATS) {
+#pragma unroll
+        for (int nt = 0; nt < kCNT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int off = 4; off < 32; off <<= 1) {
+              sm[nt][e] += __shfl_xor_sync(0xffffffffu, sm[nt][e], off);
+              sq[nt][e] += __shfl_xor_sync(0xffffffffu, sq[nt][e], off);
+            }
+        // (the last item's reads of red came before this step's full
+        // barrier)
+        if (g == 0) {
+#pragma unroll
+          for (int nt = 0; nt < kCNT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int col = wn * kCWarpN + nt * 8 + 2 * tq + e;
+              red[wm * kCN + col] = sm[nt][e];
+              red[(4 + wm) * kCN + col] = sq[nt][e];
+            }
+        }
+        named_sync(kBarStats, kCConsumers);
+        if (tid < kCN) {
+          const int n = it.k0 + tid;
+          if (n < p.K) {
+            float ts = 0.f, tss = 0.f;
+            for (int w = 0; w < 4; ++w) {
+              ts += red[w * kCN + tid];
+              tss += red[(4 + w) * kCN + tid];
+            }
+            float* prow =
+                p.partial + static_cast<long long>(it.band) * 2 * p.K;
+            prow[n] = ts;
+            prow[p.K + n] = tss;
+          }
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int nt = 0; nt < kCNT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][nt][e] = 0.f;
+    }
+    if (++cb == n_chunks) {
+      cb = 0;
+      ci = win_next(p, ci + gridDim.x, it);
+    }
+  }
+}
+
+template <typename T, bool PRO, bool RELU, bool STATS>
+__global__ void __launch_bounds__(kCThreads, 1)
+    conv3x3_tc_kernel(const WinParams p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned short* sbuf = reinterpret_cast<unsigned short*>(smem_raw);
+  const int buf_vals = win_buffer_values(p);
+  float* red = reinterpret_cast<float*>(sbuf + 2 * buf_vals);   // [2][4][64]
+  if (threadIdx.x >= kCConsumers)
+    win_producer<T, PRO, RELU>(p, sbuf, buf_vals);
+  else
+    win_consumer<T, STATS>(p, sbuf, buf_vals, red);
+}
+
+// ---------------------------------------------------------------------------
+// K6 on the tensor cores: dw tiles that read each byte about once (bf16 and
+// float16)
+// ---------------------------------------------------------------------------
+//
+// Replaces _mm_wgrad_kernel (:221, launched by _mm_wgrad at :254) in 16
+// bits: dw [C, K] f32 = sum_m a[m, c] dy[m, k] over one range of rows (the
+// split-K of the parent body, reduced in a fixed order by reduce_rows). A
+// block owns a tile of 64 warps_c input channels x 32 warps_k output
+// channels (256 x 64, 128 x 128, 64 x 256, ...: conv.py's k6_plan picks the
+// tile that wastes least and reads least, so that x and dy are read about
+// once per shape, not C / 64 or K / 64 times as with the parent's 64 x 64),
+// one warp a 64 x 32 sub-tile. It walks its rows 32 a stage through a ring
+// of four stages: x and dy stay row-major ([row][c], [row][k]) and come in
+// by cp.async in 16-byte pieces; the prologue is applied once to each x
+// element in shared memory (the _rn pair forms), on the pieces the thread
+// copied, before the stage's one barrier; both fragments, whose reduction
+// runs over rows, are read by ldmatrix.trans (4 of x and 2 of dy for a
+// warp's 16 products), so no value is transposed by scalar stores.
+//
+// What bounds it. At ResNet-50's 1x1 weight-gradient shapes (B = 256) the
+// 56^2 shapes are bound by their bytes (256 -> 64: 514 MB, 0.153 ms at 3.35
+// TB/s) and the 7^2 and 14^2 ones by their FLOPs; with two blocks an SM the
+// four-stage ring keeps about 130 KB of copies in flight on each SM, and the
+// split gives about one wave of blocks.
+
+constexpr int kW1Rows = 32;     // rows of a stage
+constexpr int kW1Stages = 4;    // stages in the ring
+
+__host__ __device__ inline int w1_stage_values(int tc, int tk) {
+  return kW1Rows * (tc + 8 + tk + 8);
+}
+
+__host__ inline size_t w1_smem_bytes(int tc, int tk) {
+  return kW1Stages * sizeof(unsigned short) * w1_stage_values(tc, tk);
+}
+
+template <typename T, bool PRO, bool RELU>
+__global__ void __launch_bounds__(kThreads, 2)
+    conv1x1_wgrad_tc_kernel(const ConvParams p, int warps_c, int warps_k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned short* sbuf = reinterpret_cast<unsigned short*>(smem_raw);
+  const T* x = static_cast<const T*>(p.x);
+  const T* dy = static_cast<const T*>(p.w);
+  const int tc = 64 * warps_c;
+  const int tk = 32 * warps_k;
+  const int ldx = tc + 8;   // 16 bytes of padding: 8 rows in distinct banks
+  const int ldd = tk + 8;
+  const int stage_vals = w1_stage_values(tc, tk);
+  const int nthreads = 32 * warps_c * warps_k;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int wc = warp / warps_k;   // input channels wc * 64 .. + 63
+  const int wk = warp - wc * warps_k;   // output channels wk * 32 .. + 31
+  const int c0 = blockIdx.x * tc;
+  const int k0 = blockIdx.y * tk;
+  const int m_begin = blockIdx.z * p.rows_per_split;
+  const int m_end = min(p.M, m_begin + p.rows_per_split);
+  const int steps = max(0, (m_end - m_begin + kW1Rows - 1) / kW1Rows);
+  const bool vec_x = vec8(x, p.C);
+  const bool vec_dy = vec8(dy, p.K);
+  // a thread's pieces: one 8-channel part of x (and of dy), fixed, in every
+  // (4 warps_k)-th (8 warps_c-th) row of a stage
+  const int xparts = tc / 8;
+  const int xpart = tid % xparts;
+  const int xrow0 = tid / xparts;
+  const int xrow_step = nthreads / xparts;
+  const int dparts = tk / 8;
+  const int dpart = tid % dparts;
+  const int drow0 = tid / dparts;
+  const int drow_step = nthreads / dparts;
+  const int cx = c0 + xpart * 8;
+  const int kd = k0 + dpart * 8;
+
+  // the x offset of row m (< M), in elements
+  auto x_off = [&](int m) -> long long {
+    if (p.stride == 1) return static_cast<long long>(m) * p.C;
+    const RowOrigin o = row_origin(p, m);
+    return (o.img + static_cast<long long>(o.hi) * p.W + o.wi) * p.C;
+  };
+  auto load = [&](int st) {
+    unsigned short* sX = sbuf + (st % kW1Stages) * stage_vals;
+    unsigned short* sD = sX + kW1Rows * ldx;
+    const int mb = m_begin + st * kW1Rows;
+    for (int r = xrow0; r < kW1Rows; r += xrow_step) {
+      const int m = mb + r;
+      unsigned short* dst = sX + r * ldx + xpart * 8;
+      const bool row_in = m < m_end;
+      const long long off = row_in ? x_off(m) : 0;
+      if (vec_x) {
+        const bool in = row_in && cx < p.C;
+        cp_async16(dst, in ? static_cast<const void*>(x + off + cx) : x, in);
+      } else {
+        unsigned w4[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int ce = cx + 2 * j + e;
+            v[e] = 0.f;
+            if (row_in && ce < p.C) {
+              v[e] = to_float(x[off + ce]);
+              if (PRO)
+                v[e] = prologue<T, RELU>(v[e], __ldg(p.scale + ce),
+                                         __ldg(p.shift + ce));
+            }
+          }
+          w4[j] = pack2<T>(v[0], v[1]);
+        }
+        *reinterpret_cast<uint4*>(dst) = make_uint4(w4[0], w4[1], w4[2],
+                                                    w4[3]);
+      }
+    }
+    for (int r = drow0; r < kW1Rows; r += drow_step) {
+      const int m = mb + r;
+      unsigned short* dst = sD + r * ldd + dpart * 8;
+      const bool row_in = m < m_end;
+      const long long off = static_cast<long long>(m) * p.K + kd;
+      if (vec_dy) {
+        const bool in = row_in && kd < p.K;
+        cp_async16(dst, in ? static_cast<const void*>(dy + off) : dy, in);
+      } else {
+        unsigned w4[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int k1 = kd + 2 * j;
+          w4[j] = pack2<T>(row_in && k1 < p.K ? to_float(dy[off + 2 * j])
+                                              : 0.f,
+                           row_in && k1 + 1 < p.K
+                               ? to_float(dy[off + 2 * j + 1])
+                               : 0.f);
+        }
+        *reinterpret_cast<uint4*>(dst) = make_uint4(w4[0], w4[1], w4[2],
+                                                    w4[3]);
+      }
+    }
+  };
+  // the prologue on this thread's x pieces of stage st (cp.async path)
+  auto apply_prologue = [&](int st, const unsigned (&sc2)[4],
+                            const unsigned (&sh2)[4]) {
+    unsigned short* sX = sbuf + (st % kW1Stages) * stage_vals;
+    const int mb = m_begin + st * kW1Rows;
+    for (int r = xrow0; r < kW1Rows && mb + r < m_end; r += xrow_step) {
+      uint4* ptr = reinterpret_cast<uint4*>(sX + r * ldx + xpart * 8);
+      const uint4 u = *ptr;
+      *ptr = make_uint4(prologue2<T, RELU>(u.x, sc2[0], sh2[0]),
+                        prologue2<T, RELU>(u.y, sc2[1], sh2[1]),
+                        prologue2<T, RELU>(u.z, sc2[2], sh2[2]),
+                        prologue2<T, RELU>(u.w, sc2[3], sh2[3]));
+    }
+  };
+
+  unsigned sc2[4] = {0u, 0u, 0u, 0u}, sh2[4] = {0u, 0u, 0u, 0u};
+  const bool pro_smem = PRO && vec_x && cx < p.C;
+  if (pro_smem) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc2[e] = pack2<T>(__ldg(p.scale + cx + 2 * e),
+                        __ldg(p.scale + cx + 2 * e + 1));
+      sh2[e] = pack2<T>(__ldg(p.shift + cx + 2 * e),
+                        __ldg(p.shift + cx + 2 * e + 1));
+    }
+  }
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][nt][e] = 0.f;
+
+  for (int st = 0; st < kW1Stages - 1; ++st) {
+    if (st < steps) load(st);
+    cp_async_commit();
+  }
+  for (int st = 0; st < steps; ++st) {
+    cp_async_wait<kW1Stages - 2>();
+    if (pro_smem) apply_prologue(st, sc2, sh2);
+    // stage st has landed; every warp is done with stage st - 1's buffer
+    __syncthreads();
+    if (st + kW1Stages - 1 < steps) load(st + kW1Stages - 1);
+    cp_async_commit();
+    const unsigned short* sX = sbuf + (st % kW1Stages) * stage_vals;
+    const unsigned short* sD = sX + kW1Rows * ldx;
+#pragma unroll
+    for (int kb = 0; kb < kW1Rows; kb += 16) {
+      unsigned af[4][4], bq[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+        ldmatrix_x4_trans(af[mi], sX + (kb + (lane >> 4) * 8 + (lane & 7)) *
+                                           ldx +
+                                      wc * 64 + mi * 16 +
+                                      ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int np = 0; np < 2; ++np)
+        ldmatrix_x4_trans(bq[np], sD + (kb + ((lane >> 3) & 1) * 8 +
+                                        (lane & 7)) * ldd +
+                                      wk * 32 + np * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          mma_16816<T>(acc[mi][nt], af[mi], bq[nt >> 1][2 * (nt & 1)],
+                       bq[nt >> 1][2 * (nt & 1) + 1]);
+    }
+  }
+  cp_async_wait<0>();
+
+  // this split's partial dw: [split][C][K] (dw itself for one split)
+  float* out = static_cast<float*>(p.y) +
+               static_cast<long long>(blockIdx.z) * p.C * p.K;
+  const bool pair = (p.K & 1) == 0;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = c0 + wc * 64 + mi * 16 + g + 8 * h;
+      if (c >= p.C) continue;
+      float* row = out + static_cast<long long>(c) * p.K;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int n = k0 + wk * 32 + nt * 8 + 2 * tq;
+        const float v0 = acc[mi][nt][2 * h];
+        const float v1 = acc[mi][nt][2 * h + 1];
+        if (pair && n + 1 < p.K) {
+          *reinterpret_cast<float2*>(row + n) = make_float2(v0, v1);
+        } else {
+          if (n < p.K) row[n] = v0;
+          if (n + 1 < p.K) row[n + 1] = v1;
+        }
+      }
+    }
+}
+
+// ---------------------------------------------------------------------------
 // The fixed-order sum of partials: out[g, l] = sum of in[r, l] over the rows
 // r of group g (kReduceChunk rows), each thread a column and every 8th row,
 // then the 8 row lanes in order
@@ -1345,8 +2158,10 @@ ConvParams make_params(const void* x, const void* w, const void* scale,
 
 }  // namespace
 
-// K5 (taps = 1) or K7 (taps = 9). x [N, H, W, C], wt [taps, C, K] and y [N,
-// Ho, Wo, K] dense in one type (dtype 0: f32, 1: bf16, 2: float16); scale,
+// K5 (taps = 1) or K7 (taps = 9; K7 runs it in f32, and in 16 bits its
+// earlier body, which chip_smoke.py times beside paddle_conv3x3_tc's). x [N,
+// H, W, C], wt [taps, C, K] and y [N, Ho, Wo, K] dense in one type (dtype 0:
+// f32, 1: bf16, 2: float16); scale,
 // shift f32 [C]
 // (null: no prologue; relu ignored without it). With want_stats, partial is
 // f32 [ceil(M / 128), 2K], tmp f32 [ceil(ceil(M / 128) / 256), 2K] and stats
@@ -1382,9 +2197,10 @@ extern "C" int paddle_conv_fwd(const void* x, const void* wt,
 }
 
 // K6 (taps = 1) or K8 (taps = 9): dw [taps, C, K] f32 from x [N, H, W, C] and
-// dy [N, Ho, Wo, K] (dense, one type; 3x3 in f32, and in bf16 the one-block-
-// per-tap body that chip_smoke.py times beside paddle_conv3x3_wgrad_tc's,
-// which K8 runs in 16 bits). rows_per_split rows of M per split
+// dy [N, Ho, Wo, K] (dense, one type; in f32, and in 16 bits the bodies that
+// chip_smoke.py times beside paddle_conv1x1_wgrad_tc's and
+// paddle_conv3x3_wgrad_tc's, which K6 and K8 run in 16 bits).
+// rows_per_split rows of M per split
 // (a multiple of 32); with splits == 1 the kernel writes dw itself, else
 // partial f32 [splits, taps * C * K] holds the splits' sums and tmp f32
 // [ceil(splits / 256), taps * C * K] the reduction's.
@@ -1523,6 +2339,231 @@ extern "C" int paddle_conv3x3_wgrad_tc_smem(int band_n, int band_h,
   bp.win_h = (band_h - 1) * stride + 3;
   bp.win_w = (band_w - 1) * stride + 3;
   return static_cast<int>(band_smem_bytes(bp));
+}
+
+namespace {
+
+// A K7 walk's geometry from its bands, checked; false if it cannot run
+bool make_win(WinParams& w, int N, int H, int W, int C, int Hy, int Wy,
+              int K, int stride, int phases, int band_n, int band_h,
+              int band_w) {
+  const bool phased = phases == 4;
+  const int hg = phased ? (Hy + 1) / 2 : Hy;   // the band grid
+  const int wg = phased ? (Wy + 1) / 2 : Wy;
+  if (N < 1 || H < 1 || W < 1 || C < 1 || Hy < 1 || Wy < 1 || K < 1 ||
+      (phases != 1 && phases != 4) || (stride != 1 && stride != 2) ||
+      (phased && (stride != 2 || H != hg || W != wg)) || band_n < 1 ||
+      band_h < 1 || band_w < 1 || band_n > N || band_h > hg ||
+      band_w > wg || (band_n > 1 && (band_h != hg || band_w != wg)) ||
+      static_cast<long long>(band_n) * band_h * band_w > kCPix ||
+      static_cast<long long>(N) * H * W * C >= (1LL << 62) ||
+      static_cast<long long>(N) * Hy * Wy * K >= (1LL << 62))
+    return false;
+  const int s = phased ? 1 : stride;
+  const int ext = phased ? 2 : 3;   // window rows (columns) past a band's
+  w.N = N;
+  w.H = H;
+  w.W = W;
+  w.C = C;
+  w.K = K;
+  w.Hy = Hy;
+  w.Wy = Wy;
+  w.stride = stride;
+  w.phases = phases;
+  w.band_n = band_n;
+  w.band_h = band_h;
+  w.band_w = band_w;
+  w.n_bn = (N + band_n - 1) / band_n;
+  w.n_bh = (hg + band_h - 1) / band_h;
+  w.n_bw = (wg + band_w - 1) / band_w;
+  w.win_h = (band_h - 1) * s + ext;
+  w.win_w = (band_w - 1) * s + ext;
+  w.n_tiles = (K + kCN - 1) / kCN;
+  const long long bands = static_cast<long long>(w.n_bn) * w.n_bh * w.n_bw;
+  const long long items = bands * w.n_tiles * phases;
+  if (items >= (1LL << 31)) return false;
+  w.bands = static_cast<int>(bands);
+  w.items = static_cast<int>(items);
+  return win_smem_bytes(w) <= 232448;
+}
+
+template <typename T, bool PRO, bool RELU, bool STATS>
+cudaError_t launch_c3_tc(const WinParams& w, cudaStream_t stream) {
+  const size_t smem = win_smem_bytes(w);
+  cudaError_t err = cudaFuncSetAttribute(
+      conv3x3_tc_kernel<T, PRO, RELU, STATS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  // persistent blocks, one an SM (each item is summed by one block, in one
+  // order, whatever the grid)
+  const int blocks = std::min(w.items, std::max(1, sms));
+  conv3x3_tc_kernel<T, PRO, RELU, STATS>
+      <<<blocks, kCThreads, smem, stream>>>(w);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t c3_tc_by_flags(const WinParams& w, bool pro, bool relu,
+                           bool stats, cudaStream_t stream) {
+  if (!pro)
+    return stats ? launch_c3_tc<T, false, false, true>(w, stream)
+                 : launch_c3_tc<T, false, false, false>(w, stream);
+  if (!relu)
+    return stats ? launch_c3_tc<T, true, false, true>(w, stream)
+                 : launch_c3_tc<T, true, false, false>(w, stream);
+  return stats ? launch_c3_tc<T, true, true, true>(w, stream)
+               : launch_c3_tc<T, true, true, false>(w, stream);
+}
+
+template <typename T, bool PRO, bool RELU>
+cudaError_t launch_wgrad1_tc(const ConvParams& p, int warps_c, int warps_k,
+                             int splits, cudaStream_t stream) {
+  const int tc = 64 * warps_c;
+  const int tk = 32 * warps_k;
+  const size_t smem = w1_smem_bytes(tc, tk);
+  cudaError_t err = cudaFuncSetAttribute(
+      conv1x1_wgrad_tc_kernel<T, PRO, RELU>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid((p.C + tc - 1) / tc, (p.K + tk - 1) / tk, splits);
+  conv1x1_wgrad_tc_kernel<T, PRO, RELU>
+      <<<grid, 32 * warps_c * warps_k, smem, stream>>>(p, warps_c, warps_k);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t wgrad1_tc_by_flags(const ConvParams& p, int warps_c, int warps_k,
+                               int splits, bool pro, bool relu,
+                               cudaStream_t stream) {
+  if (!pro)
+    return launch_wgrad1_tc<T, false, false>(p, warps_c, warps_k, splits,
+                                             stream);
+  if (!relu)
+    return launch_wgrad1_tc<T, true, false>(p, warps_c, warps_k, splits,
+                                            stream);
+  return launch_wgrad1_tc<T, true, true>(p, warps_c, warps_k, splits,
+                                         stream);
+}
+
+}  // namespace
+
+// K7's 16-bit body (conv3x3_tc_kernel). phases == 1: the 3x3 conv with
+// padding 1 at stride 1 or 2 of x [N, H, W, C] with the taps wt [9, C, K],
+// y [N, Hy, Wy, K] (Hy, Wy the output size; rows and columns past x read
+// zeros), the prologue when scale and shift are given (f32 [C]), and with
+// want_stats the per-channel (sum, sum of squares) into stats f32 [2K]
+// through partial f32 [bands, 2K] and tmp f32 [ceil(bands / 256), 2K]; also
+// the stride-1 dgrad (x = dy, the rotated taps). phases == 4: the stride-2
+// dgrad by phases, x = dy [N, ceil(Hy / 2), ceil(Wy / 2), C], wt the
+// rotated taps [9, C, K] (dgrad_operands'), y = dx [N, Hy, Wy, K]; no
+// prologue, no stats. Dense tensors of one type (dtype 1 bf16, 2
+// float16). The output pixels (of phase (0, 0) with phases == 4) are cut
+// into bands of band_n images x band_h rows x band_w columns (conv.py's
+// c3_bands).
+extern "C" int paddle_conv3x3_tc(const void* x, const void* wt,
+                                 const void* scale, const void* shift,
+                                 void* y, void* partial, void* tmp,
+                                 void* stats, int N, int H, int W, int C,
+                                 int Hy, int Wy, int K, int stride,
+                                 int phases, int relu, int want_stats,
+                                 int band_n, int band_h, int band_w,
+                                 int dtype, void* stream) {
+  WinParams w = {};
+  if ((dtype != 1 && dtype != 2) ||
+      (scale == nullptr) != (shift == nullptr) ||
+      (phases == 4 && (scale != nullptr || want_stats)) ||
+      (want_stats && (partial == nullptr || tmp == nullptr ||
+                      stats == nullptr)) ||
+      !make_win(w, N, H, W, C, Hy, Wy, K, stride, phases, band_n, band_h,
+                band_w))
+    return static_cast<int>(cudaErrorInvalidValue);
+  w.x = x;
+  w.w = wt;
+  w.scale = static_cast<const float*>(scale);
+  w.shift = static_cast<const float*>(shift);
+  w.y = y;
+  w.partial = static_cast<float*>(partial);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool pro = scale != nullptr;
+  cudaError_t err =
+      dtype == 1
+          ? c3_tc_by_flags<__nv_bfloat16>(w, pro, relu != 0, want_stats != 0,
+                                          st)
+          : c3_tc_by_flags<__half>(w, pro, relu != 0, want_stats != 0, st);
+  if (err != cudaSuccess || !want_stats) return static_cast<int>(err);
+  err = reduce_rows(static_cast<float*>(partial), w.bands, 2 * K,
+                    static_cast<float*>(stats), static_cast<float*>(tmp), st);
+  return static_cast<int>(err);
+}
+
+// The shared memory a K7 block of these bands takes, in bytes, or -1 if the
+// walk cannot run (conv.py's k7_smem_bytes is its twin; chip_smoke.py holds
+// the two equal)
+extern "C" int paddle_conv3x3_tc_smem(int band_n, int band_h, int band_w,
+                                      int stride, int phases) {
+  const int s = phases == 4 ? 1 : stride;
+  const int ext = phases == 4 ? 2 : 3;
+  WinParams w = {};
+  w.band_n = band_n;
+  w.win_h = (band_h - 1) * s + ext;
+  w.win_w = (band_w - 1) * s + ext;
+  return static_cast<int>(win_smem_bytes(w));
+}
+
+// K6's 16-bit body (conv1x1_wgrad_tc_kernel): dw [C, K] f32 of the 1x1 conv
+// at stride 1 or 2 from x [N, H, W, C] and dy [N, Ho, Wo, K] (dense, one
+// type: dtype 1 bf16, 2 float16), the prologue recomputed when scale and
+// shift are given. Tiles of 64 warps_c x 32 warps_k channels (warps_c in 1,
+// 2, 4; warps_k in 1, 2, 4, 8; at most 8 warps), rows_per_split rows of M
+// (a multiple of 32) a split; with splits == 1 the kernel writes dw itself,
+// else partial f32 [splits, C * K] and tmp f32 [ceil(splits / 256), C * K]
+// take the splits' sums, added in split order. conv.py's k6_plan picks the
+// tile and the split.
+extern "C" int paddle_conv1x1_wgrad_tc(const void* x, const void* dy,
+                                       const void* scale, const void* shift,
+                                       void* dw, void* partial, void* tmp,
+                                       int N, int H, int W, int C, int Ho,
+                                       int Wo, int K, int stride, int relu,
+                                       int warps_c, int warps_k, int splits,
+                                       int rows_per_split, int dtype,
+                                       void* stream) {
+  if (bad_geometry(N, H, W, C, Ho, Wo, K, 1, stride, 0, dtype) ||
+      (dtype != 1 && dtype != 2) || (stride != 1 && stride != 2) ||
+      Ho != (H - 1) / stride + 1 || Wo != (W - 1) / stride + 1 ||
+      (scale == nullptr) != (shift == nullptr) ||
+      (warps_c != 1 && warps_c != 2 && warps_c != 4) ||
+      (warps_k != 1 && warps_k != 2 && warps_k != 4 && warps_k != 8) ||
+      warps_c * warps_k > 8 || splits < 1 || splits > 65535 ||
+      rows_per_split < 1 || rows_per_split % kW1Rows != 0 ||
+      static_cast<long long>(splits) * rows_per_split <
+          static_cast<long long>(N) * Ho * Wo ||
+      static_cast<long long>(splits - 1) * rows_per_split >=
+          static_cast<long long>(N) * Ho * Wo ||
+      (K + 32 * warps_k - 1) / (32 * warps_k) > 65535 ||
+      (splits > 1 && (partial == nullptr || tmp == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long L = static_cast<long long>(C) * K;
+  if (L >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  ConvParams p = make_params(x, dy, scale, shift, splits == 1 ? dw : partial,
+                             N, H, W, C, Ho, Wo, K, stride, 0);
+  p.rows_per_split = rows_per_split;
+  const bool pro = scale != nullptr;
+  cudaError_t err =
+      dtype == 1 ? wgrad1_tc_by_flags<__nv_bfloat16>(p, warps_c, warps_k,
+                                                     splits, pro, relu != 0,
+                                                     st)
+                 : wgrad1_tc_by_flags<__half>(p, warps_c, warps_k, splits,
+                                              pro, relu != 0, st);
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  err = reduce_rows(static_cast<float*>(partial), splits, static_cast<int>(L),
+                    static_cast<float*>(dw), static_cast<float*>(tmp), st);
+  return static_cast<int>(err);
 }
 
 // K9 (paddle_tpu/ops/_pallas/fused_matmul_bn.py:_fwd_kernel, :36, launched by
