@@ -10,7 +10,12 @@ OIHW weights.
 
 - :func:`mm` (K5): ``y = act(x·scale+shift) @ w2`` over the pixels of ``x``
   (``x[:, ::2, ::2]`` at stride 2, read in place), plus the per-channel
-  f32 ``(sum, sumsq)`` of the f32 product; also the 1x1 input gradient.
+  f32 ``(sum, sumsq)`` of the f32 product; also the 1x1 input gradient. In
+  16 bits persistent blocks walk tiles of 256 x 64, 128 x 128 or 64 x 256
+  rows x output channels (:func:`k5_plan`), so that x is read and
+  prologued about once, fed by a ``cp.async`` ring that runs across tiles;
+  :func:`mm_tiles64` is the body it had before (128 x 64 tiles), kept as a
+  yardstick that no path runs.
 - :func:`mm_wgrad` (K6): ``act(x·scale+shift)ᵀ @ dy`` in f32; in 16 bits
   on tiles of up to 256 x 64 or 128 x 128 channels fed by a ``cp.async``
   ring (:func:`k6_plan`); :func:`mm_wgrad_tiles64` is the body it had
@@ -62,6 +67,7 @@ cache are not ported yet (ROADMAP Queue 1).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -75,7 +81,8 @@ __all__ = ["conv2d", "conv2d_fwd", "conv2d_dgrad", "conv2d_wgrad",
            "dgrad_operands", "dgrad_taps", "c3_tap_gather",
            "c3_dgrad_phases", "c3_dgrad_phases_reference", "c3_bands",
            "C3Bands", "c3_item_box", "k7_smem_bytes", "mm_wgrad_tiles64",
-           "k6_plan", "K6Plan", "RESNET50_TOP3_SHAPES",
+           "k6_plan", "K6Plan", "k5_plan", "K5Plan", "k5_smem_bytes",
+           "mm_tiles64", "RESNET50_TOP3_SHAPES", "RESNET50_K5_SHAPES",
            "RESNET50_K6_SHAPES", "RESNET50_K7_SHAPES",
            "RESNET50_K8_SHAPES"]
 
@@ -125,8 +132,12 @@ RESNET50_K6_SHAPES = (
     (256, 14, 14, 1024, 2048, 2, 1),
 )
 
+#: ResNet-50's 1x1 convs at B = 256, whose forwards and input gradients K5
+#: runs (36 + 36 launches a step): the same 15 convs as K6's
+RESNET50_K5_SHAPES = RESNET50_K6_SHAPES
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_FWD_ROWS = 128        # rows of a K5/K7 block (kBM in csrc/conv.cu)
+_FWD_ROWS = 128        # rows of an f32 K5/K7 block (kBM in csrc/conv.cu)
 _REDUCE_CHUNK = 256    # rows one reduce pass sums (kReduceChunk)
 _WGRAD_STEP = 32       # rows a K6/K8 split is a multiple of (kTK)
 _WGRAD_BLOCKS = 1024   # about this many K6/K8 blocks, by splitting M
@@ -156,6 +167,16 @@ _K6_LAYOUTS = ((4, 2), (2, 4), (1, 8), (2, 2), (1, 4), (4, 1), (2, 1),
 _K6_SM_WARPS = 16
 _SMS = 132
 _K6_MIN_ROWS = 128
+# K5's 16-bit body (conv1x1_tc_kernel): the warp layouts of a block (warps_m
+# x warps_n, each warp 64 rows x 32 output channels, at most 128 registers a
+# thread, so two blocks of 8 warps an SM), its stages of 32 input channels,
+# the ring's depths, the bytes of shared memory an SM holds and each
+# block's reserve
+_K5_LAYOUTS = ((4, 2), (2, 4), (1, 8))
+_K5_STAGE = 32
+_K5_RINGS = (4, 3)
+_SM_SMEM = 233472
+_BLOCK_RESERVE = 1024
 
 
 def pallas_conv_enabled() -> bool:
@@ -332,6 +353,7 @@ _WGRAD_TC_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 15 + \
 _C3_TC_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
 _WGRAD1_TC_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 14 + \
     [ctypes.c_void_p]
+_K5_TC_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
 
 
 def _library():
@@ -354,6 +376,10 @@ def _library():
         lib.paddle_conv3x3_tc_smem.restype = ctypes.c_int
         lib.paddle_conv1x1_wgrad_tc.argtypes = _WGRAD1_TC_ARGS
         lib.paddle_conv1x1_wgrad_tc.restype = ctypes.c_int
+        lib.paddle_conv1x1_tc.argtypes = _K5_TC_ARGS
+        lib.paddle_conv1x1_tc.restype = ctypes.c_int
+        lib.paddle_conv1x1_tc_smem.argtypes = [ctypes.c_int] * 5
+        lib.paddle_conv1x1_tc_smem.restype = ctypes.c_int
         lib.paddle_cuda_error_string.argtypes = [ctypes.c_int]
         lib.paddle_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -398,11 +424,11 @@ def _run(lib, fn, what: str, x, *args) -> None:
                            f"{err}) for x {tuple(x.shape)} {x.dtype}")
 
 
-def _stat_scratch(m: int, k: int, device):
-    """The f32 buffers of K5/K7's stats over ``m`` rows and ``k`` channels:
-    one partial ``(sum, sumsq)`` row per block, the reduction's pass
-    buffer, and the result ``[2k]``."""
-    blocks = -(-m // _FWD_ROWS)
+def _stat_scratch(blocks: int, k: int, device):
+    """The f32 buffers of K5/K7's stats over ``k`` channels: one partial
+    ``(sum, sumsq)`` row for each of the ``blocks`` row blocks (or bands) of
+    the plan that launches the body, the reduction's pass buffer, and the
+    result ``[2k]``."""
     return (torch.empty((blocks, 2 * k), dtype=torch.float32, device=device),
             torch.empty((-(-blocks // _REDUCE_CHUNK), 2 * k),
                         dtype=torch.float32, device=device),
@@ -420,7 +446,8 @@ def _fwd_launch(lib, what, x, wt, scale, shift, act, stats, stride, pad,
                          f"{c} input channels")
     ho, wo = out_hw
     y = torch.empty((n, ho, wo, k), dtype=x.dtype, device=x.device)
-    partial, tmp, st = _stat_scratch(n * ho * wo, k, x.device) if stats \
+    partial, tmp, st = _stat_scratch(-(-n * ho * wo // _FWD_ROWS), k,
+                                     x.device) if stats \
         else (None, None, None)
     _run(lib, lib.paddle_conv_fwd, what, x, x.data_ptr(), wt.data_ptr(),
          _ptr(scale), _ptr(shift), y.data_ptr(), _ptr(partial), _ptr(tmp),
@@ -663,13 +690,8 @@ def _c3_tc_launch(lib, what, x, wt, scale, shift, act, stats, stride,
                          f"output of a {hy}x{wy} input")
     bd = c3_bands(n, hg, wg, stride, phases)
     y = torch.empty((n, hy, wy, k), dtype=x.dtype, device=x.device)
-    partial = tmp = st = None
-    if stats:
-        partial = torch.empty((bd.bands, 2 * k), dtype=torch.float32,
-                              device=x.device)
-        tmp = torch.empty((-(-bd.bands // _REDUCE_CHUNK), 2 * k),
-                          dtype=torch.float32, device=x.device)
-        st = torch.empty(2 * k, dtype=torch.float32, device=x.device)
+    partial, tmp, st = _stat_scratch(bd.bands, k, x.device) if stats \
+        else (None, None, None)
     _run(lib, lib.paddle_conv3x3_tc, what, x, x.data_ptr(), wt.data_ptr(),
          _ptr(scale), _ptr(shift), y.data_ptr(), _ptr(partial), _ptr(tmp),
          _ptr(st), n, h, w, c, hy, wy, k, stride, phases,
@@ -747,6 +769,96 @@ def _wgrad1_tc_launch(lib, what, x, dy, scale, shift, act, stride):
     return dw
 
 
+class K5Plan(NamedTuple):
+    """K5's cut (16-bit body): tiles of ``64 warps_m`` rows x ``32 warps_n``
+    output channels of y, ``tiles_m`` x ``tiles_n`` of them (the column
+    tiles of a row tile neighbours in the walk), each summed by a block of
+    ``warps_m`` x ``warps_n`` warps through a ring of ``stages`` stages;
+    ``rows`` is a tile's rows, and ``tiles_m`` the rows of the stats'
+    partials."""
+    warps_m: int
+    warps_n: int
+    rows: int
+    tiles_m: int
+    tiles_n: int
+    stages: int
+
+
+def k5_smem_bytes(warps_m: int, warps_n: int, c: int,
+                  prologue: bool = True, stages: int = 4) -> int:
+    """Shared memory of a K5 block (``k5_smem_bytes`` in conv.cu): a ring
+    of ``stages`` stages of 32 input channels (x rows of 40 values, wt rows
+    of ``32 warps_n + 8``), the epilogue's staged y with its stats'
+    cross-warp sums, then, with the prologue, scale and shift rounded to
+    x's type for C rounded up to a stage."""
+    bm, bn = 64 * warps_m, 32 * warps_n
+    ring = stages * 2 * (bm * (_K5_STAGE + 8) + _K5_STAGE * (bn + 8))
+    epi = 2 * bm * (bn + 8) + 2 * 4 * warps_m * bn
+    table = 4 * -(-c // _K5_STAGE) * _K5_STAGE if prologue else 0
+    return ring + epi + table
+
+
+def _k5_blocks_per_sm(warps_m: int, warps_n: int, smem: int) -> int:
+    """The blocks an SM holds: 128 registers a thread, and the shared
+    memory with each block's reserve."""
+    return min(65536 // (128 * 32 * warps_m * warps_n),
+               _SM_SMEM // (smem + _BLOCK_RESERVE))
+
+
+@functools.lru_cache(maxsize=None)
+def k5_plan(m: int, c: int, k: int) -> K5Plan:
+    """K5's tile for ``m`` rows of ``c`` -> ``k`` channels, a function of
+    the shape only: the 8-warp layout that reads x the fewest times (once
+    per column tile: ceil(K / 256) times at most), then computes the fewest
+    padded outputs, then reads wt the fewest times (once per row tile),
+    among those whose shared memory fits a block (with the prologue's
+    table, the larger). 256 x 64 where K = 64, 128 x 128 where K = 128, 64
+    x 256 where K >= 256. The ring has four stages, or three where that
+    lets one more block share an SM (``tools/k5_layouts.py`` times every
+    layout and ring)."""
+    def cost(lay):
+        bm, bn = 64 * lay[0], 32 * lay[1]
+        tm, tn = -(-m // bm), -(-k // bn)
+        return tn, tm * bm * tn * bn, tm
+
+    fits = [lay for lay in _K5_LAYOUTS
+            if k5_smem_bytes(*lay, c, True, min(_K5_RINGS)) <= _BLOCK_SMEM]
+    if not fits:
+        raise ValueError(f"K5 takes at most "
+                         f"{(_BLOCK_SMEM - k5_smem_bytes(1, 2, 0)) // 4} "
+                         f"input channels; got {c}")
+    wm, wn = min(fits, key=cost)
+    stages = max((s for s in _K5_RINGS
+                  if k5_smem_bytes(wm, wn, c, True, s) <= _BLOCK_SMEM),
+                 key=lambda s: (_k5_blocks_per_sm(
+                     wm, wn, k5_smem_bytes(wm, wn, c, True, s)), s))
+    return K5Plan(wm, wn, 64 * wm, -(-m // (64 * wm)), -(-k // (32 * wn)),
+                  stages)
+
+
+def _mm_tc_launch(lib, what, x, w2, scale, shift, act, stats, stride):
+    """K5's 16-bit body: ``(y [N, Ho, Wo, K]``, ``s``, ``ss``)."""
+    _check(what, x, (("w2", w2),), scale, shift)
+    n, h, w, c = x.shape
+    if w2.dim() != 2 or w2.shape[0] != c:
+        raise ValueError(f"{what}: w2 {tuple(w2.shape)} does not take {c} "
+                         f"input channels")
+    k = w2.shape[1]
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    pl = k5_plan(n * ho * wo, c, k)
+    y = torch.empty((n, ho, wo, k), dtype=x.dtype, device=x.device)
+    partial, tmp, st = _stat_scratch(pl.tiles_m, k, x.device) if stats \
+        else (None, None, None)
+    _run(lib, lib.paddle_conv1x1_tc, what, x, x.data_ptr(), w2.data_ptr(),
+         _ptr(scale), _ptr(shift), y.data_ptr(), _ptr(partial), _ptr(tmp),
+         _ptr(st), n, h, w, c, ho, wo, k, stride, int(act == "relu"),
+         int(stats), pl.warps_m, pl.warps_n, pl.stages, _DTYPE_CODE[x.dtype])
+    if not stats:
+        z = torch.zeros(k, dtype=torch.float32, device=x.device)
+        return y, z, z.clone()
+    return y, st[:k], st[k:]
+
+
 def _device(*ts) -> torch.device:
     devices = {t.device for t in ts if t is not None}
     if len(devices) != 1:
@@ -773,12 +885,31 @@ def mm(x, w2, scale=None, shift=None, act: str = "none", stats: bool = True,
     act = _act(act)
     if _device(x, w2, scale, shift).type == "cpu":
         return mm_reference(x, w2, scale, shift, act, stats, stride)
-    _, h, w, _ = x.shape
-    out_hw = ((h - 1) // stride + 1, (w - 1) // stride + 1)
-    out = _fwd_launch(_library(), "mm (K5)", x, w2[None], scale, shift, act,
-                      stats, stride, 0, out_hw)
+    if x.dtype in (torch.bfloat16, torch.float16):
+        out = _mm_tc_launch(_library(), "mm (K5)", x, w2, scale, shift, act,
+                            stats, stride)
+    else:
+        _, h, w, _ = x.shape
+        out = _fwd_launch(_library(), "mm (K5)", x, w2[None], scale, shift,
+                          act, stats, stride, 0,
+                          ((h - 1) // stride + 1, (w - 1) // stride + 1))
     mm.launches += 1
     return out
+
+
+def mm_tiles64(x, w2, scale=None, shift=None, act: str = "none",
+               stats: bool = True, stride: int = 1):
+    """K5's 16-bit body before the present one (128 x 64 tiles, plain
+    shared-memory stores one stage ahead, fragments by 32-bit reads), as a
+    yardstick: ``chip_smoke.py`` times it beside :func:`mm`; no path runs
+    it, and it counts no launch. Takes CUDA tensors."""
+    act = _act(act)
+    if _device(x, w2, scale, shift).type != "cuda":
+        raise ValueError("mm_tiles64 takes CUDA tensors")
+    _, h, w, _ = x.shape
+    return _fwd_launch(_library(), "mm_tiles64", x, w2[None], scale, shift,
+                       act, stats, stride, 0,
+                       ((h - 1) // stride + 1, (w - 1) // stride + 1))
 
 
 def mm_wgrad(x, dy, scale=None, shift=None, act: str = "none",

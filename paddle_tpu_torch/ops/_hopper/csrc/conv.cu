@@ -2,7 +2,8 @@
 // kernel (K5-K8) for Hopper (sm_90a), CUDA C++.
 //
 // Replaces paddle_tpu/ops/_pallas/conv.py:
-//   K5 conv1x1_kernel        <- _mm_kernel (:142, pallas_call in _mm at :186)
+//   K5 conv1x1_kernel        <- _mm_kernel (:142, pallas_call in _mm at :186);
+//      in 16 bits conv1x1_tc_kernel
 //   K6 conv1x1_wgrad_kernel  <- _mm_wgrad_kernel (:221, _mm_wgrad at :254);
 //      in 16 bits conv1x1_wgrad_tc_kernel
 //   K7 conv3x3_kernel        <- _c3_kernel (:311, _c3 at :364), and the 3x3
@@ -11,7 +12,7 @@
 //   K8 conv3x3_wgrad_kernel  <- _c3_wgrad_kernel (:401, _c3_wgrad at :441);
 //      in 16 bits conv3x3_wgrad_tc_kernel
 // and, through paddle_fused_matmul_bn_fwd, K9 of fused_matmul_bn.py (its body
-// is K5's function on [M, Cin] rows; see that entry).
+// is K5's function on [M, Cin] rows, and runs K5's kernels; see that entry).
 //
 // What they compute. x is an NHWC activation [N, H, W, C]; a = act(x * scale
 // + shift) is the previous BatchNorm's apply (and ReLU) as a prologue, or x
@@ -40,8 +41,9 @@
 // VMEM scratch from one grid step to the next (:156-167, :231-240, :327-338,
 // :413-423). Here blocks run in parallel and in no order, and no atomics are
 // used, so every result repeats bit for bit:
-// - Stats: each K5/K7 block sums its 128 rows (K7 in 16 bits: its band's
-//   pixels) per output channel in a fixed order and writes the partial
+// - Stats: each K5/K7 block sums its rows (128 in f32; K5 in 16 bits its
+//   row tile, conv.py's k5_plan; K7 in 16 bits its band's pixels) per
+//   output channel in a fixed order and writes the partial
 //   (sum, sum of squares) to its own row of a [blocks or bands, 2K] f32
 //   scratch; reduce_rows_kernel then sums the rows in a fixed order, 256
 //   rows a pass (two passes for M = 802,816). The scratch costs 16 bytes
@@ -60,12 +62,16 @@
 //   206 MB of x and dy read.
 //
 // Design. Each kernel is a tiled implicit GEMM, one body per kind shared by
-// its 1x1 and 3x3 forms (TAPS = 1 or 9). K5 (and K7 in f32): a block of 256
+// its 1x1 and 3x3 forms (TAPS = 1 or 9). K5 and K7 in f32: a block of 256
 // threads owns 128 output rows x 64 output channels and walks the taps and
 // the input channels, loading the A tile (prologue applied, padding zeroed)
 // and the weight tile into shared memory while the next tiles' global loads
 // are in flight. K6 in f32 (and K8 in f32): a block owns 64 input channels
-// of one tap x 64 output channels and walks its range of rows. K7 in 16
+// of one tap x 64 output channels and walks its range of rows. K5 in 16
+// bits (conv1x1_tc_kernel) owns tiles of up to 256 x 64, 256 x 128 or 128 x
+// 256 rows x output channels, so that x is read and prologued about once,
+// fed by a four-stage cp.async ring with A by ldmatrix and wt by
+// ldmatrix.trans, and writes y staged through shared memory. K7 in 16
 // bits (conv3x3_tc_kernel, below) is shaped like _c3_kernel: persistent
 // blocks walk bands of output pixels, copy warps bring each band's x
 // window in once a channel step by cp.async and apply the prologue once per
@@ -92,13 +98,13 @@
 // y (103 MB) for 2.6e10 FLOPs: bytes bound it (0.153 ms at 3.35 TB/s); K7
 // 64 -> 64 moves 206 MB for 5.9e10 FLOPs, bytes first with the FLOPs close
 // (0.061 against 0.060 ms at 989 TFLOP/s); K8 64 -> 64 the same bytes and
-// FLOPs (0.061 ms). K5 (and K7 and K6 in f32) feed their products from
-// shared memory without ldmatrix or asynchronous copies and stay far from
-// both. K8's nine-tap body reads, per 16 output pixels and warp, 4 ldmatrix
+// FLOPs (0.061 ms). The f32 bodies (and the 16-bit yardsticks that keep the
+// earlier bodies) feed their products from shared memory without ldmatrix
+// or asynchronous copies and stay far from both. K8's nine-tap body reads, per 16 output pixels and warp, 4 ldmatrix
 // of dy and 3 of a for 24 products: shared-memory reads, the mma.sync issue
 // rate and the phases a band runs in turn (copies, the prologue, the
-// products), not the bytes, bound it. K7's and K6's 16-bit bodies: their
-// notes below. Their times stand in PERF.md. wgmma fed by TMA is a later
+// products), not the bytes, bound it. K7's, K6's and K5's 16-bit bodies:
+// their notes below. Their times stand in PERF.md. wgmma fed by TMA is a later
 // change's work.
 
 #include <cuda_bf16.h>
@@ -600,8 +606,9 @@ __device__ __forceinline__ void conv_fwd_body_tc(const ConvParams& p) {
   }
 }
 
-// K5: 1x1 conv as a matmul (and the 1x1 input gradient); bf16 and float16 on
-// the tensor cores, f32 on the CUDA cores
+// K5: 1x1 conv as a matmul (and the 1x1 input gradient) in f32 on the CUDA
+// cores; in bf16 and float16 the body K5 had before conv1x1_tc_kernel, which
+// chip_smoke.py times beside it and no path runs
 template <typename T, bool PRO, bool RELU, bool STATS>
 __global__ void __launch_bounds__(kThreads) conv1x1_kernel(ConvParams p) {
   if constexpr (sizeof(T) == 2)
@@ -2029,6 +2036,380 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 // ---------------------------------------------------------------------------
+// K5 on the tensor cores: tiles that read x about once (bf16 and float16)
+// ---------------------------------------------------------------------------
+//
+// Replaces _mm_kernel (:142, launched by _mm at :186) in 16 bits, and the
+// 1x1 input gradient of conv2d_dgrad (:531) that runs through it: y [M, K] =
+// P(x)[:, ::s, ::s] @ wt with f32 accumulation, y rounded to x's type, and
+// per output channel the f32 (sum, sum of squares) of the accumulator. A
+// tile is 64 warps_m rows x 32 warps_n output channels of y (conv.py's
+// k5_plan: 256 x 64 where K = 64, 128 x 128 where K = 128, 64 x 256 where
+// K >= 256, so that one tile covers all of K up to 256 and x is read from
+// device memory, and prologued, once; wider K re-reads it at most K / 256
+// times, from L2, since the column tiles of a row tile are neighbours in the
+// walk), one warp a 64 x 32 sub-tile. The blocks are persistent (as many as
+// the SMs hold) and walk the tiles in turn; each tile is summed by one block
+// in a fixed order, whatever the grid, so results repeat bit for bit. A
+// block streams its tiles' input channels 32 a stage through one ring of
+// `stages` stages that runs across its tiles: x ([row][c], 80-byte rows) and
+// wt ([c][k]) come in by cp.async in 16-byte pieces, zero-filled past M, C
+// and K (a strided row is another row address, found once a tile), so the
+// next tile's first stages load while this tile's last ones compute and
+// its epilogue runs. The prologue is applied once to each x element in
+// shared memory, on the pieces the thread copied, before the stage's one
+// barrier (scale and shift rounded to T once a block into a table; the _rn
+// pair forms, as prologue() rounds). A is read by ldmatrix and wt by
+// ldmatrix.trans: 4 + 2 reads for a warp's 16 products a k16. The epilogue
+// stages y in shared memory of its own and writes it in 16-byte pieces (y
+// is 20-80% of the bytes at ResNet-50's shapes); the stats come from the
+// accumulators (a warp's butterfly, then the row warps in order) into the
+// tile's row of partial, which reduce_rows sums in a fixed order.
+//
+// What bounds it. At ResNet-50's 1x1 shapes (B = 256) the 56^2 and 28^2
+// ones are bound by their bytes (256 -> 64 at 56^2: 514 MB, 0.153 ms at
+// 3.35 TB/s; arithmetic intensity 32-171 FLOP/byte) and the 14^2 and 7^2
+// ones are close to their FLOPs (204-647). The ring keeps stages - 1 stages
+// of copies in flight across tile boundaries, and two blocks of 8 warps
+// share an SM (registers: 128 a thread, so 64 x 32 accumulators a warp;
+// shared memory: a ring of three stages where four would leave one block
+// an SM), so one block's epilogue runs beside the other's products.
+// tools/k5_layouts.py times every layout and ring; PERF.md has the
+// figures.
+
+constexpr int kK5LdX = kTK + 8;   // padded x row: 40 values, 80 bytes
+constexpr int kK5MaxXRows = 4;    // x rows a thread copies a stage (8 / warps_n)
+constexpr int kK5MaxThreads = 256;
+
+__host__ __device__ inline int k5_stage_bytes(int bm, int bn) {
+  return 2 * (bm * kK5LdX + kTK * (bn + 8));
+}
+
+// the ring, the epilogue's staged y [bm][bn + 8] and its stats' cross-warp
+// sums [2][bm / 64][bn] f32, then (with the prologue) scale and shift
+// rounded to T, one value a channel, C rounded up to a stage
+__host__ inline size_t k5_smem_bytes(int bm, int bn, int stages, int C,
+                                     bool pro) {
+  const int c_pad = (C + kTK - 1) / kTK * kTK;
+  return static_cast<size_t>(stages) * k5_stage_bytes(bm, bn) +
+         2 * static_cast<size_t>(bm) * (bn + 8) + 2 * 4 * (bm / 64) * bn +
+         (pro ? 2 * sizeof(unsigned short) * static_cast<size_t>(c_pad) : 0);
+}
+
+template <typename T>
+__device__ __forceinline__ unsigned short bits16(float v) {
+  const T t = from_float<T>(v);
+  return *reinterpret_cast<const unsigned short*>(&t);
+}
+
+template <typename T, bool PRO, bool RELU>
+__global__ void __launch_bounds__(kK5MaxThreads, 2)
+    conv1x1_tc_kernel(const ConvParams p, int warps_m, int warps_n,
+                      int stages, int stats) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const T* x = static_cast<const T*>(p.x);
+  const T* wt = static_cast<const T*>(p.w);
+  const int bm = 64 * warps_m;
+  const int bn = 32 * warps_n;
+  const int ldw = bn + 8;
+  const int ldy = bn + 8;
+  const int nthreads = 32 * warps_m * warps_n;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int wm = warp / warps_n;        // rows wm * 64 .. + 63
+  const int wn = warp - wm * warps_n;   // output channels wn * 32 .. + 31
+  const int n_tiles = (p.K + bn - 1) / bn;
+  const int tiles = (p.M + bm - 1) / bm * n_tiles;
+  const int steps = (p.C + kTK - 1) / kTK;
+  const int stage_bytes = k5_stage_bytes(bm, bn);
+  unsigned short* sY =
+      reinterpret_cast<unsigned short*>(smem_raw + stages * stage_bytes);
+  float* red = reinterpret_cast<float*>(sY + bm * ldy);
+  unsigned short* tsc = reinterpret_cast<unsigned short*>(red +
+                                                          2 * warps_m * bn);
+  unsigned short* tsh = tsc + steps * kTK;
+  const bool vec_x = vec8(x, p.C);
+  const bool vec_w = vec8(wt, p.K);
+  const bool pro_smem = PRO && vec_x;
+  // this block's tiles: blockIdx.x, + gridDim.x, ..., each `steps` stages
+  const int mine = static_cast<int>(blockIdx.x) < tiles
+                       ? (tiles - 1 - static_cast<int>(blockIdx.x)) /
+                                 static_cast<int>(gridDim.x) +
+                             1
+                       : 0;
+  const int total = mine * steps;
+
+  // a thread's x pieces: channels 8 xpart .. + 7 of each stage, in rows
+  // xrow0 + i xrow_step of the tile (8 / warps_n rows)
+  const int xpart = tid & 3;
+  const int xrow0 = tid >> 2;
+  const int xrow_step = nthreads >> 2;
+  const int xrows = bm / xrow_step;
+  // its wt pieces: output channels 8 wpart .. + 7 of the tile in rows
+  // wrow0 + i wrow_step of each stage's 32 (4 / warps_m rows); the same
+  // split writes y's pieces in the epilogue
+  const int wparts = bn / 8;
+  const int wpart = tid % wparts;
+  const int wrow0 = tid / wparts;
+  const int wrow_step = nthreads / wparts;
+  const int wrows = kTK / wrow_step;
+
+  // tile j of this block: its first row and first output channel
+  auto origin = [&](int j, int& m0, int& n0) {
+    const int t = static_cast<int>(blockIdx.x) + j * static_cast<int>(gridDim.x);
+    const int tm = t / n_tiles;
+    m0 = tm * bm;
+    n0 = (t - tm * n_tiles) * bn;
+  };
+
+  // the loader's cursor: the next stage to copy (ld of total), its stage
+  // within its tile, the tile's first output channel, and each x row's
+  // pixel (-1 past M), found when the tile's first stage is copied
+  int ld = 0, ld_st = 0, ld_n0 = 0;
+  int xpix[kK5MaxXRows];
+  auto load_next = [&]() {
+    if (ld_st == 0) {
+      int m0;
+      origin(ld / steps, m0, ld_n0);
+#pragma unroll
+      for (int i = 0; i < kK5MaxXRows; ++i) {
+        const int m = m0 + xrow0 + i * xrow_step;
+        xpix[i] = -1;
+        if (i < xrows && m < p.M) {
+          if (p.stride == 1) {
+            xpix[i] = m;
+          } else {
+            const RowOrigin o = row_origin(p, m);
+            xpix[i] = static_cast<int>(o.img + static_cast<long long>(o.hi) *
+                                                   p.W + o.wi);
+          }
+        }
+      }
+    }
+    unsigned short* sX = reinterpret_cast<unsigned short*>(
+        smem_raw + (ld % stages) * stage_bytes);
+    unsigned short* sW = sX + bm * kK5LdX;
+    const int c0 = ld_st * kTK;
+    const int cx = c0 + xpart * 8;
+#pragma unroll
+    for (int i = 0; i < kK5MaxXRows; ++i) {
+      if (i >= xrows) break;
+      unsigned short* dst = sX + (xrow0 + i * xrow_step) * kK5LdX + xpart * 8;
+      const long long off =
+          xpix[i] < 0 ? -1 : static_cast<long long>(xpix[i]) * p.C;
+      if (vec_x) {
+        const bool in = off >= 0 && cx < p.C;
+        cp_async16(dst, in ? static_cast<const void*>(x + off + cx) : x, in);
+      } else {
+        float v[8];
+        load_a8<T, PRO, RELU>(p, x, off, cx, false, v);
+        *reinterpret_cast<uint4*>(dst) =
+            make_uint4(pack2<T>(v[0], v[1]), pack2<T>(v[2], v[3]),
+                       pack2<T>(v[4], v[5]), pack2<T>(v[6], v[7]));
+      }
+    }
+    const int nw = ld_n0 + wpart * 8;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (i >= wrows) break;
+      const int r = wrow0 + i * wrow_step;
+      const int c = c0 + r;
+      unsigned short* dst = sW + r * ldw + wpart * 8;
+      const long long off = static_cast<long long>(c) * p.K + nw;
+      if (vec_w) {
+        const bool in = c < p.C && nw < p.K;
+        cp_async16(dst, in ? static_cast<const void*>(wt + off) : wt, in);
+      } else {
+        unsigned w4[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = nw + 2 * j;
+          const bool ok = c < p.C;
+          w4[j] = pack2<T>(ok && n < p.K ? to_float(wt[off + 2 * j]) : 0.f,
+                           ok && n + 1 < p.K ? to_float(wt[off + 2 * j + 1])
+                                             : 0.f);
+        }
+        *reinterpret_cast<uint4*>(dst) =
+            make_uint4(w4[0], w4[1], w4[2], w4[3]);
+      }
+    }
+    ++ld;
+    if (++ld_st == steps) ld_st = 0;
+  };
+  // the prologue on this thread's x pieces of stage s (stage st of the tile
+  // whose first row is m0; cp.async path); rows past M stay 0
+  auto apply_prologue = [&](int s, int st, int m0) {
+    unsigned short* sX = reinterpret_cast<unsigned short*>(
+        smem_raw + (s % stages) * stage_bytes);
+    const int cx = st * kTK + xpart * 8;
+    const uint4 s4 = *reinterpret_cast<const uint4*>(tsc + cx);
+    const uint4 h4 = *reinterpret_cast<const uint4*>(tsh + cx);
+#pragma unroll
+    for (int i = 0; i < kK5MaxXRows; ++i) {
+      if (i >= xrows) break;
+      const int r = xrow0 + i * xrow_step;
+      if (m0 + r >= p.M) break;
+      uint4* ptr = reinterpret_cast<uint4*>(sX + r * kK5LdX + xpart * 8);
+      const uint4 u = *ptr;
+      *ptr = make_uint4(prologue2<T, RELU>(u.x, s4.x, h4.x),
+                        prologue2<T, RELU>(u.y, s4.y, h4.y),
+                        prologue2<T, RELU>(u.z, s4.z, h4.z),
+                        prologue2<T, RELU>(u.w, s4.w, h4.w));
+    }
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][nt][e] = 0.f;
+
+  // y and the stats of the tile just summed (m0, n0); its first barrier
+  // parts the staging writes from the copy-out, and the next tile's first
+  // stage barrier parts the copy-out from the next staging writes
+  auto epilogue = [&](int m0, int n0) {
+    float s[4][2], ss[4][2];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) s[nt][e] = ss[nt][e] = 0.f;
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm * 64 + mi * 16 + g + 8 * h;
+        const bool valid = m0 + r < p.M;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const float v0 = acc[mi][nt][2 * h];
+          const float v1 = acc[mi][nt][2 * h + 1];
+          *reinterpret_cast<unsigned*>(sY + r * ldy + wn * 32 + nt * 8 +
+                                       2 * tq) = pack2<T>(v0, v1);
+          if (valid) {
+            s[nt][0] += v0;
+            ss[nt][0] += v0 * v0;
+            s[nt][1] += v1;
+            ss[nt][1] += v1 * v1;
+          }
+        }
+      }
+    if (stats) {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1) {
+            s[nt][e] += __shfl_xor_sync(0xffffffffu, s[nt][e], off);
+            ss[nt][e] += __shfl_xor_sync(0xffffffffu, ss[nt][e], off);
+          }
+      if (g == 0) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = wn * 32 + nt * 8 + 2 * tq + e;
+            red[wm * bn + col] = s[nt][e];
+            red[(warps_m + wm) * bn + col] = ss[nt][e];
+          }
+      }
+    }
+    __syncthreads();
+    // y in 16-byte pieces: channels n0 + 8 wpart .. + 7, rows wrow0 + i
+    // wrow_step
+    T* y = static_cast<T*>(p.y);
+    const bool vec_y = vec8(y, p.K);
+    const int nw = n0 + wpart * 8;
+    for (int r = wrow0; r < bm; r += wrow_step) {
+      const int m = m0 + r;
+      if (m >= p.M) break;
+      const unsigned short* src = sY + r * ldy + wpart * 8;
+      T* dst = y + static_cast<long long>(m) * p.K + nw;
+      if (vec_y && nw + 8 <= p.K) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      } else {
+        for (int j = 0; j < 8 && nw + j < p.K; ++j)
+          reinterpret_cast<unsigned short*>(dst)[j] = src[j];
+      }
+    }
+    if (stats && tid < bn && n0 + tid < p.K) {
+      float ts = 0.f, tss = 0.f;
+      for (int w = 0; w < warps_m; ++w) {
+        ts += red[w * bn + tid];
+        tss += red[(warps_m + w) * bn + tid];
+      }
+      float* row = p.partial + static_cast<long long>(m0 / bm) * 2 * p.K;
+      row[n0 + tid] = ts;
+      row[p.K + n0 + tid] = tss;
+    }
+  };
+
+  for (int s = 0; s < stages - 1; ++s) {
+    if (ld < total) load_next();
+    cp_async_commit();
+  }
+  if (pro_smem) {
+    // scale and shift rounded to T, 0 past C (so a zero-filled channel
+    // stays 0 through the prologue)
+    for (int c = tid; c < steps * kTK; c += nthreads) {
+      const bool in = c < p.C;
+      tsc[c] = bits16<T>(in ? __ldg(p.scale + c) : 0.f);
+      tsh[c] = bits16<T>(in ? __ldg(p.shift + c) : 0.f);
+    }
+    __syncthreads();
+  }
+  int st = 0, m0 = 0, n0 = 0;
+  if (total > 0) origin(0, m0, n0);
+  for (int s = 0; s < total; ++s) {
+    cp_async_wait(stages - 2);
+    if (pro_smem) apply_prologue(s, st, m0);
+    // stage s has landed; every warp is done with stage s - 1's buffer
+    __syncthreads();
+    if (ld < total) load_next();
+    cp_async_commit();
+    const unsigned short* sX = reinterpret_cast<const unsigned short*>(
+        smem_raw + (s % stages) * stage_bytes);
+    const unsigned short* sW = sX + bm * kK5LdX;
+#pragma unroll
+    for (int kb = 0; kb < kTK; kb += 16) {
+      unsigned af[4][4], bq[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+        ldmatrix_x4(af[mi], sX + (wm * 64 + mi * 16 + (lane & 15)) * kK5LdX +
+                                kb + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < 2; ++np)
+        ldmatrix_x4_trans(bq[np], sW + (kb + ((lane >> 3) & 1) * 8 +
+                                        (lane & 7)) * ldw +
+                                      wn * 32 + np * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          mma_16816<T>(acc[mi][nt], af[mi], bq[nt >> 1][2 * (nt & 1)],
+                       bq[nt >> 1][2 * (nt & 1) + 1]);
+    }
+    if (++st == steps) {
+      epilogue(m0, n0);
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][nt][e] = 0.f;
+      st = 0;
+      if (s + 1 < total) origin((s + 1) / steps, m0, n0);
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// ---------------------------------------------------------------------------
 // The fixed-order sum of partials: out[g, l] = sum of in[r, l] over the rows
 // r of group g (kReduceChunk rows), each thread a column and every 8th row,
 // then the 8 row lanes in order
@@ -2158,11 +2539,11 @@ ConvParams make_params(const void* x, const void* w, const void* scale,
 
 }  // namespace
 
-// K5 (taps = 1) or K7 (taps = 9; K7 runs it in f32, and in 16 bits its
-// earlier body, which chip_smoke.py times beside paddle_conv3x3_tc's). x [N,
-// H, W, C], wt [taps, C, K] and y [N, Ho, Wo, K] dense in one type (dtype 0:
-// f32, 1: bf16, 2: float16); scale,
-// shift f32 [C]
+// K5 (taps = 1) or K7 (taps = 9) in f32, and in 16 bits the bodies K5 and
+// K7 had before paddle_conv1x1_tc's and paddle_conv3x3_tc's, which
+// chip_smoke.py times beside them (mm_tiles64, c3_tap_gather). x [N, H, W,
+// C], wt [taps, C, K] and y [N, Ho, Wo, K] dense in one type (dtype 0: f32,
+// 1: bf16, 2: float16); scale, shift f32 [C]
 // (null: no prologue; relu ignored without it). With want_stats, partial is
 // f32 [ceil(M / 128), 2K], tmp f32 [ceil(ceil(M / 128) / 256), 2K] and stats
 // f32 [2K] receives (sum, sum of squares) per output channel.
@@ -2450,6 +2831,50 @@ cudaError_t wgrad1_tc_by_flags(const ConvParams& p, int warps_c, int warps_k,
                                          stream);
 }
 
+template <typename T, bool PRO, bool RELU>
+cudaError_t launch_k5_tc(const ConvParams& p, int warps_m, int warps_n,
+                         int stages, int stats, cudaStream_t stream) {
+  const int bm = 64 * warps_m;
+  const int bn = 32 * warps_n;
+  const int threads = 32 * warps_m * warps_n;
+  const size_t smem = k5_smem_bytes(bm, bn, stages, p.C, PRO);
+  auto kernel = conv1x1_tc_kernel<T, PRO, RELU>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  if (err != cudaSuccess) return err;
+  // persistent blocks, as many as the SMs hold (each tile is summed by one
+  // block, in one order, whatever the grid)
+  const long long tiles = static_cast<long long>((p.M + bm - 1) / bm) *
+                          ((p.K + bn - 1) / bn);
+  const long long blocks =
+      std::min(tiles, static_cast<long long>(std::max(1, sms * per_sm)));
+  kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
+      p, warps_m, warps_n, stages, stats);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t k5_tc_by_flags(const ConvParams& p, int warps_m, int warps_n,
+                           int stages, bool pro, bool relu, int stats,
+                           cudaStream_t stream) {
+  if (!pro)
+    return launch_k5_tc<T, false, false>(p, warps_m, warps_n, stages, stats,
+                                         stream);
+  if (!relu)
+    return launch_k5_tc<T, true, false>(p, warps_m, warps_n, stages, stats,
+                                        stream);
+  return launch_k5_tc<T, true, true>(p, warps_m, warps_n, stages, stats,
+                                     stream);
+}
+
 }  // namespace
 
 // K7's 16-bit body (conv3x3_tc_kernel). phases == 1: the 3x3 conv with
@@ -2566,23 +2991,93 @@ extern "C" int paddle_conv1x1_wgrad_tc(const void* x, const void* dy,
   return static_cast<int>(err);
 }
 
+// K5's 16-bit body (conv1x1_tc_kernel): y [N, Ho, Wo, K] of the 1x1 conv at
+// stride 1 or 2 of x [N, H, W, C] with wt [C, K] (dense, one type: dtype 1
+// bf16, 2 float16), the prologue when scale and shift are given (f32 [C]),
+// and with want_stats the per-channel (sum, sum of squares) into stats f32
+// [2K] through partial f32 [ceil(M / (64 warps_m)), 2K] and tmp f32
+// [ceil(rows of partial / 256), 2K]; also the 1x1 input gradient (x = dy,
+// wt = w as [K, C], no prologue, no stats). Tiles of 64 warps_m rows x 32
+// warps_n output channels (warps_m in 1, 2, 4; warps_n in 2, 4, 8; at most
+// 8 warps) through a ring of `stages` (2 to 8) stages of 32 input
+// channels; conv.py's k5_plan picks them.
+extern "C" int paddle_conv1x1_tc(const void* x, const void* wt,
+                                 const void* scale, const void* shift,
+                                 void* y, void* partial, void* tmp,
+                                 void* stats, int N, int H, int W, int C,
+                                 int Ho, int Wo, int K, int stride, int relu,
+                                 int want_stats, int warps_m, int warps_n,
+                                 int stages, int dtype, void* stream) {
+  const bool pro = scale != nullptr;
+  if (bad_geometry(N, H, W, C, Ho, Wo, K, 1, stride, 0, dtype) ||
+      (dtype != 1 && dtype != 2) || (stride != 1 && stride != 2) ||
+      Ho != (H - 1) / stride + 1 || Wo != (W - 1) / stride + 1 ||
+      static_cast<long long>(N) * H * W >= (1LL << 31) ||
+      (scale == nullptr) != (shift == nullptr) ||
+      (warps_m != 1 && warps_m != 2 && warps_m != 4) ||
+      (warps_n != 2 && warps_n != 4 && warps_n != 8) ||
+      warps_m * warps_n * 32 > kK5MaxThreads || stages < 2 || stages > 8 ||
+      (want_stats && (partial == nullptr || tmp == nullptr ||
+                      stats == nullptr)) ||
+      k5_smem_bytes(64 * warps_m, 32 * warps_n, stages, C, pro) > 232448)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long M = static_cast<long long>(N) * Ho * Wo;
+  const long long row_tiles = (M + 64 * warps_m - 1) / (64 * warps_m);
+  if (row_tiles * ((K + 32 * warps_n - 1) / (32 * warps_n)) >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  ConvParams p = make_params(x, wt, scale, shift, y, N, H, W, C, Ho, Wo, K,
+                             stride, 0);
+  p.partial = static_cast<float*>(partial);
+  cudaError_t err =
+      dtype == 1 ? k5_tc_by_flags<__nv_bfloat16>(p, warps_m, warps_n, stages,
+                                                 pro, relu != 0, want_stats,
+                                                 st)
+                 : k5_tc_by_flags<__half>(p, warps_m, warps_n, stages, pro,
+                                          relu != 0, want_stats, st);
+  if (err != cudaSuccess || !want_stats) return static_cast<int>(err);
+  err = reduce_rows(static_cast<float*>(partial), static_cast<int>(row_tiles),
+                    2 * K, static_cast<float*>(stats),
+                    static_cast<float*>(tmp), st);
+  return static_cast<int>(err);
+}
+
+// The shared memory a K5 block of 64 warps_m x 32 warps_n and a ring of
+// `stages` takes over C input channels, with the prologue's table or
+// without (conv.py's k5_smem_bytes is its twin; chip_smoke.py holds the two
+// equal)
+extern "C" int paddle_conv1x1_tc_smem(int warps_m, int warps_n, int stages,
+                                      int C, int pro) {
+  return static_cast<int>(
+      k5_smem_bytes(64 * warps_m, 32 * warps_n, stages, C, pro != 0));
+}
+
 // K9 (paddle_tpu/ops/_pallas/fused_matmul_bn.py:_fwd_kernel, :36, launched by
 // _fwd at :76): y = P(x) @ w [M, Cout] and the f32 (sum, sumsq) of the f32
 // product, for x [M, Cin] and w [Cin, Cout] (dense, one type). Its body
 // computes what K5's does one pixel per row (the prologue's rounding, the f32
-// product, y rounded, stats from the accumulator), so it runs conv1x1_kernel
-// on x as the 1x1 conv of a [1, 1, M, Cin] image: scale and shift null for
-// the prologue "none", relu = 1 for "scale_shift_relu". partial, tmp and stats
-// as paddle_conv_fwd takes them (M rows).
+// product, y rounded, stats from the accumulator), so it runs K5's body on x
+// as the 1x1 conv of a [1, 1, M, Cin] image: in 16 bits conv1x1_tc_kernel
+// (paddle_conv1x1_tc, tiles of warps_m x warps_n warps and a ring of
+// `stages` from conv.py's k5_plan), in f32 conv1x1_kernel (paddle_conv_fwd,
+// 128-row blocks; warps_m, warps_n and stages unread); scale and shift null
+// for the prologue "none", relu = 1 for "scale_shift_relu". partial, tmp
+// and stats as those entries take them (M rows).
 extern "C" int paddle_fused_matmul_bn_fwd(const void* x, const void* w,
                                           const void* scale, const void* shift,
                                           void* y, void* partial, void* tmp,
                                           void* stats, int M, int Cin,
                                           int Cout, int relu, int want_stats,
-                                          int dtype, void* stream) {
-  return paddle_conv_fwd(x, w, scale, shift, y, partial, tmp, stats, 1, 1, M,
-                         Cin, 1, M, Cout, 1, 1, 0, relu, want_stats, dtype,
-                         stream);
+                                          int warps_m, int warps_n,
+                                          int stages, int dtype,
+                                          void* stream) {
+  if (dtype == 0)
+    return paddle_conv_fwd(x, w, scale, shift, y, partial, tmp, stats, 1, 1,
+                           M, Cin, 1, M, Cout, 1, 1, 0, relu, want_stats,
+                           dtype, stream);
+  return paddle_conv1x1_tc(x, w, scale, shift, y, partial, tmp, stats, 1, 1,
+                           M, Cin, 1, M, Cout, 1, relu, want_stats, warps_m,
+                           warps_n, stages, dtype, stream);
 }
 
 extern "C" const char* paddle_cuda_error_string(int err) {

@@ -9,8 +9,10 @@
 // and, through the same entries at D = 64 with KV heads = heads, the two of
 // paddle_tpu/ops/_pallas/flash_attention_packed.py that compute the same
 // functions for K4's streamed backward (ERNIE at its 2048-token context,
-// cross-attention's dq):
-//   _bwd_dq_kernel (:297, launched :582), _bwd_dkv_kernel (:348, :652).
+// cross-attention's dq and dk/dv):
+//   _bwd_dq_kernel (:297, launched :582), _bwd_dkv_kernel (:348, :652),
+//   and _bwd_dkv_kernel_direct (:407, :626), _bwd_dkv_kernel's sums with
+//   all the queries in one tile, which the dk/dv body computes at any Sq.
 // and, as paddle_flash_packed_bwd_fused_tc, the fused backward of
 // flash_attention_packed.py, _bwd_fused_kernel (:448, launched by _bwd :544),
 // which runs where all keys fit one tile (Sk <= 512 at BERT-base's 12

@@ -12,6 +12,10 @@
 //                                (both float32 only: bf16 runs on K2's and
 //                                K3's tensor-core bodies, flash_bwd_tc.cu)
 //   flash_packed_bwd_dkv_direct  _bwd_dkv_kernel_direct  (:407, launched :626)
+//                                (float32; in bf16 and float16 a yardstick
+//                                that no path runs: 16 bits run K3's
+//                                tensor-core body, which computes the same
+//                                sums, through paddle_flash_bwd_dkv_tc)
 // The JAX package runs them for d = 64 attention whose keys span more than one
 // of its tiles (Sk > 512 at 12 heads: ERNIE at its own 2048-token context),
 // and the dk/dv direct form when all the queries fit one tile while the keys
@@ -79,8 +83,8 @@
 // bf16 tensor-core peak (0.21, 0.31, 0.42 and 0.10 ms). These bodies run
 // their products on the CUDA cores in f32 (FMA), far from that bound; their
 // times stand in PERF.md. In bf16 the forward, dq and dk/dv run on the
-// tensor cores (flash_fwd_tc.cu, flash_bwd_tc.cu); dk/dv-direct is
-// still here in both dtypes.
+// tensor cores (flash_fwd_tc.cu, flash_bwd_tc.cu), and so does
+// dk/dv-direct, on dk/dv's body.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -858,7 +862,8 @@ extern "C" int paddle_flash_packed_bwd_dkv(
 }
 
 // flash_packed_bwd_dkv_direct: as flash_packed_bwd_dkv, for Sq <= 512, in
-// float32 (dtype 0), bf16 (dtype 1) or float16 (dtype 2).
+// float32 (dtype 0), bf16 (dtype 1) or float16 (dtype 2); the 16-bit forms
+// are the yardstick chip_smoke.py times beside the tensor-core body.
 extern "C" int paddle_flash_packed_bwd_dkv_direct(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* seg_q, const void* seg_k,

@@ -11,13 +11,14 @@ cores, ``csrc/flash_packed.cu``);
 where it does not, the streamed forms ``_fwd_kernel``, ``_bwd_dq_kernel``
 and ``_bwd_dkv_kernel``, and ``_bwd_dkv_kernel_direct`` when all the
 queries fit one tile while the keys do not, as ``csrc/flash_packed_stream.cu``
-(the streamed forward, dq and dk/dv in float32; in bf16 and float16 the
-forward is K1's
+(the streamed forward, dq, dk/dv and dk/dv-direct in float32; in bf16 and
+float16 the forward is K1's
 tensor-core body, ``csrc/flash_fwd_tc.cu``, since ``_fwd_kernel`` is K1's
-function at head dim 64 with as many KV heads as heads, and dq and dk/dv
-run K2's and K3's tensor-core bodies, ``csrc/flash_bwd_tc.cu``, since
-``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` are K2's and K3's functions
-there too; dk/dv-direct stays on the CUDA cores in both dtypes).
+function at head dim 64 with as many KV heads as heads, and dq, dk/dv and
+dk/dv-direct run K2's and K3's tensor-core bodies, ``csrc/flash_bwd_tc.cu``,
+since ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` are K2's and K3's functions
+there too, and ``_bwd_dkv_kernel_direct`` computes ``_bwd_dkv_kernel``'s
+function: the same sums, with all the queries in one tile).
 All are built by ``nvcc`` at first use and called through ``ctypes`` like
 K1-K3. :func:`plan` picks the form the JAX package would run for every
 input, from its tile arithmetic (``_pick_blocks_packed`` and the caller's
@@ -46,11 +47,15 @@ public ``[B, S, H, 64]`` layout through strides, one head per block.
   in bf16 as a yardstick that no path takes); :func:`flash_packed_bwd_dq`
   ``-> dq`` and :func:`flash_packed_bwd_dkv` /
   :func:`flash_packed_bwd_dkv_direct` ``-> (dk, dv)``, which take that
-  ``delta``; on the card dq and dk/dv pick their body by dtype, openly: bf16
-  and float16 the tensor-core bodies (counted in
-  ``flash_packed_bwd_dq_tc.launches`` and ``flash_packed_bwd_dkv_tc.
-  launches``), float32 the CUDA-core bodies (``flash_packed_bwd_dq.
-  launches``, ``flash_packed_bwd_dkv.launches``);
+  ``delta``; on the card dq, dk/dv and dk/dv-direct pick their body by
+  dtype, openly: bf16 and float16 the tensor-core bodies (counted in
+  ``flash_packed_bwd_dq_tc.launches``, ``flash_packed_bwd_dkv_tc.
+  launches`` and ``flash_packed_bwd_dkv_direct_tc.launches``), float32 the
+  CUDA-core bodies (``flash_packed_bwd_dq.launches``,
+  ``flash_packed_bwd_dkv.launches``, ``flash_packed_bwd_dkv_direct.
+  launches``; ``_launch_bwd_split("dkv_direct", ..., tc=False)`` runs
+  dk/dv-direct's CUDA-core body in 16 bits as a yardstick that no path
+  takes);
 - :func:`flash_attention_packed`, the differentiable public entry.
 
 Masks work as the TPU kernels apply them: the scale, then bottom-right
@@ -96,6 +101,7 @@ __all__ = ["flash_attention_packed", "flash_packed_fwd",
            "flash_packed_bwd_dq_reference", "flash_packed_bwd_dkv",
            "flash_packed_bwd_dkv_tc",
            "flash_packed_bwd_dkv_reference", "flash_packed_bwd_dkv_direct",
+           "flash_packed_bwd_dkv_direct_tc",
            "flash_packed_bwd_dkv_direct_reference", "pack_group", "plan",
            "Plan", "HEAD_D", "MAX_SEQ_K", "MAX_SEQ_Q_DIRECT", "KERNEL_TILE",
            "mma_dot"]
@@ -384,13 +390,14 @@ def flash_packed_bwd_dkv_reference(q, k, v, do, lse, delta,
 def flash_packed_bwd_dkv_direct_reference(
         q, k, v, do, lse, delta, causal: bool = False,
         scale: Optional[float] = None, masks: Masks = (None, None, None),
-        dropout: Optional[AttnDropout] = None, *, first_head: int = 0
-        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        dropout: Optional[AttnDropout] = None, *, first_head: int = 0,
+        mma_sums: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch ``flash_packed_bwd_dkv_direct`` (``_bwd_dkv_kernel_
     direct``'s function, all queries in one tile): the same sums as
-    :func:`flash_packed_bwd_dkv_reference`, in the same order."""
+    :func:`flash_packed_bwd_dkv_reference`, in the same order; ``mma_sums``
+    as there (the tensor-core body runs dk/dv-direct in 16 bits)."""
     return _dkv_reference(q, k, v, do, lse, delta, causal, scale, masks,
-                          dropout, first_head)
+                          dropout, first_head, mma_sums)
 
 
 def _kernel_arg_error(q, k, v, masks, do=None) -> Optional[str]:
@@ -538,21 +545,28 @@ def _launch_fwd_stream(q, k, v, causal: bool, scale: float, masks: Masks,
 
 def _launch_bwd_split(which: str, q, k, v, do, lse, delta, causal: bool,
                       scale: float, masks: Masks,
-                      dropout: Optional[AttnDropout] = None):
+                      dropout: Optional[AttnDropout] = None,
+                      tc: Optional[bool] = None):
     """One of the streamed backward kernels on CUDA tensors, from the
     forward's lse and ``delta`` (both dense ``[B, H, Sq]`` float32):
-    ``"dq"`` -> dq, ``"dkv"`` or ``"dkv_direct"`` -> ``(dk, dv)``. dq and
-    dk/dv run the body of q's dtype: bf16 and float16 the tensor-core
-    bodies
+    ``"dq"`` -> dq, ``"dkv"`` or ``"dkv_direct"`` -> ``(dk, dv)``. Each
+    runs the body of q's dtype: bf16 and float16 the tensor-core bodies
     (K2's and K3's, ``flash_bwd_tc.cu``, at KV heads = heads, counted by
-    :func:`flash_packed_bwd_dq_tc`
-    and :func:`flash_packed_bwd_dkv_tc`; q, k, v and do rows 16-byte
-    aligned), float32 the CUDA-core bodies (``flash_packed_stream.cu``,
-    counted by :func:`flash_packed_bwd_dq` and :func:`flash_packed_bwd_dkv`);
-    dk/dv-direct runs ``flash_packed_stream.cu`` in both. Each block owns
-    its output tile and sums in a fixed order (no atomics), so results
-    repeat bit for bit."""
-    tc = which != "dkv_direct" and q.dtype in TC_DTYPES
+    :func:`flash_packed_bwd_dq_tc`, :func:`flash_packed_bwd_dkv_tc` and
+    :func:`flash_packed_bwd_dkv_direct_tc`: dk/dv-direct is K3's function
+    with all the queries in one tile; q, k, v and do rows 16-byte aligned),
+    float32 the CUDA-core bodies (``flash_packed_stream.cu``, counted by
+    :func:`flash_packed_bwd_dq`, :func:`flash_packed_bwd_dkv` and
+    :func:`flash_packed_bwd_dkv_direct`). ``tc=False`` runs dk/dv-direct's
+    CUDA-core body in 16 bits too, a yardstick that no path takes (counted
+    by :func:`flash_packed_bwd_dkv_direct`). Each block owns its output
+    tile and sums in a fixed order (no atomics), so results repeat bit for
+    bit."""
+    if tc is None:
+        tc = q.dtype in TC_DTYPES
+    elif not tc and which != "dkv_direct" and q.dtype in TC_DTYPES:
+        raise ValueError(f"the streamed {which} has no 16-bit CUDA-core "
+                         f"body")
     what = f"flash_packed_bwd_{which}" + ("_tc" if tc else "")
     _require(q, k, v, masks, what, do, max_sq=MAX_SEQ_Q_DIRECT
              if which == "dkv_direct" else None)
@@ -568,7 +582,9 @@ def _launch_bwd_split(which: str, q, k, v, do, lse, delta, causal: bool,
     else:
         outs = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
                 for t in (k, v)]
-    stem, entry = ("flash_bwd_tc", f"paddle_flash_bwd_{which}_tc") if tc \
+    # dk/dv-direct's tensor-core body is dk/dv's (K3's)
+    stem, entry = ("flash_bwd_tc", "paddle_flash_bwd_{}_tc".format(
+        "dkv" if which == "dkv_direct" else which)) if tc \
         else ("flash_packed_stream", "paddle_" + what)
     lib, fn = _kernel(stem, entry, 9 + len(outs), 12)
     _call(lib, fn, what, q, k, q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -580,7 +596,8 @@ def _launch_bwd_split(which: str, q, k, v, do, lse, delta, causal: bool,
      "flash_packed_bwd_dq_tc": flash_packed_bwd_dq_tc,
      "flash_packed_bwd_dkv": flash_packed_bwd_dkv,
      "flash_packed_bwd_dkv_tc": flash_packed_bwd_dkv_tc,
-     "flash_packed_bwd_dkv_direct": flash_packed_bwd_dkv_direct}[
+     "flash_packed_bwd_dkv_direct": flash_packed_bwd_dkv_direct,
+     "flash_packed_bwd_dkv_direct_tc": flash_packed_bwd_dkv_direct_tc}[
          what].launches += 1
     return outs[0] if which == "dq" else tuple(outs)
 
@@ -798,14 +815,36 @@ def flash_packed_bwd_dkv_direct(q, k, v, do, lse, delta,
                                 dropout: Optional[AttnDropout] = None
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dk/dv with all the queries in one tile (``_bwd_dkv_kernel_direct``;
-    the kernel takes Sq <= 512), arguments as :func:`flash_packed_bwd_dq`.
-    Returns ``(dk, dv)``."""
+    the kernel takes Sq <= 512), arguments as :func:`flash_packed_bwd_dq`
+    (and the body chosen as it chooses). Returns ``(dk, dv)``."""
     dev = _bwd_inputs(q, k, v, do, lse, delta, masks)
     scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
     if dev.type == "cpu":
         return flash_packed_bwd_dkv_direct_reference(q, k, v, do, lse, delta,
                                                      causal, scale, masks,
                                                      dropout)
+    return _launch_bwd_split("dkv_direct", q, k, v, do, lse, delta, causal,
+                             scale, masks, dropout)
+
+
+def flash_packed_bwd_dkv_direct_tc(q, k, v, do, lse, delta,
+                                   causal: bool = False,
+                                   scale: Optional[float] = None,
+                                   masks: Masks = (None, None, None),
+                                   dropout: Optional[AttnDropout] = None
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dk/dv-direct's tensor-core body (bf16 and float16; K3's), arguments
+    as :func:`flash_packed_bwd_dq`: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors. :func:`flash_packed_bwd_dkv_direct`
+    reaches it for every 16-bit CUDA input. Returns ``(dk, dv)``."""
+    dev = _bwd_inputs(q, k, v, do, lse, delta, masks)
+    scale = 1.0 / math.sqrt(HEAD_D) if scale is None else float(scale)
+    if dev.type == "cpu":
+        return flash_packed_bwd_dkv_direct_reference(q, k, v, do, lse, delta,
+                                                     causal, scale, masks,
+                                                     dropout)
+    _require_16bit(q, "flash_packed_bwd_dkv_direct_tc",
+                   "flash_packed_bwd_dkv_direct")
     return _launch_bwd_split("dkv_direct", q, k, v, do, lse, delta, causal,
                              scale, masks, dropout)
 
@@ -878,8 +917,9 @@ def flash_attention_packed(query, key, value, causal: bool = False,
 
 #: kernel launches since each count was last set to 0 (CUDA path only);
 #: flash_packed_fwd, flash_packed_bwd, flash_packed_fwd_stream,
-#: flash_packed_bwd_dq and flash_packed_bwd_dkv count their float32 bodies
-#: (flash_packed_bwd also the bf16 yardstick ``_launch_bwd(..., tc=False)``),
+#: flash_packed_bwd_dq, flash_packed_bwd_dkv and flash_packed_bwd_dkv_direct
+#: count their float32 bodies (flash_packed_bwd and
+#: flash_packed_bwd_dkv_direct also their 16-bit yardsticks, ``tc=False``),
 #: the ``_tc`` names their 16-bit tensor-core bodies
 flash_packed_fwd.launches = 0
 flash_packed_fwd_tc.launches = 0
@@ -892,3 +932,4 @@ flash_packed_bwd_dq_tc.launches = 0
 flash_packed_bwd_dkv.launches = 0
 flash_packed_bwd_dkv_tc.launches = 0
 flash_packed_bwd_dkv_direct.launches = 0
+flash_packed_bwd_dkv_direct_tc.launches = 0

@@ -15,10 +15,12 @@ dtype, and the f32 per-column ``(sum, sumsq)`` of the f32 product.
 The kernel. K9's body computes, one row at a time, what K5's ``_mm_kernel``
 computes one pixel at a time: scale and shift rounded to x's type, the
 product, the sum, ReLU, the f32 product with w, y rounded, and the stats
-from the f32 accumulator. So its Hopper kernel is K5's ``conv1x1_kernel``
-(``csrc/conv.cu``), launched through its own C entry
-``paddle_fused_matmul_bn_fwd`` on x as the 1x1 conv of a ``[1, 1, M, Cin]``
-image; the prologues map to K5's as ``none`` -> no scale and shift,
+from the f32 accumulator. So its Hopper kernel is K5's (``csrc/conv.cu``),
+launched through its own C entry ``paddle_fused_matmul_bn_fwd`` on x as the
+1x1 conv of a ``[1, 1, M, Cin]`` image: in bf16 and float16 K5's
+tensor-core body ``conv1x1_tc_kernel`` on the tiles of ``conv.k5_plan``, in
+float32 its CUDA-core body ``conv1x1_kernel``; the prologues map to K5's
+as ``none`` -> no scale and shift,
 ``scale_shift`` -> act ``none``, ``scale_shift_relu`` -> act ``relu``. It
 computes every row: the JAX ``_fwd`` takes ``M // block_m`` row blocks and
 leaves the rows past the last whole block unwritten, so ``block_m`` is taken
@@ -43,7 +45,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from .conv import _DTYPE_CODE, _check, _device, _ptr, _run, _stat_scratch
+from .conv import (_DTYPE_CODE, _FWD_ROWS, _check, _device, _ptr, _run,
+                   _stat_scratch, k5_plan)
 
 __all__ = ["fused_matmul_bn_act", "fused_matmul_bn_act_reference",
            "fused_matmul_bn_fwd", "PROLOGUES"]
@@ -76,7 +79,7 @@ def fused_matmul_bn_act_reference(x, w, scale, shift,
     return acc.to(x.dtype), s, ss
 
 
-_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
 def _library():
@@ -94,9 +97,10 @@ def _library():
 def fused_matmul_bn_fwd(x, w, scale, shift,
                         prologue: str = "scale_shift_relu",
                         stats: bool = True) -> Out:
-    """K9's forward: the kernel for CUDA tensors (``conv1x1_kernel``
-    through ``paddle_fused_matmul_bn_fwd``), the plain version for CPU
-    tensors. Not differentiable itself (:func:`fused_matmul_bn_act` is)."""
+    """K9's forward: the kernel for CUDA tensors (K5's body through
+    ``paddle_fused_matmul_bn_fwd``: ``conv1x1_tc_kernel`` in 16 bits,
+    ``conv1x1_kernel`` in float32), the plain version for CPU tensors. Not
+    differentiable itself (:func:`fused_matmul_bn_act` is)."""
     if _device(x, w, scale, shift).type == "cpu":
         return fused_matmul_bn_act_reference(x, w, scale, shift, prologue,
                                              stats)
@@ -111,14 +115,21 @@ def fused_matmul_bn_fwd(x, w, scale, shift,
     _check(what, x.reshape(1, 1, m, cin), (("x", x), ("w", w)), scale,
            shift)
     y = torch.empty((m, cout), dtype=x.dtype, device=x.device)
-    partial, tmp, st = _stat_scratch(m, cout, x.device) if stats else \
+    # the row blocks of the body that runs: K5's plan in 16 bits, 128-row
+    # blocks in float32
+    if x.dtype == torch.float32:
+        warps_m = warps_n = stages = 0
+        blocks = -(-m // _FWD_ROWS)
+    else:
+        warps_m, warps_n, _, blocks, _, stages = k5_plan(m, cin, cout)
+    partial, tmp, st = _stat_scratch(blocks, cout, x.device) if stats else \
         (None, None, None)
     lib = _library()
     _run(lib, lib.paddle_fused_matmul_bn_fwd, what, x, x.data_ptr(),
          w.data_ptr(), _ptr(scale), _ptr(shift), y.data_ptr(), _ptr(partial),
          _ptr(tmp), _ptr(st), m, cin, cout,
-         int(prologue == "scale_shift_relu"), int(stats),
-         _DTYPE_CODE[x.dtype])
+         int(prologue == "scale_shift_relu"), int(stats), warps_m, warps_n,
+         stages, _DTYPE_CODE[x.dtype])
     fused_matmul_bn_fwd.launches += 1
     if not stats:
         z = torch.zeros(cout, dtype=torch.float32, device=x.device)

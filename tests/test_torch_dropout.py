@@ -212,6 +212,9 @@ K4_CASES = {
                                    PIN),
     "bf16_s128_direct_fused": (1, 128, 128, 2, False, "bf16", None, PIN),
     "bf16_s256_bias_stream": (1, 256, 256, 2, False, "bf16", "bias", PIN),
+    # dk/dv-direct in bf16 (K3's tensor-core body on the card)
+    "bf16_sq128_sk256_bias_dkv_direct": (1, 128, 256, 2, False, "bf16",
+                                         "bias", PIN),
 }
 
 

@@ -373,7 +373,8 @@ def _stub_launches(monkeypatch):
                         lambda *a, **kw: torch.device("cuda"))
     for name in ("flash_packed_bwd_dq", "flash_packed_bwd_dq_tc",
                  "flash_packed_bwd_dkv", "flash_packed_bwd_dkv_tc",
-                 "flash_packed_bwd_dkv_direct"):
+                 "flash_packed_bwd_dkv_direct",
+                 "flash_packed_bwd_dkv_direct_tc"):
         monkeypatch.setattr(getattr(hfp, name), "launches", 0)
     return stub
 
@@ -394,11 +395,11 @@ def _small(dtype, sq=128, sk=256):
     (torch.float32, "flash_packed_stream", "")])
 def test_streamed_backward_picks_its_body_by_dtype(dtype, stem, suffix,
                                                    monkeypatch):
-    """bf16 and float16 dq and dk/dv reach the tensor-core entries (K2's
-    and K3's, the same functions at KV heads = heads) and their own counts,
-    float32 the CUDA-core ones; dk/dv-direct stays on the CUDA cores in
-    every dtype.
-    Nothing falls back from one body to the other."""
+    """bf16 and float16 dq, dk/dv and dk/dv-direct reach the tensor-core
+    entries (K2's and K3's, the same functions at KV heads = heads; K3's
+    for dk/dv-direct, its function with all the queries in one tile) and
+    their own counts, float32 the CUDA-core ones. Nothing falls back from
+    one body to the other."""
     stub = _stub_launches(monkeypatch)
     args = _small(dtype)
     hfp.flash_packed_bwd_dq(*args)
@@ -410,16 +411,19 @@ def test_streamed_backward_picks_its_body_by_dtype(dtype, stem, suffix,
     assert stub.entries == [
         (stem, entry.format("dq"), f"flash_packed_bwd_dq{suffix}", code),
         (stem, entry.format("dkv"), f"flash_packed_bwd_dkv{suffix}", code),
-        ("flash_packed_stream", "paddle_flash_packed_bwd_dkv_direct",
-         "flash_packed_bwd_dkv_direct", code)]
+        (stem, entry.format("dkv") if suffix else
+         "paddle_flash_packed_bwd_dkv_direct",
+         f"flash_packed_bwd_dkv_direct{suffix}", code)]
     tc = suffix == "_tc"
     assert {n: getattr(hfp, n).launches for n in (
         "flash_packed_bwd_dq", "flash_packed_bwd_dq_tc",
         "flash_packed_bwd_dkv", "flash_packed_bwd_dkv_tc",
-        "flash_packed_bwd_dkv_direct")} == {
+        "flash_packed_bwd_dkv_direct", "flash_packed_bwd_dkv_direct_tc")} == {
         "flash_packed_bwd_dq": int(not tc), "flash_packed_bwd_dq_tc": int(tc),
         "flash_packed_bwd_dkv": int(not tc),
-        "flash_packed_bwd_dkv_tc": int(tc), "flash_packed_bwd_dkv_direct": 1}
+        "flash_packed_bwd_dkv_tc": int(tc),
+        "flash_packed_bwd_dkv_direct": int(not tc),
+        "flash_packed_bwd_dkv_direct_tc": int(tc)}
 
 
 def test_tensor_core_backward_takes_bf16_only(monkeypatch):
