@@ -172,7 +172,24 @@ Attention-prob dropout and K9 (after phase 7, in this order):
   beside bf16;
 and the dropout paths, each after its model's rate-0 path:
 - train_gpt_dropout_bf16  GPT-3 1.3B at hidden and attention dropout 0.1,
-  B=4 x 2048, AMP-O2, 2+4 steps (K1/K2/K3 24 a step);
+  B=4 x 2048, AMP-O2, 2+4 steps (K1/K2/K3 24 a step); then GPT's
+  training options:
+  - train_recompute_bf16  GPT-3 1.3B as bench.py's config 4 trains it,
+    ``recompute=True`` under the default policy (dots_and_flash_saveable,
+    2+8 steps: K1 saved, 24 launches a step) and under
+    ``recompute_policy=None`` (2+3 steps: K1 48 a step), K2/K3 24 each,
+    beside train_bf16's step times and peak memory (the policy's peak no
+    higher, full recompute's at least 8 GB lower);
+  - train_grad_recompute  a 2-layer cut at B=2 x 320 with and without
+    recompute, in f32 and in bf16 at dropout 0.1 under one key stream:
+    the bit-equal share and the largest difference, within
+    train_grad_f32's tolerance;
+  - gpt_sdpa_route  B=1 x 2048 in bf16 with ``use_flash_attention``
+    True and False on the same weights: bit-equal, K1-K3 24 each;
+  - train_o1_f16  float32 parameters under AMP O1 in float16, the
+    imperative loop (``auto_cast``, ``GradScaler``, ``AdamW(parameters=
+    model.parameters())``), B=4 x 2048, 2+6 steps: K1-K3's float16
+    tensor-core bodies 24 a step each, the scale a step;
 - train_grad_f32_bert_dropout  as 12 at attention dropout 0.1;
 - train_bert_dropout_bf16  BERT-base as published (dropout 0.1), the dense
   form, 2+4 steps, twice from one seed (equal losses) and once at rate 0
@@ -2887,70 +2904,62 @@ def bench_batches(np, n, batch, seq, vocab):
 
 def phase_train_bf16(torch, np, hfa, peaks, GPTForCausalLM, gpt3_1p3b,
                      amp, AdamW, make_sharded_train_step, profile=False,
-                     rate0_p50=None):
+                     rate0_p50=None, recompute=False,
+                     policy="dots_and_flash_saveable", warmup=2, timed=8):
     """The training slice: GPT-3 1.3B at full depth, AMP-O2, AdamW with
-    f32 masters, B=4 x S=2048, 2 warm-up and 8 timed steps."""
-    batch, seq, warmup, timed = 4, 2048, 2, 8
-    cfg = gpt3_1p3b()
+    f32 masters, B=4 x S=2048, ``warmup`` warm-up and ``timed`` timed
+    steps; with ``recompute`` under ``policy``, the phase
+    train_recompute_bf16, beside train_bf16's row from ``rate0_p50``.
+    Returns the row and the K1-K3 launches."""
+    batch, seq = 4, 2048
+    cfg = gpt3_1p3b(recompute=recompute, recompute_policy=policy)
     model = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32, seed=0)
     opt = AdamW(learning_rate=1e-4, weight_decay=0.01, multi_precision=True)
     model, opt = amp.decorate(model, opt, level="O2")
     step = make_sharded_train_step(model, opt, gpt_loss)
     n_params = sum(p.numel() for p in model.parameters())
     batches = bench_batches(np, warmup + timed, batch, seq, cfg.vocab_size)
+    it = iter(batches)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # the main path: counts are set to 0 just before it and read after
     for name in K1_K3_KERNELS:
         getattr(hfa, name).launches = 0
-    losses, times = [], []
-    for i, bt in enumerate(batches):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        loss = step.step(bt)
-        end.record()
-        end.synchronize()
-        losses.append(float(loss))
-        if i >= warmup:
-            times.append(start.elapsed_time(end))
+    losses, times = timed_steps(torch, lambda: step.step(next(it)), warmup,
+                                timed)
     launches = {n: getattr(hfa, n).launches for n in K1_K3_KERNELS}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    n_steps = len(batches)
-    p50 = percentile(times, 50)
-    # every token of the timed steps over their whole time
-    tokens_per_s = timed * batch * seq / (sum(times) / 1e3)
-    # bench.py:1434: 6N (the products, forward and backward) plus causal
-    # attention 6 * L * S * hidden per token
-    flops_per_token = 6 * n_params + 6 * cfg.num_layers * seq * \
-        cfg.hidden_size
-    clocks = card_clocks()   # right after the timed steps
-    row = {"phase": "train_bf16", "clocks": clocks,
-           "model": "gpt3_1p3b",
-           "layers": cfg.num_layers, "params": n_params,
-           "batch": [batch, seq], "amp": "O2", "optimizer": "AdamW(1e-4, "
-           "weight_decay=0.01, multi_precision=True)",
-           "losses": losses, "warmup_steps": warmup, "timed_steps": timed,
-           "step_ms": times, "step_p50_ms": p50,
-           "step_p99_ms": percentile(times, 99),
-           "tokens_per_s": tokens_per_s,
-           "flops_per_token": flops_per_token,
-           "mfu": flops_per_token * tokens_per_s / peaks["bf16"],
-           "peak_sheet": peaks["sheet"],
-           "max_memory_allocated_gb": peak_gb, "launches": launches}
+    extra = {"amp": "O2", "optimizer": "AdamW(1e-4, weight_decay=0.01, "
+             "multi_precision=True)", "warmup_steps": warmup,
+             "timed_steps": timed}
+    base = (rate0_p50 or {}).get("gpt_row")
+    if recompute:
+        extra["recompute_policy"] = policy
+        extra.update({f"train_bf16_{k}": base[k] for k in (
+            "step_p50_ms", "tokens_per_s", "mfu",
+            "max_memory_allocated_gb")})
+        # the same seed and batches as train_bf16: its losses again, if
+        # the products round as they did there
+        extra["losses_equal_train_bf16"] = \
+            losses == base["losses"][:len(losses)]
+    row = gpt_step_row(torch, "train_recompute_bf16" if recompute else
+                       "train_bf16", cfg, n_params, peaks, batch, seq,
+                       losses, times, launches, extra)
     emit(row)
-    if rate0_p50 is not None:
-        rate0_p50["gpt"] = p50
+    if rate0_p50 is not None and not recompute:
+        rate0_p50["gpt"] = row["step_p50_ms"]
+        rate0_p50["gpt_row"] = row
     check(all(math.isfinite(x) for x in losses), f"non-finite loss: {row}")
     # tied logits at init have sigma = sqrt(2048) * 0.02 ~ 0.9: the first
     # loss is about ln(50304) + sigma^2 / 2 ~ 11.2
     check(abs(losses[0] - 11.2) < 0.5, f"step-0 loss {losses[0]}")
     check(losses[-1] < losses[0], f"the loss did not decrease: {losses}")
-    for name, n in launches.items():
-        # bf16 at head dim 128 reaches only the tensor-core bodies
-        want = cfg.num_layers * n_steps if name.endswith("_tc") else 0
-        check(n == want, f"{name}: {n} launches in {n_steps} steps of "
-                         f"{cfg.num_layers} layers; expected {want}")
+    if not recompute:
+        for name, n in launches.items():
+            # bf16 at head dim 128 reaches only the tensor-core bodies
+            want = cfg.num_layers * len(losses) if name.endswith("_tc") \
+                else 0
+            check(n == want, f"{name}: {n} launches in {len(losses)} steps "
+                             f"of {cfg.num_layers} layers; expected {want}")
     if profile:
         from torch.profiler import ProfilerActivity, profile as prof_ctx
         with prof_ctx(activities=[ProfilerActivity.CPU,
@@ -2962,7 +2971,9 @@ def phase_train_bf16(torch, np, hfa, peaks, GPTForCausalLM, gpt3_1p3b,
             wall_ms = (time.perf_counter() - t0) * 1e3
         emit({"phase": "profile_train", "steps": 3,
               **device_profile(prof, wall_ms)})
-    return launches
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return row, launches
 
 
 # -- phases 12 and 13 --------------------------------------------------------
@@ -4560,6 +4571,272 @@ def phase_train_ernie_dropout_bf16(torch, np, hfa, hfp, peaks, ernie, AdamW,
     return launches, row
 
 
+# -- activation recompute, the SDPA route, AMP O1 ---------------------------
+
+def gpt_step_row(torch, phase, cfg, n_params, peaks, batch, seq, losses,
+                 times, launches, extra):
+    """A GPT training phase's line: step p50/p99, tokens/s over the timed
+    steps, MFU, peak memory; read right after the timed steps."""
+    tokens_per_s = len(times) * batch * seq / (sum(times) / 1e3)
+    # bench.py:1434: 6N (the products, forward and backward) plus causal
+    # attention 6 * L * S * hidden per token
+    flops_per_token = 6 * n_params + 6 * cfg.num_layers * seq * \
+        cfg.hidden_size
+    return {"phase": phase, "clocks": card_clocks(), "model": "gpt3_1p3b",
+            "layers": cfg.num_layers, "params": n_params,
+            "batch": [batch, seq], "losses": losses, "step_ms": times,
+            "step_p50_ms": percentile(times, 50),
+            "step_p99_ms": percentile(times, 99),
+            "tokens_per_s": tokens_per_s,
+            "flops_per_token": flops_per_token,
+            "mfu": flops_per_token * tokens_per_s / peaks["bf16"],
+            "peak_sheet": peaks["sheet"],
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches, **extra}
+
+
+def phase_train_recompute_bf16(torch, np, hfa, hfp, peaks, GPTForCausalLM,
+                               gpt3_1p3b, amp, AdamW, make_sharded_train_step,
+                               rate0_p50):
+    """GPT-3 1.3B as bench.py's config 4 trains it (``:1474-1478``,
+    ``remat=True`` at ``:2257``): train_bf16 with ``recompute=True`` under
+    the default policy (dots_and_flash_saveable), 2 warm-up and 8 timed
+    steps; then under ``recompute_policy=None`` (full recompute), 2 + 3
+    steps. K1 saved by the policy: 24 launches a step, 48 under full
+    recompute; K2/K3 24 each. Beside train_bf16's figures from this
+    run."""
+    rows, launches_all = {}, {}
+    for policy, timed in (("dots_and_flash_saveable", 8), (None, 3)):
+        # no K4 form either: the counts of every attention kernel
+        zero_counts(hfa, hfp)
+        row, _ = phase_train_bf16(
+            torch, np, hfa, peaks, GPTForCausalLM, gpt3_1p3b, amp, AdamW,
+            make_sharded_train_step, rate0_p50=rate0_p50, recompute=True,
+            policy=policy, timed=timed)
+        launches = k4_counts(hfa, hfp)
+        rows[policy] = row
+        for name, count in launches.items():
+            launches_all[name] = launches_all.get(name, 0) + count
+        n = row["layers"] * len(row["losses"])
+        check_launches(launches, {
+            "flash_fwd_tc": n * (1 if policy else 2),
+            "flash_bwd_dq_tc": n, "flash_bwd_dkv_tc": n},
+            f"GPT recompute under {policy}")
+    peak0 = rate0_p50["gpt_row"]["max_memory_allocated_gb"]
+    policy_peak = rows["dots_and_flash_saveable"]["max_memory_allocated_gb"]
+    check(policy_peak <= peak0, f"the policy's peak {policy_peak} GB is "
+                                f"above train_bf16's {peak0}")
+    full_peak = rows[None]["max_memory_allocated_gb"]
+    check(full_peak <= peak0 - 8.0, f"full recompute's peak {full_peak} GB "
+                                    f"is not 8 GB below train_bf16's {peak0}")
+    return launches_all
+
+
+def grad_pair(torch, model_of, cfg_of, ids, labels, key, forward_ctx):
+    """Loss and gradients (float32 copies on the card) of the model with
+    and without recompute, from one state of weights, under one key
+    stream, the forward inside ``forward_ctx()``; the backward runs on
+    autograd's device thread, outside it."""
+    from paddle_tpu_torch.core.random import rng_scope
+    out = {}
+    state = None
+    for recompute in (False, True):
+        model = model_of(cfg_of(recompute))
+        if state is None:
+            state = {k: v.clone() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(state)
+        model.train()
+        with rng_scope(key):
+            with forward_ctx():
+                loss = model(ids, labels)
+            loss.backward()
+        out[recompute] = (float(loss.detach()),
+                          {n: p.grad.float() for n, p in
+                           model.named_parameters()})
+        del model
+    return out
+
+
+def phase_train_grad_recompute(torch, np, hfa, hfp, GPTForCausalLM,
+                               gpt3_1p3b, amp):
+    """A 2-layer cut of GPT-3 1.3B at full width on the inputs of
+    train_grad_f32 (B=2 x 320), with and without recompute under the
+    default policy: in f32 (the CUDA-core K1-K3), then in bf16 at hidden
+    and attention dropout 0.1 under one key stream (the tensor-core
+    bodies; the recompute replays the forward's masks), then with f32
+    parameters under AMP O1 in float16 at dropout 0.1 (the float16
+    tensor-core bodies; the recompute, on autograd's device thread, runs
+    under the forward's AMP state). The share of gradient elements that
+    are bit-equal, the largest difference; held within train_grad_f32's
+    tolerance (loss 1e-4, each gradient within 1e-3 of its largest
+    element)."""
+    import contextlib
+    from paddle_tpu_torch.core.random import make_key
+    rng = np.random.default_rng(5)
+    b, s = 2, 320
+    ids = torch.as_tensor(rng.integers(0, 50304, (b, s)), device="cuda")
+    labels = torch.roll(ids, -1, dims=1)
+    out = []
+    for dt, drop, o1 in (("f32", 0.0, False), ("bf16", DROP_RATE, False),
+                         ("f32", DROP_RATE, True)):
+        dtype = torch_dtype(torch, dt)
+
+        def cfg_of(recompute):
+            return gpt3_1p3b(num_layers=2, recompute=recompute,
+                             hidden_dropout=drop, attention_dropout=drop)
+
+        def forward_ctx():
+            if o1:
+                return amp.auto_cast(level="O1", dtype="float16")
+            return contextlib.nullcontext()
+
+        zero_counts(hfa, hfp)
+        res = grad_pair(torch, lambda c: GPTForCausalLM(
+            c, device="cuda", dtype=dtype, seed=0), cfg_of, ids, labels,
+            make_key(3), forward_ctx)
+        launches = k4_counts(hfa, hfp)
+        equal = total = 0
+        worst_ratio, worst_abs = 0.0, 0.0
+        for name, g in res[True][1].items():
+            ref = res[False][1][name]
+            check(bool(torch.isfinite(g).all()), f"{name}: non-finite grad")
+            equal += int((g == ref).sum())
+            total += g.numel()
+            diff = float((g - ref).abs().max())
+            worst_abs = max(worst_abs, diff)
+            worst_ratio = max(worst_ratio, diff / max(
+                float(ref.abs().max()), 1e-30))
+        body = "_tc" if dt == "bf16" or o1 else ""
+        row = {"phase": "train_grad_recompute", "dtype": dt,
+               "amp": "O1 float16" if o1 else None,
+               "dropout": drop, "layers": 2, "batch": [b, s],
+               "recompute_policy": "dots_and_flash_saveable",
+               "loss": res[False][0], "loss_recompute": res[True][0],
+               "bit_equal_share": equal / total, "grad_elements": total,
+               "max_abs_diff": worst_abs, "worst_rel_err": worst_ratio,
+               "launches": launches}
+        emit(row)
+        out.append(row)
+        check(abs(res[True][0] - res[False][0]) <= 1e-4,
+              f"train_grad_recompute: the loss differs: {row}")
+        check(worst_ratio <= 1e-3,
+              f"train_grad_recompute: the gradients differ: {row}")
+        # the policy keeps K1's outputs: one forward launch a layer and
+        # run, as without recompute
+        check_launches(launches, {"flash_fwd" + body: 4,
+                                  "flash_bwd_dq" + body: 4,
+                                  "flash_bwd_dkv" + body: 4},
+                       f"train_grad_recompute {dt} {row['amp']}")
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_o1_f16(torch, np, hfa, hfp, peaks, GPTForCausalLM,
+                       gpt3_1p3b, amp, AdamW):
+    """GPT-3 1.3B with float32 parameters under AMP O1 in float16, B=4 x
+    2048, 2 warm-up and 6 timed steps, as a Paddle user writes the dygraph
+    loop: ``with auto_cast(level="O1", dtype="float16"): loss =
+    model(ids, labels)``, then ``scaler.scale(loss).backward();
+    scaler.step(opt); scaler.update(); opt.clear_grad()`` with
+    ``GradScaler()`` and ``AdamW(parameters=model.parameters())``. The
+    projections run in float16, so K1-K3 run their float16 tensor-core
+    bodies, 24 launches each a step."""
+    batch, seq, warmup, timed = 4, 2048, 2, 6
+    cfg = gpt3_1p3b()
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32, seed=0)
+    model.train()
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                parameters=model.parameters())
+    scaler = amp.GradScaler()
+    n_params = sum(p.numel() for p in model.parameters())
+    batches = [tuple(torch.as_tensor(x, device="cuda", dtype=torch.long)
+                     for x in bt)
+               for bt in bench_batches(np, warmup + timed, batch, seq,
+                                       cfg.vocab_size)]
+    it = iter(batches)
+    scales = []
+
+    def one_step():
+        ids, labels = next(it)
+        with amp.auto_cast(level="O1", dtype="float16"):
+            loss = model(ids, labels)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        scales.append(float(scaler.get_loss_scaling()))
+        return loss.detach()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(hfa, hfp)   # the main path: counts 0 before, read after
+    losses, times = timed_steps(torch, one_step, warmup, timed)
+    launches = k4_counts(hfa, hfp)
+    n = cfg.num_layers * (warmup + timed)
+    row = gpt_step_row(torch, "train_o1_f16", cfg, n_params, peaks, batch,
+                       seq, losses, times, launches,
+                       {"amp": "O1 float16", "param_dtype": "float32",
+                        "optimizer": "AdamW(1e-4, weight_decay=0.01, "
+                        "parameters=model.parameters())",
+                        "scales": scales,
+                        "found_inf_steps": sum(
+                            1 for a, b_ in zip([2.0 ** 15] + scales, scales)
+                            if b_ < a)})
+    emit(row)
+    check(all(math.isfinite(x) for x in losses), f"non-finite: {row}")
+    check(abs(losses[0] - 11.2) < 0.5, f"O1 step-0 loss {losses[0]}")
+    check(losses[-1] < losses[0], f"the O1 loss did not decrease: {row}")
+    check_launches(launches, {"flash_fwd_tc": n, "flash_bwd_dq_tc": n,
+                              "flash_bwd_dkv_tc": n}, "GPT O1 float16")
+    del model, opt, scaler
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_gpt_sdpa_route(torch, np, hfa, hfp, GPTForCausalLM, gpt3_1p3b):
+    """One forward and backward of GPT-3 1.3B in bf16 at B=1 x 2048 with
+    ``use_flash_attention=True`` and ``False`` on the same weights: SDPA
+    over the (identity) KV repeat routes to the same kernels, so the loss
+    and every gradient are bit-equal; K1-K3 run once a layer on both."""
+    cfg = gpt3_1p3b()
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32, seed=0)
+    model = model.to(torch.bfloat16).train()
+    rng = np.random.default_rng(9)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 2048)),
+                          device="cuda")
+    labels = torch.roll(ids, -1, dims=1)
+    res = {}
+    for flash in (True, False):
+        cfg.use_flash_attention = flash
+        model.zero_grad(set_to_none=True)
+        zero_counts(hfa, hfp)
+        loss = model(ids, labels)
+        loss.backward()
+        res[flash] = (float(loss.detach()), {
+            n: p.grad.clone() for n, p in model.named_parameters()},
+            k4_counts(hfa, hfp))
+    cfg.use_flash_attention = True
+    unequal = [n for n, g in res[True][1].items()
+               if not torch.equal(g, res[False][1][n])]
+    row = {"phase": "gpt_sdpa_route", "batch": [1, 2048], "dtype": "bf16",
+           "loss_flash": res[True][0], "loss_sdpa": res[False][0],
+           "grad_tensors": len(res[True][1]), "unequal_grads": unequal,
+           "launches_flash": res[True][2], "launches_sdpa": res[False][2]}
+    emit(row)
+    check(res[True][0] == res[False][0] and not unequal,
+          f"gpt_sdpa_route: the routes differ: {row}")
+    for flash in (True, False):
+        check_launches(res[flash][2], {
+            "flash_fwd_tc": cfg.num_layers, "flash_bwd_dq_tc": cfg.num_layers,
+            "flash_bwd_dkv_tc": cfg.num_layers},
+            f"gpt_sdpa_route use_flash_attention={flash}")
+    del model, res
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_cross_attention(torch, np, hfa, hfp, MultiHeadAttention,
                           PF, rng, rate=0.0, dt="bf16"):
     """``nn.MultiHeadAttention(768, 12, dropout=rate)`` in bf16 (or, at rate
@@ -4757,7 +5034,7 @@ def main() -> int:
                                             gpt3_1p3b)
     torch.cuda.empty_cache()
     rate0_p50 = {}   # each rate-0 training path's step p50, for beside
-    train_launches = phase_train_bf16(
+    _, train_launches = phase_train_bf16(
         torch, np, hfa, peaks, GPTForCausalLM, gpt3_1p3b, amp, AdamW,
         make_sharded_train_step, profile=profile, rate0_p50=rate0_p50)
     gpt_k4 = {name: getattr(hfp, name).launches for name in k4_forms}
@@ -4769,6 +5046,17 @@ def main() -> int:
     gpt_drop_launches, gpt_drop = phase_train_gpt_dropout_bf16(
         torch, np, hfa, hfp, peaks, GPTForCausalLM, gpt3_1p3b, amp, AdamW,
         make_sharded_train_step, rate0_p50)
+    # activation recompute as bench.py's config 4 trains (the default
+    # policy, then full recompute), its gradients against no recompute,
+    # the SDPA route and AMP O1 in float16 with the imperative loop
+    recompute_launches = phase_train_recompute_bf16(
+        torch, np, hfa, hfp, peaks, GPTForCausalLM, gpt3_1p3b, amp, AdamW,
+        make_sharded_train_step, rate0_p50)
+    phase_train_grad_recompute(torch, np, hfa, hfp, GPTForCausalLM,
+                               gpt3_1p3b, amp)
+    phase_gpt_sdpa_route(torch, np, hfa, hfp, GPTForCausalLM, gpt3_1p3b)
+    o1_launches = phase_train_o1_f16(torch, np, hfa, hfp, peaks,
+                                     GPTForCausalLM, gpt3_1p3b, amp, AdamW)
     dense_routes["gpt"] = tfa.flash_attention.dense_routes
     tfa.flash_attention.dense_routes = 0
     # K4a-direct's float32 body runs on this path (the bf16 paths take the
@@ -4996,6 +5284,8 @@ def main() -> int:
             "f32_ernie_launches": f32_ernie_launches.get(name, 0),
             "f32_gpt_launches": f32_gpt_launches.get(name, 0),
             "f32_cross_launches": f32_cross_launches.get(name, 0),
+            "recompute_launches": recompute_launches.get(name, 0),
+            "o1_f16_launches": o1_launches.get(name, 0),
             "max_abs_err": err, "max_err": err,
             "stats_rel_err": stats_conv.get(name),
             "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],

@@ -25,9 +25,16 @@ conv kernels with the BN prologue and stat epilogue
 ``ops/_hopper/fused_matmul_bn.py`` (the fused 1x1 matmul + BN + ReLU +
 stats, on ``conv.cu``); and dropout: the attention kernels' in-kernel mask
 and hidden dropout, keyed by :mod:`.core.random` as the JAX package keys
-its randomness by ``(seed, step)``.
+its randomness by ``(seed, step)``; activation recompute
+(``distributed.fleet.utils.recompute``, GPT's ``recompute=True``), AMP O1
+(``amp.auto_cast``, ``amp.GradScaler``) and the imperative optimizers
+(``optimizer.AdamW(parameters=...)``, ``step()``, ``clear_grad()``, the
+regularizers of :mod:`.regularizer`).
 """
 
+from . import amp, nn, optimizer, regularizer  # noqa: F401
 from .core.device import resolve_device  # noqa: F401
+from .core.random import seed  # noqa: F401
 
-__all__ = ["resolve_device"]
+__all__ = ["amp", "nn", "optimizer", "regularizer", "resolve_device",
+           "seed"]

@@ -24,7 +24,8 @@ import torch
 
 __all__ = ["seed", "default_generator", "Generator", "rng_scope",
            "next_key", "get_rng_state", "set_rng_state", "make_key",
-           "fold_in", "torch_generator", "draw_seed"]
+           "fold_in", "torch_generator", "draw_seed", "stream_position",
+           "replay"]
 
 _M64 = (1 << 64) - 1
 _KEY_MASK = (1 << 63) - 1   # a torch.Generator takes any non-negative int64
@@ -123,6 +124,38 @@ def next_key() -> int:
         state[1] += 1
         return fold_in(state[0], state[1])
     return _default_generator.next_key()
+
+
+def stream_position() -> Tuple[str, int, int]:
+    """Where the next :func:`next_key` would come from: ``("scope", key,
+    count)`` inside an :func:`rng_scope`, else ``("global", seed, count)``
+    of the global generator. :func:`replay` draws from it again."""
+    state = getattr(_scope, "state", None)
+    if state is not None:
+        return ("scope", state[0], state[1])
+    return ("global",) + _default_generator.get_state()
+
+
+@contextlib.contextmanager
+def replay(position: Tuple[str, int, int]) -> Iterator[None]:
+    """Draw every key inside as the draws that followed ``position``
+    (:func:`stream_position`) did, then put back the scope and the global
+    generator as they were. Activation recompute re-runs a forward under
+    it, so the recomputed dropout masks are the forward's: JAX's keys are
+    values fixed at trace time, the port's come from these counters."""
+    prev_scope = getattr(_scope, "state", None)
+    prev_global = _default_generator.get_state()
+    kind, a, b = position
+    if kind == "scope":
+        _scope.state = [int(a), int(b)]
+    else:
+        _scope.state = None
+        _default_generator.set_state((a, b))
+    try:
+        yield
+    finally:
+        _scope.state = prev_scope
+        _default_generator.set_state(prev_global)
 
 
 def torch_generator(key: int, device=None) -> torch.Generator:

@@ -58,7 +58,10 @@ class SharedLayerDesc(LayerDesc):
 class PipelineLayer(nn.Module):
     """A sequence of LayerDescs partitioned into ``num_stages`` stages.
     ``seg_method``: ``"uniform"`` (by count) or ``"layer:<ClassName>"``
-    (split at occurrences of a class)."""
+    (split at occurrences of a class). ``recompute_interval`` is kept, as
+    the JAX layer keeps it: JAX's pipeline schedules recompute their stages
+    when it is above 0, and its one-stage step, the one the port runs, does
+    not read it."""
 
     def __init__(self, layers: Sequence[Union[LayerDesc, nn.Module,
                                               Callable]],
@@ -67,9 +70,6 @@ class PipelineLayer(nn.Module):
                  recompute_interval: int = 0,
                  num_virtual_pipeline_stages: int = 1):
         super().__init__()
-        if recompute_interval:
-            raise NotImplementedError(
-                "recompute in PipelineLayer is not ported yet")
         self._descs = list(layers)
         self._loss_fn = loss_fn
         self._num_stages = num_stages or 1

@@ -31,11 +31,27 @@ import torch
 import torch.nn.functional as TF
 from torch import nn
 
+from ..amp.auto_cast import maybe_cast_input
 from . import functional as F
 
-__all__ = ["Dropout", "MultiHeadAttention", "TransformerEncoderLayer",
+__all__ = ["Linear", "Dropout", "MultiHeadAttention", "TransformerEncoderLayer",
            "TransformerEncoder", "Conv2D", "BatchNorm2D", "MaxPool2D",
            "AdaptiveAvgPool2D", "ReLU", "Sequential"]
+
+
+class Linear(nn.Linear):
+    """``paddle.nn.Linear`` of the port: torch's ``nn.Linear`` (weight
+    ``[out, in]``, parameters ``weight`` and ``bias``, so state_dict keys
+    stay as they were), whose forward first asks AMP whether to cast, as the
+    JAX ``Linear`` (``nn/layers.py:66-70``) and ``Column/RowParallelLinear``
+    (``mp_layers.py:169, :205``) do: under ``auto_cast`` O1 a float32
+    input, weight and bias are cast to the AMP dtype
+    (``maybe_cast_input("linear", ...)``); otherwise it is torch's
+    ``Linear``."""
+
+    def forward(self, x):
+        x, w, b = maybe_cast_input("linear", x, self.weight, self.bias)
+        return TF.linear(x, w, b)
 
 
 class Dropout(nn.Module):
@@ -66,10 +82,10 @@ class MultiHeadAttention(nn.Module):
             raise ValueError(f"embed_dim {embed_dim} is not a multiple of "
                              f"num_heads {num_heads}")
         self.dropout = dropout
-        self.q_proj = nn.Linear(embed_dim, embed_dim, **factory)
-        self.k_proj = nn.Linear(kdim or embed_dim, embed_dim, **factory)
-        self.v_proj = nn.Linear(vdim or embed_dim, embed_dim, **factory)
-        self.out_proj = nn.Linear(embed_dim, embed_dim, **factory)
+        self.q_proj = Linear(embed_dim, embed_dim, **factory)
+        self.k_proj = Linear(kdim or embed_dim, embed_dim, **factory)
+        self.v_proj = Linear(vdim or embed_dim, embed_dim, **factory)
+        self.out_proj = Linear(embed_dim, embed_dim, **factory)
 
     _NO_CACHE = ("MultiHeadAttention decoder caches are not ported yet "
                  "(ROADMAP Queue 1)")
@@ -109,8 +125,8 @@ class TransformerEncoderLayer(nn.Module):
         self.self_attn = MultiHeadAttention(
             d_model, nhead,
             attn_dropout if attn_dropout is not None else dropout, **factory)
-        self.linear1 = nn.Linear(d_model, dim_feedforward, **factory)
-        self.linear2 = nn.Linear(dim_feedforward, d_model, **factory)
+        self.linear1 = Linear(d_model, dim_feedforward, **factory)
+        self.linear2 = Linear(dim_feedforward, d_model, **factory)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5, **factory)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5, **factory)
         self.dropout1 = Dropout(dropout)
@@ -202,7 +218,10 @@ class Conv2D(nn.Module):
             self.bias = None
 
     def forward(self, x):
-        return F.conv2d(x, self.weight, self.bias, stride=self.stride,
+        # AMP O1 casts a float32 input, weight and bias (JAX
+        # nn/layers.py:102-104)
+        x, w, b = maybe_cast_input("conv2d", x, self.weight, self.bias)
+        return F.conv2d(x, w, b, stride=self.stride,
                         padding=self.padding, dilation=self.dilation,
                         groups=self.groups, data_format=self.data_format)
 

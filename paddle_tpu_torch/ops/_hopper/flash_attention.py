@@ -20,7 +20,9 @@ dkv); nothing falls back from one body to the other.
   ``[B, S, H, D]`` layout (k/v may have fewer heads, ``HK`` dividing ``H``)
   and returns ``o [B, Sq, H, D]`` in the input dtype and ``lse [B, H, Sq]``
   in float32 — the JAX kernel's ``[B*H, 1, Sq]`` lse, unflattened. It is an
-  autograd function: its backward is :func:`flash_bwd`.
+  autograd function: its backward is :func:`flash_bwd`. Its forward is the
+  operator ``torch.ops.paddle_tpu_torch.flash_fwd`` (:func:`flash_fwd_op`),
+  which activation recompute's policies can save.
 - ``flash_bwd(q, k, v, o, lse, do, causal, scale, dlse=None) -> (dq, dk,
   dv)`` in the same layout, dk/dv at ``HK`` heads. ``delta = rowsum(do*o)``
   (minus ``dlse`` when given) is a torch op here, as ``_bwd`` computes it in
@@ -71,6 +73,7 @@ from ...core import random as rng
 __all__ = ["flash_fwd", "flash_fwd_tc", "flash_fwd_reference", "flash_bwd",
            "flash_bwd_reference", "flash_bwd_dq", "flash_bwd_dkv",
            "flash_bwd_dq_tc", "flash_bwd_dkv_tc", "TC_BWD_HEAD_DIMS",
+           "flash_fwd_op",
            "mma_dot",
            "kernel_arg_error", "NEG_INF", "SUPPORTED_HEAD_DIMS",
            "AttnDropout", "keep_threshold", "keep_scale",
@@ -760,15 +763,35 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 seg_q: Optional[torch.Tensor], seg_k: Optional[torch.Tensor],
+                 bias: Optional[torch.Tensor], causal: bool, scale: float,
+                 rate: float, seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's forward as one operator, ``torch.ops.paddle_tpu_torch.
+    flash_fwd``: the kernel on CUDA tensors, the plain version on CPU
+    tensors; dropout as ``(rate, seed)``, off at rate 0. The ctypes launch
+    is invisible to the dispatcher; as an operator it is seen, so an
+    activation-recompute policy can keep ``(o, lse)`` from the forward
+    instead of launching K1 again in the backward (the JAX kernel names
+    them ``flash_out`` and ``flash_lse`` for its policies). Not
+    differentiable itself: :func:`flash_fwd` wraps it."""
+    dropout = AttnDropout(rate, seed) if rate > 0.0 else None
+    masks = (seg_q, seg_k, bias)
+    if q.device.type == "cpu":
+        return flash_fwd_reference(q, k, v, causal, scale, dropout,
+                                   masks=masks)
+    return _launch(q, k, v, causal, scale, dropout, masks)
+
+
 class _FlashFwd(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, seg_q, seg_k, bias, causal, scale, dropout):
         masks = (seg_q, seg_k, bias)
-        if q.device.type == "cpu":
-            o, lse = flash_fwd_reference(q, k, v, causal, scale, dropout,
-                                         masks=masks)
-        else:
-            o, lse = _launch(q, k, v, causal, scale, dropout, masks)
+        rate, seed = (0.0, 0) if dropout is None else dropout
+        o, lse = torch.ops.paddle_tpu_torch.flash_fwd(
+            q, k, v, seg_q, seg_k, bias, causal, scale, float(rate),
+            int(seed))
         ctx.save_for_backward(q, k, v, o, lse, *(
             torch.empty(0) if t is None else t for t in masks))
         ctx.has_mask = tuple(t is not None for t in masks)

@@ -28,7 +28,8 @@ from torch import nn
 
 from ...core.device import resolve_device
 from ...nn.functional import cross_entropy
-from ...nn.layers import Dropout, TransformerEncoder, TransformerEncoderLayer
+from ...nn.layers import (Dropout, Linear, TransformerEncoder,
+                          TransformerEncoderLayer)
 
 __all__ = ["BertConfig", "Bert", "BertForPretraining", "bert_base",
            "bert_tiny"]
@@ -112,7 +113,7 @@ class Bert(nn.Module):
                 dropout=cfg.hidden_dropout, activation="gelu",
                 attn_dropout=cfg.attention_dropout, **factory),
             cfg.num_layers)
-        self.pooler = nn.Linear(cfg.hidden_size, cfg.hidden_size, **factory)
+        self.pooler = Linear(cfg.hidden_size, cfg.hidden_size, **factory)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
                 packed_segment_ids=None):
@@ -149,13 +150,13 @@ class BertForPretraining(nn.Module):
         factory = dict(device=resolve_device(device), dtype=dtype)
         self.bert = Bert(cfg, **factory)
         h = cfg.hidden_size
-        self.mlm_transform = nn.Linear(h, h, **factory)
+        self.mlm_transform = Linear(h, h, **factory)
         self.mlm_norm = nn.LayerNorm(h, eps=cfg.layer_norm_epsilon,
                                      **factory)
         # a trainable parameter in the JAX model too: in its state_dict
         # and get_params, with a gradient that AdamW applies
         self.mlm_bias = nn.Parameter(torch.zeros(cfg.vocab_size, **factory))
-        self.nsp_head = nn.Linear(h, 2, **factory)
+        self.nsp_head = Linear(h, 2, **factory)
         self.reset_parameters(seed)
 
     @property

@@ -34,7 +34,8 @@ from torch import nn
 
 from ...core.device import resolve_device
 from ...nn.functional import cross_entropy
-from ...nn.layers import Dropout, TransformerEncoder, TransformerEncoderLayer
+from ...nn.layers import (Dropout, Linear, TransformerEncoder,
+                          TransformerEncoderLayer)
 from .bert import init_weights
 
 __all__ = ["ErnieConfig", "Ernie", "ErnieEmbeddings", "ErnieForPretraining",
@@ -118,7 +119,7 @@ class Ernie(nn.Module):
         self.embeddings = ErnieEmbeddings(cfg, **factory)
         self.encoder = TransformerEncoder(
             lambda: _encoder_layer(cfg, **factory), cfg.num_layers)
-        self.pooler = nn.Linear(cfg.hidden_size, cfg.hidden_size, **factory)
+        self.pooler = Linear(cfg.hidden_size, cfg.hidden_size, **factory)
 
     def forward(self, input_ids, token_type_ids=None, task_type_ids=None,
                 attention_mask=None):
@@ -149,12 +150,12 @@ class ErnieForPretraining(nn.Module):
         factory = dict(device=resolve_device(device), dtype=dtype)
         self.ernie = Ernie(cfg, **factory)
         h = cfg.hidden_size
-        self.mlm_transform = nn.Linear(h, h, **factory)
+        self.mlm_transform = Linear(h, h, **factory)
         self.mlm_norm = nn.LayerNorm(h, eps=cfg.layer_norm_epsilon,
                                      **factory)
         # a trainable parameter in the JAX model too
         self.mlm_bias = nn.Parameter(torch.zeros(cfg.vocab_size, **factory))
-        self.sop_head = nn.Linear(h, 2, **factory)
+        self.sop_head = Linear(h, 2, **factory)
         init_weights(self, cfg.initializer_range, seed)
 
     @property
@@ -214,9 +215,9 @@ class _ErniePipeHead(nn.Module):
     def __init__(self, cfg: ErnieConfig, seed: int = 0, **factory):
         super().__init__()
         h = cfg.hidden_size
-        self.transform = nn.Linear(h, h, **factory)
+        self.transform = Linear(h, h, **factory)
         self.norm = nn.LayerNorm(h, eps=cfg.layer_norm_epsilon, **factory)
-        self.proj = nn.Linear(h, cfg.vocab_size, **factory)
+        self.proj = Linear(h, cfg.vocab_size, **factory)
         init_weights(self, cfg.initializer_range, seed)
 
     def forward(self, x):

@@ -6,11 +6,20 @@ for one (``gpt.h.0.attn.qkv_proj.weight``, …). Weights are in PyTorch's
 ``[out, in]`` layout; :mod:`paddle_tpu_torch.convert` transposes the JAX
 ``[in, out]`` matrices. Attention in ``forward`` goes through
 :func:`~paddle_tpu_torch.ops.flash_attention` (K1 forward, K2/K3 backward
-on the GPU, attention-prob dropout in the kernels); ``decode``/``generate``
-use a dense KV cache and plain attention. ``forward(ids, labels)`` returns
-the training loss. Hidden dropout sits where the JAX model has it (after
-the embeddings, the attention output and the MLP). Activation recompute and
-sampling in ``generate`` are not ported yet.
+on the GPU, attention-prob dropout in the kernels), or with
+``use_flash_attention=False`` through
+:func:`~paddle_tpu_torch.nn.functional.scaled_dot_product_attention` over
+repeated KV heads, as the JAX model does; ``decode``/``generate`` use a
+dense KV cache and plain attention. ``forward(ids, labels)`` returns the
+training loss. Hidden dropout sits where the JAX model has it (after the
+embeddings, the attention output and the MLP). With ``recompute`` each
+block trains under activation recompute with ``recompute_policy``
+(:mod:`paddle_tpu_torch.distributed.fleet.utils.recompute`). The
+projections are the port's :class:`~paddle_tpu_torch.nn.Linear`, which
+AMP O1 (``amp.auto_cast``) casts; the tied logits product is not cast, as
+in JAX. ``sequence_parallel`` and ``context_parallel`` act only under a
+mesh in JAX; the port runs on one device without one and computes what
+JAX computes there. Sampling in ``generate`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -24,8 +33,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...core.device import resolve_device
+from ...distributed.fleet.utils.recompute import recompute
+from ...nn import functional as PF
 from ...nn.functional import cross_entropy
-from ...nn.layers import Dropout
+from ...nn.layers import Dropout, Linear
 from ...ops import flash_attention
 
 __all__ = ["GPTConfig", "GPT", "GPTForCausalLM", "gpt3_1p3b", "gpt_tiny"]
@@ -42,14 +53,21 @@ class GPTConfig:
     num_kv_heads: Optional[int] = None
     max_position_embeddings: int = 2048
     intermediate_size: Optional[int] = None  # default 4*hidden
-    # training options of the JAX model, at its defaults; recompute raises
-    # in training mode until it is ported
     hidden_dropout: float = 0.0
     attention_dropout: float = 0.0
     layer_norm_epsilon: float = 1e-5
     initializer_range: float = 0.02
+    use_flash_attention: bool = True
     tie_word_embeddings: bool = True
+    # acts under a mesh only (JAX's sequence_parallel_constraint); the
+    # port has none, as JAX on one device has none
+    sequence_parallel: bool = False
     recompute: bool = False
+    # the recompute policy's name (RecomputePolicy) when recompute is on
+    recompute_policy: Optional[str] = "dots_and_flash_saveable"
+    # None | 'ring' | 'ulysses' over the 'sep' mesh axis: inactive without
+    # a mesh, as JAX's _cp_active() is
+    context_parallel: Optional[str] = None
 
     @property
     def ffn_size(self) -> int:
@@ -76,15 +94,6 @@ def gpt_tiny(**overrides) -> GPTConfig:
 KVCache = Tuple[torch.Tensor, torch.Tensor]
 
 
-def _check_training_options(cfg: GPTConfig) -> None:
-    """Activation recompute is not ported: a config asking for it raises
-    in training mode rather than training without it."""
-    if cfg.recompute:
-        raise NotImplementedError(
-            "GPT training with recompute=True is not ported yet "
-            "(ROADMAP.md, Queue 1: what the training slice left out)")
-
-
 class GPTAttention(nn.Module):
     def __init__(self, cfg: GPTConfig, **factory):
         super().__init__()
@@ -98,12 +107,12 @@ class GPTAttention(nn.Module):
                 f"num_kv_heads ({self.kv_heads})")
         h = cfg.hidden_size
         if self.kv_heads == self.num_heads:
-            self.qkv_proj = nn.Linear(h, 3 * h, **factory)
+            self.qkv_proj = Linear(h, 3 * h, **factory)
         else:
-            self.q_proj = nn.Linear(h, h, **factory)
-            self.kv_proj = nn.Linear(h, 2 * self.kv_heads * self.head_dim,
-                                     **factory)
-        self.out_proj = nn.Linear(h, h, **factory)
+            self.q_proj = Linear(h, h, **factory)
+            self.kv_proj = Linear(h, 2 * self.kv_heads * self.head_dim,
+                                  **factory)
+        self.out_proj = Linear(h, h, **factory)
         self.dropout = Dropout(cfg.hidden_dropout)
 
     def _project_qkv(self, x):
@@ -128,10 +137,17 @@ class GPTAttention(nn.Module):
     def forward(self, x):
         b, s, h = x.shape
         q, k, v = self._project_qkv(x)
-        # flash handles grouped KV natively and attention-prob dropout in
-        # the kernel (JAX gpt.py:184-187)
-        out = flash_attention(q, k, v, dropout=self.cfg.attention_dropout,
-                              causal=True, training=self.training)
+        if self.cfg.use_flash_attention:
+            # flash handles grouped KV natively and attention-prob dropout
+            # in the kernel (JAX gpt.py:184-187)
+            out = flash_attention(q, k, v,
+                                  dropout=self.cfg.attention_dropout,
+                                  causal=True, training=self.training)
+        else:
+            out = PF.scaled_dot_product_attention(
+                q, *self._repeat_kv(k, v), is_causal=True,
+                dropout_p=self.cfg.attention_dropout,
+                training=self.training)
         return self.dropout(self.out_proj(out.reshape(b, s, h)))
 
     def decode(self, x, cache: KVCache, offset: int):
@@ -162,8 +178,8 @@ class GPTAttention(nn.Module):
 class GPTMLP(nn.Module):
     def __init__(self, cfg: GPTConfig, **factory):
         super().__init__()
-        self.up = nn.Linear(cfg.hidden_size, cfg.ffn_size, **factory)
-        self.down = nn.Linear(cfg.ffn_size, cfg.hidden_size, **factory)
+        self.up = Linear(cfg.hidden_size, cfg.ffn_size, **factory)
+        self.down = Linear(cfg.ffn_size, cfg.hidden_size, **factory)
         self.dropout = Dropout(cfg.hidden_dropout)
 
     def forward(self, x):
@@ -176,15 +192,24 @@ class GPTBlock(nn.Module):
 
     def __init__(self, cfg: GPTConfig, **factory):
         super().__init__()
+        self.cfg = cfg
         eps = cfg.layer_norm_epsilon
         self.ln_1 = nn.LayerNorm(cfg.hidden_size, eps=eps, **factory)
         self.attn = GPTAttention(cfg, **factory)
         self.ln_2 = nn.LayerNorm(cfg.hidden_size, eps=eps, **factory)
         self.mlp = GPTMLP(cfg, **factory)
 
-    def forward(self, x):
+    def _inner(self, x):
         x = x + self.attn(self.ln_1(x))
         return x + self.mlp(self.ln_2(x))
+
+    def forward(self, x):
+        if self.cfg.recompute and self.training:
+            # JAX gpt.py:264-278: the block under jax.checkpoint with the
+            # config's policy
+            return recompute(self._inner, x,
+                             policy=self.cfg.recompute_policy)
+        return self._inner(x)
 
     def decode(self, x, cache: KVCache, offset: int):
         attn_out, cache = self.attn.decode(self.ln_1(x), cache, offset)
@@ -206,8 +231,6 @@ class GPT(nn.Module):
                                  **factory)
 
     def forward(self, input_ids):
-        if self.training:
-            _check_training_options(self.cfg)
         s = input_ids.shape[1]
         pos = torch.arange(s, device=input_ids.device)[None, :]
         x = self.drop(self.wte(input_ids) + self.wpe(pos))
@@ -255,8 +278,8 @@ class GPTForCausalLM(nn.Module):
         factory = dict(device=resolve_device(device), dtype=dtype)
         self.gpt = GPT(cfg, **factory)
         if not cfg.tie_word_embeddings:
-            self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size,
-                                     bias=False, **factory)
+            self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size,
+                                  bias=False, **factory)
         self.reset_parameters(seed)
 
     @property

@@ -28,8 +28,8 @@ from torch import nn
 from ...core.device import resolve_device
 from ...nn import fused_conv_bn as FCB
 from ...nn import functional as F
-from ...nn.layers import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, MaxPool2D,
-                          ReLU, Sequential, _BatchNormBase)
+from ...nn.layers import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Linear,
+                          MaxPool2D, ReLU, Sequential, _BatchNormBase)
 
 __all__ = ["BasicBlock", "BottleneckBlock", "ResNet", "resnet18", "resnet34",
            "resnet50", "resnet101", "resnet152"]
@@ -258,7 +258,7 @@ class ResNet(nn.Module):
         if with_pool:
             self.avgpool = AdaptiveAvgPool2D((1, 1), data_format=df)
         if num_classes > 0:
-            self.fc = nn.Linear(512 * block.expansion, num_classes, **fac)
+            self.fc = Linear(512 * block.expansion, num_classes, **fac)
         self.reset_parameters(seed)
 
     def _make_layer(self, block, planes, blocks, stride=1):

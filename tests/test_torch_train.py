@@ -129,9 +129,10 @@ def test_gpt_grads_match_jax(variant):
 
 
 def test_gpt_training_options_not_ported_raise_in_training_mode():
-    """Recompute is the one training option still not ported: it raises.
-    Hidden and attention dropout train (the loss moves off the eval
-    loss); eval mode needs neither."""
+    """Every training option of the JAX config now trains: hidden and
+    attention dropout (the loss moves off the eval loss; eval mode needs
+    neither), and recompute, whose loss and gradients are those of the
+    same model without it (no dropout here: exactly equal)."""
     ids = torch.arange(8, dtype=torch.long)[None].repeat(2, 1)
     for over in ({"hidden_dropout": 0.1}, {"attention_dropout": 0.1}):
         tm = GPTForCausalLM(gpt_tiny(num_layers=1, **over), device="cpu")
@@ -139,9 +140,15 @@ def test_gpt_training_options_not_ported_raise_in_training_mode():
         assert torch.isfinite(loss)
         tm.eval()
         assert float(tm(ids, ids)) != float(loss), over
-    tm = GPTForCausalLM(gpt_tiny(num_layers=1, recompute=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="recompute.*ROADMAP"):
-        tm(ids, ids)
+    runs = []
+    for recompute in (True, False):
+        tm = GPTForCausalLM(gpt_tiny(num_layers=1, recompute=recompute),
+                            device="cpu")
+        loss = tm(ids, ids)
+        loss.backward()
+        runs.append((loss.detach(), [p.grad for p in tm.parameters()]))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
     tm.eval()
     assert torch.isfinite(tm(ids, ids))
 
@@ -165,6 +172,23 @@ def _opts(name, multi_precision, clip):
                                      weight_decay=0.01, **k))
         elif name == "adam":
             made.append(mod.Adam(1e-2, weight_decay=0.01, **k))
+        elif name == "adagrad":
+            made.append(mod.Adagrad(0.05, weight_decay=0.01,
+                                    initial_accumulator_value=0.1, **k))
+        elif name == "rmsprop":
+            made.append(mod.RMSProp(0.01, momentum=0.9, centered=True,
+                                    weight_decay=0.01, **k))
+        elif name == "lamb":
+            made.append(mod.Lamb(1e-2, lamb_weight_decay=0.01,
+                                 exclude_from_weight_decay_fn=lambda n:
+                                 n == "ln.bias", **k))
+        elif name == "lars":
+            made.append(mod.Lars(0.1, momentum=0.9, lars_coeff=0.01,
+                                 exclude_from_weight_decay=("bias",), **k))
+        elif name == "adamax":
+            made.append(mod.Adamax(1e-2, weight_decay=0.01, **k))
+        elif name == "adadelta":
+            made.append(mod.Adadelta(1.0, weight_decay=0.01, **k))
         else:
             made.append(mod.AdamW(
                 1e-2, weight_decay=0.1,
@@ -176,13 +200,14 @@ SHAPES = {"dense.weight": (8, 6), "dense.bias": (6,), "ln.weight": (6,),
           "ln.bias": (6,)}
 
 
-def _assert_state_close(port_state, jax_state, rtol):
+def _assert_state_close(port_state, jax_state, rtol, skip=()):
     conv = from_jax_optimizer_state(
         jax.tree_util.tree_map(np.asarray, jax_state))
     assert int(port_state["step"]) == int(conv["step"])
     assert set(port_state["param_states"]) == set(conv["param_states"])
     for name, st in conv["param_states"].items():
-        assert set(port_state["param_states"][name]) == set(st), name
+        assert set(port_state["param_states"][name]) - set(skip) == set(st), \
+            name
         for key, want in st.items():
             got = port_state["param_states"][name][key]
             assert got.dtype == torch.float32
@@ -193,41 +218,68 @@ def _assert_state_close(port_state, jax_state, rtol):
 @pytest.mark.parametrize("clip", [False, True])
 @pytest.mark.parametrize("dtype,multi_precision",
                          [("f32", False), ("bf16", True), ("bf16", False)])
-@pytest.mark.parametrize("name", ["sgd", "momentum", "adam", "adamw"])
+@pytest.mark.parametrize("name", ["sgd", "momentum", "adam", "adamw",
+                                  "adagrad", "rmsprop", "lamb", "lars",
+                                  "adamax", "adadelta"])
 def test_optimizer_matches_jax_apply_gradients(name, dtype, multi_precision,
                                                clip):
     """Four steps on numpy-made gradients, state leaf by leaf. f32
     elementwise math on both sides; XLA and torch may round a power or a
     fused multiply-add 1 ulp apart, so rtol 1e-5 on the float32 state.
     bf16 parameters are the float32 result rounded, where 1 ulp of f32
-    can flip a bf16 rounding: rtol 1e-2 (bf16 has 8 bits)."""
+    can flip a bf16 rounding: rtol 1e-2 (bf16 has 8 bits).
+
+    JAX's Adamax and Adadelta return a state without the float32 master
+    after their first update, so a bf16 parameter with masters goes on from
+    its bf16 value there; the port keeps the master, as its other
+    optimizers do. Those two cases hold the port's masters against JAX on
+    float32 parameters that start from the bf16 values and take the bf16
+    gradients (what the masters see: with the clip, the bf16 gradients
+    clipped by JAX's clip in bf16), at the same tolerances."""
     jax_opt, port_opt = _opts(name, multi_precision, clip)
     rng = np.random.default_rng(3)
     init = {n: rng.standard_normal(s).astype(np.float32)
             for n, s in SHAPES.items()}
     jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
     tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    with_master = dtype == "bf16" and multi_precision
+    on_masters = with_master and name in ("adamax", "adadelta")
+    jax_clip = None
+    if on_masters:
+        jdt = jnp.float32
+        init = {n: torch.from_numpy(a).to(tdt).float().numpy()
+                for n, a in init.items()}
+        jax_clip, jax_opt.grad_clip = jax_opt.grad_clip, None
     jparams = {n: jnp.asarray(a, jdt) for n, a in init.items()}
     tparams = {n: torch.from_numpy(a).to(tdt) for n, a in init.items()}
     jstate = jax_opt.init(jparams)
     tstate = port_opt.init(tparams)
     assert ("master" in tstate["param_states"]["dense.weight"]) == \
-        (dtype == "bf16" and multi_precision)
+        with_master
     for step in range(4):
         grads = {n: rng.standard_normal(s).astype(np.float32) * 2
                  for n, s in SHAPES.items()}
-        jparams, jstate = jax_opt.apply_gradients(
-            jparams, {n: jnp.asarray(g, jdt) for n, g in grads.items()},
-            jstate)
-        out, tstate = port_opt.apply_gradients(
-            tparams, {n: torch.from_numpy(g).to(tdt)
-                      for n, g in grads.items()}, tstate)
+        tgrads = {n: torch.from_numpy(g).to(tdt) for n, g in grads.items()}
+        jgrads = {n: jnp.asarray(g.float().numpy(), jdt)
+                  for n, g in tgrads.items()}
+        if jax_clip is not None:
+            jgrads = {n: g.astype(jnp.float32) for n, g in jax_clip(
+                {n: g.astype(jnp.bfloat16) for n, g in jgrads.items()}
+            ).items()}
+        jparams, jstate = jax_opt.apply_gradients(jparams, jgrads, jstate)
+        out, tstate = port_opt.apply_gradients(tparams, tgrads, tstate)
         assert out is tparams
-        _assert_state_close(tstate, jstate, rtol=1e-5)
+        _assert_state_close(tstate, jstate, rtol=1e-5,
+                            skip=("master",) if on_masters else ())
         for n, p in tparams.items():
             assert p.dtype == tdt
+            want = np.asarray(jparams[n].astype(jnp.float32))
+            if on_masters:
+                np.testing.assert_allclose(
+                    tstate["param_states"][n]["master"].numpy(), want,
+                    rtol=1e-5, atol=1e-7, err_msg=f"step {step} {n}")
             np.testing.assert_allclose(
-                p.float().numpy(), np.asarray(jparams[n].astype(jnp.float32)),
+                p.float().numpy(), want,
                 rtol=1e-2 if dtype == "bf16" else 1e-5, atol=1e-6,
                 err_msg=f"step {step} {n}")
 
@@ -341,10 +393,16 @@ def test_amp_decorate_o2_casts_and_sets_master_weights():
     out_m, out_o = amp.decorate(tm, opt, level="O2", master_weight=True)
     assert out_m is tm and out_o is opt and opt.multi_precision
     assert {p.dtype for p in tm.parameters()} == {torch.bfloat16}
+    # O1 casts no parameter (auto_cast casts per call) and trains
     o1 = GPTForCausalLM(gpt_tiny(num_layers=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="auto_cast"):
-        amp.decorate([o1], level="O1")
+    assert amp.decorate([o1], level="O1") == [o1]
     assert {p.dtype for p in o1.parameters()} == {torch.float32}
+    ids = torch.arange(8, dtype=torch.long)[None].repeat(2, 1)
+    with amp.auto_cast(level="O1"):
+        loss = o1(ids, ids)
+    loss.backward()
+    assert torch.isfinite(loss)
+    assert all(p.grad.dtype == torch.float32 for p in o1.parameters())
 
 
 # -- the train step ------------------------------------------------------------
