@@ -142,7 +142,25 @@ context:
            keys, B=16, bf16: the tensor-core bodies of the streamed forward,
            dq and dk/dv-direct (K3's body), once each, held against the
            plain dense path; then the same in float32 (cross_attention_f32:
-           the three float32 bodies of flash_packed_stream.cu).
+           the three float32 bodies of flash_packed_stream.cu);
+19. hapi_lenet  BASELINE config 1: LeNet(10) f32 under Model.fit (Adam,
+           CrossEntropyLoss, Accuracy) on the synthetic MNIST at MNIST's
+           sizes, B=64, one epoch (938 steps), with no workers, two thread
+           workers, and two shared-memory process workers with device
+           prefetch; the first 20 losses against the CPU, the three runs'
+           batches equal, evaluate, save and load, predict; step p50/p99,
+           images/s and, over a profiled 200-step window, the device's busy
+           share (cuDNN's convolutions: no TPU kernel on this path);
+20. lbfgs  LBFGS on the card against the CPU, 20 steps of a quadratic and
+           of LeNet's fc head;
+21. flash_varlen_lse  ops.flash_attn_unpadded on a causal packing of
+           documents of 64-2048 tokens (8192 in all) and a non-causal cross
+           packing, and flash_attention_with_lse with two key halves merged
+           by logaddexp and a loss on o and lse, at GPT-3 1.3B's attention
+           width (16 heads of 128, bf16): K1's tensor-core body, K2's and
+           K3's once a call, the outputs equal to direct K1-K3 calls and
+           held against the plain versions, timed beside the documents
+           padded to rows of 2048.
 
 Attention-prob dropout and K9 (after phase 7, in this order):
 - kernel / kernel_packed / kernel_packed_stream, part "dropout": the nine
@@ -217,6 +235,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -4927,6 +4946,551 @@ def phase_cross_attention(torch, np, hfa, hfp, MultiHeadAttention,
     return launches
 
 
+# -- hapi_lenet: BASELINE config 1 under Model.fit --------------------------
+
+#: the first losses held against the CPU, and their tolerance: float32 on
+#: both sides (TF32 off), cuDNN's and the CPU's convolutions summing in their
+#: own orders, carried through 20 Adam steps
+LENET_CPU_STEPS, LENET_CPU_RTOL = 20, 1e-4
+#: evaluate's accuracy after one epoch must reach this: the CPU run of the
+#: same epoch (seed 0, 60,000 synthetic images) reaches 1.0
+LENET_MIN_ACC = 0.99
+
+
+def lenet_run(torch, np, P, LeNet, init, device, train, loader=None,
+              num_iters=None, num_workers=0):
+    """One epoch (or ``num_iters`` steps) of ``Model.fit`` from ``init``
+    with ``np.random`` at seed 0: LeNet(10), Adam(1e-3), CrossEntropyLoss,
+    Accuracy, B=64. Returns the model, the recorder (losses, step times,
+    each batch's labels and image sums as the network saw them) and the
+    fit's wall seconds."""
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class Recorder(Callback):
+        def __init__(self):
+            self.losses, self.step_ms, self.labels, self.sums = [], [], [], []
+
+        def on_train_batch_begin(self, step, logs=None):
+            self.t0 = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            self.step_ms.append((time.perf_counter() - self.t0) * 1e3)
+            self.losses.append(float(logs["loss"]))
+
+    rec = Recorder()
+    net = LeNet(10, device=device, seed=1)
+    net.load_state_dict(init)
+
+    def keep_batch(module, args):   # a reference only: no work in the step
+        if rec.fitting and module.training:
+            rec.sums.append(args[0])
+
+    net.register_forward_pre_hook(keep_batch)
+    ce = P.nn.CrossEntropyLoss()
+
+    def loss(out, label):
+        if rec.fitting:
+            rec.labels.append(label)
+        return ce(out, label)
+
+    model = P.Model(net)
+    model.prepare(P.optimizer.Adam(1e-3), loss,
+                  metrics=[P.metric.Accuracy()])
+    P.seed(0)
+    rec.fitting = True
+    t0 = time.perf_counter()
+    model.fit(loader if loader is not None else train, batch_size=64,
+              epochs=1, verbose=0, num_workers=num_workers,
+              num_iters=num_iters, callbacks=[rec])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rec.fitting = False
+    rec.labels = torch.cat([t.cpu() for t in rec.labels]).numpy()
+    rec.sums = torch.stack([x.double().sum() for x in rec.sums]).cpu().numpy()
+    return model, rec, wall
+
+
+def phase_hapi_lenet(torch, np, P, hfa, hfp):
+    """BASELINE config 1 on the card: LeNet(10) in float32 under
+    ``Model.fit`` with Adam(1e-3), CrossEntropyLoss and Accuracy on the
+    synthetic MNIST at MNIST's sizes (60,000 training and 10,000 test
+    images), B=64, one epoch (938 steps), three times from the same weights
+    and ``np.random`` seed: no workers; two thread workers; two
+    shared-memory process workers with device prefetch (a DataLoader built
+    here, since ``fit``'s own takes neither option). Holds the first 20
+    losses against the CPU path, the three runs' batches against each
+    other (each batch's labels and image sum as the network saw them), the
+    loss falling, evaluate's accuracy, a save and load into a fresh Model
+    (the same evaluate) and predict's shape; then a profiled window of 200
+    steps for the device's busy share. No TPU kernel is on this path (the
+    convolutions are cuDNN's); the attention kernels' counts stay 0."""
+    from paddle_tpu_torch.vision.datasets import MNIST
+    from paddle_tpu_torch.vision.models import LeNet
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    train = MNIST(mode="train", synthetic_size=60000)
+    test = MNIST(mode="test", synthetic_size=10000)
+    data_s = time.perf_counter() - t0
+    init = {k: v.detach().cpu().clone() for k, v in
+            LeNet(10, device="cuda", seed=0).state_dict().items()}
+
+    _, cpu, _ = lenet_run(torch, np, P, LeNet, init, "cpu", train,
+                          num_iters=LENET_CPU_STEPS)
+    zero_counts(hfa, hfp)
+    runs, rows = {}, []
+    for mode in ("sync", "threads", "shm_prefetch"):
+        loader = None
+        if mode == "shm_prefetch":
+            loader = P.io.DataLoader(train, batch_size=64, shuffle=True,
+                                     num_workers=2, use_shared_memory=True,
+                                     prefetch_to_device=True, places="cuda")
+        model, rec, wall = lenet_run(
+            torch, np, P, LeNet, init, "cuda", train, loader=loader,
+            num_workers=2 if mode == "threads" else 0)
+        steps = len(rec.losses)
+        check(steps == 938, f"hapi_lenet {mode}: {steps} steps")
+        check(all(math.isfinite(x) for x in rec.losses),
+              f"hapi_lenet {mode}: a loss is not finite")
+        first = np.mean(rec.losses[:20])
+        last = np.mean(rec.losses[-50:])
+        check(last < 0.25 * first, f"hapi_lenet {mode}: the loss fell from "
+              f"{first} to {last} only")
+        step_sum = sum(rec.step_ms)
+        row = {"mode": mode, "steps": steps, "fit_s": wall,
+               "images_per_s": 60000 / wall,
+               "step_p50_ms": percentile(rec.step_ms, 50),
+               "step_p99_ms": percentile(rec.step_ms, 99),
+               "step_sum_s": step_sum / 1e3,
+               "outside_steps_s": wall - step_sum / 1e3,
+               "loss_first20_mean": float(first),
+               "loss_last50_mean": float(last)}
+        runs[mode] = (model, rec)
+        rows.append(row)
+    sync = runs["sync"][1]
+    for mode in ("threads", "shm_prefetch"):
+        rec = runs[mode][1]
+        check(np.array_equal(rec.labels, sync.labels) and
+              np.array_equal(rec.sums, sync.sums),
+              f"hapi_lenet: the {mode} run's batches differ from the sync "
+              f"run's")
+    cpu_err = float(np.max(np.abs(np.asarray(sync.losses[:LENET_CPU_STEPS])
+                                  / np.asarray(cpu.losses) - 1)))
+    check(cpu_err <= LENET_CPU_RTOL, f"hapi_lenet: the first "
+          f"{LENET_CPU_STEPS} losses differ from the CPU's by {cpu_err}")
+
+    attention = k4_counts(hfa, hfp)
+    check(not any(attention.values()),
+          f"hapi_lenet launched attention kernels: {attention}")
+
+    model = runs["sync"][0]
+    logs = model.evaluate(test, batch_size=64, verbose=0)
+    check(logs["acc"] >= LENET_MIN_ACC, f"hapi_lenet: evaluate {logs}")
+    fresh = P.Model(LeNet(10, device="cuda", seed=7))
+    fresh.prepare(P.optimizer.Adam(1e-3), P.nn.CrossEntropyLoss(),
+                  metrics=[P.metric.Accuracy()])
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save(os.path.join(tmp, "lenet"))
+        fresh.load(os.path.join(tmp, "lenet"))
+    reloaded = fresh.evaluate(test, batch_size=64, verbose=0)
+    check(reloaded["acc"] == logs["acc"] and
+          abs(reloaded["loss"] - logs["loss"]) <= 1e-6 * abs(logs["loss"]),
+          f"hapi_lenet: evaluate after load {reloaded} against {logs}")
+    pred = model.predict(P.io.TensorDataset([test.images[:, None]]),
+                         batch_size=64, stack_outputs=True)
+    check(pred.shape == (10000, 10) and bool(np.isfinite(pred).all()),
+          f"hapi_lenet: predict gave {pred.shape}")
+
+    # the device's share of a 200-step window of the no-worker mode
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, rec, _ = lenet_run(torch, np, P, LeNet, init, "cuda", train,
+                              num_iters=200)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof_row = device_profile(prof, wall_ms)
+    prof_row["step_p50_ms_profiled"] = percentile(rec.step_ms, 50)
+    check(prof_row["device_events"] > 0, "hapi_lenet: the profiled window "
+          "shows no device work")
+    emit({"phase": "hapi_lenet", "config": "BASELINE config 1: LeNet(10) "
+          "f32, Adam(1e-3), CrossEntropyLoss, Accuracy, synthetic MNIST "
+          "60,000 + 10,000, B=64, one epoch", "data_s": data_s,
+          "runs": rows, "cpu_steps": LENET_CPU_STEPS,
+          "cpu_max_rel_err": cpu_err, "cpu_rtol": LENET_CPU_RTOL,
+          "evaluate": logs, "evaluate_after_load": reloaded,
+          "min_acc": LENET_MIN_ACC, "predict_shape": list(pred.shape),
+          "profile_200_steps": prof_row})
+
+
+# -- lbfgs: LBFGS on the card against the CPU --------------------------------
+
+def lbfgs_steps(torch, LBFGS, params, loss_fn, steps, lr, history):
+    """``steps`` LBFGS updates of ``params`` (a dict of leaf tensors) on
+    ``loss_fn(params)``; the losses and the final state."""
+    opt = LBFGS(learning_rate=lr, history_size=history)
+    state = opt.init(params)
+    losses = []
+    for _ in range(steps):
+        loss = loss_fn(params)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        losses.append(float(loss.detach()))
+        with torch.no_grad():
+            opt.apply_gradients(params, dict(zip(params, grads)), state)
+    return losses, state
+
+
+def phase_lbfgs(torch, np, P):
+    """LBFGS (history 10) on the card against the CPU from the same values,
+    20 steps each: a least-squares quadratic over two parameters (a 32 x 32
+    weight and a 32-bias through a fixed, well-conditioned 1056 x 1056 map,
+    lr 1) and the fc head of LeNet(10) on fixed features of 512 synthetic
+    MNIST images (cross-entropy, lr 0.5). Float32 on both sides: each loss
+    within 1e-3 of itself plus 1e-6 of the first (the head's last losses
+    are near 1e-3, where a few ulps of the CPU's and cuBLAS's sums are 1e-5
+    of them; the quadratic's fall to 1e-10 of the first, where only the
+    second term holds), the parameters within 1e-4 of their norm, the
+    history counts equal, the loss down tenfold."""
+    from paddle_tpu_torch.nn.functional import cross_entropy
+    from paddle_tpu_torch.optimizer import LBFGS
+    from paddle_tpu_torch.vision.datasets import MNIST
+    from paddle_tpu_torch.vision.models import LeNet
+    g = np.random.default_rng(0)
+    n = 32 * 32 + 32
+    a = (np.eye(n) + 0.25 * g.standard_normal((n, n)) / math.sqrt(n)
+         ).astype(np.float32)
+    y = g.standard_normal(n).astype(np.float32)
+    p0 = {"w": g.standard_normal((32, 32)).astype(np.float32),
+          "b": g.standard_normal(32).astype(np.float32)}
+    net = LeNet(10, device="cpu", seed=0)
+    ds = MNIST(mode="train", synthetic_size=512)
+    with torch.no_grad():
+        feats = net.features(torch.from_numpy(ds.images[:, None])).reshape(
+            512, -1)
+    labels = torch.from_numpy(ds.labels)
+    head = {k: p.detach().clone() for k, p in net.fc.named_parameters()}
+
+    def quadratic(dev):
+        am, ym = torch.from_numpy(a).to(dev), torch.from_numpy(y).to(dev)
+
+        def loss(ps):
+            r = am @ torch.cat([ps["w"].reshape(-1), ps["b"]]) - ym
+            return 0.5 * (r * r).sum()
+        return {k: torch.tensor(v, device=dev, requires_grad=True)
+                for k, v in p0.items()}, loss, 1.0
+
+    def lenet_head(dev):
+        f, lab = feats.to(dev), labels.to(dev)
+
+        def loss(ps):
+            h = f
+            for j in range(3):
+                h = torch.nn.functional.linear(h, ps[f"{j}.weight"],
+                                               ps[f"{j}.bias"])
+            return cross_entropy(h, lab)
+        return {k: v.clone().to(dev).requires_grad_()
+                for k, v in head.items()}, loss, 0.5
+
+    rows = []
+    for name, make in (("quadratic", quadratic), ("lenet_fc", lenet_head)):
+        out = {}
+        for dev in ("cpu", "cuda"):
+            params, loss, lr = make(dev)
+            losses, state = lbfgs_steps(torch, LBFGS, params, loss, 20, lr,
+                                        10)
+            out[dev] = (params, losses, state)
+        (pc, lc, sc), (pg, lg, sg) = out["cpu"], out["cuda"]
+        lg_, lc_ = np.asarray(lg), np.asarray(lc)
+        loss_err = float(np.max(np.abs(lg_ - lc_) /
+                                (np.abs(lc_) + 1e-3 * lc_[0])))
+        param_err = max(float((pg[k].detach().cpu() - pc[k].detach()).norm()
+                              / pc[k].detach().norm()) for k in pc)
+        n_hist = {k: (int(sg["param_states"][k]["n_hist"]),
+                      int(sc["param_states"][k]["n_hist"])) for k in pc}
+        row = {"case": name, "steps": 20, "loss_cpu": [lc[0], lc[-1]],
+               "loss_cuda": [lg[0], lg[-1]], "max_err_loss": loss_err,
+               "max_rel_err_params_2norm": param_err, "n_hist": n_hist}
+        rows.append(row)
+        check(loss_err <= 1e-3 and param_err <= 1e-4 and
+              all(x == y_ for x, y_ in n_hist.values()) and
+              lg[-1] < 0.1 * lg[0], f"lbfgs on the card against the CPU: "
+              f"{row}")
+    emit({"phase": "lbfgs", "cases": rows})
+
+
+# -- flash_varlen_lse: the two attention entry points on K1-K3 ---------------
+
+def varlen_docs(np, total, lo, hi, seed):
+    """Document lengths in [lo, hi] from ``seed`` filling ``total`` tokens
+    (the last one cut), as cu_seqlens."""
+    rng = np.random.default_rng(seed)
+    lens, pos = [], 0
+    while pos < total:
+        n = min(int(rng.integers(lo, hi + 1)), total - pos)
+        lens.append(n)
+        pos += n
+    return np.concatenate([[0], np.cumsum(lens)]).astype(np.int32), lens
+
+
+def padded_masks(torch, lens, s):
+    """The documents padded to rows of ``s``: seg_q all 1, seg_k 1 on a
+    row's tokens (the key-padding form the masked phase times)."""
+    valid = torch.arange(s, device="cuda")[None, :] < torch.tensor(
+        lens, device="cuda")[:, None]
+    return (torch.ones(len(lens), s, dtype=torch.int32, device="cuda"),
+            valid.to(torch.int32).contiguous(), None)
+
+
+def hold_path(torch, hfa, name, q4, k4, v4, do4, causal, masks, got, worst,
+              plain=True):
+    """The path's ``(o, dq, dk, dv)`` (``got``, packed ``[1, T, H, D]``)
+    against direct K1-K3 calls on the same inputs and masks, bit for bit,
+    and those against the plain versions in head slices of 4 (the plain
+    versions hold ``[1, 4, T, T]`` float32 scores). Returns the row."""
+    o, lse = hfa.flash_fwd(q4, k4, v4, causal, masks=masks)
+    grads = hfa.flash_bwd(q4, k4, v4, o, lse, do4, causal, masks=masks)
+    for gname, a, b in zip(("o", "dq", "dk", "dv"), got, (o, *grads)):
+        check(torch.equal(a, b), f"{name}: the path's {gname} is not the "
+              f"kernels' own")
+    row = {"case": name, "shape": [list(q4.shape), list(k4.shape)],
+           "causal": causal, "ok": True}
+    if not plain:
+        return row
+    errs = {}
+    for h0 in range(0, q4.shape[2], 4):
+        hs = slice(h0, h0 + 4)
+        ro, rlse = hfa.flash_fwd_reference(q4[:, :, hs], k4[:, :, hs],
+                                           v4[:, :, hs], causal, masks=masks)
+        refs = hfa.flash_bwd_reference(
+            q4[:, :, hs], k4[:, :, hs], v4[:, :, hs], o[:, :, hs],
+            lse[:, hs], do4[:, :, hs], causal, masks=masks, mma_sums=True)
+        sub = {}
+        for gname, a, r in zip(("o", "dq", "dk", "dv"),
+                               (o[:, :, hs], *(t[:, :, hs] for t in grads)),
+                               (ro, *refs)):
+            errs[gname] = max(errs.get(gname, 0.0), compare(
+                torch, gname, a, r, "bf16", sub, nonzero=gname != "o"))
+        row["ok"] &= sub["ok"]
+        del ro, rlse, refs
+    row.update({f"max_abs_err_{k}": v for k, v in errs.items()})
+    for kname, gname in (("flash_fwd_tc", "o"), ("flash_bwd_dq_tc", "dq"),
+                         ("flash_bwd_dkv_tc", "dk"),
+                         ("flash_bwd_dkv_tc", "dv")):
+        worst[kname] = max(worst.get(kname, 0.0), errs[gname])
+    check(row["ok"], f"{name}: K1-K3 disagree with their plain versions: "
+          f"{row}")
+    return row
+
+
+def attention_flops(pairs, h, d):
+    """Forward FLOPs of attention over ``pairs`` (query, key) pairs: QK^T
+    and PV, 2 each a multiply-add; the backward 2.5 times that."""
+    return 4 * pairs * h * d
+
+
+def phase_flash_varlen_lse(torch, np, hfa, hfp, tfa, peaks):
+    """``ops.flash_attn_unpadded`` and ``flash_attention_with_lse`` at GPT-3
+    1.3B's attention width (16 heads of 128, bf16):
+
+    - a causal packing of documents of 64-2048 tokens, 8192 in all (8
+      documents), and a non-causal cross packing (6 documents: 1024
+      queries in splits of 64-300 plus a padded tail of 64 tokens, over
+      7077 keys in splits of 64-2048): each call must
+      launch K1's tensor-core body, K2's and K3's once each and nothing
+      else; its o and gradients equal direct K1-K3 calls on the packed row
+      bit for bit, and those hold against the plain versions; then each is
+      timed, forward and forward + backward, beside the same documents
+      padded to rows of 2048 with a key-padding mask;
+    - ``flash_attention_with_lse`` on B=2 x 2048: two key halves merged by
+      logaddexp against one call over all keys (o and lse), and the
+      gradients of a loss on both o and lse (so dlse is not 0) through the
+      merge, against K1-K3's plain versions fed the cotangents the merge
+      hands each half; two calls launch K1, K2 and K3 twice each."""
+    h, d = 16, 128
+    bf16 = torch.bfloat16
+    scale = 1.0 / math.sqrt(d)
+    worst, rows, timing = {}, [], {}
+    launches = {"varlen": {}, "lse": {}}
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1600)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(bf16)
+
+    cu_c, lens_c = varlen_docs(np, 8192, 64, 2048, seed=16)
+    cu_qx, lens_qx = varlen_docs(np, 1024, 64, 300, seed=17)
+    cu_kx, lens_kx = varlen_docs(np, 8192, 64, 2048, seed=18)
+    n = min(len(lens_qx), len(lens_kx))
+    cu_qx, lens_qx = cu_qx[:n + 1], lens_qx[:n]
+    cu_kx, lens_kx = cu_kx[:n + 1], lens_kx[:n]
+    cases = {
+        "causal_docs": (cu_c, cu_c, 8192, 8192, lens_c, lens_c, True),
+        "cross_splits": (cu_qx, cu_kx, int(cu_qx[-1]) + 64,
+                         int(cu_kx[-1]), lens_qx, lens_kx, False),
+    }
+    for name, (cq, ck, tq, tk, lq, lk, causal) in cases.items():
+        q, do = rnd(tq, h, d), rnd(tq, h, d)
+        k, v = rnd(tk, h, d), rnd(tk, h, d)
+        tcu_q = torch.as_tensor(cq, device="cuda")
+        tcu_k = tcu_q if cq is ck else torch.as_tensor(ck, device="cuda")
+        mq, mk = max(lq), max(lk)
+
+        def path(q=q, k=k, v=v, causal=causal, tcu_q=tcu_q, tcu_k=tcu_k,
+                 mq=mq, mk=mk):
+            return tfa.flash_attn_unpadded(q, k, v, tcu_q, tcu_k, mq, mk,
+                                           causal=causal)
+
+        # the main path, counted
+        qg, kg, vg = (t.detach().clone().requires_grad_()
+                      for t in (q, k, v))
+        zero_counts(hfa, hfp)
+        o = tfa.flash_attn_unpadded(qg, kg, vg, tcu_q, tcu_k, mq, mk,
+                                    causal=causal)
+        o.backward(do)
+        torch.cuda.synchronize()
+        ran = k4_counts(hfa, hfp)
+        check(ran == {**{x: 0 for x in ATTENTION_KERNELS},
+                      "flash_fwd_tc": 1, "flash_bwd_dq_tc": 1,
+                      "flash_bwd_dkv_tc": 1},
+              f"flash_varlen_lse {name}: launches {ran}")
+        for kname, n_ in ran.items():
+            launches["varlen"][kname] = launches["varlen"].get(kname, 0) + n_
+        seg_q = torch.where(torch.arange(tq, device="cuda") < int(cq[-1]),
+                            torch.searchsorted(tcu_q, torch.arange(
+                                tq, device="cuda"), right=True) - 1,
+                            -1).to(torch.int32)[None]
+        seg_k = (torch.searchsorted(tcu_k, torch.arange(tk, device="cuda"),
+                                    right=True) - 1).to(torch.int32)[None]
+        row = hold_path(torch, hfa, name, q[None], k[None], v[None],
+                        do[None], causal, (seg_q, seg_k, None),
+                        (o[None].detach(), qg.grad[None], kg.grad[None],
+                         vg.grad[None]), worst)
+        if tq > int(cq[-1]):
+            check(bool((o[int(cq[-1]):] == 0).all()),
+                  f"{name}: the padded tail's o is not 0")
+        del qg, kg, vg, o
+
+        # timed beside the same documents padded to rows of 2048
+        s = 2048
+        qp, kp, vp, dop = (torch.zeros(len(lq), s, h, d, dtype=bf16,
+                                       device="cuda") for _ in range(4))
+        for i, (a, b_) in enumerate(zip(cq[:-1], cq[1:])):
+            qp[i, :b_ - a], dop[i, :b_ - a] = q[a:b_], do[a:b_]
+        for i, (a, b_) in enumerate(zip(ck[:-1], ck[1:])):
+            kp[i, :b_ - a], vp[i, :b_ - a] = k[a:b_], v[a:b_]
+        pmasks = padded_masks(torch, lk, s)
+        pairs = sum(attention_pairs(a, b_, causal) for a, b_ in zip(lq, lk))
+        qv, kv, vv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        qpv, kpv, vpv = (t.detach().clone().requires_grad_()
+                         for t in (qp, kp, vp))
+
+        def packed_fb():
+            out = tfa.flash_attn_unpadded(qv, kv, vv, tcu_q, tcu_k, mq, mk,
+                                          causal=causal)
+            torch.autograd.grad(out, (qv, kv, vv), do)
+
+        def padded_fb():
+            out = hfa.flash_fwd(qpv, kpv, vpv, causal, masks=pmasks)[0]
+            torch.autograd.grad(out, (qpv, kpv, vpv), dop)
+
+        fwd_flops = attention_flops(pairs, h, d)
+        # bf16 bytes: the forward reads q, k, v and writes o; the backward
+        # reads q, k, v, o, dO and writes dq, dk, dv
+        fwd_bytes = 2 * (2 * tq + 2 * tk) * h * d
+        fb_bytes = fwd_bytes + 2 * (4 * tq + 4 * tk) * h * d
+        timing[name] = {
+            "tokens": [int(cq[-1]), int(ck[-1])], "docs": len(lq),
+            "pairs": pairs, "padded_rows": [len(lq), s],
+            "packed_fwd_ms": median_ms(path, iters=10),
+            "padded_fwd_ms": median_ms(lambda: hfa.flash_fwd(
+                qp, kp, vp, causal, masks=pmasks), iters=10),
+            "packed_fwd_bwd_ms": median_ms(packed_fb, iters=10),
+            "padded_fwd_bwd_ms": median_ms(padded_fb, iters=10),
+            "bound_fwd_ms": max(fwd_flops / peaks["bf16"],
+                                fwd_bytes / peaks["bytes"]) * 1e3,
+            "bound_fwd_bwd_ms": max(3.5 * fwd_flops / peaks["bf16"],
+                                    fb_bytes / peaks["bytes"]) * 1e3}
+        rows.append(row)
+        del q, k, v, do, qp, kp, vp, dop, qv, kv, vv, qpv, kpv, vpv
+        torch.cuda.empty_cache()
+
+    # flash_attention_with_lse: the merge of two key halves
+    b, s = 2, 2048
+    q, k, v = rnd(b, s, h, d), rnd(b, s, h, d), rnd(b, s, h, d)
+    co = rnd(b, s, h, d).float()
+    cl = torch.randn(b, s, h, generator=g, device="cuda")
+    half = s // 2
+
+    def merge(o1, l1, o2, l2):
+        lse = torch.logaddexp(l1, l2)
+        o = o1.float() * torch.exp(l1 - lse)[..., None] + \
+            o2.float() * torch.exp(l2 - lse)[..., None]
+        return o, lse
+
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    zero_counts(hfa, hfp)
+    parts = [hfa.flash_attention_with_lse(qg, kg[:, sl], vg[:, sl])
+             for sl in (slice(0, half), slice(half, s))]
+    o, lse = merge(*parts[0], *parts[1])
+    ((o * co).sum() + (lse * cl).sum()).backward()
+    torch.cuda.synchronize()
+    ran = k4_counts(hfa, hfp)
+    check(ran == {**{x: 0 for x in ATTENTION_KERNELS}, "flash_fwd_tc": 2,
+                  "flash_bwd_dq_tc": 2, "flash_bwd_dkv_tc": 2},
+          f"flash_varlen_lse with_lse: launches {ran}")
+    launches["lse"] = ran
+    full_o, full_lse = hfa.flash_attention_with_lse(q, k, v)
+    lrow = {"case": "with_lse_merge", "shape": [b, s, h, d], "ok": True}
+    # the merge blends two bf16 outputs in f32: against one call over all
+    # keys within two bf16 roundings, the lse within f32's sums
+    o_err = (o.detach() - full_o.float()).abs()
+    lse_err = (lse.detach() - full_lse).abs()
+    lrow["max_abs_err_o_merged"] = float(o_err.max())
+    lrow["max_abs_err_lse_merged"] = float(lse_err.max())
+    lrow["ok"] &= bool((o_err <= 1e-2 + 1e-2 * full_o.float().abs()).all())
+    lrow["ok"] &= bool((lse_err <= 1e-4 * (1 + full_lse.abs())).all())
+    # the cotangents the merge hands each half, then K2/K3's plain versions
+    leaves = [t.detach().requires_grad_() for p in parts for t in p]
+    mo, ml = merge(*leaves)
+    cots = torch.autograd.grad((mo * co).sum() + (ml * cl).sum(), leaves)
+    refs = []
+    for i, sl in enumerate((slice(0, half), slice(half, s))):
+        oi, li = parts[i][0].detach(), parts[i][1].detach()
+        refs.append(hfa.flash_bwd_reference(
+            q, k[:, sl].contiguous(), v[:, sl].contiguous(), oi,
+            li.transpose(1, 2).contiguous(), cots[2 * i], False,
+            dlse=cots[2 * i + 1].transpose(1, 2), mma_sums=True))
+    lrow["dlse_abs_max"] = float(max(cots[1].abs().max(),
+                                     cots[3].abs().max()))
+    check(lrow["dlse_abs_max"] > 0, "with_lse: the lse cotangent is 0")
+    # autograd sums q's two bf16 halves in bf16, and so does the reference
+    compare(torch, "dq", qg.grad, refs[0][0] + refs[1][0], "bf16", lrow)
+    compare(torch, "dk", kg.grad, torch.cat([r[1] for r in refs], 1),
+            "bf16", lrow)
+    compare(torch, "dv", vg.grad, torch.cat([r[2] for r in refs], 1),
+            "bf16", lrow)
+    check(lrow["ok"], f"flash_attention_with_lse disagrees: {lrow}")
+    rows.append(lrow)
+
+    def lse_fb():
+        ps = [hfa.flash_attention_with_lse(qg, kg[:, sl], vg[:, sl])
+              for sl in (slice(0, half), slice(half, s))]
+        mo, ml = merge(*ps[0], *ps[1])
+        torch.autograd.grad((mo * co).sum() + (ml * cl).sum(), (qg, kg, vg))
+
+    timing["with_lse_merge"] = {
+        "shape": [b, s, h, d], "fwd_bwd_ms": median_ms(lse_fb, iters=10),
+        "one_call_fwd_bwd_ms": median_ms(lambda: torch.autograd.grad(
+            hfa.flash_fwd(qg, kg, vg)[0], (qg, kg, vg), co.to(bf16)),
+            iters=10)}
+    emit({"phase": "flash_varlen_lse", "heads": h, "head_dim": d,
+          "dtype": "bf16", "cases": rows, "timing_ms": timing,
+          "launches": launches})
+    del q, k, v, qg, kg, vg, parts, leaves
+    torch.cuda.empty_cache()
+    return worst, launches
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4956,6 +5520,7 @@ def main() -> int:
         from paddle_tpu_torch.nn import functional as PF
         from paddle_tpu_torch.ops._hopper import fused_matmul_bn as fmb
         from paddle_tpu_torch.core import random as rng
+        import paddle_tpu_torch as P
         tfa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
     except ImportError as e:
         print(f"chip_smoke: the paddle_tpu_torch package must sit beside "
@@ -5140,6 +5705,16 @@ def main() -> int:
     ernie_launches.update(late_conv)
     cross_launches.update(late_conv)
 
+    # BASELINE config 1 under Model.fit (no TPU kernel on its path), LBFGS,
+    # and the two attention entry points that run K1-K3 as no model path
+    # does: packed varlen with per-side segment ids, and a differentiable
+    # lse
+    phase_hapi_lenet(torch, np, P, hfa, hfp)
+    torch.cuda.empty_cache()
+    phase_lbfgs(torch, np, P)
+    worst_varlen, varlen_launches = phase_flash_varlen_lse(
+        torch, np, hfa, hfp, tfa, peaks)
+
     # `launches` is the count on each kernel's first main path: serving
     # for K1's bf16 tensor-core body (as the line has counted K1 from the
     # start) and the f32 serving check for its float32 body
@@ -5152,7 +5727,9 @@ def main() -> int:
     # bf16 tensor-core bodies of the streamed forward, dq and dk/dv, the f32
     # ERNIE gradient check for their float32 bodies (`f32_ernie_launches`),
     # cross-attention for dk/dv-direct; every entry
-    # also has every path's count. `max_abs_err` is
+    # also has every path's count (`varlen_launches` and `lse_launches`
+    # the flash_varlen_lse phase's two entry points'; K1-K3's tensor-core
+    # bodies also `varlen_max_abs_err`, their error there). `max_abs_err` is
     # the largest error of an output element (y, dx, dw, o, dq, ...) against
     # the plain version; `stats_rel_err` that of K5/K7's f32 (sum, sumsq)
     # over their scale (null for the other kernels). `max_err` and
@@ -5286,6 +5863,8 @@ def main() -> int:
             "f32_cross_launches": f32_cross_launches.get(name, 0),
             "recompute_launches": recompute_launches.get(name, 0),
             "o1_f16_launches": o1_launches.get(name, 0),
+            "varlen_launches": varlen_launches["varlen"].get(name, 0),
+            "lse_launches": varlen_launches["lse"].get(name, 0),
             "max_abs_err": err, "max_err": err,
             "stats_rel_err": stats_conv.get(name),
             "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
@@ -5322,6 +5901,10 @@ def main() -> int:
                 k: t["train_shape"][k] for k in (
                     "shape", "kernel_ms", "plain_ms", "library_ms",
                     "bound_ms", "bound_by", "tflops")}
+        if name in worst_varlen:
+            # the packed varlen path against the plain versions
+            # (flash_varlen_lse), apart from max_abs_err
+            kernels[-1]["varlen_max_abs_err"] = worst_varlen[name]
         if name in worst_masked:
             # segment ids and the key bias (kernel_masked): the largest
             # error against the plain version, the times at B=4 x 2048 with

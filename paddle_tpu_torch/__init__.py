@@ -29,12 +29,25 @@ its randomness by ``(seed, step)``; activation recompute
 (``distributed.fleet.utils.recompute``, GPT's ``recompute=True``), AMP O1
 (``amp.auto_cast``, ``amp.GradScaler``) and the imperative optimizers
 (``optimizer.AdamW(parameters=...)``, ``step()``, ``clear_grad()``, the
-regularizers of :mod:`.regularizer`).
+regularizers of :mod:`.regularizer`); the high-level API (``Model`` with
+``fit``, ``evaluate``, ``predict``, ``save`` and ``load``; ``summary``;
+``metric``), the data pipeline (``io``: datasets, samplers, the
+DataLoader with thread and shared-memory process workers, device
+prefetch), ``save``/``load``, LeNet on MNIST (BASELINE config 1, library
+convolutions), LBFGS, and the two attention entry points
+``ops.flash_attn_unpadded`` and
+``ops._hopper.flash_attention.flash_attention_with_lse``, which run the
+flash-attention kernels on packed varlen batches and with a
+differentiable lse.
 """
 
-from . import amp, nn, optimizer, regularizer  # noqa: F401
+from . import amp, io, metric, nn, optimizer, regularizer, vision  # noqa: F401
 from .core.device import resolve_device  # noqa: F401
 from .core.random import seed  # noqa: F401
+from .framework.io import load, save  # noqa: F401
+from .hapi.model import Model  # noqa: F401
+from .hapi.summary import summary  # noqa: F401
 
-__all__ = ["amp", "nn", "optimizer", "regularizer", "resolve_device",
-           "seed"]
+__all__ = ["amp", "io", "metric", "nn", "optimizer", "regularizer",
+           "vision", "resolve_device", "seed", "save", "load", "Model",
+           "summary"]

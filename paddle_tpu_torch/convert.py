@@ -10,6 +10,8 @@ no key is dropped and none is left uninitialised. :func:`to_jax_state_dict`
 is its inverse, and :func:`from_jax_optimizer_state` carries the JAX
 optimizer state (moments, velocities and master weights laid out like
 their parameters, so transposed with them) into the port's optimizers.
+:func:`from_jax_checkpoint` rewrites the files of the JAX ``Model.save``
+(``.pdparams``, ``.pdopt``) in the port's layout, for ``Model.load``.
 
 A transposed Linear keeps the JAX column order as row order: the fused
 ``qkv_proj`` output ``(3, H, D)`` and the GQA ``kv_proj`` output
@@ -18,13 +20,14 @@ A transposed Linear keeps the JAX column order as row order: the fused
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
 __all__ = ["LINEAR_NAMES", "from_jax_state_dict", "to_jax_state_dict",
-           "from_jax_optimizer_state"]
+           "from_jax_optimizer_state", "from_jax_checkpoint"]
 
 #: attribute names of the Linear layers whose weights are transposed (GPT,
 #: then BERT's encoder layers and heads, then ResNet's classifier, then
@@ -38,8 +41,12 @@ LINEAR_NAMES = frozenset({"qkv_proj", "q_proj", "kv_proj", "out_proj", "up",
 
 def _is_linear_weight(key: str) -> bool:
     parts = key.split(".")
-    return (len(parts) >= 2 and parts[-1] == "weight"
-            and parts[-2] in LINEAR_NAMES)
+    if len(parts) < 2 or parts[-1] != "weight":
+        return False
+    # a Linear under one of the names, or in a Sequential under one of them
+    # (LeNet's fc.0, fc.1, fc.2)
+    return parts[-2] in LINEAR_NAMES or (
+        len(parts) >= 3 and parts[-2].isdigit() and parts[-3] in LINEAR_NAMES)
 
 
 def from_jax_state_dict(np_dict: Mapping[str, np.ndarray]
@@ -87,3 +94,24 @@ def from_jax_optimizer_state(state: Mapping[str, Any]) -> Dict[str, Any]:
             pstates[name][key] = torch.from_numpy(np.array(a, order="C"))
     step = torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32)
     return {"step": step, "param_states": pstates}
+
+
+def from_jax_checkpoint(src: str, dst: str) -> None:
+    """Rewrite the JAX package's ``Model.save(src)`` files as the port's
+    ``Model.save(dst)`` would write them: ``dst.pdparams`` with every Linear
+    weight transposed, and ``dst.pdopt`` (where ``src.pdopt`` exists) with
+    each ``"<name>@<key>"`` entry of a Linear weight transposed like it;
+    ``step`` and ``LR_Scheduler`` as they are."""
+    from .framework.io import load, save
+
+    def port_layout(name, a):
+        return np.ascontiguousarray(a.T) if _is_linear_weight(name) and \
+            np.ndim(a) == 2 else a
+
+    params = load(src + ".pdparams", return_numpy=True)
+    save({k: port_layout(k, a) for k, a in params.items()},
+         dst + ".pdparams")
+    if os.path.exists(src + ".pdopt"):
+        opt = load(src + ".pdopt", return_numpy=True)
+        save({k: port_layout(k.rpartition("@")[0], v)
+              for k, v in opt.items()}, dst + ".pdopt")

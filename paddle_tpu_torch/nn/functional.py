@@ -1,10 +1,11 @@
 """Functional ops of the port (``paddle_tpu/nn/functional.py`` counterpart).
 
-So far what the GPT, BERT, ERNIE and ResNet training paths need:
-:func:`cross_entropy` with hard labels, :func:`scaled_dot_product_attention`
-with its routing to the attention kernels (attention-prob dropout in the
-kernels), :func:`dropout` (both of Paddle's modes, the mask drawn from the
-key stream of :mod:`paddle_tpu_torch.core.random`), and for ResNet
+So far what the GPT, BERT, ERNIE, ResNet and LeNet training paths need:
+:func:`cross_entropy` (hard and soft labels, class weights, smoothing),
+:func:`scaled_dot_product_attention` with its routing to the attention
+kernels (attention-prob dropout in the kernels), :func:`dropout` (both of
+Paddle's modes, the mask drawn from the key stream of
+:mod:`paddle_tpu_torch.core.random`), and for ResNet
 :func:`relu`, :func:`conv2d` (NCHW or NHWC, a library convolution, 1x1 NHWC
 as a matmul), :func:`max_pool2d`, :func:`adaptive_avg_pool2d` and
 :func:`batch_norm` with the closed-form backward.
@@ -29,34 +30,61 @@ def cross_entropy(input: torch.Tensor, label: torch.Tensor, weight=None,
                   ignore_index: int = -100, reduction: str = "mean",
                   soft_label: bool = False, axis: int = -1,
                   label_smoothing: float = 0.0) -> torch.Tensor:
-    """Softmax cross-entropy over ``axis`` with hard integer labels, as
+    """Softmax cross-entropy over ``axis``, as
     ``paddle_tpu.nn.functional.cross_entropy`` computes it: log-softmax in
-    float32, the label's log-probability picked by a gather (the JAX code
-    takes it through a one-hot), 0 where the label is ``ignore_index``.
-    ``reduction`` is ``"none"``, ``"sum"`` or ``"mean"``; the mean divides
-    by the number of labels that are not ignored (at least 1).
-
-    ``soft_label``, ``weight`` and ``label_smoothing`` are not ported yet
-    and raise."""
-    if soft_label or weight is not None or label_smoothing:
-        raise NotImplementedError(
-            "cross_entropy: soft_label, weight and label_smoothing are not "
-            "ported yet (hard labels only)")
+    float32, then ``-sum(target * logp)`` over the classes. ``target`` is
+    the float32 ``label`` with ``soft_label``, else the one-hot of the
+    integer label, and ``label_smoothing`` mixes it with the uniform
+    distribution, ``target * (1 - ls) + ls / C``. Hard labels without
+    smoothing pick the label's log-probability by a gather, which is the
+    same sum. A hard label equal to ``ignore_index`` gives 0; ``weight``
+    (``[C]``, hard labels only) scales each sample's loss by its label's
+    weight. ``reduction`` is ``"none"``, ``"sum"`` or ``"mean"``: with hard
+    labels the mean divides by the number of labels not ignored (at least
+    1), or with ``weight`` by the sum of their weights; with soft labels
+    it is the plain mean."""
     if reduction not in ("none", "sum", "mean"):
         raise ValueError(f"reduction must be 'none', 'sum' or 'mean'; got "
                          f"{reduction!r}")
     logp = torch.log_softmax(input.float(), dim=axis).movedim(axis, -1)
-    if label.dim() == input.dim() and label.shape[-1] == 1:
-        label = label.squeeze(-1)
-    label = label.long()
-    valid = label != ignore_index
-    picked = torch.gather(logp, -1, torch.where(valid, label, 0)[..., None])
-    loss = torch.where(valid, -picked[..., 0], 0.0)
+    num_classes = logp.shape[-1]
+    if soft_label:
+        if weight is not None:
+            raise ValueError("weight with soft_label not supported")
+        target = label.float().movedim(axis, -1)
+    else:
+        if label.dim() == input.dim() and label.shape[-1] == 1:
+            label = label.squeeze(-1)
+        label = label.long()
+        valid = label != ignore_index
+        safe = torch.where(valid, label, 0)
+        if label_smoothing > 0.0:
+            target = TF.one_hot(safe, num_classes).float()
+    if soft_label or label_smoothing > 0.0:
+        if label_smoothing > 0.0:
+            target = target * (1.0 - label_smoothing) + \
+                label_smoothing / num_classes
+        loss = -(target * logp).sum(dim=-1)
+    else:
+        loss = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    if weight is not None:
+        sample_w = torch.as_tensor(weight, dtype=torch.float32,
+                                   device=logp.device)[safe]
+        loss = loss * sample_w
+    if not soft_label:
+        loss = torch.where(valid, loss, 0.0)
     if reduction == "none":
         return loss
     if reduction == "sum":
         return loss.sum()
-    return loss.sum() / torch.clamp(valid.sum(), min=1)
+    if soft_label:
+        return loss.mean()
+    if weight is not None:
+        denom = torch.clamp(torch.where(valid, sample_w, 0.0).sum(),
+                            min=1e-12)
+    else:
+        denom = torch.clamp(valid.sum(), min=1)
+    return loss.sum() / denom
 
 
 def _keep_mask(key: int, shape, keep: float, device) -> torch.Tensor:

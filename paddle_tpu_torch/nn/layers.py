@@ -1,6 +1,6 @@
 """Layers of the port (``paddle_tpu/nn/layers.py`` counterpart): the
-transformer encoder layers, and the convolution, BatchNorm, pooling and
-container layers of the ResNet path.
+transformer encoder layers, the convolution, BatchNorm, pooling and
+container layers of the ResNet path, and :class:`CrossEntropyLoss`.
 
 :class:`MultiHeadAttention`, :class:`TransformerEncoderLayer` and
 :class:`TransformerEncoder` under the JAX attribute names (``q_proj``,
@@ -36,7 +36,7 @@ from . import functional as F
 
 __all__ = ["Linear", "Dropout", "MultiHeadAttention", "TransformerEncoderLayer",
            "TransformerEncoder", "Conv2D", "BatchNorm2D", "MaxPool2D",
-           "AdaptiveAvgPool2D", "ReLU", "Sequential"]
+           "AdaptiveAvgPool2D", "ReLU", "Sequential", "CrossEntropyLoss"]
 
 
 class Linear(nn.Linear):
@@ -309,3 +309,21 @@ class Sequential(nn.Sequential):
             super().__init__(OrderedDict(layers))
         else:
             super().__init__(*layers)
+
+
+class CrossEntropyLoss(nn.Module):
+    """``paddle.nn.CrossEntropyLoss``: :func:`~.functional.cross_entropy`
+    with the arguments given here (``weight`` a ``[C]`` array or tensor)."""
+
+    def __init__(self, weight=None, ignore_index: int = -100,
+                 reduction: str = "mean", soft_label: bool = False,
+                 label_smoothing: float = 0.0, axis: int = -1):
+        super().__init__()
+        self.weight, self.ignore_index = weight, ignore_index
+        self.reduction, self.soft_label = reduction, soft_label
+        self.label_smoothing, self.axis = label_smoothing, axis
+
+    def forward(self, input, label):
+        return F.cross_entropy(input, label, self.weight, self.ignore_index,
+                               self.reduction, self.soft_label, self.axis,
+                               self.label_smoothing)

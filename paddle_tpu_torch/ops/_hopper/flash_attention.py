@@ -23,6 +23,8 @@ dkv); nothing falls back from one body to the other.
   autograd function: its backward is :func:`flash_bwd`. Its forward is the
   operator ``torch.ops.paddle_tpu_torch.flash_fwd`` (:func:`flash_fwd_op`),
   which activation recompute's policies can save.
+  :func:`flash_attention_with_lse` is JAX's entry of that name: the same
+  forward with the lse differentiable too, ``[B, Sq, H]``.
 - ``flash_bwd(q, k, v, o, lse, do, causal, scale, dlse=None) -> (dq, dk,
   dv)`` in the same layout, dk/dv at ``HK`` heads. ``delta = rowsum(do*o)``
   (minus ``dlse`` when given) is a torch op here, as ``_bwd`` computes it in
@@ -73,7 +75,7 @@ from ...core import random as rng
 __all__ = ["flash_fwd", "flash_fwd_tc", "flash_fwd_reference", "flash_bwd",
            "flash_bwd_reference", "flash_bwd_dq", "flash_bwd_dkv",
            "flash_bwd_dq_tc", "flash_bwd_dkv_tc", "TC_BWD_HEAD_DIMS",
-           "flash_fwd_op",
+           "flash_fwd_op", "flash_attention_with_lse",
            "mma_dot",
            "kernel_arg_error", "NEG_INF", "SUPPORTED_HEAD_DIMS",
            "AttnDropout", "keep_threshold", "keep_scale",
@@ -786,7 +788,8 @@ def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class _FlashFwd(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, seg_q, seg_k, bias, causal, scale, dropout):
+    def forward(ctx, q, k, v, seg_q, seg_k, bias, causal, scale, dropout,
+                lse_grad):
         masks = (seg_q, seg_k, bias)
         rate, seed = (0.0, 0) if dropout is None else dropout
         o, lse = torch.ops.paddle_tpu_torch.flash_fwd(
@@ -796,34 +799,38 @@ class _FlashFwd(torch.autograd.Function):
             torch.empty(0) if t is None else t for t in masks))
         ctx.has_mask = tuple(t is not None for t in masks)
         ctx.causal, ctx.scale, ctx.dropout = causal, scale, dropout
-        ctx.mark_non_differentiable(lse)
+        ctx.lse_grad = lse_grad
+        if not lse_grad:
+            ctx.mark_non_differentiable(lse)
         return o, lse
 
     @staticmethod
-    def backward(ctx, do, _dlse):
-        # lse is not differentiable here (flash_attention_with_lse, which
-        # needs its cotangent, is not ported): flash_bwd's dlse stays None
+    def backward(ctx, do, dlse):
+        # lse's cotangent (flash_attention_with_lse) folds into delta
         q, k, v, o, lse, *saved = ctx.saved_tensors
         masks = tuple(t if has else None
                       for t, has in zip(saved, ctx.has_mask))
         if do.stride(-1) != 1:   # e.g. the expanded ones of out.sum()
             do = do.contiguous()
         dq, dk, dv = flash_bwd(q, k, v, o, lse, do, ctx.causal, ctx.scale,
+                               dlse=dlse if ctx.lse_grad else None,
                                dropout=ctx.dropout, masks=masks)
         # the masks, the key bias among them, get no gradient
-        return dq, dk, dv, None, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = False, scale: Optional[float] = None,
               dropout: Optional[AttnDropout] = None,
-              masks: Masks = NO_MASKS
+              masks: Masks = NO_MASKS, lse_grad: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 forward: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors. ``masks`` are ``(seg_q, seg_k, bias)`` as :func:`_masks`
     gives them. Returns ``(o [B, Sq, H, D], lse [B, H, Sq] float32)``;
     gradients flow to q, k and v through :func:`flash_bwd`, with the same
-    ``dropout`` mask and ``masks``."""
+    ``dropout`` mask and ``masks``. The lse is differentiable only with
+    ``lse_grad``: its cotangent then reaches :func:`flash_bwd` as
+    ``dlse``."""
     _shapes(q, k, v)
     devices = {t.device for t in (q, k, v, *masks) if t is not None}
     if len(devices) != 1:
@@ -838,7 +845,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_fwd runs on CUDA or the CPU, not "
                          f"{q.device}")
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
-    return _FlashFwd.apply(q, k, v, *masks, bool(causal), scale, dropout)
+    return _FlashFwd.apply(q, k, v, *masks, bool(causal), scale, dropout,
+                           bool(lse_grad))
 
 
 def flash_fwd_tc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -899,6 +907,57 @@ def flash_attention_hopper(query: torch.Tensor, key: torch.Tensor,
     return flash_fwd(query, key, value, causal=causal, scale=scale,
                      dropout=as_dropout(dropout, dropout_seed),
                      masks=masks)[0]
+
+
+def _pick_blocks(sq: int, sk: int, d: int) -> Tuple[int, int]:
+    """The JAX kernel's default ``(block_q, block_k)`` from its static
+    table (``:85-121``; the TPU sweep's flag overrides and tuned cache have
+    no meaning for the port's kernels): the largest multiple of 128 up to
+    the table's target that divides the length, else 128, or the length
+    itself where it is shorter."""
+    tq, tk = (512, 1024) if d <= 64 else (1024, 1024) if d <= 128 else \
+        (128, 256)
+
+    def fit(target, s):
+        b = min(target, s)
+        while b > 128 and s % b:
+            b -= 128
+        return b
+
+    return fit(tq, sq), fit(tk, sk)
+
+
+def flash_attention_with_lse(query: torch.Tensor, key: torch.Tensor,
+                             value: torch.Tensor, causal: bool = False,
+                             scale: Optional[float] = None,
+                             block_q: Optional[int] = None,
+                             block_k: Optional[int] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``[B, S, H, D]`` attention returning ``(o, lse [B, Sq, H] float32)``
+    (JAX ``:845``), both differentiable: K1 forward, K2/K3 backward, with
+    lse's cotangent folded into K2/K3's delta (``delta - dlse``, JAX
+    ``:601-605``). Two ``(o, lse)`` partials over disjoint key sets merge
+    into attention over all keys (``lse = logaddexp(lse1, lse2)``, ``o``
+    their convex combination), differentiably end to end: the ring of
+    context parallelism is built on it. Raises where JAX raises: lengths
+    the JAX kernel's blocks (``block_q``/``block_k``, by default its table)
+    do not divide, and query heads not a multiple of the kv heads. The
+    port's kernels tile by their own stages; the blocks decide only what
+    is refused."""
+    b, sq, h, d = query.shape
+    sk, hk = key.shape[1], key.shape[2]
+    auto_q, auto_k = _pick_blocks(sq, sk, d)
+    block_q, block_k = block_q or auto_q, block_k or auto_k
+    if sq % min(block_q, sq) or sk % min(block_k, sk):
+        raise ValueError(
+            f"flash_attention_with_lse needs seq lengths divisible by the "
+            f"block sizes; got sq={sq}, sk={sk}")
+    if hk != h and (hk == 0 or h % hk):
+        raise ValueError(
+            f"query heads {h} must be a multiple of kv heads {hk}")
+    o, lse = flash_fwd(query, key, value, causal=causal, scale=scale,
+                       lse_grad=True)
+    return o, lse.transpose(1, 2)
 
 
 #: kernel launches since each count was last set to 0 (CUDA path only);

@@ -1,9 +1,11 @@
 """Optimizers and learning-rate schedulers of the port
-(``paddle_tpu/optimizer`` counterpart; LBFGS is not ported yet)."""
+(``paddle_tpu/optimizer`` counterpart)."""
 
 from . import lr  # noqa: F401
 from .optimizer import (SGD, Adadelta, Adagrad, Adam, Adamax,  # noqa: F401
-                        AdamW, Lamb, Lars, Momentum, Optimizer, RMSProp)
+                        AdamW, Lamb, Lars, LBFGS, Momentum, Optimizer,
+                        RMSProp)
 
 __all__ = ["lr", "Optimizer", "SGD", "Momentum", "Adam", "AdamW",
-           "Adagrad", "RMSProp", "Lamb", "Lars", "Adamax", "Adadelta"]
+           "Adagrad", "RMSProp", "Lamb", "Lars", "Adamax", "Adadelta",
+           "LBFGS"]

@@ -45,7 +45,7 @@ from ..regularizer import L1Decay, L2Decay
 from .lr import LRScheduler
 
 __all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adagrad",
-           "RMSProp", "Lamb", "Lars", "Adamax", "Adadelta"]
+           "RMSProp", "Lamb", "Lars", "Adamax", "Adadelta", "LBFGS"]
 
 Params = Dict[str, torch.Tensor]
 State = Dict[str, Any]
@@ -486,3 +486,91 @@ class Adadelta(Optimizer):
         delta = -torch.sqrt((eu + self.epsilon) / (eg + self.epsilon)) * g32
         eu.copy_(self.rho * eu + (1 - self.rho) * torch.square(delta))
         p32.add_(scalars["lr"] * delta)
+
+
+class LBFGS(Optimizer):
+    """Limited-memory BFGS at fixed steps (JAX ``:517-600``): the two-loop
+    recursion over a rolling ``(s, y, rho)`` history of ``history_size``
+    pairs kept in the state, per parameter, flattened, in float32 (the
+    keys ``s_hist``, ``y_hist``, ``rho_hist``, ``prev_flat_p``,
+    ``prev_flat_g`` and ``n_hist``). A step adds the pair of the previous
+    step from its second step on, where ``s . y > 1e-10``; the first
+    direction's scale ``gamma`` comes from the newest pair. Both loops run
+    over all ``history_size`` slots, newest to oldest and then oldest to
+    newest, as JAX's ``lax.scan``s do: an empty slot has ``rho = 0`` and
+    changes nothing, and the sums keep JAX's order. The history is updated
+    with ``torch.where`` on the device, so a step reads nothing back to the
+    host. ``line_search_fn="strong_wolfe"`` needs the loss evaluated again
+    inside the step and raises, as in JAX."""
+
+    def __init__(self, learning_rate=1.0, max_iter: int = 20,
+                 history_size: int = 10, epsilon: float = 1e-8,
+                 parameters=None, weight_decay=0.0, grad_clip=None,
+                 line_search_fn=None, multi_precision=True, name=None,
+                 tolerance_grad: float = 1e-7,
+                 tolerance_change: float = 1e-9):
+        if line_search_fn not in (None, "None"):
+            raise NotImplementedError(
+                "LBFGS(line_search_fn='strong_wolfe') needs closure "
+                "re-evaluation; use the default fixed-step mode")
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision)
+        self.history_size = int(history_size)
+        self.epsilon = epsilon
+
+    def _init_param_state(self, p):
+        h, flat = self.history_size, p.numel()
+
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=p.device)
+
+        return {"s_hist": zeros(h, flat), "y_hist": zeros(h, flat),
+                "rho_hist": zeros(h), "prev_flat_p": zeros(flat),
+                "prev_flat_g": zeros(flat),
+                "n_hist": zeros(dtype=torch.int32)}
+
+    def _scalars(self, lr, step):
+        return {"lr": lr, "step": step}
+
+    def _update(self, name, p32, g32, st, scalars):
+        if self.weight_decay:
+            g32 = g32 + self.weight_decay * p32
+        h = self.history_size
+        flat_p = p32.reshape(-1)
+        flat_g = g32.reshape(-1)
+        s = flat_p - st["prev_flat_p"]
+        y = flat_g - st["prev_flat_g"]
+        sy = torch.dot(s, y)
+        have_pair = (scalars["step"] > 1) & (sy > 1e-10)
+
+        def roll(key, new):
+            hist = st[key]
+            hist.copy_(torch.where(
+                have_pair, torch.cat([hist[1:], new[None]]), hist))
+
+        roll("s_hist", s)
+        roll("y_hist", y)
+        roll("rho_hist", 1.0 / torch.clamp(sy, min=1e-10))
+        n_hist = st["n_hist"]
+        n_hist.copy_(torch.where(have_pair, torch.clamp(n_hist + 1, max=h),
+                                 n_hist))
+        s_hist, y_hist, rho_hist = st["s_hist"], st["y_hist"], st["rho_hist"]
+
+        q = flat_g
+        alphas = [None] * h
+        for idx in range(h - 1, -1, -1):
+            alphas[idx] = rho_hist[idx] * torch.dot(s_hist[idx], q)
+            q = q - alphas[idx] * y_hist[idx]
+        yy = torch.dot(y_hist[-1], y_hist[-1])
+        gamma = torch.where(
+            n_hist > 0,
+            (1.0 / torch.clamp(rho_hist[-1], min=1e-10))
+            / torch.clamp(yy, min=self.epsilon),
+            torch.ones_like(yy))
+        r = gamma * q
+        for i in range(h):
+            beta = rho_hist[i] * torch.dot(y_hist[i], r)
+            r = r + s_hist[i] * (alphas[i] - beta)
+        st["prev_flat_p"].copy_(flat_p)
+        st["prev_flat_g"].copy_(flat_g)
+        p32.sub_((scalars["lr"] * r).view_as(p32))

@@ -1,4 +1,4 @@
-"""Vision models of the port (``paddle_tpu/vision`` counterpart; ResNet so
-far)."""
+"""Vision models and datasets of the port (``paddle_tpu/vision``
+counterpart; LeNet, ResNet, MNIST and FashionMNIST so far)."""
 
-from . import models  # noqa: F401
+from . import datasets, models  # noqa: F401

@@ -77,9 +77,13 @@ def test_cross_entropy_matches_jax(reduction):
                             torch.from_numpy(labels[..., None]),
                             reduction=reduction)
     np.testing.assert_array_equal(got1.numpy(), got.numpy())
-    with pytest.raises(NotImplementedError):
-        TF.cross_entropy(torch.from_numpy(logits), torch.from_numpy(labels),
-                         label_smoothing=0.1)
+    # label smoothing is ported: it agrees with JAX too
+    want = JF.cross_entropy(jnp.asarray(logits), jnp.asarray(labels),
+                            reduction=reduction, label_smoothing=0.1)
+    got = TF.cross_entropy(torch.from_numpy(logits),
+                           torch.from_numpy(labels), reduction=reduction,
+                           label_smoothing=0.1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
