@@ -101,11 +101,32 @@ context:
 8. serve_f32   3 requests x 16 tokens, token-exact against the model's
            dense-cache ``generate``; every prefill runs K1's float32
            body once per layer;
+   serve_tiers (part "f32")  the engine's three throughput tiers on the
+           same f32 model, each output held to generate by serve_f32's
+           rule: radix prefix sharing (4 prompts of 256 tokens on a
+           208-token shared prefix), chunked prefill at 64 tokens (a
+           480-token prompt arriving among 3 short residents), speculative
+           decoding with the n-gram drafter at gamma 4 and a ModelDrafter
+           (2 layers at full width, the target's embeddings, first blocks
+           and final LayerNorm) at gamma 2 under pool pressure, and all
+           three composed; K1's f32 body exactly once a layer for each cold
+           one-shot prefill, no other kernel, the pool holding only the
+           tree's blocks after each drain;
 9. serve_bf16  8 requests of 64..1536 prompt tokens x 32 tokens through a
            pool of about half the trace's blocks, shrunk until a CPU dry
            run of the trace preempts (spill to pinned host memory and
            restore); every prefill runs K1's tensor-core body once per
            layer;
+   serve_tiers (part "bf16")  bench.py's three tier legs on the bf16
+           model: prefix sharing at share ratios 0/0.5/0.8 (8 users of
+           1024 tokens, two distinct-token warm passes, then one timed:
+           tokens/s, hit rate and peak live blocks on and off, the blocks
+           cut at least 2x at 0.8), chunked prefill at budgets 256 and 0
+           (a 1536-token prompt arriving at iteration 5 among 3 residents:
+           max and p99 step wall after it), and speculative decoding (8
+           short prompts x 64 tokens: gamma 0/2/4/6 with the n-gram
+           drafter and the ModelDrafter at 2; the best gamma stored in a
+           temporary autotune cache and read back by speculative=-1);
 10. train_grad_f32  one forward and backward of a 2-layer cut of the model
            at full width in f32, through K1-K3 on the card and through the
            plain versions on the CPU, every gradient compared;
@@ -2676,6 +2697,37 @@ def top2_gap(torch, model, prefix):
     return float(top[0] - top[1])
 
 
+def hold_to_generate(torch, np, model, reqs, res, refs):
+    """serve_f32's rule for each request: the engine's output equals the
+    model's dense-cache ``generate``, or first differs where generate's
+    top-2 logit gap is under 1e-3 (a near-tie). ``refs`` keeps generate's
+    outputs by prompt and length across arms. Returns one row a request."""
+    rows = []
+    for r in reqs:
+        seq = res[r.rid]
+        check(seq.status.value == "finished", f"{r.rid}: {seq.status}")
+        key = (r.prompt_ids.tobytes(), r.max_new_tokens)
+        if key not in refs:
+            refs[key] = model.generate(
+                torch.as_tensor(r.prompt_ids, device="cuda")[None].long(),
+                max_new_tokens=r.max_new_tokens)[0].cpu().numpy()
+        want, got = refs[key], seq.output
+        check(got.shape == want.shape, f"{r.rid}: shape {got.shape}")
+        diff = np.nonzero(got != want)[0]
+        row = {"rid": r.rid, "prompt": int(r.prompt_ids.size),
+               "exact": diff.size == 0}
+        if diff.size:
+            pos = int(diff[0])
+            gap = top2_gap(torch, model, want[:pos])
+            row.update(first_mismatch=pos - int(r.prompt_ids.size),
+                       engine_token=int(got[pos]),
+                       generate_token=int(want[pos]), top2_gap=gap)
+            check(gap < 1e-3, f"f32 serve differs from generate beyond a "
+                              f"near-tie: {row}")
+        rows.append(row)
+    return rows
+
+
 def phase_serve_f32(torch, np, hfa, model, Request, ServingEngine):
     rng = np.random.default_rng(1)
     vocab, n_layers = model.cfg.vocab_size, model.cfg.num_layers
@@ -2693,25 +2745,7 @@ def phase_serve_f32(torch, np, hfa, model, Request, ServingEngine):
           f"f32 serve: {launches} launches of K1's f32 body (and "
           f"{hfa.flash_fwd_tc.launches} of its bf16 body) for "
           f"{engine.n_prefills} prefills")
-    rows = []
-    for r in reqs:
-        got = res[r.rid].output
-        want = model.generate(
-            torch.as_tensor(r.prompt_ids, device="cuda")[None].long(),
-            max_new_tokens=16)[0].cpu().numpy()
-        check(got.shape == want.shape, f"{r.rid}: shape {got.shape}")
-        diff = np.nonzero(got != want)[0]
-        row = {"rid": r.rid, "prompt": int(r.prompt_ids.size),
-               "exact": diff.size == 0}
-        if diff.size:
-            pos = int(diff[0])
-            gap = top2_gap(torch, model, want[:pos])
-            row.update(first_mismatch=pos - int(r.prompt_ids.size),
-                       engine_token=int(got[pos]),
-                       generate_token=int(want[pos]), top2_gap=gap)
-            check(gap < 1e-3, f"f32 serve differs from generate beyond a "
-                              f"near-tie: {row}")
-        rows.append(row)
+    rows = hold_to_generate(torch, np, model, reqs, res, {})
     emit({"phase": "serve_f32", "model": "gpt3_1p3b", "layers": n_layers,
           "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
           "prefills": engine.n_prefills, "k1_launches": launches,
@@ -2798,6 +2832,358 @@ def phase_serve_bf16(torch, np, hfa, model, Request, ServingEngine,
           "decode_step_p50_ms": percentile(engine.decode_ms, 50),
           "decode_step_p99_ms": percentile(engine.decode_ms, 99)})
     return {"flash_fwd_tc": launches, **others}, num_blocks
+
+
+# -- serve_tiers --------------------------------------------------------------
+
+def path_counts(hfa, hfp, hc, fmb):
+    """Every kernel's launch count: K1-K4's bodies, K5-K8, K9."""
+    return {**k4_counts(hfa, hfp), **conv_counts(hc),
+            "fused_matmul_bn_fwd": fmb.fused_matmul_bn_fwd.launches}
+
+
+def count_delta(before, after, allowed, what):
+    """The launches between two ``path_counts``; only ``allowed`` may
+    have launched."""
+    delta = {n: after[n] - before[n] for n in after}
+    stray = {n: d for n, d in delta.items() if d and n != allowed}
+    check(not stray, f"{what} launched other kernels: {stray}")
+    return delta
+
+
+def tree_only(engine):
+    """After a drain the allocator holds only the prefix tree's blocks,
+    each by the tree's own ref; returns their count."""
+    alloc = engine.cache.allocator
+    held = (engine.prefix.device_block_ids() if engine.prefix is not None
+            else frozenset())
+    check(alloc.n_used == len(held) and
+          all(alloc.refcount(i) == 1 for i in held),
+          f"after the drain the pool holds {alloc.n_used} blocks, the "
+          f"tree {len(held)}")
+    return len(held)
+
+
+def draft_model(GPTForCausalLM, gpt3_1p3b, model):
+    """A 2-layer GPT at the target's width whose embeddings, first two
+    blocks and final LayerNorm are the target's."""
+    dm = GPTForCausalLM(gpt3_1p3b(num_layers=2), device="cuda",
+                        dtype=model.gpt.wte.weight.dtype, seed=1)
+    dm.load_state_dict({k: v for k, v in model.state_dict().items()
+                        if not k.startswith("gpt.h.")
+                        or int(k.split(".")[2]) < 2})
+    return dm
+
+
+def shared_trace(np, Request, vocab, n, plen, shared_len, new, seed,
+                 shift=0, rid="p"):
+    """``n`` prompts of ``plen`` tokens opening on one shared prefix of
+    ``shared_len`` tokens; ``shift`` rotates every token id (distinct
+    tokens for warm passes, as bench.py's prefix leg warms)."""
+    rng = np.random.default_rng(seed)
+    shared = (rng.integers(0, vocab, shared_len) + shift) % vocab
+    return [Request(rid=f"{rid}{i}s{shift}", prompt_ids=np.concatenate(
+        [shared, (rng.integers(0, vocab, max(1, plen - shared_len)) + shift)
+         % vocab]), max_new_tokens=new) for i in range(n)]
+
+
+def drive(engine, reqs, late=None, at=0):
+    """Serve ``reqs``, submitting ``late`` before iteration ``at``; returns
+    the results and each iteration's ``step()`` wall in ms."""
+    for r in reqs:
+        engine.submit(r)
+    res, steps_ms, it = {}, [], 0
+    while engine.sched.n_pending or late is not None:
+        if late is not None and it == at:
+            engine.submit(late)
+            late = None
+        t0 = time.perf_counter()
+        for seq in engine.step():
+            res[seq.rid] = seq
+        steps_ms.append((time.perf_counter() - t0) * 1e3)
+        it += 1
+    return res, steps_ms
+
+
+def phase_serve_tiers_f32(torch, np, hfa, hfp, hc, fmb, model, Request,
+                          ServingEngine, ModelDrafter, GPTForCausalLM,
+                          gpt3_1p3b):
+    """The three tiers, alone and composed, on the f32 model (all its
+    layers), each output held to generate by serve_f32's rule. K1's f32
+    body runs exactly once a layer for each cold one-shot prefill (the
+    drafter's prompt KV goes through its extend step, as JAX's does)."""
+    n_layers, vocab = model.cfg.num_layers, model.cfg.vocab_size
+    bs, refs, arms = 16, {}, []
+    before = path_counts(hfa, hfp, hc, fmb)
+    rng = np.random.default_rng(3)
+
+    def arm(name, engine, reqs, late=None, at=0, first=()):
+        res = engine.serve(list(first))
+        res.update(drive(engine, reqs, late, at)[0])
+        torch.cuda.synchronize()
+        rows = hold_to_generate(torch, np, model, list(first) + reqs +
+                                ([late] if late else []), res, refs)
+        row = {"arm": name, "k1_prefills": engine.n_prefills,
+               "extend_prefills": engine.n_extend_prefills,
+               "preemptions": engine.n_preemptions,
+               "tree_blocks_after_drain": tree_only(engine),
+               "exact": sum(r["exact"] for r in rows), "requests": rows}
+        if engine.prefix is not None:
+            row["prefix"] = engine.prefix_report()
+        if engine.spec_gamma:
+            row["spec"] = engine.spec_report()
+        arms.append(row)
+        return row
+
+    def engine(**kw):
+        return ServingEngine(model, block_size=bs, max_batch=4,
+                             device="cuda", **{"num_blocks": 160,
+                                               "max_seq_len": 512, **kw})
+
+    # prefix: 4 prompts of 256 tokens on a 208-token (13-block, 81%) prefix
+    prefix = shared_trace(np, Request, vocab, 4, 256, 208, 8, seed=4)
+    row = arm("prefix", engine(prefix_cache=True), prefix)
+    check(row["k1_prefills"] == 1 and row["prefix"]["hit_tokens"] == 3 * 208,
+          f"prefix arm: {row['k1_prefills']} cold prefills, "
+          f"{row['prefix']['hit_tokens']} hit tokens")
+    # chunked at 64: a 480-token prompt arrives among 3 short residents
+    short = [Request(rid=f"c{i}", prompt_ids=rng.integers(0, vocab, n),
+                     max_new_tokens=24) for i, n in enumerate((40, 56, 72))]
+    long_req = Request(rid="c_long", prompt_ids=rng.integers(0, vocab, 480),
+                       max_new_tokens=8)
+    row = arm("chunked", engine(chunked_prefill=64), short, long_req, 3)
+    n_chunks = sum(-(-r.prompt_ids.size // 64) for r in short + [long_req])
+    check(row["k1_prefills"] == 0 and row["extend_prefills"] == n_chunks,
+          f"chunked arm: {row['k1_prefills']} one-shot prefills, "
+          f"{row['extend_prefills']} chunks")
+    # the n-gram drafter at gamma 4
+    spec = [Request(rid=f"n{i}", prompt_ids=rng.integers(0, vocab, n),
+                    max_new_tokens=16) for i, n in enumerate((96, 160, 200))]
+    row = arm("ngram_g4", engine(speculative=4), spec)
+    check(row["spec"]["iterations"] > 0, "n-gram arm never verified")
+    # a ModelDrafter at gamma 2 under pool pressure: 3 of 4 prompts of 200
+    # tokens fit 40 blocks, and each needs a 14th before it finishes
+    dm = draft_model(GPTForCausalLM, gpt3_1p3b, model)
+    pressed = [Request(rid=f"m{i}", prompt_ids=rng.integers(0, vocab, 200),
+                       max_new_tokens=16) for i in range(4)]
+    row = arm("model_drafter_g2", engine(
+        num_blocks=41, max_seq_len=256, speculative=2,
+        drafter=ModelDrafter(dm)), pressed)
+    check(row["preemptions"] >= 1, "the drafter arm never preempted")
+    del dm
+    # all three composed on a shared-prefix trace; the first request is
+    # served alone, so that its chunks fill the tree the others attach to
+    comp = shared_trace(np, Request, vocab, 4, 256, 208, 8, seed=5, rid="x")
+    row = arm("composed", engine(prefix_cache=True, chunked_prefill=64,
+                                 speculative=4), comp[1:], first=comp[:1])
+    check(row["prefix"]["hit_tokens"] > 0 and row["spec"]["iterations"] > 0,
+          "the composed arm hit no prefix or never verified")
+    torch.cuda.empty_cache()
+    delta = count_delta(before, path_counts(hfa, hfp, hc, fmb),
+                        "flash_fwd", "serve_tiers (f32)")
+    cold = sum(a["k1_prefills"] for a in arms)
+    check(delta["flash_fwd"] == cold * n_layers,
+          f"serve_tiers f32: {delta['flash_fwd']} launches of K1's f32 body "
+          f"for {cold} cold one-shot prefills")
+    emit({"phase": "serve_tiers", "part": "f32", "model": "gpt3_1p3b",
+          "layers": n_layers, "block_size": bs,
+          "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "k1_launches": delta["flash_fwd"], "cold_prefills": cold,
+          "arms": arms})
+    return delta
+
+
+def equal_outputs(np, res, base):
+    """How many requests of ``res`` equal the flag-off arm's ``base``."""
+    return sum(int(np.array_equal(res[rid].output, base[rid].output))
+               for rid in base) if base else None
+
+
+def bf16_checked(res, reqs, vocab):
+    """Every request finished with its length and in-range token ids."""
+    for r in reqs:
+        seq = res[r.rid]
+        check(seq.status.value == "finished", f"{r.rid}: {seq.status}")
+        check(seq.n_generated == r.max_new_tokens,
+              f"{r.rid}: {seq.n_generated} tokens")
+        out = seq.output[r.prompt_ids.size:]
+        check(bool(((out >= 0) & (out < vocab)).all()),
+              f"{r.rid}: token ids out of range")
+    return res
+
+
+def phase_serve_tiers_bf16(torch, np, hfa, hfp, hc, fmb, model, Request,
+                           ServingEngine, ModelDrafter, GPTForCausalLM,
+                           gpt3_1p3b, smi_line):
+    """bench.py's three tier legs (``bench_serve_throughput_tiers``)
+    scaled to the bf16 model, timed on the host clock around ``serve`` and
+    each ``step()`` (each returns tokens to the host)."""
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.ops._hopper import autotune
+    from paddle_tpu_torch.serving import engine as serving_engine
+    from paddle_tpu_torch.serving import store_gamma
+    vocab, n_layers = model.cfg.vocab_size, model.cfg.num_layers
+    bs = 16
+    before = path_counts(hfa, hfp, hc, fmb)
+    cold = 0
+
+    # -- prefix: 8 users, 1024-token prompts, 8 new tokens -------------------
+    plen, new, users = 1024, 8, 8
+    curve = []
+    for ratio in (0.0, 0.5, 0.8):
+        sl = int(round(ratio * plen / bs)) * bs
+        arms, base = {}, None
+        for on in (False, True):
+            eng = ServingEngine(model, block_size=bs, num_blocks=400,
+                                max_batch=4, max_seq_len=plen + 16,
+                                prefix_cache=on, device="cuda")
+            for shift in (7, 29):       # distinct-token warm passes
+                eng.serve(shared_trace(np, Request, vocab, users, plen, sl,
+                                       new, 17, shift, rid="u"))
+            eng.reset_peaks()
+            n0, p0, d0 = eng.n_prefills, eng.prefill_s, len(eng.decode_ms)
+            ev0 = eng.prefix.evictions if on else 0
+            trace = shared_trace(np, Request, vocab, users, plen, sl, new,
+                                 17, rid="u")
+            t0 = time.perf_counter()
+            res = eng.serve(trace)
+            wall = time.perf_counter() - t0
+            bf16_checked(res, trace, vocab)
+            cold += eng.n_prefills
+            # the timed pass's wall: prefill steps (K1 or extend), decode
+            # steps, and the rest (admission, the tree's walks, evictions)
+            prefill_s = eng.prefill_s - p0
+            decode_s = sum(eng.decode_ms[d0:]) / 1e3
+            arms[on] = {"tokens_per_s": users * new / wall, "wall_s": wall,
+                        "prefill_s": prefill_s, "decode_s": decode_s,
+                        "other_s": wall - prefill_s - decode_s,
+                        "peak_live_blocks": eng.peak_live_blocks,
+                        "peak_blocks_used": eng.peak_blocks_used,
+                        "timed_k1_prefills": eng.n_prefills - n0,
+                        "equal_to_off": equal_outputs(np, res, base)}
+            if on:
+                rep = eng.prefix_report()
+                arms[on].update(hit_rate=rep["hit_rate"],
+                                tree_nodes=rep["tree_nodes"],
+                                timed_evictions=eng.prefix.evictions - ev0)
+            base = res
+            del eng
+        curve.append({
+            "share_ratio": ratio, "shared_tokens": sl,
+            "off": arms[False], "on": arms[True],
+            "speedup": arms[True]["tokens_per_s"] /
+            arms[False]["tokens_per_s"],
+            "blocks_reduction": arms[False]["peak_live_blocks"] /
+            max(arms[True]["peak_live_blocks"], 1)})
+    check(curve[-1]["blocks_reduction"] >= 2.0,
+          f"prefix cache cut peak live blocks only "
+          f"{curve[-1]['blocks_reduction']:.3f}x at 80% share")
+    torch.cuda.empty_cache()
+
+    # -- chunked: a 1536-token prompt arrives at iteration 5 -----------------
+    rng = np.random.default_rng(5)
+    residents = [Request(rid=f"d{i}", prompt_ids=rng.integers(0, vocab, 64),
+                         max_new_tokens=64) for i in range(3)]
+    long_req = Request(rid="long", prompt_ids=rng.integers(0, vocab, 1536),
+                       max_new_tokens=2)
+    chunked, base = {}, None
+    for budget in (0, 256):
+        eng = ServingEngine(model, block_size=bs, num_blocks=200,
+                            max_batch=4, max_seq_len=1552,
+                            chunked_prefill=budget, device="cuda")
+        drive(eng, residents, long_req, 5)          # warm: the same shapes
+        res, steps = drive(eng, residents, long_req, 5)
+        bf16_checked(res, residents + [long_req], vocab)
+        cold += eng.n_prefills
+        tail = steps[5:]
+        chunked[budget] = {"max_step_ms": max(tail),
+                           "p99_step_ms": percentile(tail, 99),
+                           "p50_step_ms": percentile(tail, 50),
+                           "iterations": len(steps),
+                           "equal_to_off": equal_outputs(np, res, base)}
+        base = res
+        del eng
+    torch.cuda.empty_cache()
+
+    # -- speculative: 8 requests of 8-16 tokens x 64 new ---------------------
+    r9 = np.random.default_rng(9)
+    spec_reqs = [Request(rid=f"s{i}", prompt_ids=r9.integers(
+        0, vocab, int(r9.integers(8, 17))), max_new_tokens=64)
+        for i in range(8)]
+    dm = draft_model(GPTForCausalLM, gpt3_1p3b, model)
+    spec, base = [], None
+    for name, gamma, drafter in (("off", 0, None), ("ngram", 2, None),
+                                 ("ngram", 4, None), ("ngram", 6, None),
+                                 ("model", 2, ModelDrafter(dm))):
+        eng = ServingEngine(model, block_size=bs, num_blocks=64,
+                            max_batch=8, max_seq_len=96, speculative=gamma,
+                            drafter=drafter, device="cuda")
+        eng.serve(spec_reqs)                        # warm: the same trace
+        d0 = len(eng.decode_ms)
+        t0 = time.perf_counter()
+        res = eng.serve(spec_reqs)
+        wall = time.perf_counter() - t0
+        bf16_checked(res, spec_reqs, vocab)
+        cold += eng.n_prefills
+        steps = eng.decode_ms[d0:]
+        row = {"drafter": name, "gamma": gamma,
+               "tokens_per_s": 8 * 64 / wall, "wall_s": wall,
+               "timed_steps": len(steps),
+               "step_p50_ms": percentile(steps, 50),
+               "equal_to_off": equal_outputs(np, res, base)}
+        if gamma:
+            rep = eng.spec_report()
+            row.update({k: rep[k] for k in (
+                "accept_rate", "mean_accept_len", "tokens_per_verify",
+                "iterations")})
+            row["speedup"] = row["tokens_per_s"] / spec[0]["tokens_per_s"]
+        spec.append(row)
+        if not gamma:
+            base = res
+        del eng
+    del dm
+    best = max((r for r in spec if r["drafter"] == "ngram"),
+               key=lambda r: r["tokens_per_s"])
+    # the best gamma round trip through a temporary autotune cache
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_autotune_")
+    old = autotune._cache
+    flags.set_flags({"kernel_autotune_cache_path":
+                     os.path.join(tmp, "autotune.json")})
+    autotune._cache = None
+    try:
+        store_gamma(serving_engine._model_desc(model.cfg), "ngram",
+                    best["gamma"],
+                    measured_ms=1e3 / best["tokens_per_s"])
+        read = ServingEngine(model, block_size=bs, num_blocks=64,
+                             max_batch=8, max_seq_len=96, speculative=-1,
+                             device="cuda").spec_gamma
+    finally:
+        flags.set_flags({"kernel_autotune_cache_path": ""})
+        autotune._cache = old
+        for f in os.listdir(tmp):
+            os.remove(os.path.join(tmp, f))
+        os.rmdir(tmp)
+    check(read == best["gamma"],
+          f"speculative=-1 read gamma {read}, stored {best['gamma']}")
+    torch.cuda.empty_cache()
+
+    delta = count_delta(before, path_counts(hfa, hfp, hc, fmb),
+                        "flash_fwd_tc", "serve_tiers (bf16)")
+    check(delta["flash_fwd_tc"] == cold * n_layers,
+          f"serve_tiers bf16: {delta['flash_fwd_tc']} launches of K1's "
+          f"tensor-core body for {cold} cold one-shot prefills")
+    emit({"phase": "serve_tiers", "part": "bf16", "model": "gpt3_1p3b",
+          "layers": n_layers, "block_size": bs, "card": smi_line,
+          "k1_launches": delta["flash_fwd_tc"], "cold_prefills": cold,
+          "prefix": {"prompt": plen, "new_tokens": new, "users": users,
+                     "max_batch": 4, "curve": curve},
+          "chunked": {"residents": "3 x 64 tokens x 64 new",
+                      "long_prompt": 1536, "arrives_at_iteration": 5,
+                      "budget_0": chunked[0], "budget_256": chunked[256]},
+          "speculative": {"requests": "8 x 8-16 tokens x 64 new",
+                          "arms": spec, "best_ngram_gamma": best["gamma"],
+                          "autotune_read_back": read}})
+    return delta
 
 
 def device_profile(prof, wall_ms):
@@ -5505,7 +5891,8 @@ def main() -> int:
         from paddle_tpu_torch.ops._hopper import flash_attention as hfa
         from paddle_tpu_torch.ops._hopper import flash_attention_packed as hfp
         from paddle_tpu_torch.optimizer import AdamW
-        from paddle_tpu_torch.serving import Request, ServingEngine
+        from paddle_tpu_torch.serving import (ModelDrafter, Request,
+                                              ServingEngine)
         from paddle_tpu_torch.text.models.bert import (BertForPretraining,
                                                        bert_base)
         from paddle_tpu_torch.text.models.gpt import (GPTForCausalLM,
@@ -5580,11 +5967,17 @@ def main() -> int:
                            seed=0)
     f32_serve_launches = phase_serve_f32(torch, np, hfa, model, Request,
                                          ServingEngine)
+    tiers_f32 = phase_serve_tiers_f32(torch, np, hfa, hfp, hc, fmb, model,
+                                      Request, ServingEngine, ModelDrafter,
+                                      GPTForCausalLM, gpt3_1p3b)
     model = model.to(torch.bfloat16)
     torch.cuda.empty_cache()
     serve_launches, num_blocks = phase_serve_bf16(
         torch, np, hfa, model, Request, ServingEngine, GPTForCausalLM,
         gpt_tiny)
+    tiers_bf16 = phase_serve_tiers_bf16(
+        torch, np, hfa, hfp, hc, fmb, model, Request, ServingEngine,
+        ModelDrafter, GPTForCausalLM, gpt3_1p3b, smi_line)
     if profile:
         phase_profile(torch, np, model, Request, ServingEngine, num_blocks)
     del model   # the serving engines and their pools are gone with it
@@ -5865,6 +6258,8 @@ def main() -> int:
             "o1_f16_launches": o1_launches.get(name, 0),
             "varlen_launches": varlen_launches["varlen"].get(name, 0),
             "lse_launches": varlen_launches["lse"].get(name, 0),
+            "tiers_f32_launches": tiers_f32.get(name, 0),
+            "tiers_bf16_launches": tiers_bf16.get(name, 0),
             "max_abs_err": err, "max_err": err,
             "stats_rel_err": stats_conv.get(name),
             "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
@@ -5932,6 +6327,8 @@ def main() -> int:
                     "conv1x1_tc_kernel (bf16, float16; conv1x1_kernel in "
                     "float32) through paddle_fused_matmul_bn_fwd",
         "launches": k9_launches, "k9_path_launches": k9_launches,
+        "tiers_f32_launches": tiers_f32["fused_matmul_bn_fwd"],
+        "tiers_bf16_launches": tiers_bf16["fused_matmul_bn_fwd"],
         "max_abs_err": worst_k9, "max_err": worst_k9,
         "stats_rel_err": None,
         "ms": timing_k9["kernel_ms"], "kernel_ms": timing_k9["kernel_ms"],

@@ -3,7 +3,7 @@ the port reads).
 
 ``set_flags({"FLAGS_pallas_conv": 1})`` and ``get_flags(["pallas_conv"])``
 work as in the JAX package, under the same names, so a caller's settings
-carry over. Four flags are defined, with JAX's defaults:
+carry over. These flags are defined, with JAX's defaults:
 
 - ``fused_conv_bn``: ResNet blocks in training take the deferred-BN units of
   :mod:`paddle_tpu_torch.nn.fused_conv_bn`;
@@ -14,7 +14,13 @@ carry over. Four flags are defined, with JAX's defaults:
   head-dim-64 kernels (``ops/_hopper/flash_attention_packed.py``); at 0 it
   takes K1-K3, as in JAX;
 - ``amp_dtype`` (``"bfloat16"``): the dtype :func:`paddle_tpu_torch.amp.
-  decorate` casts to when it is given none.
+  decorate` casts to when it is given none;
+- ``serve_prefix_cache``, ``serve_chunked_prefill``, ``serve_speculative``:
+  the serving engine's three throughput tiers, read when the engine's own
+  argument is ``None`` (all off);
+- ``kernel_autotune`` (on) and ``kernel_autotune_cache_path`` (``""``: the
+  default file): the autotune cache of :mod:`paddle_tpu_torch.ops._hopper.
+  autotune`, which ``serve_speculative=-1`` reads.
 
 Unlike the JAX registry, no ``FLAGS_*`` environment variable is read.
 """
@@ -89,3 +95,32 @@ define_flag("flash_head_pack", 1,
             "route d=64 dense-head attention to the head-packed kernel")
 define_flag("amp_dtype", "bfloat16",
             "Preferred mixed-precision compute dtype.")
+define_flag("serve_prefix_cache", False,
+            "Radix prefix-sharing KV cache (serving/prefix_tree.py): "
+            "requests whose prompts share a full-block prefix attach to "
+            "the same immutable pages copy-on-write (refcounted "
+            "BlockAllocator; only the partial tail block is private), "
+            "eviction is LRU over refcount-0 trie leaves with a one-copy "
+            "host spill tier. Off (default) keeps the engine "
+            "byte-identical to the private-KV path.")
+define_flag("serve_chunked_prefill", 0,
+            "Chunked-prefill token budget for the serving engine: 0 "
+            "(default) prefills every prompt in one bucketed dispatch "
+            "(byte-identical to the pre-chunking engine); N > 0 splits "
+            "prompts longer than N tokens into N-token chunks "
+            "interleaved with the decode iterations so a long prompt "
+            "no longer stalls resident decodes (N is rounded down to a "
+            "multiple of the engine block size).")
+define_flag("serve_speculative", 0,
+            "Speculative-decoding draft depth (gamma) for the serving "
+            "engine: 0 (default) decodes one token per iteration "
+            "(byte-identical); N > 0 proposes N tokens per iteration "
+            "from the drafter (NGramDrafter by default, or a "
+            "ModelDrafter over a mirrored paged pool) and verifies them "
+            "in ONE bucketed decode-gamma dispatch with the greedy "
+            "accept-prefix rule; -1 consults the persistent autotune "
+            "cache's accepted-length-derived gamma (falls back to 4).")
+define_flag("kernel_autotune", 1,
+            "consult the persistent kernel-autotune cache")
+define_flag("kernel_autotune_cache_path", "",
+            "override the autotune cache file location")

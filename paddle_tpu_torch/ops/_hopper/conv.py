@@ -60,8 +60,8 @@ function.
 On a CUDA tensor each wrapper launches its kernel, or raises on anything it
 does not take; each launch adds one to the wrapper's ``launches``. On a CPU
 tensor the plain PyTorch versions (``*_reference``) run instead. Nothing
-falls back from one to the other. ``tune_conv_shapes`` and the autotune
-cache are not ported yet (ROADMAP Queue 1).
+falls back from one to the other. The autotune cache is ``autotune.py``;
+``tune_conv_shapes`` is not ported yet (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations

@@ -28,6 +28,7 @@ from paddle_tpu_torch import amp as tamp
 from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch.convert import from_jax_state_dict, to_jax_state_dict
 from paddle_tpu_torch.text.models import gpt as tgpt
+from _torch_threads import one_torch_thread  # noqa: F401
 
 jauto_cast = importlib.import_module("paddle_tpu.amp.auto_cast")
 jgs = importlib.import_module("paddle_tpu.amp.grad_scaler")

@@ -33,6 +33,7 @@ from paddle_tpu_torch.framework import make_sharded_train_step
 from paddle_tpu_torch.nn import (MultiHeadAttention, TransformerEncoder,
                                  TransformerEncoderLayer)
 from paddle_tpu_torch.text.models.bert import BertForPretraining, bert_tiny
+from _torch_threads import one_torch_thread  # noqa: F401
 
 B, S, VOCAB = 2, 128, 1024    # B != S: a [B, S] mask is a key mask
 TINY = dict(num_heads=2, hidden_dropout=0.0, attention_dropout=0.0)

@@ -28,6 +28,7 @@ from paddle_tpu.ops._pallas import conv as pconv
 from paddle_tpu_torch.core import flags as tflags
 from paddle_tpu_torch.nn import fused_conv_bn as TFCB
 from paddle_tpu_torch.ops._hopper import conv as hc
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def rand(*shape, key, scale=1.0):
@@ -300,9 +301,26 @@ def _unit_inputs(kind, stride):
                 cot8=rand(2, 8, 8, 8, key=26))
 
 
+def _jax_value_and_grad(fn, cot, argnums):
+    """One jitted forward and backward: ``fn``'s outputs and the gradients
+    of ``sum(first output * cot)``."""
+    def loss(*a):
+        outs = fn(*a)
+        first = outs[0] if isinstance(outs, tuple) else outs
+        return jnp.sum(first * cot), outs
+    vg = jax.jit(jax.value_and_grad(loss, argnums=argnums, has_aux=True))
+
+    def run(*a):
+        (_, outs), grads = vg(*a)
+        return (tuple(outs) if isinstance(outs, tuple) else (outs,)) + \
+            tuple(grads)
+    return run
+
+
 def _jax_units(kind, stride, pallas):
     """JAX's units (fused_conv_bn=1) with the Pallas route on or off:
-    outputs, stats and the gradients of sum(out * cot)."""
+    outputs, stats and the gradients of sum(out * cot), each unit's
+    forward and backward jitted."""
     d = _unit_inputs(kind, stride)
     prev = jflags.get_flags(["fused_conv_bn", "pallas_conv"])
     jflags.set_flags({"fused_conv_bn": 1, "pallas_conv": int(pallas)})
@@ -312,26 +330,20 @@ def _jax_units(kind, stride, pallas):
         cot, cot8 = jnp.asarray(d["cot"]), jnp.asarray(d["cot8"])
         s, ss = JFCB.channel_stats(u)
         st, pd = d["stride"], d["padding"]
-        out = {}
-        o, so, sso = JFCB.conv_stats(x, w, st, pd)
-        out["conv_stats"] = (o, so, sso) + tuple(jax.grad(
-            lambda x, w: jnp.sum(JFCB.conv_stats(x, w, st, pd)[0] * cot),
-            argnums=(0, 1))(x, w))
+        out = {"conv_stats": _jax_value_and_grad(
+            lambda x, w: JFCB.conv_stats(x, w, st, pd), cot, (0, 1))(x, w)}
         for act in ("relu", "none"):
             fn = lambda u, g, b, w, act=act: JFCB.conv_bn_act(
                 u, g, b, s, ss, w, 1e-5, act, st, pd)
-            o, so, sso = fn(u, g, b, w)
-            out[f"conv_bn_act_{act}"] = (o, so, sso) + tuple(jax.grad(
-                lambda *a: jnp.sum(fn(*a)[0] * cot),
-                argnums=(0, 1, 2, 3))(u, g, b, w))
+            out[f"conv_bn_act_{act}"] = _jax_value_and_grad(
+                fn, cot, (0, 1, 2, 3))(u, g, b, w)
         f3 = lambda u, g, b: JFCB.bn_act_from_stats(u, g, b, s, ss, 1e-5,
                                                      "relu")
-        out["bn_act_from_stats"] = (f3(u, g, b),) + tuple(jax.grad(
-            lambda *a: jnp.sum(f3(*a) * cot8), argnums=(0, 1, 2))(u, g, b))
+        out["bn_act_from_stats"] = _jax_value_and_grad(
+            f3, cot8, (0, 1, 2))(u, g, b)
         f4 = lambda u, g, b, r: JFCB.bn_add_act(u, g, b, s, ss, r, 1e-5)
-        out["bn_add_act"] = (f4(u, g, b, res),) + tuple(jax.grad(
-            lambda *a: jnp.sum(f4(*a) * cot8),
-            argnums=(0, 1, 2, 3))(u, g, b, res))
+        out["bn_add_act"] = _jax_value_and_grad(
+            f4, cot8, (0, 1, 2, 3))(u, g, b, res)
         return {k: tuple(_np(t) for t in v) for k, v in out.items()}
     finally:
         jflags.set_flags(prev)

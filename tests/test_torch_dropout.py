@@ -38,6 +38,7 @@ from paddle_tpu.framework.functional import functional_call, get_params
 from paddle_tpu_torch.convert import from_jax_state_dict, to_jax_state_dict
 
 from test_torch_flash_stream import COUNTERPART, jax_pallas, port_forms
+from _torch_threads import one_torch_thread  # noqa: F401
 
 jfa = importlib.import_module("paddle_tpu.ops._pallas.flash_attention")
 jops = importlib.import_module("paddle_tpu.ops.flash_attention")
@@ -476,10 +477,11 @@ def test_gpt_with_attention_dropout_matches_the_jax_dense_mirror(
     labels = rng.integers(0, 1024, (2, 64)).astype(np.int32)
     seeds = [101, 202, 101, 202]
     with pinned_seeds(monkeypatch, seeds) as left:
-        want_logits = functional_call(jm, get_params(jm), jnp.asarray(ids),
-                                      training=True)
-        want_loss, want = jax.value_and_grad(lambda p: functional_call(
-            jm, p, jnp.asarray(ids), jnp.asarray(labels), training=True))(
+        want_logits = jax.jit(lambda p: functional_call(
+            jm, p, jnp.asarray(ids), training=True))(get_params(jm))
+        want_loss, want = jax.jit(jax.value_and_grad(
+            lambda p: functional_call(jm, p, jnp.asarray(ids),
+                                      jnp.asarray(labels), training=True)))(
                 get_params(jm))
         tm.train()
         got_logits = tm(torch.from_numpy(ids).long())
@@ -517,8 +519,9 @@ def _model_case(monkeypatch, jm, tm, jargs, targs, n_layers):
     seeds = [1000 + i for i in range(n_layers)]
     with pinned_seeds(monkeypatch, seeds) as left, \
             jax_on_the_kernels(monkeypatch):
-        want_loss, want = jax.value_and_grad(lambda p: functional_call(
-            jm, p, *jargs, training=True))(get_params(jm))
+        want_loss, want = jax.jit(jax.value_and_grad(
+            lambda p: functional_call(jm, p, *jargs, training=True)))(
+                get_params(jm))
         with port_forms() as ran:
             tm.train()
             loss = tm(*targs)

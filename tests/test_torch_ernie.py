@@ -40,6 +40,7 @@ from paddle_tpu_torch.distributed.fleet.meta_parallel import (
     LayerDesc, PipelineLayer, SharedLayerDesc)
 from paddle_tpu_torch.nn.functional import cross_entropy
 from paddle_tpu_torch.text.models import ernie as ternie
+from _torch_threads import one_torch_thread  # noqa: F401
 
 hfp = importlib.import_module(
     "paddle_tpu_torch.ops._hopper.flash_attention_packed")

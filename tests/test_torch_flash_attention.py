@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 # the packages' ops/__init__ re-export a function under the module's name
 jfa = importlib.import_module("paddle_tpu.ops.flash_attention")

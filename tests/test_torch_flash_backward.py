@@ -22,6 +22,7 @@ import torch
 
 from test_torch_flash_attention import _inputs, _to_jax, _to_torch, \
     interpreted_pallas
+from _torch_threads import one_torch_thread  # noqa: F401
 
 jfa = importlib.import_module("paddle_tpu.ops.flash_attention")
 tfa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")

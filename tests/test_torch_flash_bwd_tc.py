@@ -44,6 +44,7 @@ import pytest
 import torch
 
 from test_torch_flash_stream_bwd import _agreement
+from _torch_threads import one_torch_thread  # noqa: F401
 
 hfa = importlib.import_module("paddle_tpu_torch.ops._hopper.flash_attention")
 

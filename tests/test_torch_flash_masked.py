@@ -34,6 +34,7 @@ from paddle_tpu_torch.core import flags as tflags
 from paddle_tpu_torch.nn import MultiHeadAttention
 
 from test_torch_flash_attention import interpreted_pallas
+from _torch_threads import one_torch_thread  # noqa: F401
 
 hfa = importlib.import_module("paddle_tpu_torch.ops._hopper.flash_attention")
 TF = importlib.import_module("paddle_tpu_torch.nn.functional")

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from paddle_tpu.nn import functional as JF
+from _torch_threads import one_torch_thread  # noqa: F401
 
 hfp = importlib.import_module(
     "paddle_tpu_torch.ops._hopper.flash_attention_packed")

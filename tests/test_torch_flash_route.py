@@ -44,6 +44,7 @@ from paddle_tpu_torch import amp as tamp
 from paddle_tpu_torch.convert import from_jax_state_dict
 from paddle_tpu_torch.core import flags as tflags
 from paddle_tpu_torch.text.models.gpt import GPTForCausalLM, gpt_tiny
+from _torch_threads import one_torch_thread  # noqa: F401
 
 jfa = importlib.import_module("paddle_tpu.ops.flash_attention")
 tfa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")

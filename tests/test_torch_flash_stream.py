@@ -45,6 +45,7 @@ from paddle_tpu.nn import functional as JF
 from paddle_tpu_torch.convert import from_jax_state_dict, to_jax_state_dict
 from paddle_tpu_torch.core import flags as tflags
 from paddle_tpu_torch.nn import MultiHeadAttention
+from _torch_threads import one_torch_thread  # noqa: F401
 
 hfp = importlib.import_module(
     "paddle_tpu_torch.ops._hopper.flash_attention_packed")

@@ -41,6 +41,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 hfp = importlib.import_module(
     "paddle_tpu_torch.ops._hopper.flash_attention_packed")

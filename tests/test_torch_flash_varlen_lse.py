@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 jfa = importlib.import_module("paddle_tpu.ops.flash_attention")
 tfa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")

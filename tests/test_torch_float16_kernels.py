@@ -30,6 +30,7 @@ from paddle_tpu.ops._pallas import conv as pconv
 from paddle_tpu_torch.core import flags as tflags
 from paddle_tpu_torch.nn import fused_conv_bn as TFCB
 from paddle_tpu_torch.ops._hopper import conv as hc
+from _torch_threads import one_torch_thread  # noqa: F401
 
 jfmb = importlib.import_module("paddle_tpu.ops._pallas.fused_matmul_bn")
 tfmb = importlib.import_module(

@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 jfmb = importlib.import_module("paddle_tpu.ops._pallas.fused_matmul_bn")
 tfmb = importlib.import_module(

@@ -17,6 +17,7 @@ from paddle_tpu.text.models.gpt import GPTForCausalLM as JaxGPT
 from paddle_tpu.text.models.gpt import gpt_tiny as jax_gpt_tiny
 from paddle_tpu_torch.convert import from_jax_state_dict
 from paddle_tpu_torch.text.models.gpt import GPTForCausalLM, gpt_tiny
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-4
 VARIANTS = {"mha": {}, "gqa": {"num_kv_heads": 2}}

@@ -46,6 +46,7 @@ from paddle_tpu_torch.vision.models import resnet50
 from paddle_tpu_torch.vision.models.resnet import (BottleneckBlock, ResNet,
                                                    _fold_stem_weight,
                                                    _space_to_depth)
+from _torch_threads import one_torch_thread  # noqa: F401
 
 MODEL = dict(num_classes=10, data_format="NHWC", stem_mode="space_to_depth")
 B, IMG = 4, 32
@@ -129,8 +130,8 @@ def test_bottleneck_block_matches_jax_on_the_kernel_route(stride):
                                       mutable=True, training=True)
             return jnp.sum(out * out), (out, nb)
 
-        (_, (jout, jbuf)), jgrads = jax.value_and_grad(
-            loss_fn, has_aux=True)(params)
+        (_, (jout, jbuf)), jgrads = jax.jit(jax.value_and_grad(
+            loss_fn, has_aux=True))(params)
     calls = {"fwd": 0, "dgrad": 0, "wgrad": 0}
     spies = {name: getattr(hc, f"conv2d_{name}") for name in calls}
 

@@ -30,6 +30,7 @@ from paddle_tpu_torch.serving import (BlockAllocator, NULL_BLOCK,
                                       PagedKVCache, Request, ServingEngine,
                                       Status)
 from paddle_tpu_torch.text.models.gpt import GPTForCausalLM, gpt_tiny
+from _torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MICRO = dict(vocab_size=128, hidden_size=48, num_layers=2, num_heads=4,

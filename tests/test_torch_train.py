@@ -31,6 +31,7 @@ from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
 from paddle_tpu_torch.optimizer import lr as tlr
 from paddle_tpu_torch.text.models.gpt import GPTForCausalLM, gpt_tiny
+from _torch_threads import one_torch_thread  # noqa: F401
 
 VARIANTS = {"mha": {}, "gqa": {"num_kv_heads": 2}}
 SEQ = 32
