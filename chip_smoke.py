@@ -11,7 +11,8 @@ through ``TrainStep``, trains BERT-base (12 layers, hidden 768, 12 heads of
 64, vocab 30522) the same way, trains ResNet-50 at bench.py's config 2 on
 its conv-kernel route, and trains ERNIE-base (12 layers, hidden 768, 12
 heads of 64, vocab 40000) at bench.py's config 5 and at its own 2048-token
-context:
+context, trains and decodes nn.Transformer at Transformer-base width, and
+trains GPT-3 Medium under activation recompute:
 
 1. env     torch, CUDA, nvcc and the card as nvidia-smi names it;
 2. build   the kernels, timed, with ptxas's register and spill report;
@@ -182,6 +183,34 @@ context:
            K3's once a call, the outputs equal to direct K1-K3 calls and
            held against the plain versions, timed beside the documents
            padded to rows of 2048.
+
+22. train_transformer_bf16  nn.Transformer at Transformer-base width
+           (Vaswani et al. 2017, Table 3: 6 + 6 layers, d_model 512, 8 heads
+           of 64, FFN 2048, dropout 0.1, label smoothing 0.1, a shared
+           vocabulary of 37,000) in the smoke's seq2seq wrapper (tied
+           embedding, sinusoid positions, a -1e9 key-padding bias), B=64 x
+           256 a side, AMP-O2, AdamW(beta2=0.98, epsilon=1e-9) on
+           NoamDecay(512, 4000), 2+8 steps at dropout 0.1 and at 0: the
+           encoder self-attention and cross-attention on K4a-direct and
+           K4b-fused (12 each a step), the decoder's causal self-attention
+           dense (6 a step); step p50/p99, target tokens/s, MFU (its FLOP
+           formula in the line), peak memory;
+23. train_grad_f32_transformer  a 2 + 2-layer cut at full width, B=2,
+           source 256, target 128, f32 on the card against the CPU's plain
+           versions (every gradient); K4a-direct and K4b-fused at these
+           attention shapes against their plain versions in bf16 and f32;
+24. decode_transformer  Transformer-base in f32: greedy decoding of 64
+           tokens with TransformerDecoder.gen_cache token-exact against
+           full causal recompute (serve_f32's near-tie rule), beam 4 over
+           64 steps through dynamic_decode with caches and without (the
+           same tokens and scores); bf16's agreement printed; ms a decode
+           step with and without caches;
+25. train_recompute_k4_bf16  GPT-3 Medium (24 layers, d_model 1024, 16
+           heads of 64), B=4 x 2048, AMP-O2, 2+4 steps without recompute,
+           under the default policy and under None: K4's streamed forward
+           24 launches a step under the policy (its (o, lse) kept), 48
+           under None; step p50 and peak memory of each; a 2-layer f32 cut
+           bit-equal with and without the policy.
 
 Attention-prob dropout and K9 (after phase 7, in this order):
 - kernel / kernel_packed / kernel_packed_stream, part "dropout": the nine
@@ -3404,6 +3433,31 @@ def zero_counts(hfa, hfp):
         getattr(hfa if hasattr(hfa, name) else hfp, name).launches = 0
 
 
+def grad_rel_errs(torch, gpu, cpu):
+    """Every gradient of ``gpu``'s parameters against ``cpu``'s, each as its
+    largest difference over its largest |value|: ``(worst tensor, its
+    ratio, the key biases' worst ratio, tensors compared)``. Softmax
+    ignores a constant added to all of a row's scores, so the key bias's
+    true gradient is 0 and both sides hold rounding noise: it is measured
+    on the scale of the key weight's gradient."""
+    worst_name, worst_ratio, key_bias_ratio, rows = None, 0.0, 0.0, 0
+    cpu_params = dict(cpu.named_parameters())
+    for name, p in gpu.named_parameters():
+        g_gpu = p.grad.float().cpu()
+        g_cpu = cpu_params[name].grad.float()
+        check(bool(torch.isfinite(g_gpu).all()), f"{name}: non-finite grad")
+        key_bias = name.endswith("k_proj.bias")
+        scale = float((cpu_params[name[:-4] + "weight"].grad if key_bias
+                       else g_cpu).abs().max())
+        ratio = float((g_gpu - g_cpu).abs().max()) / max(scale, 1e-30)
+        rows += 1
+        if key_bias:
+            key_bias_ratio = max(key_bias_ratio, ratio)
+        if ratio >= worst_ratio:
+            worst_name, worst_ratio = name, ratio
+    return worst_name, worst_ratio, key_bias_ratio, rows
+
+
 def phase_train_grad_f32_bert(torch, np, hfa, hfp, BertForPretraining,
                               bert_base, attention_dropout=0.0,
                               phase="train_grad_f32_bert"):
@@ -3442,25 +3496,8 @@ def phase_train_grad_f32_bert(torch, np, hfa, hfp, BertForPretraining,
     check(launches == {**{n: 0 for n in ATTENTION_KERNELS},
                        "flash_packed_fwd": 2, "flash_packed_bwd": 2},
           f"{phase}: launches {launches}")
-    worst_name, worst_ratio, rows = None, 0.0, 0
-    key_bias_ratio = 0.0
-    cpu_params = dict(cpu.named_parameters())
-    for name, p in gpu.named_parameters():
-        g_gpu = p.grad.float().cpu()
-        g_cpu = cpu_params[name].grad.float()
-        check(bool(torch.isfinite(g_gpu).all()), f"{name}: non-finite grad")
-        scale = float(g_cpu.abs().max())
-        if name.endswith("k_proj.bias"):
-            # softmax ignores a constant added to all of a row's scores, so
-            # the key bias's true gradient is 0 and both sides hold rounding
-            # noise: it is measured on the scale of the key weight's gradient
-            scale = float(cpu_params[name[:-4] + "weight"].grad.abs().max())
-        ratio = float((g_gpu - g_cpu).abs().max()) / max(scale, 1e-30)
-        rows += 1
-        if name.endswith("k_proj.bias"):
-            key_bias_ratio = max(key_bias_ratio, ratio)
-        if ratio >= worst_ratio:
-            worst_name, worst_ratio = name, ratio
+    worst_name, worst_ratio, key_bias_ratio, rows = grad_rel_errs(
+        torch, gpu, cpu)
     loss_err = abs(losses["gpu"][0] - losses["cpu"][0])
     row = {"phase": phase, "model": "bert_base", "layers": 2,
            "attention_dropout": attention_dropout, "hidden_dropout": 0.0,
@@ -5877,6 +5914,498 @@ def phase_flash_varlen_lse(torch, np, hfa, hfp, tfa, peaks):
 
 
 
+# -- the Transformer (encoder-decoder) and K4 under recompute's policy ---------
+
+#: Transformer-base (Vaswani et al. 2017, Table 3 "base"): 6 + 6 layers,
+#: d_model 512, 8 heads of 64, FFN 2048, dropout 0.1, label smoothing 0.1,
+#: the shared WMT14 en-de vocabulary of about 37,000 tokens
+T_BASE = dict(d_model=512, nhead=8, num_encoder_layers=6,
+              num_decoder_layers=6, dim_feedforward=2048, dropout=0.1)
+T_VOCAB, T_PAD, T_BOS, T_EOS, T_SMOOTH, T_LEN = 37000, 0, 1, 2, 0.1, 256
+
+
+def seq2seq(torch, P, device, seed, **over):
+    """The smoke's seq2seq wrapper around ``nn.Transformer`` (smoke code,
+    on the package's public layers only): a shared Embedding of 37,000 x
+    512 drawn from N(0, 512^-0.5) (the pad row zero), scaled by sqrt(512),
+    sinusoid positions, the output projection tied to the embedding, and
+    label-smoothed cross-entropy with the pads ignored. Weights from
+    ``seed`` through the port's key stream."""
+    nn = P.nn
+    cfg = {**T_BASE, **over}
+    d = cfg["d_model"]
+
+    class Seq2Seq(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.emb = nn.Embedding(
+                T_VOCAB, d, padding_idx=T_PAD, weight_attr=nn.ParamAttr(
+                    initializer=nn.initializer.Normal(0.0, d ** -0.5)),
+                device=device)
+            self.transformer = nn.Transformer(**cfg, device=device)
+            pos = torch.arange(1024, dtype=torch.float32)[:, None]
+            rate = torch.pow(10000.0, -torch.arange(
+                0, d, 2, dtype=torch.float32) / d)
+            pe = torch.zeros(1024, d)
+            pe[:, 0::2], pe[:, 1::2] = torch.sin(pos * rate), \
+                torch.cos(pos * rate)
+            self.register_buffer("pe", pe.to(device), persistent=False)
+
+        def embed(self, ids, start=0):
+            return self.emb(ids) * math.sqrt(d) + \
+                self.pe[start:start + ids.shape[1]]
+
+        def logits(self, out):
+            return torch.matmul(out, self.emb.weight.T)
+
+        def forward(self, src, tgt, labels, bias):
+            mask = nn.Transformer.generate_square_subsequent_mask(
+                tgt.shape[1], device=src.device)
+            out = self.transformer(self.embed(src), self.embed(tgt),
+                                   src_mask=bias, tgt_mask=mask,
+                                   memory_mask=bias)
+            return nn.functional.cross_entropy(
+                self.logits(out), labels, ignore_index=T_PAD,
+                label_smoothing=T_SMOOTH)
+
+    P.seed(seed)
+    return Seq2Seq()
+
+
+def t_batch(torch, np, rng, b, ls, lt, device):
+    """``(src, tgt, labels, bias)``: each row's true source and target
+    lengths drawn in [24, length] (no row all padding), ids in [3,
+    vocab), the target ending in EOS, its input shifted right after BOS,
+    pads 0; the source's key padding as a ``[B, 1, 1, S]`` bias of -1e9
+    (``padding_bias``)."""
+    n_src = rng.integers(24, ls + 1, b)
+    n_tgt = rng.integers(24, lt + 1, b)
+    src = rng.integers(3, T_VOCAB, (b, ls))
+    src[np.arange(ls)[None, :] >= n_src[:, None]] = T_PAD
+    labels = rng.integers(3, T_VOCAB, (b, lt))
+    pos = np.arange(lt)[None, :]
+    labels[pos == n_tgt[:, None] - 1] = T_EOS
+    labels[pos >= n_tgt[:, None]] = T_PAD
+    tgt = np.concatenate([np.full((b, 1), T_BOS), labels[:, :-1]], axis=1)
+    tgt[pos >= n_tgt[:, None]] = T_PAD
+    att = torch.as_tensor(np.arange(ls)[None, :] < n_src[:, None],
+                          device=device)
+    bias = padding_bias(torch, att, torch.float32).reshape(b, 1, 1, ls)
+    return tuple(torch.as_tensor(x, device=device) for x in
+                 (src, tgt, labels)) + (bias,)
+
+
+def t_flops(model, b, ls, lt):
+    """FLOPs of one training step: 6 N a position for the products (the
+    encoder's parameters over the source positions, the decoder's and the
+    tied output projection's, V x d, over the target positions, pads
+    included, as the device computes them), plus attention's QK^T and PV
+    forward and backward: 12 L S_s^2 d (encoder), 6 L S_t^2 d (causal
+    decoder), 12 L S_t S_s d (cross), each times B."""
+    t = model.transformer
+    n_enc = sum(p.numel() for p in t.encoder.parameters())
+    n_dec = sum(p.numel() for p in t.decoder.parameters())
+    d, le, ld = t.d_model, len(t.encoder.layers), len(t.decoder.layers)
+    return b * (6 * (ls * n_enc + lt * (n_dec + T_VOCAB * d)) +
+                12 * le * ls * ls * d + 6 * ld * lt * lt * d +
+                12 * ld * lt * ls * d)
+
+
+def phase_train_transformer_bf16(torch, np, P, hfa, hfp, peaks, amp, AdamW,
+                                 make_sharded_train_step):
+    """Transformer-base at its published width through ``TrainStep``:
+    B=64 x 256 a side, AMP-O2 bf16, ``AdamW(beta2=0.98, epsilon=1e-9)``
+    with f32 masters on ``NoamDecay(512, 4000)``, label smoothing 0.1, 2
+    warm-up and 8 timed steps, at dropout 0.1 and beside it at 0. By
+    ``plan(256, 256, 8)`` the encoder's self-attention and the
+    cross-attention (the key bias) run K4a-direct and K4b-fused: 12 of each
+    a step; the decoder's causal self-attention (a per-query mask) the
+    dense path, 6 a step (``scaled_dot_product_attention.dense_routes``)."""
+    from paddle_tpu_torch.optimizer.lr import NoamDecay
+    sdpa = P.nn.functional.scaled_dot_product_attention
+    check(tuple(hfp.plan(T_LEN, T_LEN, 8)) == ("direct", "fused", None),
+          f"plan(256, 256, 8) = {hfp.plan(T_LEN, T_LEN, 8)}")
+    b, s, warmup, timed = 64, T_LEN, 2, 8
+    rows, launches_all = {}, {}
+    for drop in (T_BASE["dropout"], 0.0):
+        model = seq2seq(torch, P, "cuda", 0, dropout=drop)
+        n_params = sum(p.numel() for p in model.parameters())
+        flops = t_flops(model, b, s, s)
+        opt = AdamW(learning_rate=NoamDecay(512, 4000), beta2=0.98,
+                    epsilon=1e-9, multi_precision=True)
+        model, opt = amp.decorate(model, opt, level="O2")
+        step = make_sharded_train_step(model, opt, lambda m, bt: m(*bt))
+        rng = np.random.default_rng(0)
+        batches = [t_batch(torch, np, rng, b, s, s, "cuda")
+                   for _ in range(warmup + timed)]
+        it = iter(batches)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the main path: the counts are set to 0 just before it
+        zero_counts(hfa, hfp)
+        sdpa.dense_routes = 0
+        losses, times = timed_steps(torch, lambda: step.step(next(it)),
+                                    warmup, timed)
+        launches, dense = k4_counts(hfa, hfp), sdpa.dense_routes
+        n = len(losses)
+        for name, count in launches.items():
+            launches_all[name] = launches_all.get(name, 0) + count
+        tgt_tokens = sum(int((bt[2] != T_PAD).sum())
+                         for bt in batches[warmup:])
+        secs = sum(times) / 1e3
+        row = {"phase": "train_transformer_bf16", "clocks": card_clocks(),
+               "model": "transformer_base", "dropout": drop,
+               "label_smoothing": T_SMOOTH, "vocab": T_VOCAB,
+               "params": n_params, "batch": [b, s, s],
+               "optimizer": "AdamW(beta2=0.98, epsilon=1e-9) on "
+                            "NoamDecay(512, 4000), f32 masters",
+               "amp": "O2", "losses": losses, "step_ms": times,
+               "step_p50_ms": percentile(times, 50),
+               "step_p99_ms": percentile(times, 99),
+               "target_tokens_per_s": tgt_tokens / secs,
+               "flops_per_step": flops,
+               "flops_formula": "B*(6*(S_s*N_enc + S_t*(N_dec + V*d)) + "
+                                "12*L_e*S_s^2*d + 6*L_d*S_t^2*d + "
+                                "12*L_d*S_t*S_s*d)",
+               "mfu": flops * timed / secs / peaks["bf16"],
+               "peak_sheet": peaks["sheet"],
+               "max_memory_allocated_gb":
+                   torch.cuda.max_memory_allocated() / 1e9,
+               "launches_per_step": {k: v / n for k, v in launches.items()
+                                     if v},
+               "dense_routes_per_step": dense / n}
+        emit(row)
+        rows[drop] = row
+        check(all(math.isfinite(x) for x in losses),
+              f"non-finite Transformer loss: {row}")
+        # tied logits at init are N(0, 1): the first loss is about
+        # ln(37000) + 1/2 = 11.0, smoothing or not
+        check(abs(losses[0] - math.log(T_VOCAB)) < 1.0,
+              f"Transformer step-0 loss {losses[0]}")
+        check_launches(launches, {"flash_packed_fwd_tc": 12 * n,
+                                  "flash_packed_bwd_tc": 12 * n},
+                       f"train_transformer_bf16 at dropout {drop}")
+        check(dense == 6 * n, f"Transformer dense routes {dense} in {n} "
+                              f"steps; expected the decoder's 6 a step")
+        del model, opt, step, batches
+        torch.cuda.empty_cache()
+    return launches_all
+
+
+def phase_train_grad_f32_transformer(torch, np, P, hfa, hfp):
+    """A 2 + 2-layer cut of Transformer-base at full width (vocab 37,000),
+    f32, B=2, source 256 and target 128 (cross-attention at Sq != Sk), at
+    dropout 0: one forward and backward on the card (K4a-direct's and
+    K4b-fused's float32 bodies, 4 each) and through the plain versions on
+    the CPU, every gradient compared (train_grad_f32's tolerance); then
+    K4a-direct and K4b-fused at these attention shapes (8 heads of 64, the
+    key bias; Sq 256 and 128 over Sk 256) against their plain versions in
+    bf16 and f32."""
+    cut = dict(num_encoder_layers=2, num_decoder_layers=2, dropout=0.0)
+    gpu = seq2seq(torch, P, "cuda", 0, **cut)
+    cpu = seq2seq(torch, P, "cpu", 0, **cut)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    b, ls, lt = 2, T_LEN, 128
+    rng = np.random.default_rng(7)
+    batch = t_batch(torch, np, rng, b, ls, lt, "cpu")
+    zero_counts(hfa, hfp)
+    losses = {}
+    for name, model in (("gpu", gpu), ("cpu", cpu)):
+        dev = next(model.parameters()).device
+        t0 = time.perf_counter()
+        loss = model(*(x.to(dev) for x in batch))
+        loss.backward()
+        losses[name] = (float(loss.detach()), time.perf_counter() - t0)
+    launches = k4_counts(hfa, hfp)
+    check_launches(launches, {"flash_packed_fwd": 4, "flash_packed_bwd": 4},
+                   "train_grad_f32_transformer")
+    worst_name, worst_ratio, key_bias_ratio, _ = grad_rel_errs(torch, gpu,
+                                                               cpu)
+    loss_err = abs(losses["gpu"][0] - losses["cpu"][0])
+    worst, cases = {}, []
+    for dt in ("bf16", "f32"):
+        dtype = torch_dtype(torch, dt)
+        for sq in (T_LEN, lt):
+            q, k, v, do, masks = k4_inputs(torch, 2, sq, T_LEN, 8, dtype,
+                                           "bias", seed=sq)
+            row, _, _ = k4_case(torch, hfp, (f"transformer_{sq}x{T_LEN}", 2,
+                                             sq, T_LEN, 8, False, dt),
+                                q, k, v, do, masks, worst)
+            cases.append(row)
+    row = {"phase": "train_grad_f32_transformer", "layers": [2, 2],
+           "batch": [b, ls, lt], "loss_gpu": losses["gpu"][0],
+           "loss_cpu": losses["cpu"][0], "loss_abs_err": loss_err,
+           "gpu_s": losses["gpu"][1], "cpu_s": losses["cpu"][1],
+           "worst_tensor": worst_name, "worst_rel_err": worst_ratio,
+           "key_bias_rel_err": key_bias_ratio, "launches": launches,
+           "k4_cases": cases,
+           "allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    emit(row)
+    check(loss_err <= 1e-4, f"train_grad_f32_transformer: loss: {row}")
+    check(worst_ratio <= 1e-3,
+          f"train_grad_f32_transformer: gradients differ: {row}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return launches, worst
+
+
+def t_greedy(torch, P, model, src, bias, steps, cached):
+    """Greedy decoding of ``steps`` tokens after BOS: with ``cached``
+    through ``TransformerDecoder.gen_cache`` and one-token steps, else by
+    full causal recompute of the prefix each step. Returns the tokens, the
+    top-2 logit gap of each step and the ms a step (CUDA events)."""
+    nn = P.nn
+    dec = model.transformer.decoder
+    with torch.no_grad():
+        memory = model.transformer.encoder(model.embed(src), src_mask=bias)
+        prefix = torch.full((src.shape[0], 1), T_BOS, dtype=torch.long,
+                            device=src.device)
+        cache = dec.gen_cache(memory) if cached else None
+        gaps = []
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for t in range(steps):
+            if cached:
+                h, cache = dec(model.embed(prefix[:, -1:], t), memory,
+                               memory_mask=bias, cache=cache)
+            else:
+                h = dec(model.embed(prefix), memory,
+                        tgt_mask=nn.Transformer.
+                        generate_square_subsequent_mask(
+                            t + 1, device=src.device),
+                        memory_mask=bias)
+            top = torch.topk(model.logits(h[:, -1]).float(), 2)
+            gaps.append(top.values[:, 0] - top.values[:, 1])
+            prefix = torch.cat([prefix, top.indices[:, :1]], dim=1)
+        end.record()
+        end.synchronize()
+    return (prefix[:, 1:].cpu().numpy(), torch.stack(gaps, 1).cpu().numpy(),
+            start.elapsed_time(end) / steps)
+
+
+def t_beam(torch, P, model, src, bias, beam, steps, cached):
+    """``dynamic_decode`` with ``BeamSearchDecoder`` (beam ``beam``) over
+    one source: the cell keeps the memory and its bias tiled to the beam
+    and, with ``cached``, one cache a layer (its position the cache's
+    length), else the tokens so far, recomputing the prefix each step."""
+    nn = P.nn
+    dec = model.transformer.decoder
+    with torch.no_grad():
+        memory = model.transformer.encoder(model.embed(src), src_mask=bias)
+    mem = memory.expand(beam, -1, -1).contiguous()
+    mbias = bias.expand(beam, -1, -1, -1).contiguous()
+
+    @torch.no_grad()
+    def cell(ids, states):
+        if cached:
+            pos = states["caches"][0].k.shape[1]
+            h, caches = dec(model.embed(ids[:, None], pos), states["memory"],
+                            memory_mask=states["bias"],
+                            cache=states["caches"])
+            return model.logits(h[:, -1]), dict(states, caches=caches)
+        prefix = torch.cat([states["prefix"], ids[:, None]], dim=1)
+        h = dec(model.embed(prefix), states["memory"],
+                tgt_mask=nn.Transformer.generate_square_subsequent_mask(
+                    prefix.shape[1], device=src.device),
+                memory_mask=states["bias"])
+        return model.logits(h[:, -1]), dict(states, prefix=prefix)
+
+    init = {"memory": mem, "bias": mbias}
+    if cached:
+        init["caches"] = dec.gen_cache(mem)
+    else:
+        init["prefix"] = torch.zeros((beam, 0), dtype=torch.long,
+                                     device=src.device)
+    ids, scores = nn.dynamic_decode(
+        nn.BeamSearchDecoder(cell, T_BOS, T_EOS, beam), init,
+        max_step_num=steps)
+    return ids.cpu().numpy(), scores.cpu().numpy()
+
+
+def phase_decode_transformer(torch, np, P, hfa, hfp):
+    """Transformer-base at full width, f32, eval: greedy decoding of 64
+    tokens for 8 sources of up to 256 tokens with
+    ``TransformerDecoder.gen_cache`` against decoding by full causal
+    recompute, token-exact but where the recompute's top-2 gap at the
+    first difference is under 1e-3 (serve_f32's near-tie rule);
+    ``dynamic_decode`` with beam 4 over 64 steps, with caches and without,
+    the same tokens and scores within 1e-3 + 1e-5·|score|; each encoder
+    pass runs K4a-direct (its float32 body, 6 launches), the one-token
+    steps and the prefix recompute the dense path. Then the same in bf16,
+    its agreement printed, not asserted; ms a decode step with and without
+    caches in both."""
+    model = seq2seq(torch, P, "cuda", 1).eval()
+    b, steps, beam = 8, 64, 4
+    rng = np.random.default_rng(11)
+    src, _, _, bias = t_batch(torch, np, rng, b, T_LEN, T_LEN, "cuda")
+    out = {"phase": "decode_transformer", "model": "transformer_base",
+           "batch": b, "steps": steps, "beam": beam}
+    launches_all = {}
+    for dt in ("f32", "bf16"):
+        model = model.to(torch_dtype(torch, dt))
+        res = {}
+        for cached in (True, False):
+            zero_counts(hfa, hfp)
+            res[cached] = t_greedy(torch, P, model, src, bias, steps,
+                                   cached)
+            launches = k4_counts(hfa, hfp)
+            body = "flash_packed_fwd" + ("_tc" if dt == "bf16" else "")
+            check_launches(launches, {body: 6},
+                           f"decode_transformer {dt} cached={cached}")
+            for name, n in launches.items():
+                launches_all[name] = launches_all.get(name, 0) + n
+        (got, _, ms_c), (want, gaps, ms_r) = res[True], res[False]
+        rows, exact = [], 0
+        for i in range(b):
+            diff = np.nonzero(got[i] != want[i])[0]
+            row = {"exact": diff.size == 0}
+            if diff.size:
+                pos = int(diff[0])
+                row.update(first_mismatch=pos,
+                           top2_gap=float(gaps[i, pos]))
+            exact += int(diff.size == 0)
+            rows.append(row)
+        part = {"greedy_rows_exact": exact,
+                "greedy_tokens_equal_share": float((got == want).mean()),
+                "greedy_rows": rows, "ms_per_step_cached": ms_c,
+                "ms_per_step_recompute": ms_r}
+        if dt == "f32":
+            for row in rows:
+                check(row["exact"] or row["top2_gap"] < 1e-3,
+                      f"cached greedy decoding differs from full recompute "
+                      f"beyond a near-tie: {row}")
+            bsrc, bbias = src[:1], bias[:1]
+            ids_c, sc_c = t_beam(torch, P, model, bsrc, bbias, beam, steps,
+                                 True)
+            ids_r, sc_r = t_beam(torch, P, model, bsrc, bbias, beam, steps,
+                                 False)
+            part.update(beam_ids_equal=bool(np.array_equal(ids_c, ids_r)),
+                        beam_scores_cached=sc_c.tolist(),
+                        beam_scores_recompute=sc_r.tolist(),
+                        beam_steps=int(ids_c.shape[1]))
+            check(part["beam_ids_equal"],
+                  f"beam search differs with caches: {ids_c} {ids_r}")
+            check(bool((np.abs(sc_c - sc_r) <= 1e-3 + 1e-5 *
+                        np.abs(sc_r)).all()),
+                  f"beam scores differ with caches: {sc_c} {sc_r}")
+        out[dt] = part
+    emit(out)
+    del model
+    torch.cuda.empty_cache()
+    return launches_all
+
+
+def gpt3_medium(GPTConfig, **over):
+    """GPT-3 Medium (Brown et al. 2020, Table 2.1: 24 layers, d_model 1024,
+    16 heads of 64) from ``GPTConfig``'s fields, vocab 50304 as the port's
+    GPT-3 1.3B."""
+    return GPTConfig(**{**dict(hidden_size=1024, num_layers=24,
+                               num_heads=16), **over})
+
+
+STREAM_TC = ("flash_packed_fwd_stream_tc", "flash_packed_bwd_dq_tc",
+             "flash_packed_bwd_dkv_tc")
+
+
+def phase_train_recompute_k4_bf16(torch, np, hfa, hfp, peaks,
+                                  GPTForCausalLM, GPTConfig, amp, AdamW,
+                                  make_sharded_train_step):
+    """GPT-3 Medium at its published width, B=4 x 2048, AMP-O2 AdamW, 2
+    warm-up and 4 timed steps without recompute, with ``recompute=True``
+    under the default policy, and under ``None``: by ``plan(2048, 2048,
+    16)`` attention runs K4's streamed forward, dq and dk/dv (their
+    tensor-core bodies). The policy keeps K4's ``(o, lse)`` (the operator
+    ``paddle_tpu_torch::flash_packed_fwd``): the forward 24 launches a step,
+    48 under ``None``; dq and dk/dv 24 each. Step p50 and peak memory of
+    each. Then a 2-layer cut in f32 (B=1 x 2048, the float32 bodies): loss
+    and gradients bit-equal with and without the policy."""
+    import contextlib
+    from paddle_tpu_torch.core.random import make_key
+    check(tuple(hfp.plan(2048, 2048, 16)) == ("stream", "dq", "stream"),
+          f"plan(2048, 2048, 16) = {hfp.plan(2048, 2048, 16)}")
+    b, s, warmup, timed = 4, 2048, 2, 4
+    rows, launches_all = {}, {}
+    for mode in ("off", "dots_and_flash_saveable", None):
+        cfg = gpt3_medium(GPTConfig, recompute=mode != "off",
+                          recompute_policy=None if mode == "off" else mode)
+        model = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32,
+                               seed=0)
+        n_params = sum(p.numel() for p in model.parameters())
+        opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                    multi_precision=True)
+        model, opt = amp.decorate(model, opt, level="O2")
+        step = make_sharded_train_step(model, opt, gpt_loss)
+        it = iter(bench_batches(np, warmup + timed, b, s, cfg.vocab_size))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(hfa, hfp)
+        losses, times = timed_steps(torch, lambda: step.step(next(it)),
+                                    warmup, timed)
+        launches = k4_counts(hfa, hfp)
+        n = cfg.num_layers * len(losses)
+        check_launches(launches, {
+            "flash_packed_fwd_stream_tc": n * (2 if mode is None else 1),
+            "flash_packed_bwd_dq_tc": n, "flash_packed_bwd_dkv_tc": n},
+            f"GPT-3 Medium recompute {mode}")
+        for name, count in launches.items():
+            launches_all[name] = launches_all.get(name, 0) + count
+        tokens_per_s = timed * b * s / (sum(times) / 1e3)
+        flops_per_token = 6 * n_params + 6 * cfg.num_layers * s * \
+            cfg.hidden_size
+        row = {"phase": "train_recompute_k4_bf16", "clocks": card_clocks(),
+               "model": "gpt3_medium", "layers": cfg.num_layers,
+               "params": n_params, "batch": [b, s],
+               "recompute": mode != "off",
+               "recompute_policy": None if mode == "off" else mode,
+               "losses": losses, "step_ms": times,
+               "step_p50_ms": percentile(times, 50),
+               "step_p99_ms": percentile(times, 99),
+               "tokens_per_s": tokens_per_s,
+               "mfu": flops_per_token * tokens_per_s / peaks["bf16"],
+               "max_memory_allocated_gb":
+                   torch.cuda.max_memory_allocated() / 1e9,
+               "launches_per_step": {k: v / len(losses) for k, v in
+                                     launches.items() if v}}
+        emit(row)
+        rows[mode] = row
+        check(all(math.isfinite(x) for x in losses),
+              f"non-finite GPT-3 Medium loss: {row}")
+        del model, opt, step
+        torch.cuda.empty_cache()
+    peak = {m: rows[m]["max_memory_allocated_gb"] for m in rows}
+    check(peak["dots_and_flash_saveable"] <= peak["off"] and
+          peak[None] < peak["dots_and_flash_saveable"],
+          f"GPT-3 Medium peaks off / policy / None: {peak}")
+    # the f32 cut: bit-equal with and without the policy
+    rng = np.random.default_rng(5)
+    ids = torch.as_tensor(rng.integers(0, 50304, (1, s)), device="cuda")
+    labels = torch.roll(ids, -1, dims=1)
+    zero_counts(hfa, hfp)
+    res = grad_pair(torch, lambda c: GPTForCausalLM(
+        c, device="cuda", dtype=torch.float32, seed=0),
+        lambda r: gpt3_medium(GPTConfig, num_layers=2, recompute=r), ids,
+        labels, make_key(3), contextlib.nullcontext)
+    launches = k4_counts(hfa, hfp)
+    check_launches(launches, {"flash_packed_fwd_stream": 4,
+                              "flash_packed_bwd_dq": 4,
+                              "flash_packed_bwd_dkv": 4},
+                   "train_recompute_k4 f32 cut")
+    equal = total = 0
+    for name, g in res[True][1].items():
+        equal += int((g == res[False][1][name]).sum())
+        total += g.numel()
+    cut = {"phase": "train_recompute_k4_f32_cut", "layers": 2,
+           "batch": [1, s], "loss": res[False][0],
+           "loss_recompute": res[True][0], "bit_equal_share": equal / total,
+           "grad_elements": total, "launches": launches}
+    emit(cut)
+    check(res[True][0] == res[False][0] and equal == total,
+          f"the policy's gradients are not bit-equal: {cut}")
+    torch.cuda.empty_cache()
+    return launches_all
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5895,7 +6424,8 @@ def main() -> int:
                                               ServingEngine)
         from paddle_tpu_torch.text.models.bert import (BertForPretraining,
                                                        bert_base)
-        from paddle_tpu_torch.text.models.gpt import (GPTForCausalLM,
+        from paddle_tpu_torch.text.models.gpt import (GPTConfig,
+                                                      GPTForCausalLM,
                                                       gpt3_1p3b, gpt_tiny)
         from paddle_tpu_torch.core import flags
         from paddle_tpu_torch.nn.functional import cross_entropy
@@ -6107,6 +6637,20 @@ def main() -> int:
     phase_lbfgs(torch, np, P)
     worst_varlen, varlen_launches = phase_flash_varlen_lse(
         torch, np, hfa, hfp, tfa, peaks)
+    torch.cuda.empty_cache()
+
+    # nn.Transformer at Transformer-base width (K4a-direct and K4b-fused on
+    # its training path, the encoder pass of each decode), its decoding
+    # with caches and by beam search, and K4 kept by recompute's policy on
+    # GPT-3 Medium (the streamed forms)
+    t_launches = phase_train_transformer_bf16(
+        torch, np, P, hfa, hfp, peaks, amp, AdamW, make_sharded_train_step)
+    t_f32_launches, worst_t = phase_train_grad_f32_transformer(
+        torch, np, P, hfa, hfp)
+    decode_launches = phase_decode_transformer(torch, np, P, hfa, hfp)
+    rk4_launches = phase_train_recompute_k4_bf16(
+        torch, np, hfa, hfp, peaks, GPTForCausalLM, GPTConfig, amp, AdamW,
+        make_sharded_train_step)
 
     # `launches` is the count on each kernel's first main path: serving
     # for K1's bf16 tensor-core body (as the line has counted K1 from the
@@ -6260,6 +6804,10 @@ def main() -> int:
             "lse_launches": varlen_launches["lse"].get(name, 0),
             "tiers_f32_launches": tiers_f32.get(name, 0),
             "tiers_bf16_launches": tiers_bf16.get(name, 0),
+            "transformer_launches": t_launches.get(name, 0),
+            "transformer_f32_launches": t_f32_launches.get(name, 0),
+            "decode_launches": decode_launches.get(name, 0),
+            "recompute_k4_launches": rk4_launches.get(name, 0),
             "max_abs_err": err, "max_err": err,
             "stats_rel_err": stats_conv.get(name),
             "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
@@ -6296,6 +6844,10 @@ def main() -> int:
                 k: t["train_shape"][k] for k in (
                     "shape", "kernel_ms", "plain_ms", "library_ms",
                     "bound_ms", "bound_by", "tflops")}
+        if name in worst_t:
+            # K4a-direct and K4b-fused at the Transformer's attention
+            # shapes (train_grad_f32_transformer)
+            kernels[-1]["transformer_max_abs_err"] = worst_t[name]
         if name in worst_varlen:
             # the packed varlen path against the plain versions
             # (flash_varlen_lse), apart from max_abs_err

@@ -38,7 +38,11 @@ convolutions), LBFGS, and the two attention entry points
 ``ops.flash_attn_unpadded`` and
 ``ops._hopper.flash_attention.flash_attention_with_lse``, which run the
 flash-attention kernels on packed varlen batches and with a
-differentiable lse.
+differentiable lse; ``nn.Transformer`` (the encoder-decoder, its attention
+on K4 at head dim 64), decoding with ``MultiHeadAttention``'s caches and
+by beam search (``nn.BeamSearchDecoder``, ``nn.dynamic_decode``),
+``ParamAttr`` and ``nn.initializer``. Layers build on ``cuda:0`` unless
+given ``device="cpu"``, as the models do.
 """
 
 from . import amp, io, metric, nn, optimizer, regularizer, vision  # noqa: F401
@@ -47,7 +51,8 @@ from .core.random import seed  # noqa: F401
 from .framework.io import load, save  # noqa: F401
 from .hapi.model import Model  # noqa: F401
 from .hapi.summary import summary  # noqa: F401
+from .nn.layer import ParamAttr  # noqa: F401
 
 __all__ = ["amp", "io", "metric", "nn", "optimizer", "regularizer",
            "vision", "resolve_device", "seed", "save", "load", "Model",
-           "summary"]
+           "summary", "ParamAttr"]

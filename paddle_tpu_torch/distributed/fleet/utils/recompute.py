@@ -14,8 +14,9 @@ the forward keeps and which the backward computes again:
                             ``baddbmm`` (JAX's ``dot_general``)
 ``"dots_with_no_batch_``    ``mm`` and ``addmm``: no batched product
 ``dims_saveable"``
-``"dots_and_flash_``        the products, K1's ``(o, lse)`` (the operator
-``saveable"``               ``paddle_tpu_torch::flash_fwd``; JAX's
+``"dots_and_flash_``        the products, K1's and K4's ``(o, lse)`` (the
+``saveable"``               operators ``paddle_tpu_torch::flash_fwd`` and
+                            ``paddle_tpu_torch::flash_packed_fwd``; JAX's
                             ``flash_out``/``flash_lse``) and LayerNorm's
                             outputs (``native_layer_norm``: JAX's
                             ``norm_out``/``norm_xhat``/``norm_stat``)
@@ -47,16 +48,20 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ....amp.auto_cast import current as amp_state, installed
 from ....core import random as rng
-# registers the operator torch.ops.paddle_tpu_torch.flash_fwd (K1)
+# register the operators torch.ops.paddle_tpu_torch.flash_fwd (K1) and
+# .flash_packed_fwd (K4)
 from ....ops._hopper import flash_attention  # noqa: F401
+from ....ops._hopper import flash_attention_packed  # noqa: F401
 
 __all__ = ["recompute", "recompute_sequential", "RecomputePolicy"]
 
 _aten = torch.ops.aten
 _MM = frozenset({_aten.mm.default, _aten.addmm.default})
 _BATCHED_MM = frozenset({_aten.bmm.default, _aten.baddbmm.default})
-_FLASH_AND_NORM = frozenset({torch.ops.paddle_tpu_torch.flash_fwd.default,
-                             _aten.native_layer_norm.default})
+_FLASH_AND_NORM = frozenset({
+    torch.ops.paddle_tpu_torch.flash_fwd.default,
+    torch.ops.paddle_tpu_torch.flash_packed_fwd.default,
+    _aten.native_layer_norm.default})
 
 
 class RecomputePolicy:
@@ -68,8 +73,8 @@ class RecomputePolicy:
     DOTS_NO_BATCH = "dots_with_no_batch_dims_saveable"
     NOTHING = "nothing_saveable"
     EVERYTHING = "everything_saveable"
-    # dots + K1's (o, lse) + LayerNorm's outputs: the backward then runs
-    # neither K1 nor a LayerNorm again
+    # dots + K1's and K4's (o, lse) + LayerNorm's outputs: the backward
+    # then runs neither K1, K4's forward nor a LayerNorm again
     DOTS_AND_FLASH = "dots_and_flash_saveable"
 
     NAMES = (FULL, DOTS, DOTS_NO_BATCH, NOTHING, EVERYTHING, DOTS_AND_FLASH)

@@ -1,17 +1,26 @@
-"""Layers, functional ops and gradient clipping of the port
-(``paddle_tpu/nn`` counterpart; the GPT, BERT, ResNet and LeNet training
-slices' subset)."""
+"""Layers, functional ops, initializers and gradient clipping of the port
+(``paddle_tpu/nn`` counterpart; the GPT, BERT, ResNet, LeNet and
+Transformer slices' subset)."""
 
 from . import functional  # noqa: F401
+from . import initializer  # noqa: F401
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
                    ClipGradByValue)
+from .layer import ParamAttr, create_parameter  # noqa: F401
 from .layers import (AdaptiveAvgPool2D, BatchNorm2D,  # noqa: F401
-                     Conv2D, CrossEntropyLoss, Dropout, Linear, MaxPool2D,
-                     MultiHeadAttention, ReLU, Sequential,
-                     TransformerEncoder, TransformerEncoderLayer)
+                     BeamSearchDecoder, Conv2D, CrossEntropyLoss, Dropout,
+                     Embedding, Identity, LayerList, LayerNorm, Linear,
+                     MaxPool2D, MultiHeadAttention, ReLU, Sequential,
+                     Transformer, TransformerDecoder,
+                     TransformerDecoderLayer, TransformerEncoder,
+                     TransformerEncoderLayer, dynamic_decode)
 
-__all__ = ["functional", "ClipGradByGlobalNorm", "ClipGradByNorm",
-           "ClipGradByValue", "AdaptiveAvgPool2D", "BatchNorm2D", "Conv2D",
-           "CrossEntropyLoss", "Dropout", "Linear", "MaxPool2D",
-           "MultiHeadAttention", "ReLU", "Sequential", "TransformerEncoder",
-           "TransformerEncoderLayer"]
+__all__ = ["functional", "initializer", "ClipGradByGlobalNorm",
+           "ClipGradByNorm", "ClipGradByValue", "ParamAttr",
+           "create_parameter", "AdaptiveAvgPool2D", "BatchNorm2D",
+           "BeamSearchDecoder", "Conv2D", "CrossEntropyLoss", "Dropout",
+           "Embedding", "Identity", "LayerList", "LayerNorm", "Linear",
+           "MaxPool2D", "MultiHeadAttention", "ReLU", "Sequential",
+           "Transformer", "TransformerDecoder", "TransformerDecoderLayer",
+           "TransformerEncoder", "TransformerEncoderLayer",
+           "dynamic_decode"]

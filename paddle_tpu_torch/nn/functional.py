@@ -1,7 +1,9 @@
 """Functional ops of the port (``paddle_tpu/nn/functional.py`` counterpart).
 
-So far what the GPT, BERT, ERNIE, ResNet and LeNet training paths need:
-:func:`cross_entropy` (hard and soft labels, class weights, smoothing),
+So far what the GPT, BERT, ERNIE, ResNet, LeNet and Transformer paths
+need: :func:`linear` (Paddle's ``[in, out]`` weight), :func:`embedding`,
+:func:`layer_norm`, :func:`cross_entropy` (hard and soft labels, class
+weights, smoothing),
 :func:`scaled_dot_product_attention` with its routing to the attention
 kernels (attention-prob dropout in the kernels), :func:`dropout` (both of
 Paddle's modes, the mask drawn from the key stream of
@@ -23,7 +25,49 @@ from ..core.random import next_key, torch_generator
 from ..ops._hopper.flash_attention import flash_attention_hopper
 
 __all__ = ["adaptive_avg_pool2d", "batch_norm", "conv2d", "cross_entropy",
-           "dropout", "max_pool2d", "relu", "scaled_dot_product_attention"]
+           "dropout", "embedding", "layer_norm", "linear", "max_pool2d",
+           "relu", "scaled_dot_product_attention"]
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor, bias=None
+           ) -> torch.Tensor:
+    """``x @ weight + bias`` with the weight in Paddle's layout, ``[in,
+    out]``, as the JAX function takes it. (The port's :class:`~.layers.
+    Linear` keeps its weight as ``[out, in]`` and calls torch's
+    ``linear``.)"""
+    out = torch.matmul(x, weight)
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+def embedding(ids: torch.Tensor, weight: torch.Tensor,
+              padding_idx: Optional[int] = None, sparse: bool = False
+              ) -> torch.Tensor:
+    """The rows of ``weight`` at ``ids``; with ``padding_idx``, the rows
+    looked up at that id are zeros (and pass no gradient), as the JAX
+    function masks them. ``sparse`` is taken and unused, as in JAX."""
+    out = TF.embedding(ids.long(), weight)
+    if padding_idx is not None:
+        out = torch.where((ids == padding_idx)[..., None], 0.0, out)
+    return out
+
+
+def layer_norm(x: torch.Tensor, normalized_shape, weight=None, bias=None,
+               epsilon: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last ``len(normalized_shape)`` axes, as JAX
+    computes it: statistics and the affine in float32, the result in x's
+    dtype. Torch's ``layer_norm`` (``native_layer_norm``, whose outputs the
+    recompute policy keeps) runs it: in x's dtype when the weight and bias
+    share it (the kernel sums in float32), else on float32 copies."""
+    if isinstance(normalized_shape, int):
+        normalized_shape = (normalized_shape,)
+    shape = tuple(normalized_shape)
+    if all(t is None or t.dtype == x.dtype for t in (weight, bias)):
+        return TF.layer_norm(x, shape, weight, bias, epsilon)
+    return TF.layer_norm(
+        x.float(), shape, None if weight is None else weight.float(),
+        None if bias is None else bias.float(), epsilon).to(x.dtype)
 
 
 def cross_entropy(input: torch.Tensor, label: torch.Tensor, weight=None,
@@ -196,9 +240,10 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     take the shapes and the heads match, a key-only mask rides the kernel
     (a bool mask as segment ids, a float mask as an additive key bias) and
     ``segment_ids`` mean packed attention; a mask that varies per query,
-    or shapes the kernels do not take, go to the dense path. A d=64 input
-    thus reaches K4, and any other kernel input K1, which raises on masks.
-    ``dropout_p`` in training is attention-prob dropout: in the kernel on
+    or shapes the kernels do not take, go to the dense path (counted in
+    ``scaled_dot_product_attention.dense_routes``). A d=64 input thus
+    reaches K4, and any other kernel input K1, each with the key mask or
+    the segment ids in the kernel. ``dropout_p`` in training is attention-prob dropout: in the kernel on
     the kernel route (its seed drawn from the next key), :func:`dropout`
     of the probabilities on the dense path."""
     b, sq, h, d = query.shape
@@ -233,8 +278,13 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
             segment_ids=None if seg_k is None else torch.ones(
                 (b, sq), dtype=torch.int32, device=query.device),
             segment_ids_k=seg_k, key_bias=bias, dropout=dropout_p)
+    scaled_dot_product_attention.dense_routes += 1
     return _dense_attention(query, key, value, attn_mask, is_causal, scale,
                             dropout_p)
+
+
+#: calls that took the dense path since the count was last set to 0
+scaled_dot_product_attention.dense_routes = 0
 
 
 # ---------------------------------------------------------------------------

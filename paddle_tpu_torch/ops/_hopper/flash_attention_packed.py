@@ -56,7 +56,10 @@ public ``[B, S, H, 64]`` layout through strides, one head per block.
   launches``; ``_launch_bwd_split("dkv_direct", ..., tc=False)`` runs
   dk/dv-direct's CUDA-core body in 16 bits as a yardstick that no path
   takes);
-- :func:`flash_attention_packed`, the differentiable public entry.
+- :func:`flash_attention_packed`, the differentiable public entry, whose
+  forward calls the operator ``torch.ops.paddle_tpu_torch.flash_packed_fwd``
+  (:func:`flash_packed_fwd_op`: K4a-direct or the streamed forward), so
+  that activation recompute's policy can keep its ``(o, lse)``.
 
 Masks work as the TPU kernels apply them: the scale, then bottom-right
 causal, then segments (``seg_q == seg_k``, else ``NEG_INF``), then the
@@ -849,14 +852,38 @@ def flash_packed_bwd_dkv_direct_tc(q, k, v, do, lse, delta,
                              scale, masks, dropout)
 
 
+@torch.library.custom_op("paddle_tpu_torch::flash_packed_fwd",
+                         mutates_args=())
+def flash_packed_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        seg_q: Optional[torch.Tensor],
+                        seg_k: Optional[torch.Tensor],
+                        bias: Optional[torch.Tensor], causal: bool,
+                        scale: float, stream: bool, rate: float, seed: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4's forward as one operator, ``torch.ops.paddle_tpu_torch.
+    flash_packed_fwd``: K4a-direct (``stream`` False) or the streamed
+    forward, the kernel on CUDA tensors and the plain version on CPU
+    tensors; dropout as ``(rate, seed)``, off at rate 0. Built as K1's
+    ``flash_fwd`` operator is: the ctypes launch is invisible to the
+    dispatcher, the operator is seen, so an activation-recompute policy can
+    keep ``(o, lse)`` from the forward instead of launching K4's forward
+    again in the backward (the JAX kernel names them ``flash_out`` and
+    ``flash_lse`` for its policies). Not differentiable itself:
+    :func:`flash_attention_packed` wraps it."""
+    dropout = AttnDropout(rate, seed) if rate > 0.0 else None
+    fwd = flash_packed_fwd_stream if stream else flash_packed_fwd
+    return fwd(q, k, v, causal, scale, (seg_q, seg_k, bias), dropout)
+
+
 class _FlashPacked(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, seg_q, seg_k, bias, causal, scale, forms,
                 dropout):
         masks = (seg_q, seg_k, bias)
-        fwd = flash_packed_fwd if forms.fwd == "direct" else \
-            flash_packed_fwd_stream
-        o, lse = fwd(q, k, v, causal, scale, masks, dropout)
+        rate, seed = (0.0, 0) if dropout is None else dropout
+        o, lse = torch.ops.paddle_tpu_torch.flash_packed_fwd(
+            q, k, v, seg_q, seg_k, bias, causal, scale,
+            forms.fwd == "stream", float(rate), int(seed))
         ctx.save_for_backward(q, k, v, o, lse, *(
             torch.empty(0) if t is None else t for t in masks))
         ctx.has_mask = tuple(t is not None for t in masks)

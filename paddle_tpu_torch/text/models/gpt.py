@@ -279,7 +279,7 @@ class GPTForCausalLM(nn.Module):
         self.gpt = GPT(cfg, **factory)
         if not cfg.tie_word_embeddings:
             self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size,
-                                  bias=False, **factory)
+                                  bias_attr=False, **factory)
         self.reset_parameters(seed)
 
     @property

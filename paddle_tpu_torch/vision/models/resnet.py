@@ -85,8 +85,7 @@ def _norm(norm_layer, num_features, data_format, factory):
     extra = {}
     if kwargs or "data_format" in params:
         extra["data_format"] = data_format
-    if kwargs:
-        extra.update(factory)
+    extra.update({k: v for k, v in factory.items() if kwargs or k in params})
     return norm_layer(num_features, **extra)
 
 

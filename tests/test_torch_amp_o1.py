@@ -175,7 +175,7 @@ def test_grad_scaler_imperative_loop_matches_jax():
     from paddle_tpu_torch import nn as tnn
     paddle.seed(5)
     jl = jnn.Linear(4, 3)
-    tl = tnn.Linear(4, 3)
+    tl = tnn.Linear(4, 3, device="cpu")
     sd = from_jax_state_dict({f"fc.{k}": np.asarray(v)
                               for k, v in jl.state_dict().items()})
     tl.load_state_dict({k[3:]: v for k, v in sd.items()})

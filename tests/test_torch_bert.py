@@ -130,7 +130,9 @@ def test_encoder_layer_matches_jax(normalize_before, mask):
 
 def test_multi_head_attention_cross_attention_and_refusals():
     """Cross-attention (keys from another sequence of 256) against JAX;
-    decoder caches are not ported and raise."""
+    then the decoder caches, against JAX's: ``gen_cache`` (an empty
+    ``Cache``, and the ``StaticCache`` of the projected keys and values)
+    and a step through each."""
     paddle.seed(4)
     jl = jnn.MultiHeadAttention(128, 2)
     tl = MultiHeadAttention(128, 2, device="cpu")
@@ -143,10 +145,22 @@ def test_multi_head_attention_cross_attention_and_refusals():
         got = tl(torch.from_numpy(q), torch.from_numpy(kv),
                  torch.from_numpy(kv)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
-    with pytest.raises(NotImplementedError, match="caches"):
-        tl.gen_cache(torch.from_numpy(q))
-    with pytest.raises(NotImplementedError, match="caches"):
-        tl(torch.from_numpy(q), cache=(None, None))
+    tq, jq = torch.from_numpy(q), jnp.asarray(q)
+    tkv, jkv = torch.from_numpy(kv), jnp.asarray(kv)
+    jcache = jl.gen_cache(jq)
+    with torch.no_grad():
+        tcache = tl.gen_cache(tq)
+        tstatic = tl.gen_cache(tkv, type=MultiHeadAttention.StaticCache)
+        tout, tcache = tl(tq[:, :1], cache=tcache)
+        sout, _ = tl(tq, cache=tstatic)
+    assert tuple(tl.gen_cache(tq).k.shape) == (B, 0, 2, 64)
+    jout, jcache = jl(jq[:, :1], cache=jcache)
+    jstatic = jl.gen_cache(jkv, type=jnn.MultiHeadAttention.StaticCache)
+    for g, w in ((tcache.k, jcache.k), (tcache.v, jcache.v),
+                 (tstatic.k, jstatic.k), (tstatic.v, jstatic.v),
+                 (tout, jout), (sout, jl(jq, cache=jstatic)[0])):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=0)
 
 
 def test_transformer_encoder_stacks_layers_with_a_final_norm():

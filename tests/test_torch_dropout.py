@@ -426,7 +426,8 @@ def test_encoder_layer_with_dropout_matches_jax(monkeypatch,
                                      normalize_before=normalize_before)
     tl = TransformerEncoderLayer(128, 2, 256, dropout=0.1,
                                  activation="gelu", attn_dropout=0.0,
-                                 normalize_before=normalize_before)
+                                 normalize_before=normalize_before,
+                                 device="cpu")
     tl.load_state_dict(from_jax_state_dict(
         {k: np.asarray(v) for k, v in jl.state_dict().items()}), strict=True)
     rng = np.random.default_rng(6)

@@ -106,7 +106,7 @@ def test_state_dict_resumes_and_bare_parameters_are_named_by_position():
         return opt
 
     def fresh():
-        layer = tnn.Linear(4, 3)
+        layer = tnn.Linear(4, 3, device="cpu")
         with torch.no_grad():
             layer.weight.copy_(torch.arange(12.0).reshape(3, 4) / 10)
             layer.bias.zero_()

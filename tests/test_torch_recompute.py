@@ -328,7 +328,7 @@ def test_recompute_and_recompute_sequential_match_jax(kind, policy):
     want = [np.asarray(gx)] + [np.asarray(g[0]).T for g in gw]
     layers = []
     for w, b in ws:
-        layer = tnn.Linear(16, 16)
+        layer = tnn.Linear(16, 16, device="cpu")
         layer.load_state_dict({"weight": torch.from_numpy(w.T.copy()),
                                "bias": torch.from_numpy(b)})
         layers.append(torch.nn.Sequential(layer, torch.nn.Tanh()))

@@ -102,12 +102,12 @@ def _blocks(stride):
             jnn.BatchNorm2D(planes * 4, data_format="NHWC"))
         tds = tnn.Sequential(
             tnn.Conv2D(inplanes, planes * 4, 1, stride=stride,
-                       bias_attr=False, data_format="NHWC"),
-            tnn.BatchNorm2D(planes * 4, data_format="NHWC"))
+                       bias_attr=False, data_format="NHWC", device="cpu"),
+            tnn.BatchNorm2D(planes * 4, data_format="NHWC", device="cpu"))
     jb = JBottleneck(inplanes, planes, stride=stride, downsample=jds,
                      data_format="NHWC")
     tb = BottleneckBlock(inplanes, planes, stride=stride, downsample=tds,
-                         data_format="NHWC")
+                         data_format="NHWC", device="cpu")
     return jb, _carry(jb, tb)
 
 
