@@ -11,8 +11,10 @@ through ``TrainStep``, trains BERT-base (12 layers, hidden 768, 12 heads of
 64, vocab 30522) the same way, trains ResNet-50 at bench.py's config 2 on
 its conv-kernel route, and trains ERNIE-base (12 layers, hidden 768, 12
 heads of 64, vocab 40000) at bench.py's config 5 and at its own 2048-token
-context, trains and decodes nn.Transformer at Transformer-base width, and
-trains GPT-3 Medium under activation recompute:
+context, trains and decodes nn.Transformer at Transformer-base width,
+trains GPT-3 Medium under activation recompute, samples from GPT-3 1.3B,
+serves bench.py's overload trace through the resilience tier, and trains
+ResNeXt-50 32x4d and Wide ResNet-50-2:
 
 1. env     torch, CUDA, nvcc and the card as nvidia-smi names it;
 2. build   the kernels, timed, with ptxas's register and spill report;
@@ -211,6 +213,39 @@ trains GPT-3 Medium under activation recompute:
            24 launches a step under the policy (its (o, lse) kept), 48
            under None; step p50 and peak memory of each; a 2-layer f32 cut
            bit-equal with and without the policy.
+
+The ResNet family, sampling and the resilience tier (in this order, each
+after the phase named):
+- kernel_conv, part "wide" (after 7)  K5-K8 against their plain versions
+  at Wide ResNet-50-2's 19 new shapes (B=256: 3x3 at 128 @ 56², 256 @
+  28², 512 @ 14², 1024 @ 7² and the three stride-2 entries, the 1x1s into
+  and out of those widths), then K7's forward and K8 at the seven 3x3
+  shapes timed beside cuDNN and their bounds;
+- pool_ties  max_pool2d_with_index on the card equal to the CPU's bit for
+  bit on ReLU outputs (ties), an all-zero block and padding past half the
+  kernel;
+- serve_resilience_f32 (after serve_tiers f32) and serve_resilience_bf16
+  (after generate_sample_bf16)  bench.py's overload trace on GPT-3 1.3B:
+  the pool hog and 16 requests (every third with a deadline already
+  past) through 16 blocks of 8 tokens, max_batch 4, max_waiting 8, the
+  degrade-mode shed policy, validate_capacity=False and a SpillError at
+  the first spill, the journal armed: every request ends as a CPU dry run
+  of the same lengths ends it, the hog and one spill victim FAILED and
+  nobody else, no block leaks, the survivors held to generate (serve_f32's
+  near-tie rule; in bf16 a near tie is a top-2 gap under 8 units in the
+  last place of the top logit), the journal exactly-once; SLO attainment
+  and the shed rate from the returned records, K1 once a layer a prefill;
+  every earlier serving phase holds engine.diagnostics empty;
+- generate_sample_bf16 (after serve_tiers bf16)  GPT-3 1.3B, B=4, a
+  128-token prompt, 64 new tokens, top_k 50, top_p 0.9, temperature 0.8:
+  seeded, greedy unchanged, every sampled token inside its step's top-k
+  and top-p set; ms a token;
+- train_grad_f32_resnext, train_resnext_bf16, train_wide_resnet_bf16
+  (after 15)  ResNeXt-50 32x4d and Wide ResNet-50-2: each as 14, then as
+  15 for 2 warm-up and 3 timed steps (step p50, images/s, MFU from the
+  model's own FLOPs, peak memory, losses), K5/K6/K7/K8 launches a step as
+  each structure implies them (Wide 72/36/32/16; ResNeXt 72/36/0/0, its
+  grouped 3x3s on cuDNN).
 
 Attention-prob dropout and K9 (after phase 7, in this order):
 - kernel / kernel_packed / kernel_packed_stream, part "dropout": the nine
@@ -4408,6 +4443,13 @@ def k5_stages(torch, hc, peaks, g, results):
 
 
 RESNET_LAUNCHES = {"mm": 72, "mm_wgrad": 36, "c3": 32, "c3_wgrad": 16}
+#: each model's K5/K6/K7/K8 launches a training step, as its structure
+#: implies them: Wide ResNet-50-2 has ResNet-50's convs at twice the
+#: width; ResNeXt-50's grouped 3x3s take the library conv
+FAMILY_LAUNCHES = {"resnet50": RESNET_LAUNCHES,
+                   "wide_resnet50_2": RESNET_LAUNCHES,
+                   "resnext50_32x4d": {"mm": 72, "mm_wgrad": 36, "c3": 0,
+                                       "c3_wgrad": 0}}
 
 
 def resnet_flops_per_image(model, img: int) -> int:
@@ -4441,17 +4483,25 @@ def resnet_loss(model, batch):
     return cross_entropy(model(x).float(), y, reduction="mean")
 
 
-def phase_train_grad_f32_resnet(torch, np, hc, resnet50, cross_entropy):
+def phase_train_grad_f32_resnet(torch, np, hc, resnet50, cross_entropy,
+                                model_name="resnet50",
+                                phase="train_grad_f32_resnet"):
     """ResNet-50 (1000 classes, NHWC, space-to-depth stem) in f32 at B=2 x
     224², both flags on: the same weights and batch through one forward
     and backward on the card (K5-K8, TF32 off for the stem's cuDNN conv)
     and on the CPU (their plain versions). Every gradient, the logits, the
     loss and the updated BN buffers compared; all 52 convs at their real
-    shapes, the four that JAX's TPU rule sends to lax included."""
+    shapes, the four that JAX's TPU rule sends to lax included. The same
+    for ``resnet50`` another factory of the family (ResNeXt-50 and Wide
+    ResNet-50-2: ``model_name`` and ``phase`` name the row), its launches
+    those its structure implies (``structure_launches``)."""
     gpu = resnet50(data_format="NHWC", stem_mode="space_to_depth",
                    device="cuda", seed=0)
     cpu = resnet50(data_format="NHWC", stem_mode="space_to_depth",
                    device="cpu")
+    want = structure_launches(gpu)
+    check(want == FAMILY_LAUNCHES[model_name],
+          f"{model_name}'s structure implies {want}")
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
     rng = np.random.default_rng(7)
     x = rng.standard_normal((2, 224, 224, 3)).astype(np.float32)
@@ -4468,8 +4518,7 @@ def phase_train_grad_f32_resnet(torch, np, hc, resnet50, cross_entropy):
         out[name] = (float(loss.detach()), logits.detach().cpu(),
                      time.perf_counter() - t0)
     launches = {k: v - before[k] for k, v in conv_counts(hc).items()}
-    check(launches == RESNET_LAUNCHES,
-          f"train_grad_f32_resnet: launches {launches}")
+    check(launches == want, f"{phase}: launches {launches}, expected {want}")
     worst_norm, worst_name, worst_max = 0.0, None, 0.0
     cpu_params = dict(cpu.named_parameters())
     for name, p in gpu.named_parameters():
@@ -4487,7 +4536,7 @@ def phase_train_grad_f32_resnet(torch, np, hc, resnet50, cross_entropy):
                   for n, b in gpu.named_buffers())
     loss_err = abs(out["gpu"][0] - out["cpu"][0])
     logit_err = float((out["gpu"][1] - out["cpu"][1]).abs().max())
-    row = {"phase": "train_grad_f32_resnet", "model": "resnet50",
+    row = {"phase": phase, "model": model_name,
            "batch": [2, 224, 224, 3], "loss_gpu": out["gpu"][0],
            "loss_cpu": out["cpu"][0], "loss_abs_err": loss_err,
            "logits_max_abs_err": logit_err, "buffers_rel_err": buf_err,
@@ -4504,26 +4553,32 @@ def phase_train_grad_f32_resnet(torch, np, hc, resnet50, cross_entropy):
     # buffers by 1.2e-6 and the gradients by up to 3.4% of a tensor's
     # 2-norm (27% of its largest; tools/resnet_grad_sensitivity.py), so
     # the gradients are held in the norm, at 1e-1
-    check(loss_err <= 1e-4, f"train_grad_f32_resnet: loss differs: {row}")
-    check(logit_err <= 1e-3, f"train_grad_f32_resnet: logits differ: {row}")
-    check(buf_err <= 1e-4, f"train_grad_f32_resnet: buffers differ: {row}")
-    check(worst_norm <= 1e-1,
-          f"train_grad_f32_resnet: gradients differ: {row}")
+    check(loss_err <= 1e-4, f"{phase}: loss differs: {row}")
+    check(logit_err <= 1e-3, f"{phase}: logits differ: {row}")
+    check(buf_err <= 1e-4, f"{phase}: buffers differ: {row}")
+    check(worst_norm <= 1e-1, f"{phase}: gradients differ: {row}")
     del gpu, cpu
 
 
 def phase_train_resnet_bf16(torch, np, hc, hfa, hfp, peaks, resnet50,
                             Momentum, make_sharded_train_step,
-                            profile=False):
+                            profile=False, name="resnet50",
+                            phase="train_resnet_bf16", warmup=2, timed=8):
     """The ResNet slice at bench.py's config 2 on its conv-kernel route
     (``bench_pallas_conv_ab``): ResNet-50, NHWC, space-to-depth stem, cast
     to bf16 (BN buffers too), Momentum(0.1, 0.9) with f32 masters, B=256 x
     224² from ``default_rng(0)``, the same batch every step, both flags on;
     2 warm-up and 8 timed steps. Every step runs K5/K6/K7/K8 72/36/32/16
-    times and no K1-K4."""
-    batch, img, warmup, timed = 256, 224, 2, 8
+    times and no K1-K4. The same for another factory of the family
+    (``name``, ``phase``; ``warmup`` and ``timed`` steps), at the launches
+    its structure implies (``structure_launches``: ResNeXt's grouped 3x3s
+    on the library conv, none of K7/K8)."""
+    batch, img = 256, 224
     model = resnet50(data_format="NHWC", stem_mode="space_to_depth",
                      device="cuda", seed=0)
+    per_step_want = structure_launches(model)
+    check(per_step_want == FAMILY_LAUNCHES[name],
+          f"{name}'s structure implies {per_step_want}")
     model.train()
     model.to(torch.bfloat16)
     opt = Momentum(learning_rate=0.1, momentum=0.9, multi_precision=True)
@@ -4555,8 +4610,7 @@ def phase_train_resnet_bf16(torch, np, hc, hfa, hfp, peaks, resnet50,
     images_per_s = timed * batch / (sum(times) / 1e3)
     buf_dtypes = sorted({str(b.dtype) for b in model.buffers()})
     clocks = card_clocks()   # right after the timed steps
-    row = {"phase": "train_resnet_bf16", "clocks": clocks,
-           "model": "resnet50",
+    row = {"phase": phase, "clocks": clocks, "model": name,
            "batch": [batch, img, img, 3], "dtype": "bf16 (model.to)",
            "optimizer": "Momentum(0.1, momentum=0.9, multi_precision=True)",
            "flags": {"fused_conv_bn": 1, "pallas_conv": 1},
@@ -4568,20 +4622,22 @@ def phase_train_resnet_bf16(torch, np, hc, hfa, hfp, peaks, resnet50,
            "mfu": flops_per_image * images_per_s / peaks["bf16"],
            "peak_sheet": peaks["sheet"],
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "bn_buffer_dtypes": buf_dtypes, "launches": launches}
+           "bn_buffer_dtypes": buf_dtypes, "launches": launches,
+           "launches_per_step": {k: launches[k] / n_steps
+                                 for k in CONV_KERNELS}}
     emit(row)
     check(all(math.isfinite(v) for v in losses), f"non-finite loss: {row}")
     # ln 1000 = 6.91 at init, plus about sigma^2 / 2 for the spread sigma
     # of the random logits (7.61 for this model in f32 at B=2 on the CPU)
     check(math.log(1000) - 0.5 <= losses[0] <= math.log(1000) + 1.5,
           f"step-0 loss {losses[0]}")
-    for name, per_step in RESNET_LAUNCHES.items():
-        check(launches[name] == per_step * n_steps,
-              f"{name}: {launches[name]} launches in {n_steps} steps, "
-              f"expected {per_step} a step")
-    for name in ATTENTION_KERNELS:
-        check(launches[name] == 0,
-              f"ResNet training launched {name} {launches[name]} times")
+    for kname, per_step in per_step_want.items():
+        check(launches[kname] == per_step * n_steps,
+              f"{phase} {kname}: {launches[kname]} launches in {n_steps} "
+              f"steps, expected {per_step} a step")
+    for kname in ATTENTION_KERNELS:
+        check(launches[kname] == 0,
+              f"{name} training launched {kname} {launches[kname]} times")
     check(buf_dtypes == ["torch.float32"],
           f"BN buffers are {buf_dtypes} after a step, not float32")
     if profile:
@@ -6406,6 +6462,402 @@ def phase_train_recompute_k4_bf16(torch, np, hfa, hfp, peaks,
     return launches_all
 
 
+# -- the ResNet family, sampling and resilience --------------------------------
+
+#: Wide ResNet-50-2's convs that ResNet-50 does not run (B=256, 224² input,
+#: bf16, the prologue with ReLU and the stats on, as the training step runs
+#: them): its 3x3s at 128, 256, 512 and 1024 channels and their stride-2
+#: entries, and its 1x1s into and out of those widths
+WIDE_CONV_CASES = [
+    (f"wide_{k}x{k}_s{s}_{h}_{cin}to{cout}",
+     "conv3x3" if k == 3 else "conv1x1", 256, h, h, cin, cout, s, "relu",
+     True, "bf16")
+    for k, h, cin, cout, s in (
+        (3, 56, 128, 128, 1), (3, 28, 256, 256, 1), (3, 14, 512, 512, 1),
+        (3, 7, 1024, 1024, 1), (3, 56, 256, 256, 2), (3, 28, 512, 512, 2),
+        (3, 14, 1024, 1024, 2),
+        (1, 56, 64, 128, 1), (1, 56, 256, 128, 1), (1, 56, 128, 256, 1),
+        (1, 56, 256, 256, 1), (1, 28, 512, 256, 1), (1, 28, 256, 512, 1),
+        (1, 28, 512, 512, 1), (1, 14, 1024, 512, 1), (1, 14, 512, 1024, 1),
+        (1, 14, 1024, 1024, 1), (1, 7, 2048, 1024, 1),
+        (1, 7, 1024, 2048, 1))]
+
+
+def phase_kernel_conv_wide(torch, hc, peaks):
+    """K5-K8 against their plain versions at Wide ResNet-50-2's new shapes
+    (``WIDE_CONV_CASES``: the forward with the prologue and stats, the
+    input gradient, K7's stride-2 one by phases, and the weight gradient),
+    then K7's forward and K8 at each of its seven 3x3 shapes timed beside
+    cuDNN (channels-last bf16 on the prologued input, no stats) and their
+    bounds. Returns each kernel's largest error and the 3x3 timings."""
+    import torch.nn.functional as TF
+    g = torch.Generator(device="cuda")
+    g.manual_seed(19)
+    rows, worst = [], {name: 0.0 for name in CONV_KERNELS}
+    for case in WIDE_CONV_CASES:
+        row, errs = conv_case(torch, hc, case, g)
+        rows.append(row)
+        for kname, (err, _) in errs.items():
+            worst[kname] = max(worst[kname], err)
+        torch.cuda.empty_cache()
+    timing = {}
+    bf = torch.bfloat16
+    for name, kind, n, h, w, cin, cout, s, *_ in WIDE_CONV_CASES:
+        if kind != "conv3x3":
+            continue
+        ho = (h - 1) // s + 1
+        x = torch.randn(n, h, w, cin, generator=g, device="cuda").to(bf)
+        wgt = (torch.randn(cout, cin, 3, 3, generator=g, device="cuda") *
+               (cin * 9) ** -0.5).to(bf)
+        sc = torch.randn(cin, generator=g, device="cuda")
+        sh = torch.randn(cin, generator=g, device="cuda")
+        dy = torch.randn(n, ho, ho, cout, generator=g, device="cuda").to(bf)
+        wt = hc.fwd_weight(wgt, bf)
+        a_t = hc._prologue(x, sc, sh, "relu").permute(0, 3, 1, 2)
+        dy_t = dy.permute(0, 3, 1, 2)
+        w_cl = wgt.contiguous(memory_format=torch.channels_last)
+        m_out, m_in = n * ho * ho, n * h * w
+        flops = 2 * m_out * cin * cout * 9
+        row = {}
+        for part, kern, lib, nbytes in (
+                ("c3", lambda: hc.c3(x, wt, sc, sh, "relu", True, s),
+                 lambda: TF.conv2d(a_t, w_cl, stride=s, padding=1),
+                 m_in * cin * 2 + wgt.numel() * 2 + m_out * cout * 2),
+                ("c3_wgrad", lambda: hc.c3_wgrad(x, dy, sc, sh, "relu", s),
+                 lambda: torch.nn.grad.conv2d_weight(
+                     a_t, wgt.shape, dy_t, stride=s, padding=1),
+                 m_in * cin * 2 + m_out * cout * 2 + wgt.numel() * 4)):
+            ms = median_ms(kern)
+            bound, by = conv_bound(peaks, flops, nbytes)
+            row[part] = {"kernel_ms": ms, "library_ms": median_ms(lib),
+                         "bound_ms": bound, "bound_by": by, "flops": flops,
+                         "bytes": nbytes, "tflops": flops / ms / 1e9}
+        timing[f"3x3 {n}x{h}x{w} {cin}->{cout} s{s}"] = row
+        del x, dy, a_t, dy_t
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel_conv", "part": "wide", "cases": rows,
+          "timing": timing, "peak_sheet": peaks["sheet"],
+          "library": "cuDNN through torch in channels-last bf16 on the "
+                     "prologued input: F.conv2d and "
+                     "torch.nn.grad.conv2d_weight (no prologue, no stats)"})
+    return worst, timing
+
+
+def phase_pool_ties(torch, PF):
+    """``max_pool2d_with_index`` on the card against the CPU, bit for bit:
+    ReLU outputs (about half zeros, so many windows tie) at ResNet's
+    max-pool (3x3, stride 2, padding 1) on 64 channels at 112², a 2x2
+    stride-2 pool over an all-zero block, and padding past half the
+    kernel (kernel 3, padding 2 and 3: windows of padding only give
+    ``-inf`` and their top-left index). Ties take the first position of
+    the window in row-major order, as ``jnp.argmax`` does."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(23)
+    x = torch.relu(torch.randn(8, 64, 112, 112, generator=g,
+                               device="cuda"))
+    rows = []
+    for k, s, p, xin in ((3, 2, 1, x), (2, 2, 0, torch.zeros_like(x)),
+                         (3, 1, 2, x[:, :, :9, :9]),
+                         (3, 2, 3, x[:, :, :9, :9])):
+        pooled, mask = PF.max_pool2d_with_index(xin, k, s, p)
+        cp, cm = PF.max_pool2d_with_index(xin.cpu(), k, s, p)
+        win = PF.max_pool2d(xin, k, s, p)
+        # a window whose largest value is a ReLU zero ties at every real
+        # position
+        ties = int((pooled == 0).sum())
+        rows.append({"kernel": k, "stride": s, "padding": p,
+                     "shape": list(xin.shape),
+                     "pooled_equal": bool(torch.equal(pooled.cpu(), cp)),
+                     "mask_equal": bool(torch.equal(mask.cpu(), cm)),
+                     "max_pool2d_equal": bool(torch.equal(win, pooled)),
+                     "tied_windows": ties})
+    emit({"phase": "pool_ties", "cases": rows})
+    check(all(r["pooled_equal"] and r["mask_equal"] and
+              r["max_pool2d_equal"] for r in rows) and rows[0]["tied_windows"],
+          f"max_pool2d_with_index differs on the card: {rows}")
+    check(bool(torch.equal(PF.max_pool2d_with_index(
+        torch.zeros(1, 1, 4, 4, device="cuda"), 2, 2, 0)[1].cpu(),
+        torch.tensor([[[[0, 2], [8, 10]]]]))),
+        "a window of equal values does not take its first position")
+
+
+def block_convs(model):
+    """The bottleneck convs a training step runs on K5-K8: ``(1x1 convs,
+    ungrouped 3x3 convs)``. Each 1x1 is a K5 forward, a K5 input gradient
+    and a K6; each ungrouped 3x3 a K7 forward, a K7 input gradient and a
+    K8. A grouped 3x3 takes the library conv (``supports`` refuses
+    groups), as do the stem and the fc."""
+    n1 = n3 = 0
+    for layer in (model.layer1, model.layer2, model.layer3, model.layer4):
+        for blk in layer:
+            n1 += 2 + (blk.downsample is not None)
+            n3 += blk.conv2.groups == 1
+    return n1, n3
+
+
+def structure_launches(model):
+    n1, n3 = block_convs(model)
+    return {"mm": 2 * n1, "mm_wgrad": n1, "c3": 2 * n3, "c3_wgrad": n3}
+
+
+def checked_engine(base):
+    """``base`` (a ``ServingEngine`` class) for the earlier serving phases:
+    after every ``step()`` (``serve`` steps too) no request may have
+    failed, ``engine.diagnostics`` stays empty."""
+    class Engine(base):
+        def step(self):
+            out = super().step()
+            check(not self.diagnostics,
+                  f"a request failed on a serving path: "
+                  f"{[d.message for d in self.diagnostics]}")
+            return out
+    return Engine
+
+
+def phase_generate_sample_bf16(torch, np, hfa, hfp, model):
+    """``generate`` sampling on GPT-3 1.3B in bf16: B=4, a 128-token prompt,
+    64 new tokens, ``do_sample`` with ``top_k=50``, ``top_p=0.9``,
+    ``temperature=0.8``. The same seed gives the same tokens and another
+    seed others; ``do_sample=False`` equals the argmax loop of the raw
+    logits (greedy as it was before sampling); every sampled token
+    survived its step's filters (inside the top 50 and the top-p set),
+    read inside the run from ``filter_logits``' output. ms a token (the
+    whole batch of 4 a step)."""
+    from paddle_tpu_torch.text.models import gpt as tgpt
+    b, plen, new = 4, 128, 64
+    rng = np.random.default_rng(21)
+    ids = torch.as_tensor(rng.integers(0, model.cfg.vocab_size, (b, plen)),
+                          device="cuda")
+    kw = dict(max_new_tokens=new, do_sample=True, top_k=50, top_p=0.9,
+              temperature=0.8)
+    zero_counts(hfa, hfp)
+    model.generate(ids, seed=1, **kw)          # warm-up
+    times = []
+    outs = {}
+    for seed in (1, 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[seed] = model.generate(ids, seed=seed, **kw)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / new)
+    kept, real = [], tgpt.filter_logits
+
+    def recording(logits, top_k, top_p):
+        out = real(logits, top_k, top_p)
+        kept.append(torch.isfinite(out))
+        return out
+
+    tgpt.filter_logits = recording
+    try:
+        again = model.generate(ids, seed=1, **kw)
+    finally:
+        tgpt.filter_logits = real
+    # each sampled token survived its step's filters: inside the top 50
+    # (ties at the 50th kept) and the top-p set
+    inside = len(kept) == new and all(
+        bool(mask.gather(1, again[:, plen + i:plen + i + 1])[:, 0].all())
+        for i, mask in enumerate(kept))
+    greedy = model.generate(ids, max_new_tokens=new)
+    out, cache = [ids], model.gpt.init_cache(b, plen + new)
+    with torch.no_grad():
+        hidden, cache = model.gpt.decode(ids, cache, 0)
+        tok = torch.argmax(model.logits(hidden[:, -1:])[:, 0], -1)
+        for off in range(plen, plen + new):
+            out.append(tok[:, None])
+            if off == plen + new - 1:
+                break
+            hidden, cache = model.gpt.decode(tok[:, None], cache, off)
+            tok = torch.argmax(model.logits(hidden)[:, 0], -1)
+    launches = k4_counts(hfa, hfp)
+    row = {"phase": "generate_sample_bf16", "model": "gpt3_1p3b",
+           "batch": b, "prompt": plen, "new_tokens": new,
+           "sampling": {k: v for k, v in kw.items() if k != "max_new_tokens"},
+           "same_seed_equal": bool(torch.equal(outs[1], again)),
+           "other_seed_differs": not bool(torch.equal(outs[1], outs[2])),
+           "greedy_equal": bool(torch.equal(greedy, torch.cat(out, 1))),
+           "inside_top_k": inside, "steps_recorded": len(kept),
+           "ms_per_token": times,
+           "distinct_tokens": int(torch.unique(outs[1][:, plen:]).numel()),
+           "launches": {k: v for k, v in launches.items() if v}}
+    emit(row)
+    check(row["same_seed_equal"] and row["other_seed_differs"] and
+          row["greedy_equal"] and inside,
+          f"generate_sample_bf16: {row}")
+    check(not any(launches.values()),
+          f"generate launched attention kernels: {row}")
+
+
+def overload_trace(np, Request, vocab):
+    """bench.py's overload trace (``bench_serve_resilience``, seed 11): the
+    pool hog first, then 16 requests, every third with a deadline already
+    past (1 ns) at priority 0, the rest 120 s at priority 1."""
+    rng = np.random.default_rng(11)
+    trace = [Request(rid="hog", prompt_ids=rng.integers(0, vocab, 120),
+                     max_new_tokens=8, deadline_s=120.0, priority=2)]
+    for i in range(16):
+        plen = int(rng.integers(16, 33))
+        tight = i % 3 == 2
+        trace.append(Request(
+            rid=f"ov{i}", prompt_ids=rng.integers(0, vocab, plen),
+            max_new_tokens=16, deadline_s=1e-9 if tight else 120.0,
+            priority=0 if tight else 1))
+    return trace
+
+
+def overload_run(np, model, device, trace, Request, ServingEngine,
+                 ShedPolicy, SpillError, register_fire_point):
+    """The trace through a starved engine (16 blocks of 8 tokens,
+    ``max_batch=4``, ``max_waiting=8``, the degrade-mode policy,
+    ``validate_capacity=False``) with a ``SpillError`` at the first
+    spill. Returns the engine, its results and the fire point's calls."""
+    eng = ServingEngine(
+        model, block_size=8, num_blocks=16, max_batch=4,
+        max_seq_len=model.cfg.max_position_embeddings, max_waiting=8,
+        shed_policy=ShedPolicy(min_free_block_frac=0.2,
+                               max_p99_decode_ms=5e3, degrade=True),
+        validate_capacity=False, device=device)
+    spills = [0]
+
+    def bomb():
+        spills[0] += 1
+        if spills[0] == 1:
+            raise SpillError("injected host allocation failure (overload "
+                             "trace)")
+
+    register_fire_point("serve.mid_spill", bomb)
+    try:
+        res = eng.serve(trace)
+    finally:
+        register_fire_point("serve.mid_spill", None)
+    return eng, res, spills[0]
+
+
+def bf16_near_tie(torch, model, prefix):
+    """The top-2 logit gap after ``prefix`` (as ``top2_gap``) and the rule's
+    bound in bf16: 8 units in the last place of the top logit (the paged
+    decode and generate's dense decode round each layer's activations in
+    other orders)."""
+    gap = top2_gap(torch, model, prefix)
+    with torch.no_grad():
+        ids = torch.as_tensor(prefix, device=model.device)[None].long()
+        caches = model.gpt.init_cache(1, ids.shape[1])
+        hidden, _ = model.gpt.decode(ids, caches, 0)
+        top = float(model.logits(hidden[:, -1])[0].float().abs().max())
+    return gap, 8 * 2.0 ** (math.floor(math.log2(max(top, 1e-30))) - 7)
+
+
+def phase_serve_resilience(torch, np, hfa, model, Request, ServingEngine,
+                           ShedPolicy, SpillError, register_fire_point,
+                           RequestJournal, part):
+    """bench.py's overload leg (``bench_serve_resilience``, ``:1893-1925``)
+    on GPT-3 1.3B, K1's prefill (``part`` "f32": its float32 body;
+    "bf16": its tensor-core body): the hog and 16 requests through the
+    starved engine with the journal armed in a temporary directory. A CPU
+    dry run of the same lengths on a one-layer model decides every
+    request's ending (no eos: the lengths, the 1 ns deadlines and the free
+    blocks decide); the card must end each the same way. The hog and one
+    spill victim end FAILED and nobody else; no block leaks, the scheduler
+    is idle; the FINISHED survivors are held to ``generate`` by serve_f32's
+    near-tie rule (in bf16 a near tie is a top-2 gap under 8 units in the
+    last place of the top logit); the journal is exactly-once. SLO
+    attainment (deadline-carrying requests FINISHED within their deadline,
+    of all) and the shed rate ((shed + rejected) / all) come from the
+    returned records."""
+    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM, gpt_tiny
+    vocab, n_layers = model.cfg.vocab_size, model.cfg.num_layers
+    max_pos = model.cfg.max_position_embeddings
+    trace = overload_trace(np, Request, vocab)
+    tiny = GPTForCausalLM(gpt_tiny(vocab_size=64, hidden_size=16,
+                                   num_layers=1, num_heads=2,
+                                   max_position_embeddings=max_pos),
+                          device="cpu")
+    dry = [Request(rid=r.rid, prompt_ids=np.zeros(r.prompt_ids.size),
+                   max_new_tokens=r.max_new_tokens, deadline_s=r.deadline_s,
+                   priority=r.priority) for r in trace]
+    _, dres, _ = overload_run(np, tiny, "cpu", dry, Request, ServingEngine,
+                              ShedPolicy, SpillError, register_fire_point)
+
+    def ending(r):
+        return "rejected:" + r.reason if not r else r.status.value
+
+    want = {rid: ending(r) for rid, r in dres.items()}
+    body = "flash_fwd" if part == "f32" else "flash_fwd_tc"
+    with tempfile.TemporaryDirectory() as tmp:
+        journal = RequestJournal(os.path.join(tmp, "journal.jsonl"))
+        hfa.flash_fwd.launches = hfa.flash_fwd_tc.launches = 0
+        t0 = time.perf_counter()
+        eng, res, spills = overload_run(
+            np, model, "cuda", trace, Request,
+            lambda *a, **k: ServingEngine(*a, journal=journal, **k),
+            ShedPolicy, SpillError, register_fire_point)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"flash_fwd": hfa.flash_fwd.launches,
+                    "flash_fwd_tc": hfa.flash_fwd_tc.launches}
+        journal.close()
+        report = RequestJournal(journal.path).exactly_once_report(
+            [r.rid for r in trace])
+    got = {rid: ending(r) for rid, r in res.items()}
+    failed = sorted(rid for rid, e in got.items() if e == "failed")
+    finished = [r for r in trace if got[r.rid] == "finished"]
+    rows, refs = [], {}
+    for r in finished:
+        seq = res[r.rid]
+        key = (r.prompt_ids.tobytes(), r.max_new_tokens)
+        refs[key] = model.generate(
+            torch.as_tensor(r.prompt_ids, device="cuda")[None].long(),
+            max_new_tokens=r.max_new_tokens)[0].cpu().numpy()
+        diff = np.nonzero(seq.output != refs[key])[0]
+        row = {"rid": r.rid, "exact": diff.size == 0}
+        if diff.size:
+            pos = int(diff[0])
+            if part == "f32":
+                gap, bound = top2_gap(torch, model, refs[key][:pos]), 1e-3
+            else:
+                gap, bound = bf16_near_tie(torch, model, refs[key][:pos])
+            row.update(first_mismatch=pos - int(r.prompt_ids.size),
+                       top2_gap=gap, near_tie_bound=bound)
+            check(gap < bound, f"serve_resilience {part}: a survivor "
+                               f"differs from generate beyond a near-tie: "
+                               f"{row}")
+        rows.append(row)
+    with_deadline = [r for r in trace if r.deadline_s is not None]
+    met = sum(1 for r in with_deadline if got[r.rid] == "finished" and
+              res[r.rid].t_done - res[r.rid].t_submit <= r.deadline_s)
+    outcomes = {}
+    for e in got.values():
+        outcomes[e.split(":")[0]] = outcomes.get(e.split(":")[0], 0) + 1
+    shed = outcomes.get("shed", 0) + outcomes.get("rejected", 0)
+    row = {"phase": "serve_resilience_" + part, "model": "gpt3_1p3b",
+           "layers": n_layers, "requests": len(trace), "outcomes": outcomes,
+           "endings": got, "cpu_dry_run_equal": got == want,
+           "failed": failed, "spill_fire_calls": spills,
+           "diagnostics": [d.message for d in eng.diagnostics],
+           "mode_final": eng.mode, "preemptions": eng.n_preemptions,
+           "prefills": eng.n_prefills, "k1_launches": launches,
+           "slo_attainment_pct": 100.0 * met / len(with_deadline),
+           "shed_rate": shed / len(trace), "wall_s": wall,
+           "decode_step_p50_ms": percentile(eng.decode_ms, 50),
+           "survivors": rows, "journal": report,
+           "blocks_in_use": eng.cache.allocator.n_used}
+    emit(row)
+    check(got == want, f"serve_resilience {part}: the card ended requests "
+                       f"otherwise than the CPU dry run: {row}")
+    check(len(failed) == 2 and "hog" in failed and spills >= 1 and
+          len(eng.diagnostics) == 2,
+          f"serve_resilience {part}: expected the hog and one spill victim "
+          f"FAILED: {row}")
+    check(eng.cache.allocator.n_used == 0, f"KV blocks leaked: {row}")
+    eng.sched.assert_idle()
+    check(report["exactly_once"] and not report["lost"] and
+          not report["duplicated"], f"journal: {report}")
+    check(launches[body] == eng.n_prefills * n_layers and
+          sum(launches.values()) == launches[body],
+          f"serve_resilience {part}: K1 launches {launches} for "
+          f"{eng.n_prefills} prefills")
+    return {body: launches[body]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6420,8 +6872,10 @@ def main() -> int:
         from paddle_tpu_torch.ops._hopper import flash_attention as hfa
         from paddle_tpu_torch.ops._hopper import flash_attention_packed as hfp
         from paddle_tpu_torch.optimizer import AdamW
+        from paddle_tpu_torch.fault.injection import register_fire_point
         from paddle_tpu_torch.serving import (ModelDrafter, Request,
-                                              ServingEngine)
+                                              RequestJournal, ServingEngine,
+                                              ShedPolicy, SpillError)
         from paddle_tpu_torch.text.models.bert import (BertForPretraining,
                                                        bert_base)
         from paddle_tpu_torch.text.models.gpt import (GPTConfig,
@@ -6431,7 +6885,9 @@ def main() -> int:
         from paddle_tpu_torch.nn.functional import cross_entropy
         from paddle_tpu_torch.ops._hopper import conv as hc
         from paddle_tpu_torch.optimizer import Momentum
-        from paddle_tpu_torch.vision.models import resnet50
+        from paddle_tpu_torch.vision.models import (resnet50,
+                                                    resnext50_32x4d,
+                                                    wide_resnet50_2)
         from paddle_tpu_torch.text.models import ernie
         from paddle_tpu_torch.nn import MultiHeadAttention
         from paddle_tpu_torch.nn import functional as PF
@@ -6463,6 +6919,8 @@ def main() -> int:
                                                              peaks)
     worst_conv, stats_conv, timing_conv = phase_kernel_conv(torch, hc,
                                                             peaks)
+    worst_wide, timing_wide = phase_kernel_conv_wide(torch, hc, peaks)
+    phase_pool_ties(torch, PF)
     # attention-prob dropout in the nine attention kernels (rate 0.1), as
     # parts of phases 3-6
     drop_k1, worst_d1 = dropout_k1_k3(torch, hfa, hfp, peaks, timing,
@@ -6495,21 +6953,32 @@ def main() -> int:
         getattr(hfp, name).launches = 0
     model = GPTForCausalLM(gpt3_1p3b(), device="cuda", dtype=torch.float32,
                            seed=0)
+    # the serving paths fail no request: engine.diagnostics stays empty
+    checked = checked_engine(ServingEngine)
     f32_serve_launches = phase_serve_f32(torch, np, hfa, model, Request,
-                                         ServingEngine)
+                                         checked)
     tiers_f32 = phase_serve_tiers_f32(torch, np, hfa, hfp, hc, fmb, model,
-                                      Request, ServingEngine, ModelDrafter,
+                                      Request, checked, ModelDrafter,
                                       GPTForCausalLM, gpt3_1p3b)
+    # the resilience tier on bench.py's overload trace, K1's f32 body
+    resilience = phase_serve_resilience(
+        torch, np, hfa, model, Request, ServingEngine, ShedPolicy,
+        SpillError, register_fire_point, RequestJournal, "f32")
     model = model.to(torch.bfloat16)
     torch.cuda.empty_cache()
     serve_launches, num_blocks = phase_serve_bf16(
-        torch, np, hfa, model, Request, ServingEngine, GPTForCausalLM,
+        torch, np, hfa, model, Request, checked, GPTForCausalLM,
         gpt_tiny)
     tiers_bf16 = phase_serve_tiers_bf16(
-        torch, np, hfa, hfp, hc, fmb, model, Request, ServingEngine,
+        torch, np, hfa, hfp, hc, fmb, model, Request, checked,
         ModelDrafter, GPTForCausalLM, gpt3_1p3b, smi_line)
+    # sampling in generate, then the overload trace in bf16
+    phase_generate_sample_bf16(torch, np, hfa, hfp, model)
+    resilience.update(phase_serve_resilience(
+        torch, np, hfa, model, Request, ServingEngine, ShedPolicy,
+        SpillError, register_fire_point, RequestJournal, "bf16"))
     if profile:
-        phase_profile(torch, np, model, Request, ServingEngine, num_blocks)
+        phase_profile(torch, np, model, Request, checked, num_blocks)
     del model   # the serving engines and their pools are gone with it
     torch.cuda.empty_cache()
 
@@ -6580,8 +7049,22 @@ def main() -> int:
     resnet_launches = phase_train_resnet_bf16(
         torch, np, hc, hfa, hfp, peaks, resnet50, Momentum,
         make_sharded_train_step, profile=profile)
-
     torch.cuda.empty_cache()
+    # ResNeXt-50 32x4d and Wide ResNet-50-2: the f32 gradients card
+    # against CPU, then bench.py's config 2 setting for a few steps
+    family = {}
+    for fname, factory, phase in (
+            ("resnext50_32x4d", resnext50_32x4d, "train_resnext_bf16"),
+            ("wide_resnet50_2", wide_resnet50_2, "train_wide_resnet_bf16")):
+        phase_train_grad_f32_resnet(torch, np, hc, factory, cross_entropy,
+                                    model_name=fname,
+                                    phase="train_grad_f32_resnext")
+        torch.cuda.empty_cache()
+        family[fname] = phase_train_resnet_bf16(
+            torch, np, hc, hfa, hfp, peaks, factory, Momentum,
+            make_sharded_train_step, name=fname, phase=phase, warmup=2,
+            timed=3)
+        torch.cuda.empty_cache()
 
     # ERNIE: every earlier path launched none of the streamed K4 kernels
     # (each path's counts are checked above); ERNIE launches no conv kernel
@@ -6808,6 +7291,9 @@ def main() -> int:
             "transformer_f32_launches": t_f32_launches.get(name, 0),
             "decode_launches": decode_launches.get(name, 0),
             "recompute_k4_launches": rk4_launches.get(name, 0),
+            "resnext_launches": family["resnext50_32x4d"].get(name, 0),
+            "wide_launches": family["wide_resnet50_2"].get(name, 0),
+            "resilience_launches": resilience.get(name, 0),
             "max_abs_err": err, "max_err": err,
             "stats_rel_err": stats_conv.get(name),
             "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
@@ -6830,6 +7316,13 @@ def main() -> int:
             kernels[-1]["stages"] = t["stages"]
         if name in CONV_BODIES:
             kernels[-1]["body"] = CONV_BODIES[name]
+            # Wide ResNet-50-2's new shapes (kernel_conv part "wide"): the
+            # largest error against the plain version, and K7's forward
+            # and K8 at each 3x3 shape beside cuDNN
+            kernels[-1]["wide"] = {
+                "max_abs_err": worst_wide[name],
+                "ms": {shape: row[name] for shape, row in
+                       timing_wide.items() if name in row}}
         if name == "flash_packed_bwd_dkv_direct_tc":
             # the CUDA-core body in bf16 on the same inputs, the parent's
             # route and now a yardstick
@@ -6880,6 +7373,11 @@ def main() -> int:
                     "float32) through paddle_fused_matmul_bn_fwd",
         "launches": k9_launches, "k9_path_launches": k9_launches,
         "tiers_f32_launches": tiers_f32["fused_matmul_bn_fwd"],
+        "resnext_launches": family["resnext50_32x4d"].get(
+            "fused_matmul_bn_fwd", 0),
+        "wide_launches": family["wide_resnet50_2"].get(
+            "fused_matmul_bn_fwd", 0),
+        "resilience_launches": 0,
         "tiers_bf16_launches": tiers_bf16["fused_matmul_bn_fwd"],
         "max_abs_err": worst_k9, "max_err": worst_k9,
         "stats_rel_err": None,

@@ -7,20 +7,24 @@ from . import initializer  # noqa: F401
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
                    ClipGradByValue)
 from .layer import ParamAttr, create_parameter  # noqa: F401
-from .layers import (AdaptiveAvgPool2D, BatchNorm2D,  # noqa: F401
+from .layers import (AdaptiveAvgPool2D, AvgPool2D,  # noqa: F401
+                     BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
                      BeamSearchDecoder, Conv2D, CrossEntropyLoss, Dropout,
-                     Embedding, Identity, LayerList, LayerNorm, Linear,
-                     MaxPool2D, MultiHeadAttention, ReLU, Sequential,
+                     Embedding, Flatten, Identity, LayerList, LayerNorm,
+                     Linear, MaxPool2D, MultiHeadAttention, Pad2D, ReLU,
+                     Sequential,
                      Transformer, TransformerDecoder,
                      TransformerDecoderLayer, TransformerEncoder,
                      TransformerEncoderLayer, dynamic_decode)
 
 __all__ = ["functional", "initializer", "ClipGradByGlobalNorm",
            "ClipGradByNorm", "ClipGradByValue", "ParamAttr",
-           "create_parameter", "AdaptiveAvgPool2D", "BatchNorm2D",
+           "create_parameter", "AdaptiveAvgPool2D", "AvgPool2D",
+           "BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
            "BeamSearchDecoder", "Conv2D", "CrossEntropyLoss", "Dropout",
-           "Embedding", "Identity", "LayerList", "LayerNorm", "Linear",
-           "MaxPool2D", "MultiHeadAttention", "ReLU", "Sequential",
+           "Embedding", "Flatten", "Identity", "LayerList", "LayerNorm",
+           "Linear", "MaxPool2D", "MultiHeadAttention", "Pad2D", "ReLU",
+           "Sequential",
            "Transformer", "TransformerDecoder", "TransformerDecoderLayer",
            "TransformerEncoder", "TransformerEncoderLayer",
            "dynamic_decode"]

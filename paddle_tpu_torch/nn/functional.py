@@ -9,7 +9,9 @@ kernels (attention-prob dropout in the kernels), :func:`dropout` (both of
 Paddle's modes, the mask drawn from the key stream of
 :mod:`paddle_tpu_torch.core.random`), and for ResNet
 :func:`relu`, :func:`conv2d` (NCHW or NHWC, a library convolution, 1x1 NHWC
-as a matmul), :func:`max_pool2d`, :func:`adaptive_avg_pool2d` and
+as a matmul, ``padding="SAME"`` at any stride), :func:`max_pool2d` (with
+the argmax mask, :func:`max_pool2d_with_index`), :func:`avg_pool2d`,
+:func:`adaptive_avg_pool2d`, :func:`pad` (JAX's four modes) and
 :func:`batch_norm` with the closed-form backward.
 """
 
@@ -24,9 +26,10 @@ import torch.nn.functional as TF
 from ..core.random import next_key, torch_generator
 from ..ops._hopper.flash_attention import flash_attention_hopper
 
-__all__ = ["adaptive_avg_pool2d", "batch_norm", "conv2d", "cross_entropy",
-           "dropout", "embedding", "layer_norm", "linear", "max_pool2d",
-           "relu", "scaled_dot_product_attention"]
+__all__ = ["adaptive_avg_pool2d", "avg_pool2d", "batch_norm", "conv2d",
+           "cross_entropy", "dropout", "embedding", "layer_norm", "linear",
+           "max_pool2d", "max_pool2d_with_index", "pad", "relu",
+           "scaled_dot_product_attention"]
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor, bias=None
@@ -342,31 +345,160 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1,
         out = (x.reshape(n * h * w_, c) @ w.reshape(w.shape[0], c).T
                ).reshape(n, h, w_, w.shape[0])
     else:
+        xt = _nchw(x, data_format)
         if pad == "same" and stride != (1, 1):
-            raise NotImplementedError("padding='SAME' with a stride is not "
-                                      "ported yet")
-        out = _back(TF.conv2d(_nchw(x, data_format), w, None, stride, pad,
-                              dilation, groups), data_format)
+            # lax's SAME: out = ceil(in / s), the total padding split
+            # total // 2 before and the rest after, then no padding
+            (pt, pb), (pl, pr) = (_same_pads(xt.shape[2 + i], w.shape[2 + i],
+                                             stride[i], dilation[i])
+                                  for i in (0, 1))
+            xt, pad = TF.pad(xt, (pl, pr, pt, pb)), (0, 0)
+        out = _back(TF.conv2d(xt, w, None, stride, pad, dilation, groups),
+                    data_format)
     if bias is not None:
         shape = (1, -1, 1, 1) if data_format == "NCHW" else (-1,)
         out = out + bias.to(out.dtype).reshape(shape)
     return out
 
 
+def _same_pads(size: int, k: int, s: int, d: int) -> Tuple[int, int]:
+    """lax's SAME padding of one axis: ``(before, after)``."""
+    out = -(-size // s)
+    total = max((out - 1) * s + (k - 1) * d + 1 - size, 0)
+    return total // 2, total - total // 2
+
+
+def _pool_args(kernel_size, stride, padding):
+    k = _pair(kernel_size)
+    return k, _pair(stride if stride is not None else kernel_size), \
+        _pair(padding)
+
+
+def _neg_fill(x: torch.Tensor) -> float:
+    """The value padding takes in a max pool: ``-inf``, or an integer
+    dtype's least value (``reduce_window``'s init in JAX)."""
+    if x.is_floating_point():
+        return float("-inf")
+    return torch.iinfo(x.dtype).min
+
+
 def max_pool2d(x, kernel_size, stride=None, padding=0,
                return_mask: bool = False, data_format: str = "NCHW"):
     """Max pooling; the padding never wins (``-inf``), as ``reduce_window``
-    with a ``-inf`` init. ``return_mask`` is not ported yet and raises."""
+    with a ``-inf`` init. Padding past half the kernel, which torch's pool
+    refuses, is applied first as ``-inf`` (JAX computes it).
+    ``return_mask=True`` (NCHW only, as JAX asserts) returns
+    :func:`max_pool2d_with_index`'s ``(pooled, mask)``."""
     if isinstance(return_mask, str):
         # the JAX function's compat: data_format passed 5th, positionally
         data_format, return_mask = return_mask, False
     if return_mask:
-        raise NotImplementedError("max_pool2d(return_mask=True) is not "
-                                  "ported yet")
-    k = _pair(kernel_size)
-    s = _pair(stride if stride is not None else kernel_size)
-    return _back(TF.max_pool2d(_nchw(x, data_format), k, s, _pair(padding)),
-                 data_format)
+        if data_format != "NCHW":
+            raise ValueError("max_pool2d(return_mask=True) takes NCHW input")
+        return max_pool2d_with_index(x, kernel_size, stride, padding)
+    k, s, (ph, pw) = _pool_args(kernel_size, stride, padding)
+    xt = _nchw(x, data_format)
+    if 2 * ph > k[0] or 2 * pw > k[1]:
+        xt = TF.pad(xt, (pw, pw, ph, ph), value=_neg_fill(xt))
+        ph = pw = 0
+    return _back(TF.max_pool2d(xt, k, s, (ph, pw)), data_format)
+
+
+def max_pool2d_with_index(x, kernel_size, stride=None, padding=0):
+    """``(pooled, mask)`` of an NCHW max pool: ``mask`` holds each output's
+    argmax as a flat ``h·w`` index of the unpadded input (int64; the JAX
+    function's is int32). Padding never wins: it is ``-inf``. Ties go to
+    the first position of the window in row-major order, as ``jnp.argmax``
+    breaks them (a window of ReLU's zeros takes its top-left zero); a
+    window of padding only gives ``-inf`` and the index of its top-left
+    corner (negative or past the row, as in JAX)."""
+    n, c, h, w = x.shape
+    (kh, kw), (sh, sw), (ph, pw) = _pool_args(kernel_size, stride, padding)
+    xp = TF.pad(x, (pw, pw, ph, ph), value=_neg_fill(x))
+    oh = (h + 2 * ph - kh) // sh + 1
+    ow = (w + 2 * pw - kw) // sw + 1
+    # [N, C, oh, ow, kh, kw] windows, flattened row-major
+    win = xp.unfold(2, kh, sh).unfold(3, kw, sw)[:, :, :oh, :ow]
+    win = win.reshape(n, c, oh, ow, kh * kw)
+    pooled, arg = win.max(dim=-1)
+    # torch.max's index on ties is not documented as the first: take the
+    # first position equal to the max
+    pos = torch.arange(kh * kw, device=x.device)
+    arg = torch.where(win == pooled[..., None], pos, kh * kw).amin(-1)
+    arg = torch.where(arg == kh * kw, 0, arg)   # NaN windows
+    rows = (torch.arange(oh, device=x.device) * sh - ph)[:, None] + \
+        torch.div(arg, kw, rounding_mode="floor")
+    cols = (torch.arange(ow, device=x.device) * sw - pw)[None, :] + arg % kw
+    return pooled, rows * w + cols
+
+
+def avg_pool2d(x, kernel_size, stride=None, padding=0,
+               data_format: str = "NCHW", exclusive: bool = True):
+    """Average pooling over zero padding: with ``exclusive`` and padding
+    each window divides by its count of real elements, otherwise by the
+    window's size (JAX ``nn/functional.py:282-291``). Any padding, as in
+    JAX (torch's pool refuses more than half the kernel)."""
+    k, s, (ph, pw) = _pool_args(kernel_size, stride, padding)
+    xt = _nchw(x, data_format)
+    if (ph, pw) != (0, 0):
+        xt = TF.pad(xt, (pw, pw, ph, ph))
+    summed = TF.avg_pool2d(xt, k, s, divisor_override=1)
+    if exclusive and (ph, pw) != (0, 0):
+        ones = TF.pad(torch.ones_like(_nchw(x, data_format)[:1, :1]),
+                      (pw, pw, ph, ph))
+        counts = TF.avg_pool2d(ones, k, s, divisor_override=1)
+        out = summed / counts
+    else:
+        out = summed / (k[0] * k[1])
+    return _back(out, data_format)
+
+
+def _pad_index(n: int, lo: int, hi: int, mode: str, device) -> torch.Tensor:
+    """The source index of each of the ``lo + n + hi`` positions of one
+    padded axis, as numpy's ``reflect`` (no edge repeat), ``edge`` and
+    ``wrap`` modes give them at any width."""
+    i = torch.arange(-lo, n + hi, device=device)
+    if mode == "replicate":
+        return i.clamp(0, n - 1)
+    if mode == "circular":
+        return i % n
+    if n == 1:
+        return torch.zeros_like(i)
+    period = 2 * (n - 1)
+    i = i % period
+    return torch.where(i >= n, period - i, i)
+
+
+def pad(x, pad_width, mode: str = "constant", value: float = 0.0,
+        data_format: str = "NCHW"):
+    """Paddle's pad (JAX ``nn/functional.py:702-725``): ``pad_width`` a
+    flat ``[lo_last, hi_last, lo_prev, ...]`` over the trailing spatial
+    axes (between batch and channels for a channels-last
+    ``data_format``), or one ``(lo, hi)`` pair per axis. ``mode`` is
+    ``constant`` (``value``), ``reflect``, ``replicate`` or ``circular``
+    (numpy's ``reflect``, ``edge`` and ``wrap``)."""
+    if isinstance(pad_width[0], (tuple, list)):
+        widths = [tuple(int(v) for v in p) for p in pad_width]
+    else:
+        if len(pad_width) % 2:
+            raise ValueError(f"pad_width needs pairs; got {pad_width!r}")
+        n_spatial = len(pad_width) // 2
+        channels_last = data_format.endswith("C") and x.dim() > 2
+        last = x.dim() - (2 if channels_last else 1)
+        widths = [(0, 0)] * x.dim()
+        for i in range(n_spatial):
+            widths[last - i] = (int(pad_width[2 * i]),
+                                int(pad_width[2 * i + 1]))
+    if mode not in ("constant", "reflect", "replicate", "circular"):
+        raise ValueError(f"pad mode {mode!r}")
+    if mode == "constant":
+        flat = [v for lo, hi in reversed(widths) for v in (lo, hi)]
+        return TF.pad(x, flat, value=value)
+    for dim, (lo, hi) in enumerate(widths):
+        if lo or hi:
+            x = x.index_select(dim, _pad_index(x.shape[dim], lo, hi, mode,
+                                               x.device))
+    return x
 
 
 def adaptive_avg_pool2d(x, output_size, data_format: str = "NCHW"):

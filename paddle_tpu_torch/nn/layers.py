@@ -2,7 +2,8 @@
 LayerNorm, Embedding, the transformer encoder and decoder layers with
 ``MultiHeadAttention``'s decoding caches, beam search
 (:class:`BeamSearchDecoder`, :func:`dynamic_decode`), the convolution,
-BatchNorm, pooling and container layers of the ResNet path, and
+BatchNorm (1-D, 2-D, 3-D and the legacy :class:`BatchNorm`), pooling,
+padding and container layers of the ResNet path, and
 :class:`CrossEntropyLoss`.
 
 Every layer that holds parameters or buffers builds them on ``device``,
@@ -53,8 +54,10 @@ __all__ = ["Linear", "LayerNorm", "Embedding", "Dropout", "Identity",
            "LayerList", "MultiHeadAttention", "TransformerEncoderLayer",
            "TransformerEncoder", "TransformerDecoderLayer",
            "TransformerDecoder", "Transformer", "BeamSearchDecoder",
-           "dynamic_decode", "Conv2D", "BatchNorm2D", "MaxPool2D",
-           "AdaptiveAvgPool2D", "ReLU", "Sequential", "CrossEntropyLoss"]
+           "dynamic_decode", "Conv2D", "BatchNorm", "BatchNorm1D",
+           "BatchNorm2D", "BatchNorm3D", "MaxPool2D", "AvgPool2D",
+           "AdaptiveAvgPool2D", "Flatten", "Pad2D", "ReLU", "Sequential",
+           "CrossEntropyLoss"]
 
 
 class Linear(nn.Linear):
@@ -167,7 +170,8 @@ class LayerList(nn.ModuleList):
 
 def _activation(name: str):
     # the exact erf GELU, as the JAX package's F.gelu defaults
-    return {"relu": TF.relu, "gelu": TF.gelu}[name]
+    return {"relu": TF.relu, "gelu": TF.gelu, "sigmoid": torch.sigmoid,
+            "tanh": torch.tanh}[name]
 
 
 class MultiHeadAttention(nn.Module):
@@ -571,7 +575,13 @@ class Conv2D(nn.Module):
     """ref: ``python/paddle/nn/layer/conv.py`` Conv2D. Weight OIHW ``[out,
     in/groups, kh, kw]``, by default the JAX layer's KaimingUniform with
     negative slope sqrt(5), U(±1/sqrt(fan_in)); the bias, unless
-    ``bias_attr=False``, from the same bound."""
+    ``bias_attr=False``, from the same bound.
+
+    ``padding_mode`` ``"reflect"``, ``"replicate"`` or ``"circular"``
+    pads by ``padding`` in that mode (:func:`~.functional.pad`) and then
+    convolves with no padding, as Paddle means it. The JAX layer takes the
+    argument and zero-pads whatever it says (a fault of the reference,
+    ROADMAP Queue 3)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size,
                  stride=1, padding=0, dilation=1, groups: int = 1,
@@ -579,9 +589,14 @@ class Conv2D(nn.Module):
                  bias_attr=None, data_format: str = "NCHW", dtype=None, *,
                  device=None):
         super().__init__()
-        if padding_mode != "zeros":
-            raise NotImplementedError(f"padding_mode={padding_mode!r} is "
-                                      f"not ported yet ('zeros' only)")
+        if padding_mode not in ("zeros", "reflect", "replicate", "circular"):
+            raise ValueError(f"padding_mode must be 'zeros', 'reflect', "
+                             f"'replicate' or 'circular'; got "
+                             f"{padding_mode!r}")
+        if padding_mode != "zeros" and isinstance(padding, str):
+            raise ValueError(f"padding_mode={padding_mode!r} takes integer "
+                             f"padding, not {padding!r}")
+        self.padding_mode = padding_mode
         device = resolve_device(device)
         kh, kw = F._pair(kernel_size)
         self.stride, self.padding, self.dilation = stride, padding, dilation
@@ -601,8 +616,14 @@ class Conv2D(nn.Module):
         # AMP O1 casts a float32 input, weight and bias (JAX
         # nn/layers.py:102-104)
         x, w, b = maybe_cast_input("conv2d", x, self.weight, self.bias)
+        padding = self.padding
+        if self.padding_mode != "zeros":
+            ph, pw = F._pair(padding)
+            x = F.pad(x, [pw, pw, ph, ph], mode=self.padding_mode,
+                      data_format=self.data_format)
+            padding = 0
         return F.conv2d(x, w, b, stride=self.stride,
-                        padding=self.padding, dilation=self.dilation,
+                        padding=padding, dilation=self.dilation,
                         groups=self.groups, data_format=self.data_format)
 
 
@@ -651,6 +672,42 @@ class BatchNorm2D(_BatchNormBase):
     pass
 
 
+class BatchNorm1D(_BatchNormBase):
+    """BatchNorm over ``[N, C]`` or ``[N, C, L]``, taken as NCHW with W = 1
+    (and L = 1 for ``[N, C]``), as the JAX layer does."""
+
+    def forward(self, x):
+        squeeze = x.dim() == 2
+        if squeeze:
+            x = x[:, :, None]
+        out = super().forward(x[..., None])[..., 0]
+        return out[:, :, 0] if squeeze else out
+
+
+class BatchNorm3D(_BatchNormBase):
+    """BatchNorm over ``[N, C, D, H, W]`` (the channels on axis 1 under the
+    default ``data_format``, as in JAX)."""
+
+
+class BatchNorm(_BatchNormBase):
+    """The legacy ``paddle.nn.BatchNorm``: normalises over every axis but
+    the channels (axis 1), then applies ``act`` (``"relu"``, ``"gelu"``,
+    ``"sigmoid"``, ``"tanh"``) if given. As in JAX, ``data_layout``,
+    ``dtype`` and further keywords are taken and not used; the parameters
+    are float32."""
+
+    def __init__(self, num_channels: int, momentum: float = 0.9,
+                 epsilon: float = 1e-5, act=None, dtype=None,
+                 data_layout: str = "NCHW", *, device=None, **kw):
+        super().__init__(num_channels, momentum=momentum, epsilon=epsilon,
+                         device=device)
+        self._act = act
+
+    def forward(self, x):
+        out = super().forward(x)
+        return _activation(self._act)(out) if self._act else out
+
+
 class MaxPool2D(nn.Module):
     def __init__(self, kernel_size, stride=None, padding=0,
                  data_format: str = "NCHW"):
@@ -661,6 +718,43 @@ class MaxPool2D(nn.Module):
     def forward(self, x):
         return F.max_pool2d(x, self.kernel_size, self.stride, self.padding,
                             data_format=self.data_format)
+
+
+class AvgPool2D(nn.Module):
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 exclusive: bool = True, data_format: str = "NCHW"):
+        super().__init__()
+        self.kernel_size, self.stride = kernel_size, stride
+        self.padding, self.exclusive = padding, exclusive
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.avg_pool2d(x, self.kernel_size, self.stride, self.padding,
+                            self.data_format, self.exclusive)
+
+
+class Flatten(nn.Module):
+    """Flattens axes ``start_axis`` to ``stop_axis`` into one."""
+
+    def __init__(self, start_axis: int = 1, stop_axis: int = -1):
+        super().__init__()
+        self.start_axis, self.stop_axis = start_axis, stop_axis
+
+    def forward(self, x):
+        return torch.flatten(x, self.start_axis % x.dim(),
+                             self.stop_axis % x.dim())
+
+
+class Pad2D(nn.Module):
+    def __init__(self, padding, mode: str = "constant", value: float = 0.0,
+                 data_format: str = "NCHW"):
+        super().__init__()
+        self.padding, self.mode, self.value = padding, mode, value
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pad(x, self.padding, self.mode, self.value,
+                     self.data_format)
 
 
 class AdaptiveAvgPool2D(nn.Module):

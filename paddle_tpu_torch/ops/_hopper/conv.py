@@ -73,6 +73,8 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as TF
 
+from . import KernelLaunchError
+
 __all__ = ["conv2d", "conv2d_fwd", "conv2d_dgrad", "conv2d_wgrad",
            "supports", "pallas_conv_enabled", "mm", "mm_reference",
            "mm_wgrad", "mm_wgrad_reference", "c3", "c3_reference",
@@ -420,8 +422,9 @@ def _run(lib, fn, what: str, x, *args) -> None:
         err = fn(*args, stream)
     if err != 0:
         msg = lib.paddle_cuda_error_string(err).decode()
-        raise RuntimeError(f"{what} kernel launch failed: {msg} (cudaError "
-                           f"{err}) for x {tuple(x.shape)} {x.dtype}")
+        raise KernelLaunchError(f"{what} kernel launch failed: {msg} "
+                                f"(cudaError {err}) for x {tuple(x.shape)} "
+                                f"{x.dtype}")
 
 
 def _stat_scratch(blocks: int, k: int, device):

@@ -71,6 +71,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ...core import random as rng
+from . import KernelLaunchError
 
 __all__ = ["flash_fwd", "flash_fwd_tc", "flash_fwd_reference", "flash_bwd",
            "flash_bwd_reference", "flash_bwd_dq", "flash_bwd_dkv",
@@ -550,9 +551,9 @@ def _call(lib, fn, what: str, q, k, *args):
         err = fn(*args, stream)
     if err != 0:
         msg = lib.paddle_cuda_error_string(err).decode()
-        raise RuntimeError(f"{what} kernel launch failed: {msg} "
-                           f"(cudaError {err}) for q {tuple(q.shape)} "
-                           f"{q.dtype}, k {tuple(k.shape)}")
+        raise KernelLaunchError(f"{what} kernel launch failed: {msg} "
+                                f"(cudaError {err}) for q {tuple(q.shape)} "
+                                f"{q.dtype}, k {tuple(k.shape)}")
 
 
 def _mask_ptrs(masks: Masks):

@@ -6,14 +6,19 @@ for preempted sequences, a continuous-batching FCFS scheduler, bucketed
 prefill/decode shapes, and the three throughput tiers: radix prefix
 sharing (:class:`PrefixCache`), chunked prefill, and speculative decoding
 (:class:`NGramDrafter`, :class:`ModelDrafter`, with the draft depth in the
-autotune cache). Prefill runs the flash-attention forward kernel (K1) on
-the GPU.
+autotune cache), and the resilience tier: bounded admission with a typed
+:class:`Rejected`, deadlines, load shedding (:class:`ShedPolicy`), the
+exactly-once :class:`RequestJournal` and per-request failure isolation.
+Prefill runs the flash-attention forward kernel (K1) on the GPU.
 """
 
 from .buckets import BucketSet, pad_axis, pow2_buckets  # noqa: F401
 from .engine import ServingEngine  # noqa: F401
-from .paged_cache import BlockAllocator, NULL_BLOCK, PagedKVCache  # noqa: F401
+from .paged_cache import (BlockAllocator, NULL_BLOCK,  # noqa: F401
+                          OutOfBlocksError, PagedKVCache, SpillError)
 from .prefix_tree import PrefixCache, PrefixNode  # noqa: F401
+from .resilience import (Rejected, RequestJournal,  # noqa: F401
+                         ShedPolicy, prompt_hash)
 from .scheduler import (FCFSScheduler, Request, Sequence,  # noqa: F401
                         Status, TERMINAL_STATUSES)
 from .speculative import (ModelDrafter, NGramDrafter,  # noqa: F401
@@ -21,8 +26,9 @@ from .speculative import (ModelDrafter, NGramDrafter,  # noqa: F401
 
 __all__ = [
     "BlockAllocator", "BucketSet", "FCFSScheduler", "ModelDrafter",
-    "NGramDrafter", "NULL_BLOCK", "PagedKVCache", "PrefixCache",
-    "PrefixNode", "Request", "Sequence", "ServingEngine", "Status",
+    "NGramDrafter", "NULL_BLOCK", "OutOfBlocksError", "PagedKVCache",
+    "PrefixCache", "PrefixNode", "Rejected", "Request", "RequestJournal",
+    "Sequence", "ServingEngine", "ShedPolicy", "SpillError", "Status",
     "TERMINAL_STATUSES", "pad_axis", "pick_gamma", "pow2_buckets",
-    "store_gamma", "tune_gamma",
+    "prompt_hash", "store_gamma", "tune_gamma",
 ]

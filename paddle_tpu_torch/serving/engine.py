@@ -44,34 +44,56 @@ pool in place with ``index_put_``, where the JAX engine donates the pool
 to its executables. Before every write the engine asserts that no real
 write slot lands in a block the prefix tree holds.
 
-A failing step raises: unlike the reference, the engine does not fail one
-request and carry on. Where the reference's tier code ends a request
-FAILED (a pool that can never grant it), the port raises with the same
-message. Not ported (ROADMAP Queue 1 items 5 and 10): the resilience
-knobs (``max_waiting``, ``max_spilled_bytes``, ``shed_policy``,
-``journal``, ``validate_capacity``), per-request ``FAILED`` isolation,
-deadlines, metrics, request timelines, recompile sentinels and
-``compile_report``, the AOT ``trace_steps``/``compile_*`` and the static
-plan (``_build_plan``) with its lint. Decoding is greedy (argmax),
-matching ``GPTForCausalLM.generate``.
+The resilience knobs are ported (``max_waiting``, ``max_spilled_bytes``,
+``shed_policy``, ``journal``, ``validate_capacity``): bounded admission
+answers with a typed :class:`~.resilience.Rejected`, deadlines expire
+requests at iteration granularity, the shed policy sheds or degrades under
+overload (``mode``: healthy, shedding or degraded), the journal records
+every submission and acknowledgment, and a request that outgrows the pool
+or loses its spill ends FAILED with an F003 record in ``diagnostics``
+while the loop goes on. Unlike the reference, which fails one request
+for any ``Exception``, the engine isolates only what is the request's
+own: :class:`~.paged_cache.OutOfBlocksError`,
+:class:`~.paged_cache.SpillError` (also what the ``serve.mid_spill`` fire
+point raises) and a ``ValueError`` raised outside the kernel wrappers. A
+kernel's launch error (:class:`~paddle_tpu_torch.ops._hopper.
+KernelLaunchError`), any CUDA error and anything raised in
+``ops/_hopper`` stop ``serve()``: no fault of a kernel ends as a quietly
+FAILED request.
+
+Not ported (ROADMAP Queue 1 items 5, 9 and 10): metrics and request
+timelines, recompile sentinels and ``compile_report``, the AOT
+``trace_steps``/``compile_*``, the static plan (``_build_plan``) with its
+lint, and the subprocess kill-and-replay drill. Decoding is greedy
+(argmax), as the reference engine's is; sampling lives in
+``GPTForCausalLM.generate``.
 """
 
 from __future__ import annotations
 
 import math
+import os
+import sys
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence as Seq
+import traceback
+from collections import deque
+from dataclasses import dataclass
+from typing import (Any, Callable, Dict, List, Optional, Sequence as Seq,
+                    Union)
 
 import numpy as np
 import torch
 
 from ..core import flags as _flags
 from ..core.device import resolve_device, same_device
+from ..fault.injection import fire as _fault_fire
 from ..ops.flash_attention import (_masked_softmax, flash_attention,
                                    single_query_attention)
 from .buckets import BucketSet, pad_axis, pow2_buckets
-from .paged_cache import NULL_BLOCK, PagedKVCache
+from .paged_cache import (NULL_BLOCK, OutOfBlocksError, PagedKVCache,
+                          SpillError)
 from .prefix_tree import PrefixCache
+from .resilience import Rejected, RequestJournal, ShedPolicy
 from .scheduler import FCFSScheduler, Request, Sequence, Status
 from .speculative import (DEFAULT_GAMMA, ModelDrafter, NGramDrafter,
                           pick_gamma, tune_gamma)
@@ -111,6 +133,56 @@ def _model_desc(cfg) -> str:
     return f"gpt_l{cfg.num_layers}_h{cfg.hidden_size}_v{cfg.vocab_size}"
 
 
+def percentile(values: List[float], q: float) -> Optional[float]:
+    """Linear-interpolated percentile (q in [0, 100]) of raw values (the
+    reference's ``observability/request_timeline.py`` ``percentile``)."""
+    if not values:
+        return None
+    vs = sorted(values)
+    if len(vs) == 1:
+        return vs[0]
+    rank = (q / 100.0) * (len(vs) - 1)
+    lo = int(rank)
+    hi = min(lo + 1, len(vs) - 1)
+    frac = rank - lo
+    return vs[lo] * (1.0 - frac) + vs[hi] * frac
+
+
+@dataclass
+class FailureRecord:
+    """One request the engine failed and carried on past (rule F003): the
+    reference's analysis ``Diagnostic`` fields, kept in
+    ``ServingEngine.diagnostics``."""
+
+    rule: str
+    name: str
+    severity: str
+    message: str
+    hint: str = ""
+    where: str = ""
+
+    def format(self) -> str:
+        return (f"[{self.severity}] {self.rule}/{self.name} [{self.where}]: "
+                f"{self.message} — hint: {self.hint}")
+
+
+#: the errors that fail one request and not the loop: its own
+_ISOLATED = (OutOfBlocksError, SpillError, ValueError)
+_KERNEL_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "ops", "_hopper") + os.sep
+
+
+def _isolable(e: BaseException) -> bool:
+    """Whether ``e`` is a request's own failure: one of ``_ISOLATED``, not
+    raised inside a kernel wrapper (``ops/_hopper``). A launch error
+    (``KernelLaunchError``) and CUDA errors are ``RuntimeError``s outside
+    ``_ISOLATED``; they and a wrapper's refusal stop the loop."""
+    if not isinstance(e, _ISOLATED):
+        return False
+    return not any(os.path.abspath(f.filename).startswith(_KERNEL_DIR)
+                   for f in traceback.extract_tb(e.__traceback__))
+
+
 class ServingEngine:
     """Paged-KV continuous-batching server over one causal-LM model.
 
@@ -122,19 +194,33 @@ class ServingEngine:
     ``n_preemptions``, ``prefill_tokens``/``prefill_s``, ``decode_ms``
     (one entry per decode or verify iteration, ``decode_tokens`` tokens
     committed in all), ``n_iterations``, ``peak_blocks_used`` and
-    ``peak_live_blocks``."""
+    ``peak_live_blocks``; the resilience tier's ``rejections``,
+    ``diagnostics`` (F003 records) and ``mode``."""
 
     def __init__(self, model, *, block_size: int = 8, num_blocks: int = 64,
                  max_batch: int = 8, max_seq_len: Optional[int] = None,
                  prefill_buckets: Optional[Seq[int]] = None,
                  decode_buckets: Optional[Seq[int]] = None,
                  detokenizer: Optional[Callable[[np.ndarray], Any]] = None,
+                 max_waiting: Optional[int] = None,
+                 max_spilled_bytes: Optional[int] = None,
+                 shed_policy: Optional[ShedPolicy] = None,
+                 journal: Optional[RequestJournal] = None,
+                 validate_capacity: bool = True,
                  prefix_cache: Optional[bool] = None,
                  chunked_prefill: Optional[int] = None,
                  speculative: Optional[int] = None,
                  drafter: Optional[Any] = None,
                  device=None):
-        """Throughput knobs (``None`` reads the matching ``FLAGS_serve_*``
+        """Resilience knobs (all off by default): ``max_waiting`` and
+        ``max_spilled_bytes`` bound admission (an over-budget submission
+        returns a typed :class:`Rejected`), ``shed_policy`` arms load
+        shedding, ``journal`` records admitted-request state for
+        exactly-once replay, and ``validate_capacity=False`` lets a pool
+        smaller than one max-length sequence serve: a request that
+        outgrows it ends FAILED instead of the constructor refusing.
+
+        Throughput knobs (``None`` reads the matching ``FLAGS_serve_*``
         flag): ``prefix_cache`` arms the radix prefix-sharing tree;
         ``chunked_prefill`` is the per-iteration prefill token budget
         (0 = one-shot prefill; rounded down to whole blocks, at least
@@ -153,7 +239,7 @@ class ServingEngine:
         limit = int(cfg.max_position_embeddings)
         self.max_seq_len = min(int(max_seq_len or limit), limit)
         self.max_blocks_per_seq = _ceil_div(self.max_seq_len, self.block_size)
-        if num_blocks - 1 < self.max_blocks_per_seq:
+        if validate_capacity and num_blocks - 1 < self.max_blocks_per_seq:
             raise ValueError(
                 f"pool of {num_blocks} blocks cannot hold one max-length "
                 f"sequence ({self.max_blocks_per_seq} blocks of "
@@ -226,7 +312,7 @@ class ServingEngine:
                 dtype=dm.gpt.wte.weight.dtype, device=self.device)
         self.prefix = PrefixCache(self.cache, mirror=self._draft_cache) \
             if self.prefix_on else None
-        self.sched = FCFSScheduler(max_batch)
+        self.sched = FCFSScheduler(max_batch, max_waiting=max_waiting)
         self._seqs: Dict[str, Sequence] = {}
         self.n_iterations = 0
         self.n_prefills = 0
@@ -241,6 +327,21 @@ class ServingEngine:
         #: cache holds excluded: they evict on demand); the fair
         #: pool-pressure comparison across prefix-cache arms
         self.peak_live_blocks = 0
+
+        # -- resilience state ------------------------------------------------
+        self.max_spilled_bytes = max_spilled_bytes
+        self.shed_policy = shed_policy
+        self.journal = journal
+        self.rejections: List[Rejected] = []
+        self.diagnostics: List[FailureRecord] = []   # F003, newest last
+        self.mode = "healthy"                # healthy | shedding | degraded
+        self._spilled_bytes = 0
+        self._degraded_width: Optional[int] = None
+        #: the shed policy's rolling window of decode-iteration times (ms)
+        self._decode_window: deque = deque(
+            maxlen=shed_policy.window if shed_policy else 64)
+        if journal is not None:
+            journal.launch()
 
         # -- the steps -------------------------------------------------------
         self._prefill_fn = self._make_prefill()
@@ -470,9 +571,12 @@ class ServingEngine:
     # Request lifecycle
     # ------------------------------------------------------------------
 
-    def submit(self, request: Request) -> Sequence:
-        """Queue one request. A total that can never fit ``max_seq_len``,
-        or a prompt past the largest prefill bucket, raises."""
+    def submit(self, request: Request) -> Union[Sequence, Rejected]:
+        """Queue one request, or answer with a typed :class:`Rejected` when
+        the bounded queue or the host-spill budget is over capacity. A
+        malformed request (a total that can never fit ``max_seq_len``, or
+        a prompt past the largest prefill bucket) raises: a client contract
+        error, not overload."""
         total = request.prompt_ids.size + request.max_new_tokens
         if total > self.max_seq_len:
             raise ValueError(
@@ -480,14 +584,143 @@ class ServingEngine:
                 f"+ max_new_tokens {request.max_new_tokens} exceeds "
                 f"max_seq_len {self.max_seq_len}")
         self.prefill_buckets.fit(request.prompt_ids.size)
+        if not self.sched.can_accept():
+            return self._reject(
+                request, "queue_full",
+                f"waiting queue at max_waiting={self.sched.max_waiting}")
+        if (self.max_spilled_bytes is not None
+                and self._spilled_bytes > self.max_spilled_bytes):
+            return self._reject(
+                request, "spill_budget",
+                f"host spill {self._spilled_bytes}B over budget "
+                f"{self.max_spilled_bytes}B")
         seq = Sequence(request)
         seq.t_submit = time.perf_counter()
         self._seqs[request.rid] = seq
+        if self.journal is not None:
+            self.journal.submitted(request)
         self.sched.submit(seq)
         self._update_peaks()
         return seq
 
+    def _reject(self, request: Request, reason: str,
+                detail: str) -> Rejected:
+        rej = Rejected(request.rid, reason, detail)
+        self.rejections.append(rej)
+        if self.journal is not None:
+            self.journal.terminal(request.rid, "rejected", reason)
+        return rej
+
+    # -- terminal non-success paths (isolation, deadlines, shedding) ---------
+
+    def _cancel(self, seq: Sequence, status: Status, reason: str,
+                *, diagnose: bool = False) -> None:
+        """The one exit for every non-FINISHED ending: scheduler
+        retirement, reclamation of the device blocks and the host-spill
+        copy, the journal's acknowledgment."""
+        self.sched.retire(seq, status)
+        self._free_seq_blocks(seq)
+        if seq.host_kv is not None:
+            seq.host_kv = None
+            seq.host_draft_kv = None
+            self._account_spill(-seq.spilled_bytes)
+            seq.spilled_bytes = 0
+        seq.error = reason
+        seq.t_done = time.perf_counter()
+        if diagnose:
+            self._diagnose_failure(seq, reason)
+        if self.journal is not None:
+            self.journal.terminal(seq.rid, status.value, reason)
+        self._update_peaks()
+
+    def _fail(self, seq: Sequence, e: BaseException) -> None:
+        """Fail ``seq`` for ``e`` if it is the request's own error
+        (:func:`_isolable`); re-raise anything else."""
+        if not _isolable(e):
+            raise e
+        self._cancel(seq, Status.FAILED, f"{type(e).__name__}: {e}",
+                     diagnose=True)
+
+    def _diagnose_failure(self, seq: Sequence, reason: str) -> None:
+        d = FailureRecord(
+            rule="F003", name="serving-request-failed", severity="warning",
+            message=f"request {seq.rid!r} failed after "
+                    f"{seq.n_generated} token(s): {reason}",
+            hint="the failure is isolated to this request; the engine "
+                 "loop continues and its blocks were reclaimed",
+            where="serving.engine")
+        self.diagnostics.append(d)
+        print(d.format(), file=sys.stderr)
+
+    def _account_spill(self, delta_bytes: int) -> None:
+        self._spilled_bytes = max(0, self._spilled_bytes + delta_bytes)
+
+    def _expire_deadlines(self) -> None:
+        """Cancel every live sequence past its deadline, at iteration
+        granularity, measured from the true submission time (``t_submit``
+        is never rewritten by a preemption)."""
+        now = time.perf_counter()
+        for seq in list(self.sched.waiting) + list(self.sched.running):
+            d = seq.request.deadline_s
+            if d is not None and now - seq.t_submit > d:
+                self._cancel(seq, Status.EXPIRED,
+                             f"deadline {d * 1e3:.0f}ms exceeded "
+                             f"({(now - seq.t_submit) * 1e3:.0f}ms elapsed)")
+
+    def _apply_shed_policy(self) -> None:
+        """One policy consult an iteration: set ``mode``, shed at most one
+        request (lowest priority, then most private blocks under the
+        prefix cost model, youngest last; waiting first), and in degraded
+        mode compute the smaller decode-bucket cap."""
+        pol = self.shed_policy
+        if pol is None:
+            return
+        usable = self.cache.num_blocks - 1
+        free_frac = self.cache.allocator.n_free / usable if usable else 0.0
+        why = pol.overloaded(free_frac,
+                             percentile(list(self._decode_window), 99))
+        if why is None:
+            self.mode = "healthy"
+            self._degraded_width = None
+            return
+        self.mode = "degraded" if pol.degrade else "shedding"
+        # degrade mode keeps residents (they get a smaller bucket); pure
+        # shed mode may drop running work to free blocks
+        victim = self.sched.shed_candidate(waiting_only=pol.degrade,
+                                           cost=self._cost_fn())
+        if victim is not None:
+            self._cancel(victim, Status.SHED, f"load shed: {why}")
+        if pol.degrade and len(self.sched.running) > 1:
+            fit = self.decode_buckets.fit(len(self.sched.running))
+            smaller = [b for b in self.decode_buckets.sizes if b < fit]
+            self._degraded_width = smaller[-1] if smaller else 1
+
+    def _enforce_degraded_width(self) -> None:
+        """Degraded mode shrinks the active decode bucket: preempt the
+        lowest-priority residents (the normal spill path) until the batch
+        fits the smaller bucket."""
+        cap = self._degraded_width
+        if cap is None:
+            return
+        while len(self.sched.running) > cap:
+            victim = self.sched.preempt_victim(cost=self._cost_fn())
+            if victim is None:
+                break
+            self._preempt_or_fail(victim)
+
+    def _preempt_or_fail(self, victim: Sequence) -> None:
+        """Preempt ``victim``; a failed spill fails it alone."""
+        try:
+            self._preempt(victim)
+        except SpillError as e:
+            if not _isolable(e):
+                raise
+            self._cancel(victim, Status.FAILED, f"KV spill failed: {e}",
+                         diagnose=True)
+
     def _try_admit(self) -> bool:
+        if self.mode != "healthy":
+            return False            # overload: pause fresh admissions
         seq = self.sched.peek_waiting()
         if seq is None or not self.sched.has_capacity():
             return False
@@ -503,7 +736,12 @@ class ServingEngine:
         if ids is None:
             return False
         self.sched.admit(seq)
-        self._restore(seq, ids)
+        try:
+            self._restore(seq, ids)
+        except _ISOLATED as e:
+            if not set(ids) <= set(seq.block_ids):
+                self.cache.allocator.free(ids)
+            self._fail(seq, e)
         return True
 
     def _admit_extend(self, seq: Sequence) -> bool:
@@ -535,10 +773,15 @@ class ServingEngine:
                     self.cache.allocator.n_used == len(
                         self.prefix.device_block_ids()
                         if self.prefix is not None else ()):
-                raise RuntimeError(
-                    f"request {seq.rid!r} needs {n_new} KV block(s) beyond "
-                    f"the shared prefix, pool has only "
-                    f"{self.cache.allocator.n_free}")
+                # an idle pool that cannot grant the front request never
+                # will: fail it (isolation) and keep going
+                what = "" if self.prefix is None and not self.chunk_tokens \
+                    else " beyond the shared prefix"
+                self._cancel(
+                    seq, Status.FAILED,
+                    f"needs {n_new} KV block(s){what}, pool has only "
+                    f"{self.cache.allocator.n_free}", diagnose=True)
+                return True
             return False
         self.sched.admit(seq)
         if self.prefix is not None:
@@ -546,7 +789,12 @@ class ServingEngine:
         if not self.chunk_tokens and cached == 0:
             # cold full prompt, no chunk budget: the one-shot flash prefill
             # (it inserts the finished blocks into the tree)
-            self._prefill(seq, ids)
+            try:
+                self._prefill(seq, ids)
+            except _ISOLATED as e:
+                if not seq.block_ids:
+                    seq.block_ids = list(ids)
+                self._fail(seq, e)
             return True
         seq.add_phase("queue", time.perf_counter() - seq.t_enqueue)
         seq.prefix_nodes = list(chain)
@@ -557,7 +805,10 @@ class ServingEngine:
         seq.prefill_pos = cached
         if self.chunk_tokens:
             return True             # the chunk iterations take it from here
-        self._chunk_prefill(seq, span)
+        try:
+            self._chunk_prefill(seq, span)
+        except _ISOLATED as e:
+            self._fail(seq, e)
         return True
 
     def _prefill(self, seq: Sequence, block_ids: List[int]) -> None:
@@ -659,6 +910,7 @@ class ServingEngine:
                 continue
             span = min(self.chunk_tokens, seq.prompt_len - seq.prefill_pos)
             needed = _ceil_div(seq.prefill_pos + span, self.block_size)
+            ok = True
             while len(seq.block_ids) < needed:
                 got = self._alloc(1)
                 if got is not None:
@@ -668,13 +920,20 @@ class ServingEngine:
                 victim = self.sched.preempt_victim(exclude=seq,
                                                    cost=self._cost_fn())
                 if victim is None:
-                    raise RuntimeError(
-                        f"sequence {seq.rid!r} needs block "
-                        f"{len(seq.block_ids) + 1} of {needed} mid-prefill "
-                        "and there is nothing left to preempt — the "
-                        "request outgrew the pool")
-                self._preempt(victim)
-            self._chunk_prefill(seq, span)
+                    self._cancel(
+                        seq, Status.FAILED,
+                        f"needs block {len(seq.block_ids) + 1} of "
+                        f"{needed} mid-prefill and there is nothing "
+                        "left to preempt — the request outgrew the pool",
+                        diagnose=True)
+                    ok = False
+                    break
+                self._preempt_or_fail(victim)
+            if ok:
+                try:
+                    self._chunk_prefill(seq, span)
+                except _ISOLATED as e:
+                    self._fail(seq, e)
             break                     # one chunk per iteration: the budget
 
     def _restore(self, seq: Sequence, ids: List[int]) -> None:
@@ -685,6 +944,7 @@ class ServingEngine:
             self._draft_cache.restore(seq.host_draft_kv, ids)
             seq.host_draft_kv = None
         seq.host_kv = None
+        self._account_spill(-seq.spilled_bytes)
         seq.spilled_bytes = 0
         # the shared prefix never left the device: the table is (pinned
         # shared ids) + (freshly restored private ids)
@@ -708,6 +968,7 @@ class ServingEngine:
                        if self._draft_cache is not None else 0)
         seq.spilled_bytes = (len(private) * self.cache.bytes_per_block
                              + draft_bytes)
+        self._account_spill(seq.spilled_bytes)
         # queue time restarts now; t_submit stays the true arrival
         seq.t_requeue = time.perf_counter()
         self.n_preemptions += 1
@@ -731,7 +992,8 @@ class ServingEngine:
         """Every decodable sequence needs real blocks through position
         ctx_len (+ the draft positions under speculation) before the next
         iteration; preempt (lowest priority, most private blocks under
-        the prefix cache, else youngest) to make room."""
+        the prefix cache, else youngest) to make room. Pool exhaustion
+        with nothing left to preempt fails *that* sequence (F003)."""
         for seq in list(self.sched.running):
             if seq.status is not Status.RUNNING or not seq.out_tokens:
                 continue
@@ -745,12 +1007,16 @@ class ServingEngine:
                     continue
                 victim = self.sched.preempt_victim(exclude=seq,
                                                    cost=self._cost_fn())
-                if victim is None:  # ruled out by the capacity check
-                    raise RuntimeError(
+                if victim is None:
+                    err = OutOfBlocksError(
                         f"sequence {seq.rid!r} needs block "
-                        f"{len(seq.block_ids) + 1} of {needed} and there is "
-                        "nothing left to preempt")
-                self._preempt(victim)
+                        f"{len(seq.block_ids) + 1} of {needed} and there "
+                        "is nothing left to preempt — the request "
+                        "outgrew the pool")
+                    self._cancel(seq, Status.FAILED, str(err),
+                                 diagnose=True)
+                    break
+                self._preempt_or_fail(victim)
 
     def _decode_iteration(self) -> List[Sequence]:
         batch = self._decodable()
@@ -773,8 +1039,12 @@ class ServingEngine:
         out = self._decode_fn(self._to_device(tokens),
                               self._to_device(tables), self._to_device(lens))
         out = out.cpu().numpy()  # host sync per iteration (token commit)
+        # the seam after the iteration's compute, before any of its tokens
+        # is committed
+        _fault_fire("serve.mid_decode")
         dur = time.perf_counter() - t0
         self.decode_ms.append(dur * 1e3)
+        self._decode_window.append(dur * 1e3)
         self.decode_tokens += len(batch)
         finished: List[Sequence] = []
         for i, seq in enumerate(batch):
@@ -860,9 +1130,11 @@ class ServingEngine:
                               self._to_device(tables), self._to_device(lens),
                               self._to_device(n_real))
         out = out.cpu().numpy()
+        _fault_fire("serve.mid_decode")
         dur = time.perf_counter() - t0
         t_verify = dur - t_draft
         self.decode_ms.append(dur * 1e3)
+        self._decode_window.append(dur * 1e3)
         self.spec_stats["iterations"] += 1
         finished: List[Sequence] = []
         for i, seq in enumerate(batch):
@@ -915,20 +1187,30 @@ class ServingEngine:
         self.sched.finish(seq)
         self._free_seq_blocks(seq)
         seq.output = seq.full_output()
+        # acknowledge before the detokenizer: once the journal holds the
+        # done record (fsynced), a relaunch does not replay this request
+        if self.journal is not None:
+            self.journal.done(seq.rid, seq.out_tokens)
         if self.detokenizer is not None:
             seq.text = self.detokenizer(seq.output)
-        seq.add_phase("detokenize", time.perf_counter() - t0)
+        seq.t_done = time.perf_counter()
+        seq.add_phase("detokenize", seq.t_done - t0)
 
     # ------------------------------------------------------------------
     # Driving loop
     # ------------------------------------------------------------------
 
     def step(self) -> List[Sequence]:
-        """One scheduler iteration: admit whatever fits (prefill or
-        restore), run one prefill chunk under the chunked budget, top up
-        decode blocks (preempting under pressure), run one decode (or
-        speculative) iteration. Returns the sequences that finished."""
+        """One scheduler iteration: expire deadlines, consult the shed
+        policy, admit whatever fits (prefill or restore), run one prefill
+        chunk under the chunked budget, top up decode blocks (preempting
+        under pressure), run one decode (or speculative) iteration.
+        Returns every sequence that reached a terminal state this
+        iteration: FINISHED, and EXPIRED, SHED or FAILED."""
         n0 = len(self.sched.finished)
+        self._expire_deadlines()
+        self._apply_shed_policy()
+        self._enforce_degraded_width()
         while self._try_admit():
             pass
         self._chunk_iteration()
@@ -939,21 +1221,26 @@ class ServingEngine:
         return self.sched.finished[n0:]
 
     def serve(self, requests: Seq[Request],
-              respect_arrivals: bool = False) -> Dict[str, Sequence]:
+              respect_arrivals: bool = False
+              ) -> Dict[str, Union[Sequence, Rejected]]:
         """Drive the trace to completion; returns rid -> Sequence (with
-        ``.output``, and ``.text`` under a detokenizer).
+        ``.output``, and ``.text`` under a detokenizer; check ``.status``
+        for the EXPIRED, SHED and FAILED endings) or the :class:`Rejected`
+        answer of a request bounded admission refused.
         ``respect_arrivals`` replays each request's ``arrival_s`` offset
         instead of submitting everything up front."""
         order = sorted(requests, key=lambda r: r.arrival_s) \
             if respect_arrivals else list(requests)
         t0 = time.perf_counter()
         idx = 0
-        done: Dict[str, Sequence] = {}
+        done: Dict[str, Union[Sequence, Rejected]] = {}
         while idx < len(order) or self.sched.n_pending:
             now = time.perf_counter() - t0
             while idx < len(order) and (
                     not respect_arrivals or order[idx].arrival_s <= now):
-                self.submit(order[idx])
+                res = self.submit(order[idx])
+                if isinstance(res, Rejected):
+                    done[res.rid] = res
                 idx += 1
             if not self.sched.n_pending:
                 if idx < len(order) and respect_arrivals:

@@ -22,10 +22,24 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["BlockAllocator", "PagedKVCache", "NULL_BLOCK"]
+from ..fault.injection import fire as _fault_fire
+
+__all__ = ["BlockAllocator", "PagedKVCache", "NULL_BLOCK",
+           "OutOfBlocksError", "SpillError"]
 
 # Block id every padded table slot points at (reserved at init).
 NULL_BLOCK = 0
+
+
+class OutOfBlocksError(RuntimeError):
+    """The pool cannot grant a block even after preemption. The engine
+    ends the request that needed it FAILED (F003); it never crosses the
+    engine loop."""
+
+
+class SpillError(RuntimeError):
+    """A host spill failed. The engine fails the victim sequence (freeing
+    its device blocks) instead of the serving loop."""
 
 
 class BlockAllocator:
@@ -181,8 +195,23 @@ class PagedKVCache:
     def spill(self, block_ids: Sequence[int]) -> HostKV:
         """Gather ``block_ids`` to host and free them. Returns the host KV
         pair :meth:`restore` takes; the device blocks are reusable
-        immediately after."""
+        immediately after.
+
+        The ``serve.mid_spill`` fire point runs after the copy and before
+        the blocks are freed. What it raises comes out as
+        :class:`SpillError` (a ``RuntimeError``, ``MemoryError`` or
+        ``ValueError`` is wrapped, as the reference wraps its host
+        commit's), and the blocks stay allocated: the caller owns the
+        cleanup. An error of the device copy itself is not wrapped."""
         host = self.snapshot(block_ids)
+        try:
+            _fault_fire("serve.mid_spill")
+        except SpillError:
+            raise
+        except (RuntimeError, MemoryError, ValueError) as e:
+            raise SpillError(
+                f"host spill of {len(block_ids)} block(s) failed: {e}"
+            ) from e
         self.allocator.free(list(block_ids))
         return host
 

@@ -127,6 +127,10 @@ class Sequence:
     t_submit: float = 0.0
     t_requeue: Optional[float] = None
     t_first_token: Optional[float] = None
+    # the port's own: when the request reached its terminal state (the
+    # reference's request timeline takes this time; the port keeps it on
+    # the sequence for the SLO arithmetic)
+    t_done: Optional[float] = None
     phase_s: Dict[str, float] = field(default_factory=dict)
 
     @property

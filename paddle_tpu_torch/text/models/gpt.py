@@ -19,7 +19,10 @@ projections are the port's :class:`~paddle_tpu_torch.nn.Linear`, which
 AMP O1 (``amp.auto_cast``) casts; the tied logits product is not cast, as
 in JAX. ``sequence_parallel`` and ``context_parallel`` act only under a
 mesh in JAX; the port runs on one device without one and computes what
-JAX computes there. Sampling in ``generate`` is not ported yet.
+JAX computes there. ``generate`` decodes greedily or samples
+(``do_sample`` with ``temperature``, ``top_k``, ``top_p`` and ``seed``) as
+the JAX model computes it; the Gumbel noise of each draw comes from
+:func:`gumbel_noise` with a ``torch.Generator`` seeded from ``seed``.
 """
 
 from __future__ import annotations
@@ -33,13 +36,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...core.device import resolve_device
+from ...core.random import torch_generator
 from ...distributed.fleet.utils.recompute import recompute
 from ...nn import functional as PF
 from ...nn.functional import cross_entropy
 from ...nn.layers import Dropout, Linear
 from ...ops import flash_attention
 
-__all__ = ["GPTConfig", "GPT", "GPTForCausalLM", "gpt3_1p3b", "gpt_tiny"]
+__all__ = ["GPTConfig", "GPT", "GPTForCausalLM", "filter_logits",
+           "gpt3_1p3b", "gpt_tiny", "gumbel_noise"]
 
 
 @dataclass
@@ -261,6 +266,48 @@ class GPT(nn.Module):
         return self.ln_f(x), new_caches
 
 
+def gumbel_noise(shape, dtype: torch.dtype,
+                 generator: torch.Generator) -> torch.Tensor:
+    """Standard Gumbel noise in ``dtype``, ``-log(-log(u))`` with ``u``
+    uniform in ``[tiny, 1)``, as ``jax.random.gumbel`` draws it (the bits
+    differ: the draw is the generator's, computed in float32 and rounded
+    once, so a 16-bit ``u`` never rounds up to 1). One call a sampled
+    token; :meth:`GPTForCausalLM.generate` draws through this module
+    attribute, so a test can hand in JAX's draws."""
+    tiny = torch.finfo(torch.float32).tiny
+    u = torch.rand(shape, generator=generator, dtype=torch.float32,
+                   device=generator.device)
+    u = u * (1.0 - tiny) + tiny
+    return (-torch.log(-torch.log(u))).to(dtype)
+
+
+def filter_logits(logits: torch.Tensor, top_k: int = 0,
+                  top_p: float = 1.0) -> torch.Tensor:
+    """The JAX model's sampling filters on ``[B, V]`` logits (already
+    divided by the temperature), ``-inf`` where a token is cut.
+
+    Top-k keeps every logit ``>=`` the k-th largest, so ties at the k-th
+    value all survive. Top-p keeps the logits ``>=`` the sorted logit at
+    ``cutoff = sum(cum < top_p)`` over the descending softmax's running
+    sum; where no prefix reaches ``top_p`` (float32 rounding with
+    ``top_p`` just under 1) the cutoff is past the end, JAX's
+    ``take_along_axis`` gives NaN there and nothing is cut, as here."""
+    if top_k:
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, float("-inf"), logits)
+    if top_p < 1.0:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+        bar = torch.tensor(top_p, dtype=cum.dtype, device=cum.device)
+        idx = (cum < bar).sum(-1, keepdim=True)
+        past = idx >= logits.shape[-1]
+        cutoff = torch.gather(sorted_logits, -1,
+                              idx.clamp(max=logits.shape[-1] - 1))
+        cutoff = torch.where(past, float("nan"), cutoff)
+        logits = torch.where(logits < cutoff, float("-inf"), logits)
+    return logits
+
+
 class GPTForCausalLM(nn.Module):
     """GPT with the (optionally tied) LM head.
 
@@ -321,8 +368,18 @@ class GPTForCausalLM(nn.Module):
 
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens: int = 32,
-                 eos_token_id: Optional[int] = None):
-        """Greedy autoregressive decoding with a dense KV cache.
+                 do_sample: bool = False, temperature: float = 1.0,
+                 top_k: int = 0, top_p: float = 1.0,
+                 eos_token_id: Optional[int] = None, seed: int = 0):
+        """Autoregressive decoding with a dense KV cache, greedy or sampled
+        (``do_sample``).
+
+        Each step divides the last position's logits by ``max(temperature,
+        1e-6)`` (greedy too, as the JAX model does) and takes the argmax,
+        or with ``do_sample`` filters them (:func:`filter_logits`) and
+        draws ``argmax(logits + gumbel)``, the categorical draw of
+        ``jax.random.categorical``, from :func:`gumbel_noise` on a
+        ``torch.Generator`` seeded from ``seed``.
 
         Returns [b, prompt_len + max_new_tokens] token ids; positions after
         an emitted eos are padded with eos."""
@@ -340,13 +397,23 @@ class GPTForCausalLM(nn.Module):
         self.eval()
         caches = self.gpt.init_cache(b, total)
         hidden, caches = self.gpt.decode(input_ids, caches, 0)
-        tok = torch.argmax(self.logits(hidden[:, -1:])[:, 0], dim=-1)
+        gen = torch_generator(seed, self.device) if do_sample else None
+
+        def pick(logits):
+            logits = logits / max(temperature, 1e-6)
+            if not do_sample:
+                return torch.argmax(logits, dim=-1)
+            logits = filter_logits(logits, top_k, top_p)
+            noise = gumbel_noise(tuple(logits.shape), logits.dtype, gen)
+            return torch.argmax(logits + noise.to(logits.device), dim=-1)
+
+        tok = pick(self.logits(hidden[:, -1:])[:, 0])
         finished = (tok == eos_token_id) if eos_token_id is not None \
             else None
         out = [input_ids, tok[:, None]]
         for offset in range(prompt_len, total - 1):
             hidden, caches = self.gpt.decode(tok[:, None], caches, offset)
-            tok = torch.argmax(self.logits(hidden)[:, 0], dim=-1)
+            tok = pick(self.logits(hidden)[:, 0])
             if finished is not None:
                 tok = torch.where(finished, torch.full_like(tok, eos_token_id),
                                   tok)

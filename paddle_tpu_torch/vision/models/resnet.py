@@ -13,8 +13,13 @@ deferred-BN units of :mod:`paddle_tpu_torch.nn.fused_conv_bn` (the JAX
 3x3 conv of a bottleneck runs on the hand-written kernels K5-K8. The stem
 with ``stem_mode="space_to_depth"`` (NHWC) is the exact 4x4/s1 rewrite of
 the 7x7/s2 conv over 2x2 space-to-depth input; its 4x4 conv is a library
-convolution on both routes, as in JAX. The ResNeXt and wide factories are
-not ported yet (grouped convs are off the kernel route).
+convolution on both routes, as in JAX. The ResNeXt factories
+(``resnext50_32x4d`` ... ``resnext152_64x4d``) build grouped 3x3
+bottlenecks, whose grouped convs stay off the kernels (``supports`` refuses
+groups, as JAX's does) and run the units' library route while their 1x1
+convs take K5/K6; the wide factories (``wide_resnet50_2``,
+``wide_resnet101_2``) double the bottleneck width and run every conv on
+the kernels.
 """
 
 from __future__ import annotations
@@ -32,7 +37,10 @@ from ...nn.layers import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Linear,
                           MaxPool2D, ReLU, Sequential, _BatchNormBase)
 
 __all__ = ["BasicBlock", "BottleneckBlock", "ResNet", "resnet18", "resnet34",
-           "resnet50", "resnet101", "resnet152"]
+           "resnet50", "resnet101", "resnet152", "resnext50_32x4d",
+           "resnext50_64x4d", "resnext101_32x4d", "resnext101_64x4d",
+           "resnext152_32x4d", "resnext152_64x4d", "wide_resnet50_2",
+           "wide_resnet101_2"]
 
 
 def _fusable(block, x) -> bool:
@@ -369,3 +377,37 @@ def resnet101(pretrained: bool = False, **kwargs):
 
 def resnet152(pretrained: bool = False, **kwargs):
     return _resnet(BottleneckBlock, 152, **kwargs)
+
+
+# ResNeXt: grouped 3x3 bottlenecks (the reference's resnext* factories)
+def resnext50_32x4d(pretrained: bool = False, **kwargs):
+    return _resnet(BottleneckBlock, 50, groups=32, width=4, **kwargs)
+
+
+def resnext50_64x4d(pretrained: bool = False, **kwargs):
+    return _resnet(BottleneckBlock, 50, groups=64, width=4, **kwargs)
+
+
+def resnext101_32x4d(pretrained: bool = False, **kwargs):
+    return _resnet(BottleneckBlock, 101, groups=32, width=4, **kwargs)
+
+
+def resnext101_64x4d(pretrained: bool = False, **kwargs):
+    return _resnet(BottleneckBlock, 101, groups=64, width=4, **kwargs)
+
+
+def resnext152_32x4d(pretrained: bool = False, **kwargs):
+    return _resnet(BottleneckBlock, 152, groups=32, width=4, **kwargs)
+
+
+def resnext152_64x4d(pretrained: bool = False, **kwargs):
+    return _resnet(BottleneckBlock, 152, groups=64, width=4, **kwargs)
+
+
+# Wide ResNet: twice the bottleneck width (wide_resnet*_2)
+def wide_resnet50_2(pretrained: bool = False, **kwargs):
+    return _resnet(BottleneckBlock, 50, width=128, **kwargs)
+
+
+def wide_resnet101_2(pretrained: bool = False, **kwargs):
+    return _resnet(BottleneckBlock, 101, width=128, **kwargs)
