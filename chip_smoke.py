@@ -246,6 +246,23 @@ after the phase named):
   model's own FLOPs, peak memory, losses), K5/K6/K7/K8 launches a step as
   each structure implies them (Wide 72/36/32/16; ResNeXt 72/36/0/0, its
   grouped 3x3s on cuDNN).
+- telemetry (part serve after serve_resilience_bf16; part train and the
+  overhead line inside 11, on its trained step)  the runtime telemetry
+  layer on GPT-3 1.3B: serve_bf16's trace under FLAGS_telemetry=off and
+  metrics on one engine (equal tokens and launches, compile_report within
+  budget with O001 silent, one request-timeline record per request with
+  ttft <= total, the serving.* counters equal to the endings, nothing
+  reported under off); the overhead A/Bs of the decode step, of the
+  train step (3 windows of 3 steps from one saved state, bit-equal
+  losses and parameters, K1-K3 24 a step in both arms) and of bench.py's
+  MLP (B = 64, hidden 2048, 30 steps x 5 windows; again with the flight
+  recorder off and on), one object for both arms, interleaved window by
+  window, each arm's figure the least over windows; the step record's
+  hbm_peak_gb against torch.cuda.max_memory_allocated(); one step under
+  trace in a torch.profiler capture, K1-K3's kernels launched inside the
+  step and step/device ranges; a flight recorder replayed with the
+  trainer's indices. The overhead line carries the card's name and power
+  limit; every kernel entry gains telemetry_launches (off and metrics).
 
 Attention-prob dropout and K9 (after phase 7, in this order):
 - kernel / kernel_packed / kernel_packed_stream, part "dropout": the nine
@@ -3374,11 +3391,13 @@ def bench_batches(np, n, batch, seq, vocab):
 def phase_train_bf16(torch, np, hfa, peaks, GPTForCausalLM, gpt3_1p3b,
                      amp, AdamW, make_sharded_train_step, profile=False,
                      rate0_p50=None, recompute=False,
-                     policy="dots_and_flash_saveable", warmup=2, timed=8):
+                     policy="dots_and_flash_saveable", warmup=2, timed=8,
+                     after=None):
     """The training slice: GPT-3 1.3B at full depth, AMP-O2, AdamW with
     f32 masters, B=4 x S=2048, ``warmup`` warm-up and ``timed`` timed
     steps; with ``recompute`` under ``policy``, the phase
     train_recompute_bf16, beside train_bf16's row from ``rate0_p50``.
+    ``after(step, batches)`` runs on the trained step before it is freed.
     Returns the row and the K1-K3 launches."""
     batch, seq = 4, 2048
     cfg = gpt3_1p3b(recompute=recompute, recompute_policy=policy)
@@ -3440,6 +3459,8 @@ def phase_train_bf16(torch, np, hfa, peaks, GPTForCausalLM, gpt3_1p3b,
             wall_ms = (time.perf_counter() - t0) * 1e3
         emit({"phase": "profile_train", "steps": 3,
               **device_profile(prof, wall_ms)})
+    if after is not None:
+        after(step, batches)
     del model, opt, step
     torch.cuda.empty_cache()
     return row, launches
@@ -6858,6 +6879,443 @@ def phase_serve_resilience(torch, np, hfa, model, Request, ServingEngine,
     return {body: launches[body]}
 
 
+# -- telemetry ----------------------------------------------------------------
+
+#: the CUDA kernels of K1-K3's tensor-core bodies, as a profiler names them
+TELEMETRY_KERNELS = {"flash_fwd_tc": "flash_fwd_tc_kernel",
+                     "flash_bwd_dq_tc": "flash_bwd_dq_tc_kernel",
+                     "flash_bwd_dkv_tc": "flash_bwd_dkv_tc_kernel"}
+
+
+def ab_order(window, arms):
+    """The arms' order in a window: as given in even windows, reversed in
+    odd ones, so a drift across the windows weighs on both arms alike."""
+    return arms if window % 2 == 0 else arms[::-1]
+
+
+def launch_delta(before, after):
+    return {n: after[n] - before[n] for n in after}
+
+
+def add_counts(total, delta):
+    for n, d in delta.items():
+        total[n] = total.get(n, 0) + d
+
+
+def serving_series(snap):
+    """``{family[labels]: value}`` of the non-zero ``serving.*`` series,
+    histograms by count."""
+    out = {}
+    for name, fam in snap.items():
+        if not name.startswith("serving."):
+            continue
+        for s in fam["series"]:
+            v = s["value"]["count"] if fam["type"] == "histogram" \
+                else s["value"]
+            if v:
+                lab = ",".join(f"{k}={v}" for k, v in
+                               sorted(s["labels"].items()))
+                out[name + (f"{{{lab}}}" if lab else "")] = v
+    return out
+
+
+def phase_telemetry_serve(torch, np, hfa, hfp, hc, fmb, model, Request,
+                          ServingEngine, flags, obs, num_blocks):
+    """Phase telemetry, part serve: serve_bf16's trace (8 requests of
+    64..1536 prompt tokens x 32, the pool that preempts) on one engine under
+    ``FLAGS_telemetry=off`` and then ``metrics``: equal tokens and kernel
+    launches (K1's tensor-core body once a layer a prefill); under metrics
+    the compile budget kept with O001 silent, one timeline record per
+    request with ttft <= total, the counters equal to the endings and the
+    engine's own tallies; under off no series and no record. Then the
+    decode-step A/B: 8 requests of 64 prompt tokens x 32 on one engine,
+    off and metrics interleaved window by window (4 each, the order
+    alternating), each arm's figure the least over windows of the
+    window's median decode-iteration wall; tokens equal in every
+    window."""
+    metrics, timeline = obs.metrics, obs.request_timeline
+    n_layers = model.cfg.num_layers
+    bs, new = 16, 32
+    reqs = bf16_trace(np, Request, model.cfg.vocab_size, new)
+    max_seq = max(int(r.prompt_ids.size) for r in reqs) + new
+    engine = ServingEngine(model, block_size=bs, num_blocks=num_blocks,
+                           max_batch=8, max_seq_len=max_seq, device="cuda")
+    runs = {}
+    for mode in ("off", "metrics"):
+        flags.set_flags({"telemetry": mode})
+        metrics.reset_all()
+        timeline.reset_default()
+        n_pre, n_prem, n_dec = (engine.n_prefills, engine.n_preemptions,
+                                len(engine.decode_ms))
+        before = path_counts(hfa, hfp, hc, fmb)
+        t0 = time.perf_counter()
+        res = engine.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[mode] = dict(
+            wall_s=wall,
+            launches=launch_delta(before, path_counts(hfa, hfp, hc, fmb)),
+            tokens={r.rid: res[r.rid].output.tolist() for r in reqs},
+            status={r.rid: res[r.rid].status.value for r in reqs},
+            prefills=engine.n_prefills - n_pre,
+            preemptions=engine.n_preemptions - n_prem,
+            decode_iterations=len(engine.decode_ms) - n_dec,
+            decode_step_p50_ms=percentile(engine.decode_ms[n_dec:], 50),
+            series=serving_series(metrics.snapshot()),
+            records=timeline.current().records(),
+            summary=timeline.current().summary())
+    flags.set_flags({"telemetry": "metrics"})
+    off, on = runs["off"], runs["metrics"]
+    check(on["tokens"] == off["tokens"],
+          "telemetry: the bf16 trace's tokens differ between off and metrics")
+    check(on["launches"] == off["launches"],
+          f"telemetry: serving launches differ: {off['launches']} vs "
+          f"{on['launches']}")
+    check(on["launches"]["flash_fwd_tc"] == on["prefills"] * n_layers and
+          sum(on["launches"].values()) == on["launches"]["flash_fwd_tc"],
+          f"telemetry: serving launched {on['launches']} for "
+          f"{on['prefills']} prefills")
+    check(set(on["status"].values()) == {"finished"},
+          f"telemetry: endings {on['status']}")
+    check(on["preemptions"] >= 1, "telemetry: the trace did not preempt")
+    report = engine.compile_report()
+    check(report["within_budget"] and not report["o001_fired"],
+          f"telemetry: compile report {report}")
+    recs = on["records"]
+    check(sorted(r["rid"] for r in recs) == sorted(r.rid for r in reqs),
+          f"telemetry: timeline records {[r['rid'] for r in recs]}")
+    for r in recs:
+        check(r["outcome"] == "ok" and 0 < r["ttft_ms"] <= r["total_ms"],
+              f"telemetry: record {r}")
+    s = on["series"]
+    want = {"serving.requests": len(reqs),
+            "serving.requests_completed": len(reqs),
+            "serving.tokens_generated": len(reqs) * new,
+            "serving.preemptions": on["preemptions"],
+            "serving.kv_spills": on["preemptions"],
+            "serving.kv_restores": on["preemptions"],
+            "serving.decode_step_ms": on["decode_iterations"],
+            "serving.prefill_ms": on["prefills"],
+            "serving.request_latency_ms": len(reqs),
+            "serving.ttft_ms": len(reqs)}
+    got = {k: s.get(k, 0) for k in want}
+    check(got == want, f"telemetry: counters {got}, expected {want}")
+    check(not off["series"] and not off["records"],
+          f"telemetry: under off the engine reported {off['series']}")
+    emit({"phase": "telemetry", "part": "serve", "model": "gpt3_1p3b",
+          "layers": n_layers, "pool_blocks": num_blocks,
+          "prefills": on["prefills"], "preemptions": on["preemptions"],
+          "wall_s": {"off": off["wall_s"], "metrics": on["wall_s"]},
+          "decode_step_p50_ms": {"off": off["decode_step_p50_ms"],
+                                 "metrics": on["decode_step_p50_ms"]},
+          "compile_report": report, "counters": got,
+          "series": s, "timeline": on["summary"],
+          "tokens_equal_off": True, "launches": on["launches"]})
+
+    # the decode-step A/B
+    rng = np.random.default_rng(5)
+    dreqs = [Request(rid=f"d{i}", prompt_ids=rng.integers(
+        0, model.cfg.vocab_size, 64), max_new_tokens=32) for i in range(8)]
+    deng = ServingEngine(model, block_size=bs, num_blocks=8 * 6 + 1,
+                         max_batch=8, max_seq_len=96, device="cuda")
+    deng.serve(dreqs)           # warm: every bucket seen once
+    best, tokens, windows = {}, None, []
+    ab_launches = {"off": {}, "metrics": {}}
+    for w in range(4):
+        for mode in ab_order(w, ("off", "metrics")):
+            flags.set_flags({"telemetry": mode})
+            n0 = len(deng.decode_ms)
+            before = path_counts(hfa, hfp, hc, fmb)
+            res = deng.serve(dreqs)
+            add_counts(ab_launches[mode],
+                       launch_delta(before, path_counts(hfa, hfp, hc, fmb)))
+            ms = deng.decode_ms[n0:]
+            med = percentile(ms, 50)
+            windows.append({"mode": mode, "iterations": len(ms),
+                            "median_ms": med, "mean_ms": sum(ms) / len(ms)})
+            best[mode] = min(best.get(mode, med), med)
+            out = {r.rid: res[r.rid].output.tolist() for r in dreqs}
+            check(tokens is None or out == tokens,
+                  f"telemetry: decode A/B tokens differ under {mode}")
+            tokens = out
+    flags.set_flags({"telemetry": "metrics"})
+    check(ab_launches["off"] == ab_launches["metrics"],
+          f"telemetry: decode A/B launches {ab_launches}")
+    launches = {m: {n: runs[m]["launches"][n] + ab_launches[m].get(n, 0)
+                    for n in runs[m]["launches"]}
+                for m in ("off", "metrics")}
+    return launches, {
+        "decode_step_ms_off": best["off"],
+        "decode_step_ms_metrics": best["metrics"],
+        "overhead_pct": 100.0 * (best["metrics"] / best["off"] - 1.0),
+        "windows": windows, "batch": 8, "prompt_tokens": 64,
+        "new_tokens": 32, "tokens_equal": True}
+
+
+def kernel_enclosure(path, names):
+    """Read a torch.profiler chrome trace: for each kernel whose name holds
+    one of ``names``, whether its launch (the runtime call of the same
+    correlation id) lies inside the host ranges ``step`` and
+    ``step/device``, and whether the kernel lies inside their device-side
+    spans (``gpu_user_annotation``) where the trace has them. The profiler
+    gives a range's device span the kernels launched in the range itself,
+    not in the ranges inside it, so ``step``'s holds none of these."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+
+    def spans(cat, name):
+        return [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                if e.get("cat") == cat and e.get("name") == name]
+
+    def inside(t0, t1, ranges):
+        return any(a <= t0 and t1 <= b for a, b in ranges)
+
+    runtime = {e["args"]["correlation"]: e for e in events
+               if e.get("cat") == "cuda_runtime" and "correlation" in
+               e.get("args", {})}
+    host = {n: spans("user_annotation", n) for n in ("step", "step/device")}
+    dev = {n: spans("gpu_user_annotation", n)
+           for n in ("step", "step/device")}
+    out = {}
+    for key, kname in names.items():
+        ks = [e for e in events if e.get("cat") == "kernel" and
+              kname in e.get("name", "")]
+        row = {"kernels": len(ks), "launch_in_step": 0,
+               "launch_in_step_device": 0, "device_span_in_step": None,
+               "device_span_in_step_device": None}
+        if dev["step/device"]:
+            row["device_span_in_step"] = row[
+                "device_span_in_step_device"] = 0
+        for k in ks:
+            t0, t1 = k["ts"], k["ts"] + k.get("dur", 0)
+            launch = runtime.get(k.get("args", {}).get("correlation"))
+            if launch is not None:
+                l0, l1 = launch["ts"], launch["ts"] + launch.get("dur", 0)
+                row["launch_in_step"] += inside(l0, l1, host["step"])
+                row["launch_in_step_device"] += inside(
+                    l0, l1, host["step/device"])
+            if dev["step/device"]:
+                row["device_span_in_step"] += inside(t0, t1, dev["step"])
+                row["device_span_in_step_device"] += inside(
+                    t0, t1, dev["step/device"])
+        out[key] = row
+    return out, {n: len(v) for n, v in host.items()}, \
+        {n: len(v) for n, v in dev.items()}
+
+
+def mlp_ab(torch, P, step_of, flags, obs, arm_key, arms, steps=30,
+           windows=5):
+    """bench.py's overhead A/B (``bench_telemetry_overhead``,
+    ``bench_flight_recorder_overhead``): bench.py's MLP (B = 64, hidden
+    2048, three Linears, Tanh, AdamW 1e-3) through one TrainStep, the two
+    arms interleaved window by window (the order alternating), each window
+    ``steps`` steps from one saved state on one batch; each arm's figure
+    the least over windows of the wall a step (synchronised at the
+    window's end). Every window's losses and parameters must be
+    bit-equal."""
+    batch, hidden = 64, 2048
+    P.seed(0)
+    net = torch.nn.Sequential(
+        P.nn.Linear(hidden, hidden, device="cuda"), torch.nn.Tanh(),
+        P.nn.Linear(hidden, hidden, device="cuda"), torch.nn.Tanh(),
+        P.nn.Linear(hidden, 10, device="cuda"))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(batch, hidden, device="cuda", generator=g)
+    y = torch.randint(0, 10, (batch,), device="cuda", generator=g)
+    step = step_of(net, P.optimizer.AdamW(1e-3),
+                   lambda m, b: P.nn.functional.cross_entropy(m(b[0]), b[1]))
+    step.step((x, y))
+    step.step((x, y))
+    state = step.state_dict()
+    best, ref, per_window = {}, None, []
+    for w in range(windows):
+        for mode in ab_order(w, arms):
+            flags.set_flags({arm_key: mode})
+            step.load_state_dict(state)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = [step.step((x, y), index=3 + i) for i in range(steps)]
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / steps * 1e3
+            best[mode] = min(best.get(mode, dt), dt)
+            per_window.append((mode, dt))
+            got = (torch.stack(losses),
+                   [p.detach().clone() for p in step.params.values()])
+            if ref is None:
+                ref = got
+            check(torch.equal(got[0], ref[0]) and all(
+                torch.equal(a, b) for a, b in zip(got[1], ref[1])),
+                f"telemetry: MLP A/B ({arm_key}={mode}) not bit-equal")
+    a, b = arms
+    return {f"step_ms_{a}": best[a], f"step_ms_{b}": best[b],
+            "overhead_pct": 100.0 * (best[b] / best[a] - 1.0),
+            "steps_per_window": steps, "windows": windows,
+            "window_ms": per_window, "batch": batch, "hidden": hidden,
+            "bit_equal": True}
+
+
+def phase_telemetry_train(torch, np, hfa, hfp, hc, fmb, step, batches,
+                          flags, obs, P, make_sharded_train_step, smi_line,
+                          serve_launches, decode_ab):
+    """Phase telemetry, part train, on train_bf16's GPT-3 1.3B TrainStep
+    (B=4 x 2048, AMP-O2 AdamW) right after its timed steps: the overhead
+    A/B of the step (off and metrics interleaved, 3 windows of 3 steps
+    each from one saved state, bit-equal losses and parameters, K1-K3's
+    launches equal); the step record's ``hbm_peak_gb`` against
+    ``torch.cuda.max_memory_allocated()``; one step under
+    ``FLAGS_telemetry=trace`` in a torch.profiler capture, where the
+    ``step`` and ``step/device`` ranges hold K1's, K2's and K3's kernels;
+    the flight recorder armed on a temporary directory over two steps and
+    replayed; then bench.py's MLP A/Bs of the metrics layer and of the
+    flight recorder. Prints the overhead line with the card's name and
+    power limit."""
+    sm, fr = obs.step_monitor, obs.flight_recorder
+    feed = batches[:3]
+    n_layers = step.model.cfg.num_layers
+    tl = sm.reset_default()
+    state = step.state_dict()
+    base = step.step_count
+    best, ref, launches = {}, None, {"off": {}, "metrics": {}}
+    per_window = []
+    for w in range(3):
+        for mode in ab_order(w, ("off", "metrics")):
+            flags.set_flags({"telemetry": mode})
+            step.load_state_dict(state)
+            torch.cuda.synchronize()
+            before = path_counts(hfa, hfp, hc, fmb)
+            t0 = time.perf_counter()
+            losses = [step.step(b, index=base + 1 + i)
+                      for i, b in enumerate(feed)]
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / len(feed) * 1e3
+            per_window.append((mode, dt))
+            add_counts(launches[mode],
+                       launch_delta(before, path_counts(hfa, hfp, hc, fmb)))
+            best[mode] = min(best.get(mode, dt), dt)
+            got = ([float(x) for x in losses],
+                   [p.detach().clone() for p in step.params.values()])
+            if ref is None:
+                ref = got
+            else:
+                check(got[0] == ref[0] and all(
+                    torch.equal(a, b) for a, b in zip(got[1], ref[1])),
+                    f"telemetry: GPT A/B under {mode} not bit-equal: "
+                    f"{got[0]} vs {ref[0]}")
+            del got
+    del ref, state
+    torch.cuda.empty_cache()
+    flags.set_flags({"telemetry": "metrics"})
+    check(launches["off"] == launches["metrics"],
+          f"telemetry: train launches {launches}")
+    for name in TELEMETRY_KERNELS:
+        check(launches["metrics"][name] == n_layers * 9,
+              f"telemetry: {name} launched {launches['metrics'][name]} "
+              f"times in 9 steps")
+    # the fresh timeline's sentinel first sees the signature in the first
+    # metrics window: that dispatch is "compile", the rest "device"
+    recs = tl.steps()
+    check(len(recs) == 9 and [sorted(r["phases"]) for r in recs] ==
+          [["compile", "h2d"]] + [["device", "h2d"]] * 8 and
+          all(r["index"] == base + 1 + i % 3 for i, r in enumerate(recs)),
+          f"telemetry: step records {[sorted(r['phases']) for r in recs]}")
+    peak_gb = recs[-1]["hbm_peak_gb"]
+    torch_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(abs(peak_gb - torch_gb) <= 1e-3,
+          f"telemetry: hbm_peak_gb {peak_gb} vs allocator {torch_gb}")
+    # the host cost of one HBM sample (a step's end pays one)
+    t0 = time.perf_counter()
+    for _ in range(200):
+        tl.sample_hbm()
+    hbm = {"hbm_peak_gb": peak_gb, "hbm_live_gb": recs[-1]["hbm_live_gb"],
+           "max_memory_allocated_gib": torch_gb,
+           "sample_hbm_us": (time.perf_counter() - t0) / 200 * 1e6}
+
+    # one step under trace in a profiler capture
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
+    flags.set_flags({"telemetry": "trace"})
+    obs.trace.clear()
+    try:
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            step.step(feed[0], index=base + 10)
+            torch.cuda.synchronize()
+    finally:
+        flags.set_flags({"telemetry": "metrics"})
+    spans = [s["name"] for s in obs.trace.spans()]
+    obs.trace.clear()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "train_step.json")
+        prof.export_chrome_trace(path)
+        enclosure, host_ranges, dev_ranges = kernel_enclosure(
+            path, TELEMETRY_KERNELS)
+    check(host_ranges["step"] == 1 and host_ranges["step/device"] == 1,
+          f"telemetry: the capture's host ranges {host_ranges}")
+    for name, row in enclosure.items():
+        check(row["kernels"] == n_layers and
+              row["launch_in_step"] == row["launch_in_step_device"] ==
+              n_layers,
+              f"telemetry: {name} in the capture: {row}")
+        # a device span covers the kernels launched in its own range,
+        # not its children's: "step/device"'s holds the step's kernels
+        if row["device_span_in_step_device"] is not None:
+            check(row["device_span_in_step_device"] == n_layers,
+                  f"telemetry: {name} outside step/device's device span: "
+                  f"{row}")
+    check(set(spans) >= {"step", "step/h2d", "step/device"},
+          f"telemetry: spans {spans}")
+
+    # the flight recorder over two steps
+    flags.set_flags({"flight_recorder": "on"})
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            box = fr.arm(d, "trainer", run_id="chip_smoke")
+            for i, b in enumerate(feed[:2]):
+                step.step(b, index=base + 20 + i)
+            fr.disarm()
+            meta, frecs, rep = fr.replay(box.path)
+    finally:
+        fr.disarm()
+        flags.set_flags({"flight_recorder": "off"})
+    fsteps = [(r["step"], r["index"]) for r in frecs if r["k"] == "step"]
+    check([i for _, i in fsteps] == [base + 20, base + 21] and
+          rep["frames_torn"] == 0 and rep["contiguous"],
+          f"telemetry: flight recorder replay {fsteps}, {rep}")
+    emit({"phase": "telemetry", "part": "train", "model": "gpt3_1p3b",
+          "layers": n_layers, "batch": [4, 2048], "hbm": hbm,
+          "step_records": len(recs), "profile": {
+              "kernels": enclosure, "host_ranges": host_ranges,
+              "device_ranges": dev_ranges},
+          "flight_recorder": {"steps": fsteps, "report": rep,
+                              "meta_role": meta["role"]},
+          "launches": launches["metrics"]})
+    gpt = {"step_ms_off": best["off"], "step_ms_metrics": best["metrics"],
+           "overhead_pct": 100.0 * (best["metrics"] / best["off"] - 1.0),
+           "steps_per_window": 3, "windows": 3, "window_ms": per_window,
+           "bit_equal": True}
+
+    # bench.py's MLP: the metrics layer, then the flight recorder
+    mlp = mlp_ab(torch, P, make_sharded_train_step, flags, obs, "telemetry",
+                 ("off", "metrics"))
+    with tempfile.TemporaryDirectory() as d:
+        fr.arm(d, "bench", run_id="chip_smoke_flight_recorder")
+        try:
+            mlp_fr = mlp_ab(torch, P, make_sharded_train_step, flags, obs,
+                            "flight_recorder", ("off", "on"))
+        finally:
+            fr.disarm()
+            flags.set_flags({"flight_recorder": "off"})
+    emit({"phase": "telemetry", "part": "overhead", "card": smi_line,
+          "mlp": mlp, "mlp_flight_recorder": mlp_fr, "gpt_train": gpt,
+          "decode": decode_ab,
+          "method": "one object for both arms, interleaved window by "
+                    "window, each arm's figure the least over windows"})
+    total = {}
+    for m in ("off", "metrics"):
+        total[m] = {n: serve_launches[m].get(n, 0) + launches[m].get(n, 0)
+                    for n in launches[m]}
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6894,6 +7352,7 @@ def main() -> int:
         from paddle_tpu_torch.ops._hopper import fused_matmul_bn as fmb
         from paddle_tpu_torch.core import random as rng
         import paddle_tpu_torch as P
+        from paddle_tpu_torch import observability as obs
         tfa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
     except ImportError as e:
         print(f"chip_smoke: the paddle_tpu_torch package must sit beside "
@@ -6977,6 +7436,11 @@ def main() -> int:
     resilience.update(phase_serve_resilience(
         torch, np, hfa, model, Request, ServingEngine, ShedPolicy,
         SpillError, register_fire_point, RequestJournal, "bf16"))
+    # phase telemetry: the bf16 trace under FLAGS_telemetry off and metrics
+    # on this model, then the decode-step A/B
+    tel_serve_launches, decode_ab = phase_telemetry_serve(
+        torch, np, hfa, hfp, hc, fmb, model, Request, checked, flags, obs,
+        num_blocks)
     if profile:
         phase_profile(torch, np, model, Request, checked, num_blocks)
     del model   # the serving engines and their pools are gone with it
@@ -6991,9 +7455,19 @@ def main() -> int:
                                             gpt3_1p3b)
     torch.cuda.empty_cache()
     rate0_p50 = {}   # each rate-0 training path's step p50, for beside
+    telemetry_launches = {}
+
+    def telemetry_train(step, batches):
+        # phase telemetry, on train_bf16's trained step
+        telemetry_launches.update(phase_telemetry_train(
+            torch, np, hfa, hfp, hc, fmb, step, batches, flags, obs, P,
+            make_sharded_train_step, smi_line, tel_serve_launches,
+            decode_ab))
+
     _, train_launches = phase_train_bf16(
         torch, np, hfa, peaks, GPTForCausalLM, gpt3_1p3b, amp, AdamW,
-        make_sharded_train_step, profile=profile, rate0_p50=rate0_p50)
+        make_sharded_train_step, profile=profile, rate0_p50=rate0_p50,
+        after=telemetry_train)
     gpt_k4 = {name: getattr(hfp, name).launches for name in k4_forms}
     check(all(n == 0 for n in gpt_k4.values()),
           f"the GPT paths launched K4: {gpt_k4}")
@@ -7294,6 +7768,9 @@ def main() -> int:
             "resnext_launches": family["resnext50_32x4d"].get(name, 0),
             "wide_launches": family["wide_resnet50_2"].get(name, 0),
             "resilience_launches": resilience.get(name, 0),
+            "telemetry_launches": {
+                m: telemetry_launches[m].get(name, 0)
+                for m in ("off", "metrics")},
             "max_abs_err": err, "max_err": err,
             "stats_rel_err": stats_conv.get(name),
             "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
@@ -7378,6 +7855,9 @@ def main() -> int:
         "wide_launches": family["wide_resnet50_2"].get(
             "fused_matmul_bn_fwd", 0),
         "resilience_launches": 0,
+        "telemetry_launches": {
+            m: telemetry_launches[m].get("fused_matmul_bn_fwd", 0)
+            for m in ("off", "metrics")},
         "tiers_bf16_launches": tiers_bf16["fused_matmul_bn_fwd"],
         "max_abs_err": worst_k9, "max_err": worst_k9,
         "stats_rel_err": None,

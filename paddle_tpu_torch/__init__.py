@@ -41,8 +41,13 @@ flash-attention kernels on packed varlen batches and with a
 differentiable lse; ``nn.Transformer`` (the encoder-decoder, its attention
 on K4 at head dim 64), decoding with ``MultiHeadAttention``'s caches and
 by beam search (``nn.BeamSearchDecoder``, ``nn.dynamic_decode``),
-``ParamAttr`` and ``nn.initializer``. Layers build on ``cuda:0`` unless
-given ``device="cpu"``, as the models do.
+``ParamAttr`` and ``nn.initializer``; the flag registry with JAX's
+environment reading and coercion (``core.flags``), and the runtime
+telemetry (``observability``: metrics, spans, request and step timelines,
+the recompile sentinel, HBM watermarks, the flight recorder;
+``profiler.monitor``; ``analysis.diagnostics``) wired through serving and
+training. Layers build on ``cuda:0`` unless given ``device="cpu"``, as
+the models do.
 """
 
 from . import amp, io, metric, nn, optimizer, regularizer, vision  # noqa: F401

@@ -1,9 +1,15 @@
 """Flags of the port (``paddle_tpu/core/flags.py`` counterpart, the subset
 the port reads).
 
-``set_flags({"FLAGS_pallas_conv": 1})`` and ``get_flags(["pallas_conv"])``
-work as in the JAX package, under the same names, so a caller's settings
-carry over. These flags are defined, with JAX's defaults:
+A typed registry seeded from ``FLAGS_<name>`` environment variables when a
+flag is defined, and changed at run time by ``set_flags``, as in the JAX
+package: ``set_flags({"FLAGS_pallas_conv": 1})`` and
+``get_flags(["pallas_conv"])`` work under the same names, so a caller's
+settings carry over. A value is coerced to its default's type (for a
+boolean flag the strings ``1``/``true``/``yes``/``on``, in any case, are
+true and every other string false), checked against the flag's ``choices``
+and handed to its ``on_change``. These flags are defined, with JAX's
+defaults:
 
 - ``fused_conv_bn``: ResNet blocks in training take the deferred-BN units of
   :mod:`paddle_tpu_torch.nn.fused_conv_bn`;
@@ -20,37 +26,72 @@ carry over. These flags are defined, with JAX's defaults:
   argument is ``None`` (all off);
 - ``kernel_autotune`` (on) and ``kernel_autotune_cache_path`` (``""``: the
   default file): the autotune cache of :mod:`paddle_tpu_torch.ops._hopper.
-  autotune`, which ``serve_speculative=-1`` reads.
-
-Unlike the JAX registry, no ``FLAGS_*`` environment variable is read.
+  autotune`, which ``serve_speculative=-1`` reads;
+- ``telemetry`` (``"metrics"``: off, metrics or trace), ``flight_recorder``
+  (``"off"``: off or on) and ``flight_recorder_mb`` (4): the runtime
+  telemetry of :mod:`paddle_tpu_torch.observability`;
+- ``static_analysis`` (``"off"``: off, warn or error): how
+  :func:`paddle_tpu_torch.analysis.diagnostics.emit` routes a finding.
 """
 
 from __future__ import annotations
 
 import difflib
+import os
 import threading
-from typing import Any, Dict, Iterable, Union
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Iterable, List, Optional, Union
 
-__all__ = ["define_flag", "flag", "get_flags", "set_flags"]
+__all__ = ["define_flag", "flag", "get_flags", "set_flags", "list_flags",
+           "unknown_env_flags"]
 
-_defaults: Dict[str, Any] = {}
+
+@dataclass
+class _FlagSpec:
+    name: str
+    default: Any
+    type: type
+    help: str
+    on_change: Optional[Callable[[Any], None]] = None
+    choices: Optional[tuple] = None
+
+
+_registry: Dict[str, _FlagSpec] = {}
 _values: Dict[str, Any] = {}
 _lock = threading.RLock()
 
 
+def _coerce(spec: _FlagSpec, value: Any) -> Any:
+    if spec.type is bool and isinstance(value, str):
+        value = value.lower() in ("1", "true", "yes", "on")
+    value = spec.type(value)
+    if spec.choices is not None and value not in spec.choices:
+        raise ValueError(
+            f"FLAGS_{spec.name}={value!r} is not a valid value; "
+            f"choices: {list(spec.choices)}")
+    return value
+
+
 def _unknown(name: str) -> KeyError:
-    close = difflib.get_close_matches(name, _values, n=1)
+    close = difflib.get_close_matches(name, _registry, n=1)
     hint = f" (did you mean {close[0]!r}?)" if close else ""
     return KeyError(f"Unknown flag {name!r}{hint}; valid flags: "
-                    f"{sorted(_values)}")
+                    f"{sorted(_registry)}")
 
 
-def define_flag(name: str, default: Any, help: str = "") -> None:
-    """Register ``name`` with its default (its type coerces later
-    values). ``help`` documents it, as in JAX."""
+def define_flag(name: str, default: Any, help: str = "",
+                on_change: Optional[Callable[[Any], None]] = None,
+                choices: Optional[Iterable[Any]] = None) -> None:
+    """Register ``name``. The environment variable ``FLAGS_<name>``, when
+    set, overrides ``default`` (coerced to its type and checked against
+    ``choices``)."""
     with _lock:
-        _defaults[name] = default
-        _values[name] = default
+        spec = _FlagSpec(name=name, default=default, type=type(default),
+                         help=help, on_change=on_change,
+                         choices=tuple(choices) if choices else None)
+        _registry[name] = spec
+        env = os.environ.get("FLAGS_" + name)
+        _values[name] = _coerce(spec, env) if env is not None else default
 
 
 def flag(name: str) -> Any:
@@ -72,15 +113,33 @@ def get_flags(names: Union[str, Iterable[str], None] = None
 
 
 def set_flags(flags_map: Dict[str, Any]) -> None:
-    """Set flags by name, with or without the ``FLAGS_`` prefix; an
-    unknown name raises ``KeyError``."""
+    """Set flags by name, with or without the ``FLAGS_`` prefix: each
+    value is coerced, checked and handed to the flag's ``on_change``. An
+    unknown name raises ``KeyError``, a value outside ``choices``
+    ``ValueError``."""
     with _lock:
         for name, value in flags_map.items():
             if name.startswith("FLAGS_"):
                 name = name[len("FLAGS_"):]
-            if name not in _values:
+            if name not in _registry:
                 raise _unknown(name)
-            _values[name] = type(_defaults[name])(value)
+            spec = _registry[name]
+            _values[name] = _coerce(spec, value)
+            if spec.on_change is not None:
+                spec.on_change(_values[name])
+
+
+def list_flags() -> List[_FlagSpec]:
+    with _lock:
+        return list(_registry.values())
+
+
+def unknown_env_flags() -> List[str]:
+    """``FLAGS_*`` environment variables that name no defined flag."""
+    with _lock:
+        return sorted(k for k in os.environ
+                      if k.startswith("FLAGS_")
+                      and k[len("FLAGS_"):] not in _registry)
 
 
 define_flag("fused_conv_bn", 0,
@@ -124,3 +183,30 @@ define_flag("kernel_autotune", 1,
             "consult the persistent kernel-autotune cache")
 define_flag("kernel_autotune_cache_path", "",
             "override the autotune cache file location")
+define_flag("telemetry", "metrics",
+            "Runtime telemetry level (paddle_tpu_torch.observability): "
+            "'off' disables every host-side signal (bitwise non-intrusive "
+            "on step outputs), 'metrics' (default) keeps the always-on "
+            "counters/gauges/histograms + step timeline + recompile "
+            "sentinel + HBM watermarks, 'trace' additionally records "
+            "span trees into the in-memory ring for chrome-trace/JSONL "
+            "export.",
+            choices=("off", "metrics", "trace"))
+define_flag("flight_recorder", "off",
+            "Crash-persistent per-process flight recorder "
+            "(paddle_tpu_torch.observability.flight_recorder): 'off' "
+            "(default) keeps every emit seam a no-op (byte-identical on "
+            "step outputs, the FLAGS_telemetry contract); 'on' appends "
+            "CRC-framed records (step phase commits, metric-snapshot "
+            "deltas, O-rule diagnostics, serving request outcomes) into "
+            "an mmap-backed ring that survives SIGKILL / os._exit with no "
+            "flush.",
+            choices=("off", "on"))
+define_flag("flight_recorder_mb", 4,
+            "Flight-recorder ring capacity per process incarnation in "
+            "MiB (the ring wraps — oldest records are overwritten).")
+define_flag("static_analysis", "off",
+            "Static analysis mode (paddle_tpu_torch.analysis): 'off' "
+            "skips, 'warn' prints diagnostics to stderr, 'error' raises "
+            "GraphLintError on error-severity findings.",
+            choices=("off", "warn", "error"))

@@ -14,16 +14,26 @@ masks of a step follow from its index: a run resumed from
 :meth:`TrainStep.state_dict` draws what an unbroken run draws. The JAX
 step's mesh, ZeRO sharding, offload, health sentinel and pass pipeline are
 not ported: a ``mesh`` raises.
+
+Each step reports into the process-wide step timeline
+(:func:`paddle_tpu_torch.observability.step_monitor.current`), as JAX's
+does: the ``h2d`` phase around the batch's copy to the device, the
+applied step's ``index``, and the forward, backward and update under
+``compile`` the first time the recompile sentinel sees the batch's
+signature and ``device`` after; the HBM sample at the step's end. Under
+``FLAGS_telemetry=off`` none of it runs.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..core.random import fold_in, make_key, rng_scope
+from ..observability import step_monitor
 
 __all__ = ["TrainStep", "make_sharded_train_step"]
 
@@ -69,26 +79,45 @@ class TrainStep:
         the model's device). ``index`` pins this step's index, as the JAX
         step's guarded trainers do; by default the counter increments.
         Returns the loss (a detached scalar tensor on the device)."""
-        batch = _to_device(batch, self.device)
+        tm = step_monitor.current()
+        with tm.step():
+            return self._step_inner(batch, tm, index)
+
+    def _step_inner(self, batch, tm, index: Optional[int]) -> torch.Tensor:
+        with tm.phase("h2d"):
+            batch = _to_device(batch, self.device)
         if index is None:
             self._step_count += 1
         else:
             self._step_count = int(index)
+        # the flight recorder's step commits carry this applied index
+        tm.note("index", self._step_count)
         lr = self.optimizer.get_lr()
-        for p in self.params.values():
-            p.grad = None
-        with rng_scope(fold_in(self._base_key, self._step_count)):
-            loss = self.loss_fn(self.model, batch)
-            loss.backward()
-        # a parameter the loss does not reach (BERT's pooler and NSP head
-        # without NSP labels) gets a zero gradient, as jax.grad gives it, so
-        # the optimizer still decays it and steps its moments
-        grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
-                 for n, p in self.params.items()}
-        self.optimizer.apply_gradients(self.params, grads, self.opt_state,
-                                       lr)
-        for p in self.params.values():
-            p.grad = None
+        # recompile sentinel: the parameters and optimizer state keep their
+        # signatures, so only the batch and the learning rate (a float32
+        # scalar, as JAX passes it) are fingerprinted; the first dispatch
+        # of a signature is timed as "compile", later ones as "device"
+        dispatch_phase = "device"
+        if tm.enabled:
+            dispatch_phase = tm.observe_dispatch(
+                ("sharded.TrainStep", id(self)), (batch, np.float32(lr)),
+                where="sharded.TrainStep")
+        with tm.phase(dispatch_phase):
+            for p in self.params.values():
+                p.grad = None
+            with rng_scope(fold_in(self._base_key, self._step_count)):
+                loss = self.loss_fn(self.model, batch)
+                loss.backward()
+            # a parameter the loss does not reach (BERT's pooler and NSP
+            # head without NSP labels) gets a zero gradient, as jax.grad
+            # gives it, so the optimizer still decays it and steps its
+            # moments
+            grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
+                     for n, p in self.params.items()}
+            self.optimizer.apply_gradients(self.params, grads,
+                                           self.opt_state, lr)
+            for p in self.params.values():
+                p.grad = None
         sched = self.optimizer.lr_scheduler
         if sched is not None:
             sched.step()

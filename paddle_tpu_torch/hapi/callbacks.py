@@ -1,9 +1,8 @@
 """Training callbacks (``paddle_tpu/hapi/callbacks.py`` counterpart):
-ProgBarLogger, ModelCheckpoint, LRSchedulerCallback, EarlyStopping and
-:func:`config_callbacks`. The JAX package's ``StatsLoggerCallback`` and the
-``telemetry`` flag that installs it come with the port's observability
-layer; the port has no such flag, so :func:`config_callbacks` installs the
-four callbacks here and nothing else."""
+ProgBarLogger, ModelCheckpoint, LRSchedulerCallback, EarlyStopping,
+StatsLoggerCallback and :func:`config_callbacks`, which installs
+``StatsLoggerCallback`` whenever ``FLAGS_telemetry`` is not ``off``, as in
+JAX."""
 
 from __future__ import annotations
 
@@ -15,8 +14,8 @@ import numpy as np
 import torch
 
 __all__ = ["Callback", "ProgBarLogger", "ModelCheckpoint",
-           "LRSchedulerCallback", "EarlyStopping", "config_callbacks",
-           "CallbackList"]
+           "LRSchedulerCallback", "EarlyStopping", "StatsLoggerCallback",
+           "config_callbacks", "CallbackList"]
 
 
 class Callback:
@@ -150,6 +149,34 @@ class LRSchedulerCallback(Callback):
             sched.step()
 
 
+class StatsLoggerCallback(Callback):
+    """Per-epoch stat snapshots in the training log and a periodic
+    ``StatsReporter`` for long epochs; ``fit`` owns the reporter's
+    lifecycle (started at train begin, stopped at train end)."""
+
+    def __init__(self, interval: float = 60.0, logger=None):
+        from ..profiler.monitor import get_logger
+        self.interval = interval
+        self.logger = logger or get_logger("paddle_tpu_torch.monitor")
+        self._reporter = None
+
+    def on_train_begin(self, logs=None):
+        from ..profiler.monitor import StatsReporter
+        if self._reporter is None:
+            self._reporter = StatsReporter(self.interval, logger=self.logger)
+        self._reporter.start()
+
+    def on_epoch_end(self, epoch, logs=None):
+        from ..observability import metrics
+        snap = metrics.stats_snapshot()
+        if snap:
+            self.logger.info("epoch %d stats %s", epoch, snap)
+
+    def on_train_end(self, logs=None):
+        if self._reporter is not None:
+            self._reporter.stop()
+
+
 class EarlyStopping(Callback):
     def __init__(self, monitor: str = "loss", mode: str = "auto",
                  patience: int = 0, verbose: int = 1, min_delta: float = 0,
@@ -195,6 +222,10 @@ def config_callbacks(callbacks=None, model=None, log_freq: int = 10,
         cbks.append(LRSchedulerCallback())
     if save_dir and not any(isinstance(c, ModelCheckpoint) for c in cbks):
         cbks.append(ModelCheckpoint(save_freq, save_dir))
+    from ..observability.trace import telemetry_mode
+    if telemetry_mode() != "off" and \
+            not any(isinstance(c, StatsLoggerCallback) for c in cbks):
+        cbks.append(StatsLoggerCallback())
     cl = CallbackList(cbks)
     if model is not None:
         cl.set_model(model)

@@ -16,9 +16,15 @@ numpy array, one host synchronisation a step, as JAX's does.
 ``"O2"`` casts the network with ``amp.decorate`` and runs it under
 ``auto_cast(level="O2")``; the loss is computed outside ``auto_cast``, as
 in JAX. The JAX ``Model`` never sets its loss scaler in ``prepare``, so
-neither side scales the loss. JAX's ``FLAGS_check_nan_inf`` scan and its
-``stat_add`` and step-monitor hooks come with the port's fault and
-observability layers; the port has no such flags.
+neither side scales the loss. JAX's ``FLAGS_check_nan_inf`` scan is not
+ported.
+
+Telemetry, as in JAX: each train batch counts ``model.train_batches`` and
+runs under the step timeline's ``compile`` phase the first time the
+recompile sentinel sees its (inputs, labels) signature and ``device``
+after (keyed ``Model.train_batch``, or ``Model.grad_batch`` for an
+accumulation micro-batch); ``fit`` wraps each batch in a timeline step
+with its callbacks under the ``callbacks`` phase.
 
 The ``.pdparams`` file holds the port's state_dict, whose Linear weights
 are ``[out, in]``. A checkpoint the JAX ``Model.save`` wrote reaches the
@@ -41,6 +47,8 @@ from ..amp.auto_cast import auto_cast, decorate
 from ..core.random import default_generator, rng_scope
 from ..io import DataLoader
 from ..metric import Metric
+from ..observability import step_monitor
+from ..profiler.monitor import stat_add
 from .callbacks import config_callbacks
 
 __all__ = ["Model"]
@@ -163,15 +171,31 @@ class Model:
         array."""
         if self._optimizer is None or self._loss is None:
             raise RuntimeError("call prepare(optimizer, loss) first")
+        stat_add("model.train_batches")
         inputs, labels = self._tensors(inputs), self._tensors(labels)
         self._ensure_state()
         key = default_generator().next_key()
-        params, grads, loss = self._grads(inputs, labels, key)
+        tm = step_monitor.current()
+
+        def dispatch_phase(kind):
+            # recompile sentinel: churn comes from the (inputs, labels)
+            # signature; the first dispatch of a signature is "compile"
+            if not tm.enabled:
+                return "device"
+            return tm.observe_dispatch(
+                (f"Model.{kind}", id(self)), (inputs, labels),
+                where=f"hapi.Model.{kind}")
+
         if update and self._accum_grads is None:
-            self._optimizer.apply_gradients(params, grads, self._opt_state,
-                                            self._optimizer.get_lr())
+            with tm.phase(dispatch_phase("train_batch")):
+                params, grads, loss = self._grads(inputs, labels, key)
+                self._optimizer.apply_gradients(params, grads,
+                                                self._opt_state,
+                                                self._optimizer.get_lr())
             self._step_count += 1
             return loss.cpu().numpy()
+        with tm.phase(dispatch_phase("grad_batch")):
+            params, grads, loss = self._grads(inputs, labels, key)
         if self._accum_grads is None:
             self._accum_grads = {n: g.clone() for n, g in grads.items()}
             self._accum_count = 1
@@ -242,6 +266,7 @@ class Model:
                                 verbose=verbose, save_freq=save_freq,
                                 save_dir=save_dir, metrics=self._metrics)
         self.stop_training = False
+        tm = step_monitor.current()
         cbks.on_train_begin()
         iters_done = 0
         logs: Dict[str, Any] = {}
@@ -253,12 +278,17 @@ class Model:
             for m in self._metrics:
                 m.reset()
             for step, batch in enumerate(loader):
-                cbks.on_train_batch_begin(step)
-                inputs, labels = self._split_batch(batch)
-                update = (step + 1) % max(1, accumulate_grad_batches) == 0
-                logs["loss"] = self.train_batch(inputs, labels, update=update)
-                logs["lr"] = self._optimizer.get_lr()
-                cbks.on_train_batch_end(step, logs)
+                with tm.step():
+                    with tm.phase("callbacks"):
+                        cbks.on_train_batch_begin(step)
+                    inputs, labels = self._split_batch(batch)
+                    update = (step + 1) % max(1, accumulate_grad_batches) \
+                        == 0
+                    logs["loss"] = self.train_batch(inputs, labels,
+                                                    update=update)
+                    logs["lr"] = self._optimizer.get_lr()
+                    with tm.phase("callbacks"):
+                        cbks.on_train_batch_end(step, logs)
                 iters_done += 1
                 if num_iters is not None and iters_done >= num_iters:
                     self.stop_training = True

@@ -20,6 +20,8 @@
   caching host allocator, which keeps it until the copy that reads it is
   done. The device is the one ``places`` names, else
   :func:`~..core.device.resolve_device`'s (``cuda:0``).
+- Each batch the caller waits for is timed under the step timeline's
+  ``data`` phase and counted as ``dataloader.batches``, as in JAX.
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..observability import step_monitor
+from ..profiler.monitor import stat_add
 from .dataset import Dataset, IterableDataset
 from .sampler import BatchSampler
 
@@ -326,6 +330,20 @@ class DataLoader:
         if prev is not None:
             yield ready(prev)
 
+    @staticmethod
+    def _counted(source: Iterator[Any]) -> Iterator[Any]:
+        # the telemetry "data" phase: the wall time the consumer spends
+        # WAITING on the loader (assembly the workers already overlapped
+        # does not show here, only the stalls the training loop feels)
+        tm = step_monitor.current()
+        while True:
+            with tm.phase("data"):
+                batch = next(source, _END)
+            if batch is _END:
+                return
+            stat_add("dataloader.batches")
+            yield batch
+
     def __iter__(self) -> Iterator[Any]:
         if self.num_workers == 0:
             source = self._batches_sync()
@@ -333,6 +351,7 @@ class DataLoader:
             source = self._batches_multiprocess()
         else:
             source = self._batches_threaded()
+        source = self._counted(source)
         if self.prefetch_to_device:
             source = self._prefetched(source)
         yield from source

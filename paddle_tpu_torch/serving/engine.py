@@ -61,32 +61,44 @@ KernelLaunchError`), any CUDA error and anything raised in
 ``ops/_hopper`` stop ``serve()``: no fault of a kernel ends as a quietly
 FAILED request.
 
-Not ported (ROADMAP Queue 1 items 5, 9 and 10): metrics and request
-timelines, recompile sentinels and ``compile_report``, the AOT
-``trace_steps``/``compile_*``, the static plan (``_build_plan``) with its
-lint, and the subprocess kill-and-replay drill. Decoding is greedy
-(argmax), as the reference engine's is; sampling lives in
-``GPTForCausalLM.generate``.
+Telemetry (:mod:`paddle_tpu_torch.observability`, under
+``FLAGS_telemetry``) is wired as in the reference, under the same names:
+the ``serving.*`` counters, gauges and histograms; one request-timeline
+record per ending (phases, ``ttft_ms``, ``total_ms``, preemptions, the
+deadline); and one recompile sentinel per step kind, whose signature counts
+:meth:`ServingEngine.compile_report` holds against the bucket budget. Unlike
+the reference's engine, which reports under every flag value,
+``FLAGS_telemetry=off`` (read at each ``submit`` and ``step``) switches
+all of it off, the pool's and the prefix tree's series too, as the flag's
+help promises.
+
+Not ported: the AOT ``trace_steps``/``compile_*`` and the static plan
+(``_build_plan``) with its lint, the live fleet exporter's progress note,
+and the subprocess kill-and-replay drill. Decoding is greedy (argmax), as
+the reference engine's is; sampling lives in ``GPTForCausalLM.generate``.
 """
 
 from __future__ import annotations
 
 import math
 import os
-import sys
 import time
 import traceback
 from collections import deque
-from dataclasses import dataclass
 from typing import (Any, Callable, Dict, List, Optional, Sequence as Seq,
                     Union)
 
 import numpy as np
 import torch
 
+from ..analysis.diagnostics import Diagnostic, emit
 from ..core import flags as _flags
 from ..core.device import resolve_device, same_device
 from ..fault.injection import fire as _fault_fire
+from ..observability import metrics, request_timeline
+from ..observability.request_timeline import percentile
+from ..observability.step_monitor import RecompileSentinel
+from ..observability.trace import telemetry_mode
 from ..ops.flash_attention import (_masked_softmax, flash_attention,
                                    single_query_attention)
 from .buckets import BucketSet, pad_axis, pow2_buckets
@@ -131,39 +143,6 @@ def _multi_query_attention(q, k, v, pos):
 
 def _model_desc(cfg) -> str:
     return f"gpt_l{cfg.num_layers}_h{cfg.hidden_size}_v{cfg.vocab_size}"
-
-
-def percentile(values: List[float], q: float) -> Optional[float]:
-    """Linear-interpolated percentile (q in [0, 100]) of raw values (the
-    reference's ``observability/request_timeline.py`` ``percentile``)."""
-    if not values:
-        return None
-    vs = sorted(values)
-    if len(vs) == 1:
-        return vs[0]
-    rank = (q / 100.0) * (len(vs) - 1)
-    lo = int(rank)
-    hi = min(lo + 1, len(vs) - 1)
-    frac = rank - lo
-    return vs[lo] * (1.0 - frac) + vs[hi] * frac
-
-
-@dataclass
-class FailureRecord:
-    """One request the engine failed and carried on past (rule F003): the
-    reference's analysis ``Diagnostic`` fields, kept in
-    ``ServingEngine.diagnostics``."""
-
-    rule: str
-    name: str
-    severity: str
-    message: str
-    hint: str = ""
-    where: str = ""
-
-    def format(self) -> str:
-        return (f"[{self.severity}] {self.rule}/{self.name} [{self.where}]: "
-                f"{self.message} — hint: {self.hint}")
 
 
 #: the errors that fail one request and not the loop: its own
@@ -314,6 +293,8 @@ class ServingEngine:
             if self.prefix_on else None
         self.sched = FCFSScheduler(max_batch, max_waiting=max_waiting)
         self._seqs: Dict[str, Sequence] = {}
+        #: FLAGS_telemetry != "off", read at each submit and step
+        self._telemetry = telemetry_mode() != "off"
         self.n_iterations = 0
         self.n_prefills = 0
         self.n_extend_prefills = 0
@@ -333,7 +314,7 @@ class ServingEngine:
         self.shed_policy = shed_policy
         self.journal = journal
         self.rejections: List[Rejected] = []
-        self.diagnostics: List[FailureRecord] = []   # F003, newest last
+        self.diagnostics: List[Diagnostic] = []   # F003, newest last
         self.mode = "healthy"                # healthy | shedding | degraded
         self._spilled_bytes = 0
         self._degraded_width: Optional[int] = None
@@ -343,24 +324,39 @@ class ServingEngine:
         if journal is not None:
             journal.launch()
 
-        # -- the steps -------------------------------------------------------
+        # -- the steps and their sentinels (the reference's thresholds:
+        # a step kind's budget of signatures is its bucket count) ----------
         self._prefill_fn = self._make_prefill()
         self._decode_fn = self._make_decode()
+        self._sent_prefill = RecompileSentinel(
+            threshold=len(self.prefill_buckets))
+        self._sent_decode = RecompileSentinel(
+            threshold=len(self.decode_buckets))
         self._chunk_fn = None
+        self._sent_chunk = None
         if self.prefix_on or self.chunk_tokens:
             self._chunk_fn = self._make_extend(self.model, self.cache,
                                                last_only=True)
+            self._sent_chunk = RecompileSentinel(
+                threshold=len(self.prefill_buckets))
         self._verify_fn = None
+        self._sent_verify = None
         if self.spec_gamma:
             self._verify_fn = self._make_extend(self.model, self.cache,
                                                 last_only=False)
+            self._sent_verify = RecompileSentinel(
+                threshold=len(self.decode_buckets))
         self._draft_decode_fn = None
         self._draft_extend_fn = None
+        self._sent_draft = None
         if self._draft_cache is not None:
             dm = self.drafter.model
             self._draft_decode_fn = self._make_decode(dm, self._draft_cache)
             self._draft_extend_fn = self._make_extend(
                 dm, self._draft_cache, last_only=True)
+            self._sent_draft = RecompileSentinel(
+                threshold=len(self.decode_buckets) +
+                len(self.prefill_buckets))
 
     # ------------------------------------------------------------------
     # The bucketed steps
@@ -553,19 +549,39 @@ class ServingEngine:
         seq.block_ids = []
         seq.n_shared_blocks = 0
 
-    def _update_peaks(self) -> None:
+    def _gauges(self) -> None:
+        """The peak-blocks watermarks and the engine's gauges."""
         used = self.cache.allocator.n_used
         self.peak_blocks_used = max(self.peak_blocks_used, used)
         live = used - (self.prefix.n_idle_device_blocks()
                        if self.prefix is not None else 0)
         self.peak_live_blocks = max(self.peak_live_blocks, live)
+        if not self._telemetry:
+            return
+        metrics.gauge("serving.queue_depth",
+                      "requests waiting for admission").set(
+                          len(self.sched.waiting))
+        metrics.gauge("serving.running",
+                      "sequences resident in the decode batch").set(
+                          len(self.sched.running))
+        usable = self.cache.num_blocks - 1
+        metrics.gauge("serving.free_block_frac",
+                      "free fraction of the usable KV pool (the shed "
+                      "policy's admission signal)").set(
+                          self.cache.allocator.n_free / usable
+                          if usable else 0.0)
+        p99 = percentile(list(self._decode_window), 99)
+        if p99 is not None:
+            metrics.gauge("serving.decode_p99_ms",
+                          "sliding-window decode-iteration p99 (ms, "
+                          "the shed policy's latency signal)").set(p99)
 
     def reset_peaks(self) -> None:
         """Restart the peak-blocks watermarks (a benchmark's arm measures
         the steady state, not the warmup)."""
         self.peak_blocks_used = 0
         self.peak_live_blocks = 0
-        self._update_peaks()
+        self._gauges()
 
     # ------------------------------------------------------------------
     # Request lifecycle
@@ -584,6 +600,9 @@ class ServingEngine:
                 f"+ max_new_tokens {request.max_new_tokens} exceeds "
                 f"max_seq_len {self.max_seq_len}")
         self.prefill_buckets.fit(request.prompt_ids.size)
+        self._telemetry = telemetry_mode() != "off"
+        if self._telemetry:
+            metrics.counter("serving.requests", "requests submitted").inc()
         if not self.sched.can_accept():
             return self._reject(
                 request, "queue_full",
@@ -600,7 +619,7 @@ class ServingEngine:
         if self.journal is not None:
             self.journal.submitted(request)
         self.sched.submit(seq)
-        self._update_peaks()
+        self._gauges()
         return seq
 
     def _reject(self, request: Request, reason: str,
@@ -609,6 +628,15 @@ class ServingEngine:
         self.rejections.append(rej)
         if self.journal is not None:
             self.journal.terminal(request.rid, "rejected", reason)
+        if self._telemetry:
+            metrics.counter("serving.rejected",
+                            "submissions refused by bounded admission").inc()
+            request_timeline.current().record(
+                rid=request.rid, prompt_tokens=request.prompt_ids.size,
+                new_tokens=0, phases_ms={}, total_ms=0.0,
+                outcome="rejected", error=f"{reason}: {detail}",
+                deadline_ms=(None if request.deadline_s is None
+                             else request.deadline_s * 1e3))
         return rej
 
     # -- terminal non-success paths (isolation, deadlines, shedding) ---------
@@ -627,11 +655,31 @@ class ServingEngine:
             seq.spilled_bytes = 0
         seq.error = reason
         seq.t_done = time.perf_counter()
+        outcome = status.value
         if diagnose:
             self._diagnose_failure(seq, reason)
         if self.journal is not None:
-            self.journal.terminal(seq.rid, status.value, reason)
-        self._update_peaks()
+            self.journal.terminal(seq.rid, outcome, reason)
+        if self._telemetry:
+            metrics.counter(f"serving.{outcome}",
+                            f"requests ending {outcome}").inc()
+            self._record(seq, outcome, error=reason)
+        self._gauges()
+
+    def _record(self, seq: Sequence, outcome: str,
+                error: Optional[str] = None) -> None:
+        """The request timeline's record of one ending."""
+        req = seq.request
+        request_timeline.current().record(
+            rid=seq.rid, prompt_tokens=seq.prompt_len,
+            new_tokens=seq.n_generated,
+            phases_ms={k: v * 1e3 for k, v in seq.phase_s.items()},
+            total_ms=(seq.t_done - seq.t_submit) * 1e3,
+            ttft_ms=((seq.t_first_token - seq.t_submit) * 1e3
+                     if seq.t_first_token is not None else None),
+            preemptions=seq.preemptions, outcome=outcome, error=error,
+            deadline_ms=(None if req.deadline_s is None
+                         else req.deadline_s * 1e3))
 
     def _fail(self, seq: Sequence, e: BaseException) -> None:
         """Fail ``seq`` for ``e`` if it is the request's own error
@@ -642,7 +690,7 @@ class ServingEngine:
                      diagnose=True)
 
     def _diagnose_failure(self, seq: Sequence, reason: str) -> None:
-        d = FailureRecord(
+        d = Diagnostic(
             rule="F003", name="serving-request-failed", severity="warning",
             message=f"request {seq.rid!r} failed after "
                     f"{seq.n_generated} token(s): {reason}",
@@ -650,10 +698,16 @@ class ServingEngine:
                  "loop continues and its blocks were reclaimed",
             where="serving.engine")
         self.diagnostics.append(d)
-        print(d.format(), file=sys.stderr)
+        # an operational finding: printed even under
+        # FLAGS_static_analysis=off, as in the reference
+        emit([d], where="serving.engine", mode="warn")
 
     def _account_spill(self, delta_bytes: int) -> None:
         self._spilled_bytes = max(0, self._spilled_bytes + delta_bytes)
+        if self._telemetry:
+            metrics.gauge("serving.spilled_bytes",
+                          "bytes of preempted KV held in the host "
+                          "tier").set(self._spilled_bytes)
 
     def _expire_deadlines(self) -> None:
         """Cancel every live sequence past its deadline, at iteration
@@ -684,6 +738,9 @@ class ServingEngine:
             self._degraded_width = None
             return
         self.mode = "degraded" if pol.degrade else "shedding"
+        if self._telemetry:
+            metrics.counter("serving.overload_iterations",
+                            "iterations spent in shed/degraded mode").inc()
         # degrade mode keeps residents (they get a smaller bucket); pure
         # shed mode may drop running work to free blocks
         victim = self.sched.shed_candidate(waiting_only=pol.degrade,
@@ -819,9 +876,12 @@ class ServingEngine:
         btab = np.full((bucket // self.block_size,), NULL_BLOCK, np.int64)
         btab[:len(block_ids)] = block_ids
         self._assert_cow(block_ids)
-        tok = self._prefill_fn(self._to_device(ids), self._to_device(btab),
-                               seq.prompt_len)
-        tok = int(tok)  # host sync: honest prefill timing
+        args = (self._to_device(ids), self._to_device(btab), seq.prompt_len)
+        if self._telemetry:
+            self._sent_prefill.observe_tree(
+                "serving.prefill", args, donate=(1, 2),
+                where="serving.prefill")
+        tok = int(self._prefill_fn(*args))  # host sync: honest timing
         seq.block_ids = list(block_ids)
         seq.block_log.extend(block_ids)
         seq.ctx_len = seq.prompt_len
@@ -830,6 +890,10 @@ class ServingEngine:
         seq.t_first_token = time.perf_counter()
         dur = seq.t_first_token - now
         seq.add_phase("prefill", dur)
+        if self._telemetry:
+            metrics.histogram("serving.prefill_ms",
+                              "prefill step wall time (ms)").observe(
+                                  dur * 1e3)
         self.n_prefills += 1
         self.prefill_tokens += seq.prompt_len
         self.prefill_s += dur
@@ -859,6 +923,10 @@ class ServingEngine:
         args = (self._to_device(toks), self._to_device(table),
                 self._to_device([start]), self._to_device([span]))
         self._assert_cow(self._write_span_ids(seq, start, span))
+        if self._telemetry:
+            self._sent_chunk.observe_tree(
+                "serving.extend", args, donate=(1, 2),
+                where="serving.extend")
         out = self._chunk_fn(*args).cpu().numpy()  # host sync: honest timing
         if self._draft_extend_fn is not None:
             self._draft_extend_fn(*args)
@@ -873,6 +941,14 @@ class ServingEngine:
             seq.n_shared_blocks = len(seq.prefix_nodes)
         dur = time.perf_counter() - now
         seq.add_phase("chunk_prefill", dur)
+        if self._telemetry:
+            if self.chunk_tokens:
+                metrics.counter(
+                    "serving.chunked_prefill_iterations",
+                    "prefill chunks interleaved with decode").inc()
+            metrics.histogram("serving.prefill_ms",
+                              "prefill step wall time (ms)").observe(
+                                  dur * 1e3)
         self.n_extend_prefills += 1
         self.prefill_tokens += span
         self.prefill_s += dur
@@ -972,6 +1048,9 @@ class ServingEngine:
         # queue time restarts now; t_submit stays the true arrival
         seq.t_requeue = time.perf_counter()
         self.n_preemptions += 1
+        if self._telemetry:
+            metrics.counter("serving.preemptions",
+                            "sequences preempted for KV capacity").inc()
 
     # -- the decode iteration ------------------------------------------------
 
@@ -1036,8 +1115,13 @@ class ServingEngine:
             lens[i] = seq.ctx_len
         self._assert_cow([i for seq in batch
                           for i in self._write_span_ids(seq, seq.ctx_len, 1)])
-        out = self._decode_fn(self._to_device(tokens),
-                              self._to_device(tables), self._to_device(lens))
+        args = (self._to_device(tokens), self._to_device(tables),
+                self._to_device(lens))
+        if self._telemetry:
+            self._sent_decode.observe_tree(
+                "serving.decode", args, donate=(1, 2),
+                where="serving.decode")
+        out = self._decode_fn(*args)
         out = out.cpu().numpy()  # host sync per iteration (token commit)
         # the seam after the iteration's compute, before any of its tokens
         # is committed
@@ -1045,6 +1129,10 @@ class ServingEngine:
         dur = time.perf_counter() - t0
         self.decode_ms.append(dur * 1e3)
         self._decode_window.append(dur * 1e3)
+        if self._telemetry:
+            metrics.histogram("serving.decode_step_ms",
+                              "decode iteration wall time (ms)").observe(
+                                  dur * 1e3)
         self.decode_tokens += len(batch)
         finished: List[Sequence] = []
         for i, seq in enumerate(batch):
@@ -1089,8 +1177,12 @@ class ServingEngine:
                 hi = min(t, len(cur[i]) - 1)
                 toks[i] = cur[i][hi] if t < len(cur[i]) else cur[i][-1]
                 ctxs[i] = min(pos0[i] + t, seq.ctx_len + depth[i])
-            out = self._draft_decode_fn(self._to_device(toks), d_tables,
-                                        self._to_device(ctxs))
+            dargs = (self._to_device(toks), d_tables, self._to_device(ctxs))
+            if t == 0 and self._telemetry:
+                self._sent_draft.observe_tree(
+                    "serving.draft", dargs, donate=(1, 2),
+                    where="serving.draft")
+            out = self._draft_decode_fn(*dargs)
             out = out.cpu().numpy()
             for i in range(len(batch)):
                 catchup = len(feeds[i]) - 1
@@ -1126,15 +1218,22 @@ class ServingEngine:
         self._assert_cow([j for i, seq in enumerate(batch)
                           for j in self._write_span_ids(seq, seq.ctx_len,
                                                         int(n_real[i]))])
-        out = self._verify_fn(self._to_device(tokens),
-                              self._to_device(tables), self._to_device(lens),
-                              self._to_device(n_real))
-        out = out.cpu().numpy()
+        args = (self._to_device(tokens), self._to_device(tables),
+                self._to_device(lens), self._to_device(n_real))
+        if self._telemetry:
+            self._sent_verify.observe_tree(
+                "serving.verify", args, donate=(1, 2),
+                where="serving.verify")
+        out = self._verify_fn(*args).cpu().numpy()
         _fault_fire("serve.mid_decode")
         dur = time.perf_counter() - t0
         t_verify = dur - t_draft
         self.decode_ms.append(dur * 1e3)
         self._decode_window.append(dur * 1e3)
+        if self._telemetry:
+            metrics.histogram("serving.decode_step_ms",
+                              "decode iteration wall time (ms)").observe(
+                                  dur * 1e3)
         self.spec_stats["iterations"] += 1
         finished: List[Sequence] = []
         for i, seq in enumerate(batch):
@@ -1151,6 +1250,11 @@ class ServingEngine:
             self.spec_stats["proposed"] += len(props)
             self.spec_stats["accepted"] += accepted
             self._accept_lens.append(accepted)
+            if self._telemetry:
+                metrics.histogram(
+                    "serving.spec_accept_len",
+                    "draft tokens accepted per speculative iteration"
+                ).observe(accepted)
             ctx0 = seq.ctx_len
             done = False
             for tok in committed:
@@ -1195,6 +1299,8 @@ class ServingEngine:
             seq.text = self.detokenizer(seq.output)
         seq.t_done = time.perf_counter()
         seq.add_phase("detokenize", seq.t_done - t0)
+        if self._telemetry:
+            self._record(seq, "ok")
 
     # ------------------------------------------------------------------
     # Driving loop
@@ -1208,6 +1314,7 @@ class ServingEngine:
         Returns every sequence that reached a terminal state this
         iteration: FINISHED, and EXPIRED, SHED or FAILED."""
         n0 = len(self.sched.finished)
+        self._telemetry = telemetry_mode() != "off"
         self._expire_deadlines()
         self._apply_shed_policy()
         self._enforce_degraded_width()
@@ -1216,7 +1323,7 @@ class ServingEngine:
         self._chunk_iteration()
         self._ensure_decode_blocks()
         self._decode_iteration()
-        self._update_peaks()
+        self._gauges()
         self.n_iterations += 1
         return self.sched.finished[n0:]
 
@@ -1256,6 +1363,41 @@ class ServingEngine:
     # ------------------------------------------------------------------
     # Introspection
     # ------------------------------------------------------------------
+
+    def compile_report(self) -> Dict[str, Any]:
+        """Distinct step signatures dispatched against the bucket budget:
+        the reference's "at most n_buckets compilations, O001 silent"
+        check. In the port a new signature's first dispatch pays the
+        first-use kernel build, autotune and allocator growth."""
+        n_pre = len(self._sent_prefill._seen.get("serving.prefill", ()))
+        n_dec = len(self._sent_decode._seen.get("serving.decode", ()))
+        n_ext = (len(self._sent_chunk._seen.get("serving.extend", ()))
+                 if self._sent_chunk is not None else 0)
+        n_ver = (len(self._sent_verify._seen.get("serving.verify", ()))
+                 if self._sent_verify is not None else 0)
+        ext_budget = (self._sent_chunk.threshold
+                      if self._sent_chunk is not None else 0)
+        ver_budget = (self._sent_verify.threshold
+                      if self._sent_verify is not None else 0)
+        sentinels = (self._sent_prefill, self._sent_decode, self._sent_chunk,
+                     self._sent_verify, self._sent_draft)
+        return {
+            "prefill_signatures": n_pre,
+            "decode_signatures": n_dec,
+            "extend_signatures": n_ext,
+            "verify_signatures": n_ver,
+            "budget": (len(self.prefill_buckets) +
+                       len(self.decode_buckets) + ext_budget +
+                       ver_budget),
+            "prefill_buckets": self.prefill_buckets.sizes,
+            "decode_buckets": self.decode_buckets.sizes,
+            "within_budget": (n_pre <= len(self.prefill_buckets) and
+                              n_dec <= len(self.decode_buckets) and
+                              n_ext <= ext_budget and
+                              n_ver <= ver_budget),
+            "o001_fired": any(s is not None and bool(s.diagnostics)
+                              for s in sentinels),
+        }
 
     def prefix_report(self) -> Dict[str, Any]:
         """Prefix-sharing effectiveness: hit rate, live tree size, and the

@@ -13,7 +13,10 @@ it, so the bucketed prefill/decode steps scatter the KV of padding tokens
 somewhere harmless. Nothing reads block 0 through an attention mask.
 
 The pool is updated in place (``index_put_``) — the port's counterpart of
-the JAX engine donating the pool to each executable.
+the JAX engine donating the pool to each executable. The allocator keeps
+JAX's gauges (``serving.kv_blocks_free``, ``serving.kv_blocks_used``,
+``serving.blocks_shared``) and the cache its counters
+(``serving.kv_spills``, ``serving.kv_restores``).
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..fault.injection import fire as _fault_fire
+from ..observability import metrics
+from ..observability.trace import telemetry_mode
 
 __all__ = ["BlockAllocator", "PagedKVCache", "NULL_BLOCK",
            "OutOfBlocksError", "SpillError"]
@@ -90,6 +95,7 @@ class BlockAllocator:
         self._used.update(got)
         for i in got:
             self._refs[i] = 1
+        self._gauges()
         return got
 
     def ref(self, ids: Sequence[int]) -> None:
@@ -100,6 +106,7 @@ class BlockAllocator:
                 raise ValueError(f"ref of unallocated block {i}")
         for i in ids:
             self._refs[i] += 1
+        self._gauges()
 
     def free(self, ids: Sequence[int]) -> None:
         """Drop one owner per block; last-owner blocks return to the free
@@ -123,6 +130,18 @@ class BlockAllocator:
                 released.append(i)
         if released:
             self._free = sorted(self._free + released)
+        self._gauges()
+
+    def _gauges(self) -> None:
+        if telemetry_mode() == "off":
+            return
+        metrics.gauge("serving.kv_blocks_free",
+                      "free KV blocks in the paged pool").set(self.n_free)
+        metrics.gauge("serving.kv_blocks_used",
+                      "allocated KV blocks in the paged pool").set(self.n_used)
+        metrics.gauge("serving.blocks_shared",
+                      "KV blocks held by more than one owner").set(
+                          self.n_shared)
 
 
 HostKV = Tuple[torch.Tensor, torch.Tensor]
@@ -213,6 +232,9 @@ class PagedKVCache:
                 f"host spill of {len(block_ids)} block(s) failed: {e}"
             ) from e
         self.allocator.free(list(block_ids))
+        if telemetry_mode() != "off":
+            metrics.counter("serving.kv_spills",
+                            "sequence KV spills to host memory").inc()
         return host
 
     def restore(self, host_kv: HostKV, block_ids: Sequence[int]) -> None:
@@ -229,6 +251,9 @@ class PagedKVCache:
         # the caching host allocator keeps the buffer alive until they end
         for pool, host in ((self.k, k_host), (self.v, v_host)):
             pool[:, ids] = host.to(self.device, non_blocking=self.pinned)
+        if telemetry_mode() != "off":
+            metrics.counter("serving.kv_restores",
+                            "sequence KV restores from host memory").inc()
 
     def read_blocks(self, block_ids: Sequence[int]) -> HostKV:
         """Host copies of the given blocks (tests / debugging)."""

@@ -24,10 +24,11 @@ Matching is capped at ``prompt_len - 1`` tokens: the engine always
 recomputes the final prompt token, whose logits give the first generated
 token.
 
-The JAX module's ``serving.prefix_*`` gauges and counters wait for the
-port's observability tier; their values stay readable here
-(:meth:`hit_rate`, ``hit_tokens``, ``lookup_tokens``, :attr:`n_nodes`,
-``evictions``) and through ``ServingEngine.prefix_report``.
+The tree keeps JAX's ``serving.prefix_hit_rate`` and
+``serving.prefix_nodes`` gauges and its ``serving.prefix_evictions``
+counter; the values are also readable here (:meth:`hit_rate`,
+``hit_tokens``, ``lookup_tokens``, :attr:`n_nodes`, ``evictions``) and
+through ``ServingEngine.prefix_report``.
 """
 
 from __future__ import annotations
@@ -36,6 +37,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..observability import metrics
+from ..observability.trace import telemetry_mode
 from .paged_cache import PagedKVCache
 
 __all__ = ["PrefixCache", "PrefixNode"]
@@ -129,6 +132,17 @@ class PrefixCache:
             return 0.0
         return self.hit_tokens / self.lookup_tokens
 
+    def _gauges(self) -> None:
+        if telemetry_mode() == "off":
+            return
+        metrics.gauge("serving.prefix_hit_rate",
+                      "cumulative prompt tokens served from the prefix "
+                      "tree / prompt tokens looked up").set(
+                          round(self.hit_rate(), 6))
+        metrics.gauge("serving.prefix_nodes",
+                      "blocks registered in the prefix tree").set(
+                          self._nodes)
+
     # -- match / attach ------------------------------------------------------
 
     def match(self, prompt_ids: np.ndarray) -> List[PrefixNode]:
@@ -186,6 +200,7 @@ class PrefixCache:
         never on retried admission attempts."""
         self.lookup_tokens += int(prompt_len)
         self.hit_tokens += int(hit_len)
+        self._gauges()
 
     # -- insert --------------------------------------------------------------
 
@@ -230,6 +245,7 @@ class PrefixCache:
             self._touch(child)
             new.append(child)
             node = child
+        self._gauges()
         return new
 
     # -- release / evict -----------------------------------------------------
@@ -246,6 +262,7 @@ class PrefixCache:
             if node.seq_refs == 0:
                 self._idle += 1
             self.cache.allocator.free([node.block_id])
+        self._gauges()
 
     def _evictable(self) -> List[PrefixNode]:
         out = []
@@ -295,7 +312,12 @@ class PrefixCache:
             if not keep:
                 self._drop(victim)
             self.evictions += 1
+            if telemetry_mode() != "off":
+                metrics.counter("serving.prefix_evictions",
+                                "prefix-tree blocks evicted (spilled or "
+                                "dropped)").inc()
             freed += 1
+        self._gauges()
         return freed
 
     def _drop(self, node: PrefixNode) -> None:
