@@ -263,6 +263,20 @@ after the phase named):
   step and step/device ranges; a flight recorder replayed with the
   trainer's indices. The overhead line carries the card's name and power
   limit; every kernel entry gains telemetry_launches (off and metrics).
+- tune_conv (after 15)  ``tune_conv_shapes()`` in bf16 at
+  RESNET50_TOP3_SHAPES into a temporary autotune cache: each K5 tile and
+  K7 band candidate held to the plain version and timed, the winner
+  beside the plan's own choice, the plans' cache reads (a valid entry
+  taken, an invalid one ignored); then ResNet-50 with and without the
+  cache in turns (2+3 steps each), step times and losses (held within
+  TUNE_LOSS_REL); the kernels line's mm and c3 entries gain ``tuned``.
+- surface (before the kernels line)  a Paddle-style script through the
+  port's root on the card (creation, math, manipulation, linalg, search,
+  stat, grad, jacobian, no_grad, a PyLayer at [4, 2048, 2048]) against the
+  same calls on the CPU path, the draws' determinism and moments, then
+  FLAGS_use_pallas_kernels on (K1 and K4 launch) and off (no attention
+  launch, one dense route each, outputs within 2e-2 of the kernels') at
+  GPT-3 1.3B's attention shape.
 
 Attention-prob dropout and K9 (after phase 7, in this order):
 - kernel / kernel_packed / kernel_packed_stream, part "dropout": the nine
@@ -7316,6 +7330,462 @@ def phase_telemetry_train(torch, np, hfa, hfp, hc, fmb, step, batches,
     return total
 
 
+# -- tune_conv and surface -------------------------------------------------
+
+#: the tolerance between the ResNet-50 losses with and without the autotune
+#: cache, each step: a cached choice changes only the order in which the
+#: stats' f32 partials are summed, so BN's statistics move in their last
+#: bits and bf16 roundings downstream flip; 2% of the loss, set before the
+#: first run
+TUNE_LOSS_REL = 2e-2
+
+
+def phase_tune_conv(torch, np, hc, flags, resnet50, Momentum,
+                    make_sharded_train_step, warmup=2, timed=3):
+    """Phase tune_conv: ``tune_conv_shapes()`` in bf16 at
+    ``RESNET50_TOP3_SHAPES`` (B=256, full width) into a temporary cache
+    file (``FLAGS_kernel_autotune_cache_path``); then, at each shape, every
+    candidate's median time (the forward with the ReLU prologue and the
+    stats), y and the stats held to the plain version at the
+    tolerance the plan's own choice is held to (``hold_conv``), the winner
+    and the plan's own choice with their times; ``k5_plan``/``c3_bands``
+    under the conv's key return the cached winner, ignore an entry that is
+    not a candidate, and return the winner again once it is back (a sample
+    is five calls back to back, as ``k5_stages`` times K5). Then
+    ResNet-50 (bench.py's config 2 setting, two models from one seed) with
+    the cache (``FLAGS_kernel_autotune=1``) and without (0), step by step
+    in turns (``warmup`` + ``timed`` steps each), both step times and
+    losses, the losses held to each other within ``TUNE_LOSS_REL``.
+    Returns the phase's row."""
+    from paddle_tpu_torch.ops._hopper import autotune as at
+    tmp = tempfile.mkdtemp(prefix="tune_conv_")
+    path = os.path.join(tmp, "autotune.json")
+    prev = flags.get_flags(["kernel_autotune_cache_path", "kernel_autotune"])
+    flags.set_flags({"kernel_autotune_cache_path": path,
+                     "kernel_autotune": 1})
+    at._cache = None
+    try:
+        t0 = time.perf_counter()
+        won = hc.tune_conv_shapes()
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        check(os.path.exists(path) and len(won) == 3,
+              f"tune_conv_shapes stored {won} in {path}")
+        g = torch.Generator(device="cuda")
+        g.manual_seed(21)
+        bf = torch.bfloat16
+        lib = hc._library()
+        shapes = []
+        for kind, n, h, w, cin, cout, s in hc.RESNET50_TOP3_SHAPES:
+            k = 1 if kind == "conv1x1" else 3
+            x = torch.randn(n, h, w, cin, generator=g, device="cuda").to(bf)
+            wt = (torch.randn(k * k, cin, cout, generator=g, device="cuda") *
+                  (cin * k * k) ** -0.5).to(bf)
+            sc = torch.randn(cin, generator=g, device="cuda")
+            sh = torch.randn(cin, generator=g, device="cuda")
+            if k == 1:
+                ho, wo = (h - 1) // s + 1, (w - 1) // s + 1
+                m = n * ho * wo
+                kernel, key = "pallas_conv1x1", hc._mm_key(m, cin, cout, bf)
+                cands = hc.k5_candidates(cin)
+                pl = hc.k5_plan(m, cin, cout)
+                own = (pl.warps_m, pl.warps_n, pl.stages)
+
+                def launch(c, x=x, wt=wt, sc=sc, sh=sh, s=s):
+                    return hc._mm_tc_launch(lib, "tune_conv (K5)", x, wt[0],
+                                            sc, sh, "relu", True, s, c)
+
+                ref = hc.mm_reference(x, wt[0], sc, sh, "relu", True, s)
+
+                def plan_of(c, m=m, cout=cout):
+                    return hc._k5_plan_of(m, cout, *c)
+
+                def planned(m=m, cin=cin, cout=cout, key=key):
+                    return hc.k5_plan(m, cin, cout, key)
+            else:
+                ho, wo = (h + 2 - 3) // s + 1, (w + 2 - 3) // s + 1
+                kernel, key = "pallas_conv3x3", hc._c3_key(n, h, w, cin, cout,
+                                                           s, bf)
+                cands = hc.c3_candidates(n, ho, wo, s)
+                bd = hc.c3_bands(n, ho, wo, s)
+                own = (bd.band_n, bd.band_h, bd.band_w)
+
+                def launch(c, x=x, wt=wt, sc=sc, sh=sh, s=s, hw=(ho, wo)):
+                    return hc._c3_tc_launch(lib, "tune_conv (K7)", x, wt, sc,
+                                            sh, "relu", True, s, hw, 1, c)
+
+                ref = hc.c3_reference(x, wt, sc, sh, "relu", True, s,
+                                      (ho, wo))
+
+                def plan_of(c, n=n, ho=ho, wo=wo):
+                    return hc._c3_bands_of(n, ho, wo, *c)
+
+                def planned(n=n, ho=ho, wo=wo, s=s, key=key):
+                    return hc.c3_bands(n, ho, wo, s, 1, key)
+            winner = won[(kernel, key)]
+            check(winner in cands and own in cands,
+                  f"{kernel} {key}: winner {winner}, plan {own}, "
+                  f"candidates {cands}")
+            cand_rows = []
+            for c in cands:
+                row = {"choice": list(c)}
+                got = launch(c)
+                torch.cuda.synchronize()
+                hold_conv(torch, "fwd", got, ref, "bf16", row, stats=True)
+                del got
+                check(row["ok"], f"{kernel} {key} choice {c} disagrees with "
+                                 f"the plain version: {row}")
+                row["ms"] = median_ms(lambda: launch(c), reps=5)
+                cand_rows.append(row)
+            del ref, x
+            ent = at.get_cache().stats()[f"{kernel}|{at.chip_kind()}|{key}"]
+            reads = {"cached": planned() == plan_of(winner)}
+            at.get_cache().put(kernel, key, [99, 99, 99], 0.0)
+            reads["invalid_ignored"] = planned() == plan_of(own)
+            at.get_cache().put(kernel, key, list(winner),
+                               ent["measured_ms"])
+            reads["restored"] = planned() == plan_of(winner)
+            check(all(reads.values()), f"{kernel} {key}: the plan's cache "
+                                       f"reads {reads}")
+            ms = {tuple(r["choice"]): r["ms"] for r in cand_rows}
+            shapes.append({
+                "shape": [kind, n, h, w, cin, cout, s], "kernel": kernel,
+                "key": key, "candidates": cand_rows, "winner": list(winner),
+                "winner_ms": ms[winner], "sweep_ms": ent["measured_ms"],
+                "plan": list(own), "plan_ms": ms[own],
+                "plan_over_winner": ms[own] / ms[winner],
+                "best_by_median": list(min(ms, key=ms.get)),
+                "plan_reads": reads})
+        # ResNet-50 with and without the cache, step by step in turns
+        batch, img = 256, 224
+        rng = np.random.default_rng(0)
+        xb = torch.from_numpy(rng.standard_normal((batch, img, img, 3))).to(
+            "cuda").to(bf)
+        yb = torch.as_tensor(rng.integers(0, 1000, (batch,)), device="cuda")
+        arms = {}
+        for arm in ("cache", "no_cache"):
+            model = resnet50(data_format="NHWC", stem_mode="space_to_depth",
+                             device="cuda", seed=0)
+            model.train()
+            model.to(bf)
+            opt = Momentum(learning_rate=0.1, momentum=0.9,
+                           multi_precision=True)
+            arms[arm] = {"step": make_sharded_train_step(model, opt,
+                                                         resnet_loss),
+                         "losses": [], "ms": []}
+        zero_conv_counts(hc)
+        for i in range(warmup + timed):
+            for arm in (("cache", "no_cache") if i % 2 == 0 else
+                        ("no_cache", "cache")):
+                flags.set_flags({"kernel_autotune": int(arm == "cache")})
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                loss = arms[arm]["step"].step((xb, yb))
+                end.record()
+                end.synchronize()
+                arms[arm]["losses"].append(float(loss))
+                if i >= warmup:
+                    arms[arm]["ms"].append(start.elapsed_time(end))
+        launches = conv_counts(hc)
+        la, lb = arms["cache"]["losses"], arms["no_cache"]["losses"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(la, lb)]
+        train = {arm: {"losses": a["losses"], "step_ms": a["ms"],
+                       "step_p50_ms": percentile(a["ms"], 50)}
+                 for arm, a in arms.items()}
+        del arms
+        out = {"phase": "tune_conv", "dtype": "bf16",
+               "cache_file": "temporary (FLAGS_kernel_autotune_cache_path)",
+               "sweep_s": sweep_s, "shapes": shapes,
+               "changed": [r["key"] for r in shapes
+                           if r["winner"] != r["plan"]],
+               "resnet50": {"batch": [batch, img, img, 3],
+                            "warmup_steps": warmup, "timed_steps": timed,
+                            "order": "cache first at even steps, no_cache "
+                                     "first at odd ones",
+                            **train, "loss_rel_diff": rel,
+                            "loss_rel_tol": TUNE_LOSS_REL,
+                            "conv_launches": launches},
+               "clocks": card_clocks()}
+        emit(out)
+        check(all(math.isfinite(v) for v in la + lb),
+              f"tune_conv: non-finite loss {la} {lb}")
+        for arm_losses in (la, lb):
+            check(math.log(1000) - 0.5 <= arm_losses[0] <=
+                  math.log(1000) + 1.5, f"tune_conv step-0 loss {arm_losses}")
+        check(max(rel) <= TUNE_LOSS_REL,
+              f"tune_conv: the losses with and without the cache part: "
+              f"{la} {lb}")
+        check(all(launches[kn] > 0 for kn in CONV_KERNELS),
+              f"tune_conv: ResNet-50 launched {launches}")
+        return out
+    finally:
+        flags.set_flags(prev)
+        at._cache = None
+
+
+def surface_ops(P):
+    """The Paddle-style calls of phase surface, by name: ``fn(x, a, b, idx,
+    w, v)`` on tensors made by ``P.to_tensor`` on this thread's device,
+    with the absolute and relative tolerance of the card against the CPU
+    (0 for calls that only move or pick elements)."""
+    return [
+        ("to_tensor", lambda x, a, b, idx, w, v: x, 0, 0),
+        ("zeros", lambda x, a, b, idx, w, v: P.zeros([4, 2048, 2048]), 0, 0),
+        ("arange", lambda x, a, b, idx, w, v: P.arange(0, 8192, 2), 0, 0),
+        ("linspace", lambda x, a, b, idx, w, v: P.linspace(0, 1, 2049),
+         1e-6, 0),
+        ("full_like", lambda x, a, b, idx, w, v: P.full_like(x, 3.0), 0, 0),
+        ("add_multiply", lambda x, a, b, idx, w, v:
+         P.add(P.multiply(x, 2.0), x), 1e-6, 1e-6),
+        ("exp_log_tanh", lambda x, a, b, idx, w, v:
+         P.log(P.exp(P.tanh(x)) + 1), 1e-5, 1e-5),
+        ("sum", lambda x, a, b, idx, w, v: P.sum(x, axis=-1), 1e-3, 1e-4),
+        ("mean_keepdim", lambda x, a, b, idx, w, v:
+         P.mean(x, axis=[1, 2], keepdim=True), 1e-5, 1e-4),
+        ("max", lambda x, a, b, idx, w, v: P.max(x, axis=1), 0, 0),
+        ("logsumexp", lambda x, a, b, idx, w, v: P.logsumexp(x, axis=-1),
+         1e-4, 1e-5),
+        ("cumsum", lambda x, a, b, idx, w, v: P.cumsum(x[0], axis=-1),
+         1e-3, 1e-4),
+        ("reshape_transpose", lambda x, a, b, idx, w, v: P.transpose(
+            P.reshape(x, [4, 2048, 32, 64]), [0, 2, 1, 3]), 0, 0),
+        ("split_concat", lambda x, a, b, idx, w, v: P.concat(
+            P.split(x, [1024, -1], axis=1)[::-1], axis=1), 0, 0),
+        ("gather", lambda x, a, b, idx, w, v: P.gather(x[0], idx, axis=0),
+         0, 0),
+        ("flip_roll", lambda x, a, b, idx, w, v:
+         P.roll(P.flip(x, [1]), 5, axis=2), 0, 0),
+        ("where", lambda x, a, b, idx, w, v:
+         P.where(x > 0, x, P.zeros_like(x)), 0, 0),
+        ("matmul", lambda x, a, b, idx, w, v:
+         P.matmul(x[0], x[1], transpose_y=True), 1e-3, 1e-4),
+        ("norm", lambda x, a, b, idx, w, v: P.norm(x, p=2, axis=-1),
+         1e-4, 1e-5),
+        ("solve", lambda x, a, b, idx, w, v: P.solve(a, b), 1e-4, 1e-3),
+        # float32 eigen- and singular values: each side within its
+        # backward error of A's, c·n·eps·||A||₂ (Weyl), so the two within
+        # 4 · 512 · 2^-23 · 5 = 1.2e-3 (||A||₂ <= 5 here)
+        ("svd_values", lambda x, a, b, idx, w, v: P.svd(a)[1], 1.2e-3, 0),
+        ("eigh_values", lambda x, a, b, idx, w, v: P.eigh(a)[0], 1.2e-3,
+         0),
+        ("cholesky", lambda x, a, b, idx, w, v: P.cholesky(a), 1e-4, 1e-4),
+        ("argmax", lambda x, a, b, idx, w, v: P.argmax(x, axis=-1), 0, 0),
+        ("topk", lambda x, a, b, idx, w, v: P.topk(x[0], 8, axis=-1), 0, 0),
+        ("sort", lambda x, a, b, idx, w, v: P.sort(x[0], axis=-1), 0, 0),
+        ("argsort", lambda x, a, b, idx, w, v: P.argsort(x[0], axis=-1),
+         0, 0),
+        ("std", lambda x, a, b, idx, w, v: P.std(x, axis=-1), 1e-5, 1e-4),
+        ("median", lambda x, a, b, idx, w, v: P.median(x[0], axis=-1),
+         1e-6, 1e-6),
+        ("quantile", lambda x, a, b, idx, w, v:
+         P.quantile(x[0], [0.1, 0.9], axis=-1), 1e-6, 1e-5),
+        ("grad", lambda x, a, b, idx, w, v: P.grad(
+            P.sum(P.tanh(P.matmul(x[0], w))), w), 1e-4, 1e-4),
+        ("jacobian", lambda x, a, b, idx, w, v: P.autograd.jacobian(
+            lambda t: P.tanh(t) * t, v), 1e-6, 1e-5),
+    ]
+
+
+def phase_surface(torch, np, P, hfa, hfp, tfa, PF, flags):
+    """Phase surface: a Paddle-style script through the port's root on the
+    card. ``set_device("gpu")``, ``seed`` and ``to_tensor``, then creation,
+    math, manipulation, linalg, search and stat calls on ``[4, 2048,
+    2048]`` float32 (and a 512 x 512 SPD matrix), ``grad``, ``jacobian``,
+    ``no_grad`` and a ``PyLayer``: every output on ``cuda``, each held to
+    the same call on the port's CPU path (``set_device("cpu")``) within its
+    stated tolerance; random draws on the card are repeatable under
+    ``seed`` and have the first two moments of their law. Then
+    ``FLAGS_use_pallas_kernels`` at GPT-3 1.3B's attention shape (B=4, S =
+    2048, 16 heads of 128, bf16, causal; 32 heads of 64 for K4):
+    ``ops.flash_attention``, ``scaled_dot_product_attention`` and
+    ``flash_attn_unpadded`` with the flag on launch K1 and K4 and take no
+    dense route; with it off they launch no attention kernel, each takes
+    its dense route once, and each output matches the kernel route's
+    within phase dense_route's 16-bit tolerance (2·1e-2 + 2·1e-2·|ref|).
+    Returns the phase's row."""
+    from paddle_tpu_torch.core import device as pdev
+    rng = np.random.default_rng(31)
+    x_np = rng.standard_normal((4, 2048, 2048), dtype=np.float32)
+    m_np = rng.standard_normal((512, 512)).astype(np.float32)
+    a_np = m_np @ m_np.T / 512 + np.eye(512, dtype=np.float32)
+    b_np = rng.standard_normal((512, 8)).astype(np.float32)
+    idx_np = rng.integers(0, 2048, (300,))
+    w_np = (rng.standard_normal((2048, 256)) / 45).astype(np.float32)
+    v_np = rng.standard_normal((256,)).astype(np.float32)
+
+    class Cube(P.autograd.PyLayer):
+        @staticmethod
+        def forward(ctx, t):
+            ctx.save_for_backward(t)
+            return t * t * t
+
+        @staticmethod
+        def backward(ctx, dy):
+            (t,) = ctx.saved_tensor()
+            return 3 * t * t * dy
+
+    def run(dev):
+        P.set_device(dev)
+        x = P.to_tensor(x_np)
+        a, b = P.to_tensor(a_np), P.to_tensor(b_np)
+        idx = P.to_tensor(idx_np)
+        w = P.to_tensor(w_np, stop_gradient=False)
+        v = P.to_tensor(v_np)
+        out = {}
+        for name, fn, _, _ in surface_ops(P):
+            r = fn(x, a, b, idx, w, v)
+            out[name] = [t.detach() for t in (r if isinstance(r, (list, tuple))
+                                              else [r])]
+        loss = P.sum(P.tanh(P.matmul(x[0], w)))
+        loss.backward()
+        out["backward"] = [w.grad.detach()]
+        with P.no_grad():
+            y = P.matmul(x[0], w)
+            inside = P.is_grad_enabled()
+        out["no_grad"] = [y]
+        no_grad_ok = (not y.requires_grad) and not inside and \
+            P.is_grad_enabled()
+        t = P.to_tensor(v_np, stop_gradient=False)
+        c = Cube.apply(t)
+        (gc,) = P.grad(P.sum(c), t)
+        out["pylayer"] = [c.detach(), gc]
+        out["pylayer_analytic_err"] = float(
+            (gc - 3 * t.detach() ** 2).abs().max())
+        out["no_grad_ok"] = no_grad_ok
+        return out
+
+    t0 = time.perf_counter()
+    gpu = run("gpu")
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = run("cpu")
+    cpu_s = time.perf_counter() - t0
+    P.set_device("gpu")
+    # the float32 eigen- and singular values beside float64's, each side
+    a64 = a_np.astype(np.float64)
+    truth = {"eigh_values": np.linalg.eigvalsh(a64),
+             "svd_values": np.linalg.svd(a64, compute_uv=False)}
+    f64_err = {name: {side: float(np.abs(out[name][0].cpu().double().numpy()
+                                         - ref).max())
+                      for side, out in (("gpu", gpu), ("cpu", cpu))}
+               for name, ref in truth.items()}
+    tols = {name: (atol, rtol) for name, _, atol, rtol in surface_ops(P)}
+    tols.update({"backward": (1e-4, 1e-4), "no_grad": (1e-3, 1e-4),
+                 "pylayer": (1e-5, 1e-6)})
+    rows = []
+    for name, (atol, rtol) in tols.items():
+        on_cuda = all(t.device.type == "cuda" for t in gpu[name])
+        errs = []
+        ok = on_cuda and len(gpu[name]) == len(cpu[name])
+        for g_, c_ in zip(gpu[name], cpu[name]):
+            ok = ok and g_.shape == c_.shape and g_.dtype == c_.dtype
+            if g_.shape != c_.shape:
+                continue
+            gf, cf = g_.cpu().double(), c_.double()
+            err = (gf - cf).abs()
+            errs.append(float(err.max()) if err.numel() else 0.0)
+            ok = ok and bool((err <= atol + rtol * cf.abs()).all())
+        rows.append({"call": name, "on_cuda": on_cuda,
+                     "dtype": str(gpu[name][0].dtype).replace("torch.", ""),
+                     "shape": list(gpu[name][0].shape), "atol": atol,
+                     "rtol": rtol, "max_abs_err": max(errs) if errs else None,
+                     "ok": ok})
+    # random draws on the card: repeatable under seed, and their moments
+    draws = {}
+    for name, fn, law in (
+            ("randn", lambda: P.randn([1024, 1024]), (0.0, 1.0)),
+            ("rand", lambda: P.rand([1024, 1024]), (0.5, 1 / 12)),
+            ("uniform", lambda: P.uniform([1024, 1024], min=-2.0, max=2.0),
+             (0.0, 16 / 12)),
+            ("randint", lambda: P.randint(0, 10, [1024, 1024]),
+             (4.5, 99 / 12))):
+        P.seed(7)
+        d1 = fn()
+        P.seed(7)
+        d2 = fn()
+        f = d1.double()
+        n = f.numel()
+        mean, var = float(f.mean()), float(f.var())
+        draws[name] = {"repeatable": bool(torch.equal(d1, d2)),
+                       "on_cuda": d1.device.type == "cuda",
+                       "dtype": str(d1.dtype).replace("torch.", ""),
+                       "mean": mean, "var": var, "law": list(law),
+                       # five standard errors of the mean and of the var
+                       "ok": abs(mean - law[0]) <= 5 * (law[1] / n) ** 0.5
+                       and abs(var - law[1]) <= 5 * law[1] * (2 / n) ** 0.5}
+    # FLAGS_use_pallas_kernels at GPT-3 1.3B's attention shape
+    g = torch.Generator(device="cuda")
+    g.manual_seed(33)
+    bf = torch.bfloat16
+    q, k, v = (torch.randn(4, 2048, 16, 128, generator=g, device="cuda").to(
+        bf) for _ in range(3))
+    q4, k4, v4 = (torch.randn(4, 2048, 32, 64, generator=g,
+                              device="cuda").to(bf) for _ in range(3))
+    cu = torch.tensor([0, 1536, 4096, 6656, 8192], dtype=torch.int32,
+                      device="cuda")
+    routes = {}
+    outs = {}
+    for on in (1, 0):
+        flags.set_flags({"use_pallas_kernels": on})
+        zero_counts(hfa, hfp)
+        tfa.flash_attention.dense_routes = 0
+        tfa.flash_attn_unpadded.dense_routes = 0
+        PF.scaled_dot_product_attention.dense_routes = 0
+        outs[on] = {
+            "flash_attention": tfa.flash_attention(q, k, v, causal=True),
+            "scaled_dot_product_attention":
+                PF.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
+            "flash_attn_unpadded": tfa.flash_attn_unpadded(
+                q.reshape(-1, 16, 128), k.reshape(-1, 16, 128),
+                v.reshape(-1, 16, 128), cu, cu, 2560, 2560, causal=True)}
+        torch.cuda.synchronize()
+        counts = k4_counts(hfa, hfp)
+        routes[on] = {
+            "k1_launches": counts["flash_fwd_tc"],
+            "k4_launches": sum(counts[n] for n in K4_KERNELS),
+            "attention_launches": sum(counts.values()),
+            "dense_routes": {
+                "flash_attention": tfa.flash_attention.dense_routes,
+                "scaled_dot_product_attention":
+                    PF.scaled_dot_product_attention.dense_routes,
+                "flash_attn_unpadded": tfa.flash_attn_unpadded.dense_routes}}
+    flags.set_flags({"use_pallas_kernels": 1})
+    tol = 2 * REL16["bf16"]
+    agree = {}
+    for name in outs[1]:
+        ref = outs[1][name].float()
+        err = (outs[0][name].float() - ref).abs()
+        agree[name] = {"max_abs_err": float(err.max()),
+                       "ok": bool((err <= tol + tol * ref.abs()).all())}
+    del outs
+    row = {"phase": "surface", "calls": rows, "draws": draws,
+           "pylayer_analytic_err": gpu["pylayer_analytic_err"],
+           "no_grad_ok": gpu["no_grad_ok"] and cpu["no_grad_ok"],
+           "f32_values_vs_f64": f64_err,
+           "gpu_s": gpu_s, "cpu_s": cpu_s, "device": P.get_device(),
+           "use_pallas_kernels": {"on": routes[1], "off": routes[0],
+                                  "off_vs_on": agree, "tol": tol}}
+    emit(row)
+    bad = [r for r in rows if not r["ok"]]
+    check(not bad, f"surface: calls disagree with the CPU path: {bad}")
+    check(all(d["ok"] and d["repeatable"] and d["on_cuda"]
+              for d in draws.values()), f"surface: draws {draws}")
+    check(row["no_grad_ok"] and gpu["pylayer_analytic_err"] <= 1e-4,
+          f"surface: no_grad or PyLayer: {row}")
+    on, off = routes[1], routes[0]
+    check(on["k1_launches"] > 0 and on["k4_launches"] > 0 and
+          not any(on["dense_routes"].values()),
+          f"use_pallas_kernels on: {on}")
+    check(off["attention_launches"] == 0 and
+          all(n == 1 for n in off["dense_routes"].values()),
+          f"use_pallas_kernels off: {off}")
+    check(all(a["ok"] for a in agree.values()),
+          f"use_pallas_kernels off against on: {agree}")
+    return row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7524,6 +7994,12 @@ def main() -> int:
         torch, np, hc, hfa, hfp, peaks, resnet50, Momentum,
         make_sharded_train_step, profile=profile)
     torch.cuda.empty_cache()
+    # K5's tiles and K7's bands swept into a temporary autotune cache, every
+    # candidate held to the plain version, then ResNet-50 with and without
+    # the cache in turns
+    tuned = phase_tune_conv(torch, np, hc, flags, resnet50, Momentum,
+                            make_sharded_train_step)
+    torch.cuda.empty_cache()
     # ResNeXt-50 32x4d and Wide ResNet-50-2: the f32 gradients card
     # against CPU, then bench.py's config 2 setting for a few steps
     family = {}
@@ -7608,6 +8084,11 @@ def main() -> int:
     rk4_launches = phase_train_recompute_k4_bf16(
         torch, np, hfa, hfp, peaks, GPTForCausalLM, GPTConfig, amp, AdamW,
         make_sharded_train_step)
+
+    # a Paddle-style script through the port's root, then
+    # FLAGS_use_pallas_kernels on and off at GPT-3 1.3B's attention shape
+    phase_surface(torch, np, P, hfa, hfp, tfa, PF, flags)
+    torch.cuda.empty_cache()
 
     # `launches` is the count on each kernel's first main path: serving
     # for K1's bf16 tensor-core body (as the line has counted K1 from the
@@ -7800,6 +8281,17 @@ def main() -> int:
                 "max_abs_err": worst_wide[name],
                 "ms": {shape: row[name] for shape, row in
                        timing_wide.items() if name in row}}
+        if name in ("mm", "c3"):
+            # tune_conv: each candidate's time at its RESNET50_TOP3_SHAPES
+            # shape, the sweep's winner and the plan's own choice
+            kernels[-1]["tuned"] = [
+                {k_: r[k_] for k_ in ("key", "winner", "winner_ms", "plan",
+                                      "plan_ms")} |
+                {"candidates_ms": {str(c["choice"]): c["ms"]
+                                   for c in r["candidates"]}}
+                for r in tuned["shapes"]
+                if r["kernel"] == {"mm": "pallas_conv1x1",
+                                   "c3": "pallas_conv3x3"}[name]]
         if name == "flash_packed_bwd_dkv_direct_tc":
             # the CUDA-core body in bf16 on the same inputs, the parent's
             # route and now a yardstick

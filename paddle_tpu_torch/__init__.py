@@ -46,18 +46,33 @@ environment reading and coercion (``core.flags``), and the runtime
 telemetry (``observability``: metrics, spans, request and step timelines,
 the recompile sentinel, HBM watermarks, the flight recorder;
 ``profiler.monitor``; ``analysis.diagnostics``) wired through serving and
-training. Layers build on ``cuda:0`` unless given ``device="cpu"``, as
-the models do.
+training; the single-device surface a Paddle script calls first: the
+root's ``core``, device, flag and dtype names (every flag of the JAX
+package; ``use_pallas_kernels`` routes attention), ``tensor`` (302 names
+over torch tensors) and ``autograd`` (``grad``, ``no_grad``, ``PyLayer``,
+...), and ``ops._hopper.conv.tune_conv_shapes``, whose winners K5's and
+K7's plans read. Layers build on ``cuda:0`` unless given ``device="cpu"``
+(or ``set_device("cpu")``), as the models do.
 """
 
-from . import amp, io, metric, nn, optimizer, regularizer, vision  # noqa: F401
+from . import core  # noqa: F401
+from .core import (seed, set_device, get_device, device_count,  # noqa: F401
+                   get_flags, set_flags, is_compiled_with_tpu, synchronize,
+                   get_rng_state, set_rng_state)
 from .core.device import resolve_device  # noqa: F401
-from .core.random import seed  # noqa: F401
+from .core.dtype import (bool_, uint8, int8, int16, int32, int64,  # noqa: F401
+                         float16, bfloat16, float32, float64, complex64,
+                         complex128, get_default_dtype, set_default_dtype)
+from .tensor import *  # noqa: F401,F403
+from .tensor.logic import is_tensor  # noqa: F401
+
+from . import amp, autograd, io, metric, nn, optimizer, regularizer  # noqa: F401
+from . import vision  # noqa: F401
+from .autograd import (no_grad, grad, enable_grad,  # noqa: F401
+                       set_grad_enabled, is_grad_enabled)
 from .framework.io import load, save  # noqa: F401
 from .hapi.model import Model  # noqa: F401
 from .hapi.summary import summary  # noqa: F401
 from .nn.layer import ParamAttr  # noqa: F401
 
-__all__ = ["amp", "io", "metric", "nn", "optimizer", "regularizer",
-           "vision", "resolve_device", "seed", "save", "load", "Model",
-           "summary", "ParamAttr"]
+bool = bool_  # noqa: A001  (Paddle exports paddle.bool, as JAX's root does)

@@ -25,6 +25,7 @@ import torch.nn.functional as TF
 
 from ..core.random import next_key, torch_generator
 from ..ops._hopper.flash_attention import flash_attention_hopper
+from ..ops.flash_attention import use_kernels
 
 __all__ = ["adaptive_avg_pool2d", "avg_pool2d", "batch_norm", "conv2d",
            "cross_entropy", "dropout", "embedding", "layer_norm", "linear",
@@ -243,7 +244,8 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     take the shapes and the heads match, a key-only mask rides the kernel
     (a bool mask as segment ids, a float mask as an additive key bias) and
     ``segment_ids`` mean packed attention; a mask that varies per query,
-    or shapes the kernels do not take, go to the dense path (counted in
+    shapes the kernels do not take, or ``FLAGS_use_pallas_kernels`` off, go
+    to the dense path (counted in
     ``scaled_dot_product_attention.dense_routes``). A d=64 input thus
     reaches K4, and any other kernel input K1, each with the key mask or
     the segment ids in the kernel. ``dropout_p`` in training is attention-prob dropout: in the kernel on
@@ -253,7 +255,8 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     sk = key.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     dropout_p = dropout_p if training else 0.0
-    kernel_route = _kernel_shapes(query, key) and key.shape[2] == h
+    kernel_route = use_kernels() and _kernel_shapes(query, key) and \
+        key.shape[2] == h
     if segment_ids is not None:
         if attn_mask is not None:
             raise ValueError("segment_ids and attn_mask are exclusive")

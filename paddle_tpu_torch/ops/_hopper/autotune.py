@@ -64,8 +64,8 @@ class AutotuneCache:
         self._data: Dict[str, Any] = {}
         self._loaded = False
 
-    def _key(self, kernel: str, key) -> str:
-        return f"{kernel}|{chip_kind()}|{key}"
+    def _key(self, kernel: str, key, device: Optional[str] = None) -> str:
+        return f"{kernel}|{device or chip_kind()}|{key}"
 
     def load(self) -> None:
         if self._loaded:
@@ -89,18 +89,22 @@ class AutotuneCache:
         except OSError:
             pass  # the cache holds a choice; never fail the program
 
-    def get(self, kernel: str, key) -> Optional[Any]:
+    def get(self, kernel: str, key, device: Optional[str] = None
+            ) -> Optional[Any]:
+        """The config stored for ``kernel`` and ``key`` on ``device`` (the
+        device part of the key; default :func:`chip_kind`), or None."""
         if not _flags.flag("kernel_autotune"):
             return None
         self.load()
-        ent = self._data.get(self._key(kernel, key))
+        ent = self._data.get(self._key(kernel, key, device))
         if not ent or ent.get("schema") != CACHE_SCHEMA:
             return None
         return ent["config"]
 
-    def put(self, kernel: str, key, config, measured_ms: float) -> None:
+    def put(self, kernel: str, key, config, measured_ms: float,
+            device: Optional[str] = None) -> None:
         self.load()
-        self._data[self._key(kernel, key)] = {
+        self._data[self._key(kernel, key, device)] = {
             "config": config,
             "measured_ms": round(measured_ms, 4),
             "tuned_at": time.strftime("%Y-%m-%d %H:%M:%S"),
@@ -139,13 +143,16 @@ def _sync_result(r) -> None:
             stack.extend(reversed(x))
 
 
-def _measure(run: Callable[[], Any], warmup: int, iters: int) -> float:
+def _measure(run: Callable[[], Any], warmup: int, iters: int,
+             host: bool = False) -> float:
     """Mean milliseconds of one ``run()``: between CUDA events on the
-    card, on the host clock around synchronised calls on the CPU."""
+    card, on the host clock around synchronised calls on the CPU (or with
+    ``host``, for work that runs on the CPU of a machine with a card)."""
     for _ in range(max(warmup, 1)):
         r = run()
     _sync_result(r)
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
+    if not host and torch.cuda.is_available() and \
+            torch.cuda.is_initialized():
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -164,17 +171,19 @@ def _measure(run: Callable[[], Any], warmup: int, iters: int) -> float:
 def autotune(kernel: str, key, candidates: Sequence[Any],
              run_fn: Callable[[Any], Any], warmup: int = 1, iters: int = 3,
              measure: Optional[Callable[[Callable[[], Any]], float]] = None,
-             cache: Optional[AutotuneCache] = None):
+             cache: Optional[AutotuneCache] = None,
+             device: Optional[str] = None):
     """Sweep ``candidates`` on the device, persist and return the winner.
 
     ``run_fn(config)`` runs the kernel once under ``config``. A cached
-    entry short-circuits the sweep. A candidate whose plan refuses the
+    entry short-circuits the sweep. ``device`` is the device part of the
+    cache key (default :func:`chip_kind`). A candidate whose plan refuses the
     shape (``ValueError`` or ``NotImplementedError``) is skipped; any
     other error (a build, a launch, a device) propagates, so no kernel
     fault is hidden behind another configuration. If none runs,
     ``ValueError``."""
     c = cache or get_cache()
-    hit = c.get(kernel, key)
+    hit = c.get(kernel, key, device)
     if hit is not None:
         return hit
     meas = measure or (lambda run: _measure(run, warmup, iters))
@@ -188,5 +197,5 @@ def autotune(kernel: str, key, candidates: Sequence[Any],
             best_cfg, best_ms = cfg, ms
     if best_cfg is None:
         raise ValueError(f"autotune({kernel}): no candidate ran for {key}")
-    c.put(kernel, key, best_cfg, best_ms)
+    c.put(kernel, key, best_cfg, best_ms, device)
     return best_cfg

@@ -60,8 +60,20 @@ function.
 On a CUDA tensor each wrapper launches its kernel, or raises on anything it
 does not take; each launch adds one to the wrapper's ``launches``. On a CPU
 tensor the plain PyTorch versions (``*_reference``) run instead. Nothing
-falls back from one to the other. The autotune cache is ``autotune.py``;
-``tune_conv_shapes`` is not ported yet (ROADMAP Queue 1 item 6).
+falls back from one to the other.
+
+**Autotune.** :func:`tune_conv_shapes` sweeps K5's tiles
+(:func:`k5_candidates`) and K7's bands (:func:`c3_candidates`) at JAX's
+``RESNET50_TOP3_SHAPES`` and stores the winners in the autotune cache
+(``autotune.py``) under JAX's kernel names and keys (``pallas_conv1x1``,
+``pallas_conv3x3``; :func:`_mm_key`, :func:`_c3_key`). :func:`k5_plan` and
+:func:`c3_bands` read the cache before their cost models, and each launch
+hands them its conv's key, so the input gradients read the entries JAX's
+dgrads read. K6's and K8's plans (:func:`k6_plan`, :func:`wgrad_bands`)
+keep their cost models: JAX tunes no weight-gradient block of its own (its
+wgrads read the forward's entry, for a block the port's bodies do not
+have). A choice changes only the order in which the stats' per-tile
+partials are summed, never y's sum over K.
 """
 
 from __future__ import annotations
@@ -84,7 +96,8 @@ __all__ = ["conv2d", "conv2d_fwd", "conv2d_dgrad", "conv2d_wgrad",
            "c3_dgrad_phases", "c3_dgrad_phases_reference", "c3_bands",
            "C3Bands", "c3_item_box", "k7_smem_bytes", "mm_wgrad_tiles64",
            "k6_plan", "K6Plan", "k5_plan", "K5Plan", "k5_smem_bytes",
-           "mm_tiles64", "RESNET50_TOP3_SHAPES", "RESNET50_K5_SHAPES",
+           "mm_tiles64", "k5_candidates", "c3_candidates",
+           "tune_conv_shapes", "RESNET50_TOP3_SHAPES", "RESNET50_K5_SHAPES",
            "RESNET50_K6_SHAPES", "RESNET50_K7_SHAPES",
            "RESNET50_K8_SHAPES"]
 
@@ -179,6 +192,33 @@ _K5_STAGE = 32
 _K5_RINGS = (4, 3)
 _SM_SMEM = 233472
 _BLOCK_RESERVE = 1024
+# the autotune cache's kernel names (JAX's)
+_K5_TUNED = "pallas_conv1x1"
+_K7_TUNED = "pallas_conv3x3"
+
+
+def _dtype_name(dtype) -> str:
+    """numpy's name of a torch dtype (``"bfloat16"``), as JAX's keys
+    print ``jnp.dtype(dtype).name``."""
+    return str(dtype).replace("torch.", "")
+
+
+def _mm_key(m, cin, cout, dtype) -> str:
+    """The autotune key of a 1x1 conv (JAX's ``_mm_key``, ``:103``)."""
+    return f"m{m}_ci{cin}_co{cout}_{_dtype_name(dtype)}"
+
+
+def _c3_key(n, h, w, c, k, stride, dtype) -> str:
+    """The autotune key of a 3x3 conv (JAX's ``_c3_key``, ``:107``)."""
+    return f"n{n}_h{h}_w{w}_c{c}_k{k}_s{stride}_{_dtype_name(dtype)}"
+
+
+def _tuned(kernel: str, key: str) -> Optional[tuple]:
+    """The autotune cache's choice for ``(kernel, key)`` on this device, or
+    None (a malformed entry reads as None)."""
+    from .autotune import get_cache
+    hit = get_cache().get(kernel, key)
+    return tuple(hit) if isinstance(hit, (list, tuple)) else None
 
 
 def pallas_conv_enabled() -> bool:
@@ -622,14 +662,16 @@ def k7_smem_bytes(band_n: int, band_h: int, band_w: int, stride: int,
     return 2 * 2 * (9 * 32 * 72 + band_n * win * 40) + 2 * 4 * 64 * 4
 
 
-def c3_bands(n: int, hg: int, wg: int, stride: int,
-             phases: int = 1) -> C3Bands:
-    """K7's bands over an ``n x hg x wg`` grid of output pixels, a function
-    of the shape only: up to 64 columns and as many whole rows as keep a
-    band within 256 pixels (four rows at 56², nine at 28²), or as many
-    whole images (five 7² images), fewer where the block's shared memory
-    would pass the card's 227 KB (seven rows at stride 2 from 56², four 7²
-    images at stride 2 from 14²)."""
+def _c3_bands_of(n: int, hg: int, wg: int, band_n: int, band_h: int,
+                 band_w: int) -> C3Bands:
+    n_bn, n_bh, n_bw = -(-n // band_n), -(-hg // band_h), -(-wg // band_w)
+    return C3Bands(band_n, band_h, band_w, n_bn, n_bh, n_bw,
+                   n_bn * n_bh * n_bw)
+
+
+def _c3_model_bands(n: int, hg: int, wg: int, stride: int,
+                    phases: int) -> Tuple[int, int, int]:
+    """The cost model's ``(band_n, band_h, band_w)`` (:func:`c3_bands`)."""
     band_w = min(wg, _K7_MAX_BAND_W)
     band_h = max(1, min(hg, _K7_MAX_PIX // band_w))
 
@@ -645,9 +687,48 @@ def c3_bands(n: int, hg: int, wg: int, stride: int,
         band_n = max(1, min(n, _K7_MAX_PIX // (hg * wg)))
         while band_n > 1 and not fits(band_n, band_h, band_w):
             band_n -= 1
-    n_bn, n_bh, n_bw = -(-n // band_n), -(-hg // band_h), -(-wg // band_w)
-    return C3Bands(band_n, band_h, band_w, n_bn, n_bh, n_bw,
-                   n_bn * n_bh * n_bw)
+    return band_n, band_h, band_w
+
+
+def c3_candidates(n: int, hg: int, wg: int, stride: int,
+                  phases: int = 1) -> Tuple[Tuple[int, int, int], ...]:
+    """K7's band choices that ``tune_conv_shapes`` sweeps, as ``(band_n,
+    band_h, band_w)``: the cost model's own first, then its smaller
+    neighbours (one row fewer and half the rows; half the columns; for
+    bands of whole images, one image fewer and half the images), each
+    within the block's shared memory."""
+    bn, bh, bw = _c3_model_bands(n, hg, wg, stride, phases)
+    if bn > 1:
+        near = [(bn - 1, bh, bw), (-(-bn // 2), bh, bw)]
+    else:
+        near = [(1, bh - 1, bw), (1, -(-bh // 2), bw), (1, bh, -(-bw // 2))]
+    out = [(bn, bh, bw)]
+    for c in near:
+        if min(c) >= 1 and c not in out and \
+                k7_smem_bytes(*c, stride, phases) <= _BLOCK_SMEM:
+            out.append(c)
+    return tuple(out)
+
+
+def c3_bands(n: int, hg: int, wg: int, stride: int,
+             phases: int = 1, key: Optional[str] = None) -> C3Bands:
+    """K7's bands over an ``n x hg x wg`` grid of output pixels. With
+    ``key`` (:func:`_c3_key` of the conv, which the launch knows), a choice
+    the autotune cache holds under ``pallas_conv3x3`` comes first, as
+    JAX's ``_pick_block_h`` reads it first, if it is one of
+    :func:`c3_candidates` for this grid (and so fits shared memory); any
+    other entry is ignored. Otherwise the cost model, a function of the
+    shape only: up to 64 columns and as many whole rows as keep a band
+    within 256 pixels (four rows at 56², nine at 28²), or as many whole
+    images (five 7² images), fewer where the block's shared memory would
+    pass the card's 227 KB (seven rows at stride 2 from 56², four 7²
+    images at stride 2 from 14²)."""
+    if key is not None:
+        hit = _tuned(_K7_TUNED, key)
+        if hit in c3_candidates(n, hg, wg, stride, phases):
+            return _c3_bands_of(n, hg, wg, *hit)
+    return _c3_bands_of(n, hg, wg,
+                        *_c3_model_bands(n, hg, wg, stride, phases))
 
 
 def c3_item_box(bands: C3Bands, n: int, hy: int, wy: int, k: int,
@@ -676,10 +757,13 @@ def c3_item_box(bands: C3Bands, n: int, hy: int, wy: int, k: int,
 
 
 def _c3_tc_launch(lib, what, x, wt, scale, shift, act, stats, stride,
-                  out_hw, phases=1):
+                  out_hw, phases=1, choice=None):
     """K7's 16-bit body: the forward (``phases`` 1) or the stride-2 input
     gradient by phase (``phases`` 4, x = dy). Returns ``(y [N, Hy, Wy,
-    K]``, ``s``, ``ss``)."""
+    K]``, ``s``, ``ss``). The bands are :func:`c3_bands`' under JAX's key
+    of the conv (the stride-2 input gradient keys as JAX's dgrad does, by
+    dx's size at stride 1), or ``choice`` ``(band_n, band_h, band_w)``
+    where the sweep pins it."""
     _check(what, x, (("wt", wt),), scale, shift)
     n, h, w, c = x.shape
     k = wt.shape[2]
@@ -691,7 +775,12 @@ def _c3_tc_launch(lib, what, x, wt, scale, shift, act, stats, stride,
     if phases == 4 and (h, w) != (hg, wg):
         raise ValueError(f"{what}: dy {tuple(x.shape)} is not the stride-2 "
                          f"output of a {hy}x{wy} input")
-    bd = c3_bands(n, hg, wg, stride, phases)
+    if choice is not None:
+        bd = _c3_bands_of(n, hg, wg, *choice)
+    else:
+        key = _c3_key(n, hy, wy, c, k, 1, x.dtype) if phases == 4 else \
+            _c3_key(n, h, w, c, k, stride, x.dtype)
+        bd = c3_bands(n, hg, wg, stride, phases, key)
     y = torch.empty((n, hy, wy, k), dtype=x.dtype, device=x.device)
     partial, tmp, st = _stat_scratch(bd.bands, k, x.device) if stats \
         else (None, None, None)
@@ -808,17 +897,24 @@ def _k5_blocks_per_sm(warps_m: int, warps_n: int, smem: int) -> int:
                _SM_SMEM // (smem + _BLOCK_RESERVE))
 
 
+def _k5_plan_of(m: int, k: int, warps_m: int, warps_n: int,
+                stages: int) -> K5Plan:
+    return K5Plan(warps_m, warps_n, 64 * warps_m, -(-m // (64 * warps_m)),
+                  -(-k // (32 * warps_n)), stages)
+
+
 @functools.lru_cache(maxsize=None)
-def k5_plan(m: int, c: int, k: int) -> K5Plan:
-    """K5's tile for ``m`` rows of ``c`` -> ``k`` channels, a function of
-    the shape only: the 8-warp layout that reads x the fewest times (once
-    per column tile: ceil(K / 256) times at most), then computes the fewest
-    padded outputs, then reads wt the fewest times (once per row tile),
-    among those whose shared memory fits a block (with the prologue's
-    table, the larger). 256 x 64 where K = 64, 128 x 128 where K = 128, 64
-    x 256 where K >= 256. The ring has four stages, or three where that
-    lets one more block share an SM (``tools/k5_layouts.py`` times every
-    layout and ring)."""
+def k5_candidates(c: int) -> Tuple[Tuple[int, int, int], ...]:
+    """K5's choices that ``tune_conv_shapes`` sweeps, as ``(warps_m,
+    warps_n, stages)``: every layout of ``_K5_LAYOUTS`` with every ring
+    depth of ``_K5_RINGS`` whose shared memory (with the prologue's table,
+    the larger) fits a block at ``c`` input channels."""
+    return tuple((wm, wn, st) for wm, wn in _K5_LAYOUTS for st in _K5_RINGS
+                 if k5_smem_bytes(wm, wn, c, True, st) <= _BLOCK_SMEM)
+
+
+@functools.lru_cache(maxsize=None)
+def _k5_model_plan(m: int, c: int, k: int) -> K5Plan:
     def cost(lay):
         bm, bn = 64 * lay[0], 32 * lay[1]
         tm, tn = -(-m // bm), -(-k // bn)
@@ -835,12 +931,37 @@ def k5_plan(m: int, c: int, k: int) -> K5Plan:
                   if k5_smem_bytes(wm, wn, c, True, s) <= _BLOCK_SMEM),
                  key=lambda s: (_k5_blocks_per_sm(
                      wm, wn, k5_smem_bytes(wm, wn, c, True, s)), s))
-    return K5Plan(wm, wn, 64 * wm, -(-m // (64 * wm)), -(-k // (32 * wn)),
-                  stages)
+    return _k5_plan_of(m, k, wm, wn, stages)
 
 
-def _mm_tc_launch(lib, what, x, w2, scale, shift, act, stats, stride):
-    """K5's 16-bit body: ``(y [N, Ho, Wo, K]``, ``s``, ``ss``)."""
+def k5_plan(m: int, c: int, k: int, key: Optional[str] = None) -> K5Plan:
+    """K5's tile for ``m`` rows of ``c`` -> ``k`` channels. With ``key``
+    (:func:`_mm_key` of the conv, which the launch knows), a choice the
+    autotune cache holds under ``pallas_conv1x1`` comes first, as JAX's
+    ``_pick_block_m`` reads it first, if it is one of
+    :func:`k5_candidates` (and so fits shared memory); any other entry is
+    ignored. The cache is read at every call, outside the cost model's
+    memo, so a sweep's winner takes effect at once. Otherwise the cost
+    model, a function of the shape only: the 8-warp layout that reads x
+    the fewest times (once per column tile: ceil(K / 256) times at most),
+    then computes the fewest padded outputs, then reads wt the fewest
+    times (once per row tile), among those whose shared memory fits a
+    block (with the prologue's table, the larger). 256 x 64 where K = 64,
+    128 x 128 where K = 128, 64 x 256 where K >= 256. The ring has four
+    stages, or three where that lets one more block share an SM
+    (``tools/k5_layouts.py`` times every layout and ring)."""
+    if key is not None:
+        hit = _tuned(_K5_TUNED, key)
+        if hit in k5_candidates(c):
+            return _k5_plan_of(m, k, *hit)
+    return _k5_model_plan(m, c, k)
+
+
+def _mm_tc_launch(lib, what, x, w2, scale, shift, act, stats, stride,
+                  choice=None):
+    """K5's 16-bit body: ``(y [N, Ho, Wo, K]``, ``s``, ``ss``), on
+    :func:`k5_plan`'s tiles under JAX's key of the conv, or on ``choice``
+    ``(warps_m, warps_n, stages)`` where the sweep pins it."""
     _check(what, x, (("w2", w2),), scale, shift)
     n, h, w, c = x.shape
     if w2.dim() != 2 or w2.shape[0] != c:
@@ -848,7 +969,9 @@ def _mm_tc_launch(lib, what, x, w2, scale, shift, act, stats, stride):
                          f"input channels")
     k = w2.shape[1]
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
-    pl = k5_plan(n * ho * wo, c, k)
+    m = n * ho * wo
+    pl = _k5_plan_of(m, k, *choice) if choice is not None else \
+        k5_plan(m, c, k, _mm_key(m, c, k, x.dtype))
     y = torch.empty((n, ho, wo, k), dtype=x.dtype, device=x.device)
     partial, tmp, st = _stat_scratch(pl.tiles_m, k, x.device) if stats \
         else (None, None, None)
@@ -1173,3 +1296,91 @@ def conv2d(x, w, stride=(1, 1), padding=(0, 0)):
     ``:597-618``): its gradients are :func:`conv2d_dgrad` and
     :func:`conv2d_wgrad`."""
     return _Conv2d.apply(x, w, _pair(stride), _pair(padding))
+
+
+# ---------------------------------------------------------------------------
+# Autotune: sweep K5's tiles and K7's bands, persist the winners
+# ---------------------------------------------------------------------------
+
+def _refused_as_skip(launch, choice):
+    """``launch(choice)``, a refused launch raised as ``ValueError``: the
+    error :func:`~.autotune.autotune` takes as a candidate to drop. Only
+    the sweep calls this; on the main path a refused launch raises."""
+    try:
+        return launch(choice)
+    except KernelLaunchError as e:
+        raise ValueError(str(e)) from e
+
+
+def tune_conv_shapes(shapes=None, dtype=torch.bfloat16, warmup: int = 1,
+                     iters: int = 3, device=None):
+    """Sweep K5's tiles and K7's bands at ResNet's byte-dominant conv
+    shapes (``RESNET50_TOP3_SHAPES``: ``(kind, n, h, w, cin, cout,
+    stride)``) and persist the winners in the autotune cache, where
+    :func:`k5_plan` and :func:`c3_bands` read them (JAX's
+    ``tune_conv_shapes``, ``conv.py:698-736``). Each candidate runs the
+    forward with the ReLU prologue and the stats, as JAX's does, on random
+    inputs from a fixed seed. Returns ``{(kernel, key): choice}`` with
+    JAX's kernel names and keys; a choice is ``(warps_m, warps_n,
+    stages)`` for ``pallas_conv1x1`` and ``(band_n, band_h, band_w)`` for
+    ``pallas_conv3x3``.
+
+    On the card (``device`` None is ``cuda:0``) each candidate is timed
+    between CUDA events in 16 bits, the bodies that take a plan; one that
+    fails to launch is dropped, in the sweep only. ``device="cpu"`` times
+    the plain version per candidate, under the cache's device key
+    ``"cpu"``: the sweep, its keys and the cache can be tested without a
+    card, and no card entry is touched."""
+    from ...core.device import resolve_device
+    from . import autotune as at
+    dev = resolve_device(device)
+    if dtype not in (torch.bfloat16, torch.float16):
+        raise ValueError(f"tune_conv_shapes tunes the 16-bit bodies; got "
+                         f"{dtype}")
+    on_card = dev.type == "cuda"
+    kind = at.chip_kind() if on_card else "cpu"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out = {}
+    for conv, n, h, w, cin, cout, s_ in (shapes or RESNET50_TOP3_SHAPES):
+        k = 1 if conv == "conv1x1" else 3
+        x = torch.randn((n, h, w, cin), generator=gen, device=dev).to(dtype)
+        wt = (torch.randn((k * k, cin, cout), generator=gen, device=dev) *
+              0.05).to(dtype)
+        scale = torch.ones(cin, device=dev)
+        shift = torch.zeros(cin, device=dev)
+        # each sweep runs before the next shape's tensors are made
+        if k == 1:
+            m = n * ((h - 1) // s_ + 1) * ((w - 1) // s_ + 1)
+            kernel, key = _K5_TUNED, _mm_key(m, cin, cout, dtype)
+            cands = k5_candidates(cin)
+
+            def launch(cand):
+                return _mm_tc_launch(_library(), "tune_conv_shapes (K5)", x,
+                                     wt[0], scale, shift, "relu", True, s_,
+                                     cand)
+
+            def plain():
+                return mm_reference(x, wt[0], scale, shift, "relu", True, s_)
+        else:
+            hw = ((h + 2 - 3) // s_ + 1, (w + 2 - 3) // s_ + 1)
+            kernel, key = _K7_TUNED, _c3_key(n, h, w, cin, cout, s_, dtype)
+            cands = c3_candidates(n, *hw, s_)
+
+            def launch(cand):
+                return _c3_tc_launch(_library(), "tune_conv_shapes (K7)", x,
+                                     wt, scale, shift, "relu", True, s_, hw,
+                                     1, cand)
+
+            def plain():
+                return c3_reference(x, wt, scale, shift, "relu", True, s_, hw)
+
+        def run(cand):
+            return _refused_as_skip(launch, cand) if on_card else plain()
+
+        choice = at.autotune(
+            kernel, key, cands, run, device=kind,
+            measure=lambda r: at._measure(r, warmup, iters,
+                                          host=not on_card))
+        out[(kernel, key)] = tuple(choice)
+    return out

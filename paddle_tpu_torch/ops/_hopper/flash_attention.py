@@ -82,7 +82,8 @@ __all__ = ["flash_fwd", "flash_fwd_tc", "flash_fwd_reference", "flash_bwd",
            "AttnDropout", "keep_threshold", "keep_scale",
            "dropout_keep_dense", "Masks", "NO_MASKS", "TC_KEY_TILE",
            "TC_DTYPES",
-           "CUDA_CORE_KEY_TILE", "kernel_key_tile", "require_aligned_rows"]
+           "CUDA_CORE_KEY_TILE", "kernel_key_tile", "require_aligned_rows",
+           "tune_flash_blocks"]
 
 NEG_INF = -1e30  # the TPU kernel's masked score, kept for its lse convention
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
@@ -892,7 +893,10 @@ def flash_attention_hopper(query: torch.Tensor, key: torch.Tensor,
     attention within equal ids; ``key_bias`` ``[B, Sk]`` is added to every
     query's scores, as ``:955-975`` shapes them. ``dropout`` is
     attention-prob dropout in the kernel, seeded by ``dropout_seed`` (drawn
-    from the next key when None, as ``:969-973`` draws it)."""
+    from the next key when None, as ``:969-973`` draws it). On the K1
+    route the flags ``flash_block_q``/``flash_block_k`` are checked as
+    JAX checks them (:func:`_pick_blocks`); a valid value changes nothing
+    here."""
     from ...core import flags
     from .flash_attention_packed import flash_attention_packed, pack_group
     b, sq, h, d = query.shape
@@ -903,6 +907,7 @@ def flash_attention_hopper(query: torch.Tensor, key: torch.Tensor,
             query, key, value, causal=causal, scale=scale,
             segment_ids=segment_ids, segment_ids_k=segment_ids_k,
             dropout=dropout, dropout_seed=dropout_seed, key_bias=key_bias)
+    _pick_blocks(sq, sk, d)     # JAX's checks of the block flags
     masks = _masks(b, sq, sk, query.device, segment_ids, segment_ids_k,
                    key_bias)
     return flash_fwd(query, key, value, causal=causal, scale=scale,
@@ -911,13 +916,32 @@ def flash_attention_hopper(query: torch.Tensor, key: torch.Tensor,
 
 
 def _pick_blocks(sq: int, sk: int, d: int) -> Tuple[int, int]:
-    """The JAX kernel's default ``(block_q, block_k)`` from its static
-    table (``:85-121``; the TPU sweep's flag overrides and tuned cache have
-    no meaning for the port's kernels): the largest multiple of 128 up to
-    the table's target that divides the length, else 128, or the length
-    itself where it is shorter."""
-    tq, tk = (512, 1024) if d <= 64 else (1024, 1024) if d <= 128 else \
-        (128, 256)
+    """The JAX kernel's ``(block_q, block_k)`` (``:85-121``), by its rule:
+    the flags ``flash_block_q``/``flash_block_k`` when set (both or
+    neither, multiples of 128, else ``ValueError`` as in JAX), then the
+    autotune cache's ``flash_attention`` entry (:func:`tune_flash_blocks`),
+    then the static table; the largest multiple of 128 up to the target
+    that divides the length, else 128, or the length itself where it is
+    shorter. The port's bodies tile by their own stages whatever this
+    says: it decides only what :func:`flash_attention_with_lse` refuses."""
+    from ...core import flags
+    ov_q = int(flags.flag("flash_block_q"))
+    ov_k = int(flags.flag("flash_block_k"))
+    if ov_q or ov_k:
+        if not (ov_q and ov_k):
+            raise ValueError(
+                f"flash_block_q/flash_block_k must be set together "
+                f"(got q={ov_q}, k={ov_k}); set both or neither")
+        if ov_q % 128 or ov_k % 128:
+            raise ValueError(
+                f"flash block overrides must be multiples of 128; got "
+                f"q={ov_q}, k={ov_k}")
+        tq, tk = ov_q, ov_k
+    elif (tuned := _tuned_blocks(sq, sk, d)) is not None:
+        tq, tk = tuned
+    else:
+        tq, tk = (512, 1024) if d <= 64 else (1024, 1024) if d <= 128 \
+            else (128, 256)
 
     def fit(target, s):
         b = min(target, s)
@@ -926,6 +950,37 @@ def _pick_blocks(sq: int, sk: int, d: int) -> Tuple[int, int]:
         return b
 
     return fit(tq, sq), fit(tk, sk)
+
+
+def _tuned_blocks(sq: int, sk: int, d: int) -> Optional[Tuple[int, int]]:
+    from .autotune import get_cache
+    hit = get_cache().get("flash_attention", f"sq{sq}_sk{sk}_d{d}")
+    return tuple(hit) if isinstance(hit, (list, tuple)) else None
+
+
+def tune_flash_blocks(query, key, value, causal: bool = False,
+                      candidates=None, iters: int = 3):
+    """JAX's ``tune_flash_blocks`` (``:63-83``) over the one block choice
+    the port's K1 takes: 128/128, its 128-key stages, to which its rounding
+    claim is scoped (``flash_fwd_reference``). It times
+    :func:`flash_attention_hopper` on the inputs and stores the choice
+    under JAX's kernel name and key (``flash_attention``,
+    ``sq{Sq}_sk{Sk}_d{D}``), where :func:`_pick_blocks` reads it. Any other
+    candidate raises ``ValueError``: a block that moved where p is rounded
+    would be another function."""
+    from .autotune import autotune
+    cands = [tuple(c) for c in (candidates or [(128, 128)])]
+    if cands != [(128, 128)]:
+        raise ValueError(f"the port's flash kernels take blocks 128/128 "
+                         f"only; got {cands}")
+    b, sq, h, d = query.shape
+    sk = key.shape[1]
+
+    def run(cfg):
+        return flash_attention_hopper(query, key, value, causal=causal)
+
+    return tuple(autotune("flash_attention", f"sq{sq}_sk{sk}_d{d}", cands,
+                          run, iters=iters))
 
 
 def flash_attention_with_lse(query: torch.Tensor, key: torch.Tensor,

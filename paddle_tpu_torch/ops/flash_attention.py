@@ -2,8 +2,9 @@
 
 Port of ``paddle_tpu/ops/flash_attention.py``:
 
-- :func:`flash_attention` routes as the JAX function routes. A head dim
-  in ``SUPPORTED_HEAD_DIMS`` (:func:`attention_route`) goes the kernel path
+- :func:`flash_attention` routes as the JAX function routes. With
+  ``FLAGS_use_pallas_kernels`` on (its default), a head dim in
+  ``SUPPORTED_HEAD_DIMS`` (:func:`attention_route`) goes the kernel path
   (``flash_attention_pallas``): K4 for d=64 attention whose heads match and
   whose lengths are multiples of 128, K1 otherwise
   (``_hopper/flash_attention``), the CUDA kernels for CUDA tensors and
@@ -18,7 +19,7 @@ Port of ``paddle_tpu/ops/flash_attention.py``:
 - :func:`flash_attn_unpadded` is the varlen entry: packed ``[total, H, D]``
   tokens with ``cu_seqlens`` per side, on the kernel route as one
   ``[1, total, H, D]`` row with per-side segment ids, else JAX's padded
-  dense fallback;
+  dense fallback (counted in ``flash_attn_unpadded.dense_routes``);
 - :func:`reference_attention` and :func:`single_query_attention` are the
   plain tensor code of the reference (the serving decode step uses the
   second, as the JAX engine does).
@@ -41,7 +42,7 @@ from ._hopper.flash_attention import (SUPPORTED_HEAD_DIMS, as_dropout,
                                       flash_attention_hopper)
 
 __all__ = ["flash_attention", "flash_attn_unpadded", "reference_attention",
-           "single_query_attention", "attention_route"]
+           "single_query_attention", "attention_route", "use_kernels"]
 
 
 def _masked_softmax(scores: torch.Tensor) -> torch.Tensor:
@@ -114,17 +115,27 @@ def single_query_attention(q, k, v, lengths=None,
     return out.reshape(b, 1, h, d)
 
 
+def use_kernels() -> bool:
+    """``FLAGS_use_pallas_kernels`` (on by default): off, every attention
+    route of the port takes the dense path, as JAX's ``_use_pallas``
+    returns False (``ops/flash_attention.py:103-105``)."""
+    from ..core import flags
+    return bool(flags.flag("use_pallas_kernels"))
+
+
 def attention_route(query) -> str:
     """Where :func:`flash_attention` sends ``query``: ``"kernels"`` (K1-K4
     through ``flash_attention_hopper``) for a head dim in
-    ``SUPPORTED_HEAD_DIMS``, ``"dense"`` for any other. Decided by the head
-    dim alone, before any launch, the same on the CPU and on the card, as
-    JAX's ``supported_shapes`` decides by head dim (and, for its kernels,
-    by lengths that the port's kernels take ragged). JAX's kernels take
-    float16, so float16 goes the kernel route too: its plain version on the
-    CPU, and on the card the 16-bit bodies, which take float16 as they take
-    bf16."""
-    return "kernels" if query.shape[-1] in SUPPORTED_HEAD_DIMS else "dense"
+    ``SUPPORTED_HEAD_DIMS`` with ``FLAGS_use_pallas_kernels`` on,
+    ``"dense"`` otherwise. Decided by the flag and the head dim alone,
+    before any launch, the same on the CPU and on the card, as JAX's
+    ``_use_pallas`` and ``supported_shapes`` decide (by head dim and, for
+    its kernels, by lengths that the port's kernels take ragged). JAX's
+    kernels take float16, so float16 goes the kernel route too: its plain
+    version on the CPU, and on the card the 16-bit bodies, which take
+    float16 as they take bf16."""
+    return "kernels" if use_kernels() and \
+        query.shape[-1] in SUPPORTED_HEAD_DIMS else "dense"
 
 
 def flash_attention(query, key, value, dropout: float = 0.0,
@@ -231,6 +242,8 @@ def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
             segment_ids_k=token_segments(cu_k, key.shape[0], -2)[None])
         return out[0]
 
+    flash_attn_unpadded.dense_routes += 1
+
     def to_padded(x, cu, max_len):
         seg, pos, valid = _token_index(cu, x.shape[0])
         keep = valid & (pos < max_len)
@@ -251,3 +264,8 @@ def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
     rows = torch.nonzero(valid)[:, 0]
     packed = query.new_zeros(total_q, h, d)
     return packed.index_put((rows,), out[seg[rows], pos[rows]])
+
+
+#: calls that took the padded dense fallback since the count was last set
+#: to 0
+flash_attn_unpadded.dense_routes = 0

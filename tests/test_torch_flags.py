@@ -26,6 +26,11 @@ JAX_DEFINERS = ("paddle_tpu.ops._pallas.autotune",
                 "paddle_tpu.ops._pallas.flash_attention",
                 "paddle_tpu.ops._pallas.conv", "paddle_tpu.nn.fused_conv_bn")
 
+#: flags JAX defines at first use, not on import (``nn/functional.py:505``
+#: at the first layer_norm): in this process only if an earlier test ran
+#: one, never in the subprocess
+JAX_LAZY = ("closed_form_norm_grad",)
+
 DUMP = """
 import importlib, json, sys
 for m in sys.argv[2:]:
@@ -85,8 +90,13 @@ def specs():
 def test_env_values_match_jax(specs, case):
     """One subprocess per package under the same ``FLAGS_*`` environment
     (every common flag set, plus one that names no flag): equal values,
-    each not the default, and the same unknown names."""
-    env = {f"FLAGS_{n}": env_value(j, case) for n, (j, _) in specs.items()}
+    each not the default, and the same unknown names. The flags whose
+    behaviour the port has not reached (``later``) take only their
+    default, so they are left unset here (``test_torch_core_surface.py``
+    sets them), as are the flags JAX defines at first use."""
+    live = {n: js for n, (js, ts) in specs.items()
+            if ts.later is None and n not in JAX_LAZY}
+    env = {f"FLAGS_{n}": env_value(j, case) for n, j in live.items()}
     env["FLAGS_no_such_flag_for_tests"] = "1"
     jres = run_package("paddle_tpu.core.flags", env, JAX_DEFINERS)
     tres = run_package("paddle_tpu_torch.core.flags", env)
@@ -94,7 +104,7 @@ def test_env_values_match_jax(specs, case):
     assert tres.returncode == 0, tres.stderr[-2000:]
     jout = json.loads(jres.stdout.strip().splitlines()[-1])
     tout = json.loads(tres.stdout.strip().splitlines()[-1])
-    for name, (jspec, _) in specs.items():
+    for name, jspec in live.items():
         assert tout["values"][name] == jout["values"][name], name
         assert type(tout["values"][name]) is type(jout["values"][name])
         assert tout["values"][name] != jspec.default, name
