@@ -345,6 +345,7 @@ package is not beside it.
 
 from __future__ import annotations
 
+import copy
 import importlib.metadata
 import json
 import math
@@ -986,7 +987,7 @@ def phase_kernel_bwd(torch, hfa, peaks):
     return worst, timing
 
 
-# -- kernel_masked: K1-K3 with segment ids and the key bias -------------------
+# -- kernel_masked: K1-K3 with segment ids and the key bias ------------------
 
 def masked_sets(torch, np, b, s):
     """The three mask sets of the masked phase, at B x S: a key-padding
@@ -2367,7 +2368,7 @@ def dropout_stream(torch, np, hfa, hfp, timing):
     return {"cases": rows, "mask_probe": probe, "timing": timed}, worst
 
 
-# -- float16 through every kernel ---------------------------------------------
+# -- float16 through every kernel --------------------------------------------
 
 #: the cases each kernel family runs in float16 (its bf16 cases' masks,
 #: causal forms, rows with no key and dropout), by index into the bf16
@@ -2929,7 +2930,7 @@ def phase_serve_bf16(torch, np, hfa, model, Request, ServingEngine,
     return {"flash_fwd_tc": launches, **others}, num_blocks
 
 
-# -- serve_tiers --------------------------------------------------------------
+# -- serve_tiers -------------------------------------------------------------
 
 def path_counts(hfa, hfp, hc, fmb):
     """Every kernel's launch count: K1-K4's bodies, K5-K8, K9."""
@@ -4930,7 +4931,7 @@ def phase_train_ernie_bf16(torch, np, hfa, hfp, hc, peaks, ernie, AdamW,
     return launches_all
 
 
-# -- training at the published dropout ----------------------------------------
+# -- training at the published dropout ---------------------------------------
 
 def dropout_row(torch, phase, model, losses, times, rate0_p50, launches,
                 extra):
@@ -6005,7 +6006,7 @@ def phase_flash_varlen_lse(torch, np, hfa, hfp, tfa, peaks):
 
 
 
-# -- the Transformer (encoder-decoder) and K4 under recompute's policy ---------
+# -- the Transformer (encoder-decoder) and K4 under recompute's policy -------
 
 #: Transformer-base (Vaswani et al. 2017, Table 3 "base"): 6 + 6 layers,
 #: d_model 512, 8 heads of 64, FFN 2048, dropout 0.1, label smoothing 0.1,
@@ -6026,7 +6027,7 @@ def seq2seq(torch, P, device, seed, **over):
     cfg = {**T_BASE, **over}
     d = cfg["d_model"]
 
-    class Seq2Seq(torch.nn.Module):
+    class Seq2Seq(nn.Layer):
         def __init__(self):
             super().__init__()
             self.emb = nn.Embedding(
@@ -6202,7 +6203,7 @@ def phase_train_grad_f32_transformer(torch, np, P, hfa, hfp):
     zero_counts(hfa, hfp)
     losses = {}
     for name, model in (("gpu", gpu), ("cpu", cpu)):
-        dev = next(model.parameters()).device
+        dev = next(iter(model.parameters())).device
         t0 = time.perf_counter()
         loss = model(*(x.to(dev) for x in batch))
         loss.backward()
@@ -6497,7 +6498,7 @@ def phase_train_recompute_k4_bf16(torch, np, hfa, hfp, peaks,
     return launches_all
 
 
-# -- the ResNet family, sampling and resilience --------------------------------
+# -- the ResNet family, sampling and resilience ------------------------------
 
 #: Wide ResNet-50-2's convs that ResNet-50 does not run (B=256, 224² input,
 #: bf16, the prologue with ReLU and the stats on, as the training step runs
@@ -6893,7 +6894,7 @@ def phase_serve_resilience(torch, np, hfa, model, Request, ServingEngine,
     return {body: launches[body]}
 
 
-# -- telemetry ----------------------------------------------------------------
+# -- telemetry ---------------------------------------------------------------
 
 #: the CUDA kernels of K1-K3's tensor-core bodies, as a profiler names them
 TELEMETRY_KERNELS = {"flash_fwd_tc": "flash_fwd_tc_kernel",
@@ -7786,6 +7787,964 @@ def phase_surface(torch, np, P, hfa, hfp, tfa, PF, flags):
     return row
 
 
+# -- the Layer API, the rest of nn/ and the vision zoo (phases layer_api,
+# -- nn_surface, vision_zoo, train_mobilenet_v3_bf16) ------------------------
+
+def all_counts(hfa, hfp, hc, fmb):
+    """Every hand-written kernel's launch count."""
+    return {**k4_counts(hfa, hfp), **conv_counts(hc),
+            "fused_matmul_bn_fwd": fmb.fused_matmul_bn_fwd.launches}
+
+
+def zero_all(hfa, hfp, hc, fmb):
+    zero_counts(hfa, hfp)
+    zero_conv_counts(hc)
+    fmb.fused_matmul_bn_fwd.launches = 0
+
+
+def t_logits(torch, P, model, src, tgt, bias):
+    """The seq2seq model's logits in eval mode, no gradient."""
+    with torch.no_grad():
+        mask = P.nn.Transformer.generate_square_subsequent_mask(
+            tgt.shape[1], device=src.device)
+        out = model.transformer(model.embed(src), model.embed(tgt),
+                                src_mask=bias, tgt_mask=mask,
+                                memory_mask=bias)
+        return model.logits(out)
+
+
+def phase_layer_api(torch, np, P, hfa, hfp, hc, fmb, AdamW, dev="cuda",
+                    batch=64):
+    """Transformer-base at full width (``seq2seq``: d_model 512, 8 heads,
+    6 + 6 layers, dropout 0.1, vocab 37,000) through the ``Layer`` API:
+    ``sublayers()`` and ``full_name()``; a forward pre-hook halving the
+    encoder's input and a post-hook recording layer 0's output, each
+    removed by its helper (the logits bit-equal to the hookless ones
+    after); ``state_dict`` -> ``set_state_dict`` into a model drawn from
+    another seed (bit-equal logits); ``astype("bfloat16")``; then two
+    training steps at B = 64 x 256 a side under AdamW with float32
+    masters (``multi_precision``), ``clear_gradients()`` after each. The
+    counts are set to 0 before the two steps and read after: K4a-direct
+    and K4b-fused 12 + 12 a step, as ``train_transformer_bf16`` launches
+    them, the decoder's causal self-attention 6 dense routes a step."""
+    sdpa = P.nn.functional.scaled_dot_product_attention
+    s = T_LEN
+    model = seq2seq(torch, P, dev, 0)
+    t = model.transformer
+    names = [n for n, _ in t.named_sublayers()]
+    # 6 encoder layers of 13 sublayers (self_attn, its 4 projections,
+    # linear1/2, norm1/2, dropout1/2/_act, itself), 6 decoder layers of
+    # 20, the two stacks, their LayerLists and final norms
+    check(len(names) == len(t.encoder.layers) * 13 +
+          len(t.decoder.layers) * 20 + 6 and
+          len(t.sublayers()) == len(names) and
+          all(isinstance(m, P.nn.Layer) for m in t.sublayers()),
+          f"Transformer sublayers: {len(names)}")
+    check(names[:3] == ["encoder", "encoder.layers", "encoder.layers.0"],
+          f"sublayer order {names[:3]}")
+    check(t.full_name() == "transformer" and
+          t.encoder.layers[0].full_name() == "transformerencoderlayer",
+          f"full_name {t.full_name()}")
+    model.eval()
+    src, tgt, _, bias = t_batch(torch, np, np.random.default_rng(3), 8, s, s,
+                                dev)
+    base = t_logits(torch, P, model, src, tgt, bias)
+    seen = {}
+    pre = t.encoder.register_forward_pre_hook(lambda m, a: (a[0] * 0.5,))
+    post = t.encoder.layers[0].register_forward_post_hook(
+        lambda m, a, out: seen.update(out=out, inp=a[0]))
+    hooked = t_logits(torch, P, model, src, tgt, bias)
+    pre.remove()
+    post.remove()
+    with torch.no_grad():
+        half = model.embed(src) * 0.5
+        layer0 = t.encoder.layers[0](half, src_mask=bias)
+    after = t_logits(torch, P, model, src, tgt, bias)
+    hooks = {"pre_scaled_input": bool(torch.equal(seen["inp"], half)),
+             "post_recorded_layer0": bool(torch.equal(seen["out"], layer0)),
+             "hooked_logits_differ": not bool(torch.equal(hooked, base)),
+             "removed_bit_equal": bool(torch.equal(after, base))}
+    check(all(hooks.values()), f"layer_api hooks: {hooks}")
+    fresh = seq2seq(torch, P, dev, 1)
+    fresh.eval()
+    differ = not bool(torch.equal(t_logits(torch, P, fresh, src, tgt, bias),
+                                  base))
+    loaded = fresh.set_state_dict(model.state_dict())
+    copied = bool(torch.equal(t_logits(torch, P, fresh, src, tgt, bias),
+                              base))
+    check(differ and loaded == ([], []) and copied,
+          f"set_state_dict: differ before {differ}, (missing, unexpected) "
+          f"{loaded}, bit-equal after {copied}")
+    del fresh, base, hooked, after
+    model.astype("bfloat16")
+    dtypes = sorted({str(p.dtype) for p in model.parameters()})
+    check(dtypes == ["torch.bfloat16"], f"astype: parameters {dtypes}")
+    model.train()
+    opt = AdamW(learning_rate=1e-4, beta2=0.98, epsilon=1e-9,
+                parameters=model.parameters(), multi_precision=True)
+    rng = np.random.default_rng(0)
+    batches = [t_batch(torch, np, rng, batch, s, s, dev) for _ in range(2)]
+    torch.cuda.synchronize()
+    # the main path: the counts are set to 0 just before it
+    zero_all(hfa, hfp, hc, fmb)
+    sdpa.dense_routes = 0
+    losses, times, cleared = [], [], []
+    for bt in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = model(*bt)
+        loss.backward()
+        opt.step()
+        end.record()
+        end.synchronize()
+        had = all(p.grad is not None for p in model.parameters()
+                  if p.requires_grad)
+        model.clear_gradients()
+        cleared.append(had and all(p.grad is None
+                                   for p in model.parameters()))
+        losses.append(float(loss.detach()))
+        times.append(start.elapsed_time(end))
+    launches, dense = all_counts(hfa, hfp, hc, fmb), sdpa.dense_routes
+    row = {"phase": "layer_api", "model": "transformer_base",
+           "sublayers": len(names), "hooks": hooks,
+           "set_state_dict": list(map(list, loaded)),
+           "param_dtypes": dtypes, "batch": [batch, s, s],
+           "optimizer": "AdamW(1e-4, beta2=0.98, epsilon=1e-9, "
+                        "multi_precision=True), imperative",
+           "losses": losses, "step_ms": times, "grads_cleared": cleared,
+           "launches": {k: v for k, v in launches.items() if v},
+           "dense_routes": dense}
+    emit(row)
+    check(all(cleared), f"clear_gradients left gradients: {row}")
+    check(all(math.isfinite(x) for x in losses), f"layer_api loss: {row}")
+    check(abs(losses[0] - math.log(T_VOCAB)) < 1.0,
+          f"layer_api step-0 loss {losses[0]}")
+    check_launches(launches, {"flash_packed_fwd_tc": 24,
+                              "flash_packed_bwd_tc": 24}, "layer_api")
+    check(dense == 12, f"layer_api dense routes {dense}; expected 6 a step")
+    del model, opt, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+# -- nn_surface: every new name of nn/ on the card against the CPU ---------
+
+def rs(np, shape, seed, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape) *
+            scale).astype(np.float32)
+
+
+def surface_functional(np):
+    """``(name, fn(F, *tensors), arrays, tol)``: every new name of
+    ``nn.functional`` and ``nn.functional_wave4`` at the widths of the
+    models that use it (activations on MobileNetV3-Large's 672 x 14²
+    maps, losses over 1000 classes, ...)."""
+    act = rs(np, (32, 672, 14, 14), 1, 3.0)
+    logits = rs(np, (256, 1000), 2, 2.0)
+    probs = 1 / (1 + np.exp(-rs(np, (256, 1000), 3)))
+    lab = np.random.default_rng(4).integers(0, 1000, 256).astype(np.int64)
+    sgn = np.where(rs(np, (256, 1000), 5) > 0, 1.0, -1.0).astype(np.float32)
+    emb = rs(np, (256, 512), 6)
+    img = rs(np, (8, 256, 28, 28), 7, 2.0)
+    vol = rs(np, (4, 64, 16, 28, 28), 8)
+    seq = rs(np, (16, 256, 1024), 9)
+    cases = []
+    for name in ("relu6", "gelu", "silu", "swish", "sigmoid", "tanh",
+                 "softmax", "log_softmax", "leaky_relu", "elu", "selu",
+                 "hardswish", "hardsigmoid", "mish", "softplus", "glu",
+                 "celu", "hardshrink", "hardtanh", "softshrink", "softsign",
+                 "tanhshrink", "thresholded_relu", "log_sigmoid", "elu_",
+                 "hardtanh_", "leaky_relu_", "relu_", "softmax_", "tanh_",
+                 "thresholded_relu_"):
+        cases.append((name, lambda F, x, n=name: getattr(F, n)(x), [act],
+                      1e-4))
+    cases += [
+        ("gelu_tanh", lambda F, x: F.gelu(x, approximate=True), [act], 1e-5),
+        ("maxout", lambda F, x: F.maxout(x, 4), [act], 0),
+        ("prelu", lambda F, x, w: F.prelu(x, w),
+         [act, rs(np, (672,), 10)], 1e-6),
+        ("rrelu_eval", lambda F, x: F.rrelu(x, training=False), [act], 1e-6),
+        ("one_hot", lambda F, y: F.one_hot(y, 1000), [lab], 0),
+        ("label_smooth", lambda F, p: F.label_smooth(p), [probs], 1e-6),
+        ("softmax_with_cross_entropy",
+         lambda F, x, y: F.softmax_with_cross_entropy(x, y[:, None],
+                                                      return_softmax=True),
+         [logits, lab], 1e-5),
+        ("nll_loss", lambda F, x, y: F.nll_loss(F.log_softmax(x), y),
+         [logits, lab], 1e-5),
+        ("binary_cross_entropy_with_logits",
+         lambda F, x, p: F.binary_cross_entropy_with_logits(x, p),
+         [logits, probs], 1e-5),
+        ("binary_cross_entropy", F_pair("binary_cross_entropy"),
+         [probs, probs[::-1].copy()], 1e-5),
+        ("mse_loss", F_pair("mse_loss"), [logits, probs], 1e-5),
+        ("l1_loss", F_pair("l1_loss"), [logits, probs], 1e-5),
+        ("smooth_l1_loss", lambda F, a, b: F.smooth_l1_loss(a, b, delta=0.5),
+         [logits, probs], 1e-5),
+        ("kl_div", lambda F, a, b: F.kl_div(F.log_softmax(a), b,
+                                            "batchmean"),
+         [logits, probs], 1e-5),
+        ("log_loss", F_pair("log_loss"), [probs, probs[::-1].copy()], 1e-5),
+        ("margin_ranking_loss",
+         lambda F, a, b, y: F.margin_ranking_loss(a, b, y, 0.1),
+         [logits, probs, sgn], 1e-5),
+        ("soft_margin_loss", F_pair("soft_margin_loss"), [logits, sgn],
+         1e-5),
+        ("triplet_margin_loss", lambda F, a, b, c: F.triplet_margin_loss(
+            a, b, c, swap=True), [emb, emb[::-1].copy(), emb * 0.5], 1e-5),
+        ("cosine_embedding_loss", lambda F, a, b, y: F.cosine_embedding_loss(
+            a, b, y[:, 0]), [emb, emb[::-1].copy(), sgn], 1e-5),
+        ("hinge_embedding_loss", F_pair("hinge_embedding_loss"),
+         [logits, sgn], 1e-5),
+        ("poisson_nll_loss", lambda F, a, b: F.poisson_nll_loss(
+            a * 0.1, b, full=True), [logits, probs * 4], 1e-5),
+        ("multi_label_soft_margin_loss", lambda F, a, b:
+         F.multi_label_soft_margin_loss(a, (b > 0.5).float()),
+         [logits, probs], 1e-5),
+        ("square_error_cost", F_pair("square_error_cost"), [logits, probs],
+         1e-5),
+        ("dice_loss", lambda F, p, y: F.dice_loss(F.softmax(p), y[:, None]),
+         [logits, lab], 1e-5),
+        ("npair_loss", lambda F, a, b, y: F.npair_loss(a, b, y % 64),
+         [emb, emb[::-1].copy(), lab], 1e-5),
+        ("margin_cross_entropy", lambda F, x, y: F.margin_cross_entropy(
+            F.tanh(x), y, return_softmax=True), [logits, lab], 1e-4),
+        ("class_center_sample", lambda F, y: F.class_center_sample(
+            y, 1000, 400, seed=5), [lab], 0),
+        ("rms_norm", lambda F, x, w: F.rms_norm(x, w), [emb, emb[0]], 1e-5),
+        ("group_norm", lambda F, x, w, b: F.group_norm(x, 32, w, b),
+         [img, rs(np, (256,), 11), rs(np, (256,), 12)], 1e-4),
+        ("instance_norm", lambda F, x: F.instance_norm(x), [img], 1e-4),
+        ("local_response_norm", lambda F, x: F.local_response_norm(x, 5),
+         [img], 1e-5),
+        ("normalize", lambda F, x: F.normalize(x, axis=1), [img], 1e-5),
+        ("cosine_similarity", lambda F, a, b: F.cosine_similarity(a, b),
+         [img, img[::-1].copy()], 1e-5),
+        ("conv1d", lambda F, x, w, b: F.conv1d(x, w, b, stride=2,
+                                               padding=1),
+         [seq, rs(np, (256, 256, 3), 13, 0.05), rs(np, (256,), 14)], 1e-4),
+        ("conv1d_transpose", lambda F, x, w: F.conv1d_transpose(
+            x, w, stride=2, padding=1), [seq, rs(np, (256, 128, 4), 15,
+                                                 0.05)], 1e-4),
+        ("conv3d", lambda F, x, w: F.conv3d(x, w, padding=1),
+         [vol, rs(np, (64, 64, 3, 3, 3), 16, 0.05)], 1e-4),
+        ("conv3d_transpose", lambda F, x, w: F.conv3d_transpose(
+            x, w, stride=2, padding=1, output_padding=1),
+         [vol[:1], rs(np, (64, 32, 3, 3, 3), 17, 0.05)], 1e-4),
+        ("conv2d_transpose", lambda F, x, w: F.conv2d_transpose(
+            x, w, stride=2, padding=1, output_padding=1, groups=4),
+         [img, rs(np, (256, 32, 3, 3), 18, 0.05)], 1e-4),
+        ("max_pool1d", lambda F, x: F.max_pool1d(x, 3, 2, 1), [seq], 0),
+        ("avg_pool1d", lambda F, x: F.avg_pool1d(x, 3, 2, 1), [seq], 1e-5),
+        ("adaptive_avg_pool1d", lambda F, x: F.adaptive_avg_pool1d(x, 100),
+         [seq], 1e-5),
+        ("max_pool3d", lambda F, x: F.max_pool3d(x, 3, 2, 1), [vol], 0),
+        ("avg_pool3d", lambda F, x: F.avg_pool3d(x, 3, 2, 1), [vol], 1e-5),
+        ("max_unpool2d", lambda F, x: F.max_unpool2d(
+            *F.max_pool2d(x, 2, 2, return_mask=True), 2, 2), [img], 0),
+        ("grid_sample", lambda F, x, g: F.grid_sample(x, F.tanh(g)),
+         [img, rs(np, (8, 28, 28, 2), 19)], 1e-4),
+        ("grid_sample_nearest_reflect", lambda F, x, g: F.grid_sample(
+            x, g, mode="nearest", padding_mode="reflection",
+            align_corners=False), [img, rs(np, (8, 28, 28, 2), 20) * 0.9],
+         1e-5),
+        ("affine_grid", lambda F, t: F.affine_grid(t, [8, 3, 224, 224]),
+         [rs(np, (8, 2, 3), 21)], 1e-5),
+        ("pixel_shuffle", lambda F, x: F.pixel_shuffle(x, 2), [img], 0),
+        ("pixel_unshuffle", lambda F, x: F.pixel_unshuffle(x, 2), [img], 0),
+        ("channel_shuffle", lambda F, x: F.channel_shuffle(x, 4), [img], 0),
+        ("unfold", lambda F, x: F.unfold(x[:, :16], 3, 1, 1), [img], 0),
+        ("fold", lambda F, x: F.fold(F.unfold(x[:, :16], 3, 1, 1), 28, 3,
+                                     1, 1), [img], 1e-5),
+        ("sequence_mask", lambda F, y: F.sequence_mask(y % 97, 100), [lab],
+         0),
+        ("temporal_shift", lambda F, x: F.temporal_shift(x, 4), [img], 0),
+        ("pairwise_distance", lambda F, a, b: F.pairwise_distance(a, b),
+         [emb, emb[::-1].copy()], 1e-5),
+        ("diag_embed", lambda F, x: F.diag_embed(x[:, :64], 1), [emb], 0),
+        ("zeropad2d", lambda F, x: F.zeropad2d(x, [1, 2, 3, 4]), [img], 0),
+        ("bilinear", lambda F, a, b, w: F.bilinear(a, b, w),
+         [emb, emb[::-1].copy(), rs(np, (16, 512, 512), 22, 0.05)], 1e-4),
+        ("max_unpool1d", lambda F, x: F.max_unpool1d(*(
+            t[:, :, 0] for t in F.max_pool2d(x[:, :, None], (1, 2), (1, 2),
+                                             return_mask=True)), 2),
+         [seq], 0),
+        ("max_unpool3d", lambda F, x: F.max_unpool3d(
+            x, (x.flatten(2).argsort(-1)[..., :x[0, 0].numel()]
+                .reshape(x.shape)), 2), [vol[:, :, :4, :4, :4]], 0),
+        ("adaptive_avg_pool3d", lambda F, x: F.adaptive_avg_pool3d(
+            x, (4, 7, 7)), [vol], 1e-5),
+        ("adaptive_max_pool1d", lambda F, x: F.adaptive_max_pool1d(
+            x, 100, return_mask=True), [seq[:2]], 0),
+        ("adaptive_max_pool2d", lambda F, x: F.adaptive_max_pool2d(
+            x, 7, return_mask=True), [img], 0),
+        ("adaptive_max_pool3d", lambda F, x: F.adaptive_max_pool3d(
+            x, 2, return_mask=True), [vol], 0),
+        ("hsigmoid_loss", lambda F, x, y, w: F.hsigmoid_loss(x, y, 1000, w),
+         [emb, lab, rs(np, (999, 512), 23, 0.05)], 1e-5),
+        ("sigmoid_focal_loss", F_pair("sigmoid_focal_loss"),
+         [logits, (probs > 0.5).astype(np.float32)], 1e-5),
+        ("rnnt_loss", lambda F, a, y: F.rnnt_loss(
+            a, y % 28 + 1, torch_int([16, 14]), torch_int([8, 6])),
+         [rs(np, (2, 16, 9, 29), 24), lab[:16].reshape(2, 8)], 1e-4),
+        ("gather_tree", lambda F, i, p: F.gather_tree(i, p % 4),
+         [lab[:240].reshape(20, 3, 4), lab[16:256].reshape(20, 3, 4)], 0),
+        ("sparse_attention", sparse_case,
+         [rs(np, (2, 8, 256, 64), 25) for _ in range(3)], 1e-5),
+        ("triplet_margin_with_distance_loss", lambda F, a, b, c:
+         F.triplet_margin_with_distance_loss(a, b, c),
+         [emb, emb[::-1].copy(), emb * 0.5], 1e-5),
+        ("multi_margin_loss", lambda F, x, y: F.multi_margin_loss(x, y),
+         [logits, lab], 1e-5),
+        ("gaussian_nll_loss", lambda F, a, b, v: F.gaussian_nll_loss(
+            a, b, v.abs(), full=True), [logits, probs, probs], 1e-5),
+    ]
+    return cases
+
+
+def F_pair(name):
+    return lambda F, a, b: getattr(F, name)(a, b)
+
+
+def torch_int(values):
+    import torch
+    return torch.tensor(values)
+
+
+def sparse_case(F, q, k, v):
+    """``sparse_attention`` over a banded pattern of 32 keys a row."""
+    import torch
+    b, h, s, _ = q.shape
+    cols = (torch.arange(s)[:, None] + torch.arange(-16, 16)) % s
+    off = torch.arange(0, s * 32 + 1, 32)
+    return F.sparse_attention(
+        q, k, v, off.expand(b, h, s + 1).to(q.device),
+        cols.reshape(-1).expand(b, h, s * 32).to(q.device))
+
+
+def surface_outputs(out):
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in surface_outputs(o)]
+    return [out]
+
+
+def surface_compare(torch, name, fn, arrays, tol, dev, worst):
+    """``fn`` on the card and on the CPU from the same arrays; each output's
+    largest difference over ``1 + max|cpu|`` held to ``tol``."""
+    def run(d):
+        ts = [torch.as_tensor(a, device=d) for a in arrays]
+        return surface_outputs(fn(ts))
+    got, ref = run(dev), run("cpu")
+    check(len(got) == len(ref), f"nn_surface {name}: outputs differ")
+    err = 0.0
+    for g, r in zip(got, ref):
+        check(g.device.type == torch.device(dev).type,
+              f"nn_surface {name}: output on {g.device}")
+        check(g.shape == r.shape and g.dtype == r.dtype,
+              f"nn_surface {name}: {g.shape}/{g.dtype} vs {r.shape}/"
+              f"{r.dtype}")
+        g, r = g.detach().cpu().double(), r.detach().double()
+        scale = 1.0 + float(r.abs().max()) if r.numel() else 1.0
+        err = max(err, float((g - r).abs().max()) / scale
+                  if r.numel() else 0.0)
+    worst[name] = err
+    check(err <= tol, f"nn_surface {name}: error {err} > {tol}")
+
+
+def surface_layers(np):
+    """``(class, args, kwargs, input arrays, tol)`` for every new layer
+    class of ``nn/layers.py``."""
+    img = rs(np, (8, 64, 28, 28), 30, 2.0)
+    vec = rs(np, (256, 512), 31)
+    lab = np.random.default_rng(32).integers(0, 1000, 256).astype(np.int64)
+    seq = rs(np, (16, 64, 256), 33)
+    vol = rs(np, (2, 64, 8, 14, 14), 34)
+    acts = [("ReLU6", ()), ("GELU", ()), ("Silu", ()), ("Sigmoid", ()),
+            ("Tanh", ()), ("Softmax", ()), ("LeakyReLU", (0.2,)),
+            ("Hardswish", ()), ("Hardsigmoid", ()), ("ELU", ()),
+            ("SELU", ()), ("CELU", ()), ("Hardshrink", ()),
+            ("Hardtanh", ()), ("Softshrink", ()), ("Softsign", ()),
+            ("Tanhshrink", ()), ("ThresholdedReLU", ()), ("LogSigmoid", ()),
+            ("Maxout", (2,)), ("Mish", ()), ("Softplus", ()), ("GLU", ()),
+            ("LogSoftmax", ()), ("Swish", ()), ("Softmax2D", ()),
+            ("PReLU", (64,)), ("RReLU", ())]
+    cases = [(n, a, {}, [img], 1e-5) for n, a in acts]
+    cases += [
+        ("RMSNorm", (28,), {}, [img], 1e-5),
+        ("GroupNorm", (8, 64), {}, [img], 1e-4),
+        ("InstanceNorm1D", (64,), {}, [seq], 1e-4),
+        ("InstanceNorm2D", (64,), {}, [img], 1e-4),
+        ("InstanceNorm3D", (64,), {}, [vol], 1e-4),
+        ("LocalResponseNorm", (5,), {}, [img], 1e-5),
+        ("SyncBatchNorm", (64,), {}, [img], 1e-4),
+        ("SpectralNorm", ((64, 64, 3, 3),), {}, [rs(np, (64, 64, 3, 3), 35)],
+         1e-4),
+        ("Conv1D", (64, 128, 3), {"padding": 1}, [seq], 1e-4),
+        ("Conv3D", (64, 32, 3), {"padding": 1}, [vol], 1e-4),
+        ("Conv1DTranspose", (64, 32, 4), {"stride": 2}, [seq], 1e-4),
+        ("Conv2DTranspose", (64, 32, 4), {"stride": 2, "padding": 1},
+         [img], 1e-4),
+        ("Conv3DTranspose", (64, 16, 2), {"stride": 2}, [vol], 1e-4),
+        ("MaxPool1D", (3, 2, 1), {}, [seq], 0),
+        ("AvgPool1D", (3, 2, 1), {}, [seq], 1e-5),
+        ("MaxPool3D", (2,), {}, [vol], 0),
+        ("AvgPool3D", (3, 2, 1), {}, [vol], 1e-5),
+        ("AdaptiveAvgPool1D", (10,), {}, [seq], 1e-5),
+        ("AdaptiveAvgPool3D", ((2, 7, 7),), {}, [vol], 1e-5),
+        ("AdaptiveMaxPool1D", (10,), {}, [seq], 0),
+        ("AdaptiveMaxPool2D", (7,), {}, [img], 0),
+        ("AdaptiveMaxPool3D", (2,), {}, [vol], 0),
+        ("Upsample", (), {"scale_factor": 2, "mode": "bilinear"}, [img],
+         1e-5),
+        ("UpsamplingNearest2D", (), {"size": (56, 56)}, [img], 0),
+        ("UpsamplingBilinear2D", (), {"size": (14, 14)}, [img], 1e-5),
+        ("Pad1D", ([2, 1],), {"mode": "reflect"}, [seq], 0),
+        ("Pad3D", (1,), {"mode": "replicate"}, [vol], 0),
+        ("ZeroPad2D", ([1, 0, 2, 1],), {}, [img], 0),
+        ("Unfold", (3,), {"paddings": 1}, [img[:, :8]], 0),
+        ("Fold", ((28, 28), 2, 2), {}, [rs(np, (8, 256, 196), 36)], 0),
+        ("PixelShuffle", (2,), {}, [img], 0),
+        ("PixelUnshuffle", (2,), {}, [img], 0),
+        ("ChannelShuffle", (4,), {}, [img], 0),
+        ("Unflatten", (1, [8, 8]), {}, [img], 0),
+        ("Bilinear", (512, 512, 16), {}, [vec, vec[::-1].copy()], 1e-4),
+        ("CosineSimilarity", (), {}, [img, img[::-1].copy()], 1e-5),
+        ("PairwiseDistance", (), {}, [vec, vec[::-1].copy()], 1e-5),
+        ("Dropout2D", (0.5,), {}, [img], 0),
+        ("Dropout3D", (0.5,), {}, [vol], 0),
+        ("AlphaDropout", (0.5,), {}, [img], 0),
+        ("MSELoss", (), {}, [vec, vec * 0.5], 1e-5),
+        ("L1Loss", (), {}, [vec, vec * 0.5], 1e-5),
+        ("NLLLoss", (), {}, [vec, lab % 512], 1e-5),
+        ("BCEWithLogitsLoss", (), {}, [vec, (vec > 0).astype(np.float32)],
+         1e-5),
+        ("SmoothL1Loss", (), {}, [vec, vec * 0.5], 1e-5),
+        ("KLDivLoss", (), {}, [vec, np.abs(vec)], 1e-5),
+        ("BCELoss", (), {}, [1 / (1 + np.exp(-vec)),
+                             (vec > 0).astype(np.float32)], 1e-5),
+        ("MarginRankingLoss", (), {}, [vec, vec[::-1].copy(),
+                                       np.sign(vec)], 1e-5),
+        ("SoftMarginLoss", (), {}, [vec, np.sign(vec)], 1e-5),
+        ("TripletMarginLoss", (), {}, [vec, vec[::-1].copy(), vec * 0.5],
+         1e-5),
+        ("CosineEmbeddingLoss", (), {}, [vec, vec[::-1].copy(),
+                                         np.sign(vec[:, 0])], 1e-5),
+        ("HingeEmbeddingLoss", (), {}, [vec, np.sign(vec)], 1e-5),
+        ("PoissonNLLLoss", (), {}, [vec * 0.1, np.abs(vec)], 1e-5),
+        ("MultiLabelSoftMarginLoss", (), {}, [vec, (vec > 0).astype(
+            np.float32)], 1e-5),
+        ("CTCLoss", (), {}, [rs(np, (64, 8, 29), 37),
+                             lab[:80].reshape(8, 10) % 28 + 1,
+                             np.full(8, 64), np.full(8, 10)], 1e-5),
+        ("MultiMarginLoss", (), {}, [vec, lab % 512], 1e-5),
+        ("TripletMarginWithDistanceLoss", (), {}, [vec, vec[::-1].copy(),
+                                                   vec * 0.5], 1e-5),
+        ("GaussianNLLLoss", (), {}, [vec, vec * 0.5, np.abs(vec) + 0.1],
+         1e-5),
+        ("HSigmoidLoss", (512, 1000), {}, [vec, lab], 1e-5),
+        ("RNNTLoss", (), {}, [rs(np, (2, 12, 6, 29), 38),
+                              lab[:10].reshape(2, 5) % 28 + 1], 1e-4),
+        ("MaxUnPool2D", (2,), {}, None, 0),
+        ("MaxUnPool1D", (2,), {}, None, 0),
+        ("MaxUnPool3D", (2,), {}, None, 0),
+        ("ParameterList", (), {}, None, 0),
+        ("LayerDict", (), {}, None, 0),
+        ("RNNCellBase", (), {}, None, 0),
+    ]
+    return cases
+
+
+def surface_layer(torch, P, name, args, kw, arrays, dev):
+    """The layer built on the card from seed 0 and its CPU twin holding
+    the same state, each called in eval mode on the same arrays."""
+    from paddle_tpu_torch.core.device import device_guard
+    cls = getattr(P.nn, name)
+    P.seed(0)
+    with device_guard(dev):
+        card = cls(*args, **kw)
+    with device_guard("cpu"):
+        cpu = cls(*args, **kw)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    for m in (card, cpu):
+        m.eval()
+    return lambda ts: (card if ts[0].is_cuda else cpu)(*ts)
+
+
+def surface_special_layers(torch, np, P, dev, worst):
+    """The unpool layers after their pools' masks, the containers, the
+    cells' base, and the stacked recurrences at published sizes: LSTM and
+    GRU with 2 layers of hidden 1024, bidirectional, 128 steps, batch 64,
+    f32, forward and the gradients of the input."""
+    x = rs(np, (8, 64, 28, 28), 40)
+
+    def unpool2d(ts):
+        v, i = P.nn.functional.max_pool2d(ts[0], 2, 2, return_mask=True)
+        return P.nn.MaxUnPool2D(2)(v, i)
+
+    def unpool1d(ts):
+        v, i = P.nn.functional.max_pool2d(ts[0][:, :, :1], (1, 2), (1, 2),
+                                          return_mask=True)
+        return P.nn.MaxUnPool1D(2)(v[:, :, 0], i[:, :, 0])
+
+    def unpool3d(ts):
+        v = ts[0][:, :, :4, :4, :4]
+        i = v.flatten(2).argsort(-1)[..., :64].reshape(v.shape)
+        return P.nn.MaxUnPool3D(2)(v, i)
+
+    surface_compare(torch, "MaxUnPool2D", unpool2d, [x], 0, dev, worst)
+    surface_compare(torch, "MaxUnPool1D", unpool1d, [x], 0, dev, worst)
+    surface_compare(torch, "MaxUnPool3D", unpool3d,
+                    [rs(np, (2, 16, 8, 8, 8), 41)], 0, dev, worst)
+    pl = P.nn.ParameterList([P.nn.Parameter(torch.ones(3, device=dev))])
+    pl.append(P.nn.Parameter(torch.zeros(2, device=dev)))
+    ld = P.nn.LayerDict({"a": P.nn.Linear(4, 4, device=dev)})
+    check(len(pl) == 2 and list(pl.state_dict()) == ["0", "1"] and
+          list(ld.keys()) == ["a"] and ld["a"].weight.is_cuda and
+          issubclass(P.nn.LSTMCell, P.nn.RNNCellBase),
+          "ParameterList/LayerDict/RNNCellBase")
+    for name in ("ParameterList", "LayerDict", "RNNCellBase"):
+        worst[name] = 0.0
+    rnn_rows = {}
+    for name in ("LSTM", "GRU"):
+        from paddle_tpu_torch.core.device import device_guard
+        P.seed(0)
+        with device_guard(dev):
+            card = getattr(P.nn, name)(1024, 1024, num_layers=2,
+                                       direction="bidirect")
+        with device_guard("cpu"):
+            cpu = getattr(P.nn, name)(1024, 1024, num_layers=2,
+                                      direction="bidirect")
+        cpu.load_state_dict({k: v.cpu() for k, v in
+                             card.state_dict().items()})
+        xs = rs(np, (64, 128, 1024), 42)
+        outs = {}
+        for tag, m, d in (("card", card, dev), ("cpu", cpu, "cpu")):
+            t = torch.as_tensor(xs, device=d).requires_grad_()
+            t0 = time.perf_counter()
+            out, fin = m(t)
+            (out.float() * 0.01).sum().backward()
+            if d != "cpu":
+                torch.cuda.synchronize()
+            outs[tag] = (out.detach().cpu(), fin, t.grad.cpu(),
+                         time.perf_counter() - t0)
+        err_out = float((outs["card"][0] - outs["cpu"][0]).abs().max())
+        err_dx = float((outs["card"][2] - outs["cpu"][2]).abs().max() /
+                       outs["cpu"][2].abs().max())
+        fins = (outs["card"][1], outs["cpu"][1])
+        if name == "LSTM":
+            err_fin = max(float((a.detach().cpu() - b.detach()).abs().max())
+                          for a, b in zip(*fins))
+        else:
+            err_fin = float((fins[0].detach().cpu() -
+                             fins[1].detach()).abs().max())
+        rnn_rows[name] = {"out_max_abs_err": err_out,
+                          "final_max_abs_err": err_fin,
+                          "dx_max_rel_err": err_dx,
+                          "card_s": outs["card"][3],
+                          "cpu_s": outs["cpu"][3]}
+        worst[name] = max(err_out, err_fin, err_dx)
+        check(err_out <= 2e-4 and err_fin <= 2e-4 and err_dx <= 1e-3,
+              f"nn_surface {name}: {rnn_rows[name]}")
+        del card, cpu
+    return rnn_rows
+
+
+def phase_nn_surface(torch, np, P, hfa, hfp, hc, fmb, dev="cuda"):
+    """Every name ported in this slice, on the card against the CPU path
+    from the same arrays and (for a layer) the same state: the new
+    functional names and in-place aliases, every new layer class, the
+    cells, ``RNN``, ``BiRNN``, ``SimpleRNN``, LSTM and GRU at 2 x 1024
+    bidirectional over 128 steps of batch 64, ``nn.utils``,
+    ``interpolate`` in each mode up and down on a 224² image and
+    ``ctc_loss`` at T = 256, B = 32, 29 classes; each held to its stated
+    tolerance as the largest difference over 1 + max|cpu|. The random
+    draws are held on the card to their range, rate and determinism under
+    the seed. No hand-written kernel is on these paths: every count stays
+    0."""
+    import paddle_tpu_torch.nn.functional as F
+    worst = {}
+    t0 = time.perf_counter()
+    zero_all(hfa, hfp, hc, fmb)
+    for name, fn, arrays, tol in surface_functional(np):
+        surface_compare(torch, name, lambda ts, fn=fn: fn(F, *ts), arrays,
+                        tol, dev, worst)
+    img = rs(np, (2, 3, 224, 224), 50)
+    for mode in ("nearest", "bilinear", "bicubic"):
+        for size in ((448, 448), (112, 112), (300, 150)):
+            surface_compare(torch, f"interpolate_{mode}_{size[0]}x{size[1]}",
+                            lambda ts, m=mode, s=size: F.interpolate(
+                                ts[0], size=s, mode=m), [img], 1e-5, dev,
+                            worst)
+        surface_compare(torch, f"upsample_{mode}", lambda ts, m=mode:
+                        F.upsample(ts[0], scale_factor=0.5, mode=m,
+                                   align_corners=True), [img], 1e-5, dev,
+                        worst)
+    logits = rs(np, (256, 32, 29), 51, 2.0)
+    rng = np.random.default_rng(52)
+    labels = rng.integers(1, 29, (32, 64))
+    lens = [rng.integers(200, 257, 32), rng.integers(20, 65, 32)]
+    for red in ("mean", "none"):
+        surface_compare(torch, f"ctc_loss_{red}", lambda ts, r=red:
+                        F.ctc_loss(*ts, reduction=r),
+                        [logits, labels, *lens], 1e-5, dev, worst)
+
+    def ctc_grad(ts):
+        x = ts[0].requires_grad_()
+        F.ctc_loss(x, *ts[1:]).backward()
+        return x.grad
+    surface_compare(torch, "ctc_loss_grad", ctc_grad,
+                    [logits, labels, *lens], 1e-5, dev, worst)
+    for name, args, kw, arrays, tol in surface_layers(np):
+        if arrays is None:
+            continue
+        surface_compare(torch, name, surface_layer(torch, P, name, args, kw,
+                                                   arrays, dev),
+                        arrays, tol, dev, worst)
+    rnn_rows = surface_special_layers(torch, np, P, dev, worst)
+    surface_rnn_cells_utils(torch, np, P, dev, worst)
+    draws = surface_draws(torch, P, dev)
+    launches = all_counts(hfa, hfp, hc, fmb)
+    row = {"phase": "nn_surface", "names": len(worst),
+           "worst": sorted(worst.items(), key=lambda kv: -kv[1])[:8],
+           "rnn": rnn_rows, "draws": draws,
+           "launches": {k: v for k, v in launches.items() if v},
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    check(not any(launches.values()),
+          f"nn_surface launched hand-written kernels: {launches}")
+    return worst
+
+
+def surface_rnn_cells_utils(torch, np, P, dev, worst):
+    """The three cells one step, ``RNN`` and ``BiRNN`` over 32 steps,
+    ``SimpleRNN``, and ``nn.utils``: weight and spectral norm on a Linear,
+    the vector round trip, the two clips."""
+    from paddle_tpu_torch.core.device import device_guard
+    import paddle_tpu_torch.nn.utils as U
+    x = rs(np, (64, 32, 256), 60)
+
+    def build(make):
+        P.seed(0)
+        with device_guard(dev):
+            card = make()
+        with device_guard("cpu"):
+            cpu = make()
+        cpu.load_state_dict({k: v.cpu() for k, v in
+                             card.state_dict().items()})
+        card.eval()
+        cpu.eval()
+        return lambda ts: (card if ts[0].is_cuda else cpu)(*ts)
+
+    for name in ("SimpleRNNCell", "LSTMCell", "GRUCell"):
+        cell = getattr(P.nn, name)
+        surface_compare(torch, name, build(lambda c=cell: c(256, 512)),
+                        [x[:, 0]], 1e-5, dev, worst)
+        surface_compare(torch, "RNN_" + name, build(
+            lambda c=cell: P.nn.RNN(c(256, 512), is_reverse=True)), [x],
+            1e-4, dev, worst)
+        surface_compare(torch, "BiRNN_" + name, build(
+            lambda c=cell: P.nn.BiRNN(c(256, 128), c(256, 128))), [x],
+            1e-4, dev, worst)
+    surface_compare(torch, "SimpleRNN", build(lambda: P.nn.SimpleRNN(
+        256, 512, num_layers=2, direction="bidirect")), [x], 1e-4, dev,
+        worst)
+
+    def normed(kind):
+        def make():
+            lin = P.nn.Linear(512, 256)
+            return U.weight_norm(lin) if kind == "weight" else \
+                U.spectral_norm(lin, n_power_iterations=2)
+        return make
+    for kind in ("weight", "spectral"):
+        surface_compare(torch, f"{kind}_norm", build(normed(kind)),
+                        [rs(np, (256, 512), 63)], 1e-5, dev, worst)
+    gs = [rs(np, (512, 256), 61), rs(np, (256,), 62)]
+    surface_compare(torch, "parameters_to_vector", lambda ts:
+                    U.vector_to_parameters(U.parameters_to_vector(ts) * 2,
+                                           ts), gs, 0, dev, worst)
+    surface_compare(torch, "clip_grad_norm_", lambda ts:
+                    U.clip_grad_norm_(ts, 1.0), gs, 1e-5, dev, worst)
+    surface_compare(torch, "clip_grad_value_", lambda ts:
+                    U.clip_grad_value_(ts, 0.5), gs, 0, dev, worst)
+    m = P.nn.Linear(512, 8, device=dev)
+    w = m.weight.detach().clone()
+    U.weight_norm(m, dim=1)
+    U.remove_weight_norm(m)
+    worst["remove_weight_norm"] = float((m.weight - w).abs().max())
+    check(worst["remove_weight_norm"] <= 1e-6,
+          f"remove_weight_norm: {worst['remove_weight_norm']}")
+
+
+def surface_draws(torch, P, dev):
+    """The random draws on the card: each the same twice under one seed,
+    another under another; ``rrelu``'s slopes in [lower, upper) about
+    their mean, ``gumbel_softmax`` rows summing to 1, the channel dropouts
+    whole channels at the rate, alpha dropout's mean and spread kept,
+    ``class_center_sample`` without a seed keeping the positives."""
+    F = P.nn.functional
+    x = torch.randn(256, 256, device=dev)
+    neg = -x.abs() - 0.1
+    maps = torch.rand(64, 256, 7, 7, device=dev) + 1.0
+    lab = torch.randint(0, 1000, (256,), device=dev)
+    draws = {
+        "rrelu": lambda: F.rrelu(neg, 0.1, 0.3, training=True),
+        "gumbel_softmax": lambda: F.gumbel_softmax(x, 0.5),
+        "dropout2d": lambda: F.dropout2d(maps, 0.3),
+        "dropout3d": lambda: F.dropout3d(maps[:, :, None], 0.3),
+        "alpha_dropout": lambda: F.alpha_dropout(x, 0.2),
+        "class_center_sample": lambda: F.class_center_sample(lab, 1000,
+                                                             400)[1],
+    }
+    out = {}
+    for name, draw in draws.items():
+        P.seed(1)
+        a = draw()
+        P.seed(1)
+        b = draw()
+        P.seed(2)
+        c = draw()
+        check(torch.equal(a, b) and not torch.equal(a, c) and
+              a.device.type == torch.device(dev).type,
+              f"nn_surface draw {name}: not keyed by the seed")
+        if name == "rrelu":
+            s = a / neg
+            stat = [float(s.min()), float(s.max()), float(s.mean())]
+            ok = stat[0] >= 0.1 - 1e-6 and stat[1] <= 0.3 + 1e-6 and \
+                abs(stat[2] - 0.2) < 1e-3
+        elif name == "gumbel_softmax":
+            stat = float((a.sum(-1) - 1).abs().max())
+            ok = stat < 1e-5
+        elif name.startswith("dropout"):
+            zero = (a == 0).flatten(2)
+            stat = float(zero.all(-1).float().mean())
+            ok = bool((zero.all(-1) | ~zero.any(-1)).all()) and \
+                abs(stat - 0.3) < 0.02
+        elif name == "alpha_dropout":
+            stat = [float(a.mean()), float(a.std())]
+            ok = abs(stat[0]) < 0.02 and abs(stat[1] - 1.0) < 0.02
+        else:
+            stat = len(a)
+            ok = stat == 400 and bool(torch.isin(lab, a).all())
+        out[name] = stat
+        check(ok, f"nn_surface draw {name}: {stat}")
+    return out
+
+
+# -- vision_zoo: one factory of each new file, card against CPU ------------
+
+ZOO = (("alexnet", 224), ("vgg16", 224), ("mobilenet_v1", 224),
+       ("mobilenet_v2", 224), ("mobilenet_v3_small", 224),
+       ("squeezenet1_1", 224), ("shufflenet_v2_x1_0", 224),
+       ("densenet121", 224), ("googlenet", 224), ("inception_v3", 299))
+
+
+def calibrate_bn(torch, P, model, x):
+    """Running statistics from the batch's (one training pass at momentum
+    0, dropout off), the variance plus 1: in eval mode every BatchNorm then
+    normalises without the vanishing activations of its initial
+    statistics or the unbounded gain of a channel with no spread."""
+    from paddle_tpu_torch.nn.layers import _BatchNormBase
+    bns = [m for m in model.sublayers() if isinstance(m, _BatchNormBase)]
+    for m in bns:
+        m.momentum = 0.0
+    model.train()
+    for m in model.sublayers():
+        if isinstance(m, P.nn.Dropout):
+            m.eval()
+    with torch.no_grad():
+        model(x)
+    for m in bns:
+        m.momentum = 0.9
+        m._variance = m._variance + 1.0
+
+
+def phase_vision_zoo(torch, np, P, hfa, hfp, hc, fmb, dev="cuda", scale=1):
+    """One factory of each new model file at its published input (224²,
+    Inception v3 299²), batch 2, f32, 1000 classes: built on the card from
+    seed 0, its BatchNorm statistics set from the batch
+    (``calibrate_bn``), copied to CPU twins in float32 and float64, then
+    forward and backward in eval mode on all three (dropout off;
+    BatchNorm the running-statistics affine, which rounding does not
+    amplify as the batch statistics of a random-init net at batch 2 do).
+    The card's logits and loss are held to the CPU's float32 ones; its
+    gradients to float64's, as closely as the CPU's own float32 ones are
+    (a first conv's gradient sums 10^5 products that nearly cancel at
+    init: float32 keeps a percent of it on either device). GoogLeNet's
+    loss sums its three heads'. Library convolutions (cuDNN, depthwise and
+    grouped ones too): no hand-written kernel launches."""
+    from paddle_tpu_torch.nn.functional import cross_entropy
+    from paddle_tpu_torch.vision import models as M
+    zero_all(hfa, hfp, hc, fmb)
+    rows = {}
+    for name, side in ZOO:
+        side //= scale
+        P.seed(0)
+        card = getattr(M, name)(device=dev)
+        cpu = getattr(M, name)(device="cpu")
+        rng = np.random.default_rng(7)
+        x = rng.standard_normal((2, 3, side, side)).astype(np.float32)
+        y = rng.integers(0, 1000, (2,))
+        calibrate_bn(torch, P, card, torch.as_tensor(x, device=dev))
+        cpu.load_state_dict({k: v.cpu() for k, v in
+                             card.state_dict().items()})
+        cpu64 = copy.deepcopy(cpu).to(torch.float64)
+        out = {}
+        for tag, m, d in (("card", card, dev), ("cpu", cpu, "cpu"),
+                          ("cpu64", cpu64, "cpu")):
+            m.eval()
+            t0 = time.perf_counter()
+            logits = m(torch.as_tensor(x, device=d).to(
+                next(iter(m.parameters())).dtype))
+            heads = logits if isinstance(logits, tuple) else (logits,)
+            loss = sum(cross_entropy(h, torch.as_tensor(y, device=d))
+                       for h in heads)
+            loss.backward()
+            if d != "cpu":
+                torch.cuda.synchronize()
+            out[tag] = (float(loss.detach()), heads[0].detach().cpu(),
+                        time.perf_counter() - t0,
+                        {k: p.grad.detach().cpu().double()
+                         for k, p in m.named_parameters()})
+        logit_err = float((out["card"][1] - out["cpu"][1]).abs().max() /
+                          (1 + out["cpu"][1].abs().max()))
+        grad = {"card": 0.0, "cpu": 0.0}
+        worst_name, worst_ratio = None, 0.0
+        for pname, ref in out["cpu64"][3].items():
+            norm = float(ref.norm()) or 1e-30
+            errs = {t: float((out[t][3][pname] - ref).norm()) / norm
+                    for t in ("card", "cpu")}
+            check(math.isfinite(errs["card"]), f"{name}.{pname} grad")
+            ratio = errs["card"] / max(errs["cpu"], 1e-7)
+            if errs["card"] > 1e-3 and ratio > worst_ratio:
+                worst_name, worst_ratio = pname, ratio
+            for t in grad:
+                grad[t] = max(grad[t], errs[t])
+        rows[name] = {"input": [2, 3, side, side],
+                      "params": sum(p.numel() for p in card.parameters()),
+                      "loss_card": out["card"][0], "loss_cpu": out["cpu"][0],
+                      "logits_rel_err": logit_err,
+                      "grad_norm_rel_err_vs_f64": grad,
+                      "grad_worst_ratio_over_1e-3": [worst_name,
+                                                     worst_ratio],
+                      "card_s": out["card"][2], "cpu_s": out["cpu"][2]}
+        # a gradient more than 1e-3 (2-norm) from float64 may be at most
+        # 10 times as far as the CPU's float32 one
+        check(abs(out["card"][0] - out["cpu"][0]) <=
+              1e-4 * (1 + abs(out["cpu"][0])) and logit_err <= 1e-4 and
+              worst_ratio <= 10.0, f"vision_zoo {name}: {rows[name]}")
+        del card, cpu, cpu64
+    launches = all_counts(hfa, hfp, hc, fmb)
+    emit({"phase": "vision_zoo", "models": rows,
+          "launches": {k: v for k, v in launches.items() if v}})
+    check(not any(launches.values()),
+          f"vision_zoo launched hand-written kernels: {launches}")
+    return rows
+
+
+# -- train_mobilenet_v3_bf16 -------------------------------------------------
+
+#: MobileNetV3-Large's multiply-adds an image at 224², as published (Howard
+#: et al., 2019, "Searching for MobileNetV3", Table 3)
+MBV3_LARGE_MADDS = 219e6
+
+
+def conv_linear_flops(torch, P, model, x):
+    """The forward's FLOPs (2 a multiply-add) of every Conv2D and Linear,
+    from the shapes one forward gives: ``2·out_elements·(in/groups)·kh·kw``
+    a convolution, ``2·rows·in·out`` a Linear."""
+    total = [0]
+
+    def conv(m, a, out):
+        total[0] += 2 * out.numel() * m.weight.shape[1] * \
+            m.weight.shape[2] * m.weight.shape[3]
+
+    def linear(m, a, out):
+        total[0] += 2 * out.numel() * m.in_features
+
+    handles = [m.register_forward_post_hook(conv if isinstance(
+        m, P.nn.Conv2D) else linear) for m in model.sublayers()
+        if isinstance(m, (P.nn.Conv2D, P.nn.Linear))]
+    with torch.no_grad():
+        model(x)
+    for h in handles:
+        h.remove()
+    return total[0] // x.shape[0]
+
+
+def phase_train_mobilenet_v3_bf16(torch, np, P, hfa, hfp, hc, fmb, peaks,
+                                  Momentum, make_sharded_train_step,
+                                  dev="cuda", batch=128, warmup=2, timed=10):
+    """MobileNetV3-Large, 1000 classes, 224², batch 128, set up as
+    ``train_resnet_bf16``: ``.train().to(bfloat16)`` (the BatchNorm
+    buffers come back float32 after a step), ``Momentum(0.1, 0.9)`` with
+    float32 masters, ``TrainStep`` on the mean cross-entropy of the f32
+    logits, one batch from ``default_rng(0)``; 2 warm-up and 10 timed
+    steps between CUDA events. FLOPs from the model's conv and Linear
+    shapes (``conv_linear_flops``, x3 for a training step) beside the
+    published 219M multiply-adds; MFU over the bf16 dense peak. Depthwise
+    and 1x1 convolutions run on cuDNN, as JAX's run on lax.conv: no
+    hand-written kernel launches."""
+    from paddle_tpu_torch.vision.models import mobilenet_v3_large
+    img = 224
+    P.seed(0)
+    model = mobilenet_v3_large(device=dev)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((batch, 3, img, img))).to(
+        dev).to(torch.float32)
+    y = torch.as_tensor(rng.integers(0, 1000, (batch,)), device=dev)
+    fwd_flops = conv_linear_flops(torch, P, model, x[:1])
+    model.train()
+    model.to(torch.bfloat16)
+    x = x.to(torch.bfloat16)
+    opt = Momentum(learning_rate=0.1, momentum=0.9, multi_precision=True)
+    step = make_sharded_train_step(model, opt, resnet_loss)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts set to 0 just before it and read after
+    zero_all(hfa, hfp, hc, fmb)
+    losses, times = timed_steps(torch, lambda: step.step((x, y)), warmup,
+                                timed)
+    launches = all_counts(hfa, hfp, hc, fmb)
+    clocks = card_clocks()
+    images_per_s = timed * batch / (sum(times) / 1e3)
+    flops_per_image = 3 * fwd_flops
+    buf_dtypes = sorted({str(b.dtype) for b in model.buffers()})
+    row = {"phase": "train_mobilenet_v3_bf16", "clocks": clocks,
+           "model": "mobilenet_v3_large", "batch": [batch, 3, img, img],
+           "dtype": "bf16 (model.to)",
+           "optimizer": "Momentum(0.1, momentum=0.9, multi_precision=True)",
+           "losses": losses, "warmup_steps": warmup, "timed_steps": timed,
+           "step_ms": times, "step_p50_ms": percentile(times, 50),
+           "step_p99_ms": percentile(times, 99),
+           "images_per_s": images_per_s,
+           "fwd_flops_per_image": fwd_flops,
+           "published_fwd_flops_per_image": 2 * MBV3_LARGE_MADDS,
+           "flops_per_image": flops_per_image,
+           "flops_formula": "3 x sum over Conv2D and Linear of "
+                            "2*out_elements*(in/groups)*kh*kw",
+           "mfu": flops_per_image * images_per_s / peaks["bf16"],
+           "peak_sheet": peaks["sheet"],
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "bn_buffer_dtypes": buf_dtypes,
+           "launches": {k: v for k, v in launches.items() if v}}
+    emit(row)
+    check(all(math.isfinite(v) for v in losses), f"non-finite loss: {row}")
+    check(abs(losses[0] - math.log(1000)) < 0.5,
+          f"MobileNetV3 step-0 loss {losses[0]}, not near ln 1000")
+    check(abs(fwd_flops / (2 * MBV3_LARGE_MADDS) - 1) < 0.1,
+          f"counted {fwd_flops} FLOPs an image; published "
+          f"{2 * MBV3_LARGE_MADDS}")
+    check(buf_dtypes == ["torch.float32"],
+          f"BN buffers {buf_dtypes} after a step, not float32")
+    check(not any(launches.values()),
+          f"MobileNetV3 launched hand-written kernels: {launches}")
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return row
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8090,6 +9049,19 @@ def main() -> int:
     phase_surface(torch, np, P, hfa, hfp, tfa, PF, flags)
     torch.cuda.empty_cache()
 
+    # Transformer-base through the Layer API (K4a-direct and K4b-fused on
+    # its two training steps), every new name of nn/ on the card against
+    # the CPU, one model of each new vision file likewise, and
+    # MobileNetV3-Large trained in bf16
+    layer_api_launches = phase_layer_api(torch, np, P, hfa, hfp, hc, fmb,
+                                         AdamW)
+    phase_nn_surface(torch, np, P, hfa, hfp, hc, fmb)
+    torch.cuda.empty_cache()
+    phase_vision_zoo(torch, np, P, hfa, hfp, hc, fmb)
+    torch.cuda.empty_cache()
+    phase_train_mobilenet_v3_bf16(torch, np, P, hfa, hfp, hc, fmb, peaks,
+                                  Momentum, make_sharded_train_step)
+
     # `launches` is the count on each kernel's first main path: serving
     # for K1's bf16 tensor-core body (as the line has counted K1 from the
     # start) and the f32 serving check for its float32 body
@@ -8243,6 +9215,7 @@ def main() -> int:
             "tiers_f32_launches": tiers_f32.get(name, 0),
             "tiers_bf16_launches": tiers_bf16.get(name, 0),
             "transformer_launches": t_launches.get(name, 0),
+            "layer_api_launches": layer_api_launches.get(name, 0),
             "transformer_f32_launches": t_f32_launches.get(name, 0),
             "decode_launches": decode_launches.get(name, 0),
             "recompute_k4_launches": rk4_launches.get(name, 0),
@@ -8347,6 +9320,7 @@ def main() -> int:
         "wide_launches": family["wide_resnet50_2"].get(
             "fused_matmul_bn_fwd", 0),
         "resilience_launches": 0,
+        "layer_api_launches": layer_api_launches["fused_matmul_bn_fwd"],
         "telemetry_launches": {
             m: telemetry_launches[m].get("fused_matmul_bn_fwd", 0)
             for m in ("off", "metrics")},

@@ -13,6 +13,15 @@ their parameters, so transposed with them) into the port's optimizers.
 :func:`from_jax_checkpoint` rewrites the files of the JAX ``Model.save``
 (``.pdparams``, ``.pdopt``) in the port's layout, for ``Model.load``.
 
+Which weights are Linear weights: given the port's module (``module=``),
+exactly the 2-D ``weight*`` parameters of its :class:`~.nn.layers.Linear`
+sublayers (``weight``, and ``weight_g``/``weight_v``/``weight_orig``
+under weight or spectral norm), whatever their names; without it, the
+name rule of :data:`LINEAR_NAMES`, which the earlier models' keys follow.
+The vision models need the module: VGG's and AlexNet's ``classifier.N``
+and GoogLeNet's ``fc1``/``fc2`` are Linears the names miss, and
+MobileNetV3's squeeze-excite ``fc1``/``fc2`` are 1x1 convolutions.
+
 A transposed Linear keeps the JAX column order as row order: the fused
 ``qkv_proj`` output ``(3, H, D)`` and the GQA ``kv_proj`` output
 ``(2, KH, D)`` split the same way in both packages.
@@ -26,7 +35,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["LINEAR_NAMES", "from_jax_state_dict", "to_jax_state_dict",
+__all__ = ["LINEAR_NAMES", "linear_weight_keys", "from_jax_state_dict",
+           "to_jax_state_dict",
            "from_jax_optimizer_state", "from_jax_checkpoint"]
 
 #: attribute names of the Linear layers whose weights are transposed (GPT,
@@ -49,14 +59,34 @@ def _is_linear_weight(key: str) -> bool:
         len(parts) >= 3 and parts[-2].isdigit() and parts[-3] in LINEAR_NAMES)
 
 
-def from_jax_state_dict(np_dict: Mapping[str, np.ndarray]
+def linear_weight_keys(module) -> frozenset:
+    """The state_dict keys of the 2-D ``weight*`` parameters of the
+    module's Linear sublayers (the port's, or torch's ``nn.Linear``)."""
+    keys = set()
+    for name, mod in module.named_modules():
+        if isinstance(mod, torch.nn.Linear):
+            for pname, p in mod.named_parameters(recurse=False):
+                if pname.startswith("weight") and p.dim() == 2:
+                    keys.add(f"{name}.{pname}" if name else pname)
+    return frozenset(keys)
+
+
+def _linear_rule(module):
+    if module is None:
+        return _is_linear_weight
+    return linear_weight_keys(module).__contains__
+
+
+def from_jax_state_dict(np_dict: Mapping[str, np.ndarray], module=None
                         ) -> Dict[str, torch.Tensor]:
     """JAX ``state_dict()`` as numpy arrays -> a torch state_dict for the
-    port's module of the same structure (Linear weights transposed)."""
+    port's module of the same structure (Linear weights transposed: those
+    of ``module`` when given, else by the name rule)."""
+    is_linear = _linear_rule(module)
     out: Dict[str, torch.Tensor] = {}
     for key, arr in np_dict.items():
         a = np.asarray(arr)
-        if _is_linear_weight(key):
+        if is_linear(key):
             if a.ndim != 2:
                 raise ValueError(f"{key}: Linear weight must be 2-D, got "
                                  f"shape {a.shape}")
@@ -65,17 +95,19 @@ def from_jax_state_dict(np_dict: Mapping[str, np.ndarray]
     return out
 
 
-def to_jax_state_dict(sd: Mapping[str, torch.Tensor]
+def to_jax_state_dict(sd: Mapping[str, torch.Tensor], module=None
                       ) -> Dict[str, np.ndarray]:
     """The port's state_dict -> numpy arrays in the JAX layout (Linear
-    weights transposed back to ``[in, out]``); float32 copies of bf16."""
+    weights, those of ``module`` when given, transposed back to ``[in,
+    out]``); float32 copies of bf16."""
+    is_linear = _linear_rule(module)
     out: Dict[str, np.ndarray] = {}
     for key, t in sd.items():
         t = t.detach().cpu()
         if t.dtype == torch.bfloat16:
             t = t.float()
         a = t.numpy()
-        out[key] = np.array(a.T if _is_linear_weight(key) else a, order="C")
+        out[key] = np.array(a.T if is_linear(key) else a, order="C")
     return out
 
 

@@ -14,6 +14,7 @@ a missing card is an error and never a quiet fall back to the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import List, Optional, Tuple, Union
 
@@ -21,7 +22,7 @@ import torch
 
 __all__ = ["set_device", "get_device", "get_all_devices", "device_count",
            "is_compiled_with_tpu", "get_default_device", "synchronize",
-           "resolve_device"]
+           "resolve_device", "device_guard"]
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -142,3 +143,19 @@ def same_device(a: torch.device, b: Optional[torch.device]) -> bool:
     if b is None:
         return False
     return resolve_device(a) == resolve_device(b)
+
+
+@contextlib.contextmanager
+def device_guard(device: DeviceLike = None):
+    """Within the block, :func:`resolve_device` of None is ``device``
+    (itself resolved first: None is this thread's device, else
+    ``cuda:0``); the thread's device is put back after. A model builds its
+    layers under it, so every layer lands where the model's ``device=``
+    says."""
+    dev = resolve_device(device)
+    prev = getattr(_state, "device", None)
+    _state.device = dev
+    try:
+        yield dev
+    finally:
+        _state.device = prev

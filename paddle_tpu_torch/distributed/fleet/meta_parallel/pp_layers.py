@@ -19,6 +19,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 from torch import nn
 
+from ....nn.layer import Layer
+
 __all__ = ["LayerDesc", "SharedLayerDesc", "PipelineLayer"]
 
 
@@ -55,7 +57,7 @@ class SharedLayerDesc(LayerDesc):
         self.shared_weight_attr = shared_weight_attr
 
 
-class PipelineLayer(nn.Module):
+class PipelineLayer(Layer):
     """A sequence of LayerDescs partitioned into ``num_stages`` stages.
     ``seg_method``: ``"uniform"`` (by count) or ``"layer:<ClassName>"``
     (split at occurrences of a class). ``recompute_interval`` is kept, as
@@ -121,6 +123,13 @@ class PipelineLayer(nn.Module):
     def get_stage_layers(self, stage: int) -> List[Any]:
         lo, hi = self._segments[stage], self._segments[stage + 1]
         return self._built[lo:hi]
+
+    def stage_of_layer(self, idx: int) -> int:
+        """The stage that owns the ``idx``-th layer."""
+        for s in range(self.total_stages):
+            if self._segments[s] <= idx < self._segments[s + 1]:
+                return s
+        raise IndexError(idx)
 
     def forward_stage(self, x, stage: int):
         for layer, fwd in self.get_stage_layers(stage):

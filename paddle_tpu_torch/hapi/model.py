@@ -117,7 +117,7 @@ class Model:
 
     @property
     def _device(self) -> torch.device:
-        first = next(self.network.parameters(), None)
+        first = next(iter(self.network.parameters()), None)
         return first.device if first is not None else torch.device("cpu")
 
     def _tensors(self, xs):

@@ -60,7 +60,7 @@ def summary(net: nn.Module, input_size=None, dtypes=None, input=None):
             dtypes_list = list(dtypes)
         else:
             dtypes_list = [dtypes] * len(sizes)
-        first = next(net.parameters(), None)
+        first = next(iter(net.parameters()), None)
         device = first.device if first is not None else None
         inputs = [torch.zeros([1 if d == -1 else d for d in size],
                               dtype=_dtype(dt), device=device)

@@ -1,30 +1,20 @@
-"""Layers, functional ops, initializers and gradient clipping of the port
-(``paddle_tpu/nn`` counterpart; the GPT, BERT, ResNet, LeNet and
-Transformer slices' subset)."""
+"""``paddle.nn`` of the port (``paddle_tpu/nn`` counterpart): the ``Layer``
+API, every layer, the recurrences, the functional ops, initializers,
+gradient clipping and ``nn.utils``."""
 
 from . import functional  # noqa: F401
 from . import initializer  # noqa: F401
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
                    ClipGradByValue)
-from .layer import ParamAttr, create_parameter  # noqa: F401
-from .layers import (AdaptiveAvgPool2D, AvgPool2D,  # noqa: F401
-                     BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
-                     BeamSearchDecoder, Conv2D, CrossEntropyLoss, Dropout,
-                     Embedding, Flatten, Identity, LayerList, LayerNorm,
-                     Linear, MaxPool2D, MultiHeadAttention, Pad2D, ReLU,
-                     Sequential,
-                     Transformer, TransformerDecoder,
-                     TransformerDecoderLayer, TransformerEncoder,
-                     TransformerEncoderLayer, dynamic_decode)
+from .layer import (HookRemoveHelper, Layer, ParamAttr,  # noqa: F401
+                    Parameter, ParamRef, create_parameter)
+from .layers import *  # noqa: F401,F403
+from .layers import __all__ as _layers_all
+from .rnn import *  # noqa: F401,F403
+from .rnn import __all__ as _rnn_all
+from . import utils  # noqa: F401,E402
 
-__all__ = ["functional", "initializer", "ClipGradByGlobalNorm",
-           "ClipGradByNorm", "ClipGradByValue", "ParamAttr",
-           "create_parameter", "AdaptiveAvgPool2D", "AvgPool2D",
-           "BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
-           "BeamSearchDecoder", "Conv2D", "CrossEntropyLoss", "Dropout",
-           "Embedding", "Flatten", "Identity", "LayerList", "LayerNorm",
-           "Linear", "MaxPool2D", "MultiHeadAttention", "Pad2D", "ReLU",
-           "Sequential",
-           "Transformer", "TransformerDecoder", "TransformerDecoderLayer",
-           "TransformerEncoder", "TransformerEncoderLayer",
-           "dynamic_decode"]
+__all__ = ["functional", "initializer", "utils", "ClipGradByGlobalNorm",
+           "ClipGradByNorm", "ClipGradByValue", "HookRemoveHelper", "Layer",
+           "ParamAttr", "Parameter", "ParamRef", "create_parameter",
+           *_layers_all, *_rnn_all]

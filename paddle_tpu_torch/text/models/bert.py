@@ -28,6 +28,7 @@ from torch import nn
 
 from ...core.device import resolve_device
 from ...nn.functional import cross_entropy
+from ...nn.layer import Layer
 from ...nn.layers import (Dropout, Linear, TransformerEncoder,
                           TransformerEncoderLayer)
 
@@ -67,7 +68,7 @@ def init_weights(module: nn.Module, std: float, seed: int) -> None:
     and embedding matrix, zero biases, unit LayerNorm scales (the draws
     differ from JAX's; tests carry weights across with
     :func:`~paddle_tpu_torch.convert.from_jax_state_dict`)."""
-    gen = torch.Generator(device=next(module.parameters()).device)
+    gen = torch.Generator(device=next(iter(module.parameters())).device)
     gen.manual_seed(seed)
     for mod in module.modules():
         if isinstance(mod, (nn.Linear, nn.Embedding)):
@@ -79,7 +80,7 @@ def init_weights(module: nn.Module, std: float, seed: int) -> None:
             mod.bias.zero_()
 
 
-class BertEmbeddings(nn.Module):
+class BertEmbeddings(Layer):
     def __init__(self, cfg: BertConfig, **factory):
         super().__init__()
         h = cfg.hidden_size
@@ -102,7 +103,7 @@ class BertEmbeddings(nn.Module):
         return self.dropout(self.layer_norm(x))
 
 
-class Bert(nn.Module):
+class Bert(Layer):
     def __init__(self, cfg: BertConfig, **factory):
         super().__init__()
         self.cfg = cfg
@@ -131,7 +132,7 @@ class Bert(nn.Module):
         return x, pooled
 
 
-class BertForPretraining(nn.Module):
+class BertForPretraining(Layer):
     """BERT with the MLM head (tied to the word embeddings, plus
     ``mlm_bias``) and the NSP head.
 

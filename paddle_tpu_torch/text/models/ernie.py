@@ -34,6 +34,7 @@ from torch import nn
 
 from ...core.device import resolve_device
 from ...nn.functional import cross_entropy
+from ...nn.layer import Layer
 from ...nn.layers import (Dropout, Linear, TransformerEncoder,
                           TransformerEncoderLayer)
 from .bert import init_weights
@@ -71,7 +72,7 @@ def ernie_tiny(**overrides) -> ErnieConfig:
                                  max_position_embeddings=128), **overrides})
 
 
-class ErnieEmbeddings(nn.Module):
+class ErnieEmbeddings(Layer):
     """Word + position + token-type (+ task-type) embeddings, LayerNorm,
     dropout."""
 
@@ -112,7 +113,7 @@ def _encoder_layer(cfg: ErnieConfig, **factory) -> TransformerEncoderLayer:
         attn_dropout=cfg.attention_dropout, **factory)
 
 
-class Ernie(nn.Module):
+class Ernie(Layer):
     def __init__(self, cfg: ErnieConfig, **factory):
         super().__init__()
         self.cfg = cfg
@@ -135,7 +136,7 @@ class Ernie(nn.Module):
         return x, pooled
 
 
-class ErnieForPretraining(nn.Module):
+class ErnieForPretraining(Layer):
     """ERNIE with the MLM head (tied to the word embeddings, plus the
     trained ``mlm_bias``) and the sentence-order head.
 
@@ -186,7 +187,7 @@ class ErnieForPretraining(nn.Module):
         return loss
 
 
-class _ErniePipeEmbed(nn.Module):
+class _ErniePipeEmbed(Layer):
     """Stage-0 head for the pipeline: ids -> embedded activations."""
 
     def __init__(self, cfg: ErnieConfig, seed: int = 0, **factory):
@@ -198,7 +199,7 @@ class _ErniePipeEmbed(nn.Module):
         return self.embeddings(input_ids)
 
 
-class _ErniePipeBlock(nn.Module):
+class _ErniePipeBlock(Layer):
     def __init__(self, cfg: ErnieConfig, seed: int = 0, **factory):
         super().__init__()
         self.block = _encoder_layer(cfg, **factory)
@@ -208,7 +209,7 @@ class _ErniePipeBlock(nn.Module):
         return self.block(x)
 
 
-class _ErniePipeHead(nn.Module):
+class _ErniePipeHead(Layer):
     """Final transform, norm and the untied MLM projection (pipeline stages
     do not tie to the stage-0 embedding)."""
 

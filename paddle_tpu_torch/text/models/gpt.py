@@ -40,6 +40,7 @@ from ...core.random import torch_generator
 from ...distributed.fleet.utils.recompute import recompute
 from ...nn import functional as PF
 from ...nn.functional import cross_entropy
+from ...nn.layer import Layer
 from ...nn.layers import Dropout, Linear
 from ...ops import flash_attention
 
@@ -99,7 +100,7 @@ def gpt_tiny(**overrides) -> GPTConfig:
 KVCache = Tuple[torch.Tensor, torch.Tensor]
 
 
-class GPTAttention(nn.Module):
+class GPTAttention(Layer):
     def __init__(self, cfg: GPTConfig, **factory):
         super().__init__()
         self.cfg = cfg
@@ -180,7 +181,7 @@ class GPTAttention(nn.Module):
         return self.out_proj(out.reshape(b, s, h)), (k_cache, v_cache)
 
 
-class GPTMLP(nn.Module):
+class GPTMLP(Layer):
     def __init__(self, cfg: GPTConfig, **factory):
         super().__init__()
         self.up = Linear(cfg.hidden_size, cfg.ffn_size, **factory)
@@ -192,7 +193,7 @@ class GPTMLP(nn.Module):
                                              approximate="tanh")))
 
 
-class GPTBlock(nn.Module):
+class GPTBlock(Layer):
     """Pre-LN decoder block."""
 
     def __init__(self, cfg: GPTConfig, **factory):
@@ -222,7 +223,7 @@ class GPTBlock(nn.Module):
         return x + self.mlp(self.ln_2(x)), cache
 
 
-class GPT(nn.Module):
+class GPT(Layer):
     def __init__(self, cfg: GPTConfig, **factory):
         super().__init__()
         self.cfg = cfg
@@ -308,7 +309,7 @@ def filter_logits(logits: torch.Tensor, top_k: int = 0,
     return logits
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(Layer):
     """GPT with the (optionally tied) LM head.
 
     ``device=None`` builds on ``cuda:0`` and raises without CUDA; pass

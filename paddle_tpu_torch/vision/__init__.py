@@ -1,4 +1,5 @@
 """Vision models and datasets of the port (``paddle_tpu/vision``
-counterpart; LeNet, ResNet, MNIST and FashionMNIST so far)."""
+counterpart): the model zoo of :mod:`.models` (every JAX model file and
+factory), MNIST and FashionMNIST."""
 
 from . import datasets, models  # noqa: F401

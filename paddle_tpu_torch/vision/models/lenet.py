@@ -20,11 +20,12 @@ from torch import nn
 
 from ... import nn as pnn
 from ...core.device import resolve_device
+from ...nn.layer import Layer
 
 __all__ = ["LeNet"]
 
 
-class LeNet(nn.Module):
+class LeNet(Layer):
     def __init__(self, num_classes: int = 10, *, device=None,
                  dtype: torch.dtype = torch.float32, seed: int = 0):
         super().__init__()

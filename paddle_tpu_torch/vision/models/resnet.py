@@ -33,6 +33,7 @@ from torch import nn
 from ...core.device import resolve_device
 from ...nn import fused_conv_bn as FCB
 from ...nn import functional as F
+from ...nn.layer import Layer
 from ...nn.layers import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Linear,
                           MaxPool2D, ReLU, Sequential, _BatchNormBase)
 
@@ -97,7 +98,7 @@ def _norm(norm_layer, num_features, data_format, factory):
     return norm_layer(num_features, **extra)
 
 
-class BasicBlock(nn.Module):
+class BasicBlock(Layer):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
@@ -140,7 +141,7 @@ class BasicBlock(nn.Module):
                               identity, self.bn2.epsilon)
 
 
-class BottleneckBlock(nn.Module):
+class BottleneckBlock(Layer):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
@@ -214,7 +215,7 @@ def _fold_stem_weight(w):
     return w8.permute(0, 3, 5, 1, 2, 4).reshape(o, 4 * c, 4, 4)
 
 
-class ResNet(nn.Module):
+class ResNet(Layer):
     """ResNet over ``block`` at ``depth`` (18, 34, 50, 101, 152).
 
     ``stem_mode="space_to_depth"`` (NHWC only) rewrites the 7x7/s2 stem
