@@ -277,6 +277,25 @@ after the phase named):
   FLAGS_use_pallas_kernels on (K1 and K4 launch) and off (no attention
   launch, one dense route each, outputs within 2e-2 of the kernels') at
   GPT-3 1.3B's attention shape.
+- train_resnet_folder_bf16 (after 15)  ResNet-50 at config 2 fed from
+  files: 1,280 ``.npy`` images of ImageNet's shapes in 100 class folders
+  through ``vision.datasets.DatasetFolder``, RandomResizedCrop(224),
+  RandomHorizontalFlip, ToTensor and Normalize (HWC), the DataLoader's
+  process workers and prefetch_to_device; two epochs (2+8 steps) with no
+  profiler, then a third under torch.profiler: K5-K8 72/36/32/16 a step
+  and no other kernel, every batch's first image and the whole first
+  batch equal to the host's rebuild from the worker's seeds, no two
+  batches with one flip pattern; step p50/p99, images/s over the steps'
+  events and over the window's wall beside train_resnet_bf16's (both
+  ways), each step's wait on the loader (epoch 2's first apart), peak
+  memory, the third epoch's device busy share, each host stage alone (the
+  ring crossed by a forked producer); the kernels line's entries gain
+  folder_launches.
+- vision_ops, audio_text (after train_mobilenet_v3_bf16)  every function
+  of vision/ops.py (nms, RoI ops forward and backward, DCNv2, the YOLOv3
+  heads, matrix NMS, RPN proposals, FPN levels, SSD priors, box coding)
+  and the fft, signal, audio-feature and text ops on the card against the
+  CPU path at their users' sizes, each timed.
 
 Attention-prob dropout and K9 (after phase 7, in this order):
 - kernel / kernel_packed / kernel_packed_stream, part "dropout": the nine
@@ -350,6 +369,7 @@ import importlib.metadata
 import json
 import math
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -463,9 +483,15 @@ def phase_env(torch, build):
         triton = importlib.metadata.version("triton")
     except importlib.metadata.PackageNotFoundError:
         triton = None
+    try:      # decode_jpeg and image files other than .npy need PIL
+        import PIL
+        pil = PIL.__version__
+    except ImportError:
+        pil = None
     emit({"phase": "env", "python": sys.version.split()[0],
           "torch": torch.__version__, "torch_cuda": torch.version.cuda,
           "nvcc": nvcc.stdout.strip().splitlines()[-1], "triton": triton,
+          "pil": pil, "cpu_count": os.cpu_count(),
           "cutlass_headers": os.path.isdir("/usr/local/cutlass/include"),
           "nvidia_smi": smi_line,
           "device": torch.cuda.get_device_name(0),
@@ -4604,8 +4630,9 @@ def phase_train_resnet_bf16(torch, np, hc, hfa, hfp, peaks, resnet50,
     (``bench_pallas_conv_ab``): ResNet-50, NHWC, space-to-depth stem, cast
     to bf16 (BN buffers too), Momentum(0.1, 0.9) with f32 masters, B=256 x
     224² from ``default_rng(0)``, the same batch every step, both flags on;
-    2 warm-up and 8 timed steps. Every step runs K5/K6/K7/K8 72/36/32/16
-    times and no K1-K4. The same for another factory of the family
+    2 warm-up and 8 timed steps, each synced: images/s over their CUDA
+    event times and over their wall. Every step runs K5/K6/K7/K8
+    72/36/32/16 times and no K1-K4. The same for another factory of the family
     (``name``, ``phase``; ``warmup`` and ``timed`` steps), at the launches
     its structure implies (``structure_launches``: ResNeXt's grouped 3x3s
     on the library conv, none of K7/K8)."""
@@ -4632,6 +4659,8 @@ def phase_train_resnet_bf16(torch, np, hc, hfa, hfp, peaks, resnet50,
     zero_counts(hfa, hfp)
     losses, times = [], []
     for i in range(warmup + timed):
+        if i == warmup:
+            t_window = time.perf_counter()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -4641,6 +4670,7 @@ def phase_train_resnet_bf16(torch, np, hc, hfa, hfp, peaks, resnet50,
         losses.append(float(loss))
         if i >= warmup:
             times.append(start.elapsed_time(end))
+    wall_s = time.perf_counter() - t_window
     launches = {**conv_counts(hc), **k4_counts(hfa, hfp)}
     n_steps = warmup + timed
     images_per_s = timed * batch / (sum(times) / 1e3)
@@ -4654,6 +4684,7 @@ def phase_train_resnet_bf16(torch, np, hc, hfa, hfp, peaks, resnet50,
            "step_ms": times, "step_p50_ms": percentile(times, 50),
            "step_p99_ms": percentile(times, 99),
            "images_per_s": images_per_s,
+           "images_per_s_wall": timed * batch / wall_s,
            "flops_per_image": flops_per_image,
            "mfu": flops_per_image * images_per_s / peaks["bf16"],
            "peak_sheet": peaks["sheet"],
@@ -4687,7 +4718,7 @@ def phase_train_resnet_bf16(torch, np, hc, hfa, hfp, peaks, resnet50,
             wall_ms = (time.perf_counter() - t0) * 1e3
         emit({"phase": "profile_train_resnet", "steps": 3,
               **device_profile(prof, wall_ms)})
-    return launches
+    return launches, row
 
 
 # -- phases 16 to 18 (ERNIE) -------------------------------------------------
@@ -8744,6 +8775,747 @@ def phase_train_mobilenet_v3_bf16(torch, np, P, hfa, hfp, hc, fmb, peaks,
     return row
 
 
+# -- the rest of vision/, text/ ops, fft, signal and audio (phases
+# -- train_resnet_folder_bf16, vision_ops, audio_text) -----------------------
+
+#: ImageNet's normalisation, as a Paddle classification script sets it
+IMAGENET_MEAN = [0.485, 0.456, 0.406]
+IMAGENET_STD = [0.229, 0.224, 0.225]
+#: the global numpy seed the folder phase's loader draws its shuffle and
+#: its workers' base seed from
+FOLDER_SEED = 23
+#: the tolerance against the CPU path, of the largest value, of what is
+#: sampled bilinearly (the RoI ops and DCNv2, forward and gradients): the
+#: card divides by a bin count as a product with its reciprocal, an ulp
+#: from the CPU's quotient, and at 300 px a float32 coordinate's ulp is
+#: 3e-5 px, which the sample's slope turns into up to 1e-4 of a value
+#: (roi_align came 2.79e-5 off in a first run); a gradient's sums also
+#: run in no fixed order on the card (atomic adds)
+GRAD_TOL = 1e-4
+#: roi_pool's gradient in the 2-norm: a bin whose two largest samples are
+#: within the rounding above gives its gradient to another sample on the
+#: card (in a first run 0.21 of the largest value apart elementwise)
+POOL_GRAD_NORM_TOL = 5e-2
+
+
+class Placed:
+    """Each numpy input copied to a device once: the timed calls read it
+    there, so no host-to-device copy is in their time. ``grad`` gives a
+    fresh leaf on the same storage that requires its gradient."""
+
+    def __init__(self, torch):
+        self.torch, self.cache = torch, {}
+
+    def __call__(self, a, dev, grad=False):
+        key = (id(a), str(dev))
+        if key not in self.cache:   # the array is kept so its id is not reused
+            self.cache[key] = (a, self.torch.as_tensor(a, device=dev))
+        x = self.cache[key][1]
+        return x.detach().requires_grad_(True) if grad else x
+
+
+def write_image_folder(np, root, n, classes, seed=0):
+    """``n`` uint8 HWC images as ``.npy`` files in ``classes`` folders,
+    from ``default_rng(seed)``, shaped as ImageNet's are: the short side
+    256-400, the long side up to 500, either way up. Returns the bytes."""
+    rng = np.random.default_rng(seed)
+    total = 0
+    for c in range(classes):
+        os.makedirs(os.path.join(root, f"c{c:03d}"))
+    for i in range(n):
+        short = int(rng.integers(256, 401))
+        long = int(rng.integers(short, 501))
+        h, w = (short, long) if rng.random() < 0.5 else (long, short)
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        np.save(os.path.join(root, f"c{i % classes:03d}", f"{i:05d}.npy"),
+                img)
+        total += img.nbytes
+    return total
+
+
+def folder_pipeline(T):
+    """The classification script's transforms, HWC (config 2's layout)."""
+    return T.Compose([T.RandomResizedCrop(224), T.RandomHorizontalFlip(),
+                      T.ToTensor(data_format="HWC"),
+                      T.Normalize(mean=IMAGENET_MEAN, std=IMAGENET_STD,
+                                  data_format="HWC")])
+
+
+def worker_rebuild(np, T, ds, indices, seed):
+    """The images ``indices`` of ``ds`` as a worker whose seed is ``seed``
+    makes them, on the host with no workers: the crop draws from
+    ``default_rng([seed, 0])`` and the flips from ``default_rng([seed,
+    1])``, the order the transforms begin drawing in a worker."""
+    pipe = folder_pipeline(T)
+    pipe.transforms[0]._rng = np.random.default_rng([seed, 0])
+    pipe.transforms[1]._rng = np.random.default_rng([seed, 1])
+    return np.stack([pipe(ds.loader(ds.samples[j][0])) for j in indices])
+
+
+def ring_crossing(np, batch, capacity, timeout=30.0):
+    """``batch`` through a shared-memory ring of ``capacity`` bytes as a
+    process worker sends it to the trainer: a forked process puts it (the
+    pickle and the pushes, in pieces past a quarter of the ring, timed in
+    that process) while this one gets it (timed from the first record in
+    the ring: the pops, the gather of the pieces and the unpickle). Each
+    side holds its own GIL, as a worker and the trainer do."""
+    from paddle_tpu_torch.native import ShmQueue
+    q = ShmQueue(capacity=capacity)
+    r, w = os.pipe()
+    pid = os.fork()
+    if pid == 0:               # the producer: numpy and the ring, no CUDA
+        code = 1
+        try:
+            os.close(r)
+            child = ShmQueue(name=q.name, capacity=capacity, owner=False)
+            t0 = time.perf_counter()
+            child.put(batch, timeout)
+            os.write(w, json.dumps(time.perf_counter() - t0).encode())
+            child.close()
+            code = 0
+        finally:
+            os._exit(code)
+    os.close(w)
+    try:
+        deadline = time.perf_counter() + timeout
+        while q.qsize() == 0 and time.perf_counter() < deadline:
+            time.sleep(1e-4)
+        t0 = time.perf_counter()
+        got = q.get(timeout=timeout)
+        get_s = time.perf_counter() - t0
+        with os.fdopen(r, "rb") as f:
+            put_s = json.loads(f.read())
+    finally:
+        _, status = os.waitpid(pid, 0)
+        q.close()
+    check(status == 0, f"the ring's producer exited with {status}")
+    check(all(np.array_equal(a, b) for a, b in zip(got, batch)),
+          "the ring changed a batch")
+    return put_s, get_s
+
+
+def pipeline_breakdown(torch, np, P, ds, dev, batch, capacity, n=32):
+    """Where a batch's host time goes, each stage alone: the transforms of
+    one image (load included, over ``n`` images), the collate of ``batch``
+    of them, that batch's pickle and unpickle in this process, its
+    crossing of the loader's ring of ``capacity`` bytes (``ring_crossing``:
+    the worker's put and the trainer's get, in two processes), and the
+    pinned copy to ``dev`` (to its end)."""
+    t0 = time.perf_counter()
+    items = [ds[j] for j in range(n)]
+    per_image = (time.perf_counter() - t0) / n
+    samples = [items[j % n] for j in range(batch)]
+    t0 = time.perf_counter()
+    x, y = P.io.default_collate_fn(samples)
+    collate = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    raw = pickle.dumps((x, y), protocol=pickle.HIGHEST_PROTOCOL)
+    dumps = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pickle.loads(raw)
+    loads = time.perf_counter() - t0
+    del raw
+    put_s, get_s = ring_crossing(np, (x, y), capacity)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    src = torch.from_numpy(x)
+    if torch.device(dev).type == "cuda":   # as prefetch_to_device copies
+        src = src.pin_memory()
+    src.to(dev, non_blocking=True)
+    torch.cuda.synchronize()
+    h2d = time.perf_counter() - t0
+    return {"transform_per_image": per_image * 1e3,
+            "transforms_per_batch": per_image * batch * 1e3,
+            "collate": collate * 1e3, "pickle": dumps * 1e3,
+            "unpickle": loads * 1e3, "ring_bytes": capacity,
+            "ring_worker_put": put_s * 1e3, "ring_trainer_get": get_s * 1e3,
+            "pin_and_copy": h2d * 1e3, "batch_bytes": int(x.nbytes)}
+
+
+def phase_train_resnet_folder_bf16(torch, np, P, hc, hfa, hfp, fmb, peaks,
+                                   resnet50, Momentum,
+                                   make_sharded_train_step, resnet_row,
+                                   dev="cuda", n_images=1280, classes=100,
+                                   batch=256, epochs=2, warmup=2, timed=8):
+    """The slice's main path: ResNet-50 at BASELINE config 2 fed from image
+    files. 1,280 ``.npy`` images in 100 class folders (``default_rng(0)``,
+    ImageNet's shapes) read by ``vision.datasets.DatasetFolder`` through
+    ``RandomResizedCrop(224)``, ``RandomHorizontalFlip()``,
+    ``ToTensor("HWC")`` and ImageNet's ``Normalize``, loaded by
+    ``io.DataLoader(batch_size=256, shuffle=True, drop_last=True,
+    use_shared_memory=True, num_workers=min(8, cpus - 1),
+    prefetch_to_device=True)``; the model and step as
+    ``train_resnet_bf16``. Two epochs with no profiler (2 warm-up and 8
+    timed steps): step times between CUDA events with no host sync inside
+    the window, images/s over the steps' times and over the window's wall
+    (beside ``train_resnet_bf16``'s, measured the same two ways), each
+    step's wait on the loader, epoch 2's first wait (the workers' fork
+    and first batch) apart from the others, peak memory. Then a third
+    epoch under torch.profiler (CUDA activity only) for the device's busy
+    share of its wall. Checks: K5/K6/K7/K8 72/36/32/16 a step and no other
+    kernel; each batch's first image, and the whole first batch, equal to
+    the host's rebuild from the worker's seeds (so every batch's flips are
+    its worker's own stream), no two batches with one flip pattern; the
+    step-0 loss near ln 1000."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.io.dataloader import ring_capacity
+    T = P.vision.transforms
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        nbytes = write_image_folder(np, root, n_images, classes)
+        write_s = time.perf_counter() - t0
+        ds = P.vision.datasets.DatasetFolder(root,
+                                             transform=folder_pipeline(T))
+        check(len(ds) == n_images and len(ds.classes) == classes,
+              f"DatasetFolder found {len(ds)} files, {len(ds.classes)} "
+              f"classes")
+        workers = min(8, os.cpu_count() - 1)
+        loader = P.io.DataLoader(ds, batch_size=batch, shuffle=True,
+                                 drop_last=True, use_shared_memory=True,
+                                 num_workers=workers, prefetch_to_device=True,
+                                 places=dev)
+        per_epoch = len(loader)
+        n_timed_steps = epochs * per_epoch
+        check(n_timed_steps == warmup + timed,
+              f"{n_timed_steps} steps, expected {warmup + timed}")
+        check(warmup < per_epoch, "epoch 2's first batch is a warm-up step")
+        n_steps = (epochs + 1) * per_epoch     # with the profiled epoch
+        model = resnet50(data_format="NHWC", stem_mode="space_to_depth",
+                         device=dev, seed=0)
+        model.train()
+        model.to(torch.bfloat16)
+        opt = Momentum(learning_rate=0.1, momentum=0.9, multi_precision=True)
+        step = make_sharded_train_step(model, opt, resnet_loss)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        np.random.seed(FOLDER_SEED)
+        # the main path: counts set to 0 just before it and read after
+        zero_all(hfa, hfp, hc, fmb)
+        losses, events, waits, firsts = [], [], [], []
+        prof, t_window, i = None, None, 0
+        for epoch in range(epochs + 1):
+            if epoch == epochs:       # the timed window ends; the profiled
+                torch.cuda.synchronize()     # epoch begins
+                wall_s = time.perf_counter() - t_window
+                peak_gb = torch.cuda.max_memory_allocated() / 1e9
+                prof = profile(activities=[ProfilerActivity.CUDA])
+                prof.__enter__()
+                t_prof = time.perf_counter()
+            it = iter(loader)
+            while True:
+                if i == warmup:
+                    torch.cuda.synchronize()
+                    t_window = time.perf_counter()
+                t0 = time.perf_counter()
+                got = next(it, None)
+                if got is None:
+                    break
+                waits.append(time.perf_counter() - t0)
+                x, y = got
+                if i == 0:
+                    first = x.clone()     # read after the window: no sync
+                firsts.append(x[0].clone())
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                losses.append(step.step((x.to(torch.bfloat16), y)))
+                end.record()
+                events.append((start, end))
+                i += 1
+        torch.cuda.synchronize()
+        prof_wall_s = time.perf_counter() - t_prof
+        prof.__exit__(None, None, None)
+        launches = all_counts(hfa, hfp, hc, fmb)
+        clocks = card_clocks()
+        losses = [float(v) for v in losses]
+        times = [a.elapsed_time(b) for a, b in events]
+        timed_ms = times[warmup:n_timed_steps]
+        first = first.cpu().numpy()
+        firsts = [f.cpu().numpy() for f in firsts]
+        busy = device_profile(prof, prof_wall_s * 1e3)
+        # the host's rebuild: the sampler's orders and the workers' base
+        # seeds as the loader drew them from np.random, then each batch's
+        # first image (its worker's first draws) and the whole first batch
+        np.random.seed(FOLDER_SEED)
+        orders, bases = [], []
+        for _ in range(epochs + 1):
+            orders.append(list(loader.batch_sampler))
+            bases.append(int(np.random.randint(0, 2**31 - 1)))
+        n_workers = min(workers, per_epoch)
+        check(per_epoch <= n_workers, "a worker made two batches an epoch")
+        patterns, first_ok = [], []
+        t0 = time.perf_counter()
+        for e in range(epochs + 1):
+            for b in range(per_epoch):
+                seed = bases[e] + b            # batch b is worker b's first
+                idx = orders[e][b] if (e, b) == (0, 0) else orders[e][b][:1]
+                imgs = worker_rebuild(np, T, ds, idx, seed)
+                patterns.append(tuple(np.random.default_rng([seed, 1]).random(
+                    batch) < 0.5))
+                k = e * per_epoch + b
+                first_ok.append(bool(np.array_equal(imgs[0], firsts[k])))
+                if (e, b) == (0, 0):
+                    batch0_equal = bool(np.array_equal(imgs, first))
+        rebuild_s = time.perf_counter() - t0
+        breakdown = pipeline_breakdown(
+            torch, np, P, ds, dev, batch,
+            ring_capacity(n_workers, loader.prefetch_factor))
+        del model, opt, step, loader
+    timed_waits = waits[warmup:n_timed_steps]
+    edge = per_epoch - warmup              # epoch 2's first, in the window
+    steady_waits = timed_waits[:edge] + timed_waits[edge + 1:]
+    prof_first_wait = waits[n_timed_steps]
+    row = {"phase": "train_resnet_folder_bf16", "clocks": clocks,
+           "model": "resnet50", "images": n_images, "classes": classes,
+           "image_bytes": nbytes, "write_s": write_s,
+           "batch": [batch, 224, 224, 3], "dtype": "bf16 (model.to)",
+           "pipeline": "DatasetFolder(.npy) -> RandomResizedCrop(224), "
+                       "RandomHorizontalFlip(), ToTensor(HWC), "
+                       "Normalize(ImageNet, HWC) -> DataLoader(shuffle, "
+                       "drop_last, use_shared_memory, prefetch_to_device)",
+           "cpu_count": os.cpu_count(), "num_workers": workers,
+           "workers_an_epoch": n_workers, "epochs": epochs,
+           "losses": losses, "warmup_steps": warmup, "timed_steps": timed,
+           "step_ms": times, "step_p50_ms": percentile(timed_ms, 50),
+           "step_p99_ms": percentile(timed_ms, 99),
+           "train_resnet_bf16_step_p50_ms": resnet_row["step_p50_ms"],
+           "loader_wait_ms": [w * 1e3 for w in waits],
+           "timed_loader_wait_ms": sum(timed_waits) * 1e3,
+           "epoch_start_wait_ms": timed_waits[edge] * 1e3,
+           "steady_wait_p50_ms": percentile(steady_waits, 50) * 1e3,
+           "steady_wait_max_ms": max(steady_waits) * 1e3,
+           "window_wall_ms": wall_s * 1e3,
+           "images_per_s_steps": timed * batch / (sum(timed_ms) / 1e3),
+           "images_per_s_wall": timed * batch / wall_s,
+           "images_per_s_wall_past_epoch_start":
+               timed * batch / (wall_s - timed_waits[edge]),
+           "train_resnet_bf16_images_per_s": resnet_row["images_per_s"],
+           "train_resnet_bf16_images_per_s_wall":
+               resnet_row["images_per_s_wall"],
+           "profiled_epoch_wall_ms": prof_wall_s * 1e3,
+           "profiled_epoch_first_wait_ms": prof_first_wait * 1e3,
+           "device_busy_share": busy["device_busy_share"],
+           "device_busy_share_past_epoch_start":
+               busy["device_busy_ms"] / ((prof_wall_s - prof_first_wait)
+                                         * 1e3),
+           "device_busy_ms": busy["device_busy_ms"],
+           "top_device_ms": busy["top_device_ms"][:6],
+           "max_memory_allocated_gb": peak_gb,
+           "host_ms": breakdown,
+           "rebuild_s": rebuild_s, "first_batch_equal": batch0_equal,
+           "first_images_equal": first_ok,
+           "distinct_flip_patterns": len(set(patterns)),
+           "launches": launches,
+           "launches_per_step": {k: launches[k] / n_steps
+                                 for k in CONV_KERNELS}}
+    emit(row)
+    check(all(math.isfinite(v) for v in losses), f"non-finite loss: {row}")
+    check(math.log(1000) - 0.5 <= losses[0] <= math.log(1000) + 1.5,
+          f"step-0 loss {losses[0]}")
+    for kname, per_step in RESNET_LAUNCHES.items():
+        check(launches[kname] == per_step * n_steps,
+              f"train_resnet_folder_bf16 {kname}: {launches[kname]} "
+              f"launches in {n_steps} steps, expected {per_step} a step")
+    for kname in (*ATTENTION_KERNELS, "fused_matmul_bn_fwd"):
+        check(launches[kname] == 0, f"folder training launched {kname}")
+    check(batch0_equal, "the first batch differs from its host rebuild")
+    check(all(first_ok), f"a batch's first image differs from its "
+                         f"worker's rebuild: {first_ok}")
+    check(len(set(patterns)) == len(patterns),
+          "two batches drew one flip pattern")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def held(torch, name, got, ref, tol, exact=False):
+    """The largest error of ``got`` (the card's outputs) against ``ref``
+    (the CPU path's) over the largest |ref| (at least 1); bit-equal where
+    ``exact``. Fails past ``tol`` (a number, or one an output)."""
+    worst = 0.0
+    tols = tol if isinstance(tol, (list, tuple)) else [tol] * len(ref)
+    for g, r, tl in zip(got, ref, tols):
+        g = g.detach().cpu()
+        r = r.detach().cpu()
+        check(tuple(g.shape) == tuple(r.shape) and g.dtype == r.dtype,
+              f"{name}: {tuple(g.shape)} {g.dtype} against "
+              f"{tuple(r.shape)} {r.dtype}")
+        if exact:
+            check(torch.equal(g, r), f"{name}: differs from the CPU path")
+            continue
+        if g.numel():
+            wide = torch.complex128 if g.is_complex() else torch.float64
+            g, r = g.to(wide), r.to(wide)
+            if isinstance(tl, dict):     # in the 2-norm
+                err = float((g - r).norm() / r.norm().clamp_min(1e-30))
+                tl = tl["norm"]
+            else:
+                err = float((g - r).abs().max()
+                            / r.abs().max().clamp_min(1.0))
+            check(err <= tl, f"{name}: {err} from the CPU path (tol {tl})")
+            worst = max(worst, err)
+    return worst
+
+
+def card_and_cpu(torch, name, fn, tol, rows, dev, exact=False, iters=5,
+                 cpu_fn=None, cpu_ref=None):
+    """``fn(dev)`` (its outputs, a list of tensors) on the card, timed
+    (the median of ``iters`` calls between CUDA events), and on the CPU
+    path (``cpu_fn``, by default ``fn``; ``cpu_ref`` picks the card's
+    outputs it covers); held within ``tol``."""
+    got = fn(dev)
+    ms = median_ms(lambda: fn(dev), iters=iters, warmup=1)
+    t0 = time.perf_counter()
+    ref = (cpu_fn or fn)("cpu")
+    cpu_s = time.perf_counter() - t0
+    if cpu_ref is not None:
+        got = cpu_ref(got)
+    err = held(torch, name, got, ref, tol, exact)
+    rows[name] = {"ms": ms, "cpu_s": cpu_s, "max_rel_err": err,
+                  "tol": tol, "exact": exact}
+
+
+def with_grads(torch, out, leaves, seed, proj):
+    """``out`` and the gradients of a fixed random projection of it with
+    respect to ``leaves``. The projection is drawn on the host from
+    ``seed`` once a shape and kept on each device in ``proj`` (the card
+    and the CPU path take the same one; no timed call draws it)."""
+    key = (seed, tuple(out.shape), str(out.device))
+    if key not in proj:
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        proj[key] = torch.randn(out.shape, generator=g).to(out.device)
+    grads = torch.autograd.grad((out * proj[key]).sum(), leaves)
+    return [out.detach(), *grads]
+
+
+def yolo_heads(np, rng, batch, classes, img=608):
+    """YOLOv3's three heads at ``img``²: ``[batch, 3·(5+classes), s, s]``
+    at strides 32, 16 and 8 with their anchor masks."""
+    return [((0.5 * rng.standard_normal(
+        (batch, 3 * (5 + classes), img // ds, img // ds))).astype(np.float32),
+        mask, ds) for ds, mask in ((32, [6, 7, 8]), (16, [3, 4, 5]),
+                                   (8, [0, 1, 2]))]
+
+
+YOLO_ANCHORS = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+                156, 198, 373, 326]
+
+
+def phase_vision_ops(torch, np, P, hfa, hfp, hc, fmb, dev="cuda", scale=1):
+    """Each function of ``vision/ops.py`` on the card against the CPU path
+    at the sizes detectors run (``scale`` > 1 divides them, for a dry run
+    on the CPU): ``nms`` on 6,000 RPN boxes at IoU 0.7 and category-wise
+    on 80 x 100 boxes at 0.5 (indices bit-equal); ``roi_align`` and
+    ``roi_pool`` forward and backward on 2 x 256 x 200 x 336 features,
+    1,000 rois an image, 7 x 7, scale 1/4, S = 2; ``psroi_pool`` (21
+    classes x 7 x 7, 300 rois); ``deform_conv2d`` with a mask forward and
+    backward (x 2 x 512 x 25 x 42, weight 512 x 512 x 3 x 3); ``yolo_box``
+    and ``yolo_loss`` (forward and backward) on YOLOv3's three heads at
+    608², 80 classes, batch 8, 50 boxes an image; ``matrix_nms`` at
+    PP-YOLO's settings (22,743 boxes, 80 classes, nms_top_k 1000,
+    keep_top_k 100, batch 8; the CPU path on the first 2 images);
+    ``generate_proposals`` (pre 6,000, post 1,000, 15 anchors on 50 x 84,
+    2 images), ``distribute_fpn_proposals`` (levels 2-5), ``box_coder``
+    and ``prior_box`` on SSD300's 19 x 19 map. Outputs within 1e-5 of
+    their largest value (the sampled ones and gradients ``GRAD_TOL``),
+    indices bit-equal. Each
+    function's card time (median of 5 calls, the inputs already on the
+    card); no hand-written kernel launches."""
+    O = P.vision.ops
+    rng = np.random.default_rng(0)
+    rows = {}
+    zero_all(hfa, hfp, hc, fmb)
+
+    t = Placed(torch)
+    proj = {}     # with_grads' projections
+
+    # nms: RPN proposals clustered round 300 objects of an 800 x 1344 image
+    n = 6000 // scale
+    centers = rng.uniform((0, 0), (1344, 800), (300, 2))[
+        rng.integers(0, 300, n)] + rng.normal(0, 12, (n, 2))
+    wh = np.exp(rng.uniform(np.log(16), np.log(400), (n, 2)))
+    rpn = np.concatenate([centers - wh / 2, centers + wh / 2], 1) \
+        .astype(np.float32)
+    rpn_scores = rng.random(n).astype(np.float32)
+    card_and_cpu(torch, "nms", lambda d: [O.nms(
+        t(rpn, d), 0.7, t(rpn_scores, d))], 0, rows, dev, exact=True)
+    nc, per = 80, 100 // scale
+    det = rpn[rng.integers(0, n, nc * per)]
+    cats = np.repeat(np.arange(nc), per)
+    det_scores = rng.random(nc * per).astype(np.float32)
+    card_and_cpu(torch, "nms_categories", lambda d: [O.nms(
+        t(det, d), 0.5, t(det_scores, d), t(cats, d), list(range(nc)))], 0,
+        rows, dev, exact=True)
+
+    # roi_align / roi_pool on an FPN level-2 map (stride 4)
+    c, h, w = 256 // scale, 200, 336
+    feat = rng.standard_normal((2, c, h, w)).astype(np.float32)
+    r = 1000 // scale
+    cxy = rng.uniform((0, 0), (1344, 800), (2 * r, 2))
+    rwh = np.exp(rng.uniform(np.log(8), np.log(600), (2 * r, 2)))
+    rois = np.concatenate([cxy - rwh / 2, cxy + rwh / 2], 1) \
+        .astype(np.float32)
+    num = np.array([r, r])
+    # roi_pool's gradient goes to each bin's largest sample: where two
+    # samples are within the card's rounding of each other, the card and
+    # the CPU pick apart, so its gradient is held in the 2-norm
+    for name, fn, tol in (
+            ("roi_align", lambda x, b, k: O.roi_align(x, b, k, 7, 0.25, 2),
+             GRAD_TOL),
+            ("roi_pool", lambda x, b, k: O.roi_pool(x, b, k, 7, 0.25),
+             [GRAD_TOL, {"norm": POOL_GRAD_NORM_TOL}])):
+        def run(d, fn=fn):
+            x = t(feat, d, grad=True)
+            return with_grads(torch, fn(x, t(rois, d), t(num, d)), [x], 1,
+                              proj)
+        card_and_cpu(torch, name, run, tol, rows, dev)
+    ps = rng.standard_normal((1, 21 * 49, 50, 84)).astype(np.float32)
+    card_and_cpu(torch, "psroi_pool", lambda d: [O.psroi_pool(
+        t(ps, d), t(rois[:300 // scale], d), None, 7, 1 / 16)], GRAD_TOL,
+        rows, dev)
+
+    # DCNv2 at a ResNet stage-5 width
+    ci = 512 // scale
+    dx = rng.standard_normal((2, ci, 25, 42)).astype(np.float32)
+    dw = (rng.standard_normal((ci, ci, 3, 3)) / np.sqrt(9 * ci)) \
+        .astype(np.float32)
+    doff = (2 * rng.standard_normal((2, 18, 25, 42))).astype(np.float32)
+    dmask = rng.random((2, 9, 25, 42)).astype(np.float32)
+
+    def deform(d):
+        x, off, m, wt = (t(a, d, grad=True) for a in (dx, doff, dmask, dw))
+        out = O.deform_conv2d(x, off, wt, None, padding=1, mask=m)
+        return with_grads(torch, out, [x, off, m, wt], 2, proj)
+    card_and_cpu(torch, "deform_conv2d", deform, GRAD_TOL, rows, dev)
+
+    # YOLOv3's three heads at 608², 80 classes, batch 8, 50 boxes an image
+    b = 8 // scale if scale > 1 else 8
+    heads = yolo_heads(np, rng, b, 80)
+    size = np.full((b, 2), 608)
+    gt = np.concatenate([rng.uniform(0.05, 0.95, (b, 50, 2)),
+                         rng.uniform(0.02, 0.5, (b, 50, 2))], -1) \
+        .astype(np.float32)
+    label = rng.integers(0, 80, (b, 50))
+
+    def yolo_box(d):
+        out = []
+        for x, mask, ds in heads:
+            anchors = [v for i in mask for v in YOLO_ANCHORS[2 * i:2 * i + 2]]
+            out += list(O.yolo_box(t(x, d), t(size, d), anchors, 80, 0.01,
+                                   ds))
+        return out
+    card_and_cpu(torch, "yolo_box", yolo_box, 1e-5, rows, dev)
+
+    def yolo_loss(d):
+        xs = [t(x, d, grad=True) for x, _, _ in heads]
+        loss = sum(O.yolo_loss(x, t(gt, d), t(label, d), YOLO_ANCHORS, mask,
+                               80, 0.7, ds).sum()
+                   for x, (_, mask, ds) in zip(xs, heads))
+        return [loss.detach(), *torch.autograd.grad(loss, xs)]
+    card_and_cpu(torch, "yolo_loss", yolo_loss, [1e-5] + [GRAD_TOL] * 3,
+                 rows, dev)
+
+    # PP-YOLO's matrix NMS: 22,743 boxes (608²'s three heads x 3 anchors)
+    m = 22743 // scale
+    mb = np.concatenate([rng.uniform(0, 560, (b, m, 2)),
+                         np.zeros((b, m, 2))], -1)
+    mb[..., 2:] = mb[..., :2] + rng.uniform(8, 300, (b, m, 2))
+    mb = mb.astype(np.float32)
+    msc = rng.random((b, 80, m)).astype(np.float32)
+    sub = min(2, b)
+
+    def matrix_nms(d, n_img=b):
+        return list(O.matrix_nms(
+            t(mb[:n_img], d), t(msc[:n_img], d), 0.01, 0.01, 1000, 100,
+            background_label=-1, normalized=False, return_index=True))
+    # the first `sub` images' rows, indices and counts
+    card_and_cpu(torch, "matrix_nms", matrix_nms, 1e-6, rows, dev,
+                 cpu_fn=lambda d: matrix_nms(d, sub),
+                 cpu_ref=lambda o: [o[0][:int(o[2][:sub].sum())],
+                                    o[1][:int(o[2][:sub].sum())],
+                                    o[2][:sub]])
+    got = matrix_nms(dev)
+    check(int(got[2].sum()) == got[0].shape[0] and
+          int(got[2].max()) <= 100, f"matrix_nms counts {got[2].tolist()}")
+
+    # RPN proposals: 15 anchors (5 sizes x 3 ratios) at stride 16 on 50 x 84
+    gh, gw = 50, 84
+    sizes = np.array([32, 64, 128, 256, 512], np.float32)
+    ratios = np.array([0.5, 1.0, 2.0], np.float32)
+    aw = (sizes[:, None] / np.sqrt(ratios)).reshape(-1)
+    ah = (sizes[:, None] * np.sqrt(ratios)).reshape(-1)
+    gy, gx = np.meshgrid((np.arange(gh) + 0.5) * 16, (np.arange(gw) + 0.5)
+                         * 16, indexing="ij")
+    anchors = np.stack([gx[..., None] - aw / 2, gy[..., None] - ah / 2,
+                        gx[..., None] + aw / 2, gy[..., None] + ah / 2],
+                       -1).reshape(-1, 4).astype(np.float32)
+    sc = rng.random((2, 15, gh, gw)).astype(np.float32)
+    dl = (0.2 * rng.standard_normal((2, 60, gh, gw))).astype(np.float32)
+    var = np.ones_like(anchors)
+    im = np.array([[800, 1344], [800, 1344]])
+
+    def proposals(d):
+        return list(O.generate_proposals(
+            t(sc, d), t(dl, d), im, t(anchors, d), t(var, d),
+            pre_nms_top_n=6000 // scale, post_nms_top_n=1000 // scale,
+            nms_thresh=0.7, min_size=0.1, return_rois_num=True))
+    card_and_cpu(torch, "generate_proposals", proposals, 1e-5, rows, dev)
+    props = proposals(dev)[0]
+    card_and_cpu(torch, "distribute_fpn_proposals", lambda d: [
+        *O.distribute_fpn_proposals(props.to(d), 2, 5, 4, 224)[0],
+        O.distribute_fpn_proposals(props.to(d), 2, 5, 4, 224)[1]], 0, rows,
+        dev, exact=True)
+
+    # SSD300's 19 x 19 map (min 60, max 111, ratios 2 and 3, step 16)
+    def priors(d):
+        return list(O.prior_box(
+            torch.zeros((1, 1024, 19, 19), device=d),
+            torch.zeros((1, 3, 300, 300), device=d), [60.0], [111.0],
+            [2.0, 3.0], flip=True, clip=True, steps=(16, 16)))
+    card_and_cpu(torch, "prior_box", priors, 1e-6, rows, dev)
+    pri = priors("cpu")[0].reshape(-1, 4).numpy()
+    tgt = (pri + 0.02 * rng.standard_normal(pri.shape)).astype(np.float32)
+    deltas = (0.5 * rng.standard_normal(pri.shape)).astype(np.float32)
+    pvar = np.array([0.1, 0.1, 0.2, 0.2], np.float32)
+    card_and_cpu(torch, "box_coder", lambda d: [
+        O.box_coder(t(pri, d), t(pvar, d), t(tgt, d)),
+        O.box_coder(t(pri, d), t(pvar, d), t(deltas, d),
+                    "decode_center_size")], 1e-5, rows, dev)
+    launches = all_counts(hfa, hfp, hc, fmb)
+    emit({"phase": "vision_ops", "functions": rows,
+          "launches": {k: v for k, v in launches.items() if v}})
+    check(not any(launches.values()),
+          f"vision ops launched hand-written kernels: {launches}")
+    return rows
+
+
+def plain_levenshtein(a, b):
+    """The edit distance cell by cell, the plain DP edit_distance's row
+    form is held to."""
+    prev = list(range(len(b) + 1))
+    for i, x in enumerate(a, 1):
+        cur = [i]
+        for j, y in enumerate(b, 1):
+            cur.append(min(prev[j] + 1, cur[j - 1] + 1,
+                           prev[j - 1] + (x != y)))
+        prev = cur
+    return prev[-1]
+
+
+FFT_1D = ("fft", "ifft", "rfft", "irfft", "hfft", "ihfft")
+FFT_ND = ("fft2", "ifft2", "rfft2", "irfft2", "fftn", "ifftn", "rfftn",
+          "irfftn", "hfft2", "ihfft2", "hfftn", "ihfftn")
+
+
+def phase_audio_text(torch, np, P, hfa, hfp, hc, fmb, dev="cuda", scale=1):
+    """The 22 ``fft`` names on the card against the CPU path (1-D at 2^20
+    points, 2-D at 1024², real input where the function is real-to-
+    complex, complex otherwise; within 1e-5 of the largest magnitude);
+    ``stft`` then ``istft`` on 32 clips of 10 s at 16 kHz (n_fft 512, hop
+    160, Hann), the round trip's error; ``LogMelSpectrogram`` and ``MFCC``
+    (64 mels, 40 coefficients) on those clips against the CPU path;
+    ``viterbi_decode`` at B = 64 x T = 256 x 50 tags (paths bit-equal to
+    the CPU's); ``edit_distance`` on 256 pairs of 50-200 tokens (16 held
+    to the plain cell-by-cell DP); ``shard_index``. ``scale`` > 1 divides
+    the sizes for a dry run on the CPU. No hand-written kernel
+    launches."""
+    from paddle_tpu_torch.core.device import device_guard
+    F = P.fft
+    rng = np.random.default_rng(0)
+    rows = {}
+    t = Placed(torch)
+    zero_all(hfa, hfp, hc, fmb)
+    n1 = 2 ** 20 // scale
+    side = 1024 // scale
+    real1 = rng.standard_normal(n1).astype(np.float32)
+    cplx1 = (rng.standard_normal(n1)
+             + 1j * rng.standard_normal(n1)).astype(np.complex64)
+    real2 = rng.standard_normal((side, side)).astype(np.float32)
+    cplx2 = (rng.standard_normal((side, side))
+             + 1j * rng.standard_normal((side, side))).astype(np.complex64)
+    for name in FFT_1D + FFT_ND:
+        fn = getattr(F, name)
+        # real-to-complex transforms take a real signal, the others complex
+        real = name in ("rfft", "ihfft", "rfft2", "ihfft2", "rfftn",
+                        "ihfftn")
+        x = (real1 if real else cplx1) if name in FFT_1D else \
+            (real2 if real else cplx2)
+        card_and_cpu(torch, name, lambda d, fn=fn, x=x: [
+            fn(t(x, d))], 1e-5, rows, dev)
+    with device_guard(dev):
+        card_freq = [F.fftfreq(n1, 0.5), F.rfftfreq(n1, 0.5)]
+    with device_guard("cpu"):
+        cpu_freq = [F.fftfreq(n1, 0.5), F.rfftfreq(n1, 0.5)]
+    rows["fftfreq"] = {"max_rel_err": held(torch, "fftfreq", card_freq,
+                                           cpu_freq, 0, exact=True)}
+    for name in ("fftshift", "ifftshift"):
+        card_and_cpu(torch, name, lambda d, name=name: [getattr(F, name)(
+            t(real2, d))], 0, rows, dev, exact=True)
+
+    # 32 clips of 10 s at 16 kHz
+    clips, sr = 32 // scale, 16000
+    wav = (0.1 * rng.standard_normal((clips, 10 * sr))).astype(np.float32)
+    hann = np.hanning(513)[:-1].astype(np.float32)   # periodic
+
+    def stft(d):
+        return [P.signal.stft(t(wav, d), 512, 160, window=t(hann, d))]
+    card_and_cpu(torch, "stft", stft, 1e-5, rows, dev)
+    spec = stft(dev)[0]
+    back = P.signal.istft(spec, 512, 160, window=t(hann, dev),
+                          length=wav.shape[1])
+    ms = median_ms(lambda: P.signal.istft(spec, 512, 160, window=t(
+        hann, dev), length=wav.shape[1]), iters=5, warmup=1)
+    trip = float((back.cpu() - torch.from_numpy(wav)).abs().max())
+    rows["istft"] = {"ms": ms, "round_trip_max_abs_err": trip}
+    check(trip <= 1e-5, f"stft -> istft round trip off by {trip}")
+    for name, cls, kw in (
+            ("log_mel_spectrogram", "LogMelSpectrogram", {}),
+            ("mfcc", "MFCC", {"n_mfcc": 40})):
+        layers = {}
+        for d in (dev, "cpu"):
+            layers[d] = getattr(P.audio.features, cls)(
+                sr=sr, n_fft=512, hop_length=160, n_mels=64, f_min=50.0,
+                device=d, **kw)
+        # decibels: 4.3 dB a unit of a band's relative error, and cuFFT and
+        # the CPU's FFT round a band's small bins apart (8.5e-6 of the
+        # largest in a first run)
+        card_and_cpu(torch, name, lambda d, layers=layers: [
+            layers[d](t(wav, d))], 1e-4, rows, dev)
+
+    # a CRF's Viterbi decode: B = 64, T = 256, 50 tags
+    pot = rng.standard_normal((64 // scale, 256, 50)).astype(np.float32)
+    trans = rng.standard_normal((50, 50)).astype(np.float32)
+    lengths = rng.integers(1, 257, 64 // scale)
+    card_and_cpu(torch, "viterbi_decode", lambda d: [
+        P.text.viterbi_decode(t(pot, d), t(trans, d), t(lengths, d))[1]],
+        0, rows, dev, exact=True)
+    card_and_cpu(torch, "viterbi_scores", lambda d: [
+        P.text.viterbi_decode(t(pot, d), t(trans, d), t(lengths, d))[0]],
+        1e-6, rows, dev)
+
+    # edit distance, a host DP: 256 pairs of 50-200 tokens
+    hyps = [rng.integers(0, 40, rng.integers(50, 201)) for _ in range(256)]
+    refs = [rng.integers(0, 40, rng.integers(50, 201)) for _ in range(256)]
+    t0 = time.perf_counter()
+    dist, count = P.text.edit_distance(hyps, refs, normalized=False)
+    ed_s = time.perf_counter() - t0
+    plain = [plain_levenshtein(list(h), list(r))
+             for h, r in zip(hyps[:16], refs[:16])]
+    check(dist[:16, 0].tolist() == plain and int(count) == 256,
+          "edit_distance differs from the plain DP")
+    rows["edit_distance"] = {"host_s": ed_s, "pairs": 256,
+                             "held_to_plain": 16}
+    ids = rng.integers(0, 1000, (4096, 128))
+    card_and_cpu(torch, "shard_index", lambda d: [P.text.shard_index(
+        t(ids, d), 1000, 8, 3)], 0, rows, dev, exact=True)
+    launches = all_counts(hfa, hfp, hc, fmb)
+    emit({"phase": "audio_text", "functions": rows,
+          "launches": {k: v for k, v in launches.items() if v}})
+    check(not any(launches.values()),
+          f"fft, signal, audio or text launched hand-written kernels: "
+          f"{launches}")
+    return rows
+
 
 def main() -> int:
     import torch
@@ -8949,9 +9721,15 @@ def main() -> int:
     flags.set_flags({"fused_conv_bn": 1, "pallas_conv": 1})
     phase_train_grad_f32_resnet(torch, np, hc, resnet50, cross_entropy)
     torch.cuda.empty_cache()
-    resnet_launches = phase_train_resnet_bf16(
+    resnet_launches, resnet_row = phase_train_resnet_bf16(
         torch, np, hc, hfa, hfp, peaks, resnet50, Momentum,
         make_sharded_train_step, profile=profile)
+    torch.cuda.empty_cache()
+    # the slice's main path: ResNet-50 at config 2 fed from image files
+    # through the transforms, DatasetFolder and process workers
+    folder_launches = phase_train_resnet_folder_bf16(
+        torch, np, P, hc, hfa, hfp, fmb, peaks, resnet50, Momentum,
+        make_sharded_train_step, resnet_row)
     torch.cuda.empty_cache()
     # K5's tiles and K7's bands swept into a temporary autotune cache, every
     # candidate held to the plain version, then ResNet-50 with and without
@@ -8969,7 +9747,7 @@ def main() -> int:
                                     model_name=fname,
                                     phase="train_grad_f32_resnext")
         torch.cuda.empty_cache()
-        family[fname] = phase_train_resnet_bf16(
+        family[fname], _ = phase_train_resnet_bf16(
             torch, np, hc, hfa, hfp, peaks, factory, Momentum,
             make_sharded_train_step, name=fname, phase=phase, warmup=2,
             timed=3)
@@ -9061,6 +9839,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_mobilenet_v3_bf16(torch, np, P, hfa, hfp, hc, fmb, peaks,
                                   Momentum, make_sharded_train_step)
+    torch.cuda.empty_cache()
+
+    # the detection ops, then fft, signal, audio features and text ops, on
+    # the card against the CPU path
+    phase_vision_ops(torch, np, P, hfa, hfp, hc, fmb)
+    torch.cuda.empty_cache()
+    phase_audio_text(torch, np, P, hfa, hfp, hc, fmb)
 
     # `launches` is the count on each kernel's first main path: serving
     # for K1's bf16 tensor-core body (as the line has counted K1 from the
@@ -9201,6 +9986,7 @@ def main() -> int:
             "train_launches": train_launches[name],
             "bert_launches": bert_launches[name],
             "resnet_launches": resnet_launches[name],
+            "folder_launches": folder_launches[name],
             "ernie_launches": ernie_launches[name],
             "cross_launches": cross_launches[name],
             "f32_bert_launches": f32_bert_launches.get(name, 0),
@@ -9320,6 +10106,7 @@ def main() -> int:
         "wide_launches": family["wide_resnet50_2"].get(
             "fused_matmul_bn_fwd", 0),
         "resilience_launches": 0,
+        "folder_launches": folder_launches["fused_matmul_bn_fwd"],
         "layer_api_launches": layer_api_launches["fused_matmul_bn_fwd"],
         "telemetry_launches": {
             m: telemetry_launches[m].get("fused_matmul_bn_fwd", 0)

@@ -51,8 +51,11 @@ root's ``core``, device, flag and dtype names (every flag of the JAX
 package; ``use_pallas_kernels`` routes attention), ``tensor`` (302 names
 over torch tensors) and ``autograd`` (``grad``, ``no_grad``, ``PyLayer``,
 ...), and ``ops._hopper.conv.tune_conv_shapes``, whose winners K5's and
-K7's plans read. Layers build on ``cuda:0`` unless given ``device="cpu"``
-(or ``set_device("cpu")``), as the models do.
+K7's plans read; the ``Layer`` API, all of ``nn/`` and the vision zoo;
+the input pipeline of ``vision`` (``transforms``, ``datasets``, the image
+backend) and its detection ``ops``, ``text``'s sequence ops and datasets,
+``fft``, ``signal`` and ``audio``. Layers build on ``cuda:0`` unless given
+``device="cpu"`` (or ``set_device("cpu")``), as the models do.
 """
 
 from . import core  # noqa: F401
@@ -68,6 +71,8 @@ from .tensor.logic import is_tensor  # noqa: F401
 
 from . import amp, autograd, io, metric, nn, optimizer, regularizer  # noqa: F401
 from . import vision  # noqa: F401
+from . import audio, fft, signal, text  # noqa: F401
+from .text.ops import shard_index  # noqa: F401
 from .autograd import (no_grad, grad, enable_grad,  # noqa: F401
                        set_grad_enabled, is_grad_enabled)
 from .framework.io import load, save  # noqa: F401

@@ -18,11 +18,13 @@ import contextlib
 import threading
 from typing import List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 __all__ = ["set_device", "get_device", "get_all_devices", "device_count",
            "is_compiled_with_tpu", "get_default_device", "synchronize",
-           "resolve_device", "device_guard"]
+           "resolve_device", "device_guard", "as_device_tensor",
+           "as_host_array"]
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -136,6 +138,25 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def as_device_tensor(x, dtype=None, like: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """``x`` as an op's input: a tensor stays where it is (cast to
+    ``dtype`` if given); an array, list or number goes to ``like``'s
+    device, else to :func:`resolve_device`'s for None."""
+    if isinstance(x, torch.Tensor):
+        return x if dtype is None else x.to(dtype)
+    dev = like.device if like is not None else resolve_device(None)
+    return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+
+def as_host_array(x) -> np.ndarray:
+    """``x`` as a host numpy array: a tensor is copied off its device, an
+    array, list or number goes through ``np.asarray``."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def same_device(a: torch.device, b: Optional[torch.device]) -> bool:

@@ -8,7 +8,10 @@
   (``paddle_tpu_torch/native/shm_queue.cpp``), for datasets whose
   per-sample work holds the GIL (decode, tokenize). The start method comes
   from ``PADDLE_TPU_WORKER_START_METHOD`` (default ``fork``). Workers never
-  touch CUDA, so forking after the trainer initialised it is safe.
+  touch CUDA, so forking after the trainer initialised it is safe. A batch
+  larger than a quarter of the ring crosses it in pieces (JAX's worker
+  fails on a batch larger than its ring, 64 MB or 8 MB a batch in flight:
+  256 float32 images of 224², 154 MB, do not pass there).
 - Batches are numpy, as in the JAX package, except under
   ``prefetch_to_device``, which overlaps the host-to-device copy with the
   current step: each array of the next batch is copied into pinned host
@@ -63,6 +66,13 @@ def default_collate_fn(batch: List[Any]):
     if hasattr(sample, "shape"):  # array-like
         return np.stack([np.asarray(s) for s in batch])
     return batch
+
+
+def ring_capacity(n_workers: int, prefetch_factor: int) -> int:
+    """The bytes of the shared-memory ring that ``n_workers`` process
+    workers ship their batches through: 8 MiB a batch in flight, at least
+    64 MiB."""
+    return max(64 << 20, n_workers * prefetch_factor * (8 << 20))
 
 
 def _make_queue(capacity: int):
@@ -214,8 +224,7 @@ class DataLoader:
         if n_batches == 0:
             return
         n_workers = min(self.num_workers, n_batches)
-        q = ShmQueue(capacity=max(64 << 20,
-                                  n_workers * self.prefetch_factor * (8 << 20)))
+        q = ShmQueue(capacity=ring_capacity(n_workers, self.prefetch_factor))
         base_seed = int(np.random.randint(0, 2**31 - 1))
         method = os.environ.get(
             "PADDLE_TPU_WORKER_START_METHOD",
@@ -229,7 +238,8 @@ class DataLoader:
             ctx.Process(
                 target=worker_loop,
                 args=(self.dataset, self.collate_fn, batches, wid, n_workers,
-                      q.name, base_seed, self.worker_init_fn, window),
+                      q.name, base_seed, self.worker_init_fn, window,
+                      q.capacity),
                 daemon=True)
             for wid in range(n_workers)
         ]

@@ -55,7 +55,8 @@ def get_worker_info() -> WorkerInfo | None:
 
 def worker_loop(dataset, collate_fn, batches, worker_id: int,
                 num_workers: int, queue_name: str, base_seed: int,
-                worker_init_fn=None, prefetch_window: int = 0) -> None:
+                worker_init_fn=None, prefetch_window: int = 0,
+                capacity: int = 64 << 20) -> None:
     """Entry point run in each spawned worker process.
 
     Blocking on a full ring or on the pacing window is normal flow control
@@ -77,7 +78,7 @@ def worker_loop(dataset, collate_fn, batches, worker_id: int,
         worker_init_fn(worker_id)
 
     _STALL = 3600.0  # generous: covers long trainer pauses, not a hang
-    q = ShmQueue(name=queue_name, owner=False)
+    q = ShmQueue(name=queue_name, capacity=capacity, owner=False)
     exit_code = 0
 
     def ship_error(i, exc):
